@@ -14,12 +14,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
    f64 on the same inputs, each output entry within its own tolerance
    (see ``held``); at the main path's shapes a deliberately wrong output
    must fail the same check. Kernel, plain, library-call and bound times.
-3. end to end: PCA(k=16), KMeans(k=1024, maxIter=10) and binomial
-   LogisticRegression(maxIter=20) fit then transform through ``DataFrame``
-   on N x 256 f32 rows made from ``--seed``; launch counters are zeroed
-   before and read after, and every kernel must have run. Sanity checks,
-   then a 100k-row subset fitted on the card and on the CPU (plain path)
-   and compared.
+   K4 (kNN distance + top-k) at 131,072 queries x 1M items x 256, k = 16,
+   on a 4,096-row sample, at the UMAP graph (k = 16) and transform (k =
+   15) shapes of 65,536 x 65,536 x 256 on a 4,096-row sample, and in full
+   at ragged shapes; K10 (one UMAP SGD epoch) on the rows of the 65,536 x
+   256 UMAP graph and at the transform's shape (65,536 rows, K = 15).
+3. end to end, each path with the launch counters zeroed just before it
+   and read just after (every kernel of the path must have run): PCA(k=16),
+   KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
+   fit then transform through ``DataFrame`` on N x 256 f32 rows made from
+   ``--seed``, with a 100k-row subset fitted on the card and on the CPU
+   (plain path) and compared; NearestNeighbors(k=16).kneighbors of the
+   first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
+   n_neighbors=15, random_state=42) fit, transform and save/load at
+   65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
+   sample, and a 20,000-row UMAP fitted on the card and on the CPU.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -43,6 +52,17 @@ PEAK_BYTES_PER_S = 3.35e12
 
 E2E_D = 256
 E2E_CENTRES = 1024
+# the kNN and UMAP shapes of bench.py (KNN_QUERIES x KNN_ITEMS, UMAP_ROWS)
+KNN_QUERIES = 131_072
+KNN_ITEMS = 1_000_000
+KNN_K = 16
+UMAP_ROWS = 65_536
+UMAP_NEIGHBORS = 15
+# trustworthiness threshold of tests/test_umap.py, on a sample of this many rows
+TRUST_MIN = 0.85
+TRUST_ROWS = 4096
+# rows of the UMAP fitted on the card and on the CPU
+UMAP_SUBSET = 20_000
 
 
 def emit(obj) -> None:
@@ -384,6 +404,171 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
     return out
 
 
+def knn_reference(torch, kn, Xq, Xi, csq, ids, k):
+    """K4's plain version in f64 at k + 1: (d2 (nq, k+1) in (distance, id)
+    order, ids, tau). tau bounds the f32 error of each entry's distance:
+    TAU_UNITS·u·√d·(‖xq‖² + 2 Σ|xq·xi| + ‖xi‖²), the K2 band with the
+    entry's own terms."""
+    f64 = torch.float64
+    Xq64 = Xq.to(f64)
+    state = (torch.full((Xq.shape[0], k + 1), float("inf"), dtype=f64, device=Xq.device),
+             torch.full((Xq.shape[0], k + 1), -1, dtype=torch.int32, device=Xq.device))
+    csq64 = (Xi.to(f64) ** 2).sum(dim=1).masked_fill(~torch.isfinite(csq), float("inf"))
+    s, i = kn.knn_topk_pass_plain(Xq64, Xi.to(f64), csq64, ids, *state)
+    xsq = (Xq64 * Xq64).sum(dim=1)
+    xi = Xi[i.long().clamp(min=0)].to(f64)  # (nq, k+1, d)
+    T = xsq[:, None] + 2.0 * (Xq64.abs()[:, None, :] * xi.abs()).sum(dim=2) + (xi * xi).sum(dim=2)
+    tau = TAU_UNITS * U32 * Xq.shape[1] ** 0.5 * T
+    return s + xsq[:, None], i, tau
+
+
+def knn_held(torch, d2, ids, ref_d2, ref_ids, tau):
+    """Kernel K4's (d2, ids) (nq, k) against the f64 reference at k + 1.
+    Each distance within the row's largest tau of the reference at the
+    same position (order statistics move by at most the largest error); the
+    id sets equal, except on rows whose reference k-th and (k+1)-th
+    distances lie within 2·tau of each other (a near tie at the boundary,
+    which f32 may break either way). Returns (max abs err, worst err/tau,
+    rows whose ids differ, near-tie rows, rows whose ids differ outside the
+    band)."""
+    k = d2.shape[1]
+    band = tau.max(dim=1).values
+    err = (d2.to(torch.float64) - ref_d2[:, :k]).abs()
+    ratio = float((err / band[:, None]).max())
+    same = (ids.sort(dim=1).values == ref_ids[:, :k].sort(dim=1).values).all(dim=1)
+    near = (ref_d2[:, k] - ref_d2[:, k - 1]) < 2.0 * band
+    return float(err.max()), ratio, int((~same).sum()), int(near.sum()), int((~same & ~near).sum())
+
+
+def check_knn_topk(torch, kn, Xq, Xi, mask, k, sample=None, reps=0, split=None, control=False):
+    """K4 on (Xq, Xi) against its f64 plain version on the ``sample`` query
+    rows (all rows when None). ``split`` folds the items in two passes,
+    the second starting from the first's state."""
+    nq, d = Xq.shape
+    ni = Xi.shape[0]
+    dev = Xq.device
+    ids = torch.arange(ni, dtype=torch.int32, device=dev)
+    csq = (Xi * Xi).sum(dim=1).masked_fill(mask <= 0, float("inf"))
+    state = (torch.full((nq, k), float("inf"), device=dev), torch.full((nq, k), -1, dtype=torch.int32, device=dev))
+    if split:
+        state = kn.knn_topk_pass(Xq, Xi[:split], csq[:split], ids[:split], *state)
+        topd, topi = kn.knn_topk_pass(Xq, Xi[split:], csq[split:], ids[split:], *state)
+    else:
+        topd, topi = kn.knn_topk_pass(Xq, Xi, csq, ids, *state)
+    torch.cuda.synchronize()
+    rows = torch.arange(nq, device=dev) if sample is None else sample
+    xsq = (Xq[rows] * Xq[rows]).sum(dim=1)
+    d2 = topd[rows] + xsq[:, None]
+    ref_d2, ref_ids, tau = knn_reference(torch, kn, Xq[rows], Xi, csq, ids, k)
+    err, ratio, differ, near, bad = knn_held(torch, d2, topi[rows], ref_d2, ref_ids, tau)
+    masked_hit = int((~(mask[topi[rows].long().clamp(min=0)] > 0)).sum())
+    check(ratio <= 1.0 and bad == 0 and masked_hit == 0,
+          f"knn_topk {nq}x{ni}x{d} k={k}: |dd2|/tau {ratio:.3g}, {bad} rows with other ids "
+          f"outside the near-tie band, {masked_hit} masked items selected")
+    out = {"nq": nq, "ni": ni, "d": d, "k": k, "rows_checked": len(rows), "max_abs_err": err,
+           "err_over_tol": ratio, "rows_other_ids": differ, "near_tie_rows": near,
+           "masked_items": int((mask <= 0).sum()), "split": split}
+    if control:  # the ids of one query tile shifted by one
+        bad_ids = topi[rows].clone()
+        bad_ids[:128] += 1
+        b = knn_held(torch, d2, bad_ids, ref_d2, ref_ids, tau)
+        check(b[4] > 0, "the K4 check does not catch one query tile's ids shifted")
+        out["controls"] = [{"control": "ids of query rows 0..127 shifted by one",
+                            "rows_other_ids_outside_band": b[4]}]
+    del ref_d2, ref_ids, tau
+    if reps:
+        st0 = (torch.full((nq, k), float("inf"), device=dev), torch.full((nq, k), -1, dtype=torch.int32, device=dev))
+
+        def library():  # chunked addmm + torch.topk (ties in any order)
+            outs = []
+            for lo in range(0, nq, 4096):
+                bd = None
+                for jo in range(0, ni, 32768):
+                    s = torch.addmm(csq[None, jo:jo + 32768], Xq[lo:lo + 4096], Xi[jo:jo + 32768].T,
+                                    alpha=-2.0)
+                    v, j = torch.topk(s, k, dim=1, largest=False)
+                    j = j + jo
+                    if bd is not None:
+                        v, sel = torch.topk(torch.cat([bd, v], 1), k, dim=1, largest=False)
+                        j = torch.cat([bi, j], 1).gather(1, sel)
+                    bd, bi = v, j
+                outs.append(bi)
+            return outs
+
+        out["ms"] = cuda_ms(torch, lambda: kn.knn_topk_pass(Xq, Xi, csq, ids, *st0), reps)
+        out["plain_ms"] = cuda_ms(torch, lambda: kn.knn_topk_pass_plain(Xq, Xi, csq, ids, *st0), reps)
+        out["library_ms"] = cuda_ms(torch, library, reps)
+        nbytes = 4.0 * (nq * d + ni * d + 2 * ni + 4 * nq * k)  # Xq, Xi, csq, ids, state in + out
+        flops = 2.0 * nq * ni * d + 2.0 * nq * ni  # products, then csq - 2·dot
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+    return out
+
+
+# K10: each term passes through two powf (a few ulps each), a division and
+# the rounding of diff and d2, so its f32 error is held at TOL_TERMS_SGD·u
+# of its size rather than TOL_TERMS
+TOL_TERMS_SGD = 32.0
+
+
+def sgd_terms_abs(torch, uk, src, h, tails, p, perm, offs, u, a, b, gamma, scale):
+    """Σ|term| per (row, component) of one K10 epoch, in f64: the T of
+    ``held`` for the kernel's per-row sums."""
+    R, K = tails.shape
+    active = (u < p).to(src.dtype)
+    diff = h[:, None, :] - src[tails.long()]
+    d2 = (diff * diff).sum(dim=2)
+    ac = torch.where(d2 > 0, (2.0 * a * b * d2 ** (b - 1.0)) / (a * d2 ** b + 1.0), 0.0) * active
+    T = torch.clamp((ac[..., None] * diff).abs(), max=4.0).sum(dim=1) * scale
+    diff_n = h[:, None, None, :] - src[uk.negative_ids(perm, offs, R, K)]
+    d2n = (diff_n * diff_n).sum(dim=3)
+    rc = torch.where(d2n > 0, (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n ** b + 1.0)), 0.0)
+    return T + torch.clamp((rc * active[..., None])[..., None] * diff_n.abs(), max=4.0).sum(dim=(1, 2))
+
+
+def check_sgd_epoch(torch, uk, src, h, tails, p, perm, offs, u, a, b, reps, control=False, scale=2.0):
+    """K10 against its plain version in f64 on the same u/perm/offs;
+    ``scale`` is the attractive factor (2 on the fit's self table, 1 in
+    the transform's refine epochs)."""
+    R, K = tails.shape
+    n_tab, C = src.shape
+    neg = offs.shape[0]
+    gamma = 1.0
+    out = uk.sgd_epoch_rows(src, h, tails, p, perm, offs, u, a, b, gamma, scale)
+    f64 = torch.float64
+    args64 = (src.to(f64), h.to(f64), tails, p.to(f64), perm, offs, u.to(f64))
+    ref = uk.sgd_epoch_rows_plain(*args64, a, b, gamma, scale)
+    T = sgd_terms_abs(torch, uk, *args64, a, b, gamma, scale)
+    n_terms = K * (1 + neg)
+    err = (out.to(f64) - ref).abs()
+    tol = U32 * (TOL_TERMS_SGD * T + TOL_WALK * n_terms ** 0.5 * ref.abs())
+    ratio = float(torch.where(err > 0, err / tol, torch.zeros_like(err)).max())
+    check(ratio <= 1.0, f"sgd_epoch_rows R={R} K={K} C={C}: |d|/tol {ratio:.3g} above 1")
+    active = int((u < p).sum())
+    res = {"R": R, "K": K, "C": C, "neg": neg, "n_tab": n_tab, "attract_scale": scale, "active_slots": active,
+           "max_abs_err": float(err.max()), "err_over_tol": ratio}
+    if control:  # a kernel that drops the repulsive term on every other row
+        bad = out.clone()
+        bad[::2] = uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a, b, 0.0, scale)[::2]
+        e = (bad.to(f64) - ref).abs()
+        r = float(torch.where(e > 0, e / tol, torch.zeros_like(e)).max())
+        check(r > 1.0, f"the K10 check does not catch a dropped repulsive term: err/tol {r:.3g}")
+        res["controls"] = [{"control": "repulsive term dropped on even rows", "max_abs_err": float(e.max()),
+                            "err_over_tol": r}]
+    if reps:
+        res["ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_rows(src, h, tails, p, perm, offs, u, a, b, gamma,
+                                                                   scale), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a, b,
+                                                                               gamma, scale), reps)
+        res["library_ms"] = None  # no single PyTorch call computes one epoch's row sums
+        # tails, p, u streamed once; table, heads, perm, offs read once; sums written
+        nbytes = 4.0 * (3 * R * K + n_tab * C + R * C + n_tab + neg + R * C)
+        # per evaluated term (active slot x (1 + neg)): 3C for diff and d2,
+        # ~10 for the coefficient, 3C to clip and add
+        flops = active * (1.0 + neg) * (6.0 * C + 10.0)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+    return res
+
+
 def phase_kernels(torch, X_pca, n_rows, reps, seed):
     from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
     from spark_rapids_ml_tpu_torch.ops import linalg as lin
@@ -432,6 +617,98 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
             emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
                   **check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)})
         del Xr
+    torch.cuda.synchronize()
+    return res
+
+
+def make_umap_data(n: int, seed: int) -> np.ndarray:
+    """(n, 256) f32 host rows: 32 Gaussian blobs (centre scale 4, unit
+    noise), the recipe of ``bench.py``'s UMAP entry (its seed 3 at
+    ``--seed 0``)."""
+    rng = np.random.default_rng(seed + 3)
+    centers = rng.normal(size=(32, E2E_D)).astype(np.float32) * 4.0
+    lab = rng.integers(0, 32, size=n)
+    return (centers[lab] + rng.normal(size=(n, E2E_D))).astype(np.float32)
+
+
+def query_sample(torch, nq, dev, rows=4096):
+    """``rows`` query rows: the first query tile (the negative control
+    shifts its ids), then rows spread over the rest."""
+    step = max(1, (nq - 128) // (rows - 128))
+    return torch.cat([torch.arange(min(128, nq), device=dev),
+                      torch.arange(128, nq, step, device=dev)[:rows - 128]])
+
+
+def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
+    """K4 at the kNN shape (131,072 queries x 1M items, k = 16), at ragged
+    shapes, and at the UMAP shapes (65,536 rows against themselves: the
+    graph at k = 16, the transform at k = 15); K10 at the UMAP fit shape
+    (the CSR rows of the 65,536 x 256 graph, K = 24, C = 2, neg = 5) and
+    the transform shape (65,536 rows, K = 15, neg = 5, frozen table)."""
+    from spark_rapids_ml_tpu_torch.models.umap import drop_self_column, knn_brute
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    dev = X_items.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    res = {}
+    nq, ni = min(KNN_QUERIES, X_items.shape[0]), X_items.shape[0]
+    res["knn_topk"] = check_knn_topk(torch, kn, X_items[:nq], X_items, torch.ones(ni, device=dev), KNN_K,
+                                     sample=query_sample(torch, nq, dev), reps=max(1, reps // 3), control=True)
+    emit({"phase": "kernels", "kernel": "knn_topk", **res["knn_topk"]})
+    # ragged shapes: nq, ni off the tiles, a masked item block, d in {3,
+    # 124, 300}, k in {1, 16, 100}, and one fold in two passes
+    for d_r in (3, 124, 300):
+        Xq = torch.randn(1037, d_r, generator=g, device=dev) + 3.0
+        Xi = torch.randn(70_001, d_r, generator=g, device=dev) + 3.0
+        mask = torch.ones(70_001, device=dev)
+        mask[5000:7000] = 0.0
+        for k_r in (1, 16, 100):
+            emit({"phase": "kernels", "kernel": "knn_topk", "ragged": True,
+                  **check_knn_topk(torch, kn, Xq, Xi, mask, k_r,
+                                   split=30_011 if (d_r, k_r) == (124, 16) else None)})
+
+    # K10 on the UMAP fit's own rows: its graph, a random table
+    Xd = torch.from_numpy(X_umap).to(dev)
+    dists, idx = drop_self_column(*knn_brute(Xd, Xd, k=UMAP_NEIGHBORS + 1), k=UMAP_NEIGHBORS)
+    heads, tails, weights = uk.fuzzy_simplicial_set(idx.cpu().numpy(), dists, 1.0, 1.0, device=dev)
+    row_heads, tails_pad, p_pad = uk.build_row_adjacency(heads, tails, weights, X_umap.shape[0], K=24)
+    # K4 at the UMAP shapes: the graph (65,536 rows against themselves,
+    # k = 16) and the transform of the same rows (k = 15)
+    n = Xd.shape[0]
+    ones, sample = torch.ones(n, device=dev), query_sample(torch, n, dev)
+    res["knn_topk_umap_graph"] = check_knn_topk(torch, kn, Xd, Xd, ones, UMAP_NEIGHBORS + 1, sample=sample,
+                                                reps=max(1, reps))
+    emit({"phase": "kernels", "kernel": "knn_topk", "umap_graph_shape": True, **res["knn_topk_umap_graph"]})
+    res["knn_topk_umap_transform"] = check_knn_topk(torch, kn, Xd, Xd, ones, UMAP_NEIGHBORS, sample=sample)
+    emit({"phase": "kernels", "kernel": "knn_topk", "umap_transform_shape": True,
+          **res["knn_topk_umap_transform"]})
+    # the transform's tails: each row's 15 training neighbours (self excluded)
+    tails_tr = idx.contiguous()
+    del Xd, dists, ones
+    a, b = uk.find_ab_params(1.0, 0.1)
+    src = torch.rand((n, 2), generator=g, device=dev) * 20.0 - 10.0
+    tails_d = torch.from_numpy(tails_pad).to(dev)
+    p_d = torch.from_numpy(p_pad).to(dev)
+    R, K = tails_pad.shape
+    h = src[torch.from_numpy(row_heads).to(dev).long()]
+    u = torch.rand((R, K), generator=g, device=dev)
+    perm = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
+    offs = torch.randint(0, R, (5,), generator=g, device=dev, dtype=torch.int32)
+    res["sgd_epoch_rows"] = check_sgd_epoch(torch, uk, src, h, tails_d, p_d, perm, offs, u, a, b,
+                                            max(20, reps), control=True)
+    emit({"phase": "kernels", "kernel": "sgd_epoch_rows", **res["sgd_epoch_rows"]})
+    # the transform's epoch: one row per query (R = 65,536), its K = 15
+    # neighbours into the frozen table, neg = 5 offsets in [0, R), the
+    # attractive term once
+    shp = tails_tr.shape
+    offs_tr = torch.randint(0, shp[0], (5,), generator=g, device=dev, dtype=torch.int32)
+    res["sgd_epoch_rows_transform"] = check_sgd_epoch(
+        torch, uk, src, src + 0.5, tails_tr, torch.rand(shp, generator=g, device=dev), perm, offs_tr,
+        torch.rand(shp, generator=g, device=dev), a, b, max(20, reps), control=True, scale=1.0)
+    emit({"phase": "kernels", "kernel": "sgd_epoch_rows", "umap_transform_shape": True,
+          **res["sgd_epoch_rows_transform"]})
     torch.cuda.synchronize()
     return res
 
@@ -560,6 +837,143 @@ def phase_subset(torch, X_host, y_host, seed, rows):
     check(coef_err <= 0.05 and agree >= 0.995, "LogReg card vs CPU beyond tolerance")
 
 
+def trustworthiness(torch, X, E, k: int) -> float:
+    """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
+    of the rows ``X``, in f64 on their device: 1 minus the normalized sum
+    of how far beyond k each embedding-space neighbour ranks in input
+    space."""
+    n = X.shape[0]
+    X, E = X.to(torch.float64), E.to(torch.float64)
+    dX = torch.cdist(X, X)
+    dX.fill_diagonal_(float("inf"))
+    ind_X = torch.argsort(dX, dim=1)
+    del dX
+    dE = torch.cdist(E, E)
+    dE.fill_diagonal_(float("inf"))
+    ind_E = torch.topk(dE, k, dim=1, largest=False).indices
+    ranks_of = torch.empty_like(ind_X)
+    ranks_of.scatter_(1, ind_X, torch.arange(1, n + 1, device=X.device).expand(n, n))
+    ranks = ranks_of.gather(1, ind_E) - k
+    t = float(ranks[ranks > 0].sum())
+    return 1.0 - t * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def _trust_sample(torch, X, E, seed):
+    rows = np.random.default_rng(seed).choice(X.shape[0], size=min(TRUST_ROWS, X.shape[0]), replace=False)
+    dev = torch.device("cuda:0")
+    return trustworthiness(torch, torch.from_numpy(X[rows]).to(dev), torch.from_numpy(E[rows]).to(dev),
+                           UMAP_NEIGHBORS)
+
+
+def phase_knn_e2e(torch, Xi_host):
+    """NearestNeighbors(k=16) through DataFrame: the first 131,072 item rows
+    queried against all items (bench.py's kNN entry)."""
+    from spark_rapids_ml_tpu_torch import DataFrame, NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+
+    ni = Xi_host.shape[0]
+    nq = min(KNN_QUERIES, ni)
+    item_df = DataFrame({"features": Xi_host})
+    query_df = DataFrame({"features": Xi_host[:nq]})
+    kn.knn_topk_pass.launches = 0
+    model = NearestNeighbors(k=KNN_K).fit(item_df)
+    (_, _, knn_df), t = _timed(torch, lambda: model.kneighbors(query_df))
+    launches = kn.knn_topk_pass.launches
+    idx = np.asarray(knn_df.column("indices"))
+    dist = np.asarray(knn_df.column("distances"))
+    check(idx.shape == (nq, KNN_K) and np.isfinite(dist).all(), "kneighbors output shape or finiteness")
+    check(bool((np.diff(dist, axis=1) >= 0).all()), "kneighbors distances not ascending")
+    # every query is an item: its nearest neighbour is itself, at distance
+    # 0 up to the f32 rounding of ||x||² - 2x·x + ||x||² (TAU band)
+    self_ok = float((idx[:, 0] == np.arange(nq)).mean())
+    xsq = (Xi_host[:nq].astype(np.float64) ** 2).sum(axis=1)
+    self_tol = np.sqrt(TAU_UNITS * U32 * E2E_D ** 0.5 * 4.0 * xsq)
+    check(self_ok == 1.0 and bool((dist[:, 0] <= self_tol).all()),
+          f"kNN self match {self_ok}, self distance up to {float(dist[:, 0].max())}")
+    nj = min(4096, ni)
+    join_q = DataFrame({"features": Xi_host[:nj], "tag": np.arange(nj)})
+    joined, t_join = _timed(torch, lambda: model.exactNearestNeighborsJoin(join_q))
+    check(joined.count() == nj * KNN_K and np.isfinite(np.asarray(joined.column("distCol"))).all(),
+          "exactNearestNeighborsJoin rows")
+    launches_all = kn.knn_topk_pass.launches
+    res = {"phase": "e2e", "estimator": "NearestNeighbors", "k": KNN_K, "queries": nq, "items": ni,
+           "kneighbors_s": t, "queries_per_s": nq / t, "self_match": self_ok,
+           "self_distance_max": float(dist[:, 0].max()), "join_queries": nj, "join_s": t_join,
+           "knn_topk_launches": launches, "knn_topk_launches_with_join": launches_all}
+    emit(res)
+    check(launches > 0, "kernel knn_topk was not launched by kneighbors")
+    return launches_all
+
+
+def phase_umap_e2e(torch, X_umap, seed):
+    """UMAP(n_neighbors=15, random_state=42) fit, transform of the same rows,
+    and a save/load round trip, at 65,536 x 256."""
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, UMAP, UMAPModel
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    n = X_umap.shape[0]
+    df = DataFrame({"features": X_umap})
+    kn.knn_topk_pass.launches = 0
+    uk.sgd_epoch_rows.launches = 0
+    model, t_fit = _timed(torch, lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=42).fit(df))
+    fit_launches = {"knn_topk": kn.knn_topk_pass.launches, "sgd_epoch_rows": uk.sgd_epoch_rows.launches}
+    out, t_tr = _timed(torch, lambda: model.transform(df))
+    launches = {"knn_topk": kn.knn_topk_pass.launches, "sgd_epoch_rows": uk.sgd_epoch_rows.launches}
+    emb, emb_t = model.embedding_, np.asarray(out.column("embedding"))
+    check(emb.shape == (n, 2) and np.isfinite(emb).all(), "UMAP embedding shape or finiteness")
+    check(emb_t.shape == (n, 2) and np.isfinite(emb_t).all(), "UMAP transform shape or finiteness")
+    trust_fit = _trust_sample(torch, X_umap, emb, seed)
+    trust_tr = _trust_sample(torch, X_umap, emb_t, seed)
+    check(trust_fit > TRUST_MIN and trust_tr > TRUST_MIN,
+          f"UMAP trustworthiness fit {trust_fit}, transform {trust_tr} not above {TRUST_MIN}")
+    with tempfile.TemporaryDirectory() as tmp:
+        (_, t_save) = _timed(torch, lambda: model.write().overwrite().save(tmp + "/umap"))
+        loaded, t_load = _timed(torch, lambda: UMAPModel.load(tmp + "/umap"))
+    part = DataFrame({"features": X_umap[:4096]})
+    same_emb = bool(np.array_equal(loaded.embedding_, emb))
+    tr_a = np.asarray(model.transform(part).column("embedding"))
+    tr_b = np.asarray(loaded.transform(part).column("embedding"))
+    check(same_emb and np.array_equal(tr_a, tr_b), "UMAP save/load round trip changed the model")
+    rep = model._fit_report
+    emit({"phase": "e2e", "estimator": "UMAP", "n_neighbors": UMAP_NEIGHBORS, "rows": n,
+          "fit_s": t_fit, "transform_s": t_tr, "graph_s": rep["graph_seconds"],
+          "init_s": rep["init_seconds"], "sgd_s": rep["sgd_seconds"], "epoch_ms": rep["epoch_ms"],
+          "n_epochs": rep["n_epochs"], "sgd_rows": rep["rows"], "refine_epochs": model._transform_report["refine_epochs"],
+          "trustworthiness_fit": trust_fit, "trustworthiness_transform": trust_tr,
+          "trust_rows": TRUST_ROWS, "trust_min": TRUST_MIN, "save_s": t_save, "load_s": t_load,
+          "fit_launches": fit_launches, "launches": launches})
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the UMAP path")
+    return launches
+
+
+def phase_umap_subset(torch, X_umap, seed, rows):
+    """The same UMAP fitted on the card and on the CPU (plain path), with
+    the default spectral init and with a random one: on 32 nearly
+    disconnected blobs the spectral init's leading eigenvectors are nearly
+    degenerate, so the f32 rounding that separates the two graphs can move
+    the init (and the final trustworthiness by ~0.01); the random init
+    isolates the SGD."""
+    from spark_rapids_ml_tpu_torch import DataFrame, UMAP
+
+    X = X_umap[:rows]
+    df = DataFrame({"features": X})
+    for init in ("spectral", "random"):
+        trust, secs = {}, {}
+        for dev in ("cuda:0", "cpu"):
+            m, secs[dev] = _timed(torch, lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=42, init=init,
+                                                      device=dev).fit(df))
+            trust[dev] = _trust_sample(torch, X, m.embedding_, seed)
+        diff = abs(trust["cuda:0"] - trust["cpu"])
+        emit({"phase": "subset", "estimator": "UMAP", "init": init, "rows": rows, "trust_card": trust["cuda:0"],
+              "trust_cpu": trust["cpu"], "trust_diff": diff, "trust_diff_tol": 0.03,
+              "fit_s_card": secs["cuda:0"], "fit_s_cpu": secs["cpu"]})
+        check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -603,17 +1017,29 @@ def main() -> int:
     n_pca = -(-n // csize) * csize
     X, y = make_data(torch, n, n_pca, args.seed, dev)
     kern = phase_kernels(torch, X, n, args.reps, args.seed)
+    X_umap = make_umap_data(UMAP_ROWS, args.seed)
+    ni = min(KNN_ITEMS, n)
+    kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, args.reps, args.seed))
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
     torch.cuda.empty_cache()
-    launches = phase_e2e(torch, X_host, y_host, args.seed)
+    # each path runs with the launch counters zeroed just before it and
+    # read just after: {kernel: {path: launches}}
+    by_path = {key: {"pca_kmeans_logreg": c} for key, c in phase_e2e(torch, X_host, y_host, args.seed).items()}
     phase_subset(torch, X_host, y_host, args.seed, min(args.subset, n))
+    by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
+    umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
+    by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
+    by_path["sgd_epoch_rows"] = {"umap": umap_launches["sgd_epoch_rows"]}
+    phase_umap_subset(torch, X_umap, args.seed, UMAP_SUBSET)
 
     sources = {
         "shifted_gram": ("spark_rapids_ml_tpu/ops/linalg.py:141", "shifted_gram"),
         "lloyd_step": ("spark_rapids_ml_tpu/ops/kmeans_pallas.py:174", "lloyd_step"),
         "logreg_loss_grad": ("spark_rapids_ml_tpu/ops/logreg_pallas.py:152", "logreg_loss_grad"),
+        "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk"),
+        "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows"),
     }
     kernels = []
     for name, (replaces, key) in sources.items():
@@ -621,12 +1047,18 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda",
             "source": f"spark_rapids_ml_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            # the sum over the paths that run the kernel, each counted alone
+            "launches": sum(by_path[key].values()), "launches_by_path": by_path[key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": {k: r[k] for k in ("n", "d", "k", "K") if k in r},
+            "library_ms": r["library_ms"],
+            "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab") if k in r},
         }
         kernels.append(entry)
-    extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"]}
+    extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
+             "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
+             "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
+             "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -9,10 +9,21 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch.feature import PCA
     from spark_rapids_ml_tpu_torch.clustering import KMeans
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
 """
 
 __version__ = "0.1.0"
 
 from .data.dataframe import DataFrame, Row
+from .knn import NearestNeighbors, NearestNeighborsModel
+from .umap import UMAP, UMAPModel
 
-__all__ = ["DataFrame", "Row", "__version__"]
+__all__ = [
+    "DataFrame",
+    "NearestNeighbors",
+    "NearestNeighborsModel",
+    "Row",
+    "UMAP",
+    "UMAPModel",
+    "__version__",
+]

@@ -55,6 +55,8 @@ _JAX_CLASSES = {
         ("clustering", "KMeansModel"),
         ("classification", "LogisticRegression"),
         ("classification", "LogisticRegressionModel"),
+        ("umap", "UMAP"),
+        ("umap", "UMAPModel"),
     )
 }
 
@@ -83,6 +85,12 @@ def _f32_features(obj: "_TpuParams", X: np.ndarray) -> np.ndarray:
             "float64 inputs (float32_inputs=False) are not ported yet"
         )
     return np.ascontiguousarray(X, dtype=np.float32)
+
+
+def _resolve_features_f32(obj: "_TpuParams", dataset: DataFrame) -> np.ndarray:
+    """Features as one dense contiguous float32 matrix, whatever
+    ``float32_inputs`` says: kNN and UMAP compute in float32 only."""
+    return np.ascontiguousarray(_resolve_feature_matrix(obj, dataset), dtype=np.float32)
 
 
 @dataclass

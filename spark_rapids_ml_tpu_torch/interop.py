@@ -28,7 +28,8 @@ def from_jax_attributes(
     device: Optional[str] = None,
 ) -> _TpuModel:
     """The port's model ``cls_name`` (``"PCAModel"``, ``"KMeansModel"``,
-    ``"LogisticRegressionModel"``, or a JAX package's full class path)
+    ``"LogisticRegressionModel"``, ``"UMAPModel"``, or a JAX package's
+    full class path)
     built from a JAX model's attributes and Params (name -> value)."""
     full = cls_name
     if "." not in cls_name:
@@ -40,10 +41,15 @@ def from_jax_attributes(
     if not issubclass(cls, _TpuModel):
         raise ValueError(f"{cls_name!r} is not a model class")
     model = cls(**dict(attrs))
+    mapping = model._param_mapping()
     for p, v in (params or {}).items():
         name = getattr(p, "name", p)  # a Param object or its name
         if model.hasParam(name):
             model._set(**{name: v})
+            # the backend copy that fit-time settings are read from
+            # (UMAP's transform reads n_neighbors, random_state, ... there)
+            if mapping.get(name):
+                model._tpu_params[mapping[name]] = v
     model._device = device
     return model
 

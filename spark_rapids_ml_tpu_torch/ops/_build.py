@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
-SOURCES = ("shifted_gram", "lloyd_step", "logreg_loss_grad")
+SOURCES = ("shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "umap_sgd_epoch")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
