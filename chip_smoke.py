@@ -18,7 +18,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    on a 4,096-row sample, at the UMAP graph (k = 16) and transform (k =
    15) shapes of 65,536 x 65,536 x 256 on a 4,096-row sample, and in full
    at ragged shapes; K10 (one UMAP SGD epoch) on the rows of the 65,536 x
-   256 UMAP graph and at the transform's shape (65,536 rows, K = 15).
+   256 UMAP graph and at the transform's shape (65,536 rows, K = 15); the
+   forest kernels at the builder's own level layouts: K5 (sub-block
+   histograms) at the deepest (level 12) and a shallow (level 2) call of
+   the bench forest (131,072 x 256, 8 trees a batch, k = 16, 128 bins),
+   the regressor's S = 3 call and ragged shapes, exact for integer stats,
+   repeatable bit for bit; K6 (fused selection) at the 131,072 x 3,000
+   level-12 call and a ragged one with n_features == d_pad; K9 (packed
+   traversal) on one transform batch of a depth-13, 50-tree forest, at
+   3,000 features and at k2 in {1, 6}, equal to its plain version.
 3. end to end, each path with the launch counters zeroed just before it
    and read just after (every kernel of the path must have run): PCA(k=16),
    KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
@@ -28,7 +36,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
    first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
    n_neighbors=15, random_state=42) fit, transform and save/load at
    65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
-   sample, and a 20,000-row UMAP fitted on the card and on the CPU.
+   sample, and a 20,000-row UMAP fitted on the card and on the CPU;
+   RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128) fit,
+   transform, save/load and transform on the first 131,072 rows (bench.py's
+   rf config), RandomForestRegressor(numTrees=8) on the same rows with a
+   real-valued label, RandomForestClassifier(numTrees=8) on 131,072 x 3,000
+   rows (the reference's benchmark width: K6), and an 8-tree depth-10
+   forest on 20,000 rows fitted on the card and on the CPU (the same draws:
+   predictions agree on >= 99.9% of rows).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -63,6 +78,19 @@ TRUST_MIN = 0.85
 TRUST_ROWS = 4096
 # rows of the UMAP fitted on the card and on the CPU
 UMAP_SUBSET = 20_000
+# bench.py's rf config (bench.py:652-728): 131,072 x 256, 50 trees, depth
+# 13, 128 bins; the regressor and the 3,000-feature forest (the
+# reference's benchmark width, rows cut from 1M) keep 8 trees
+RF_ROWS = 131_072
+RF_TREES = 50
+RF_DEPTH = 13
+RF_BINS = 128
+RF_SMALL_TREES = 8
+RF_WIDE_D = 3000
+# the forest fitted on the card and on the CPU
+RF_SUBSET_ROWS = 20_000
+RF_SUBSET_DEPTH = 10
+RF_AGREE_MIN = 0.999
 
 
 def emit(obj) -> None:
@@ -713,6 +741,262 @@ def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
     return res
 
 
+def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=False):
+    """The inputs one compact level of the forest builder gives K5 (K6 with
+    ``sel``) for T trees, laid out by the builder's own glue
+    (``compact_sizes``, ``_compact_layout``): each tree's rows (Poisson(1)
+    bootstrap weights) spread over the level's 2^level nodes at random,
+    each node's k features drawn at random, sentinel slots up to the next
+    power of two."""
+    n, d_pad = bins.shape
+    dev, S = bins.device, stats.shape[1]
+    n_nodes, k_pad = 1 << level, pt.next_pow2(k)
+    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, RF_DEPTH, S, k_pad, RF_BINS)
+    seg = torch.randint(0, n_nodes, (T, n), generator=g, device=dev)
+    src2, pvalid, sbc, _ = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
+    w = torch.poisson(torch.ones((T, n), device=dev), generator=g)
+    sw = (stats[None] * w[..., None]).gather(1, src2[..., None].expand(T, n_pad, S))
+    sw = (sw * pvalid[..., None]).reshape(T * n_pad, S).contiguous()
+    feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
+    feats = torch.cat([feats, torch.full((T, n_nodes, k_pad - k), n_features, device=dev)], 2)
+    out = {"T": T, "level": level, "n": n, "n_pad": n_pad, "r_sub": r_sub, "S": S, "nb": RF_BINS,
+           "k": k, "k_pad": k_pad, "sw": sw}
+    if sel:
+        out["bq"] = bins.index_select(0, src2.reshape(-1))
+        out["featsq"] = feats.gather(1, sbc[..., None].expand(-1, -1, k_pad)).reshape(-1, k_pad).to(torch.int32)
+        out["d_pad"] = d_pad
+    else:
+        rows = feats.gather(1, seg.clamp(max=n_nodes - 1)[..., None].expand(-1, -1, k_pad))
+        src = bins.expand(T, n, d_pad).gather(2, rows.clamp(max=d_pad - 1))
+        binq = src.gather(1, src2[..., None].expand(T, n_pad, k_pad)).to(torch.int32)
+        out["binq"] = binq[..., :f_chunk].reshape(T * n_pad, f_chunk).contiguous()
+        out["f_chunk"] = f_chunk
+    return out
+
+
+def _last_weighted_row(torch, sw, r_sub, j):
+    """The last row of sub-block j (or the first sub-block after it) that
+    carries weight: the row a kernel that drops one row per sub-block would
+    lose."""
+    w = sw.abs().sum(dim=1).reshape(-1, r_sub)
+    while not bool((w[j] > 0).any()):
+        j += 1
+    return j * r_sub + int(torch.nonzero(w[j] > 0)[-1, 0])
+
+
+def check_subblock_hist(torch, rk, inp, reps, exact=True, control=False, sel=False):
+    """K5 (K6 with ``sel``) against its plain version in f64 on the same
+    inputs: equal for integer stats, else within ``held`` of the f64 sums
+    (T = the plain version over |sw|, n = r_sub additions). Two launches
+    must give the same bits. The control drops the last weighted row of
+    one sub-block, which the check must catch."""
+    sw, nb, r_sub = inp["sw"], inp["nb"], inp["r_sub"]
+    if sel:
+        args, kern, plain = (inp["bq"], inp["featsq"]), rk.subblock_hist_sel, rk.subblock_hist_sel_plain
+        k = inp["featsq"].shape[1]
+    else:
+        args, kern, plain = (inp["binq"],), rk.subblock_hist, rk.subblock_hist_plain
+        k = inp["binq"].shape[1]
+    out = kern(*args, sw, n_bins=nb, r_sub=r_sub)
+    again = kern(*args, sw, n_bins=nb, r_sub=r_sub)
+    torch.cuda.synchronize()
+    repeatable = bool(torch.equal(out, again))
+    del again
+    ref = plain(*args, sw.double(), n_bins=nb, r_sub=r_sub)
+    rows, S = sw.shape
+    n_sb = rows // r_sub
+    res = {key: inp[key] for key in ("T", "level", "n", "n_pad", "r_sub", "S", "nb", "k", "k_pad", "d_pad")
+           if key in inp}
+    res.update({"k_launch": k, "n_sb": n_sb, "repeatable": repeatable})
+    if exact:
+        # integer sums below 2^24: the f64 reference is exact in f32 too
+        ref = ref.float()
+        err = float((out - ref).abs().max())
+        ok, ratio, T_abs = bool(torch.equal(out, ref)), 0.0, None
+    else:
+        T_abs = plain(*args, sw.double().abs(), n_bins=nb, r_sub=r_sub)
+        err, ratio = held(torch, out, ref, T_abs, r_sub)
+        ok = ratio <= 1.0
+    check(ok and repeatable, f"{kern.__name__} {rows}x{k} S={S} nb={nb} r_sub={r_sub}: "
+          f"max err {err}, err/tol {ratio:.3g}, repeatable {repeatable}")
+    res.update({"max_abs_err": err, "err_over_tol": ratio, "exact": exact})
+    if control:
+        r = _last_weighted_row(torch, sw, r_sub, n_sb // 2)
+        bad_sw = sw.double().clone()
+        bad_sw[r] = 0.0
+        bad = plain(*args, bad_sw, n_bins=nb, r_sub=r_sub)
+        if exact:
+            caught = not bool(torch.equal(out, bad.float()))
+        else:
+            caught = held(torch, bad, ref, T_abs, r_sub)[1] > 1.0
+        check(caught, f"the {kern.__name__} check does not catch a dropped row")
+        res["controls"] = [{"control": f"row {r} (last weighted row of its sub-block) dropped", "caught": caught}]
+        del bad, bad_sw
+    del ref, T_abs
+    if reps:
+        res["ms"] = cuda_ms(torch, lambda: kern(*args, sw, n_bins=nb, r_sub=r_sub), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: plain(*args, sw, n_bins=nb, r_sub=r_sub), reps)
+        # one scatter_add_ on the flattened (sub-block, s, slot, bin) index
+        # (K6: the column gather first, a second call)
+        binq = rk.select_bins_plain(args[0], args[1], r_sub) if sel else args[0]
+        sb = torch.arange(rows, device=sw.device) // r_sub
+        base = sb[:, None, None] * S + torch.arange(S, device=sw.device)[None, :, None]
+        idx = ((base * k + torch.arange(k, device=sw.device)[None, None, :]) * nb
+               + binq.long().clamp(0, nb - 1)[:, None, :]).reshape(-1)
+        vals = sw[:, :, None].expand(rows, S, k).reshape(-1)
+        size = n_sb * S * k * nb
+
+        def library():
+            b = rk.select_bins_plain(args[0], args[1], r_sub) if sel else None
+            return torch.zeros(size, device=sw.device).scatter_add_(0, idx, vals), b
+
+        res["library_ms"] = cuda_ms(torch, library, reps)
+        res["library_calls"] = "gather + scatter_add_ (two calls)" if sel else "scatter_add_"
+        del idx, vals, base, sb, binq
+        # each input byte read once, the dense output written once; K6 reads
+        # only the k selected bytes of each full row (bq holds d_pad)
+        in_bins = rows * k * (1 if sel else 4)
+        nbytes = in_bins + 4.0 * (rows * S + n_sb * S * k * nb) + (4.0 * n_sb * k if sel else 0.0)
+        res["bytes"] = nbytes
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, float(rows) * S * k)
+    del out
+    return res
+
+
+def random_forest(rng, T, depth, d, nb, leaf_p=0.15):
+    """(feat, thr_bin) of T random heap-ordered trees of depth ``depth``:
+    every node of the top levels splits, a fraction ``leaf_p`` of the deeper
+    ones is an early leaf (and its subtree with it)."""
+    M = (1 << (depth + 1)) - 1
+    feat = rng.integers(0, d, size=(T, M)).astype(np.int32)
+    early = rng.random((T, M)) < leaf_p
+    early[:, :7] = False
+    early[:, (1 << depth) - 1:] = True
+    feat[early] = -1
+    for i in range(1, (1 << depth) - 1):
+        feat[feat[:, (i - 1) // 2] < 0, i] = -1
+    thr = rng.integers(0, nb - 1, size=(T, M)).astype(np.int32)
+    return feat, thr
+
+
+def check_packed_traverse(torch, rk, pt, xb, feat, thr, depth, reps, control=False):
+    """K9 on one transform batch against its plain version: the leaf ids
+    equal. The control moves one hop-2 threshold of the subtree most rows
+    reach; some leaf ids must move."""
+    pf = pt.pack_forest(feat, thr, max_depth=depth)
+    dev = xb.device
+    f1, t1, f2, t2 = (torch.from_numpy(a).to(dev) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2))
+    i1 = pt._packed_hop1(xb, f1, t1, k1=pf.k1)
+    packed = pt.pack_bins(xb)
+    out = rk.packed_traverse(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2)
+    ref = rk.packed_traverse_plain(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2)
+    torch.cuda.synchronize()
+    n, t_pad = i1.shape
+    differ = int((out != ref).sum())
+    check(differ == 0, f"packed_traverse {n}x{t_pad} k1={pf.k1} k2={pf.k2}: {differ} leaf ids differ")
+    n1 = (1 << pf.k1) - 1
+    res = {"rows": n, "trees": feat.shape[0], "t_pad": t_pad, "d_pad": xb.shape[1], "words": packed.shape[1],
+           "depth": depth, "k1": pf.k1, "k2": pf.k2, "max_abs_err": 0, "leaf_ids_differ": differ,
+           "rows_past_hop1": float((i1[:, :feat.shape[0]] >= n1).float().mean())}
+    if control:
+        # tree 0's busiest hop-2 subtree whose root splits: every row there
+        # sent left (threshold 255), then right (-1); some leaf ids must move
+        past = i1[:, 0].long() >= n1
+        busy = torch.bincount(i1[past, 0].long() - n1, minlength=1 << pf.k1)
+        busy[f2[:1 << pf.k1, 0] < 0] = 0
+        row = int(busy.argmax())
+        moved = 0
+        for thr_bad in (255, -1):
+            bad_t2 = t2.clone()
+            bad_t2[row, 0] = thr_bad
+            moved += int((rk.packed_traverse_plain(packed, i1, f2, bad_t2, k1=pf.k1, k2=pf.k2) != ref).sum())
+        check(moved > 0, "the K9 control (one threshold moved) moves no leaf id")
+        res["controls"] = [{"control": f"tree 0, subtree {row} ({int(busy[row])} rows): root threshold set to "
+                            "255, then -1", "leaf_ids_moved": moved}]
+    if reps:
+        res["ms"] = cuda_ms(torch, lambda: rk.packed_traverse(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: rk.packed_traverse_plain(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2),
+                                  reps)
+        res["library_ms"] = None  # none: no single PyTorch call walks the packed subtrees
+        nbytes = 4.0 * (packed.numel() + 2 * n * t_pad + 2 * f2.numel())
+        # ~10 integer operations a step, at the FP32 rate
+        res["bytes"] = nbytes
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 10.0 * n * t_pad * pf.k2)
+    return res
+
+
+def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
+    """K5, K6 and K9 at the shapes the forest paths give them."""
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
+
+    dev = X_rf.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    n = X_rf.shape[0]
+    edges = torch.from_numpy(pt.make_bin_edges(X_rf.cpu().numpy(), RF_BINS, seed=seed)).to(dev)
+    bins = pt.binize(X_rf, edges, d_pad=E2E_D)
+    cls = torch.nn.functional.one_hot(y_rf.long(), 2).float()
+    res = {}
+    # K5: the bench forest's deepest split level (12) and a shallow one
+    inp = rf_level_inputs(torch, pt, bins, cls, 12, 8, 16, E2E_D, g)
+    res["subblock_hist"] = check_subblock_hist(torch, rk, inp, reps, control=True)
+    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist"]})
+    inp = rf_level_inputs(torch, pt, bins, cls, 2, 8, 16, E2E_D, g)
+    res["subblock_hist_level2"] = check_subblock_hist(torch, rk, inp, reps)
+    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_level2"]})
+    # the regressor's level 12: S = 3 real-valued moments, k = 86 -> 128 in
+    # feature chunks
+    yr = X_rf[:, :8].sum(dim=1) + 0.5 * torch.randn(n, generator=g, device=dev)
+    reg = torch.stack([torch.ones_like(yr), yr, yr * yr], 1)
+    inp = rf_level_inputs(torch, pt, bins, reg, 12, 8, 86, E2E_D, g)
+    res["subblock_hist_variance"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
+    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_variance"]})
+    del inp
+    # ragged: k = 11 with out-of-range bins, nb in {32, 255}, S = 5, odd
+    # sub-block counts and sizes
+    for nb_r, r_sub, n_sb in ((32, 24, 1001), (255, 7, 3333)):
+        rows = r_sub * n_sb
+        binq = torch.randint(-2, nb_r + 3, (rows, 11), generator=g, device=dev, dtype=torch.int32)
+        sw = torch.poisson(torch.ones((rows, 5), device=dev), generator=g)
+        emit({"phase": "kernels", "kernel": "subblock_hist", "ragged": True, **check_subblock_hist(
+            torch, rk, {"binq": binq, "sw": sw, "nb": nb_r, "r_sub": r_sub}, 0)})
+    # K6: the 3,000-feature forest's level 12 (k = 55 -> 64, d_pad 4,096)
+    Xw = torch.randn((n, RF_WIDE_D), generator=g, device=dev)
+    ew = torch.from_numpy(pt.make_bin_edges(Xw[::8].cpu().numpy(), RF_BINS, seed=seed)).to(dev)
+    wide = pt.binize(Xw, ew, d_pad=pt.next_pow2(RF_WIDE_D))
+    del Xw
+    inp = rf_level_inputs(torch, pt, wide, cls, 12, 8, 55, RF_WIDE_D, g, sel=True)
+    res["subblock_hist_sel"] = check_subblock_hist(torch, rk, inp, reps, control=True, sel=True)
+    emit({"phase": "kernels", "kernel": "subblock_hist_sel", **res["subblock_hist_sel"]})
+    del inp
+    torch.cuda.empty_cache()
+    # ragged K6: n_features == d_pad (the sentinel lies past the row), S = 3
+    r_sub, n_sb, d_r = 40, 333, 200
+    bq = torch.randint(0, 255, (r_sub * n_sb, d_r), generator=g, device=dev, dtype=torch.uint8)
+    featsq = torch.randint(0, d_r + 1, (n_sb, 13), generator=g, device=dev, dtype=torch.int32)
+    sw = torch.poisson(torch.ones((r_sub * n_sb, 3), device=dev), generator=g)
+    emit({"phase": "kernels", "kernel": "subblock_hist_sel", "ragged": True, **check_subblock_hist(
+        torch, rk, {"bq": bq, "featsq": featsq, "sw": sw, "nb": 255, "r_sub": r_sub, "d_pad": d_r}, 0,
+        control=True, sel=True)})
+    # K9: one transform batch of the bench forest (depth 13: k1 = 7, k2 = 6)
+    feat, thr = random_forest(rng, RF_TREES, RF_DEPTH, E2E_D, RF_BINS)
+    res["packed_traverse"] = check_packed_traverse(torch, rk, pt, bins, feat, thr, RF_DEPTH, max(reps, 10),
+                                                   control=True)
+    emit({"phase": "kernels", "kernel": "packed_traverse", **res["packed_traverse"]})
+    # at 3,000 features (750 words a row), k2 = 1 and 6
+    xw = wide[:65_536, :RF_WIDE_D].contiguous()
+    for depth in (8, RF_DEPTH):
+        feat, thr = random_forest(rng, 16, depth, RF_WIDE_D, RF_BINS)
+        emit({"phase": "kernels", "kernel": "packed_traverse", "wide": True,
+              **check_packed_traverse(torch, rk, pt, xw, feat, thr, depth, 0, control=True)})
+    del wide, xw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -974,6 +1258,178 @@ def phase_umap_subset(torch, X_umap, seed, rows):
         check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
 
 
+RF_WRAPPERS = ("subblock_hist", "subblock_hist_sel", "packed_traverse")
+
+
+def _rf_counts(rk, zero=False):
+    out = {}
+    for name in RF_WRAPPERS:
+        w = getattr(rk, name)
+        out[name] = w.launches
+        if zero:
+            w.launches = 0
+    return out
+
+
+def phase_rf_e2e(torch, X_host, y_host, seed):
+    """The forest paths through ``DataFrame``, each with the launch counters
+    zeroed just before it and read just after: bench.py's classifier (fit,
+    transform, save/load, transform), the regressor on a real-valued label,
+    and the 3,000-feature classifier. Returns {kernel: {path: launches}}."""
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier, RandomForestRegressor
+    from spark_rapids_ml_tpu_torch.classification import RandomForestClassificationModel
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+
+    X, y = X_host[:RF_ROWS], y_host[:RF_ROWS]
+    n = X.shape[0]
+    by_path = {name: {} for name in RF_WRAPPERS}
+    feats = DataFrame({"features": X})
+
+    def record(path, counts, needed):
+        for name, c in counts.items():
+            by_path[name][path] = c
+        for name in needed:
+            check(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+
+    # 1. bench.py's rf config
+    _rf_counts(rk, zero=True)
+    est = RandomForestClassifier(numTrees=RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
+    model, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": X, "label": y})))
+    fit_counts = _rf_counts(rk)
+    out, t_tr = _timed(torch, lambda: model.transform(feats))
+    pred, prob = out.column("prediction"), out.column("probability")
+    with tempfile.TemporaryDirectory() as tmp:
+        (_, t_save) = _timed(torch, lambda: model.write().overwrite().save(tmp + "/rf"))
+        loaded, t_load = _timed(torch, lambda: RandomForestClassificationModel.load(tmp + "/rf"))
+    out2, t_tr2 = _timed(torch, lambda: loaded.transform(feats))
+    counts = _rf_counts(rk)
+    acc = float((pred == y).mean())
+    check(pred.shape == (n,) and np.isfinite(prob).all() and bool((np.abs(prob.sum(1) - 1) < 1e-5).all()),
+          "RandomForestClassifier transform shape, finiteness or probabilities")
+    check(np.array_equal(pred, out2.column("prediction")) and np.array_equal(prob, out2.column("probability")),
+          "RandomForestClassifier save/load changed the predictions")
+    check(acc > 0.9, f"RandomForestClassifier training accuracy {acc} <= 0.9")
+    emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_TREES, "maxDepth": RF_DEPTH,
+          "maxBins": RF_BINS, "rows": n, "d": X.shape[1], "fit_s": t_fit, "transform_s": t_tr,
+          "transform_rows_per_s": n / t_tr, "save_s": t_save, "load_s": t_load, "transform_after_load_s": t_tr2,
+          "train_accuracy": acc, "nodes": model.totalNumNodes, "engine": model._resolve_transform_engine(),
+          "fit_report": model._fit_report, "fit_launches": fit_counts, "launches": counts})
+    record("rf_classifier", counts, ("subblock_hist", "packed_traverse"))
+
+    # 2. the regressor: a real-valued label from --seed
+    rng = np.random.default_rng(seed + 11)
+    w = rng.normal(size=8).astype(np.float32)
+    yr = (X[:, :8] @ w + np.sin(X[:, 8]) + 0.3 * rng.normal(size=n)).astype(np.float32)
+    _rf_counts(rk, zero=True)
+    est = RandomForestRegressor(numTrees=RF_SMALL_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
+    rmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": X, "label": yr})))
+    out, t_tr = _timed(torch, lambda: rmodel.transform(feats))
+    counts = _rf_counts(rk)
+    pr = out.column("prediction")
+    r2 = float(1.0 - ((pr - yr) ** 2).mean() / yr.var())
+    check(np.isfinite(pr).all() and r2 > 0.5, f"RandomForestRegressor training R^2 {r2} <= 0.5")
+    emit({"phase": "e2e", "estimator": "RandomForestRegressor", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
+          "maxBins": RF_BINS, "rows": n, "fit_s": t_fit, "transform_s": t_tr, "train_r2": r2,
+          "nodes": rmodel.totalNumNodes, "fit_report": rmodel._fit_report, "launches": counts})
+    record("rf_regressor", counts, ("subblock_hist", "packed_traverse"))
+    del rmodel, out
+
+    # 3. the reference's 3,000-feature width: K6 selects each node's 55
+    # features from the full rows
+    g = torch.Generator(device="cuda:0")
+    g.manual_seed(seed + 13)
+    Xw = torch.randn((n, RF_WIDE_D), generator=g, device="cuda:0")
+    cols = torch.randperm(RF_WIDE_D, generator=g, device="cuda:0")[:30]
+    yw = (Xw[:, cols].sum(dim=1) > 0).float().cpu().numpy()
+    Xw = Xw.cpu().numpy()
+    torch.cuda.empty_cache()
+    _rf_counts(rk, zero=True)
+    torch.cuda.reset_peak_memory_stats()
+    est = RandomForestClassifier(numTrees=RF_SMALL_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
+    wmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": Xw, "label": yw})))
+    peak = torch.cuda.max_memory_allocated()
+    out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xw})))
+    counts = _rf_counts(rk)
+    acc_w = float((out.column("prediction") == yw).mean())
+    # each node sees 55 of the 3,000 features, about one of the 30 the label
+    # depends on: the check is that the forest learned something
+    check(acc_w > 0.6, f"3,000-feature RandomForestClassifier training accuracy {acc_w} <= 0.6")
+    emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
+          "maxBins": RF_BINS, "rows": n, "d": RF_WIDE_D, "fit_s": t_fit, "transform_s": t_tr,
+          "train_accuracy": acc_w, "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report,
+          "launches": counts})
+    record("rf_wide", counts, ("subblock_hist_sel", "packed_traverse"))
+    return by_path
+
+
+def phase_rf_profile(torch, X_host, y_host, seed):
+    """One tree batch (8 trees) of the bench forest fitted again under
+    ``torch.profiler``: the device time of every kernel and copy against
+    the fit's wall clock (the device's busy share; the profiler adds host
+    overhead, so the share is a lower bound), and the largest device-time
+    kernels and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier
+
+    df = DataFrame({"features": X_host[:RF_ROWS], "label": y_host[:RF_ROWS]})
+    est = RandomForestClassifier(numTrees=RF_SMALL_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
+    plain_model, t_plain = _timed(torch, lambda: est.fit(df))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t_prof = _timed(torch, lambda: est.fit(df))
+    # device-side events only (kernels, copies, sets): an operator's entry
+    # carries the device time of the kernels it launched again
+    ops = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            ops.append((us, e.key, e.count))
+    ops.sort(reverse=True)
+    device_s = sum(us for us, _, _ in ops) / 1e6
+    emit({"phase": "e2e", "check": "rf_profile", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH, "rows": RF_ROWS,
+          "fit_s": t_plain, "fit_report": plain_model._fit_report, "profiled_fit_s": t_prof,
+          "device_s": device_s if ops else "not measured",
+          "device_busy_share": device_s / t_prof if ops else "not measured",
+          "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in ops[:12]]})
+
+
+def phase_rf_subset(torch, X_host, y_host, seed, rows):
+    """The same forest fitted on the card and on the CPU (plain versions),
+    with the same draws (a CPU generator on either side) and exact integer
+    histograms: the trees are expected to be equal. Counts the differing
+    nodes and holds the predictions to RF_AGREE_MIN agreement."""
+    from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+
+    df = DataFrame({"features": X_host[:rows], "label": y_host[:rows]})
+    _rf_counts(rk, zero=True)
+    fits, secs, preds = {}, {}, {}
+    for dev in ("cuda:0", "cpu"):
+        est = RandomForestClassifier(numTrees=RF_SMALL_TREES, maxDepth=RF_SUBSET_DEPTH, maxBins=RF_BINS,
+                                     seed=seed, device=dev)
+        fits[dev], secs[dev] = _timed(torch, lambda: est.fit(df))
+        preds[dev] = fits[dev].transform(df).column("prediction")
+    counts = _rf_counts(rk)
+    a, b = fits["cuda:0"]._model_attributes, fits["cpu"]._model_attributes
+    differ = int(((a["features"] != b["features"]) | (a["threshold_bins"] != b["threshold_bins"])).sum())
+    leaf_differ = int((a["leaf_stats"] != b["leaf_stats"]).any(axis=2).sum())
+    agree = float((preds["cuda:0"] == preds["cpu"]).mean())
+    emit({"phase": "subset", "estimator": "RandomForestClassifier", "rows": rows, "numTrees": RF_SMALL_TREES,
+          "maxDepth": RF_SUBSET_DEPTH, "nodes_differ": differ, "leaf_stats_differ": leaf_differ,
+          "gains_equal": bool(np.array_equal(a["gains"], b["gains"])), "prediction_agreement": agree,
+          "agreement_min": RF_AGREE_MIN, "fit_s_card": secs["cuda:0"], "fit_s_cpu": secs["cpu"],
+          "launches": counts})
+    check(agree >= RF_AGREE_MIN, f"forest card vs CPU predictions agree on {agree} < {RF_AGREE_MIN}")
+    for name in ("subblock_hist", "packed_traverse"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the card-vs-CPU path")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -1020,6 +1476,7 @@ def main() -> int:
     X_umap = make_umap_data(UMAP_ROWS, args.seed)
     ni = min(KNN_ITEMS, n)
     kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, args.reps, args.seed))
+    kern.update(phase_rf_kernels(torch, X[:min(RF_ROWS, n)], y[:min(RF_ROWS, n)], args.reps, args.seed))
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
@@ -1033,32 +1490,48 @@ def main() -> int:
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
     by_path["sgd_epoch_rows"] = {"umap": umap_launches["sgd_epoch_rows"]}
     phase_umap_subset(torch, X_umap, args.seed, UMAP_SUBSET)
+    rf_paths = phase_rf_e2e(torch, X_host, y_host, args.seed)
+    phase_rf_profile(torch, X_host, y_host, args.seed)
+    rf_subset = phase_rf_subset(torch, X_host, y_host, args.seed, min(RF_SUBSET_ROWS, n))
+    for name, paths in rf_paths.items():
+        by_path[name] = {path: c for path, c in paths.items() if c}
+        if rf_subset[name]:
+            by_path[name]["rf_card_vs_cpu"] = rf_subset[name]
 
+    # name -> (TPU kernel's pallas_call, key of the measurement, source file)
     sources = {
-        "shifted_gram": ("spark_rapids_ml_tpu/ops/linalg.py:141", "shifted_gram"),
-        "lloyd_step": ("spark_rapids_ml_tpu/ops/kmeans_pallas.py:174", "lloyd_step"),
-        "logreg_loss_grad": ("spark_rapids_ml_tpu/ops/logreg_pallas.py:152", "logreg_loss_grad"),
-        "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk"),
-        "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows"),
+        "shifted_gram": ("spark_rapids_ml_tpu/ops/linalg.py:141", "shifted_gram", "shifted_gram"),
+        "lloyd_step": ("spark_rapids_ml_tpu/ops/kmeans_pallas.py:174", "lloyd_step", "lloyd_step"),
+        "logreg_loss_grad": ("spark_rapids_ml_tpu/ops/logreg_pallas.py:152", "logreg_loss_grad",
+                             "logreg_loss_grad"),
+        "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk", "knn_topk"),
+        "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows", "umap_sgd_epoch"),
+        "subblock_hist": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "subblock_hist", "rf_hist"),
+        "subblock_hist_sel": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "subblock_hist_sel", "rf_hist"),
+        "packed_traverse": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_traverse", "rf_traverse"),
     }
     kernels = []
-    for name, (replaces, key) in sources.items():
+    for name, (replaces, key, src) in sources.items():
         r = kern[key]
         entry = {
             "name": name, "route": "cuda",
-            "source": f"spark_rapids_ml_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "source": f"spark_rapids_ml_tpu_torch/csrc/{src}.cu", "replaces": replaces,
             # the sum over the paths that run the kernel, each counted alone
             "launches": sum(by_path[key].values()), "launches_by_path": by_path[key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab") if k in r},
+            "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
+                                        "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
+                                        "k1", "k2") if k in r},
         }
         kernels.append(entry)
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
-             "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"]}
+             "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"],
+             "subblock_hist_level2": kern["subblock_hist_level2"],
+             "subblock_hist_variance": kern["subblock_hist_variance"]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -10,18 +10,25 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch.clustering import KMeans
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
     from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
+    from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
 """
 
 __version__ = "0.1.0"
 
 from .data.dataframe import DataFrame, Row
+from .classification import RandomForestClassificationModel, RandomForestClassifier
 from .knn import NearestNeighbors, NearestNeighborsModel
+from .regression import RandomForestRegressionModel, RandomForestRegressor
 from .umap import UMAP, UMAPModel
 
 __all__ = [
     "DataFrame",
     "NearestNeighbors",
     "NearestNeighborsModel",
+    "RandomForestClassificationModel",
+    "RandomForestClassifier",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
     "Row",
     "UMAP",
     "UMAPModel",

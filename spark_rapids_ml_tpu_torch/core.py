@@ -57,6 +57,10 @@ _JAX_CLASSES = {
         ("classification", "LogisticRegressionModel"),
         ("umap", "UMAP"),
         ("umap", "UMAPModel"),
+        ("tree", "RandomForestClassifier"),
+        ("tree", "RandomForestClassificationModel"),
+        ("tree", "RandomForestRegressor"),
+        ("tree", "RandomForestRegressionModel"),
     )
 }
 

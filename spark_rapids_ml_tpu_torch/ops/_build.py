@@ -25,7 +25,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
-SOURCES = ("shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "umap_sgd_epoch")
+SOURCES = (
+    "shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "umap_sgd_epoch", "rf_hist",
+    "rf_traverse",
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"

@@ -176,9 +176,10 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import spark_rapids_ml_tpu_torch\n"
         "from spark_rapids_ml_tpu_torch import core, interop, feature, clustering, classification, knn, umap\n"
+        "from spark_rapids_ml_tpu_torch import regression\n"
         "from spark_rapids_ml_tpu_torch.ops import _build, linalg, kmeans_kernels, lbfgs, logreg_kernels\n"
-        "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels\n"
-        "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap\n"
+        "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels, rf_kernels, tree_kernels\n"
+        "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap, tree as mtree\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spark_rapids_ml_tpu' or m.startswith('spark_rapids_ml_tpu.')]\n"
         "print(bad)\n"
