@@ -26,7 +26,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    repeatable bit for bit; K6 (fused selection) at the 131,072 x 3,000
    level-12 call and a ragged one with n_features == d_pad; K9 (packed
    traversal) on one transform batch of a depth-13, 50-tree forest, at
-   3,000 features and at k2 in {1, 6}, equal to its plain version.
+   3,000 features and at k2 in {1, 6}, equal to its plain version; K8
+   (packed-byte gather, one launch per group of 8 trees) at the byte
+   indices the bins engine makes for 8 depth-13 trees (k = 63), for 8
+   depth-8 trees (the GBT's k = 1), at 3,000 features (750 words) and at
+   ragged shapes with out-of-range indices, equal to its plain version,
+   and K7 (its one-index-set form) likewise; K5 at the GBT's deepest split
+   level (S = 4 logistic stats, one tree, all 256 features).
 3. end to end, each path with the launch counters zeroed just before it
    and read just after (every kernel of the path must have run): PCA(k=16),
    KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
@@ -41,9 +47,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    transform, save/load and transform on the first 131,072 rows (bench.py's
    rf config), RandomForestRegressor(numTrees=8) on the same rows with a
    real-valued label, RandomForestClassifier(numTrees=8) on 131,072 x 3,000
-   rows (the reference's benchmark width: K6), and an 8-tree depth-10
-   forest on 20,000 rows fitted on the card and on the CPU (the same draws:
-   predictions agree on >= 99.9% of rows).
+   rows (the reference's benchmark width: K6), each classifier's bins
+   engine (K8) equal to its packed engine (K9) bit for bit, and an 8-tree
+   depth-10 forest on 20,000 rows fitted on the card and on the CPU (the
+   same draws: predictions agree on >= 99.9% of rows);
+   GBTClassifier(maxIter=20, maxDepth=8, maxBins=128) fit, transform, bins
+   engine (equal bit for bit) and save/load on the rf rows (bench.py's gbt
+   config), GBTRegressor likewise on the regressor's label, and a 20,000-row
+   10-round GBT fitted on the card and on the CPU (predictions agree on >=
+   99.5% of rows).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -91,6 +103,20 @@ RF_WIDE_D = 3000
 RF_SUBSET_ROWS = 20_000
 RF_SUBSET_DEPTH = 10
 RF_AGREE_MIN = 0.999
+# bench.py's gbt config (bench.py:955-1137): binary logistic on the rf rows,
+# 20 rounds, depth 8 (hop 1 of 7 levels, hop 2 of 1), 128 bins, all features
+GBT_ROUNDS = 20
+GBT_DEPTH = 8
+# training accuracy floor of the GBT classifier: the label is a hyperplane
+# through all 256 features, which 20 lr-0.1 rounds of axis-aligned depth-8
+# trees fit to about 0.8 (a flipped near-tie moves it by about 0.01); the
+# constant model scores 0.5
+GBT_ACC_MIN = 0.75
+# the GBT fitted on the card and on the CPU: gradient stats are real
+# valued, so sums in other orders may move a near-tied split (RF's 99.9%
+# rests on exact integer histograms)
+GBT_SUBSET_ROUNDS = 10
+GBT_AGREE_MIN = 0.995
 
 
 def emit(obj) -> None:
@@ -741,20 +767,21 @@ def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
     return res
 
 
-def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=False):
+def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=False, depth=RF_DEPTH,
+                    bootstrap=True):
     """The inputs one compact level of the forest builder gives K5 (K6 with
-    ``sel``) for T trees, laid out by the builder's own glue
-    (``compact_sizes``, ``_compact_layout``): each tree's rows (Poisson(1)
-    bootstrap weights) spread over the level's 2^level nodes at random,
-    each node's k features drawn at random, sentinel slots up to the next
-    power of two."""
+    ``sel``) for T trees of ``depth`` levels, laid out by the builder's own
+    glue (``compact_sizes``, ``_compact_layout``): each tree's rows
+    (Poisson(1) bootstrap weights, or 1 without ``bootstrap``) spread over
+    the level's 2^level nodes at random, each node's k features drawn at
+    random, sentinel slots up to the next power of two."""
     n, d_pad = bins.shape
     dev, S = bins.device, stats.shape[1]
     n_nodes, k_pad = 1 << level, pt.next_pow2(k)
-    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, RF_DEPTH, S, k_pad, RF_BINS)
+    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, depth, S, k_pad, RF_BINS)
     seg = torch.randint(0, n_nodes, (T, n), generator=g, device=dev)
     src2, pvalid, sbc, _ = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
-    w = torch.poisson(torch.ones((T, n), device=dev), generator=g)
+    w = torch.poisson(torch.ones((T, n), device=dev), generator=g) if bootstrap else torch.ones((T, n), device=dev)
     sw = (stats[None] * w[..., None]).gather(1, src2[..., None].expand(T, n_pad, S))
     sw = (sw * pvalid[..., None]).reshape(T * n_pad, S).contiguous()
     feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
@@ -925,8 +952,109 @@ def check_packed_traverse(torch, rk, pt, xb, feat, thr, depth, reps, control=Fal
     return res
 
 
+def hop2_indices(torch, pt, xb, feat, thr, depth):
+    """The (G, n, 2^k2 - 1) int32 byte indices the bins engine gives K8 for
+    one group of trees: each row's hop-2 table row, selected by its own
+    hop 1 (``tree_kernels._hop2_rows``)."""
+    k1, k2 = pt._split_depths(depth)
+    f, t = torch.from_numpy(feat).to(xb.device).long(), torch.from_numpy(thr).to(xb.device).long()
+    return torch.stack([pt._hop2_rows(xb, f[i], t[i], k1=k1, k2=k2)[5] for i in range(f.shape[0])]).to(torch.int32)
+
+
+def check_byte_gather(torch, rk, packed, idx, reps, control=False, single=False):
+    """K8 (K7 with ``single``: the first index set alone) against its plain
+    version: integer bytes, equal. The control flips one output byte,
+    which the check must catch. Library: one ``torch.gather`` on the
+    rows' byte view with an int64 index made beforehand (the index
+    conversion is not timed)."""
+    if single:
+        idx = idx[0]
+        kern, plain = rk.packed_byte_gather, rk.packed_byte_gather_plain
+    else:
+        kern, plain = rk.packed_byte_gather_many, rk.packed_byte_gather_many_plain
+    out = kern(packed, idx)
+    ref = plain(packed, idx)
+    torch.cuda.synchronize()
+    n, words = packed.shape
+    G, k = (1, idx.shape[1]) if single else (idx.shape[0], idx.shape[2])
+    differ = int((out != ref).sum())
+    check(differ == 0, f"{kern.__name__} n={n} words={words} G={G} k={k}: {differ} bytes differ")
+    outside = int(((idx < 0) | (idx >= 4 * words)).sum())
+    res = {"rows": n, "words": words, "G": G, "k": k, "max_abs_err": 0, "bytes_differ": differ,
+           "out_of_range_indices": outside}
+    if control:
+        bad = out.clone().view(-1)
+        pos = bad.numel() // 2 + 1
+        bad[pos] ^= 1
+        caught = not bool(torch.equal(bad.view(out.shape), ref))
+        check(caught, f"the {kern.__name__} check does not catch a flipped output byte")
+        res["controls"] = [{"control": f"output entry {pos}: lowest bit flipped", "caught": caught}]
+        del bad
+    if reps:
+        res["ms"] = cuda_ms(torch, lambda: kern(packed, idx), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: plain(packed, idx), reps)
+        pb = packed.view(torch.uint8)                    # (n, 4·words), little-endian bytes
+        i64 = idx.long()
+        src = pb if single else pb.unsqueeze(0).expand(G, n, 4 * words)
+        res["library_ms"] = cuda_ms(torch, lambda: torch.gather(src, src.dim() - 1, i64), reps)
+        res["library_call"] = "torch.gather on the uint8 byte view, int64 index made beforehand"
+        del i64
+        # idx read once, out written once (int32 each), the rows read once
+        nbytes = 4.0 * (2 * G * n * k + n * words)
+        res["bytes"] = nbytes
+        # a shift, a mask, a compare pair and a select per output
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 5.0 * G * n * k)
+    return res
+
+
+def phase_byte_gather_kernels(torch, bins, wide, reps, seed):
+    """K8 (and K7) at the bins engine's shapes: the bench forest's (8
+    depth-13 trees, k = 63, 64 words), the GBT's (8 depth-8 trees, k = 1),
+    3,000 features (750 words), and ragged n, words, G and k with
+    out-of-range indices."""
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
+
+    rng = np.random.default_rng(seed + 17)
+    res = {}
+    packed = pt.pack_bins(bins)
+    feat, thr = random_forest(rng, 8, RF_DEPTH, bins.shape[1], RF_BINS)
+    idx = hop2_indices(torch, pt, bins, feat, thr, RF_DEPTH)
+
+    def held_timed(key, kernel, shape, packed_rows, indices, single=False):
+        res[key] = check_byte_gather(torch, rk, packed_rows, indices, reps, control=True, single=single)
+        emit({"phase": "kernels", "kernel": kernel, "shape": shape, **res[key]})
+
+    held_timed("packed_byte_gather_many", "packed_byte_gather_many", "rf_bench", packed, idx)
+    held_timed("packed_byte_gather", "packed_byte_gather", "rf_bench_one_tree", packed, idx, single=True)
+    feat, thr = random_forest(rng, 8, GBT_DEPTH, bins.shape[1], RF_BINS)
+    idx = hop2_indices(torch, pt, bins, feat, thr, GBT_DEPTH)
+    held_timed("packed_byte_gather_many_gbt", "packed_byte_gather_many", "gbt", packed, idx)
+    xw = wide[:, :RF_WIDE_D].contiguous()
+    feat, thr = random_forest(rng, 8, RF_DEPTH, RF_WIDE_D, RF_BINS)
+    idx = hop2_indices(torch, pt, xw, feat, thr, RF_DEPTH)
+    held_timed("packed_byte_gather_many_wide", "packed_byte_gather_many", "rf_wide", pt.pack_bins(xw), idx)
+    del xw, idx
+    # ragged: n, words, G and k off every block size, indices at 4·words
+    # (the sentinel past the row) and -1, which must read 0
+    n_r, w_r, g_r, k_r = 10_007, 37, 3, 5
+    pk = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(n_r, w_r), dtype=np.int64).astype(np.int32)).cuda()
+    ir = torch.from_numpy(rng.integers(-1, 4 * w_r + 1, size=(g_r, n_r, k_r)).astype(np.int32)).cuda()
+    ir[:, ::7, 0] = 4 * w_r
+    ir[:, ::5, -1] = -1
+    r = check_byte_gather(torch, rk, pk, ir, 0, control=True)
+    check(bool((rk.packed_byte_gather_many(pk, ir)[(ir < 0) | (ir >= 4 * w_r)] == 0).all()),
+          "packed_byte_gather_many: an out-of-range index did not read 0")
+    emit({"phase": "kernels", "kernel": "packed_byte_gather_many", "ragged": True, **r})
+    emit({"phase": "kernels", "kernel": "packed_byte_gather", "ragged": True,
+          **check_byte_gather(torch, rk, pk, ir, 0, single=True)})
+    torch.cuda.synchronize()
+    return res
+
+
 def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
-    """K5, K6 and K9 at the shapes the forest paths give them."""
+    """K5, K6 and K9 at the shapes the forest paths give them, K5 at the
+    GBT's deepest split level, and K8/K7 (``phase_byte_gather_kernels``)."""
     from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
     from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
 
@@ -991,7 +1119,21 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
         feat, thr = random_forest(rng, 16, depth, RF_WIDE_D, RF_BINS)
         emit({"phase": "kernels", "kernel": "packed_traverse", "wide": True,
               **check_packed_traverse(torch, rk, pt, xw, feat, thr, depth, 0, control=True)})
-    del wide, xw
+    del xw
+    res.update(phase_byte_gather_kernels(torch, bins, wide, reps, seed))
+    del wide
+    torch.cuda.empty_cache()
+    # K5 at the GBT's deepest split level (7 of depth 8): one tree, all 256
+    # features, S = 4 logistic stats (w, r, r^2, h) at random margins
+    m = torch.randn(n, generator=g, device=dev)
+    p = torch.sigmoid(m)
+    r = y_rf - p
+    logit = torch.stack([torch.ones_like(r), r, r * r, (p * (1 - p)).clamp_min(1e-12)], 1)
+    inp = rf_level_inputs(torch, pt, bins, logit, GBT_DEPTH - 1, 1, E2E_D, E2E_D, g, depth=GBT_DEPTH,
+                          bootstrap=False)
+    res["subblock_hist_gbt"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
+    emit({"phase": "kernels", "kernel": "subblock_hist", "shape": "gbt_level7", **res["subblock_hist_gbt"]})
+    del inp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return res
@@ -1258,7 +1400,8 @@ def phase_umap_subset(torch, X_umap, seed, rows):
         check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
 
 
-RF_WRAPPERS = ("subblock_hist", "subblock_hist_sel", "packed_traverse")
+RF_WRAPPERS = ("subblock_hist", "subblock_hist_sel", "packed_traverse", "packed_byte_gather_many",
+               "packed_byte_gather")
 
 
 def _rf_counts(rk, zero=False):
@@ -1271,11 +1414,29 @@ def _rf_counts(rk, zero=False):
     return out
 
 
+def regression_label(X, seed):
+    """A real-valued label from ``--seed``: a linear part, a bend, noise."""
+    rng = np.random.default_rng(seed + 11)
+    w = rng.normal(size=8).astype(np.float32)
+    return (X[:, :8] @ w + np.sin(X[:, 8]) + 0.3 * rng.normal(size=X.shape[0])).astype(np.float32)
+
+
+def bins_engine_equal(torch, model, X, packed_out, what):
+    """The model's bins engine (K8) on the same rows: every column equal to
+    the packed engine's (K9) bit for bit. Returns its seconds."""
+    fn = model._get_transform_func(engine="bins")
+    out, secs = _timed(torch, lambda: model._apply_batched(fn, X))
+    for c in model._out_cols():
+        check(np.array_equal(out[c], packed_out.column(c)), f"{what}: bins and packed engines differ in {c}")
+    return secs
+
+
 def phase_rf_e2e(torch, X_host, y_host, seed):
     """The forest paths through ``DataFrame``, each with the launch counters
     zeroed just before it and read just after: bench.py's classifier (fit,
-    transform, save/load, transform), the regressor on a real-valued label,
-    and the 3,000-feature classifier. Returns {kernel: {path: launches}}."""
+    transform, the bins engine, save/load, transform), the regressor on a
+    real-valued label, and the 3,000-feature classifier (fit, transform,
+    the bins engine). Returns {kernel: {path: launches}}."""
     import tempfile
 
     from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier, RandomForestRegressor
@@ -1304,6 +1465,7 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
         (_, t_save) = _timed(torch, lambda: model.write().overwrite().save(tmp + "/rf"))
         loaded, t_load = _timed(torch, lambda: RandomForestClassificationModel.load(tmp + "/rf"))
     out2, t_tr2 = _timed(torch, lambda: loaded.transform(feats))
+    t_bins = bins_engine_equal(torch, model, X, out, "RandomForestClassifier")
     counts = _rf_counts(rk)
     acc = float((pred == y).mean())
     check(pred.shape == (n,) and np.isfinite(prob).all() and bool((np.abs(prob.sum(1) - 1) < 1e-5).all()),
@@ -1314,14 +1476,13 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_TREES, "maxDepth": RF_DEPTH,
           "maxBins": RF_BINS, "rows": n, "d": X.shape[1], "fit_s": t_fit, "transform_s": t_tr,
           "transform_rows_per_s": n / t_tr, "save_s": t_save, "load_s": t_load, "transform_after_load_s": t_tr2,
-          "train_accuracy": acc, "nodes": model.totalNumNodes, "engine": model._resolve_transform_engine(),
+          "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc,
+          "nodes": model.totalNumNodes, "engine": model._resolve_transform_engine(),
           "fit_report": model._fit_report, "fit_launches": fit_counts, "launches": counts})
-    record("rf_classifier", counts, ("subblock_hist", "packed_traverse"))
+    record("rf_classifier", counts, ("subblock_hist", "packed_traverse", "packed_byte_gather_many"))
 
     # 2. the regressor: a real-valued label from --seed
-    rng = np.random.default_rng(seed + 11)
-    w = rng.normal(size=8).astype(np.float32)
-    yr = (X[:, :8] @ w + np.sin(X[:, 8]) + 0.3 * rng.normal(size=n)).astype(np.float32)
+    yr = regression_label(X, seed)
     _rf_counts(rk, zero=True)
     est = RandomForestRegressor(numTrees=RF_SMALL_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
     rmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": X, "label": yr})))
@@ -1351,6 +1512,7 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     wmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": Xw, "label": yw})))
     peak = torch.cuda.max_memory_allocated()
     out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xw})))
+    t_bins = bins_engine_equal(torch, wmodel, Xw, out, "3,000-feature RandomForestClassifier")
     counts = _rf_counts(rk)
     acc_w = float((out.column("prediction") == yw).mean())
     # each node sees 55 of the 3,000 features, about one of the 30 the label
@@ -1358,10 +1520,114 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     check(acc_w > 0.6, f"3,000-feature RandomForestClassifier training accuracy {acc_w} <= 0.6")
     emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
           "maxBins": RF_BINS, "rows": n, "d": RF_WIDE_D, "fit_s": t_fit, "transform_s": t_tr,
-          "train_accuracy": acc_w, "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report,
-          "launches": counts})
-    record("rf_wide", counts, ("subblock_hist_sel", "packed_traverse"))
+          "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc_w,
+          "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report, "launches": counts})
+    record("rf_wide", counts, ("subblock_hist_sel", "packed_traverse", "packed_byte_gather_many"))
     return by_path
+
+
+def phase_gbt_e2e(torch, X_host, y_host, seed):
+    """bench.py's gbt config through ``DataFrame``, each estimator with the
+    launch counters zeroed just before it and read just after:
+    GBTClassifier (fit, transform through the packed engine, the bins
+    engine, save/load, transform) on the rf rows and labels, and
+    GBTRegressor (fit, both engines) on the regressor's real-valued label.
+    Returns {kernel: {path: launches}}."""
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, GBTClassifier, GBTRegressor
+    from spark_rapids_ml_tpu_torch.classification import GBTClassificationModel
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+
+    X, y = X_host[:RF_ROWS], y_host[:RF_ROWS]
+    n = X.shape[0]
+    feats = DataFrame({"features": X})
+    by_path = {name: {} for name in RF_WRAPPERS}
+    needed = ("subblock_hist", "packed_traverse", "packed_byte_gather_many")
+    kw = dict(maxIter=GBT_ROUNDS, maxDepth=GBT_DEPTH, maxBins=RF_BINS, seed=seed)
+
+    def run(path, est, label, extra):
+        _rf_counts(rk, zero=True)
+        model, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": X, "label": label})))
+        fit_counts = _rf_counts(rk)
+        out, t_tr = _timed(torch, lambda: model.transform(feats))
+        t_bins = bins_engine_equal(torch, model, X, out, type(est).__name__)
+        res, checks = extra(model, out)
+        counts = _rf_counts(rk)
+        for name, c in counts.items():
+            by_path[name][path] = c
+        emit({"phase": "e2e", "estimator": type(est).__name__, "maxIter": GBT_ROUNDS, "maxDepth": GBT_DEPTH,
+              "maxBins": RF_BINS, "rows": n, "d": X.shape[1], "fit_s": t_fit, "transform_s": t_tr,
+              "transform_rows_per_s": n / t_tr, "transform_bins_s": t_bins, "bins_equal_packed": True,
+              "engine": model._resolve_transform_engine(), "k1_k2": [model._ensure_packed().k1,
+                                                                    model._ensure_packed().k2],
+              "trees": model.getNumTrees(), "nodes": model.totalNumNodes, "fit_report": model._fit_report,
+              "fit_launches": fit_counts, "launches": counts, **res})
+        for cond, msg in checks:
+            check(cond, msg)
+        for name in needed:
+            check(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+
+    def classifier_checks(model, out):
+        pred, prob = out.column("prediction"), out.column("probability")
+        with tempfile.TemporaryDirectory() as tmp:
+            _, t_save = _timed(torch, lambda: model.write().overwrite().save(tmp + "/gbt"))
+            loaded, t_load = _timed(torch, lambda: GBTClassificationModel.load(tmp + "/gbt"))
+        out2, t_tr2 = _timed(torch, lambda: loaded.transform(feats))
+        acc = float((pred == y).mean())
+        checks = [(np.array_equal(out.column(c), out2.column(c)), f"GBTClassifier save/load changed {c}")
+                  for c in model._out_cols()]
+        checks += [
+            (pred.shape == (n,) and np.isfinite(prob).all() and bool((np.abs(prob.sum(1) - 1) < 1e-5).all()),
+             "GBTClassifier transform shape, finiteness or probabilities"),
+            (acc > GBT_ACC_MIN, f"GBTClassifier training accuracy {acc} <= {GBT_ACC_MIN}"),
+        ]
+        return {"train_accuracy": acc, "save_s": t_save, "load_s": t_load, "transform_after_load_s": t_tr2}, checks
+
+    yr = regression_label(X, seed)
+
+    def regressor_checks(model, out):
+        pr = out.column("prediction")
+        r2 = float(1.0 - ((pr - yr) ** 2).mean() / yr.var())
+        return {"train_r2": r2}, [(np.isfinite(pr).all() and r2 > 0.5, f"GBTRegressor training R^2 {r2} <= 0.5")]
+
+    run("gbt_classifier", GBTClassifier(**kw), y, classifier_checks)
+    run("gbt_regressor", GBTRegressor(**kw), yr, regressor_checks)
+    return by_path
+
+
+def phase_gbt_subset(torch, X_host, y_host, seed, rows):
+    """The same GBT fitted on the card and on the CPU (plain versions):
+    no draws, and K5 adds in row order as the CPU does, but the gradient
+    stats are real valued, so the card's other rounding (sigmoid, per-node
+    sums) may move a near-tied split. Counts the differing nodes and the
+    largest margin difference, and holds the predictions to GBT_AGREE_MIN
+    agreement."""
+    from spark_rapids_ml_tpu_torch import DataFrame, GBTClassifier
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+
+    df = DataFrame({"features": X_host[:rows], "label": y_host[:rows]})
+    _rf_counts(rk, zero=True)
+    fits, secs, outs = {}, {}, {}
+    for dev in ("cuda:0", "cpu"):
+        est = GBTClassifier(maxIter=GBT_SUBSET_ROUNDS, maxDepth=GBT_DEPTH, maxBins=RF_BINS, seed=seed, device=dev)
+        fits[dev], secs[dev] = _timed(torch, lambda: est.fit(df))
+        outs[dev] = fits[dev].transform(df)
+    counts = _rf_counts(rk)
+    a, b = fits["cuda:0"]._model_attributes, fits["cpu"]._model_attributes
+    differ = int(((a["features"] != b["features"]) | (a["threshold_bins"] != b["threshold_bins"])).sum())
+    margin_diff = float(np.abs(outs["cuda:0"].column("rawPrediction")[:, 1]
+                               - outs["cpu"].column("rawPrediction")[:, 1]).max())
+    agree = float((outs["cuda:0"].column("prediction") == outs["cpu"].column("prediction")).mean())
+    emit({"phase": "subset", "estimator": "GBTClassifier", "rows": rows, "maxIter": GBT_SUBSET_ROUNDS,
+          "maxDepth": GBT_DEPTH, "nodes_differ": differ, "max_margin_diff": margin_diff,
+          "leaf_values_max_diff": float(np.abs(a["leaf_values"] - b["leaf_values"]).max()),
+          "prediction_agreement": agree, "agreement_min": GBT_AGREE_MIN, "fit_s_card": secs["cuda:0"],
+          "fit_s_cpu": secs["cpu"], "fit_report_card": fits["cuda:0"]._fit_report, "launches": counts})
+    check(agree >= GBT_AGREE_MIN, f"GBT card vs CPU predictions agree on {agree} < {GBT_AGREE_MIN}")
+    for name in ("subblock_hist", "packed_traverse"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the GBT card-vs-CPU path")
+    return counts
 
 
 def phase_rf_profile(torch, X_host, y_host, seed):
@@ -1493,10 +1759,13 @@ def main() -> int:
     rf_paths = phase_rf_e2e(torch, X_host, y_host, args.seed)
     phase_rf_profile(torch, X_host, y_host, args.seed)
     rf_subset = phase_rf_subset(torch, X_host, y_host, args.seed, min(RF_SUBSET_ROWS, n))
-    for name, paths in rf_paths.items():
-        by_path[name] = {path: c for path, c in paths.items() if c}
-        if rf_subset[name]:
-            by_path[name]["rf_card_vs_cpu"] = rf_subset[name]
+    gbt_paths = phase_gbt_e2e(torch, X_host, y_host, args.seed)
+    gbt_subset = phase_gbt_subset(torch, X_host, y_host, args.seed, min(RF_SUBSET_ROWS, n))
+    for name in RF_WRAPPERS:
+        by_path[name] = {path: c for paths in (rf_paths[name], gbt_paths[name]) for path, c in paths.items() if c}
+        for path, sub in (("rf_card_vs_cpu", rf_subset), ("gbt_card_vs_cpu", gbt_subset)):
+            if sub[name]:
+                by_path[name][path] = sub[name]
 
     # name -> (TPU kernel's pallas_call, key of the measurement, source file)
     sources = {
@@ -1509,6 +1778,10 @@ def main() -> int:
         "subblock_hist": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "subblock_hist", "rf_hist"),
         "subblock_hist_sel": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "subblock_hist_sel", "rf_hist"),
         "packed_traverse": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_traverse", "rf_traverse"),
+        "packed_byte_gather_many": ("spark_rapids_ml_tpu/ops/rf_pallas.py:727", "packed_byte_gather_many",
+                                    "rf_byte_gather"),
+        # no caller in either package: its held measurement, no launches
+        "packed_byte_gather": ("spark_rapids_ml_tpu/ops/rf_pallas.py:507", "packed_byte_gather", "rf_byte_gather"),
     }
     kernels = []
     for name, (replaces, key, src) in sources.items():
@@ -1523,7 +1796,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
-                                        "k1", "k2") if k in r},
+                                        "k1", "k2", "words", "G") if k in r},
         }
         kernels.append(entry)
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
@@ -1531,7 +1804,10 @@ def main() -> int:
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
              "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"],
              "subblock_hist_level2": kern["subblock_hist_level2"],
-             "subblock_hist_variance": kern["subblock_hist_variance"]}
+             "subblock_hist_variance": kern["subblock_hist_variance"],
+             "subblock_hist_gbt_level7": kern["subblock_hist_gbt"],
+             "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
+             "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -11,18 +11,33 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
     from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
     from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
+    from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor
 """
 
 __version__ = "0.1.0"
 
 from .data.dataframe import DataFrame, Row
-from .classification import RandomForestClassificationModel, RandomForestClassifier
+from .classification import (
+    GBTClassificationModel,
+    GBTClassifier,
+    RandomForestClassificationModel,
+    RandomForestClassifier,
+)
 from .knn import NearestNeighbors, NearestNeighborsModel
-from .regression import RandomForestRegressionModel, RandomForestRegressor
+from .regression import (
+    GBTRegressionModel,
+    GBTRegressor,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
 from .umap import UMAP, UMAPModel
 
 __all__ = [
     "DataFrame",
+    "GBTClassificationModel",
+    "GBTClassifier",
+    "GBTRegressionModel",
+    "GBTRegressor",
     "NearestNeighbors",
     "NearestNeighborsModel",
     "RandomForestClassificationModel",

@@ -61,6 +61,10 @@ _JAX_CLASSES = {
         ("tree", "RandomForestClassificationModel"),
         ("tree", "RandomForestRegressor"),
         ("tree", "RandomForestRegressionModel"),
+        ("tree", "GBTClassifier"),
+        ("tree", "GBTClassificationModel"),
+        ("tree", "GBTRegressor"),
+        ("tree", "GBTRegressionModel"),
     )
 }
 

@@ -1,22 +1,29 @@
-"""RandomForest of the port (counterpart of the forest half of
+"""RandomForest and gradient-boosted trees of the port (counterpart of
 ``spark_rapids_ml_tpu/models/tree.py``).
 
 ``RandomForestClassifier`` / ``RandomForestRegressor`` fit through
 ``ops/tree_kernels.build_forest`` on one device: quantize (host quantile
 edges, device compare-count), then level-wise histogram trees carried by
-kernels K5 (or K6 at wide feature widths). The models transform through
-the packed-forest engine (hop 2 in kernel K9) when they carry their bin
-tables and their depth is at most 14, else through the raw-threshold
-descent (deeper forests, and JAX-saved models without bin tables). Param
-mapping, defaults, the model surface (``featureImportances``, ``trees``,
-``totalNumNodes``, ``predict``/``predictProbability``/``predictRaw``) and
-the saved attributes, ``packed_*`` included, are the JAX package's.
+kernels K5 (or K6 at wide feature widths). ``GBTClassifier`` /
+``GBTRegressor`` quantize the same way and grow each boosting round's
+trees through the same builder (``ops/gbt_kernels.gbt_round``).
 
-A port fit and a JAX fit with the same ``seed`` grow different forests:
-the port draws its bootstrap weights and feature subsets from
-``torch.Generator``s (``ops.tree_kernels.TorchDraws``). Without
-randomness (``bootstrap=False``, ``featureSubsetStrategy="all"``) the two
-packages grow the same trees.
+Every model transforms through one engine chain, packed > bins > legacy
+(``_resolve_transform_engine``): the packed-forest engine (hop 2 in kernel
+K9) when the model carries its bin tables and its depth is at most 14; the
+two-hop bins engine (hop 2's feature bins gathered by kernel K8) on
+request (``engine="bins"``), with the packed engine's results bit for
+bit; else the raw-threshold descent (deeper forests, and JAX-saved models
+without bin tables). Param mapping, defaults, the model surface
+(``featureImportances``, ``trees``, ``totalNumNodes``,
+``predict``/``predictProbability``/``predictRaw``) and the saved
+attributes, ``packed_*`` included, are the JAX package's.
+
+A port fit and a JAX fit with the same ``seed`` grow different forests
+when they draw: the port draws its bootstrap weights and feature subsets
+from ``torch.Generator``s (``ops.tree_kernels.TorchDraws``). Without
+randomness (``bootstrap=False``, ``featureSubsetStrategy="all"``; GBT's
+default) the two packages grow the same trees.
 """
 
 from __future__ import annotations
@@ -30,18 +37,24 @@ import torch
 
 from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel
 from ..data.dataframe import DataFrame
+from ..ops.gbt_kernels import GBTConfig, gbt_round
 from ..ops.tree_kernels import (
     ForestConfig,
     PackedForest,
     TorchDraws,
     binize,
     build_forest,
+    forest_apply,
     make_bin_edges,
     next_pow2,
     pack_forest,
     rf_classify,
+    rf_classify_bins,
     rf_classify_packed,
+    rf_eval_bins,
+    rf_eval_packed,
     rf_regress,
+    rf_regress_bins,
     rf_regress_packed,
 )
 from ..parallel.mesh import global_label_summary
@@ -61,6 +74,8 @@ from ..utils.platform import resolve_device
 _MAX_SUPPORTED_DEPTH = 18  # full binary layout: 2^(d+1)-1 nodes per tree
 # deepest forest the packed layout holds (k2 <= 6 below k1 <= 8)
 _MAX_PACKED_DEPTH = 14
+# transform-engine modes of ``_resolve_transform_engine``
+_ENGINE_MODES = ("auto", "packed", "bins", "legacy")
 # key of the fit-stage seconds in a fit's result (not a model attribute)
 _FIT_REPORT = "_fit_report"
 
@@ -376,9 +391,10 @@ def _model_with_report(cls: type, result: Dict[str, Any]) -> "_RandomForestModel
 
 
 class _ForestModelBase(_TpuModel):
-    """Shared fitted-forest surface: node tables, structure, and the
-    transform engine ("packed" when the model carries its bin tables and
-    its depth is at most 14, else "legacy", the raw-threshold descent)."""
+    """Shared fitted-forest surface of RandomForest and GBT models: node
+    tables, structure, and the transform engine chain (packed > bins >
+    legacy). Subclasses supply each engine's closure around their per-node
+    payload (leaf vote distributions or means, margin contributions)."""
 
     # -- forest structure --------------------------------------------------
     @property
@@ -402,10 +418,21 @@ class _ForestModelBase(_TpuModel):
         m = self._features_arr.shape[1]
         return int(math.log2(m + 1)) - 1
 
-    def _resolve_transform_engine(self) -> str:
+    def _resolve_transform_engine(self, mode: Optional[str] = None) -> str:
+        """packed > bins > legacy under ``mode`` (None or "auto", "packed",
+        "bins", "legacy"; the JAX package's ``TPUML_RF_APPLY`` values, given
+        as an argument). The packed and bins engines need the model's bin
+        tables and a depth of at most 14; "legacy" forces the raw-threshold
+        descent, "bins" the two-hop bins engine. K9 takes every forest the
+        bins engine takes, so "auto" and "packed" pick the packed engine."""
+        mode = mode or "auto"
+        if mode not in _ENGINE_MODES:
+            raise ValueError(f"unknown transform engine {mode!r}: one of {_ENGINE_MODES}")
         ma = self._model_attributes
         has_bins = ma.get("threshold_bins") is not None and ma.get("bin_edges") is not None
-        return "packed" if has_bins and self._max_depth_built <= _MAX_PACKED_DEPTH else "legacy"
+        if mode == "legacy" or not has_bins or self._max_depth_built > _MAX_PACKED_DEPTH:
+            return "legacy"
+        return "bins" if mode == "bins" else "packed"
 
     def _ensure_packed(self) -> PackedForest:
         """The packed layout, computed once per model and kept in the
@@ -439,24 +466,37 @@ class _ForestModelBase(_TpuModel):
         self._packed_cache = pf
         return pf
 
-    def _packed_operands(self, device: torch.device):
-        """Device copies of the packed tables and a per-batch quantizer
-        (the edges moved once)."""
-        pf = self._ensure_packed()
-        tables = [torch.from_numpy(a).to(device) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2)]
+    def _binizer(self, device: torch.device) -> Callable[[np.ndarray], torch.Tensor]:
+        """Per-batch quantizer (the edges moved once), rows padded with bin
+        0 to a multiple of 4 features (word packing)."""
         edges = torch.from_numpy(np.asarray(self._model_attributes["bin_edges"], dtype=np.float32)).to(device)
-        d_pad = -(-edges.shape[0] // 4) * 4  # word-packing alignment
+        d_pad = -(-edges.shape[0] // 4) * 4
 
         def binz(Xb: np.ndarray) -> torch.Tensor:
             return binize(torch.from_numpy(Xb).to(device), edges, d_pad=d_pad)
 
-        return pf, tables, binz
+        return binz
+
+    def _packed_operands(self, device: torch.device):
+        """Device copies of the packed tables and a per-batch quantizer."""
+        pf = self._ensure_packed()
+        tables = [torch.from_numpy(a).to(device) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2)]
+        return pf, tables, self._binizer(device)
+
+    def _bins_operands(self, device: torch.device):
+        """Device copies of the heap tables (features, bin thresholds) and a
+        per-batch quantizer."""
+        feat = torch.from_numpy(self._features_arr.astype(np.int32)).to(device)
+        thrb = torch.from_numpy(np.asarray(self._model_attributes["threshold_bins"], dtype=np.int32)).to(device)
+        return feat, thrb, self._binizer(device)
 
     def _get_transform_func(
-        self, dataset: Optional[DataFrame] = None
+        self, dataset: Optional[DataFrame] = None, engine: Optional[str] = None
     ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        """The transform closure of ``engine`` (resolved as a
+        ``_resolve_transform_engine`` mode; None: the default chain)."""
         device = resolve_device(self._device)
-        engine = self._resolve_transform_engine()
+        engine = self._resolve_transform_engine(engine)
         return self._memoized_transform_fn(
             ("forest", engine, tuple(self._out_cols()), str(device)),
             lambda: getattr(self, f"_{engine}_transform_fn")(device),
@@ -466,6 +506,9 @@ class _ForestModelBase(_TpuModel):
         return [self.getOrDefault("predictionCol")]
 
     def _packed_transform_fn(self, device: torch.device):
+        raise NotImplementedError
+
+    def _bins_transform_fn(self, device: torch.device):
         raise NotImplementedError
 
     def _legacy_transform_fn(self, device: torch.device):
@@ -643,6 +686,18 @@ class RandomForestClassificationModel(
 
         return _fn
 
+    def _bins_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        pred_col, prob_col, raw_col = self._out_cols()
+        feat, thrb, binz = self._bins_operands(device)
+        leafp = torch.from_numpy(self._leaf_probs()).to(device)
+        depth = self._max_depth_built
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            pred, prob, raw = rf_classify_bins(binz(Xb), feat, thrb, leafp, max_depth=depth)
+            return {pred_col: pred.cpu().numpy(), prob_col: prob.cpu().numpy(), raw_col: raw.cpu().numpy()}
+
+        return _fn
+
     def _legacy_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
         pred_col, prob_col, raw_col = self._out_cols()
         feat = torch.from_numpy(self._features_arr.astype(np.int64)).to(device)
@@ -721,6 +776,18 @@ class RandomForestRegressionModel(_RandomForestModel):
 
         return _fn
 
+    def _bins_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        (pred_col,) = self._out_cols()
+        feat, thrb, binz = self._bins_operands(device)
+        leafv = torch.from_numpy(self._leaf_means()).to(device)
+        depth = self._max_depth_built
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            pred = rf_regress_bins(binz(Xb), feat, thrb, leafv, max_depth=depth)
+            return {pred_col: pred.cpu().numpy().astype(Xb.dtype)}
+
+        return _fn
+
     def _legacy_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
         (pred_col,) = self._out_cols()
         feat = torch.from_numpy(self._features_arr.astype(np.int64)).to(device)
@@ -733,3 +800,475 @@ class RandomForestRegressionModel(_RandomForestModel):
             return {pred_col: pred.cpu().numpy()}
 
         return _fn
+
+
+# ---------------------------------------------------------------------------
+# gradient-boosted trees
+# ---------------------------------------------------------------------------
+#
+# Spark ML drop-ins for GBTClassifier / GBTRegressor on the same histogram
+# builder: each boosting round grows its trees as one tree batch
+# (``ops/gbt_kernels.gbt_round``), and fitted models reuse the forest
+# transform engines with margin-contribution leaf payloads.
+
+
+class _GBTClass:
+    _default_loss = "squared"
+
+    @classmethod
+    def _param_mapping(cls) -> Dict[str, Optional[str]]:
+        return {
+            "maxIter": "n_estimators",
+            "maxDepth": "max_depth",
+            "maxBins": "n_bins",
+            "stepSize": "learning_rate",
+            "lossType": "loss",
+            "featureSubsetStrategy": "max_features",
+            "minInstancesPerNode": "min_samples_leaf",
+            "minInfoGain": "min_impurity_decrease",
+            "seed": "random_state",
+            "impurity": "",          # Spark GBT impurity is fixed variance
+            "maxMemoryInMB": "",
+            "cacheNodeIds": "",
+            "checkpointInterval": "",
+            "subsamplingRate": "",
+            "minWeightFractionPerNode": "",
+            "validationTol": "",
+            "validationIndicatorCol": None,
+            "weightCol": None,
+            "leafCol": None,
+        }
+
+    @classmethod
+    def _param_value_mapping(cls) -> Dict[str, Callable[[Any], Any]]:
+        return {"max_features": _RandomForestClass._param_value_mapping()["max_features"]}
+
+    @classmethod
+    def _get_tpu_params_default(cls) -> Dict[str, Any]:
+        # Spark GBT defaults: maxIter=20, maxDepth=5, maxBins=32,
+        # stepSize=0.1, featureSubsetStrategy="all"
+        return {
+            "n_estimators": 20,
+            "max_depth": 5,
+            "n_bins": 32,
+            "learning_rate": 0.1,
+            "max_features": 1.0,
+            "min_samples_leaf": 1,
+            "min_impurity_decrease": 0.0,
+            "random_state": None,
+            "loss": cls._default_loss,
+        }
+
+
+class _GBTParams(HasFeaturesCol, HasFeaturesCols, HasLabelCol, HasPredictionCol, HasSeed):
+    maxIter = _mk("maxIter", "number of boosting rounds", TypeConverters.toInt)
+    maxDepth = _mk("maxDepth", "maximum tree depth", TypeConverters.toInt)
+    maxBins = _mk("maxBins", "max histogram bins per feature", TypeConverters.toInt)
+    stepSize = _mk("stepSize", "learning rate (shrinkage)", TypeConverters.toFloat)
+    lossType = _mk("lossType", "loss function", TypeConverters.toString)
+    impurity = _mk("impurity", "split criterion (fixed: variance)", TypeConverters.toString)
+    featureSubsetStrategy = _mk(
+        "featureSubsetStrategy",
+        "features considered per split: all|auto|sqrt|log2|onethird|fraction|n",
+        TypeConverters.toString,
+    )
+    minInstancesPerNode = _mk("minInstancesPerNode", "min rows per child node", TypeConverters.toInt)
+    minInfoGain = _mk("minInfoGain", "min gain for a split", TypeConverters.toFloat)
+    subsamplingRate = _mk("subsamplingRate", "row subsample rate (ignored)", TypeConverters.toFloat)
+    maxMemoryInMB = _mk("maxMemoryInMB", "memory hint (ignored)", TypeConverters.toInt)
+    cacheNodeIds = _mk("cacheNodeIds", "node-id caching (ignored)", TypeConverters.toBoolean)
+    checkpointInterval = _mk("checkpointInterval", "checkpointing (ignored)", TypeConverters.toInt)
+    minWeightFractionPerNode = _mk(
+        "minWeightFractionPerNode", "min weight fraction (ignored)", TypeConverters.toFloat
+    )
+    validationTol = _mk("validationTol", "early-stop tolerance (ignored)", TypeConverters.toFloat)
+    validationIndicatorCol = _mk(
+        "validationIndicatorCol", "validation split column (unsupported)", TypeConverters.toString
+    )
+    weightCol = _mk("weightCol", "weight column (unsupported)", TypeConverters.toString)
+    leafCol = _mk("leafCol", "leaf index column (unsupported)", TypeConverters.toString)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(
+            maxIter=20,
+            maxDepth=5,
+            maxBins=32,
+            stepSize=0.1,
+            featureSubsetStrategy="all",
+            minInstancesPerNode=1,
+            minInfoGain=0.0,
+            subsamplingRate=1.0,
+            seed=0,
+        )
+
+    def getMaxIter(self) -> int:
+        return self.getOrDefault("maxIter")
+
+    def getMaxDepth(self) -> int:
+        return self.getOrDefault("maxDepth")
+
+    def getMaxBins(self) -> int:
+        return self.getOrDefault("maxBins")
+
+    def getStepSize(self) -> float:
+        return self.getOrDefault("stepSize")
+
+    def getLossType(self) -> str:
+        return self.getOrDefault("lossType")
+
+    def getFeatureSubsetStrategy(self) -> str:
+        return self.getOrDefault("featureSubsetStrategy")
+
+
+def _init_margin(loss: str, y: np.ndarray, n_classes: int) -> np.ndarray:
+    """F0, the constant margin minimizing the bare loss (sklearn's
+    conventions: the mean, the log-odds, the log-priors)."""
+    yv = y.astype(np.float64)
+    if loss == "squared":
+        return np.array([yv.mean()], dtype=np.float32)
+    if loss == "logistic":
+        p1 = float(np.clip(yv.mean(), 1e-6, 1.0 - 1e-6))
+        return np.array([np.log(p1 / (1.0 - p1))], dtype=np.float32)
+    prior = np.bincount(yv.astype(np.int64), minlength=n_classes) / max(1, len(yv))
+    return np.log(np.clip(prior, 1e-6, None)).astype(np.float32)
+
+
+class _GBTEstimator(_GBTClass, _TpuEstimatorSupervised, _GBTParams):
+    """Shared boosting fit: quantize once, then sequential rounds of
+    ``gbt_round``, each one tree batch on the current gradient field with
+    the margins advanced on the device."""
+
+    _is_classification = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        _TpuEstimatorSupervised.__init__(self)
+        _GBTParams.__init__(self)
+        self._setDefault(lossType=self._default_loss)
+        self._set_params(**kwargs)
+
+    def setMaxIter(self, value: int) -> "_GBTEstimator":
+        self._set_params(maxIter=value)
+        return self
+
+    def setMaxDepth(self, value: int) -> "_GBTEstimator":
+        self._set_params(maxDepth=value)
+        return self
+
+    def setMaxBins(self, value: int) -> "_GBTEstimator":
+        self._set_params(maxBins=value)
+        return self
+
+    def setStepSize(self, value: float) -> "_GBTEstimator":
+        self._set_params(stepSize=value)
+        return self
+
+    def setLossType(self, value: str) -> "_GBTEstimator":
+        self._set_params(lossType=value)
+        return self
+
+    def setFeatureSubsetStrategy(self, value: str) -> "_GBTEstimator":
+        self._set_params(featureSubsetStrategy=value)
+        return self
+
+    def setSeed(self, value: int) -> "_GBTEstimator":
+        self._set_params(seed=value)
+        return self
+
+    # -- subclass hooks ----------------------------------------------------
+    def _process_labels(self, y_host: np.ndarray) -> int:
+        """Validate labels; the classifier returns n_classes, the regressor 0."""
+        raise NotImplementedError
+
+    def _check_loss(self, loss: str) -> None:
+        raise NotImplementedError
+
+    # -- fit ---------------------------------------------------------------
+    def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
+        y_host = np.asarray(dataset.column(self.getOrDefault("labelCol")))
+        n_classes = self._process_labels(y_host)
+        is_classification = self._is_classification
+
+        def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+            t0 = time.perf_counter()
+            max_depth = int(params["max_depth"])
+            if max_depth > _MAX_SUPPORTED_DEPTH:
+                raise ValueError(
+                    f"maxDepth={max_depth} exceeds supported depth "
+                    f"{_MAX_SUPPORTED_DEPTH} (full binary node layout)"
+                )
+            n_rounds = int(params["n_estimators"])
+            if n_rounds < 1:
+                raise ValueError("maxIter must be >= 1")
+            lr = float(params["learning_rate"])
+            self._check_loss(str(params["loss"]))
+            n_bins = int(min(params["n_bins"], max(2, inputs.n_rows)))
+            if n_bins > 256:
+                self.logger.warning("maxBins=%d clamped to 256", n_bins)
+                n_bins = 256
+            d = inputs.n_features
+            d_pad = next_pow2(d)
+            seed = int(params.get("random_state") or 0)
+
+            report: Dict[str, float] = {}
+            edges_np, bins = _quantize_features(inputs, n_bins, d_pad, seed, "GBT", report)
+            # Spark's GBTClassifier is binary; K > 2 classes extend it
+            # sklearn-style (one tree per class per round, softmax gradients)
+            if not is_classification:
+                loss, n_out, n_v = "squared", 1, 1
+            elif n_classes == 2:
+                loss, n_out, n_v = "logistic", 1, 1
+            else:
+                loss, n_out, n_v = "multinomial", n_classes, n_classes
+            init = _init_margin(loss, y_host, n_classes)
+            cfg = GBTConfig(
+                loss=loss,
+                n_out=n_out,
+                learning_rate=lr,
+                tree=ForestConfig(
+                    max_depth=max_depth,
+                    n_bins=n_bins,
+                    n_features=d,
+                    n_stats=3 if loss == "squared" else 4,
+                    impurity="variance",
+                    k_features=_resolve_k_features(params["max_features"], d, is_classification),
+                    min_samples_leaf=int(params["min_samples_leaf"]),
+                    min_info_gain=float(params.get("min_impurity_decrease", 0.0) or 0.0),
+                    min_samples_split=int(params.get("min_samples_split", 2)),
+                    bootstrap=False,
+                ),
+            )
+            margins = torch.from_numpy(init).to(inputs.device).expand(bins.shape[0], n_v).contiguous()
+            draws = TorchDraws(seed)
+
+            t_quant = time.perf_counter()
+            outs: List[Dict[str, torch.Tensor]] = []
+            for r in range(n_rounds):
+                out = gbt_round(
+                    bins, inputs.mask, inputs.y, margins, cfg=cfg,
+                    trees=[r * n_out + j for j in range(n_out)], draws=draws,
+                )
+                margins = out.pop("margins")
+                outs.append(out)
+            # one host copy per table after the loop: the rounds depend on
+            # each other through the margins, not through these copies
+            tables = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+            t_boost = time.perf_counter()
+            feat = tables["feature"].astype(np.int32)
+            thr_bin = tables["threshold_bin"].astype(np.int32)
+            thr = np.where(
+                feat >= 0,
+                edges_np[np.clip(feat, 0, d - 1), np.clip(thr_bin, 0, n_bins - 2)],
+                0.0,
+            ).astype(np.float32)
+            report.update({
+                "quantize_seconds": t_quant - t0,
+                "boost_seconds": t_boost - t_quant,
+                "rounds": n_rounds,
+                "trees": int(feat.shape[0]),
+                "seconds_per_round": (t_boost - t_quant) / n_rounds,
+                "draws_seconds": draws.seconds,
+            })
+            return {
+                "features": feat,
+                "thresholds": thr,
+                "threshold_bins": thr_bin,
+                "bin_edges": edges_np.astype(np.float32),
+                "leaf_stats": tables["leaf_stats"].astype(np.float32),
+                "gains": tables["gain"].astype(np.float32),
+                # the lr-scaled margin contributions that advanced the
+                # training margins, as computed on the device
+                "leaf_values": tables["values"].astype(np.float32),
+                "init_margin": init,
+                "n_classes": n_classes if is_classification else 0,
+                "num_features": d,
+                "learning_rate": lr,
+                "n_rounds": n_rounds,
+                "loss": loss,
+                _FIT_REPORT: report,
+            }
+
+        return _fit
+
+
+class _GBTModel(_GBTClass, _ForestModelBase, _GBTParams):
+    """Shared fitted-GBT surface: the forest transform engines with margin
+    contributions summed over trees as the payload."""
+
+    def __init__(self, **attrs: Any) -> None:
+        _ForestModelBase.__init__(self, **attrs)
+        _GBTParams.__init__(self)
+
+    @property
+    def _leaf_values_arr(self) -> np.ndarray:
+        return np.asarray(self._model_attributes["leaf_values"])
+
+    @property
+    def _init_margin_arr(self) -> np.ndarray:
+        return np.asarray(self._model_attributes["init_margin"], dtype=np.float32).reshape(-1)
+
+    def getNumRounds(self) -> int:
+        return int(self._model_attributes["n_rounds"])
+
+    def _leaf_counts(self) -> np.ndarray:
+        # GBT stats are (w, r, r^2[, h]): slot 0 is the row count for every
+        # loss (the forest base sums class slots when n_classes > 0)
+        return self._leaf_stats_arr[:, :, 0]
+
+    def _payload_values(self) -> np.ndarray:
+        """(T, M, V) per-node margin contributions: multiclass trees are
+        rounds-major, tree t adding to class t % K; binary and regression
+        heads have one column."""
+        lv = self._leaf_values_arr.astype(np.float32)
+        K = int(self._model_attributes.get("n_classes") or 0)
+        if K > 2:
+            T, M = lv.shape
+            out = np.zeros((T, M, K), dtype=np.float32)
+            out[np.arange(T)[:, None], np.arange(M)[None, :], (np.arange(T) % K)[:, None]] = lv
+            return out
+        return lv[:, :, None]
+
+    def _margins_from_eval(self, summed: torch.Tensor) -> np.ndarray:
+        return summed.cpu().numpy() + self._init_margin_arr[None, :]
+
+    def _margin_outputs(self, marg: np.ndarray, x_dtype: np.dtype) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    # -- the three engines (payload: margin contributions) -----------------
+    def _packed_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        pf, (feat1, thr1, feat2, thr2), binz = self._packed_operands(device)
+        vals = torch.from_numpy(self._payload_values()).to(device)
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            s = rf_eval_packed(binz(Xb), feat1, thr1, feat2, thr2, vals, k1=pf.k1, k2=pf.k2)
+            return self._margin_outputs(self._margins_from_eval(s), np.dtype(Xb.dtype))
+
+        return _fn
+
+    def _bins_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        feat, thrb, binz = self._bins_operands(device)
+        vals = torch.from_numpy(self._payload_values()).to(device)
+        depth = self._max_depth_built
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            s = rf_eval_bins(binz(Xb), feat, thrb, vals, max_depth=depth)
+            return self._margin_outputs(self._margins_from_eval(s), np.dtype(Xb.dtype))
+
+        return _fn
+
+    def _legacy_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        feat = torch.from_numpy(self._features_arr.astype(np.int64)).to(device)
+        thr = torch.from_numpy(self._thresholds_arr.astype(np.float32)).to(device)
+        vals = torch.from_numpy(self._payload_values()).to(device)
+        depth = self._max_depth_built
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            leaf = forest_apply(torch.from_numpy(Xb).to(device), feat, thr, max_depth=depth)   # (T, n)
+            s = vals[0][leaf[0]]
+            for t in range(1, leaf.shape[0]):
+                s = s + vals[t][leaf[t]]
+            return self._margin_outputs(self._margins_from_eval(s), np.dtype(Xb.dtype))
+
+        return _fn
+
+    def predict(self, vector: Any) -> float:
+        x = np.asarray(vector, dtype=np.float32).reshape(1, -1)
+        return float(self._get_transform_func()(x)[self.getOrDefault("predictionCol")][0])
+
+
+class GBTClassifier(_GBTEstimator, HasProbabilityCol, HasRawPredictionCol):
+    """``GBTClassifier(maxIter=20, maxDepth=5).fit(df)`` — drop-in for
+    ``pyspark.ml.classification.GBTClassifier``. Binary labels use the
+    logistic loss (Spark's); more than two classes extend it to softmax
+    boosting, one tree per class per round."""
+
+    _is_classification = True
+    _default_loss = "logistic"
+
+    def _process_labels(self, y_host: np.ndarray) -> int:
+        ls = global_label_summary(y_host)
+        if ls["total"] == 0:
+            raise ValueError("Labels column is empty")
+        if ls["y_min"] < 0 or not ls["all_int"]:
+            raise RuntimeError("Labels MUST be non-negative integers")
+        return max(int(ls["y_max"]) + 1, 2)
+
+    def _check_loss(self, loss: str) -> None:
+        if loss != "logistic":
+            raise ValueError(f"Unsupported lossType for GBTClassifier: {loss!r} (only 'logistic')")
+
+    def _create_model(self, result: Dict[str, Any]) -> "GBTClassificationModel":
+        return _model_with_report(GBTClassificationModel, result)
+
+
+class GBTClassificationModel(_GBTModel, HasProbabilityCol, HasRawPredictionCol):
+    @property
+    def numClasses(self) -> int:
+        return int(self._model_attributes["n_classes"])
+
+    @property
+    def classes_(self) -> np.ndarray:
+        return np.arange(self.numClasses, dtype=np.float64)
+
+    def _out_cols(self) -> List[str]:
+        return [
+            self.getOrDefault("predictionCol"),
+            self.getOrDefault("probabilityCol"),
+            self.getOrDefault("rawPredictionCol"),
+        ]
+
+    def _margin_outputs(self, marg: np.ndarray, x_dtype: np.dtype) -> Dict[str, np.ndarray]:
+        """Spark's columns from the margins, on the host in f64 as the JAX
+        package computes them."""
+        pred_col, prob_col, raw_col = self._out_cols()
+        if self.numClasses == 2:
+            m = marg[:, 0].astype(np.float64)
+            p1 = 1.0 / (1.0 + np.exp(-m))
+            prob = np.stack([1.0 - p1, p1], axis=1)
+            raw = np.stack([-m, m], axis=1)
+            pred = (p1 > 0.5).astype(x_dtype)
+        else:
+            raw = marg.astype(np.float64)
+            e = np.exp(raw - raw.max(axis=1, keepdims=True))
+            prob = e / e.sum(axis=1, keepdims=True)
+            pred = raw.argmax(axis=1).astype(x_dtype)
+        return {pred_col: pred, prob_col: prob.astype(np.float32), raw_col: raw.astype(np.float32)}
+
+    def predictProbability(self, vector: Any) -> np.ndarray:
+        x = np.asarray(vector, dtype=np.float32).reshape(1, -1)
+        return self._get_transform_func()(x)[self.getOrDefault("probabilityCol")][0]
+
+    def predictRaw(self, vector: Any) -> np.ndarray:
+        x = np.asarray(vector, dtype=np.float32).reshape(1, -1)
+        return self._get_transform_func()(x)[self.getOrDefault("rawPredictionCol")][0]
+
+
+class GBTRegressor(_GBTEstimator):
+    """``GBTRegressor(maxIter=20, maxDepth=5).fit(df)`` — drop-in for
+    ``pyspark.ml.regression.GBTRegressor`` (squared-error loss)."""
+
+    _is_classification = False
+    _default_loss = "squared"
+
+    def _process_labels(self, y_host: np.ndarray) -> int:
+        if global_label_summary(y_host)["total"] == 0:
+            raise ValueError("Labels column is empty")
+        return 0
+
+    def _check_loss(self, loss: str) -> None:
+        if loss == "absolute":
+            raise ValueError(
+                "lossType='absolute' is not supported (leaf values come from "
+                "closed-form Newton steps; use 'squared')"
+            )
+        if loss != "squared":
+            raise ValueError(f"Unsupported lossType for GBTRegressor: {loss!r} (only 'squared')")
+
+    def _create_model(self, result: Dict[str, Any]) -> "GBTRegressionModel":
+        return _model_with_report(GBTRegressionModel, result)
+
+
+class GBTRegressionModel(_GBTModel):
+    def _margin_outputs(self, marg: np.ndarray, x_dtype: np.dtype) -> Dict[str, np.ndarray]:
+        (pred_col,) = self._out_cols()
+        return {pred_col: marg[:, 0].astype(x_dtype)}

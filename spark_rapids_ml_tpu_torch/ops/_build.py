@@ -27,7 +27,7 @@ from typing import Dict, Iterable, List, Sequence
 
 SOURCES = (
     "shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "umap_sgd_epoch", "rf_hist",
-    "rf_traverse",
+    "rf_traverse", "rf_byte_gather",
 )
 
 _PKG = Path(__file__).resolve().parent.parent

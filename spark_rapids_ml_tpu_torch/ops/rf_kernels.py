@@ -1,19 +1,21 @@
 """RandomForest kernels of the port (counterpart of
 ``spark_rapids_ml_tpu/ops/rf_pallas.py``): the per-sub-block histogram
-(K5), its fused-selection variant (K6) and the packed-forest hop-2
-traversal (K9), each a CUDA kernel (``csrc/rf_hist.cu``,
+(K5), its fused-selection variant (K6), the packed-byte gather (K8, and
+K7, its single-index-set form) and the packed-forest hop-2 traversal (K9),
+each a CUDA kernel (``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``,
 ``csrc/rf_traverse.cu``) beside its plain PyTorch version.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the wrapper raises. Each wrapper counts its launches in ``.launches``.
 
 The TPU gates (``rf_hist_pallas_ok``, ``rf_hist_sel_ok``,
-``packed_traverse_ok``: lane alignment of ``k·nb``, ``S <= 16``, at most
-8,192 histogram lanes or 128 packed words, lowering probes) are not
-carried over: the kernels take any sub-block size, row count, width,
-``nb <= 256`` and stat count. The builder keeps ``BLOCK_ROWS`` only to size
-its padded row counts exactly as the JAX package does, so both packages'
-kernels see the same inputs at every level.
+``packed_byte_gather_ok``, ``packed_traverse_ok``: lane alignment of
+``k·nb``, ``S <= 16``, at most 8,192 histogram lanes or 128 packed words,
+rows in multiples of 2,048, lowering probes) are not carried over: the
+kernels take any sub-block size, row count, width, ``nb <= 256`` and stat
+count. The builder keeps ``BLOCK_ROWS`` only to size its padded row counts
+exactly as the JAX package does, so both packages' kernels see the same
+inputs at every level.
 """
 
 from __future__ import annotations
@@ -183,6 +185,92 @@ def subblock_hist_sel_batched(
         n_bins=n_bins, r_sub=r_sub,
     )
     return out.reshape(T, n_sb, out.shape[1], out.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: byte gather from word-packed bins
+# ---------------------------------------------------------------------------
+
+
+def packed_byte_gather_many_plain(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: ``(packed[r, i >> 2] >> 8·(i & 3)) & 0xFF`` for
+    every index ``i = idx[g, r, j]``, 0 where ``i`` lies outside [0,
+    4·words) (the JAX package's ``_contract_gather`` matches no word
+    there). One index set at a time, in int64 (the word's sign extension
+    is masked off with the byte)."""
+    n, words = packed.shape
+    p = packed.long()
+    out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
+    for g in range(idx.shape[0]):
+        i = idx[g].long()
+        inside = (i >= 0) & (i < 4 * words)
+        ic = i.clamp(0, 4 * words - 1)
+        b = (p.gather(1, ic >> 2) >> ((ic & 3) * 8)) & 0xFF
+        out[g] = torch.where(inside, b, torch.zeros_like(b))
+    return out
+
+
+def _check_byte_gather(name: str, packed: torch.Tensor, idx: torch.Tensor) -> None:
+    if packed.dim() != 2 or idx.dim() != 3 or idx.shape[1] != packed.shape[0]:
+        raise ValueError(
+            f"{name}: packed {tuple(packed.shape)} must be (n, words) and idx "
+            f"{tuple(idx.shape)} (G, n, k)"
+        )
+
+
+def _launch_byte_gather(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the CUDA kernel on (n, words) rows and (G, n, k)
+    indices."""
+    G, n, k = idx.shape
+    out = torch.empty_like(idx)
+    fn = _build.function(
+        "rf_byte_gather", "packed_byte_gather_launch", [_P, _P, _P, _I64, _INT, _INT, _INT, _P]
+    )
+    code = fn(packed.data_ptr(), idx.data_ptr(), out.data_ptr(), n, packed.shape[1], k, G,
+              torch.cuda.current_stream(idx.device).cuda_stream)
+    _build.check("rf_byte_gather", code)
+    return out
+
+
+def packed_byte_gather_many(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Kernel K8: byte ``idx[g, r, j]`` of row r's word-packed bins, (G, n,
+    k) int32, for G index sets ``idx`` (G, n, k) int32 against the same
+    rows ``packed`` (n, words) int32 in one launch; an index outside [0,
+    4·words) gives 0. Replaces ``spark_rapids_ml_tpu/ops/rf_pallas.py::
+    packed_byte_gather_many``, without its width (64-128 words), row
+    (multiples of 2,048) and lane-padding gates."""
+    _check_byte_gather("packed_byte_gather_many", packed, idx)
+    if idx.device.type == "cpu":
+        return packed_byte_gather_many_plain(packed, idx)
+    _check_cuda("packed_byte_gather_many", (packed, torch.int32), (idx, torch.int32))
+    out = _launch_byte_gather(packed, idx)
+    packed_byte_gather_many.launches += 1
+    return out
+
+
+packed_byte_gather_many.launches = 0
+
+
+def packed_byte_gather_plain(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: K8's with one index set."""
+    return packed_byte_gather_many_plain(packed, idx[None])[0]
+
+
+def packed_byte_gather(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Kernel K7: ``packed_byte_gather_many`` for one index set ``idx`` (n,
+    k) int32 -> (n, k) int32, the same CUDA kernel with G = 1. Replaces
+    ``spark_rapids_ml_tpu/ops/rf_pallas.py::packed_byte_gather``, which
+    has no caller in either package."""
+    _check_byte_gather("packed_byte_gather", packed, idx[None])
+    if idx.device.type == "cpu":
+        return packed_byte_gather_plain(packed, idx)
+    _check_cuda("packed_byte_gather", (packed, torch.int32), (idx, torch.int32))
+    out = _launch_byte_gather(packed, idx[None])[0]
+    packed_byte_gather.launches += 1
+    return out
+
+
+packed_byte_gather.launches = 0
 
 
 # ---------------------------------------------------------------------------

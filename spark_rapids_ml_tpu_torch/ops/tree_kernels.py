@@ -17,14 +17,20 @@
   package does there.
 * **Inference**: the packed-forest engine (``pack_forest``'s layout, hop 1
   in plain PyTorch, hop 2 in K9, the JAX package's payload summation
-  order) for forests of depth <= 14, and the raw-threshold descent
-  (``forest_apply``) for deeper ones.
+  order) for forests of depth <= 14; the two-hop bins engine (the same
+  descent tree by tree in groups of 8, hop 2's feature bins gathered by
+  K8, one launch per group), whose results equal the packed engine's bit
+  for bit; and the raw-threshold descent (``forest_apply``) for deeper
+  forests.
 
 Every per-node sum is deterministic: the kernels add in row order without
-atomics, and the per-node reductions (``_segment_sum``) sum each segment
-in order. So a fit is bitwise repeatable on the card, and integer stats
-(class counts times bootstrap weights) are exact, so classification trees
-equal the JAX package's bit for bit given the same draws.
+atomics, the per-node reductions (``_segment_sum``) sum each segment in
+order, and the sums over a node's bins (parent stats, the gain search's
+prefix sums) accumulate in f64 and round once. So a fit is bitwise
+repeatable on the card and equal to the CPU's, also for real-valued
+(regression, boosting) stats; integer stats (class counts times bootstrap
+weights) are exact, so classification trees equal the JAX package's bit
+for bit given the same draws.
 
 Randomness: the JAX package draws bootstrap weights and per-level feature
 uniforms from ``jax.random`` keys, whose bits cannot be reproduced. The
@@ -47,6 +53,8 @@ import torch
 from .rf_kernels import (
     BLOCK_ROWS,
     LANES,
+    _leaf_ids,
+    packed_byte_gather_many,
     packed_traverse,
     subblock_hist_batched,
     subblock_hist_sel_batched,
@@ -204,8 +212,11 @@ def _best_splits_from_hist(hist, parent, pcount, pimp, realf, nb, cfg):
     block slots to real feature ids (sentinel ``cfg.n_features``, masked
     out). Equal gains across the empty-bin gap between two row populations
     take the middle edge (first/last/mid, as the JAX package); equal best
-    gains across features take the first slot."""
-    cum = torch.cumsum(hist, dim=3)
+    gains across features take the first slot. The prefix sums over bins
+    accumulate in f64 and round once to f32: the card's scan and the CPU's
+    loop then give the same stats, and the empty bins of a gap leave exact
+    ties."""
+    cum = torch.cumsum(hist, dim=3, dtype=torch.float64).to(hist.dtype)
     left = cum[:, :, :, :-1, :]                          # threshold = bin b goes left
     right = parent[:, None, :, None, :] - left
     nl = _count(left, cfg.impurity)
@@ -348,7 +359,9 @@ def _hist_compact_batched(
     with ``full_bins`` (n, d_pad) and ``feats`` (T, n_nodes, F) the rows
     go whole through K6, which selects each node's columns itself. The
     parent stats are the bin sums of feature slot 0 (always a real
-    feature)."""
+    feature). A device's own f32 reduction order would move real-valued
+    parent stats by an ulp and flip near-tied splits between a card fit and
+    a CPU fit, so they are summed in f64."""
     T = seg.shape[0]
     S = sw.shape[-1]
     n_sb = n_pad // r_sub
@@ -387,7 +400,8 @@ def _hist_compact_batched(
             parts.append(reduce_partials(partials).reshape(T, n_nodes, S, -1, nb))
             del partials
         hist_nodes = parts[0] if len(parts) == 1 else torch.cat(parts, dim=3)
-    parent = hist_nodes[:, :, :, 0, :].sum(dim=-1)        # (T, n_nodes, S)
+    # f64 accumulation rounded once: the same parent stats on every device
+    parent = hist_nodes[:, :, :, 0, :].sum(dim=-1, dtype=torch.float64).to(sw.dtype)   # (T, n_nodes, S)
     return hist_nodes.permute(0, 3, 1, 4, 2), parent      # (T, F, n_nodes, nb, S)
 
 
@@ -728,8 +742,7 @@ def pack_forest(feat, thr_bin, *, max_depth: int) -> PackedForest:
     thr = np.asarray(thr_bin, dtype=np.int32)
     T, M = feat.shape
     D = int(max_depth)
-    k1 = max(min(7, D), D - 6)
-    k2 = D - k1
+    k1, k2 = _split_depths(D)
     n1 = (1 << k1) - 1
     T_pad = -(-T // 8) * 8
     featp = np.pad(feat, ((0, T_pad - T), (0, 0)), constant_values=-1)
@@ -820,4 +833,143 @@ def rf_classify_packed(xb, feat1, thr1, feat2, thr2, leaf_prob, *, k1: int, k2: 
 
 def rf_regress_packed(xb, feat1, thr1, feat2, thr2, leaf_value, *, k1: int, k2: int) -> torch.Tensor:
     s = rf_eval_packed(xb, feat1, thr1, feat2, thr2, leaf_value[..., None], k1=k1, k2=k2)
+    return _per_tree(s[:, 0], leaf_value.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# inference: two-hop bins engine
+# ---------------------------------------------------------------------------
+#
+# The JAX package's bin-space descent (``forest_apply_bins``, the middle of
+# its packed > bins > legacy chain), tree by tree in groups of 8: hop 1 walks
+# each tree's top k1 levels from the rows' bins, hop 2 reads the row's
+# level-k1 subtree (its 2^k2 - 1 internal nodes, heap-ordered) from a
+# per-tree table and walks k2 more levels. Hop 2's feature bins come from
+# the rows' word-packed bins through K8, one launch per tree group. Every
+# comparison is an integer one in bin space (bin(x) > b <=> x >= edges[f,
+# b]), so leaf ids equal the packed engine's, and the payload sums follow
+# the same group-of-8 order, so values equal it bit for bit.
+
+
+def _split_depths(max_depth: int) -> Tuple[int, int]:
+    """(k1, k2): hop 1 takes max(min(7, D), D - 6) levels, hop 2 the rest."""
+    k1 = max(min(7, max_depth), max_depth - 6)
+    return k1, max_depth - k1
+
+
+def _navigate(enc: torch.Tensor, steps: int, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Heap-local descent over ``enc`` (n, L), heap order: enc[i] = 0 at a
+    leaf (stop), else 1 + go-right, so each step is i -> 2i + enc[i] while
+    enc[i] > 0. Step s reads only the depth-s slice enc[:, 2^s-1 : 2^(s+1)-1];
+    a row frozen above it reads nothing. Returns (i, stopped early): rows
+    that take every step land at an index >= L = 2^steps - 1."""
+    i = torch.zeros(enc.shape[0], dtype=torch.int64, device=enc.device)
+    for s in range(steps):
+        lo, w = (1 << s) - 1, 1 << s
+        e = enc[:, lo:lo + w].gather(1, (i - lo).clamp(0, w - 1)[:, None])[:, 0]
+        e = torch.where(i >= lo, e, torch.zeros_like(e))
+        i = torch.where(e > 0, 2 * i + e, i)
+    return i, i < L
+
+
+def _hop1(xb: torch.Tensor, feat_t: torch.Tensor, thr_t: torch.Tensor, k1: int):
+    """One tree's hop 1 from the rows' bins: its top k1 levels' tests as one
+    gather of the tested columns (the TPU's bf16 one-hot product gives the
+    same small integers). Returns (heap index, stopped in hop 1)."""
+    n1 = (1 << k1) - 1
+    f1 = feat_t[:n1]
+    tests1 = xb.index_select(1, f1.clamp(0, xb.shape[1] - 1)).long()    # (n, n1)
+    enc1 = torch.where(f1 >= 0, 1 + (tests1 > thr_t[:n1]).long(), torch.zeros_like(tests1))
+    return _navigate(enc1, k1, n1)
+
+
+def _hop2_rows(xb: torch.Tensor, feat_t: torch.Tensor, thr_t: torch.Tensor, *, k1: int, k2: int):
+    """One tree's hop 1 and its hop-2 table rows. ``feat_t``/``thr_t`` (M,)
+    int64 heap tables. Returns (i1, done1, l7, rfeat, rthr, ridx): the hop-1
+    heap index, whether the row stopped in hop 1, its level-k1 subtree, the
+    subtree's (n, 2^k2 - 1) features and thresholds in heap order, and the
+    byte indices (features clipped to the row) K8 gathers."""
+    i1, done1 = _hop1(xb, feat_t, thr_t, k1)
+    l7 = (i1 - ((1 << k1) - 1)).clamp(0, (1 << k1) - 1)
+    sub_f, sub_t = [], []
+    for delta in range(k2):
+        off, cnt = (1 << (k1 + delta)) - 1, 1 << (k1 + delta)
+        sub_f.append(feat_t[off:off + cnt].reshape(1 << k1, 1 << delta))
+        sub_t.append(thr_t[off:off + cnt].reshape(1 << k1, 1 << delta))
+    nint = (1 << k2) - 1
+    rrow = torch.cat(sub_f + sub_t, dim=1)[l7]                             # (n, 2·nint)
+    rfeat, rthr = rrow[:, :nint], rrow[:, nint:]
+    return i1, done1, l7, rfeat, rthr, rfeat.clamp(0, xb.shape[1] - 1)
+
+
+def _twohop_group(xb, packed, feat_g, thr_g, val_g, *, max_depth: int):
+    """One tree group of the two-hop descent: ``xb`` (n, d) uint8 bins,
+    ``packed`` their (n, d/4) int32 words, ``feat_g``/``thr_g`` (G, M),
+    ``val_g`` (G, M, V) or None. Returns (leaf ids (G, n), the (n, V) value
+    sum over the group in tree order, or None)."""
+    k1, k2 = _split_depths(max_depth)
+    leaf_ids, vals_sum, ph = [], None, []
+    for g in range(feat_g.shape[0]):
+        feat_t, thr_t = feat_g[g].long(), thr_g[g].long()
+        if k2 == 0:
+            leaf_ids.append(_hop1(xb, feat_t, thr_t, k1)[0])
+        else:
+            ph.append(_hop2_rows(xb, feat_t, thr_t, k1=k1, k2=k2))
+    if k2 > 0:
+        # phase B: K8 once for the whole group's hop-2 feature bins
+        xv_all = packed_byte_gather_many(packed, torch.stack([p[5] for p in ph]).to(torch.int32))
+        for g, (i1, done1, l7, rfeat, rthr, _) in enumerate(ph):
+            split = rfeat >= 0
+            enc2 = (1 + ((xv_all[g].long() > rthr) & split).long()) * split.long()
+            enc2 = torch.where(done1[:, None], torch.zeros_like(enc2), enc2)
+            m, _ = _navigate(enc2, k2, (1 << k2) - 1)
+            leaf_ids.append(torch.where(done1, i1, _leaf_ids(m, l7, k1, k2)))
+    if val_g is not None:
+        for g, leaf in enumerate(leaf_ids):
+            v = val_g[g][leaf]                                             # (n, V)
+            vals_sum = v if vals_sum is None else vals_sum + v
+    return torch.stack(leaf_ids), vals_sum
+
+
+def _twohop_drive(xb, feat, thr_bin, values, *, max_depth: int, group: int):
+    """The tree-group loop: (T, n) leaf ids when ``values`` is None, else
+    the (n, V) value sum over trees (partial sums of ``group`` trees in
+    tree order, then across groups: the packed engine's association)."""
+    packed = pack_bins(xb)
+    ids_out, acc = [], None
+    for g0 in range(0, feat.shape[0], group):
+        ids, v = _twohop_group(
+            xb, packed, feat[g0:g0 + group], thr_bin[g0:g0 + group],
+            None if values is None else values[g0:g0 + group], max_depth=max_depth,
+        )
+        if values is None:
+            ids_out.append(ids)
+        else:
+            acc = v if acc is None else acc + v
+    return torch.cat(ids_out) if values is None else acc
+
+
+def forest_apply_bins(xb, feat, thr_bin, *, max_depth: int, group: int = 8) -> torch.Tensor:
+    """Leaf index per (tree, row), (T, n) int64, from ``xb`` (n, d) uint8
+    bins (d % 4 == 0), ``feat`` (T, M) (-1 = leaf) and ``thr_bin`` (T, M)
+    (bin(x) > thr_bin goes right)."""
+    return _twohop_drive(xb, feat, thr_bin, None, max_depth=max_depth, group=group)
+
+
+def rf_eval_bins(xb, feat, thr_bin, values, *, max_depth: int, group: int = 8) -> torch.Tensor:
+    """Sum over trees of each tree's leaf value vector: ``values`` (T, M,
+    V) -> (n, V)."""
+    return _twohop_drive(xb, feat, thr_bin, values, max_depth=max_depth, group=group)
+
+
+def rf_classify_bins(xb, feat, thr_bin, leaf_prob, *, max_depth: int, group: int = 8, pred_dtype=torch.float32):
+    """Spark RF vote semantics through the bins engine."""
+    raw = rf_eval_bins(xb, feat, thr_bin, leaf_prob, max_depth=max_depth, group=group)
+    prob = _per_tree(raw, feat.shape[0])
+    pred = torch.argmax(raw, dim=1).to(pred_dtype)
+    return pred, prob, raw
+
+
+def rf_regress_bins(xb, feat, thr_bin, leaf_value, *, max_depth: int, group: int = 8) -> torch.Tensor:
+    s = rf_eval_bins(xb, feat, thr_bin, leaf_value[..., None], max_depth=max_depth, group=group)
     return _per_tree(s[:, 0], leaf_value.shape[0])

@@ -1,7 +1,12 @@
 """Drop-in module alias: ``spark_rapids_ml_tpu_torch.regression`` ≙
-``spark_rapids_ml_tpu.regression`` (RandomForestRegressor; the linear
-regressor comes with a later slice)."""
+``spark_rapids_ml_tpu.regression`` (RandomForestRegressor and
+GBTRegressor; the linear regressor comes with a later slice)."""
 
-from .models.tree import RandomForestRegressionModel, RandomForestRegressor
+from .models.tree import (
+    GBTRegressionModel,
+    GBTRegressor,
+    RandomForestRegressionModel,
+    RandomForestRegressor,
+)
 
-__all__ = ["RandomForestRegressionModel", "RandomForestRegressor"]
+__all__ = ["GBTRegressionModel", "GBTRegressor", "RandomForestRegressionModel", "RandomForestRegressor"]

@@ -178,8 +178,9 @@ def test_import_leaves_jax_out():
         "from spark_rapids_ml_tpu_torch import core, interop, feature, clustering, classification, knn, umap\n"
         "from spark_rapids_ml_tpu_torch import regression\n"
         "from spark_rapids_ml_tpu_torch.ops import _build, linalg, kmeans_kernels, lbfgs, logreg_kernels\n"
-        "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels, rf_kernels, tree_kernels\n"
+        "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels, rf_kernels, tree_kernels, gbt_kernels\n"
         "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap, tree as mtree\n"
+        "from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor, GBTClassificationModel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spark_rapids_ml_tpu' or m.startswith('spark_rapids_ml_tpu.')]\n"
         "print(bad)\n"
@@ -224,3 +225,23 @@ def test_entry_point_without_device_needs_cuda():
     model.setDevice(None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.transform(tdf)
+
+
+def test_gbt_entry_points_without_device_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor
+
+    X = _low_rank(7, n=80)[:, :8]
+    y = (X[:, 0] > np.median(X[:, 0])).astype(np.float32)
+    tdf = TDataFrame({"features": X, "label": y})
+    for est in (GBTClassifier(maxIter=2, maxDepth=3), GBTRegressor(maxIter=2, maxDepth=3)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            est.fit(tdf)
+        model = est.setDevice("cpu").fit(tdf)
+        model.setDevice(None)
+        for engine in (None, "bins"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                model._get_transform_func(engine=engine)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.transform(tdf)
