@@ -14,8 +14,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    f64 on the same inputs, each output entry within its own tolerance
    (see ``held``); at the main path's shapes a deliberately wrong output
    must fail the same check. Kernel, plain, library-call and bound times.
-   K4 (kNN distance + top-k) at 131,072 queries x 1M items x 256, k = 16,
-   on a 4,096-row sample, at the UMAP graph (k = 16) and transform (k =
+   K3 (logistic loss + gradient) at K = 1 and, through its multinomial
+   kernel, at K = 10 on the 12M rows (which must beat its plain version)
+   and at ragged shapes, each with the kernel that ran it; K4 (kNN
+   distance + top-k) at 131,072 queries x 1M items x 256, k = 16, on a
+   4,096-row sample, at the UMAP graph (k = 16) and transform (k =
    15) shapes of 65,536 x 65,536 x 256 on a 4,096-row sample, and in full
    at ragged shapes; K10 (one UMAP SGD epoch) on the rows of the 65,536 x
    256 UMAP graph and at the transform's shape (65,536 rows, K = 15); the
@@ -38,7 +41,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
    fit then transform through ``DataFrame`` on N x 256 f32 rows made from
    ``--seed``, with a 100k-row subset fitted on the card and on the CPU
-   (plain path) and compared; NearestNeighbors(k=16).kneighbors of the
+   (plain path) and compared, and a 10-class (multinomial)
+   LogisticRegression on those rows fitted on both and compared (its K3
+   launches a path of their own); NearestNeighbors(k=16).kneighbors of the
    first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
    n_neighbors=15, random_state=42) fit, transform and save/load at
    65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
@@ -117,6 +122,9 @@ GBT_ACC_MIN = 0.75
 # rests on exact integer histograms)
 GBT_SUBSET_ROUNDS = 10
 GBT_AGREE_MIN = 0.995
+# the multinomial LogisticRegression fitted on the card and on the CPU
+LOGREG_CLASSES = 10
+LOGREG10_AGREE_MIN = 0.995
 
 
 def emit(obj) -> None:
@@ -408,6 +416,14 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     return loss, gA, gb, T_gA, T_b.expand(K), loss.abs() + T_z
 
 
+def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
+    """Which kernel of ``csrc/logreg_loss_grad.cu`` the wrapper launches."""
+    code = lk._k3_variant(d, K, multinomial, aligned)
+    if code == 0:
+        return "general"
+    return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
+
+
 def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
     n, d = X.shape
     g = torch.Generator(device=X.device)
@@ -424,7 +440,9 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
     check(r_gA <= 1.0 and r_gb <= 1.0 and r_loss <= 1.0,
           f"logreg_loss_grad {n}x{d} K={K}: |dgA|/tol {r_gA:.3g}, |dgb|/tol {r_gb:.3g} "
           f"or |dloss|/tol {r_loss:.3g} above 1")
-    out = {"n": n, "d": d, "K": K, "max_abs_err": err, "err_over_tol": r_gA,
+    aligned = X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0
+    out = {"n": n, "d": d, "K": K, "variant": k3_variant(lk, d, K, multinomial, aligned),
+           "max_abs_err": err, "err_over_tol": r_gA,
            "loss_rel_err": abs(float(loss) - float(lr)) / abs(float(lr)),
            "loss_err_over_tol": r_loss, "gb_err": gb_err, "gb_err_over_tol": r_gb}
     if control:  # a kernel that loses the second feature tile, or one row range in it
@@ -653,8 +671,11 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     y = (X[:, 0] > X[:, 0].median()).float()
     res["logreg_loss_grad"] = check_logreg(torch, lk, X, y, m, 1, reps, seed, control=True)
     emit({"phase": "kernels", "kernel": "logreg_loss_grad", **res["logreg_loss_grad"]})
-    res["logreg_loss_grad_10"] = check_logreg(torch, lk, X, y, m, 10, reps, seed, control=True)
-    emit({"phase": "kernels", "kernel": "logreg_loss_grad", **res["logreg_loss_grad_10"]})
+    res["logreg_loss_grad_10"] = k10 = check_logreg(torch, lk, X, y, m, 10, reps, seed, control=True)
+    emit({"phase": "kernels", "kernel": "logreg_loss_grad", **k10})
+    if reps:  # the multinomial kernel must beat the plain version it replaces
+        check(k10["ms"] < k10["plain_ms"],
+              f"logreg_loss_grad K=10 {k10['ms']:.3f} ms not below its plain version's {k10['plain_ms']:.3f} ms")
 
     # ragged shapes: n, d, k and K off every tile size
     for n_r, d_r in ((100_003, 300), (50_001, 124), (1_037, 3000)):
@@ -671,6 +692,13 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
             emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
                   **check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)})
         del Xr
+    # the multinomial register-row kernel off its tiles (d = 124, K = 5
+    # above lands there too)
+    Xr = torch.randn(100_003, 252, generator=g, device=dev) + 3.0
+    mr = (torch.rand(100_003, generator=g, device=dev) > 0.1).float()
+    emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
+          **check_logreg(torch, lk, Xr, mr, mr, 13, 0, seed)})
+    del Xr
     torch.cuda.synchronize()
     return res
 
@@ -1263,6 +1291,43 @@ def phase_subset(torch, X_host, y_host, seed, rows):
     check(coef_err <= 0.05 and agree >= 0.995, "LogReg card vs CPU beyond tolerance")
 
 
+def phase_logreg10_subset(torch, X_host, seed, rows):
+    """A 10-class LogisticRegression (multinomial: K3's register-row
+    multinomial kernel) fitted on the card and on the CPU; labels
+    argmax(X W + Gumbel noise) from numpy. Returns the card fit's K3
+    launches, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    rng = np.random.default_rng(seed + 10)
+    X = X_host[:rows]
+    W = rng.normal(size=(E2E_D, LOGREG_CLASSES)) * 0.2
+    y = (X @ W + rng.gumbel(size=(rows, LOGREG_CLASSES))).argmax(axis=1).astype(np.float32)
+    df = DataFrame({"features": X, "label": y})
+    lk.logreg_loss_grad.launches = 0
+    lg, t_card = _timed(torch, lambda: LogisticRegression(maxIter=20, device="cuda:0").fit(df))
+    launches = lk.logreg_loss_grad.launches
+    t = time.perf_counter()
+    lc = LogisticRegression(maxIter=20, device="cpu").fit(df)
+    t_cpu = time.perf_counter() - t
+    check(lg.coefficientMatrix.shape == (LOGREG_CLASSES, E2E_D) and np.isfinite(lg.coefficientMatrix).all(),
+          "10-class LogReg coefficients not finite/shape")
+    coef_err = float(np.abs(lg.coefficientMatrix - lc.coefficientMatrix).max()
+                     / np.abs(lc.coefficientMatrix).max())
+    pg, pc = lg.transform(df).column("prediction"), lc.transform(df).column("prediction")
+    agree = float((pg == pc).mean())
+    emit({"phase": "subset", "estimator": "LogisticRegression", "classes": LOGREG_CLASSES, "rows": rows,
+          "maxIter": 20, "card_fit_s": t_card, "cpu_fit_s": t_cpu, "n_iter_card": lg.n_iter_,
+          "n_iter_cpu": lc.n_iter_, "logreg_loss_grad_launches": launches,
+          "variant": k3_variant(lk, E2E_D, LOGREG_CLASSES, True),
+          "accuracy_card": float((pg == y).mean()), "coef_rel_err": coef_err, "coef_tol": 0.05,
+          "prediction_agreement": agree, "agreement_min": LOGREG10_AGREE_MIN})
+    check(launches > 0, "the 10-class card fit launched no K3 kernel")
+    check(coef_err <= 0.05 and agree >= LOGREG10_AGREE_MIN, "10-class LogReg card vs CPU beyond tolerance")
+    return launches
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -1751,6 +1816,8 @@ def main() -> int:
     # read just after: {kernel: {path: launches}}
     by_path = {key: {"pca_kmeans_logreg": c} for key, c in phase_e2e(torch, X_host, y_host, args.seed).items()}
     phase_subset(torch, X_host, y_host, args.seed, min(args.subset, n))
+    by_path["logreg_loss_grad"]["logreg10_card_vs_cpu"] = phase_logreg10_subset(
+        torch, X_host, args.seed, min(args.subset, n))
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
@@ -1796,7 +1863,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
-                                        "k1", "k2", "words", "G") if k in r},
+                                        "k1", "k2", "words", "G", "variant") if k in r},
         }
         kernels.append(entry)
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],

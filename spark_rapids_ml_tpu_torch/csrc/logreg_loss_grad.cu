@@ -10,15 +10,21 @@
 // evaluation cost one pass over X instead of autodiff's two.
 //
 // What bounds it on an H100: memory. One evaluation reads X once (12.3 GB
-// at 12M x 256, ~4 ms at 3.35 TB/s) and does ~4*n*K*d f32 operations
-// (~12 GFLOP at K = 1, well under a millisecond at the FP32 peak).
+// at 12M x 256, 3.70 ms at 3.35 TB/s) and does ~4*n*K*d f32 operations
+// (~12 GFLOP at K = 1, well under a millisecond at the FP32 peak; 123
+// GFLOP at K = 10, 1.83 ms: still below the bytes).
 //
-// Design. Two kernels share the output contract and the fixed-order second
-// pass. For small K*d (K = 1 with d <= 1024, or K <= 8 with d <= 128; d a
-// multiple of 4) logreg_rows_kernel below gives each warp whole rows held
-// in registers, with no barrier in its row loop. Otherwise the general
-// kernel: blocks take contiguous row ranges and walk them in tiles of RT
-// rows. Per tile: (L) each warp computes logits for (row, 8-class chunk)
+// Design. Three kernels share the output contract and the fixed-order
+// second pass; the caller picks one (ops/logreg_kernels.py::_k3_variant).
+// For K = 1 (the binomial main path) with d <= 1024, d a multiple of 4,
+// logreg_rows_kernel gives each warp whole rows held in registers, with no
+// barrier in its row loop. For multinomial 2 <= K <= 16 with d <= 256, d a
+// multiple of 4, logreg_mrows_kernel (see its note) streams X through a
+// cp.async ring, so the bytes in flight do not depend on the register
+// budget its K x d gradient takes, reads A from shared memory once per
+// group of 2 or 4 rows, and reduces all of a group's logits together.
+// Every other shape takes the general kernel: blocks take contiguous row
+// ranges and walk them in tiles of RT rows. Per tile: (L) each warp computes logits for (row, 8-class chunk)
 // pairs, lanes striding over d (coalesced row reads; A is small and read
 // through the L1 cache, so any K*d fits without tiling A in shared
 // memory); the RT x K logits live in shared memory. (R) a warp per row
@@ -165,7 +171,7 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
   }
 }
 
-// Row-per-warp variant for small K*d (the main path: binomial, d = 256).
+// Row-per-warp variant for K = 1 (the main path: binomial, d = 256).
 // A warp owns whole rows: each lane holds NV float4 chunks of the row and
 // of every class's coefficients in registers, the logits come from warp
 // sums, every lane computes the loss and residuals redundantly, and the
@@ -298,6 +304,296 @@ logreg_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
   }
 }
 
+// cp.async: 16 bytes from global to shared memory, zero-filled past
+// src_bytes (0 for a chunk outside X, whose address is then not read)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int MSTAGES = 4;  // X row groups a warp keeps in flight (+1 in use)
+
+// lanes that hold one row's logits after the warp sum: 8 or 16
+template <int KP>
+__host__ __device__ constexpr int mrows_lanes() { return KP <= 8 ? 8 : 16; }
+
+template <int NV, int KP>
+constexpr size_t mrows_smem_floats() {
+  // A, b (padded to 16 bytes), the warps' residual slots, then each
+  // warp's cp.async ring of MSTAGES groups of R = 32 / LR rows, each row
+  // NV * 128 floats
+  return (size_t)KP * NV * 128 + (KP + 3) / 4 * 4 + WARPS * 32 +
+         (size_t)WARPS * MSTAGES * (32 / mrows_lanes<KP>()) * NV * 128;
+}
+
+// One step of the warp's recursive-halving sum of 2H values a lane: the
+// lane keeps the half whose index bit H equals its own lane bit H, adds
+// its partner's copy of that half, and sends the other (H a template
+// argument, so every index is known at compile time and s stays in
+// registers)
+template <int H>
+__device__ __forceinline__ void halve(float (&s)[32], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = up ? s[j] : s[j + H];
+    const float keep = up ? s[j + H] : s[j];
+    s[j] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// Multinomial register-row variant: d <= 128 NV (d % 4 == 0), K = KP
+// classes, 2 <= KP <= 16. A row's logits take LR = 8 or 16 lanes
+// (KP <= LR), and a warp takes groups of R = 32 / LR consecutive rows, so
+// the R x LR logit slots of a group are exactly one value per lane:
+//   - X streams through a per-warp ring of MSTAGES groups in shared memory
+//     (cp.async, zero-filled past n and d); each lane copies and reads only
+//     its own 16-byte chunks, so the ring needs no barrier. The bytes in
+//     flight (3 groups a warp) do not depend on the registers the
+//     gradient takes;
+//   - A (zero-padded to NV*128 columns) and b sit in shared memory: one
+//     float4 of a class is read once per group and serves its R rows, with
+//     no bank conflicts (neighbouring lanes, neighbouring 16 bytes);
+//   - the partial logits of a lane are summed across the warp by
+//     recursive halving (31 shuffles), after which lane L holds the logit
+//     of row L / LR, class L % LR; the softmax over a row's classes is 2
+//     log2(LR) shuffles, and each lane computes one exp and one residual;
+//   - the residuals are broadcast through a 32-float shared slot per warp
+//     and the gradient R^T x accumulates in registers, g[KP][NV] float4
+//     per lane, for all of the warp's rows.
+// Every loop has compile-time bounds (one instance per class count) and no
+// branch, so the compiler schedules a group as one block. At 10 classes it
+// is bound by instruction issue and latency more than by bytes: the
+// logit and gradient FMAs (2 K d a row), the warp sum's shuffles and
+// selects, at one block (8 warps, two a scheduler) an SM for its
+// registers. So the loop is software-pipelined: group it's logits and
+// their shuffle chain sit beside group it - 1's softmax and gradient. The
+// block partial uses the layout and the fixed-order second pass of the
+// other two kernels.
+template <int NV, int KP>
+__global__ void __launch_bounds__(THREADS, 1)
+logreg_mrows_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                    const float* __restrict__ m, const float* __restrict__ A,
+                    const float* __restrict__ b, float* __restrict__ part,
+                    float* __restrict__ loss_part, int64_t n, int d, int K) {
+  constexpr int LR = mrows_lanes<KP>();
+  constexpr int R = 32 / LR;
+  constexpr int ROWF = NV * 128;  // floats of one padded row
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;                        // [KP][ROWF]
+  float* sb = sA + KP * ROWF;              // [KP], padded to 16 bytes
+  float* rslot = sb + (KP + 3) / 4 * 4;    // [WARPS][32]
+  float* ring = rslot + WARPS * 32;        // [WARPS][MSTAGES][R][ROWF]
+  __shared__ float warp_loss[WARPS];
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = threadIdx.x; e < KP * ROWF; e += THREADS) {
+    const int k = e / ROWF, c = e % ROWF;
+    sA[e] = c < d ? A[(int64_t)k * d + c] : 0.f;
+  }
+  if (threadIdx.x < KP) sb[threadIdx.x] = b[threadIdx.x];
+
+  // a warp's groups: gw, gw + nw, ... (fewer than 2^31 of them)
+  const int64_t groups = (n + R - 1) / R;
+  const int64_t gw = (int64_t)blockIdx.x * WARPS + warp;
+  const int64_t nw = (int64_t)gridDim.x * WARPS;
+  const int iters = gw < groups ? (int)((groups - gw + nw - 1) / nw) : 0;
+  float* wring = ring + (size_t)warp * MSTAGES * R * ROWF;
+  float* wr = rslot + warp * 32;
+
+  auto issue = [&](int it) {  // group it of this warp into its ring slot
+    const int64_t r0 = (gw + (int64_t)it * nw) * R;
+    float* dst = wring + (it & (MSTAGES - 1)) * R * ROWF;
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c = (v * 32 + lane) * 4;
+        const bool ok = it < iters && r0 + u < n && c < d;
+        cp_async16(dst + u * ROWF + c, ok ? X + (r0 + u) * d + c : X, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // lane L ends up with row u = L / LR, class k = L % LR of its group
+  const int my_u = lane / LR, my_k = lane % LR;
+  auto row_my = [&](int it, float& mr, float& yr) {
+    const int64_t r = (gw + (int64_t)it * nw) * R + my_u;
+    const bool ok = it < iters && r < n;
+    mr = ok ? __ldg(m + r) : 0.f;
+    yr = ok ? __ldg(y + r) : 0.f;
+  };
+
+#pragma unroll
+  for (int s = 0; s < MSTAGES; ++s) issue(s);
+  __syncthreads();  // sA, sb
+
+  float4 g[KP][NV];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) g[k][v] = zero4;
+  float gb = 0.f, lsum = 0.f;
+  const float4* sA4 = reinterpret_cast<const float4*>(sA);
+  const bool live = my_k < KP;  // lanes of class slots KP..LR-1 idle
+  const float bk = live ? sb[my_k] : 0.f;
+
+  // the R x LR logits of a group, summed across the warp: lane L's value
+  auto logits = [&](const float4 (&x)[R][NV]) -> float {
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const float4 a = sA4[k * (ROWF / 4) + v * 32 + lane];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          float t = s[u * LR + k];
+          t = fmaf(x[u][v].x, a.x, t);
+          t = fmaf(x[u][v].y, a.y, t);
+          t = fmaf(x[u][v].z, a.z, t);
+          t = fmaf(x[u][v].w, a.w, t);
+          s[u * LR + k] = t;
+        }
+      }
+    }
+    halve<16>(s, lane);
+    halve<8>(s, lane);
+    halve<4>(s, lane);
+    halve<2>(s, lane);
+    halve<1>(s, lane);
+    return s[0];
+  };
+  // softmax, loss and residual of a group's summed logit, then R^T x
+  auto finish = [&](const float4 (&x)[R][NV], float zsum, float mr, float yr) {
+    const float z = live ? zsum + bk : -CUDART_INF_F;
+    float zmax = z;
+#pragma unroll
+    for (int o = 1; o < LR; o <<= 1) zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
+    const float e = live ? __expf(z - zmax) : 0.f;
+    float se = e;
+#pragma unroll
+    for (int o = 1; o < LR; o <<= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
+    const bool hit = live && my_k == (int)yr;
+    lsum += ((my_k == 0 ? logf(se) + zmax : 0.f) - (hit ? z : 0.f)) * mr;
+    const float rk = (__fdividef(e, se) - (hit ? 1.f : 0.f)) * mr;
+    gb += rk;
+    __syncwarp();  // every lane has read the previous group's residuals
+    wr[lane] = rk;
+    __syncwarp();
+    const float4* wr4 = reinterpret_cast<const float4*>(wr);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+#pragma unroll
+      for (int k4 = 0; k4 < KP; k4 += 4) {
+        const float4 r4 = wr4[(u * LR + k4) / 4];
+        const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+        for (int j = 0; j < 4 && k4 + j < KP; ++j) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            g[k4 + j][v].x = fmaf(rv[j], x[u][v].x, g[k4 + j][v].x);
+            g[k4 + j][v].y = fmaf(rv[j], x[u][v].y, g[k4 + j][v].y);
+            g[k4 + j][v].z = fmaf(rv[j], x[u][v].z, g[k4 + j][v].z);
+            g[k4 + j][v].w = fmaf(rv[j], x[u][v].w, g[k4 + j][v].w);
+          }
+        }
+      }
+    }
+  };
+  auto load = [&](int it, float4 (&x)[R][NV]) {
+    const float4* src = reinterpret_cast<const float4*>(wring + (it & (MSTAGES - 1)) * R * ROWF);
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) x[u][v] = src[u * (ROWF / 4) + v * 32 + lane];
+  };
+
+  // software pipeline: group it's logits and warp sum (a shuffle chain)
+  // beside group it - 1's softmax and gradient, in one branch-free block
+  if (iters > 0) {
+    float4 xp[R][NV];
+    cp_async_wait<MSTAGES - 1>();
+    load(0, xp);
+    float zp = logits(xp), mp, yp;
+    row_my(0, mp, yp);
+    for (int it = 1; it < iters; ++it) {
+      issue(it + MSTAGES - 1);
+      float mc, yc;
+      row_my(it, mc, yc);
+      cp_async_wait<MSTAGES - 1>();  // this lane's chunks of group it landed
+      float4 xc[R][NV];
+      load(it, xc);
+      const float zc = logits(xc);
+      finish(xp, zp, mp, yp);
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) xp[u][v] = xc[u][v];
+      zp = zc;
+      mp = mc;
+      yp = yc;
+    }
+    finish(xp, zp, mp, yp);
+  }
+  cp_async_wait<0>();  // the ring's trailing (empty) groups
+
+  // intercept gradient: lanes k, k + LR, ... hold class k of each row slot
+#pragma unroll
+  for (int o = LR; o < 32; o <<= 1) gb += __shfl_xor_sync(0xffffffffu, gb, o);
+  lsum = warp_sum(lsum);
+  __syncthreads();  // every warp is done with its ring: reuse it
+
+  // block partial: the warps' register accumulators added in warp order
+  float* red = ring;  // [KP][ROWF] then [KP] intercepts
+  float4* red4 = reinterpret_cast<float4*>(red);
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          float4& t = red4[k * (ROWF / 4) + v * 32 + lane];
+          if (w == 0) {
+            t = g[k][v];
+          } else {
+            t.x += g[k][v].x;
+            t.y += g[k][v].y;
+            t.z += g[k][v].z;
+            t.w += g[k][v].w;
+          }
+        }
+      }
+      if (lane < KP) red[KP * ROWF + lane] = (w == 0 ? 0.f : red[KP * ROWF + lane]) + gb;
+      if (lane == 0) warp_loss[warp] = lsum;
+    }
+    __syncthreads();
+  }
+  const int D1 = d + 1;
+  float* P = part + (int64_t)blockIdx.x * K * D1;
+  for (int e = threadIdx.x; e < K * D1; e += THREADS) {
+    const int k = e / D1, c = e % D1;
+    P[e] = c < d ? red[k * ROWF + c] : red[KP * ROWF + k];
+  }
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < WARPS; ++w) t += warp_loss[w];
+    loss_part[blockIdx.x] = t;
+  }
+}
+
 // Fixed-order sum over blocks: element e < K*(d+1) -> gA / gb, the last
 // element -> loss.
 __global__ void logreg_reduce_kernel(const float* __restrict__ part,
@@ -324,18 +620,9 @@ __global__ void logreg_reduce_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-// Which row-per-warp instance takes (d, K), or 0 for the general kernel:
-// 10 * NV + KR with NV float4 chunks per lane (d <= 128 NV, d % 4 == 0)
-// and KR >= K register classes; K = 1 covers the binomial main path.
-extern "C" int logreg_rows_variant(int d, int K) {
-  if (d % 4 != 0 || d > 1024) return 0;
-  const int nv = (d + 127) / 128;
-  const int NV = nv <= 1 ? 1 : nv <= 2 ? 2 : nv <= 4 ? 4 : 8;
-  if (K == 1) return 10 * NV + 1;
-  if (K <= 8 && NV == 1) return 10 * NV + 8;
-  return 0;
-}
-
+// The caller picks the kernel (ops/logreg_kernels.py::_k3_variant):
+// 10 * NV + 1 for logreg_rows_kernel<NV, 1>, 100 * NV + KP for
+// logreg_mrows_kernel<NV, KP>, anything else for the general kernel.
 extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const float* m,
                                        const float* A, const float* b, float* gA,
                                        float* gb, float* loss, float* part,
@@ -350,16 +637,34 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
     logreg_rows_kernel<NV, KR><<<nblocks, THREADS, 0, st>>>(            \
         X, y, m, A, b, part, loss_part, n, d, K, multinomial);           \
     break;
+#define MROWS(NV, KP)                                                           \
+  case 100 * NV + KP: {                                                         \
+    const size_t bytes = sizeof(float) * mrows_smem_floats<NV, KP>();           \
+    const cudaError_t err = cudaFuncSetAttribute(                               \
+        logreg_mrows_kernel<NV, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        (int)bytes);                                                            \
+    if (err != cudaSuccess) return (int)err;                                    \
+    logreg_mrows_kernel<NV, KP><<<nblocks, THREADS, bytes, st>>>(              \
+        X, y, m, A, b, part, loss_part, n, d, K);                               \
+    break;                                                                      \
+  }
+#define MROWS_NV(NV)                                                            \
+  MROWS(NV, 2) MROWS(NV, 3) MROWS(NV, 4) MROWS(NV, 5) MROWS(NV, 6) MROWS(NV, 7)   \
+  MROWS(NV, 8) MROWS(NV, 9) MROWS(NV, 10) MROWS(NV, 11) MROWS(NV, 12)             \
+  MROWS(NV, 13) MROWS(NV, 14) MROWS(NV, 15) MROWS(NV, 16)
   switch (variant) {
     ROWS(1, 1)
     ROWS(2, 1)
     ROWS(4, 1)
     ROWS(8, 1)
-    ROWS(1, 8)
+    MROWS_NV(1)
+    MROWS_NV(2)
     default:
       logreg_partial_kernel<<<nblocks, THREADS, smem, st>>>(
           X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block);
   }
+#undef MROWS_NV
+#undef MROWS
 #undef ROWS
   const int64_t total = (int64_t)K * (d + 1) + 1;
   logreg_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(

@@ -30,6 +30,25 @@ _LOGREG_TILE_ROWS = 64
 _LOGREG_SMEM = 48 * 1024
 # cap on the per-block (K, d+1) partials the second pass reduces
 _LOGREG_SCRATCH = 256 << 20
+# logreg_mrows_kernel: 8 warps a block
+_MROWS_WARPS = 8
+
+
+def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
+    """Which kernel of ``csrc/logreg_loss_grad.cu`` takes a (d, K) pass, as
+    the launcher's code: ``10·NV + 1`` for the binomial row-per-warp kernel
+    (K = 1, d ≤ 1024, NV ∈ {1, 2, 4, 8} float4 chunks a lane), ``100·NV +
+    K`` for the multinomial register-row kernel (2 ≤ K ≤ 16, d ≤ 256,
+    NV ∈ {1, 2}), 0 for the general kernel. The first two need d a
+    multiple of 4 and 16-byte aligned X and A (``aligned``)."""
+    if not aligned or d % 4 or d < 1:
+        return 0
+    nv = -(-d // 128)
+    if K == 1 and d <= 1024:
+        return 10 * (1 if nv <= 1 else 2 if nv <= 2 else 4 if nv <= 4 else 8) + 1
+    if multinomial and 2 <= K <= 16 and d <= 256:
+        return 100 * nv + K
+    return 0
 
 
 def logreg_loss_grad_plain(
@@ -83,16 +102,13 @@ def logreg_loss_grad(
     dev = X.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block = K * (d + 1)
-    # small K*d (the binomial main path) takes the row-per-warp kernel,
-    # whose float4 loads need 16-byte aligned rows
-    variant = _build.function(
-        "logreg_loss_grad", "logreg_rows_variant", [ctypes.c_int, ctypes.c_int]
-    )(d, K)
-    if X.data_ptr() % 16 or A.data_ptr() % 16:
-        variant = 0
-    if variant:
+    variant = _k3_variant(d, K, multinomial, X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
+    rows = 0
+    if variant >= 100:  # one resident block per SM walks the row groups
+        groups = -(-max(n, 1) // (4 if K <= 8 else 2))  # rows a group
+        nblocks = max(1, min(-(-groups // _MROWS_WARPS), sms))
+    elif variant:
         nblocks = max(1, min(-(-max(n, 1) // 16), 4 * sms))
-        rows = 0
     else:
         nblocks = max(1, min(-(-max(n, 1) // rt), 8 * sms, _LOGREG_SCRATCH // (4 * per_block)))
         rows = -(-max(n, 1) // nblocks)

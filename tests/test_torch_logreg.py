@@ -34,7 +34,7 @@ def _problem(seed, n, d, K, multinomial):
     return X, y, m, A, b
 
 
-@pytest.mark.parametrize("multinomial,K", [(False, 1), (True, 5)])
+@pytest.mark.parametrize("multinomial,K", [(False, 1), (True, 5), (True, 10)])
 def test_fused_loss_grad_plain_matches_pallas_interpret(multinomial, K):
     n, d = 320, 256
     X, y, m, A, b = _problem(K, n, d, K, multinomial)
@@ -51,7 +51,7 @@ def test_fused_loss_grad_plain_matches_pallas_interpret(multinomial, K):
     assert np.abs(gb_t.numpy() - np.asarray(gb_j)).max() < 1e-3
 
 
-@pytest.mark.parametrize("multinomial,K", [(False, 1), (True, 5)])
+@pytest.mark.parametrize("multinomial,K", [(False, 1), (True, 5), (True, 10)])
 def test_autograd_function_matches_autograd_of_plain_loss(multinomial, K):
     n, d = 200, 40
     X, y, m, A, b = _problem(10 + K, n, d, K, multinomial)
@@ -76,6 +76,31 @@ def test_autograd_function_matches_autograd_of_plain_loss(multinomial, K):
     assert abs(float(loss1.detach()) - float(loss2.detach())) < 1e-4 * abs(float(loss2.detach()))
     for a, r in zip(g1, g2):
         assert (a - r).abs().max() <= 1e-5 * r.abs().max() + 1e-6
+
+
+@pytest.mark.parametrize("d", [124, 252, 256])
+@pytest.mark.parametrize("K", [2, 5, 10, 16])
+def test_k3_routing_table(K, d, monkeypatch):
+    # binomial K = 1: the row-per-warp kernel with NV float4 chunks a lane
+    assert tlk._k3_variant(256, 1, False) == 21
+    assert tlk._k3_variant(1024, 1, False) == 81
+    # multinomial 2 <= K <= 16, d <= 256, d % 4 == 0: the register-row
+    # multinomial kernel for K classes, 100·NV + K
+    assert tlk._k3_variant(d, K, True) == 100 * (1 if d <= 128 else 2) + K
+    # anything else: the general kernel
+    assert tlk._k3_variant(256, 17, True) == 0
+    assert tlk._k3_variant(260, K, True) == 0
+    assert tlk._k3_variant(300, K, True) == 0
+    assert tlk._k3_variant(d - 2, K, True) == 0
+    assert tlk._k3_variant(d, K, True, aligned=False) == 0
+    # a CPU tensor takes the plain version and never consults the table
+    def no_table(*a, **k):
+        raise AssertionError("the routing table was consulted for a CPU tensor")
+
+    monkeypatch.setattr(tlk, "_k3_variant", no_table)
+    t = [torch.from_numpy(v) for v in _problem(K, 40, d, K, True)]
+    for a, r in zip(tlk.logreg_loss_grad(*t, True), tlk.logreg_loss_grad_plain(*t, True)):
+        assert torch.equal(a, r)
 
 
 @functools.partial(jax.jit, static_argnames=("use_l1",))

@@ -91,7 +91,7 @@ def test_kmeans_fit_transform_matches_jax():
     assert (match[pt] == pj).all()
 
 
-@pytest.mark.parametrize("n_classes,reg,enet", [(2, 0.01, 0.0), (4, 0.01, 0.0), (2, 0.02, 0.5)])
+@pytest.mark.parametrize("n_classes,reg,enet", [(2, 0.01, 0.0), (4, 0.01, 0.0), (10, 0.01, 0.0), (2, 0.02, 0.5)])
 def test_logreg_fit_transform_matches_jax(n_classes, reg, enet):
     rng = np.random.default_rng(n_classes)
     X = rng.normal(size=(3000, D)).astype(np.float32)
