@@ -14,6 +14,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    f64 on the same inputs, each output entry within its own tolerance
    (see ``held``); at the main path's shapes a deliberately wrong output
    must fail the same check. Kernel, plain, library-call and bound times.
+   K1 (shifted Gram) at the PCA fit's padded 12M x 256 shape (which must
+   beat its plain version; a wrong mirror of a diagonal tile's skipped
+   quadrant is one of its controls) and at ragged shapes, on and off its
+   float4 path (d % 4 != 0, a base off 16-byte alignment).
    K3 (logistic loss + gradient) at K = 1 and, through its multinomial
    kernel, at K = 10 on the 12M rows (which must beat its plain version)
    and at ragged shapes, each with the kernel that ran it; K4 (kNN
@@ -267,10 +271,13 @@ def check_shifted_gram(torch, lin, X, m, reps, control=False):
           f"shifted_gram {n}x{d}: |dG|/tol {r_G:.3g} or |ds|/tol {r_s:.3g} above 1")
     out = {"n": n, "d": d, "max_abs_err": err_G, "err_over_tol": r_G, "s_err": err_s,
            "s_err_over_tol": r_s}
-    if control:  # a kernel that loses an output tile, or one row range in a tile
+    if control:  # a kernel that loses an output tile, one row range in a tile,
+        # or mirrors a diagonal tile's skipped lower-left quadrant wrongly
         tile = G.clone()
         tile[128:, :128] = 0.0
         tile[:128, 128:] = 0.0
+        mirror = G.clone()
+        mirror[64:128, :64] = 0.0
         L = n // CONTROL_SPLIT
         lost = lin.shifted_gram_plain(X[:L], m[:L], mu)[0]
         lost[:128, :] = 0.0
@@ -279,12 +286,14 @@ def check_shifted_gram(torch, lin, X, m, reps, control=False):
         out["controls"] = negative_controls(torch, {
             "off-diagonal 128x128 tile zeroed": tile,
             f"first 1/{CONTROL_SPLIT} of rows lost in G[128:, 128:] off the diagonal": G - lost,
+            "diagonal tile's lower-left 64x64 quadrant zeroed (a wrong mirror)": mirror,
         }, Gr, TG, n)
     if reps:
         Xc = (X - mu) * m[:, None]
         out["ms"] = cuda_ms(torch, lambda: lin.shifted_gram(X, m, mu), reps)
         out["plain_ms"] = cuda_ms(torch, lambda: lin.shifted_gram_plain(X, m, mu), reps)
         out["library_ms"] = cuda_ms(torch, lambda: torch.matmul(Xc.T, Xc), reps)
+        out["ms_over_library"] = out["ms"] / out["library_ms"]
         del Xc
         nbytes = 4.0 * (n * d + n + d + d * d + d)
         flops = float(n) * d * (d + 1) + 3.0 * n * d  # symmetric G + shift/mask/sum
@@ -655,8 +664,11 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     g.manual_seed(seed + 1)
     res = {}
 
-    res["shifted_gram"] = check_shifted_gram(torch, lin, X_pca, m_pca, reps, control=True)
-    emit({"phase": "kernels", "kernel": "shifted_gram", **res["shifted_gram"]})
+    res["shifted_gram"] = k1 = check_shifted_gram(torch, lin, X_pca, m_pca, reps, control=True)
+    emit({"phase": "kernels", "kernel": "shifted_gram", **k1})
+    if reps:  # the redesigned kernel must beat the plain version it replaces
+        check(k1["ms"] < k1["plain_ms"],
+              f"shifted_gram {k1['ms']:.3f} ms not below its plain version's {k1['plain_ms']:.3f} ms")
 
     # k = 1024: the Lloyd iterations; ~4k: count_closest over the k-means||
     # candidates (1 + 2 steps x 2k draws at oversampling 2)
@@ -692,6 +704,15 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
             emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
                   **check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)})
         del Xr
+    # K1 off its float4 path: d % 4 != 0 (one column past a tile, and
+    # narrower than half a tile), and a base 4 bytes off 16-byte alignment
+    for n_r, d_r, offset in ((100_003, 257, 0), (50_001, 61, 0), (100_003, 256, 1)):
+        buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + 3.0
+        Xr = buf[offset:].view(n_r, d_r)
+        mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
+        emit({"phase": "kernels", "kernel": "shifted_gram", "ragged": True, "misaligned": bool(offset),
+              **check_shifted_gram(torch, lin, Xr, mr, 0)})
+        del buf, Xr
     # the multinomial register-row kernel off its tiles (d = 124, K = 5
     # above lands there too)
     Xr = torch.randn(100_003, 252, generator=g, device=dev) + 3.0

@@ -11,6 +11,7 @@ packages shift by the same μ̂.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -22,6 +23,13 @@ _I64, _P = ctypes.c_int64, ctypes.c_void_p
 # K1 geometry, mirrored from csrc/shifted_gram.cu
 _GRAM_TILE = 128
 _GRAM_STAGE = 16
+# block waves the row splits make: a diagonal tile does 3/4 of an
+# off-diagonal tile's work, so one wave leaves SMs idle at its tail and
+# many let the block scheduler even the load out (16: within ~1% of 32 at
+# 12M x 256, half the partials)
+_GRAM_WAVES = 16
+# rows a split may hold: the kernel counts them in 32 bits
+_GRAM_SPLIT_ROWS_MAX = 1 << 30
 
 
 # rows per chunk of the moment passes: XLA fuses the JAX package's
@@ -56,6 +64,37 @@ def shifted_gram_plain(
     return xs.T @ xs, xs.sum(dim=0)
 
 
+def _gram_geometry(n: int, d: int, sms: int, blocks_per_sm: int) -> Tuple[int, int, int, int]:
+    """K1's grid: ``(T, n_up, nsplit, rows_per_split)``.
+
+    ``T`` column tiles of ``_GRAM_TILE``, ``n_up = T(T+1)/2`` upper-triangle
+    output tiles, and ``nsplit`` row splits of ``rows_per_split`` rows (a
+    multiple of the stage, at most ``_GRAM_SPLIT_ROWS_MAX``): split ``i``
+    takes rows ``[i·rows, (i+1)·rows)`` cut at ``n``, so every row falls in
+    exactly one split. The ``n_up × nsplit`` blocks make about
+    ``_GRAM_WAVES`` waves of ``sms × blocks_per_sm`` resident blocks when
+    there are rows enough. The partial buffers are ``(nsplit, n_up, TILE,
+    TILE)`` and ``(nsplit, n_up, TILE)`` (the diagonal tiles' column sums)."""
+    T = -(-d // _GRAM_TILE)
+    n_up = T * (T + 1) // 2
+    rows_total = max(n, 1)
+    want = -(-_GRAM_WAVES * sms * blocks_per_sm // n_up)
+    nsplit = max(1, min(-(-rows_total // _GRAM_STAGE), want), -(-rows_total // _GRAM_SPLIT_ROWS_MAX))
+    rows = -(-rows_total // nsplit)
+    rows = -(-rows // _GRAM_STAGE) * _GRAM_STAGE
+    return T, n_up, -(-rows_total // rows), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_blocks_per_sm() -> int:
+    """Resident K1 blocks per SM, from the CUDA occupancy calculator (the
+    kernel asks for 2; fewer if its build came out otherwise)."""
+    fn = _build.function("shifted_gram", "shifted_gram_blocks_per_sm", [_P])
+    out = ctypes.c_int(0)
+    _build.check("shifted_gram", fn(ctypes.byref(out)))
+    return max(1, out.value)
+
+
 def shifted_gram(
     X: torch.Tensor, m: torch.Tensor, mu: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,26 +113,21 @@ def shifted_gram(
             f"shifted_gram: shapes X {tuple(X.shape)}, m {tuple(m.shape)}, "
             f"mu {tuple(mu.shape)} do not agree"
         )
-    T = -(-d // _GRAM_TILE)
-    n_up = T * (T + 1) // 2
-    # about two resident blocks per SM: the row splits fill the card when
-    # there are few output tiles (3 at d = 256)
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    nsplit = max(1, min(-(-max(n, 1) // _GRAM_STAGE), -(-2 * sms // n_up)))
-    rows = -(-max(n, 1) // nsplit)
-    rows = -(-rows // _GRAM_STAGE) * _GRAM_STAGE
-    nsplit = -(-max(n, 1) // rows)
+    T, n_up, nsplit, rows = _gram_geometry(n, d, sms, _gram_blocks_per_sm())
     G = torch.empty((d, d), dtype=torch.float32, device=X.device)
     s = torch.empty((d,), dtype=torch.float32, device=X.device)
     part_G = torch.empty((nsplit, n_up, _GRAM_TILE, _GRAM_TILE), dtype=torch.float32, device=X.device)
-    part_s = torch.empty((nsplit, T * _GRAM_TILE), dtype=torch.float32, device=X.device)
+    part_s = torch.empty((nsplit, n_up, _GRAM_TILE), dtype=torch.float32, device=X.device)
+    # float4 loads need whole float4s in every row and a 16-byte aligned base
+    vec = d % 4 == 0 and X.data_ptr() % 16 == 0
     fn = _build.function(
         "shifted_gram", "shifted_gram_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _I64, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _I64, ctypes.c_int, _P],
     )
     code = fn(
         X.data_ptr(), m.data_ptr(), mu.data_ptr(), G.data_ptr(), s.data_ptr(),
-        part_G.data_ptr(), part_s.data_ptr(), n, d, nsplit, rows,
+        part_G.data_ptr(), part_s.data_ptr(), n, d, nsplit, rows, int(vec),
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     shifted_gram.launches += 1

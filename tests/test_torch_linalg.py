@@ -63,6 +63,38 @@ def test_shifted_gram_ragged_d_matches_float64():
     assert np.abs(s.numpy() - xs.sum(axis=0)).max() < 1e-3
 
 
+@pytest.mark.parametrize("sms,blocks_per_sm", [(132, 2), (132, 1), (1, 1)])
+@pytest.mark.parametrize("d", [61, 128, 256, 257, 3000])
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 12_000_112, 2**35])
+def test_gram_geometry_covers_every_row_once(n, d, sms, blocks_per_sm):
+    # K1's grid on the card; the kernel is not run here
+    T, n_up, nsplit, rows = tlinalg._gram_geometry(n, d, sms, blocks_per_sm)
+    stage, tile = tlinalg._GRAM_STAGE, tlinalg._GRAM_TILE
+    assert T == -(-d // tile) and n_up == T * (T + 1) // 2
+    assert nsplit >= 1 and rows >= stage and rows % stage == 0
+    assert rows <= tlinalg._GRAM_SPLIT_ROWS_MAX  # the kernel counts a split's rows in 32 bits
+    # split i takes rows [i·rows, min(n, (i+1)·rows)): the splits tile [0, n)
+    # with none empty past the first
+    assert (nsplit - 1) * rows < max(n, 1) <= nsplit * rows
+    starts = np.arange(nsplit) * rows
+    ends = np.minimum(starts + rows, n)
+    assert ends[-1] == n and (starts[1:] == ends[:-1]).all()
+    assert nsplit <= 65_535  # the grid's y extent on the card
+    if n >= tlinalg._GRAM_WAVES * sms * blocks_per_sm * stage:
+        # enough rows: the blocks fill every resident slot
+        assert n_up * nsplit >= sms * blocks_per_sm
+    # the partial buffers: one TILE x TILE tile and one TILE column-sum row
+    # per block (split, upper tile); the last block's ends the buffer
+    part_G, part_s = nsplit * n_up * tile * tile, nsplit * n_up * tile
+    last_block = (nsplit - 1) * n_up + (n_up - 1)
+    assert (last_block + 1) * tile * tile == part_G
+    assert (last_block + 1) * tile == part_s
+    # every diagonal tile's column sums: tile (i, i) is upper tile i·T - i(i-1)/2
+    diag = [i * T - i * (i - 1) // 2 for i in range(T)]
+    assert diag == sorted(set(diag)) and diag[-1] == n_up - 1
+    assert part_G * 4 < 2**30  # under 1 GiB of scratch: a small fraction of the card
+
+
 @pytest.mark.parametrize("sorted_rows", [False, True])
 def test_mean_and_cov_chunked_matches_jax(sorted_rows):
     # num_workers=1 on both sides: same padding, same strided μ̂ estimate
