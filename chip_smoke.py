@@ -38,8 +38,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    indices the bins engine makes for 8 depth-13 trees (k = 63), for 8
    depth-8 trees (the GBT's k = 1), at 3,000 features (750 words) and at
    ragged shapes with out-of-range indices, equal to its plain version,
-   and K7 (its one-index-set form) likewise; K5 at the GBT's deepest split
-   level (S = 4 logistic stats, one tree, all 256 features).
+   and K7 (its one-index-set form) likewise, each timed over 200 calls
+   also as device time alone (the calls queued behind a device wait) and
+   host time a call, beside one ``torch.gather``, and each of its two
+   instances (staged, direct) held and timed alone; K5 at the GBT's
+   deepest split level (S = 4 logistic stats, one tree, all 256 features).
 3. end to end, each path with the launch counters zeroed just before it
    and read just after (every kernel of the path must have run): PCA(k=16),
    KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
@@ -69,11 +72,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
 and prints no result.
+
+    python3 chip_smoke.py --gather-only [--sweep]
+
+is a probe: K7/K8's kernel phase alone on 131,072 rows (and, with
+``--sweep``, each instance at a range of chunk sizes and grids), with the
+host cost of the wrapper's steps; it prints no result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -85,6 +95,9 @@ import numpy as np
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# timed calls of K7/K8 and their library call: launch-sized, so many
+SLEEP_CYCLES = 60_000_000  # the device wait ahead of them: ~30 ms at 1.98 GHz
+GATHER_REPS = 200
 
 E2E_D = 256
 E2E_CENTRES = 1024
@@ -148,6 +161,33 @@ def bound_ms(nbytes: float, flops: float):
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
     t_f = flops / PEAK_F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def device_host(torch, fn, reps: int):
+    """(device ms per call, host µs per call) of ``fn`` over ``reps`` calls
+    queued behind a device wait (``torch.cuda._sleep``, a spin kernel), so
+    that the host runs ahead and the events around the calls time the
+    device alone; the host clock times their enqueue, with no
+    synchronisation inside. Fails if the enqueue outlasted the wait: the
+    device would then have gone idle between calls, and the number would
+    not be device-only."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t = time.perf_counter()
+    e0.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e1.record()
+    h = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t_end = time.perf_counter()
+    e2.record()
+    e2.synchronize()
+    wait_ms = e0.elapsed_time(e1)
+    check((t_end - t) * 1e3 < wait_ms,
+          f"{reps} calls took {(t_end - t) * 1e3:.3f} ms to enqueue, longer than the {wait_ms:.3f} ms device wait")
+    return e1.elapsed_time(e2) / reps, (t_end - h) * 1e6 / reps
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -1029,8 +1069,12 @@ def check_byte_gather(torch, rk, packed, idx, reps, control=False, single=False)
     differ = int((out != ref).sum())
     check(differ == 0, f"{kern.__name__} n={n} words={words} G={G} k={k}: {differ} bytes differ")
     outside = int(((idx < 0) | (idx >= 4 * words)).sum())
+    # a package from before K7/K8's routing (a parent checkout, timed in the
+    # same call for a before/after comparison) has no geometry to report
+    routed = hasattr(rk, "gather_geometry")
     res = {"rows": n, "words": words, "G": G, "k": k, "max_abs_err": 0, "bytes_differ": differ,
-           "out_of_range_indices": outside}
+           "out_of_range_indices": outside,
+           "variant": rk.gather_geometry(packed, idx)._asdict() if routed else "one thread an entry"}
     if control:
         bad = out.clone().view(-1)
         pos = bad.numel() // 2 + 1
@@ -1040,27 +1084,126 @@ def check_byte_gather(torch, rk, packed, idx, reps, control=False, single=False)
         res["controls"] = [{"control": f"output entry {pos}: lowest bit flipped", "caught": caught}]
         del bad
     if reps:
-        res["ms"] = cuda_ms(torch, lambda: kern(packed, idx), reps)
+        # ms: events around back-to-back calls (the host may set their
+        # pace); device_ms / host_us: the same calls split (device_host)
+        call = lambda: kern(packed, idx)  # noqa: E731
+        res["ms"] = cuda_ms(torch, call, GATHER_REPS)
+        res["device_ms"], res["host_us"] = device_host(torch, call, GATHER_REPS)
+        res["timed_calls"] = GATHER_REPS
         res["plain_ms"] = cuda_ms(torch, lambda: plain(packed, idx), reps)
         pb = packed.view(torch.uint8)                    # (n, 4·words), little-endian bytes
         i64 = idx.long()
         src = pb if single else pb.unsqueeze(0).expand(G, n, 4 * words)
-        res["library_ms"] = cuda_ms(torch, lambda: torch.gather(src, src.dim() - 1, i64), reps)
+        library = lambda: torch.gather(src, src.dim() - 1, i64)  # noqa: E731
+        res["library_ms"] = cuda_ms(torch, library, GATHER_REPS)
+        res["library_device_ms"], res["library_host_us"] = device_host(torch, library, GATHER_REPS)
         res["library_call"] = "torch.gather on the uint8 byte view, int64 index made beforehand"
         del i64
-        # idx read once, out written once (int32 each), the rows read once
-        nbytes = 4.0 * (2 * G * n * k + n * words)
-        res["bytes"] = nbytes
+        # each instance that takes the shape, forced (device ms, host µs)
+        res["instances"] = {}
+        for staged in (True, False) if routed else ():
+            try:
+                geom = rk._gather_geometry(n, words, k, G, True, True, *gather_device(rk), staged=staged)
+            except ValueError:
+                continue
+            res["instances"][geom.instance] = {"rows": geom.rows, "grid": geom.grid, **dict(zip(
+                ("device_ms", "host_us"), device_host(torch, lambda: rk._launch_byte_gather(packed, idx, geom),
+                                                      GATHER_REPS)))}
+        # idx read once, out written once (int32 each), and of the rows the
+        # 32-byte sectors (the card's unit of access) that the lookups touch:
+        # what this run's indices need (at the GBT's k = 1 a row's 8 lookups
+        # touch ~5 of its 8 sectors)
+        inside = (idx >= 0) & (idx < 4 * words)
+        row_at = torch.arange(n, device=idx.device).view(n, 1) * (4 * words)
+        touched = int(torch.unique(((row_at + idx.long()) >> 5)[inside]).numel())
+        nbytes = 4.0 * 2 * G * n * k + 32.0 * touched
+        res["bytes"], res["touched_sectors"], res["row_sectors"] = nbytes, touched, -(-n * 4 * words // 32)
         # a shift, a mask, a compare pair and a select per output
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 5.0 * G * n * k)
     return res
 
 
-def phase_byte_gather_kernels(torch, bins, wide, reps, seed):
+def gather_device(rk):
+    """(shared memory a block may opt into, SMs, resident blocks an SM) of
+    cuda:0, as K7/K8's geometry takes them."""
+    sms, smem, resident = rk._gather_device(0)
+    return smem, sms, resident
+
+
+def check_gather_instances(torch, rk, packed, idx, what):
+    """Each instance of K8 that takes (packed, idx), forced, against the
+    plain version: 0 bytes differ, and a flipped byte is caught."""
+    if not hasattr(rk, "gather_geometry"):  # see check_byte_gather
+        return
+    G, n, k = idx.shape
+    words = packed.shape[1]
+    ref = rk.packed_byte_gather_many_plain(packed, idx)
+    for staged in (True, False):
+        try:
+            geom = rk._gather_geometry(n, words, k, G, packed.data_ptr() % 16 == 0, idx.data_ptr() % 16 == 0,
+                                       *gather_device(rk), staged=staged)
+        except ValueError:  # the staged instance does not take these rows
+            continue
+        out = rk._launch_byte_gather(packed, idx, geom)
+        torch.cuda.synchronize()
+        differ = int((out != ref).sum())
+        check(differ == 0, f"packed_byte_gather_many {what} ({geom.instance}): {differ} bytes differ")
+        bad = out.view(-1).clone()
+        bad[bad.numel() // 3] ^= 1 << 7
+        caught = not bool(torch.equal(bad.view(out.shape), ref))
+        check(caught, f"the {geom.instance} check does not catch a flipped output byte")
+        emit({"phase": "kernels", "kernel": "packed_byte_gather_many", "ragged": what, "instance": geom._asdict(),
+              "rows": n, "words": words, "G": G, "k": k, "bytes_differ": differ,
+              "out_of_range_indices": int(((idx < 0) | (idx >= 4 * words)).sum()),
+              "controls": [{"control": f"output entry {bad.numel() // 3}: bit 7 flipped", "caught": caught}]})
+
+
+def ragged_gather_inputs(torch, rng, n, words, G, k, idx_offset=0, packed_offset=0):
+    """Random packed rows and indices in [-1, 4·words], with 4·words (the
+    sentinel past the row) and -1 planted; a nonzero offset makes the
+    tensor a contiguous view that many entries into its storage."""
+    pk = rng.integers(-2 ** 31, 2 ** 31, size=n * words + packed_offset, dtype=np.int64).astype(np.int32)
+    ir = rng.integers(-1, 4 * words + 1, size=G * n * k + idx_offset).astype(np.int32)
+    pk = torch.from_numpy(pk).cuda()[packed_offset:].view(n, words)
+    ir = torch.from_numpy(ir).cuda()[idx_offset:].view(G, n, k)
+    ir[:, ::7, 0] = 4 * words
+    ir[:, ::5, -1] = -1
+    return pk, ir
+
+
+def sweep_gather(torch, rk, shape, packed, idx):
+    """Device ms of each instance at chunk sizes R around the routed ones
+    (a probe: ``--gather-only``), each held against the routed kernel."""
+    from spark_rapids_ml_tpu_torch.ops import _build
+
+    G, n, k = idx.shape
+    words = packed.shape[1]
+    smem_optin, sms, resident = gather_device(rk)
+    occ = _build.function("rf_byte_gather", "packed_byte_gather_occupancy", [ctypes.c_int, ctypes.c_int,
+                                                                              ctypes.c_void_p])
+    ref = rk._launch_byte_gather(packed, idx)
+    for instance in ("staged_vec", "direct_vec"):
+        for R in (4, 8, 16, 24, 32, 48, 64, 96, 128, 256, 512):
+            smem = 2 * R * 4 * words if instance == "staged_vec" else 0
+            if smem > smem_optin or R * 8 > n:
+                continue
+            blocks = ctypes.c_int(0)
+            _build.check("rf_byte_gather", occ(rk._GATHER_INSTANCES[instance], smem, ctypes.byref(blocks)))
+            chunks = -(-n // R)
+            for grid in sorted({min(chunks, sms * blocks.value), chunks}):
+                geom = rk.GatherGeometry(instance, R, 2 if smem else 0, grid, smem)
+                check(torch.equal(rk._launch_byte_gather(packed, idx, geom), ref), f"sweep {geom} differs")
+                ms, _ = device_host(torch, lambda: rk._launch_byte_gather(packed, idx, geom), GATHER_REPS)
+                emit({"probe": "sweep", "shape": shape, **geom._asdict(), "resident": blocks.value,
+                      "device_ms": ms})
+
+
+def phase_byte_gather_kernels(torch, bins, wide, reps, seed, sweep=False):
     """K8 (and K7) at the bins engine's shapes: the bench forest's (8
     depth-13 trees, k = 63, 64 words), the GBT's (8 depth-8 trees, k = 1),
     3,000 features (750 words), and ragged n, words, G and k with
-    out-of-range indices."""
+    out-of-range indices. ``sweep``: also ``sweep_gather`` at the four
+    timed shapes."""
     from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
     from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
 
@@ -1071,8 +1214,13 @@ def phase_byte_gather_kernels(torch, bins, wide, reps, seed):
     idx = hop2_indices(torch, pt, bins, feat, thr, RF_DEPTH)
 
     def held_timed(key, kernel, shape, packed_rows, indices, single=False):
-        res[key] = check_byte_gather(torch, rk, packed_rows, indices, reps, control=True, single=single)
-        emit({"phase": "kernels", "kernel": kernel, "shape": shape, **res[key]})
+        res[key] = r = check_byte_gather(torch, rk, packed_rows, indices, reps, control=True, single=single)
+        emit({"phase": "kernels", "kernel": kernel, "shape": shape, **r})
+        if reps:  # the redesigned kernel must beat the plain version it replaces
+            check(r["device_ms"] < r["plain_ms"],
+                  f"{kernel} ({shape}) {r['device_ms']:.4f} ms not below its plain version's {r['plain_ms']:.4f} ms")
+        if sweep:
+            sweep_gather(torch, rk, shape, packed_rows, indices[:1] if single else indices)
 
     held_timed("packed_byte_gather_many", "packed_byte_gather_many", "rf_bench", packed, idx)
     held_timed("packed_byte_gather", "packed_byte_gather", "rf_bench_one_tree", packed, idx, single=True)
@@ -1084,13 +1232,19 @@ def phase_byte_gather_kernels(torch, bins, wide, reps, seed):
     idx = hop2_indices(torch, pt, xw, feat, thr, RF_DEPTH)
     held_timed("packed_byte_gather_many_wide", "packed_byte_gather_many", "rf_wide", pt.pack_bins(xw), idx)
     del xw, idx
-    # ragged: n, words, G and k off every block size, indices at 4·words
-    # (the sentinel past the row) and -1, which must read 0
+    # ragged: n, words, G and k off every block size (n·k % 4 != 0),
+    # indices at 4·words (the sentinel past the row) and -1, which must
+    # read 0; each instance forced, then the routed wrappers
     n_r, w_r, g_r, k_r = 10_007, 37, 3, 5
-    pk = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(n_r, w_r), dtype=np.int64).astype(np.int32)).cuda()
-    ir = torch.from_numpy(rng.integers(-1, 4 * w_r + 1, size=(g_r, n_r, k_r)).astype(np.int32)).cuda()
-    ir[:, ::7, 0] = 4 * w_r
-    ir[:, ::5, -1] = -1
+    pk, ir = ragged_gather_inputs(torch, rng, n_r, w_r, g_r, k_r)
+    check_gather_instances(torch, rk, pk, ir, "n·k % 4 != 0")
+    check_gather_instances(torch, rk, *ragged_gather_inputs(torch, rng, n_r, w_r, g_r, k_r, idx_offset=1),
+                           "idx one entry into its storage")
+    check_gather_instances(torch, rk, *ragged_gather_inputs(torch, rng, 4_099, 64, 1, 1), "k = 1, G = 1")
+    check_gather_instances(torch, rk, *ragged_gather_inputs(torch, rng, 1_001, 7_300, 2, 7),
+                           "7,300 words: past the staged cap")
+    check_gather_instances(torch, rk, *ragged_gather_inputs(torch, rng, 2_001, 61, 2, 9, packed_offset=1),
+                           "packed one word into its storage")
     r = check_byte_gather(torch, rk, pk, ir, 0, control=True)
     check(bool((rk.packed_byte_gather_many(pk, ir)[(ir < 0) | (ir >= 4 * w_r)] == 0).all()),
           "packed_byte_gather_many: an out-of-range index did not read 0")
@@ -1099,6 +1253,19 @@ def phase_byte_gather_kernels(torch, bins, wide, reps, seed):
           **check_byte_gather(torch, rk, pk, ir, 0, single=True)})
     torch.cuda.synchronize()
     return res
+
+
+def rf_bins(torch, pt, X_rf, seed):
+    """The forest paths' (n, 256) uint8 bins of ``X_rf``."""
+    edges = torch.from_numpy(pt.make_bin_edges(X_rf.cpu().numpy(), RF_BINS, seed=seed)).to(X_rf.device)
+    return pt.binize(X_rf, edges, d_pad=E2E_D)
+
+
+def wide_bins(torch, pt, n, g, seed):
+    """(n, 4,096) uint8 bins of n Gaussian rows of 3,000 features."""
+    Xw = torch.randn((n, RF_WIDE_D), generator=g, device=g.device)
+    ew = torch.from_numpy(pt.make_bin_edges(Xw[::8].cpu().numpy(), RF_BINS, seed=seed)).to(g.device)
+    return pt.binize(Xw, ew, d_pad=pt.next_pow2(RF_WIDE_D))
 
 
 def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
@@ -1112,8 +1279,7 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     g.manual_seed(seed + 7)
     rng = np.random.default_rng(seed + 7)
     n = X_rf.shape[0]
-    edges = torch.from_numpy(pt.make_bin_edges(X_rf.cpu().numpy(), RF_BINS, seed=seed)).to(dev)
-    bins = pt.binize(X_rf, edges, d_pad=E2E_D)
+    bins = rf_bins(torch, pt, X_rf, seed)
     cls = torch.nn.functional.one_hot(y_rf.long(), 2).float()
     res = {}
     # K5: the bench forest's deepest split level (12) and a shallow one
@@ -1140,10 +1306,7 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
         emit({"phase": "kernels", "kernel": "subblock_hist", "ragged": True, **check_subblock_hist(
             torch, rk, {"binq": binq, "sw": sw, "nb": nb_r, "r_sub": r_sub}, 0)})
     # K6: the 3,000-feature forest's level 12 (k = 55 -> 64, d_pad 4,096)
-    Xw = torch.randn((n, RF_WIDE_D), generator=g, device=dev)
-    ew = torch.from_numpy(pt.make_bin_edges(Xw[::8].cpu().numpy(), RF_BINS, seed=seed)).to(dev)
-    wide = pt.binize(Xw, ew, d_pad=pt.next_pow2(RF_WIDE_D))
-    del Xw
+    wide = wide_bins(torch, pt, n, g, seed)
     inp = rf_level_inputs(torch, pt, wide, cls, 12, 8, 55, RF_WIDE_D, g, sel=True)
     res["subblock_hist_sel"] = check_subblock_hist(torch, rk, inp, reps, control=True, sel=True)
     emit({"phase": "kernels", "kernel": "subblock_hist_sel", **res["subblock_hist_sel"]})
@@ -1782,12 +1945,64 @@ def phase_rf_subset(torch, X_host, y_host, seed, rows):
     return counts
 
 
+def host_parts(torch, rk, packed, idx, calls=2000):
+    """Host µs per call of each step of a wrapper's host path, alone."""
+    dev = idx.device
+    steps = {
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "check_cuda": lambda: rk._check_cuda("k", (packed, torch.int32), (idx, torch.int32)),
+        "empty_like": lambda: torch.empty_like(idx),
+        "empty": lambda: torch.empty(idx.shape, dtype=torch.int32, device=dev),
+        "data_ptr_x2": lambda: (packed.data_ptr(), idx.data_ptr()),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+    }
+    if hasattr(rk, "gather_geometry"):  # the routed package (see check_byte_gather)
+        # the ctypes call alone: a plan of 0 rows returns at once
+        launch = rk._build.function("rf_byte_gather", "packed_byte_gather_launch", [ctypes.c_void_p] * 5)
+        plan, at = rk._gather_plan(0, 1, 1, 1, rk.GatherGeometry("direct_vec", 4, 0, 1, 0))
+        steps["ctypes_call"] = lambda: launch(packed.data_ptr(), idx.data_ptr(), idx.data_ptr(), at, 0)
+        steps["route_lookup"] = lambda: rk.gather_geometry(packed, idx)
+    out = {}
+    for name, step in steps.items():
+        step()
+        t = time.perf_counter()
+        for _ in range(calls):
+            step()
+        out[name] = (time.perf_counter() - t) * 1e6 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def gather_probe(torch, args, dev) -> int:
+    """``--gather-only``: K7/K8's kernel phase alone, on 131,072 rows made
+    from ``--seed`` (binned as the forest phase bins them) and 131,072
+    3,000-feature rows, and the host cost of the wrapper's steps."""
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
+
+    X, _ = make_data(torch, RF_ROWS, RF_ROWS, args.seed, dev)
+    bins = rf_bins(torch, pt, X, args.seed)
+    del X
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 7)
+    res = phase_byte_gather_kernels(torch, bins, wide_bins(torch, pt, RF_ROWS, g, args.seed), args.reps, args.seed,
+                                    sweep=args.sweep)
+    packed = pt.pack_bins(bins)
+    idx = torch.zeros((8, RF_ROWS, 1), dtype=torch.int32, device=dev)
+    emit({"probe": "byte_gather", "package": rk.__file__, "host_parts_us": host_parts(torch, rk, packed, idx),
+          "shapes": {k: {m: v for m, v in r.items() if m != "controls"} for k, r in res.items()}})
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3, help="timed calls per kernel measurement")
     ap.add_argument("--subset", type=int, default=100_000, help="rows of the card-vs-CPU fits")
+    ap.add_argument("--gather-only", action="store_true",
+                    help="a probe: build K7/K8 alone and run only their kernel phase (prints no result line)")
+    ap.add_argument("--sweep", action="store_true", help="with --gather-only: time chunk sizes and grids too")
     args = ap.parse_args()
 
     import torch
@@ -1806,7 +2021,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     t = time.perf_counter()
-    build_s = _build.build()
+    build_s = _build.build(["rf_byte_gather"] if args.gather_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -1816,6 +2031,9 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s,
           "build_total_s": build_total, "ptxas": ptxas})
+
+    if args.gather_only:
+        return gather_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -1882,6 +2100,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # K7/K8: device time and host cost apart, and the routed instance
+            **{k: r[k] for k in ("device_ms", "library_device_ms", "host_us", "variant") if k in r and name in (
+                "packed_byte_gather_many", "packed_byte_gather")},
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
                                         "k1", "k2", "words", "G", "variant") if k in r},

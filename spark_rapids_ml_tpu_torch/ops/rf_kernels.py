@@ -21,6 +21,8 @@ inputs at every level.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -210,25 +212,182 @@ def packed_byte_gather_many_plain(packed: torch.Tensor, idx: torch.Tensor) -> to
     return out
 
 
-def _check_byte_gather(name: str, packed: torch.Tensor, idx: torch.Tensor) -> None:
-    if packed.dim() != 2 or idx.dim() != 3 or idx.shape[1] != packed.shape[0]:
+def _check_byte_gather(name: str, packed: torch.Tensor, idx: torch.Tensor, row_dim: int = 1) -> None:
+    """packed (n, words) and idx (G, n, k) (K8), or (n, k) with
+    ``row_dim=0`` (K7)."""
+    if packed.dim() != 2 or idx.dim() != row_dim + 2 or idx.shape[row_dim] != packed.shape[0]:
         raise ValueError(
             f"{name}: packed {tuple(packed.shape)} must be (n, words) and idx "
-            f"{tuple(idx.shape)} (G, n, k)"
+            f"{tuple(idx.shape)} {'(G, n, k)' if row_dim else '(n, k)'}"
         )
 
 
-def _launch_byte_gather(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """One launch of the CUDA kernel on (n, words) rows and (G, n, k)
-    indices."""
-    G, n, k = idx.shape
-    out = torch.empty_like(idx)
-    fn = _build.function(
-        "rf_byte_gather", "packed_byte_gather_launch", [_P, _P, _P, _I64, _INT, _INT, _INT, _P]
-    )
-    code = fn(packed.data_ptr(), idx.data_ptr(), out.data_ptr(), n, packed.shape[1], k, G,
-              torch.cuda.current_stream(idx.device).cuda_stream)
-    _build.check("rf_byte_gather", code)
+def _check_gather_cuda(name: str, packed: torch.Tensor, idx: torch.Tensor) -> None:
+    """``_check_cuda`` for K7/K8's two int32 tensors, in one pass (the
+    check sits on a launch-sized call's host path); ``_check_cuda`` words
+    the error."""
+    dev = idx.device
+    if not (dev.type == "cuda" and packed.device == dev and packed.dtype == torch.int32
+            and idx.dtype == torch.int32 and packed.is_contiguous() and idx.is_contiguous()):
+        _check_cuda(name, (packed, torch.int32), (idx, torch.int32))
+
+
+# K7/K8 geometry (csrc/rf_byte_gather.cu), set from chunk-size and grid
+# sweeps on an H100 (`chip_smoke.py --gather-only --sweep`; PERF.md §6):
+# threads a block; entries a direct chunk aims at; bytes of rows a direct
+# chunk keeps in L1 and a stage holds; staged where a row's 32-byte
+# sectors take this many lookups each
+_GATHER_THREADS = 256
+_GATHER_ENTRIES = 32_768
+_GATHER_L1_BYTES = 32 << 10
+_GATHER_STAGE_BYTES = 16 << 10
+_GATHER_DENSE_LOOKUPS = 32
+# an SM's shared memory, of which each resident block reserves 1 KB; a grid
+# of this many waves of resident blocks or more runs one chunk a block
+_SM_SHARED_BYTES = 233_472
+_GATHER_WAVES_UNROLLED = 3
+_GATHER_INSTANCES = {"direct_scalar": 0, "direct_vec": 1, "staged_scalar": 2, "staged_vec": 3}
+
+
+class GatherGeometry(NamedTuple):
+    instance: str   # a key of _GATHER_INSTANCES
+    rows: int       # R: rows a chunk, a multiple of 4
+    stages: int     # shared-memory stages (2 staged, 0 direct)
+    grid: int       # blocks
+    smem: int       # dynamic shared memory a block, bytes
+
+
+class _Plan(ctypes.Structure):
+    """A launch's sizes, as ``Plan`` in csrc/rf_byte_gather.cu."""
+    _fields_ = [("n", ctypes.c_int64), ("words", ctypes.c_int), ("k", ctypes.c_int), ("G", ctypes.c_int),
+                ("instance", ctypes.c_int), ("rows", ctypes.c_int), ("grid", ctypes.c_int), ("smem", ctypes.c_int)]
+
+
+def _floor4(x: int) -> int:
+    return x // 4 * 4
+
+
+def _gather_geometry(
+    n: int, words: int, k: int, G: int, packed_aligned: bool, stream_aligned: bool, smem_per_block: int,
+    sms: int, resident: int, staged: Optional[bool] = None,
+) -> GatherGeometry:
+    """K7/K8's instance and sizes for ``packed`` (n, words) and ``idx`` (G,
+    n, k), n, k, G >= 1, on a card of ``sms`` SMs that holds ``resident``
+    blocks an SM by registers and threads, ``smem_per_block`` bytes of
+    shared memory a block.
+
+    A block serves chunks of R rows (a multiple of 4) with all G index sets.
+    The staged instance copies a chunk's rows into shared memory (two
+    stages) and serves the lookups from there: it takes dense gathers,
+    ``G·k`` lookups a row at least ``_GATHER_DENSE_LOOKUPS`` times the
+    row's 32-byte sectors, with ``packed`` 16-byte aligned and two stages
+    of 4 rows within ``smem_per_block``. The direct instance reads each
+    looked-up word from global memory, where L1 keeps a chunk's rows for
+    its G sets: everything else. ``staged`` forces one (a probe, a test);
+    a shape the staged instance cannot take raises. Both take their vector
+    form when ``idx`` and the output are 16-byte aligned
+    (``stream_aligned``), else their scalar one.
+
+    R: a stage of ``_GATHER_STAGE_BYTES``, or (direct) about
+    ``_GATHER_ENTRIES`` entries in at most ``_GATHER_L1_BYTES`` of rows;
+    at most n over a wave of resident blocks, so that every block has a
+    chunk. The grid is one wave of resident blocks walking the chunks,
+    or, from ``_GATHER_WAVES_UNROLLED`` waves of chunks, one block a
+    chunk."""
+    row_bytes = 4 * words
+    if min(n, words, k, G) < 1:
+        raise ValueError(f"packed_byte_gather: no geometry for n={n}, words={words}, k={k}, G={G}")
+    if G * k * 4 >= 1 << 31:
+        raise ValueError(f"packed_byte_gather: G·k = {G * k} index entries a row is too many")
+    fits = packed_aligned and 2 * 4 * row_bytes <= smem_per_block
+    if staged is None:
+        staged = fits and G * k >= _GATHER_DENSE_LOOKUPS * -(-words // 8)
+    elif staged and not fits:
+        raise ValueError(f"packed_byte_gather: {words} words a row do not stage in {smem_per_block} bytes")
+    wave = sms * max(1, resident)
+    if staged:
+        R = min(_GATHER_STAGE_BYTES, smem_per_block // 2) // row_bytes
+    else:
+        R = min(-(-_GATHER_ENTRIES // (G * k)), _GATHER_L1_BYTES // row_bytes)
+    R = max(4, _floor4(min(R, -(-n // wave) + 3, ((1 << 31) - 1) // (G * k), ((1 << 31) - 1) // words)))
+    if staged:
+        wave = sms * max(1, min(resident, _SM_SHARED_BYTES // (2 * R * row_bytes + 1024)))
+    chunks = -(-n // R)
+    if chunks > (1 << 31) - 1:
+        raise ValueError(f"packed_byte_gather: {n} rows make too many chunks")
+    instance = ("staged" if staged else "direct") + ("_vec" if stream_aligned else "_scalar")
+    return GatherGeometry(instance, R, 2 if staged else 0,
+                          chunks if chunks >= _GATHER_WAVES_UNROLLED * wave else min(chunks, wave),
+                          2 * R * row_bytes if staged else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_device(index: int) -> Tuple[int, int, int]:
+    """(SMs, shared memory a block may opt into, resident K7/K8 blocks an
+    SM by registers and threads) of CUDA device ``index``."""
+    fn = _build.function("rf_byte_gather", "packed_byte_gather_device", [_INT, _P, _P, _P])
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check("rf_byte_gather", fn(index, *(ctypes.byref(v) for v in out)))
+    return tuple(v.value for v in out)
+
+
+def _gather_plan(n: int, words: int, k: int, G: int, geometry: GatherGeometry) -> Tuple[_Plan, int]:
+    """The C ``Plan`` of a launch, and its address (valid while the
+    ``_Plan`` lives)."""
+    plan = _Plan(n, words, k, G, _GATHER_INSTANCES[geometry.instance], geometry.rows, geometry.grid,
+                 geometry.smem)
+    return plan, ctypes.addressof(plan)
+
+
+@functools.lru_cache(maxsize=1024)
+def _gather_route(n: int, words: int, k: int, G: int, packed_aligned: bool, stream_aligned: bool,
+                  index: int) -> Tuple[GatherGeometry, _Plan, int]:
+    """The routed geometry of a shape on device ``index``, with its plan
+    (cached: a launch-sized call pays one lookup)."""
+    sms, smem_per_block, resident = _gather_device(index)
+    geom = _gather_geometry(n, words, k, G, packed_aligned, stream_aligned, smem_per_block, sms, resident)
+    return (geom, *_gather_plan(n, words, k, G, geom))
+
+
+def _route_for(packed: torch.Tensor, idx: torch.Tensor) -> Tuple[GatherGeometry, _Plan, int]:
+    """``_gather_route`` for CUDA ``packed`` (n, words) and ``idx`` (G, n,
+    k) or, for K7, (n, k): by shape and by the alignment of their bases."""
+    G, n, k = idx.shape if idx.dim() == 3 else (1, *idx.shape)
+    return _gather_route(n, packed.shape[1], k, G, packed.data_ptr() % 16 == 0, idx.data_ptr() % 16 == 0,
+                         idx.device.index)
+
+
+def gather_geometry(packed: torch.Tensor, idx: torch.Tensor) -> GatherGeometry:
+    """The geometry K7/K8 take for these CUDA tensors."""
+    return _route_for(packed, idx)[0]
+
+
+_gather_launch = None  # the bound C entry point, once per process
+
+
+def _launch_byte_gather(packed: torch.Tensor, idx: torch.Tensor,
+                        geometry: Optional[GatherGeometry] = None) -> torch.Tensor:
+    """One launch of the CUDA kernel on (n, words) rows and (G, n, k) —
+    for K7 (n, k) — indices, checked CUDA int32 contiguous tensors, with
+    the routed geometry or ``geometry``. The output has ``idx``'s shape."""
+    global _gather_launch
+    if idx.numel() == 0:  # nothing to gather
+        return torch.empty_like(idx)
+    if geometry is None:
+        plan_at = _route_for(packed, idx)[2]
+    else:
+        G, n, k = idx.shape if idx.dim() == 3 else (1, *idx.shape)
+        plan, plan_at = _gather_plan(n, packed.shape[1], k, G, geometry)  # alive through the call
+    out = torch.empty_like(idx)  # a new allocation: 16-byte aligned
+    if _gather_launch is None:
+        _gather_launch = _build.function("rf_byte_gather", "packed_byte_gather_launch", [_P, _P, _P, _P, _P])
+    # torch._C._cuda_getCurrentRawStream (private): the caller's current
+    # stream as a raw handle, without the Stream object that
+    # torch.cuda.current_stream builds on every call
+    code = _gather_launch(packed.data_ptr(), idx.data_ptr(), out.data_ptr(), plan_at,
+                          torch._C._cuda_getCurrentRawStream(idx.device.index))
+    if code:
+        _build.check("rf_byte_gather", code)
     return out
 
 
@@ -242,7 +401,7 @@ def packed_byte_gather_many(packed: torch.Tensor, idx: torch.Tensor) -> torch.Te
     _check_byte_gather("packed_byte_gather_many", packed, idx)
     if idx.device.type == "cpu":
         return packed_byte_gather_many_plain(packed, idx)
-    _check_cuda("packed_byte_gather_many", (packed, torch.int32), (idx, torch.int32))
+    _check_gather_cuda("packed_byte_gather_many", packed, idx)
     out = _launch_byte_gather(packed, idx)
     packed_byte_gather_many.launches += 1
     return out
@@ -261,11 +420,11 @@ def packed_byte_gather(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     k) int32 -> (n, k) int32, the same CUDA kernel with G = 1. Replaces
     ``spark_rapids_ml_tpu/ops/rf_pallas.py::packed_byte_gather``, which
     has no caller in either package."""
-    _check_byte_gather("packed_byte_gather", packed, idx[None])
+    _check_byte_gather("packed_byte_gather", packed, idx, row_dim=0)
     if idx.device.type == "cpu":
         return packed_byte_gather_plain(packed, idx)
-    _check_cuda("packed_byte_gather", (packed, torch.int32), (idx, torch.int32))
-    out = _launch_byte_gather(packed, idx[None])[0]
+    _check_gather_cuda("packed_byte_gather", packed, idx)
+    out = _launch_byte_gather(packed, idx)
     packed_byte_gather.launches += 1
     return out
 
