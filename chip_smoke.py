@@ -21,11 +21,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
    K3 (logistic loss + gradient) at K = 1 and, through its multinomial
    kernel, at K = 10 on the 12M rows (which must beat its plain version)
    and at ragged shapes, each with the kernel that ran it; K4 (kNN
-   distance + top-k) at 131,072 queries x 1M items x 256, k = 16, on a
-   4,096-row sample, at the UMAP graph (k = 16) and transform (k =
-   15) shapes of 65,536 x 65,536 x 256 on a 4,096-row sample, and in full
-   at ragged shapes; K10 (one UMAP SGD epoch) on the rows of the 65,536 x
-   256 UMAP graph and at the transform's shape (65,536 rows, K = 15); the
+   distance + top-k, 3xTF32 on the tensor cores) at 131,072 queries x 1M
+   items x 256, k = 16, on a 4,096-row sample (its controls: shifted ids,
+   and one-pass TF32 scores, which the band must refuse), at the join's
+   4,096 queries x 1M (item splits and their merge), at the UMAP graph (k
+   = 16) and transform (k = 15) shapes of 65,536 x 65,536 x 256 on a
+   4,096-row sample, and in full at ragged shapes; it must beat its plain
+   version at all four main shapes, one chunked addmm + topk at the kNN and
+   UMAP-graph shapes, and take at most KNN_MS_MAX at the kNN shape; K10
+   (one UMAP SGD epoch) on the rows of the 65,536 x 256 UMAP graph and at
+   the transform's shape (65,536 rows, K = 15); the
    forest kernels at the builder's own level layouts: K5 (sub-block
    histograms) at the deepest (level 12) and a shallow (level 2) call of
    the bench forest (131,072 x 256, 8 trees a batch, k = 16, 128 bins),
@@ -78,6 +83,15 @@ and prints no result.
 is a probe: K7/K8's kernel phase alone on 131,072 rows (and, with
 ``--sweep``, each instance at a range of chunk sizes and grids), with the
 host cost of the wrapper's steps; it prints no result line.
+
+    python3 chip_smoke.py --knn-only [--sweep]
+
+is a probe too: K4's kernel phase alone (its four main shapes, ragged
+shapes and controls) on 1M rows made from ``--seed``, with the kernel's
+registers, spills, resident blocks and SASS instruction counts and its
+gates' verdicts (reported, not enforced); ``--sweep`` times other stage depths and item
+splits, and a tight state that no tile passes (the product and the gate
+without the insertion).
 """
 
 from __future__ import annotations
@@ -94,6 +108,7 @@ import numpy as np
 # H100 SXM data-sheet peaks: FP32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 # timed calls of K7/K8 and their library call: launch-sized, so many
 SLEEP_CYCLES = 60_000_000  # the device wait ahead of them: ~30 ms at 1.98 GHz
@@ -157,9 +172,9 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS):
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_F32_FLOPS * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -594,8 +609,23 @@ def check_knn_topk(torch, kn, Xq, Xi, mask, k, sample=None, reps=0, split=None, 
         bad_ids[:128] += 1
         b = knn_held(torch, d2, bad_ids, ref_d2, ref_ids, tau)
         check(b[4] > 0, "the K4 check does not catch one query tile's ids shifted")
+        # one-pass TF32 scores (the plain version with TF32 matmuls) must
+        # fall outside the band that the kernel's 3xTF32 scores keep to
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            st = (torch.full((len(rows), k), float("inf"), device=dev),
+                  torch.full((len(rows), k), -1, dtype=torch.int32, device=dev))
+            td32, ti32 = kn.knn_topk_pass_plain(Xq[rows], Xi, csq, ids, *st)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        c = knn_held(torch, td32 + xsq[:, None], ti32, ref_d2, ref_ids, tau)
+        check(c[1] > 1.0 or c[4] > 0, "the K4 check does not catch one-pass TF32 scores")
         out["controls"] = [{"control": "ids of query rows 0..127 shifted by one",
-                            "rows_other_ids_outside_band": b[4]}]
+                            "rows_other_ids_outside_band": b[4]},
+                           {"control": "plain version with one-pass TF32 matmuls", "err_over_tol": c[1],
+                            "rows_other_ids_outside_band": c[4]}]
     del ref_d2, ref_ids, tau
     if reps:
         st0 = (torch.full((nq, k), float("inf"), device=dev), torch.full((nq, k), -1, dtype=torch.int32, device=dev))
@@ -620,8 +650,13 @@ def check_knn_topk(torch, kn, Xq, Xi, mask, k, sample=None, reps=0, split=None, 
         out["plain_ms"] = cuda_ms(torch, lambda: kn.knn_topk_pass_plain(Xq, Xi, csq, ids, *st0), reps)
         out["library_ms"] = cuda_ms(torch, library, reps)
         nbytes = 4.0 * (nq * d + ni * d + 2 * ni + 4 * nq * k)  # Xq, Xi, csq, ids, state in + out
-        flops = 2.0 * nq * ni * d + 2.0 * nq * ni  # products, then csq - 2·dot
-        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        # the products run on the tensor cores in 3xTF32: three TF32
+        # products per operand pair, at the dense TF32 rate
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 3.0 * 2.0 * nq * ni * d, PEAK_TF32_FLOPS)
+        # the same work as f32 FMA on the CUDA cores
+        out["bound_f32_ms"] = bound_ms(nbytes, 2.0 * nq * ni * d + 2.0 * nq * ni)[0]
+    g = kn.knn_geometry(nq, ni, d, k)
+    out.update(BM=g.bm, S=g.splits, stages=g.stages, slab=kn.K4_SLAB, blocks=g.blocks)
     return out
 
 
@@ -782,54 +817,102 @@ def query_sample(torch, nq, dev, rows=4096):
                       torch.arange(128, nq, step, device=dev)[:rows - 128]])
 
 
-def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
-    """K4 at the kNN shape (131,072 queries x 1M items, k = 16), at ragged
-    shapes, and at the UMAP shapes (65,536 rows against themselves: the
-    graph at k = 16, the transform at k = 15); K10 at the UMAP fit shape
-    (the CSR rows of the 65,536 x 256 graph, K = 24, C = 2, neg = 5) and
-    the transform shape (65,536 rows, K = 15, neg = 5, frozen table)."""
-    from spark_rapids_ml_tpu_torch.models.umap import drop_self_column, knn_brute
+KNN_JOIN_QUERIES = 4096  # exactNearestNeighborsJoin's queries in the kNN path
+# K4 at the kNN shape must take at most half of the 2,142.10 ms of the
+# kernel it replaced (H100 80GB HBM3 at 700 W)
+KNN_MS_MAX = 1071.0
+
+
+def phase_knn_kernels(torch, X_items, X_umap, reps, seed):
+    """K4 at the four shapes the main path gives it, each timed: kNN
+    (131,072 queries x 1M items, k = 16, with its negative controls), the
+    join (4,096 queries x 1M), the UMAP graph (65,536 rows against
+    themselves, k = 16) and the UMAP transform (k = 15); and in full at
+    ragged shapes."""
     from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
-    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
 
     dev = X_items.device
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 2)
     res = {}
     nq, ni = min(KNN_QUERIES, X_items.shape[0]), X_items.shape[0]
-    res["knn_topk"] = check_knn_topk(torch, kn, X_items[:nq], X_items, torch.ones(ni, device=dev), KNN_K,
+    ones = torch.ones(ni, device=dev)
+    res["knn_topk"] = check_knn_topk(torch, kn, X_items[:nq], X_items, ones, KNN_K,
                                      sample=query_sample(torch, nq, dev), reps=max(1, reps // 3), control=True)
     emit({"phase": "kernels", "kernel": "knn_topk", **res["knn_topk"]})
+    nj = min(KNN_JOIN_QUERIES, ni)
+    res["knn_topk_join"] = check_knn_topk(torch, kn, X_items[:nj], X_items, ones, KNN_K,
+                                          sample=query_sample(torch, nj, dev, rows=1024), reps=max(1, reps))
+    emit({"phase": "kernels", "kernel": "knn_topk", "join_shape": True, **res["knn_topk_join"]})
+    del ones
     # ragged shapes: nq, ni off the tiles, a masked item block, d in {3,
-    # 124, 300}, k in {1, 16, 100}, and one fold in two passes
+    # 124, 300}, k in {1, 16, 100, 128} (128: the 64-row blocks), and one
+    # fold in two passes
     for d_r in (3, 124, 300):
         Xq = torch.randn(1037, d_r, generator=g, device=dev) + 3.0
         Xi = torch.randn(70_001, d_r, generator=g, device=dev) + 3.0
         mask = torch.ones(70_001, device=dev)
         mask[5000:7000] = 0.0
-        for k_r in (1, 16, 100):
+        for k_r in (1, 16, 100, 128):
             emit({"phase": "kernels", "kernel": "knn_topk", "ragged": True,
                   **check_knn_topk(torch, kn, Xq, Xi, mask, k_r,
                                    split=30_011 if (d_r, k_r) == (124, 16) else None)})
-
-    # K10 on the UMAP fit's own rows: its graph, a random table
+    # the UMAP shapes: the graph (65,536 rows against themselves, k = 16)
+    # and the transform of the same rows (k = 15)
     Xd = torch.from_numpy(X_umap).to(dev)
-    dists, idx = drop_self_column(*knn_brute(Xd, Xd, k=UMAP_NEIGHBORS + 1), k=UMAP_NEIGHBORS)
-    heads, tails, weights = uk.fuzzy_simplicial_set(idx.cpu().numpy(), dists, 1.0, 1.0, device=dev)
-    row_heads, tails_pad, p_pad = uk.build_row_adjacency(heads, tails, weights, X_umap.shape[0], K=24)
-    # K4 at the UMAP shapes: the graph (65,536 rows against themselves,
-    # k = 16) and the transform of the same rows (k = 15)
     n = Xd.shape[0]
     ones, sample = torch.ones(n, device=dev), query_sample(torch, n, dev)
     res["knn_topk_umap_graph"] = check_knn_topk(torch, kn, Xd, Xd, ones, UMAP_NEIGHBORS + 1, sample=sample,
                                                 reps=max(1, reps))
     emit({"phase": "kernels", "kernel": "knn_topk", "umap_graph_shape": True, **res["knn_topk_umap_graph"]})
-    res["knn_topk_umap_transform"] = check_knn_topk(torch, kn, Xd, Xd, ones, UMAP_NEIGHBORS, sample=sample)
+    res["knn_topk_umap_transform"] = check_knn_topk(torch, kn, Xd, Xd, ones, UMAP_NEIGHBORS, sample=sample,
+                                                    reps=max(1, reps))
     emit({"phase": "kernels", "kernel": "knn_topk", "umap_transform_shape": True,
           **res["knn_topk_umap_transform"]})
+    torch.cuda.synchronize()
+    return res
+
+
+def knn_gates(res) -> dict:
+    """K4's gates: below its plain version at all four shapes, below one
+    chunked addmm + topk at the kNN and UMAP-graph shapes, and at most
+    KNN_MS_MAX at the kNN shape. Returns each gate's verdict; the caller
+    fails the run on any False."""
+    out = {}
+    for key in ("knn_topk", "knn_topk_join", "knn_topk_umap_graph", "knn_topk_umap_transform"):
+        r = res[key]
+        out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+        if key in ("knn_topk", "knn_topk_umap_graph"):
+            out[f"{key}_below_library"] = r["ms"] < r["library_ms"]
+    out["knn_topk_at_most_ms_max"] = res["knn_topk"]["ms"] <= KNN_MS_MAX
+    return out
+
+
+def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
+    """K4 (``phase_knn_kernels``, gated) and K10 at the UMAP fit shape (the
+    CSR rows of the 65,536 x 256 graph, K = 24, C = 2, neg = 5) and the
+    transform shape (65,536 rows, K = 15, neg = 5, frozen table)."""
+    from spark_rapids_ml_tpu_torch.models.umap import drop_self_column, knn_brute
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    res = phase_knn_kernels(torch, X_items, X_umap, reps, seed)
+    gates = knn_gates(res)
+    emit({"phase": "kernels", "kernel": "knn_topk", "gates": gates, "ms_max": KNN_MS_MAX})
+    for name, ok in gates.items():
+        check(ok, f"K4 gate {name} failed: " + json.dumps(
+            {k: {m: r[m] for m in ("ms", "plain_ms", "library_ms")} for k, r in res.items()}))
+    dev = X_items.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    # K10 on the UMAP fit's own rows: its graph, a random table
+    Xd = torch.from_numpy(X_umap).to(dev)
+    n = Xd.shape[0]
+    dists, idx = drop_self_column(*knn_brute(Xd, Xd, k=UMAP_NEIGHBORS + 1), k=UMAP_NEIGHBORS)
+    heads, tails, weights = uk.fuzzy_simplicial_set(idx.cpu().numpy(), dists, 1.0, 1.0, device=dev)
+    row_heads, tails_pad, p_pad = uk.build_row_adjacency(heads, tails, weights, X_umap.shape[0], K=24)
     # the transform's tails: each row's 15 training neighbours (self excluded)
     tails_tr = idx.contiguous()
-    del Xd, dists, ones
+    del Xd, dists
     a, b = uk.find_ab_params(1.0, 0.1)
     src = torch.rand((n, 2), generator=g, device=dev) * 20.0 - 10.0
     tails_d = torch.from_numpy(tails_pad).to(dev)
@@ -1994,6 +2077,89 @@ def gather_probe(torch, args, dev) -> int:
     return 0
 
 
+def knn_attributes(torch, kn) -> dict:
+    """K4's registers, spill bytes a thread, resident blocks an SM and
+    shared memory a block (the CUDA occupancy calculator), at the kNN,
+    UMAP and k = 100 shapes."""
+    out = {}
+    for name, (nq, ni, k) in {"knn": (KNN_QUERIES, KNN_ITEMS, KNN_K), "join": (KNN_JOIN_QUERIES, KNN_ITEMS, KNN_K),
+                              "umap_transform": (UMAP_ROWS, UMAP_ROWS, UMAP_NEIGHBORS),
+                              "k100": (1037, 70_001, 100)}.items():
+        g = kn.knn_geometry(nq, ni, E2E_D, k)
+        a = kn._knn_attributes(g.bm, k, g.stages)
+        out[name] = {"registers": a[0], "local_bytes": a[1], "blocks_per_sm": a[2], "smem": a[3]}
+    return out
+
+
+def sass_counts(name, mnemonics):
+    """How many instructions of each mnemonic prefix the SASS of kernel
+    library ``name`` holds (``cuobjdump`` beside ``nvcc``)."""
+    import os
+    import re
+
+    from spark_rapids_ml_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return {m: len(re.findall(r"\b" + re.escape(m), sass)) for m in mnemonics}
+
+
+def sweep_knn(torch, kn, X):
+    """K4 at the kNN and join shapes under other geometries (stage depth,
+    item splits), and with a tight state (every row's k-th
+    pair at -inf, so that no tile passes the gate and nothing is inserted:
+    the product and the gate alone). Each variant's ids are compared with
+    the routed geometry's."""
+    dev = X.device
+    out = []
+    for name, nq in (("knn", KNN_QUERIES), ("join", KNN_JOIN_QUERIES)):
+        Xq, ni, k = X[:nq], X.shape[0], KNN_K
+        csq = (X * X).sum(dim=1)
+        ids = torch.arange(ni, dtype=torch.int32, device=dev)
+        st = (torch.full((nq, k), float("inf"), device=dev), torch.full((nq, k), -1, dtype=torch.int32, device=dev))
+        base = kn.knn_geometry(nq, ni, E2E_D, k)
+        ref_ids = kn._knn_topk_run(Xq, X, csq, ids, *st, base)[1]
+        tight = (torch.full((nq, k), -float("inf"), device=dev), st[1])
+        out.append({"shape": name, **base._asdict(), "tight_state": True,
+                    "ms": cuda_ms(torch, lambda: kn._knn_topk_run(Xq, X, csq, ids, *tight, base), 1)})
+        variants = [base._replace(stages=st_) for st_ in kn._STAGES if st_ != base.stages]
+        if name == "join":
+            variants += [kn._knn_geometry(nq, ni, E2E_D, k, splits=sp) for sp in (1, 2, 4, 16, 32)]
+        for geo in variants:
+            geo = geo._replace(smem=kn._knn_smem(geo.bm, geo.stages, k))
+            if geo.smem > kn.SMEM_PER_BLOCK:
+                continue
+            topi = kn._knn_topk_run(Xq, X, csq, ids, *st, geo)[1]
+            same = float((topi.sort(dim=1).values == ref_ids.sort(dim=1).values).all(dim=1).float().mean())
+            out.append({"shape": name, **geo._asdict(), "rows_same_ids": same,
+                        "ms": cuda_ms(torch, lambda: kn._knn_topk_run(Xq, X, csq, ids, *st, geo), 1)})
+            emit({"probe": "knn_sweep", **out[-1]})
+        del ref_ids
+    return out
+
+
+def knn_probe(torch, args, dev) -> int:
+    """``--knn-only``: K4's kernel phase alone (all four shapes, ragged
+    shapes and controls) on 1M rows made from ``--seed``, with the kernel's
+    attributes and its gates' verdicts (reported, not enforced: the probe
+    also measures older kernels); ``--sweep`` adds other geometries."""
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+
+    X, _ = make_data(torch, KNN_ITEMS, KNN_ITEMS, args.seed, dev)
+    attrs = knn_attributes(torch, kn)
+    # the products' instructions: tensor-core TF32 (wgmma or mma.sync), or FP32 FMA
+    sass = sass_counts("knn_topk", ("HGMMA.64x128x8.F32.TF32", "HMMA", "FFMA", "UTMALDG"))
+    emit({"probe": "knn_topk", "attributes": attrs, "sass": sass})
+    res = phase_knn_kernels(torch, X, make_umap_data(UMAP_ROWS, args.seed), args.reps, args.seed)
+    out = {"probe": "knn_topk", "package": kn.__file__, "attributes": attrs, "sass": sass, "gates": knn_gates(res),
+           "shapes": {k: {m: v for m, v in r.items() if m != "controls"} for k, r in res.items()}}
+    if args.sweep:
+        out["sweep"] = sweep_knn(torch, kn, X)
+    emit(out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -2002,7 +2168,10 @@ def main() -> int:
     ap.add_argument("--subset", type=int, default=100_000, help="rows of the card-vs-CPU fits")
     ap.add_argument("--gather-only", action="store_true",
                     help="a probe: build K7/K8 alone and run only their kernel phase (prints no result line)")
-    ap.add_argument("--sweep", action="store_true", help="with --gather-only: time chunk sizes and grids too")
+    ap.add_argument("--knn-only", action="store_true",
+                    help="a probe: build K4 alone and run only its kernel phase (prints no result line)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --gather-only: time chunk sizes and grids too; with --knn-only: other geometries")
     args = ap.parse_args()
 
     import torch
@@ -2021,7 +2190,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     t = time.perf_counter()
-    build_s = _build.build(["rf_byte_gather"] if args.gather_only else _build.SOURCES)
+    build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
+                           else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -2034,6 +2204,8 @@ def main() -> int:
 
     if args.gather_only:
         return gather_probe(torch, args, dev)
+    if args.knn_only:
+        return knn_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -2100,16 +2272,19 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # K4: its FP32 bound beside bound_ms, the 3xTF32 tensor-core one
+            **{k: r[k] for k in ("bound_f32_ms",) if k in r},
             # K7/K8: device time and host cost apart, and the routed instance
             **{k: r[k] for k in ("device_ms", "library_device_ms", "host_us", "variant") if k in r and name in (
                 "packed_byte_gather_many", "packed_byte_gather")},
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
-                                        "k1", "k2", "words", "G", "variant") if k in r},
+                                        "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks")
+                      if k in r},
         }
         kernels.append(entry)
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
-             "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
+             "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
              "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"],
              "subblock_hist_level2": kern["subblock_hist_level2"],

@@ -7,25 +7,143 @@ The JAX package's ``ring_knn`` rotates item shards around a device ring;
 on one card there is no ring, and the search is one pass over all items.
 Results are ordered by (distance, id), so an exact tie keeps the lower id,
 as ``lax.top_k`` does.
+
+On the card K4 forms its scores on the tensor cores in 3xTF32: each
+operand value is split into a TF32 ``hi`` and a TF32 ``lo`` (rounded as
+:func:`tf32_round`), three TF32 products are accumulated per pair in a
+fresh f32 accumulator for each slab of ``K4_SLAB`` features (one stage of
+the kernel's ring), and the slabs are folded into the running f32 score
+with rounded adds.
+:func:`knn_geometry` picks the block rows, stage depth and item splits.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _build
 from .linalg import _check_cuda_f32
 
-_I64, _P = ctypes.c_int64, ctypes.c_void_p
+_I64, _P, _INT, _U32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 
 # the kernel keeps k (score, id) pairs per query row in shared memory
 MAX_K = 128
 # chunks of the plain version: bound its (queries, items) score tile
 _Q_CHUNK = 4096
 _I_CHUNK = 32768
+
+# The kernel's arithmetic, read by the wrapper (passed to the kernel) and
+# by the tests' model of it. TF32 keeps 10 of f32's 23 mantissa bits; a
+# value rounds to nearest, ties away from zero (cvt.rna.tf32.f32's
+# rounding) as (bits + TF32_BIAS) & TF32_MASK. A fresh accumulator takes
+# K4_SLAB features, one 32-feature stage of the kernel (its BK), before it
+# is folded into the running score: the tensor cores' f32 accumulation
+# truncates, the fold rounds.
+TF32_BIAS = 0x1000
+TF32_MASK = 0xFFFFE000
+K4_SLAB = 32
+
+# the kernel's tiles (csrc/knn_topk.cu): items a tile, features a stage
+_BN = 128
+_BK = K4_SLAB
+SMEM_PER_BLOCK = 232_448  # an H100 block's shared memory, above 48 KB opt in
+MAX_SPLITS = 255  # the merge kernel's lanes hold at most 256 lists
+_STAGES = (3, 2)  # stage depths, the deepest that fits first
+_WAVES = 2  # split the items until the grid makes about this many waves
+_MIN_TILES_PER_SPLIT = 4
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as the kernel rounds it (nearest, ties
+    away from zero; infinities stay)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    # int32 arithmetic wraps, as the kernel's unsigned arithmetic does
+    return ((bits + TF32_BIAS) & (TF32_MASK - 2**32)).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split of each f32 operand value: ``hi = tf32(x)``,
+    ``lo = tf32(x - hi)`` (the difference is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+class KnnGeometry(NamedTuple):
+    """K4's launch: ``bm`` query rows a block (128 or 64), ``stages`` in
+    the ring of tensor copies, ``splits`` item ranges of ``tiles_per_split`` tiles
+    of 128 items (gridDim.y; > 1 adds the merge launch), ``smem`` bytes of
+    shared memory a block and ``blocks`` in the grid."""
+
+    bm: int
+    stages: int
+    splits: int
+    tiles_per_split: int
+    smem: int
+    blocks: int
+
+
+def _knn_smem(bm: int, stages: int, k: int) -> int:
+    """Shared memory of one K4 block: 1,024 bytes of alignment slack, the
+    stage ring (each slot 32 features of the query rows and the items'
+    TF32 hi and lo, the tile's csq and ids and a transaction barrier) and
+    the (score, id) state."""
+    return 1024 + stages * ((bm + 2 * _BN) * _BK * 4 + 2 * _BN * 4 + 8) + bm * k * 8
+
+
+def _knn_geometry(
+    nq: int, ni: int, d: int, k: int, sms: int = 132, blocks_per_sm: int = 1,
+    smem_per_block: int = SMEM_PER_BLOCK, splits: int | None = None, stages: int | None = None,
+) -> KnnGeometry:
+    """K4's grid for ``nq`` queries, ``ni`` items of ``d`` features and k.
+
+    128 rows a block where its state and two stages fit in
+    ``smem_per_block``, else 64 (large k); the deepest ring of
+    ``_STAGES`` that fits. Query block ``b`` takes rows ``[b·bm, (b+1)·bm)``
+    and split ``s`` items ``[s·T·128, (s+1)·T·128)`` (T tiles a split), both
+    cut at nq and ni. Where the ``ceil(nq / bm)`` blocks make fewer than
+    ``_WAVES`` waves of ``sms × blocks_per_sm`` resident blocks, the items
+    are split until they make about that many (at most ``MAX_SPLITS``
+    splits, each of at least ``_MIN_TILES_PER_SPLIT`` tiles), so that a
+    small query batch still puts a block on every SM. ``splits`` and
+    ``stages`` force those choices (the probe's sweeps)."""
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(f"knn_topk_pass: the CUDA kernel takes 1 <= k <= {MAX_K}, got {k}")
+    bm = 128 if _knn_smem(128, min(_STAGES), k) <= smem_per_block else 64
+    if stages is None:
+        stages = next(s for s in _STAGES if _knn_smem(bm, s, k) <= smem_per_block)
+    nb = -(-nq // bm)
+    tiles = -(-ni // _BN)
+    if splits is None:
+        resident = sms * blocks_per_sm
+        most = max(1, min(MAX_SPLITS, tiles // _MIN_TILES_PER_SPLIT))
+        splits = 1 if nb >= _WAVES * resident else min(most, max(1, round(_WAVES * resident / max(nb, 1))))
+    splits = max(1, min(splits, MAX_SPLITS, max(tiles, 1)))
+    per = max(1, -(-tiles // splits))
+    splits = max(1, -(-tiles // per))  # no empty split
+    return KnnGeometry(bm, stages, splits, per, _knn_smem(bm, stages, k), nb * splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _knn_attributes(bm: int, k: int, stages: int) -> Tuple[int, int, int, int]:
+    """(registers, spill bytes, resident blocks an SM, shared memory) of
+    the kernel instance, from the CUDA runtime's occupancy calculator."""
+    fn = _build.function("knn_topk", "knn_topk_attributes", [_INT, _INT, _INT, _P])
+    out = (ctypes.c_int * 4)()
+    _build.check("knn_topk", fn(bm, k, stages, ctypes.addressof(out)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def knn_geometry(nq: int, ni: int, d: int, k: int) -> KnnGeometry:
+    """:func:`_knn_geometry` on the current card: its SM count and the
+    kernel's resident blocks an SM."""
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    g = _knn_geometry(nq, ni, d, k, sms=sms)
+    return _knn_geometry(nq, ni, d, k, sms=sms, blocks_per_sm=max(1, _knn_attributes(g.bm, k, g.stages)[2]))
 
 
 def lexsort_rows(
@@ -79,6 +197,47 @@ def knn_topk_pass_plain(
     return torch.cat(outd), torch.cat(outi)
 
 
+def _knn_topk_run(
+    Xq: torch.Tensor,
+    Xi: torch.Tensor,
+    csq_eff: torch.Tensor,
+    ids: torch.Tensor,
+    topd: torch.Tensor,
+    topi: torch.Tensor,
+    geo: KnnGeometry,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4 (and, with ``geo.splits > 1``, its merge) with the launch
+    ``geo`` on checked card tensors; returns the new state."""
+    nq, d = Xq.shape
+    ni, k = Xi.shape[0], topd.shape[1]
+    outd, outi = torch.empty_like(topd), torch.empty_like(topi)
+    part_d = part_i = None
+    if geo.splits > 1:
+        part_d = torch.empty((geo.splits, nq, k), dtype=torch.float32, device=Xq.device)
+        part_i = torch.empty((geo.splits, nq, k), dtype=torch.int32, device=Xq.device)
+    # the kernel's tensor copies take rows of whole 16-byte chunks from a
+    # 16-byte aligned base: zero features pad d to a multiple of 4 (the
+    # scores do not change)
+    if d % 4 or Xq.data_ptr() % 16 or Xi.data_ptr() % 16:
+        pad = -d % 4
+        Xq, Xi = (torch.nn.functional.pad(t, (0, pad)) for t in (Xq, Xi))
+        d += pad
+    fn = _build.function(
+        "knn_topk", "knn_topk_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _I64, _U32, _U32,
+         _P],
+    )
+    code = fn(
+        Xq.data_ptr(), Xi.data_ptr(), csq_eff.data_ptr(), ids.data_ptr(), topd.data_ptr(), topi.data_ptr(),
+        outd.data_ptr(), outi.data_ptr(), 0 if part_d is None else part_d.data_ptr(),
+        0 if part_i is None else part_i.data_ptr(), nq, ni, d, k, geo.bm, geo.stages, geo.splits,
+        geo.tiles_per_split, TF32_BIAS, TF32_MASK,
+        torch.cuda.current_stream(Xq.device).cuda_stream,
+    )
+    _build.check("knn_topk", code)
+    return outd, outi
+
+
 def knn_topk_pass(
     Xq: torch.Tensor,
     Xi: torch.Tensor,
@@ -92,11 +251,13 @@ def knn_topk_pass(
     are ``csq_eff - 2 xq·xi`` with ``csq_eff`` (ni,) = ``||xi||²`` and
     +inf for masked items; ``ids`` (ni,) int32 are the items' global ids.
     The state comes in sorted by (score, id) per row (a fresh (+inf, -1)
-    state, or one this function returned) and goes out so.
+    state, or one this function returned) and goes out so; the incoming
+    tensors are not changed.
 
     A CPU tensor goes to :func:`knn_topk_pass_plain`; a CUDA tensor to the
-    CUDA kernel (k <= 128), or this raises. Replaces
-    ``spark_rapids_ml_tpu/ops/knn_pallas.py::knn_pallas_pass``."""
+    CUDA kernel (k <= 128; its scores in 3xTF32 on the tensor cores), or
+    this raises. Replaces ``spark_rapids_ml_tpu/ops/knn_pallas.py::
+    knn_pallas_pass``."""
     if Xq.device.type == "cpu":
         return knn_topk_pass_plain(Xq, Xi, csq_eff, ids, topd, topi)
     _check_cuda_f32("knn_topk_pass", Xq, Xi, csq_eff, topd)
@@ -114,19 +275,9 @@ def knn_topk_pass(
             raise ValueError("knn_topk_pass: ids and topi must be contiguous int32 on the card")
     if not 1 <= k <= MAX_K:
         raise NotImplementedError(f"knn_topk_pass: the CUDA kernel takes 1 <= k <= {MAX_K}, got {k}")
-    # the kernel updates the state in place
-    topd, topi = (t.clone(memory_format=torch.contiguous_format) for t in (topd, topi))
-    fn = _build.function(
-        "knn_topk", "knn_topk_launch",
-        [_P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P],
-    )
-    code = fn(
-        Xq.data_ptr(), Xi.data_ptr(), csq_eff.data_ptr(), ids.data_ptr(), topd.data_ptr(),
-        topi.data_ptr(), nq, ni, d, k, torch.cuda.current_stream(Xq.device).cuda_stream,
-    )
+    out = _knn_topk_run(Xq, Xi, csq_eff, ids, topd, topi, knn_geometry(nq, ni, d, k))
     knn_topk_pass.launches += 1
-    _build.check("knn_topk", code)
-    return topd, topi
+    return out
 
 
 knn_topk_pass.launches = 0

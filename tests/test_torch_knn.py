@@ -14,6 +14,8 @@ near ties: items on distinct shells around blob centres, queries near the
 centres (ids equal, distances rtol 1e-5 for f32 rounding in two orders).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -237,3 +239,312 @@ def test_nearest_neighbors_without_device_needs_cuda():
     df = TDataFrame({"features": np.zeros((10, 3), np.float32)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TNN(k=2).fit(df).kneighbors(df)
+
+
+# --- K4 on the card: its grid, its fragment map and its 3xTF32 arithmetic,
+# held here through pure functions and a numpy model (the kernel itself
+# runs only on the card; chip_smoke.py holds it against the f64 plain
+# version there) ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [3, 124, 256, 300])
+@pytest.mark.parametrize("k", [1, 16, 100, 128])
+@pytest.mark.parametrize("ni", [1, 70_001, 10**6])
+@pytest.mark.parametrize("nq", [1, 1_037, 4_096, 65_536, 131_072])
+def test_knn_geometry(nq, ni, d, k):
+    sms = 132
+    g = tkn._knn_geometry(nq, ni, d, k, sms=sms, blocks_per_sm=1)
+    assert g.bm in (64, 128) and 2 <= g.stages <= 4
+    assert g.smem == tkn._knn_smem(g.bm, g.stages, k) <= 232_448
+    # 128 rows a block wherever the state and two stages fit beside them
+    assert (g.bm == 128) == (tkn._knn_smem(128, 2, k) <= 232_448)
+    # query block b takes rows [b·bm, (b+1)·bm) cut at nq; split s items
+    # [s·T·128, (s+1)·T·128) cut at ni: the (block, split) pairs cover
+    # every (query row, item) pair once
+    nb = -(-nq // g.bm)
+    q0 = np.arange(nb) * g.bm
+    q1 = np.minimum(q0 + g.bm, nq)
+    i0 = np.arange(g.splits) * g.tiles_per_split * 128
+    i1 = np.minimum(i0 + g.tiles_per_split * 128, ni)
+    for lo, hi, n in ((q0, q1, nq), (i0, i1, ni)):
+        assert lo[0] == 0 and hi[-1] == n and (lo[1:] == hi[:-1]).all() and (hi > lo).all()
+    assert g.blocks == nb * g.splits and 1 <= g.splits <= tkn.MAX_SPLITS
+    assert g.splits * nq * k * 8 < 2**31  # the partial states' scratch
+    resident = sms  # one block an SM: the kernel's registers
+    if nb >= 2 * resident:
+        assert g.splits == 1
+    else:
+        # about two waves, and a block on every SM, where the items allow
+        # that many splits
+        most = max(1, min(tkn.MAX_SPLITS, -(-ni // 128) // 4))
+        assert g.blocks >= min(1.5 * resident, nb * most) or g.splits == -(-(-(-ni // 128)) // g.tiles_per_split)
+        assert g.blocks <= 3 * resident
+        if nb * most >= 2 * resident:
+            assert g.blocks >= resident
+
+
+def test_knn_geometry_forced_and_refused():
+    g = tkn._knn_geometry(4096, 10**6, 256, 16, splits=3, stages=2)
+    assert (g.splits, g.stages) == (3, 2) and g.tiles_per_split == -(-7813 // 3)
+    assert tkn._knn_geometry(10, 300, 8, 4, splits=50).splits == 3  # no empty split
+    for k in (0, 129):
+        with pytest.raises(NotImplementedError):
+            tkn._knn_geometry(10, 10, 8, k)
+
+
+def _before(s, i, t, j):
+    """(s, i) strictly before (t, j) in the (score, id) order."""
+    return (s < t) | ((s == t) & (i < j))
+
+
+# the merge kernel's lists a lane (csrc/knn_topk.cu MERGE_LISTS)
+_MERGE_LISTS = (tkn.MAX_SPLITS + 1) // 32
+
+
+def _merge_model(in_d, in_i, part_d, part_i, k):
+    """knn_merge_kernel in numpy, one warp of 32 lanes a row: lane l holds
+    lists l, l + 32, ... (list 0 the incoming state, list s + 1 split s's
+    partial state), each at its own position, with a (+inf, 0x7fffffff)
+    head past its end or past the last list. Each of k rounds: each lane
+    takes its least head by (score, id), its first list on a tie; a
+    butterfly of shuffles (xor 16, 8, 4, 2, 1) takes the warp's least
+    (score, id), the lower lane on a tie; that lane moves that list on."""
+    nq = in_d.shape[0]
+    n_lists = 1 + part_d.shape[0]
+    # heads[q, lane, row, pos]: list lane + 32q, position k the filler
+    hd = np.full((_MERGE_LISTS * 32, nq, k + 1), np.inf, np.float32)
+    hi = np.full((_MERGE_LISTS * 32, nq, k + 1), 0x7FFFFFFF, np.int64)
+    hd[:n_lists, :, :k] = np.concatenate([in_d[None], part_d])
+    hi[:n_lists, :, :k] = np.concatenate([in_i[None], part_i])
+    hd, hi = hd.reshape(_MERGE_LISTS, 32, nq, k + 1), hi.reshape(_MERGE_LISTS, 32, nq, k + 1)
+    pos = np.zeros((_MERGE_LISTS, 32, nq), np.int64)
+    q_ix, lane_ix, row_ix = np.meshgrid(np.arange(_MERGE_LISTS), np.arange(32), np.arange(nq), indexing="ij")
+    lanes = np.broadcast_to(np.arange(32)[:, None], (32, nq))
+    out_d, out_i = np.empty((nq, k), np.float32), np.empty((nq, k), np.int64)
+    for r in range(k):
+        s, i = hd[q_ix, lane_ix, row_ix, pos], hi[q_ix, lane_ix, row_ix, pos]
+        bs, bi, bq = s[0], i[0], np.zeros((32, nq), np.int64)
+        for q in range(1, _MERGE_LISTS):
+            take = _before(s[q], i[q], bs, bi)
+            bs, bi, bq = np.where(take, s[q], bs), np.where(take, i[q], bi), np.where(take, q, bq)
+        ms, mi, ml = bs, bi, lanes
+        for off in (16, 8, 4, 2, 1):
+            o = np.arange(32) ^ off
+            os_, oi, ol = ms[o], mi[o], ml[o]
+            take = _before(os_, oi, ms, mi) | ((os_ == ms) & (oi == mi) & (ol < ml))
+            ms, mi, ml = np.where(take, os_, ms), np.where(take, oi, mi), np.where(take, ol, ml)
+        assert (ml == ml[0]).all()  # every lane names the same winner
+        out_d[:, r], out_i[:, r] = ms[0], mi[0]
+        win = ml[0]
+        pos[bq[win, np.arange(nq)], win, np.arange(nq)] += 1
+    return out_d, out_i
+
+
+def test_merge_kernel_constants():
+    src = (Path(tkn.__file__).parent.parent / "csrc" / "knn_topk.cu").read_text()
+    assert f"constexpr int MAX_SPLITS = {tkn.MAX_SPLITS};" in src
+    assert "constexpr int MERGE_LISTS = (MAX_SPLITS + 1) / 32;" in src
+    assert "id = 0x7fffffff;" in src
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("splits", [1, 2, 31, 32, 255])
+def test_merge_model_matches_lexsort(splits, k):
+    # sorted states with (+inf, -1) fillers, exact score ties across lists
+    # and the same (score, id) pair in several lists: the merge kernel's
+    # walk gives the first k pairs of all the lists in (score, id) order
+    rng = np.random.default_rng(1000 * splits + k)
+    nq = 6
+    n = splits + 1
+    d = rng.integers(0, 6, size=(n, nq, k)).astype(np.float32)
+    i = rng.integers(0, 3 * k, size=(n, nq, k)).astype(np.int64)
+    fill = rng.random((n, nq, k)) < 0.3
+    d[fill], i[fill] = np.inf, -1
+    o = np.lexsort((i, d), axis=-1)
+    d, i = np.take_along_axis(d, o, -1), np.take_along_axis(i, o, -1)
+    md, mi = _merge_model(d[0], i[0], d[1:], i[1:], k)
+    rd, ri = tkn.lexsort_rows(torch.from_numpy(np.concatenate(d, 1)), torch.from_numpy(np.concatenate(i, 1)), k)
+    np.testing.assert_array_equal(mi, ri.numpy())
+    np.testing.assert_array_equal(md, rd.numpy())
+    assert (mi[np.isinf(md)] == -1).all()  # a filler beyond the lists is never taken
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_knn_item_splits_merge_to_one_pass(splits):
+    # the split grid's result: each item range folded into a fresh state,
+    # then the incoming state and the partial states merged in (score, id)
+    # order by the merge kernel's walk, equals one pass from the incoming
+    # state (exact ties included)
+    rng = np.random.default_rng(20 + splits)
+    Xq, Xi = _blobs(rng, 37, 20), _blobs(rng, 1000, 20)
+    q, x = torch.from_numpy(Xq), torch.from_numpy(Xi)
+    csq = (x * x).sum(dim=1)
+    csq[::9] = float("inf")
+    ids = torch.arange(1000, dtype=torch.int32)
+    k = 8
+    fresh = (torch.full((37, k), float("inf")), torch.full((37, k), -1, dtype=torch.int32))
+    incoming = tkn.knn_topk_pass(q, x[:300], csq[:300], ids[:300], *fresh)
+    rest = slice(300, 1000)
+    g = tkn._knn_geometry(37, 700, 20, k, splits=splits)
+    parts = [incoming]
+    for s in range(g.splits):
+        lo = 300 + s * g.tiles_per_split * 128
+        hi = min(1000, lo + g.tiles_per_split * 128)
+        parts.append(tkn.knn_topk_pass(q, x[lo:hi], csq[lo:hi], ids[lo:hi], *fresh))
+    merged = _merge_model(parts[0][0].numpy(), parts[0][1].numpy(), np.stack([p[0].numpy() for p in parts[1:]]),
+                          np.stack([p[1].numpy() for p in parts[1:]]), k)
+    one = tkn.knn_topk_pass(q, x[rest], csq[rest], ids[rest], *incoming)
+    np.testing.assert_array_equal(merged[1], one[1].numpy())
+    np.testing.assert_array_equal(merged[0], one[0].numpy())
+
+
+def _sw128(r, c):
+    """Byte offset of 16-byte chunk ``c`` of row ``r`` in a K-major tile of
+    128-byte rows under the 128-byte swizzle (csrc/knn_topk.cu ``sw128``;
+    the layout wgmma reads through a B128 descriptor)."""
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def test_k4_fragment_map_covers_the_tile():
+    # the kernel's maps, walked for one 32-feature stage of one block: the
+    # query rows and the items stored in the ring slot (rows [0, bm) and
+    # [bm, bm + 128), 128-byte rows under the 128-byte swizzle, as the
+    # tensor copies store them); each thread's A fragments read from its
+    # rows (g and g + 8 of its warp's 16; features t and t + 4 of each k = 8
+    # step); the items read as wgmma reads a K-major tile through a B128
+    # descriptor; m64n128k8 per warpgroup; and the accumulator fragments
+    # mapped back to the score tile by the kernel's formula (row 16·warp + g
+    # + 8·((e >> 1) & 1), column 8·(e >> 2) + 2t + (e & 1))
+    rng = np.random.default_rng(5)
+    bk = 32
+    for wg in (2, 1):
+        bm = 64 * wg
+        Q = rng.normal(size=(bm, bk))
+        X = rng.normal(size=(128, bk))
+        rows = np.concatenate([Q, X])
+        offs = np.array([[_sw128(r, c) for c in range(8)] for r in range(bm + 128)])
+        assert len(np.unique(offs)) == offs.size and offs.min() == 0 and offs.max() == (bm + 128) * 128 - 16
+        words = np.full((bm + 128) * bk, np.nan)
+        for r in range(bm + 128):
+            for e in range(bk):
+                words[(_sw128(r, e // 4) + 4 * (e % 4)) // 4] = rows[r, e]
+
+        def read(r, kcol):  # a read of row r, feature kcol of the slot
+            return words[(_sw128(r, kcol // 4) + 4 * (kcol % 4)) // 4]
+
+        B = np.array([[read(bm + n, c) for c in range(bk)] for n in range(128)])
+        np.testing.assert_array_equal(B, X)
+        tile = np.full((bm, 128), np.nan)
+        hits = np.zeros((bm, 128), int)
+        for group in range(wg):
+            acc = np.zeros((128, 64))  # [thread of the warpgroup][fragment]
+            for kk in range(bk // 8):
+                A = np.full((64, 8), np.nan)
+                for w in range(4):
+                    for lane in range(32):
+                        g, t = divmod(lane, 4)
+                        r0 = (4 * group + w) * 16 + g
+                        for c in range(4):  # a[c]: mma's A fragment layout
+                            r, kf = r0 + 8 * (c & 1), kk * 8 + t + 4 * (c >> 1)
+                            A[16 * w + g + 8 * (c & 1), t + 4 * (c >> 1)] = read(r, kf)
+                D = A @ B[:, kk * 8:kk * 8 + 8].T
+                for w in range(4):
+                    for lane in range(32):
+                        g, t = divmod(lane, 4)
+                        for e in range(64):  # wgmma's accumulator layout
+                            j, c = divmod(e, 4)
+                            acc[32 * w + lane, e] += D[16 * w + g + 8 * (c // 2), 8 * j + 2 * t + c % 2]
+            for w in range(4):
+                warp = 4 * group + w
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for e in range(64):  # the kernel's map
+                        r = warp * 16 + g + 8 * ((e >> 1) & 1)
+                        col = 8 * (e >> 2) + 2 * t + (e & 1)
+                        tile[r, col] = acc[32 * w + lane, e]
+                        hits[r, col] += 1
+        assert (hits == 1).all()
+        np.testing.assert_allclose(tile, Q @ X.T, rtol=1e-12, atol=1e-12)
+    # the gate's quarter tiles, 64 rows x 32 columns in a warpgroup's own
+    # query rows of the slot: thread (warp w, g, t) stores fragments e of
+    # quarter h as float pairs at row 16w + g + 8·((e >> 1) & 1), column
+    # (8·((e >> 2) - 4h) + 2t) ^ 8·(row & 3); a warp reads row r's lane l at
+    # column l ^ 8·(r & 3). Every entry is stored once, read back as written,
+    # and each store of a half-warp (16 lanes, 8 bytes each) hits 32
+    # distinct banks.
+    for h in range(4):
+        quarter = np.full((64, 32), -1)
+        for w in range(4):
+            for e in range(16 * h, 16 * h + 16, 2):
+                banks = [[], []]
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    rl = w * 16 + g + 8 * ((e >> 1) & 1)
+                    col = 8 * ((e >> 2) - 4 * h) + 2 * t  # the fragment's column in the quarter
+                    cl = col ^ (8 * (rl & 3))
+                    assert (quarter[rl, cl:cl + 2] == -1).all()
+                    quarter[rl, cl:cl + 2] = (col, col + 1)
+                    banks[lane // 16] += [(rl * 32 + cl) % 32, (rl * 32 + cl + 1) % 32]
+                assert all(len(set(b)) == 32 for b in banks)
+        for rl in range(64):
+            assert [quarter[rl, lane ^ (8 * (rl & 3))] for lane in range(32)] == list(range(32))
+
+
+def _rz_f32(x):
+    """f64 values to f32, rounded toward zero (the tensor cores' f32
+    accumulation)."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _k4_scores_model(Xq, Xi, csq, slab, three=True):
+    """The kernel's scores csq - 2·run in numpy: operands zero-padded to
+    whole k = 8 steps and split as the kernel splits them; per k = 8 step
+    each TF32 product (lo·hi', hi·lo', hi·hi' in that order, or hi·hi'
+    alone for one-pass TF32) adds 8 exact products to the f32 accumulator,
+    truncated; a fresh accumulator per slab of features, folded into the
+    running f32 score with a rounded add."""
+    nq, d = Xq.shape
+    dp = -(-d // 8) * 8
+    q = np.zeros((nq, dp), np.float32)
+    x = np.zeros((Xi.shape[0], dp), np.float32)
+    q[:, :d], x[:, :d] = Xq, Xi
+    (qh, ql), (xh, xl) = (tuple(t.numpy().astype(np.float64) for t in tkn.tf32_split(torch.from_numpy(a)))
+                          for a in (q, x))
+    pairs = ((ql, xh), (qh, xl), (qh, xh)) if three else ((qh, xh),)
+    run = np.zeros((nq, x.shape[0]), np.float32)
+    for s0 in range(0, dp, slab):
+        acc = np.zeros_like(run)
+        for k0 in range(s0, min(s0 + slab, dp), 8):
+            for a, b in pairs:
+                acc = _rz_f32(acc + a[:, k0:k0 + 8] @ b[:, k0:k0 + 8].T)
+        run = run + acc  # f32: rounded to nearest
+    return csq[None, :] - np.float32(2.0) * run
+
+
+# chip_smoke.py's band: two f32 scores within TAU_UNITS·u·√d·T may order
+# either way, T the entry's own terms ‖xq‖² + 2Σ|xq||xi| + ‖xi‖²
+_TAU_UNITS, _U32 = 4.0, 2.0**-24
+
+
+@pytest.mark.parametrize("d", [3, 124, 256, 300])
+def test_3xtf32_score_error_within_k4_band(d):
+    rng = np.random.default_rng(d)
+    if d == 256:  # chip_smoke.py's blobs: shrinking centre scales, unit noise
+        centres = rng.normal(size=(64, d)) * (4.0 * 0.9 ** np.arange(d))
+        Xq = centres[rng.integers(0, 64, 64)] + rng.normal(size=(64, d))
+        Xi = centres[rng.integers(0, 64, 512)] + rng.normal(size=(512, d))
+    else:  # its ragged shapes: offset Gaussian rows
+        Xq, Xi = rng.normal(size=(64, d)) + 3.0, rng.normal(size=(512, d)) + 3.0
+    Xq, Xi = Xq.astype(np.float32), Xi.astype(np.float32)
+    csq = (torch.from_numpy(Xi) ** 2).sum(dim=1).numpy()  # f32, as the wrapper's caller forms it
+    q, x = Xq.astype(np.float64), Xi.astype(np.float64)
+    ref = (x * x).sum(1)[None, :] - 2.0 * q @ x.T
+    T = (q * q).sum(1)[:, None] + 2.0 * np.abs(q) @ np.abs(x).T + (x * x).sum(1)[None, :]
+    tau = _TAU_UNITS * _U32 * np.sqrt(d) * T
+    three = np.abs(_k4_scores_model(Xq, Xi, csq, tkn.K4_SLAB) - ref) / tau
+    one = np.abs(_k4_scores_model(Xq, Xi, csq, tkn.K4_SLAB, three=False) - ref) / tau
+    assert three.max() <= 0.5, three.max()  # inside the band with a factor 2 to spare
+    assert one.max() > 1.0, one.max()  # one-pass TF32 falls outside it
