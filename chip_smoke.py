@@ -18,6 +18,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
    beat its plain version; a wrong mirror of a diagonal tile's skipped
    quadrant is one of its controls) and at ragged shapes, on and off its
    float4 path (d % 4 != 0, a base off 16-byte alignment).
+   K2 (fused Lloyd step: 3xTF32 ``wgmma`` products on the tensor cores fed
+   by TMA, the centres split into TF32 hi and lo once a launch, a fused
+   argmin, and the accumulation's vector atomics overlapped with the next
+   row block by a persistent grid) at 12M x 256 with k = 1024 and k =
+   4,097 (its controls: a lost feature tile, a lost row range, and one-pass
+   TF32 scores, which its rule must refuse) and at ragged shapes (d in {300,
+   124, 3000, 257, 61} and a base off 16-byte alignment, k in {1, 37,
+   130}); it must beat its plain version and one matmul + argmin +
+   ``index_add_`` at both main shapes and take at most LLOYD_MS_MAX at k =
+   1024.
    K3 (logistic loss + gradient) at K = 1 and, through its multinomial
    kernel, at K = 10 on the 12M rows (which must beat its plain version)
    and at ragged shapes, each with the kernel that ran it; K4 (kNN
@@ -92,6 +102,14 @@ registers, spills, resident blocks and SASS instruction counts and its
 gates' verdicts (reported, not enforced); ``--sweep`` times other stage depths and item
 splits, and a tight state that no tile passes (the product and the gate
 without the insertion).
+
+    python3 chip_smoke.py --kmeans-only [--sweep]
+
+is a probe of K2 alike: its kernel phase alone on ``--rows`` rows, with
+its attributes, SASS counts (``HGMMA``, ``FFMA``, ``UTMALDG``, the atomics)
+and gates; ``--sweep`` times every row weight 0 beside every row weight 1
+(an m = 0 row skips the atomics: the product, the argmin and the row walk
+alone) and the other stage depths.
 """
 
 from __future__ import annotations
@@ -403,16 +421,24 @@ def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17):
     return r
 
 
+def lloyd_verdict(torch, sums, counts, cost, ref, n):
+    """K2's rule against the f64 reference: a row may change centre only
+    across a near tie, and the sums and cost within ``held``'s band beyond
+    the near ties' slack. Returns (counts within the near ties, |dcount|,
+    max |dsums|, |dsums|/tol, |dcost|/tol)."""
+    dcount = (counts.to(torch.int64) - ref["counts"]).abs()
+    counts_ok = bool((dcount <= ref["near"]).all())
+    err, r_sums = held(torch, sums, ref["sums"], ref["T"], n, ref["slack"])
+    _, r_cost = held(torch, cost, ref["cost"], ref["T_cost"], n, ref["slack_cost"])
+    return counts_ok, dcount, err, r_sums, r_cost
+
+
 def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
     n, d = X.shape
     k = C.shape[0]
     sums, counts, cost = kk.lloyd_step(X, m, C)
     ref = lloyd_reference(torch, kk, X, m, C)
-    # a row may change centre only across a near tie
-    dcount = (counts.to(torch.int64) - ref["counts"]).abs()
-    counts_ok = bool((dcount <= ref["near"]).all())
-    err, r_sums = held(torch, sums, ref["sums"], ref["T"], n, ref["slack"])
-    _, r_cost = held(torch, cost, ref["cost"], ref["T_cost"], n, ref["slack_cost"])
+    counts_ok, dcount, err, r_sums, r_cost = lloyd_verdict(torch, sums, counts, cost, ref, n)
     check(counts_ok and r_sums <= 1.0 and r_cost <= 1.0,
           f"lloyd_step {n}x{d} k={k}: counts beyond the near ties ({counts_ok}), "
           f"|dsums|/tol {r_sums:.3g} or |dcost|/tol {r_cost:.3g} above 1")
@@ -430,6 +456,21 @@ def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
             "sums[:, 128:] zeroed": tile,
             f"first 1/{CONTROL_SPLIT} of rows lost in sums[:, 128:]": lost,
         }, ref["sums"], ref["T"], n, ref["slack"])
+        # one-pass TF32 scores (the plain version with TF32 matmuls) must
+        # fail the rule that the kernel's 3xTF32 scores keep to
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            s32, c32, cost32 = kk.lloyd_step_plain(X, m, C)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        ok32, dc32, _, rs32, rc32 = lloyd_verdict(torch, s32, c32, cost32, ref, n)
+        check(not (ok32 and rs32 <= 1.0 and rc32 <= 1.0), "the K2 check does not catch one-pass TF32 scores")
+        out["controls"].append({"control": "plain version with one-pass TF32 matmuls",
+                                "counts_within_near_ties": ok32, "count_changes": int(dc32.sum()),
+                                "err_over_tol": rs32, "cost_err_over_tol": rc32})
+        del s32, c32
     del ref
     if reps:
         c_sq = (C * C).sum(dim=1)
@@ -446,8 +487,13 @@ def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
         out["plain_ms"] = cuda_ms(torch, lambda: kk.lloyd_step_plain(X, m, C), reps)
         out["library_ms"] = cuda_ms(torch, library, reps)
         nbytes = 4.0 * (n * d + n + k * d + k * d + k + 1)
+        # the score product runs on the tensor cores in 3xTF32: three TF32
+        # products per (row, centre, feature), at the dense TF32 rate; the
+        # sums, ||x||² and the argmin on the CUDA cores are below 1% of it
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 3.0 * 2.0 * n * k * d, PEAK_TF32_FLOPS)
+        # the same work as f32 FMA on the CUDA cores
         flops = 2.0 * n * k * d + 2.0 * n * d + 3.0 * n * k  # scores, sums+||x||², argmin
-        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        out["bound_f32_ms"] = bound_ms(nbytes, flops)[0]
     return out
 
 
@@ -726,7 +772,6 @@ def check_sgd_epoch(torch, uk, src, h, tails, p, perm, offs, u, a, b, reps, cont
 
 
 def phase_kernels(torch, X_pca, n_rows, reps, seed):
-    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
     from spark_rapids_ml_tpu_torch.ops import linalg as lin
     from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
 
@@ -745,16 +790,6 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
         check(k1["ms"] < k1["plain_ms"],
               f"shifted_gram {k1['ms']:.3f} ms not below its plain version's {k1['plain_ms']:.3f} ms")
 
-    # k = 1024: the Lloyd iterations; ~4k: count_closest over the k-means||
-    # candidates (1 + 2 steps x 2k draws at oversampling 2)
-    idx = torch.randint(0, n_rows, (4097,), generator=g, device=dev)
-    C1024 = X[idx[:1024]] + 0.1 * torch.randn(1024, E2E_D, generator=g, device=dev)
-    res["lloyd_step"] = check_lloyd_step(torch, kk, X, m, C1024.contiguous(), reps, control=True)
-    emit({"phase": "kernels", "kernel": "lloyd_step", **res["lloyd_step"]})
-    res["lloyd_step_4097"] = check_lloyd_step(torch, kk, X, m, X[idx].contiguous(),
-                                              max(1, reps // 2), control=True)
-    emit({"phase": "kernels", "kernel": "lloyd_step", **res["lloyd_step_4097"]})
-
     y = (X[:, 0] > X[:, 0].median()).float()
     res["logreg_loss_grad"] = check_logreg(torch, lk, X, y, m, 1, reps, seed, control=True)
     emit({"phase": "kernels", "kernel": "logreg_loss_grad", **res["logreg_loss_grad"]})
@@ -771,10 +806,6 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
         yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
         emit({"phase": "kernels", "kernel": "shifted_gram", "ragged": True,
               **check_shifted_gram(torch, lin, Xr, mr, 0)})
-        for k_r in (1, 37, 130):
-            Cr = Xr[torch.randint(0, n_r, (k_r,), generator=g, device=dev)].contiguous()
-            emit({"phase": "kernels", "kernel": "lloyd_step", "ragged": True,
-                  **check_lloyd_step(torch, kk, Xr, mr, Cr, 0)})
         for K_r in (1, 5, 130):
             emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
                   **check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)})
@@ -797,6 +828,59 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     del Xr
     torch.cuda.synchronize()
     return res
+
+
+# K2 at k = 1024 must take at most three quarters of the 194.61 ms of the
+# kernel it replaced (H100 80GB HBM3 at 700 W)
+LLOYD_MS_MAX = 146.0
+
+
+def phase_lloyd_kernels(torch, X, reps, seed):
+    """K2 at the two shapes the main path gives it, each timed with its
+    controls: k = 1024 (the Lloyd iterations) and k = 4,097
+    (count_closest over the k-means|| candidates: 1 + 2 steps x 2k draws at
+    oversampling 2); and at ragged shapes, n, d and k off every tile, d %
+    4 != 0 and a base 4 bytes off 16-byte alignment, at k in {1, 37, 130}."""
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+
+    n, dev = X.shape[0], X.device
+    m = torch.ones(n, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 4)
+    res = {}
+    idx = torch.randint(0, n, (4097,), generator=g, device=dev)
+    C1024 = X[idx[:1024]] + 0.1 * torch.randn(1024, E2E_D, generator=g, device=dev)
+    res["lloyd_step"] = check_lloyd_step(torch, kk, X, m, C1024.contiguous(), reps, control=True)
+    emit({"phase": "kernels", "kernel": "lloyd_step", **res["lloyd_step"]})
+    res["lloyd_step_4097"] = check_lloyd_step(torch, kk, X, m, X[idx].contiguous(), max(1, reps // 2),
+                                              control=True)
+    emit({"phase": "kernels", "kernel": "lloyd_step", **res["lloyd_step_4097"]})
+    del m
+    for n_r, d_r, offset in ((100_003, 300, 0), (50_001, 124, 0), (1_037, 3000, 0), (100_003, 257, 0),
+                             (50_001, 61, 0), (100_003, 256, 1)):
+        buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + 3.0
+        Xr = buf[offset:].view(n_r, d_r)
+        mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
+        for k_r in (1, 37, 130):
+            Cr = Xr[torch.randint(0, n_r, (k_r,), generator=g, device=dev)].contiguous()
+            emit({"phase": "kernels", "kernel": "lloyd_step", "ragged": True, "misaligned": bool(offset),
+                  **check_lloyd_step(torch, kk, Xr, mr, Cr, 0)})
+        del buf, Xr
+    torch.cuda.synchronize()
+    return res
+
+
+def lloyd_gates(res) -> dict:
+    """K2's gates: below its plain version and its library call at k =
+    1024 and k = 4,097, and at most LLOYD_MS_MAX at k = 1024. Returns each
+    gate's verdict; the caller fails the run on any False."""
+    out = {}
+    for key in ("lloyd_step", "lloyd_step_4097"):
+        r = res[key]
+        out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+        out[f"{key}_below_library"] = r["ms"] < r["library_ms"]
+    out["lloyd_step_at_most_ms_max"] = res["lloyd_step"]["ms"] <= LLOYD_MS_MAX
+    return out
 
 
 def make_umap_data(n: int, seed: int) -> np.ndarray:
@@ -2160,6 +2244,74 @@ def knn_probe(torch, args, dev) -> int:
     return 0
 
 
+def sweep_lloyd(torch, kk, X, seed, reps):
+    """K2 at k = 1024 and k = 4,097 with every row weight 1 and with every
+    row weight 0 (an m = 0 row adds nothing to the sums or counts, so the
+    second call times the product, the argmin and the row walk without the
+    atomics), and at the other stage depths. Each depth's counts are
+    compared with the routed launch's."""
+    dev = X.device
+    n = X.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 5)
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    out = []
+    for k in (E2E_CENTRES, 4097):
+        C = X[torch.randint(0, n, (k,), generator=g, device=dev)].contiguous()
+        base = kk.lloyd_geometry(n, k, E2E_D)
+        row = {"k": k, **base._asdict(), "ms": cuda_ms(torch, lambda: kk.lloyd_step(X, ones, C), reps),
+               "m0_ms": cuda_ms(torch, lambda: kk.lloyd_step(X, zeros, C), reps)}
+        row["atomics_share"] = 1.0 - row["m0_ms"] / row["ms"]
+        out.append(row)
+        emit({"probe": "lloyd_sweep", **row})
+        ref = kk.lloyd_step(X, ones, C)[1]
+        for stages in kk._STAGES:
+            if stages == base.stages:
+                continue
+            geo = kk._lloyd_geometry(n, k, E2E_D, sms=base.grid, stages=stages)
+            same = bool(torch.equal(kk._lloyd_run(X, ones, C, geo)[1], ref))
+            out.append({"k": k, **geo._asdict(), "counts_equal_routed": same,
+                        "ms": cuda_ms(torch, lambda: kk._lloyd_run(X, ones, C, geo), reps)})
+            emit({"probe": "lloyd_sweep", **out[-1]})
+    return out
+
+
+def lloyd_attributes(torch, kk) -> dict:
+    """K2's registers, spill bytes a thread, resident blocks an SM and
+    shared memory a block (the CUDA occupancy calculator) at each stage
+    depth, and its launch at the main path's two shapes."""
+    out = {f"stages_{s}": dict(zip(("registers", "local_bytes", "blocks_per_sm", "smem"), kk._lloyd_attributes(s)))
+           for s in kk._STAGES}
+    for k in (E2E_CENTRES, 4097):
+        out[f"geometry_k{k}"] = kk.lloyd_geometry(12_000_000, k, E2E_D)._asdict()
+    return out
+
+
+def kmeans_probe(torch, args, dev) -> int:
+    """``--kmeans-only``: K2's kernel phase alone (k = 1024 and 4,097 with
+    their controls, the ragged shapes) on ``--rows`` rows made from
+    ``--seed``, with the kernel's attributes, SASS instruction counts and
+    its gates' verdicts (reported, not enforced); ``--sweep`` adds the m =
+    0 split and the other stage depths."""
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+
+    X, _ = make_data(torch, args.rows, args.rows, args.seed, dev)
+    attrs = lloyd_attributes(torch, kk)
+    # the products' instructions (tensor-core TF32, or FP32 FMA), the tensor
+    # copies, the accumulation's atomics, and local (spill) stores and loads
+    sass = sass_counts("lloyd_step", ("HGMMA.64x128x8.F32.TF32", "FFMA", "UTMALDG", "RED", "ATOM", "STL", "LDL"))
+    emit({"probe": "lloyd_step", "attributes": attrs, "sass": sass})
+    res = phase_lloyd_kernels(torch, X, args.reps, args.seed)
+    out = {"probe": "lloyd_step", "package": kk.__file__, "attributes": attrs, "sass": sass,
+           "gates": lloyd_gates(res),
+           "ms_max": LLOYD_MS_MAX,
+           "shapes": {k: {m: v for m, v in r.items() if m != "controls"} for k, r in res.items()}}
+    if args.sweep:
+        out["sweep"] = sweep_lloyd(torch, kk, X, args.seed, args.reps)
+    emit(out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -2170,8 +2322,11 @@ def main() -> int:
                     help="a probe: build K7/K8 alone and run only their kernel phase (prints no result line)")
     ap.add_argument("--knn-only", action="store_true",
                     help="a probe: build K4 alone and run only its kernel phase (prints no result line)")
+    ap.add_argument("--kmeans-only", action="store_true",
+                    help="a probe: build K2 alone and run only its kernel phase (prints no result line)")
     ap.add_argument("--sweep", action="store_true",
-                    help="with --gather-only: time chunk sizes and grids too; with --knn-only: other geometries")
+                    help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
+                         "geometries; with --kmeans-only: the m = 0 split and stage depths")
     args = ap.parse_args()
 
     import torch
@@ -2191,7 +2346,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t = time.perf_counter()
     build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
-                           else _build.SOURCES)
+                           else ["lloyd_step"] if args.kmeans_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -2206,6 +2361,8 @@ def main() -> int:
         return gather_probe(torch, args, dev)
     if args.knn_only:
         return knn_probe(torch, args, dev)
+    if args.kmeans_only:
+        return kmeans_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -2215,6 +2372,12 @@ def main() -> int:
     n_pca = -(-n // csize) * csize
     X, y = make_data(torch, n, n_pca, args.seed, dev)
     kern = phase_kernels(torch, X, n, args.reps, args.seed)
+    kern.update(phase_lloyd_kernels(torch, X[:n], args.reps, args.seed))
+    gates = lloyd_gates(kern)
+    emit({"phase": "kernels", "kernel": "lloyd_step", "gates": gates, "ms_max": LLOYD_MS_MAX})
+    for name, ok in gates.items():
+        check(ok, f"K2 gate {name} failed: " + json.dumps(
+            {k: {m: kern[k][m] for m in ("ms", "plain_ms", "library_ms")} for k in ("lloyd_step", "lloyd_step_4097")}))
     X_umap = make_umap_data(UMAP_ROWS, args.seed)
     ni = min(KNN_ITEMS, n)
     kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, args.reps, args.seed))
@@ -2272,7 +2435,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            # K4: its FP32 bound beside bound_ms, the 3xTF32 tensor-core one
+            # K2, K4: the FP32 bound beside bound_ms, the 3xTF32 tensor-core one
             **{k: r[k] for k in ("bound_f32_ms",) if k in r},
             # K7/K8: device time and host cost apart, and the routed instance
             **{k: r[k] for k in ("device_ms", "library_device_ms", "host_us", "variant") if k in r and name in (
