@@ -40,12 +40,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    version at all four main shapes, one chunked addmm + topk at the kNN and
    UMAP-graph shapes, and take at most KNN_MS_MAX at the kNN shape; K10
    (one UMAP SGD epoch) on the rows of the 65,536 x 256 UMAP graph and at
-   the transform's shape (65,536 rows, K = 15); the
-   forest kernels at the builder's own level layouts: K5 (sub-block
-   histograms) at the deepest (level 12) and a shallow (level 2) call of
-   the bench forest (131,072 x 256, 8 trees a batch, k = 16, 128 bins),
-   the regressor's S = 3 call and ragged shapes, exact for integer stats,
-   repeatable bit for bit; K6 (fused selection) at the 131,072 x 3,000
+   the transform's shape (65,536 rows, K = 15); K3's general kernel
+   (launched by no main path) timed beside its autograd call at 200,000
+   rows of d = 3,000 (K = 1), d = 512 (K = 10) and d = 256 (K = 32); the
+   forest kernels at the builder's own level layouts: K5 per node (every
+   node's histogram of a level in one launch: rows read through the sort
+   permutation, spans of SPAN_ROWS rows summed in row order and a node's
+   spans folded in order, no atomics) at the deepest (level 12) and a
+   shallow (level 2) call of the bench forest (131,072 x 256, 8 trees a
+   batch, k = 16, 128 bins), the regressor's S = 3 level 12 and ragged
+   shapes (nb in {32, 128, 255}, odd r_sub, bins past nb, empty nodes,
+   nodes of several spans, per-tree and shared tables), exact for integer
+   stats, repeatable bit for bit, a span's dropped row caught; it must beat
+   its plain version and an index_select + scatter_add_ at the four main
+   shapes, and the per-sub-block form's 0.7129 ms at bench level 12; K5's
+   per-sub-block form (no caller in the builder) at the same shapes, as
+   before; K6 (fused selection) at the 131,072 x 3,000
    level-12 call and a ragged one with n_features == d_pad; K9 (packed
    traversal) on one transform batch of a depth-13, 50-tree forest, at
    3,000 features and at k2 in {1, 6}, equal to its plain version; K8
@@ -57,7 +67,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    also as device time alone (the calls queued behind a device wait) and
    host time a call, beside one ``torch.gather``, and each of its two
    instances (staged, direct) held and timed alone; K5 at the GBT's
-   deepest split level (S = 4 logistic stats, one tree, all 256 features).
+   deepest split level (S = 4 logistic stats, one tree, all 256 features
+   in one launch), within NODE_HIST_MS_MAX, and at its level 0, both equal
+   bit for bit to the plain version on the host; at level 0 (one node of
+   32 spans) that plain version with each node's spans folded in reverse
+   order must be refused by that comparison.
 3. end to end, each path with the launch counters zeroed just before it
    and read just after (every kernel of the path must have run): PCA(k=16),
    KMeans(k=1024, maxIter=10) and binomial LogisticRegression(maxIter=20)
@@ -110,6 +124,17 @@ its attributes, SASS counts (``HGMMA``, ``FFMA``, ``UTMALDG``, the atomics)
 and gates; ``--sweep`` times every row weight 0 beside every row weight 1
 (an m = 0 row skips the atomics: the product, the argmin and the row walk
 alone) and the other stage depths.
+
+    python3 chip_smoke.py --hist-only [--sweep]
+
+is a probe of K5: the GBT's level 7 and the bench forest's level 12 on the
+forest rows, each timed as the per-sub-block launch at the level's
+feature-chunk shape, one per-node reduction of its partials, one whole
+K5-route level of the builder, and K5 per node (held with its controls,
+its span kernel's registers, spills and resident blocks), then the ragged
+K5 cases; ``--sweep`` adds the GBT's levels 0 and 3, and K5 per node with
+its walk, row loads or write knocked out and at other span and stage
+sizes. It prints no result line.
 """
 
 from __future__ import annotations
@@ -826,8 +851,27 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
           **check_logreg(torch, lk, Xr, mr, mr, 13, 0, seed)})
     del Xr
+    # K3's general kernel, timed at shapes it still takes (no main path
+    # sends it any): the reference's CI width, and multinomial fits past
+    # the register-row kernel's d <= 256 and K <= 16
+    for d_r, K_r in K3_GENERAL_SHAPES:
+        Xr = torch.randn(K3_GENERAL_ROWS, d_r, generator=g, device=dev)
+        mr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.1).float()
+        yr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.5).float()
+        key = f"logreg_loss_grad_general_d{d_r}_K{K_r}"
+        res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed)
+        check(res[key]["variant"] == "general", f"{key} ran the {res[key]['variant']} kernel")
+        emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": key, **res[key]})
+        del Xr
     torch.cuda.synchronize()
     return res
+
+
+# K3's general kernel, timed (rows, then (d, K)): the reference's CI smoke
+# width (BASELINE.md, binomial), and 10 and 32 classes past the
+# multinomial register-row kernel's d <= 256, K <= 16
+K3_GENERAL_ROWS = 200_000
+K3_GENERAL_SHAPES = ((3000, 1), (512, 10), (256, 32))
 
 
 # K2 at k = 1024 must take at most three quarters of the 194.61 ms of the
@@ -1030,30 +1074,40 @@ def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=Fals
     glue (``compact_sizes``, ``_compact_layout``): each tree's rows
     (Poisson(1) bootstrap weights, or 1 without ``bootstrap``) spread over
     the level's 2^level nodes at random, each node's k features drawn at
-    random, sentinel slots up to the next power of two."""
+    random, sentinel slots up to the next power of two; with k ==
+    n_features (no subset, as the GBT) every tree reads the shared bins."""
     n, d_pad = bins.shape
     dev, S = bins.device, stats.shape[1]
     n_nodes, k_pad = 1 << level, pt.next_pow2(k)
-    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, depth, S, k_pad, RF_BINS)
+    subset = k < n_features
+    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, depth, S, k_pad if subset else d_pad, RF_BINS)
     seg = torch.randint(0, n_nodes, (T, n), generator=g, device=dev)
-    src2, pvalid, sbc, _ = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
+    src2, pvalid, sbc, counts, pstart = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
     w = torch.poisson(torch.ones((T, n), device=dev), generator=g) if bootstrap else torch.ones((T, n), device=dev)
-    sw = (stats[None] * w[..., None]).gather(1, src2[..., None].expand(T, n_pad, S))
+    sw_rows = stats[None] * w[..., None]
+    sw = sw_rows.gather(1, src2[..., None].expand(T, n_pad, S))
     sw = (sw * pvalid[..., None]).reshape(T * n_pad, S).contiguous()
-    feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
-    feats = torch.cat([feats, torch.full((T, n_nodes, k_pad - k), n_features, device=dev)], 2)
     out = {"T": T, "level": level, "n": n, "n_pad": n_pad, "r_sub": r_sub, "S": S, "nb": RF_BINS,
-           "k": k, "k_pad": k_pad, "sw": sw}
+           "k": k, "k_pad": k_pad, "sw": sw, "seg": seg, "sw_rows": sw_rows, "src2": src2, "counts": counts,
+           "pstart": pstart, "n_nodes": n_nodes}
+    if subset or sel:
+        feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
+        feats = torch.cat([feats, torch.full((T, n_nodes, k_pad - k), n_features, device=dev)], 2)
     if sel:
         out["bq"] = bins.index_select(0, src2.reshape(-1))
         out["featsq"] = feats.gather(1, sbc[..., None].expand(-1, -1, k_pad)).reshape(-1, k_pad).to(torch.int32)
         out["d_pad"] = d_pad
     else:
-        rows = feats.gather(1, seg.clamp(max=n_nodes - 1)[..., None].expand(-1, -1, k_pad))
-        src = bins.expand(T, n, d_pad).gather(2, rows.clamp(max=d_pad - 1))
-        binq = src.gather(1, src2[..., None].expand(T, n_pad, k_pad)).to(torch.int32)
-        out["binq"] = binq[..., :f_chunk].reshape(T * n_pad, f_chunk).contiguous()
+        if subset:
+            rows = feats.gather(1, seg.clamp(max=n_nodes - 1)[..., None].expand(-1, -1, k_pad))
+            hist_src = bins.expand(T, n, d_pad).gather(2, rows.clamp(max=d_pad - 1))
+            binq = hist_src.gather(1, src2[..., None].expand(T, n_pad, k_pad))
+        else:
+            hist_src = bins
+            binq = bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, d_pad)
+        out["binq"] = binq[..., :f_chunk].to(torch.int32).reshape(T * n_pad, f_chunk).contiguous()
         out["f_chunk"] = f_chunk
+        out["hist_src"] = hist_src
     return out
 
 
@@ -1142,6 +1196,213 @@ def check_subblock_hist(torch, rk, inp, reps, exact=True, control=False, sel=Fal
         nbytes = in_bins + 4.0 * (rows * S + n_sb * S * k * nb) + (4.0 * n_sb * k if sel else 0.0)
         res["bytes"] = nbytes
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, float(rows) * S * k)
+    del out
+    return res
+
+
+# K5 per node at the GBT's level 7, H100 80GB HBM3 at 700 W: a quarter of
+# the 8 x 0.1673 ms the per-sub-block launches took for the same level on
+# that card (PERF.md §6)
+NODE_HIST_MS_MAX = 0.335
+# the per-sub-block K5 at the bench forest's level 12 on that card
+SUBBLOCK_HIST_BENCH_MS = 0.7129
+
+
+# K5's four main-path shapes (keys of phase_rf_kernels' results): the bench
+# forest's levels 12 and 2, the regressor's level 12, the GBT's level 7
+NODE_HIST_SHAPES = ("node_hist_batched", "node_hist_level2", "node_hist_variance", "node_hist_gbt")
+
+
+def node_hist_gates(res) -> dict:
+    """K5's gates: faster than its plain version and its library calls at
+    the four main shapes, within NODE_HIST_MS_MAX at the GBT's level 7, and
+    faster than the per-sub-block form's SUBBLOCK_HIST_BENCH_MS at the
+    bench forest's level 12."""
+    out = {}
+    for k in NODE_HIST_SHAPES:
+        out[f"{k}_beats_plain"] = res[k]["ms"] < res[k]["plain_ms"]
+        out[f"{k}_beats_library"] = res[k]["ms"] < res[k]["library_ms"]
+    out["gbt_level7_within_max"] = res["node_hist_gbt"]["ms"] <= NODE_HIST_MS_MAX
+    out["bench_level12_beats_subblock_form"] = res["node_hist_batched"]["ms"] < SUBBLOCK_HIST_BENCH_MS
+    return out
+
+
+def node_hist_args(inp):
+    """K5's (bins, src2, swq, pstart) of a level's inputs."""
+    T, n_pad, S = inp["T"], inp["n_pad"], inp["S"]
+    return inp["hist_src"], inp["src2"], inp["sw"].reshape(T, n_pad, S), inp["pstart"]
+
+
+def _last_weighted_row_of_span(torch, rk, bins, src2, swq, pstart, nb, r_sub):
+    """(tree, row) of the last row in the first span of tree 0's middle
+    non-empty node that carries weight into some bin (a bin < nb): the row
+    a kernel that drops a span's last row would lose."""
+    a = rk.span_subblocks(r_sub)
+    ps = pstart[0].tolist()
+    n_nodes = len(ps) - 1
+    table = bins[0] if bins.dim() == 3 else bins
+    for j in list(range(n_nodes // 2, n_nodes)) + list(range(n_nodes // 2)):
+        lo, hi = ps[j], min(ps[j + 1], ps[j] + a * r_sub)
+        if hi <= lo:
+            continue
+        w = (swq[0, lo:hi].abs().sum(dim=1) > 0) & (table.index_select(0, src2[0, lo:hi]) < nb).any(dim=1)
+        if bool(w.any()):
+            return 0, lo + int(torch.nonzero(w)[-1, 0])
+    fail("no weighted row in any span")
+
+
+def ragged_node_hist_inputs(torch, pt, g, T, n, n_nodes, F, S, nb, r_sub, per_tree, integer, empty):
+    """K5 per-node inputs off the main path: ``empty`` of the nodes hold no
+    rows, a tenth of the rows are in none, uint8 bins over all 256 values
+    (those >= nb add nothing), Poisson(1) or Gaussian weights."""
+    dev = g.device
+    p = torch.rand(n_nodes, generator=g, device=dev) + 0.05
+    p[torch.randperm(n_nodes, generator=g, device=dev)[:int(empty * n_nodes)]] = 0.0
+    p = torch.cat([0.9 * p / p.sum(), torch.full((1,), 0.1, device=dev)])
+    seg = torch.multinomial(p, T * n, replacement=True, generator=g).reshape(T, n)
+    n_pad = -(-(n + (n_nodes + 1) * r_sub) // r_sub) * r_sub
+    src2, pvalid, _, _, pstart = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
+    bins = torch.randint(0, 256, (T, n, F) if per_tree else (n, F), generator=g, device=dev, dtype=torch.uint8)
+    sw = (torch.poisson(torch.ones((T, n, S), device=dev), generator=g) if integer
+          else torch.randn((T, n, S), generator=g, device=dev))
+    swq = sw.gather(1, src2[..., None].expand(T, n_pad, S)) * pvalid[..., None]
+    return {"T": T, "n": n, "n_pad": n_pad, "r_sub": r_sub, "S": S, "nb": nb, "k_pad": F, "n_nodes": n_nodes,
+            "hist_src": bins, "src2": src2, "sw": swq.reshape(T * n_pad, S).contiguous(), "pstart": pstart}
+
+
+def ragged_node_hist_checks(torch, rk, pt, g):
+    """K5 per node off the main path, each case with its control: nb in
+    {32, 128, 255}, odd r_sub, bins past nb, empty nodes, nodes longer than
+    one span, per-tree and shared tables, slot counts off the 16-byte rows
+    (F = 11, 40) and on them (F = 32, 48)."""
+    for T, n, nodes, F, S, nb, r_sub, per_tree, integer in (
+            (3, 30_000, 5, 11, 5, 32, 24, True, True), (1, 40_000, 6, 40, 3, 255, 7, False, False),
+            (2, 50_000, 4, 48, 2, 255, 9, False, True), (2, 40_000, 8, 32, 4, 128, 5, True, False)):
+        inp = ragged_node_hist_inputs(torch, pt, g, T, n, nodes, F, S, nb, r_sub, per_tree, integer, 0.3)
+        r = check_node_hist(torch, rk, inp, 0, exact=integer, control=True)
+        check(r["multi_span_nodes"] > 0 and bool((inp["pstart"][:, 1:] == inp["pstart"][:, :-1]).any()),
+              "a ragged K5 case lacks a node longer than one span or an empty node")
+        emit({"phase": "kernels", "kernel": "node_hist_batched", "ragged": True, **r})
+
+
+def check_node_hist(torch, rk, inp, reps, exact=True, control=False, cpu_bitwise=False, fold_control=False):
+    """K5 per node against its plain version in f64 on the same inputs:
+    equal for integer stats, else within ``held`` of the f64 sums (T = the
+    plain version over |swq|, n = the rows of the longest node). Two
+    launches must give the same bits. ``control``: the last weighted row of
+    one span dropped, which the check must catch. ``cpu_bitwise``: the f32
+    output equal bit for bit to the plain version on the host (the same
+    inputs copied there); ``fold_control``: that plain version with each
+    node's spans folded in reverse order, which the bitwise comparison must
+    refuse (the f64 band alone does not)."""
+    bins, src2, swq, pstart = node_hist_args(inp)
+    T, n_pad, S, nb, r_sub = inp["T"], inp["n_pad"], inp["S"], inp["nb"], inp["r_sub"]
+    F, n_nodes = bins.shape[-1], pstart.shape[1] - 1
+    kw = dict(n_bins=nb, r_sub=r_sub)
+    kern = rk.node_hist_batched
+    out = kern(bins, src2, swq, pstart, **kw)
+    again = kern(bins, src2, swq, pstart, **kw)
+    torch.cuda.synchronize()
+    repeatable = bool(torch.equal(out, again))
+    del again
+    geo = rk.node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, nb, F % 16 == 0 and bins.data_ptr() % 16 == 0)
+    a = geo.a
+    sbs = (pstart // r_sub).cpu()
+    spans = ((sbs[:, 1:] - sbs[:, :-1] + a - 1) // a).clamp_min(1)
+    multi = spans > 1
+    longest = int((pstart[:, 1:] - pstart[:, :-1]).max())
+    res = {key: inp[key] for key in ("T", "level", "n", "n_pad", "r_sub", "S", "nb", "k", "k_pad") if key in inp}
+    res.update({"F": F, "n_nodes": n_nodes, "repeatable": repeatable, "span_rows": rk.SPAN_ROWS, "a": a,
+                "spans": int(spans.sum()), "multi_span_nodes": int(multi.sum()),
+                "partial_spans": int(spans[multi].sum()), "longest_node_rows": longest,
+                "geometry": geo._asdict(), "tiles": -(-(S * geo.fc) // geo.P)})
+    def tree(t, x=None):
+        # tree t's inputs (its weights replaced by x): the f64 references go
+        # a tree at a time, so that the largest level's fit the card
+        return ((bins[t:t + 1] if bins.dim() == 3 else bins), src2[t:t + 1],
+                swq[t:t + 1].double() if x is None else x, pstart[t:t + 1])
+
+    def verdict(o, t, x=None):
+        # (max abs err, err/tol, holds) of o against tree t's f64 reference
+        ref = rk.node_hist_plain(*tree(t, x), **kw)
+        if exact:
+            # integer sums below 2^24: the f64 reference is exact in f32 too
+            return float((o.double() - ref).abs().max()), 0.0, bool(torch.equal(o, ref.float()))
+        T_abs = rk.node_hist_plain(*tree(t, swq[t:t + 1].double().abs()), **kw)
+        e, ratio = held(torch, o, ref, T_abs, longest)
+        return e, ratio, ratio <= 1.0
+
+    err, ratio, ok = 0.0, 0.0, True
+    for t in range(T):
+        e, r_, o_ = verdict(out[t:t + 1], t)
+        err, ratio, ok = max(err, e), max(ratio, r_), ok and o_
+    check(ok and repeatable, f"node_hist_batched T={T} n_pad={n_pad} F={F} S={S} nb={nb} r_sub={r_sub}: "
+          f"max err {err}, err/tol {ratio:.3g}, repeatable {repeatable}")
+    res.update({"max_abs_err": err, "err_over_tol": ratio, "exact": exact})
+    controls = []
+    if control:
+        t, r = _last_weighted_row_of_span(torch, rk, bins, src2, swq, pstart, nb, r_sub)
+        bad_sw = swq[t:t + 1].double().clone()
+        bad_sw[0, r] = 0.0
+        bad = rk.node_hist_plain(*tree(t, bad_sw), **kw)
+        caught = not verdict(bad, t)[2]
+        check(caught, "the node_hist_batched check does not catch a span's dropped row")
+        controls.append({"control": f"tree {t} row {r} (last weighted row of its span) dropped", "caught": caught})
+        del bad, bad_sw
+    if cpu_bitwise:
+        host = [x.cpu() for x in (bins, src2, swq, pstart)]
+        sums, span_node = rk.span_sums_plain(*host, **kw)
+        cpu = rk.fold_spans(sums, span_node, T * n_nodes).reshape(out.shape)
+        res["equal_cpu_plain"] = bool(torch.equal(out.cpu(), cpu))
+        check(res["equal_cpu_plain"], "node_hist_batched differs from the CPU plain version bit for bit")
+        if fold_control:
+            rev = rk.fold_spans(sums.flip(0), span_node.flip(0), T * n_nodes).reshape(out.shape)
+            caught = not bool(torch.equal(out.cpu(), rev))
+            band = max(verdict(rev[t:t + 1].to(out.device), t)[1] for t in range(T))
+            check(caught, "the bitwise comparison does not catch a node's spans folded in reverse order")
+            controls.append({"control": "each node's spans folded in reverse order (CPU plain version)",
+                             "caught": caught, "entries_differ": int((out.cpu() != rev).sum()),
+                             "band_err_over_tol": band, "caught_by_band": band > 1.0})
+            del rev
+        del sums, span_node, cpu, host
+    if controls:
+        res["controls"] = controls
+    if reps:
+        res["ms"] = cuda_ms(torch, lambda: kern(bins, src2, swq, pstart, **kw), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: rk.node_hist_plain(bins, src2, swq, pstart, **kw), reps)
+        # one index_select of the rows and one scatter_add_ onto the (node,
+        # s, slot, bin) index of their bins: two calls
+        dev = src2.device
+        if bins.dim() == 2:
+            table, rows_idx = bins, src2.reshape(-1)
+        else:
+            table = bins.reshape(-1, F)
+            rows_idx = (src2 + torch.arange(T, device=dev)[:, None] * bins.shape[1]).reshape(-1)
+        b = table.index_select(0, rows_idx).long().reshape(T, n_pad, F)
+        sb = torch.arange(n_pad // r_sub, device=dev).expand(T, -1).contiguous()
+        node = torch.searchsorted((pstart[:, 1:] // r_sub).contiguous(), sb, right=True)
+        node = torch.where(node < n_nodes, node + torch.arange(T, device=dev)[:, None] * n_nodes, T * n_nodes)
+        node = node.repeat_interleave(r_sub, dim=1)
+        idx = (((node[..., None] * S + torch.arange(S, device=dev))[..., None] * F + torch.arange(F, device=dev)) * nb
+               + b.clamp(max=nb - 1)[:, :, None, :]).reshape(-1)
+        vals = torch.where((b < nb)[:, :, None, :], swq[..., None], torch.zeros((), device=dev)).reshape(-1)
+        size = (T * n_nodes + 1) * S * F * nb
+        del b, sb, node
+
+        def library():
+            return table.index_select(0, rows_idx), torch.zeros(size, device=dev).scatter_add_(0, idx, vals)
+
+        res["library_ms"] = cuda_ms(torch, library, reps)
+        res["library_calls"] = "index_select + scatter_add_ (two calls)"
+        del idx, vals
+        # the rows read through src2 (32-byte sectors), src2 and swq, the node
+        # histograms written, and the span partials written and read
+        rows_read = int(pstart[:, -1].sum())
+        hist_bytes = 4.0 * S * F * nb
+        nbytes = (rows_read * (32 * -(-F // 32) + 8 + 4 * S) + hist_bytes * T * n_nodes
+                  + 2 * hist_bytes * res["partial_spans"])
+        res["bytes"] = nbytes
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, float(rows_read) * S * F)
     del out
     return res
 
@@ -1435,6 +1696,14 @@ def wide_bins(torch, pt, n, g, seed):
     return pt.binize(Xw, ew, d_pad=pt.next_pow2(RF_WIDE_D))
 
 
+def gbt_level_stats(torch, y, g):
+    """The GBT classifier's (n, 4) logistic stats (w, r, r², h) at random
+    margins."""
+    p = torch.sigmoid(torch.randn(y.shape[0], generator=g, device=y.device))
+    r = y - p
+    return torch.stack([torch.ones_like(r), r, r * r, (p * (1 - p)).clamp_min(1e-12)], 1)
+
+
 def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     """K5, K6 and K9 at the shapes the forest paths give them, K5 at the
     GBT's deepest split level, and K8/K7 (``phase_byte_gather_kernels``)."""
@@ -1449,23 +1718,35 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     bins = rf_bins(torch, pt, X_rf, seed)
     cls = torch.nn.functional.one_hot(y_rf.long(), 2).float()
     res = {}
-    # K5: the bench forest's deepest split level (12) and a shallow one
+    # K5 at the bench forest's deepest split level (12) and a shallow one:
+    # per node (the builder's), and per sub-block (no caller; the first
+    # feature chunk, as it ran before)
     inp = rf_level_inputs(torch, pt, bins, cls, 12, 8, 16, E2E_D, g)
+    res["node_hist_batched"] = check_node_hist(torch, rk, inp, reps, control=True)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "bench_level12", **res["node_hist_batched"]})
     res["subblock_hist"] = check_subblock_hist(torch, rk, inp, reps, control=True)
     emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist"]})
     inp = rf_level_inputs(torch, pt, bins, cls, 2, 8, 16, E2E_D, g)
+    res["node_hist_level2"] = check_node_hist(torch, rk, inp, reps)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "bench_level2", **res["node_hist_level2"]})
     res["subblock_hist_level2"] = check_subblock_hist(torch, rk, inp, reps)
     emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_level2"]})
-    # the regressor's level 12: S = 3 real-valued moments, k = 86 -> 128 in
-    # feature chunks
+    # the regressor's level 12: S = 3 real-valued moments, k = 86 -> 128
+    # slots (per sub-block: the first chunk of 64)
     yr = X_rf[:, :8].sum(dim=1) + 0.5 * torch.randn(n, generator=g, device=dev)
     reg = torch.stack([torch.ones_like(yr), yr, yr * yr], 1)
     inp = rf_level_inputs(torch, pt, bins, reg, 12, 8, 86, E2E_D, g)
+    res["node_hist_variance"] = check_node_hist(torch, rk, inp, reps, exact=False, control=True)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "regressor_level12",
+          **res["node_hist_variance"]})
+    torch.cuda.empty_cache()
     res["subblock_hist_variance"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
     emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_variance"]})
     del inp
-    # ragged: k = 11 with out-of-range bins, nb in {32, 255}, S = 5, odd
-    # sub-block counts and sizes
+    torch.cuda.empty_cache()
+    ragged_node_hist_checks(torch, rk, pt, g)
+    # ragged per sub-block: k = 11 with out-of-range bins, nb in {32, 255},
+    # S = 5, odd sub-block counts and sizes
     for nb_r, r_sub, n_sb in ((32, 24, 1001), (255, 7, 3333)):
         rows = r_sub * n_sb
         binq = torch.randint(-2, nb_r + 3, (rows, 11), generator=g, device=dev, dtype=torch.int32)
@@ -1503,15 +1784,20 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     del wide
     torch.cuda.empty_cache()
     # K5 at the GBT's deepest split level (7 of depth 8): one tree, all 256
-    # features, S = 4 logistic stats (w, r, r^2, h) at random margins
-    m = torch.randn(n, generator=g, device=dev)
-    p = torch.sigmoid(m)
-    r = y_rf - p
-    logit = torch.stack([torch.ones_like(r), r, r * r, (p * (1 - p)).clamp_min(1e-12)], 1)
+    # features in one launch, S = 4 logistic stats; equal to the CPU plain
+    # version bit for bit there and at level 0 (one node of many spans,
+    # where folding its spans in reverse order must be refused)
+    logit = gbt_level_stats(torch, y_rf, g)
     inp = rf_level_inputs(torch, pt, bins, logit, GBT_DEPTH - 1, 1, E2E_D, E2E_D, g, depth=GBT_DEPTH,
                           bootstrap=False)
+    res["node_hist_gbt"] = check_node_hist(torch, rk, inp, reps, exact=False, control=True, cpu_bitwise=True)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "gbt_level7", **res["node_hist_gbt"]})
     res["subblock_hist_gbt"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
     emit({"phase": "kernels", "kernel": "subblock_hist", "shape": "gbt_level7", **res["subblock_hist_gbt"]})
+    inp = rf_level_inputs(torch, pt, bins, logit, 0, 1, E2E_D, E2E_D, g, depth=GBT_DEPTH, bootstrap=False)
+    res["node_hist_gbt_level0"] = check_node_hist(torch, rk, inp, reps, exact=False, cpu_bitwise=True,
+                                                  fold_control=True)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "gbt_level0", **res["node_hist_gbt_level0"]})
     del inp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1816,8 +2102,8 @@ def phase_umap_subset(torch, X_umap, seed, rows):
         check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
 
 
-RF_WRAPPERS = ("subblock_hist", "subblock_hist_sel", "packed_traverse", "packed_byte_gather_many",
-               "packed_byte_gather")
+RF_WRAPPERS = ("node_hist_batched", "subblock_hist", "subblock_hist_sel", "packed_traverse",
+               "packed_byte_gather_many", "packed_byte_gather")
 
 
 def _rf_counts(rk, zero=False):
@@ -1895,7 +2181,7 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
           "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc,
           "nodes": model.totalNumNodes, "engine": model._resolve_transform_engine(),
           "fit_report": model._fit_report, "fit_launches": fit_counts, "launches": counts})
-    record("rf_classifier", counts, ("subblock_hist", "packed_traverse", "packed_byte_gather_many"))
+    record("rf_classifier", counts, ("node_hist_batched", "packed_traverse", "packed_byte_gather_many"))
 
     # 2. the regressor: a real-valued label from --seed
     yr = regression_label(X, seed)
@@ -1910,7 +2196,7 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     emit({"phase": "e2e", "estimator": "RandomForestRegressor", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
           "maxBins": RF_BINS, "rows": n, "fit_s": t_fit, "transform_s": t_tr, "train_r2": r2,
           "nodes": rmodel.totalNumNodes, "fit_report": rmodel._fit_report, "launches": counts})
-    record("rf_regressor", counts, ("subblock_hist", "packed_traverse"))
+    record("rf_regressor", counts, ("node_hist_batched", "packed_traverse"))
     del rmodel, out
 
     # 3. the reference's 3,000-feature width: K6 selects each node's 55
@@ -1959,7 +2245,7 @@ def phase_gbt_e2e(torch, X_host, y_host, seed):
     n = X.shape[0]
     feats = DataFrame({"features": X})
     by_path = {name: {} for name in RF_WRAPPERS}
-    needed = ("subblock_hist", "packed_traverse", "packed_byte_gather_many")
+    needed = ("node_hist_batched", "packed_traverse", "packed_byte_gather_many")
     kw = dict(maxIter=GBT_ROUNDS, maxDepth=GBT_DEPTH, maxBins=RF_BINS, seed=seed)
 
     def run(path, est, label, extra):
@@ -2041,7 +2327,7 @@ def phase_gbt_subset(torch, X_host, y_host, seed, rows):
           "prediction_agreement": agree, "agreement_min": GBT_AGREE_MIN, "fit_s_card": secs["cuda:0"],
           "fit_s_cpu": secs["cpu"], "fit_report_card": fits["cuda:0"]._fit_report, "launches": counts})
     check(agree >= GBT_AGREE_MIN, f"GBT card vs CPU predictions agree on {agree} < {GBT_AGREE_MIN}")
-    for name in ("subblock_hist", "packed_traverse"):
+    for name in ("node_hist_batched", "packed_traverse"):
         check(counts[name] > 0, f"kernel {name} was not launched on the GBT card-vs-CPU path")
     return counts
 
@@ -2107,7 +2393,7 @@ def phase_rf_subset(torch, X_host, y_host, seed, rows):
           "agreement_min": RF_AGREE_MIN, "fit_s_card": secs["cuda:0"], "fit_s_cpu": secs["cpu"],
           "launches": counts})
     check(agree >= RF_AGREE_MIN, f"forest card vs CPU predictions agree on {agree} < {RF_AGREE_MIN}")
-    for name in ("subblock_hist", "packed_traverse"):
+    for name in ("node_hist_batched", "packed_traverse"):
         check(counts[name] > 0, f"kernel {name} was not launched on the card-vs-CPU path")
     return counts
 
@@ -2312,6 +2598,106 @@ def kmeans_probe(torch, args, dev) -> int:
     return 0
 
 
+def hist_levels(sweep):
+    """(name, level, trees, k, depth, stats) of the levels ``--hist-only``
+    times: the GBT's level 7 (one tree, all 256 features, S = 4) and the
+    bench forest's level 12 (8 trees, k = 16, S = 2); ``sweep`` adds the
+    GBT's levels 0 and 3."""
+    out = [("gbt_level7", GBT_DEPTH - 1, 1, E2E_D, GBT_DEPTH, "logit"),
+           ("bench_level12", 12, 8, 16, RF_DEPTH, "cls")]
+    if sweep:
+        out += [("gbt_level0", 0, 1, E2E_D, GBT_DEPTH, "logit"), ("gbt_level3", 3, 1, E2E_D, GBT_DEPTH, "logit")]
+    return out
+
+
+def sweep_node_hist(torch, rk, inps, reps):
+    """K5 per node at each probed level with parts of its span kernel
+    knocked out (the walk, the row loads, the write: outputs that are not
+    K5's, timed only), and at other span and stage sizes (SPAN_ROWS, which
+    orders the sums otherwise than the builder; the bytes a stage of rows
+    holds at 128 pairs a block)."""
+    from spark_rapids_ml_tpu_torch.ops import _build
+
+    fn = _build.function("rf_hist", "node_hist_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    base = (rk.SPAN_ROWS, rk._NH_STAGE_BYTES)
+    runs = [(base, skip) for skip in (0, 1, 2, 3, 4, 7)]
+    runs += [((span, stage), 0) for span in (2048, 4096, 8192) for stage in (2048, 4096, 8192) if (span, stage) != base]
+    out = []
+    try:
+        for (span, stage), skip in runs:
+            rk.SPAN_ROWS, rk._NH_STAGE_BYTES = span, stage
+            row = {"skip": skip, "span_rows": span, "stage_bytes": stage}
+            for name, inp in inps.items():
+                a = node_hist_args(inp)
+                row[name] = cuda_ms(torch, lambda: rk._node_hist_run(*a, inp["nb"], inp["r_sub"], fn, stream, skip),
+                                    reps)
+            out.append(row)
+            emit({"probe": "node_hist_sweep", **row})
+    finally:
+        rk.SPAN_ROWS, rk._NH_STAGE_BYTES = base
+    return out
+
+
+def hist_probe(torch, args, dev) -> int:
+    """``--hist-only``: K5's levels alone on the forest rows made from
+    ``--seed``, each timed by CUDA events: (a) one launch of the
+    per-sub-block form at the level's feature-chunk shape, (b) one per-node
+    reduction of its partials, which together were the builder's K5 route
+    (chunks × (a + b) a level), (c) one whole K5-route level of
+    ``_hist_compact_batched`` (layout, gathers, the kernel), (d) one launch
+    of K5 per node, with its span kernel's registers, spills and resident
+    blocks at the level's geometry; ``--sweep`` adds ``sweep_node_hist``."""
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
+
+    X, y = make_data(torch, RF_ROWS, RF_ROWS, args.seed, dev)
+    bins = rf_bins(torch, pt, X, args.seed)
+    del X
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 7)
+    stats = {"logit": gbt_level_stats(torch, y, g), "cls": torch.nn.functional.one_hot(y.long(), 2).float()}
+    reps = max(args.reps, 10)
+    out = {"probe": "node_hist", "package": rk.__file__, "levels": {}}
+    kept = {}
+    for name, level, T, k, depth, kind in hist_levels(args.sweep):
+        inp = rf_level_inputs(torch, pt, bins, stats[kind], level, T, k, E2E_D, g, depth=depth,
+                              bootstrap=kind == "cls")
+        S, nb, r_sub, n_pad, n_nodes = inp["S"], inp["nb"], inp["r_sub"], inp["n_pad"], inp["n_nodes"]
+        F = inp["hist_src"].shape[-1]
+        chunks = F // inp["f_chunk"]
+        row = {"level": level, "T": T, "F": F, "S": S, "n_pad": n_pad, "r_sub": r_sub, "f_chunk": inp["f_chunk"],
+               "chunks": chunks}
+        row["k5_ms"] = cuda_ms(torch, lambda: rk.subblock_hist(inp["binq"], inp["sw"], n_bins=nb, r_sub=r_sub), reps)
+        partials = rk.subblock_hist(inp["binq"], inp["sw"], n_bins=nb, r_sub=r_sub)
+        sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1), device=dev), inp["counts"].reshape(-1))
+        p2d = partials.reshape(partials.shape[0], -1)
+        row["reduce_ms"] = cuda_ms(
+            torch, lambda: pt._segment_sum(p2d, sb_node, T * (n_nodes + 1), grouped=True), reps)
+        del partials, p2d
+        row["route_ms"] = cuda_ms(torch, lambda: pt._hist_compact_batched(
+            inp["hist_src"], inp["seg"], inp["sw_rows"], n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad), reps)
+        row["k5_and_reduce_level_ms"] = chunks * (row["k5_ms"] + row["reduce_ms"])
+        geo = rk.node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, nb, F % 16 == 0)
+        row["attributes"] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                                     rk.node_hist_attributes(F % 16 == 0, geo.P, geo.smem)))
+        gbt = kind == "logit"
+        row["node_hist"] = check_node_hist(torch, rk, inp, reps, exact=not gbt, control=True, cpu_bitwise=gbt,
+                                           fold_control=gbt and level == 0)
+        emit({"probe": "node_hist", "shape": name, **row})
+        out["levels"][name] = row
+        if args.sweep and name != "gbt_level3":
+            kept[name] = inp
+        del inp
+        torch.cuda.empty_cache()
+    if args.sweep:
+        out["sweep"] = sweep_node_hist(torch, rk, kept, reps)
+    del kept
+    ragged_node_hist_checks(torch, rk, pt, g)
+    emit(out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -2324,9 +2710,12 @@ def main() -> int:
                     help="a probe: build K4 alone and run only its kernel phase (prints no result line)")
     ap.add_argument("--kmeans-only", action="store_true",
                     help="a probe: build K2 alone and run only its kernel phase (prints no result line)")
+    ap.add_argument("--hist-only", action="store_true",
+                    help="a probe: build K5 alone and time its levels (prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
-                         "geometries; with --kmeans-only: the m = 0 split and stage depths")
+                         "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
+                         "--hist-only: the GBT's levels 0 and 3")
     args = ap.parse_args()
 
     import torch
@@ -2346,7 +2735,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t = time.perf_counter()
     build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
-                           else ["lloyd_step"] if args.kmeans_only else _build.SOURCES)
+                           else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
+                           else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -2363,6 +2753,8 @@ def main() -> int:
         return knn_probe(torch, args, dev)
     if args.kmeans_only:
         return kmeans_probe(torch, args, dev)
+    if args.hist_only:
+        return hist_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -2382,6 +2774,11 @@ def main() -> int:
     ni = min(KNN_ITEMS, n)
     kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, args.reps, args.seed))
     kern.update(phase_rf_kernels(torch, X[:min(RF_ROWS, n)], y[:min(RF_ROWS, n)], args.reps, args.seed))
+    gates = node_hist_gates(kern)
+    emit({"phase": "kernels", "kernel": "node_hist_batched", "gates": gates, "ms_max": NODE_HIST_MS_MAX})
+    for name, ok in gates.items():
+        check(ok, f"K5 gate {name} failed: " + json.dumps(
+            {k: {m: kern[k][m] for m in ("ms", "plain_ms", "library_ms")} for k in NODE_HIST_SHAPES}))
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
@@ -2416,6 +2813,9 @@ def main() -> int:
                              "logreg_loss_grad"),
         "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk", "knn_topk"),
         "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows", "umap_sgd_epoch"),
+        "node_hist_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "node_hist_batched", "rf_hist"),
+        # K5's per-sub-block form: no caller in the builder, its held
+        # measurement, no launches
         "subblock_hist": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "subblock_hist", "rf_hist"),
         "subblock_hist_sel": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "subblock_hist_sel", "rf_hist"),
         "packed_traverse": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_traverse", "rf_traverse"),
@@ -2440,16 +2840,32 @@ def main() -> int:
             # K7/K8: device time and host cost apart, and the routed instance
             **{k: r[k] for k in ("device_ms", "library_device_ms", "host_us", "variant") if k in r and name in (
                 "packed_byte_gather_many", "packed_byte_gather")},
-            "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level",
+            "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level", "F",
+                                        "n_nodes",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
                                         "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks")
                       if k in r},
         }
         kernels.append(entry)
+    # K3's general kernel at the shapes it still takes: measured beside its
+    # autograd call, launched by no main path
+    for d_r, K_r in K3_GENERAL_SHAPES:
+        key = f"logreg_loss_grad_general_d{d_r}_K{K_r}"
+        r = kern[key]
+        kernels.append({
+            "name": key, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/logreg_loss_grad.cu",
+            "replaces": sources["logreg_loss_grad"][0], "launches": 0, "launches_by_path": {},
+            "variant": r["variant"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": {k: r[k] for k in ("n", "d", "K")}})
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
              "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"],
+             "node_hist_bench_level2": kern["node_hist_level2"],
+             "node_hist_regressor_level12": kern["node_hist_variance"],
+             "node_hist_gbt_level7": kern["node_hist_gbt"], "node_hist_gbt_level0": kern["node_hist_gbt_level0"],
+             "node_hist_gates": node_hist_gates(kern),
              "subblock_hist_level2": kern["subblock_hist_level2"],
              "subblock_hist_variance": kern["subblock_hist_variance"],
              "subblock_hist_gbt_level7": kern["subblock_hist_gbt"],

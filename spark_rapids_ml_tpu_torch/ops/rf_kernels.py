@@ -1,8 +1,10 @@
 """RandomForest kernels of the port (counterpart of
-``spark_rapids_ml_tpu/ops/rf_pallas.py``): the per-sub-block histogram
-(K5), its fused-selection variant (K6), the packed-byte gather (K8, and
-K7, its single-index-set form) and the packed-forest hop-2 traversal (K9),
-each a CUDA kernel (``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``,
+``spark_rapids_ml_tpu/ops/rf_pallas.py``): the per-node histogram of a
+compact level (K5, with the per-node fold its caller applies), the
+per-sub-block histogram (K5's TPU form; no caller in the builder) and its
+fused-selection variant (K6), the packed-byte gather (K8, and K7, its
+single-index-set form) and the packed-forest hop-2 traversal (K9), each a
+CUDA kernel (``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``,
 ``csrc/rf_traverse.cu``) beside its plain PyTorch version.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
@@ -52,6 +54,10 @@ def _check_cuda(name: str, *specs) -> None:
             raise NotImplementedError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
 def _check_hist_shapes(name: str, rows: int, sw: torch.Tensor, n_bins: int, r_sub: int) -> None:
@@ -112,6 +118,231 @@ def subblock_hist(binq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: i
 
 
 subblock_hist.launches = 0
+
+
+# K5 per node: rows a span sums in order (its summation order's one
+# constant: a node's padded run is cut into spans of max(1, SPAN_ROWS //
+# r_sub) sub-blocks from its start, and the node is the in-order fold of its
+# spans' sums)
+SPAN_ROWS = 4096
+# its geometry (csrc/rf_hist.cu): a block's shared histograms aim at this
+# many bytes; threads a block at most; bytes a stage of rows (one chunk;
+# there are two) aims at in a block of 128 pairs, in proportion to the
+# block's pairs, at least _NH_STAGE_BYTES_MIN (a stage size sweep on an
+# H100, `chip_smoke.py --hist-only --sweep`, PERF.md §6); rows a stage at
+# most; the largest dynamic shared memory a block may take on an H100; the
+# span partials a launch may hold (the 256 MB the per-sub-block partials
+# were bounded to)
+_NH_HIST_BYTES = 64 << 10
+_NH_MAX_THREADS = 256
+_NH_STAGE_BYTES = 4 << 10
+_NH_STAGE_BYTES_MIN = 2 << 10
+_NH_STAGE_ROWS = 256
+_SMEM_MAX = 232_448
+_NH_SCRATCH_MAX = 256 << 20
+_NH_TRANSPOSE_BYTES = 80  # a pair's row of the write-out transpose: 20 floats
+
+
+def span_subblocks(r_sub: int) -> int:
+    """Sub-blocks a span of K5's per-node sum covers."""
+    return max(1, SPAN_ROWS // r_sub)
+
+
+class NodeHistGeometry(NamedTuple):
+    a: int            # sub-blocks a span
+    spans: int        # bound on a tree's spans: the span kernel's grid x
+    multi: int        # bound on a tree's nodes of more than one span: the fold's grid x
+    part_slots: int   # bound on a tree's spans in such nodes: partial slots
+    fc: int           # slots a launch (the row width F unless the partials need chunks)
+    P: int            # threads a block: one (slot, stat) pair each
+    rows: int         # rows staged at a time
+    pitch: int        # bytes of a staged row's bins
+    ns: int           # weights a staged row holds at most (S)
+    smem: int         # dynamic shared memory a block, bytes
+    scratch_bytes: int  # span partials and span tables a launch
+
+
+def node_hist_geometry(T: int, n_pad: int, r_sub: int, n_nodes: int, F: int, S: int, nb: int,
+                       vec: bool = True) -> NodeHistGeometry:
+    """K5's launch sizes for T trees of ``n_pad`` padded rows in sub-blocks
+    of ``r_sub``, ``n_nodes`` nodes, F slots a row, S stats, ``nb`` bins;
+    ``vec``: rows read as aligned 16-byte words.
+
+    A tree has at most n_nodes + ceil(n_sb / a) spans (every node one
+    span more than its sub-blocks over a, an empty node one span of no
+    rows); a node of more than one span has at least a + 1 sub-blocks, so
+    at most min(n_nodes, n_sb // (a + 1)) of them hold at most (n_sb +
+    multi·(a - 1)) // a spans. The slots go in chunks of ``fc`` only where
+    the partials of those spans would pass ``_NH_SCRATCH_MAX``. Raises when
+    a block's shared memory passes ``_SMEM_MAX``."""
+    if min(T, n_pad, r_sub, n_nodes, F, S, nb) < 1 or n_pad % r_sub or nb > 256:
+        raise ValueError(f"node_hist: no geometry for T={T}, n_pad={n_pad}, r_sub={r_sub}, "
+                         f"n_nodes={n_nodes}, F={F}, S={S}, nb={nb}")
+    a = span_subblocks(r_sub)
+    n_sb = n_pad // r_sub
+    spans = n_nodes + -(-n_sb // a)
+    multi = min(n_nodes, n_sb // (a + 1))
+    part_slots = (n_sb + multi * (a - 1)) // a if multi else 0
+    fc = F
+    while fc > 1 and 4 * T * part_slots * S * fc * nb > _NH_SCRATCH_MAX:
+        fc = -(-fc // 2)
+    P = min(_NH_MAX_THREADS, max(32, _NH_HIST_BYTES // (4 * nb) // 32 * 32), -(-(S * fc) // 32) * 32)
+    nf = min(fc, (P - 1) // S + 2)        # slots a tile of P pairs touches
+    pitch = min(_round16(F), _round16(nf + 15)) if vec else _round16(nf)
+    ns = S                                # a tile across a slot boundary stages every stat
+    row_bytes = pitch + 4 * ns
+    stage_bytes = max(_NH_STAGE_BYTES_MIN, _NH_STAGE_BYTES * P // 128)
+    rows = max(1, min(_NH_STAGE_ROWS, stage_bytes // row_bytes))
+    # the histograms, two stages of rows (the write's transpose rows reuse
+    # them), the src2 entries of two chunks
+    smem = 4 * P * nb + max(2 * _round16(rows * row_bytes), _NH_TRANSPOSE_BYTES * P) + 16 * rows
+    if smem > _SMEM_MAX:
+        raise ValueError(f"node_hist: {smem} bytes of shared memory a block (at most {_SMEM_MAX})")
+    scratch = 4 * T * part_slots * S * fc * nb + 4 * T * 3 * (n_nodes + 1)
+    return NodeHistGeometry(a, spans, multi, part_slots, fc, P, rows, pitch, ns, smem, scratch)
+
+
+def node_spans(pstart: torch.Tensor, r_sub: int, n_pad: int):
+    """K5's span table of a compact level's layout: ``pstart`` (T, n_nodes
+    + 1) the padded row where each node starts (the last entry: where the
+    dump sub-blocks start). Returns the global span id (T, n_pad // r_sub)
+    of every sub-block (the span count for a dump sub-block), the global
+    node id ``t·n_nodes + j`` (n_spans,) of every span in span order, and
+    the span count. A node's spans are consecutive, in row order; an empty
+    node has one span of no sub-blocks."""
+    T, n_nodes = pstart.shape[0], pstart.shape[1] - 1
+    dev = pstart.device
+    a = span_subblocks(r_sub)
+    sbs = pstart // r_sub
+    spans = ((sbs[:, 1:] - sbs[:, :-1] + a - 1) // a).clamp_min(1).reshape(-1)
+    first = torch.cumsum(spans, 0) - spans
+    n_spans = int(spans.sum())
+    span_node = torch.repeat_interleave(torch.arange(T * n_nodes, device=dev), spans, output_size=n_spans)
+    sb = torch.arange(n_pad // r_sub, device=dev).expand(T, -1).contiguous()
+    j = torch.searchsorted(sbs[:, 1:].contiguous(), sb, right=True)
+    jc = j.clamp(max=n_nodes - 1)
+    gid = first.reshape(T, n_nodes).gather(1, jc) + (sb - sbs.gather(1, jc)) // a
+    return torch.where(j < n_nodes, gid, n_spans), span_node, n_spans
+
+
+def fold_spans(sums: torch.Tensor, span_node: torch.Tensor, num: int) -> torch.Tensor:
+    """(num, W) per-node folds of the span sums ``sums`` (n_spans, W), each
+    node's spans added in span order from +0 (``index_add_`` adds in index
+    order on the CPU)."""
+    return torch.zeros((num, sums.shape[1]), dtype=sums.dtype, device=sums.device).index_add_(0, span_node, sums)
+
+
+def _check_node_hist(bins, src2, swq, pstart, n_bins, r_sub):
+    T, n_pad = src2.shape
+    if bins.dim() not in (2, 3) or (bins.dim() == 3 and bins.shape[0] != T):
+        raise ValueError(f"node_hist_batched: bins {tuple(bins.shape)} must be (n, F) or (T={T}, n, F)")
+    if swq.dim() != 3 or swq.shape[:2] != (T, n_pad):
+        raise ValueError(f"node_hist_batched: swq {tuple(swq.shape)} must be (T={T}, n_pad={n_pad}, S)")
+    if pstart.dim() != 2 or pstart.shape[0] != T or pstart.shape[1] < 2:
+        raise ValueError(f"node_hist_batched: pstart {tuple(pstart.shape)} must be (T={T}, n_nodes + 1)")
+    _check_hist_shapes("node_hist_batched", n_pad, swq[0], n_bins, r_sub)
+
+
+def span_sums_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
+                    n_bins: int, r_sub: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The span sums (n_spans, S·F·nb) of K5 per node, by one
+    ``scatter_add_`` of every row in order onto (span, s, slot·nb + bin),
+    and the global node (n_spans,) of each span (``node_spans``)."""
+    T, n_pad = src2.shape
+    S, F, nb = swq.shape[-1], bins.shape[-1], n_bins
+    dev = src2.device
+    span_of_sb, span_node, n_spans = node_spans(pstart, r_sub, n_pad)
+    if bins.dim() == 2:
+        rows = bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, F)
+    else:
+        rows = bins.gather(1, src2[..., None].expand(T, n_pad, F))
+    rows = rows.long()
+    span = span_of_sb.repeat_interleave(r_sub, dim=1)
+    base = span[..., None] * S + torch.arange(S, device=dev)
+    idx = (base[..., None] * F + torch.arange(F, device=dev)) * nb + rows.clamp(max=nb - 1)[:, :, None, :]
+    vals = torch.where((rows < nb)[:, :, None, :], swq[..., None], torch.zeros((), dtype=swq.dtype, device=dev))
+    sums = torch.zeros((n_spans + 1) * S * F * nb, dtype=swq.dtype, device=dev)
+    sums.scatter_add_(0, idx.reshape(-1), vals.reshape(-1))
+    return sums.reshape(n_spans + 1, S * F * nb)[:n_spans], span_node
+
+
+def node_hist_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
+                    n_bins: int, r_sub: int) -> torch.Tensor:
+    """Plain version of K5 per node: ``span_sums_plain``, then
+    ``fold_spans`` into nodes, in ``swq``'s dtype (f64 for the on-card
+    check). On the CPU the scatter visits rows in order, so a span's bin is
+    the sequential row-order sum the kernel computes, and the fold is its
+    in-order fold."""
+    T, n_nodes = src2.shape[0], pstart.shape[1] - 1
+    sums, span_node = span_sums_plain(bins, src2, swq, pstart, n_bins=n_bins, r_sub=r_sub)
+    return fold_spans(sums, span_node, T * n_nodes).reshape(T, n_nodes, swq.shape[-1], -1)
+
+
+class _NodeHistPlan(ctypes.Structure):
+    """A launch's sizes, as ``NodeHistPlan`` in csrc/rf_hist.cu."""
+    _fields_ = [("n_pad", ctypes.c_int64), ("tree_stride", ctypes.c_int64), ("part_slots", ctypes.c_int64)] + [
+        (name, ctypes.c_int) for name in ("F", "S", "nb", "r_sub", "a", "n_nodes", "T", "f_lo", "fc", "P", "rows",
+                                          "pitch", "ns", "tiles", "spans", "multi", "smem", "vec", "skip")]
+
+
+def node_hist_batched(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
+                      n_bins: int, r_sub: int) -> torch.Tensor:
+    """Kernel K5: every node's histogram (T, n_nodes, S, F·n_bins) of a
+    compact level, in one launch. Tree t's padded row r reads the bins
+    ``bins[src2[t, r]]`` of the uint8 table ``bins``, shared (n, F) or
+    per tree (T, n, F), and the weights ``swq`` (T, n_pad, S) f32 (0 on
+    padding rows); ``pstart`` (T, n_nodes + 1) int64 is where each node's
+    run of ``r_sub``-multiple rows starts (``_compact_layout``). A bin >=
+    n_bins adds nothing; the dump sub-blocks past the last node are read by
+    no one. The sums are fixed in order (``SPAN_ROWS``): equal to
+    ``node_hist_plain`` on the CPU bit for bit. Replaces
+    ``spark_rapids_ml_tpu/ops/rf_pallas.py::subblock_hist`` with its
+    caller's per-node ``segment_sum``."""
+    _check_node_hist(bins, src2, swq, pstart, n_bins, r_sub)
+    if src2.device.type == "cpu":
+        return node_hist_plain(bins, src2, swq, pstart, n_bins=n_bins, r_sub=r_sub)
+    _check_cuda("node_hist_batched", (bins, torch.uint8), (src2, torch.int64), (swq, torch.float32),
+                (pstart, torch.int64))
+    fn = _build.function("rf_hist", "node_hist_launch", [_P] * 8 + [_INT, _P])
+    return _node_hist_run(bins, src2, swq, pstart, n_bins, r_sub, fn,
+                          torch.cuda.current_stream(src2.device).cuda_stream)
+
+
+node_hist_batched.launches = 0
+
+
+def _node_hist_run(bins, src2, swq, pstart, n_bins, r_sub, fn, stream, skip: int = 0) -> torch.Tensor:
+    """K5's launches through the C entry point ``fn`` (``node_hist_launch``)
+    on checked tensors: the output and scratch, and one launch (the span
+    table with the first) a chunk of slots. ``skip``: a probe's knock-outs
+    (1 the walk, 2 the row loads, 4 the write; the output is then not K5's)."""
+    T, n_pad = src2.shape
+    S, F, n_nodes = swq.shape[-1], bins.shape[-1], pstart.shape[1] - 1
+    vec = F % 16 == 0 and bins.data_ptr() % 16 == 0
+    geo = node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, n_bins, vec)
+    dev = src2.device
+    out = torch.empty((T, n_nodes, S, F * n_bins), dtype=torch.float32, device=dev)
+    tabs = torch.empty((T, 3, n_nodes + 1), dtype=torch.int32, device=dev)
+    parts = torch.empty(max(1, T * geo.part_slots * S * geo.fc * n_bins), dtype=torch.float32, device=dev)
+    for f_lo in range(0, F, geo.fc):
+        fc = min(geo.fc, F - f_lo)
+        plan = _NodeHistPlan(n_pad, bins.shape[1] * F if bins.dim() == 3 else 0, geo.part_slots, F, S, n_bins,
+                             r_sub, geo.a, n_nodes, T, f_lo, fc, geo.P, geo.rows, geo.pitch, geo.ns,
+                             -(-(S * fc) // geo.P), geo.spans, geo.multi, geo.smem, int(vec), skip)
+        code = fn(bins.data_ptr(), src2.data_ptr(), swq.data_ptr(), pstart.data_ptr(), out.data_ptr(),
+                  tabs.data_ptr(), parts.data_ptr(), ctypes.addressof(plan), int(f_lo == 0), stream)
+        node_hist_batched.launches += 1
+        _build.check("rf_hist", code)
+    return out
+
+
+def node_hist_attributes(vec: bool, P: int, smem: int) -> Tuple[int, int, int]:
+    """(registers, local bytes a thread, resident blocks an SM) of K5's span
+    kernel at P threads and ``smem`` bytes a block on the current card."""
+    fn = _build.function("rf_hist", "node_hist_attributes", [_INT, _INT, _INT, _P, _P, _P])
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check("rf_hist", fn(int(vec), P, smem, *(ctypes.byref(v) for v in out)))
+    return tuple(v.value for v in out)
 
 
 def select_bins_plain(bq: torch.Tensor, featsq: torch.Tensor, r_sub: int) -> torch.Tensor:

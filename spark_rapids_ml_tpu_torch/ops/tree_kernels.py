@@ -7,14 +7,15 @@
 * **Builder**: level-wise histogram trees, T trees per level
   (``_grow_trees_batched``). Each split level runs the compact route of the
   JAX package: a stable sort of each tree's rows by node, every node's run
-  padded to a multiple of ``r_sub`` rows, one kernel launch for the whole
-  tree batch (K5 over pre-gathered bins, or K6 selecting each node's
-  feature subset from full rows at ``d_pad > 1024``), and a per-node sum of
-  the sub-block partials. The padded row counts, ``r_sub`` and the feature
-  chunks follow the JAX package's formulas, so both packages' kernels see
-  the same inputs at every level. A level whose histogram tile exceeds
-  ``_COMPACT_TILE_MAX`` (2^28) entries takes a plain scatter, as the JAX
-  package does there.
+  padded to a multiple of ``r_sub`` rows, and one kernel launch for the
+  whole tree batch: K5, which reads each row's uint8 bins through the sort
+  permutation and writes every node's histogram (its sub-blocks folded in
+  the kernel), or K6, which selects each node's feature subset from full
+  rows at ``d_pad > 1024``, followed by a per-node sum of its sub-block
+  partials. The padded row counts and ``r_sub`` follow the JAX package's
+  formulas, so both packages pad alike at every level. A level whose
+  histogram tile exceeds ``_COMPACT_TILE_MAX`` (2^28) entries takes a plain
+  scatter, as the JAX package does there.
 * **Inference**: the packed-forest engine (``pack_forest``'s layout, hop 1
   in plain PyTorch, hop 2 in K9, the JAX package's payload summation
   order) for forests of depth <= 14; the two-hop bins engine (the same
@@ -24,8 +25,9 @@
   forests.
 
 Every per-node sum is deterministic: the kernels add in row order without
-atomics, the per-node reductions (``_segment_sum``) sum each segment in
-order, and the sums over a node's bins (parent stats, the gain search's
+atomics, K5 folds a node's spans in order (``rf_kernels.SPAN_ROWS``), the
+per-node reductions (``_segment_sum``) sum each segment in order, and the
+sums over a node's bins (parent stats, the gain search's
 prefix sums) accumulate in f64 and round once. So a fit is bitwise
 repeatable on the card and equal to the CPU's, also for real-valued
 (regression, boosting) stats; integer stats (class counts times bootstrap
@@ -54,9 +56,9 @@ from .rf_kernels import (
     BLOCK_ROWS,
     LANES,
     _leaf_ids,
+    node_hist_batched,
     packed_byte_gather_many,
     packed_traverse,
-    subblock_hist_batched,
     subblock_hist_sel_batched,
 )
 
@@ -294,7 +296,8 @@ def compact_sizes(n: int, level: int, max_depth: int, S: int, d_hist: int, nb: i
     every level where the deepest split level's padding is small next to
     n, else this level's), a multiple of ``BLOCK_ROWS``; and the widest
     power-of-two feature chunk whose (n_pad / r_sub, S, chunk · nb) f32
-    partials stay within 256 MB."""
+    partials stay within 256 MB (the JAX package's and the per-sub-block
+    K5's chunk; K5 per node takes all slots at once)."""
     n_nodes = 1 << level
     r_sub = _compact_r_sub(n, n_nodes, BLOCK_ROWS, S)
     n_nodes_max = 1 << max(0, max_depth - 1)
@@ -313,8 +316,10 @@ def _compact_layout(seg: torch.Tensor, n_nodes: int, r_sub: int, n_pad: int):
 
     Returns ``src2`` (T, n_pad) the source row of every padded position,
     ``pvalid`` (T, n_pad) its validity, ``sbc`` (T, n_sb) the node of every
-    sub-block (clipped to a real node) and ``counts`` (T, n_nodes + 1) the
-    sub-blocks per node, the last one counting the trailing dump blocks."""
+    sub-block (clipped to a real node), ``counts`` (T, n_nodes + 1) the
+    sub-blocks per node, the last one counting the trailing dump blocks,
+    and ``pstart`` (T, n_nodes + 1) the padded row where each node starts,
+    the last entry where the dump blocks start."""
     T, n = seg.shape
     dev = seg.device
     n_sb = n_pad // r_sub
@@ -336,7 +341,7 @@ def _compact_layout(seg: torch.Tensor, n_nodes: int, r_sub: int, n_pad: int):
     pvalid = ((off < ln[..., None]) & (seg_sb < n_nodes)[..., None]).reshape(T, n_pad)
     src2 = perm.gather(1, src)
     counts = torch.cat([plen // r_sub, n_sb - pstart[:, n_nodes:] // r_sub], 1)
-    return src2, pvalid, sbc, counts
+    return src2, pvalid, sbc, counts, pstart
 
 
 def _hist_compact_batched(
@@ -348,16 +353,16 @@ def _hist_compact_batched(
     nb: int,
     r_sub: int,
     n_pad: int,
-    f_chunk: int,
     full_bins: Optional[torch.Tensor] = None,
     feats: Optional[torch.Tensor] = None,
 ):
     """(T, F, n_nodes, nb, S) histogram + (T, n_nodes, S) parent stats.
 
-    ``hist_src`` is the shared (n, d_pad) bins (no subset) or per-tree
-    (T, n, F) subset bins, run through K5 in feature chunks of ``f_chunk``;
-    with ``full_bins`` (n, d_pad) and ``feats`` (T, n_nodes, F) the rows
-    go whole through K6, which selects each node's columns itself. The
+    ``hist_src`` is the shared (n, d_pad) uint8 bins (no subset) or
+    per-tree (T, n, F) subset bins, which K5 reads through the sort
+    permutation, all F slots and nodes in one launch; with ``full_bins``
+    (n, d_pad) and ``feats`` (T, n_nodes, F) the rows go whole through K6,
+    which selects each node's columns itself. The
     parent stats are the bin sums of feature slot 0 (always a real
     feature). A device's own f32 reduction order would move real-valued
     parent stats by an ulp and flip near-tied splits between a card fit and
@@ -365,41 +370,26 @@ def _hist_compact_batched(
     T = seg.shape[0]
     S = sw.shape[-1]
     n_sb = n_pad // r_sub
-    src2, pvalid, sbc, counts = _compact_layout(seg, n_nodes, r_sub, n_pad)
+    src2, pvalid, sbc, counts, pstart = _compact_layout(seg, n_nodes, r_sub, n_pad)
     swq = (sw.gather(1, src2[..., None].expand(T, n_pad, S)) * pvalid[..., None].to(sw.dtype)).contiguous()
-    sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1), device=seg.device), counts.reshape(-1))
-
-    def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-        # (T, n_sb, S, W) -> (T, n_nodes, S, W): the sub-blocks of one node
-        # are consecutive, so the per-node sum is a segment sum in order
-        p2d = partials.reshape(T * n_sb, partials.shape[2] * partials.shape[3])
-        out = _segment_sum(p2d, sb_node, T * (n_nodes + 1), grouped=True)
-        return out.reshape(T, n_nodes + 1, S, -1)[:, :n_nodes]
-
     if full_bins is not None:
         F = feats.shape[-1]
         bq = full_bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, full_bins.shape[1])
         featsq = feats.gather(1, sbc[..., None].expand(T, n_sb, F)).to(torch.int32).contiguous()
         partials = subblock_hist_sel_batched(bq, featsq, swq, n_bins=nb, r_sub=r_sub)
         del bq
-        hist_nodes = reduce_partials(partials).reshape(T, n_nodes, S, F, nb)
+        # (T, n_sb, S, W) -> (T, n_nodes, S, W): the sub-blocks of one node
+        # are consecutive, so the per-node sum is a segment sum in order
+        sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1), device=seg.device), counts.reshape(-1))
+        p2d = partials.reshape(T * n_sb, S * F * nb)
         del partials
+        hist_nodes = _segment_sum(p2d, sb_node, T * (n_nodes + 1), grouped=True)
+        hist_nodes = hist_nodes.reshape(T, n_nodes + 1, S, F, nb)[:, :n_nodes]
+        del p2d
     else:
-        if hist_src.dim() == 2:      # shared full bins (no subset)
-            F = hist_src.shape[1]
-            binq = hist_src.index_select(0, src2.reshape(-1)).reshape(T, n_pad, F)
-        else:                        # per-tree subset-gathered bins
-            F = hist_src.shape[-1]
-            binq = hist_src.gather(1, src2[..., None].expand(T, n_pad, F))
-        binq = binq.to(torch.int32)
-        parts = []
-        for c0 in range(0, F, f_chunk):
-            partials = subblock_hist_batched(
-                binq[:, :, c0:c0 + f_chunk].contiguous(), swq, n_bins=nb, r_sub=r_sub
-            )
-            parts.append(reduce_partials(partials).reshape(T, n_nodes, S, -1, nb))
-            del partials
-        hist_nodes = parts[0] if len(parts) == 1 else torch.cat(parts, dim=3)
+        F = hist_src.shape[-1]
+        hist_nodes = node_hist_batched(hist_src, src2, swq, pstart, n_bins=nb, r_sub=r_sub).reshape(
+            T, n_nodes, S, F, nb)
     # f64 accumulation rounded once: the same parent stats on every device
     parent = hist_nodes[:, :, :, 0, :].sum(dim=-1, dtype=torch.float64).to(sw.dtype)   # (T, n_nodes, S)
     return hist_nodes.permute(0, 3, 1, 4, 2), parent      # (T, F, n_nodes, nb, S)
@@ -531,7 +521,7 @@ def _grow_trees_batched(
             row_feats = feats.gather(1, lc0[..., None].expand(T, n, k_pad))
             return bins_t.gather(2, row_feats.clamp(0, d_pad - 1))   # (T, n, k_pad) u8
 
-        r_sub, n_pad_c, Fc = compact_sizes(n, level, cfg.max_depth, S, d_hist, nb)
+        r_sub, n_pad_c, _ = compact_sizes(n, level, cfg.max_depth, S, d_hist, nb)
         n_sb_c = n_pad_c // r_sub
         use_compact = dt == torch.float32 and n_nodes * d_hist * nb * S <= _COMPACT_TILE_MAX
         sel_resident = (
@@ -542,12 +532,11 @@ def _grow_trees_batched(
         )
         if use_sel:
             hist_full, parent = _hist_compact_batched(
-                None, seg, sw, n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad_c, f_chunk=Fc,
-                full_bins=bins, feats=feats,
+                None, seg, sw, n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad_c, full_bins=bins, feats=feats,
             )
         elif use_compact:
             hist_full, parent = _hist_compact_batched(
-                make_hist_src(), seg, sw, n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad_c, f_chunk=Fc,
+                make_hist_src(), seg, sw, n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad_c,
             )
         else:
             parent = _seg_sum_trees(sw, seg, n_nodes + 1)[:, :n_nodes]
