@@ -40,9 +40,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    version at all four main shapes, one chunked addmm + topk at the kNN and
    UMAP-graph shapes, and take at most KNN_MS_MAX at the kNN shape; K10
    (one UMAP SGD epoch) on the rows of the 65,536 x 256 UMAP graph and at
-   the transform's shape (65,536 rows, K = 15); K3's general kernel
-   (launched by no main path) timed beside its autograd call at 200,000
-   rows of d = 3,000 (K = 1), d = 512 (K = 10) and d = 256 (K = 32); the
+   the transform's shape (65,536 rows, K = 15); K3's tile kernel (whole
+   rows staged once in shared memory, the gradient held on chip) timed
+   beside its autograd call at 200,000 rows of d = 3,000 (K = 1), d = 512
+   (K = 10) and d = 256 (K = 32), and at the wide fit's 1,024,000 x 3,000
+   (a view of the 12M x 256 rows, with its controls), each of which must
+   run the tile kernel and beat its plain version, at ragged shapes (d =
+   3,001, d % 4 != 0 with many classes, bases 4 bytes off 16-byte
+   alignment, fewer rows than a tile), and the general kernel past the
+   tile kernel's cap (200,000 x 1,024, K = 64); the
    forest kernels at the builder's own level layouts: K5 per node (every
    node's histogram of a level in one launch: rows read through the sort
    permutation, spans of SPAN_ROWS rows summed in row order and a node's
@@ -79,7 +85,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``--seed``, with a 100k-row subset fitted on the card and on the CPU
    (plain path) and compared, and a 10-class (multinomial)
    LogisticRegression on those rows fitted on both and compared (its K3
-   launches a path of their own); NearestNeighbors(k=16).kneighbors of the
+   launches a path of their own); the reference's LogisticRegression
+   benchmark config (maxIter=200, tol=1e-30, regParam=1e-5, binomial) on
+   1,024,000 x 3,000 rows, a zero-copy view of the 12M x 256 host rows,
+   with labels from a numpy hyperplane plus logistic noise (K3's tile
+   kernel: its launches under ``launches_by_path["logreg_wide"]``), and its
+   first 50,000 rows fitted with maxIter=20 on the card and on the CPU and
+   compared; NearestNeighbors(k=16).kneighbors of the
    first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
    n_neighbors=15, random_state=42) fit, transform and save/load at
    65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
@@ -124,6 +136,16 @@ its attributes, SASS counts (``HGMMA``, ``FFMA``, ``UTMALDG``, the atomics)
 and gates; ``--sweep`` times every row weight 0 beside every row weight 1
 (an m = 0 row skips the atomics: the product, the argmin and the row walk
 alone) and the other stage depths.
+
+    python3 chip_smoke.py --logreg-only [--sweep]
+
+is a probe of K3: at the general route's three timed shapes (200,000
+rows) and at 1,024,000 x 3,000, each held with its controls and timed as
+the whole call, its first kernel alone and its second pass alone, for the
+routed kernel and the general kernel, with registers, spills and resident
+blocks, then the ragged tile shapes; ``--sweep`` adds the general
+kernel's gradient stage without its X re-read or its per-tile partial
+write. It prints no result line and exits 1 if a check failed.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -528,6 +550,7 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     about u·S (S = the row's largest Σ|x·a| + |b|), which moves a residual
     or a row's loss by at most 2·u·S: each row weighs (1 + 2S) in T."""
     d, K, f64 = X.shape[1], A.shape[0], torch.float64
+    chunk = max(1, REF_CHUNK * E2E_D // d)  # f64 chunks of at most 2 GB
     A64, b64 = A.to(f64), b.to(f64)
     loss = torch.zeros((), dtype=f64, device=X.device)
     gA = torch.zeros((K, d), dtype=f64, device=X.device)
@@ -535,10 +558,9 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     T_row = torch.zeros((d,), dtype=f64, device=X.device)
     T_b = torch.zeros((), dtype=f64, device=X.device)
     T_z = torch.zeros((), dtype=f64, device=X.device)
-    for lo in range(0, X.shape[0], REF_CHUNK):
-        x, mm = X[lo:lo + REF_CHUNK].to(f64), m[lo:lo + REF_CHUNK].to(f64)
-        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, y[lo:lo + REF_CHUNK].to(f64), mm, A64, b64,
-                                                 multinomial)
+    for lo in range(0, X.shape[0], chunk):
+        x, mm = X[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
+        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, y[lo:lo + chunk].to(f64), mm, A64, b64, multinomial)
         loss += l_
         gA += gA_
         gb += gb_
@@ -556,6 +578,8 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     code = lk._k3_variant(d, K, multinomial, aligned)
     if code == 0:
         return "general"
+    if code >= 1000:
+        return f"tile(KG={1 if code < 2000 else 4}, IPT={code % 1000})"
     return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
 
 
@@ -851,20 +875,88 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True,
           **check_logreg(torch, lk, Xr, mr, mr, 13, 0, seed)})
     del Xr
-    # K3's general kernel, timed at shapes it still takes (no main path
-    # sends it any): the reference's CI width, and multinomial fits past
-    # the register-row kernel's d <= 256 and K <= 16
-    for d_r, K_r in K3_GENERAL_SHAPES:
+    ragged_logreg_checks(torch, lk, g, seed)
+    # K3's tile kernel at the general route's three timed shapes (the
+    # reference's CI width, and multinomial fits past the register-row
+    # kernel's d <= 256 and K <= 16), at the wide fit's 1,024,000 x 3,000
+    # (a zero-copy view of the 12M x 256 rows, with the controls), and the
+    # general kernel past the tile kernel's cap
+    for d_r, K_r in K3_GENERAL_SHAPES + ((K3_PAST_CAP_D, K3_PAST_CAP_K),):
         Xr = torch.randn(K3_GENERAL_ROWS, d_r, generator=g, device=dev)
         mr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.1).float()
         yr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.5).float()
-        key = f"logreg_loss_grad_general_d{d_r}_K{K_r}"
+        key = k3_key(d_r, K_r)
         res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed)
-        check(res[key]["variant"] == "general", f"{key} ran the {res[key]['variant']} kernel")
         emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": key, **res[key]})
         del Xr
+    n_w = n_rows * E2E_D // LOGREG_WIDE_D
+    if n_w:
+        Xw = X.reshape(-1)[:n_w * LOGREG_WIDE_D].view(n_w, LOGREG_WIDE_D)
+        yw = (Xw[:, 0] > Xw[:, 0].median()).float()
+        res["logreg_loss_grad_tile_wide"] = r = check_logreg(
+            torch, lk, Xw, yw, torch.ones(n_w, device=dev), 1, reps, seed, control=True)
+        emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": "logreg_loss_grad_tile_wide", **r})
+        del Xw, yw
     torch.cuda.synchronize()
     return res
+
+
+def k3_key(d, K) -> str:
+    """The measurement key of K3 at one of the timed shapes of
+    K3_GENERAL_SHAPES or the past-cap shape."""
+    return f"logreg_loss_grad_{'general' if (d, K) == (K3_PAST_CAP_D, K3_PAST_CAP_K) else 'tile'}_d{d}_K{K}"
+
+
+def k3_gates(res) -> dict:
+    """K3's gates: the tile kernel ran each timed shape of
+    K3_GENERAL_SHAPES and the wide fit's, each below its plain version,
+    and the general kernel the past-cap shape. Returns each gate's
+    verdict; the caller fails the run on any False."""
+    out = {}
+    keys = [k3_key(d, K) for d, K in K3_GENERAL_SHAPES] + (
+        ["logreg_loss_grad_tile_wide"] if "logreg_loss_grad_tile_wide" in res else [])
+    for key in keys:
+        r = res[key]
+        out[f"{key}_ran_tile"] = r["variant"].startswith("tile")
+        if "ms" in r:
+            out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+    out["past_cap_ran_general"] = res[k3_key(K3_PAST_CAP_D, K3_PAST_CAP_K)]["variant"] == "general"
+    return out
+
+
+# K3's tile kernel off its 16-byte copies and tiles, and at every instance
+# (gradient items a thread) the router can pick: (rows, d, K, offset of
+# the base in floats)
+K3_RAGGED_TILE = ((100_003, 3001, 1, 0), (100_003, 3000, 1, 1), (50_001, 124, 1, 1), (50_001, 512, 10, 1),
+                  (100_003, 257, 20, 0), (1_037, 130, 3, 0), (5, 3000, 1, 0), (7, 300, 5, 0),
+                  (20_011, 4, 300, 0), (20_011, 1152, 1, 0), (20_011, 6000, 1, 0), (4_099, 16_380, 1, 0),
+                  (20_011, 255, 32, 1))
+
+
+def ragged_logreg_checks(torch, lk, g, seed):
+    """K3 at K3_RAGGED_TILE, each held against its f64 plain version and
+    naming the kernel that ran it (its launcher code, as counted by the
+    wrapper): d % 4 != 0, a base 4 bytes off 16-byte alignment (4-byte
+    copies), fewer rows than a tile or than the grid, more classes than a
+    block has threads. Fails unless every instance of the tile kernel
+    launched."""
+    dev = g.device
+    launched = set()
+    for n_r, d_r, K_r, offset in K3_RAGGED_TILE:
+        buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + 3.0
+        Xr = buf[offset:].view(n_r, d_r)
+        mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
+        yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
+        before = dict(lk.logreg_loss_grad.variants)
+        r = check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)
+        codes = [c for c, v in lk.logreg_loss_grad.variants.items() if v != before.get(c, 0)]
+        check(len(codes) == 1, f"logreg_loss_grad {n_r}x{d_r} K={K_r}: launched codes {codes}, not one")
+        launched.update(codes)
+        emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True, "misaligned": bool(offset),
+              "code": codes[0], **r})
+        del buf, Xr
+    tile = {1000 + i for i in lk._TILE_IPT[False]} | {2000 + i for i in lk._TILE_IPT[True]}
+    check(tile <= launched, f"logreg_loss_grad: tile instances {sorted(tile - launched)} never launched")
 
 
 # K3's general kernel, timed (rows, then (d, K)): the reference's CI smoke
@@ -872,6 +964,19 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
 # multinomial register-row kernel's d <= 256, K <= 16
 K3_GENERAL_ROWS = 200_000
 K3_GENERAL_SHAPES = ((3000, 1), (512, 10), (256, 32))
+# past the tile kernel's cap (16 four-class groups x 257 chunks): the
+# general kernel, timed beside its autograd call
+K3_PAST_CAP_D = 1024
+K3_PAST_CAP_K = 64
+# the reference's LogisticRegression benchmark (BASELINE.md: 1M x 3,000
+# f32, binomial, maxIter 200): 1,024,000 x 3,000 is the 12M x 256 buffer
+LOGREG_WIDE_ROWS = 1_024_000
+LOGREG_WIDE_D = 3000
+# the wide fit's rows fitted on the card and on the CPU (maxIter 20)
+LOGREG_WIDE_SUBSET = 50_000
+# --logreg-only: (rows, d, K)
+K3_PROBE_SHAPES = tuple((K3_GENERAL_ROWS, d, K) for d, K in K3_GENERAL_SHAPES) + (
+    (LOGREG_WIDE_ROWS, LOGREG_WIDE_D, 1),)
 
 
 # K2 at k = 1024 must take at most three quarters of the 194.61 ms of the
@@ -1965,6 +2070,77 @@ def phase_logreg10_subset(torch, X_host, seed, rows):
     return launches
 
 
+def wide_data(X_host, seed):
+    """The wide fit's rows, a zero-copy (n * 256 // 3,000, 3,000) view of
+    the N x 256 host rows (1,024,000 x 3,000 at 12M), and labels from a
+    seeded numpy hyperplane through all 3,000 features plus logistic
+    noise: y = [2 z + noise > 0], z the standardized projection. Also the
+    accuracy of the hyperplane itself on those labels."""
+    n_w = X_host.size // LOGREG_WIDE_D
+    Xw = X_host.reshape(-1)[:n_w * LOGREG_WIDE_D].reshape(n_w, LOGREG_WIDE_D)
+    rng = np.random.default_rng(seed + 13)
+    z = Xw @ rng.normal(size=LOGREG_WIDE_D).astype(np.float32)
+    z = (z - np.median(z)) / z.std()
+    y = (2.0 * z + rng.logistic(size=n_w) > 0).astype(np.float32)
+    return Xw, y, float(((z > 0) == (y > 0)).mean())
+
+
+def phase_logreg_wide(torch, Xw, y, oracle_acc):
+    """The reference's LogisticRegression benchmark config
+    (BASELINE.md: binomial, maxIter 200, tol 1e-30, regParam 1e-5) on the
+    wide rows through ``DataFrame``: fit then transform on the card. K3
+    runs its tile kernel. Returns its launches in the fit, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": Xw, "label": y})
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=200, tol=1e-30, regParam=1e-5).fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    out, t_tr = _timed(torch, lambda: lrm.transform(df))
+    acc = float((out.column("prediction") == y).mean())
+    n = Xw.shape[0]
+    emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_wide", "rows": n,
+          "d": Xw.shape[1], "maxIter": 200, "tol": 1e-30, "regParam": 1e-5, "fit_s": t_fit,
+          "transform_s": t_tr, "fit_rows_per_s": n / t_fit, "n_iter": lrm.n_iter_, "accuracy": acc,
+          "hyperplane_accuracy": oracle_acc, "variant": k3_variant(lk, Xw.shape[1], 1, False),
+          "logreg_loss_grad_launches": launches, "launches_by_variant": variants})
+    check(np.isfinite(lrm.coefficients).all() and np.isfinite(out.column("probability")).all(),
+          "wide LogReg not finite")
+    check(launches > 0 and all(v >= 1000 for v in variants), f"the wide fit's K3 launches {variants} "
+          "did not all run the tile kernel")
+    check(acc >= oracle_acc - 0.02, f"wide LogReg accuracy {acc} below its hyperplane's {oracle_acc} - 0.02")
+    return launches
+
+
+def phase_logreg_wide_subset(torch, Xw, y, rows):
+    """The wide fit on its first ``rows`` rows with maxIter=20, on the card
+    and on the CPU (plain path), held to the 12M path's tolerances.
+    Returns the card fit's K3 launches, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": Xw[:rows], "label": y[:rows]})
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lg, t_card = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5, device="cuda:0").fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    t = time.perf_counter()
+    lc = LogisticRegression(maxIter=20, regParam=1e-5, device="cpu").fit(df)
+    t_cpu = time.perf_counter() - t
+    coef_err = float(np.abs(lg.coefficients - lc.coefficients).max() / np.abs(lc.coefficients).max())
+    agree = float((lg.transform(df).column("prediction") == lc.transform(df).column("prediction")).mean())
+    emit({"phase": "subset", "estimator": "LogisticRegression", "path": "logreg_wide_card_vs_cpu", "rows": rows,
+          "d": Xw.shape[1], "maxIter": 20, "card_fit_s": t_card, "cpu_fit_s": t_cpu, "n_iter_card": lg.n_iter_,
+          "n_iter_cpu": lc.n_iter_, "logreg_loss_grad_launches": launches, "launches_by_variant": variants,
+          "coef_rel_err": coef_err, "coef_tol": 0.05, "prediction_agreement": agree, "agreement_min": 0.995})
+    check(launches > 0 and all(v >= 1000 for v in variants), f"the wide card fit's K3 launches {variants} "
+          "did not all run the tile kernel")
+    check(coef_err <= 0.05 and agree >= 0.995, "wide LogReg card vs CPU beyond tolerance")
+    return launches
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -2698,6 +2874,90 @@ def hist_probe(torch, args, dev) -> int:
     return 0
 
 
+def k3_inputs(torch, n, d, K, seed, dev):
+    """(X, y, m, A, b) of a K3 pass: Gaussian rows, 10% of them masked,
+    labels in [0, max(K, 2)), A and b small, made on the card from ``seed``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = torch.randn(n, d, generator=g, device=dev)
+    m = (torch.rand(n, generator=g, device=dev) > 0.1).float()
+    y = torch.randint(0, max(K, 2), (n,), generator=g, device=dev).float()
+    A = torch.randn(K, d, generator=g, device=dev) * 0.05
+    b = torch.randn(K, generator=g, device=dev) * 0.1
+    return X, y, m, A, b
+
+
+def logreg_probe(torch, args, dev) -> int:
+    """``--logreg-only``: K3 alone at the shapes of K3_PROBE_SHAPES (the
+    general route's three timed shapes and the wide fit's 1,024,000 x
+    3,000), each held against its f64 plain version (``check_logreg``) and
+    timed by CUDA events as the whole call, its first kernel alone and its
+    second pass alone, for the routed kernel and, where that is another,
+    for the general kernel too; with the kernels' registers, spills and
+    resident blocks. ``--sweep`` adds the general kernel with its gradient
+    stage's X re-read or its per-tile partial write knocked out (timed
+    only: the results are then wrong)."""
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    reps = max(args.reps, 10)
+    out = {"probe": "logreg", "package": lk.__file__, "shapes": {}, "failed": []}
+    for n, d, K in K3_PROBE_SHAPES:
+        key = f"n{n}_d{d}_K{K}"
+        X, y, m, A, b = k3_inputs(torch, n, d, K, args.seed, dev)
+        multinomial = K > 1
+        try:  # a probe: a shape that fails its check is reported, and the next runs
+            row = check_logreg(torch, lk, X, y, m, K, reps, args.seed, control=True)
+        except SystemExit as e:
+            out["failed"].append(f"{key}: {e}")
+            emit({"probe": "logreg", "shape": key, "failed": str(e)})
+            row = {}
+        routed = lk._k3_variant(d, K, multinomial)
+        y_k = y if multinomial else (y > 0).float()
+        for name, variant in (("routed", routed),) + ((("general", 0),) if routed else ()):
+            def run(knock=0):
+                return lk._logreg_run(X, y_k, m, A, b, multinomial, variant, knock)
+
+            if variant >= 1000:  # the routed launch's resident blocks must fit
+                geo = lk._tile_geometry(n, d, K, multinomial)
+                fits = lk._logreg_attributes(variant, geo.smem)[2]
+                if fits < geo.blocks_per_sm:
+                    out["failed"].append(f"{key}: {fits} resident blocks an SM, {geo.blocks_per_sm} planned")
+            r = {"variant": variant, "whole_ms": cuda_ms(torch, run, reps),
+                 "first_kernel_ms": cuda_ms(torch, lambda: run(1), reps),
+                 "second_pass_ms": cuda_ms(torch, lambda: run(2), reps),
+                 "attributes": lk_attributes(lk, variant, n, d, K, multinomial)}
+            if args.sweep and variant == 0:
+                for what, knock in (("no_x_reread", 4), ("no_tile_write", 8), ("neither", 12)):
+                    r[f"first_kernel_{what}_ms"] = cuda_ms(torch, lambda: run(1 | knock), reps)
+            row[name] = r
+        emit({"probe": "logreg", "shape": key, **{k: v for k, v in row.items() if k != "controls"}})
+        out["shapes"][key] = row
+        del X, y, m, A, b, y_k
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 1)
+    try:
+        ragged_logreg_checks(torch, lk, g, args.seed)
+    except SystemExit as e:
+        out["failed"].append(f"ragged: {e}")
+    emit(out)
+    return 1 if out["failed"] else 0
+
+
+def lk_attributes(lk, variant, n, d, K, multinomial) -> dict:
+    """Registers, spill bytes, resident blocks an SM and shared memory of
+    K3's first kernel ``variant`` at this shape, and of its second pass."""
+    keys = ("registers", "local_bytes", "blocks_per_sm", "smem")
+    rt = min(lk._LOGREG_TILE_ROWS, lk._LOGREG_SMEM // (4 * K))
+    smem = 4 * rt * K if variant == 0 else lk._tile_geometry(n, d, K, multinomial).smem if variant >= 1000 else 0
+    out = {"first": dict(zip(keys, lk._logreg_attributes(variant, smem))),
+           "second_pass": dict(zip(keys, lk._logreg_attributes(-1, 0)))}
+    if variant >= 1000:
+        out["geometry"] = lk._tile_geometry(n, d, K, multinomial)._asdict()
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -2712,10 +2972,14 @@ def main() -> int:
                     help="a probe: build K2 alone and run only its kernel phase (prints no result line)")
     ap.add_argument("--hist-only", action="store_true",
                     help="a probe: build K5 alone and time its levels (prints no result line)")
+    ap.add_argument("--logreg-only", action="store_true",
+                    help="a probe: build K3 alone and time its kernels at the general route's shapes "
+                         "(prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
-                         "--hist-only: the GBT's levels 0 and 3")
+                         "--hist-only: the GBT's levels 0 and 3; with --logreg-only: the general "
+                         "kernel's knock-outs")
     args = ap.parse_args()
 
     import torch
@@ -2736,7 +3000,7 @@ def main() -> int:
     t = time.perf_counter()
     build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
                            else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
-                           else _build.SOURCES)
+                           else ["logreg_loss_grad"] if args.logreg_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -2755,6 +3019,8 @@ def main() -> int:
         return kmeans_probe(torch, args, dev)
     if args.hist_only:
         return hist_probe(torch, args, dev)
+    if args.logreg_only:
+        return logreg_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -2764,6 +3030,11 @@ def main() -> int:
     n_pca = -(-n // csize) * csize
     X, y = make_data(torch, n, n_pca, args.seed, dev)
     kern = phase_kernels(torch, X, n, args.reps, args.seed)
+    gates = k3_gates(kern)
+    emit({"phase": "kernels", "kernel": "logreg_loss_grad", "gates": gates})
+    for name, ok in gates.items():
+        check(ok, f"K3 gate {name} failed: " + json.dumps(
+            {k: {m: kern[k].get(m) for m in ("variant", "ms", "plain_ms")} for k in kern if k.startswith("logreg")}))
     kern.update(phase_lloyd_kernels(torch, X[:n], args.reps, args.seed))
     gates = lloyd_gates(kern)
     emit({"phase": "kernels", "kernel": "lloyd_step", "gates": gates, "ms_max": LLOYD_MS_MAX})
@@ -2789,6 +3060,11 @@ def main() -> int:
     phase_subset(torch, X_host, y_host, args.seed, min(args.subset, n))
     by_path["logreg_loss_grad"]["logreg10_card_vs_cpu"] = phase_logreg10_subset(
         torch, X_host, args.seed, min(args.subset, n))
+    Xw, yw, oracle = wide_data(X_host, args.seed)
+    by_path["logreg_loss_grad_tile"] = {"logreg_wide": phase_logreg_wide(torch, Xw, yw, oracle),
+                                        "logreg_wide_card_vs_cpu": phase_logreg_wide_subset(
+                                            torch, Xw, yw, min(LOGREG_WIDE_SUBSET, Xw.shape[0]))}
+    del Xw, yw
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
@@ -2847,14 +3123,18 @@ def main() -> int:
                       if k in r},
         }
         kernels.append(entry)
-    # K3's general kernel at the shapes it still takes: measured beside its
-    # autograd call, launched by no main path
-    for d_r, K_r in K3_GENERAL_SHAPES:
-        key = f"logreg_loss_grad_general_d{d_r}_K{K_r}"
+    # K3's tile kernel at the wide fit's shape (the launches of the wide
+    # paths), and timed beside its autograd call at the general route's
+    # three shapes; the general kernel past the tile kernel's cap. No other
+    # path launches these shapes.
+    k3_rows = [("logreg_loss_grad_tile", "logreg_loss_grad_tile_wide", by_path["logreg_loss_grad_tile"])]
+    k3_rows += [(k3_key(d_r, K_r), k3_key(d_r, K_r), {})
+                for d_r, K_r in K3_GENERAL_SHAPES + ((K3_PAST_CAP_D, K3_PAST_CAP_K),)]
+    for name, key, paths in k3_rows:
         r = kern[key]
         kernels.append({
-            "name": key, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/logreg_loss_grad.cu",
-            "replaces": sources["logreg_loss_grad"][0], "launches": 0, "launches_by_path": {},
+            "name": name, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/logreg_loss_grad.cu",
+            "replaces": sources["logreg_loss_grad"][0], "launches": sum(paths.values()), "launches_by_path": paths,
             "variant": r["variant"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": {k: r[k] for k in ("n", "d", "K")}})

@@ -14,7 +14,7 @@
 // (~12 GFLOP at K = 1, well under a millisecond at the FP32 peak; 123
 // GFLOP at K = 10, 1.83 ms: still below the bytes).
 //
-// Design. Three kernels share the output contract and the fixed-order
+// Design. Four kernels share the output contract and the fixed-order
 // second pass; the caller picks one (ops/logreg_kernels.py::_k3_variant).
 // For K = 1 (the binomial main path) with d <= 1024, d a multiple of 4,
 // logreg_rows_kernel gives each warp whole rows held in registers, with no
@@ -23,15 +23,19 @@
 // cp.async ring, so the bytes in flight do not depend on the register
 // budget its K x d gradient takes, reads A from shared memory once per
 // group of 2 or 4 rows, and reduces all of a group's logits together.
-// Every other shape takes the general kernel: blocks take contiguous row
-// ranges and walk them in tiles of RT rows. Per tile: (L) each warp computes logits for (row, 8-class chunk)
-// pairs, lanes striding over d (coalesced row reads; A is small and read
-// through the L1 cache, so any K*d fits without tiling A in shared
-// memory); the RT x K logits live in shared memory. (R) a warp per row
-// turns its logits into the loss and the residual row in place. There are
-// no padded classes on the GPU, so the TPU kernel's -1e30 class mask is
-// not needed. (G) each thread owns (8-class chunk, column) pairs, re-reads
-// its column of the tile (L1/L2 hits: the tile was just read) and adds
+// Every other shape whose block gradient fits in the registers of one
+// block (at most 16,384 floats of (4-class group, 4-column) items, 65,536
+// at K = 1) and whose ring fits in shared memory takes logreg_tile_kernel
+// (see its note): whole rows staged once in shared memory, A staged once
+// a block, the gradient held on chip, one partial a resident block. Any
+// d, any alignment. The rest takes the general kernel: blocks take
+// contiguous row ranges and walk them in tiles of RT rows. Per tile: (L)
+// each warp computes logits for (row, 8-class chunk) pairs, lanes
+// striding over d (A read through the L1 cache); the RT x K logits live
+// in shared memory. (R) a warp per row turns its logits into the loss and
+// the residual row in place. There are no padded classes on the GPU, so
+// the TPU kernel's -1e30 class mask is not needed. (G) each thread owns
+// (8-class chunk, column) pairs, re-reads its column of the tile and adds
 // R^T x into the block's partial (K x (d+1), the last column being the
 // intercept gradient) in a per-block scratch slice that only it touches.
 // A second pass sums the block partials and the block losses in a fixed
@@ -41,11 +45,25 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int KC = 8;  // classes per register chunk
+
+// probe knock-outs (timing only: the results are then wrong): launch the
+// partial kernel alone, the second pass alone; the general kernel's
+// gradient stage without its re-read of X, or without its per-tile
+// partial write (kept only where a sum hits a value no sum takes, so the
+// sums are still computed)
+constexpr int KNOCK_NO_REDUCE = 1;
+constexpr int KNOCK_NO_PARTIAL = 2;
+constexpr int KNOCK_G_NO_X = 4;
+constexpr int KNOCK_NO_TILE_WRITE = 8;
+// ring slots of logreg_tile_kernel (a deeper ring measured no faster)
+constexpr int TILE_STAGES = 2;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -64,7 +82,7 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
                       const float* __restrict__ m, const float* __restrict__ A,
                       const float* __restrict__ b, float* __restrict__ part,
                       float* __restrict__ loss_part, int64_t n, int d, int K,
-                      int multinomial, int RT, int64_t rows_per_block) {
+                      int multinomial, int RT, int64_t rows_per_block, int knock) {
   extern __shared__ float Z[];  // [RT][K]: logits, then residuals
   __shared__ float warp_loss[WARPS];
 
@@ -148,7 +166,7 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
 #pragma unroll
       for (int j = 0; j < KC; ++j) acc[j] = 0.f;
       for (int rr = 0; rr < nr; ++rr) {
-        const float xv = c < d ? X[(rb + rr) * d + c] : 1.f;
+        const float xv = c < d && !(knock & KNOCK_G_NO_X) ? X[(rb + rr) * d + c] : 1.f;
         const float* zr = Z + rr * K + kc * KC;
 #pragma unroll
         for (int j = 0; j < KC; ++j)
@@ -156,7 +174,8 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
       }
 #pragma unroll
       for (int j = 0; j < KC; ++j)
-        if (j < kn) P[(int64_t)(kc * KC + j) * D1 + c] += acc[j];
+        if (j < kn && (!(knock & KNOCK_NO_TILE_WRITE) || acc[j] == 1.2345e-38f))
+          P[(int64_t)(kc * KC + j) * D1 + c] += acc[j];
     }
     __syncthreads();
   }
@@ -594,27 +613,338 @@ logreg_mrows_kernel(const float* __restrict__ X, const float* __restrict__ y,
   }
 }
 
-// Fixed-order sum over blocks: element e < K*(d+1) -> gA / gb, the last
-// element -> loss.
-__global__ void logreg_reduce_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ loss_part, int nb,
-                                     float* __restrict__ gA, float* __restrict__ gb,
-                                     float* __restrict__ loss, int d, int K) {
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+// Shared memory of logreg_tile_kernel, in floats (ops/logreg_kernels.py
+// ::_tile_smem computes the same): A (KP x DP, zero-padded), b (KP, padded
+// to 16 bytes), the logits, then TILE_STAGES slots of BM rows of LD = DP + 4
+// floats (the last 4 the intercept chunk (1, 0, 0, 0)) and the tile's m
+// and y.
+__host__ __device__ inline int tile_z_floats(int K, int kg, int BM) {
+  // the logits (binomial: and the BM x max(1, 8 / BM) partial logits),
+  // padded to 16 bytes
+  return kg == 1 ? (BM + (BM > WARPS ? BM : WARPS) + 3) / 4 * 4 : BM * ((K + 3) / 4 * 4);
+}
+__host__ __device__ inline size_t tile_smem_floats(int d, int K, int kg, int BM) {
+  const size_t DP = (d + 3) / 4 * 4, KP = kg == 1 ? 1 : (K + 3) / 4 * 4;
+  return KP * DP + (KP + 3) / 4 * 4 + tile_z_floats(K, kg, BM) +
+         (size_t)TILE_STAGES * (BM * (DP + 4) + (2 * BM + 3) / 4 * 4);
+}
+
+// The tile kernel: every shape whose block gradient fits on chip.
+// A resident block walks tiles of BM whole rows (tiles b, b + grid, ...).
+// Each tile is copied once from device memory into a ring of two
+// shared-memory slots by cp.async (16-byte copies when `vec`: d % 4 == 0
+// and X 16-byte aligned; 4-byte copies otherwise), with its m and y, and
+// nothing reads X from device memory again. A and b are staged once a
+// block. Per tile:
+//   (L) logits from the staged rows and A. Binomial (KG = 1): a warp per
+//       row (BM >= 8), or 8 / BM warps per row each over a share of the
+//       columns (BM < 8), lanes over 16-byte column chunks, one warp sum.
+//       Multinomial (KG = 4, classes padded to KP = 4 ceil(K / 4)): a warp
+//       per (8 rows, 4 classes) pair, 32 register sums over its lanes'
+//       chunks folded by one recursive-halving warp sum, after which lane
+//       L holds row L / 4, class L % 4.
+//   (R) loss and residuals in shared memory: a thread per row (binomial),
+//       a half warp per row (multinomial softmax over the K real classes).
+//   (G) gradient R^T [x, 1] from the same staged rows. Each thread owns
+//       up to IPT fixed items (a group of KG classes, a 16-byte column
+//       chunk; the chunk past the last is the intercept, whose staged
+//       value is (1, 0, 0, 0)) for the whole launch and accumulates them
+//       in registers, rows in order, four rows' loads ahead of their FMAs.
+// The block writes its K x (d + 1) partial once, at the end, and the
+// second pass sums the partials in a fixed order: the card repeats itself
+// bit for bit. Three barriers a tile. What holds it is the time a tile's
+// stages take one after another more than the bytes (the per-tile time
+// does not shrink with deeper rings), so the binomial form runs two
+// resident blocks an SM where its ring fits twice, one block's stages
+// beside the other's; the multinomial instances' registers allow one.
+template <int KG, int IPT>
+__global__ void __launch_bounds__(THREADS, KG == 1 ? 2 : 1)
+logreg_tile_kernel(const float* __restrict__ X, const float* __restrict__ y,
+                   const float* __restrict__ m, const float* __restrict__ A,
+                   const float* __restrict__ b, float* __restrict__ part,
+                   float* __restrict__ loss_part, int64_t n, int d, int K, int BM, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_loss[WARPS];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int DP = (d + 3) & ~3, NC = DP / 4, NC1 = NC + 1, LD = DP + 4, LD4 = NC1;
+  const int KP = KG == 1 ? 1 : (K + 3) & ~3;
+  float* sA = smem;                          // [KP][DP]
+  float* sb = sA + KP * DP;                  // [KP], padded to 16 bytes
+  float* sZ = sb + ((KP + 3) & ~3);          // [BM][KP]: logits, then residuals
+  float* sP = sZ + BM * KP;                  // binomial: [BM][wpr] partial logits
+  float* ring = sZ + tile_z_floats(K, KG, BM);  // [TILE_STAGES][SF]
+  const int SF = BM * LD + (2 * BM + 3) / 4 * 4;  // a slot: rows, m, y; 16-byte aligned
+
+  for (int e = tid; e < KP * DP; e += THREADS) {
+    const int k = e / DP, c = e % DP;
+    sA[e] = k < K && c < d ? A[(int64_t)k * d + c] : 0.f;
+  }
+  for (int k = tid; k < KP; k += THREADS) sb[k] = k < K ? b[k] : 0.f;  // KP may pass THREADS
+  for (int e = tid; e < TILE_STAGES * BM; e += THREADS) {
+    float* ic = ring + (e / BM) * SF + (e % BM) * LD + DP;
+    ic[0] = 1.f;
+    ic[1] = ic[2] = ic[3] = 0.f;
+  }
+
+  const int64_t tiles = (n + BM - 1) / BM;
+  const int iters = blockIdx.x < tiles ? (int)((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x) : 0;
+  // copy walk: element e = tid + THREADS i of the tile's BM x W copies (W
+  // = NC chunks or DP floats), as (row, column) advanced without division
+  const int W = vec ? NC : DP;
+  const int r_start = tid / W, c_start = tid % W, r_step = THREADS / W, c_step = THREADS % W;
+  auto issue = [&](int it) {
+    if (it < iters) {
+      const int64_t r0 = ((int64_t)blockIdx.x + (int64_t)it * gridDim.x) * BM;
+      float* st = ring + (it % TILE_STAGES) * SF;
+      int r = r_start, c = c_start;
+      while (r < BM) {
+        const bool ok = r0 + r < n;
+        if (vec) {
+          cp_async16(st + r * LD + 4 * c, ok ? X + (r0 + r) * d + 4 * c : X, ok ? 16 : 0);
+        } else {
+          const bool in = ok && c < d;
+          cp_async4(st + r * LD + c, in ? X + (r0 + r) * d + c : X, in ? 4 : 0);
+        }
+        r += r_step;
+        c += c_step;
+        if (c >= W) {
+          c -= W;
+          ++r;
+        }
+      }
+      float* sm = st + BM * LD;
+      for (int u = tid; u < BM; u += THREADS) {
+        const bool ok = r0 + u < n;
+        cp_async4(sm + u, ok ? m + r0 + u : m, ok ? 4 : 0);
+        cp_async4(sm + BM + u, ok ? y + r0 + u : y, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the counts even
+  };
+
+  // this thread's gradient items: (class group, chunk) = divmod(e, NC1)
+  const int items = (KP / KG) * NC1;
+  int gk[IPT], gj[IPT];
+  float4 g[IPT][KG];
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    const int e = tid + i * THREADS;
+    gk[i] = e / NC1;
+    gj[i] = e % NC1;
+#pragma unroll
+    for (int q = 0; q < KG; ++q) g[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float lsum = 0.f;
+
+  for (int s = 0; s < TILE_STAGES - 1; ++s) issue(s);
+  const float4* sA4 = reinterpret_cast<const float4*>(sA);
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<TILE_STAGES - 2>();
+    __syncthreads();  // tile it landed; every thread is done with tile it - 1
+    issue(it + TILE_STAGES - 1);  // into the slot tile it - 1 held
+    const float* st = ring + (it % TILE_STAGES) * SF;
+    const float4* xs4 = reinterpret_cast<const float4*>(st);
+    const float* sm = st + BM * LD;
+    const float* sy = sm + BM;
+    const int64_t r0 = ((int64_t)blockIdx.x + (int64_t)it * gridDim.x) * BM;
+    const int nr = (int)min((int64_t)BM, n - r0);
+
+    if (KG == 1) {
+      // (L) a warp per row, or 8 / BM warps per row, each a share of chunks
+      const int wpr = BM >= WARPS ? 1 : WARPS / BM;
+      for (int rw = warp; rw < BM * wpr; rw += WARPS) {
+        const int r = rw % BM, h = rw / BM;
+        float s = 0.f;
+        for (int j = lane + 32 * h; j < NC; j += 32 * wpr) {
+          const float4 x = xs4[r * LD4 + j], a = sA4[j];
+          s = fmaf(x.x, a.x, s);
+          s = fmaf(x.y, a.y, s);
+          s = fmaf(x.z, a.z, s);
+          s = fmaf(x.w, a.w, s);
+        }
+        s = warp_sum(s);
+        if (lane == 0) sP[r * wpr + h] = s;
+      }
+      __syncthreads();
+      // (R) a thread per row: its partial sums in order, loss, residual
+      if (tid < BM) {
+        float z = sb[0];
+        for (int h = 0; h < wpr; ++h) z += sP[tid * wpr + h];
+        const float mr = sm[tid], yr = sy[tid];
+        lsum += (fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - yr * z) * mr;
+        sZ[tid] = (1.f / (1.f + expf(-z)) - yr) * mr;
+      }
+    } else {
+      // (L) a warp per (8 rows, 4 classes) pair
+      const int nkc = KP / 4;
+      for (int p = warp; p < (BM / 8) * nkc; p += WARPS) {
+        const int rb = p / nkc, kc = p % nkc;
+        float sacc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+        for (int j = lane; j < NC; j += 32) {
+          float4 x[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) x[u] = xs4[(rb * 8 + u) * LD4 + j];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 a = sA4[(kc * 4 + k) * NC + j];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              float t = sacc[u * 4 + k];
+              t = fmaf(x[u].x, a.x, t);
+              t = fmaf(x[u].y, a.y, t);
+              t = fmaf(x[u].z, a.z, t);
+              t = fmaf(x[u].w, a.w, t);
+              sacc[u * 4 + k] = t;
+            }
+          }
+        }
+        halve<16>(sacc, lane);
+        halve<8>(sacc, lane);
+        halve<4>(sacc, lane);
+        halve<2>(sacc, lane);
+        halve<1>(sacc, lane);
+        const int c = kc * 4 + lane % 4;
+        sZ[(rb * 8 + lane / 4) * KP + c] = sacc[0] + sb[c];
+      }
+      __syncthreads();
+      // (R) a half warp per row, two rows a warp at once (BM is even, so
+      // both halves run every step): softmax over the K real classes
+      const int sub = lane % 16;
+      for (int r = 2 * warp + lane / 16; r < BM; r += 2 * WARPS) {
+        float* z = sZ + r * KP;
+        const float mr = sm[r];
+        const int yi = (int)sy[r];
+        float zmax = -CUDART_INF_F;
+        for (int c = sub; c < K; c += 16) zmax = fmaxf(zmax, z[c]);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
+        float se = 0.f;
+        for (int c = sub; c < K; c += 16) se += expf(z[c] - zmax);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
+        const float zy = (yi >= 0 && yi < K) ? z[yi] : 0.f;
+        __syncwarp();  // every lane has read z before any lane overwrites it
+        if (sub == 0) lsum += (logf(se) + zmax - zy) * mr;
+        for (int c = sub; c < KP; c += 16)
+          z[c] = c < K ? (expf(z[c] - zmax) / se - (c == yi ? 1.f : 0.f)) * mr : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // (G) R^T [x, 1] into this thread's items, rows in order, four rows'
+    // loads ahead of their FMAs
+    auto grad_rows = [&](int i, int r, auto rows) {
+      constexpr int U = decltype(rows)::value;
+      float4 x[U];
+      float rv[U][KG];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x[u] = xs4[(r + u) * LD4 + gj[i]];
+        if (KG == 1) {
+          rv[u][0] = sZ[r + u];
+        } else {
+          const float4 r4 = reinterpret_cast<const float4*>(sZ + (r + u) * KP)[gk[i]];
+          rv[u][0] = r4.x;
+          rv[u][KG > 1 ? 1 : 0] = r4.y;
+          rv[u][KG > 2 ? 2 : 0] = r4.z;
+          rv[u][KG > 3 ? 3 : 0] = r4.w;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int q = 0; q < KG; ++q) {
+          g[i][q].x = fmaf(rv[u][q], x[u].x, g[i][q].x);
+          g[i][q].y = fmaf(rv[u][q], x[u].y, g[i][q].y);
+          g[i][q].z = fmaf(rv[u][q], x[u].z, g[i][q].z);
+          g[i][q].w = fmaf(rv[u][q], x[u].w, g[i][q].w);
+        }
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+      if (tid + i * THREADS < items) {
+        int r = 0;
+        for (; r + 4 <= nr; r += 4) grad_rows(i, r, std::integral_constant<int, 4>());
+        for (; r < nr; ++r) grad_rows(i, r, std::integral_constant<int, 1>());
+      }
+    }
+  }
+  cp_async_wait<0>();  // the ring's trailing (empty) groups
+
+  // the block partial, written once: every (class, column) of it belongs
+  // to exactly one item of one thread
+  const int D1 = d + 1;
+  float* P = part + (int64_t)blockIdx.x * K * D1;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    if (tid + i * THREADS < items) {
+#pragma unroll
+      for (int q = 0; q < KG; ++q) {
+        const int k = gk[i] * KG + q;
+        if (k < K) {
+          const float v[4] = {g[i][q].x, g[i][q].y, g[i][q].z, g[i][q].w};
+          if (gj[i] < NC) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              if (4 * gj[i] + w < d) P[(int64_t)k * D1 + 4 * gj[i] + w] = v[w];
+          } else {
+            P[(int64_t)k * D1 + d] = v[0];
+          }
+        }
+      }
+    }
+  }
+  lsum = warp_sum(lsum);
+  if (lane == 0) warp_loss[warp] = lsum;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+    for (int w = 0; w < WARPS; ++w) t += warp_loss[w];
+    loss_part[blockIdx.x] = t;
+  }
+}
+
+// Fixed-order sum over the nb block partials: element e < K*(d+1) -> gA /
+// gb, the last element -> loss. A block takes 32 consecutive elements, a
+// lane each; warp w sums partials w, w + 8, ... in order, then warp 0 adds
+// the 8 warps' sums in order. The grid covers every element.
+__global__ void __launch_bounds__(THREADS)
+logreg_reduce_kernel(const float* __restrict__ part, const float* __restrict__ loss_part, int nb,
+                     float* __restrict__ gA, float* __restrict__ gb, float* __restrict__ loss,
+                     int d, int K) {
+  __shared__ float red[WARPS][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t D1 = d + 1;
   const int64_t per = (int64_t)K * D1;
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t e = (int64_t)blockIdx.x * 32 + lane;
+  float v = 0.f;
   if (e < per) {
-    float v = 0.f;
-    for (int bk = 0; bk < nb; ++bk) v += part[bk * per + e];
-    const int64_t k = e / D1, c = e % D1;
-    if (c < d)
-      gA[k * d + c] = v;
-    else
-      gb[k] = v;
+    for (int bk = warp; bk < nb; bk += WARPS) v += part[bk * per + e];
   } else if (e == per) {
-    float v = 0.f;
-    for (int bk = 0; bk < nb; ++bk) v += loss_part[bk];
-    loss[0] = v;
+    for (int bk = warp; bk < nb; bk += WARPS) v += loss_part[bk];
+  }
+  red[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && e <= per) {
+    float t = 0.f;
+    for (int w = 0; w < WARPS; ++w) t += red[w][lane];
+    if (e == per) {
+      loss[0] = t;
+    } else {
+      const int64_t k = e / D1, c = e % D1;
+      if (c < d)
+        gA[k * d + c] = t;
+      else
+        gb[k] = t;
+    }
   }
 }
 
@@ -622,13 +952,17 @@ __global__ void logreg_reduce_kernel(const float* __restrict__ part,
 
 // The caller picks the kernel (ops/logreg_kernels.py::_k3_variant):
 // 10 * NV + 1 for logreg_rows_kernel<NV, 1>, 100 * NV + KP for
-// logreg_mrows_kernel<NV, KP>, anything else for the general kernel.
+// logreg_mrows_kernel<NV, KP>, 1000 + IPT (binomial) and 2000 + IPT
+// (multinomial) for logreg_tile_kernel with its launch geometry (BM, vec
+// and the shared memory the wrapper sized, which must equal
+// tile_smem_floats), anything else for the general kernel.
 extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const float* m,
                                        const float* A, const float* b, float* gA,
                                        float* gb, float* loss, float* part,
                                        float* loss_part, int64_t n, int d, int K,
                                        int multinomial, int RT, int nblocks,
-                                       int64_t rows_per_block, int variant,
+                                       int64_t rows_per_block, int variant, int BM,
+                                       int vec, int smem_bytes, int knock,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * (size_t)RT * K;
@@ -648,28 +982,81 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
         X, y, m, A, b, part, loss_part, n, d, K);                               \
     break;                                                                      \
   }
+#define TILE(KG, IPT)                                                             \
+  case (KG == 1 ? 1000 : 2000) + IPT: {                                           \
+    const size_t bytes = sizeof(float) * tile_smem_floats(d, K, KG, BM);          \
+    if (bytes != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;           \
+    const cudaError_t err = cudaFuncSetAttribute(                                 \
+        logreg_tile_kernel<KG, IPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+        (int)bytes);                                                              \
+    if (err != cudaSuccess) return (int)err;                                      \
+    logreg_tile_kernel<KG, IPT><<<nblocks, THREADS, bytes, st>>>(                 \
+        X, y, m, A, b, part, loss_part, n, d, K, BM, vec);                        \
+    break;                                                                        \
+  }
 #define MROWS_NV(NV)                                                            \
   MROWS(NV, 2) MROWS(NV, 3) MROWS(NV, 4) MROWS(NV, 5) MROWS(NV, 6) MROWS(NV, 7)   \
   MROWS(NV, 8) MROWS(NV, 9) MROWS(NV, 10) MROWS(NV, 11) MROWS(NV, 12)             \
   MROWS(NV, 13) MROWS(NV, 14) MROWS(NV, 15) MROWS(NV, 16)
-  switch (variant) {
+  if (!(knock & KNOCK_NO_PARTIAL)) switch (variant) {
     ROWS(1, 1)
     ROWS(2, 1)
     ROWS(4, 1)
     ROWS(8, 1)
     MROWS_NV(1)
     MROWS_NV(2)
+    TILE(1, 1)
+    TILE(1, 2)
+    TILE(1, 4)
+    TILE(1, 8)
+    TILE(1, 16)
+    TILE(4, 1)
+    TILE(4, 2)
+    TILE(4, 4)
     default:
       logreg_partial_kernel<<<nblocks, THREADS, smem, st>>>(
-          X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block);
+          X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block, knock);
   }
+#undef TILE
 #undef MROWS_NV
 #undef MROWS
 #undef ROWS
   const int64_t total = (int64_t)K * (d + 1) + 1;
-  logreg_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      part, loss_part, nblocks, gA, gb, loss, d, K);
+  if (!(knock & KNOCK_NO_REDUCE))
+    logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, st>>>(
+        part, loss_part, nblocks, gA, gb, loss, d, K);
   return (int)cudaGetLastError();
+}
+
+// registers, local (spill) bytes a thread, resident blocks an SM at `smem`
+// bytes of dynamic shared memory, and that smem: out[0..3], of the kernel
+// a launcher code names (0: the general kernel, 1000 + IPT and 2000 + IPT:
+// the tile kernel's instances) or of the second pass (-1)
+extern "C" int logreg_attributes(int variant, int smem, int* out) {
+  const void* fn = nullptr;
+  switch (variant) {
+    case -1: fn = (const void*)logreg_reduce_kernel; break;
+    case 0: fn = (const void*)logreg_partial_kernel; break;
+    case 1001: fn = (const void*)logreg_tile_kernel<1, 1>; break;
+    case 1002: fn = (const void*)logreg_tile_kernel<1, 2>; break;
+    case 1004: fn = (const void*)logreg_tile_kernel<1, 4>; break;
+    case 1008: fn = (const void*)logreg_tile_kernel<1, 8>; break;
+    case 1016: fn = (const void*)logreg_tile_kernel<1, 16>; break;
+    case 2001: fn = (const void*)logreg_tile_kernel<4, 1>; break;
+    case 2002: fn = (const void*)logreg_tile_kernel<4, 2>; break;
+    case 2004: fn = (const void*)logreg_tile_kernel<4, 4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, THREADS, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
 }
 
 extern "C" const char* kernel_error_string(int code) {

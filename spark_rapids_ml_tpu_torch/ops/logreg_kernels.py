@@ -14,7 +14,7 @@ intercept centring.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +32,80 @@ _LOGREG_SMEM = 48 * 1024
 _LOGREG_SCRATCH = 256 << 20
 # logreg_mrows_kernel: 8 warps a block
 _MROWS_WARPS = 8
+# logreg_tile_kernel: threads a block; the shared memory one block an SM
+# can have on an H100, and each of two (the SM's 233,472 B halved, less
+# the 1 KB reserved a block and the kernel's 32 static bytes); the
+# gradient items a thread can own (its instances); the rows a tile may take
+# (multiples of 8 for the multinomial logits' 8-row blocks, powers of 2 for
+# the binomial form's warps per row); ring slots (the source's TILE_STAGES)
+_TILE_THREADS = 256
+_TILE_SMEM_MAX = 232_448
+_TILE_SMEM_TWO = 115_680
+_TILE_IPT = {False: (1, 2, 4, 8, 16), True: (1, 2, 4)}
+_TILE_BM = {False: (64, 32, 16, 8, 4, 2, 1), True: (64, 56, 48, 40, 32, 24, 16, 8)}
+_TILE_STAGES = 2
+
+
+class TileGeometry(NamedTuple):
+    """``logreg_tile_kernel``'s launch: ``items`` (class group, 16-byte
+    column chunk) items of the block gradient, the intercept chunk
+    included, ``ipt`` of them a thread at most (the instance), ``BM`` rows a
+    tile, ``smem`` bytes of shared memory a block,
+    ``blocks_per_sm`` resident blocks an SM and ``grid`` blocks (at most
+    one a tile)."""
+
+    ipt: int
+    items: int
+    BM: int
+    smem: int
+    blocks_per_sm: int
+    grid: int
+
+
+def _tile_smem(d: int, K: int, multinomial: bool, BM: int) -> int:
+    """Bytes of shared memory of a tile-kernel block (the source's
+    ``tile_smem_floats``): A padded to (KP, DP), b padded to 16 bytes, the
+    logits (binomial: and the partial logits of 8 / BM warps a row), and
+    ``_TILE_STAGES`` slots of BM rows of DP + 4 floats with their m and y."""
+    dp = -(-d // 4) * 4
+    kp = -(-K // 4) * 4 if multinomial else 1
+    z = BM * kp if multinomial else -(-(BM + max(BM, 8)) // 4) * 4
+    return 4 * (kp * dp + -(-kp // 4) * 4 + z + _TILE_STAGES * (BM * (dp + 4) + -(-2 * BM // 4) * 4))
+
+
+def _tile_rows_score(BM: int, K: int, multinomial: bool) -> float:
+    """Rows a tile times the share of the 8 warps' logit rounds that hold
+    a (8-row block, 4-class chunk) pair (multinomial; 1 for the binomial
+    form, whose BM rows split evenly over the warps)."""
+    if not multinomial:
+        return float(BM)
+    pairs = (BM // 8) * (-(-K // 4))
+    return BM * pairs / (8 * -(-pairs // 8))
+
+
+def _tile_geometry(n: int, d: int, K: int, multinomial: bool, sms: int = 132) -> Optional[TileGeometry]:
+    """The tile kernel's launch for ``n`` rows of ``d`` features and ``K``
+    classes, or None where the block gradient or the ring does not fit
+    (the general kernel takes those). Binomial: two resident blocks an SM
+    where a two-slot ring fits twice (one block's barriers then overlap
+    the other's work), with the most rows a tile; multinomial (its
+    registers allow one block): the best :func:`_tile_rows_score` that
+    fits."""
+    kg = 4 if multinomial else 1
+    kp = -(-K // 4) * 4 if multinomial else 1
+    items = (kp // kg) * (-(-d // 4) + 1)
+    ipt = next((i for i in _TILE_IPT[multinomial] if i * _TILE_THREADS >= items), None)
+    if ipt is None or d < 1 or K < 1:
+        return None
+    budgets = [(2, _TILE_SMEM_TWO), (1, _TILE_SMEM_MAX)] if not multinomial else [(1, _TILE_SMEM_MAX)]
+    for bps, budget in budgets:
+        rows = [b for b in _TILE_BM[multinomial] if _tile_smem(d, K, multinomial, b) <= budget]
+        if rows:
+            bm = max(rows, key=lambda b: (_tile_rows_score(b, K, multinomial), b))
+            smem = _tile_smem(d, K, multinomial, bm)
+            grid = max(1, min(-(-max(n, 1) // bm), sms * bps))
+            return TileGeometry(ipt, items, bm, smem, bps, grid)
+    return None
 
 
 def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
@@ -39,15 +113,22 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     the launcher's code: ``10·NV + 1`` for the binomial row-per-warp kernel
     (K = 1, d ≤ 1024, NV ∈ {1, 2, 4, 8} float4 chunks a lane), ``100·NV +
     K`` for the multinomial register-row kernel (2 ≤ K ≤ 16, d ≤ 256,
-    NV ∈ {1, 2}), 0 for the general kernel. The first two need d a
-    multiple of 4 and 16-byte aligned X and A (``aligned``)."""
-    if not aligned or d % 4 or d < 1:
+    NV ∈ {1, 2}), ``1000 + IPT`` (binomial) or ``2000 + IPT``
+    (multinomial) for the tile kernel with IPT gradient items a thread,
+    where :func:`_tile_geometry` fits, and 0 for the general kernel. The
+    first two need d a multiple of 4 and 16-byte aligned X and A
+    (``aligned``); the tile kernel takes any."""
+    if d < 1:
         return 0
-    nv = -(-d // 128)
-    if K == 1 and d <= 1024:
-        return 10 * (1 if nv <= 1 else 2 if nv <= 2 else 4 if nv <= 4 else 8) + 1
-    if multinomial and 2 <= K <= 16 and d <= 256:
-        return 100 * nv + K
+    if aligned and d % 4 == 0:
+        nv = -(-d // 128)
+        if K == 1 and d <= 1024:
+            return 10 * (1 if nv <= 1 else 2 if nv <= 2 else 4 if nv <= 4 else 8) + 1
+        if multinomial and 2 <= K <= 16 and d <= 256:
+            return 100 * nv + K
+    geo = _tile_geometry(1, d, K, multinomial)
+    if geo is not None:
+        return (2000 if multinomial else 1000) + geo.ipt
     return 0
 
 
@@ -84,6 +165,24 @@ def logreg_loss_grad(
     Replaces ``spark_rapids_ml_tpu/ops/logreg_pallas.py::_loss_grad_pallas``."""
     if X.device.type == "cpu":
         return logreg_loss_grad_plain(X, y, m, A, b, multinomial)
+    variant = _k3_variant(X.shape[1], A.shape[0], multinomial,
+                          X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
+    out = _logreg_run(X, y, m, A, b, multinomial, variant)
+    logreg_loss_grad.launches += 1
+    logreg_loss_grad.variants[variant] = logreg_loss_grad.variants.get(variant, 0) + 1
+    return out
+
+
+def _logreg_run(
+    X: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+    A: torch.Tensor, b: torch.Tensor, multinomial: bool, variant: int,
+    knock: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K3 on card tensors: the kernel ``variant`` names (the tile
+    kernel at its routed geometry), then the second pass. ``knock`` is a probe's bit mask
+    (1: the first kernel alone, 2: the second pass alone, 4 and 8: the
+    general kernel's gradient stage without its X re-read or its per-tile
+    partial write); any bit makes the result wrong."""
     _check_cuda_f32("logreg_loss_grad", X, y, m, A, b)
     n, d = X.shape
     K = A.shape[0]
@@ -102,9 +201,14 @@ def logreg_loss_grad(
     dev = X.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block = K * (d + 1)
-    variant = _k3_variant(d, K, multinomial, X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
     rows = 0
-    if variant >= 100:  # one resident block per SM walks the row groups
+    geo = TileGeometry(0, 0, 0, 0, 0, 0)
+    if variant >= 1000:  # one resident block per SM walks the row tiles
+        geo = _tile_geometry(n, d, K, multinomial, sms)
+        if geo is None or variant % 1000 != geo.ipt or variant // 1000 != 1 + multinomial:
+            raise ValueError(f"logreg_loss_grad: the tile kernel {variant} does not take d = {d}, K = {K}")
+        nblocks = geo.grid
+    elif variant >= 100:  # one resident block per SM walks the row groups
         groups = -(-max(n, 1) // (4 if K <= 8 else 2))  # rows a group
         nblocks = max(1, min(-(-groups // _MROWS_WARPS), sms))
     elif variant:
@@ -121,20 +225,34 @@ def logreg_loss_grad(
     fn = _build.function(
         "logreg_loss_grad", "logreg_loss_grad_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, ctypes.c_int, _P],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     )
+    vec = int(d % 4 == 0 and X.data_ptr() % 16 == 0)
     code = fn(
         X.data_ptr(), y.data_ptr(), m.data_ptr(), A.data_ptr(), b.data_ptr(),
         gA.data_ptr(), gb.data_ptr(), loss.data_ptr(), part.data_ptr(),
         loss_part.data_ptr(), n, d, K, int(multinomial), rt, nblocks, rows, variant,
-        torch.cuda.current_stream(dev).cuda_stream,
+        geo.BM, vec, geo.smem, knock, torch.cuda.current_stream(dev).cuda_stream,
     )
-    logreg_loss_grad.launches += 1
     _build.check("logreg_loss_grad", code)
     return loss[0], gA, gb
 
 
+def _logreg_attributes(variant: int, smem: int = 0) -> Tuple[int, int, int, int]:
+    """(registers, spill bytes, resident blocks an SM, shared memory) of
+    K3's kernel ``variant`` (0: the general kernel, 1000 + IPT and 2000 +
+    IPT: the tile kernel's instances, -1: the second pass) at ``smem``
+    bytes of dynamic shared memory, from the CUDA runtime's occupancy
+    calculator."""
+    fn = _build.function("logreg_loss_grad", "logreg_attributes", [ctypes.c_int, ctypes.c_int, _P])
+    out = (ctypes.c_int * 4)()
+    _build.check("logreg_loss_grad", fn(variant, smem, ctypes.addressof(out)))
+    return tuple(out)
+
+
 logreg_loss_grad.launches = 0
+logreg_loss_grad.variants = {}  # launches by launcher code (_k3_variant)
 
 
 class _FusedDataLoss(torch.autograd.Function):
