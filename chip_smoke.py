@@ -47,8 +47,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (a view of the 12M x 256 rows, with its controls), each of which must
    run the tile kernel and beat its plain version, at ragged shapes (d =
    3,001, d % 4 != 0 with many classes, bases 4 bytes off 16-byte
-   alignment, fewer rows than a tile), and the general kernel past the
-   tile kernel's cap (200,000 x 1,024, K = 64); the
+   alignment, fewer rows than a tile); K3's route past the tile kernel's
+   cap (multinomial 2 <= K <= 256: logits and gradient as two 3xTF32
+   ``wgmma`` products, the softmax in the first one's epilogue) timed
+   beside its autograd call at 200,000 rows of d = 256 and 1,024 (K = 64)
+   and d = 2,048 (K = 120), and at the logreg_many fit's 1,024,000 x 1,024
+   (K = 64, a view of the 12M x 256 rows), each with its controls (a
+   one-pass TF32 version of its products among them), each of which must
+   run the route and beat its plain version, and at ragged shapes that
+   launch every instance (d % 4 != 0, a base off alignment, fewer rows than
+   a tile, padded classes, K = 2 at d = 5,000, K = 256, two launch pairs);
+   the general kernel at the shapes it keeps (100,000 x 2,048, K = 1,000;
+   20,000 x 20,000, K = 1), timed beside its autograd call; the
    forest kernels at the builder's own level layouts: K5 per node (every
    node's histogram of a level in one launch: rows read through the sort
    permutation, spans of SPAN_ROWS rows summed in row order and a node's
@@ -91,7 +101,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    with labels from a numpy hyperplane plus logistic noise (K3's tile
    kernel: its launches under ``launches_by_path["logreg_wide"]``), and its
    first 50,000 rows fitted with maxIter=20 on the card and on the CPU and
-   compared; NearestNeighbors(k=16).kneighbors of the
+   compared; a 64-class LogisticRegression(maxIter=20, regParam=1e-5) on
+   1,024,000 x 1,024 rows, a zero-copy view of the same host rows, with
+   labels argmax(X W + Gumbel noise) from numpy (K3's route past the tile
+   kernel's cap: its launches under ``launches_by_path["logreg_many"]``),
+   held to the label map's own accuracy less 0.02, and its first 20,000
+   rows fitted on the card and on the CPU and compared;
+   NearestNeighbors(k=16).kneighbors of the
    first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
    n_neighbors=15, random_state=42) fit, transform and save/load at
    65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
@@ -139,13 +155,16 @@ alone) and the other stage depths.
 
     python3 chip_smoke.py --logreg-only [--sweep]
 
-is a probe of K3: at the general route's three timed shapes (200,000
-rows) and at 1,024,000 x 3,000, each held with its controls and timed as
-the whole call, its first kernel alone and its second pass alone, for the
-routed kernel and the general kernel, with registers, spills and resident
-blocks, then the ragged tile shapes; ``--sweep`` adds the general
-kernel's gradient stage without its X re-read or its per-tile partial
-write. It prints no result line and exits 1 if a check failed.
+is a probe of K3: at the route's four timed shapes, the shapes the
+general kernel keeps and the tile kernel's <1, 8> and <1, 16> instances,
+each held with its controls and timed as the whole call, its first
+kernel (the route: its two kernels, and its logits kernel alone) and its
+second pass alone, for the routed kernel and, forced by its code, the
+general kernel (so route and general kernel stand side by side in one
+call), with registers, spills and resident blocks, then the ragged tile
+and route shapes; ``--sweep`` adds the general kernel's gradient stage
+without its X re-read or its per-tile partial write. It prints no result
+line and exits 1 if a check failed.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -578,6 +597,8 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     code = lk._k3_variant(d, K, multinomial, aligned)
     if code == 0:
         return "general"
+    if code >= 3000:
+        return "route(N=2x128)" if code == 3256 else f"route(N={code - 3000})"
     if code >= 1000:
         return f"tile(KG={1 if code < 2000 else 4}, IPT={code % 1000})"
     return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
@@ -600,7 +621,8 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
           f"logreg_loss_grad {n}x{d} K={K}: |dgA|/tol {r_gA:.3g}, |dgb|/tol {r_gb:.3g} "
           f"or |dloss|/tol {r_loss:.3g} above 1")
     aligned = X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0
-    out = {"n": n, "d": d, "K": K, "variant": k3_variant(lk, d, K, multinomial, aligned),
+    variant = k3_variant(lk, d, K, multinomial, aligned)
+    out = {"n": n, "d": d, "K": K, "variant": variant,
            "max_abs_err": err, "err_over_tol": r_gA,
            "loss_rel_err": abs(float(loss) - float(lr)) / abs(float(lr)),
            "loss_err_over_tol": r_loss, "gb_err": gb_err, "gb_err_over_tol": r_gb}
@@ -614,6 +636,16 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
             "gA[:, 128:] zeroed": tile,
             f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]": lost,
         }, gAr, T_gA, n)
+        if variant.startswith("route"):
+            # for information, not a control: the same sums with both products
+            # in one-pass TF32 (hi * hi' alone) sit inside this band too (a
+            # sum over n rows of terms whose rounding does not drift one way)
+            from spark_rapids_ml_tpu_torch.ops.knn_kernels import tf32_round
+
+            Xt = tf32_round(X)
+            one = logreg_reference(torch, lk, Xt, yk, m, tf32_round(A), b, multinomial)[1]
+            out["one_pass_tf32_err_over_tol"] = held(torch, one, gAr, T_gA, n)[1]
+            del Xt, one
     if reps:
         def library():  # autograd of the plain loss
             Ar = A.detach().requires_grad_(True)
@@ -632,6 +664,9 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
         nbytes = 4.0 * (n * d + 2 * n + 2 * K * d + 2 * K + 1)
         flops = 4.0 * n * K * d + 10.0 * n * K  # logits + R^T x, loss/residual
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        if variant.startswith("route"):  # its two products in 3xTF32 on the tensor cores
+            out["bound_f32_ms"] = out["bound_ms"]
+            out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 3.0 * 4.0 * n * K * d, PEAK_TF32_FLOPS)
     return out
 
 
@@ -879,16 +914,23 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     # K3's tile kernel at the general route's three timed shapes (the
     # reference's CI width, and multinomial fits past the register-row
     # kernel's d <= 256 and K <= 16), at the wide fit's 1,024,000 x 3,000
-    # (a zero-copy view of the 12M x 256 rows, with the controls), and the
-    # general kernel past the tile kernel's cap
-    for d_r, K_r in K3_GENERAL_SHAPES + ((K3_PAST_CAP_D, K3_PAST_CAP_K),):
-        Xr = torch.randn(K3_GENERAL_ROWS, d_r, generator=g, device=dev)
-        mr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.1).float()
-        yr = (torch.rand(K3_GENERAL_ROWS, generator=g, device=dev) > 0.5).float()
-        key = k3_key(d_r, K_r)
-        res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed)
+    # (a zero-copy view of the 12M x 256 rows, with the controls); the
+    # route past the tile kernel's cap at its four timed shapes (the
+    # logreg_many fit's 1,024,000 x 1,024 a view of the same rows), with
+    # the controls; and the general kernel at the shapes it keeps
+    for n_r, d_r, K_r, ctl in ([(K3_GENERAL_ROWS, d, K, False) for d, K in K3_GENERAL_SHAPES]
+                               + [(n, d, K, True) for n, d, K in K3_ROUTE_SHAPES + K3_GENERAL_KEPT]):
+        if n_r * d_r <= X.numel() and n_r > K3_GENERAL_ROWS:
+            Xr = X.reshape(-1)[:n_r * d_r].view(n_r, d_r)
+        else:
+            Xr = torch.randn(n_r, d_r, generator=g, device=dev)
+        mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
+        yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
+        key = k3_key(n_r, d_r, K_r)
+        res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed, control=ctl)
         emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": key, **res[key]})
-        del Xr
+        del Xr, mr, yr
+        torch.cuda.empty_cache()
     n_w = n_rows * E2E_D // LOGREG_WIDE_D
     if n_w:
         Xw = X.reshape(-1)[:n_w * LOGREG_WIDE_D].view(n_w, LOGREG_WIDE_D)
@@ -901,26 +943,39 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     return res
 
 
-def k3_key(d, K) -> str:
-    """The measurement key of K3 at one of the timed shapes of
-    K3_GENERAL_SHAPES or the past-cap shape."""
-    return f"logreg_loss_grad_{'general' if (d, K) == (K3_PAST_CAP_D, K3_PAST_CAP_K) else 'tile'}_d{d}_K{K}"
+def k3_key(n, d, K) -> str:
+    """The measurement key of K3 at a timed shape: the tile kernel's of
+    K3_GENERAL_SHAPES, the route's of K3_ROUTE_SHAPES, the general
+    kernel's of K3_GENERAL_KEPT."""
+    if (n, d, K) in K3_ROUTE_SHAPES:
+        return f"logreg_loss_grad_route_n{n}_d{d}_K{K}"
+    if (n, d, K) in K3_GENERAL_KEPT:
+        return f"logreg_loss_grad_general_n{n}_d{d}_K{K}"
+    return f"logreg_loss_grad_tile_d{d}_K{K}"
 
 
 def k3_gates(res) -> dict:
     """K3's gates: the tile kernel ran each timed shape of
-    K3_GENERAL_SHAPES and the wide fit's, each below its plain version,
-    and the general kernel the past-cap shape. Returns each gate's
-    verdict; the caller fails the run on any False."""
+    K3_GENERAL_SHAPES and the wide fit's, the route each of
+    K3_ROUTE_SHAPES (past the tile kernel's cap), each below its plain
+    version, and the general kernel each shape it keeps
+    (K3_GENERAL_KEPT). Returns each gate's verdict; the caller fails the
+    run on any False."""
     out = {}
-    keys = [k3_key(d, K) for d, K in K3_GENERAL_SHAPES] + (
+    keys = [k3_key(K3_GENERAL_ROWS, d, K) for d, K in K3_GENERAL_SHAPES] + (
         ["logreg_loss_grad_tile_wide"] if "logreg_loss_grad_tile_wide" in res else [])
     for key in keys:
         r = res[key]
         out[f"{key}_ran_tile"] = r["variant"].startswith("tile")
         if "ms" in r:
             out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
-    out["past_cap_ran_general"] = res[k3_key(K3_PAST_CAP_D, K3_PAST_CAP_K)]["variant"] == "general"
+    for key in (k3_key(n, d, K) for n, d, K in K3_ROUTE_SHAPES):
+        r = res[key]
+        out[f"{key}_ran_route"] = r["variant"].startswith("route")
+        if "ms" in r:
+            out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+    for key in (k3_key(n, d, K) for n, d, K in K3_GENERAL_KEPT):
+        out[f"{key}_ran_general"] = res[key]["variant"] == "general"
     return out
 
 
@@ -931,52 +986,89 @@ K3_RAGGED_TILE = ((100_003, 3001, 1, 0), (100_003, 3000, 1, 1), (50_001, 124, 1,
                   (100_003, 257, 20, 0), (1_037, 130, 3, 0), (5, 3000, 1, 0), (7, 300, 5, 0),
                   (20_011, 4, 300, 0), (20_011, 1152, 1, 0), (20_011, 6000, 1, 0), (4_099, 16_380, 1, 0),
                   (20_011, 255, 32, 1))
+# the route past the tile kernel's cap at every instance (wgmma N 16, 32,
+# 64, 128 and 2 x 128) off its tiles: d % 4 != 0 and a base 4 bytes off
+# 16-byte alignment (4-byte cp.async copies in place of TMA), fewer rows
+# than a row tile, K not a multiple of 8 (padded classes live), K = 2 at
+# d = 5,000, K = 256, K = 120 at d = 2,048, 130 classes (the second
+# warpgroup's 126 padded), and rows past one launch pair's R^T scratch
+# (two chunks at 256 classes)
+K3_RAGGED_ROUTE = ((20_011, 1023, 64, 0), (20_011, 1024, 24, 1), (100, 2000, 10, 0), (20_011, 512, 37, 0),
+                   (20_011, 5000, 2, 0), (20_011, 300, 256, 0), (20_011, 2048, 120, 0), (20_011, 130, 130, 1),
+                   (300_000, 260, 256, 0))
 
 
 def ragged_logreg_checks(torch, lk, g, seed):
-    """K3 at K3_RAGGED_TILE, each held against its f64 plain version and
-    naming the kernel that ran it (its launcher code, as counted by the
-    wrapper): d % 4 != 0, a base 4 bytes off 16-byte alignment (4-byte
-    copies), fewer rows than a tile or than the grid, more classes than a
-    block has threads. Fails unless every instance of the tile kernel
-    launched."""
+    """K3 at K3_RAGGED_TILE and K3_RAGGED_ROUTE, each held against its f64
+    plain version and naming the kernel that ran it (its launcher code, as
+    counted by the wrapper): d % 4 != 0, a base 4 bytes off 16-byte
+    alignment (4-byte copies), fewer rows than a tile or than the grid,
+    more classes than a block has threads, padded classes. Fails unless
+    every instance of the tile kernel and of the route launched."""
     dev = g.device
     launched = set()
-    for n_r, d_r, K_r, offset in K3_RAGGED_TILE:
+    for n_r, d_r, K_r, offset in K3_RAGGED_TILE + K3_RAGGED_ROUTE:
         buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + 3.0
         Xr = buf[offset:].view(n_r, d_r)
         mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
         yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
         before = dict(lk.logreg_loss_grad.variants)
-        r = check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed)
+        # the route's every instance with the controls too (most run only here)
+        r = check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed, control=(n_r, d_r, K_r, offset) in K3_RAGGED_ROUTE)
         codes = [c for c, v in lk.logreg_loss_grad.variants.items() if v != before.get(c, 0)]
         check(len(codes) == 1, f"logreg_loss_grad {n_r}x{d_r} K={K_r}: launched codes {codes}, not one")
         launched.update(codes)
         emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True, "misaligned": bool(offset),
-              "code": codes[0], **r})
+              "code": codes[0], **{k: v for k, v in r.items() if k != "controls"},
+              **({"controls": [(c["control"], c["err_over_tol"]) for c in r["controls"]]} if "controls" in r else {})})
         del buf, Xr
     tile = {1000 + i for i in lk._TILE_IPT[False]} | {2000 + i for i in lk._TILE_IPT[True]}
     check(tile <= launched, f"logreg_loss_grad: tile instances {sorted(tile - launched)} never launched")
+    route = {3000 + bn for bn in lk._ROUTE_BN} | {3256}
+    check(route <= launched, f"logreg_loss_grad: route instances {sorted(route - launched)} never launched")
 
 
-# K3's general kernel, timed (rows, then (d, K)): the reference's CI smoke
+# K3's tile kernel, timed (rows, then (d, K)): the reference's CI smoke
 # width (BASELINE.md, binomial), and 10 and 32 classes past the
 # multinomial register-row kernel's d <= 256, K <= 16
 K3_GENERAL_ROWS = 200_000
 K3_GENERAL_SHAPES = ((3000, 1), (512, 10), (256, 32))
-# past the tile kernel's cap (16 four-class groups x 257 chunks): the
-# general kernel, timed beside its autograd call
-K3_PAST_CAP_D = 1024
-K3_PAST_CAP_K = 64
 # the reference's LogisticRegression benchmark (BASELINE.md: 1M x 3,000
 # f32, binomial, maxIter 200): 1,024,000 x 3,000 is the 12M x 256 buffer
 LOGREG_WIDE_ROWS = 1_024_000
 LOGREG_WIDE_D = 3000
 # the wide fit's rows fitted on the card and on the CPU (maxIter 20)
 LOGREG_WIDE_SUBSET = 50_000
+# logreg_many: a 64-class LogisticRegression over 1,024-wide rows (inside
+# the JAX package's Pallas gate: d % 128 == 0, K <= 120), 1,024,000 x
+# 1,024 as a view of the 12M x 256 rows: K3's route past the tile
+# kernel's cap; its first 20,000 rows fitted on the card and on the CPU
+LOGREG_MANY_ROWS = 1_024_000
+LOGREG_MANY_D = 1024
+LOGREG_MANY_CLASSES = 64
+LOGREG_MANY_SUBSET = 20_000
+# the label map's weights: W ~ N(0, LOGREG_MANY_W^2)
+LOGREG_MANY_W = 0.2
+# card vs CPU on the subset: 20 L-BFGS steps in f32 on each side, the
+# card's products in 3xTF32 (f32 rounding, other sums): the 12M path's
+# coefficient tolerance and the 10-class path's agreement; a disagreement
+# whose top two logits (CPU model) lie within MANY_NEAR_TIE is a near tie
+MANY_COEF_TOL = 0.05
+MANY_AGREE_MIN = 0.995
+MANY_NEAR_TIE = 1e-3
+# K3's route past the tile kernel's cap (two 3xTF32 products), timed
+# (rows, d, K): 64 classes at d = 256 and 1,024, the corner of the JAX
+# package's Pallas gate (d = 2,048, K = 120), and the logreg_many fit's
+# 1,024,000 x 1,024
+K3_ROUTE_SHAPES = ((200_000, 256, 64), (200_000, 1024, 64), (200_000, 2048, 120), (1_024_000, 1024, 64))
+# shapes the general kernel keeps (K > 256; binomial d > 16,380), timed
+# beside their autograd call
+K3_GENERAL_KEPT = ((100_000, 2048, 1000), (20_000, 20_000, 1))
+# the tile kernel's <1, 8> (binomial 4,092 < d <= 8,188) and <1, 16>
+# (8,188 < d <= 16,380) instances, timed
+K3_TILE_WIDE = ((200_000, 8000, 1), (100_000, 16_380, 1))
 # --logreg-only: (rows, d, K)
-K3_PROBE_SHAPES = tuple((K3_GENERAL_ROWS, d, K) for d, K in K3_GENERAL_SHAPES) + (
-    (LOGREG_WIDE_ROWS, LOGREG_WIDE_D, 1),)
+K3_PROBE_SHAPES = K3_ROUTE_SHAPES + K3_GENERAL_KEPT + K3_TILE_WIDE
 
 
 # K2 at k = 1024 must take at most three quarters of the 194.61 ms of the
@@ -2141,6 +2233,99 @@ def phase_logreg_wide_subset(torch, Xw, y, rows):
     return launches
 
 
+def many_data(torch, X_host, seed):
+    """The logreg_many fit's rows, a zero-copy (1,024,000, 1,024) view of
+    the N x 256 host rows (fewer rows where N x 256 holds fewer), and
+    labels argmax(X W + Gumbel noise) with W (1,024 x 64) and the noise
+    drawn by numpy from ``seed`` (the products on the card). Also the
+    accuracy of the label map itself, argmax(X W), on those labels."""
+    n_m = min(LOGREG_MANY_ROWS, X_host.size // LOGREG_MANY_D)
+    Xm = X_host.reshape(-1)[:n_m * LOGREG_MANY_D].reshape(n_m, LOGREG_MANY_D)
+    rng = np.random.default_rng(seed + 14)
+    W = torch.from_numpy((rng.normal(size=(LOGREG_MANY_D, LOGREG_MANY_CLASSES)) * LOGREG_MANY_W).astype(np.float32))
+    W = W.to("cuda:0")
+    noise = rng.gumbel(size=(n_m, LOGREG_MANY_CLASSES)).astype(np.float32)
+    y = np.empty(n_m, np.float32)
+    hits = 0
+    for lo in range(0, n_m, 1 << 17):
+        z = torch.from_numpy(Xm[lo:lo + (1 << 17)]).to("cuda:0") @ W
+        lab = (z + torch.from_numpy(noise[lo:lo + (1 << 17)]).to("cuda:0")).argmax(dim=1)
+        hits += int((z.argmax(dim=1) == lab).sum())
+        y[lo:lo + lab.shape[0]] = lab.cpu().numpy()
+    return Xm, y, hits / n_m
+
+
+def phase_logreg_many(torch, Xm, y, oracle_acc):
+    """LogisticRegression(maxIter=20, regParam=1e-5) with 64 classes on
+    the logreg_many rows through ``DataFrame``: fit then transform on the
+    card. Every K3 launch must run the route past the tile kernel's cap.
+    Returns its launches in the fit, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": Xm, "label": y})
+    n = Xm.shape[0]
+    placed, t_h2d = _timed(torch, lambda: torch.from_numpy(Xm).to("cuda:0"))
+    del placed
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5).fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    out, t_tr = _timed(torch, lambda: lrm.transform(df))
+    acc = float((out.column("prediction") == y).mean())
+    emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_many", "rows": n,
+          "d": Xm.shape[1], "classes": LOGREG_MANY_CLASSES, "maxIter": 20, "regParam": 1e-5,
+          "host_to_device_s": t_h2d, "host_to_device_gb_per_s": Xm.nbytes / t_h2d / 1e9, "fit_s": t_fit,
+          "transform_s": t_tr, "fit_rows_per_s": n / t_fit, "n_iter": lrm.n_iter_, "accuracy": acc,
+          "label_map_accuracy": oracle_acc, "variant": k3_variant(lk, Xm.shape[1], LOGREG_MANY_CLASSES, True),
+          "logreg_loss_grad_launches": launches, "launches_by_variant": variants})
+    check(lrm.coefficientMatrix.shape == (LOGREG_MANY_CLASSES, Xm.shape[1])
+          and np.isfinite(lrm.coefficientMatrix).all() and np.isfinite(out.column("probability")).all(),
+          "64-class LogReg coefficients or probabilities not finite/shape")
+    check(launches > 0 and all(v >= 3000 for v in variants), f"the 64-class fit's K3 launches {variants} "
+          "did not all run the route")
+    check(acc >= oracle_acc - 0.02, f"64-class LogReg accuracy {acc} below its label map's {oracle_acc} - 0.02")
+    return launches
+
+
+def phase_logreg_many_subset(torch, Xm, y, rows):
+    """The logreg_many fit on its first ``rows`` rows with maxIter=20, on
+    the card (the route) and on the CPU (plain path). Held to
+    MANY_COEF_TOL and MANY_AGREE_MIN; the disagreements are counted, with
+    the share of them whose CPU model's top two logits lie within
+    MANY_NEAR_TIE of each other. Returns the card fit's K3 launches,
+    counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": Xm[:rows], "label": y[:rows]})
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lg, t_card = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5, device="cuda:0").fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    t = time.perf_counter()
+    lc = LogisticRegression(maxIter=20, regParam=1e-5, device="cpu").fit(df)
+    t_cpu = time.perf_counter() - t
+    coef_err = float(np.abs(lg.coefficientMatrix - lc.coefficientMatrix).max()
+                     / np.abs(lc.coefficientMatrix).max())
+    og, oc = lg.transform(df), lc.transform(df)
+    dis = og.column("prediction") != oc.column("prediction")
+    top2 = np.sort(oc.column("rawPrediction"), axis=1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= MANY_NEAR_TIE
+    agree = 1.0 - float(dis.mean())
+    emit({"phase": "subset", "estimator": "LogisticRegression", "path": "logreg_many_card_vs_cpu", "rows": rows,
+          "d": Xm.shape[1], "classes": LOGREG_MANY_CLASSES, "maxIter": 20, "card_fit_s": t_card,
+          "cpu_fit_s": t_cpu, "n_iter_card": lg.n_iter_, "n_iter_cpu": lc.n_iter_,
+          "logreg_loss_grad_launches": launches, "launches_by_variant": variants, "coef_rel_err": coef_err,
+          "coef_tol": MANY_COEF_TOL, "prediction_agreement": agree, "agreement_min": MANY_AGREE_MIN,
+          "disagreements": int(dis.sum()), "near_tie_band": MANY_NEAR_TIE,
+          "disagreements_near_tie_share": float(near[dis].mean()) if dis.any() else None})
+    check(launches > 0 and all(v >= 3000 for v in variants), f"the 64-class card fit's K3 launches {variants} "
+          "did not all run the route")
+    check(coef_err <= MANY_COEF_TOL and agree >= MANY_AGREE_MIN, "64-class LogReg card vs CPU beyond tolerance")
+    return launches
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -2889,14 +3074,17 @@ def k3_inputs(torch, n, d, K, seed, dev):
 
 def logreg_probe(torch, args, dev) -> int:
     """``--logreg-only``: K3 alone at the shapes of K3_PROBE_SHAPES (the
-    general route's three timed shapes and the wide fit's 1,024,000 x
-    3,000), each held against its f64 plain version (``check_logreg``) and
-    timed by CUDA events as the whole call, its first kernel alone and its
-    second pass alone, for the routed kernel and, where that is another,
-    for the general kernel too; with the kernels' registers, spills and
-    resident blocks. ``--sweep`` adds the general kernel with its gradient
-    stage's X re-read or its per-tile partial write knocked out (timed
-    only: the results are then wrong)."""
+    route's four timed shapes, the shapes the general kernel keeps, and
+    the tile kernel's <1, 8> and <1, 16> instances), each held against its
+    f64 plain version (``check_logreg``, with its controls) and timed by
+    CUDA events as the whole call, its first kernel (the route: its two
+    kernels; its logits kernel alone too) and its second pass alone, for
+    the routed kernel and, where that is another, for the general kernel
+    forced by its code, so that route and general kernel stand side by
+    side in one call; with the kernels' registers, spills and resident
+    blocks, then the ragged K3 shapes. ``--sweep`` adds the general
+    kernel with its gradient stage's X re-read or its per-tile partial
+    write knocked out (timed only: the results are then wrong)."""
     from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
 
     reps = max(args.reps, 10)
@@ -2917,7 +3105,7 @@ def logreg_probe(torch, args, dev) -> int:
             def run(knock=0):
                 return lk._logreg_run(X, y_k, m, A, b, multinomial, variant, knock)
 
-            if variant >= 1000:  # the routed launch's resident blocks must fit
+            if 1000 <= variant < 3000:  # the routed launch's resident blocks must fit
                 geo = lk._tile_geometry(n, d, K, multinomial)
                 fits = lk._logreg_attributes(variant, geo.smem)[2]
                 if fits < geo.blocks_per_sm:
@@ -2926,6 +3114,8 @@ def logreg_probe(torch, args, dev) -> int:
                  "first_kernel_ms": cuda_ms(torch, lambda: run(1), reps),
                  "second_pass_ms": cuda_ms(torch, lambda: run(2), reps),
                  "attributes": lk_attributes(lk, variant, n, d, K, multinomial)}
+            if variant >= 3000:  # the logits kernel (and the operands' split) alone
+                r["logits_kernel_ms"] = cuda_ms(torch, lambda: run(1 | 16), reps)
             if args.sweep and variant == 0:
                 for what, knock in (("no_x_reread", 4), ("no_tile_write", 8), ("neither", 12)):
                     r[f"first_kernel_{what}_ms"] = cuda_ms(torch, lambda: run(1 | knock), reps)
@@ -2946,16 +3136,22 @@ def logreg_probe(torch, args, dev) -> int:
 
 def lk_attributes(lk, variant, n, d, K, multinomial) -> dict:
     """Registers, spill bytes, resident blocks an SM and shared memory of
-    K3's first kernel ``variant`` at this shape, and of its second pass."""
+    K3's first kernel ``variant`` at this shape (the route: of each of its
+    two kernels), and of its second pass."""
     keys = ("registers", "local_bytes", "blocks_per_sm", "smem")
+    out = {"second_pass": dict(zip(keys, lk._logreg_attributes(-1, 0)))}
+    if variant >= 3000:
+        geo = lk._route_geometry(n, d, K)
+        out["logits"] = dict(zip(keys, lk._logreg_attributes(variant, geo.smem)))
+        out["gradient"] = dict(zip(keys, lk._logreg_attributes(variant + 1000, geo.smem)))
+        out["geometry"] = geo._asdict()
+        return out
     rt = min(lk._LOGREG_TILE_ROWS, lk._LOGREG_SMEM // (4 * K))
     smem = 4 * rt * K if variant == 0 else lk._tile_geometry(n, d, K, multinomial).smem if variant >= 1000 else 0
-    out = {"first": dict(zip(keys, lk._logreg_attributes(variant, smem))),
-           "second_pass": dict(zip(keys, lk._logreg_attributes(-1, 0)))}
+    out["first"] = dict(zip(keys, lk._logreg_attributes(variant, smem)))
     if variant >= 1000:
         out["geometry"] = lk._tile_geometry(n, d, K, multinomial)._asdict()
     return out
-
 
 
 def main() -> int:
@@ -2973,8 +3169,8 @@ def main() -> int:
     ap.add_argument("--hist-only", action="store_true",
                     help="a probe: build K5 alone and time its levels (prints no result line)")
     ap.add_argument("--logreg-only", action="store_true",
-                    help="a probe: build K3 alone and time its kernels at the general route's shapes "
-                         "(prints no result line)")
+                    help="a probe: build K3 alone and time the route past the tile kernel's cap beside the "
+                         "general kernel (prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
@@ -3065,6 +3261,11 @@ def main() -> int:
                                         "logreg_wide_card_vs_cpu": phase_logreg_wide_subset(
                                             torch, Xw, yw, min(LOGREG_WIDE_SUBSET, Xw.shape[0]))}
     del Xw, yw
+    Xm, ym, oracle = many_data(torch, X_host, args.seed)
+    by_path["logreg_loss_grad_route"] = {"logreg_many": phase_logreg_many(torch, Xm, ym, oracle),
+                                         "logreg_many_card_vs_cpu": phase_logreg_many_subset(
+                                             torch, Xm, ym, min(LOGREG_MANY_SUBSET, Xm.shape[0]))}
+    del Xm, ym
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
@@ -3125,11 +3326,17 @@ def main() -> int:
         kernels.append(entry)
     # K3's tile kernel at the wide fit's shape (the launches of the wide
     # paths), and timed beside its autograd call at the general route's
-    # three shapes; the general kernel past the tile kernel's cap. No other
-    # path launches these shapes.
-    k3_rows = [("logreg_loss_grad_tile", "logreg_loss_grad_tile_wide", by_path["logreg_loss_grad_tile"])]
-    k3_rows += [(k3_key(d_r, K_r), k3_key(d_r, K_r), {})
-                for d_r, K_r in K3_GENERAL_SHAPES + ((K3_PAST_CAP_D, K3_PAST_CAP_K),)]
+    # three shapes; the route past the tile kernel's cap at the
+    # logreg_many fit's shape (the launches of its paths) and at its other
+    # three timed shapes; the general kernel at the shapes it keeps. No
+    # other path launches these shapes.
+    many = k3_key(*K3_ROUTE_SHAPES[-1])
+    k3_rows = [("logreg_loss_grad_tile", "logreg_loss_grad_tile_wide", by_path["logreg_loss_grad_tile"]),
+               ("logreg_loss_grad_route", many, by_path["logreg_loss_grad_route"])]
+    k3_rows += [(k3_key(K3_GENERAL_ROWS, d_r, K_r), k3_key(K3_GENERAL_ROWS, d_r, K_r), {})
+                for d_r, K_r in K3_GENERAL_SHAPES]
+    k3_rows += [(k3_key(*shape), k3_key(*shape), {}) for shape in K3_ROUTE_SHAPES + K3_GENERAL_KEPT
+                if k3_key(*shape) != many]
     for name, key, paths in k3_rows:
         r = kern[key]
         kernels.append({
@@ -3137,6 +3344,7 @@ def main() -> int:
             "replaces": sources["logreg_loss_grad"][0], "launches": sum(paths.values()), "launches_by_path": paths,
             "variant": r["variant"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("bound_f32_ms",) if k in r},
             "shape": {k: r[k] for k in ("n", "d", "K")}})
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],

@@ -14,8 +14,9 @@
 // (~12 GFLOP at K = 1, well under a millisecond at the FP32 peak; 123
 // GFLOP at K = 10, 1.83 ms: still below the bytes).
 //
-// Design. Four kernels share the output contract and the fixed-order
-// second pass; the caller picks one (ops/logreg_kernels.py::_k3_variant).
+// Design. Four kernels and a route of two share the output contract and
+// the fixed-order second pass; the caller picks one
+// (ops/logreg_kernels.py::_k3_variant).
 // For K = 1 (the binomial main path) with d <= 1024, d a multiple of 4,
 // logreg_rows_kernel gives each warp whole rows held in registers, with no
 // barrier in its row loop. For multinomial 2 <= K <= 16 with d <= 256, d a
@@ -28,19 +29,23 @@
 // at K = 1) and whose ring fits in shared memory takes logreg_tile_kernel
 // (see its note): whole rows staged once in shared memory, A staged once
 // a block, the gradient held on chip, one partial a resident block. Any
-// d, any alignment. The rest takes the general kernel: blocks take
+// d, any alignment. Past that cap, multinomial 2 <= K <= 256 takes the
+// route of two 3xTF32 wgmma products (logreg_route_kernel, see its note),
+// whose classes are padded to the wgmma N and masked. The rest (K > 256;
+// binomial d > 16,380) takes the general kernel: blocks take
 // contiguous row ranges and walk them in tiles of RT rows. Per tile: (L)
 // each warp computes logits for (row, 8-class chunk) pairs, lanes
 // striding over d (A read through the L1 cache); the RT x K logits live
 // in shared memory. (R) a warp per row turns its logits into the loss and
-// the residual row in place. There are no padded classes on the GPU, so
-// the TPU kernel's -1e30 class mask is not needed. (G) each thread owns
+// the residual row in place. The general kernel pads no classes, so it
+// needs no -1e30 class mask. (G) each thread owns
 // (8-class chunk, column) pairs, re-reads its column of the tile and adds
 // R^T x into the block's partial (K x (d+1), the last column being the
 // intercept gradient) in a per-block scratch slice that only it touches.
 // A second pass sums the block partials and the block losses in a fixed
 // order: deterministic, with no float atomics.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -915,18 +920,23 @@ logreg_tile_kernel(const float* __restrict__ X, const float* __restrict__ y,
 // Fixed-order sum over the nb block partials: element e < K*(d+1) -> gA /
 // gb, the last element -> loss. A block takes 32 consecutive elements, a
 // lane each; warp w sums partials w, w + 8, ... in order, then warp 0 adds
-// the 8 warps' sums in order. The grid covers every element.
+// the 8 warps' sums in order. The grid covers every element. Where `side`
+// is given (the route past the tile kernel's cap), the intercept column
+// and the loss come from its nside partials of K + 1 (gb, then the loss).
 __global__ void __launch_bounds__(THREADS)
 logreg_reduce_kernel(const float* __restrict__ part, const float* __restrict__ loss_part, int nb,
                      float* __restrict__ gA, float* __restrict__ gb, float* __restrict__ loss,
-                     int d, int K) {
+                     int d, int K, const float* __restrict__ side, int nside) {
   __shared__ float red[WARPS][32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int64_t D1 = d + 1;
   const int64_t per = (int64_t)K * D1;
   const int64_t e = (int64_t)blockIdx.x * 32 + lane;
   float v = 0.f;
-  if (e < per) {
+  if (side && e <= per && (e == per || e % D1 == d)) {
+    const int64_t k = e == per ? K : e / D1;
+    for (int bk = warp; bk < nside; bk += WARPS) v += side[bk * (int64_t)(K + 1) + k];
+  } else if (e < per) {
     for (int bk = warp; bk < nb; bk += WARPS) v += part[bk * per + e];
   } else if (e == per) {
     for (int bk = warp; bk < nb; bk += WARPS) v += loss_part[bk];
@@ -946,6 +956,600 @@ logreg_reduce_kernel(const float* __restrict__ part, const float* __restrict__ l
         gb[k] = t;
     }
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The route past the tile kernel's cap: multinomial 2 <= K <= 256 whose
+// block gradient does not fit on chip (K (d + 1) past 1,024 four-class
+// items, e.g. 64 classes at d >= 253). At d = 1,024 and K = 64 a block
+// gradient is 65,536 floats, a whole SM's register file, so no single
+// fused kernel can hold it; the work is two products with the residual
+// between them, each on the tensor cores in 3xTF32 as lloyd_step.cu and
+// knn_topk.cu do it (hi = tf32(x), lo = tf32(x - hi), rounded to nearest,
+// ties away; lo*hi' + hi*lo' + hi*hi' for each k = 8 step into a fresh
+// accumulator for each 32-deep stage, folded into a running f32 sum with
+// a rounded add):
+//   (A) logreg_route_kernel<BN, SPLIT, false>: Z = X A^T (M = rows, N =
+//       classes, the reduction over d), the rows' A fragments split in
+//       registers, A's hi and lo split once a launch by route_split_kernel.
+//       Its epilogue, in registers: + b, the padded classes (past K, up to
+//       the wgmma N) masked out of the max and the sum (the TPU kernel's
+//       -1e30 mask), each row's max and sum of exponentials across the
+//       quad of lanes that holds it (and, SPLIT, across the two
+//       warpgroups through shared memory), the loss m (lse - z_y), and
+//       R = (softmax - onehot) m, written as R^T's hi and lo (class
+//       major, rows contiguous: the K-major B operand of (B)); the
+//       intercept gradient and the loss as one partial a block.
+//   (B) logreg_route_kernel<BN, SPLIT, true>: gA^T (d x K) = X^T R (M =
+//       columns, N = classes, the reduction over rows). tf32 wgmma reads
+//       shared-memory operands K-major only (the transpose bits are for
+//       f16/bf16), and X is MN-major here, so X^T is the A operand, loaded
+//       from the staged X tile into registers; the column order inside a
+//       64-column slab is permuted (col_of) so those loads hit 32 banks.
+//       A block owns a (column tile, row range) pair and writes its
+//       partial once.
+// What bounds it on an H100: at 200,000 x 1,024, K = 64 the two products
+// are 157 GFLOP in 3xTF32 (0.32 ms at 495 TFLOP/s) against 1.64 GB of X
+// read twice (0.49 ms at 3.35 TB/s), so about 96 operations a byte: the
+// bytes, nearly. R's hi and lo (2 n K floats) go out once and come back
+// once a column tile, the column tiles of one row range running side by
+// side so that the re-reads hit L2.
+// Shape of both: a producer warpgroup (one warp issuing TMA copies, or all
+// four copying 4 bytes at a time by cp.async where d % 4 != 0 or X is not
+// 16-byte aligned) keeps a ring of 2-4 stages, each the X tile, the B
+// operand's hi and lo (128-byte swizzled), completing one transaction
+// barrier; two consumer warpgroups, given the producers' registers by
+// setmaxnreg, multiply. BN is the wgmma N (16, 32, 64 or 128): rows of
+// 128 (A) or columns of 128 (B) a block, a warpgroup 64 of them, all BN
+// classes; SPLIT (129-256 classes): 64 rows or columns a block, each
+// warpgroup 128 of the classes. Every sum has one fixed order, with no
+// float atomics, and the fixed-order second pass (logreg_reduce_kernel)
+// adds the partials: the card repeats itself bit for bit.
+
+constexpr int RT_RB = 32;           // reduction depth of a stage: one 128-byte row
+constexpr int RT_CONSUMERS = 256;   // two warpgroups multiply
+constexpr int RT_PRODUCERS = 128;   // one warpgroup copies
+constexpr int RT_THREADS = RT_CONSUMERS + RT_PRODUCERS;
+constexpr int RT_MAX_STAGES = 4;
+constexpr int RT_XCHG = 512;        // floats: [2 buffers][2 warpgroups][64 rows][max, sum]
+// the probe's knock-out: the logits kernel (and A's split) alone
+constexpr int KNOCK_ROUTE_NO_GRAD = 16;
+// named barriers: 1..4 the ring's empty slots, then the split's exchange
+// and the consumers' end
+constexpr int RT_BAR_XCHG = 1 + RT_MAX_STAGES;
+constexpr int RT_BAR_END = 2 + RT_MAX_STAGES;
+
+struct Tf32 {
+  unsigned bias, mask;  // x rounded to TF32: (bits(x) + bias) & mask
+  __device__ __forceinline__ unsigned round(float x) const { return (__float_as_uint(x) + bias) & mask; }
+  __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) const {
+    hi = round(x);
+    lo = round(x - __uint_as_float(hi));  // exact difference
+  }
+};
+
+struct RouteArgs {
+  const float* X;
+  const float* y;
+  const float* m;
+  const float* b;
+  float* rhi;  // R^T's hi and lo, (K, nr) each: written by (A), read by (B)
+  float* rlo;
+  float* part;  // (B): [ranges][K][d + 1], columns < d
+  float* side;  // (A): [grid][K + 1], the intercept gradient then the loss
+  int n, d, K, nst, tma_x, col_tiles, ranges, range_rows, nr;
+  Tf32 tf;
+};
+
+__host__ __device__ constexpr int route_bm(bool split) { return split ? 64 : 128; }
+__host__ __device__ constexpr int route_slot(int bn, bool split) {
+  return (route_bm(split) + 2 * (split ? 2 * bn : bn)) * RT_RB;  // floats: X tile, B hi, B lo
+}
+// dynamic shared memory of a route kernel (ops/logreg_kernels.py
+// ::_route_smem computes the same): 1,024 bytes of alignment slack, the
+// ring and its barriers, the warps' intercept sums, the split's exchange
+// and the warps' losses
+size_t route_smem_bytes(int bn, bool split, int stages) {
+  return 1024 + (size_t)stages * (route_slot(bn, split) * 4 + 8) + 4 * (8 * bn + RT_XCHG + 8);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_sync(int id, int n) { asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(b)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@!p bra WAIT_%=;\n}\n" ::"r"(
+          smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+// the barrier's arrival once this thread's earlier cp.async copies landed
+__device__ __forceinline__ void mbar_cp_async_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(b)) : "memory");
+}
+// a (32 x box rows) box of a row-major f32 matrix at (x, y), 128-byte
+// swizzled, zero past its edges
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map, int x, int y, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(smem_addr(b))
+      : "memory");
+}
+// shared-memory matrix descriptor of a K-major tile of 128-byte rows under
+// the 128-byte swizzle: 8-row groups 1,024 bytes apart (the tile 1,024-byte
+// aligned; a K offset inside the row is added to the start address)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+// keep the compiler from moving register reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(unsigned& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// m64nBNk8 TF32 products of the warpgroup: d (+)= A (64 x 8, from
+// registers: a[] as mma.m16n8k8's A fragment of the warp's 16 rows) x B
+// (BN x 8)^T, K-major in shared memory under the 128-byte swizzle
+// (descriptor db)
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const unsigned (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const unsigned (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const unsigned (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const unsigned (&a)[4], uint64_t db, int acc) {
+  if constexpr (BN == 16) wgmma_n16(d, a, db, acc);
+  else if constexpr (BN == 32) wgmma_n32(d, a, db, acc);
+  else if constexpr (BN == 64) wgmma_n64(d, a, db, acc);
+  else wgmma_n128(d, a, db, acc);
+}
+
+// (B)'s column, inside a warpgroup's 64-column slab, of accumulator row
+// 16 w + 8 h + g (warp w, half h, lane group g): two 32-column boxes, the
+// 16-byte chunk 4 (g / 4) + 2 (w % 2) + h, the float g % 4. A warp's
+// fragment loads (8 columns x 4 rows a register) then hit 32 banks under
+// the 128-byte swizzle.
+__host__ __device__ constexpr int col_of(int w, int h, int g) {
+  return 32 * (w >> 1) + 4 * (4 * (g >> 2) + 2 * (w & 1) + h) + (g & 3);
+}
+
+template <int BN, bool SPLIT, bool GRAD>
+__global__ void __launch_bounds__(RT_THREADS, 1)
+logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmh,
+                    const __grid_constant__ CUtensorMap tml, const RouteArgs a) {
+  constexpr int BM = route_bm(SPLIT), NPT = SPLIT ? 2 * BN : BN, SLOT = route_slot(BN, SPLIT);
+  extern __shared__ unsigned char dyn_raw[];
+  unsigned char* dyn = dyn_raw + ((1024 - (smem_addr(dyn_raw) & 1023)) & 1023);
+  float* ring = reinterpret_cast<float*>(dyn);                      // [nst][SLOT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.nst * SLOT);  // [nst]
+  float* gbw = reinterpret_cast<float*>(full + a.nst);              // [8 warps][BN]
+  float* xchg = gbw + 8 * BN;                                       // [2][2][64][2]
+  float* wloss = xchg + RT_XCHG;                                    // [8]
+
+  const int n = a.n, d = a.d, K = a.K, nst = a.nst;
+  // (A): row blocks of BM rows, ceil(d / 32) stages each; (B): (column
+  // tile, row range) pairs, the column tiles of a range adjacent
+  const int ntiles = GRAD ? a.col_tiles * a.ranges : (n + BM - 1) / BM;
+  auto stages_of = [&](int tile) -> int {
+    if (!GRAD) return (d + RT_RB - 1) / RT_RB;
+    const int r0 = tile / a.col_tiles * a.range_rows;
+    return (min(a.range_rows, n - r0) + RT_RB - 1) / RT_RB;
+  };
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int np = a.tma_x ? 32 : RT_PRODUCERS;  // threads that fill the ring
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) mbar_init(full + s, a.tma_x ? 1 : 1 + RT_PRODUCERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < 8 * BN; i += RT_THREADS) gbw[i] = 0.f;
+  __syncthreads();
+
+  if (tid >= RT_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int ptid = tid - RT_CONSUMERS;
+    if (ptid >= np) return;
+    const unsigned tx = (a.tma_x ? SLOT : 2 * NPT * RT_RB) * 4;
+    const int pw = ptid / 32;
+    int q = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int nstg = stages_of(tile);
+      // the X tile's origin: (A) row xr; (B) column xc, rows from kb
+      const int xr = GRAD ? 0 : tile * BM;
+      const int xc = GRAD ? tile % a.col_tiles * BM : 0;
+      const int k0 = GRAD ? tile / a.col_tiles * a.range_rows : 0;
+      for (int s = 0; s < nstg; ++s, ++q) {
+        const int sl = q % nst, kb = k0 + s * RT_RB;
+        if (q >= nst) bar_sync(1 + sl, RT_CONSUMERS + np);  // the consumers are done with q - nst
+        float* slot = ring + sl * SLOT;
+        if (ptid == 0) {
+          mbar_expect(full + sl, tx);
+          tma_load(slot + BM * RT_RB, &tmh, kb, 0, full + sl);
+          tma_load(slot + (BM + NPT) * RT_RB, &tml, kb, 0, full + sl);
+          if (a.tma_x) {
+            if (GRAD) {
+#pragma unroll
+              for (int i = 0; i < BM / 32; ++i) tma_load(slot + i * 32 * RT_RB, &tmx, xc + 32 * i, kb, full + sl);
+            } else {
+              tma_load(slot, &tmx, kb, xr, full + sl);
+            }
+          }
+        }
+        if (!a.tma_x) {
+          // 4-byte copies into the swizzled layout, zero past the edges:
+          // lanes along the row, warps down the rows
+          unsigned char* xb = reinterpret_cast<unsigned char*>(slot);
+          for (int u = pw; u < BM; u += RT_PRODUCERS / 32) {
+            int r, c, box;
+            if (GRAD) {  // 32 rows x BM columns: row u % 32 of box u / 32
+              r = u % 32;
+              box = u / 32;
+              c = xc + 32 * box + lane;
+            } else {  // BM rows x 32 features
+              r = u;
+              box = 0;
+              c = kb + lane;
+            }
+            const int64_t gr = GRAD ? (int64_t)kb + r : (int64_t)xr + r;
+            const bool ok = gr < n && c < d;
+            cp_async4(reinterpret_cast<float*>(xb + box * 4096 + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) +
+                                               4 * (lane & 3)),
+                      ok ? a.X + gr * d + c : a.X, ok ? 4 : 0);
+          }
+          mbar_cp_async_arrive(full + sl);
+        }
+      }
+    }
+    // take the consumers' last releases, so that no barrier is left half way
+    for (int p = q > nst ? q - nst : 0; p < q; ++p) bar_sync(1 + p % nst, RT_CONSUMERS + np);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int wg = tid / 128, w = (tid / 32) % 4, g = lane / 4, t = lane % 4;
+  const int wslab = SPLIT ? 0 : 64 * wg;  // this warpgroup's rows (A) or columns (B) in the block
+  const int cbase = SPLIT ? wg * BN : 0;  // and its first class
+  // byte offsets in the X tile of this thread's A fragments, register c of
+  // k-step 0 (a k-step adds 8 feature columns (A) or 8 rows (B))
+  int foff[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int kf = t + 4 * (c >> 1);
+    if (GRAD) {  // element (column colb, row kf)
+      const int colb = wslab + col_of(w, c & 1, g);
+      foff[c] = (colb >> 5) * 4096 + kf * 128 + ((((colb & 31) >> 2) ^ (kf & 7)) << 4) + 4 * (colb & 3);
+    } else {  // element (row mr, feature kf): the chunk's swizzle is applied per k-step
+      const int mr = wslab + 16 * w + g + 8 * (c & 1);
+      foff[c] = mr * 128 + 4 * (kf & 3);
+    }
+  }
+  float acc[BN / 2], run[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = run[e] = 0.f;
+  float lsum = 0.f;
+  int q = 0, tl = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++tl) {
+    const int nstg = stages_of(tile);
+    for (int s = 0; s < nstg; ++s, ++q) {
+      const int sl = q % nst;
+      mbar_wait(full + sl, (q / nst) & 1);
+      const float* slot = ring + sl * SLOT;
+      const unsigned char* xb = reinterpret_cast<const unsigned char*>(slot);
+      unsigned ah[RT_RB / 8][4], al[RT_RB / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < RT_RB / 8; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          int off;
+          if (GRAD) {
+            off = foff[c] + kk * 8 * 128;
+          } else {  // chunk 2 kk + c / 2 of row mr, swizzled by mr & 7 = g
+            off = foff[c] + ((((2 * kk + (c >> 1)) ^ g)) << 4);
+          }
+          a.tf.split(*reinterpret_cast<const float*>(xb + off), ah[kk][c], al[kk][c]);
+        }
+      const float* bh = slot + BM * RT_RB + cbase * RT_RB;
+      const float* bl = bh + NPT * RT_RB;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) fence_reg(acc[e]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < RT_RB / 8; ++kk) {
+        const uint64_t dh = desc_sw128(bh + kk * 8), dl = desc_sw128(bl + kk * 8);
+        wgmma_tf32<BN>(acc, al[kk], dh, kk > 0);
+        wgmma_tf32<BN>(acc, ah[kk], dl, 1);
+        wgmma_tf32<BN>(acc, ah[kk], dh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) fence_reg(acc[e]);
+#pragma unroll
+      for (int kk = 0; kk < RT_RB / 8; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          fence_reg(ah[kk][c]);
+          fence_reg(al[kk][c]);
+        }
+      bar_arrive(1 + sl, RT_CONSUMERS + np);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) run[e] += acc[e];  // fold the stage, rounded
+    }
+
+    // accumulator element e: row (A) or column slot (B) 16 w + 8 h + g,
+    // h = (e >> 1) & 1; class cbase + 8 (e >> 2) + 2 t + (e & 1)
+    if (GRAD) {
+      const int ct = tile % a.col_tiles, rr = tile / a.col_tiles;
+      float* P = a.part + (size_t)rr * K * (d + 1);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int col = ct * BM + wslab + col_of(w, (e >> 1) & 1, g);
+        const int cls = cbase + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (col < d && cls < K) P[(size_t)cls * (d + 1) + col] = run[e];
+        run[e] = 0.f;
+      }
+      continue;
+    }
+    const int r0 = tile * BM + wslab + 16 * w + g;  // rows r0 and r0 + 8
+    float mr[2], zy[2] = {0.f, 0.f}, mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, se[2] = {0.f, 0.f};
+    int yi[2];
+    bool hit[2] = {false, false};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      mr[h] = r < n ? __ldg(a.m + r) : 0.f;
+      yi[h] = r < n ? (int)__ldg(a.y + r) : -1;
+    }
+    // logits; the padded classes (past K) take no part in the max or the sum
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int cls = cbase + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+      if (cls < K) {
+        const float z = run[e] + __ldg(a.b + cls);
+        run[e] = z;
+        mx[h] = fmaxf(mx[h], z);
+        if (cls == yi[h]) {
+          zy[h] = z;
+          hit[h] = true;
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int cls = cbase + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+      const float ex = cls < K ? expf(run[e] - mx[h]) : 0.f;
+      run[e] = ex;
+      se[h] += ex;
+    }
+    float scale[2], lse[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) se[h] += __shfl_xor_sync(0xffffffffu, se[h], o);
+    }
+    if (SPLIT) {  // the two warpgroups' (max, sum) of each row, combined alike by both
+      float* xw = xchg + (tl & 1) * 256;
+      if (t == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rl = 16 * w + g + 8 * h;
+          xw[(wg * 64 + rl) * 2] = mx[h];
+          xw[(wg * 64 + rl) * 2 + 1] = se[h];
+        }
+      }
+      bar_sync(RT_BAR_XCHG, RT_CONSUMERS);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = 16 * w + g + 8 * h;
+        const float m0 = xw[rl * 2], s0 = xw[rl * 2 + 1];
+        const float m1 = xw[(64 + rl) * 2], s1 = xw[(64 + rl) * 2 + 1];
+        const float M = fmaxf(m0, m1);
+        const float S = s0 * expf(m0 - M) + s1 * expf(m1 - M);
+        scale[h] = expf(mx[h] - M) / S;
+        lse[h] = logf(S) + M;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        scale[h] = 1.f / se[h];
+        lse[h] = logf(se[h]) + mx[h];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (t == 0 && (!SPLIT || wg == 0)) lsum += lse[h] * mr[h];
+      if (hit[h]) lsum -= zy[h] * mr[h];
+    }
+    // the residuals: R^T's hi and lo, and the intercept gradient
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int cls = cbase + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+      const int r = r0 + 8 * h;
+      float rv = 0.f;
+      if (cls < K && r < n) {
+        rv = (run[e] * scale[h] - (cls == yi[h] ? 1.f : 0.f)) * mr[h];
+        unsigned hi, lo;
+        a.tf.split(rv, hi, lo);
+        a.rhi[(size_t)cls * a.nr + r] = __uint_as_float(hi);
+        a.rlo[(size_t)cls * a.nr + r] = __uint_as_float(lo);
+      }
+      run[e] = rv;
+    }
+    float* gw = gbw + (tid / 32) * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float v = run[4 * j + p] + run[4 * j + 2 + p];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) gw[8 * j + 2 * t + p] += v;  // this warp's slot, tiles in order
+      }
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) run[e] = 0.f;
+  }
+  if (GRAD) return;
+
+  // (A)'s block partial: the warps' intercept sums and losses in warp order
+  bar_sync(RT_BAR_END, RT_CONSUMERS);
+  lsum = warp_sum(lsum);
+  if (lane == 0) wloss[tid / 32] = lsum;
+  bar_sync(RT_BAR_END, RT_CONSUMERS);
+  float* sd = a.side + (size_t)blockIdx.x * (K + 1);
+  for (int c = tid; c < NPT && c < K; c += RT_CONSUMERS) {
+    float v = 0.f;
+    if (SPLIT) {
+#pragma unroll
+      for (int w4 = 0; w4 < 4; ++w4) v += gbw[(4 * (c / BN) + w4) * BN + c % BN];
+    } else {
+#pragma unroll
+      for (int w8 = 0; w8 < 8; ++w8) v += gbw[w8 * BN + c];
+    }
+    sd[c] = v;
+  }
+  if (tid == 0) {
+    float v = 0.f;
+    for (int w8 = 0; w8 < 8; ++w8) v += wloss[w8];
+    sd[K] = v;
+  }
+}
+
+// A's TF32 hi and lo, (K, da) each (da = d rounded up to a multiple of 4)
+__global__ void route_split_kernel(const float* __restrict__ A, float* __restrict__ hi, float* __restrict__ lo,
+                                   int K, int d, int da, Tf32 tf) {
+  const int64_t total = (int64_t)K * d, stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    unsigned h, l;
+    tf.split(A[i], h, l);
+    const int64_t o = i / d * da + i % d;
+    hi[o] = __uint_as_float(h);
+    lo[o] = __uint_as_float(l);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the map of a row-major (rows, cols) f32 matrix with `ld` floats a row, in
+// boxes of 32 columns x box_rows rows, 128-byte swizzled, zero past the edges
+cudaError_t route_map(CUtensorMap* map, const float* p, int64_t rows, int cols, int64_t ld, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)RT_RB, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, bool SPLIT>
+cudaError_t route_pass(const RouteArgs& a, const float* ahi, const float* alo, int da, int grid_a, int grid_b,
+                       int knock, cudaStream_t st) {
+  constexpr int BM = route_bm(SPLIT), NPT = SPLIT ? 2 * BN : BN;
+  const size_t smem = route_smem_bytes(BN, SPLIT, a.nst);
+  CUtensorMap tmx{}, tmh{}, tml{};
+  cudaError_t err = cudaSuccess;
+  if (a.tma_x) err = route_map(&tmx, a.X, a.n, a.d, a.d, BM);
+  if (err == cudaSuccess) err = route_map(&tmh, ahi, a.K, a.d, da, NPT);
+  if (err == cudaSuccess) err = route_map(&tml, alo, a.K, a.d, da, NPT);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return err;
+  logreg_route_kernel<BN, SPLIT, false><<<grid_a, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
+  if (knock & KNOCK_ROUTE_NO_GRAD) return cudaGetLastError();
+  if (a.tma_x) err = route_map(&tmx, a.X, a.n, a.d, a.d, 32);
+  if (err == cudaSuccess) err = route_map(&tmh, a.rhi, a.K, a.n, a.nr, NPT);
+  if (err == cudaSuccess) err = route_map(&tml, a.rlo, a.K, a.n, a.nr, NPT);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return err;
+  logreg_route_kernel<BN, SPLIT, true><<<grid_b, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1024,14 +1628,67 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
   const int64_t total = (int64_t)K * (d + 1) + 1;
   if (!(knock & KNOCK_NO_REDUCE))
     logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, st>>>(
-        part, loss_part, nblocks, gA, gb, loss, d, K);
+        part, loss_part, nblocks, gA, gb, loss, d, K, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// The route past the tile kernel's cap, one chunk of n rows (X, y, m
+// offset to it by the caller): A's split (split_a: the first chunk),
+// logits kernel (A) on grid_a blocks, gradient kernel (B) on grid_b
+// blocks over col_tiles x ranges tiles of range_rows rows (a multiple of
+// 32). `code` is 3000 + BN (3256: 129-256 classes, split over the two
+// warpgroups); ahi and alo hold (K, da) floats, rhi and rlo (K, nr); part
+// takes `ranges` partials of K (d + 1), side grid_a of K + 1. knock 16:
+// the logits kernel alone.
+extern "C" int logreg_route_launch(const float* X, const float* y, const float* m, const float* A,
+                                   const float* b, float* ahi, float* alo, float* rhi, float* rlo,
+                                   float* part, float* side, int n, int d, int K, int code, int stages,
+                                   int grid_a, int col_tiles, int ranges, int range_rows, int grid_b,
+                                   int da, int nr, int split_a, int tma_x, unsigned tf32_bias,
+                                   unsigned tf32_mask, int knock, void* stream) {
+  const int bn = code == 3256 ? 128 : code - 3000;
+  const bool split = code == 3256;
+  if (n < 1 || d < 1 || K < 2 || K > (split ? 2 * bn : bn) || stages < 2 || stages > RT_MAX_STAGES ||
+      range_rows % RT_RB != 0 || (int64_t)ranges * range_rows < n || col_tiles * route_bm(split) < d ||
+      grid_a < 1 || grid_b < 1 || da < d || da % 4 != 0 || nr < n || nr % 4 != 0 ||
+      (tma_x && (d % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Tf32 tf{tf32_bias, tf32_mask};
+  if (split_a) {
+    const int64_t kd = (int64_t)K * d;
+    route_split_kernel<<<(unsigned)((kd + 255) / 256 < 1024 ? (kd + 255) / 256 : 1024), 256, 0, st>>>(
+        A, ahi, alo, K, d, da, tf);
+  }
+  const RouteArgs a{X, y, m, b, rhi, rlo, part, side, n, d, K, stages, tma_x, col_tiles, ranges, range_rows, nr, tf};
+  cudaError_t err;
+  switch (code) {
+    case 3016: err = route_pass<16, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    case 3032: err = route_pass<32, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    case 3064: err = route_pass<64, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    case 3128: err = route_pass<128, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    case 3256: err = route_pass<128, true>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// The route's second pass: the fixed-order sum of nb gradient partials
+// and nside (intercept, loss) partials.
+extern "C" int logreg_route_reduce(const float* part, int nb, const float* side, int nside, float* gA,
+                                   float* gb, float* loss, int d, int K, void* stream) {
+  const int64_t total = (int64_t)K * (d + 1) + 1;
+  logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, nullptr, nb, gA, gb, loss, d, K, side, nside);
   return (int)cudaGetLastError();
 }
 
 // registers, local (spill) bytes a thread, resident blocks an SM at `smem`
 // bytes of dynamic shared memory, and that smem: out[0..3], of the kernel
 // a launcher code names (0: the general kernel, 1000 + IPT and 2000 + IPT:
-// the tile kernel's instances) or of the second pass (-1)
+// the tile kernel's instances, 3000 + BN and 3256: the route's logits
+// kernel, 4000 + BN and 4256: its gradient kernel) or of the second pass
+// (-1)
 extern "C" int logreg_attributes(int variant, int smem, int* out) {
   const void* fn = nullptr;
   switch (variant) {
@@ -1045,14 +1702,25 @@ extern "C" int logreg_attributes(int variant, int smem, int* out) {
     case 2001: fn = (const void*)logreg_tile_kernel<4, 1>; break;
     case 2002: fn = (const void*)logreg_tile_kernel<4, 2>; break;
     case 2004: fn = (const void*)logreg_tile_kernel<4, 4>; break;
+    case 3016: fn = (const void*)logreg_route_kernel<16, false, false>; break;
+    case 3032: fn = (const void*)logreg_route_kernel<32, false, false>; break;
+    case 3064: fn = (const void*)logreg_route_kernel<64, false, false>; break;
+    case 3128: fn = (const void*)logreg_route_kernel<128, false, false>; break;
+    case 3256: fn = (const void*)logreg_route_kernel<128, true, false>; break;
+    case 4016: fn = (const void*)logreg_route_kernel<16, false, true>; break;
+    case 4032: fn = (const void*)logreg_route_kernel<32, false, true>; break;
+    case 4064: fn = (const void*)logreg_route_kernel<64, false, true>; break;
+    case 4128: fn = (const void*)logreg_route_kernel<128, false, true>; break;
+    case 4256: fn = (const void*)logreg_route_kernel<128, true, true>; break;
     default: return (int)cudaErrorInvalidValue;
   }
+  const int threads = variant >= 3000 ? RT_THREADS : THREADS;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err == cudaSuccess && smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads, smem);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[3] = smem;

@@ -14,11 +14,13 @@ intercept centring.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from .knn_kernels import TF32_BIAS, TF32_MASK
 from .lbfgs import minimize_lbfgs
 from .linalg import _check_cuda_f32, masked_mean, standardize_moments
 
@@ -44,6 +46,18 @@ _TILE_SMEM_TWO = 115_680
 _TILE_IPT = {False: (1, 2, 4, 8, 16), True: (1, 2, 4)}
 _TILE_BM = {False: (64, 32, 16, 8, 4, 2, 1), True: (64, 56, 48, 40, 32, 24, 16, 8)}
 _TILE_STAGES = 2
+# the route past the tile kernel's cap (logreg_route_kernel): wgmma N
+# sizes (classes a warpgroup; 129-256 classes split over two warpgroups of
+# 128, code 3256), the depth of a stage, ring depths (the deepest that
+# fits first), the cap on R^T's hi and lo (2 K rows floats) that sets the
+# rows of a launch pair, and a tile's fixed cost (epilogue, ring fill) in
+# stages, for the gradient kernel's row ranges
+_ROUTE_BN = (16, 32, 64, 128)
+_ROUTE_MAX_K = 256
+_ROUTE_RB = 32
+_ROUTE_STAGES = (4, 3, 2)
+_ROUTE_SCRATCH = 512 << 20
+_ROUTE_TILE_COST = 8
 
 
 class TileGeometry(NamedTuple):
@@ -108,6 +122,105 @@ def _tile_geometry(n: int, d: int, K: int, multinomial: bool, sms: int = 132) ->
     return None
 
 
+class RouteGeometry(NamedTuple):
+    """The route's launch past the tile kernel's cap: ``code`` (3000 +
+    BN, BN the wgmma N of a warpgroup; 3256 for 129-256 classes split over
+    the two warpgroups), ``npt`` classes a block, ``block_m`` rows (logits
+    kernel) or columns (gradient kernel) a block, ``stages`` in the ring,
+    ``smem`` bytes a block, ``chunk_rows`` rows a launch pair (R^T's
+    scratch holds one chunk), and for a full chunk: ``grid_a`` logits
+    blocks, ``col_tiles`` x ``ranges`` gradient tiles of ``range_rows``
+    rows (a multiple of 32) on ``grid_b`` blocks."""
+
+    code: int
+    npt: int
+    block_m: int
+    stages: int
+    smem: int
+    chunk_rows: int
+    grid_a: int
+    col_tiles: int
+    ranges: int
+    range_rows: int
+    grid_b: int
+
+
+def _route_code(K: int) -> Optional[int]:
+    """The route's instance for K classes: 3000 + the least wgmma N of
+    ``_ROUTE_BN`` that holds them, 3256 for 129-256 classes, None past
+    256."""
+    if K < 2 or K > _ROUTE_MAX_K:
+        return None
+    return 3000 + next((bn for bn in _ROUTE_BN if bn >= K), _ROUTE_MAX_K)
+
+
+def _route_smem(code: int, stages: int) -> int:
+    """Bytes of dynamic shared memory of a route kernel (the source's
+    ``route_smem_bytes``): 1,024 bytes of alignment slack, ``stages`` slots
+    of the X tile (block_m x 32 floats) and the B operand's hi and lo (npt
+    x 32 floats each) with a barrier each, the 8 warps' intercept sums (BN
+    floats each), the split's exchange (512 floats) and the warps' losses."""
+    bn = 128 if code == 3256 else code - 3000
+    bm, npt = (64, 256) if code == 3256 else (128, bn)
+    return 1024 + stages * ((bm + 2 * npt) * _ROUTE_RB * 4 + 8) + 4 * (8 * bn + 512 + 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_ranges(rows: int, col_tiles: int, sms: int) -> Tuple[int, int]:
+    """(ranges, range_rows) of the gradient kernel over ``rows`` rows: the
+    split into row ranges of whole 32-row stages whose waves of
+    ``col_tiles`` x ranges tiles on ``sms`` blocks cost the least, each
+    tile counted as its stages plus ``_ROUTE_TILE_COST``; the fewest
+    ranges on ties."""
+    stages = max(1, -(-rows // _ROUTE_RB))
+    best = None
+    for r in range(1, min(stages, 4 * sms) + 1):
+        per = -(-stages // r)
+        cost = -(-(col_tiles * r) // sms) * (per + _ROUTE_TILE_COST)
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    range_rows = best[1] * _ROUTE_RB
+    return -(-max(rows, 1) // range_rows), range_rows
+
+
+def _route_geometry(n: int, d: int, K: int, sms: int = 132) -> Optional[RouteGeometry]:
+    """The route's launch for ``n`` rows, ``d`` features and ``K``
+    classes (None past 256 classes): the deepest ring of
+    ``_ROUTE_STAGES`` that fits one block an SM, chunks of rows whose R^T
+    hi and lo fit ``_ROUTE_SCRATCH`` bytes (a multiple of 128 rows), one
+    logits block an SM at most, and the gradient kernel's column tiles and
+    row ranges for a full chunk."""
+    code = _route_code(K)
+    if code is None or d < 1:
+        return None
+    split = code == 3256
+    bm, npt = (64, 256) if split else (128, code - 3000)
+    stages = next(s for s in _ROUTE_STAGES if _route_smem(code, s) <= _TILE_SMEM_MAX)
+    chunk = min(max(n, 1), max(128, _ROUTE_SCRATCH // (8 * npt) // 128 * 128))
+    col_tiles = -(-d // bm)
+    ranges, range_rows = _route_ranges(chunk, col_tiles, sms)
+    return RouteGeometry(code, npt, bm, stages, _route_smem(code, stages), chunk,
+                         min(-(-chunk // bm), sms), col_tiles, ranges, range_rows,
+                         min(col_tiles * ranges, sms))
+
+
+def _route_chunks(n: int, geo: RouteGeometry, sms: int = 132) -> List[Tuple[int, int, int, int, int, int]]:
+    """The launch pairs of the route over ``n`` rows: (first row, rows,
+    grid_a, ranges, range_rows, grid_b) for each chunk of
+    ``geo.chunk_rows`` rows; a shorter last chunk gets its own grids and
+    ranges."""
+    out = []
+    for r0 in range(0, max(n, 1), geo.chunk_rows):
+        rows = min(geo.chunk_rows, max(n, 1) - r0)
+        if rows == geo.chunk_rows:
+            out.append((r0, rows, geo.grid_a, geo.ranges, geo.range_rows, geo.grid_b))
+            continue
+        ranges, range_rows = _route_ranges(rows, geo.col_tiles, sms)
+        out.append((r0, rows, min(-(-rows // geo.block_m), sms), ranges, range_rows,
+                    min(geo.col_tiles * ranges, sms)))
+    return out
+
+
 def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     """Which kernel of ``csrc/logreg_loss_grad.cu`` takes a (d, K) pass, as
     the launcher's code: ``10·NV + 1`` for the binomial row-per-warp kernel
@@ -115,9 +228,11 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     K`` for the multinomial register-row kernel (2 ≤ K ≤ 16, d ≤ 256,
     NV ∈ {1, 2}), ``1000 + IPT`` (binomial) or ``2000 + IPT``
     (multinomial) for the tile kernel with IPT gradient items a thread,
-    where :func:`_tile_geometry` fits, and 0 for the general kernel. The
+    where :func:`_tile_geometry` fits, the route's :func:`_route_code`
+    (3000 + BN, or 3256) for every other multinomial shape with 2 ≤ K ≤
+    256, and 0 for the general kernel (K > 256; binomial d > 16,380). The
     first two need d a multiple of 4 and 16-byte aligned X and A
-    (``aligned``); the tile kernel takes any."""
+    (``aligned``); the tile kernel and the route take any."""
     if d < 1:
         return 0
     if aligned and d % 4 == 0:
@@ -129,6 +244,8 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     geo = _tile_geometry(1, d, K, multinomial)
     if geo is not None:
         return (2000 if multinomial else 1000) + geo.ipt
+    if multinomial and _route_code(K) is not None:
+        return _route_code(K)
     return 0
 
 
@@ -179,10 +296,12 @@ def _logreg_run(
     knock: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K3 on card tensors: the kernel ``variant`` names (the tile
-    kernel at its routed geometry), then the second pass. ``knock`` is a probe's bit mask
-    (1: the first kernel alone, 2: the second pass alone, 4 and 8: the
-    general kernel's gradient stage without its X re-read or its per-tile
-    partial write); any bit makes the result wrong."""
+    kernel or the route at its routed geometry), then the second pass.
+    ``knock`` is a probe's bit mask (1: the first kernel alone (the route:
+    its two kernels), 2: the second pass alone, 4 and 8: the general
+    kernel's gradient stage without its X re-read or its per-tile partial
+    write, 16: the route's logits kernel alone); any bit makes the result
+    wrong."""
     _check_cuda_f32("logreg_loss_grad", X, y, m, A, b)
     n, d = X.shape
     K = A.shape[0]
@@ -193,6 +312,10 @@ def _logreg_run(
         )
     if not multinomial and K != 1:
         raise ValueError("logreg_loss_grad: the binomial form takes K = 1")
+    if variant >= 3000:
+        if not multinomial or _route_code(K) != variant:
+            raise ValueError(f"logreg_loss_grad: the route {variant} does not take K = {K}")
+        return _route_run(X, y, m, A, b, knock)
     rt = min(_LOGREG_TILE_ROWS, _LOGREG_SMEM // (4 * K))
     if rt < 1:
         raise ValueError(
@@ -239,12 +362,60 @@ def _logreg_run(
     return loss[0], gA, gb
 
 
+def _route_run(
+    X: torch.Tensor, y: torch.Tensor, m: torch.Tensor, A: torch.Tensor, b: torch.Tensor, knock: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The route past the tile kernel's cap on checked card tensors: for
+    each chunk of rows the logits kernel (A's TF32 split first, once) and
+    the gradient kernel, then the fixed-order second pass over every
+    chunk's partials."""
+    n, d = X.shape
+    K = A.shape[0]
+    dev = X.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = _route_geometry(n, d, K, sms)
+    chunks = _route_chunks(n, geo, sms)
+    da, nr = -(-d // 4) * 4, -(-geo.chunk_rows // 4) * 4
+    ops = torch.empty((2, K, da), dtype=torch.float32, device=dev)  # A's hi and lo
+    rt = torch.empty((2, K, nr), dtype=torch.float32, device=dev)  # R^T's hi and lo
+    part = torch.empty((sum(c[3] for c in chunks), K * (d + 1)), dtype=torch.float32, device=dev)
+    side = torch.empty((sum(c[2] for c in chunks), K + 1), dtype=torch.float32, device=dev)
+    gA = torch.empty((K, d), dtype=torch.float32, device=dev)
+    gb = torch.empty((K,), dtype=torch.float32, device=dev)
+    loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not knock & 2:
+        fn = _build.function(
+            "logreg_loss_grad", "logreg_route_launch",
+            [_P] * 11 + [ctypes.c_int] * 14 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, _P],
+        )
+        p0 = s0 = 0
+        for i, (r0, rows, grid_a, ranges, range_rows, grid_b) in enumerate(chunks):
+            Xc = X[r0:r0 + rows]
+            code = fn(
+                Xc.data_ptr(), y[r0:].data_ptr(), m[r0:].data_ptr(), A.data_ptr(), b.data_ptr(),
+                ops[0].data_ptr(), ops[1].data_ptr(), rt[0].data_ptr(), rt[1].data_ptr(),
+                part[p0:].data_ptr(), side[s0:].data_ptr(), rows, d, K, geo.code, geo.stages, grid_a,
+                geo.col_tiles, ranges, range_rows, grid_b, da, nr, int(i == 0),
+                int(d % 4 == 0 and Xc.data_ptr() % 16 == 0), TF32_BIAS, TF32_MASK, knock, stream,
+            )
+            _build.check("logreg_loss_grad", code)
+            p0, s0 = p0 + ranges, s0 + grid_a
+    if not knock & 1:
+        fn = _build.function("logreg_loss_grad", "logreg_route_reduce",
+                             [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P])
+        _build.check("logreg_loss_grad", fn(part.data_ptr(), part.shape[0], side.data_ptr(), side.shape[0],
+                                            gA.data_ptr(), gb.data_ptr(), loss.data_ptr(), d, K, stream))
+    return loss[0], gA, gb
+
+
 def _logreg_attributes(variant: int, smem: int = 0) -> Tuple[int, int, int, int]:
     """(registers, spill bytes, resident blocks an SM, shared memory) of
     K3's kernel ``variant`` (0: the general kernel, 1000 + IPT and 2000 +
-    IPT: the tile kernel's instances, -1: the second pass) at ``smem``
-    bytes of dynamic shared memory, from the CUDA runtime's occupancy
-    calculator."""
+    IPT: the tile kernel's instances, 3000 + BN and 3256: the route's
+    logits kernel, 4000 + BN and 4256: its gradient kernel, -1: the second
+    pass) at ``smem`` bytes of dynamic shared memory, from the CUDA
+    runtime's occupancy calculator."""
     fn = _build.function("logreg_loss_grad", "logreg_attributes", [ctypes.c_int, ctypes.c_int, _P])
     out = (ctypes.c_int * 4)()
     _build.check("logreg_loss_grad", fn(variant, smem, ctypes.addressof(out)))

@@ -138,12 +138,23 @@ def test_k3_routing_table(K, d, monkeypatch):
     assert tlk._k3_variant(d, 1, False, aligned=False) == 1001
     assert tlk._k3_variant(16380, 1, False) == 1016
     assert tlk._k3_variant(4, 300, True) == 2001  # more classes than a block has threads
-    # past the cap: the general kernel
-    assert tlk._k3_variant(1024, 64, True) == 0  # 16 groups x 257 chunks
-    assert tlk._k3_variant(d, 130, True) == 0
-    assert tlk._k3_variant(3000, K, True) == 0
+    # past the cap, multinomial 2 <= K <= 256: the route (two 3xTF32
+    # products), 3000 + the wgmma N that holds K classes, 3256 past 128
+    assert tlk._k3_variant(1024, 64, True) == 3064  # 16 groups x 257 chunks
+    assert tlk._k3_variant(256, 64, True) == 3064  # 16 groups x 65 chunks
+    assert tlk._k3_variant(d, 130, True) == 3256
+    assert tlk._k3_variant(3000, K, True) == 3016 + 16 * (K > 16)
+    assert tlk._k3_variant(4092, 4, True) == 3016  # its items fit, a ring of 8 rows does not
+    assert tlk._k3_variant(2048, 120, True) == 3128
+    assert tlk._k3_variant(5000, 2, True) == 3016
+    assert tlk._k3_variant(d, 256, True, aligned=False) == 3256
+    assert tlk._k3_variant(1024, 33, True) == 3064 and tlk._k3_variant(1024, 32, True) == 3032
+    # what the route does not take stays on the general kernel: K > 256,
+    # binomial d > 16,380
+    assert tlk._k3_variant(d, 257, True) == 0
+    assert tlk._k3_variant(2048, 1000, True) == 0
     assert tlk._k3_variant(16384, 1, False) == 0
-    assert tlk._k3_variant(4092, 4, True) == 0  # its items fit, a ring of 8 rows does not
+    assert tlk._k3_variant(20000, 1, False) == 0
     # a CPU tensor takes the plain version and never consults the table
     def no_table(*a, **k):
         raise AssertionError("the routing table was consulted for a CPU tensor")
@@ -328,6 +339,242 @@ def test_tile_kernel_work_split_covers_everything_once(n, d, K, multinomial, vec
             if blk * 32 + lane <= per:
                 elems[blk * 32 + lane] += 1
     assert (elems == 1).all()
+
+
+# shapes past the tile kernel's cap that the card sends to the route, both
+# inside the JAX package's Pallas gate (d % 128 == 0, K <= 120): its
+# Pallas kernel in interpret mode is the oracle
+@pytest.mark.parametrize("d,K", [(256, 64), (384, 100)])
+def test_fused_loss_grad_plain_matches_pallas_on_route_shapes(d, K):
+    n = 192
+    X, y, m, A, b = _problem(d + K, n, d, K, True)
+    assert tlk._k3_variant(d, K, True) >= 3000
+    mesh = make_mesh(1)
+    put = lambda a: jax.device_put(a, NamedSharding(mesh, P("dp")))  # noqa: E731
+    f = j_fused(put(X), put(y), put(m), mesh, K, True, interpret=True)
+    loss_j, (gA_j, gb_j) = jax.value_and_grad(f, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(b))
+
+    t = [torch.from_numpy(v) for v in (X, y, m, A, b)]
+    loss_t, gA_t, gb_t = tlk.logreg_loss_grad(*t, True)
+    # the tolerances of test_fused_loss_grad_plain_matches_pallas_interpret
+    assert abs(float(loss_t) - float(loss_j)) / abs(float(loss_j)) < 1e-5
+    assert np.abs(gA_t.numpy() - np.asarray(gA_j)).max() / np.abs(np.asarray(gA_j)).max() < 1e-4
+    assert np.abs(gb_t.numpy() - np.asarray(gb_j)).max() < 1e-3
+
+
+_COL_OF = "return 32 * (w >> 1) + 4 * (4 * (g >> 2) + 2 * (w & 1) + h) + (g & 3);"
+
+
+def _col_of(w, h, g):
+    """The route's gradient kernel's column, inside a warpgroup's
+    64-column slab, of accumulator row 16 w + 8 h + g: the source's
+    ``col_of`` (its body is ``_COL_OF``)."""
+    return 32 * (w >> 1) + 4 * (4 * (g >> 2) + 2 * (w & 1) + h) + (g & 3)
+
+
+def _route_block_tiles(n_tiles, grid):
+    """Tiles of each block of a persistent grid: b, b + grid, ..."""
+    return [list(range(b, n_tiles, grid)) for b in range(grid)]
+
+
+@pytest.mark.parametrize("n,d,K,sms,scratch", [
+    (1_000, 300, 2, 132, 512 << 20), (777, 1023, 17, 5, 512 << 20), (97, 64, 64, 3, 512 << 20),
+    (1_111, 200, 128, 7, 512 << 20), (2_003, 129, 130, 4, 512 << 20), (600, 70, 256, 132, 256 * 2048),
+    (700, 250, 33, 2, 64 * 1024),
+])
+def test_route_work_split_covers_everything_once(n, d, K, sms, scratch, monkeypatch):
+    """A numpy model of the route's work split at the launch
+    :func:`_route_geometry` and :func:`_route_chunks` give, for each N
+    instance, ragged n and d, chunked rows and grids smaller than the
+    tiles: the chunks cover the rows once; the logits kernel's persistent
+    blocks take each row of a chunk in exactly one tile of ``block_m``
+    rows, each warpgroup its 64 rows (or, split, its 128 classes); the
+    gradient kernel's (column tile, row range) tiles, walked by grid_b
+    blocks in stages of 32 rows (whole stages inside a range), cover every
+    (class, column, row) exactly once, columns through ``col_of``'s
+    permutation; the intercept and loss partials are one a logits block,
+    the gradient partials one a range."""
+    monkeypatch.setattr(tlk, "_ROUTE_SCRATCH", scratch)  # R^T's cap, so that small n makes chunks
+    geo = tlk._route_geometry(n, d, K, sms)
+    code = geo.code
+    bn = 128 if code == 3256 else code - 3000
+    assert geo.npt >= K and (geo.npt == bn or (code == 3256 and geo.npt == 2 * bn))
+    assert geo.smem == tlk._route_smem(code, geo.stages) <= 232_448
+    chunks = tlk._route_chunks(n, geo, sms)
+    cover = np.zeros((K, d, n), np.int64)
+    rows_seen = np.zeros(n, np.int64)
+    r_next = 0
+    for r0, rows, grid_a, ranges, range_rows, grid_b in chunks:
+        assert r0 == r_next and rows <= geo.chunk_rows and geo.chunk_rows % 128 == 0 or len(chunks) == 1
+        r_next = r0 + rows
+        # logits kernel: tiles of block_m rows on grid_a blocks
+        tiles_a = -(-rows // geo.block_m)
+        assert 1 <= grid_a <= min(tiles_a, sms)
+        for blk in _route_block_tiles(tiles_a, grid_a):
+            for t in blk:
+                for wg in range(2):
+                    if code == 3256:  # both warpgroups take the tile's 64 rows
+                        lo, hi = t * 64, min(rows, t * 64 + 64)
+                    else:
+                        lo, hi = t * 128 + 64 * wg, min(rows, t * 128 + 64 * wg + 64)
+                    rows_seen[r0 + lo:r0 + max(lo, hi)] += 1
+        # gradient kernel
+        assert range_rows % 32 == 0 and ranges * range_rows >= rows > (ranges - 1) * range_rows
+        tiles_b = geo.col_tiles * ranges
+        assert 1 <= grid_b <= min(tiles_b, sms) and geo.col_tiles * geo.block_m >= d
+        for blk in _route_block_tiles(tiles_b, grid_b):
+            for t in blk:
+                ct, rr = t % geo.col_tiles, t // geo.col_tiles
+                k0 = rr * range_rows
+                stages = -(-min(range_rows, rows - k0) // 32)
+                assert stages >= 1 and (rr == ranges - 1 or stages * 32 == range_rows)
+                seen = np.zeros(0, np.int64)
+                for s in range(stages):
+                    seen = np.concatenate([seen, np.arange(k0 + 32 * s, min(k0 + 32 * s + 32, rows))])
+                for wg in range(2):
+                    slab = 0 if code == 3256 else 64 * wg
+                    cls = np.arange(bn) + (wg * bn if code == 3256 else 0)
+                    cls = cls[cls < K]
+                    cols = np.array([ct * geo.block_m + slab + _col_of(w, h, g)
+                                     for w in range(4) for h in range(2) for g in range(8)])
+                    cols = cols[cols < d]
+                    cover[np.ix_(cls, cols, r0 + seen)] += 1
+    assert r_next == n
+    if code != 3256:
+        assert (rows_seen == 1).all()
+    else:
+        assert (rows_seen == 2).all()  # the two warpgroups' halves of the classes
+    assert (cover == 1).all()
+    assert sorted(_col_of(w, h, g) for w in range(4) for h in range(2) for g in range(8)) \
+        == list(range(64))
+    src = (Path(tlk.__file__).parent.parent / "csrc" / "logreg_loss_grad.cu").read_text()
+    assert _COL_OF in src
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_fragment_loads_hit_32_banks(grad):
+    """The A-fragment loads of both route kernels from the 128-byte
+    swizzled X tile (the source's ``foff``): for every warp, register and
+    k-step, the 32 lanes read 32 distinct banks, and the offsets address
+    the element the fragment names (row/column, reduction index)."""
+    for wg in range(2):
+        for w in range(4):
+            for kk in range(4):
+                for c in range(4):
+                    banks, elems = set(), set()
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        kf = kk * 8 + t + 4 * (c >> 1)
+                        if grad:
+                            colb = 64 * wg + _col_of(w, c & 1, g)
+                            off = (colb >> 5) * 4096 + kf * 128 + ((((colb & 31) >> 2) ^ (kf & 7)) << 4) \
+                                + 4 * (colb & 3)
+                            # the TMA box (32 columns x 32 rows) of column colb, row kf
+                            box, rr, cc = colb // 32, kf, colb % 32
+                        else:
+                            mr = 64 * wg + 16 * w + g + 8 * (c & 1)
+                            off = mr * 128 + 4 * (kf & 3) + (((2 * kk + (c >> 1)) ^ g) << 4)
+                            box, rr, cc = 0, mr, kf
+                        # the 128-byte swizzle: chunk cc // 4 of row rr at chunk (cc // 4) ^ (rr % 8)
+                        assert off == box * 4096 + rr * 128 + (((cc // 4) ^ (rr % 8)) << 4) + 4 * (cc % 4)
+                        banks.add((off // 4) % 32)
+                        elems.add(off)
+                    assert len(banks) == 32 and len(elems) == 32
+
+
+def _route_model(X, y, m, A, b, bn, mask_padded=True):
+    """A torch model of the route's arithmetic on the CPU: both products
+    in 3xTF32 (``tf32_split`` of each operand, lo*hi' + hi*lo' + hi*hi'
+    into a fresh f32 accumulator for each 32-deep stage, folded into the
+    running sum with a rounded add), the logits' epilogue over ``bn``
+    classes (the wgmma N) with the padded ones masked out of the max and
+    the sum (or, ``mask_padded=False``, taken in with logit 0), R's TF32 hi
+    and lo as the gradient's B operand, and the gradient over stages of 32
+    rows. Returns (loss, gA, gb)."""
+    from spark_rapids_ml_tpu_torch.ops.knn_kernels import tf32_split
+
+    n, d = X.shape
+    K = A.shape[0]
+    Ap = torch.zeros((bn, d))
+    Ap[:K] = A
+
+    def product(P, Q):  # P (M, depth) @ Q (N, depth)^T, 32-deep stages
+        run = torch.zeros((P.shape[0], Q.shape[0]))
+        for k0 in range(0, P.shape[1], 32):
+            ph, pl = tf32_split(P[:, k0:k0 + 32])
+            qh, ql = tf32_split(Q[:, k0:k0 + 32])
+            run = run + (pl @ qh.T + ph @ ql.T + ph @ qh.T)
+        return run
+
+    bp = torch.zeros(bn)
+    bp[:K] = b
+    z = product(X, Ap) + bp[None, :]
+    live = torch.arange(bn) < K
+    if mask_padded:
+        z = torch.where(live[None, :], z, torch.tensor(-float("inf")))
+    mx = z.max(dim=1).values
+    ex = torch.exp(z - mx[:, None])
+    se = ex.sum(dim=1)
+    lse = torch.log(se) + mx
+    onehot = torch.nn.functional.one_hot(y.long(), bn).float()
+    loss = ((lse - (z * onehot).sum(dim=1)) * m).sum()
+    R = (ex / se[:, None] - onehot) * m[:, None] * live[None, :]
+    rh, rl = tf32_split(R)
+    Rs = rh + rl  # the B operand's hi and lo: (hi + lo) is R to 2^-22
+    gA = product(X.T.contiguous(), Rs.T.contiguous()).T[:K]
+    return loss, gA, R.sum(dim=0)[:K]
+
+
+@pytest.mark.parametrize("n,d,K", [(700, 300, 20), (257, 130, 130), (500, 64, 37)])
+def test_route_arithmetic_model_within_band(n, d, K):
+    """The route's arithmetic (:func:`_route_model`) is held by
+    ``chip_smoke.py``'s f64 band (``logreg_reference`` and ``held``, the
+    check the card's route passes), and the same arithmetic without the
+    padded-class mask is refused by it."""
+    import chip_smoke
+
+    code = tlk._route_code(K)
+    bn = 256 if code == 3256 else code - 3000
+    assert bn > K  # padded classes live
+    rng = np.random.default_rng(n + d + K)
+    X = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) + 1.0)
+    y = torch.from_numpy(rng.integers(0, K, size=n).astype(np.float32))
+    m = torch.from_numpy((rng.random(n) > 0.1).astype(np.float32))
+    A = torch.from_numpy((rng.normal(size=(K, d)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=K) * 0.1).astype(np.float32))
+    lr, gAr, gbr, T_gA, T_gb, T_loss = chip_smoke.logreg_reference(torch, tlk, X, y, m, A, b, True)
+    loss, gA, gb = _route_model(X, y, m, A, b, bn)
+    for out, ref, T in ((gA, gAr, T_gA), (gb, gbr, T_gb), (loss, lr, T_loss)):
+        assert chip_smoke.held(torch, out, ref, T, n)[1] <= 1.0
+    loss_u, gA_u, _ = _route_model(X, y, m, A, b, bn, mask_padded=False)
+    assert chip_smoke.held(torch, gA_u, gAr, T_gA, n)[1] > 1.0
+
+
+def test_logreg_fit_matches_jax_on_route_shape():
+    """LogisticRegression with 64 classes at d = 256 (past the tile
+    kernel's cap: the route on the card) fitted by the port (on the CPU:
+    K3's plain version) and by the JAX package, 3,000 rows, both until the
+    f32 objective stops improving; held within
+    test_logreg_fit_matches_jax_on_tile_shapes's tolerances. regParam 0.05
+    and a label map of small weights keep the 16,448-parameter problem well
+    conditioned, so that the two solvers' stopping points agree to those
+    tolerances."""
+    d, n_classes, n = 256, 64, 3000
+    assert tlk._k3_variant(d, n_classes, True) == 3064
+    rng = np.random.default_rng(d + n_classes)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    W = rng.normal(size=(d, n_classes)) * 0.05
+    y = (X @ W + rng.gumbel(size=(n, n_classes))).argmax(axis=1).astype(np.float32)
+    kw = dict(maxIter=200, regParam=0.05, elasticNetParam=0.0, tol=1e-10)
+    jdf, tdf = JDataFrame({"features": X, "label": y}), TDataFrame({"features": X, "label": y})
+    jm = JLogReg(num_workers=1, **kw).fit(jdf)
+    tm = TLogReg(device="cpu", **kw).fit(tdf)
+    scale = np.abs(jm.coefficientMatrix).max()
+    assert np.abs(tm.coefficientMatrix - jm.coefficientMatrix).max() < 2e-3 * scale
+    assert np.abs(tm.interceptVector - jm.interceptVector).max() < 2e-3 * max(scale, 1.0)
+    ot, oj = tm.transform(tdf), jm.transform(jdf)
+    assert (np.asarray(ot.column("prediction")) == np.asarray(oj.column("prediction"))).mean() > 0.995
+    assert np.abs(np.asarray(ot.column("probability")) - np.asarray(oj.column("probability"))).max() < 5e-3
 
 
 @pytest.mark.parametrize("d,n_classes", [(1152, 2), (384, 20)])
