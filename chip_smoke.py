@@ -155,8 +155,9 @@ alone) and the other stage depths.
 
     python3 chip_smoke.py --logreg-only [--sweep]
 
-is a probe of K3: at the route's four timed shapes, the shapes the
-general kernel keeps and the tile kernel's <1, 8> and <1, 16> instances,
+is a probe of K3: at the route's five timed shapes, its class-tiled
+instance's four, the shapes the general kernel keeps and the tile
+kernel's <1, 8> and <1, 16> instances,
 each held with its controls and timed as the whole call, its first
 kernel (the route: its two kernels, and its logits kernel alone) and its
 second pass alone, for the routed kernel and, forced by its code, the
@@ -340,6 +341,8 @@ def make_data(torch, n_rows: int, n_alloc: int, seed: int, dev):
 # included). A tolerance scaled by each entry's own terms keeps the small
 # entries (the noise dimensions of the data) as tightly checked as the large.
 U32 = 2.0 ** -24
+# the least normal f32
+F32_TINY = 2.0 ** -126
 TOL_TERMS = 8.0
 TOL_WALK = 4.0
 # K2 score rounding band: two f32 scores within TAU_UNITS * u * sqrt(d) *
@@ -565,31 +568,42 @@ def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
 
 def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     """K3's plain version in f64, in row chunks, with the absolute sums T.
-    A residual is at most 1 in size; the f32 logits are off by at most
-    about u·S (S = the row's largest Σ|x·a| + |b|), which moves a residual
-    or a row's loss by at most 2·u·S: each row weighs (1 + 2S) in T."""
+    The f32 logits are off by at most about u·S (S = the row's largest
+    Σ|x·a| + |b|), which moves a probability p by at most 2·u·S·p (its
+    logit and the softmax's sum) and a row's loss by 2·u·S: each (row,
+    class) weighs m·(|R| + 2·S·p) in gA's and gb's T, each row m·2·S in
+    the loss's. Per class, so at many classes a class's band follows its
+    own residuals, not K times a row's (a p that f32 cannot hold, below
+    its least normal number, adds F32_TINY / u)."""
     d, K, f64 = X.shape[1], A.shape[0], torch.float64
-    chunk = max(1, REF_CHUNK * E2E_D // d)  # f64 chunks of at most 2 GB
+    chunk = max(1, REF_CHUNK * E2E_D // max(d, K))  # f64 chunks of at most 2 GB
     A64, b64 = A.to(f64), b.to(f64)
     loss = torch.zeros((), dtype=f64, device=X.device)
     gA = torch.zeros((K, d), dtype=f64, device=X.device)
     gb = torch.zeros((K,), dtype=f64, device=X.device)
-    T_row = torch.zeros((d,), dtype=f64, device=X.device)
-    T_b = torch.zeros((), dtype=f64, device=X.device)
+    T_gA = torch.zeros((K, d), dtype=f64, device=X.device)
+    T_b = torch.zeros((K,), dtype=f64, device=X.device)
     T_z = torch.zeros((), dtype=f64, device=X.device)
     for lo in range(0, X.shape[0], chunk):
-        x, mm = X[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
-        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, y[lo:lo + chunk].to(f64), mm, A64, b64, multinomial)
+        x, yy, mm = X[lo:lo + chunk].to(f64), y[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
+        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, yy, mm, A64, b64, multinomial)
         loss += l_
         gA += gA_
         gb += gb_
         S = (x.abs() @ A64.abs().T + b64.abs()[None, :]).max(dim=1).values
-        w = mm * (1.0 + 2.0 * S)
-        T_row += w @ x.abs()
-        T_b += w.sum()
+        z = x @ A64.T + b64[None, :]
+        if multinomial:
+            p = torch.softmax(z, dim=1)
+            R = p - torch.nn.functional.one_hot(yy.long(), K).to(f64)
+        else:
+            p = torch.sigmoid(z)
+            R = p - yy[:, None]
+        w = mm[:, None] * (R.abs() + 2.0 * S[:, None] * p + F32_TINY / U32)
+        del z, p, R
+        T_gA += w.T @ x.abs()
+        T_b += w.sum(dim=0)
         T_z += (2.0 * mm * S).sum()
-    T_gA = T_row[None, :].expand(K, d)
-    return loss, gA, gb, T_gA, T_b.expand(K), loss.abs() + T_z
+    return loss, gA, gb, T_gA, T_b, loss.abs() + T_z
 
 
 def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
@@ -598,7 +612,8 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     if code == 0:
         return "general"
     if code >= 3000:
-        return "route(N=2x128)" if code == 3256 else f"route(N={code - 3000})"
+        return ("route(tiled, N=128)" if code == lk._ROUTE_TILED else "route(N=2x128)" if code == 3256
+                else f"route(N={code - 3000})")
     if code >= 1000:
         return f"tile(KG={1 if code < 2000 else 4}, IPT={code % 1000})"
     return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
@@ -632,10 +647,10 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
         L = n // CONTROL_SPLIT
         lost = gA.clone()
         lost[:, 128:] -= lk.logreg_loss_grad_plain(X[:L], yk[:L], m[:L], A, b, multinomial)[1][:, 128:]
-        out["controls"] = negative_controls(torch, {
-            "gA[:, 128:] zeroed": tile,
-            f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]": lost,
-        }, gAr, T_gA, n)
+        cases = {"gA[:, 128:] zeroed": tile, f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]": lost}
+        if variant.startswith("route(tiled"):  # the class tiles merged without rescaling the sum
+            cases["class tiles merged unrescaled"] = lk._logreg_run(X, yk, m, A, b, True, lk._ROUTE_TILED, 32)[1]
+        out["controls"] = negative_controls(torch, cases, gAr, T_gA, n)
         if variant.startswith("route"):
             # for information, not a control: the same sums with both products
             # in one-pass TF32 (hi * hi' alone) sit inside this band too (a
@@ -915,11 +930,13 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     # reference's CI width, and multinomial fits past the register-row
     # kernel's d <= 256 and K <= 16), at the wide fit's 1,024,000 x 3,000
     # (a zero-copy view of the 12M x 256 rows, with the controls); the
-    # route past the tile kernel's cap at its four timed shapes (the
+    # route past the tile kernel's cap at its five timed shapes (the
     # logreg_many fit's 1,024,000 x 1,024 a view of the same rows), with
-    # the controls; and the general kernel at the shapes it keeps
+    # the controls; its class-tiled instance at its four (the logreg_1k
+    # fit's 1,281,167 x 2,048 a view of the same rows), with the controls;
+    # and the general kernel at the shape it keeps
     for n_r, d_r, K_r, ctl in ([(K3_GENERAL_ROWS, d, K, False) for d, K in K3_GENERAL_SHAPES]
-                               + [(n, d, K, True) for n, d, K in K3_ROUTE_SHAPES + K3_GENERAL_KEPT]):
+                               + [(n, d, K, True) for n, d, K in K3_ROUTE_SHAPES + K3_TILED_SHAPES + K3_GENERAL_KEPT]):
         if n_r * d_r <= X.numel() and n_r > K3_GENERAL_ROWS:
             Xr = X.reshape(-1)[:n_r * d_r].view(n_r, d_r)
         else:
@@ -945,10 +962,13 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
 
 def k3_key(n, d, K) -> str:
     """The measurement key of K3 at a timed shape: the tile kernel's of
-    K3_GENERAL_SHAPES, the route's of K3_ROUTE_SHAPES, the general
-    kernel's of K3_GENERAL_KEPT."""
+    K3_GENERAL_SHAPES, the route's of K3_ROUTE_SHAPES, its class-tiled
+    instance's of K3_TILED_SHAPES, the general kernel's of
+    K3_GENERAL_KEPT."""
     if (n, d, K) in K3_ROUTE_SHAPES:
         return f"logreg_loss_grad_route_n{n}_d{d}_K{K}"
+    if (n, d, K) in K3_TILED_SHAPES:
+        return f"logreg_loss_grad_tiled_n{n}_d{d}_K{K}"
     if (n, d, K) in K3_GENERAL_KEPT:
         return f"logreg_loss_grad_general_n{n}_d{d}_K{K}"
     return f"logreg_loss_grad_tile_d{d}_K{K}"
@@ -958,9 +978,10 @@ def k3_gates(res) -> dict:
     """K3's gates: the tile kernel ran each timed shape of
     K3_GENERAL_SHAPES and the wide fit's, the route each of
     K3_ROUTE_SHAPES (past the tile kernel's cap), each below its plain
-    version, and the general kernel each shape it keeps
-    (K3_GENERAL_KEPT). Returns each gate's verdict; the caller fails the
-    run on any False."""
+    version, its class-tiled instance each of K3_TILED_SHAPES, below its
+    plain version and below one autograd call of it, and the general
+    kernel each shape it keeps (K3_GENERAL_KEPT). Returns each gate's
+    verdict; the caller fails the run on any False."""
     out = {}
     keys = [k3_key(K3_GENERAL_ROWS, d, K) for d, K in K3_GENERAL_SHAPES] + (
         ["logreg_loss_grad_tile_wide"] if "logreg_loss_grad_tile_wide" in res else [])
@@ -974,6 +995,12 @@ def k3_gates(res) -> dict:
         out[f"{key}_ran_route"] = r["variant"].startswith("route")
         if "ms" in r:
             out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+    for key in (k3_key(n, d, K) for n, d, K in K3_TILED_SHAPES):
+        r = res[key]
+        out[f"{key}_ran_tiled"] = r["variant"].startswith("route(tiled")
+        if "ms" in r:
+            out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+            out[f"{key}_below_autograd"] = r["ms"] < r["library_ms"]
     for key in (k3_key(n, d, K) for n, d, K in K3_GENERAL_KEPT):
         out[f"{key}_ran_general"] = res[key]["variant"] == "general"
     return out
@@ -992,10 +1019,13 @@ K3_RAGGED_TILE = ((100_003, 3001, 1, 0), (100_003, 3000, 1, 1), (50_001, 124, 1,
 # than a row tile, K not a multiple of 8 (padded classes live), K = 2 at
 # d = 5,000, K = 256, K = 120 at d = 2,048, 130 classes (the second
 # warpgroup's 126 padded), and rows past one launch pair's R^T scratch
-# (two chunks at 256 classes)
+# (two chunks at 256 classes); the class-tiled instance (K > 256) with
+# d % 4 != 0, a misaligned base, K = 257 (a last class tile of one
+# class), K = 1,000 and 4,097, each over two launch pairs
 K3_RAGGED_ROUTE = ((20_011, 1023, 64, 0), (20_011, 1024, 24, 1), (100, 2000, 10, 0), (20_011, 512, 37, 0),
                    (20_011, 5000, 2, 0), (20_011, 300, 256, 0), (20_011, 2048, 120, 0), (20_011, 130, 130, 1),
-                   (300_000, 260, 256, 0))
+                   (300_000, 260, 256, 0), (70_001, 1023, 1000, 0), (200_003, 130, 257, 0),
+                   (20_011, 1024, 257, 1), (20_011, 261, 4097, 1))
 
 
 def ragged_logreg_checks(torch, lk, g, seed):
@@ -1024,7 +1054,7 @@ def ragged_logreg_checks(torch, lk, g, seed):
         del buf, Xr
     tile = {1000 + i for i in lk._TILE_IPT[False]} | {2000 + i for i in lk._TILE_IPT[True]}
     check(tile <= launched, f"logreg_loss_grad: tile instances {sorted(tile - launched)} never launched")
-    route = {3000 + bn for bn in lk._ROUTE_BN} | {3256}
+    route = {3000 + bn for bn in lk._ROUTE_BN} | {3256, lk._ROUTE_TILED}
     check(route <= launched, f"logreg_loss_grad: route instances {sorted(route - launched)} never launched")
 
 
@@ -1056,19 +1086,57 @@ LOGREG_MANY_W = 0.2
 MANY_COEF_TOL = 0.05
 MANY_AGREE_MIN = 0.995
 MANY_NEAR_TIE = 1e-3
+# logreg_1k: the linear-evaluation protocol on frozen ResNet-50 features
+# (He et al. 2016: 2,048-wide pooled features; ILSVRC-2012's training set:
+# 1,281,167 images, 1,000 classes), LogisticRegression(maxIter=20,
+# regParam=1e-5) on 1,281,167 x 2,048 f32, a zero-copy view of the 12M x
+# 256 host rows (2.62e9 of their 3.07e9 floats; nothing cut): K3's
+# class-tiled instance. Its first 50,000 rows (50 a class) fitted on the
+# card and on the CPU, held to MANY_AGREE_MIN (and to MANY_COEF_TOL at
+# LOGREG_1K_SUBSET_REG); the transform on its first 131,072 rows only (the whole output's
+# probability and raw-prediction columns would be 2 x 5.1 GB on the host)
+LOGREG_1K_ROWS = 1_281_167
+LOGREG_1K_D = 2048
+LOGREG_1K_CLASSES = 1000
+LOGREG_1K_SUBSET = 50_000
+LOGREG_1K_TRANSFORM = 131_072
+# the card-vs-CPU fit's coefficients are held at this regParam, where
+# the optimum is well conditioned and 20 iterations reach it; at the
+# path's 1e-5 the 50,000 rows (2.05M coefficients) are separable, so two
+# f32 fits part along the L-BFGS path by far more than MANY_COEF_TOL
+# whatever computes the gradient (the CPU fit moves as far from itself
+# when only its gradient's rounding changes): there the run holds the
+# predictions' agreement and reports the coefficients' distance
+LOGREG_1K_SUBSET_REG = 1e-2
+# the label map's weights: W ~ N(0, LOGREG_1K_W^2), picked once so that
+# the label map's own accuracy on these rows lands near the other paths'
+# 0.77-0.79 (0.787 on 6,000 rows drawn like them on the CPU)
+LOGREG_1K_W = 0.2
 # K3's route past the tile kernel's cap (two 3xTF32 products), timed
 # (rows, d, K): 64 classes at d = 256 and 1,024, the corner of the JAX
-# package's Pallas gate (d = 2,048, K = 120), and the logreg_many fit's
-# 1,024,000 x 1,024
-K3_ROUTE_SHAPES = ((200_000, 256, 64), (200_000, 1024, 64), (200_000, 2048, 120), (1_024_000, 1024, 64))
-# shapes the general kernel keeps (K > 256; binomial d > 16,380), timed
-# beside their autograd call
-K3_GENERAL_KEPT = ((100_000, 2048, 1000), (20_000, 20_000, 1))
+# package's Pallas gate (d = 2,048, K = 120), 200 classes (the split
+# instance, where the class-tiled one also runs but slower), and the
+# logreg_many fit's 1,024,000 x 1,024 (last)
+K3_ROUTE_SHAPES = ((200_000, 256, 64), (200_000, 1024, 64), (200_000, 2048, 120), (200_000, 1024, 200),
+                   (1_024_000, 1024, 64))
+# the route's class-tiled instance (K > 256), timed (rows, d, K): just
+# past 256 classes (two full class tiles and a ragged third), the general
+# kernel's old 1,000-class shape, the logreg_1k fit's 1,281,167 x 2,048
+# (a view of the 12M x 256 rows), and 4,096 classes at a narrow width
+K3_TILED_SHAPES = ((200_000, 512, 300), (100_000, 2048, 1000), (1_281_167, 2048, 1000), (100_000, 256, 4096))
+# shapes the general kernel keeps (binomial d > 16,380), timed beside
+# their autograd call
+K3_GENERAL_KEPT = ((20_000, 20_000, 1),)
 # the tile kernel's <1, 8> (binomial 4,092 < d <= 8,188) and <1, 16>
 # (8,188 < d <= 16,380) instances, timed
 K3_TILE_WIDE = ((200_000, 8000, 1), (100_000, 16_380, 1))
 # --logreg-only: (rows, d, K)
-K3_PROBE_SHAPES = K3_ROUTE_SHAPES + K3_GENERAL_KEPT + K3_TILE_WIDE
+K3_PROBE_SHAPES = K3_TILED_SHAPES + K3_ROUTE_SHAPES + K3_GENERAL_KEPT + K3_TILE_WIDE
+# --logreg-only forces the general kernel beside the routed one where it
+# launches (not at 4,096 classes: its 48 KB logit tile with its static
+# shared memory is refused) and takes at most ~5 s a call (not at
+# 1,281,167 x 2,048, K = 1,000: ~52 s)
+K3_PROBE_GENERAL_SKIP = ((1_281_167, 2048, 1000), (100_000, 256, 4096))
 
 
 # K2 at k = 1024 must take at most three quarters of the 194.61 ms of the
@@ -2288,41 +2356,114 @@ def phase_logreg_many(torch, Xm, y, oracle_acc):
     return launches
 
 
-def phase_logreg_many_subset(torch, Xm, y, rows):
-    """The logreg_many fit on its first ``rows`` rows with maxIter=20, on
-    the card (the route) and on the CPU (plain path). Held to
-    MANY_COEF_TOL and MANY_AGREE_MIN; the disagreements are counted, with
-    the share of them whose CPU model's top two logits lie within
-    MANY_NEAR_TIE of each other. Returns the card fit's K3 launches,
-    counted alone."""
+def onek_data(torch, X_host, seed):
+    """The logreg_1k fit's rows, a zero-copy (1,281,167, 2,048) view of
+    the N x 256 host rows (fewer rows where N x 256 holds fewer), and
+    labels argmax(X W + Gumbel noise), W (2,048 x 1,000) drawn by numpy
+    from ``seed`` + 15, the products and the noise on the card: the noise
+    is drawn chunk by chunk from a seeded ``torch.Generator`` (-log of a
+    unit exponential), as a numpy draw of its 1.28e9 values would take 5
+    GB and tens of seconds. Also the accuracy of the label map itself,
+    argmax(X W), on those labels, over all rows and over the transform's."""
+    n = min(LOGREG_1K_ROWS, X_host.size // LOGREG_1K_D)
+    X1 = X_host.reshape(-1)[:n * LOGREG_1K_D].reshape(n, LOGREG_1K_D)
+    rng = np.random.default_rng(seed + 15)
+    W = torch.from_numpy((rng.normal(size=(LOGREG_1K_D, LOGREG_1K_CLASSES)) * LOGREG_1K_W).astype(np.float32))
+    W = W.to("cuda:0")
+    g = torch.Generator(device="cuda:0")
+    g.manual_seed(seed + 15)
+    y = np.empty(n, np.float32)
+    hit = np.empty(n, bool)
+    for lo in range(0, n, 1 << 17):
+        z = torch.from_numpy(X1[lo:lo + (1 << 17)]).to("cuda:0") @ W
+        noise = -torch.log(torch.empty_like(z).exponential_(generator=g))
+        lab = (z + noise).argmax(dim=1)
+        hit[lo:lo + lab.shape[0]] = (z.argmax(dim=1) == lab).cpu().numpy()
+        y[lo:lo + lab.shape[0]] = lab.cpu().numpy()
+    return X1, y, (float(hit.mean()), float(hit[:LOGREG_1K_TRANSFORM].mean()))
+
+
+def phase_logreg_1k(torch, X1, y, oracle):
+    """LogisticRegression(maxIter=20, regParam=1e-5) with 1,000 classes on
+    the logreg_1k rows through ``DataFrame``: the copy alone, the fit, then
+    the transform of its first LOGREG_1K_TRANSFORM rows, on the card.
+    Every K3 launch must run the class-tiled instance; coefficients and
+    probabilities finite; the accuracy on the transform's rows within 0.02
+    of the label map's on them. Returns its launches in the fit, counted
+    alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": X1, "label": y})
+    n = X1.shape[0]
+    placed, t_h2d = _timed(torch, lambda: torch.from_numpy(X1).to("cuda:0"))
+    del placed
+    torch.cuda.empty_cache()
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5).fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    nt = min(n, LOGREG_1K_TRANSFORM)
+    out, t_tr = _timed(torch, lambda: lrm.transform(DataFrame({"features": X1[:nt], "label": y[:nt]})))
+    acc = float((out.column("prediction") == y[:nt]).mean())
+    emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_1k", "rows": n,
+          "d": X1.shape[1], "classes": LOGREG_1K_CLASSES, "maxIter": 20, "regParam": 1e-5,
+          "host_to_device_s": t_h2d, "host_to_device_gb_per_s": X1.nbytes / t_h2d / 1e9, "fit_s": t_fit,
+          "fit_rows_per_s": n / t_fit, "n_iter": lrm.n_iter_, "transform_rows": nt, "transform_s": t_tr,
+          "accuracy_on_transform_rows": acc, "label_map_accuracy": oracle[0],
+          "label_map_accuracy_on_transform_rows": oracle[1],
+          "variant": k3_variant(lk, X1.shape[1], LOGREG_1K_CLASSES, True),
+          "logreg_loss_grad_launches": launches, "launches_by_variant": variants})
+    check(lrm.coefficientMatrix.shape == (LOGREG_1K_CLASSES, X1.shape[1])
+          and np.isfinite(lrm.coefficientMatrix).all() and np.isfinite(out.column("probability")).all(),
+          "1,000-class LogReg coefficients or probabilities not finite/shape")
+    check(launches > 0 and set(variants) == {lk._ROUTE_TILED}, f"the 1,000-class fit's K3 launches {variants} "
+          "did not all run the class-tiled instance")
+    check(acc >= oracle[1] - 0.02, f"1,000-class LogReg accuracy {acc} below its label map's {oracle[1]} - 0.02")
+    return launches
+
+
+def phase_logreg_many_subset(torch, Xm, y, rows, path="logreg_many", classes=LOGREG_MANY_CLASSES,
+                             codes=None, reg=1e-5, hold_coef=True):
+    """The ``path`` fit (logreg_many, or logreg_1k with its ``classes``)
+    on its first ``rows`` rows with maxIter=20 and regParam ``reg``, on
+    the card (the route: every K3 launch one of ``codes``, any route code
+    where None) and on the CPU (plain path), each timed. Held to
+    MANY_AGREE_MIN and, where ``hold_coef``, to MANY_COEF_TOL (else the
+    coefficients' distance is reported only). The disagreements are
+    counted, with the share of them whose CPU model's top two logits lie
+    within MANY_NEAR_TIE of each other. Returns the card fit's K3
+    launches, counted alone."""
     from spark_rapids_ml_tpu_torch import DataFrame
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
     from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
 
     df = DataFrame({"features": Xm[:rows], "label": y[:rows]})
     lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
-    lg, t_card = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5, device="cuda:0").fit(df))
+    lg, t_card = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=reg, device="cuda:0").fit(df))
     launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
     t = time.perf_counter()
-    lc = LogisticRegression(maxIter=20, regParam=1e-5, device="cpu").fit(df)
+    lc = LogisticRegression(maxIter=20, regParam=reg, device="cpu").fit(df)
     t_cpu = time.perf_counter() - t
-    coef_err = float(np.abs(lg.coefficientMatrix - lc.coefficientMatrix).max()
-                     / np.abs(lc.coefficientMatrix).max())
+    scale = np.abs(lc.coefficientMatrix).max()
+    coef_err = float(np.abs(lg.coefficientMatrix - lc.coefficientMatrix).max() / scale)
     og, oc = lg.transform(df), lc.transform(df)
     dis = og.column("prediction") != oc.column("prediction")
     top2 = np.sort(oc.column("rawPrediction"), axis=1)[:, -2:]
     near = (top2[:, 1] - top2[:, 0]) <= MANY_NEAR_TIE
     agree = 1.0 - float(dis.mean())
-    emit({"phase": "subset", "estimator": "LogisticRegression", "path": "logreg_many_card_vs_cpu", "rows": rows,
-          "d": Xm.shape[1], "classes": LOGREG_MANY_CLASSES, "maxIter": 20, "card_fit_s": t_card,
+    emit({"phase": "subset", "estimator": "LogisticRegression", "path": f"{path}_card_vs_cpu", "rows": rows,
+          "d": Xm.shape[1], "classes": classes, "maxIter": 20, "regParam": reg, "card_fit_s": t_card,
           "cpu_fit_s": t_cpu, "n_iter_card": lg.n_iter_, "n_iter_cpu": lc.n_iter_,
           "logreg_loss_grad_launches": launches, "launches_by_variant": variants, "coef_rel_err": coef_err,
           "coef_tol": MANY_COEF_TOL, "prediction_agreement": agree, "agreement_min": MANY_AGREE_MIN,
           "disagreements": int(dis.sum()), "near_tie_band": MANY_NEAR_TIE,
-          "disagreements_near_tie_share": float(near[dis].mean()) if dis.any() else None})
-    check(launches > 0 and all(v >= 3000 for v in variants), f"the 64-class card fit's K3 launches {variants} "
-          "did not all run the route")
-    check(coef_err <= MANY_COEF_TOL and agree >= MANY_AGREE_MIN, "64-class LogReg card vs CPU beyond tolerance")
+          "disagreements_near_tie_share": float(near[dis].mean()) if dis.any() else None,
+          "coef_held": hold_coef})
+    check(launches > 0 and all(v >= 3000 if codes is None else v in codes for v in variants),
+          f"the {classes}-class card fit's K3 launches {variants} did not all run the route")
+    check((coef_err <= MANY_COEF_TOL or not hold_coef) and agree >= MANY_AGREE_MIN,
+          f"{classes}-class LogReg card vs CPU beyond tolerance (regParam {reg})")
     return launches
 
 
@@ -3074,13 +3215,14 @@ def k3_inputs(torch, n, d, K, seed, dev):
 
 def logreg_probe(torch, args, dev) -> int:
     """``--logreg-only``: K3 alone at the shapes of K3_PROBE_SHAPES (the
-    route's four timed shapes, the shapes the general kernel keeps, and
-    the tile kernel's <1, 8> and <1, 16> instances), each held against its
-    f64 plain version (``check_logreg``, with its controls) and timed by
-    CUDA events as the whole call, its first kernel (the route: its two
-    kernels; its logits kernel alone too) and its second pass alone, for
-    the routed kernel and, where that is another, for the general kernel
-    forced by its code, so that route and general kernel stand side by
+    class-tiled instance's four timed shapes, the route's five, the shape
+    the general kernel keeps, and the tile kernel's <1, 8> and <1, 16>
+    instances), each held against its f64 plain version (``check_logreg``,
+    with its controls) and timed by CUDA events as the whole call, its
+    first kernel (the route: its two kernels; its logits kernel alone too)
+    and its second pass alone, for the routed kernel and, where that is
+    another, for the general kernel forced by its code (but at
+    K3_PROBE_GENERAL_SKIP), so that route and general kernel stand side by
     side in one call; with the kernels' registers, spills and resident
     blocks, then the ragged K3 shapes. ``--sweep`` adds the general
     kernel with its gradient stage's X re-read or its per-tile partial
@@ -3101,7 +3243,11 @@ def logreg_probe(torch, args, dev) -> int:
             row = {}
         routed = lk._k3_variant(d, K, multinomial)
         y_k = y if multinomial else (y > 0).float()
-        for name, variant in (("routed", routed),) + ((("general", 0),) if routed else ()):
+        general = routed and (n, d, K) not in K3_PROBE_GENERAL_SKIP
+        for name, variant in (("routed", routed),) + ((("general", 0),) if general else ()):
+            # the general kernel past 1e11 (row, feature, class) triples: ~4 s a call, 3 calls a time
+            r_reps = 3 if variant == 0 and n * d * K > 1e11 else reps
+
             def run(knock=0):
                 return lk._logreg_run(X, y_k, m, A, b, multinomial, variant, knock)
 
@@ -3110,9 +3256,9 @@ def logreg_probe(torch, args, dev) -> int:
                 fits = lk._logreg_attributes(variant, geo.smem)[2]
                 if fits < geo.blocks_per_sm:
                     out["failed"].append(f"{key}: {fits} resident blocks an SM, {geo.blocks_per_sm} planned")
-            r = {"variant": variant, "whole_ms": cuda_ms(torch, run, reps),
-                 "first_kernel_ms": cuda_ms(torch, lambda: run(1), reps),
-                 "second_pass_ms": cuda_ms(torch, lambda: run(2), reps),
+            r = {"variant": variant, "whole_ms": cuda_ms(torch, run, r_reps),
+                 "first_kernel_ms": cuda_ms(torch, lambda: run(1), r_reps),
+                 "second_pass_ms": cuda_ms(torch, lambda: run(2), r_reps),
                  "attributes": lk_attributes(lk, variant, n, d, K, multinomial)}
             if variant >= 3000:  # the logits kernel (and the operands' split) alone
                 r["logits_kernel_ms"] = cuda_ms(torch, lambda: run(1 | 16), reps)
@@ -3184,6 +3330,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     from spark_rapids_ml_tpu_torch.ops import _build
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in exact f32
@@ -3266,6 +3413,15 @@ def main() -> int:
                                          "logreg_many_card_vs_cpu": phase_logreg_many_subset(
                                              torch, Xm, ym, min(LOGREG_MANY_SUBSET, Xm.shape[0]))}
     del Xm, ym
+    X1, y1, oracle = onek_data(torch, X_host, args.seed)
+    rows_1k = min(LOGREG_1K_SUBSET, X1.shape[0])
+    # the route's launches by path, its class-tiled instance's among them
+    by_path["logreg_loss_grad_route"].update({
+        "logreg_1k": phase_logreg_1k(torch, X1, y1, oracle),
+        "logreg_1k_card_vs_cpu": sum(phase_logreg_many_subset(
+            torch, X1, y1, rows_1k, "logreg_1k", LOGREG_1K_CLASSES, {lk._ROUTE_TILED}, reg, hold_coef)
+            for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))})
+    del X1, y1
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
@@ -3328,15 +3484,19 @@ def main() -> int:
     # paths), and timed beside its autograd call at the general route's
     # three shapes; the route past the tile kernel's cap at the
     # logreg_many fit's shape (the launches of its paths) and at its other
-    # three timed shapes; the general kernel at the shapes it keeps. No
-    # other path launches these shapes.
-    many = k3_key(*K3_ROUTE_SHAPES[-1])
+    # three timed shapes; its class-tiled instance at the logreg_1k fit's
+    # shape (the launches of its paths) and at its other three; the
+    # general kernel at the shape it keeps. No other path launches these
+    # shapes, and each launch counts in the one row whose kernel ran it.
+    many, onek = k3_key(*K3_ROUTE_SHAPES[-1]), k3_key(LOGREG_1K_ROWS, LOGREG_1K_D, LOGREG_1K_CLASSES)
+    route = by_path["logreg_loss_grad_route"]
     k3_rows = [("logreg_loss_grad_tile", "logreg_loss_grad_tile_wide", by_path["logreg_loss_grad_tile"]),
-               ("logreg_loss_grad_route", many, by_path["logreg_loss_grad_route"])]
+               ("logreg_loss_grad_route", many, {p: c for p, c in route.items() if p.startswith("logreg_many")}),
+               ("logreg_loss_grad_route_tiled", onek, {p: c for p, c in route.items() if p.startswith("logreg_1k")})]
     k3_rows += [(k3_key(K3_GENERAL_ROWS, d_r, K_r), k3_key(K3_GENERAL_ROWS, d_r, K_r), {})
                 for d_r, K_r in K3_GENERAL_SHAPES]
-    k3_rows += [(k3_key(*shape), k3_key(*shape), {}) for shape in K3_ROUTE_SHAPES + K3_GENERAL_KEPT
-                if k3_key(*shape) != many]
+    k3_rows += [(k3_key(*shape), k3_key(*shape), {}) for shape in K3_ROUTE_SHAPES + K3_TILED_SHAPES + K3_GENERAL_KEPT
+                if k3_key(*shape) not in (many, onek)]
     for name, key, paths in k3_rows:
         r = kern[key]
         kernels.append({
@@ -3359,7 +3519,8 @@ def main() -> int:
              "subblock_hist_gbt_level7": kern["subblock_hist_gbt"],
              "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
              "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"]}
-    emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra})
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra,
+          "launches_by_path": by_path})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

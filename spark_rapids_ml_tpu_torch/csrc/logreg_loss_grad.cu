@@ -29,10 +29,11 @@
 // at K = 1) and whose ring fits in shared memory takes logreg_tile_kernel
 // (see its note): whole rows staged once in shared memory, A staged once
 // a block, the gradient held on chip, one partial a resident block. Any
-// d, any alignment. Past that cap, multinomial 2 <= K <= 256 takes the
+// d, any alignment. Past that cap, every multinomial shape takes the
 // route of two 3xTF32 wgmma products (logreg_route_kernel, see its note),
-// whose classes are padded to the wgmma N and masked. The rest (K > 256;
-// binomial d > 16,380) takes the general kernel: blocks take
+// whose classes are padded to the wgmma N and masked; past 256 classes
+// (up to 12,288) its class-tiled instance walks tiles of 128 classes with
+// an online softmax. Binomial d > 16,380 takes the general kernel: blocks take
 // contiguous row ranges and walk them in tiles of RT rows. Per tile: (L)
 // each warp computes logits for (row, 8-class chunk) pairs, lanes
 // striding over d (A read through the L1 cache); the RT x K logits live
@@ -1006,6 +1007,32 @@ logreg_reduce_kernel(const float* __restrict__ part, const float* __restrict__ l
 // warpgroup 128 of the classes. Every sum has one fixed order, with no
 // float atomics, and the fixed-order second pass (logreg_reduce_kernel)
 // adds the partials: the card repeats itself bit for bit.
+// CT, the class-tiled instance (257 to 12,288 classes, launcher code
+// 3900, BN = 128 without the split): the classes go in tiles of 128.
+//   (A) A block's row tile (128 rows, 64 a warpgroup, so no row crosses a
+//       warpgroup) walks the class tiles, ceil(d / 32) stages each, the X
+//       tile fetched again for each (from L2 where the row block's slab
+//       stays there), the B operand at the class tile's rows of A. After
+//       a class tile: + b, its rows' max (quads), the running (max, sum)
+//       merged the FlashAttention way (the sum rescaled by exp(old max -
+//       new max)), the label's logit taken into the loss, and the raw
+//       logits stored to the block's own slice of the z scratch, each
+//       thread's 64 values in its own coalesced columns. After the last
+//       class tile the block reads its z back (written by the same
+//       thread, so no barrier) and writes R^T's hi and lo once; the
+//       intercept gradient of a class tile goes through a double-buffered
+//       [8 warps][128] exchange into the block's side row (stored on its
+//       first row tile, added after), one thread a class: fixed order.
+//   (B) the (column tile, class tile, row range) tiles, the column tiles
+//       of one class tile adjacent, so the R^T stage they share and the X
+//       stage the class tiles share are read while in L2; each adds its
+//       sums into the range's partial, zeroed by the caller, so launch
+//       pairs accumulate in chunk order and the scratch does not grow
+//       with n.
+// What bounds it: at 100,000 x 2,048, K = 1,000 the two products are 2.46
+// TFLOP in 3xTF32 (4.97 ms at 495 TFLOP/s) against 0.82 GB of X (0.25
+// ms): the tensor cores. At d = 256, K = 4,096 the z and R^T scratch
+// (24 bytes a logit through device memory) is as large a cost.
 
 constexpr int RT_RB = 32;           // reduction depth of a stage: one 128-byte row
 constexpr int RT_CONSUMERS = 256;   // two warpgroups multiply
@@ -1015,8 +1042,13 @@ constexpr int RT_MAX_STAGES = 4;
 constexpr int RT_XCHG = 512;        // floats: [2 buffers][2 warpgroups][64 rows][max, sum]
 // the probe's knock-out: the logits kernel (and A's split) alone
 constexpr int KNOCK_ROUTE_NO_GRAD = 16;
+// a negative control of the class-tiled instance: the tiles' sums merged
+// without rescaling (the result is then wrong wherever the max moves)
+constexpr int KNOCK_ROUTE_NO_RESCALE = 32;
+constexpr int RT_CT_CODE = 3900;    // the class-tiled instance's launcher code
+constexpr int RT_CT_MAX_K = 12288;  // its classes at most (logreg_kernels._ROUTE_TILED_MAX_K)
 // named barriers: 1..4 the ring's empty slots, then the split's exchange
-// and the consumers' end
+// (CT: the intercept's) and the consumers' end
 constexpr int RT_BAR_XCHG = 1 + RT_MAX_STAGES;
 constexpr int RT_BAR_END = 2 + RT_MAX_STAGES;
 
@@ -1038,7 +1070,9 @@ struct RouteArgs {
   float* rlo;
   float* part;  // (B): [ranges][K][d + 1], columns < d
   float* side;  // (A): [grid][K + 1], the intercept gradient then the loss
+  float* zs;    // CT (A): [grid][nct][64][256 consumers], the raw logits
   int n, d, K, nst, tma_x, col_tiles, ranges, range_rows, nr;
+  int nct, knock;  // class tiles (1 but for CT); the probe's knock bits
   Tf32 tf;
 };
 
@@ -1048,10 +1082,10 @@ __host__ __device__ constexpr int route_slot(int bn, bool split) {
 }
 // dynamic shared memory of a route kernel (ops/logreg_kernels.py
 // ::_route_smem computes the same): 1,024 bytes of alignment slack, the
-// ring and its barriers, the warps' intercept sums, the split's exchange
-// and the warps' losses
-size_t route_smem_bytes(int bn, bool split, int stages) {
-  return 1024 + (size_t)stages * (route_slot(bn, split) * 4 + 8) + 4 * (8 * bn + RT_XCHG + 8);
+// ring and its barriers, the warps' intercept sums (CT: two buffers), the
+// split's exchange and the warps' losses
+size_t route_smem_bytes(int bn, bool split, int stages, bool ct) {
+  return 1024 + (size_t)stages * (route_slot(bn, split) * 4 + 8) + 4 * ((ct ? 16 : 8) * bn + RT_XCHG + 8);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -1175,26 +1209,30 @@ __host__ __device__ constexpr int col_of(int w, int h, int g) {
   return 32 * (w >> 1) + 4 * (4 * (g >> 2) + 2 * (w & 1) + h) + (g & 3);
 }
 
-template <int BN, bool SPLIT, bool GRAD>
+template <int BN, bool SPLIT, bool GRAD, bool CT = false>
 __global__ void __launch_bounds__(RT_THREADS, 1)
 logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmh,
                     const __grid_constant__ CUtensorMap tml, const RouteArgs a) {
+  static_assert(!CT || (BN == 128 && !SPLIT), "the class-tiled instance is BN = 128 without the split");
   constexpr int BM = route_bm(SPLIT), NPT = SPLIT ? 2 * BN : BN, SLOT = route_slot(BN, SPLIT);
   extern __shared__ unsigned char dyn_raw[];
   unsigned char* dyn = dyn_raw + ((1024 - (smem_addr(dyn_raw) & 1023)) & 1023);
   float* ring = reinterpret_cast<float*>(dyn);                      // [nst][SLOT]
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + a.nst * SLOT);  // [nst]
-  float* gbw = reinterpret_cast<float*>(full + a.nst);              // [8 warps][BN]
-  float* xchg = gbw + 8 * BN;                                       // [2][2][64][2]
+  float* gbw = reinterpret_cast<float*>(full + a.nst);              // [CT ? 2 : 1][8 warps][BN]
+  float* xchg = gbw + (CT ? 16 : 8) * BN;                           // [2][2][64][2]
   float* wloss = xchg + RT_XCHG;                                    // [8]
 
   const int n = a.n, d = a.d, K = a.K, nst = a.nst;
-  // (A): row blocks of BM rows, ceil(d / 32) stages each; (B): (column
-  // tile, row range) pairs, the column tiles of a range adjacent
-  const int ntiles = GRAD ? a.col_tiles * a.ranges : (n + BM - 1) / BM;
+  // class tiles (CT) and stages over d
+  const int nct = CT ? a.nct : 1, dst = (d + RT_RB - 1) / RT_RB;
+  // (A): row blocks of BM rows, ceil(d / 32) stages each (CT: each class
+  // tile's); (B): (column tile, class tile, row range) triples, the
+  // column tiles of a class tile adjacent, then the class tiles of a range
+  const int ntiles = GRAD ? a.col_tiles * nct * a.ranges : (n + BM - 1) / BM;
   auto stages_of = [&](int tile) -> int {
-    if (!GRAD) return (d + RT_RB - 1) / RT_RB;
-    const int r0 = tile / a.col_tiles * a.range_rows;
+    if (!GRAD) return dst * nct;
+    const int r0 = tile / (a.col_tiles * nct) * a.range_rows;
     return (min(a.range_rows, n - r0) + RT_RB - 1) / RT_RB;
   };
   const int tid = threadIdx.x, lane = tid % 32;
@@ -1215,18 +1253,25 @@ logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_consta
     int q = 0;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int nstg = stages_of(tile);
-      // the X tile's origin: (A) row xr; (B) column xc, rows from kb
+      // the X tile's origin: (A) row xr; (B) column xc, rows from kb; the
+      // B operand's first class cy (CT)
       const int xr = GRAD ? 0 : tile * BM;
       const int xc = GRAD ? tile % a.col_tiles * BM : 0;
-      const int k0 = GRAD ? tile / a.col_tiles * a.range_rows : 0;
+      const int k0 = GRAD ? tile / (a.col_tiles * nct) * a.range_rows : 0;
+      const int cy0 = GRAD ? tile / a.col_tiles % nct * NPT : 0;
       for (int s = 0; s < nstg; ++s, ++q) {
-        const int sl = q % nst, kb = k0 + s * RT_RB;
+        const int sl = q % nst;
+        int kb = k0 + s * RT_RB, cy = cy0;
+        if constexpr (CT && !GRAD) {  // class tile s / dst, feature stage s % dst
+          kb = s % dst * RT_RB;
+          cy = s / dst * NPT;
+        }
         if (q >= nst) bar_sync(1 + sl, RT_CONSUMERS + np);  // the consumers are done with q - nst
         float* slot = ring + sl * SLOT;
         if (ptid == 0) {
           mbar_expect(full + sl, tx);
-          tma_load(slot + BM * RT_RB, &tmh, kb, 0, full + sl);
-          tma_load(slot + (BM + NPT) * RT_RB, &tml, kb, 0, full + sl);
+          tma_load(slot + BM * RT_RB, &tmh, kb, cy, full + sl);
+          tma_load(slot + (BM + NPT) * RT_RB, &tml, kb, cy, full + sl);
           if (a.tma_x) {
             if (GRAD) {
 #pragma unroll
@@ -1288,9 +1333,24 @@ logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_consta
 #pragma unroll
   for (int e = 0; e < BN / 2; ++e) acc[e] = run[e] = 0.f;
   float lsum = 0.f;
+  // CT (A): this thread's rows' running max and sum, mask and label; its
+  // slice of the z scratch; the intercept exchanges taken so far
+  float rmax[2], rsum[2], rm[2];
+  int ry[2], nx = 0;
+  float* zb = CT ? a.zs + (size_t)blockIdx.x * nct * (BN / 2) * RT_CONSUMERS + tid : nullptr;
   int q = 0, tl = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++tl) {
     const int nstg = stages_of(tile);
+    if constexpr (CT && !GRAD) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tile * BM + wslab + 16 * w + g + 8 * h;
+        rmax[h] = -CUDART_INF_F;
+        rsum[h] = 0.f;
+        rm[h] = r < n ? __ldg(a.m + r) : 0.f;
+        ry[h] = r < n ? (int)__ldg(a.y + r) : -1;
+      }
+    }
     for (int s = 0; s < nstg; ++s, ++q) {
       const int sl = q % nst;
       mbar_wait(full + sl, (q / nst) & 1);
@@ -1335,20 +1395,113 @@ logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_consta
       bar_arrive(1 + sl, RT_CONSUMERS + np);
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) run[e] += acc[e];  // fold the stage, rounded
+      if constexpr (CT && !GRAD) {
+        if ((s + 1) % dst == 0) {  // class tile s / dst done: merge it into the rows' (max, sum)
+          const int c0 = s / dst * NPT;
+          float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F}, tsum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            const int cls = c0 + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+            if (cls < K) {
+              const float z = run[e] + __ldg(a.b + cls);
+              run[e] = z;
+              tmax[h] = fmaxf(tmax[h], z);
+              if (cls == ry[h]) lsum -= z * rm[h];
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int o = 1; o < 4; o <<= 1) tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], o));
+            tmax[h] = fmaxf(rmax[h], tmax[h]);  // the new running max
+          }
+          float* zt = zb + (size_t)(s / dst) * (BN / 2) * RT_CONSUMERS;
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            const int cls = c0 + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+            if (cls < K) tsum[h] += expf(run[e] - tmax[h]);
+            zt[e * RT_CONSUMERS] = run[e];
+            run[e] = 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int o = 1; o < 4; o <<= 1) tsum[h] += __shfl_xor_sync(0xffffffffu, tsum[h], o);
+            rsum[h] = (a.knock & KNOCK_ROUTE_NO_RESCALE ? rsum[h] : rsum[h] * expf(rmax[h] - tmax[h])) + tsum[h];
+            rmax[h] = tmax[h];
+          }
+        }
+      }
     }
 
     // accumulator element e: row (A) or column slot (B) 16 w + 8 h + g,
     // h = (e >> 1) & 1; class cbase + 8 (e >> 2) + 2 t + (e & 1)
     if (GRAD) {
-      const int ct = tile % a.col_tiles, rr = tile / a.col_tiles;
+      const int ct = tile % a.col_tiles, c0 = tile / a.col_tiles % nct * NPT, rr = tile / (a.col_tiles * nct);
       float* P = a.part + (size_t)rr * K * (d + 1);
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) {
         const int col = ct * BM + wslab + col_of(w, (e >> 1) & 1, g);
-        const int cls = cbase + 8 * (e >> 2) + 2 * t + (e & 1);
-        if (col < d && cls < K) P[(size_t)cls * (d + 1) + col] = run[e];
+        const int cls = c0 + cbase + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (col < d && cls < K) {
+          float* p = P + (size_t)cls * (d + 1) + col;
+          *p = CT ? *p + run[e] : run[e];  // CT: launch pairs add up in chunk order
+        }
         run[e] = 0.f;
       }
+      continue;
+    }
+    if constexpr (CT && !GRAD) {  // (A) after the last class tile: R^T's hi and lo, the intercept gradient
+      const int r0 = tile * BM + wslab + 16 * w + g;  // rows r0 and r0 + 8
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        inv[h] = 1.f / rsum[h];
+        if (t == 0) lsum += (logf(rsum[h]) + rmax[h]) * rm[h];
+      }
+      float* sd = a.side + (size_t)blockIdx.x * (K + 1);
+      for (int ct = 0; ct < nct; ++ct, ++nx) {
+        const int c0 = ct * NPT;
+        // the class tile's logits first, all 64 loads in flight at once: the
+        // R^T stores below may alias them, so a load after one would wait
+        const float* zt = zb + (size_t)ct * (BN / 2) * RT_CONSUMERS;
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) run[e] = zt[e * RT_CONSUMERS];
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          const int cls = c0 + 8 * (e >> 2) + 2 * t + (e & 1), h = (e >> 1) & 1;
+          const int r = r0 + 8 * h;
+          float rv = 0.f;
+          if (cls < K && r < n) {
+            rv = (expf(run[e] - rmax[h]) * inv[h] - (cls == ry[h] ? 1.f : 0.f)) * rm[h];
+            unsigned hi, lo;
+            a.tf.split(rv, hi, lo);
+            a.rhi[(size_t)cls * a.nr + r] = __uint_as_float(hi);
+            a.rlo[(size_t)cls * a.nr + r] = __uint_as_float(lo);
+          }
+          run[e] = rv;
+        }
+        float* gx = gbw + (nx & 1) * 8 * BN;  // this exchange's buffer: the one before last is free
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float v = run[4 * j + p] + run[4 * j + 2 + p];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (g == 0) gx[(tid / 32) * BN + 8 * j + 2 * t + p] = v;
+          }
+        bar_sync(RT_BAR_XCHG, RT_CONSUMERS);
+        if (tid < NPT && c0 + tid < K) {  // one thread a class: the block's side row in row-tile order
+          float v = 0.f;
+#pragma unroll
+          for (int w8 = 0; w8 < 8; ++w8) v += gx[w8 * BN + tid];
+          sd[c0 + tid] = tl == 0 ? v : sd[c0 + tid] + v;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) run[e] = 0.f;
       continue;
     }
     const int r0 = tile * BM + wslab + 16 * w + g;  // rows r0 and r0 + 8
@@ -1462,7 +1615,7 @@ logreg_route_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_consta
   if (lane == 0) wloss[tid / 32] = lsum;
   bar_sync(RT_BAR_END, RT_CONSUMERS);
   float* sd = a.side + (size_t)blockIdx.x * (K + 1);
-  for (int c = tid; c < NPT && c < K; c += RT_CONSUMERS) {
+  for (int c = tid; !CT && c < NPT && c < K; c += RT_CONSUMERS) {  // CT: the sweep wrote them
     float v = 0.f;
     if (SPLIT) {
 #pragma unroll
@@ -1525,30 +1678,30 @@ cudaError_t route_map(CUtensorMap* map, const float* p, int64_t rows, int cols, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, bool SPLIT>
+template <int BN, bool SPLIT, bool CT = false>
 cudaError_t route_pass(const RouteArgs& a, const float* ahi, const float* alo, int da, int grid_a, int grid_b,
                        int knock, cudaStream_t st) {
   constexpr int BM = route_bm(SPLIT), NPT = SPLIT ? 2 * BN : BN;
-  const size_t smem = route_smem_bytes(BN, SPLIT, a.nst);
+  const size_t smem = route_smem_bytes(BN, SPLIT, a.nst, CT);
   CUtensorMap tmx{}, tmh{}, tml{};
   cudaError_t err = cudaSuccess;
   if (a.tma_x) err = route_map(&tmx, a.X, a.n, a.d, a.d, BM);
   if (err == cudaSuccess) err = route_map(&tmh, ahi, a.K, a.d, da, NPT);
   if (err == cudaSuccess) err = route_map(&tml, alo, a.K, a.d, da, NPT);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, false, CT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  logreg_route_kernel<BN, SPLIT, false><<<grid_a, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
+  logreg_route_kernel<BN, SPLIT, false, CT><<<grid_a, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
   if (knock & KNOCK_ROUTE_NO_GRAD) return cudaGetLastError();
   if (a.tma_x) err = route_map(&tmx, a.X, a.n, a.d, a.d, 32);
   if (err == cudaSuccess) err = route_map(&tmh, a.rhi, a.K, a.n, a.nr, NPT);
   if (err == cudaSuccess) err = route_map(&tml, a.rlo, a.K, a.n, a.nr, NPT);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(logreg_route_kernel<BN, SPLIT, true, CT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  logreg_route_kernel<BN, SPLIT, true><<<grid_b, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
+  logreg_route_kernel<BN, SPLIT, true, CT><<<grid_b, RT_THREADS, smem, st>>>(tmx, tmh, tml, a);
   return cudaGetLastError();
 }
 
@@ -1636,22 +1789,26 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
 // offset to it by the caller): A's split (split_a: the first chunk),
 // logits kernel (A) on grid_a blocks, gradient kernel (B) on grid_b
 // blocks over col_tiles x ranges tiles of range_rows rows (a multiple of
-// 32). `code` is 3000 + BN (3256: 129-256 classes, split over the two
-// warpgroups); ahi and alo hold (K, da) floats, rhi and rlo (K, nr); part
-// takes `ranges` partials of K (d + 1), side grid_a of K + 1. knock 16:
-// the logits kernel alone.
+// 32; CT: col_tiles x class tiles x ranges). `code` is 3000 + BN (3256:
+// 129-256 classes, split over the two warpgroups; 3900: the class-tiled
+// instance, 2 <= K <= 12,288 in tiles of 128); ahi and alo hold (K, da)
+// floats, rhi and rlo (K, nr); part takes `ranges` partials of K (d + 1)
+// (CT: zeroed by the caller, added to), side grid_a of K + 1; zs (CT)
+// grid_a x class tiles x 16,384 floats. knock 16: the logits kernel
+// alone; 32 (CT): the class tiles merged without rescaling the sum.
 extern "C" int logreg_route_launch(const float* X, const float* y, const float* m, const float* A,
                                    const float* b, float* ahi, float* alo, float* rhi, float* rlo,
-                                   float* part, float* side, int n, int d, int K, int code, int stages,
-                                   int grid_a, int col_tiles, int ranges, int range_rows, int grid_b,
-                                   int da, int nr, int split_a, int tma_x, unsigned tf32_bias,
+                                   float* part, float* side, float* zs, int n, int d, int K, int code,
+                                   int stages, int grid_a, int col_tiles, int ranges, int range_rows,
+                                   int grid_b, int da, int nr, int split_a, int tma_x, unsigned tf32_bias,
                                    unsigned tf32_mask, int knock, void* stream) {
-  const int bn = code == 3256 ? 128 : code - 3000;
-  const bool split = code == 3256;
-  if (n < 1 || d < 1 || K < 2 || K > (split ? 2 * bn : bn) || stages < 2 || stages > RT_MAX_STAGES ||
-      range_rows % RT_RB != 0 || (int64_t)ranges * range_rows < n || col_tiles * route_bm(split) < d ||
-      grid_a < 1 || grid_b < 1 || da < d || da % 4 != 0 || nr < n || nr % 4 != 0 ||
-      (tma_x && (d % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0)))
+  const bool ct = code == RT_CT_CODE, split = code == 3256;
+  const int bn = ct || split ? 128 : code - 3000;
+  const int npt = split ? 2 * bn : bn;
+  if (n < 1 || d < 1 || K < 2 || K > (ct ? RT_CT_MAX_K : npt) || (ct && !zs) || stages < 2 ||
+      stages > RT_MAX_STAGES || range_rows % RT_RB != 0 || (int64_t)ranges * range_rows < n ||
+      col_tiles * route_bm(split) < d || grid_a < 1 || grid_b < 1 || da < d || da % 4 != 0 || nr < n ||
+      nr % 4 != 0 || (tma_x && (d % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Tf32 tf{tf32_bias, tf32_mask};
@@ -1660,7 +1817,8 @@ extern "C" int logreg_route_launch(const float* X, const float* y, const float* 
     route_split_kernel<<<(unsigned)((kd + 255) / 256 < 1024 ? (kd + 255) / 256 : 1024), 256, 0, st>>>(
         A, ahi, alo, K, d, da, tf);
   }
-  const RouteArgs a{X, y, m, b, rhi, rlo, part, side, n, d, K, stages, tma_x, col_tiles, ranges, range_rows, nr, tf};
+  const RouteArgs a{X, y, m, b, rhi, rlo, part, side, zs, n, d, K, stages, tma_x, col_tiles, ranges, range_rows,
+                    nr, ct ? (K + npt - 1) / npt : 1, knock, tf};
   cudaError_t err;
   switch (code) {
     case 3016: err = route_pass<16, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
@@ -1668,6 +1826,7 @@ extern "C" int logreg_route_launch(const float* X, const float* y, const float* 
     case 3064: err = route_pass<64, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
     case 3128: err = route_pass<128, false>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
     case 3256: err = route_pass<128, true>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
+    case RT_CT_CODE: err = route_pass<128, false, true>(a, ahi, alo, da, grid_a, grid_b, knock, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
@@ -1686,9 +1845,9 @@ extern "C" int logreg_route_reduce(const float* part, int nb, const float* side,
 // registers, local (spill) bytes a thread, resident blocks an SM at `smem`
 // bytes of dynamic shared memory, and that smem: out[0..3], of the kernel
 // a launcher code names (0: the general kernel, 1000 + IPT and 2000 + IPT:
-// the tile kernel's instances, 3000 + BN and 3256: the route's logits
-// kernel, 4000 + BN and 4256: its gradient kernel) or of the second pass
-// (-1)
+// the tile kernel's instances, 3000 + BN, 3256 and 3900: the route's
+// logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel) or of the
+// second pass (-1)
 extern "C" int logreg_attributes(int variant, int smem, int* out) {
   const void* fn = nullptr;
   switch (variant) {
@@ -1712,6 +1871,8 @@ extern "C" int logreg_attributes(int variant, int smem, int* out) {
     case 4064: fn = (const void*)logreg_route_kernel<64, false, true>; break;
     case 4128: fn = (const void*)logreg_route_kernel<128, false, true>; break;
     case 4256: fn = (const void*)logreg_route_kernel<128, true, true>; break;
+    case RT_CT_CODE: fn = (const void*)logreg_route_kernel<128, false, false, true>; break;
+    case RT_CT_CODE + 1000: fn = (const void*)logreg_route_kernel<128, false, true, true>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   const int threads = variant >= 3000 ? RT_THREADS : THREADS;

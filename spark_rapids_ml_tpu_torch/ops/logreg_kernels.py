@@ -48,12 +48,15 @@ _TILE_BM = {False: (64, 32, 16, 8, 4, 2, 1), True: (64, 56, 48, 40, 32, 24, 16, 
 _TILE_STAGES = 2
 # the route past the tile kernel's cap (logreg_route_kernel): wgmma N
 # sizes (classes a warpgroup; 129-256 classes split over two warpgroups of
-# 128, code 3256), the depth of a stage, ring depths (the deepest that
+# 128, code 3256; 257 to 12,288 classes in tiles of 128, the class-tiled
+# instance, code 3900), the depth of a stage, ring depths (the deepest that
 # fits first), the cap on R^T's hi and lo (2 K rows floats) that sets the
 # rows of a launch pair, and a tile's fixed cost (epilogue, ring fill) in
 # stages, for the gradient kernel's row ranges
 _ROUTE_BN = (16, 32, 64, 128)
 _ROUTE_MAX_K = 256
+_ROUTE_TILED = 3900
+_ROUTE_TILED_MAX_K = 12_288
 _ROUTE_RB = 32
 _ROUTE_STAGES = (4, 3, 2)
 _ROUTE_SCRATCH = 512 << 20
@@ -125,12 +128,14 @@ def _tile_geometry(n: int, d: int, K: int, multinomial: bool, sms: int = 132) ->
 class RouteGeometry(NamedTuple):
     """The route's launch past the tile kernel's cap: ``code`` (3000 +
     BN, BN the wgmma N of a warpgroup; 3256 for 129-256 classes split over
-    the two warpgroups), ``npt`` classes a block, ``block_m`` rows (logits
-    kernel) or columns (gradient kernel) a block, ``stages`` in the ring,
-    ``smem`` bytes a block, ``chunk_rows`` rows a launch pair (R^T's
-    scratch holds one chunk), and for a full chunk: ``grid_a`` logits
-    blocks, ``col_tiles`` x ``ranges`` gradient tiles of ``range_rows``
-    rows (a multiple of 32) on ``grid_b`` blocks."""
+    the two warpgroups; 3900 for the class-tiled instance), ``npt``
+    classes a block (a class tile's), ``block_m`` rows (logits kernel) or
+    columns (gradient kernel) a block, ``stages`` in the ring, ``smem``
+    bytes a block, ``chunk_rows`` rows a launch pair (R^T's scratch holds
+    one chunk), and for a full chunk: ``grid_a`` logits blocks,
+    ``col_tiles`` x ``class_tiles`` x ``ranges`` gradient tiles of
+    ``range_rows`` rows (a multiple of 32) on ``grid_b`` blocks
+    (``class_tiles`` is 1 but for the class-tiled instance)."""
 
     code: int
     npt: int
@@ -143,14 +148,17 @@ class RouteGeometry(NamedTuple):
     ranges: int
     range_rows: int
     grid_b: int
+    class_tiles: int = 1
 
 
 def _route_code(K: int) -> Optional[int]:
     """The route's instance for K classes: 3000 + the least wgmma N of
-    ``_ROUTE_BN`` that holds them, 3256 for 129-256 classes, None past
-    256."""
-    if K < 2 or K > _ROUTE_MAX_K:
+    ``_ROUTE_BN`` that holds them, 3256 for 129-256 classes, 3900 (the
+    class-tiled instance) for 257 to 12,288, None past that."""
+    if K < 2 or K > _ROUTE_TILED_MAX_K:
         return None
+    if K > _ROUTE_MAX_K:
+        return _ROUTE_TILED
     return 3000 + next((bn for bn in _ROUTE_BN if bn >= K), _ROUTE_MAX_K)
 
 
@@ -159,10 +167,12 @@ def _route_smem(code: int, stages: int) -> int:
     ``route_smem_bytes``): 1,024 bytes of alignment slack, ``stages`` slots
     of the X tile (block_m x 32 floats) and the B operand's hi and lo (npt
     x 32 floats each) with a barrier each, the 8 warps' intercept sums (BN
-    floats each), the split's exchange (512 floats) and the warps' losses."""
-    bn = 128 if code == 3256 else code - 3000
+    floats each; two buffers of them in the class-tiled instance), the
+    split's exchange (512 floats) and the warps' losses."""
+    bn = 128 if code in (3256, _ROUTE_TILED) else code - 3000
     bm, npt = (64, 256) if code == 3256 else (128, bn)
-    return 1024 + stages * ((bm + 2 * npt) * _ROUTE_RB * 4 + 8) + 4 * (8 * bn + 512 + 8)
+    sums = 16 * bn if code == _ROUTE_TILED else 8 * bn
+    return 1024 + stages * ((bm + 2 * npt) * _ROUTE_RB * 4 + 8) + 4 * (sums + 512 + 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,23 +195,24 @@ def _route_ranges(rows: int, col_tiles: int, sms: int) -> Tuple[int, int]:
 
 def _route_geometry(n: int, d: int, K: int, sms: int = 132) -> Optional[RouteGeometry]:
     """The route's launch for ``n`` rows, ``d`` features and ``K``
-    classes (None past 256 classes): the deepest ring of
+    classes (None past 12,288 classes): the deepest ring of
     ``_ROUTE_STAGES`` that fits one block an SM, chunks of rows whose R^T
     hi and lo fit ``_ROUTE_SCRATCH`` bytes (a multiple of 128 rows), one
-    logits block an SM at most, and the gradient kernel's column tiles and
-    row ranges for a full chunk."""
+    logits block an SM at most, and the gradient kernel's column tiles,
+    class tiles and row ranges for a full chunk."""
     code = _route_code(K)
     if code is None or d < 1:
         return None
     split = code == 3256
-    bm, npt = (64, 256) if split else (128, code - 3000)
+    bm, npt = (64, 256) if split else (128, 128 if code == _ROUTE_TILED else code - 3000)
+    class_tiles = -(-K // npt) if code == _ROUTE_TILED else 1
     stages = next(s for s in _ROUTE_STAGES if _route_smem(code, s) <= _TILE_SMEM_MAX)
-    chunk = min(max(n, 1), max(128, _ROUTE_SCRATCH // (8 * npt) // 128 * 128))
+    chunk = min(max(n, 1), max(128, _ROUTE_SCRATCH // (8 * npt * class_tiles) // 128 * 128))
     col_tiles = -(-d // bm)
-    ranges, range_rows = _route_ranges(chunk, col_tiles, sms)
+    ranges, range_rows = _route_ranges(chunk, col_tiles * class_tiles, sms)
     return RouteGeometry(code, npt, bm, stages, _route_smem(code, stages), chunk,
                          min(-(-chunk // bm), sms), col_tiles, ranges, range_rows,
-                         min(col_tiles * ranges, sms))
+                         min(col_tiles * class_tiles * ranges, sms), class_tiles)
 
 
 def _route_chunks(n: int, geo: RouteGeometry, sms: int = 132) -> List[Tuple[int, int, int, int, int, int]]:
@@ -210,14 +221,15 @@ def _route_chunks(n: int, geo: RouteGeometry, sms: int = 132) -> List[Tuple[int,
     ``geo.chunk_rows`` rows; a shorter last chunk gets its own grids and
     ranges."""
     out = []
+    tiles = geo.col_tiles * geo.class_tiles
     for r0 in range(0, max(n, 1), geo.chunk_rows):
         rows = min(geo.chunk_rows, max(n, 1) - r0)
         if rows == geo.chunk_rows:
             out.append((r0, rows, geo.grid_a, geo.ranges, geo.range_rows, geo.grid_b))
             continue
-        ranges, range_rows = _route_ranges(rows, geo.col_tiles, sms)
+        ranges, range_rows = _route_ranges(rows, tiles, sms)
         out.append((r0, rows, min(-(-rows // geo.block_m), sms), ranges, range_rows,
-                    min(geo.col_tiles * ranges, sms)))
+                    min(tiles * ranges, sms)))
     return out
 
 
@@ -229,10 +241,12 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     NV ∈ {1, 2}), ``1000 + IPT`` (binomial) or ``2000 + IPT``
     (multinomial) for the tile kernel with IPT gradient items a thread,
     where :func:`_tile_geometry` fits, the route's :func:`_route_code`
-    (3000 + BN, or 3256) for every other multinomial shape with 2 ≤ K ≤
-    256, and 0 for the general kernel (K > 256; binomial d > 16,380). The
-    first two need d a multiple of 4 and 16-byte aligned X and A
-    (``aligned``); the tile kernel and the route take any."""
+    (3000 + BN, 3256, or 3900 for the class-tiled instance past 256
+    classes) for every other multinomial shape with 2 ≤ K ≤ 12,288, and 0
+    for the general kernel (binomial d > 16,380; past 12,288 classes the
+    wrapper raises). The first two need d a multiple of 4 and 16-byte
+    aligned X and A (``aligned``); the tile kernel and the route take
+    any."""
     if d < 1:
         return 0
     if aligned and d % 4 == 0:
@@ -278,10 +292,13 @@ def logreg_loss_grad(
     binomial (sigmoid) form.
 
     A CPU tensor goes to :func:`logreg_loss_grad_plain`; a CUDA tensor to
-    the CUDA kernel, or this raises (bf16 X included: not ported yet).
+    the CUDA kernel, or this raises (bf16 X included: not ported yet; more
+    than ``_ROUTE_TILED_MAX_K`` classes).
     Replaces ``spark_rapids_ml_tpu/ops/logreg_pallas.py::_loss_grad_pallas``."""
     if X.device.type == "cpu":
         return logreg_loss_grad_plain(X, y, m, A, b, multinomial)
+    if A.shape[0] > _ROUTE_TILED_MAX_K:
+        raise ValueError(f"logreg_loss_grad: K = {A.shape[0]} classes exceed the kernels' {_ROUTE_TILED_MAX_K:,}")
     variant = _k3_variant(X.shape[1], A.shape[0], multinomial,
                           X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
     out = _logreg_run(X, y, m, A, b, multinomial, variant)
@@ -300,8 +317,9 @@ def _logreg_run(
     ``knock`` is a probe's bit mask (1: the first kernel alone (the route:
     its two kernels), 2: the second pass alone, 4 and 8: the general
     kernel's gradient stage without its X re-read or its per-tile partial
-    write, 16: the route's logits kernel alone); any bit makes the result
-    wrong."""
+    write, 16: the route's logits kernel alone, 32: the class-tiled
+    instance's tiles merged without rescaling the sum, a negative
+    control); any bit makes the result wrong."""
     _check_cuda_f32("logreg_loss_grad", X, y, m, A, b)
     n, d = X.shape
     K = A.shape[0]
@@ -368,17 +386,24 @@ def _route_run(
     """The route past the tile kernel's cap on checked card tensors: for
     each chunk of rows the logits kernel (A's TF32 split first, once) and
     the gradient kernel, then the fixed-order second pass over every
-    chunk's partials."""
+    chunk's partials (the class-tiled instance: over its ranges' partials,
+    which every chunk adds to)."""
     n, d = X.shape
     K = A.shape[0]
     dev = X.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     geo = _route_geometry(n, d, K, sms)
     chunks = _route_chunks(n, geo, sms)
+    tiled = geo.code == _ROUTE_TILED
     da, nr = -(-d // 4) * 4, -(-geo.chunk_rows // 4) * 4
     ops = torch.empty((2, K, da), dtype=torch.float32, device=dev)  # A's hi and lo
     rt = torch.empty((2, K, nr), dtype=torch.float32, device=dev)  # R^T's hi and lo
-    part = torch.empty((sum(c[3] for c in chunks), K * (d + 1)), dtype=torch.float32, device=dev)
+    if tiled:  # the ranges' partials, added to by every chunk in turn; each logits block's raw logits
+        part = torch.zeros((max(c[3] for c in chunks), K * (d + 1)), dtype=torch.float32, device=dev)
+        zs = torch.empty((geo.grid_a * geo.class_tiles * geo.npt // 2 * 256,), dtype=torch.float32, device=dev)
+    else:
+        part = torch.empty((sum(c[3] for c in chunks), K * (d + 1)), dtype=torch.float32, device=dev)
+        zs = None
     side = torch.empty((sum(c[2] for c in chunks), K + 1), dtype=torch.float32, device=dev)
     gA = torch.empty((K, d), dtype=torch.float32, device=dev)
     gb = torch.empty((K,), dtype=torch.float32, device=dev)
@@ -387,7 +412,7 @@ def _route_run(
     if not knock & 2:
         fn = _build.function(
             "logreg_loss_grad", "logreg_route_launch",
-            [_P] * 11 + [ctypes.c_int] * 14 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, _P],
+            [_P] * 12 + [ctypes.c_int] * 14 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, _P],
         )
         p0 = s0 = 0
         for i, (r0, rows, grid_a, ranges, range_rows, grid_b) in enumerate(chunks):
@@ -395,12 +420,12 @@ def _route_run(
             code = fn(
                 Xc.data_ptr(), y[r0:].data_ptr(), m[r0:].data_ptr(), A.data_ptr(), b.data_ptr(),
                 ops[0].data_ptr(), ops[1].data_ptr(), rt[0].data_ptr(), rt[1].data_ptr(),
-                part[p0:].data_ptr(), side[s0:].data_ptr(), rows, d, K, geo.code, geo.stages, grid_a,
-                geo.col_tiles, ranges, range_rows, grid_b, da, nr, int(i == 0),
+                part[p0:].data_ptr(), side[s0:].data_ptr(), zs.data_ptr() if tiled else None, rows, d, K,
+                geo.code, geo.stages, grid_a, geo.col_tiles, ranges, range_rows, grid_b, da, nr, int(i == 0),
                 int(d % 4 == 0 and Xc.data_ptr() % 16 == 0), TF32_BIAS, TF32_MASK, knock, stream,
             )
             _build.check("logreg_loss_grad", code)
-            p0, s0 = p0 + ranges, s0 + grid_a
+            p0, s0 = p0 + (0 if tiled else ranges), s0 + grid_a
     if not knock & 1:
         fn = _build.function("logreg_loss_grad", "logreg_route_reduce",
                              [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P])
@@ -412,10 +437,10 @@ def _route_run(
 def _logreg_attributes(variant: int, smem: int = 0) -> Tuple[int, int, int, int]:
     """(registers, spill bytes, resident blocks an SM, shared memory) of
     K3's kernel ``variant`` (0: the general kernel, 1000 + IPT and 2000 +
-    IPT: the tile kernel's instances, 3000 + BN and 3256: the route's
-    logits kernel, 4000 + BN and 4256: its gradient kernel, -1: the second
-    pass) at ``smem`` bytes of dynamic shared memory, from the CUDA
-    runtime's occupancy calculator."""
+    IPT: the tile kernel's instances, 3000 + BN, 3256 and 3900: the
+    route's logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel,
+    -1: the second pass) at ``smem`` bytes of dynamic shared memory, from
+    the CUDA runtime's occupancy calculator."""
     fn = _build.function("logreg_loss_grad", "logreg_attributes", [ctypes.c_int, ctypes.c_int, _P])
     out = (ctypes.c_int * 4)()
     _build.check("logreg_loss_grad", fn(variant, smem, ctypes.addressof(out)))

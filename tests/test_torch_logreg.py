@@ -149,10 +149,14 @@ def test_k3_routing_table(K, d, monkeypatch):
     assert tlk._k3_variant(5000, 2, True) == 3016
     assert tlk._k3_variant(d, 256, True, aligned=False) == 3256
     assert tlk._k3_variant(1024, 33, True) == 3064 and tlk._k3_variant(1024, 32, True) == 3032
-    # what the route does not take stays on the general kernel: K > 256,
-    # binomial d > 16,380
-    assert tlk._k3_variant(d, 257, True) == 0
-    assert tlk._k3_variant(2048, 1000, True) == 0
+    # past 256 classes, up to 12,288: the route's class-tiled instance
+    # (tiles of 128 classes, an online softmax across them)
+    assert tlk._k3_variant(d, 257, True) == 3900
+    assert tlk._k3_variant(2048, 1000, True) == 3900
+    assert tlk._k3_variant(d, 12_288, True, aligned=False) == 3900
+    assert tlk._route_code(12_289) is None and tlk._route_geometry(1, d, 12_289) is None
+    # what the route does not take stays on the general kernel: binomial
+    # d > 16,380
     assert tlk._k3_variant(16384, 1, False) == 0
     assert tlk._k3_variant(20000, 1, False) == 0
     # a CPU tensor takes the plain version and never consults the table
@@ -163,6 +167,24 @@ def test_k3_routing_table(K, d, monkeypatch):
     t = [torch.from_numpy(v) for v in _problem(K, 40, d, K, True)]
     for a, r in zip(tlk.logreg_loss_grad(*t, True), tlk.logreg_loss_grad_plain(*t, True)):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("d", [4, 61, 124, 256, 2048, 5000])
+def test_k3_routing_takes_every_multinomial_K_past_256(d):
+    """Every multinomial K the general kernel took before the class-tiled
+    instance (257 to 12,288, where its RT x K logit tile fits) goes to
+    that instance, or to the tile kernel where its block gradient fits
+    (small d), at any alignment; past 12,288 nothing takes it, and the
+    wrapper raises."""
+    for K in range(257, 12_289):
+        for aligned in (True, False):
+            v = tlk._k3_variant(d, K, True, aligned)
+            assert v == 3900 or (2000 < v < 3000 and tlk._tile_geometry(1, d, K, True) is not None)
+    assert tlk._k3_variant(d, 12_289, True) == 0 and tlk._route_code(12_289) is None
+    # the wrapper raises before it picks a kernel (tensors with no data)
+    meta = [torch.empty(s, device="meta") for s in ((4, d), (4,), (4,), (12_289, d), (12_289,))]
+    with pytest.raises(ValueError, match="12,288"):
+        tlk.logreg_loss_grad(*meta, True)
 
 
 @functools.partial(jax.jit, static_argnames=("use_l1",))
@@ -362,6 +384,36 @@ def test_fused_loss_grad_plain_matches_pallas_on_route_shapes(d, K):
     assert np.abs(gb_t.numpy() - np.asarray(gb_j)).max() < 1e-3
 
 
+@pytest.mark.parametrize("d,K", [(256, 300), (130, 257)])
+def test_fused_loss_grad_plain_matches_jax_xla_past_pallas_gate(d, K, monkeypatch):
+    """Past 256 classes (the class-tiled instance on the card) the JAX
+    package runs outside its Pallas gate (K <= 120), so its oracle is the
+    XLA logits path of its ``logreg_fit`` (``spark_rapids_ml_tpu/ops/
+    logreg_kernels.py``: logits, ``logsumexp`` less the label's logit, the
+    masked sum), differentiated by JAX; held within the tolerances of
+    test_fused_loss_grad_plain_matches_pallas_interpret."""
+    from spark_rapids_ml_tpu.ops import logreg_pallas as jp
+
+    monkeypatch.setattr(jp, "FORCE_INTERPRET", True)
+    assert not jp.logreg_pallas_ok(d, K, jnp.float32)
+    assert tlk._k3_variant(d, K, True) == 3900
+    n = 320
+    X, y, m, A, b = _problem(d + K, n, d, K, True)
+    Xj, yi, mj = jnp.asarray(X), jnp.asarray(y).astype(jnp.int32), jnp.asarray(m)
+
+    def data_loss(Aeff, beff):
+        logits = Xj @ Aeff.T + beff[None, :]
+        ll = jax.nn.logsumexp(logits, axis=1) - jnp.take_along_axis(logits, yi[:, None], axis=1)[:, 0]
+        return (ll * mj).sum()
+
+    loss_j, (gA_j, gb_j) = jax.value_and_grad(data_loss, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(b))
+    t = [torch.from_numpy(v) for v in (X, y, m, A, b)]
+    loss_t, gA_t, gb_t = tlk.logreg_loss_grad(*t, True)
+    assert abs(float(loss_t) - float(loss_j)) / abs(float(loss_j)) < 1e-5
+    assert np.abs(gA_t.numpy() - np.asarray(gA_j)).max() / np.abs(np.asarray(gA_j)).max() < 1e-4
+    assert np.abs(gb_t.numpy() - np.asarray(gb_j)).max() < 1e-3
+
+
 _COL_OF = "return 32 * (w >> 1) + 4 * (4 * (g >> 2) + 2 * (w & 1) + h) + (g & 3);"
 
 
@@ -377,32 +429,47 @@ def _route_block_tiles(n_tiles, grid):
     return [list(range(b, n_tiles, grid)) for b in range(grid)]
 
 
+# the class-tiled instance (K > 256): K = 257 (a second class tile of one
+# class), 300, 1,000 and 4,097 (33 tiles, the last of one class), ragged
+# last chunks under a small R^T scratch
+_CT = 8 * 128 * 128  # R^T's hi and lo for 128 rows of one class tile
+
+
 @pytest.mark.parametrize("n,d,K,sms,scratch", [
     (1_000, 300, 2, 132, 512 << 20), (777, 1023, 17, 5, 512 << 20), (97, 64, 64, 3, 512 << 20),
     (1_111, 200, 128, 7, 512 << 20), (2_003, 129, 130, 4, 512 << 20), (600, 70, 256, 132, 256 * 2048),
     (700, 250, 33, 2, 64 * 1024),
+    (700, 300, 257, 132, 3 * 2 * _CT), (1_000, 130, 300, 7, 3 * 3 * _CT), (500, 40, 1000, 5, 8 * _CT),
+    (300, 20, 4097, 132, 512 << 20), (300, 20, 4097, 3, 33 * _CT),
 ])
 def test_route_work_split_covers_everything_once(n, d, K, sms, scratch, monkeypatch):
     """A numpy model of the route's work split at the launch
     :func:`_route_geometry` and :func:`_route_chunks` give, for each N
-    instance, ragged n and d, chunked rows and grids smaller than the
-    tiles: the chunks cover the rows once; the logits kernel's persistent
-    blocks take each row of a chunk in exactly one tile of ``block_m``
-    rows, each warpgroup its 64 rows (or, split, its 128 classes); the
-    gradient kernel's (column tile, row range) tiles, walked by grid_b
-    blocks in stages of 32 rows (whole stages inside a range), cover every
-    (class, column, row) exactly once, columns through ``col_of``'s
-    permutation; the intercept and loss partials are one a logits block,
-    the gradient partials one a range."""
+    instance and the class-tiled one, ragged n and d, chunked rows and
+    grids smaller than the tiles: the chunks cover the rows once; the
+    logits kernel's persistent blocks take each row of a chunk in exactly
+    one tile of ``block_m`` rows, each warpgroup its 64 rows (or, split,
+    its 128 classes; class-tiled: each class tile of the row tile in
+    turn, so every (row, class) once); the gradient kernel's (column tile,
+    class tile, row range) tiles, walked by grid_b blocks in stages of 32
+    rows (whole stages inside a range), cover every (class, column, row)
+    exactly once, columns through ``col_of``'s permutation, so every
+    (column, class) item once in each row range; the intercept and loss
+    partials are one a logits block, the gradient partials one a range."""
     monkeypatch.setattr(tlk, "_ROUTE_SCRATCH", scratch)  # R^T's cap, so that small n makes chunks
     geo = tlk._route_geometry(n, d, K, sms)
     code = geo.code
-    bn = 128 if code == 3256 else code - 3000
-    assert geo.npt >= K and (geo.npt == bn or (code == 3256 and geo.npt == 2 * bn))
+    tiled = code == 3900
+    bn = 128 if code in (3256, 3900) else code - 3000
+    assert tiled == (K > 256) and geo.class_tiles == (-(-K // 128) if tiled else 1)
+    assert geo.npt * geo.class_tiles >= K > geo.npt * (geo.class_tiles - 1)
+    assert geo.npt == bn or (code == 3256 and geo.npt == 2 * bn)
     assert geo.smem == tlk._route_smem(code, geo.stages) <= 232_448
     chunks = tlk._route_chunks(n, geo, sms)
-    cover = np.zeros((K, d, n), np.int64)
+    assert len(chunks) > 1 or scratch == 512 << 20
+    cover = np.zeros((K, d, n), np.uint8)
     rows_seen = np.zeros(n, np.int64)
+    logit_seen = np.zeros((n, K), np.uint8)
     r_next = 0
     for r0, rows, grid_a, ranges, range_rows, grid_b in chunks:
         assert r0 == r_next and rows <= geo.chunk_rows and geo.chunk_rows % 128 == 0 or len(chunks) == 1
@@ -418,13 +485,17 @@ def test_route_work_split_covers_everything_once(n, d, K, sms, scratch, monkeypa
                     else:
                         lo, hi = t * 128 + 64 * wg, min(rows, t * 128 + 64 * wg + 64)
                     rows_seen[r0 + lo:r0 + max(lo, hi)] += 1
+                    for c in range(geo.class_tiles):  # then the classes of each class tile
+                        c0 = c * geo.npt + (wg * bn if code == 3256 else 0)
+                        logit_seen[r0 + lo:r0 + max(lo, hi), c0:min(K, c0 + bn)] += 1
         # gradient kernel
         assert range_rows % 32 == 0 and ranges * range_rows >= rows > (ranges - 1) * range_rows
-        tiles_b = geo.col_tiles * ranges
+        tiles_b = geo.col_tiles * geo.class_tiles * ranges
         assert 1 <= grid_b <= min(tiles_b, sms) and geo.col_tiles * geo.block_m >= d
         for blk in _route_block_tiles(tiles_b, grid_b):
             for t in blk:
-                ct, rr = t % geo.col_tiles, t // geo.col_tiles
+                ct, cc = t % geo.col_tiles, t // geo.col_tiles % geo.class_tiles
+                rr = t // (geo.col_tiles * geo.class_tiles)
                 k0 = rr * range_rows
                 stages = -(-min(range_rows, rows - k0) // 32)
                 assert stages >= 1 and (rr == ranges - 1 or stages * 32 == range_rows)
@@ -433,7 +504,7 @@ def test_route_work_split_covers_everything_once(n, d, K, sms, scratch, monkeypa
                     seen = np.concatenate([seen, np.arange(k0 + 32 * s, min(k0 + 32 * s + 32, rows))])
                 for wg in range(2):
                     slab = 0 if code == 3256 else 64 * wg
-                    cls = np.arange(bn) + (wg * bn if code == 3256 else 0)
+                    cls = np.arange(bn) + (wg * bn if code == 3256 else 0) + cc * geo.npt
                     cls = cls[cls < K]
                     cols = np.array([ct * geo.block_m + slab + _col_of(w, h, g)
                                      for w in range(4) for h in range(2) for g in range(8)])
@@ -444,6 +515,7 @@ def test_route_work_split_covers_everything_once(n, d, K, sms, scratch, monkeypa
         assert (rows_seen == 1).all()
     else:
         assert (rows_seen == 2).all()  # the two warpgroups' halves of the classes
+    assert (logit_seen == 1).all()
     assert (cover == 1).all()
     assert sorted(_col_of(w, h, g) for w in range(4) for h in range(2) for g in range(8)) \
         == list(range(64))
@@ -547,6 +619,114 @@ def test_route_arithmetic_model_within_band(n, d, K):
     for out, ref, T in ((gA, gAr, T_gA), (gb, gbr, T_gb), (loss, lr, T_loss)):
         assert chip_smoke.held(torch, out, ref, T, n)[1] <= 1.0
     loss_u, gA_u, _ = _route_model(X, y, m, A, b, bn, mask_padded=False)
+    assert chip_smoke.held(torch, gA_u, gAr, T_gA, n)[1] > 1.0
+
+
+def _tiled_lse(z, K, rescale=True):
+    """The class-tiled instance's running (max, sum) of each row of the
+    logits ``z`` (n, K), in the kernel's order and ``z``'s dtype: tiles of
+    128 classes; in a tile the row's max over its live classes, the new
+    running max M' = max(M, tile max), each of the quad's four lanes t
+    summing exp(z - M') over its classes 8 j + 2 t + p in (j, p) order, the
+    quad's sums combined by the xor-1 then the xor-2 shuffle, and S' = S
+    exp(M - M') + that sum (``rescale=False``: S + that sum, the negative
+    control). Returns (M, S)."""
+    n = z.shape[0]
+    M = torch.full((n,), -float("inf"), dtype=z.dtype)
+    S = torch.zeros((n,), dtype=z.dtype)
+    for c0 in range(0, K, 128):
+        zt = torch.full((n, 128), -float("inf"), dtype=z.dtype)
+        zt[:, :min(128, K - c0)] = z[:, c0:c0 + 128]
+        Mn = torch.maximum(M, zt.max(dim=1).values)
+        ex = torch.exp(zt - Mn[:, None]).reshape(n, 16, 4, 2)  # [j][t][p]: class 8 j + 2 t + p
+        lane = torch.zeros((n, 4), dtype=z.dtype)
+        for j in range(16):
+            for p in range(2):
+                lane = lane + ex[:, j, :, p]
+        tsum = (lane[:, 0] + lane[:, 1]) + (lane[:, 2] + lane[:, 3])
+        S = (S * torch.exp(M - Mn) if rescale else S) + tsum
+        M = Mn
+    return M, S
+
+
+@pytest.mark.parametrize("K", [257, 300, 1000, 4097])
+def test_route_tiled_online_softmax_model(K):
+    """The class-tiled instance's merge of the class tiles' (max, sum)
+    (:func:`_tiled_lse`, in f64) gives torch.logsumexp of each row to
+    1e-12 relative on logits spread over +-80, whose max moves between
+    tiles, and, read back against each row's stored logits as the kernel
+    reads them, the plain version's residuals R = (softmax - onehot) m and
+    so its gradient; without the rescale it does not."""
+    n, d = 64, 8
+    rng = np.random.default_rng(K)
+    z = torch.from_numpy(rng.uniform(-80.0, 80.0, size=(n, K)))
+    z[:, -1] = torch.from_numpy(rng.uniform(60.0, 80.0, size=n))  # the max in the last tile
+    M, S = _tiled_lse(z, K)
+    lse = torch.logsumexp(z, dim=1)
+    assert ((torch.log(S) + M - lse).abs() <= 1e-12 * lse.abs()).all()
+    y = torch.from_numpy(rng.integers(0, K, size=n).astype(np.float64))
+    m = torch.from_numpy((rng.random(n) > 0.1).astype(np.float64))
+    onehot = torch.nn.functional.one_hot(y.long(), K).double()
+    R = (torch.exp(z - M[:, None]) / S[:, None] - onehot) * m[:, None]
+    R_plain = (torch.softmax(z, dim=1) - onehot) * m[:, None]
+    assert (R - R_plain).abs().max() <= 1e-12
+    # and so the gradient R^T X over any rows X
+    X = torch.from_numpy(rng.normal(size=(n, d)))
+    assert (R.T @ X - R_plain.T @ X).abs().max() <= 1e-12 * (R_plain.abs().T @ X.abs()).max()
+    M_u, S_u = _tiled_lse(z, K, rescale=False)
+    assert ((torch.log(S_u) + M_u - lse).abs() > 1e-3).any()
+
+
+def _route_tiled_model(X, y, m, A, b, rescale=True):
+    """A torch model of the class-tiled instance's f32 arithmetic on the
+    CPU: each class tile's logits by the route's 3xTF32 products in
+    32-deep stages (:func:`_route_model`'s), + b, merged by
+    :func:`_tiled_lse` in f32; R from the stored logits, its TF32 hi and
+    lo the gradient's B operand, the gradient over stages of 32 rows.
+    Returns (loss, gA, gb)."""
+    from spark_rapids_ml_tpu_torch.ops.knn_kernels import tf32_split
+
+    K = A.shape[0]
+
+    def product(P, Q):  # P (M, depth) @ Q (N, depth)^T, 32-deep stages
+        run = torch.zeros((P.shape[0], Q.shape[0]))
+        for k0 in range(0, P.shape[1], 32):
+            ph, pl = tf32_split(P[:, k0:k0 + 32])
+            qh, ql = tf32_split(Q[:, k0:k0 + 32])
+            run = run + (pl @ qh.T + ph @ ql.T + ph @ qh.T)
+        return run
+
+    z = torch.cat([product(X, A[c0:c0 + 128]) for c0 in range(0, K, 128)], dim=1) + b[None, :]
+    M, S = _tiled_lse(z, K, rescale)
+    onehot = torch.nn.functional.one_hot(y.long(), K).float()
+    loss = ((torch.log(S) + M - (z * onehot).sum(dim=1)) * m).sum()
+    R = (torch.exp(z - M[:, None]) * (1.0 / S)[:, None] - onehot) * m[:, None]
+    rh, rl = tf32_split(R)
+    gA = torch.cat([product(X.T.contiguous(), (rh + rl)[:, c0:c0 + 128].T.contiguous()).T
+                    for c0 in range(0, K, 128)], dim=0)
+    return loss, gA, R.sum(dim=0)
+
+
+@pytest.mark.parametrize("n,d,K", [(300, 130, 257), (200, 64, 300)])
+def test_route_tiled_arithmetic_model_within_band(n, d, K):
+    """The class-tiled instance's arithmetic (:func:`_route_tiled_model`)
+    is held by ``chip_smoke.py``'s f64 band (the check the card's kernel
+    passes), and its negative control, the class tiles merged without
+    rescaling the sum, is refused by it."""
+    import chip_smoke
+
+    assert tlk._route_code(K) == 3900
+    rng = np.random.default_rng(n + d + K)
+    X = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) + 1.0)
+    y = torch.from_numpy(rng.integers(0, K, size=n).astype(np.float32))
+    m = torch.from_numpy((rng.random(n) > 0.1).astype(np.float32))
+    A = torch.from_numpy((rng.normal(size=(K, d)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=K) * 0.1).astype(np.float32))
+    lr, gAr, gbr, T_gA, T_gb, T_loss = chip_smoke.logreg_reference(torch, tlk, X, y, m, A, b, True)
+    loss, gA, gb = _route_tiled_model(X, y, m, A, b)
+    for out, ref, T in ((gA, gAr, T_gA), (gb, gbr, T_gb), (loss, lr, T_loss)):
+        assert chip_smoke.held(torch, out, ref, T, n)[1] <= 1.0
+    _, gA_u, _ = _route_tiled_model(X, y, m, A, b, rescale=False)
     assert chip_smoke.held(torch, gA_u, gAr, T_gA, n)[1] > 1.0
 
 
