@@ -53,12 +53,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    beside its autograd call at 200,000 rows of d = 256 and 1,024 (K = 64)
    and d = 2,048 (K = 120), and at the logreg_many fit's 1,024,000 x 1,024
    (K = 64, a view of the 12M x 256 rows), each with its controls (a
-   one-pass TF32 version of its products among them), each of which must
-   run the route and beat its plain version, and at ragged shapes that
-   launch every instance (d % 4 != 0, a base off alignment, fewer rows than
-   a tile, padded classes, K = 2 at d = 5,000, K = 256, two launch pairs);
-   the general kernel at the shapes it keeps (100,000 x 2,048, K = 1,000;
-   20,000 x 20,000, K = 1), timed beside its autograd call; the
+   one-pass TF32 version of its products among them, which the band must
+   refuse at every timed route shape), each of which must run the route
+   and beat its plain version, and at ragged shapes that launch every
+   instance (d % 4 != 0, a base off alignment, fewer rows than a tile,
+   padded classes, K = 2 at d = 5,000, K = 256, two launch pairs); K3's
+   cluster kernel (binomial 16,380 < d <= 262,144: each row's columns
+   split over the CTAs of a thread-block cluster, the partial logits
+   exchanged through distributed shared memory, X read once) at 20,000 x
+   20,000, the logreg_realsim fit's 72,309 x 20,958, 46,875 x 65,536 and
+   11,718 x 262,144 (the last three views of the 12M x 256 rows), each
+   with its controls (a dropped cluster rank among them), timed beside
+   its autograd call and the general kernel it replaced there, each of
+   which must run the cluster kernel and beat its plain version, autograd
+   and the general kernel, and at ragged shapes with O(1) logits and every
+   control that launch every cluster size its geometry picks and both its
+   instances (d % 4 != 0, a base off alignment, fewer rows than clusters,
+   5 rows); the general kernel at the
+   shape it keeps (2,929 x 2^20), timed beside its autograd call; the
    forest kernels at the builder's own level layouts: K5 per node (every
    node's histogram of a level in one launch: rows read through the sort
    permutation, spans of SPAN_ROWS rows summed in row order and a node's
@@ -106,7 +118,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
    labels argmax(X W + Gumbel noise) from numpy (K3's route past the tile
    kernel's cap: its launches under ``launches_by_path["logreg_many"]``),
    held to the label map's own accuracy less 0.02, and its first 20,000
-   rows fitted on the card and on the CPU and compared;
+   rows fitted on the card and on the CPU and compared; the same
+   benchmark config (binomial, maxIter=200, tol=1e-30, regParam=1e-5) at
+   the shape of LIBSVM's real-sim, 72,309 x 20,958, a zero-copy view of
+   the same host rows with hyperplane labels (K3's cluster kernel: its
+   launches under ``launches_by_path["logreg_loss_grad_cluster"]``; the
+   fit's copy and K3 time apart), held to the hyperplane's accuracy less
+   0.02, and its first 20,000 rows fitted on the card and on the CPU at
+   regParam 1e-5 (predictions held) and 1e-2 (coefficients held);
    NearestNeighbors(k=16).kneighbors of the
    first 131,072 of 1M of those rows against all 1M, and a join; UMAP(
    n_neighbors=15, random_state=42) fit, transform and save/load at
@@ -156,16 +175,19 @@ alone) and the other stage depths.
     python3 chip_smoke.py --logreg-only [--sweep]
 
 is a probe of K3: at the route's five timed shapes, its class-tiled
-instance's four, the shapes the general kernel keeps and the tile
-kernel's <1, 8> and <1, 16> instances,
+instance's four, the cluster kernel's four, the shape the general kernel
+keeps and the tile kernel's <1, 8> and <1, 16> instances,
 each held with its controls and timed as the whole call, its first
 kernel (the route: its two kernels, and its logits kernel alone) and its
 second pass alone, for the routed kernel and, forced by its code, the
-general kernel (so route and general kernel stand side by side in one
-call), with registers, spills and resident blocks, then the ragged tile
-and route shapes; ``--sweep`` adds the general kernel's gradient stage
-without its X re-read or its per-tile partial write. It prints no result
-line and exits 1 if a check failed.
+general kernel (so each kernel and the general kernel stand side by
+side in one call), with registers, spills and resident blocks (the
+cluster kernel: its geometry and the clusters the card holds at once),
+then the ragged tile, route and cluster shapes; ``--sweep`` adds the
+general kernel's gradient stage without its X re-read or its per-tile
+partial write, and the cluster kernel without its gradient's reads of the
+staged rows or its exchange, and at every other cluster size that takes
+the shape. It prints no result line and exits 1 if a check failed.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -570,11 +592,15 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     """K3's plain version in f64, in row chunks, with the absolute sums T.
     The f32 logits are off by at most about u·S (S = the row's largest
     Σ|x·a| + |b|), which moves a probability p by at most 2·u·S·p (its
-    logit and the softmax's sum) and a row's loss by 2·u·S: each (row,
-    class) weighs m·(|R| + 2·S·p) in gA's and gb's T, each row m·2·S in
-    the loss's. Per class, so at many classes a class's band follows its
-    own residuals, not K times a row's (a p that f32 cannot hold, below
-    its least normal number, adds F32_TINY / u)."""
+    logit and the softmax's sum; binomial: 2·u·S·p·(1 - p), the sigmoid's
+    slope, with a factor 2 for its change over u·S while u·S < ln 2) and
+    a row's loss by 2·u·S; the binomial form's f32 sigmoid 1 / (1 + e^-z)
+    is itself off by a few ulps of p, which its slope does not bound where
+    p nears 1. Each (row, class) weighs m·(|R| + 2·S·p) (the binomial form
+    m·(|R| + 2·S·p·(1 - p) + p)) in gA's and gb's T, each row m·2·S in the
+    loss's. Per class, so at many classes a class's band
+    follows its own residuals, not K times a row's (a p that f32 cannot
+    hold, below its least normal number, adds F32_TINY / u)."""
     d, K, f64 = X.shape[1], A.shape[0], torch.float64
     chunk = max(1, REF_CHUNK * E2E_D // max(d, K))  # f64 chunks of at most 2 GB
     A64, b64 = A.to(f64), b.to(f64)
@@ -595,11 +621,15 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
         if multinomial:
             p = torch.softmax(z, dim=1)
             R = p - torch.nn.functional.one_hot(yy.long(), K).to(f64)
+            dp = p
         else:
             p = torch.sigmoid(z)
             R = p - yy[:, None]
-        w = mm[:, None] * (R.abs() + 2.0 * S[:, None] * p + F32_TINY / U32)
-        del z, p, R
+            dp = p * (1.0 - p)
+        w = mm[:, None] * (R.abs() + 2.0 * S[:, None] * dp + F32_TINY / U32)
+        if not multinomial:  # the f32 sigmoid's own rounding
+            w += mm[:, None] * p
+        del z, p, R, dp
         T_gA += w.T @ x.abs()
         T_b += w.sum(dim=0)
         T_z += (2.0 * mm * S).sum()
@@ -611,6 +641,8 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     code = lk._k3_variant(d, K, multinomial, aligned)
     if code == 0:
         return "general"
+    if code >= lk._CLUSTER:
+        return f"cluster(IPT={code - lk._CLUSTER})"
     if code >= 3000:
         return ("route(tiled, N=128)" if code == lk._ROUTE_TILED else "route(N=2x128)" if code == 3256
                 else f"route(N={code - 3000})")
@@ -619,11 +651,21 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
 
 
-def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
+def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False, a_std=0.05):
+    """K3 at one shape against its f64 plain version (``logreg_reference``,
+    ``held``), naming the kernel that ran it. ``control``: the negative
+    controls the band must catch (a zeroed feature tile, lost rows, the
+    class-tiled instance's unrescaled merge) and, where ``strict`` (the
+    timed shapes and the cluster kernel's ragged ones), the route's
+    products in one-pass TF32 and the cluster kernel's last rank dropped
+    from every logit, else reported. A's entries are N(0, ``a_std``²).
+    ``reps``: timed beside its plain version and one autograd call (the
+    cluster kernel: and the general kernel forced by its code), with its
+    bound."""
     n, d = X.shape
     g = torch.Generator(device=X.device)
     g.manual_seed(seed)
-    A = (torch.randn(K, d, generator=g, device=X.device) * 0.05).contiguous()
+    A = (torch.randn(K, d, generator=g, device=X.device) * a_std).contiguous()
     b = torch.randn(K, generator=g, device=X.device) * 0.1
     multinomial = K > 1
     yk = y if not multinomial else torch.randint(0, K, (n,), generator=g, device=X.device).float()
@@ -644,23 +686,32 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
     if control:  # a kernel that loses the second feature tile, or one row range in it
         tile = gA.clone()
         tile[:, 128:] = 0.0
+        cases = {"gA[:, 128:] zeroed": tile}
         L = n // CONTROL_SPLIT
-        lost = gA.clone()
-        lost[:, 128:] -= lk.logreg_loss_grad_plain(X[:L], yk[:L], m[:L], A, b, multinomial)[1][:, 128:]
-        cases = {"gA[:, 128:] zeroed": tile, f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]": lost}
+        if L:
+            lost = gA.clone()
+            lost[:, 128:] -= lk.logreg_loss_grad_plain(X[:L], yk[:L], m[:L], A, b, multinomial)[1][:, 128:]
+            cases[f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]"] = lost
         if variant.startswith("route(tiled"):  # the class tiles merged without rescaling the sum
             cases["class tiles merged unrescaled"] = lk._logreg_run(X, yk, m, A, b, True, lk._ROUTE_TILED, 32)[1]
-        out["controls"] = negative_controls(torch, cases, gAr, T_gA, n)
-        if variant.startswith("route"):
-            # for information, not a control: the same sums with both products
-            # in one-pass TF32 (hi * hi' alone) sit inside this band too (a
-            # sum over n rows of terms whose rounding does not drift one way)
+        extra = {}
+        if variant.startswith("cluster"):  # the last rank's partial left out of every logit
+            code = lk._k3_variant(d, K, multinomial, aligned)
+            extra["dropped_rank"] = lk._logreg_run(X, yk, m, A, b, False, code, 128)[1]
+        if variant.startswith("route"):  # both products in one-pass TF32 (hi * hi' alone)
             from spark_rapids_ml_tpu_torch.ops.knn_kernels import tf32_round
 
             Xt = tf32_round(X)
-            one = logreg_reference(torch, lk, Xt, yk, m, tf32_round(A), b, multinomial)[1]
-            out["one_pass_tf32_err_over_tol"] = held(torch, one, gAr, T_gA, n)[1]
-            del Xt, one
+            extra["one_pass_tf32"] = logreg_reference(torch, lk, Xt, yk, m, tf32_round(A), b, multinomial)[1]
+            del Xt
+        names = {"dropped_rank": "last cluster rank's partial dropped", "one_pass_tf32": "one-pass TF32 products"}
+        for what, bad in extra.items():
+            if strict:
+                cases[names[what]] = bad
+            else:
+                out[f"{what}_err_over_tol"] = held(torch, bad, gAr, T_gA, n)[1]
+        del extra
+        out["controls"] = negative_controls(torch, cases, gAr, T_gA, n)
     if reps:
         def library():  # autograd of the plain loss
             Ar = A.detach().requires_grad_(True)
@@ -673,6 +724,8 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False):
             return torch.autograd.grad((ll * m).sum(), (Ar, br))
 
         out["ms"] = cuda_ms(torch, lambda: lk.logreg_loss_grad(X, yk, m, A, b, multinomial), reps)
+        if variant.startswith("cluster"):  # the kernel it replaced at these widths, forced by its code
+            out["general_ms"] = cuda_ms(torch, lambda: lk._logreg_run(X, yk, m, A, b, False, 0), reps)
         out["plain_ms"] = cuda_ms(
             torch, lambda: lk.logreg_loss_grad_plain(X, yk, m, A, b, multinomial), reps)
         out["library_ms"] = cuda_ms(torch, library, reps)
@@ -932,19 +985,23 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     # (a zero-copy view of the 12M x 256 rows, with the controls); the
     # route past the tile kernel's cap at its five timed shapes (the
     # logreg_many fit's 1,024,000 x 1,024 a view of the same rows), with
-    # the controls; its class-tiled instance at its four (the logreg_1k
-    # fit's 1,281,167 x 2,048 a view of the same rows), with the controls;
-    # and the general kernel at the shape it keeps
+    # the controls (one-pass TF32 products among them); its class-tiled
+    # instance at its four (the logreg_1k fit's 1,281,167 x 2,048 a view of
+    # the same rows), likewise; the cluster kernel at its four (all but
+    # 20,000 x 20,000 views of the same rows), with the controls and the
+    # general kernel timed beside it; and the general kernel at the shape
+    # it keeps (a view)
+    routed = K3_ROUTE_SHAPES + K3_TILED_SHAPES
     for n_r, d_r, K_r, ctl in ([(K3_GENERAL_ROWS, d, K, False) for d, K in K3_GENERAL_SHAPES]
-                               + [(n, d, K, True) for n, d, K in K3_ROUTE_SHAPES + K3_TILED_SHAPES + K3_GENERAL_KEPT]):
-        if n_r * d_r <= X.numel() and n_r > K3_GENERAL_ROWS:
+                               + [(n, d, K, True) for n, d, K in routed + K3_CLUSTER_SHAPES + K3_GENERAL_KEPT]):
+        if n_r * d_r <= X.numel() and (n_r > K3_GENERAL_ROWS or n_r * d_r > 10 ** 9):
             Xr = X.reshape(-1)[:n_r * d_r].view(n_r, d_r)
         else:
             Xr = torch.randn(n_r, d_r, generator=g, device=dev)
         mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
         yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
         key = k3_key(n_r, d_r, K_r)
-        res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed, control=ctl)
+        res[key] = check_logreg(torch, lk, Xr, yr, mr, K_r, reps, seed, control=ctl, strict=ctl)
         emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": key, **res[key]})
         del Xr, mr, yr
         torch.cuda.empty_cache()
@@ -963,8 +1020,10 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
 def k3_key(n, d, K) -> str:
     """The measurement key of K3 at a timed shape: the tile kernel's of
     K3_GENERAL_SHAPES, the route's of K3_ROUTE_SHAPES, its class-tiled
-    instance's of K3_TILED_SHAPES, the general kernel's of
-    K3_GENERAL_KEPT."""
+    instance's of K3_TILED_SHAPES, the cluster kernel's of
+    K3_CLUSTER_SHAPES, the general kernel's of K3_GENERAL_KEPT."""
+    if (n, d, K) in K3_CLUSTER_SHAPES:
+        return f"logreg_loss_grad_cluster_n{n}_d{d}"
     if (n, d, K) in K3_ROUTE_SHAPES:
         return f"logreg_loss_grad_route_n{n}_d{d}_K{K}"
     if (n, d, K) in K3_TILED_SHAPES:
@@ -979,9 +1038,11 @@ def k3_gates(res) -> dict:
     K3_GENERAL_SHAPES and the wide fit's, the route each of
     K3_ROUTE_SHAPES (past the tile kernel's cap), each below its plain
     version, its class-tiled instance each of K3_TILED_SHAPES, below its
-    plain version and below one autograd call of it, and the general
-    kernel each shape it keeps (K3_GENERAL_KEPT). Returns each gate's
-    verdict; the caller fails the run on any False."""
+    plain version and below one autograd call of it, the cluster kernel
+    each of K3_CLUSTER_SHAPES, below its plain version, one autograd call
+    and the general kernel it replaced there, and the general kernel each
+    shape it keeps (K3_GENERAL_KEPT). Returns each gate's verdict; the
+    caller fails the run on any False."""
     out = {}
     keys = [k3_key(K3_GENERAL_ROWS, d, K) for d, K in K3_GENERAL_SHAPES] + (
         ["logreg_loss_grad_tile_wide"] if "logreg_loss_grad_tile_wide" in res else [])
@@ -1001,6 +1062,13 @@ def k3_gates(res) -> dict:
         if "ms" in r:
             out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
             out[f"{key}_below_autograd"] = r["ms"] < r["library_ms"]
+    for key in (k3_key(n, d, K) for n, d, K in K3_CLUSTER_SHAPES):
+        r = res[key]
+        out[f"{key}_ran_cluster"] = r["variant"].startswith("cluster")
+        if "ms" in r:
+            out[f"{key}_below_plain"] = r["ms"] < r["plain_ms"]
+            out[f"{key}_below_autograd"] = r["ms"] < r["library_ms"]
+            out[f"{key}_below_general"] = r["ms"] < r["general_ms"]
     for key in (k3_key(n, d, K) for n, d, K in K3_GENERAL_KEPT):
         out[f"{key}_ran_general"] = res[key]["variant"] == "general"
     return out
@@ -1026,6 +1094,19 @@ K3_RAGGED_ROUTE = ((20_011, 1023, 64, 0), (20_011, 1024, 24, 1), (100, 2000, 10,
                    (20_011, 5000, 2, 0), (20_011, 300, 256, 0), (20_011, 2048, 120, 0), (20_011, 130, 130, 1),
                    (300_000, 260, 256, 0), (70_001, 1023, 1000, 0), (200_003, 130, 257, 0),
                    (20_011, 1024, 257, 1), (20_011, 261, 4097, 1))
+# the cluster kernel (binomial 16,380 < d <= 262,144) at every cluster
+# size and instance the geometry picks: just past the tile kernel's cap
+# (d % 4 != 0: rows off 16-byte alignment, C = 2), C = 2's widest slice
+# on a base 4 bytes off alignment, a last rank whose slice ends inside a
+# chunk (d = 30,001), fewer rows than the clusters the card holds (C =
+# 4), 5 rows (C = 8) and C = 8 off alignment, C = 16 aligned and off
+# alignment; and one shape past its widest d, which the general kernel
+# takes. Their rows are drawn so that the logits are O(1) (a saturated
+# logit hides a wrong partial from the band), and each is held with every
+# control, the dropped rank among them.
+K3_RAGGED_CLUSTER = ((4_099, 16_381, 1, 0), (3_001, 32_768, 1, 1), (1_037, 30_001, 1, 0),
+                     (20, 65_536, 1, 0), (5, 100_000, 1, 0), (1_031, 120_001, 1, 1), (1_003, 262_144, 1, 0),
+                     (777, 200_003, 1, 1), (1_003, 262_147, 1, 0))
 
 
 def ragged_logreg_checks(torch, lk, g, seed):
@@ -1033,21 +1114,34 @@ def ragged_logreg_checks(torch, lk, g, seed):
     plain version and naming the kernel that ran it (its launcher code, as
     counted by the wrapper): d % 4 != 0, a base 4 bytes off 16-byte
     alignment (4-byte copies), fewer rows than a tile or than the grid,
-    more classes than a block has threads, padded classes. Fails unless
-    every instance of the tile kernel and of the route launched."""
+    more classes than a block has threads, padded classes; and at
+    K3_RAGGED_CLUSTER, with every control, on rows and an A that keep the
+    logits O(1). Fails unless every instance of
+    the tile kernel, of the route and of the cluster kernel, and every
+    cluster size the cluster kernel's geometry picks, launched, and the
+    general kernel past the cluster kernel's widest d."""
     dev = g.device
-    launched = set()
-    for n_r, d_r, K_r, offset in K3_RAGGED_TILE + K3_RAGGED_ROUTE:
-        buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + 3.0
+    launched, sizes, misaligned = set(), set(), False
+    for n_r, d_r, K_r, offset in K3_RAGGED_TILE + K3_RAGGED_ROUTE + K3_RAGGED_CLUSTER:
+        cl = (n_r, d_r, K_r, offset) in K3_RAGGED_CLUSTER
+        buf = torch.randn(n_r * d_r + offset, generator=g, device=dev) + (0.0 if cl else 3.0)
         Xr = buf[offset:].view(n_r, d_r)
         mr = (torch.rand(n_r, generator=g, device=dev) > 0.1).float()
         yr = (torch.rand(n_r, generator=g, device=dev) > 0.5).float()
         before = dict(lk.logreg_loss_grad.variants)
-        # the route's every instance with the controls too (most run only here)
-        r = check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed, control=(n_r, d_r, K_r, offset) in K3_RAGGED_ROUTE)
+        # the route's and the cluster kernel's every instance with the
+        # controls too (most run only here); the cluster kernel's with A
+        # scaled by 1/sqrt(d), so its logits x.a are O(1) and a dropped
+        # rank moves the residuals
+        r = check_logreg(torch, lk, Xr, yr, mr, K_r, 0, seed, control=cl or (n_r, d_r, K_r, offset) in K3_RAGGED_ROUTE,
+                         strict=cl, a_std=d_r ** -0.5 if cl else 0.05)
         codes = [c for c, v in lk.logreg_loss_grad.variants.items() if v != before.get(c, 0)]
         check(len(codes) == 1, f"logreg_loss_grad {n_r}x{d_r} K={K_r}: launched codes {codes}, not one")
         launched.update(codes)
+        if codes[0] >= lk._CLUSTER:
+            r["geometry"] = lk._cluster_geometry(n_r, d_r)._asdict()
+            sizes.add(r["geometry"]["C"])
+            misaligned |= offset != 0 or d_r % 4 != 0
         emit({"phase": "kernels", "kernel": "logreg_loss_grad", "ragged": True, "misaligned": bool(offset),
               "code": codes[0], **{k: v for k, v in r.items() if k != "controls"},
               **({"controls": [(c["control"], c["err_over_tol"]) for c in r["controls"]]} if "controls" in r else {})})
@@ -1056,6 +1150,13 @@ def ragged_logreg_checks(torch, lk, g, seed):
     check(tile <= launched, f"logreg_loss_grad: tile instances {sorted(tile - launched)} never launched")
     route = {3000 + bn for bn in lk._ROUTE_BN} | {3256, lk._ROUTE_TILED}
     check(route <= launched, f"logreg_loss_grad: route instances {sorted(route - launched)} never launched")
+    # the cluster kernel, on both its instances (aligned and not), and
+    # every cluster size its geometry picks over its whole range of d
+    check(lk._CLUSTER + lk._CLUSTER_IPT in launched and misaligned,
+          "logreg_loss_grad: the cluster kernel never launched on both its instances")
+    picked = {lk._cluster_geometry(1, d).C for d in range(16_381, lk._CLUSTER_D_MAX + 1, 97)}
+    check(picked <= sizes, f"logreg_loss_grad: cluster sizes {sorted(picked - sizes)} never launched")
+    check(0 in launched, "logreg_loss_grad: the general kernel never launched past the cluster kernel's widest d")
 
 
 # K3's tile kernel, timed (rows, then (d, K)): the reference's CI smoke
@@ -1112,6 +1213,20 @@ LOGREG_1K_SUBSET_REG = 1e-2
 # the label map's own accuracy on these rows lands near the other paths'
 # 0.77-0.79 (0.787 on 6,000 rows drawn like them on the CPU)
 LOGREG_1K_W = 0.2
+# logreg_realsim: binomial LogisticRegression at the shape of LIBSVM's
+# real-sim (72,309 x 20,958; the data table of Fan et al., JMLR 2008,
+# LIBLINEAR), with the reference benchmark's parameters (BASELINE.md:
+# maxIter 200, tol 1e-30, regParam 1e-5), on a zero-copy view of the 12M x
+# 256 host rows (1.515e9 of their 3.072e9 floats, Gaussian; no data
+# downloaded), labels from a seeded hyperplane plus logistic noise (as
+# logreg_wide's): K3's cluster kernel. Its first 20,000 rows fitted on the
+# card and on the CPU with maxIter 20: fewer rows than features, so at
+# regParam 1e-5 they are separable and two f32 fits part by any rounding
+# (the predictions held to MANY_AGREE_MIN, the coefficients' distance
+# reported), at LOGREG_1K_SUBSET_REG the coefficients held to MANY_COEF_TOL
+LOGREG_REALSIM_ROWS = 72_309
+LOGREG_REALSIM_D = 20_958
+LOGREG_REALSIM_SUBSET = 20_000
 # K3's route past the tile kernel's cap (two 3xTF32 products), timed
 # (rows, d, K): 64 classes at d = 256 and 1,024, the corner of the JAX
 # package's Pallas gate (d = 2,048, K = 120), 200 classes (the split
@@ -1124,14 +1239,20 @@ K3_ROUTE_SHAPES = ((200_000, 256, 64), (200_000, 1024, 64), (200_000, 2048, 120)
 # kernel's old 1,000-class shape, the logreg_1k fit's 1,281,167 x 2,048
 # (a view of the 12M x 256 rows), and 4,096 classes at a narrow width
 K3_TILED_SHAPES = ((200_000, 512, 300), (100_000, 2048, 1000), (1_281_167, 2048, 1000), (100_000, 256, 4096))
-# shapes the general kernel keeps (binomial d > 16,380), timed beside
-# their autograd call
-K3_GENERAL_KEPT = ((20_000, 20_000, 1),)
+# the cluster kernel (binomial 16,380 < d <= 262,144), timed beside its
+# autograd call and the general kernel it replaced there: the general
+# kernel's old shape, the logreg_realsim fit's (LIBSVM's real-sim), the
+# whole 12M x 256 buffer at 65,536 columns, and Spark's HashingTF default
+# width (2^18 features), the last three views of the 12M x 256 rows
+K3_CLUSTER_SHAPES = ((20_000, 20_000, 1), (72_309, 20_958, 1), (46_875, 65_536, 1), (11_718, 262_144, 1))
+# the shape the general kernel keeps (binomial d > 262,144), timed beside
+# its autograd call: HashingTF's 2^20 features over the whole buffer
+K3_GENERAL_KEPT = ((2_929, 1 << 20, 1),)
 # the tile kernel's <1, 8> (binomial 4,092 < d <= 8,188) and <1, 16>
 # (8,188 < d <= 16,380) instances, timed
 K3_TILE_WIDE = ((200_000, 8000, 1), (100_000, 16_380, 1))
 # --logreg-only: (rows, d, K)
-K3_PROBE_SHAPES = K3_TILED_SHAPES + K3_ROUTE_SHAPES + K3_GENERAL_KEPT + K3_TILE_WIDE
+K3_PROBE_SHAPES = K3_TILED_SHAPES + K3_ROUTE_SHAPES + K3_CLUSTER_SHAPES + K3_GENERAL_KEPT + K3_TILE_WIDE
 # --logreg-only forces the general kernel beside the routed one where it
 # launches (not at 4,096 classes: its 48 KB logit tile with its static
 # shared memory is refused) and takes at most ~5 s a call (not at
@@ -2230,16 +2351,18 @@ def phase_logreg10_subset(torch, X_host, seed, rows):
     return launches
 
 
-def wide_data(X_host, seed):
+def wide_data(X_host, seed, d=LOGREG_WIDE_D, rows=None, salt=13):
     """The wide fit's rows, a zero-copy (n * 256 // 3,000, 3,000) view of
-    the N x 256 host rows (1,024,000 x 3,000 at 12M), and labels from a
-    seeded numpy hyperplane through all 3,000 features plus logistic
-    noise: y = [2 z + noise > 0], z the standardized projection. Also the
-    accuracy of the hyperplane itself on those labels."""
-    n_w = X_host.size // LOGREG_WIDE_D
-    Xw = X_host.reshape(-1)[:n_w * LOGREG_WIDE_D].reshape(n_w, LOGREG_WIDE_D)
-    rng = np.random.default_rng(seed + 13)
-    z = Xw @ rng.normal(size=LOGREG_WIDE_D).astype(np.float32)
+    the N x 256 host rows (1,024,000 x 3,000 at 12M; the logreg_realsim
+    fit's: ``d`` wide, at most ``rows`` rows), and labels from a numpy
+    hyperplane, seeded by ``seed`` + ``salt``, through all ``d`` features
+    plus logistic noise: y = [2 z + noise > 0], z the standardized
+    projection. Also the accuracy of the hyperplane itself on those
+    labels."""
+    n_w = min(X_host.size // d, rows or X_host.size)
+    Xw = X_host.reshape(-1)[:n_w * d].reshape(n_w, d)
+    rng = np.random.default_rng(seed + salt)
+    z = Xw @ rng.normal(size=d).astype(np.float32)
     z = (z - np.median(z)) / z.std()
     y = (2.0 * z + rng.logistic(size=n_w) > 0).astype(np.float32)
     return Xw, y, float(((z > 0) == (y > 0)).mean())
@@ -2268,9 +2391,48 @@ def phase_logreg_wide(torch, Xw, y, oracle_acc):
           "logreg_loss_grad_launches": launches, "launches_by_variant": variants})
     check(np.isfinite(lrm.coefficients).all() and np.isfinite(out.column("probability")).all(),
           "wide LogReg not finite")
-    check(launches > 0 and all(v >= 1000 for v in variants), f"the wide fit's K3 launches {variants} "
+    check(launches > 0 and all(1000 <= v < 3000 for v in variants), f"the wide fit's K3 launches {variants} "
           "did not all run the tile kernel")
     check(acc >= oracle_acc - 0.02, f"wide LogReg accuracy {acc} below its hyperplane's {oracle_acc} - 0.02")
+    return launches
+
+
+def phase_logreg_realsim(torch, Xr, y, oracle_acc, k3_ms=None):
+    """The reference benchmark's parameters (binomial, maxIter 200, tol
+    1e-30, regParam 1e-5) on the logreg_realsim rows through
+    ``DataFrame``: the host->device copy alone, then fit and transform on
+    the card. Every K3 launch must run the cluster kernel; coefficients
+    and probabilities finite; the accuracy within 0.02 of the hyperplane's.
+    The fit's time is split into the copy, K3 (its launches times
+    ``k3_ms``, the kernel phase's time at this shape) and the rest.
+    Returns its launches in the fit, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    df = DataFrame({"features": Xr, "label": y})
+    n, d = Xr.shape
+    placed, t_h2d = _timed(torch, lambda: torch.from_numpy(Xr).to("cuda:0"))
+    del placed
+    torch.cuda.empty_cache()
+    lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
+    lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=200, tol=1e-30, regParam=1e-5).fit(df))
+    launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    out, t_tr = _timed(torch, lambda: lrm.transform(df))
+    acc = float((out.column("prediction") == y).mean())
+    k3_s = launches * k3_ms / 1e3 if k3_ms is not None else None
+    emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_realsim", "rows": n, "d": d,
+          "maxIter": 200, "tol": 1e-30, "regParam": 1e-5, "host_to_device_s": t_h2d,
+          "host_to_device_gb_per_s": Xr.nbytes / t_h2d / 1e9, "fit_s": t_fit, "fit_rows_per_s": n / t_fit,
+          "k3_s": k3_s, "rest_s": t_fit - t_h2d - k3_s if k3_s is not None else None,
+          "transform_s": t_tr, "n_iter": lrm.n_iter_, "accuracy": acc, "hyperplane_accuracy": oracle_acc,
+          "variant": k3_variant(lk, d, 1, False), "logreg_loss_grad_launches": launches,
+          "launches_by_variant": variants})
+    check(np.isfinite(lrm.coefficients).all() and np.isfinite(out.column("probability")).all(),
+          "real-sim LogReg not finite")
+    check(launches > 0 and all(v >= lk._CLUSTER for v in variants), f"the real-sim fit's K3 launches {variants} "
+          "did not all run the cluster kernel")
+    check(acc >= oracle_acc - 0.02, f"real-sim LogReg accuracy {acc} below its hyperplane's {oracle_acc} - 0.02")
     return launches
 
 
@@ -2295,7 +2457,7 @@ def phase_logreg_wide_subset(torch, Xw, y, rows):
           "d": Xw.shape[1], "maxIter": 20, "card_fit_s": t_card, "cpu_fit_s": t_cpu, "n_iter_card": lg.n_iter_,
           "n_iter_cpu": lc.n_iter_, "logreg_loss_grad_launches": launches, "launches_by_variant": variants,
           "coef_rel_err": coef_err, "coef_tol": 0.05, "prediction_agreement": agree, "agreement_min": 0.995})
-    check(launches > 0 and all(v >= 1000 for v in variants), f"the wide card fit's K3 launches {variants} "
+    check(launches > 0 and all(1000 <= v < 3000 for v in variants), f"the wide card fit's K3 launches {variants} "
           "did not all run the tile kernel")
     check(coef_err <= 0.05 and agree >= 0.995, "wide LogReg card vs CPU beyond tolerance")
     return launches
@@ -2350,7 +2512,7 @@ def phase_logreg_many(torch, Xm, y, oracle_acc):
     check(lrm.coefficientMatrix.shape == (LOGREG_MANY_CLASSES, Xm.shape[1])
           and np.isfinite(lrm.coefficientMatrix).all() and np.isfinite(out.column("probability")).all(),
           "64-class LogReg coefficients or probabilities not finite/shape")
-    check(launches > 0 and all(v >= 3000 for v in variants), f"the 64-class fit's K3 launches {variants} "
+    check(launches > 0 and all(3000 <= v < lk._CLUSTER for v in variants), f"the 64-class fit's K3 launches {variants} "
           "did not all run the route")
     check(acc >= oracle_acc - 0.02, f"64-class LogReg accuracy {acc} below its label map's {oracle_acc} - 0.02")
     return launches
@@ -2424,11 +2586,12 @@ def phase_logreg_1k(torch, X1, y, oracle):
 
 
 def phase_logreg_many_subset(torch, Xm, y, rows, path="logreg_many", classes=LOGREG_MANY_CLASSES,
-                             codes=None, reg=1e-5, hold_coef=True):
-    """The ``path`` fit (logreg_many, or logreg_1k with its ``classes``)
-    on its first ``rows`` rows with maxIter=20 and regParam ``reg``, on
-    the card (the route: every K3 launch one of ``codes``, any route code
-    where None) and on the CPU (plain path), each timed. Held to
+                             codes=None, reg=1e-5, hold_coef=True, kernel="the route"):
+    """The ``path`` fit (logreg_many, or logreg_1k or logreg_realsim with
+    its ``classes``, 2 for the binomial form) on its first ``rows`` rows
+    with maxIter=20 and regParam ``reg``, on the card (``kernel``: every
+    K3 launch one of ``codes``, any route code where None) and on the CPU
+    (plain path), each timed. Held to
     MANY_AGREE_MIN and, where ``hold_coef``, to MANY_COEF_TOL (else the
     coefficients' distance is reported only). The disagreements are
     counted, with the share of them whose CPU model's top two logits lie
@@ -2460,8 +2623,8 @@ def phase_logreg_many_subset(torch, Xm, y, rows, path="logreg_many", classes=LOG
           "disagreements": int(dis.sum()), "near_tie_band": MANY_NEAR_TIE,
           "disagreements_near_tie_share": float(near[dis].mean()) if dis.any() else None,
           "coef_held": hold_coef})
-    check(launches > 0 and all(v >= 3000 if codes is None else v in codes for v in variants),
-          f"the {classes}-class card fit's K3 launches {variants} did not all run the route")
+    check(launches > 0 and all(3000 <= v < lk._CLUSTER if codes is None else v in codes for v in variants),
+          f"the {classes}-class card fit's K3 launches {variants} did not all run {kernel}")
     check((coef_err <= MANY_COEF_TOL or not hold_coef) and agree >= MANY_AGREE_MIN,
           f"{classes}-class LogReg card vs CPU beyond tolerance (regParam {reg})")
     return launches
@@ -3215,18 +3378,22 @@ def k3_inputs(torch, n, d, K, seed, dev):
 
 def logreg_probe(torch, args, dev) -> int:
     """``--logreg-only``: K3 alone at the shapes of K3_PROBE_SHAPES (the
-    class-tiled instance's four timed shapes, the route's five, the shape
-    the general kernel keeps, and the tile kernel's <1, 8> and <1, 16>
-    instances), each held against its f64 plain version (``check_logreg``,
-    with its controls) and timed by CUDA events as the whole call, its
-    first kernel (the route: its two kernels; its logits kernel alone too)
-    and its second pass alone, for the routed kernel and, where that is
-    another, for the general kernel forced by its code (but at
-    K3_PROBE_GENERAL_SKIP), so that route and general kernel stand side by
-    side in one call; with the kernels' registers, spills and resident
-    blocks, then the ragged K3 shapes. ``--sweep`` adds the general
-    kernel with its gradient stage's X re-read or its per-tile partial
-    write knocked out (timed only: the results are then wrong)."""
+    class-tiled instance's four timed shapes, the route's five, the
+    cluster kernel's four, the shape the general kernel keeps, and the
+    tile kernel's <1, 8> and <1, 16> instances), each held against its f64
+    plain version (``check_logreg``, with its controls) and timed by CUDA
+    events as the whole call, its first kernel (the route: its two
+    kernels; its logits kernel alone too) and its second pass alone, for
+    the routed kernel and, where that is another, for the general kernel
+    forced by its code (but at K3_PROBE_GENERAL_SKIP), so that each kernel
+    and the general kernel stand side by side in one call; with the
+    kernels' registers, spills and resident blocks (the cluster kernel:
+    its geometry and the clusters the card holds at once), then the ragged
+    K3 shapes. ``--sweep`` adds the general kernel with its gradient
+    stage's X re-read or its per-tile partial write knocked out, and the
+    cluster kernel with its gradient's reads of the staged rows or its
+    cluster exchange knocked out, and at every other cluster size that
+    takes the shape (timed only: the knocked-out results are wrong)."""
     from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
 
     reps = max(args.reps, 10)
@@ -3236,7 +3403,7 @@ def logreg_probe(torch, args, dev) -> int:
         X, y, m, A, b = k3_inputs(torch, n, d, K, args.seed, dev)
         multinomial = K > 1
         try:  # a probe: a shape that fails its check is reported, and the next runs
-            row = check_logreg(torch, lk, X, y, m, K, reps, args.seed, control=True)
+            row = check_logreg(torch, lk, X, y, m, K, reps, args.seed, control=True, strict=True)
         except SystemExit as e:
             out["failed"].append(f"{key}: {e}")
             emit({"probe": "logreg", "shape": key, "failed": str(e)})
@@ -3265,6 +3432,13 @@ def logreg_probe(torch, args, dev) -> int:
             if args.sweep and variant == 0:
                 for what, knock in (("no_x_reread", 4), ("no_tile_write", 8), ("neither", 12)):
                     r[f"first_kernel_{what}_ms"] = cuda_ms(torch, lambda: run(1 | knock), reps)
+            if args.sweep and variant >= lk._CLUSTER:
+                for what, knock in (("no_x_reads", 4), ("no_exchange", 64), ("neither", 68)):
+                    r[f"first_kernel_{what}_ms"] = cuda_ms(torch, lambda: run(1 | knock), reps)
+                for c in lk._CLUSTER_SIZES:  # the other cluster sizes that take the shape
+                    geo = lk._cluster_geometry(n, d, C=c)
+                    if geo is not None and geo.C != r["attributes"]["geometry"]["C"]:
+                        r[f"C{c}_ms"] = cuda_ms(torch, lambda: lk._cluster_run(X, y_k, m, A, b, variant, 0, geo), reps)
             row[name] = r
         emit({"probe": "logreg", "shape": key, **{k: v for k, v in row.items() if k != "controls"}})
         out["shapes"][key] = row
@@ -3286,6 +3460,12 @@ def lk_attributes(lk, variant, n, d, K, multinomial) -> dict:
     two kernels), and of its second pass."""
     keys = ("registers", "local_bytes", "blocks_per_sm", "smem")
     out = {"second_pass": dict(zip(keys, lk._logreg_attributes(-1, 0)))}
+    if variant >= lk._CLUSTER:  # its instance at d (aligned X), and the clusters the card holds at once
+        geo, vec = lk._cluster_geometry(n, d), d % 4 == 0
+        out["first"] = dict(zip(keys, lk._logreg_attributes(variant + (0 if vec else 100), geo.smem)))
+        out["geometry"] = geo._asdict()
+        out["active_clusters"] = lk._cluster_active(0, vec, geo.C, geo.smem)
+        return out
     if variant >= 3000:
         geo = lk._route_geometry(n, d, K)
         out["logits"] = dict(zip(keys, lk._logreg_attributes(variant, geo.smem)))
@@ -3315,13 +3495,13 @@ def main() -> int:
     ap.add_argument("--hist-only", action="store_true",
                     help="a probe: build K5 alone and time its levels (prints no result line)")
     ap.add_argument("--logreg-only", action="store_true",
-                    help="a probe: build K3 alone and time the route past the tile kernel's cap beside the "
-                         "general kernel (prints no result line)")
+                    help="a probe: build K3 alone and time the route, the class-tiled instance and the cluster "
+                         "kernel beside the general kernel (prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
-                         "--hist-only: the GBT's levels 0 and 3; with --logreg-only: the general "
-                         "kernel's knock-outs")
+                         "--hist-only: the GBT's levels 0 and 3; with --logreg-only: the general and "
+                         "cluster kernels' knock-outs and the other cluster sizes")
     args = ap.parse_args()
 
     import torch
@@ -3422,6 +3602,16 @@ def main() -> int:
             torch, X1, y1, rows_1k, "logreg_1k", LOGREG_1K_CLASSES, {lk._ROUTE_TILED}, reg, hold_coef)
             for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))})
     del X1, y1
+    Xr, yr, oracle = wide_data(X_host, args.seed, LOGREG_REALSIM_D, LOGREG_REALSIM_ROWS, salt=16)
+    realsim = k3_key(*K3_CLUSTER_SHAPES[1])
+    code = lk._k3_variant(LOGREG_REALSIM_D, 1, False)
+    by_path["logreg_loss_grad_cluster"] = {
+        "logreg_realsim": phase_logreg_realsim(torch, Xr, yr, oracle, kern[realsim].get("ms") if Xr.shape[0] == (
+            LOGREG_REALSIM_ROWS) else None),
+        "logreg_realsim_card_vs_cpu": sum(phase_logreg_many_subset(
+            torch, Xr, yr, min(LOGREG_REALSIM_SUBSET, Xr.shape[0]), "logreg_realsim", 2, {code}, reg, hold_coef,
+            "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
+    del Xr, yr
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
     by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
@@ -3486,17 +3676,21 @@ def main() -> int:
     # logreg_many fit's shape (the launches of its paths) and at its other
     # three timed shapes; its class-tiled instance at the logreg_1k fit's
     # shape (the launches of its paths) and at its other three; the
-    # general kernel at the shape it keeps. No other path launches these
-    # shapes, and each launch counts in the one row whose kernel ran it.
+    # cluster kernel at the logreg_realsim fit's shape (the launches of its
+    # paths) and at its other three timed shapes; the general kernel at
+    # the shape it keeps. No other path launches these shapes, and each
+    # launch counts in the one row whose kernel ran it.
     many, onek = k3_key(*K3_ROUTE_SHAPES[-1]), k3_key(LOGREG_1K_ROWS, LOGREG_1K_D, LOGREG_1K_CLASSES)
     route = by_path["logreg_loss_grad_route"]
     k3_rows = [("logreg_loss_grad_tile", "logreg_loss_grad_tile_wide", by_path["logreg_loss_grad_tile"]),
                ("logreg_loss_grad_route", many, {p: c for p, c in route.items() if p.startswith("logreg_many")}),
-               ("logreg_loss_grad_route_tiled", onek, {p: c for p, c in route.items() if p.startswith("logreg_1k")})]
+               ("logreg_loss_grad_route_tiled", onek, {p: c for p, c in route.items() if p.startswith("logreg_1k")}),
+               ("logreg_loss_grad_cluster", realsim, by_path["logreg_loss_grad_cluster"])]
     k3_rows += [(k3_key(K3_GENERAL_ROWS, d_r, K_r), k3_key(K3_GENERAL_ROWS, d_r, K_r), {})
                 for d_r, K_r in K3_GENERAL_SHAPES]
-    k3_rows += [(k3_key(*shape), k3_key(*shape), {}) for shape in K3_ROUTE_SHAPES + K3_TILED_SHAPES + K3_GENERAL_KEPT
-                if k3_key(*shape) not in (many, onek)]
+    k3_rows += [(k3_key(*shape), k3_key(*shape), {})
+                for shape in K3_ROUTE_SHAPES + K3_TILED_SHAPES + K3_CLUSTER_SHAPES + K3_GENERAL_KEPT
+                if k3_key(*shape) not in (many, onek, realsim)]
     for name, key, paths in k3_rows:
         r = kern[key]
         kernels.append({
@@ -3504,7 +3698,7 @@ def main() -> int:
             "replaces": sources["logreg_loss_grad"][0], "launches": sum(paths.values()), "launches_by_path": paths,
             "variant": r["variant"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("bound_f32_ms",) if k in r},
+            **{k: r[k] for k in ("bound_f32_ms", "general_ms") if k in r},
             "shape": {k: r[k] for k in ("n", "d", "K")}})
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],

@@ -14,7 +14,7 @@
 // (~12 GFLOP at K = 1, well under a millisecond at the FP32 peak; 123
 // GFLOP at K = 10, 1.83 ms: still below the bytes).
 //
-// Design. Four kernels and a route of two share the output contract and
+// Design. Five kernels and a route of two share the output contract and
 // the fixed-order second pass; the caller picks one
 // (ops/logreg_kernels.py::_k3_variant).
 // For K = 1 (the binomial main path) with d <= 1024, d a multiple of 4,
@@ -33,7 +33,12 @@
 // route of two 3xTF32 wgmma products (logreg_route_kernel, see its note),
 // whose classes are padded to the wgmma N and masked; past 256 classes
 // (up to 12,288) its class-tiled instance walks tiles of 128 classes with
-// an online softmax. Binomial d > 16,380 takes the general kernel: blocks take
+// an online softmax. Binomial rows past the tile kernel's cap (16,380 < d
+// <= 262,144) take logreg_cluster_kernel (see its note): each row's columns
+// split over the CTAs of a thread-block cluster, staged once by
+// cp.async.bulk, the partial logits exchanged through distributed shared
+// memory, the gradient held in registers, X read once. Binomial d >
+// 262,144 takes the general kernel: blocks take
 // contiguous row ranges and walk them in tiles of RT rows. Per tile: (L)
 // each warp computes logits for (row, 8-class chunk) pairs, lanes
 // striding over d (A read through the L1 cache); the RT x K logits live
@@ -1705,6 +1710,404 @@ cudaError_t route_pass(const RouteArgs& a, const float* ahi, const float* alo, i
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel: binomial (K = 1) rows too wide for the tile kernel
+// (16,380 < d <= 262,144). One row there is 64-1,024 KB, so no SM can stage
+// whole rows beside their gradient, and the general kernel read X twice
+// (logits, then the gradient from device memory again). Here each row's
+// columns are split across the CTAs of a thread-block cluster, so X is
+// read from device memory once:
+//   - a cluster of C CTAs (2-16, one an SM) walks rows cluster, cluster +
+//     clusters, ...; CTA rank r owns the column slice [4 W r, 4 W (r + 1))
+//     (W <= 4,096 16-byte chunks, 16-64 KB) and stages each row's slice
+//     into a ring of `nst` slots, completing on the slot's mbarrier: one
+//     cp.async.bulk a row slice where `vec` (d % 4 == 0, X 16-byte
+//     aligned); else a row slice starts `shift` floats past a 16-byte
+//     boundary, so the bulk copy takes its aligned interior and thread 0
+//     copies the at most 3 + 3 floats before and after it by 4-byte
+//     cp.async, the slice staged `shift` floats into its row, and the
+//     readers realign each chunk from two 16-byte reads (per row one of
+//     four compile-time cases);
+//   - (L) each thread owns CL_IPT chunks of the slice (chunk tid + 256 i),
+//     with A's chunks in registers; a row's partial logit is its chunks'
+//     products (four accumulators by i % 4, added pairwise), summed across
+//     the warp, then across the 8 warps in order;
+//   - the exchange: thread 0 stores that partial into its rank's place in
+//     every rank's exchange slot (distributed shared memory: mapa,
+//     st.async), each store completing its 4 bytes on that rank's slot
+//     barrier, which its own CTA armed with the C ranks' bytes
+//     (expect_tx). No cluster-wide barrier a row: a CTA runs up to CL_LAG
+//     rows ahead of its slowest peer (row t's logit goes out, then row t -
+//     CL_LAG's residual and gradient follow), so one CTA's late copy does
+//     not stall the cluster each row (a barrier.cluster a row
+//     holds the C CTAs in lockstep: 11-37% of the time on an H100; an
+//     mbarrier arrival a peer with release semantics costs a fence each);
+//   - every CTA adds a row's C partials in rank order and adds b: every
+//     rank holds the same f32 logit, bit for bit, and turns it into the
+//     residual (sigmoid(z) - y) m; rank 0 alone adds the loss and the
+//     intercept gradient;
+//   - (G) each thread adds r x into its CL_IPT float4 gradient registers from
+//     the same staged rows, rows in order, and never reads X again;
+//   - each CTA writes its slice of the cluster's (d + 1) partial once (rank
+//     0 the intercept in the last column, and the loss), and the
+//     fixed-order second pass (logreg_reduce_kernel) adds one partial a
+//     cluster: deterministic, with no float atomics.
+// What bounds it on an H100: the bytes of X, read once (at 72,309 x 20,958,
+// 6.06 GB, 1.81 ms at 3.35 TB/s); 2 n d FMAs are far below the FP32 peak.
+// Per row a CTA waits on its block barriers and its peers' partials; the
+// ring's copies in flight (3-7 slots of one 32-64 KB row slice) cover them.
+
+// float4 gradient items a thread (4,096 chunks a CTA at most, so 16 CTAs
+// take 262,144 columns), and the ring's most slots
+constexpr int CL_IPT = 16;
+constexpr int CL_MAX_STAGES = 8;
+// rows a CTA may run ahead of its slowest peer, and the exchange's slots
+// (2 CL_LAG + 2: a rank publishes row t only once every peer has read
+// row t - CL_XSLOTS, which it had to before it published row t - 1 - CL_LAG)
+constexpr int CL_LAG = 2;
+constexpr int CL_XSLOTS = 2 * CL_LAG + 2;
+// the probe's knock-outs of the cluster kernel (the results are then
+// wrong): the exchange (each rank takes its own partial as the logit),
+// timing only; the last rank's partial left out of every logit, a
+// negative control. KNOCK_G_NO_X: its gradient stage without its reads of
+// the staged rows.
+constexpr int KNOCK_CL_NO_EXCHANGE = 64;
+constexpr int KNOCK_CL_DROP_RANK = 128;
+
+// dynamic shared memory of logreg_cluster_kernel in bytes
+// (ops/logreg_kernels.py::_cluster_smem computes the same): the ring of
+// nst slots of a row slice of 4 (W + 1) floats (a chunk of room for a
+// shifted slice), the exchange's slots of 16 ranks' partials, the warps'
+// partials and the residual (two row parities each), and the slots'
+// mbarriers
+__host__ __device__ inline size_t cluster_smem_bytes(int W, int nst) {
+  return (size_t)nst * (W + 1) * 16 + 4 * (16 * CL_XSLOTS + 2 * WARPS + 2) + 8 * (size_t)(nst + CL_XSLOTS);
+}
+
+// chunk j of a staged row slice (floats 4 j .. 4 j + 3) whose floats sit
+// DL places into the row: from the 16-byte reads of chunks j and j + 1
+template <int DL>
+__device__ __forceinline__ float4 shifted_chunk(const float4* row, int j) {
+  const float4 u = row[j];
+  if constexpr (DL == 0) {
+    return u;
+  } else {
+    const float4 v = row[j + 1];
+    if constexpr (DL == 1) return make_float4(u.y, u.z, u.w, v.x);
+    else if constexpr (DL == 2) return make_float4(u.z, u.w, v.x, v.y);
+    else return make_float4(u.w, v.x, v.y, v.z);
+  }
+}
+// f(std::integral_constant<int, dl>) for a runtime dl in 0..3
+template <typename F>
+__device__ __forceinline__ void with_shift(int dl, F&& f) {
+  switch (dl) {
+    case 0: f(std::integral_constant<int, 0>()); break;
+    case 1: f(std::integral_constant<int, 1>()); break;
+    case 2: f(std::integral_constant<int, 2>()); break;
+    default: f(std::integral_constant<int, 3>());
+  }
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of `p`'s counterpart in CTA `rank` of the cluster
+__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+// an asynchronous store of v to the shared::cluster address `addr` (this
+// CTA's or a peer's) that completes 4 bytes of the transaction count of
+// the mbarrier at `bar` (in the same CTA as `addr`)
+__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr), "f"(v),
+               "r"(bar)
+               : "memory");
+}
+// mbar_wait whose completion makes the arrivals' earlier stores from
+// other CTAs of the cluster visible
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n@!p bra "
+      "WAIT_%=;\n}\n" ::"r"(smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to this CTA's shared memory, both
+// 16-byte aligned, completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+logreg_cluster_kernel(const float* __restrict__ X, const float* __restrict__ y, const float* __restrict__ m,
+                      const float* __restrict__ A, const float* __restrict__ b, float* __restrict__ part,
+                      float* __restrict__ loss_part, int64_t n, int d, int W, int nst, int knock) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool exchange = !(knock & KNOCK_CL_NO_EXCHANGE);
+  const unsigned rank = cluster_rank(), C = cluster_size();
+  const unsigned peers = knock & KNOCK_CL_DROP_RANK ? C - 1 : C;
+  const int64_t cid = cluster_id(), ncl = cluster_count();
+  // floats of a rank's slice, and of a staged row (a chunk more, for a
+  // slice shifted off alignment)
+  const int RW = 4 * W, RS = RW + 4;
+  float* ring = smem;                       // [nst][RS]: a row slice a slot
+  float* xr = ring + (size_t)nst * RS;      // [CL_XSLOTS][16 ranks]: the ranks' partial logits
+  float* wp = xr + CL_XSLOTS * 16;          // [2][WARPS]: the warps' partials, by tile parity
+  float* sR = wp + 2 * WARPS;               // [2]: the residual, by tile parity
+  uint64_t* full = reinterpret_cast<uint64_t*>(sR + 2);  // [nst]: the ring's slots
+  uint64_t* xfull = full + nst;                          // [CL_XSLOTS]: the exchange's
+  // this rank's columns [c0, c0 + ncols), nw chunks of them (the last
+  // possibly partial)
+  const int c0 = rank * RW, ncols = max(0, min(d - c0, RW)), nw = (ncols + 3) / 4;
+  // rows a CTA may run ahead of its slowest peer: what the ring holds
+  // beside one row's copy in flight
+  const int lag = min(CL_LAG, nst - 2);
+
+  float4 a[CL_IPT], g[CL_IPT];
+#pragma unroll
+  for (int i = 0; i < CL_IPT; ++i) {
+    const int c = 4 * (tid + i * THREADS), e = c0 + ncols;  // zero past the slice
+    a[i].x = c0 + c < e ? A[c0 + c] : 0.f;
+    a[i].y = c0 + c + 1 < e ? A[c0 + c + 1] : 0.f;
+    a[i].z = c0 + c + 2 < e ? A[c0 + c + 2] : 0.f;
+    a[i].w = c0 + c + 3 < e ? A[c0 + c + 3] : 0.f;
+    g[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float b0 = b[0];
+  if (!VEC) {  // a shifted slice's last chunk reads past its floats: only ever finite ones
+    float4* r4 = reinterpret_cast<float4*>(ring);
+    for (int i = tid; i < nst * RS / 4; i += THREADS) r4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before the copies overwrite them
+  }
+  if (tid == 0) {
+    // VEC: the bulk copy's expect_tx; else that and every thread's
+    // asynchronous arrival after thread 0's head and tail copies
+    for (int s = 0; s < nst; ++s) mbar_init(full + s, VEC ? 1 : THREADS + 1);
+    // this CTA's expect_tx of every rank's partial of a row
+    for (int s = 0; s < CL_XSLOTS; ++s) mbar_init(xfull + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // no rank signals a peer before the peer's barriers exist
+  cluster_arrive();
+  cluster_wait();
+
+  // this cluster's rows cid, cid + ncl, ...: its it-th is cid + it ncl
+  const int iters = cid < n ? (int)((n - cid + ncl - 1) / ncl) : 0;
+  auto row_of = [&](int it) -> int64_t { return cid + (int64_t)it * ncl; };
+  // where row `row`'s slice starts past a 16-byte boundary, in floats; its
+  // floats before the first boundary (head) and its whole 16-byte groups
+  // after it
+  const uint64_t xq = reinterpret_cast<uintptr_t>(X) / 4;
+  auto shift = [&](int64_t row) -> int { return VEC ? 0 : (int)((xq + (uint64_t)(row * d + c0)) & 3); };
+  auto cut = [&](int64_t row, int& dl, int& head, int& groups) {
+    dl = shift(row);
+    head = min((4 - dl) & 3, ncols);
+    groups = (ncols - head) / 4;
+  };
+  auto issue = [&](int it) {  // row it's slice into slot it % nst
+    if (it >= iters) return;
+    const int64_t row = row_of(it);
+    float* slot = ring + (size_t)(it % nst) * RS;
+    uint64_t* bar = full + it % nst;
+    int dl, head, groups;
+    cut(row, dl, head, groups);
+    const float* src = X + row * d + c0;
+    if (tid == 0) {  // the aligned interior, float dl of the slice at float dl of its row
+      mbar_expect(bar, 16u * groups);
+      if (groups > 0) bulk_copy(slot + dl + head, src + head, 16u * groups, bar);
+      if (!VEC) {  // and its head and tail floats
+        for (int c = 0; c < head; ++c) cp_async4(slot + dl + c, src + c, 4);
+        for (int c = head + 4 * groups; c < ncols; ++c) cp_async4(slot + dl + c, src + c, 4);
+      }
+    }
+    if (!VEC) mbar_cp_async_arrive(bar);  // every thread arrives once a slot use
+  };
+  // f(row it's staged slice as float4s, std::integral_constant<int, its shift>)
+  auto with_row = [&](int it, auto&& f) {
+    const float4* row = reinterpret_cast<const float4*>(ring + (size_t)(it % nst) * RS);
+    if constexpr (VEC) {
+      f(row, std::integral_constant<int, 0>());
+    } else {
+      with_shift(shift(row_of(it)), [&](auto D) { f(row, D); });
+    }
+  };
+  // (L): row t's partial logit over this rank's slice: the thread's chunks
+  // (four accumulators by i % 4, added pairwise), the warp, then into the
+  // warps' slots (two buffers by parity)
+  auto logits = [&](int t) {
+    mbar_wait(full + t % nst, (t / nst) & 1);
+    with_row(t, [&](const float4* row, auto D) {
+      constexpr int DL = decltype(D)::value;
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < CL_IPT; ++i) {
+        const int j = tid + i * THREADS;
+        if (j < nw) {
+          const float4 x = shifted_chunk<DL>(row, j);
+          float u = s4[i & 3];
+          u = fmaf(x.x, a[i].x, u);
+          u = fmaf(x.y, a[i].y, u);
+          u = fmaf(x.z, a[i].z, u);
+          u = fmaf(x.w, a[i].w, u);
+          s4[i & 3] = u;
+        }
+      }
+      const float v = warp_sum((s4[0] + s4[1]) + (s4[2] + s4[3]));
+      if (lane == 0) wp[(t & 1) * WARPS + warp] = v;
+    });
+  };
+  // thread 0: the CTA's partial of row t (the warps in order) into this
+  // rank's place of every rank's exchange slot, each store completing its
+  // bytes on that rank's barrier, which expects the C ranks' partials
+  auto publish = [&](int t) {
+    if (tid != 0) return;
+    const int sx = t % CL_XSLOTS;
+    float* dst = xr + sx * 16 + rank;
+    const float* w8 = wp + (t & 1) * WARPS;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += w8[w];
+    if (!exchange) {
+      *dst = v;
+      return;
+    }
+    mbar_expect(xfull + sx, C * 4u);
+    for (unsigned q = 0; q < C; ++q) st_async(map_rank(dst, q), v, map_rank(xfull + sx, q));
+  };
+  // (G): row t times its residual into g
+  auto grad = [&](int t) {
+    const float rv = sR[t & 1];
+    with_row(t, [&](const float4* row, auto D) {
+      constexpr int DL = decltype(D)::value;
+#pragma unroll
+      for (int i = 0; i < CL_IPT; ++i) {
+        const int j = tid + i * THREADS;
+        if (j < nw) {
+          const float4 x = knock & KNOCK_G_NO_X ? a[i] : shifted_chunk<DL>(row, j);
+          g[i].x = fmaf(rv, x.x, g[i].x);
+          g[i].y = fmaf(rv, x.y, g[i].y);
+          g[i].z = fmaf(rv, x.z, g[i].z);
+          g[i].w = fmaf(rv, x.w, g[i].w);
+        }
+      }
+    });
+  };
+
+  // Software pipeline over this cluster's rows: row t's logit is
+  // published, then row t - lag's residual (its partials from every rank)
+  // and gradient follow, its slot refilled
+  for (int s = 0; s < nst; ++s) issue(s);
+  float lsum = 0.f, gbs = 0.f;  // rank 0's thread 0: loss and intercept gradient
+  for (int t = 0; t < iters + lag; ++t) {
+    const int u = t - lag;
+    const int64_t r0 = u >= 0 ? row_of(u) : 0;
+    // row u's mask and label, loaded ahead of the logits
+    const float mr = tid == 0 && u >= 0 ? __ldg(m + r0) : 0.f, yr = tid == 0 && u >= 0 ? __ldg(y + r0) : 0.f;
+    if (t < iters) {
+      logits(t);
+      __syncthreads();  // row t's warp partials
+      publish(t);
+    }
+    if (u < 0) continue;
+    // every rank: the row's logit from the C partials in rank order, + b
+    if (tid == 0) {
+      const int sx = u % CL_XSLOTS;
+      float z = 0.f;
+      if (exchange) {
+        mbar_wait_cluster(xfull + sx, (u / CL_XSLOTS) & 1);
+        for (unsigned q = 0; q < peers; ++q) z += xr[sx * 16 + q];
+      } else {
+        z = xr[sx * 16 + rank];
+      }
+      z += b0;
+      const float rv = (1.f / (1.f + expf(-z)) - yr) * mr;
+      sR[u & 1] = rv;
+      if (rank == 0) {
+        lsum += (fmaxf(z, 0.f) + log1pf(expf(-fabsf(z))) - yr * z) * mr;
+        gbs += rv;
+      }
+    }
+    __syncthreads();  // row u's residual
+    grad(u);
+    __syncthreads();  // every thread is done with slot u % nst
+    issue(u + nst);   // into that slot
+  }
+  // no CTA leaves while a peer may still signal it
+  cluster_arrive();
+  cluster_wait();
+
+  // this rank's slice of the cluster's partial, written once
+  float* P = part + (size_t)cid * (d + 1);
+#pragma unroll
+  for (int i = 0; i < CL_IPT; ++i) {
+    const int j = tid + i * THREADS;
+    if (j < nw) {
+      const float v[4] = {g[i].x, g[i].y, g[i].z, g[i].w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (4 * j + w < ncols) P[c0 + 4 * j + w] = v[w];
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    loss_part[cid] = lsum;
+    P[d] = gbs;
+  }
+}
+
+template <bool VEC>
+cudaError_t cluster_config(int C, int clusters, size_t smem, cudaStream_t st, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
+  const auto kern = logreg_cluster_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(clusters * C));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
 }  // namespace
 
 // The caller picks the kernel (ops/logreg_kernels.py::_k3_variant):
@@ -1842,12 +2245,67 @@ extern "C" int logreg_route_reduce(const float* part, int nb, const float* side,
   return (int)cudaGetLastError();
 }
 
+// The cluster kernel (binomial 16,380 < d <= 262,144) on `clusters`
+// clusters of C CTAs, then the second pass over their partials, at the
+// geometry the caller computed (ops/logreg_kernels.py::_cluster_geometry):
+// W chunks a rank's slice, nst ring slots, smem_bytes (which must equal
+// cluster_smem_bytes); `vec` picks the instance (bulk copies alone, or
+// off 16-byte alignment). knock: 1 and 2 as for the other kernels, 4
+// (KNOCK_G_NO_X), 64 and 128 (see the kernel).
+extern "C" int logreg_cluster_launch(const float* X, const float* y, const float* m, const float* A,
+                                     const float* b, float* gA, float* gb, float* loss, float* part,
+                                     float* loss_part, int64_t n, int d, int C, int W, int nst, int smem_bytes,
+                                     int clusters, int vec, int knock, void* stream) {
+  const int nch = (d + 3) / 4;
+  if (n < 0 || d < 1 || C < 1 || C > 16 || (C & (C - 1)) || W != (nch + C - 1) / C || CL_IPT * THREADS < W ||
+      nst < 2 || nst > CL_MAX_STAGES || clusters < 1 || (size_t)smem_bytes != cluster_smem_bytes(W, nst) ||
+      (vec && (d % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!(knock & KNOCK_NO_PARTIAL)) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err;
+    if (vec) {
+      err = cluster_config<true>(C, clusters, smem_bytes, st, cfg, attr);
+      if (err == cudaSuccess)
+        err = cudaLaunchKernelEx(&cfg, logreg_cluster_kernel<true>, X, y, m, A, b, part, loss_part, n, d, W, nst,
+                                 knock);
+    } else {
+      err = cluster_config<false>(C, clusters, smem_bytes, st, cfg, attr);
+      if (err == cudaSuccess)
+        err = cudaLaunchKernelEx(&cfg, logreg_cluster_kernel<false>, X, y, m, A, b, part, loss_part, n, d, W, nst,
+                                 knock);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t total = (int64_t)d + 2;
+  if (!(knock & KNOCK_NO_REDUCE))
+    logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, st>>>(part, loss_part, clusters, gA, gb,
+                                                                           loss, d, 1, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// the most clusters of C CTAs of the cluster kernel's instance `vec`, at
+// smem_bytes of dynamic shared memory each, that the card holds at once
+// (0: none can launch)
+extern "C" int logreg_cluster_occupancy(int vec, int C, int smem_bytes, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = vec ? cluster_config<true>(C, 1, smem_bytes, nullptr, cfg, attr)
+                              : cluster_config<false>(C, 1, smem_bytes, nullptr, cfg, attr);
+  const void* fn = vec ? (const void*)logreg_cluster_kernel<true> : (const void*)logreg_cluster_kernel<false>;
+  *out = 0;
+  return (int)(err == cudaSuccess ? cudaOccupancyMaxActiveClusters(out, fn, &cfg) : err);
+}
+
 // registers, local (spill) bytes a thread, resident blocks an SM at `smem`
 // bytes of dynamic shared memory, and that smem: out[0..3], of the kernel
 // a launcher code names (0: the general kernel, 1000 + IPT and 2000 + IPT:
 // the tile kernel's instances, 3000 + BN, 3256 and 3900: the route's
-// logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel) or of the
-// second pass (-1)
+// logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel, 5016
+// and 5116: the cluster kernel's instances on the bulk copies alone and
+// off 16-byte alignment) or of the second pass (-1)
 extern "C" int logreg_attributes(int variant, int smem, int* out) {
   const void* fn = nullptr;
   switch (variant) {
@@ -1873,9 +2331,11 @@ extern "C" int logreg_attributes(int variant, int smem, int* out) {
     case 4256: fn = (const void*)logreg_route_kernel<128, true, true>; break;
     case RT_CT_CODE: fn = (const void*)logreg_route_kernel<128, false, false, true>; break;
     case RT_CT_CODE + 1000: fn = (const void*)logreg_route_kernel<128, false, true, true>; break;
+    case 5000 + CL_IPT: fn = (const void*)logreg_cluster_kernel<true>; break;
+    case 5100 + CL_IPT: fn = (const void*)logreg_cluster_kernel<false>; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  const int threads = variant >= 3000 ? RT_THREADS : THREADS;
+  const int threads = variant >= 3000 && variant < 5000 ? RT_THREADS : THREADS;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err == cudaSuccess && smem > 48 * 1024)

@@ -61,6 +61,21 @@ _ROUTE_RB = 32
 _ROUTE_STAGES = (4, 3, 2)
 _ROUTE_SCRATCH = 512 << 20
 _ROUTE_TILE_COST = 8
+# the cluster kernel (logreg_cluster_kernel: binomial rows past the tile
+# kernel's cap, each row's columns split over the CTAs of a thread-block
+# cluster, one CTA an SM): launcher code 5000 + its float4 gradient items
+# a thread (the source's CL_IPT); cluster sizes (16 is past the portable
+# 8), the widest d (16 CTAs of 4,096 chunks), and the ring's slots (the
+# source's CL_MAX_STAGES at most, at least 3 so that a row's copy is in
+# flight while two are read)
+_CLUSTER = 5000
+_CLUSTER_IPT = 16
+_CLUSTER_SIZES = (2, 4, 8, 16)
+_CLUSTER_D_MAX = 4 * _TILE_THREADS * _CLUSTER_IPT * 16
+_CLUSTER_STAGES = (3, 8)
+# the exchange's slots of partial logits (the source's CL_XSLOTS: two
+# rows a CTA may run ahead of its slowest peer)
+_CLUSTER_XSLOTS = 6
 
 
 class TileGeometry(NamedTuple):
@@ -233,6 +248,50 @@ def _route_chunks(n: int, geo: RouteGeometry, sms: int = 132) -> List[Tuple[int,
     return out
 
 
+class ClusterGeometry(NamedTuple):
+    """``logreg_cluster_kernel``'s launch: ``C`` CTAs a cluster, each
+    owning ``W`` 16-byte chunks of every row (rank r the columns [4 W r,
+    4 W (r + 1))), ``stages`` ring slots of one row slice, ``smem`` bytes
+    of shared memory a CTA (one CTA an SM), and ``clusters`` clusters (at
+    most one a row; the wrapper also caps them at what the card holds at
+    once)."""
+
+    C: int
+    W: int
+    stages: int
+    smem: int
+    clusters: int
+
+
+def _cluster_smem(W: int, stages: int) -> int:
+    """Bytes of shared memory of a cluster-kernel CTA (the source's
+    ``cluster_smem_bytes``): ``stages`` slots of a row slice of 4 (W + 1)
+    floats (a rank's slice and room to stage it off 16-byte alignment),
+    the exchange's ``_CLUSTER_XSLOTS`` slots of 16 ranks' partials, the 8
+    warps' partials and the residual (two row parities each), and a
+    barrier a ring slot and an exchange slot."""
+    return stages * (W + 1) * 16 + 4 * (16 * _CLUSTER_XSLOTS + 2 * 8 + 2) + 8 * (stages + _CLUSTER_XSLOTS)
+
+
+def _cluster_geometry(n: int, d: int, sms: int = 132, C: Optional[int] = None) -> Optional[ClusterGeometry]:
+    """The cluster kernel's launch for ``n`` binomial rows of ``d``
+    features: the least cluster size of ``_CLUSTER_SIZES`` (or ``C``) whose
+    slice of ceil(d / 4) chunks a rank's 256 threads hold in
+    ``_CLUSTER_IPT`` float4 gradient registers each, and the most ring
+    slots that fit one CTA an SM. None past ``_CLUSTER_D_MAX``."""
+    if d < 1:
+        return None
+    chunks = -(-d // 4)
+    for c in (C,) if C else _CLUSTER_SIZES:
+        w = -(-chunks // c)
+        if w > _CLUSTER_IPT * _TILE_THREADS:
+            continue
+        lo, hi = _CLUSTER_STAGES
+        stages = max(s for s in range(lo, hi + 1) if _cluster_smem(w, s) <= _TILE_SMEM_MAX)
+        return ClusterGeometry(c, w, stages, _cluster_smem(w, stages), max(1, min(n, sms // c)))
+    return None
+
+
 def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     """Which kernel of ``csrc/logreg_loss_grad.cu`` takes a (d, K) pass, as
     the launcher's code: ``10·NV + 1`` for the binomial row-per-warp kernel
@@ -242,11 +301,12 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     (multinomial) for the tile kernel with IPT gradient items a thread,
     where :func:`_tile_geometry` fits, the route's :func:`_route_code`
     (3000 + BN, 3256, or 3900 for the class-tiled instance past 256
-    classes) for every other multinomial shape with 2 ≤ K ≤ 12,288, and 0
-    for the general kernel (binomial d > 16,380; past 12,288 classes the
-    wrapper raises). The first two need d a multiple of 4 and 16-byte
-    aligned X and A (``aligned``); the tile kernel and the route take
-    any."""
+    classes) for every other multinomial shape with 2 ≤ K ≤ 12,288,
+    5016 for the cluster kernel (binomial 16,380 < d ≤ 262,144,
+    :func:`_cluster_geometry`), and 0 for the general kernel (binomial
+    d > 262,144; past 12,288 classes the wrapper raises). The first two
+    need d a multiple of 4 and 16-byte aligned X and A (``aligned``); the
+    tile kernel, the route and the cluster kernel take any."""
     if d < 1:
         return 0
     if aligned and d % 4 == 0:
@@ -260,6 +320,8 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
         return (2000 if multinomial else 1000) + geo.ipt
     if multinomial and _route_code(K) is not None:
         return _route_code(K)
+    if K == 1 and not multinomial and _cluster_geometry(1, d) is not None:
+        return _CLUSTER + _CLUSTER_IPT
     return 0
 
 
@@ -319,7 +381,10 @@ def _logreg_run(
     kernel's gradient stage without its X re-read or its per-tile partial
     write, 16: the route's logits kernel alone, 32: the class-tiled
     instance's tiles merged without rescaling the sum, a negative
-    control); any bit makes the result wrong."""
+    control; the cluster kernel: 4, its gradient stage without its reads
+    of the staged rows, 64: its cluster exchange knocked out, 128: the
+    last rank's partial left out of every logit, a negative control); any
+    bit makes the result wrong."""
     _check_cuda_f32("logreg_loss_grad", X, y, m, A, b)
     n, d = X.shape
     K = A.shape[0]
@@ -330,6 +395,10 @@ def _logreg_run(
         )
     if not multinomial and K != 1:
         raise ValueError("logreg_loss_grad: the binomial form takes K = 1")
+    if variant >= _CLUSTER:
+        if multinomial:
+            raise ValueError(f"logreg_loss_grad: the cluster kernel {variant} takes the binomial form only")
+        return _cluster_run(X, y, m, A, b, variant, knock)
     if variant >= 3000:
         if not multinomial or _route_code(K) != variant:
             raise ValueError(f"logreg_loss_grad: the route {variant} does not take K = {K}")
@@ -434,12 +503,65 @@ def _route_run(
     return loss[0], gA, gb
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_active(device: int, vec: bool, C: int, smem: int) -> int:
+    """The most clusters of ``C`` CTAs of the cluster kernel's instance
+    ``vec`` at ``smem`` bytes each that card ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises where it is 0."""
+    fn = _build.function("logreg_loss_grad", "logreg_cluster_occupancy",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check("logreg_loss_grad", fn(int(vec), C, smem, ctypes.addressof(out)))
+    if out.value < 1:
+        raise RuntimeError(f"logreg_loss_grad: no cluster of {C} CTAs with {smem:,} B of shared memory "
+                           "each can be resident on this card")
+    return out.value
+
+
+def _cluster_run(
+    X: torch.Tensor, y: torch.Tensor, m: torch.Tensor, A: torch.Tensor, b: torch.Tensor, variant: int,
+    knock: int = 0, geo: Optional[ClusterGeometry] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cluster kernel on checked card tensors at ``geo`` (by default
+    :func:`_cluster_geometry`'s; ``variant`` must be its code), on
+    as many clusters as it plans and the card holds at once, then the
+    fixed-order second pass over one partial a cluster. A launch the card
+    refuses raises."""
+    n, d = X.shape
+    dev = X.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = geo or _cluster_geometry(n, d, sms)
+    if geo is None or variant != _CLUSTER + _CLUSTER_IPT:
+        raise ValueError(f"logreg_loss_grad: the cluster kernel {variant} does not take d = {d}")
+    vec = d % 4 == 0 and X.data_ptr() % 16 == 0
+    clusters = min(geo.clusters, _cluster_active(dev.index or 0, vec, geo.C, geo.smem))
+    gA = torch.empty((1, d), dtype=torch.float32, device=dev)
+    gb = torch.empty((1,), dtype=torch.float32, device=dev)
+    loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    part = torch.empty((clusters, d + 1), dtype=torch.float32, device=dev)
+    loss_part = torch.empty((clusters,), dtype=torch.float32, device=dev)
+    fn = _build.function(
+        "logreg_loss_grad", "logreg_cluster_launch",
+        [_P] * 10 + [_I64] + [ctypes.c_int] * 8 + [_P],
+    )
+    _build.check("logreg_loss_grad", fn(
+        X.data_ptr(), y.data_ptr(), m.data_ptr(), A.data_ptr(), b.data_ptr(), gA.data_ptr(), gb.data_ptr(),
+        loss.data_ptr(), part.data_ptr(), loss_part.data_ptr(), n, d, geo.C, geo.W, geo.stages, geo.smem,
+        clusters, int(vec), knock,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    return loss[0], gA, gb
+
+
 def _logreg_attributes(variant: int, smem: int = 0) -> Tuple[int, int, int, int]:
     """(registers, spill bytes, resident blocks an SM, shared memory) of
     K3's kernel ``variant`` (0: the general kernel, 1000 + IPT and 2000 +
     IPT: the tile kernel's instances, 3000 + BN, 3256 and 3900: the
     route's logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel,
-    -1: the second pass) at ``smem`` bytes of dynamic shared memory, from
+    5016 and 5116: the cluster kernel's instances on the bulk copies alone
+    and off 16-byte alignment, -1: the second pass) at
+    ``smem`` bytes of dynamic shared memory, from
     the CUDA runtime's occupancy calculator."""
     fn = _build.function("logreg_loss_grad", "logreg_attributes", [ctypes.c_int, ctypes.c_int, _P])
     out = (ctypes.c_int * 4)()

@@ -155,10 +155,12 @@ def test_k3_routing_table(K, d, monkeypatch):
     assert tlk._k3_variant(2048, 1000, True) == 3900
     assert tlk._k3_variant(d, 12_288, True, aligned=False) == 3900
     assert tlk._route_code(12_289) is None and tlk._route_geometry(1, d, 12_289) is None
-    # what the route does not take stays on the general kernel: binomial
-    # d > 16,380
-    assert tlk._k3_variant(16384, 1, False) == 0
-    assert tlk._k3_variant(20000, 1, False) == 0
+    # binomial rows past the tile kernel's cap take the cluster kernel,
+    # 5016 (16 chunks a thread); past its widest d, 262,144, the general
+    # kernel
+    assert tlk._k3_variant(16384, 1, False) == 5016
+    assert tlk._k3_variant(20000, 1, False) == 5016
+    assert tlk._k3_variant(262_145, 1, False) == 0
     # a CPU tensor takes the plain version and never consults the table
     def no_table(*a, **k):
         raise AssertionError("the routing table was consulted for a CPU tensor")
@@ -780,3 +782,270 @@ def test_logreg_fit_matches_jax_on_tile_shapes(d, n_classes):
     assert (np.asarray(ot.column("prediction")) == np.asarray(oj.column("prediction"))).mean() > 0.995
     assert np.abs(np.asarray(ot.column("probability")) - np.asarray(oj.column("probability"))).max() < 5e-3
 
+
+
+# --- the cluster kernel (binomial 16,380 < d <= 262,144) --------------------
+
+_CLUSTER_SRC = Path(tlk.__file__).parent.parent / "csrc" / "logreg_loss_grad.cu"
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 16_380), (16_381, 40_000), (40_001, 100_000), (100_001, 180_000),
+                                   (180_001, 262_144)])
+def test_k3_routing_sends_binomial_rows_past_the_tile_cap_to_the_cluster_kernel(lo, hi):
+    """Every binomial d past the tile kernel's cap (16,380) up to the
+    cluster kernel's widest, 262,144, aligned or not, goes to the cluster
+    kernel's code; every d up to the cap keeps the row-per-warp or tile
+    kernel it had."""
+    assert tlk._CLUSTER_D_MAX == 262_144
+    for d in range(lo, hi + 1):
+        for aligned in (True, False):
+            v = tlk._k3_variant(d, 1, False, aligned)
+            if d <= 16_380:
+                tile = tlk._tile_geometry(1, d, 1, False)
+                assert v in (11, 21, 41, 81) or v == 1000 + tile.ipt
+            else:
+                assert v == 5016 and tlk._cluster_geometry(1, d) is not None
+    # multinomial shapes never take it
+    assert tlk._k3_variant(min(hi, 2048), 2, True) < tlk._CLUSTER
+
+
+def test_cluster_geometry_at_many_d():
+    """The cluster kernel's launch at many d across its range: the least
+    cluster size whose slice fits the instance's 256 x 16 chunks; the C
+    slices of W chunks cover every column once, the last rank's non-empty;
+    the most ring slots, 3 to 8, that fit one CTA an SM, the source's
+    shared bytes; the constants shared with the CUDA source."""
+    src = _CLUSTER_SRC.read_text()
+    assert "constexpr int CL_MAX_STAGES = 8;" in src and tlk._CLUSTER_STAGES == (3, 8)
+    assert "constexpr int CL_XSLOTS = 2 * CL_LAG + 2;" in src and "constexpr int CL_LAG = 2;" in src
+    assert tlk._CLUSTER_XSLOTS == 6
+    assert "constexpr int CL_IPT = 16;" in src and tlk._CLUSTER_IPT == 16
+    ds = list(range(16_381, 16_400)) + list(range(20_000, 262_145, 997)) + [32_768, 32_769, 65_536, 65_537,
+                                                                           131_072, 131_073, 262_144]
+    for d in ds:
+        geo = tlk._cluster_geometry(100_000, d)
+        chunks = -(-d // 4)
+        assert geo.C == next(c for c in tlk._CLUSTER_SIZES if -(-chunks // c) <= 256 * 16)
+        assert geo.W == -(-chunks // geo.C) and 2048 <= geo.W <= 4096
+        cols = np.zeros(d, np.int64)
+        for r in range(geo.C):
+            c0, c1 = 4 * geo.W * r, min(d, 4 * geo.W * (r + 1))
+            assert c1 > c0  # no empty rank
+            cols[c0:c1] += 1
+        assert (cols == 1).all()
+        assert geo.smem == tlk._cluster_smem(geo.W, geo.stages) <= 232_448
+        assert 3 <= geo.stages <= 8
+        assert geo.stages == 8 or tlk._cluster_smem(geo.W, geo.stages + 1) > 232_448
+        assert geo.clusters == 132 // geo.C
+    assert tlk._cluster_geometry(1, 262_145) is None
+    # the geometry at every size the probe forces stays inside the card
+    # (none where the slice passes 16 chunks a thread), one cluster a row
+    for C in tlk._CLUSTER_SIZES:
+        geo = tlk._cluster_geometry(5, 65_536, C=C)
+        if C < 4:
+            assert geo is None
+            continue
+        assert geo.C == C and geo.smem <= 232_448 and geo.clusters == 5
+
+
+def _cluster_copy_model(xq, d, c0, ncols, row):
+    """The cluster kernel's staging of one row slice off 16-byte
+    alignment (the source's ``shift`` and ``cut``): (position in the staged
+    row of each float, the bulk copy's (source float, row position,
+    floats), the 4-byte copies' floats)."""
+    dl = (xq + row * d + c0) & 3
+    head = min((4 - dl) & 3, ncols)
+    groups = (ncols - head) // 4
+    bulk = (row * d + c0 + head, dl + head, 4 * groups)
+    singles = list(range(head)) + list(range(head + 4 * groups, ncols))
+    return dl, bulk, singles
+
+
+@pytest.mark.parametrize("d,n,xq", [(16_381, 9, 0), (20_958, 7, 0), (20_958, 7, 1), (30_001, 5, 3),
+                                    (65_536, 3, 2), (200_003, 3, 1), (100_000, 4, 0)])
+def test_cluster_kernel_work_split_covers_everything_once(d, n, xq):
+    """A numpy model of the cluster kernel's work split at its geometry:
+    each row in one cluster's walk; each rank's slice of each
+    row staged once, the bulk copy 16-byte aligned at both ends (source
+    and row position), the rest by 4-byte copies, inside the staged row's
+    4 (W + 1) floats, each float at its shift's place, which the readers'
+    two 16-byte chunks hold; each chunk of a slice in one thread's items;
+    the exchange slots never overwritten before every rank has read
+    them."""
+    geo = tlk._cluster_geometry(n, d, sms=3 * 16)
+    RW, RS = 4 * geo.W, 4 * geo.W + 4
+    rows = np.zeros(n, np.int64)
+    for cid in range(geo.clusters):
+        rows[cid::geo.clusters] += 1
+    assert (rows == 1).all()
+    vec = d % 4 == 0 and xq % 4 == 0
+    for rank in range(geo.C):
+        c0 = rank * RW
+        ncols = max(0, min(d - c0, RW))
+        nw = -(-ncols // 4)
+        for row in range(n):
+            dl, (src, pos, count), singles = _cluster_copy_model(xq, d, c0, ncols, row)
+            if vec:
+                assert dl == 0 and not singles
+            staged = np.full(RS, -1, np.int64)
+            assert (xq + src) % 4 == 0 and pos % 4 == 0 and count % 4 == 0
+            staged[pos:pos + count] = np.arange(count) + src - (row * d + c0)
+            for c in singles:
+                assert staged[dl + c] == -1
+                staged[dl + c] = c
+            assert sorted(staged[staged >= 0]) == list(range(ncols))
+            assert all(staged[dl + c] == c for c in range(ncols)) and dl + ncols <= RS
+            # the readers' chunk j: 16-byte chunks j and j + 1 of the row
+            assert 4 * (nw - 1) + 4 + (4 if dl else 0) <= RS
+        items = np.zeros(nw, np.int64)
+        for tid in range(256):
+            for i in range(tlk._CLUSTER_IPT):
+                if tid + 256 * i < nw:
+                    items[tid + 256 * i] += 1
+        assert (items == 1).all()
+    # the exchange: rank A writes row t's partial into slot t % 6 after it
+    # read row t - 1 - lag's (every rank had written it), which rank B
+    # wrote after it read row t - 2 - 2 lag: at least row t - 6
+    lag = min(2, geo.stages - 2)
+    assert tlk._CLUSTER_XSLOTS >= 2 * lag + 2
+
+
+def _warp_sum(v):
+    """The source's ``warp_sum`` (xor butterfly) over the last axis of 32
+    lanes, in ``v``'s dtype; every lane ends with the same sum."""
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., np.arange(32) ^ off]
+    return v
+
+
+def _cluster_model(X, y, m, A, b, sms=4, drop_rank=False):
+    """A numpy f32 model of the cluster kernel's arithmetic at its
+    geometry (``sms`` SMs): each rank's partial logit of a row, a thread's
+    chunks into four accumulators by i % 4 (added pairwise), the warp's xor
+    butterfly, the 8 warps in order; the C partials added in rank order
+    (``drop_rank``: the last left out, the negative control), then b;
+    residuals (sigmoid(z) - y) m; each cluster's gradient slice, loss and
+    intercept over its rows in order; the second pass's order over the
+    cluster partials.
+    Returns (loss, gA (1, d), gb (1,))."""
+    f32 = np.float32
+    n, d = X.shape
+    geo = tlk._cluster_geometry(n, d, sms)
+    RW, nchunk = 4 * geo.W, 256 * tlk._CLUSTER_IPT
+    a = A[0].astype(f32)
+    z = np.zeros(n, f32)
+    for rank in range(geo.C - (1 if drop_rank else 0)):
+        c0 = rank * RW
+        xs = np.zeros((n, 4 * nchunk), f32)
+        asl = np.zeros(4 * nchunk, f32)
+        ncols = max(0, min(d - c0, RW))
+        xs[:, :ncols] = X[:, c0:c0 + ncols]
+        asl[:ncols] = a[c0:c0 + ncols]
+        prod = (xs * asl).reshape(n, tlk._CLUSTER_IPT, 256, 4)  # [row, i, tid, component]
+        s4 = np.zeros((n, 4, 256), f32)
+        for i in range(tlk._CLUSTER_IPT):
+            for q in range(4):
+                s4[:, i & 3] = s4[:, i & 3] + prod[:, i, :, q]
+        thread = (s4[:, 0] + s4[:, 1]) + (s4[:, 2] + s4[:, 3])
+        warps = _warp_sum(thread.reshape(n, 8, 32))[:, :, 0]
+        part = np.zeros(n, f32)
+        for w in range(8):
+            part = part + warps[:, w]
+        z = z + part
+    z = z + f32(b[0])
+    r = ((f32(1) / (f32(1) + np.exp(-z))) - y) * m
+    ll = (np.maximum(z, f32(0)) + np.log1p(np.exp(-np.abs(z))) - y * z) * m
+    # per cluster: its rows in order
+    clusters = min(geo.clusters, n)
+    gpart = np.zeros((clusters, d), f32)
+    lpart = np.zeros((clusters, 2), f32)
+    for cid in range(clusters):
+        for row in range(cid, n, clusters):
+            gpart[cid] = gpart[cid] + r[row] * X[row]
+            lpart[cid] = lpart[cid] + np.array([ll[row], r[row]], f32)
+    # the second pass: warp w adds partials w, w + 8, ..., then the warps in order
+    def reduce(p):
+        acc = np.zeros((8,) + p.shape[1:], f32)
+        for k in range(p.shape[0]):
+            acc[k % 8] = acc[k % 8] + p[k]
+        out = np.zeros(p.shape[1:], f32)
+        for w in range(8):
+            out = out + acc[w]
+        return out
+    gA = reduce(gpart)[None, :]
+    lb = reduce(lpart)
+    return lb[0], gA, lb[1:2]
+
+
+@pytest.mark.parametrize("n,d,offset", [(203, 16_381, 0.0), (97, 30_001, 1.0), (40, 70_001, 0.5)])
+def test_cluster_arithmetic_model_within_band(n, d, offset):
+    """The cluster kernel's arithmetic (:func:`_cluster_model`) is held by
+    ``chip_smoke.py``'s f64 band (``logreg_reference`` and ``held``, the
+    check the card's kernel passes), and its negative control, the last
+    rank's partial left out of every logit, is refused by it."""
+    import chip_smoke
+
+    rng = np.random.default_rng(n + d)
+    X = (rng.normal(size=(n, d)) + offset).astype(np.float32)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    m = (rng.random(n) > 0.1).astype(np.float32)
+    A = (rng.normal(size=(1, d)) * 0.02).astype(np.float32)
+    b = np.array([0.1], np.float32)
+    t = [torch.from_numpy(v) for v in (X, y, m, A, b)]
+    lr, gAr, gbr, T_gA, T_gb, T_loss = chip_smoke.logreg_reference(torch, tlk, *t, False)
+    loss, gA, gb = _cluster_model(X, y, m, A, b)
+    for out, ref, T in ((gA, gAr, T_gA), (gb, gbr, T_gb), (np.float32(loss), lr, T_loss)):
+        assert chip_smoke.held(torch, torch.as_tensor(out), ref, T, n)[1] <= 1.0
+    _, gA_d, _ = _cluster_model(X, y, m, A, b, drop_rank=True)
+    assert chip_smoke.held(torch, torch.from_numpy(gA_d), gAr, T_gA, n)[1] > 1.0
+
+
+@pytest.mark.parametrize("d,n", [(16_512, 96), (20_000, 64)])
+def test_fused_loss_grad_plain_matches_jax_xla_on_cluster_shapes(d, n):
+    """Binomial rows past the tile kernel's cap (the cluster kernel on the
+    card) lie past the JAX package's Pallas gate (d <= 2,048), so its oracle
+    is the XLA logits path of its ``logreg_fit`` (softplus(z) - y z, the
+    masked sum), differentiated by JAX; held within the tolerances of
+    test_fused_loss_grad_plain_matches_pallas_interpret."""
+    from spark_rapids_ml_tpu.ops import logreg_pallas as jp
+
+    assert not jp.logreg_pallas_ok(d, 1, jnp.float32)
+    assert tlk._k3_variant(d, 1, False) >= tlk._CLUSTER
+    X, y, m, A, b = _problem(d, n, d, 1, False)
+    Xj, yj, mj = jnp.asarray(X), jnp.asarray(y), jnp.asarray(m)
+
+    def data_loss(Aeff, beff):
+        z = (Xj @ Aeff.T + beff[None, :])[:, 0]
+        return ((jax.nn.softplus(z) - yj * z) * mj).sum()
+
+    loss_j, (gA_j, gb_j) = jax.value_and_grad(data_loss, argnums=(0, 1))(jnp.asarray(A), jnp.asarray(b))
+    t = [torch.from_numpy(v) for v in (X, y, m, A, b)]
+    loss_t, gA_t, gb_t = tlk.logreg_loss_grad(*t, False)
+    assert abs(float(loss_t) - float(loss_j)) / abs(float(loss_j)) < 1e-5
+    assert np.abs(gA_t.numpy() - np.asarray(gA_j)).max() / np.abs(np.asarray(gA_j)).max() < 1e-4
+    assert np.abs(gb_t.numpy() - np.asarray(gb_j)).max() < 1e-3
+
+
+def test_logreg_fit_matches_jax_on_cluster_shape():
+    """``logreg_fit`` of the port (on the CPU: K3's plain version) and of
+    the JAX package (its XLA logits path) at binomial d = 16,512, past the
+    tile kernel's cap (the cluster kernel on the card), 300 rows,
+    regParam 0.05 (a well-conditioned optimum that both reach), until the
+    f32 objective stops improving; held within
+    test_logreg_fit_matches_jax_on_tile_shapes's tolerances."""
+    from spark_rapids_ml_tpu.ops.logreg_kernels import logreg_fit as j_fit
+
+    d, n = 16_512, 300
+    assert tlk._k3_variant(d, 1, False) >= tlk._CLUSTER
+    rng = np.random.default_rng(d)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X @ rng.normal(size=d) * 0.05 + rng.logistic(size=n) > 0).astype(np.float32)
+    mask = np.ones(n, np.float32)
+    kw = dict(n_classes=2, multinomial=False, fit_intercept=True, standardization=True, l1=0.0, l2=0.05,
+              use_l1=False, max_iter=200, tol=1e-10)
+    rj = j_fit(jnp.asarray(X), jnp.asarray(mask), jnp.asarray(y), **kw)
+    rt = tlk.logreg_fit(torch.from_numpy(X), torch.from_numpy(mask), torch.from_numpy(y), **kw)
+    cj, ct = np.asarray(rj["coef_"]), rt["coef_"].numpy()
+    scale = np.abs(cj).max()
+    assert np.abs(ct - cj).max() < 2e-3 * scale
+    assert np.abs(rt["intercept_"].numpy() - np.asarray(rj["intercept_"])).max() < 2e-3 * max(scale, 1.0)
