@@ -81,10 +81,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
    nodes of several spans, per-tree and shared tables), exact for integer
    stats, repeatable bit for bit, a span's dropped row caught; it must beat
    its plain version and an index_select + scatter_add_ at the four main
-   shapes, and the per-sub-block form's 0.7129 ms at bench level 12; K5's
-   per-sub-block form (no caller in the builder) at the same shapes, as
-   before; K6 (fused selection) at the 131,072 x 3,000
-   level-12 call and a ragged one with n_features == d_pad; K9 (packed
+   shapes, and the per-sub-block form's 0.7129 ms at bench level 12; K6
+   per node (each node's 55 -> 64 ids picked from the full rows of 4,096
+   bytes read through the sort permutation, K5's spans and fold) at the
+   3,000-feature forest's levels 12 and 2 on 131,072 rows and level 12 on
+   the reference's 1,000,000 rows, exact and repeatable bit for bit, a
+   span's dropped row and a slot read at a wrong feature id caught, faster
+   than route B (the per-row subset gather, then K5) and than a gather +
+   scatter_add_ at all three, and at ragged shapes (n_features == d_pad
+   with real-valued S = 3, nb in {32, 128, 255}, rows of 200 bytes, a table
+   4 bytes off alignment, T = 1, empty nodes, nodes of many spans); K9 (packed
    traversal) on one transform batch of a depth-13, 50-tree forest, at
    3,000 features and at k2 in {1, 6}, equal to its plain version; K8
    (packed-byte gather, one launch per group of 8 trees) at the byte
@@ -134,8 +140,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128) fit,
    transform, save/load and transform on the first 131,072 rows (bench.py's
    rf config), RandomForestRegressor(numTrees=8) on the same rows with a
-   real-valued label, RandomForestClassifier(numTrees=8) on 131,072 x 3,000
-   rows (the reference's benchmark width: K6), each classifier's bins
+   real-valued label, RandomForestClassifier(numTrees=8, maxDepth=13,
+   maxBins=128) on 1,000,000 x 3,000 rows (the reference's benchmark
+   config but for 50 trees: K6 at every split level; transform and the
+   bins engine on its first 131,072 rows) and its first 20,000 rows at
+   depth 10 fitted on the card and on the CPU, each classifier's bins
    engine (K8) equal to its packed engine (K9) bit for bit, and an 8-tree
    depth-10 forest on 20,000 rows fitted on the card and on the CPU (the
    same draws: predictions agree on >= 99.9% of rows);
@@ -191,14 +200,16 @@ the shape. It prints no result line and exits 1 if a check failed.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
-is a probe of K5: the GBT's level 7 and the bench forest's level 12 on the
-forest rows, each timed as the per-sub-block launch at the level's
-feature-chunk shape, one per-node reduction of its partials, one whole
-K5-route level of the builder, and K5 per node (held with its controls,
-its span kernel's registers, spills and resident blocks), then the ragged
-K5 cases; ``--sweep`` adds the GBT's levels 0 and 3, and K5 per node with
-its walk, row loads or write knocked out and at other span and stage
-sizes. It prints no result line.
+is a probe of K5 and K6: K5 at the GBT's level 7 and the bench forest's
+level 12 on the forest rows, each timed as one whole K5-route level of the
+builder and as K5 per node (held with its controls, its span kernel's
+registers, spills and resident blocks), then the ragged K5 cases; K6 at
+its three timed shapes, held and timed beside route B and its library
+calls, and one whole wide-route level of the builder, then the ragged K6
+cases; ``--sweep`` adds the GBT's levels 0 and 3, K5 per node with its
+walk, row loads or write knocked out and at other span and stage sizes,
+and K6 with the same knock-outs, at other stage sizes and with twice the
+span partials' bound. It prints no result line.
 """
 
 from __future__ import annotations
@@ -243,6 +254,13 @@ RF_DEPTH = 13
 RF_BINS = 128
 RF_SMALL_TREES = 8
 RF_WIDE_D = 3000
+# the reference's RandomForest benchmark (BASELINE.md:16,26): 1,000,000 x
+# 3,000, 50 trees, depth 13, 128 bins; rf_wide keeps its rows, features,
+# bins and depth, and 8 trees; its nodes draw sqrt(3,000) = 55 features
+RF_WIDE_ROWS = 1_000_000
+RF_WIDE_K = 55
+# the 3,000-feature forest fitted on the card and on the CPU
+RF_WIDE_SUBSET_ROWS = 20_000
 # the forest fitted on the card and on the CPU
 RF_SUBSET_ROWS = 20_000
 RF_SUBSET_DEPTH = 10
@@ -1460,15 +1478,17 @@ def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=Fals
     glue (``compact_sizes``, ``_compact_layout``): each tree's rows
     (Poisson(1) bootstrap weights, or 1 without ``bootstrap``) spread over
     the level's 2^level nodes at random, each node's k features drawn at
-    random, sentinel slots up to the next power of two; with k ==
-    n_features (no subset, as the GBT) every tree reads the shared bins."""
+    random, sentinel slots up to the next power of two. K5 reads the shared
+    bins (k == n_features, no subset, as the GBT) or each tree's
+    subset-gathered bins; K6 (``sel``) the shared full rows with the
+    nodes' ids ``feats`` (T, n_nodes, k_pad) int32."""
     n, d_pad = bins.shape
     dev, S = bins.device, stats.shape[1]
     n_nodes, k_pad = 1 << level, pt.next_pow2(k)
     subset = k < n_features
-    r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, depth, S, k_pad if subset else d_pad, RF_BINS)
+    r_sub, n_pad, _ = pt.compact_sizes(n, level, depth, S, k_pad if subset else d_pad, RF_BINS)
     seg = torch.randint(0, n_nodes, (T, n), generator=g, device=dev)
-    src2, pvalid, sbc, counts, pstart = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
+    src2, pvalid, _, counts, pstart = pt._compact_layout(seg, n_nodes, r_sub, n_pad)
     w = torch.poisson(torch.ones((T, n), device=dev), generator=g) if bootstrap else torch.ones((T, n), device=dev)
     sw_rows = stats[None] * w[..., None]
     sw = sw_rows.gather(1, src2[..., None].expand(T, n_pad, S))
@@ -1476,114 +1496,26 @@ def rf_level_inputs(torch, pt, bins, stats, level, T, k, n_features, g, sel=Fals
     out = {"T": T, "level": level, "n": n, "n_pad": n_pad, "r_sub": r_sub, "S": S, "nb": RF_BINS,
            "k": k, "k_pad": k_pad, "sw": sw, "seg": seg, "sw_rows": sw_rows, "src2": src2, "counts": counts,
            "pstart": pstart, "n_nodes": n_nodes}
-    if subset or sel:
-        feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
-        feats = torch.cat([feats, torch.full((T, n_nodes, k_pad - k), n_features, device=dev)], 2)
+    if not subset:
+        out["hist_src"] = bins
+        return out
+    feats = torch.rand((T, n_nodes, n_features), generator=g, device=dev).argsort(dim=2)[..., :k]
+    feats = torch.cat([feats, torch.full((T, n_nodes, k_pad - k), n_features, device=dev)], 2)
     if sel:
-        out["bq"] = bins.index_select(0, src2.reshape(-1))
-        out["featsq"] = feats.gather(1, sbc[..., None].expand(-1, -1, k_pad)).reshape(-1, k_pad).to(torch.int32)
-        out["d_pad"] = d_pad
+        out.update({"hist_src": bins, "feats": feats.to(torch.int32).contiguous(), "d_pad": d_pad,
+                    "n_features": n_features})
     else:
-        if subset:
-            rows = feats.gather(1, seg.clamp(max=n_nodes - 1)[..., None].expand(-1, -1, k_pad))
-            hist_src = bins.expand(T, n, d_pad).gather(2, rows.clamp(max=d_pad - 1))
-            binq = hist_src.gather(1, src2[..., None].expand(T, n_pad, k_pad))
-        else:
-            hist_src = bins
-            binq = bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, d_pad)
-        out["binq"] = binq[..., :f_chunk].to(torch.int32).reshape(T * n_pad, f_chunk).contiguous()
-        out["f_chunk"] = f_chunk
-        out["hist_src"] = hist_src
+        out["hist_src"] = subset_bins(torch, bins, seg, feats)
     return out
 
 
-def _last_weighted_row(torch, sw, r_sub, j):
-    """The last row of sub-block j (or the first sub-block after it) that
-    carries weight: the row a kernel that drops one row per sub-block would
-    lose."""
-    w = sw.abs().sum(dim=1).reshape(-1, r_sub)
-    while not bool((w[j] > 0).any()):
-        j += 1
-    return j * r_sub + int(torch.nonzero(w[j] > 0)[-1, 0])
-
-
-def check_subblock_hist(torch, rk, inp, reps, exact=True, control=False, sel=False):
-    """K5 (K6 with ``sel``) against its plain version in f64 on the same
-    inputs: equal for integer stats, else within ``held`` of the f64 sums
-    (T = the plain version over |sw|, n = r_sub additions). Two launches
-    must give the same bits. The control drops the last weighted row of
-    one sub-block, which the check must catch."""
-    sw, nb, r_sub = inp["sw"], inp["nb"], inp["r_sub"]
-    if sel:
-        args, kern, plain = (inp["bq"], inp["featsq"]), rk.subblock_hist_sel, rk.subblock_hist_sel_plain
-        k = inp["featsq"].shape[1]
-    else:
-        args, kern, plain = (inp["binq"],), rk.subblock_hist, rk.subblock_hist_plain
-        k = inp["binq"].shape[1]
-    out = kern(*args, sw, n_bins=nb, r_sub=r_sub)
-    again = kern(*args, sw, n_bins=nb, r_sub=r_sub)
-    torch.cuda.synchronize()
-    repeatable = bool(torch.equal(out, again))
-    del again
-    ref = plain(*args, sw.double(), n_bins=nb, r_sub=r_sub)
-    rows, S = sw.shape
-    n_sb = rows // r_sub
-    res = {key: inp[key] for key in ("T", "level", "n", "n_pad", "r_sub", "S", "nb", "k", "k_pad", "d_pad")
-           if key in inp}
-    res.update({"k_launch": k, "n_sb": n_sb, "repeatable": repeatable})
-    if exact:
-        # integer sums below 2^24: the f64 reference is exact in f32 too
-        ref = ref.float()
-        err = float((out - ref).abs().max())
-        ok, ratio, T_abs = bool(torch.equal(out, ref)), 0.0, None
-    else:
-        T_abs = plain(*args, sw.double().abs(), n_bins=nb, r_sub=r_sub)
-        err, ratio = held(torch, out, ref, T_abs, r_sub)
-        ok = ratio <= 1.0
-    check(ok and repeatable, f"{kern.__name__} {rows}x{k} S={S} nb={nb} r_sub={r_sub}: "
-          f"max err {err}, err/tol {ratio:.3g}, repeatable {repeatable}")
-    res.update({"max_abs_err": err, "err_over_tol": ratio, "exact": exact})
-    if control:
-        r = _last_weighted_row(torch, sw, r_sub, n_sb // 2)
-        bad_sw = sw.double().clone()
-        bad_sw[r] = 0.0
-        bad = plain(*args, bad_sw, n_bins=nb, r_sub=r_sub)
-        if exact:
-            caught = not bool(torch.equal(out, bad.float()))
-        else:
-            caught = held(torch, bad, ref, T_abs, r_sub)[1] > 1.0
-        check(caught, f"the {kern.__name__} check does not catch a dropped row")
-        res["controls"] = [{"control": f"row {r} (last weighted row of its sub-block) dropped", "caught": caught}]
-        del bad, bad_sw
-    del ref, T_abs
-    if reps:
-        res["ms"] = cuda_ms(torch, lambda: kern(*args, sw, n_bins=nb, r_sub=r_sub), reps)
-        res["plain_ms"] = cuda_ms(torch, lambda: plain(*args, sw, n_bins=nb, r_sub=r_sub), reps)
-        # one scatter_add_ on the flattened (sub-block, s, slot, bin) index
-        # (K6: the column gather first, a second call)
-        binq = rk.select_bins_plain(args[0], args[1], r_sub) if sel else args[0]
-        sb = torch.arange(rows, device=sw.device) // r_sub
-        base = sb[:, None, None] * S + torch.arange(S, device=sw.device)[None, :, None]
-        idx = ((base * k + torch.arange(k, device=sw.device)[None, None, :]) * nb
-               + binq.long().clamp(0, nb - 1)[:, None, :]).reshape(-1)
-        vals = sw[:, :, None].expand(rows, S, k).reshape(-1)
-        size = n_sb * S * k * nb
-
-        def library():
-            b = rk.select_bins_plain(args[0], args[1], r_sub) if sel else None
-            return torch.zeros(size, device=sw.device).scatter_add_(0, idx, vals), b
-
-        res["library_ms"] = cuda_ms(torch, library, reps)
-        res["library_calls"] = "gather + scatter_add_ (two calls)" if sel else "scatter_add_"
-        del idx, vals, base, sb, binq
-        # each input byte read once, the dense output written once; K6 reads
-        # only the k selected bytes of each full row (bq holds d_pad)
-        in_bins = rows * k * (1 if sel else 4)
-        nbytes = in_bins + 4.0 * (rows * S + n_sb * S * k * nb) + (4.0 * n_sb * k if sel else 0.0)
-        res["bytes"] = nbytes
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, float(rows) * S * k)
-    del out
-    return res
+def subset_bins(torch, bins, seg, feats):
+    """Route B's (T, n, k_pad) uint8 bins: each row's node's columns
+    gathered from the shared table (the builder's ``make_hist_src``)."""
+    T, n = seg.shape
+    n_nodes, k_pad = feats.shape[1:]
+    rows = feats.gather(1, seg.clamp(max=n_nodes - 1)[..., None].expand(T, n, k_pad)).long()
+    return bins.expand(T, n, bins.shape[1]).gather(2, rows.clamp(max=bins.shape[1] - 1))
 
 
 # K5 per node at the GBT's level 7, H100 80GB HBM3 at 700 W: a quarter of
@@ -1610,6 +1542,20 @@ def node_hist_gates(res) -> dict:
         out[f"{k}_beats_library"] = res[k]["ms"] < res[k]["library_ms"]
     out["gbt_level7_within_max"] = res["node_hist_gbt"]["ms"] <= NODE_HIST_MS_MAX
     out["bench_level12_beats_subblock_form"] = res["node_hist_batched"]["ms"] < SUBBLOCK_HIST_BENCH_MS
+    return out
+
+
+# K6's three timed shapes (keys of sel_levels' results)
+NODE_HIST_SEL_SHAPES = ("node_hist_sel_batched", "node_hist_sel_level2", "node_hist_sel_ref")
+
+
+def node_hist_sel_gates(res) -> dict:
+    """K6's gates: faster than route B (the subset gather and K5) and than
+    its library calls at its three timed shapes, in the same run."""
+    out = {}
+    for k in NODE_HIST_SEL_SHAPES:
+        out[f"{k}_beats_route_b"] = res[k]["ms"] < res[k]["route_b_ms"]
+        out[f"{k}_beats_library"] = res[k]["ms"] < res[k]["library_ms"]
     return out
 
 
@@ -1671,50 +1617,108 @@ def ragged_node_hist_checks(torch, rk, pt, g):
         emit({"phase": "kernels", "kernel": "node_hist_batched", "ragged": True, **r})
 
 
+def ragged_node_hist_sel_checks(torch, rk, pt, g):
+    """K6 off the main path, every case launched with both controls:
+    n_features == d_pad (the sentinel past the row) with S = 3 real-valued
+    stats, nb in {32, 128, 255}, rows of 200 bytes (not a multiple of 16),
+    a table 4 bytes off 16-byte alignment, T = 1, empty nodes, nodes of
+    many spans, ids sharing words and sentinels repeating, a tile across a
+    slot boundary (S = 3)."""
+    for T, n, nodes, d_row, n_feat, k, S, nb, r_sub, integer, off in (
+            (2, 30_000, 6, 200, 200, 13, 3, 255, 24, False, 0),
+            (1, 40_000, 5, 4096, 3000, 55, 2, 32, 16, True, 0),
+            (3, 20_000, 4, 1024, 1000, 20, 2, 128, 8, True, 4),
+            (2, 40_000, 8, 64, 60, 20, 4, 255, 5, True, 0),
+            (2, 30_000, 6, 1024, 1000, 30, 3, 128, 7, True, 0)):
+        inp = ragged_node_hist_inputs(torch, pt, g, T, n, nodes, d_row, S, nb, r_sub, False, integer, 0.3)
+        if off:
+            store = torch.empty(n * d_row + off, dtype=torch.uint8, device=g.device)
+            store[off:] = inp["hist_src"].reshape(-1)
+            inp["hist_src"] = store[off:].view(n, d_row)
+        k_pad = pt.next_pow2(k)
+        feats = torch.rand((T, nodes, n_feat), generator=g, device=g.device).argsort(dim=2)[..., :k]
+        feats = torch.cat([feats, torch.full((T, nodes, k_pad - k), n_feat, device=g.device)], 2)
+        inp.update({"feats": feats.to(torch.int32).contiguous(), "k": k, "k_pad": k_pad, "d_pad": d_row,
+                    "n_features": n_feat})
+        r = check_node_hist(torch, rk, inp, 0, exact=integer, control=True)
+        check(r["multi_span_nodes"] > 0 and bool((inp["pstart"][:, 1:] == inp["pstart"][:, :-1]).any()),
+              "a ragged K6 case lacks a node longer than one span or an empty node")
+        emit({"phase": "kernels", "kernel": "node_hist_sel_batched", "ragged": True, "table_offset": off, **r})
+
+
+def node_sectors(torch, feats, d_row):
+    """(T, n_nodes) distinct 32-byte sectors of a row that each node's ids
+    inside [0, d_row) touch: what K6 must read of each of its rows."""
+    sec = torch.where((feats >= 0) & (feats < d_row), feats.long() >> 5, torch.full_like(feats.long(), -1))
+    sec = sec.sort(dim=-1).values
+    return (sec[..., :1] >= 0).sum(-1) + ((sec[..., 1:] != sec[..., :-1]) & (sec[..., 1:] >= 0)).sum(-1)
+
+
 def check_node_hist(torch, rk, inp, reps, exact=True, control=False, cpu_bitwise=False, fold_control=False):
-    """K5 per node against its plain version in f64 on the same inputs:
-    equal for integer stats, else within ``held`` of the f64 sums (T = the
-    plain version over |swq|, n = the rows of the longest node). Two
-    launches must give the same bits. ``control``: the last weighted row of
-    one span dropped, which the check must catch. ``cpu_bitwise``: the f32
-    output equal bit for bit to the plain version on the host (the same
-    inputs copied there); ``fold_control``: that plain version with each
-    node's spans folded in reverse order, which the bitwise comparison must
-    refuse (the f64 band alone does not)."""
+    """K5 per node, or K6 where the level gives each node's ids ``feats``,
+    against its plain version in f64 on the same inputs: equal
+    for integer stats, else within ``held`` of the f64 sums (T = the plain
+    version over |swq|, n = the rows of the longest node). Two launches
+    must give the same bits. ``control``: the last weighted row of one
+    span dropped, and (K6) one node's first slot read at another feature
+    id, which the check must catch. ``cpu_bitwise``: the f32 output equal
+    bit for bit to the plain version on the host (the same inputs copied
+    there); ``fold_control``: that plain version with each node's spans
+    folded in reverse order, which the bitwise comparison must refuse (the
+    f64 band alone does not). K6 is timed beside route B (each row's
+    node's columns gathered, then K5 over them) and its library calls."""
     bins, src2, swq, pstart = node_hist_args(inp)
+    feats = inp.get("feats")
+    sel = feats is not None
     T, n_pad, S, nb, r_sub = inp["T"], inp["n_pad"], inp["S"], inp["nb"], inp["r_sub"]
-    F, n_nodes = bins.shape[-1], pstart.shape[1] - 1
+    F, n_nodes = (feats if sel else bins).shape[-1], pstart.shape[1] - 1
     kw = dict(n_bins=nb, r_sub=r_sub)
-    kern = rk.node_hist_batched
-    out = kern(bins, src2, swq, pstart, **kw)
-    again = kern(bins, src2, swq, pstart, **kw)
+    extra = (feats,) if sel else ()
+    if sel:
+        name, plain, vec = "node_hist_sel_batched", rk.node_hist_sel_plain, False
+        geo = rk.node_hist_sel_geometry(T, n_pad, r_sub, n_nodes, F, S, nb)
+
+        def kern():
+            return rk.node_hist_sel_batched(bins, src2, swq, pstart, feats, **kw)
+    else:
+        name, plain, vec = "node_hist_batched", rk.node_hist_plain, F % 16 == 0 and bins.data_ptr() % 16 == 0
+        geo = rk.node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, nb, vec)
+
+        def kern():
+            return rk.node_hist_batched(bins, src2, swq, pstart, **kw)
+    out = kern()
+    again = kern()
     torch.cuda.synchronize()
     repeatable = bool(torch.equal(out, again))
     del again
-    geo = rk.node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, nb, F % 16 == 0 and bins.data_ptr() % 16 == 0)
     a = geo.a
     sbs = (pstart // r_sub).cpu()
     spans = ((sbs[:, 1:] - sbs[:, :-1] + a - 1) // a).clamp_min(1)
     multi = spans > 1
     longest = int((pstart[:, 1:] - pstart[:, :-1]).max())
-    res = {key: inp[key] for key in ("T", "level", "n", "n_pad", "r_sub", "S", "nb", "k", "k_pad") if key in inp}
+    res = {key: inp[key] for key in ("T", "level", "n", "n_pad", "r_sub", "S", "nb", "k", "k_pad", "d_pad")
+           if key in inp}
     res.update({"F": F, "n_nodes": n_nodes, "repeatable": repeatable, "span_rows": rk.SPAN_ROWS, "a": a,
                 "spans": int(spans.sum()), "multi_span_nodes": int(multi.sum()),
                 "partial_spans": int(spans[multi].sum()), "longest_node_rows": longest,
-                "geometry": geo._asdict(), "tiles": -(-(S * geo.fc) // geo.P)})
-    def tree(t, x=None):
-        # tree t's inputs (its weights replaced by x): the f64 references go
-        # a tree at a time, so that the largest level's fit the card
-        return ((bins[t:t + 1] if bins.dim() == 3 else bins), src2[t:t + 1],
-                swq[t:t + 1].double() if x is None else x, pstart[t:t + 1])
+                "geometry": geo._asdict(), "tiles": -(-(S * geo.fc) // geo.P),
+                "launches_a_level": -(-F // geo.fc)})
 
-    def verdict(o, t, x=None):
+    def tree(t, x=None, f=None):
+        # tree t's inputs (its weights replaced by x, its ids by f): the f64
+        # references go a tree at a time, so that the largest level's fit
+        # the card
+        ids = (feats[t:t + 1] if f is None else f,) if sel else ()
+        return ((bins[t:t + 1] if bins.dim() == 3 else bins), src2[t:t + 1],
+                swq[t:t + 1].double() if x is None else x, pstart[t:t + 1], *ids)
+
+    def verdict(o, t):
         # (max abs err, err/tol, holds) of o against tree t's f64 reference
-        ref = rk.node_hist_plain(*tree(t, x), **kw)
+        ref = plain(*tree(t), **kw)
         if exact:
             # integer sums below 2^24: the f64 reference is exact in f32 too
             return float((o.double() - ref).abs().max()), 0.0, bool(torch.equal(o, ref.float()))
-        T_abs = rk.node_hist_plain(*tree(t, swq[t:t + 1].double().abs()), **kw)
+        T_abs = plain(*tree(t, swq[t:t + 1].double().abs()), **kw)
         e, ratio = held(torch, o, ref, T_abs, longest)
         return e, ratio, ratio <= 1.0
 
@@ -1722,7 +1726,7 @@ def check_node_hist(torch, rk, inp, reps, exact=True, control=False, cpu_bitwise
     for t in range(T):
         e, r_, o_ = verdict(out[t:t + 1], t)
         err, ratio, ok = max(err, e), max(ratio, r_), ok and o_
-    check(ok and repeatable, f"node_hist_batched T={T} n_pad={n_pad} F={F} S={S} nb={nb} r_sub={r_sub}: "
+    check(ok and repeatable, f"{name} T={T} n_pad={n_pad} F={F} S={S} nb={nb} r_sub={r_sub}: "
           f"max err {err}, err/tol {ratio:.3g}, repeatable {repeatable}")
     res.update({"max_abs_err": err, "err_over_tol": ratio, "exact": exact})
     controls = []
@@ -1730,17 +1734,31 @@ def check_node_hist(torch, rk, inp, reps, exact=True, control=False, cpu_bitwise
         t, r = _last_weighted_row_of_span(torch, rk, bins, src2, swq, pstart, nb, r_sub)
         bad_sw = swq[t:t + 1].double().clone()
         bad_sw[0, r] = 0.0
-        bad = rk.node_hist_plain(*tree(t, bad_sw), **kw)
+        bad = plain(*tree(t, bad_sw), **kw)
         caught = not verdict(bad, t)[2]
-        check(caught, "the node_hist_batched check does not catch a span's dropped row")
+        check(caught, f"the {name} check does not catch a span's dropped row")
         controls.append({"control": f"tree {t} row {r} (last weighted row of its span) dropped", "caught": caught})
+        if sel:
+            # that row's node reads its first slot at the next feature id
+            j = int(torch.searchsorted(pstart[t, 1:], torch.tensor(r, device=pstart.device), right=True))
+            bad_f = feats[t:t + 1].clone()
+            bad_f[0, j, 0] = (bad_f[0, j, 0] + 1) % inp["n_features"]
+            bad = plain(*tree(t, f=bad_f), **kw)
+            caught = not verdict(bad, t)[2]
+            check(caught, f"the {name} check does not catch a slot read at a wrong feature id")
+            controls.append({"control": f"tree {t} node {j} slot 0 read at feature {int(bad_f[0, j, 0])}",
+                             "caught": caught})
         del bad, bad_sw
     if cpu_bitwise:
-        host = [x.cpu() for x in (bins, src2, swq, pstart)]
-        sums, span_node = rk.span_sums_plain(*host, **kw)
+        host = [x.cpu() for x in (bins, src2, swq, pstart, *extra)]
+        if sel:
+            sums, span_node = rk._span_scatter(rk.select_rows_plain(host[0], host[1], host[3], host[4]), host[2],
+                                               host[3], nb, r_sub)
+        else:
+            sums, span_node = rk.span_sums_plain(*host, **kw)
         cpu = rk.fold_spans(sums, span_node, T * n_nodes).reshape(out.shape)
         res["equal_cpu_plain"] = bool(torch.equal(out.cpu(), cpu))
-        check(res["equal_cpu_plain"], "node_hist_batched differs from the CPU plain version bit for bit")
+        check(res["equal_cpu_plain"], f"{name} differs from the CPU plain version bit for bit")
         if fold_control:
             rev = rk.fold_spans(sums.flip(0), span_node.flip(0), T * n_nodes).reshape(out.shape)
             caught = not bool(torch.equal(out.cpu(), rev))
@@ -1754,41 +1772,73 @@ def check_node_hist(torch, rk, inp, reps, exact=True, control=False, cpu_bitwise
     if controls:
         res["controls"] = controls
     if reps:
-        res["ms"] = cuda_ms(torch, lambda: kern(bins, src2, swq, pstart, **kw), reps)
-        res["plain_ms"] = cuda_ms(torch, lambda: rk.node_hist_plain(bins, src2, swq, pstart, **kw), reps)
-        # one index_select of the rows and one scatter_add_ onto the (node,
-        # s, slot, bin) index of their bins: two calls
+        res["ms"] = cuda_ms(torch, kern, reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: plain(bins, src2, swq, pstart, *extra, **kw), reps)
         dev = src2.device
-        if bins.dim() == 2:
+        if sel:
+            # route B: the rows' node columns gathered, then K5 over them
+            seg = inp["seg"]
+            res["route_b_gather_ms"] = cuda_ms(torch, lambda: subset_bins(torch, bins, seg, feats), reps)
+            sub = subset_bins(torch, bins, seg, feats)
+            res["route_b_node_hist_ms"] = cuda_ms(
+                torch, lambda: rk.node_hist_batched(sub, src2, swq, pstart, **kw), reps)
+            del sub
+            res["route_b_ms"] = cuda_ms(torch, lambda: rk.node_hist_batched(
+                subset_bins(torch, bins, seg, feats), src2, swq, pstart, **kw), reps)
+        # the library calls: one gather of the rows' bins (K6: of their
+        # selected bins), one scatter_add_ onto the (node, s, slot, bin)
+        # index of those bins
+        if sel:
+            pos = torch.arange(n_pad, device=dev).expand(T, -1).contiguous()
+            node_row = torch.searchsorted(pstart[:, 1:].contiguous(), pos, right=True).clamp(max=n_nodes - 1)
+            table = bins.reshape(-1)
+            rows_idx = (src2[..., None] * bins.shape[1]
+                        + feats.gather(1, node_row[..., None].expand(T, n_pad, F)).long().clamp(0, bins.shape[1] - 1))
+            del pos, node_row
+            b = table[rows_idx].long()
+        elif bins.dim() == 2:
             table, rows_idx = bins, src2.reshape(-1)
+            b = table.index_select(0, rows_idx).long().reshape(T, n_pad, F)
         else:
             table = bins.reshape(-1, F)
             rows_idx = (src2 + torch.arange(T, device=dev)[:, None] * bins.shape[1]).reshape(-1)
-        b = table.index_select(0, rows_idx).long().reshape(T, n_pad, F)
+            b = table.index_select(0, rows_idx).long().reshape(T, n_pad, F)
         sb = torch.arange(n_pad // r_sub, device=dev).expand(T, -1).contiguous()
         node = torch.searchsorted((pstart[:, 1:] // r_sub).contiguous(), sb, right=True)
         node = torch.where(node < n_nodes, node + torch.arange(T, device=dev)[:, None] * n_nodes, T * n_nodes)
         node = node.repeat_interleave(r_sub, dim=1)
-        idx = (((node[..., None] * S + torch.arange(S, device=dev))[..., None] * F + torch.arange(F, device=dev)) * nb
-               + b.clamp(max=nb - 1)[:, :, None, :]).reshape(-1)
         vals = torch.where((b < nb)[:, :, None, :], swq[..., None], torch.zeros((), device=dev)).reshape(-1)
+        # in place: the largest level's index is 10 GB
+        idx = ((node[..., None] * S + torch.arange(S, device=dev))[..., None] * F + torch.arange(F, device=dev))
+        idx = idx.mul_(nb).add_(b.clamp_(max=nb - 1)[:, :, None, :]).reshape(-1)
         size = (T * n_nodes + 1) * S * F * nb
         del b, sb, node
 
         def library():
-            return table.index_select(0, rows_idx), torch.zeros(size, device=dev).scatter_add_(0, idx, vals)
+            rows = table[rows_idx] if sel else table.index_select(0, rows_idx)
+            return rows, torch.zeros(size, device=dev).scatter_add_(0, idx, vals)
 
         res["library_ms"] = cuda_ms(torch, library, reps)
-        res["library_calls"] = "index_select + scatter_add_ (two calls)"
-        del idx, vals
-        # the rows read through src2 (32-byte sectors), src2 and swq, the node
+        res["library_calls"] = ("gather of the selected bins + scatter_add_ (two calls)" if sel
+                                else "index_select + scatter_add_ (two calls)")
+        del idx, vals, rows_idx
+        # the rows read through src2 (K5: the 32-byte sectors of F bytes;
+        # K6: the distinct sectors of the node's ids), src2 and swq, the node
         # histograms written, and the span partials written and read
-        rows_read = int(pstart[:, -1].sum())
+        rows_node = (pstart[:, 1:] - pstart[:, :-1]).double()
+        rows_read = int(rows_node.sum())
+        if sel:
+            row_bytes = float((rows_node * 32 * node_sectors(torch, feats, bins.shape[1])).sum())
+            res["sectors_a_row"] = row_bytes / 32 / rows_read
+        else:
+            row_bytes = rows_read * 32.0 * -(-F // 32)
         hist_bytes = 4.0 * S * F * nb
-        nbytes = (rows_read * (32 * -(-F // 32) + 8 + 4 * S) + hist_bytes * T * n_nodes
+        nbytes = (row_bytes + rows_read * (8 + 4 * S) + hist_bytes * T * n_nodes
                   + 2 * hist_bytes * res["partial_spans"])
         res["bytes"] = nbytes
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, float(rows_read) * S * F)
+        res["attributes"] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                                     rk.node_hist_attributes(vec, geo.P, geo.smem, sel=sel)))
     del out
     return res
 
@@ -2076,9 +2126,11 @@ def rf_bins(torch, pt, X_rf, seed):
 
 
 def wide_bins(torch, pt, n, g, seed):
-    """(n, 4,096) uint8 bins of n Gaussian rows of 3,000 features."""
+    """(n, 4,096) uint8 bins of n Gaussian rows of 3,000 features, edges
+    from about 16,384 of them."""
     Xw = torch.randn((n, RF_WIDE_D), generator=g, device=g.device)
-    ew = torch.from_numpy(pt.make_bin_edges(Xw[::8].cpu().numpy(), RF_BINS, seed=seed)).to(g.device)
+    ew = torch.from_numpy(pt.make_bin_edges(Xw[::max(1, n // 16_384)].cpu().numpy(), RF_BINS, seed=seed))
+    ew = ew.to(g.device)
     return pt.binize(Xw, ew, d_pad=pt.next_pow2(RF_WIDE_D))
 
 
@@ -2088,6 +2140,33 @@ def gbt_level_stats(torch, y, g):
     p = torch.sigmoid(torch.randn(y.shape[0], generator=g, device=y.device))
     r = y - p
     return torch.stack([torch.ones_like(r), r, r * r, (p * (1 - p)).clamp_min(1e-12)], 1)
+
+
+def sel_inputs(torch, pt, wide, cls, g):
+    """K6's three timed shapes, one at a time, as (key, shape, level
+    inputs): the 3,000-feature forest's levels 12 and 2 on the 131,072 rows
+    ``wide`` with stats ``cls``, and level 12 of the reference's 1,000,000
+    rows (bins and labels made on the card from ``g``)."""
+    for key, lvl in (("node_hist_sel_batched", 12), ("node_hist_sel_level2", 2)):
+        yield key, f"wide_level{lvl}", rf_level_inputs(torch, pt, wide, cls, lvl, RF_SMALL_TREES, RF_WIDE_K,
+                                                       RF_WIDE_D, g, sel=True)
+    ref = wide_bins(torch, pt, RF_WIDE_ROWS, g, 0)
+    y = torch.randint(0, 2, (RF_WIDE_ROWS,), generator=g, device=g.device)
+    yield "node_hist_sel_ref", "reference_rows_level12", rf_level_inputs(
+        torch, pt, ref, torch.nn.functional.one_hot(y, 2).float(), 12, RF_SMALL_TREES, RF_WIDE_K, RF_WIDE_D, g,
+        sel=True)
+
+
+def sel_levels(torch, rk, pt, wide, cls, reps, g):
+    """K6 at its three timed shapes (``sel_inputs``), each held with its
+    controls and timed. Returns {key: result}."""
+    res = {}
+    for key, shape, inp in sel_inputs(torch, pt, wide, cls, g):
+        res[key] = check_node_hist(torch, rk, inp, reps, control=True)
+        emit({"phase": "kernels", "kernel": "node_hist_sel_batched", "shape": shape, **res[key]})
+        del inp
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
@@ -2104,56 +2183,29 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     bins = rf_bins(torch, pt, X_rf, seed)
     cls = torch.nn.functional.one_hot(y_rf.long(), 2).float()
     res = {}
-    # K5 at the bench forest's deepest split level (12) and a shallow one:
-    # per node (the builder's), and per sub-block (no caller; the first
-    # feature chunk, as it ran before)
+    # K5 at the bench forest's deepest split level (12) and a shallow one
     inp = rf_level_inputs(torch, pt, bins, cls, 12, 8, 16, E2E_D, g)
     res["node_hist_batched"] = check_node_hist(torch, rk, inp, reps, control=True)
     emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "bench_level12", **res["node_hist_batched"]})
-    res["subblock_hist"] = check_subblock_hist(torch, rk, inp, reps, control=True)
-    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist"]})
     inp = rf_level_inputs(torch, pt, bins, cls, 2, 8, 16, E2E_D, g)
     res["node_hist_level2"] = check_node_hist(torch, rk, inp, reps)
     emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "bench_level2", **res["node_hist_level2"]})
-    res["subblock_hist_level2"] = check_subblock_hist(torch, rk, inp, reps)
-    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_level2"]})
     # the regressor's level 12: S = 3 real-valued moments, k = 86 -> 128
-    # slots (per sub-block: the first chunk of 64)
+    # slots
     yr = X_rf[:, :8].sum(dim=1) + 0.5 * torch.randn(n, generator=g, device=dev)
     reg = torch.stack([torch.ones_like(yr), yr, yr * yr], 1)
     inp = rf_level_inputs(torch, pt, bins, reg, 12, 8, 86, E2E_D, g)
     res["node_hist_variance"] = check_node_hist(torch, rk, inp, reps, exact=False, control=True)
     emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "regressor_level12",
           **res["node_hist_variance"]})
-    torch.cuda.empty_cache()
-    res["subblock_hist_variance"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
-    emit({"phase": "kernels", "kernel": "subblock_hist", **res["subblock_hist_variance"]})
     del inp
     torch.cuda.empty_cache()
     ragged_node_hist_checks(torch, rk, pt, g)
-    # ragged per sub-block: k = 11 with out-of-range bins, nb in {32, 255},
-    # S = 5, odd sub-block counts and sizes
-    for nb_r, r_sub, n_sb in ((32, 24, 1001), (255, 7, 3333)):
-        rows = r_sub * n_sb
-        binq = torch.randint(-2, nb_r + 3, (rows, 11), generator=g, device=dev, dtype=torch.int32)
-        sw = torch.poisson(torch.ones((rows, 5), device=dev), generator=g)
-        emit({"phase": "kernels", "kernel": "subblock_hist", "ragged": True, **check_subblock_hist(
-            torch, rk, {"binq": binq, "sw": sw, "nb": nb_r, "r_sub": r_sub}, 0)})
-    # K6: the 3,000-feature forest's level 12 (k = 55 -> 64, d_pad 4,096)
+    # K6: the 3,000-feature forest's levels (k = 55 -> 64, d_pad 4,096) at
+    # 131,072 rows and at the reference's 1,000,000
     wide = wide_bins(torch, pt, n, g, seed)
-    inp = rf_level_inputs(torch, pt, wide, cls, 12, 8, 55, RF_WIDE_D, g, sel=True)
-    res["subblock_hist_sel"] = check_subblock_hist(torch, rk, inp, reps, control=True, sel=True)
-    emit({"phase": "kernels", "kernel": "subblock_hist_sel", **res["subblock_hist_sel"]})
-    del inp
-    torch.cuda.empty_cache()
-    # ragged K6: n_features == d_pad (the sentinel lies past the row), S = 3
-    r_sub, n_sb, d_r = 40, 333, 200
-    bq = torch.randint(0, 255, (r_sub * n_sb, d_r), generator=g, device=dev, dtype=torch.uint8)
-    featsq = torch.randint(0, d_r + 1, (n_sb, 13), generator=g, device=dev, dtype=torch.int32)
-    sw = torch.poisson(torch.ones((r_sub * n_sb, 3), device=dev), generator=g)
-    emit({"phase": "kernels", "kernel": "subblock_hist_sel", "ragged": True, **check_subblock_hist(
-        torch, rk, {"bq": bq, "featsq": featsq, "sw": sw, "nb": 255, "r_sub": r_sub, "d_pad": d_r}, 0,
-        control=True, sel=True)})
+    res.update(sel_levels(torch, rk, pt, wide, cls, reps, g))
+    ragged_node_hist_sel_checks(torch, rk, pt, g)
     # K9: one transform batch of the bench forest (depth 13: k1 = 7, k2 = 6)
     feat, thr = random_forest(rng, RF_TREES, RF_DEPTH, E2E_D, RF_BINS)
     res["packed_traverse"] = check_packed_traverse(torch, rk, pt, bins, feat, thr, RF_DEPTH, max(reps, 10),
@@ -2178,8 +2230,6 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
                           bootstrap=False)
     res["node_hist_gbt"] = check_node_hist(torch, rk, inp, reps, exact=False, control=True, cpu_bitwise=True)
     emit({"phase": "kernels", "kernel": "node_hist_batched", "shape": "gbt_level7", **res["node_hist_gbt"]})
-    res["subblock_hist_gbt"] = check_subblock_hist(torch, rk, inp, reps, exact=False, control=True)
-    emit({"phase": "kernels", "kernel": "subblock_hist", "shape": "gbt_level7", **res["subblock_hist_gbt"]})
     inp = rf_level_inputs(torch, pt, bins, logit, 0, 1, E2E_D, E2E_D, g, depth=GBT_DEPTH, bootstrap=False)
     res["node_hist_gbt_level0"] = check_node_hist(torch, rk, inp, reps, exact=False, cpu_bitwise=True,
                                                   fold_control=True)
@@ -2767,7 +2817,7 @@ def phase_umap_subset(torch, X_umap, seed, rows):
         check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
 
 
-RF_WRAPPERS = ("node_hist_batched", "subblock_hist", "subblock_hist_sel", "packed_traverse",
+RF_WRAPPERS = ("node_hist_batched", "node_hist_sel_batched", "packed_traverse",
                "packed_byte_gather_many", "packed_byte_gather")
 
 
@@ -2802,8 +2852,10 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     """The forest paths through ``DataFrame``, each with the launch counters
     zeroed just before it and read just after: bench.py's classifier (fit,
     transform, the bins engine, save/load, transform), the regressor on a
-    real-valued label, and the 3,000-feature classifier (fit, transform,
-    the bins engine). Returns {kernel: {path: launches}}."""
+    real-valued label, and the 3,000-feature classifier at the
+    reference's 1,000,000 rows (fit; transform and the bins engine on the
+    first RF_ROWS rows), with its first RF_WIDE_SUBSET_ROWS rows fitted on
+    the card and on the CPU. Returns {kernel: {path: launches}}."""
     import tempfile
 
     from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier, RandomForestRegressor
@@ -2864,11 +2916,13 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     record("rf_regressor", counts, ("node_hist_batched", "packed_traverse"))
     del rmodel, out
 
-    # 3. the reference's 3,000-feature width: K6 selects each node's 55
-    # features from the full rows
+    # 3. the reference's RandomForest benchmark (BASELINE.md:16,26) at its
+    # rows, features, bins and depth, 8 of its 50 trees: K6 picks each
+    # node's 55 features from the full rows; transform and the bins engine
+    # on the first RF_ROWS rows
     g = torch.Generator(device="cuda:0")
     g.manual_seed(seed + 13)
-    Xw = torch.randn((n, RF_WIDE_D), generator=g, device="cuda:0")
+    Xw = torch.randn((RF_WIDE_ROWS, RF_WIDE_D), generator=g, device="cuda:0")
     cols = torch.randperm(RF_WIDE_D, generator=g, device="cuda:0")[:30]
     yw = (Xw[:, cols].sum(dim=1) > 0).float().cpu().numpy()
     Xw = Xw.cpu().numpy()
@@ -2878,19 +2932,61 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     est = RandomForestClassifier(numTrees=RF_SMALL_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=seed)
     wmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": Xw, "label": yw})))
     peak = torch.cuda.max_memory_allocated()
-    out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xw})))
-    t_bins = bins_engine_equal(torch, wmodel, Xw, out, "3,000-feature RandomForestClassifier")
+    fit_counts = _rf_counts(rk)
+    Xt, yt = Xw[:RF_ROWS], yw[:RF_ROWS]
+    out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xt})))
+    t_bins = bins_engine_equal(torch, wmodel, Xt, out, "3,000-feature RandomForestClassifier")
     counts = _rf_counts(rk)
-    acc_w = float((out.column("prediction") == yw).mean())
+    acc_w = float((out.column("prediction") == yt).mean())
     # each node sees 55 of the 3,000 features, about one of the 30 the label
     # depends on: the check is that the forest learned something
     check(acc_w > 0.6, f"3,000-feature RandomForestClassifier training accuracy {acc_w} <= 0.6")
+    # every split level of every tree batch took K6 (a level's slots may go
+    # in chunks: a launch each)
+    check(fit_counts["node_hist_sel_batched"] >= RF_DEPTH,
+          f"3,000-feature fit: {fit_counts['node_hist_sel_batched']} K6 launches for {RF_DEPTH} split levels")
     emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
-          "maxBins": RF_BINS, "rows": n, "d": RF_WIDE_D, "fit_s": t_fit, "transform_s": t_tr,
+          "maxBins": RF_BINS, "rows": RF_WIDE_ROWS, "d": RF_WIDE_D,
+          "reduced": "numTrees 50 -> 8 (the script's time); transform and bins engine on the first "
+                     f"{RF_ROWS} rows", "fit_s": t_fit, "transform_rows": RF_ROWS, "transform_s": t_tr,
           "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc_w,
-          "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report, "launches": counts})
-    record("rf_wide", counts, ("subblock_hist_sel", "packed_traverse", "packed_byte_gather_many"))
+          "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report, "fit_launches": fit_counts,
+          "launches": counts})
+    record("rf_wide", counts, ("node_hist_sel_batched", "packed_traverse", "packed_byte_gather_many"))
+    del wmodel, out
+    record("rf_wide_card_vs_cpu", phase_rf_wide_subset(torch, Xw, yw, seed, RF_WIDE_SUBSET_ROWS),
+           ("node_hist_sel_batched",))
     return by_path
+
+
+def phase_rf_wide_subset(torch, Xw, yw, seed, rows):
+    """The 3,000-feature forest's first ``rows`` rows fitted on the card
+    (K6) and on the CPU (its plain version) with the same draws, 8 trees,
+    depth RF_SUBSET_DEPTH: gini sums are exact integers, so the trees are
+    expected to be equal. Counts the differing nodes and holds the
+    predictions to RF_AGREE_MIN. Returns the launch counts."""
+    from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+
+    df = DataFrame({"features": Xw[:rows], "label": yw[:rows]})
+    _rf_counts(rk, zero=True)
+    fits, secs, preds = {}, {}, {}
+    for dev in ("cuda:0", "cpu"):
+        est = RandomForestClassifier(numTrees=RF_SMALL_TREES, maxDepth=RF_SUBSET_DEPTH, maxBins=RF_BINS,
+                                     seed=seed, device=dev)
+        fits[dev], secs[dev] = _timed(torch, lambda: est.fit(df))
+        preds[dev] = fits[dev].transform(df).column("prediction")
+    counts = _rf_counts(rk)
+    a, b = fits["cuda:0"]._model_attributes, fits["cpu"]._model_attributes
+    differ = int(((a["features"] != b["features"]) | (a["threshold_bins"] != b["threshold_bins"])).sum())
+    agree = float((preds["cuda:0"] == preds["cpu"]).mean())
+    emit({"phase": "subset", "estimator": "RandomForestClassifier", "rows": rows, "d": RF_WIDE_D,
+          "numTrees": RF_SMALL_TREES, "maxDepth": RF_SUBSET_DEPTH, "nodes_differ": differ,
+          "leaf_stats_differ": int((a["leaf_stats"] != b["leaf_stats"]).any(axis=2).sum()),
+          "prediction_agreement": agree, "agreement_min": RF_AGREE_MIN, "fit_s_card": secs["cuda:0"],
+          "fit_s_cpu": secs["cpu"], "fit_report_card": fits["cuda:0"]._fit_report, "launches": counts})
+    check(agree >= RF_AGREE_MIN, f"3,000-feature forest card vs CPU predictions agree on {agree} < {RF_AGREE_MIN}")
+    return counts
 
 
 def phase_gbt_e2e(torch, X_host, y_host, seed):
@@ -3304,15 +3400,41 @@ def sweep_node_hist(torch, rk, inps, reps):
     return out
 
 
+def sweep_node_hist_sel(torch, rk, inp, reps):
+    """K6 per node at one level with parts of its span kernel knocked out
+    (the walk, the row loads, the write: outputs that are not K6's, timed
+    only), at other stage sizes (the bytes a stage of rows holds at 128
+    pairs a block), and with twice the span partials' bound (fewer slot
+    chunks where the bound chunks them)."""
+    a = node_hist_args(inp)
+    fn, stream = rk._sel_launch(), torch.cuda.current_stream().cuda_stream
+    base = (rk._NH_STAGE_BYTES, rk._NH_SCRATCH_MAX)
+    runs = [(base, skip) for skip in (0, 1, 2, 4, 7)]
+    runs += [((stage, base[1]), 0) for stage in (2048, 8192, 16384)] + [((base[0], 2 * base[1]), 0)]
+    out = []
+    try:
+        for (stage, scratch), skip in runs:
+            rk._NH_STAGE_BYTES, rk._NH_SCRATCH_MAX = stage, scratch
+            out.append({"stage_bytes": stage, "scratch_max": scratch, "skip": skip, "ms": cuda_ms(
+                torch, lambda: rk._node_hist_sel_run(*a, inp["feats"], inp["nb"], inp["r_sub"], fn, stream, skip),
+                reps)})
+    finally:
+        rk._NH_STAGE_BYTES, rk._NH_SCRATCH_MAX = base
+    return out
+
+
 def hist_probe(torch, args, dev) -> int:
-    """``--hist-only``: K5's levels alone on the forest rows made from
-    ``--seed``, each timed by CUDA events: (a) one launch of the
-    per-sub-block form at the level's feature-chunk shape, (b) one per-node
-    reduction of its partials, which together were the builder's K5 route
-    (chunks × (a + b) a level), (c) one whole K5-route level of
-    ``_hist_compact_batched`` (layout, gathers, the kernel), (d) one launch
-    of K5 per node, with its span kernel's registers, spills and resident
-    blocks at the level's geometry; ``--sweep`` adds ``sweep_node_hist``."""
+    """``--hist-only``: K5's and K6's levels alone on rows made from
+    ``--seed``, each timed by CUDA events. K5 at the GBT's level 7 and the
+    bench forest's level 12 on the forest rows: one whole K5-route level of
+    ``_hist_compact_batched`` (layout, gathers, the kernel) and one launch
+    of K5 per node (held with its controls, its span kernel's registers,
+    spills and resident blocks at the level's geometry), then the ragged K5
+    cases. K6 at its three timed shapes (``sel_inputs``), held with its
+    controls and timed beside route B and its library calls, and one whole
+    wide-route level of ``_hist_compact_batched``; then the ragged K6
+    cases. ``--sweep`` adds the GBT's levels 0 and 3 and ``sweep_node_hist``,
+    and ``sweep_node_hist_sel`` at K6's three shapes."""
     from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
     from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
 
@@ -3321,7 +3443,8 @@ def hist_probe(torch, args, dev) -> int:
     del X
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed + 7)
-    stats = {"logit": gbt_level_stats(torch, y, g), "cls": torch.nn.functional.one_hot(y.long(), 2).float()}
+    cls = torch.nn.functional.one_hot(y.long(), 2).float()
+    stats = {"logit": gbt_level_stats(torch, y, g), "cls": cls}
     reps = max(args.reps, 10)
     out = {"probe": "node_hist", "package": rk.__file__, "levels": {}}
     kept = {}
@@ -3329,23 +3452,9 @@ def hist_probe(torch, args, dev) -> int:
         inp = rf_level_inputs(torch, pt, bins, stats[kind], level, T, k, E2E_D, g, depth=depth,
                               bootstrap=kind == "cls")
         S, nb, r_sub, n_pad, n_nodes = inp["S"], inp["nb"], inp["r_sub"], inp["n_pad"], inp["n_nodes"]
-        F = inp["hist_src"].shape[-1]
-        chunks = F // inp["f_chunk"]
-        row = {"level": level, "T": T, "F": F, "S": S, "n_pad": n_pad, "r_sub": r_sub, "f_chunk": inp["f_chunk"],
-               "chunks": chunks}
-        row["k5_ms"] = cuda_ms(torch, lambda: rk.subblock_hist(inp["binq"], inp["sw"], n_bins=nb, r_sub=r_sub), reps)
-        partials = rk.subblock_hist(inp["binq"], inp["sw"], n_bins=nb, r_sub=r_sub)
-        sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1), device=dev), inp["counts"].reshape(-1))
-        p2d = partials.reshape(partials.shape[0], -1)
-        row["reduce_ms"] = cuda_ms(
-            torch, lambda: pt._segment_sum(p2d, sb_node, T * (n_nodes + 1), grouped=True), reps)
-        del partials, p2d
+        row = {"level": level, "T": T, "F": inp["hist_src"].shape[-1], "S": S, "n_pad": n_pad, "r_sub": r_sub}
         row["route_ms"] = cuda_ms(torch, lambda: pt._hist_compact_batched(
             inp["hist_src"], inp["seg"], inp["sw_rows"], n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad), reps)
-        row["k5_and_reduce_level_ms"] = chunks * (row["k5_ms"] + row["reduce_ms"])
-        geo = rk.node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, nb, F % 16 == 0)
-        row["attributes"] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
-                                     rk.node_hist_attributes(F % 16 == 0, geo.P, geo.smem)))
         gbt = kind == "logit"
         row["node_hist"] = check_node_hist(torch, rk, inp, reps, exact=not gbt, control=True, cpu_bitwise=gbt,
                                            fold_control=gbt and level == 0)
@@ -3359,6 +3468,20 @@ def hist_probe(torch, args, dev) -> int:
         out["sweep"] = sweep_node_hist(torch, rk, kept, reps)
     del kept
     ragged_node_hist_checks(torch, rk, pt, g)
+    wide = wide_bins(torch, pt, RF_ROWS, g, args.seed)
+    for key, shape, inp in sel_inputs(torch, pt, wide, cls, g):
+        row = {"node_hist_sel": check_node_hist(torch, rk, inp, reps, control=True)}
+        row["route_ms"] = cuda_ms(torch, lambda: pt._hist_compact_batched(
+            None, inp["seg"], inp["sw_rows"], n_nodes=inp["n_nodes"], nb=inp["nb"], r_sub=inp["r_sub"],
+            n_pad=inp["n_pad"], full_bins=inp["hist_src"], feats=inp["feats"]), reps)
+        if args.sweep:
+            row["sweep"] = sweep_node_hist_sel(torch, rk, inp, reps)
+        emit({"probe": "node_hist_sel", "shape": shape, **row})
+        out["levels"][shape] = row
+        del inp
+        torch.cuda.empty_cache()
+    del wide
+    ragged_node_hist_sel_checks(torch, rk, pt, g)
     emit(out)
     return 0
 
@@ -3493,15 +3616,15 @@ def main() -> int:
     ap.add_argument("--kmeans-only", action="store_true",
                     help="a probe: build K2 alone and run only its kernel phase (prints no result line)")
     ap.add_argument("--hist-only", action="store_true",
-                    help="a probe: build K5 alone and time its levels (prints no result line)")
+                    help="a probe: build K5 and K6 alone and time their levels (prints no result line)")
     ap.add_argument("--logreg-only", action="store_true",
                     help="a probe: build K3 alone and time the route, the class-tiled instance and the cluster "
                          "kernel beside the general kernel (prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
-                         "--hist-only: the GBT's levels 0 and 3; with --logreg-only: the general and "
-                         "cluster kernels' knock-outs and the other cluster sizes")
+                         "--hist-only: the GBT's levels 0 and 3 and the knock-outs; with --logreg-only: the "
+                         "general and cluster kernels' knock-outs and the other cluster sizes")
     args = ap.parse_args()
 
     import torch
@@ -3573,6 +3696,11 @@ def main() -> int:
     for name, ok in gates.items():
         check(ok, f"K5 gate {name} failed: " + json.dumps(
             {k: {m: kern[k][m] for m in ("ms", "plain_ms", "library_ms")} for k in NODE_HIST_SHAPES}))
+    gates = node_hist_sel_gates(kern)
+    emit({"phase": "kernels", "kernel": "node_hist_sel_batched", "gates": gates})
+    for name, ok in gates.items():
+        check(ok, f"K6 gate {name} failed: " + json.dumps(
+            {k: {m: kern[k][m] for m in ("ms", "route_b_ms", "library_ms")} for k in NODE_HIST_SEL_SHAPES}))
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
@@ -3637,10 +3765,8 @@ def main() -> int:
         "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk", "knn_topk"),
         "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows", "umap_sgd_epoch"),
         "node_hist_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "node_hist_batched", "rf_hist"),
-        # K5's per-sub-block form: no caller in the builder, its held
-        # measurement, no launches
-        "subblock_hist": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "subblock_hist", "rf_hist"),
-        "subblock_hist_sel": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "subblock_hist_sel", "rf_hist"),
+        # K6 at the 131,072-row level 12 (its other shapes: extra_shapes)
+        "node_hist_sel_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "node_hist_sel_batched", "rf_hist"),
         "packed_traverse": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_traverse", "rf_traverse"),
         "packed_byte_gather_many": ("spark_rapids_ml_tpu/ops/rf_pallas.py:727", "packed_byte_gather_many",
                                     "rf_byte_gather"),
@@ -3660,13 +3786,16 @@ def main() -> int:
             "library_ms": r["library_ms"],
             # K2, K4: the FP32 bound beside bound_ms, the 3xTF32 tensor-core one
             **{k: r[k] for k in ("bound_f32_ms",) if k in r},
+            # K6: route B's time (the subset gather and K5) beside its own
+            **{k: r[k] for k in ("route_b_ms", "sectors_a_row", "launches_a_level") if k in r and name == (
+                "node_hist_sel_batched")},
             # K7/K8: device time and host cost apart, and the routed instance
             **{k: r[k] for k in ("device_ms", "library_device_ms", "host_us", "variant") if k in r and name in (
                 "packed_byte_gather_many", "packed_byte_gather")},
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level", "F",
                                         "n_nodes",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
-                                        "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks")
+                                        "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks", "mode")
                       if k in r},
         }
         kernels.append(entry)
@@ -3708,9 +3837,9 @@ def main() -> int:
              "node_hist_regressor_level12": kern["node_hist_variance"],
              "node_hist_gbt_level7": kern["node_hist_gbt"], "node_hist_gbt_level0": kern["node_hist_gbt_level0"],
              "node_hist_gates": node_hist_gates(kern),
-             "subblock_hist_level2": kern["subblock_hist_level2"],
-             "subblock_hist_variance": kern["subblock_hist_variance"],
-             "subblock_hist_gbt_level7": kern["subblock_hist_gbt"],
+             "node_hist_sel_wide_level2": kern["node_hist_sel_level2"],
+             "node_hist_sel_reference_rows_level12": kern["node_hist_sel_ref"],
+             "node_hist_sel_gates": node_hist_sel_gates(kern),
              "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
              "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"]}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra,

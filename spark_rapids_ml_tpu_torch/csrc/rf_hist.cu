@@ -1,16 +1,31 @@
-// Histograms of the RandomForest builder (kernel K5 in two forms, and K6).
+// Histograms of the RandomForest builder: kernels K5 and K6, per node.
 //
 // Rows arrive sorted by tree node, each node's run padded to a multiple of
 // r_sub rows, so every aligned sub-block of r_sub rows belongs to one node
 // (padding rows carry sw == 0 and any bin).
 //
-// K5, per node (node_hist_launch: what the builder runs). For tree t, node
-// j and stat s, slot f:
+// K5 (node_hist_launch). For tree t, node j and stat s, slot f:
 //   out[t, j, s, f * nb + b] = sum over the padded rows r of node j with
 //                              bins[src2[t, r], f] == b of swq[t, r, s]
 // with bins the builder's uint8 table, shared (n, F) or per tree (T, n, F),
-// read through the sort permutation src2; a bin >= nb adds nothing. Its
-// summation order is fixed: a node's run is cut into spans of a sub-blocks
+// read through the sort permutation src2; a bin >= nb adds nothing.
+// Replaces spark_rapids_ml_tpu/ops/rf_pallas.py::subblock_hist (the
+// pl.pallas_call at rf_pallas.py:190) together with the per-node
+// segment_sum its caller applies (tree_kernels.py:531-545).
+//
+// K6 (node_hist_sel_launch). The same sums with each node's own F feature
+// ids feats[t, j, f] selecting the bytes of the full rows of the shared
+// (n, d_row) table:
+//   bin(r, f) = bins[src2[t, r], feats[t, j, f]], and bin 0 where the id
+//               lies outside [0, d_row) (the sentinel n_features when
+//               n_features == d_row).
+// Replaces ::subblock_hist_sel (:312) together with everything its caller
+// (tree_kernels.py:1163-1172) does around it: the gather of the node-sorted
+// full rows (T * n_pad * d_row bytes written, 6.46 GB at 8 trees of
+// 131,072 rows of 4,096 bytes) that the TPU kernel reads, its dense
+// per-sub-block partials (as many bytes again) and their per-node sum.
+//
+// Summation order (both): a node's run is cut into spans of a sub-blocks
 // (a = max(1, SPAN_ROWS / r_sub), from the node's start); a span sums its
 // rows in row order from +0; a node is the in-order fold of its spans'
 // sums from +0. A node of one span (every node of the deep levels; an empty
@@ -20,162 +35,51 @@
 // plain version's on the CPU (a row-order scatter_add_, then an in-order
 // index_add_ over spans).
 //
-// Replaces spark_rapids_ml_tpu/ops/rf_pallas.py::subblock_hist (the
-// pl.pallas_call at rf_pallas.py:190) together with the per-node
-// segment_sum its caller applies (tree_kernels.py:531-545).
-//
-// What bounds it on an H100: the bytes are the rows read (F bytes each,
-// through src2), the weights, and the node histograms written: 35.8 MB of
-// rows and 67 MB of histograms at the GBT's level 7, where the dense
-// per-sub-block partials (next) wrote 143 MB for every chunk of 32
-// features. Adds are S * F a row, a few hundred million a level; each is a
-// shared-memory read-modify-write of a few instructions, so issue is the
-// other bound (the walk takes half of the GBT's level 7; PERF.md §6).
+// What bounds them on an H100: the bytes are the rows read through src2,
+// the weights and the node histograms written. K5 reads F bytes a row
+// (35.8 MB of rows and 67 MB of histograms at the GBT's level 7). K6 needs
+// only the 32-byte sectors that a row's F selected bytes touch: 43 of the
+// 94 that 3,000 features span at 55 ids (1.8 GB at 8 x 131,072 rows and
+// their padding), beside 2.15 GB of node histograms at 4,096 nodes. Adds are S * F a row;
+// each is a shared-memory read-modify-write of a few instructions, so issue
+// is the other bound (the walk takes half of the GBT's level 7; PERF.md §6).
 //
 // Design. One block per (span, tile of P (slot, stat) pairs, tree), P a
 // multiple of 32 and one thread a pair, pairs in (slot, stat) order so that
-// a tile reads each row's bytes for its slots once. The span's rows are
+// a tile stages each row's bytes for its slots once. The span's rows are
 // staged into shared memory by cp.async, a chunk ahead of the walk, in two
-// stages (each row's window of the tile's slots in aligned 16-byte words
-// where the table allows, and its weights); each thread walks the staged
-// rows in order for its pair, two rows a step (both bins read before
-// either is written; one bin twice adds in row order). The histograms are
-// bin-major, h[b * P + q], so a thread owns one bank and the walk has no
-// bank conflicts whatever the bins; the write goes out through a per-warp
-// transpose of 32 pairs x 16 bins (float4 rows of stride 20 where nb % 16
-// == 0, else scalar rows of stride 17) as 64-byte runs of one pair's
-// bins. The span table (spans past a node's first, partial slots,
-// multi-span nodes, each an exclusive prefix over the nodes) is built on
-// the card by a one-block-a-tree scan, so the grid is sized from bounds and
-// needs no host sync: block x < n_nodes takes node x's first span (no
-// search), the rest the spans past a node's first (a binary search of the
-// table); blocks past a tree's spans exit.
-//
-// K5, per sub-block (subblock_hist_launch; no caller in the builder, kept
-// as K6's instance) and K6 write the whole (S, k * nb) tile of sub-block j:
-//   out[j, s, f * nb + b] = sum over rows r of sub-block j with bin(r, f) == b
-//                           of sw[r, s]
-// for every b in [0, nb), zeros included.
-//   K5 (subblock_hist):     bin(r, f) = binq[r, f], int32 bins gathered
-//                           beforehand; a bin outside [0, nb) adds nothing.
-//   K6 (subblock_hist_sel): bin(r, f) = bq[r, featsq[j, f]], the slot's
-//                           feature id looked up per sub-block and the byte
-//                           read from the full uint8 row; an id outside
-//                           [0, d_pad) (the sentinel n_features when
-//                           n_features == d_pad) gives bin 0.
-// They replace ::subblock_hist and ::subblock_hist_sel (:312), which build
-// each tile as one-hot matrix products on the MXU. Their output is dense
-// although a sub-block of r_sub rows touches at most r_sub of each slot's
-// nb bins, so the partials written are their whole cost. One block per
-// (sub-block, tile of (stat, slot) pairs): the pair p = s * k + f owns the
-// nb floats at out[j, p * nb ...], held in shared memory (at most 8,192
-// floats), zero-filled, then written out whole. One thread per pair walks
-// the sub-block's rows in order and adds sw[r, s] at its bin: no atomics,
-// every bin the sequential row-order sum. The adds are plain f32 adds (no
-// product to contract), exact to IEEE rounding.
+// stages, with their weights. K5 stages each row's window of the tile's
+// slots in aligned 16-byte words where the table allows. A span of K6 lies
+// in one node, so its ids are one set: the block reads them once, and
+// stages for each row the 4-byte word that holds each selected byte, one
+// 4-byte cp.async a slot, a warp on 32 slots of one row, so that the loads
+// of a row coalesce by its sectors and a row costs the sectors its ids
+// touch (staging the window of the row between the tile's least and
+// largest id by 16-byte cp.async, the whole row at 55 random ids of 3,000,
+// took 1.4-2.3x as long on an H100; PERF.md §6); a sentinel slot reads no
+// byte and walks a zero byte. Each thread walks the staged rows in order
+// for its pair, two rows a step (both bins read before either is written;
+// one bin twice adds in row order). The histograms are bin-major, h[b * P + q], so
+// a thread owns one bank and the walk has no bank conflicts whatever the
+// bins; the write goes out through a per-warp transpose of 32 pairs x 16
+// bins (float4 rows of stride 20 where nb % 16 == 0, else scalar rows of
+// stride 17) as 64-byte runs of one pair's bins. The span table (spans past
+// a node's first, partial slots, multi-span nodes, each an exclusive prefix
+// over the nodes) is built on the card by a one-block-a-tree scan, so the
+// grid is sized from bounds and needs no host sync: block x < n_nodes takes
+// node x's first span (no search), the rest the spans past a node's first
+// (a binary search of the table); blocks past a tree's spans exit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
-
-constexpr int THREADS = 128;
-constexpr int TILE_FLOATS = 8192;
-
-template <bool SEL>
-__global__ void __launch_bounds__(THREADS)
-subblock_hist_kernel(const int32_t* __restrict__ binq, const uint8_t* __restrict__ bq,
-                     const int32_t* __restrict__ featsq, const float* __restrict__ sw,
-                     float* __restrict__ out, int r_sub, int k, int nb, int S, int d_pad,
-                     int pairs_per_tile) {
-  extern __shared__ float h[];
-  const int64_t sb = blockIdx.x;
-  const int p0 = blockIdx.y * pairs_per_tile;
-  const int P = min(pairs_per_tile, S * k - p0);
-  const int nfl = P * nb;
-  for (int i = threadIdx.x; i < nfl; i += THREADS) h[i] = 0.f;
-  __syncthreads();
-
-  const int64_t r0 = sb * r_sub;
-  for (int q = threadIdx.x; q < P; q += THREADS) {
-    const int p = p0 + q;
-    const int s = p / k;
-    const int f = p - s * k;
-    float* hq = h + q * nb;
-    int fid = 0;
-    bool in_row = true;
-    if (SEL) {
-      fid = featsq[sb * k + f];
-      in_row = fid >= 0 && fid < d_pad;
-    }
-    for (int j = 0; j < r_sub; ++j) {
-      const int64_t r = r0 + j;
-      int b;
-      if (SEL) {
-        b = in_row ? (int)bq[r * d_pad + fid] : 0;
-      } else {
-        b = binq[r * k + f];
-      }
-      const float w = sw[r * S + s];
-      if (b >= 0 && b < nb) hq[b] += w;
-    }
-  }
-  __syncthreads();
-
-  float* o = out + sb * ((int64_t)S * k * nb) + (int64_t)p0 * nb;
-  for (int i = threadIdx.x; i < nfl; i += THREADS) o[i] = h[i];
-}
-
-template <bool SEL>
-int launch(const int32_t* binq, const uint8_t* bq, const int32_t* featsq, const float* sw,
-           float* out, int64_t n_sb, int r_sub, int k, int nb, int S, int d_pad,
-           cudaStream_t st) {
-  if (n_sb <= 0) return 0;
-  if (r_sub < 1 || k < 1 || nb < 1 || nb > 256 || S < 1 || n_sb > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const int pairs = S * k;
-  const int per_tile = min(pairs, TILE_FLOATS / nb);
-  const int n_tiles = (pairs + per_tile - 1) / per_tile;
-  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)per_tile * nb * sizeof(float);
-  dim3 grid((unsigned)n_sb, (unsigned)n_tiles);
-  subblock_hist_kernel<SEL><<<grid, THREADS, smem, st>>>(binq, bq, featsq, sw, out, r_sub, k,
-                                                         nb, S, d_pad, per_tile);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// K5. binq (n_sb * r_sub, k) int32, sw (n_sb * r_sub, S) f32, out
-// (n_sb, S, k * nb) f32; all contiguous.
-extern "C" int subblock_hist_launch(const int32_t* binq, const float* sw, float* out,
-                                    int64_t n_sb, int r_sub, int k, int nb, int S,
-                                    void* stream) {
-  return launch<false>(binq, nullptr, nullptr, sw, out, n_sb, r_sub, k, nb, S, 0,
-                       static_cast<cudaStream_t>(stream));
-}
-
-// K6. bq (n_sb * r_sub, d_pad) uint8, featsq (n_sb, k) int32, sw
-// (n_sb * r_sub, S) f32, out (n_sb, S, k * nb) f32; all contiguous.
-extern "C" int subblock_hist_sel_launch(const uint8_t* bq, const int32_t* featsq,
-                                        const float* sw, float* out, int64_t n_sb, int r_sub,
-                                        int k, int nb, int S, int d_pad, void* stream) {
-  if (d_pad < 1) return (int)cudaErrorInvalidValue;
-  return launch<true>(nullptr, bq, featsq, sw, out, n_sb, r_sub, k, nb, S, d_pad,
-                      static_cast<cudaStream_t>(stream));
-}
-
-// ---------------------------------------------------------------------------
-// K5, per node
-// ---------------------------------------------------------------------------
-
-// K5 per node: a launch's sizes, as _NodeHistPlan in ops/rf_kernels.py (its
-// geometry). At namespace scope: the C entry point takes it.
+// A launch's sizes, as _NodeHistPlan in ops/rf_kernels.py (its
+// geometry). At namespace scope: the C entry points take it.
 struct NodeHistPlan {
   int64_t n_pad;        // padded rows of a tree
   int64_t tree_stride;  // bins entries between trees (0: one shared table)
   int64_t part_slots;   // span partial slots of a tree
-  int F;                // slots of a row of bins
+  int F;                // slots of a histogram row (K5: also the bytes of a row of bins)
   int S;                // stats
   int nb;               // bins
   int r_sub;            // rows a sub-block
@@ -192,9 +96,10 @@ struct NodeHistPlan {
   int spans;            // bound on a tree's spans (grid x)
   int multi;            // bound on a tree's multi-span nodes (fold grid x)
   int smem;             // dynamic shared memory a block
-  int vec;              // rows read as aligned 16-byte words
+  int vec;              // K5: rows staged as aligned 16-byte words (else bytes)
   int skip;             // the probe's knock-outs, 0 on every path: 1 the walk,
-                        // 2 the row loads (16-byte instance), 4 the write
+                        // 2 the row loads (cp.async instances), 4 the write
+  int d_row;            // bytes a row of bins (K6; K5: F)
 };
 
 namespace {
@@ -293,12 +198,68 @@ struct Stage {
   float* w;
 };
 
+// The block's span: node j's i-th, its padded rows [row_begin, row_end),
+// and whether it is the node's only one (written straight to out).
+struct Span {
+  int j, i;
+  int64_t row_begin, row_end;
+  bool direct;
+};
+
+// Block x of tree t: span x < n_nodes is node x's first; span n_nodes + y
+// is the y-th of the spans past a node's first, node j holding those from
+// extra_cum[j]. False for a block past the tree's spans.
+__device__ __forceinline__ bool find_span(const int64_t* pstart, const int32_t* extra_cum, const NodeHistPlan& pl,
+                                          int t, int u, Span& sp) {
+  const int nn = pl.n_nodes;
+  int j = u, i = 0;
+  if (u >= nn) {
+    const int x = u - nn;
+    if (x >= extra_cum[nn]) return false;
+    int lo = 0, hi = nn - 1;  // the last j with extra_cum[j] <= x
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (extra_cum[mid] <= x) lo = mid; else hi = mid - 1;
+    }
+    j = lo;
+    i = 1 + x - extra_cum[j];
+  }
+  const int64_t* ps = pstart + (int64_t)t * (nn + 1);
+  const int64_t sb0 = ps[j] / pl.r_sub;
+  const int64_t c = node_subblocks(ps, j, pl.r_sub);
+  sp.j = j;
+  sp.i = i;
+  sp.direct = node_span_count(c, pl.a) == 1;
+  sp.row_begin = (sb0 + (int64_t)i * pl.a) * pl.r_sub;
+  sp.row_end = (sb0 + min64(c, (int64_t)(i + 1) * pl.a)) * pl.r_sub;
+  return true;
+}
+
+// The block's tile of pairs p = fl * S + s over the launch's slots fl in
+// [0, fc): [p0, pend); its slots fa..fb; the stats a staged row holds (all
+// S, or sa..sa + ns - 1 where the tile lies in one slot).
+struct Tile {
+  int p0, pend, fa, fb, sa, ns;
+};
+
+__device__ __forceinline__ Tile tile_of(const NodeHistPlan& pl) {
+  Tile tl;
+  tl.p0 = blockIdx.y * pl.P;
+  tl.pend = min(pl.fc * pl.S, tl.p0 + pl.P);
+  tl.fa = tl.p0 / pl.S;
+  tl.fb = (tl.pend - 1) / pl.S;
+  tl.sa = tl.fa == tl.fb ? tl.p0 - tl.fa * pl.S : 0;
+  tl.ns = tl.fa == tl.fb ? tl.pend - tl.p0 : pl.S;
+  return tl;
+}
+
 // Walks a staged chunk of nr rows for the thread's pair: h[b * P] is its
 // column; bp and wp its byte and weight in the chunk's first row, pitch
-// and ns bytes and floats apart. Two rows a step, the next step's bins and
-// weights read before this step's adds (reading up to two rows past the
-// chunk, inside the stages: values never used); both bins read before
-// either is written, a bin met twice adding in row order.
+// and ns bytes and floats apart (pitch 0: one byte for every row). Two rows
+// a step, the next step's bins and weights read before this step's adds
+// (reading up to two rows past the chunk, inside the block's shared
+// memory: values never used); both bins read before either is written, a
+// bin met twice adding in row order.
 __device__ __forceinline__ void walk_rows(float* h, int P, int nb, const unsigned char* bp, const float* wp,
                                           int pitch, int ns, int nr) {
   int b1 = bp[0], b2 = bp[pitch];
@@ -328,6 +289,79 @@ __device__ __forceinline__ void walk_rows(float* h, int P, int nb, const unsigne
   if (rr < nr && b1 < nb) h[b1 * P] = __fadd_rn(h[b1 * P], w1);
 }
 
+// The span's sums h (nb, P), pairs [p0, pend), out to the node's histogram
+// (a direct span) or to its partial slot, 64 bytes of one pair's bins at a
+// time through a per-warp transpose in tb (the stages, walked by now).
+__device__ __forceinline__ void write_span(const float* h, float* tb0, float* out, float* parts,
+                                           const int32_t* extra_cum, const NodeHistPlan& pl, int t, const Span& sp,
+                                           const Tile& tl) {
+  const int nn = pl.n_nodes;
+  float* dst;
+  int64_t ld_s;
+  int f_base;
+  if (sp.direct) {
+    dst = out + ((int64_t)t * nn + sp.j) * ((int64_t)pl.S * pl.F * pl.nb);
+    ld_s = (int64_t)pl.F * pl.nb;
+    f_base = 0;
+  } else {
+    const int32_t* part_cum = extra_cum + (nn + 1);
+    dst = parts + ((int64_t)t * pl.part_slots + part_cum[sp.j] + sp.i) * ((int64_t)pl.S * pl.fc * pl.nb);
+    ld_s = (int64_t)pl.fc * pl.nb;
+    f_base = pl.f_lo;
+  }
+  const int p = tl.p0 + threadIdx.x;
+  const bool mine = p < tl.pend;
+  const int fq = p / pl.S, sq = p - fq * pl.S;
+  const long long my_off = mine ? sq * ld_s + (int64_t)(pl.f_lo + fq - f_base) * pl.nb : 0;
+  const int lane = threadIdx.x & 31, qw = threadIdx.x & ~31;
+  const int warp_pairs = min(32, tl.pend - tl.p0 - qw);  // the same for the whole warp
+  if (warp_pairs <= 0) return;
+  const float* hq = h + qw + lane;
+  if (pl.nb % 16 == 0) {
+    // 32 pairs x 16 bins a step through rows of TB4_STRIDE floats: lane l
+    // writes its pair's bins as four float4 (conflict-free: a quarter warp's
+    // rows start 20 banks apart); then a quarter warp reads rows r and r + 4
+    // (conflict-free) and each four lanes store one pair's 64 bytes
+    float* tb = tb0 + qw * TB4_STRIDE;
+    const int c4 = lane & 3, r_in = (lane >> 3) + 4 * ((lane >> 2) & 1);
+    for (int b0 = 0; b0 < pl.nb; b0 += 16) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float* hk = hq + (b0 + 4 * k) * pl.P;
+        *reinterpret_cast<float4*>(tb + lane * TB4_STRIDE + 4 * k) =
+            make_float4(hk[0], hk[pl.P], hk[2 * pl.P], hk[3 * pl.P]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < 32; m += 8) {
+        const int row = m + r_in;
+        const long long off = __shfl_sync(0xffffffffu, my_off, row);
+        if (row < warp_pairs)
+          *reinterpret_cast<float4*>(dst + off + b0 + 4 * c4) =
+              *reinterpret_cast<const float4*>(tb + row * TB4_STRIDE + 4 * c4);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  float* tb = tb0 + qw * TB_STRIDE;
+  for (int b0 = 0; b0 < pl.nb; b0 += 16) {
+    // lane l: pair qw + l, bins b0 .. b0 + 15 into row l
+#pragma unroll
+    for (int k = 0; k < 16; ++k) tb[lane * TB_STRIDE + k] = b0 + k < pl.nb ? hq[(b0 + k) * pl.P] : 0.f;
+    __syncwarp();
+    // two pairs a step: lanes 0-15 row k, lanes 16-31 row k + 1
+    const int b = b0 + (lane & 15);
+#pragma unroll
+    for (int k = 0; k < 32; k += 2) {
+      const int row = k + (lane >> 4);
+      const long long off = __shfl_sync(0xffffffffu, my_off, row);
+      if (row < warp_pairs && b < pl.nb) dst[off + b] = tb[row * TB_STRIDE + (lane & 15)];
+    }
+    __syncwarp();
+  }
+}
+
 template <bool VEC>
 __global__ void __launch_bounds__(NH_MAX_THREADS)
 node_hist_kernel(const uint8_t* __restrict__ bins, const int64_t* __restrict__ src2,
@@ -335,40 +369,15 @@ node_hist_kernel(const uint8_t* __restrict__ bins, const int64_t* __restrict__ s
                  const int32_t* __restrict__ tabs, float* __restrict__ out, float* __restrict__ parts,
                  const NodeHistPlan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nn = pl.n_nodes;
   const int t = blockIdx.z;
-  const int u = blockIdx.x;
-  // span u < n_nodes is node u's first; span n_nodes + x is the x-th of the
-  // spans past a node's first, node j holding those from extra_cum[j]
-  const int32_t* extra_cum = tabs + (int64_t)t * 3 * (nn + 1);
-  int j = u, i = 0;
-  if (u >= nn) {
-    const int x = u - nn;
-    if (x >= extra_cum[nn]) return;
-    int lo = 0, hi = nn - 1;  // the last j with extra_cum[j] <= x
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (extra_cum[mid] <= x) lo = mid; else hi = mid - 1;
-    }
-    j = lo;
-    i = 1 + x - extra_cum[j];
-  }
-  const int64_t* ps = pstart + (int64_t)t * (nn + 1);
-  const int64_t sb0 = ps[j] / pl.r_sub;
-  const int64_t c = node_subblocks(ps, j, pl.r_sub);
-  const bool direct = node_span_count(c, pl.a) == 1;
-  const int64_t row_begin = (sb0 + (int64_t)i * pl.a) * pl.r_sub;
-  const int64_t row_end = (sb0 + min64(c, (int64_t)(i + 1) * pl.a)) * pl.r_sub;
-
-  // the tile's pairs p = fl * S + s over the launch's slots fl in [0, fc)
-  const int pairs = pl.fc * pl.S;
-  const int p0 = blockIdx.y * pl.P;
-  const int pend = min(pairs, p0 + pl.P);
-  const int fa = p0 / pl.S, fb = (pend - 1) / pl.S;
-  const int sa = fa == fb ? p0 - fa * pl.S : 0;
-  const int ns = fa == fb ? pend - p0 : pl.S;
+  const int32_t* extra_cum = tabs + (int64_t)t * 3 * (pl.n_nodes + 1);
+  Span sp;
+  if (!find_span(pstart, extra_cum, pl, t, blockIdx.x, sp)) return;
+  const int64_t row_begin = sp.row_begin, row_end = sp.row_end;
+  const Tile tl = tile_of(pl);
+  const int sa = tl.sa, ns = tl.ns;
   // each staged row holds the row's bytes [w0, w0 + wn)
-  int w0 = pl.f_lo + fa, wn = fb - fa + 1;
+  int w0 = pl.f_lo + tl.fa, wn = tl.fb - tl.fa + 1;
   if (VEC) {
     const int w1 = min(pl.F, (w0 + wn + 15) & ~15);
     w0 &= ~15;
@@ -388,8 +397,8 @@ node_hist_kernel(const uint8_t* __restrict__ bins, const int64_t* __restrict__ s
   };
 
   const int q = threadIdx.x;
-  const int p = p0 + q;
-  const bool mine = p < pend;
+  const int p = tl.p0 + q;
+  const bool mine = p < tl.pend;
   const int fq = p / pl.S;
   const int sq = p - fq * pl.S;
   const int boff = pl.f_lo + fq - w0;
@@ -467,70 +476,116 @@ node_hist_kernel(const uint8_t* __restrict__ bins, const int64_t* __restrict__ s
     }
   }
   __syncthreads();  // the stages hold the transpose rows from here
-
-  // the span's sums: straight into the node's histogram, or a partial
-  float* dst;
-  int64_t ld_s;
-  int f_base;
-  if (direct) {
-    dst = out + ((int64_t)t * nn + j) * ((int64_t)pl.S * pl.F * pl.nb);
-    ld_s = (int64_t)pl.F * pl.nb;
-    f_base = 0;
-  } else {
-    const int32_t* part_cum = extra_cum + (nn + 1);
-    dst = parts + ((int64_t)t * pl.part_slots + part_cum[j] + i) * ((int64_t)pl.S * pl.fc * pl.nb);
-    ld_s = (int64_t)pl.fc * pl.nb;
-    f_base = pl.f_lo;
-  }
-  const long long my_off = mine ? sq * ld_s + (int64_t)(pl.f_lo + fq - f_base) * pl.nb : 0;
   if (pl.skip & 4) return;
-  const int lane = threadIdx.x & 31, qw = threadIdx.x & ~31;
-  const int warp_pairs = min(32, pend - p0 - qw);  // the same for the whole warp
-  if (warp_pairs <= 0) return;
-  const float* hq = h + qw + lane;
-  if (pl.nb % 16 == 0) {
-    // 32 pairs x 16 bins a step through rows of TB4_STRIDE floats: lane l
-    // writes its pair's bins as four float4 (conflict-free: a quarter warp's
-    // rows start 20 banks apart); then a quarter warp reads rows r and r + 4
-    // (conflict-free) and each four lanes store one pair's 64 bytes
-    float* tb = reinterpret_cast<float*>(stage0) + qw * TB4_STRIDE;
-    const int c4 = lane & 3, r_in = (lane >> 3) + 4 * ((lane >> 2) & 1);
-    for (int b0 = 0; b0 < pl.nb; b0 += 16) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float* hk = hq + (b0 + 4 * k) * pl.P;
-        *reinterpret_cast<float4*>(tb + lane * TB4_STRIDE + 4 * k) =
-            make_float4(hk[0], hk[pl.P], hk[2 * pl.P], hk[3 * pl.P]);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int m = 0; m < 32; m += 8) {
-        const int row = m + r_in;
-        const long long off = __shfl_sync(0xffffffffu, my_off, row);
-        if (row < warp_pairs)
-          *reinterpret_cast<float4*>(dst + off + b0 + 4 * c4) =
-              *reinterpret_cast<const float4*>(tb + row * TB4_STRIDE + 4 * c4);
-      }
-      __syncwarp();
-    }
-    return;
+  write_span(h, reinterpret_cast<float*>(stage0), out, parts, extra_cum, pl, t, sp, tl);
+}
+
+// K6's span kernel: K5's, with each staged row built from the 4-byte word
+// of each of the node's selected bytes. Shared memory past the stages and
+// the src2 entries: the row offset each staged word is read from (nfm
+// ints), 16 zero bytes (a sentinel slot's bin), and two rows of slack for
+// the walk's reads past the last stage.
+__global__ void __launch_bounds__(NH_MAX_THREADS)
+node_hist_sel_kernel(const uint8_t* __restrict__ bins, const int64_t* __restrict__ src2,
+                     const float* __restrict__ swq, const int64_t* __restrict__ pstart,
+                     const int32_t* __restrict__ feats, const int32_t* __restrict__ tabs,
+                     float* __restrict__ out, float* __restrict__ parts, const NodeHistPlan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nn = pl.n_nodes;
+  const int t = blockIdx.z;
+  const int32_t* extra_cum = tabs + (int64_t)t * 3 * (nn + 1);
+  Span sp;
+  if (!find_span(pstart, extra_cum, pl, t, blockIdx.x, sp)) return;
+  const Tile tl = tile_of(pl);
+  const int sa = tl.sa, ns = tl.ns;
+  const int nf = tl.fb - tl.fa + 1;  // slots the tile stages
+  const int nfm = min(pl.fc, (pl.P - 1) / pl.S + 2);
+
+  float* h = reinterpret_cast<float*>(smem);
+  unsigned char* stage0 = smem + (size_t)pl.nb * pl.P * sizeof(float);
+  const int stage_bytes = (pl.rows * (pl.pitch + 4 * pl.ns) + 15) & ~15;
+  const int stages_bytes = max(2 * stage_bytes, TB4_STRIDE * 4 * pl.P);
+  int64_t* srcbuf = reinterpret_cast<int64_t*>(stage0 + stages_bytes);
+  int* roff = reinterpret_cast<int*>(srcbuf + 2 * pl.rows);
+  unsigned char* zero = reinterpret_cast<unsigned char*>(roff + ((nfm + 3) & ~3));
+  auto stage = [&](int k) {
+    unsigned char* b = stage0 + k * stage_bytes;
+    return Stage{b, reinterpret_cast<float*>(b + pl.rows * pl.pitch)};
+  };
+
+  // the node's ids of the tile's slots, once: the word each staged word is
+  // read from, -1 for a sentinel
+  const int32_t* ids = feats + ((int64_t)t * nn + sp.j) * pl.F + pl.f_lo + tl.fa;
+  if (threadIdx.x < 16) zero[threadIdx.x] = 0;
+  for (int k = threadIdx.x; k < nf; k += blockDim.x) {
+    const int id = ids[k];
+    roff[k] = id >= 0 && id < pl.d_row ? (id & ~3) : -1;
   }
-  float* tb = reinterpret_cast<float*>(stage0) + qw * TB_STRIDE;
-  for (int b0 = 0; b0 < pl.nb; b0 += 16) {
-    // lane l: pair qw + l, bins b0 .. b0 + 15 into row l
-#pragma unroll
-    for (int k = 0; k < 16; ++k) tb[lane * TB_STRIDE + k] = b0 + k < pl.nb ? hq[(b0 + k) * pl.P] : 0.f;
-    __syncwarp();
-    // two pairs a step: lanes 0-15 row k, lanes 16-31 row k + 1
-    const int b = b0 + (lane & 15);
-#pragma unroll
-    for (int k = 0; k < 32; k += 2) {
-      const int row = k + (lane >> 4);
-      const long long off = __shfl_sync(0xffffffffu, my_off, row);
-      if (row < warp_pairs && b < pl.nb) dst[off + b] = tb[row * TB_STRIDE + (lane & 15)];
+  const int q = threadIdx.x;
+  const int p = tl.p0 + q;
+  const bool mine = p < tl.pend;
+  const int fq = p / pl.S;
+  const int sq = p - fq * pl.S;
+  const int my_id = mine ? ids[fq - tl.fa] : -1;
+  const bool sentinel = my_id < 0 || my_id >= pl.d_row;
+  const int woff = sq - sa;
+  for (int e = threadIdx.x; e < pl.nb * pl.P / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(h)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int boff = 4 * (fq - tl.fa) + (my_id & 3);
+  const int bpitch = sentinel ? 0 : pl.pitch;
+
+  const int64_t tr = (int64_t)t * pl.n_pad;
+  const int chunks = (int)((sp.row_end - sp.row_begin + pl.rows - 1) / pl.rows);
+  auto chunk_rows = [&](int k) { return (int)min64(pl.rows, sp.row_end - sp.row_begin - (int64_t)k * pl.rows); };
+  // chunk k's src2 entries into srcbuf[k & 1], then (once they are in) its
+  // rows and weights into stage k & 1: cp.async, one chunk ahead of the walk
+  auto issue_src = [&](int k) {
+    if (pl.skip & 2) return;
+    const int64_t r0 = sp.row_begin + (int64_t)k * pl.rows;
+    for (int e = threadIdx.x; e < chunk_rows(k); e += blockDim.x)
+      cp_async8(srcbuf + (k & 1) * pl.rows + e, src2 + tr + r0 + e);
+  };
+  auto issue_rows = [&](int k) {
+    if (pl.skip & 2) return;
+    const int64_t r0 = sp.row_begin + (int64_t)k * pl.rows;
+    const int nr = chunk_rows(k);
+    const Stage st = stage(k & 1);
+    const int64_t* sb = srcbuf + (k & 1) * pl.rows;
+    // a warp on consecutive slots of one row: its loads coalesce by sector
+    for (int e = threadIdx.x; e < nr * nf; e += blockDim.x) {
+      const int rr = e / nf, kk = e - rr * nf;
+      const int o = roff[kk];
+      if (o >= 0) cp_async4(st.bytes + rr * pl.pitch + 4 * kk, bins + sb[rr] * pl.d_row + o);
     }
-    __syncwarp();
+    for (int e = threadIdx.x; e < nr * ns; e += blockDim.x) {
+      const int rr = e / ns, kk = e - rr * ns;
+      cp_async4(st.w + rr * ns + kk, swq + (tr + r0 + rr) * pl.S + sa + kk);
+    }
+  };
+  if (chunks > 0) {
+    issue_src(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    issue_rows(0);
+    if (chunks > 1) issue_src(1);
+    cp_async_commit();
   }
+  for (int k = 0; k < chunks; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk k and chunk k + 1's src2 are in; chunk k - 1 is walked
+    if (k + 1 < chunks) {
+      issue_rows(k + 1);
+      if (k + 2 < chunks) issue_src(k + 2);
+      cp_async_commit();
+    }
+    const Stage st = stage(k & 1);
+    if (mine && !(pl.skip & 1))
+      walk_rows(h + q, pl.P, pl.nb, sentinel ? zero : st.bytes + boff, st.w + woff, bpitch, ns, chunk_rows(k));
+  }
+  __syncthreads();  // the stages hold the transpose rows from here
+  if (pl.skip & 4) return;
+  write_span(h, reinterpret_cast<float*>(stage0), out, parts, extra_cum, pl, t, sp, tl);
 }
 
 // out[t, j] of every multi-span node j: its spans' partials folded in
@@ -567,15 +622,51 @@ node_fold_kernel(const int64_t* __restrict__ pstart, const int32_t* __restrict__
   }
 }
 
-template <bool VEC>
-int node_hist_set_smem(int smem) {
-  // the largest dynamic shared memory asked of this instance so far
-  static int granted = 48 << 10;
+// The span kernel of an instance, with the largest dynamic shared memory
+// granted to it so far (one static a template instance).
+template <typename Kernel>
+int set_smem(Kernel kernel, int smem, int& granted) {
   if (smem <= granted) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(node_hist_kernel<VEC>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) granted = smem;
   return (int)e;
+}
+
+template <bool VEC>
+int node_hist_set_smem(int smem) {
+  static int granted = 48 << 10;
+  return set_smem(node_hist_kernel<VEC>, smem, granted);
+}
+
+int node_hist_sel_set_smem(int smem) {
+  static int granted = 48 << 10;
+  return set_smem(node_hist_sel_kernel, smem, granted);
+}
+
+bool plan_ok(const NodeHistPlan& pl) {
+  return !(pl.T < 1 || pl.T > 65535 || pl.n_nodes < 1 || pl.S < 1 || pl.nb < 1 || pl.nb > 256 || pl.r_sub < 1 ||
+           pl.a < 1 || pl.fc < 1 || pl.f_lo < 0 || pl.f_lo + pl.fc > pl.F || pl.P < 32 || pl.P % 32 ||
+           pl.P > NH_MAX_THREADS || pl.rows < 1 || pl.pitch % 16 || pl.tiles < 1 || pl.tiles > 65535 ||
+           pl.spans < 1 || pl.multi < 0 || pl.smem > 232448 || pl.d_row < 1);
+}
+
+// The span table (when table != 0) before a level's first span launch;
+// the fold after a span launch where a node can have more than one span.
+int launch_table(const int64_t* pstart, int32_t* tabs, const NodeHistPlan& pl, int table, cudaStream_t st) {
+  if (!table) return 0;
+  node_span_table_kernel<<<pl.T, TAB_THREADS, 0, st>>>(pstart, tabs, pl);
+  return (int)cudaGetLastError();
+}
+
+int launch_fold(const int64_t* pstart, const int32_t* tabs, const float* parts, float* out, const NodeHistPlan& pl,
+                cudaStream_t st) {
+  if (pl.multi == 0) return 0;
+  const int64_t width = (int64_t)pl.S * pl.fc * pl.nb;
+  const int64_t chunks = (width + FOLD_THREADS * FOLD_PER_THREAD - 1) / (FOLD_THREADS * FOLD_PER_THREAD);
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  node_fold_kernel<<<dim3((unsigned)pl.multi, (unsigned)chunks, (unsigned)pl.T), FOLD_THREADS, 0, st>>>(
+      pstart, tabs, parts, out, pl);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -591,48 +682,55 @@ extern "C" int node_hist_launch(const uint8_t* bins, const int64_t* src2, const 
                                 const NodeHistPlan* plan, int table, void* stream) {
   const NodeHistPlan pl = *plan;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pl.T < 1 || pl.T > 65535 || pl.n_nodes < 1 || pl.S < 1 || pl.nb < 1 || pl.nb > 256 || pl.r_sub < 1 ||
-      pl.a < 1 || pl.fc < 1 || pl.f_lo < 0 || pl.f_lo + pl.fc > pl.F || pl.P < 32 || pl.P % 32 ||
-      pl.P > NH_MAX_THREADS || pl.rows < 1 || pl.pitch % 16 || pl.tiles < 1 || pl.tiles > 65535 ||
-      pl.spans < 1 || pl.multi < 0 || pl.smem > 232448 ||
-      (pl.vec && pl.F % 16))
-    return (int)cudaErrorInvalidValue;
-  if (table) {
-    node_span_table_kernel<<<pl.T, TAB_THREADS, 0, st>>>(pstart, tabs, pl);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (!plan_ok(pl) || pl.vec < 0 || pl.vec > 1 || (pl.vec && pl.F % 16)) return (int)cudaErrorInvalidValue;
+  int e = launch_table(pstart, tabs, pl, table, st);
+  if (e) return e;
   const dim3 grid((unsigned)pl.spans, (unsigned)pl.tiles, (unsigned)pl.T);
-  int e = pl.vec ? node_hist_set_smem<true>(pl.smem) : node_hist_set_smem<false>(pl.smem);
+  e = pl.vec ? node_hist_set_smem<true>(pl.smem) : node_hist_set_smem<false>(pl.smem);
   if (e) return e;
   if (pl.vec)
     node_hist_kernel<true><<<grid, pl.P, pl.smem, st>>>(bins, src2, swq, pstart, tabs, out, parts, pl);
   else
     node_hist_kernel<false><<<grid, pl.P, pl.smem, st>>>(bins, src2, swq, pstart, tabs, out, parts, pl);
   e = (int)cudaGetLastError();
-  if (e || pl.multi == 0) return e;
-  const int64_t width = (int64_t)pl.S * pl.fc * pl.nb;
-  const int64_t chunks = (width + FOLD_THREADS * FOLD_PER_THREAD - 1) / (FOLD_THREADS * FOLD_PER_THREAD);
-  if (chunks > 65535) return (int)cudaErrorInvalidValue;
-  node_fold_kernel<<<dim3((unsigned)pl.multi, (unsigned)chunks, (unsigned)pl.T), FOLD_THREADS, 0, st>>>(
-      pstart, tabs, parts, out, pl);
-  return (int)cudaGetLastError();
+  return e ? e : launch_fold(pstart, tabs, parts, out, pl, st);
 }
 
-// The span kernel's registers, local (spill) bytes a thread and resident
-// blocks an SM at P threads and smem bytes (vec: the 16-byte row instance).
-extern "C" int node_hist_attributes(int vec, int P, int smem, int* regs, int* local_bytes, int* blocks) {
+// K6 per node. bins (n, d_row) uint8 shared by the trees, 4-byte aligned
+// with d_row % 4 == 0, feats (T, n_nodes, F) int32 the nodes' ids, the
+// rest as node_hist_launch.
+extern "C" int node_hist_sel_launch(const uint8_t* bins, const int64_t* src2, const float* swq,
+                                    const int64_t* pstart, const int32_t* feats, float* out, int32_t* tabs,
+                                    float* parts, const NodeHistPlan* plan, int table, void* stream) {
+  const NodeHistPlan pl = *plan;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(bins);
+  if (!plan_ok(pl) || pl.tree_stride || pl.d_row % 4 || base % 4) return (int)cudaErrorInvalidValue;
+  int e = launch_table(pstart, tabs, pl, table, st);
+  if (e) return e;
+  const dim3 grid((unsigned)pl.spans, (unsigned)pl.tiles, (unsigned)pl.T);
+  e = node_hist_sel_set_smem(pl.smem);
+  if (e) return e;
+  node_hist_sel_kernel<<<grid, pl.P, pl.smem, st>>>(bins, src2, swq, pstart, feats, tabs, out, parts, pl);
+  e = (int)cudaGetLastError();
+  return e ? e : launch_fold(pstart, tabs, parts, out, pl, st);
+}
+
+// A span kernel's registers, local (spill) bytes a thread and resident
+// blocks an SM at P threads and smem bytes: K5 (sel 0; vec: its 16-byte
+// row instance) or K6 (sel 1).
+extern "C" int node_hist_attributes(int sel, int vec, int P, int smem, int* regs, int* local_bytes, int* blocks) {
   cudaFuncAttributes fa;
-  cudaError_t e = vec ? cudaFuncGetAttributes(&fa, node_hist_kernel<true>)
-                      : cudaFuncGetAttributes(&fa, node_hist_kernel<false>);
+  const void* k = sel ? (const void*)node_hist_sel_kernel
+                      : (vec ? (const void*)node_hist_kernel<true> : (const void*)node_hist_kernel<false>);
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
   if (e != cudaSuccess) return (int)e;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
-  const int se = vec ? node_hist_set_smem<true>(smem) : node_hist_set_smem<false>(smem);
+  const int se = sel ? node_hist_sel_set_smem(smem)
+                     : (vec ? node_hist_set_smem<true>(smem) : node_hist_set_smem<false>(smem));
   if (se) return se;
-  e = vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, node_hist_kernel<true>, P, smem)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, node_hist_kernel<false>, P, smem);
-  return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, P, smem);
 }
 
 extern "C" const char* kernel_error_string(int code) {

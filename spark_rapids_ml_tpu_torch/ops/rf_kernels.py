@@ -1,11 +1,14 @@
 """RandomForest kernels of the port (counterpart of
 ``spark_rapids_ml_tpu/ops/rf_pallas.py``): the per-node histogram of a
-compact level (K5, with the per-node fold its caller applies), the
-per-sub-block histogram (K5's TPU form; no caller in the builder) and its
-fused-selection variant (K6), the packed-byte gather (K8, and K7, its
-single-index-set form) and the packed-forest hop-2 traversal (K9), each a
-CUDA kernel (``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``,
-``csrc/rf_traverse.cu``) beside its plain PyTorch version.
+compact level (K5, with the per-node fold its caller applies) and its
+fused-selection form (K6, each node's columns picked from the full rows),
+the packed-byte gather (K8, and K7, its single-index-set form) and the
+packed-forest hop-2 traversal (K9), each a CUDA kernel
+(``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``, ``csrc/rf_traverse.cu``)
+beside its plain PyTorch version. The TPU's per-sub-block forms of K5 and
+K6 keep their plain versions (``subblock_hist_plain``,
+``subblock_hist_sel_plain``), which the CPU tests hold against the JAX
+package's Pallas kernels.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the wrapper raises. Each wrapper counts its launches in ``.launches``.
@@ -70,15 +73,17 @@ def _check_hist_shapes(name: str, rows: int, sw: torch.Tensor, n_bins: int, r_su
 
 
 # ---------------------------------------------------------------------------
-# K5 / K6: per-sub-block histograms
+# K5 / K6: per-node histograms of a compact level
 # ---------------------------------------------------------------------------
 
 
 def subblock_hist_plain(binq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int) -> torch.Tensor:
-    """Plain version of K5: one ``scatter_add_`` on the flattened
-    (sub-block, s, slot·nb + bin) index, in ``sw``'s dtype (f64 for the
-    on-card check). On the CPU the scatter visits rows in order, so every
-    bin is the sequential row-order sum the kernel computes."""
+    """K5 as the TPU computes it, per sub-block (no kernel on the card: the
+    builder's K5 folds the sub-blocks per node): one ``scatter_add_`` on the
+    flattened (sub-block, s, slot·nb + bin) index. ``binq`` (rows, k) int32
+    bins, ``sw`` (rows, S); every node's run padded to an ``r_sub``
+    multiple; a bin outside [0, n_bins) adds nothing. On the CPU the scatter
+    visits rows in order, so every bin is the sequential row-order sum."""
     rows, k = binq.shape
     S = sw.shape[1]
     nb = n_bins
@@ -93,46 +98,18 @@ def subblock_hist_plain(binq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_
     return out.reshape(rows // r_sub, S, k * nb)
 
 
-def subblock_hist(binq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int) -> torch.Tensor:
-    """Kernel K5: per-sub-block histograms (rows // r_sub, S, k·n_bins)
-    of ``sw`` (rows, S) over the bins ``binq`` (rows, k) int32, for rows
-    sorted by node with every node's run padded to an ``r_sub`` multiple
-    (padding rows carry sw == 0). A bin outside [0, n_bins) adds nothing.
-    Replaces ``spark_rapids_ml_tpu/ops/rf_pallas.py::subblock_hist``."""
-    rows, k = binq.shape
-    _check_hist_shapes("subblock_hist", rows, sw, n_bins, r_sub)
-    if binq.device.type == "cpu":
-        return subblock_hist_plain(binq, sw, n_bins=n_bins, r_sub=r_sub)
-    _check_cuda("subblock_hist", (binq, torch.int32), (sw, torch.float32))
-    S = sw.shape[1]
-    n_sb = rows // r_sub
-    out = torch.empty((n_sb, S, k * n_bins), dtype=torch.float32, device=binq.device)
-    fn = _build.function(
-        "rf_hist", "subblock_hist_launch", [_P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P]
-    )
-    code = fn(binq.data_ptr(), sw.data_ptr(), out.data_ptr(), n_sb, r_sub, k, n_bins, S,
-              torch.cuda.current_stream(binq.device).cuda_stream)
-    subblock_hist.launches += 1
-    _build.check("rf_hist", code)
-    return out
-
-
-subblock_hist.launches = 0
-
-
-# K5 per node: rows a span sums in order (its summation order's one
+# K5 and K6: rows a span sums in order (their summation order's one
 # constant: a node's padded run is cut into spans of max(1, SPAN_ROWS //
 # r_sub) sub-blocks from its start, and the node is the in-order fold of its
 # spans' sums)
 SPAN_ROWS = 4096
-# its geometry (csrc/rf_hist.cu): a block's shared histograms aim at this
+# their geometry (csrc/rf_hist.cu): a block's shared histograms aim at this
 # many bytes; threads a block at most; bytes a stage of rows (one chunk;
 # there are two) aims at in a block of 128 pairs, in proportion to the
 # block's pairs, at least _NH_STAGE_BYTES_MIN (a stage size sweep on an
 # H100, `chip_smoke.py --hist-only --sweep`, PERF.md §6); rows a stage at
 # most; the largest dynamic shared memory a block may take on an H100; the
-# span partials a launch may hold (the 256 MB the per-sub-block partials
-# were bounded to)
+# span partials a launch may hold
 _NH_HIST_BYTES = 64 << 10
 _NH_MAX_THREADS = 256
 _NH_STAGE_BYTES = 4 << 10
@@ -144,7 +121,7 @@ _NH_TRANSPOSE_BYTES = 80  # a pair's row of the write-out transpose: 20 floats
 
 
 def span_subblocks(r_sub: int) -> int:
-    """Sub-blocks a span of K5's per-node sum covers."""
+    """Sub-blocks a span of K5's and K6's per-node sums covers."""
     return max(1, SPAN_ROWS // r_sub)
 
 
@@ -162,6 +139,39 @@ class NodeHistGeometry(NamedTuple):
     scratch_bytes: int  # span partials and span tables a launch
 
 
+def _span_geometry(name: str, T: int, n_pad: int, r_sub: int, n_nodes: int, F: int, S: int, nb: int):
+    """(a, spans, multi, part_slots, fc, P, slots a tile touches) of K5's
+    and K6's span kernels: see ``node_hist_geometry``."""
+    if min(T, n_pad, r_sub, n_nodes, F, S, nb) < 1 or n_pad % r_sub or nb > 256:
+        raise ValueError(f"{name}: no geometry for T={T}, n_pad={n_pad}, r_sub={r_sub}, "
+                         f"n_nodes={n_nodes}, F={F}, S={S}, nb={nb}")
+    a = span_subblocks(r_sub)
+    n_sb = n_pad // r_sub
+    spans = n_nodes + -(-n_sb // a)
+    multi = min(n_nodes, n_sb // (a + 1))
+    part_slots = (n_sb + multi * (a - 1)) // a if multi else 0
+    fc = F
+    while fc > 1 and 4 * T * part_slots * S * fc * nb > _NH_SCRATCH_MAX:
+        fc = -(-fc // 2)
+    P = min(_NH_MAX_THREADS, max(32, _NH_HIST_BYTES // (4 * nb) // 32 * 32), -(-(S * fc) // 32) * 32)
+    nf = min(fc, (P - 1) // S + 2)        # slots a tile of P pairs touches
+    return a, spans, multi, part_slots, fc, P, nf
+
+
+def _stage_geometry(name, P, nb, S, pitch, tail):
+    """(rows a stage, shared memory a block) for staged rows of ``pitch``
+    bytes and S weights: the histograms, two stages of rows (the write's
+    transpose rows reuse them), the src2 entries of two chunks, and
+    ``tail`` bytes more. Raises past ``_SMEM_MAX``."""
+    row_bytes = pitch + 4 * S
+    stage_bytes = max(_NH_STAGE_BYTES_MIN, _NH_STAGE_BYTES * P // 128)
+    rows = max(1, min(_NH_STAGE_ROWS, stage_bytes // row_bytes))
+    smem = 4 * P * nb + max(2 * _round16(rows * row_bytes), _NH_TRANSPOSE_BYTES * P) + 16 * rows + tail
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{name}: {smem} bytes of shared memory a block (at most {_SMEM_MAX})")
+    return rows, smem
+
+
 def node_hist_geometry(T: int, n_pad: int, r_sub: int, n_nodes: int, F: int, S: int, nb: int,
                        vec: bool = True) -> NodeHistGeometry:
     """K5's launch sizes for T trees of ``n_pad`` padded rows in sub-blocks
@@ -175,41 +185,36 @@ def node_hist_geometry(T: int, n_pad: int, r_sub: int, n_nodes: int, F: int, S: 
     multi·(a - 1)) // a spans. The slots go in chunks of ``fc`` only where
     the partials of those spans would pass ``_NH_SCRATCH_MAX``. Raises when
     a block's shared memory passes ``_SMEM_MAX``."""
-    if min(T, n_pad, r_sub, n_nodes, F, S, nb) < 1 or n_pad % r_sub or nb > 256:
-        raise ValueError(f"node_hist: no geometry for T={T}, n_pad={n_pad}, r_sub={r_sub}, "
-                         f"n_nodes={n_nodes}, F={F}, S={S}, nb={nb}")
-    a = span_subblocks(r_sub)
-    n_sb = n_pad // r_sub
-    spans = n_nodes + -(-n_sb // a)
-    multi = min(n_nodes, n_sb // (a + 1))
-    part_slots = (n_sb + multi * (a - 1)) // a if multi else 0
-    fc = F
-    while fc > 1 and 4 * T * part_slots * S * fc * nb > _NH_SCRATCH_MAX:
-        fc = -(-fc // 2)
-    P = min(_NH_MAX_THREADS, max(32, _NH_HIST_BYTES // (4 * nb) // 32 * 32), -(-(S * fc) // 32) * 32)
-    nf = min(fc, (P - 1) // S + 2)        # slots a tile of P pairs touches
+    a, spans, multi, part_slots, fc, P, nf = _span_geometry("node_hist", T, n_pad, r_sub, n_nodes, F, S, nb)
     pitch = min(_round16(F), _round16(nf + 15)) if vec else _round16(nf)
-    ns = S                                # a tile across a slot boundary stages every stat
-    row_bytes = pitch + 4 * ns
-    stage_bytes = max(_NH_STAGE_BYTES_MIN, _NH_STAGE_BYTES * P // 128)
-    rows = max(1, min(_NH_STAGE_ROWS, stage_bytes // row_bytes))
-    # the histograms, two stages of rows (the write's transpose rows reuse
-    # them), the src2 entries of two chunks
-    smem = 4 * P * nb + max(2 * _round16(rows * row_bytes), _NH_TRANSPOSE_BYTES * P) + 16 * rows
-    if smem > _SMEM_MAX:
-        raise ValueError(f"node_hist: {smem} bytes of shared memory a block (at most {_SMEM_MAX})")
+    rows, smem = _stage_geometry("node_hist", P, nb, S, pitch, 0)
     scratch = 4 * T * part_slots * S * fc * nb + 4 * T * 3 * (n_nodes + 1)
-    return NodeHistGeometry(a, spans, multi, part_slots, fc, P, rows, pitch, ns, smem, scratch)
+    return NodeHistGeometry(a, spans, multi, part_slots, fc, P, rows, pitch, S, smem, scratch)
+
+
+def node_hist_sel_geometry(T: int, n_pad: int, r_sub: int, n_nodes: int, F: int, S: int,
+                           nb: int) -> NodeHistGeometry:
+    """K6's launch sizes: K5's spans, slot chunks and tiles for F slots (a
+    node's ids), with each staged row holding the 4-byte word of each slot
+    of a tile. Past the src2 entries a block holds each slot's row offset,
+    16 zero bytes (a sentinel slot's bin), and two rows and weights of
+    slack for the walk's reads past the last stage."""
+    a, spans, multi, part_slots, fc, P, nf = _span_geometry("node_hist_sel", T, n_pad, r_sub, n_nodes, F, S, nb)
+    pitch = _round16(4 * nf)
+    tail = 4 * -(-nf // 4) * 4 + 16 + 2 * pitch + 8 * S
+    rows, smem = _stage_geometry("node_hist_sel", P, nb, S, pitch, tail)
+    scratch = 4 * T * part_slots * S * fc * nb + 4 * T * 3 * (n_nodes + 1)
+    return NodeHistGeometry(a, spans, multi, part_slots, fc, P, rows, pitch, S, smem, scratch)
 
 
 def node_spans(pstart: torch.Tensor, r_sub: int, n_pad: int):
-    """K5's span table of a compact level's layout: ``pstart`` (T, n_nodes
-    + 1) the padded row where each node starts (the last entry: where the
-    dump sub-blocks start). Returns the global span id (T, n_pad // r_sub)
-    of every sub-block (the span count for a dump sub-block), the global
-    node id ``t·n_nodes + j`` (n_spans,) of every span in span order, and
-    the span count. A node's spans are consecutive, in row order; an empty
-    node has one span of no sub-blocks."""
+    """K5's and K6's span table of a compact level's layout: ``pstart`` (T,
+    n_nodes + 1) the padded row where each node starts (the last entry:
+    where the dump sub-blocks start). Returns the global span id (T, n_pad
+    // r_sub) of every sub-block (the span count for a dump sub-block), the
+    global node id ``t·n_nodes + j`` (n_spans,) of every span in span
+    order, and the span count. A node's spans are consecutive, in row
+    order; an empty node has one span of no sub-blocks."""
     T, n_nodes = pstart.shape[0], pstart.shape[1] - 1
     dev = pstart.device
     a = span_subblocks(r_sub)
@@ -232,30 +237,27 @@ def fold_spans(sums: torch.Tensor, span_node: torch.Tensor, num: int) -> torch.T
     return torch.zeros((num, sums.shape[1]), dtype=sums.dtype, device=sums.device).index_add_(0, span_node, sums)
 
 
-def _check_node_hist(bins, src2, swq, pstart, n_bins, r_sub):
+def _check_node_hist(name, bins, src2, swq, pstart, n_bins, r_sub):
     T, n_pad = src2.shape
     if bins.dim() not in (2, 3) or (bins.dim() == 3 and bins.shape[0] != T):
-        raise ValueError(f"node_hist_batched: bins {tuple(bins.shape)} must be (n, F) or (T={T}, n, F)")
+        raise ValueError(f"{name}: bins {tuple(bins.shape)} must be (n, F) or (T={T}, n, F)")
     if swq.dim() != 3 or swq.shape[:2] != (T, n_pad):
-        raise ValueError(f"node_hist_batched: swq {tuple(swq.shape)} must be (T={T}, n_pad={n_pad}, S)")
+        raise ValueError(f"{name}: swq {tuple(swq.shape)} must be (T={T}, n_pad={n_pad}, S)")
     if pstart.dim() != 2 or pstart.shape[0] != T or pstart.shape[1] < 2:
-        raise ValueError(f"node_hist_batched: pstart {tuple(pstart.shape)} must be (T={T}, n_nodes + 1)")
-    _check_hist_shapes("node_hist_batched", n_pad, swq[0], n_bins, r_sub)
+        raise ValueError(f"{name}: pstart {tuple(pstart.shape)} must be (T={T}, n_nodes + 1)")
+    _check_hist_shapes(name, n_pad, swq[0], n_bins, r_sub)
 
 
-def span_sums_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
-                    n_bins: int, r_sub: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The span sums (n_spans, S·F·nb) of K5 per node, by one
-    ``scatter_add_`` of every row in order onto (span, s, slot·nb + bin),
-    and the global node (n_spans,) of each span (``node_spans``)."""
-    T, n_pad = src2.shape
-    S, F, nb = swq.shape[-1], bins.shape[-1], n_bins
-    dev = src2.device
+def _span_scatter(rows: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, n_bins: int,
+                  r_sub: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The span sums (n_spans, S·F·nb) of the padded rows' bins ``rows``
+    (T, n_pad, F), by one ``scatter_add_`` of every row in order onto
+    (span, s, slot·nb + bin), and the global node (n_spans,) of each span
+    (``node_spans``)."""
+    T, n_pad, F = rows.shape
+    S, nb = swq.shape[-1], n_bins
+    dev = rows.device
     span_of_sb, span_node, n_spans = node_spans(pstart, r_sub, n_pad)
-    if bins.dim() == 2:
-        rows = bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, F)
-    else:
-        rows = bins.gather(1, src2[..., None].expand(T, n_pad, F))
     rows = rows.long()
     span = span_of_sb.repeat_interleave(r_sub, dim=1)
     base = span[..., None] * S + torch.arange(S, device=dev)
@@ -264,6 +266,20 @@ def span_sums_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, p
     sums = torch.zeros((n_spans + 1) * S * F * nb, dtype=swq.dtype, device=dev)
     sums.scatter_add_(0, idx.reshape(-1), vals.reshape(-1))
     return sums.reshape(n_spans + 1, S * F * nb)[:n_spans], span_node
+
+
+def span_sums_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
+                    n_bins: int, r_sub: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The span sums (n_spans, S·F·nb) of K5 per node (``_span_scatter``
+    of the rows read through ``src2``), and the global node (n_spans,) of
+    each span."""
+    T, n_pad = src2.shape
+    F = bins.shape[-1]
+    if bins.dim() == 2:
+        rows = bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, F)
+    else:
+        rows = bins.gather(1, src2[..., None].expand(T, n_pad, F))
+    return _span_scatter(rows, swq, pstart, n_bins, r_sub)
 
 
 def node_hist_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
@@ -278,11 +294,39 @@ def node_hist_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, p
     return fold_spans(sums, span_node, T * n_nodes).reshape(T, n_nodes, swq.shape[-1], -1)
 
 
+def select_rows_plain(bins: torch.Tensor, src2: torch.Tensor, pstart: torch.Tensor,
+                      feats: torch.Tensor) -> torch.Tensor:
+    """K6's bins of every padded row (T, n_pad, F) uint8: ``bins[src2[t,
+    r], feats[t, j, f]]`` for the node j whose run holds row r (the last
+    node for the dump rows past every node), 0 where the id lies outside
+    [0, d_row) (the sentinel ``n_features`` when ``n_features == d_row``)."""
+    T, n_pad = src2.shape
+    n_nodes, F, d_row = pstart.shape[1] - 1, feats.shape[-1], bins.shape[1]
+    pos = torch.arange(n_pad, device=src2.device).expand(T, -1).contiguous()
+    node = torch.searchsorted(pstart[:, 1:].contiguous(), pos, right=True).clamp(max=n_nodes - 1)
+    ids = feats.gather(1, node[..., None].expand(T, n_pad, F)).long()
+    inside = (ids >= 0) & (ids < d_row)
+    rows = bins.reshape(-1)[src2[..., None] * d_row + ids.clamp(0, d_row - 1)]
+    return torch.where(inside, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def node_hist_sel_plain(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor,
+                        feats: torch.Tensor, *, n_bins: int, r_sub: int) -> torch.Tensor:
+    """Plain version of K6 per node: each padded row's bytes selected by
+    its node's ids (``select_rows_plain``), then K5's span scatter and
+    in-order fold, in ``swq``'s dtype: the kernel's sums bit for bit on the
+    CPU."""
+    T, n_nodes = src2.shape[0], pstart.shape[1] - 1
+    sums, span_node = _span_scatter(select_rows_plain(bins, src2, pstart, feats), swq, pstart, n_bins, r_sub)
+    return fold_spans(sums, span_node, T * n_nodes).reshape(T, n_nodes, swq.shape[-1], -1)
+
+
 class _NodeHistPlan(ctypes.Structure):
     """A launch's sizes, as ``NodeHistPlan`` in csrc/rf_hist.cu."""
     _fields_ = [("n_pad", ctypes.c_int64), ("tree_stride", ctypes.c_int64), ("part_slots", ctypes.c_int64)] + [
         (name, ctypes.c_int) for name in ("F", "S", "nb", "r_sub", "a", "n_nodes", "T", "f_lo", "fc", "P", "rows",
-                                          "pitch", "ns", "tiles", "spans", "multi", "smem", "vec", "skip")]
+                                          "pitch", "ns", "tiles", "spans", "multi", "smem", "vec", "skip",
+                                          "d_row")]
 
 
 def node_hist_batched(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor, *,
@@ -298,7 +342,7 @@ def node_hist_batched(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor,
     ``node_hist_plain`` on the CPU bit for bit. Replaces
     ``spark_rapids_ml_tpu/ops/rf_pallas.py::subblock_hist`` with its
     caller's per-node ``segment_sum``."""
-    _check_node_hist(bins, src2, swq, pstart, n_bins, r_sub)
+    _check_node_hist("node_hist_batched", bins, src2, swq, pstart, n_bins, r_sub)
     if src2.device.type == "cpu":
         return node_hist_plain(bins, src2, swq, pstart, n_bins=n_bins, r_sub=r_sub)
     _check_cuda("node_hist_batched", (bins, torch.uint8), (src2, torch.int64), (swq, torch.float32),
@@ -311,37 +355,94 @@ def node_hist_batched(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor,
 node_hist_batched.launches = 0
 
 
-def _node_hist_run(bins, src2, swq, pstart, n_bins, r_sub, fn, stream, skip: int = 0) -> torch.Tensor:
-    """K5's launches through the C entry point ``fn`` (``node_hist_launch``)
-    on checked tensors: the output and scratch, and one launch (the span
-    table with the first) a chunk of slots. ``skip``: a probe's knock-outs
-    (1 the walk, 2 the row loads, 4 the write; the output is then not K5's)."""
-    T, n_pad = src2.shape
-    S, F, n_nodes = swq.shape[-1], bins.shape[-1], pstart.shape[1] - 1
-    vec = F % 16 == 0 and bins.data_ptr() % 16 == 0
-    geo = node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, n_bins, vec)
-    dev = src2.device
-    out = torch.empty((T, n_nodes, S, F * n_bins), dtype=torch.float32, device=dev)
+def _launch_levels(geo, fn, ptrs, dims, vec, skip, stream, wrapper, dev) -> torch.Tensor:
+    """A level's output (T, n_nodes, S, F·nb) f32, span tables and span
+    partials, and one launch of the C entry point ``fn`` (the span table
+    with the first) a chunk of ``geo.fc`` slots; ``ptrs`` its pointers
+    before the output, ``dims`` the plan's (n_pad, tree_stride, F, S, nb,
+    r_sub, n_nodes, T, d_row). Counts each launch on ``wrapper``."""
+    n_pad, tree_stride, F, S, nb, r_sub, n_nodes, T, d_row = dims
+    out = torch.empty((T, n_nodes, S, F * nb), dtype=torch.float32, device=dev)
     tabs = torch.empty((T, 3, n_nodes + 1), dtype=torch.int32, device=dev)
-    parts = torch.empty(max(1, T * geo.part_slots * S * geo.fc * n_bins), dtype=torch.float32, device=dev)
+    parts = torch.empty(max(1, T * geo.part_slots * S * geo.fc * nb), dtype=torch.float32, device=dev)
     for f_lo in range(0, F, geo.fc):
         fc = min(geo.fc, F - f_lo)
-        plan = _NodeHistPlan(n_pad, bins.shape[1] * F if bins.dim() == 3 else 0, geo.part_slots, F, S, n_bins,
-                             r_sub, geo.a, n_nodes, T, f_lo, fc, geo.P, geo.rows, geo.pitch, geo.ns,
-                             -(-(S * fc) // geo.P), geo.spans, geo.multi, geo.smem, int(vec), skip)
-        code = fn(bins.data_ptr(), src2.data_ptr(), swq.data_ptr(), pstart.data_ptr(), out.data_ptr(),
-                  tabs.data_ptr(), parts.data_ptr(), ctypes.addressof(plan), int(f_lo == 0), stream)
-        node_hist_batched.launches += 1
+        plan = _NodeHistPlan(n_pad, tree_stride, geo.part_slots, F, S, nb, r_sub, geo.a, n_nodes, T, f_lo, fc,
+                             geo.P, geo.rows, geo.pitch, geo.ns, -(-(S * fc) // geo.P), geo.spans, geo.multi,
+                             geo.smem, vec, skip, d_row)
+        code = fn(*ptrs, out.data_ptr(), tabs.data_ptr(), parts.data_ptr(), ctypes.addressof(plan),
+                  int(f_lo == 0), stream)
+        wrapper.launches += 1
         _build.check("rf_hist", code)
     return out
 
 
-def node_hist_attributes(vec: bool, P: int, smem: int) -> Tuple[int, int, int]:
-    """(registers, local bytes a thread, resident blocks an SM) of K5's span
-    kernel at P threads and ``smem`` bytes a block on the current card."""
-    fn = _build.function("rf_hist", "node_hist_attributes", [_INT, _INT, _INT, _P, _P, _P])
+def _node_hist_run(bins, src2, swq, pstart, n_bins, r_sub, fn, stream, skip: int = 0) -> torch.Tensor:
+    """K5's launches through the C entry point ``fn`` (``node_hist_launch``)
+    on checked tensors. ``skip``: a probe's knock-outs (1 the walk, 2 the
+    row loads, 4 the write; the output is then not K5's)."""
+    T, n_pad = src2.shape
+    S, F, n_nodes = swq.shape[-1], bins.shape[-1], pstart.shape[1] - 1
+    vec = F % 16 == 0 and bins.data_ptr() % 16 == 0
+    geo = node_hist_geometry(T, n_pad, r_sub, n_nodes, F, S, n_bins, vec)
+    dims = (n_pad, bins.shape[1] * F if bins.dim() == 3 else 0, F, S, n_bins, r_sub, n_nodes, T, F)
+    return _launch_levels(geo, fn, (bins.data_ptr(), src2.data_ptr(), swq.data_ptr(), pstart.data_ptr()), dims,
+                          int(vec), skip, stream, node_hist_batched, src2.device)
+
+
+def node_hist_sel_batched(bins: torch.Tensor, src2: torch.Tensor, swq: torch.Tensor, pstart: torch.Tensor,
+                          feats: torch.Tensor, *, n_bins: int, r_sub: int) -> torch.Tensor:
+    """Kernel K6: every node's histogram (T, n_nodes, S, F·n_bins) of a
+    compact level over the node's own F feature ids ``feats`` (T, n_nodes,
+    F) int32, picked in the kernel from the full rows of the shared uint8
+    table ``bins`` (n, d_row) read through ``src2``; an id outside [0,
+    d_row) reads as bin 0. The rest as ``node_hist_batched``, and the same
+    summation order: equal to ``node_hist_sel_plain`` on the CPU bit for
+    bit. On the card the table's rows must be 4-byte aligned (d_row % 4 ==
+    0). Replaces ``spark_rapids_ml_tpu/ops/rf_pallas.py::
+    subblock_hist_sel`` with its caller's gather of the node-sorted full
+    rows and per-node ``segment_sum``."""
+    _check_node_hist("node_hist_sel_batched", bins, src2, swq, pstart, n_bins, r_sub)
+    T, n_nodes = src2.shape[0], pstart.shape[1] - 1
+    if bins.dim() != 2 or feats.dim() != 3 or feats.shape[:2] != (T, n_nodes):
+        raise ValueError(f"node_hist_sel_batched: bins {tuple(bins.shape)} must be (n, d_row) and feats "
+                         f"{tuple(feats.shape)} (T={T}, n_nodes={n_nodes}, F)")
+    if src2.device.type == "cpu":
+        return node_hist_sel_plain(bins, src2, swq, pstart, feats, n_bins=n_bins, r_sub=r_sub)
+    _check_cuda("node_hist_sel_batched", (bins, torch.uint8), (src2, torch.int64), (swq, torch.float32),
+                (pstart, torch.int64), (feats, torch.int32))
+    if bins.shape[1] % 4 or bins.data_ptr() % 4:
+        raise ValueError(f"node_hist_sel_batched: the kernel reads 4-byte words; rows of {bins.shape[1]} bytes "
+                         f"at an address {bins.data_ptr() % 4} bytes past 4-byte alignment")
+    return _node_hist_sel_run(bins, src2, swq, pstart, feats, n_bins, r_sub, _sel_launch(),
+                              torch.cuda.current_stream(src2.device).cuda_stream)
+
+
+node_hist_sel_batched.launches = 0
+
+
+def _sel_launch():
+    """K6's C entry point ``node_hist_sel_launch``."""
+    return _build.function("rf_hist", "node_hist_sel_launch", [_P] * 9 + [_INT, _P])
+
+
+def _node_hist_sel_run(bins, src2, swq, pstart, feats, n_bins, r_sub, fn, stream, skip: int = 0) -> torch.Tensor:
+    """K6's launches through ``fn`` on checked tensors, as ``_node_hist_run``."""
+    T, n_pad = src2.shape
+    S, F, n_nodes, d_row = swq.shape[-1], feats.shape[-1], pstart.shape[1] - 1, bins.shape[1]
+    geo = node_hist_sel_geometry(T, n_pad, r_sub, n_nodes, F, S, n_bins)
+    ptrs = (bins.data_ptr(), src2.data_ptr(), swq.data_ptr(), pstart.data_ptr(), feats.data_ptr())
+    return _launch_levels(geo, fn, ptrs, (n_pad, 0, F, S, n_bins, r_sub, n_nodes, T, d_row), 0, skip, stream,
+                          node_hist_sel_batched, src2.device)
+
+
+def node_hist_attributes(vec: bool, P: int, smem: int, sel: bool = False) -> Tuple[int, int, int]:
+    """(registers, local bytes a thread, resident blocks an SM) of K5's
+    span kernel (``vec``: its 16-byte instance) or, with ``sel``, K6's at P
+    threads and ``smem`` bytes a block on the current card."""
+    fn = _build.function("rf_hist", "node_hist_attributes", [_INT, _INT, _INT, _INT, _P, _P, _P])
     out = [ctypes.c_int(0) for _ in range(3)]
-    _build.check("rf_hist", fn(int(vec), P, smem, *(ctypes.byref(v) for v in out)))
+    _build.check("rf_hist", fn(int(sel), int(vec), P, smem, *(ctypes.byref(v) for v in out)))
     return tuple(v.value for v in out)
 
 
@@ -359,65 +460,11 @@ def select_bins_plain(bq: torch.Tensor, featsq: torch.Tensor, r_sub: int) -> tor
 def subblock_hist_sel_plain(
     bq: torch.Tensor, featsq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int
 ) -> torch.Tensor:
-    """Plain version of K6: gather each sub-block's selected columns, then
-    K5's plain version."""
+    """K6 as the TPU computes it, per sub-block (no kernel on the card: the
+    builder's K6 works per node): each sub-block's selected columns of the
+    node-sorted full rows ``bq`` (rows, d_pad) by ``featsq`` (rows //
+    r_sub, k) int32, then ``subblock_hist_plain``."""
     return subblock_hist_plain(select_bins_plain(bq, featsq, r_sub), sw, n_bins=n_bins, r_sub=r_sub)
-
-
-def subblock_hist_sel(
-    bq: torch.Tensor, featsq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int
-) -> torch.Tensor:
-    """Kernel K6: K5's output, with sub-block j's k columns selected in the
-    kernel from the full uint8 rows ``bq`` (rows, d_pad) by the feature ids
-    ``featsq`` (rows // r_sub, k) int32. An id outside [0, d_pad) reads as
-    bin 0. Replaces ``spark_rapids_ml_tpu/ops/rf_pallas.py::
-    subblock_hist_sel``."""
-    rows, d_pad = bq.shape
-    _check_hist_shapes("subblock_hist_sel", rows, sw, n_bins, r_sub)
-    n_sb, k = featsq.shape
-    if n_sb * r_sub != rows:
-        raise ValueError(f"subblock_hist_sel: featsq {tuple(featsq.shape)} for {rows} rows of r_sub={r_sub}")
-    if bq.device.type == "cpu":
-        return subblock_hist_sel_plain(bq, featsq, sw, n_bins=n_bins, r_sub=r_sub)
-    _check_cuda("subblock_hist_sel", (bq, torch.uint8), (featsq, torch.int32), (sw, torch.float32))
-    S = sw.shape[1]
-    out = torch.empty((n_sb, S, k * n_bins), dtype=torch.float32, device=bq.device)
-    fn = _build.function(
-        "rf_hist", "subblock_hist_sel_launch",
-        [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P],
-    )
-    code = fn(bq.data_ptr(), featsq.data_ptr(), sw.data_ptr(), out.data_ptr(), n_sb, r_sub, k,
-              n_bins, S, d_pad, torch.cuda.current_stream(bq.device).cuda_stream)
-    subblock_hist_sel.launches += 1
-    _build.check("rf_hist", code)
-    return out
-
-
-subblock_hist_sel.launches = 0
-
-
-def subblock_hist_batched(binq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int) -> torch.Tensor:
-    """K5 over a tree batch in one launch: ``binq`` (T, n_pad, k), ``sw``
-    (T, n_pad, S) -> (T, n_pad // r_sub, S, k·n_bins). n_pad is a multiple
-    of r_sub, so every sub-block lies inside one tree."""
-    T, n_pad, k = binq.shape
-    out = subblock_hist(binq.reshape(T * n_pad, k), sw.reshape(T * n_pad, -1), n_bins=n_bins, r_sub=r_sub)
-    return out.reshape(T, n_pad // r_sub, out.shape[1], out.shape[2])
-
-
-def subblock_hist_sel_batched(
-    bq: torch.Tensor, featsq: torch.Tensor, sw: torch.Tensor, *, n_bins: int, r_sub: int
-) -> torch.Tensor:
-    """K6 over a tree batch in one launch: ``bq`` (T, n_pad, d_pad),
-    ``featsq`` (T, n_sb, k), ``sw`` (T, n_pad, S) -> (T, n_sb, S,
-    k·n_bins)."""
-    T, n_pad, d_pad = bq.shape
-    n_sb, k = featsq.shape[1:]
-    out = subblock_hist_sel(
-        bq.reshape(T * n_pad, d_pad), featsq.reshape(T * n_sb, k), sw.reshape(T * n_pad, -1),
-        n_bins=n_bins, r_sub=r_sub,
-    )
-    return out.reshape(T, n_sb, out.shape[1], out.shape[2])
 
 
 # ---------------------------------------------------------------------------

@@ -8,14 +8,14 @@
   (``_grow_trees_batched``). Each split level runs the compact route of the
   JAX package: a stable sort of each tree's rows by node, every node's run
   padded to a multiple of ``r_sub`` rows, and one kernel launch for the
-  whole tree batch: K5, which reads each row's uint8 bins through the sort
+  whole tree batch, which reads each row's uint8 bins through the sort
   permutation and writes every node's histogram (its sub-blocks folded in
-  the kernel), or K6, which selects each node's feature subset from full
-  rows at ``d_pad > 1024``, followed by a per-node sum of its sub-block
-  partials. The padded row counts and ``r_sub`` follow the JAX package's
-  formulas, so both packages pad alike at every level. A level whose
-  histogram tile exceeds ``_COMPACT_TILE_MAX`` (2^28) entries takes a plain
-  scatter, as the JAX package does there.
+  the kernel): K5 over each tree's rows of its subset-gathered (or all)
+  bins, or K6, which picks each node's feature subset from the full rows
+  itself at ``d_pad > 1024``. The padded row counts and ``r_sub`` follow
+  the JAX package's formulas, so both packages pad alike at every level.
+  A level whose histogram tile exceeds ``_COMPACT_TILE_MAX`` (2^28)
+  entries takes a plain scatter, as the JAX package does there.
 * **Inference**: the packed-forest engine (``pack_forest``'s layout, hop 1
   in plain PyTorch, hop 2 in K9, the JAX package's payload summation
   order) for forests of depth <= 14; the two-hop bins engine (the same
@@ -25,8 +25,8 @@
   forests.
 
 Every per-node sum is deterministic: the kernels add in row order without
-atomics, K5 folds a node's spans in order (``rf_kernels.SPAN_ROWS``), the
-per-node reductions (``_segment_sum``) sum each segment in order, and the
+atomics, K5 and K6 fold a node's spans in order (``rf_kernels.SPAN_ROWS``),
+the per-node reductions (``_segment_sum``) sum each segment in order, and the
 sums over a node's bins (parent stats, the gain search's
 prefix sums) accumulate in f64 and round once. So a fit is bitwise
 repeatable on the card and equal to the CPU's, also for real-valued
@@ -53,13 +53,14 @@ import numpy as np
 import torch
 
 from .rf_kernels import (
+    _NH_SCRATCH_MAX,
     BLOCK_ROWS,
     LANES,
     _leaf_ids,
     node_hist_batched,
+    node_hist_sel_batched,
     packed_byte_gather_many,
     packed_traverse,
-    subblock_hist_sel_batched,
 )
 
 # elements per (F, nodes, bins, stats) histogram tile of the gain search
@@ -106,6 +107,14 @@ def _sel_hbm_budget(device: torch.device) -> float:
     return _CPU_BUDGET
 
 
+def _sel_resident(n: int, d_pad: int, T: int, n_pad: int, n_nodes: int, S: int, d_hist: int, nb: int) -> int:
+    """Device bytes of a level of the wide route (K6): the shared (n,
+    d_pad) bins, each padded row's source index and weights, the node
+    histograms and the gain search's permuted copy, and the span partials'
+    bound."""
+    return n * d_pad + T * n_pad * (8 + 4 * S) + 2 * T * n_nodes * S * d_hist * nb * 4 + _NH_SCRATCH_MAX
+
+
 def _largest_divisor_leq(t: int, b: int) -> int:
     for d in range(min(t, b), 0, -1):
         if t % d == 0:
@@ -117,7 +126,10 @@ def resolve_tree_batch(t_group: int, cfg: ForestConfig, n_rows: int, device: tor
     """Trees advanced per level: the widest divisor of ``t_group`` whose
     per-level residents (stat weights, routing ids, subset-gathered bins,
     histogram copies) fit a quarter of ``_sel_hbm_budget`` (the JAX
-    package's ``auto`` rule)."""
+    package's ``auto`` rule). The subset term counts the per-tree gathered
+    bins of the route below d_pad 1,024; the wide route (K6) holds no copy
+    of the rows, only each padded row's source index and weights beside
+    the shared table (``_sel_resident``), which the same term bounds."""
     budget = _sel_hbm_budget(device) / 4.0
     subset = cfg.k_features < cfg.n_features
     d_hist = next_pow2(cfg.k_features if subset else max(1, cfg.n_features))
@@ -249,18 +261,16 @@ def _best_splits_from_hist(hist, parent, pcount, pimp, realf, nb, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _segment_sum(vals: torch.Tensor, ids: torch.Tensor, num: int, *, grouped: bool = False) -> torch.Tensor:
+def _segment_sum(vals: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tensor:
     """(num, ...) sums of the rows of ``vals`` by ``ids`` in [0, num), each
-    id's rows added in their order (``grouped``: the rows of each id are
-    already consecutive, ids ascending). On the card ``segment_reduce``
+    id's rows added in their order. On the card ``segment_reduce``
     after a stable sort (no atomics, so the sums are repeatable); on the
     CPU ``index_add_``, which adds in row order too (the same sums, ~10x
     faster there than the CPU ``segment_reduce``)."""
     if vals.device.type != "cuda":
         return torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype).index_add_(0, ids, vals)
     counts = torch.bincount(ids, minlength=num)
-    if not grouped:
-        vals = vals[torch.sort(ids, stable=True)[1]]
+    vals = vals[torch.sort(ids, stable=True)[1]]
     return torch.segment_reduce(vals, "sum", lengths=counts, axis=0)
 
 
@@ -361,31 +371,20 @@ def _hist_compact_batched(
     ``hist_src`` is the shared (n, d_pad) uint8 bins (no subset) or
     per-tree (T, n, F) subset bins, which K5 reads through the sort
     permutation, all F slots and nodes in one launch; with ``full_bins``
-    (n, d_pad) and ``feats`` (T, n_nodes, F) the rows go whole through K6,
-    which selects each node's columns itself. The
+    (n, d_pad) and ``feats`` (T, n_nodes, F) K6 reads the full rows through
+    the sort permutation and picks each node's columns itself. The
     parent stats are the bin sums of feature slot 0 (always a real
     feature). A device's own f32 reduction order would move real-valued
     parent stats by an ulp and flip near-tied splits between a card fit and
     a CPU fit, so they are summed in f64."""
     T = seg.shape[0]
     S = sw.shape[-1]
-    n_sb = n_pad // r_sub
-    src2, pvalid, sbc, counts, pstart = _compact_layout(seg, n_nodes, r_sub, n_pad)
+    src2, pvalid, _, _, pstart = _compact_layout(seg, n_nodes, r_sub, n_pad)
     swq = (sw.gather(1, src2[..., None].expand(T, n_pad, S)) * pvalid[..., None].to(sw.dtype)).contiguous()
     if full_bins is not None:
         F = feats.shape[-1]
-        bq = full_bins.index_select(0, src2.reshape(-1)).reshape(T, n_pad, full_bins.shape[1])
-        featsq = feats.gather(1, sbc[..., None].expand(T, n_sb, F)).to(torch.int32).contiguous()
-        partials = subblock_hist_sel_batched(bq, featsq, swq, n_bins=nb, r_sub=r_sub)
-        del bq
-        # (T, n_sb, S, W) -> (T, n_nodes, S, W): the sub-blocks of one node
-        # are consecutive, so the per-node sum is a segment sum in order
-        sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1), device=seg.device), counts.reshape(-1))
-        p2d = partials.reshape(T * n_sb, S * F * nb)
-        del partials
-        hist_nodes = _segment_sum(p2d, sb_node, T * (n_nodes + 1), grouped=True)
-        hist_nodes = hist_nodes.reshape(T, n_nodes + 1, S, F, nb)[:, :n_nodes]
-        del p2d
+        hist_nodes = node_hist_sel_batched(full_bins, src2, swq, pstart, feats.to(torch.int32).contiguous(),
+                                           n_bins=nb, r_sub=r_sub).reshape(T, n_nodes, S, F, nb)
     else:
         F = hist_src.shape[-1]
         hist_nodes = node_hist_batched(hist_src, src2, swq, pstart, n_bins=nb, r_sub=r_sub).reshape(
@@ -522,13 +521,10 @@ def _grow_trees_batched(
             return bins_t.gather(2, row_feats.clamp(0, d_pad - 1))   # (T, n, k_pad) u8
 
         r_sub, n_pad_c, _ = compact_sizes(n, level, cfg.max_depth, S, d_hist, nb)
-        n_sb_c = n_pad_c // r_sub
         use_compact = dt == torch.float32 and n_nodes * d_hist * nb * S <= _COMPACT_TILE_MAX
-        sel_resident = (
-            n * d_pad + n_pad_c * d_pad + n_sb_c * S * d_hist * nb * 4 + 2 * n_nodes * S * d_hist * nb * 4
-        )
         use_sel = (
-            use_compact and subset and d_pad > _SEL_MIN_DPAD and sel_resident <= _sel_hbm_budget(dev)
+            use_compact and subset and d_pad > _SEL_MIN_DPAD
+            and _sel_resident(n, d_pad, T, n_pad_c, n_nodes, S, d_hist, nb) <= _sel_hbm_budget(dev)
         )
         if use_sel:
             hist_full, parent = _hist_compact_batched(

@@ -74,7 +74,7 @@ def test_builder_matches_build_tree(monkeypatch, impurity, d, k, bootstrap, fuse
         monkeypatch.setattr(tk, "_SEL_MIN_DPAD", 0)
         monkeypatch.setattr(pt, "_SEL_MIN_DPAD", 0)
     calls = []
-    route = pt.subblock_hist_sel_batched if fused else pt.node_hist_batched
+    route = pt.node_hist_sel_batched if fused else pt.node_hist_batched
     monkeypatch.setattr(
         pt, route.__name__, lambda *a, **kw: calls.append(1) or route(*a, **kw)
     )

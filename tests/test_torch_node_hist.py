@@ -1,23 +1,29 @@
-"""K5 per node (``rf_kernels.node_hist_batched``: every node's histogram of
-a compact level, the sub-blocks folded in the kernel) held on the CPU.
+"""K5 and K6 per node (``rf_kernels.node_hist_batched``,
+``node_hist_sel_batched``: every node's histogram of a compact level, the
+sub-blocks folded in the kernel; K6 picks each node's columns from the
+full rows) held on the CPU.
 
 - Its plain version against the JAX package's own composition: the
   per-sub-block Pallas kernel (interpret mode) followed by
   ``jax.ops.segment_sum`` over the sub-block -> node map, tree by tree,
   and the JAX ``_hist_compact_batched`` against the port's over a whole
-  level. Integer stats are exact in any order, so equal; real stats are
+  level, with K6's wide route against the JAX package's ``full_bins``
+  branch (the node-sorted full rows through its fused-selection Pallas
+  kernel). Integer stats are exact in any order, so equal; real stats are
   held to the f32 band u·(8·Σ|terms| + 4·√n·|ref|), n the rows of a node.
 - Its summation order, bit for bit: a numpy model that sums each span's
   rows in order from +0 and folds a node's spans in order from +0
   (``SPAN_ROWS`` lowered so that nodes span several), over empty nodes,
-  bins past nb and shared and per-tree tables; and, where every node is
+  bins past nb and shared and per-tree tables, and K6's selection with
+  sentinel ids inside and past the row; and, where every node is
   one span and the stats are integers, the per-sub-block plain version
   followed by the in-order per-node sum it replaced.
 - The span table and the launch geometry: every sub-block of a real node
   in exactly one span, in order, the dump sub-blocks in none, the kernel's
   grid bounds covering every span and every multi-span node, shared memory
   within 232,448 bytes and the span partials within 256 MB at the builder's
-  shapes.
+  shapes (K6's at the 3,000-wide forest's, 131,072 and 1,000,000 rows), and
+  the wide route's memory estimate at the reference's 1,000,000 rows.
 """
 
 import bisect
@@ -110,29 +116,60 @@ def test_plain_matches_pallas_subblocks_and_segment_sum(kind, per_tree, S):
         _hold(got[t], ref.reshape(got[t].shape), terms[t], _longest(lv), kind != "real")
 
 
+def _feats(seed, T, n_nodes, n_features, k, F):
+    """Each node's k distinct feature ids of n_features, sentinel
+    n_features up to F slots, (T, n_nodes, F) int32."""
+    rng = np.random.default_rng(seed)
+    ids = np.argsort(rng.random((T, n_nodes, n_features)), axis=2)[..., :k]
+    return np.concatenate([ids, np.full((T, n_nodes, F - k), n_features)], 2).astype(np.int32)
+
+
 @pytest.mark.parametrize(
-    "kind,subset,level",
-    [("gini", False, 2), ("gini", True, 3), ("int", True, 1), ("real", False, 2)],
+    "kind,subset,level,n_features",
+    [pytest.param("gini", False, 2, None, id="gini-False-2"), pytest.param("gini", True, 3, None, id="gini-True-3"),
+     pytest.param("int", True, 1, None, id="int-True-1"), pytest.param("real", False, 2, None, id="real-False-2"),
+     # K6's wide route: full rows, the sentinel a zero pad column (60 of 64)
+     # or past the row (64 of 64)
+     pytest.param("gini", True, 3, 60, id="gini-full-60-of-64"),
+     pytest.param("int", True, 2, 64, id="int-full-64-of-64"),
+     pytest.param("real", True, 2, 60, id="real-full-60-of-64")],
 )
-def test_hist_compact_matches_jax(kind, subset, level):
-    """The port's K5 route of ``_hist_compact_batched`` over a whole level
-    against the JAX package's (``interpret=True``): the shared (n, F) table
-    (no subset) or per-tree (T, n, F) subset bins, the JAX package's own
-    r_sub, padded row count and feature chunk."""
+def test_hist_compact_matches_jax(kind, subset, level, n_features):
+    """The port's route of ``_hist_compact_batched`` over a whole level
+    against the JAX package's (``interpret=True``): K5 over the shared (n,
+    F) table (no subset) or per-tree (T, n, F) subset bins, or K6 over the
+    shared full (n, 64) rows with each node's 11 ids (``full_bins``,
+    ``feats``), the JAX package's own r_sub, padded row count and feature
+    chunk."""
     T, n, F, nb, depth = 2, 900, 16, 32, 6
     S = 2 if kind == "gini" else 3
     n_nodes = 1 << level
     r_sub, n_pad, f_chunk = pt.compact_sizes(n, level, depth, S, F, nb)
-    lv = _level(12 + level, T, n, n_nodes, F, S, nb, r_sub, subset, kind, empty=0.2, n_pad=n_pad)
-    hist_src = lv["bins"]
-    ref_h, ref_p = tk._hist_compact_batched(
-        jnp.asarray(hist_src.numpy()), jnp.asarray(lv["seg"].numpy().astype(np.int32)), jnp.asarray(lv["sw"].numpy()),
-        n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad, f_chunk=f_chunk, variance=kind != "gini", interpret=True)
-    got_h, got_p = pt._hist_compact_batched(hist_src, lv["seg"], lv["sw"], n_nodes=n_nodes, nb=nb, r_sub=r_sub,
-                                            n_pad=n_pad)
+    full = n_features is not None
+    lv = _level(12 + level, T, n, n_nodes, 64 if full else F, S, nb, r_sub, subset and not full, kind, empty=0.2,
+                n_pad=n_pad)
+    jkw = dict(n_nodes=n_nodes, nb=nb, r_sub=r_sub, n_pad=n_pad, f_chunk=f_chunk, variance=kind != "gini",
+               interpret=True)
+    seg = jnp.asarray(lv["seg"].numpy().astype(np.int32))
+    if full:
+        bins = lv["bins"].clone()
+        bins[:, n_features:] = 0
+        feats = torch.from_numpy(_feats(level, T, n_nodes, n_features, 11, F))
+        ref_h, ref_p = tk._hist_compact_batched(None, seg, jnp.asarray(lv["sw"].numpy()), full_bins=jnp.asarray(
+            bins.numpy()), feats=jnp.asarray(feats.numpy()), **jkw)
+        got_h, got_p = pt._hist_compact_batched(None, lv["seg"], lv["sw"], n_nodes=n_nodes, nb=nb, r_sub=r_sub,
+                                                n_pad=n_pad, full_bins=bins, feats=feats)
+        terms = rk.node_hist_sel_plain(bins, lv["src2"], lv["swq"].abs(), lv["pstart"], feats, n_bins=nb,
+                                       r_sub=r_sub)
+    else:
+        hist_src = lv["bins"]
+        ref_h, ref_p = tk._hist_compact_batched(jnp.asarray(hist_src.numpy()), seg, jnp.asarray(lv["sw"].numpy()),
+                                                **jkw)
+        got_h, got_p = pt._hist_compact_batched(hist_src, lv["seg"], lv["sw"], n_nodes=n_nodes, nb=nb, r_sub=r_sub,
+                                                n_pad=n_pad)
+        terms = rk.node_hist_plain(hist_src, lv["src2"], lv["swq"].abs(), lv["pstart"], n_bins=nb, r_sub=r_sub)
     assert got_h.shape == ref_h.shape == (T, F, n_nodes, nb, S)
     if kind == "real":
-        terms = rk.node_hist_plain(hist_src, lv["src2"], lv["swq"].abs(), lv["pstart"], n_bins=nb, r_sub=r_sub)
         terms = terms.reshape(T, n_nodes, S, F, nb).permute(0, 3, 1, 4, 2).numpy()
         _hold(got_h.numpy(), np.asarray(ref_h), terms, _longest(lv), False)
         np.testing.assert_allclose(got_p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
@@ -191,6 +228,43 @@ def test_plain_equals_numpy_span_model(monkeypatch, per_tree, kind, span_rows, r
     np.testing.assert_array_equal(got.view(np.uint32), _numpy_span_model(lv, span_rows).view(np.uint32))
 
 
+def _numpy_sel_rows(lv, feats):
+    """K6's bins of every padded row, in numpy: its node's ids read from
+    its source row, 0 past the row."""
+    bins, src2, pstart = lv["bins"].numpy(), lv["src2"].numpy(), lv["pstart"].numpy()
+    T, n_pad, d_row = src2.shape[0], src2.shape[1], bins.shape[1]
+    out = np.zeros((T, n_pad, feats.shape[-1]), np.uint8)
+    for t in range(T):
+        for r in range(n_pad):
+            j = min(int(np.searchsorted(pstart[t, 1:], r, side="right")), lv["n_nodes"] - 1)
+            for f, i in enumerate(feats[t, j]):
+                out[t, r, f] = bins[src2[t, r], i] if 0 <= i < d_row else 0
+    return out
+
+
+@pytest.mark.parametrize(
+    "kind,span_rows,r_sub,nb,n_features",
+    [("real", 64, 8, 20, 40), ("int", 48, 7, 255, 40), ("gini", 4096, 16, 16, 37)],
+)
+def test_sel_plain_equals_numpy_span_model(monkeypatch, kind, span_rows, r_sub, nb, n_features):
+    """K6's plain version: the numpy span model over rows whose bins are
+    each node's ids read from the full row (sentinel ids past the row at 40
+    of 40, a pad column at 37 of 40), multi-span and empty nodes."""
+    monkeypatch.setattr(rk, "SPAN_ROWS", span_rows)
+    S = 2 if kind == "gini" else 3
+    lv = _level(61 + r_sub, 2, 500, 5, 40, S, nb, r_sub, False, kind, empty=0.3)
+    spans = (lv["pstart"][:, 1:] - lv["pstart"][:, :-1]) // r_sub
+    if span_rows < 4096:
+        assert bool((spans > rk.span_subblocks(r_sub)).any()), "no node longer than one span"
+    assert bool((spans == 0).any()), "no empty node"
+    feats = _feats(r_sub, 2, 5, n_features, 9, 16)
+    got = rk.node_hist_sel_batched(lv["bins"], lv["src2"], lv["swq"], lv["pstart"], torch.from_numpy(feats),
+                                   n_bins=nb, r_sub=r_sub).numpy()
+    model = _numpy_span_model({**lv, "bins": torch.from_numpy(_numpy_sel_rows(lv, feats)),
+                               "src2": torch.arange(lv["n_pad"]).expand(2, -1), "F": 16}, span_rows)
+    np.testing.assert_array_equal(got.view(np.uint32), model.view(np.uint32))
+
+
 @pytest.mark.parametrize("per_tree,S", [(False, 2), (True, 3)])
 def test_one_span_integer_stats_equal_subblock_route(per_tree, S):
     """Every node one span, integer stats: equal to the per-sub-block plain
@@ -203,9 +277,10 @@ def test_one_span_integer_stats_equal_subblock_route(per_tree, S):
         binq = lv["bins"].gather(1, lv["src2"][..., None].expand(T, n_pad, 16))
     else:
         binq = lv["bins"].index_select(0, lv["src2"].reshape(-1)).reshape(T, n_pad, 16)
-    parts = rk.subblock_hist_batched(binq.to(torch.int32), lv["swq"], n_bins=32, r_sub=8)
+    parts = rk.subblock_hist_plain(binq.to(torch.int32).reshape(T * n_pad, 16), lv["swq"].reshape(T * n_pad, S),
+                                   n_bins=32, r_sub=8)
     sb_node = torch.repeat_interleave(torch.arange(T * (n_nodes + 1)), lv["counts"].reshape(-1))
-    old = pt._segment_sum(parts.reshape(T * (n_pad // 8), -1), sb_node, T * (n_nodes + 1), grouped=True)
+    old = pt._segment_sum(parts.reshape(T * (n_pad // 8), -1), sb_node, T * (n_nodes + 1))
     old = old.reshape(T, n_nodes + 1, S, -1)[:, :n_nodes]
     np.testing.assert_array_equal(_plain(lv).numpy(), old.numpy())
 
@@ -216,6 +291,19 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     np.testing.assert_array_equal(got.numpy(), _plain(lv).numpy())
     with pytest.raises(ValueError):
         rk.node_hist_batched(lv["bins"], lv["src2"], lv["swq"][:, :-1], lv["pstart"], n_bins=32, r_sub=8)
+
+
+def test_sel_wrapper_takes_the_plain_version_on_the_cpu():
+    lv = _level(42, 2, 300, 3, 32, 2, 32, 8, False, "gini")
+    feats = torch.from_numpy(_feats(1, 2, 3, 30, 5, 8))
+    got = rk.node_hist_sel_batched(lv["bins"], lv["src2"], lv["swq"], lv["pstart"], feats, n_bins=32, r_sub=8)
+    ref = rk.node_hist_sel_plain(lv["bins"], lv["src2"], lv["swq"], lv["pstart"], feats, n_bins=32, r_sub=8)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    with pytest.raises(ValueError):
+        rk.node_hist_sel_batched(lv["bins"], lv["src2"], lv["swq"], lv["pstart"], feats[:, :2], n_bins=32, r_sub=8)
+    with pytest.raises(ValueError):
+        rk.node_hist_sel_batched(lv["bins"][None].expand(2, -1, -1), lv["src2"], lv["swq"], lv["pstart"], feats,
+                                 n_bins=32, r_sub=8)
 
 
 # ---------------------------------------------------------------------------
@@ -331,3 +419,43 @@ def test_geometry_gbt_level7_one_launch_three_blocks_an_sm():
     geo = rk.node_hist_geometry(1, n_pad, r_sub, 128, 256, 4, 128)
     assert (geo.fc, geo.P, -(-4 * 256 // geo.P)) == (256, 128, 8)
     assert 3 * (geo.smem + 1024) <= 233_472
+
+
+def _wide_forest_shapes():
+    # (n, level): the 3,000-wide forest (8 trees, depth 13, k 55 -> 64,
+    # d_pad 4,096, S 2, nb 128) at chip_smoke's 131,072 rows and the
+    # reference's 1,000,000
+    for n in (131_072, 1_000_000):
+        for level in range(13):
+            yield n, level
+
+
+def test_sel_geometry_within_shared_memory_and_scratch_at_wide_forest_shapes():
+    for n, level in _wide_forest_shapes():
+        r_sub, n_pad, _ = pt.compact_sizes(n, level, 13, 2, 64, 128)
+        geo = rk.node_hist_sel_geometry(8, n_pad, r_sub, 1 << level, 64, 2, 128)
+        assert geo.smem <= 232_448, (n, level, geo)
+        assert geo.scratch_bytes <= 256 << 20, (n, level, geo)
+        assert geo.P % 32 == 0 and 32 <= geo.P <= 256 and geo.pitch % 16 == 0
+        # a staged row holds the 4-byte word of each slot a tile touches
+        assert geo.pitch >= 4 * min(geo.fc, (geo.P - 1) // 2 + 2) and geo.rows >= 1
+        if n == 131_072:
+            assert geo.fc == 64 and geo.P == 128, "the 131,072-row levels in one launch of one tile"
+
+
+def test_sel_geometry_spans_cover_every_real_subblock_once(monkeypatch):
+    monkeypatch.setattr(rk, "SPAN_ROWS", 64)
+    lv = _level(52, 3, 600, 6, 64, 2, 32, 8, False, "gini", empty=0.3)
+    geo = rk.node_hist_sel_geometry(3, lv["n_pad"], 8, 6, 16, 2, 32)
+    seen = _kernel_walk(lv["pstart"], 8, lv["n_pad"], geo)
+    sbs = (lv["pstart"] // 8).numpy()
+    assert set(seen) == {(t, sb) for t in range(3) for sb in range(int(sbs[t, -1]))}
+
+
+def test_wide_route_fits_the_reference_rows_on_an_80gb_card():
+    """The builder's estimate of what the wide route holds at level 12 of
+    1,000,000 x 3,000 rows, 8 trees, passes ``use_sel`` at an 80 GB card's
+    budget (three quarters of it), with room for the rows the fit copies."""
+    r_sub, n_pad, _ = pt.compact_sizes(1_000_000, 12, 13, 2, 64, 128)
+    resident = pt._sel_resident(1_000_000, 4096, 8, n_pad, 4096, 2, 64, 128)
+    assert resident <= 0.75 * 80e9 - 12e9, resident

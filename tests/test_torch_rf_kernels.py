@@ -2,7 +2,9 @@
 against the JAX package on the CPU.
 
 The port's wrappers run their plain PyTorch versions here (CPU tensors);
-the JAX package's Pallas kernels run in interpret mode. Histogram partials
+K5's and K6's per-sub-block forms, which the TPU runs and the card does
+not, are held by their plain versions; the JAX package's Pallas kernels
+run in interpret mode. Histogram partials
 of integer stats (gini counts; variance stats of integer labels) are exact
 in any summation order, so they must be equal; real-valued stats are held
 to rtol 1e-6 with an absolute floor of 1e-6 of the entry's absolute terms.
@@ -54,7 +56,7 @@ def test_subblock_hist_matches_pallas(kind, S, nb, r_sub):
     sw = _sw(rng, rows, S, kind)
     ref = np.asarray(rfp.subblock_hist(jnp.asarray(binq), jnp.asarray(sw), n_bins=nb, r_sub=r_sub,
                                        variance=kind != "gini", interpret=True))
-    got = rk.subblock_hist(torch.from_numpy(binq), torch.from_numpy(sw), n_bins=nb, r_sub=r_sub).numpy()
+    got = rk.subblock_hist_plain(torch.from_numpy(binq), torch.from_numpy(sw), n_bins=nb, r_sub=r_sub).numpy()
     assert got.shape == ref.shape == (rows // r_sub, S, k * nb)
     _hold(got, ref, sw, r_sub, S, kind != "real")
 
@@ -66,7 +68,9 @@ def test_subblock_hist_batched_matches_pallas():
     sw = _sw(rng, T * n_pad, S, "gini").reshape(T, n_pad, S)
     ref = np.asarray(rfp.subblock_hist_batched(jnp.asarray(binq), jnp.asarray(sw), n_bins=nb, r_sub=r_sub,
                                                interpret=True))
-    got = rk.subblock_hist_batched(torch.from_numpy(binq), torch.from_numpy(sw), n_bins=nb, r_sub=r_sub)
+    got = rk.subblock_hist_plain(torch.from_numpy(binq).reshape(T * n_pad, k),
+                                 torch.from_numpy(sw).reshape(T * n_pad, S),
+                                 n_bins=nb, r_sub=r_sub).reshape(T, n_pad // r_sub, S, k * nb)
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
@@ -87,8 +91,8 @@ def test_subblock_hist_sel_matches_pallas(kind, n_features, d_pad):
     sw = _sw(rng, rows, S, kind)
     ref = np.asarray(rfp.subblock_hist_sel(jnp.asarray(bq), jnp.asarray(featsq), jnp.asarray(sw.T), n_bins=nb,
                                            r_sub=r_sub, variance=kind != "gini", interpret=True))
-    got = rk.subblock_hist_sel(torch.from_numpy(bq), torch.from_numpy(featsq), torch.from_numpy(sw),
-                               n_bins=nb, r_sub=r_sub).numpy()
+    got = rk.subblock_hist_sel_plain(torch.from_numpy(bq), torch.from_numpy(featsq), torch.from_numpy(sw),
+                                     n_bins=nb, r_sub=r_sub).numpy()
     _hold(got, ref, sw, r_sub, S, kind != "real")
     # a sentinel slot reads bin 0
     sent = got.reshape(n_sb, S, k, nb)[:, :, 11:, 1:]
@@ -104,17 +108,18 @@ def test_subblock_hist_sel_batched_matches_pallas():
     ref = np.asarray(rfp.subblock_hist_sel_batched(
         jnp.asarray(bq), jnp.asarray(featsq), jnp.asarray(sw.transpose(0, 2, 1)), n_bins=nb, r_sub=r_sub,
         variance=True, interpret=True))
-    got = rk.subblock_hist_sel_batched(torch.from_numpy(bq), torch.from_numpy(featsq), torch.from_numpy(sw),
-                                       n_bins=nb, r_sub=r_sub)
+    got = rk.subblock_hist_sel_plain(
+        torch.from_numpy(bq).reshape(T * n_pad, d_pad), torch.from_numpy(featsq).reshape(-1, k),
+        torch.from_numpy(sw).reshape(T * n_pad, S), n_bins=nb, r_sub=r_sub).reshape(T, n_pad // r_sub, S, k * nb)
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_out_of_range_bins_add_nothing():
     """K5's plain version skips a bin outside [0, nb) (the Pallas one-hot
-    matches no lane there); the CUDA kernel does the same."""
+    matches no lane there)."""
     binq = torch.tensor([[0, 5], [-1, 1], [3, 9]], dtype=torch.int32)
     sw = torch.ones((3, 1))
-    out = rk.subblock_hist(binq, sw, n_bins=4, r_sub=3).reshape(1, 2, 4)
+    out = rk.subblock_hist_plain(binq, sw, n_bins=4, r_sub=3).reshape(1, 2, 4)
     np.testing.assert_array_equal(out.numpy(), [[[1, 0, 0, 1], [0, 1, 0, 0]]])
 
 
