@@ -39,8 +39,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
    4,096-row sample, and in full at ragged shapes; it must beat its plain
    version at all four main shapes, one chunked addmm + topk at the kNN and
    UMAP-graph shapes, and take at most KNN_MS_MAX at the kNN shape; K10
-   (one UMAP SGD epoch) on the rows of the 65,536 x 256 UMAP graph and at
-   the transform's shape (65,536 rows, K = 15); K3's tile kernel (whole
+   (one UMAP SGD epoch: its ROWS epilogue, the per-row sums, with streamed
+   uniforms and with its own slot draws, whose bits must equal the plain
+   hash's; its STEP epilogue, the whole epoch, with its draws, two launches
+   equal bit for bit) on the rows of the 65,536 x 256 UMAP graph, at the
+   transform's shape (65,536 rows, K = 15), on the rows of the
+   umap_cluster graph (70,000 x 784, 30 neighbours, C = 10: the generic
+   instance) and at that path's transform shape (70,000 rows, K = 30, a
+   frozen 70,000 x 10 table), its controls a dropped repulsive term, a
+   flipped hash bit and every head's second row skipped; at the first two
+   it must beat the kernel it replaced (K10_PARENT_MS), and on a table and
+   heads off 16 bytes it must give what it gives on aligned ones, bit for
+   bit; K3's tile kernel (whole
    rows staged once in shared memory, the gradient held on chip) timed
    beside its autograd call at 200,000 rows of d = 3,000 (K = 1), d = 512
    (K = 10) and d = 256 (K = 32), and at the wide fit's 1,024,000 x 3,000
@@ -137,6 +147,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    n_neighbors=15, random_state=42) fit, transform and save/load at
    65,536 x 256 (bench.py's blobs), held by trustworthiness on a 4,096-row
    sample, and a 20,000-row UMAP fitted on the card and on the CPU;
+   umap_cluster: UMAP(n_neighbors=30, min_dist=0.0, n_components=10) fit
+   and transform of 70,000 x 784 (MNIST's shape, 10 Gaussian blobs made on
+   the card), held likewise, and its first 10,000 rows fitted on the card
+   and on the CPU (random init); each UMAP path must launch K10 once an
+   epoch;
    RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128) fit,
    transform, save/load and transform on the first 131,072 rows (bench.py's
    rf config), RandomForestRegressor(numTrees=8) on the same rows with a
@@ -198,6 +213,13 @@ partial write, and the cluster kernel without its gradient's reads of the
 staged rows or its exchange, and at every other cluster size that takes
 the shape. It prints no result line and exits 1 if a check failed.
 
+    python3 chip_smoke.py --umap-only [--sweep]
+
+is a probe of K10: its checks at its four shapes, then the two UMAP paths
+with their card-vs-CPU fits; ``--sweep`` first times its STEP epilogue with
+parts of its work knocked out. It prints no result line and exits 1 if a
+check failed.
+
     python3 chip_smoke.py --hist-only [--sweep]
 
 is a probe of K5 and K6: K5 at the GBT's level 7 and the bench forest's
@@ -245,6 +267,17 @@ TRUST_MIN = 0.85
 TRUST_ROWS = 4096
 # rows of the UMAP fitted on the card and on the CPU
 UMAP_SUBSET = 20_000
+# the umap_cluster path: MNIST's shape (70,000 x 784) as 10 Gaussian blobs,
+# UMAP(n_neighbors=30, min_dist=0.0, n_components=10): the setting of
+# umap-learn's "Using UMAP for Clustering" guide, a 10-wide embedding for a
+# clustering step; its first 10,000 rows also fitted on the card and the CPU
+CLUSTER_ROWS = 70_000
+CLUSTER_D = 784
+CLUSTER_BLOBS = 10
+CLUSTER_NEIGHBORS = 30
+CLUSTER_MIN_DIST = 0.0
+CLUSTER_COMPONENTS = 10
+CLUSTER_SUBSET = 10_000
 # bench.py's rf config (bench.py:652-728): 131,072 x 256, 50 trees, depth
 # 13, 128 bins; the regressor and the 3,000-feature forest (the
 # reference's benchmark width, rows cut from 1M) keep 8 trees
@@ -876,68 +909,174 @@ def check_knn_topk(torch, kn, Xq, Xi, mask, k, sample=None, reps=0, split=None, 
     return out
 
 
-# K10: each term passes through two powf (a few ulps each), a division and
+# K10: each term passes through a powf (a few ulps), a division or two and
 # the rounding of diff and d2, so its f32 error is held at TOL_TERMS_SGD·u
 # of its size rather than TOL_TERMS
 TOL_TERMS_SGD = 32.0
+# the parent kernel (one warp a row, lanes over its slots) at the fit and
+# transform shapes: scripts/umap_epoch.py on the checkout before K10's
+# redesign, mean of 50 (NVIDIA H100 80GB HBM3, 700.00 W); the redesign
+# must beat both
+K10_PARENT_MS = {"fit": 0.11340991973876953, "transform": 0.07890111923217774}
+# the K10 checks' epoch step (the first epoch's learning rate)
+K10_ALPHA = 1.0
 
 
 def sgd_terms_abs(torch, uk, src, h, tails, p, perm, offs, u, a, b, gamma, scale):
-    """Σ|term| per (row, component) of one K10 epoch, in f64: the T of
-    ``held`` for the kernel's per-row sums."""
+    """Σ|term| per (row, component) of one K10 epoch, in f64 over the
+    active slots: the T of the K10 band for the per-row sums."""
     R, K = tails.shape
-    active = (u < p).to(src.dtype)
-    diff = h[:, None, :] - src[tails.long()]
-    d2 = (diff * diff).sum(dim=2)
-    ac = torch.where(d2 > 0, (2.0 * a * b * d2 ** (b - 1.0)) / (a * d2 ** b + 1.0), 0.0) * active
-    T = torch.clamp((ac[..., None] * diff).abs(), max=4.0).sum(dim=1) * scale
-    diff_n = h[:, None, None, :] - src[uk.negative_ids(perm, offs, R, K)]
-    d2n = (diff_n * diff_n).sum(dim=3)
+    r, k = torch.nonzero(u < p, as_tuple=True)
+    diff = h[r] - src[tails[r, k].long()]
+    d2 = (diff * diff).sum(dim=1)
+    ac = torch.where(d2 > 0, (2.0 * a * b * d2 ** (b - 1.0)) / (a * d2 ** b + 1.0), 0.0)
+    T = torch.clamp((ac[:, None] * diff).abs(), max=4.0) * scale
+    diff_n = h[r][:, None, :] - src[uk.negative_ids(perm, offs, R, K, r, k)]
+    d2n = (diff_n * diff_n).sum(dim=2)
     rc = torch.where(d2n > 0, (2.0 * gamma * b) / ((0.001 + d2n) * (a * d2n ** b + 1.0)), 0.0)
-    return T + torch.clamp((rc * active[..., None])[..., None] * diff_n.abs(), max=4.0).sum(dim=(1, 2))
+    T = T + torch.clamp((rc[..., None] * diff_n).abs(), max=4.0).sum(dim=1)
+    return torch.zeros((R, src.shape[1]), dtype=src.dtype, device=src.device).index_add_(0, r, T)
 
 
-def check_sgd_epoch(torch, uk, src, h, tails, p, perm, offs, u, a, b, reps, control=False, scale=2.0):
-    """K10 against its plain version in f64 on the same u/perm/offs;
-    ``scale`` is the attractive factor (2 on the fit's self table, 1 in
-    the transform's refine epochs)."""
+def k10_ratio(torch, out, ref, tol) -> float:
+    err = (out.to(torch.float64) - ref).abs()
+    return float(torch.where(err > 0, err / tol, torch.zeros_like(err)).max())
+
+
+def k10_rows_band(torch, uk, src, h, tails, p, perm, offs, u, a, b, scale):
+    """(ref, T, tol) of the ROWS epilogue: its f64 plain version on the
+    same inputs and the band u·(TOL_TERMS_SGD·T + TOL_WALK·√n·|ref|), n
+    the row's K·(1 + neg) terms."""
+    f64 = torch.float64
+    args = (src.to(f64), h.to(f64), tails, p.to(f64), perm, offs, u.to(f64))
+    ref = uk.sgd_epoch_rows_plain(*args, a, b, 1.0, scale)
+    T = sgd_terms_abs(torch, uk, *args, a, b, 1.0, scale)
+    n_terms = tails.shape[1] * (1 + offs.shape[0])
+    return ref, T, U32 * (TOL_TERMS_SGD * T + TOL_WALK * n_terms ** 0.5 * ref.abs())
+
+
+def k10_step_band(torch, emb, row_off, rows_ref, T, n_terms_row, alpha):
+    """(next_ref, upd_ref, tol) of the STEP epilogue from the f64 per-row
+    sums and term sizes: each head's sums added up, its band the sum of its
+    rows' (√ of all its terms), times alpha, plus the rounding of the step."""
+    emb64 = emb.to(torch.float64)
+    counts = row_off.diff()
+    live = int(row_off[-1])
+    heads = torch.repeat_interleave(torch.arange(emb.shape[0], device=emb.device), counts)
+    upd = torch.zeros_like(emb64).index_add_(0, heads, rows_ref[:live])
+    T_h = torch.zeros_like(emb64).index_add_(0, heads, T[:live])
+    n_h = (counts.clamp(min=1) * n_terms_row).to(torch.float64)[:, None]
+    nxt = torch.where((counts > 0)[:, None], emb64 + alpha * upd, emb64)
+    tol = alpha * U32 * (TOL_TERMS_SGD * T_h + TOL_WALK * n_h.sqrt() * upd.abs()) \
+        + 2 * U32 * (emb64.abs() + alpha * upd.abs())
+    return nxt, upd, heads, tol
+
+
+def check_sgd_epoch(torch, uk, shape, src, emb, row_heads, tails, p, perm, offs, u, a, b, reps, scale,
+                    seed, parent_ms=None):
+    """K10 at one shape, both epilogues, each against its plain version in
+    f64 on the same inputs. ``emb`` (n_head, C) holds the heads' rows
+    (``row_heads`` (R,) ascending; ``emb`` is ``src`` on the fit's self
+    table), ``scale`` the attractive factor (2 on the self table, 1 in the
+    transform's refine epochs). ROWS with the streamed ``u`` (its control:
+    the repulsive term dropped on even rows) and with the kernel's draws of
+    ``seed`` (their bits equal to the plain hash's bit for bit; control: the
+    top bit of every slot's hash flipped); STEP with the kernel's draws
+    (controls: every head's second row skipped, where heads have two), two
+    launches equal bit for bit. With ``reps``: ms of both (STEP with its
+    draws, ROWS with streamed u), their plain versions' ms, and bounds; and,
+    given ``parent_ms``, both must beat the parent kernel's ms."""
+    f64 = torch.float64
     R, K = tails.shape
     n_tab, C = src.shape
     neg = offs.shape[0]
-    gamma = 1.0
-    out = uk.sgd_epoch_rows(src, h, tails, p, perm, offs, u, a, b, gamma, scale)
-    f64 = torch.float64
-    args64 = (src.to(f64), h.to(f64), tails, p.to(f64), perm, offs, u.to(f64))
-    ref = uk.sgd_epoch_rows_plain(*args64, a, b, gamma, scale)
-    T = sgd_terms_abs(torch, uk, *args64, a, b, gamma, scale)
-    n_terms = K * (1 + neg)
-    err = (out.to(f64) - ref).abs()
-    tol = U32 * (TOL_TERMS_SGD * T + TOL_WALK * n_terms ** 0.5 * ref.abs())
-    ratio = float(torch.where(err > 0, err / tol, torch.zeros_like(err)).max())
-    check(ratio <= 1.0, f"sgd_epoch_rows R={R} K={K} C={C}: |d|/tol {ratio:.3g} above 1")
-    active = int((u < p).sum())
-    res = {"R": R, "K": K, "C": C, "neg": neg, "n_tab": n_tab, "attract_scale": scale, "active_slots": active,
-           "max_abs_err": float(err.max()), "err_over_tol": ratio}
-    if control:  # a kernel that drops the repulsive term on every other row
-        bad = out.clone()
-        bad[::2] = uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a, b, 0.0, scale)[::2]
-        e = (bad.to(f64) - ref).abs()
-        r = float(torch.where(e > 0, e / tol, torch.zeros_like(e)).max())
-        check(r > 1.0, f"the K10 check does not catch a dropped repulsive term: err/tol {r:.3g}")
-        res["controls"] = [{"control": "repulsive term dropped on even rows", "max_abs_err": float(e.max()),
-                            "err_over_tol": r}]
+    h = emb[row_heads.long()]
+    rows = uk.head_rows(row_heads, p, emb.shape[0], C)
+    live = int(rows.off[-1])
+    res = {"shape": shape, "R": R, "K": K, "C": C, "neg": neg, "n_tab": n_tab, "n_head": emb.shape[0],
+           "rows_live": live, "attract_scale": scale, "active_slots_streamed": int((u < p).sum())}
+    controls = []
+
+    def held_or_fail(what, out, ref, tol):
+        r = k10_ratio(torch, out, ref, tol)
+        check(r <= 1.0, f"K10 {what} at the {shape} shape: |d|/tol {r:.3g} above 1")
+        return float((out.to(f64) - ref).abs().max()), r
+
+    def caught(what, bad, ref, tol):
+        r = k10_ratio(torch, bad, ref, tol)
+        check(r > 1.0, f"the K10 check at the {shape} shape does not catch: {what} (err/tol {r:.3g})")
+        controls.append({"control": what, "max_abs_err": float((bad.to(f64) - ref).abs().max()),
+                         "err_over_tol": r})
+
+    # ROWS, streamed u
+    out = uk.sgd_epoch_rows(src, h, tails, p, perm, offs, u, a, b, 1.0, scale)
+    ref, _, tol = k10_rows_band(torch, uk, src, h, tails, p, perm, offs, u, a, b, scale)
+    res["rows_max_abs_err"], res["rows_err_over_tol"] = held_or_fail("ROWS (streamed u)", out, ref, tol)
+    bad = out.clone()
+    bad[::2] = uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a, b, 0.0, scale)[::2]
+    caught("repulsive term dropped on even rows", bad, ref, tol)
+    # ROWS with the kernel's draws: their bits, then the sums
+    bits = torch.empty((R, K), dtype=torch.int32, device=src.device)
+    out_d = uk.sgd_epoch_rows(src, h, tails, p, perm, offs, None, a, b, 1.0, scale, seed=seed, bits_out=bits)
+    plain_bits = uk.slot_bits_plain(seed, R, K, src.device)
+    n_diff = int(((bits.to(torch.int64) & 0xFFFFFFFF) != plain_bits).sum())
+    check(n_diff == 0, f"K10's draws differ from the plain hash in {n_diff} slots at the {shape} shape")
+    u_d = (plain_bits >> 8).to(f64) * 2.0 ** -24
+    res["active_slots"] = int((u_d < p).sum())
+    ref_d, T_d, tol_d = k10_rows_band(torch, uk, src, h, tails, p, perm, offs, u_d, a, b, scale)
+    res["drawn_rows_max_abs_err"], res["drawn_rows_err_over_tol"] = held_or_fail("ROWS (its draws)", out_d, ref_d,
+                                                                                 tol_d)
+    u_flip = ((plain_bits ^ (1 << 31)) >> 8).to(f64) * 2.0 ** -24
+    caught("top bit of the slot hash flipped", uk.sgd_epoch_rows_plain(
+        src.to(f64), h.to(f64), tails, p.to(f64), perm, offs, u_flip, a, b, 1.0, scale), ref_d, tol_d)
+    # STEP with the kernel's draws
+    nxt_buf = torch.empty_like(emb)
+    nxt = uk.sgd_epoch_step(emb, src, rows, tails, p, perm, offs, a, b, 1.0, scale, K10_ALPHA, seed=seed,
+                            out=nxt_buf).clone()
+    again = uk.sgd_epoch_step(emb, src, rows, tails, p, perm, offs, a, b, 1.0, scale, K10_ALPHA, seed=seed,
+                              out=nxt_buf)
+    check(torch.equal(nxt, again), f"two K10 STEP launches differ at the {shape} shape")
+    ref_s, upd_ref, heads, tol_s = k10_step_band(torch, emb, rows.off, ref_d, T_d, K * (1 + neg), K10_ALPHA)
+    res["max_abs_err"], res["err_over_tol"] = held_or_fail("STEP (its draws)", nxt, ref_s, tol_s)
+    counts = rows.off.diff()
+    second = rows.off[:-1][counts >= 2] + 1
+    res["heads_with_two_rows"] = int(second.numel())
+    if second.numel():
+        skip = torch.zeros_like(upd_ref).index_add_(0, heads[second], ref_d[second])
+        caught("every head's second row skipped in STEP", emb.to(f64) + K10_ALPHA * (upd_ref - skip), ref_s, tol_s)
+    res["controls"] = controls
     if reps:
-        res["ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_rows(src, h, tails, p, perm, offs, u, a, b, gamma,
-                                                                   scale), reps)
-        res["plain_ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a, b,
-                                                                               gamma, scale), reps)
-        res["library_ms"] = None  # no single PyTorch call computes one epoch's row sums
-        # tails, p, u streamed once; table, heads, perm, offs read once; sums written
-        nbytes = 4.0 * (3 * R * K + n_tab * C + R * C + n_tab + neg + R * C)
+        # the kernels' device time (their wrappers' host time apart: it can
+        # exceed the device's), the plain versions' by CUDA events
+        reps = max(20, reps)
+        res["rows_ms"], res["rows_host_us"] = device_host(torch, lambda: uk.sgd_epoch_rows(
+            src, h, tails, p, perm, offs, u, a, b, 1.0, scale), reps)
+        res["rows_plain_ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_rows_plain(src, h, tails, p, perm, offs, u, a,
+                                                                              b, 1.0, scale), reps)
+        res["ms"], res["host_us"] = device_host(torch, lambda: uk.sgd_epoch_step(
+            emb, src, rows, tails, p, perm, offs, a, b, 1.0, scale, K10_ALPHA, seed=seed, out=nxt_buf), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: uk.sgd_epoch_step_plain(
+            emb, src, rows, tails, p, perm, offs, a, b, 1.0, scale, K10_ALPHA, seed=seed), reps)
+        res["library_ms"] = res["rows_library_ms"] = None  # no single PyTorch call computes an epoch
         # per evaluated term (active slot x (1 + neg)): 3C for diff and d2,
         # ~10 for the coefficient, 3C to clip and add
-        flops = active * (1.0 + neg) * (6.0 * C + 10.0)
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+        per_term = (1.0 + neg) * (6.0 * C + 10.0)
+        # ROWS: tails, p, u streamed once; table, heads, perm, offs read once; sums written
+        res["rows_bound_ms"], res["rows_bound_by"] = bound_ms(
+            4.0 * (3 * R * K + n_tab * C + R * C + n_tab + neg + R * C), res["active_slots_streamed"] * per_term)
+        # STEP: the live rows' tails, p and heads, perm, offs, the row
+        # offsets, the embedding in and out, and (transform) the frozen
+        # table; no u
+        table_bytes = 0 if src.data_ptr() == emb.data_ptr() else n_tab * C
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            4.0 * (2 * live * K + live + n_tab + neg + 2 * (emb.shape[0] + 1) + 2 * emb.shape[0] * C + table_bytes),
+            res["active_slots"] * per_term + 2.0 * emb.shape[0] * C)
+        if parent_ms is not None:
+            # a constant from step 0 (run A), not this run's: the gate's
+            res["parent_ms_step0_run_A"] = parent_ms
+            check(res["ms"] < parent_ms and res["rows_ms"] < parent_ms,
+                  f"K10 at the {shape} shape is not faster than the parent kernel's {parent_ms:.4f} ms: STEP "
+                  f"{res['ms']:.4f}, ROWS {res['rows_ms']:.4f}")
     return res
 
 
@@ -1341,6 +1480,16 @@ def make_umap_data(n: int, seed: int) -> np.ndarray:
     return (centers[lab] + rng.normal(size=(n, E2E_D))).astype(np.float32)
 
 
+def make_cluster_data(torch, seed: int, dev) -> np.ndarray:
+    """(70,000, 784) f32 host rows made on ``dev`` from ``seed``: 10
+    Gaussian blobs (centre scale 4, unit noise), MNIST's shape."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 70)
+    centres = torch.randn((CLUSTER_BLOBS, CLUSTER_D), generator=g, device=dev) * 4.0
+    lab = torch.randint(0, CLUSTER_BLOBS, (CLUSTER_ROWS,), generator=g, device=dev)
+    return (centres[lab] + torch.randn((CLUSTER_ROWS, CLUSTER_D), generator=g, device=dev)).cpu().numpy()
+
+
 def query_sample(torch, nq, dev, rows=4096):
     """``rows`` query rows: the first query tile (the negative control
     shifts its ids), then rows spread over the rest."""
@@ -1420,54 +1569,144 @@ def knn_gates(res) -> dict:
     return out
 
 
-def phase_knn_umap_kernels(torch, X_items, X_umap, reps, seed):
-    """K4 (``phase_knn_kernels``, gated) and K10 at the UMAP fit shape (the
-    CSR rows of the 65,536 x 256 graph, K = 24, C = 2, neg = 5) and the
-    transform shape (65,536 rows, K = 15, neg = 5, frozen table)."""
+def umap_rows(torch, uk, Xd, k: int, K: int = 24):
+    """The UMAP fit's kNN graph of the rows ``Xd`` (k neighbours, self
+    excluded, on their device), its fuzzy set and its CSR rows of K slots:
+    ``(idx, row_heads, tails_pad, p_pad)``."""
     from spark_rapids_ml_tpu_torch.models.umap import drop_self_column, knn_brute
+
+    dists, idx = drop_self_column(*knn_brute(Xd, Xd, k=k + 1), k=k)
+    heads, tails, weights = uk.fuzzy_simplicial_set(idx.cpu().numpy(), dists, 1.0, 1.0, device=Xd.device)
+    return (idx, *uk.build_row_adjacency(heads, tails, weights, Xd.shape[0], K=K))
+
+
+def offset_view(torch, t):
+    """A copy of ``t`` one row past the start of its buffer: off the 16
+    bytes K10's vector loads assume when a row is 8 or 12 bytes."""
+    buf = torch.empty((t.shape[0] + 1, *t.shape[1:]), dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def check_k10_offset_views(torch, uk, src, emb, tails, p, perm, offs, u, a, b, seed) -> bool:
+    """K10's wrappers on a table and heads that both lie off 16 bytes (so
+    that each wrapper copies both, and the two copies must not share
+    memory) against the same calls on aligned tensors, bit for bit: ROWS
+    with the streamed ``u`` and STEP with the kernel's draws, one row a
+    head (``emb`` (R, C)), a frozen table ``src`` of the same shape."""
+    src_v, emb_v = offset_view(torch, src), offset_view(torch, emb)
+    check(src_v.data_ptr() % 16 != 0 and emb_v.data_ptr() % 16 != 0, "K10's offset views lie on 16 bytes")
+    rows_ok = torch.equal(uk.sgd_epoch_rows(src_v, emb_v, tails, p, perm, offs, u, a, b, 1.0, 1.0),
+                          uk.sgd_epoch_rows(src, emb, tails, p, perm, offs, u, a, b, 1.0, 1.0))
+    rows = uk.head_rows(torch.arange(tails.shape[0], device=src.device), p, emb.shape[0], emb.shape[1])
+    step_ok = torch.equal(
+        uk.sgd_epoch_step(emb_v, src_v, rows, tails, p, perm, offs, a, b, 1.0, 1.0, K10_ALPHA, seed=seed),
+        uk.sgd_epoch_step(emb, src, rows, tails, p, perm, offs, a, b, 1.0, 1.0, K10_ALPHA, seed=seed))
+    check(rows_ok and step_ok, f"K10 on offset views differs from K10 on aligned tensors (ROWS equal: "
+                               f"{rows_ok}, STEP equal: {step_ok})")
+    return True
+
+
+def phase_sgd_kernels(torch, X_umap, X_cluster, reps, seed, dev):
+    """K10 (``check_sgd_epoch``) at the UMAP fit shape (the CSR rows of the
+    65,536 x 256 graph, K = 24, C = 2, neg = 5), the transform shape (65,536
+    rows, K = 15, neg = 5, frozen table; there also on offset views,
+    ``check_k10_offset_views``), the umap_cluster shape (the CSR rows of
+    the 70,000 x 784 graph of 30 neighbours, K = 24, C = 10: the generic
+    instance) and that path's transform shape (70,000 rows, K = 30, a
+    frozen 70,000 x 10 table), each on a random table, the first two of
+    which must beat the parent kernel; then a ragged case (K = 40, neg =
+    20, C = 3, a frozen table), held only."""
     from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
 
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    # K10 on the UMAP fit's own rows: its graph, a random table
+    idx, row_heads, tails_pad, p_pad = umap_rows(torch, uk, torch.from_numpy(X_umap).to(dev), UMAP_NEIGHBORS)
+    n = X_umap.shape[0]
+    a, b = uk.find_ab_params(1.0, 0.1)
+    src = torch.rand((n, 2), generator=g, device=dev) * 20.0 - 10.0
+    tails_d, p_d = torch.from_numpy(tails_pad).to(dev), torch.from_numpy(p_pad).to(dev)
+    R, K = tails_pad.shape
+    u = torch.rand((R, K), generator=g, device=dev)
+    perm = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
+    offs = torch.randint(0, R, (5,), generator=g, device=dev, dtype=torch.int32)
+    res = {"sgd_epoch": check_sgd_epoch(torch, uk, "fit", src, src, torch.from_numpy(row_heads).to(dev), tails_d,
+                                        p_d, perm, offs, u, a, b, reps, 2.0, seed + 101, K10_PARENT_MS["fit"])}
+    emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **res["sgd_epoch"]})
+    # the transform's epoch: one row per query (R = 65,536), its K = 15
+    # training neighbours into the frozen table, neg = 5 offsets in [0, R),
+    # the attractive term once
+    tails_tr = idx.contiguous()
+    shp = tails_tr.shape
+    offs_tr = torch.randint(0, shp[0], (5,), generator=g, device=dev, dtype=torch.int32)
+    p_tr = torch.rand(shp, generator=g, device=dev)
+    u_tr = torch.rand(shp, generator=g, device=dev)
+    res["sgd_epoch_transform"] = check_sgd_epoch(
+        torch, uk, "transform", src, src + 0.5, torch.arange(shp[0], device=dev), tails_tr, p_tr, perm, offs_tr,
+        u_tr, a, b, reps, 1.0, seed + 102, K10_PARENT_MS["transform"])
+    res["sgd_epoch_transform"]["offset_views_equal"] = check_k10_offset_views(
+        torch, uk, src, src + 0.5, tails_tr, p_tr, perm, offs_tr, u_tr, a, b, seed + 102)
+    emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **res["sgd_epoch_transform"]})
+    # the umap_cluster fit's rows: 30 neighbours, K = 24, C = 10
+    idx, row_heads, tails_pad, p_pad = umap_rows(torch, uk, torch.from_numpy(X_cluster).to(dev),
+                                                 CLUSTER_NEIGHBORS)
+    n = X_cluster.shape[0]
+    a, b = uk.find_ab_params(1.0, CLUSTER_MIN_DIST)
+    src = torch.rand((n, CLUSTER_COMPONENTS), generator=g, device=dev) * 20.0 - 10.0
+    R, K = tails_pad.shape
+    u = torch.rand((R, K), generator=g, device=dev)
+    perm = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
+    offs = torch.randint(0, R, (5,), generator=g, device=dev, dtype=torch.int32)
+    res["sgd_epoch_cluster"] = check_sgd_epoch(
+        torch, uk, "umap_cluster", src, src, torch.from_numpy(row_heads).to(dev), torch.from_numpy(tails_pad).to(dev),
+        torch.from_numpy(p_pad).to(dev), perm, offs, u, a, b, reps, 2.0, seed + 103)
+    emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **res["sgd_epoch_cluster"]})
+    # the umap_cluster transform's epoch (the generic instance on a frozen
+    # table): one row per query (R = 70,000), its K = 30 training
+    # neighbours, neg = 5 offsets in [0, R), the attractive term once
+    tails_tr = idx.contiguous()
+    shp = tails_tr.shape
+    offs_tr = torch.randint(0, shp[0], (5,), generator=g, device=dev, dtype=torch.int32)
+    p_tr = torch.rand(shp, generator=g, device=dev)
+    u_tr = torch.rand(shp, generator=g, device=dev)
+    res["sgd_epoch_cluster_transform"] = check_sgd_epoch(
+        torch, uk, "umap_cluster_transform", src, src + 0.5, torch.arange(shp[0], device=dev), tails_tr, p_tr, perm,
+        offs_tr, u_tr, a, b, reps, 1.0, seed + 106)
+    emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **res["sgd_epoch_cluster_transform"]})
+    # ragged, held only: K = 40 slots (two chunks of a warp), 20 negatives
+    # (past the staged ones), C = 3, a frozen table of another size
+    rng = np.random.default_rng(seed + 104)
+    n_head, n_tab = 3_001, 5_003
+    deg = rng.integers(0, 120, size=n_head)
+    heads = np.repeat(np.arange(n_head), deg)
+    row_heads, tails_pad, p_pad = uk.build_row_adjacency(
+        heads, rng.integers(0, n_tab, size=heads.size), rng.uniform(0.05, 1.0, size=heads.size).astype(np.float32),
+        n_head, K=40, row_bucket=256)
+    R = tails_pad.shape[0]
+    table = torch.rand((n_tab, 3), generator=g, device=dev) * 20.0 - 10.0
+    ragged = check_sgd_epoch(
+        torch, uk, "ragged", table, torch.rand((n_head, 3), generator=g, device=dev) * 20.0 - 10.0,
+        torch.from_numpy(row_heads).to(dev), torch.from_numpy(tails_pad).to(dev), torch.from_numpy(p_pad).to(dev),
+        torch.randperm(n_tab, generator=g, device=dev, dtype=torch.int32),
+        torch.randint(0, R, (20,), generator=g, device=dev, dtype=torch.int32), torch.rand((R, 40), generator=g,
+                                                                                          device=dev), a, b, 0, 1.0,
+        seed + 105)
+    emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **ragged})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return res
+
+
+def phase_knn_umap_kernels(torch, X_items, X_umap, X_cluster, reps, seed):
+    """K4 (``phase_knn_kernels``, gated) and K10 (``phase_sgd_kernels``)."""
     res = phase_knn_kernels(torch, X_items, X_umap, reps, seed)
     gates = knn_gates(res)
     emit({"phase": "kernels", "kernel": "knn_topk", "gates": gates, "ms_max": KNN_MS_MAX})
     for name, ok in gates.items():
         check(ok, f"K4 gate {name} failed: " + json.dumps(
             {k: {m: r[m] for m in ("ms", "plain_ms", "library_ms")} for k, r in res.items()}))
-    dev = X_items.device
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 3)
-    # K10 on the UMAP fit's own rows: its graph, a random table
-    Xd = torch.from_numpy(X_umap).to(dev)
-    n = Xd.shape[0]
-    dists, idx = drop_self_column(*knn_brute(Xd, Xd, k=UMAP_NEIGHBORS + 1), k=UMAP_NEIGHBORS)
-    heads, tails, weights = uk.fuzzy_simplicial_set(idx.cpu().numpy(), dists, 1.0, 1.0, device=dev)
-    row_heads, tails_pad, p_pad = uk.build_row_adjacency(heads, tails, weights, X_umap.shape[0], K=24)
-    # the transform's tails: each row's 15 training neighbours (self excluded)
-    tails_tr = idx.contiguous()
-    del Xd, dists
-    a, b = uk.find_ab_params(1.0, 0.1)
-    src = torch.rand((n, 2), generator=g, device=dev) * 20.0 - 10.0
-    tails_d = torch.from_numpy(tails_pad).to(dev)
-    p_d = torch.from_numpy(p_pad).to(dev)
-    R, K = tails_pad.shape
-    h = src[torch.from_numpy(row_heads).to(dev).long()]
-    u = torch.rand((R, K), generator=g, device=dev)
-    perm = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
-    offs = torch.randint(0, R, (5,), generator=g, device=dev, dtype=torch.int32)
-    res["sgd_epoch_rows"] = check_sgd_epoch(torch, uk, src, h, tails_d, p_d, perm, offs, u, a, b,
-                                            max(20, reps), control=True)
-    emit({"phase": "kernels", "kernel": "sgd_epoch_rows", **res["sgd_epoch_rows"]})
-    # the transform's epoch: one row per query (R = 65,536), its K = 15
-    # neighbours into the frozen table, neg = 5 offsets in [0, R), the
-    # attractive term once
-    shp = tails_tr.shape
-    offs_tr = torch.randint(0, shp[0], (5,), generator=g, device=dev, dtype=torch.int32)
-    res["sgd_epoch_rows_transform"] = check_sgd_epoch(
-        torch, uk, src, src + 0.5, tails_tr, torch.rand(shp, generator=g, device=dev), perm, offs_tr,
-        torch.rand(shp, generator=g, device=dev), a, b, max(20, reps), control=True, scale=1.0)
-    emit({"phase": "kernels", "kernel": "sgd_epoch_rows", "umap_transform_shape": True,
-          **res["sgd_epoch_rows_transform"]})
-    torch.cuda.synchronize()
+    res.update(phase_sgd_kernels(torch, X_umap, X_cluster, reps, seed, X_items.device))
     return res
 
 
@@ -2748,73 +2987,89 @@ def phase_knn_e2e(torch, Xi_host):
     return launches_all
 
 
-def phase_umap_e2e(torch, X_umap, seed):
-    """UMAP(n_neighbors=15, random_state=42) fit, transform of the same rows,
-    and a save/load round trip, at 65,536 x 256."""
+def phase_umap_e2e(torch, X, seed, path="umap", save=True, **params):
+    """UMAP(random_state=42, **params) fit and transform of the same rows
+    (``params``: n_neighbors 15 and the defaults unless given), held by
+    trustworthiness on a 4,096-row sample, and (``save``) a save/load round
+    trip. K10 must run once an epoch (its STEP epilogue: 200 fit epochs and
+    66 refine epochs at these sizes) and its ROWS epilogue never."""
     import tempfile
 
     from spark_rapids_ml_tpu_torch import DataFrame, UMAP, UMAPModel
     from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
     from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
 
-    n = X_umap.shape[0]
-    df = DataFrame({"features": X_umap})
-    kn.knn_topk_pass.launches = 0
-    uk.sgd_epoch_rows.launches = 0
-    model, t_fit = _timed(torch, lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=42).fit(df))
-    fit_launches = {"knn_topk": kn.knn_topk_pass.launches, "sgd_epoch_rows": uk.sgd_epoch_rows.launches}
+    def counts():
+        return {"knn_topk": kn.knn_topk_pass.launches, "sgd_epoch_step": uk.sgd_epoch_step.launches,
+                "sgd_epoch_rows": uk.sgd_epoch_rows.launches}
+
+    n = X.shape[0]
+    params = {"n_neighbors": UMAP_NEIGHBORS, **params}
+    C = params.get("n_components", 2)
+    df = DataFrame({"features": X})
+    kn.knn_topk_pass.launches = uk.sgd_epoch_step.launches = uk.sgd_epoch_rows.launches = 0
+    model, t_fit = _timed(torch, lambda: UMAP(random_state=42, **params).fit(df))
+    fit_launches = counts()
     out, t_tr = _timed(torch, lambda: model.transform(df))
-    launches = {"knn_topk": kn.knn_topk_pass.launches, "sgd_epoch_rows": uk.sgd_epoch_rows.launches}
+    launches = counts()
     emb, emb_t = model.embedding_, np.asarray(out.column("embedding"))
-    check(emb.shape == (n, 2) and np.isfinite(emb).all(), "UMAP embedding shape or finiteness")
-    check(emb_t.shape == (n, 2) and np.isfinite(emb_t).all(), "UMAP transform shape or finiteness")
-    trust_fit = _trust_sample(torch, X_umap, emb, seed)
-    trust_tr = _trust_sample(torch, X_umap, emb_t, seed)
+    check(emb.shape == (n, C) and np.isfinite(emb).all(), f"{path}: UMAP embedding shape or finiteness")
+    check(emb_t.shape == (n, C) and np.isfinite(emb_t).all(), f"{path}: UMAP transform shape or finiteness")
+    trust_fit = _trust_sample(torch, X, emb, seed)
+    trust_tr = _trust_sample(torch, X, emb_t, seed)
     check(trust_fit > TRUST_MIN and trust_tr > TRUST_MIN,
-          f"UMAP trustworthiness fit {trust_fit}, transform {trust_tr} not above {TRUST_MIN}")
-    with tempfile.TemporaryDirectory() as tmp:
-        (_, t_save) = _timed(torch, lambda: model.write().overwrite().save(tmp + "/umap"))
-        loaded, t_load = _timed(torch, lambda: UMAPModel.load(tmp + "/umap"))
-    part = DataFrame({"features": X_umap[:4096]})
-    same_emb = bool(np.array_equal(loaded.embedding_, emb))
-    tr_a = np.asarray(model.transform(part).column("embedding"))
-    tr_b = np.asarray(loaded.transform(part).column("embedding"))
-    check(same_emb and np.array_equal(tr_a, tr_b), "UMAP save/load round trip changed the model")
+          f"{path}: UMAP trustworthiness fit {trust_fit}, transform {trust_tr} not above {TRUST_MIN}")
     rep = model._fit_report
-    emit({"phase": "e2e", "estimator": "UMAP", "n_neighbors": UMAP_NEIGHBORS, "rows": n,
-          "fit_s": t_fit, "transform_s": t_tr, "graph_s": rep["graph_seconds"],
-          "init_s": rep["init_seconds"], "sgd_s": rep["sgd_seconds"], "epoch_ms": rep["epoch_ms"],
-          "n_epochs": rep["n_epochs"], "sgd_rows": rep["rows"], "refine_epochs": model._transform_report["refine_epochs"],
-          "trustworthiness_fit": trust_fit, "trustworthiness_transform": trust_tr,
-          "trust_rows": TRUST_ROWS, "trust_min": TRUST_MIN, "save_s": t_save, "load_s": t_load,
-          "fit_launches": fit_launches, "launches": launches})
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the UMAP path")
+    refine = model._transform_report["refine_epochs"]
+    line = {"phase": "e2e", "estimator": "UMAP", "path": path, **params, "rows": n,
+            "fit_s": t_fit, "transform_s": t_tr, "graph_s": rep["graph_seconds"],
+            "init_s": rep["init_seconds"], "sgd_s": rep["sgd_seconds"], "epoch_ms": rep["epoch_ms"],
+            "n_epochs": rep["n_epochs"], "sgd_rows": rep["rows"], "refine_epochs": refine,
+            "trustworthiness_fit": trust_fit, "trustworthiness_transform": trust_tr,
+            "trust_rows": TRUST_ROWS, "trust_min": TRUST_MIN, "fit_launches": fit_launches, "launches": launches}
+    if save:
+        with tempfile.TemporaryDirectory() as tmp:
+            (_, line["save_s"]) = _timed(torch, lambda: model.write().overwrite().save(tmp + "/umap"))
+            loaded, line["load_s"] = _timed(torch, lambda: UMAPModel.load(tmp + "/umap"))
+        part = DataFrame({"features": X[:4096]})
+        same_emb = bool(np.array_equal(loaded.embedding_, emb))
+        tr_a = np.asarray(model.transform(part).column("embedding"))
+        tr_b = np.asarray(loaded.transform(part).column("embedding"))
+        check(same_emb and np.array_equal(tr_a, tr_b), f"{path}: UMAP save/load round trip changed the model")
+    emit(line)
+    check(fit_launches["knn_topk"] > 0 and launches["knn_topk"] > fit_launches["knn_topk"],
+          f"{path}: kernel knn_topk was not launched by the fit and the transform")
+    # one K10 launch an epoch, and nothing of the ROWS epilogue
+    check(fit_launches["sgd_epoch_step"] == rep["n_epochs"]
+          and launches["sgd_epoch_step"] - fit_launches["sgd_epoch_step"] == refine
+          and launches["sgd_epoch_rows"] == 0,
+          f"{path}: K10 launches {fit_launches} (fit, {rep['n_epochs']} epochs), {launches} (with the "
+          f"transform's {refine})")
     return launches
 
 
-def phase_umap_subset(torch, X_umap, seed, rows):
-    """The same UMAP fitted on the card and on the CPU (plain path), with
-    the default spectral init and with a random one: on 32 nearly
-    disconnected blobs the spectral init's leading eigenvectors are nearly
-    degenerate, so the f32 rounding that separates the two graphs can move
-    the init (and the final trustworthiness by ~0.01); the random init
-    isolates the SGD."""
+def phase_umap_subset(torch, X_all, seed, rows, inits=("spectral", "random"), **params):
+    """The same UMAP fitted on the card and on the CPU (plain path) on the
+    first ``rows`` rows. For the 32-blob rows, with the default spectral
+    init and with a random one: on 32 nearly disconnected blobs the
+    spectral init's leading eigenvectors are nearly degenerate, so the f32
+    rounding that separates the two graphs can move the init (and the
+    final trustworthiness by ~0.01); the random init isolates the SGD."""
     from spark_rapids_ml_tpu_torch import DataFrame, UMAP
 
-    X = X_umap[:rows]
+    X = X_all[:rows]
     df = DataFrame({"features": X})
-    for init in ("spectral", "random"):
+    params = {"n_neighbors": UMAP_NEIGHBORS, **params}
+    for init in inits:
         trust, secs = {}, {}
         for dev in ("cuda:0", "cpu"):
-            m, secs[dev] = _timed(torch, lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=42, init=init,
-                                                      device=dev).fit(df))
+            m, secs[dev] = _timed(torch, lambda: UMAP(random_state=42, init=init, device=dev, **params).fit(df))
             trust[dev] = _trust_sample(torch, X, m.embedding_, seed)
         diff = abs(trust["cuda:0"] - trust["cpu"])
-        emit({"phase": "subset", "estimator": "UMAP", "init": init, "rows": rows, "trust_card": trust["cuda:0"],
-              "trust_cpu": trust["cpu"], "trust_diff": diff, "trust_diff_tol": 0.03,
+        emit({"phase": "subset", "estimator": "UMAP", **params, "init": init, "rows": rows,
+              "trust_card": trust["cuda:0"], "trust_cpu": trust["cpu"], "trust_diff": diff, "trust_diff_tol": 0.03,
               "fit_s_card": secs["cuda:0"], "fit_s_cpu": secs["cpu"]})
-        check(diff <= 0.03, f"UMAP ({init} init) card vs CPU trustworthiness differ by {diff}")
+        check(diff <= 0.03, f"UMAP ({init} init, {params}) card vs CPU trustworthiness differ by {diff}")
 
 
 RF_WRAPPERS = ("node_hist_batched", "node_hist_sel_batched", "packed_traverse",
@@ -3603,6 +3858,90 @@ def lk_attributes(lk, variant, n, d, K, multinomial) -> dict:
     return out
 
 
+def umap_paths(torch, X_umap, X_cluster, seed) -> dict:
+    """The two UMAP paths, each with the launch counters zeroed just before
+    it and read just after: ``{path: {kernel: launches}}``. umap: 65,536 x
+    256 with its 20,000-row card-vs-CPU fits; umap_cluster: 70,000 x 784,
+    10 components, with its 10,000-row card-vs-CPU fit (random init)."""
+    cluster = {"n_neighbors": CLUSTER_NEIGHBORS, "min_dist": CLUSTER_MIN_DIST, "n_components": CLUSTER_COMPONENTS}
+    out = {"umap": phase_umap_e2e(torch, X_umap, seed)}
+    phase_umap_subset(torch, X_umap, seed, UMAP_SUBSET)
+    out["umap_cluster"] = phase_umap_e2e(torch, X_cluster, seed, path="umap_cluster", save=False, **cluster)
+    phase_umap_subset(torch, X_cluster, seed, CLUSTER_SUBSET, inits=("random",), **cluster)
+    return out
+
+
+def k10_entries(kern, by_path) -> list:
+    """The ``kernels``-line entries of K10: its STEP epilogue's instance
+    for C = 2 at the fit shape (the launches of the umap path), its
+    generic instance at the umap_cluster shape (C = 10: that path's
+    launches) and its ROWS epilogue at the fit shape (no path launches it).
+    The transform shape's numbers are in ``extra_shapes``."""
+    rows = [("umap_sgd_epoch", "sgd_epoch", "", "umap"), ("umap_sgd_epoch_generic", "sgd_epoch_cluster", "",
+                                                         "umap_cluster"),
+            ("umap_sgd_epoch_rows", "sgd_epoch", "rows_", None)]
+    out = []
+    for name, key, pre, path in rows:
+        r = kern[key]
+        paths = {path: by_path["sgd_epoch_step"][path]} if path else {}
+        out.append({
+            "name": name, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/umap_sgd_epoch.cu",
+            "replaces": "spark_rapids_ml_tpu/ops/umap_pallas.py:277", "epilogue": "ROWS" if pre else "STEP",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": r[pre + "max_abs_err"], "ms": r[pre + "ms"], "plain_ms": r[pre + "plain_ms"],
+            "bound_ms": r[pre + "bound_ms"], "bound_by": r[pre + "bound_by"], "library_ms": r[pre + "library_ms"],
+            "shape": {k: r[k] for k in ("R", "K", "C", "neg", "n_tab", "n_head", "rows_live", "active_slots")}})
+    return out
+
+
+def umap_probe(torch, args, dev) -> int:
+    """``--umap-only``: K10's checks at its four shapes and the two UMAP
+    paths; ``--sweep`` first times K10's STEP epilogue with parts of its
+    work knocked out at the fit and umap_cluster shapes. Exits 1 if a check
+    failed."""
+    X_umap = make_umap_data(UMAP_ROWS, args.seed)
+    X_cluster = make_cluster_data(torch, args.seed, dev)
+    if args.sweep:  # first: the checks below stop at a failed gate
+        emit({"probe": "umap", "sweep": sweep_sgd(torch, X_umap, X_cluster, args.seed, dev)})
+    res = phase_sgd_kernels(torch, X_umap, X_cluster, args.reps, args.seed, dev)
+    launches = umap_paths(torch, X_umap, X_cluster, args.seed)
+    emit({"probe": "umap", "launches_by_path": launches,
+          "shapes": {k: {m: v for m, v in r.items() if m != "controls"} for k, r in res.items()}})
+    return 0
+
+
+def sweep_sgd(torch, X_umap, X_cluster, seed, dev) -> dict:
+    """K10's STEP epilogue (its draws) whole and with parts of its work
+    knocked out (its terms; its powf; its negatives' perm reads; both; all
+    but the launch), at the fit and umap_cluster shapes: device ms, mean of
+    50."""
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    out = {}
+    for name, X, k, C in (("fit", X_umap, UMAP_NEIGHBORS, 2), ("umap_cluster", X_cluster, CLUSTER_NEIGHBORS,
+                                                                CLUSTER_COMPONENTS)):
+        _, row_heads, tails_pad, p_pad = umap_rows(torch, uk, torch.from_numpy(X).to(dev), k)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 5)
+        n = X.shape[0]
+        emb = torch.rand((n, C), generator=g, device=dev) * 20.0 - 10.0
+        tails, p = torch.from_numpy(tails_pad).to(dev), torch.from_numpy(p_pad).to(dev)
+        rows = uk.head_rows(torch.from_numpy(row_heads).to(dev), p, n, C)
+        perm = torch.randperm(n, generator=g, device=dev, dtype=torch.int32)
+        offs = torch.randint(0, tails.shape[0], (5,), generator=g, device=dev, dtype=torch.int32)
+        nxt = torch.empty_like(emb)
+        out[name] = {}
+        for knock, what in ((0, "whole"), (1, "no_terms"), (2, "no_powf"), (4, "no_perm_reads"),
+                            (6, "no_powf_no_perm_reads"), (8, "launch_only")):
+            def run():  # sgd_epoch_step's launch, with ``knock``
+                uk._build.check("umap_sgd_epoch", uk._k10_launch(
+                    emb, emb, rows, tails, p, perm, offs, None, seed, None, nxt, 1.577, 0.895, 1.0, 2.0, 1.0,
+                    knock=knock))
+
+            out[name][what] = device_host(torch, run, 50)[0]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -3620,11 +3959,15 @@ def main() -> int:
     ap.add_argument("--logreg-only", action="store_true",
                     help="a probe: build K3 alone and time the route, the class-tiled instance and the cluster "
                          "kernel beside the general kernel (prints no result line)")
+    ap.add_argument("--umap-only", action="store_true",
+                    help="a probe: build K4 and K10 alone, run K10's checks and the two UMAP paths (prints no "
+                         "result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
                          "--hist-only: the GBT's levels 0 and 3 and the knock-outs; with --logreg-only: the "
-                         "general and cluster kernels' knock-outs and the other cluster sizes")
+                         "general and cluster kernels' knock-outs and the other cluster sizes; with --umap-only: "
+                         "K10's knock-outs")
     args = ap.parse_args()
 
     import torch
@@ -3646,7 +3989,8 @@ def main() -> int:
     t = time.perf_counter()
     build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
                            else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
-                           else ["logreg_loss_grad"] if args.logreg_only else _build.SOURCES)
+                           else ["logreg_loss_grad"] if args.logreg_only
+                           else ["knn_topk", "umap_sgd_epoch"] if args.umap_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -3667,6 +4011,8 @@ def main() -> int:
         return hist_probe(torch, args, dev)
     if args.logreg_only:
         return logreg_probe(torch, args, dev)
+    if args.umap_only:
+        return umap_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -3688,8 +4034,9 @@ def main() -> int:
         check(ok, f"K2 gate {name} failed: " + json.dumps(
             {k: {m: kern[k][m] for m in ("ms", "plain_ms", "library_ms")} for k in ("lloyd_step", "lloyd_step_4097")}))
     X_umap = make_umap_data(UMAP_ROWS, args.seed)
+    X_cluster = make_cluster_data(torch, args.seed, dev)
     ni = min(KNN_ITEMS, n)
-    kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, args.reps, args.seed))
+    kern.update(phase_knn_umap_kernels(torch, X[:ni], X_umap, X_cluster, args.reps, args.seed))
     kern.update(phase_rf_kernels(torch, X[:min(RF_ROWS, n)], y[:min(RF_ROWS, n)], args.reps, args.seed))
     gates = node_hist_gates(kern)
     emit({"phase": "kernels", "kernel": "node_hist_batched", "gates": gates, "ms_max": NODE_HIST_MS_MAX})
@@ -3741,10 +4088,9 @@ def main() -> int:
             "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
     del Xr, yr
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
-    umap_launches = phase_umap_e2e(torch, X_umap, args.seed)
-    by_path["knn_topk"]["umap"] = umap_launches["knn_topk"]
-    by_path["sgd_epoch_rows"] = {"umap": umap_launches["sgd_epoch_rows"]}
-    phase_umap_subset(torch, X_umap, args.seed, UMAP_SUBSET)
+    for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
+        for key, count in launches.items():
+            by_path.setdefault(key, {})[path] = count
     rf_paths = phase_rf_e2e(torch, X_host, y_host, args.seed)
     phase_rf_profile(torch, X_host, y_host, args.seed)
     rf_subset = phase_rf_subset(torch, X_host, y_host, args.seed, min(RF_SUBSET_ROWS, n))
@@ -3763,7 +4109,6 @@ def main() -> int:
         "logreg_loss_grad": ("spark_rapids_ml_tpu/ops/logreg_pallas.py:152", "logreg_loss_grad",
                              "logreg_loss_grad"),
         "knn_topk": ("spark_rapids_ml_tpu/ops/knn_pallas.py:160", "knn_topk", "knn_topk"),
-        "umap_sgd_epoch": ("spark_rapids_ml_tpu/ops/umap_pallas.py:277", "sgd_epoch_rows", "umap_sgd_epoch"),
         "node_hist_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "node_hist_batched", "rf_hist"),
         # K6 at the 131,072-row level 12 (its other shapes: extra_shapes)
         "node_hist_sel_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "node_hist_sel_batched", "rf_hist"),
@@ -3799,6 +4144,7 @@ def main() -> int:
                       if k in r},
         }
         kernels.append(entry)
+    kernels += k10_entries(kern, by_path)
     # K3's tile kernel at the wide fit's shape (the launches of the wide
     # paths), and timed beside its autograd call at the general route's
     # three shapes; the route past the tile kernel's cap at the
@@ -3832,7 +4178,8 @@ def main() -> int:
     extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
-             "sgd_epoch_rows_umap_transform": kern["sgd_epoch_rows_transform"],
+             "umap_sgd_epoch_transform": kern["sgd_epoch_transform"],
+             "umap_sgd_epoch_generic_transform": kern["sgd_epoch_cluster_transform"],
              "node_hist_bench_level2": kern["node_hist_level2"],
              "node_hist_regressor_level12": kern["node_hist_variance"],
              "node_hist_gbt_level7": kern["node_hist_gbt"], "node_hist_gbt_level0": kern["node_hist_gbt_level0"],
