@@ -100,9 +100,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
    than route B (the per-row subset gather, then K5) and than a gather +
    scatter_add_ at all three, and at ragged shapes (n_features == d_pad
    with real-valued S = 3, nb in {32, 128, 255}, rows of 200 bytes, a table
-   4 bytes off alignment, T = 1, empty nodes, nodes of many spans); K9 (packed
-   traversal) on one transform batch of a depth-13, 50-tree forest, at
-   3,000 features and at k2 in {1, 6}, equal to its plain version; K8
+   4 bytes off alignment, T = 1, empty nodes, nodes of many spans); K9 (the
+   packed forest walked from the root in one launch a transform batch,
+   with the leaf-payload sums or the leaf ids, and from a given hop 1, the
+   TPU kernel's contract) on a batch of the bench forest (50 trees, depth
+   13), rf_wide's (3,000 bytes a row, 8 trees), the GBT's (depth 8) and the
+   reference regressor's (30 trees, depth 6: hop 1 alone), equal bit for
+   bit to the plain route (hop 1 as gathers, hop 2, the payload sum), a
+   moved hop-2 threshold, hop-1 threshold and leaf payload each moving its
+   output, faster than step 0's route at the bench shape
+   (ROUTE_MS_STEP0_RUN_A), and at ragged shapes (two tree groups with
+   padding trees on 131,071 rows, a payload of 10, one row, rows too wide
+   to stage); K8
    (packed-byte gather, one launch per group of 8 trees) at the byte
    indices the bins engine makes for 8 depth-13 trees (k = 63), for 8
    depth-8 trees (the GBT's k = 1), at 3,000 features (750 words) and at
@@ -155,10 +164,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128) fit,
    transform, save/load and transform on the first 131,072 rows (bench.py's
    rf config), RandomForestRegressor(numTrees=8) on the same rows with a
-   real-valued label, RandomForestClassifier(numTrees=8, maxDepth=13,
+   real-valued label, the reference's RandomForestRegressor(numTrees=30,
+   maxDepth=6, maxBins=128) on them (rf_regressor_ref: K9 walks hop 1
+   alone), RandomForestClassifier(numTrees=8, maxDepth=13,
    maxBins=128) on 1,000,000 x 3,000 rows (the reference's benchmark
-   config but for 50 trees: K6 at every split level; transform and the
-   bins engine on its first 131,072 rows) and its first 20,000 rows at
+   config but for 50 trees: K6 at every split level; transform, one K9
+   launch a batch, and the bins engine on all of its rows) and its first 20,000 rows at
    depth 10 fitted on the card and on the CPU, each classifier's bins
    engine (K8) equal to its packed engine (K9) bit for bit, and an 8-tree
    depth-10 forest on 20,000 rows fitted on the card and on the CPU (the
@@ -219,6 +230,13 @@ is a probe of K10: its checks at its four shapes, then the two UMAP paths
 with their card-vs-CPU fits; ``--sweep`` first times its STEP epilogue with
 parts of its work knocked out. It prints no result line and exits 1 if a
 check failed.
+
+    python3 chip_smoke.py --traverse-only
+
+is a probe of K9: its checks alone with random forests (no fits), at its
+four timed shapes held bit for bit with their controls and timed (device
+time apart from host time a call), the route gate, and the ragged shapes.
+It prints no result line.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -294,6 +312,11 @@ RF_WIDE_ROWS = 1_000_000
 RF_WIDE_K = 55
 # the 3,000-feature forest fitted on the card and on the CPU
 RF_WIDE_SUBSET_ROWS = 20_000
+# the reference's RandomForestRegressor benchmark (BASELINE.md:27): 30
+# trees, depth 6 (hop 1 only: k2 = 0), 128 bins; rf_regressor_ref fits it
+# on the bench rows
+RF_REF_REG_TREES = 30
+RF_REF_REG_DEPTH = 6
 # the forest fitted on the card and on the CPU
 RF_SUBSET_ROWS = 20_000
 RF_SUBSET_DEPTH = 10
@@ -2098,49 +2121,178 @@ def random_forest(rng, T, depth, d, nb, leaf_p=0.15):
     return feat, thr
 
 
-def check_packed_traverse(torch, rk, pt, xb, feat, thr, depth, reps, control=False):
-    """K9 on one transform batch against its plain version: the leaf ids
-    equal. The control moves one hop-2 threshold of the subtree most rows
-    reach; some leaf ids must move."""
+# the route K9 replaced (hop 1 in plain PyTorch, the previous kernel's hop
+# 2, the per-tree payload gathers and adds) at the bench forest's batch,
+# device ms by CUDA events on the checkout before K9's redesign (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6); the one-launch kernel must
+# be faster
+ROUTE_MS_STEP0_RUN_A = 5.378
+# K9's timed shapes: (key, rows, bytes a row, trees, depth, payload width
+# V), each a transform batch: the bench forest, rf_wide's forest, the GBT
+# classifier's and the reference's RandomForestRegressor (k2 = 0)
+K9_SHAPES = (("packed_forest_eval", RF_ROWS, E2E_D, RF_TREES, RF_DEPTH, 2),
+             ("packed_forest_eval_wide", RF_ROWS, RF_WIDE_D, RF_SMALL_TREES, RF_DEPTH, 2),
+             ("packed_forest_eval_gbt", RF_ROWS, E2E_D, GBT_ROUNDS, GBT_DEPTH, 1),
+             ("packed_forest_eval_regressor_ref", RF_ROWS, E2E_D, RF_REF_REG_TREES, RF_REF_REG_DEPTH, 1))
+# K9's ragged shapes, held only: two tree groups and padding trees on a
+# ragged last tile, the generic payload instance (V > 8), one row, rows too
+# wide to stage (read from global memory) with V = 2 and V = 10
+K9_RAGGED = (("t11_ragged", RF_ROWS - 1, E2E_D, 11, 10, 3), ("generic_v10", 4096, E2E_D, 11, RF_DEPTH, 10),
+             ("one_row", 1, E2E_D, RF_TREES, RF_DEPTH, 2), ("unstaged", 4097, 8192, 11, RF_DEPTH, 2),
+             ("unstaged_v10", 4097, 8192, 11, RF_DEPTH, 10))
+
+
+def leaf_steps(torch, leaf, T, skip=0):
+    """The walk's steps in this run's data: each real tree's leaf depth
+    (floor(log2(id + 1))) over the rows, less ``skip`` levels a walk that
+    passed them."""
+    depth = torch.floor(torch.log2(leaf[:, :T].double() + 1))
+    return float((depth - skip).clamp_min(0).sum())
+
+
+def check_packed_forest(torch, rk, pt, xb, feat, thr, depth, values, reps, control=False):
+    """K9 on one transform batch, bit for bit (tolerance 0: the walk is
+    integer, and the sums are the plain route's f32 adds in the same
+    order, so no f64 band is needed): ROOT + SUM (``packed_forest_eval``
+    with ``values``) against the plain route on the card (hop 1 as gathers,
+    hop 2, the payload sum); ROOT + LEAF against hop 1 + hop 2 plain; I1 +
+    LEAF (``packed_traverse``, the TPU kernel's contract) against its plain
+    hop 2. Controls, each run through the kernel and required to move its
+    output: one hop-2 threshold moved (LEAF), one hop-1 threshold moved
+    (LEAF: hop 1 runs in the kernel), one leaf payload changed (SUM)."""
     pf = pt.pack_forest(feat, thr, max_depth=depth)
     dev = xb.device
     f1, t1, f2, t2 = (torch.from_numpy(a).to(dev) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2))
-    i1 = pt._packed_hop1(xb, f1, t1, k1=pf.k1)
+    w1, w2 = pt.packed_node_tables(pf, dev)
     packed = pt.pack_bins(xb)
-    out = rk.packed_traverse(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2)
-    ref = rk.packed_traverse_plain(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2)
+    n, t_pad, T, V = xb.shape[0], pf.feat1.shape[0], feat.shape[0], values.shape[2]
+    k1, k2 = pf.k1, pf.k2
+    tag = f"packed_forest_eval {n}x{xb.shape[1]} T={T} k1={k1} k2={k2} V={V}"
+
+    def held(what, out, ref):
+        differ = int((out != ref).sum())
+        check(differ == 0, f"{tag}: {what}: {differ} entries differ from the plain version")
+        return differ
+
+    raw = rk.packed_forest_eval(packed, w1, w2, values, k1=k1, k2=k2)
+    raw_ref = rk.packed_forest_eval_plain(packed, w1, w2, values, k1=k1, k2=k2)
+    leaf = rk.packed_forest_eval(packed, w1, w2, k1=k1, k2=k2)
+    i1 = rk._packed_hop1(xb, f1, t1, k1=k1)
+    leaf_ref = i1 if k2 == 0 else rk.packed_traverse_plain(packed, i1, f2, t2, k1=k1, k2=k2)
     torch.cuda.synchronize()
-    n, t_pad = i1.shape
-    differ = int((out != ref).sum())
-    check(differ == 0, f"packed_traverse {n}x{t_pad} k1={pf.k1} k2={pf.k2}: {differ} leaf ids differ")
-    n1 = (1 << pf.k1) - 1
-    res = {"rows": n, "trees": feat.shape[0], "t_pad": t_pad, "d_pad": xb.shape[1], "words": packed.shape[1],
-           "depth": depth, "k1": pf.k1, "k2": pf.k2, "max_abs_err": 0, "leaf_ids_differ": differ,
-           "rows_past_hop1": float((i1[:, :feat.shape[0]] >= n1).float().mean())}
+    res = {"rows": n, "d_pad": xb.shape[1], "words": packed.shape[1], "trees": T, "t_pad": t_pad, "depth": depth,
+           "k1": k1, "k2": k2, "V": V, "stage": rk._forest_geometry(packed.shape[1], k1, True)[0],
+           "sum_differ": held("ROOT + SUM", raw, raw_ref), "leaf_differ": held("ROOT + LEAF", leaf, leaf_ref),
+           "max_abs_err": float((raw - raw_ref).abs().max()), "tolerance": 0}
+    if k2:
+        res["i1_leaf_differ"] = held("I1 + LEAF", rk.packed_traverse(packed, i1, f2, t2, k1=k1, k2=k2), leaf_ref)
+    n1 = (1 << k1) - 1
+    res["rows_past_hop1"] = float((i1[:, :T] >= n1).float().mean())
     if control:
-        # tree 0's busiest hop-2 subtree whose root splits: every row there
-        # sent left (threshold 255), then right (-1); some leaf ids must move
-        past = i1[:, 0].long() >= n1
-        busy = torch.bincount(i1[past, 0].long() - n1, minlength=1 << pf.k1)
-        busy[f2[:1 << pf.k1, 0] < 0] = 0
-        row = int(busy.argmax())
+        ctl = []
+        if k2:
+            # tree 0's busiest hop-2 subtree whose root splits: its rows sent
+            # left (threshold 255), then right (-1)
+            past = i1[:, 0].long() >= n1
+            busy = torch.bincount(i1[past, 0].long() - n1, minlength=1 << k1)
+            busy[f2[:1 << k1, 0] < 0] = 0
+            row = int(busy.argmax())
+            moved = 0
+            for bad in (255, -1):
+                bad_t2 = t2.clone()
+                bad_t2[row, 0] = bad
+                bad_w2 = rk.forest_nodes(f2, bad_t2)
+                moved += int((rk.packed_forest_eval(packed, w1, bad_w2, k1=k1, k2=k2) != leaf).sum())
+            ctl.append({"control": f"hop 2: tree 0, subtree {row} ({int(busy[row])} rows): root threshold 255, "
+                                   "then -1", "leaf_ids_moved": moved})
         moved = 0
-        for thr_bad in (255, -1):
-            bad_t2 = t2.clone()
-            bad_t2[row, 0] = thr_bad
-            moved += int((rk.packed_traverse_plain(packed, i1, f2, bad_t2, k1=pf.k1, k2=pf.k2) != ref).sum())
-        check(moved > 0, "the K9 control (one threshold moved) moves no leaf id")
-        res["controls"] = [{"control": f"tree 0, subtree {row} ({int(busy[row])} rows): root threshold set to "
-                            "255, then -1", "leaf_ids_moved": moved}]
+        for bad in (255, -1):
+            bad_t1 = t1.clone()
+            bad_t1[0, 0] = bad
+            moved += int((rk.packed_forest_eval(packed, rk.forest_nodes(f1, bad_t1), w2, k1=k1, k2=k2) != leaf).sum())
+        ctl.append({"control": "hop 1: tree 0's root threshold 255, then -1", "leaf_ids_moved": moved})
+        # the leaf of tree 0 that most rows reach: its first payload + 1
+        top = int(torch.bincount(leaf[:, 0].long()).argmax())
+        bad_v = values.clone()
+        bad_v[0, top, 0] += 1.0
+        moved = int((rk.packed_forest_eval(packed, w1, w2, bad_v, k1=k1, k2=k2) != raw).sum())
+        ctl.append({"control": f"payload: tree 0, leaf {top}, first value + 1", "raw_moved": moved})
+        for c in ctl:
+            check(c.get("leaf_ids_moved", c.get("raw_moved")) > 0, f"{tag}: the K9 control ({c['control']}) "
+                  "moves nothing")
+        res["controls"] = ctl
     if reps:
-        res["ms"] = cuda_ms(torch, lambda: rk.packed_traverse(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2), reps)
-        res["plain_ms"] = cuda_ms(torch, lambda: rk.packed_traverse_plain(packed, i1, f2, t2, k1=pf.k1, k2=pf.k2),
+        # device time (calls queued behind a device wait: the wrapper's host
+        # time a call is longer than the kernel) and host µs a call apart
+        steps = leaf_steps(torch, leaf, T)
+        rows_b = 4.0 * packed.numel()
+        tables = 4.0 * (w1.numel() + w2.numel())
+        # ~10 integer operations a step of a walk, at the FP32 rate
+        nbytes = rows_b + tables + 4.0 * values.numel() + 4.0 * n * V
+        res.update(bytes=nbytes, steps=steps)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 10.0 * steps)
+        res["ms"], res["host_us"] = device_host(
+            torch, lambda: rk.packed_forest_eval(packed, w1, w2, values, k1=k1, k2=k2), reps)
+        res["plain_ms"] = cuda_ms(torch, lambda: rk.packed_forest_eval_plain(packed, w1, w2, values, k1=k1, k2=k2),
                                   reps)
-        res["library_ms"] = None  # none: no single PyTorch call walks the packed subtrees
-        nbytes = 4.0 * (packed.numel() + 2 * n * t_pad + 2 * f2.numel())
-        # ~10 integer operations a step, at the FP32 rate
-        res["bytes"] = nbytes
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 10.0 * n * t_pad * pf.k2)
+        res["library_ms"] = None  # none: no single PyTorch call walks the packed forest
+        nbytes = rows_b + tables + 4.0 * n * t_pad
+        res["leaf"] = {"bytes": nbytes, **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, 10.0 * steps))),
+                       "ms": device_host(torch, lambda: rk.packed_forest_eval(packed, w1, w2, k1=k1, k2=k2), reps)[0]}
+        if k2:
+            # the TPU kernel's contract: i1 read and the ids written; the
+            # wrapper makes the node words of feat2/thr2 a call, the kernel
+            # alone (kernel_ms) takes them made
+            nbytes = 4.0 * (packed.numel() + 2 * n * t_pad + w2.numel())
+            steps2 = leaf_steps(torch, leaf, T, skip=k1)
+            res["i1"] = {"bytes": nbytes, "steps": steps2,
+                         **dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, 10.0 * steps2))),
+                         "ms": device_host(torch, lambda: rk.packed_traverse(packed, i1, f2, t2, k1=k1, k2=k2),
+                                           reps)[0],
+                         "kernel_ms": device_host(torch, lambda: rk._forest_launch(packed, t_pad, k1, k2, w2, i1=i1),
+                                                  reps)[0],
+                         "plain_ms": cuda_ms(torch, lambda: rk.packed_traverse_plain(packed, i1, f2, t2, k1=k1,
+                                                                                    k2=k2), reps),
+                         "library_ms": None}
+    return res
+
+
+def k9_inputs(torch, pt, g, rng, n, d, T, depth, V, bins=None):
+    """(bins, feat, thr, values) of one K9 case: random bins of n rows of
+    d bytes from ``g`` (or ``bins``), a random forest (``random_forest``)
+    and a random (T, nodes, V) payload."""
+    if bins is None:
+        bins = torch.randint(0, RF_BINS, (n, d), generator=g, device=g.device, dtype=torch.uint8)
+    feat, thr = random_forest(rng, T, depth, d, RF_BINS)
+    values = torch.rand((T, feat.shape[1], V), generator=g, device=g.device)
+    return bins, feat, thr, values
+
+
+def phase_k9(torch, rk, pt, g, rng, reps, bench_bins=None):
+    """K9 at its timed shapes (K9_SHAPES; the bench forest on ``bench_bins``
+    where given), each held with its controls and timed, the route gate at
+    the bench shape, then the ragged shapes (K9_RAGGED) held. Returns
+    {key: result}."""
+    res = {}
+    for key, n, d, T, depth, V in K9_SHAPES:
+        bins = bench_bins if key == "packed_forest_eval" and bench_bins is not None else None
+        inp = k9_inputs(torch, pt, g, rng, n, d, T, depth, V, bins)
+        res[key] = check_packed_forest(torch, rk, pt, *inp[:3], depth, inp[3], reps, control=True)
+        emit({"phase": "kernels", "kernel": "packed_forest_eval", "shape": key, **res[key]})
+        del inp
+        torch.cuda.empty_cache()
+    bench = res["packed_forest_eval"]
+    gate = bench["ms"] < ROUTE_MS_STEP0_RUN_A
+    emit({"phase": "kernels", "kernel": "packed_forest_eval", "route_ms_step0_run_A": ROUTE_MS_STEP0_RUN_A,
+          "ms": bench["ms"], "faster_than_step0_route": gate})
+    check(gate, f"K9 at the bench shape: {bench['ms']:.4f} ms, not faster than step 0's route "
+                f"({ROUTE_MS_STEP0_RUN_A} ms)")
+    for key, n, d, T, depth, V in K9_RAGGED:
+        inp = k9_inputs(torch, pt, g, rng, n, d, T, depth, V)
+        emit({"phase": "kernels", "kernel": "packed_forest_eval", "ragged": key,
+              **check_packed_forest(torch, rk, pt, *inp[:3], depth, inp[3], 0, control=n > 1)})
+        del inp
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2445,18 +2597,11 @@ def phase_rf_kernels(torch, X_rf, y_rf, reps, seed):
     wide = wide_bins(torch, pt, n, g, seed)
     res.update(sel_levels(torch, rk, pt, wide, cls, reps, g))
     ragged_node_hist_sel_checks(torch, rk, pt, g)
-    # K9: one transform batch of the bench forest (depth 13: k1 = 7, k2 = 6)
-    feat, thr = random_forest(rng, RF_TREES, RF_DEPTH, E2E_D, RF_BINS)
-    res["packed_traverse"] = check_packed_traverse(torch, rk, pt, bins, feat, thr, RF_DEPTH, max(reps, 10),
-                                                   control=True)
-    emit({"phase": "kernels", "kernel": "packed_traverse", **res["packed_traverse"]})
-    # at 3,000 features (750 words a row), k2 = 1 and 6
-    xw = wide[:65_536, :RF_WIDE_D].contiguous()
-    for depth in (8, RF_DEPTH):
-        feat, thr = random_forest(rng, 16, depth, RF_WIDE_D, RF_BINS)
-        emit({"phase": "kernels", "kernel": "packed_traverse", "wide": True,
-              **check_packed_traverse(torch, rk, pt, xw, feat, thr, depth, 0, control=True)})
-    del xw
+    # K9 at its four timed shapes (the bench forest on these bins) and the
+    # ragged ones, its own draws
+    g9 = torch.Generator(device=dev)
+    g9.manual_seed(seed + 19)
+    res.update(phase_k9(torch, rk, pt, g9, np.random.default_rng(seed + 19), max(reps, 10), bench_bins=bins))
     res.update(phase_byte_gather_kernels(torch, bins, wide, reps, seed))
     del wide
     torch.cuda.empty_cache()
@@ -3072,7 +3217,7 @@ def phase_umap_subset(torch, X_all, seed, rows, inits=("spectral", "random"), **
         check(diff <= 0.03, f"UMAP ({init} init, {params}) card vs CPU trustworthiness differ by {diff}")
 
 
-RF_WRAPPERS = ("node_hist_batched", "node_hist_sel_batched", "packed_traverse",
+RF_WRAPPERS = ("node_hist_batched", "node_hist_sel_batched", "packed_forest_eval", "packed_traverse",
                "packed_byte_gather_many", "packed_byte_gather")
 
 
@@ -3107,10 +3252,12 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     """The forest paths through ``DataFrame``, each with the launch counters
     zeroed just before it and read just after: bench.py's classifier (fit,
     transform, the bins engine, save/load, transform), the regressor on a
-    real-valued label, and the 3,000-feature classifier at the
-    reference's 1,000,000 rows (fit; transform and the bins engine on the
-    first RF_ROWS rows), with its first RF_WIDE_SUBSET_ROWS rows fitted on
-    the card and on the CPU. Returns {kernel: {path: launches}}."""
+    real-valued label, the reference's regressor config (30 trees of depth
+    6: K9 walks hop 1 alone) on the same rows and label, and the
+    3,000-feature classifier at the reference's 1,000,000 rows (fit;
+    transform, one K9 launch a batch, and the bins engine on all of them),
+    with its first RF_WIDE_SUBSET_ROWS rows fitted on the card and on the
+    CPU. Returns {kernel: {path: launches}}."""
     import tempfile
 
     from spark_rapids_ml_tpu_torch import DataFrame, RandomForestClassifier, RandomForestRegressor
@@ -3153,7 +3300,7 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
           "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc,
           "nodes": model.totalNumNodes, "engine": model._resolve_transform_engine(),
           "fit_report": model._fit_report, "fit_launches": fit_counts, "launches": counts})
-    record("rf_classifier", counts, ("node_hist_batched", "packed_traverse", "packed_byte_gather_many"))
+    record("rf_classifier", counts, ("node_hist_batched", "packed_forest_eval", "packed_byte_gather_many"))
 
     # 2. the regressor: a real-valued label from --seed
     yr = regression_label(X, seed)
@@ -3168,13 +3315,35 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     emit({"phase": "e2e", "estimator": "RandomForestRegressor", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
           "maxBins": RF_BINS, "rows": n, "fit_s": t_fit, "transform_s": t_tr, "train_r2": r2,
           "nodes": rmodel.totalNumNodes, "fit_report": rmodel._fit_report, "launches": counts})
-    record("rf_regressor", counts, ("node_hist_batched", "packed_traverse"))
+    record("rf_regressor", counts, ("node_hist_batched", "packed_forest_eval"))
     del rmodel, out
 
-    # 3. the reference's RandomForest benchmark (BASELINE.md:16,26) at its
+    # 3. the reference's RandomForestRegressor benchmark (BASELINE.md:27):
+    # 30 trees of depth 6, hop 1 only (k2 = 0), on the bench rows
+    _rf_counts(rk, zero=True)
+    est = RandomForestRegressor(numTrees=RF_REF_REG_TREES, maxDepth=RF_REF_REG_DEPTH, maxBins=RF_BINS, seed=seed)
+    rmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": X, "label": yr})))
+    fit_counts = _rf_counts(rk)
+    out, t_tr = _timed(torch, lambda: rmodel.transform(feats))
+    counts = _rf_counts(rk)
+    pr = out.column("prediction")
+    r2 = float(1.0 - ((pr - yr) ** 2).mean() / yr.var())
+    check(np.isfinite(pr).all() and r2 > 0.5, f"reference RandomForestRegressor training R^2 {r2} <= 0.5")
+    pf = rmodel._ensure_packed()
+    emit({"phase": "e2e", "estimator": "RandomForestRegressor", "path": "rf_regressor_ref",
+          "numTrees": RF_REF_REG_TREES, "maxDepth": RF_REF_REG_DEPTH, "maxBins": RF_BINS, "rows": n, "d": X.shape[1],
+          "reduced": f"rows and width 1,000,000 x 3,000 -> {n} x {X.shape[1]} (at 3,000 features the "
+                     "regressor's onethird draws 1,000 features a node, a K6 shape no path times yet)",
+          "fit_s": t_fit, "transform_s": t_tr, "transform_rows_per_s": n / t_tr, "train_r2": r2,
+          "k1_k2": [pf.k1, pf.k2], "nodes": rmodel.totalNumNodes, "fit_report": rmodel._fit_report,
+          "fit_launches": fit_counts, "launches": counts})
+    record("rf_regressor_ref", counts, ("node_hist_batched", "packed_forest_eval"))
+    del rmodel, out
+
+    # 4. the reference's RandomForest benchmark (BASELINE.md:16,26) at its
     # rows, features, bins and depth, 8 of its 50 trees: K6 picks each
-    # node's 55 features from the full rows; transform and the bins engine
-    # on the first RF_ROWS rows
+    # node's 55 features from the full rows; transform (K9, a launch a
+    # batch of 131,072 rows) and the bins engine on all 1,000,000 rows
     g = torch.Generator(device="cuda:0")
     g.manual_seed(seed + 13)
     Xw = torch.randn((RF_WIDE_ROWS, RF_WIDE_D), generator=g, device="cuda:0")
@@ -3188,11 +3357,15 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
     wmodel, t_fit = _timed(torch, lambda: est.fit(DataFrame({"features": Xw, "label": yw})))
     peak = torch.cuda.max_memory_allocated()
     fit_counts = _rf_counts(rk)
-    Xt, yt = Xw[:RF_ROWS], yw[:RF_ROWS]
-    out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xt})))
-    t_bins = bins_engine_equal(torch, wmodel, Xt, out, "3,000-feature RandomForestClassifier")
+    out, t_tr = _timed(torch, lambda: wmodel.transform(DataFrame({"features": Xw})))
+    tr_counts = _rf_counts(rk)
+    t_bins = bins_engine_equal(torch, wmodel, Xw, out, "3,000-feature RandomForestClassifier")
     counts = _rf_counts(rk)
-    acc_w = float((out.column("prediction") == yt).mean())
+    batches = -(-RF_WIDE_ROWS // wmodel._transform_batch_rows())
+    check(tr_counts["packed_forest_eval"] - fit_counts["packed_forest_eval"] == batches,
+          f"3,000-feature transform: {tr_counts['packed_forest_eval'] - fit_counts['packed_forest_eval']} K9 "
+          f"launches for {batches} batches")
+    acc_w = float((out.column("prediction") == yw).mean())
     # each node sees 55 of the 3,000 features, about one of the 30 the label
     # depends on: the check is that the forest learned something
     check(acc_w > 0.6, f"3,000-feature RandomForestClassifier training accuracy {acc_w} <= 0.6")
@@ -3202,12 +3375,13 @@ def phase_rf_e2e(torch, X_host, y_host, seed):
           f"3,000-feature fit: {fit_counts['node_hist_sel_batched']} K6 launches for {RF_DEPTH} split levels")
     emit({"phase": "e2e", "estimator": "RandomForestClassifier", "numTrees": RF_SMALL_TREES, "maxDepth": RF_DEPTH,
           "maxBins": RF_BINS, "rows": RF_WIDE_ROWS, "d": RF_WIDE_D,
-          "reduced": "numTrees 50 -> 8 (the script's time); transform and bins engine on the first "
-                     f"{RF_ROWS} rows", "fit_s": t_fit, "transform_rows": RF_ROWS, "transform_s": t_tr,
+          "reduced": "numTrees 50 -> 8 (the script's time)", "fit_s": t_fit, "transform_rows": RF_WIDE_ROWS,
+          "transform_s": t_tr, "transform_rows_per_s": RF_WIDE_ROWS / t_tr, "transform_batches": batches,
+          "transform_k9_launches": tr_counts["packed_forest_eval"] - fit_counts["packed_forest_eval"],
           "transform_bins_s": t_bins, "bins_equal_packed": True, "train_accuracy": acc_w,
           "peak_device_gb": peak / 1e9, "fit_report": wmodel._fit_report, "fit_launches": fit_counts,
           "launches": counts})
-    record("rf_wide", counts, ("node_hist_sel_batched", "packed_traverse", "packed_byte_gather_many"))
+    record("rf_wide", counts, ("node_hist_sel_batched", "packed_forest_eval", "packed_byte_gather_many"))
     del wmodel, out
     record("rf_wide_card_vs_cpu", phase_rf_wide_subset(torch, Xw, yw, seed, RF_WIDE_SUBSET_ROWS),
            ("node_hist_sel_batched",))
@@ -3261,7 +3435,7 @@ def phase_gbt_e2e(torch, X_host, y_host, seed):
     n = X.shape[0]
     feats = DataFrame({"features": X})
     by_path = {name: {} for name in RF_WRAPPERS}
-    needed = ("node_hist_batched", "packed_traverse", "packed_byte_gather_many")
+    needed = ("node_hist_batched", "packed_forest_eval", "packed_byte_gather_many")
     kw = dict(maxIter=GBT_ROUNDS, maxDepth=GBT_DEPTH, maxBins=RF_BINS, seed=seed)
 
     def run(path, est, label, extra):
@@ -3343,7 +3517,7 @@ def phase_gbt_subset(torch, X_host, y_host, seed, rows):
           "prediction_agreement": agree, "agreement_min": GBT_AGREE_MIN, "fit_s_card": secs["cuda:0"],
           "fit_s_cpu": secs["cpu"], "fit_report_card": fits["cuda:0"]._fit_report, "launches": counts})
     check(agree >= GBT_AGREE_MIN, f"GBT card vs CPU predictions agree on {agree} < {GBT_AGREE_MIN}")
-    for name in ("node_hist_batched", "packed_traverse"):
+    for name in ("node_hist_batched", "packed_forest_eval"):
         check(counts[name] > 0, f"kernel {name} was not launched on the GBT card-vs-CPU path")
     return counts
 
@@ -3409,7 +3583,7 @@ def phase_rf_subset(torch, X_host, y_host, seed, rows):
           "agreement_min": RF_AGREE_MIN, "fit_s_card": secs["cuda:0"], "fit_s_cpu": secs["cpu"],
           "launches": counts})
     check(agree >= RF_AGREE_MIN, f"forest card vs CPU predictions agree on {agree} < {RF_AGREE_MIN}")
-    for name in ("node_hist_batched", "packed_traverse"):
+    for name in ("node_hist_batched", "packed_forest_eval"):
         check(counts[name] > 0, f"kernel {name} was not launched on the card-vs-CPU path")
     return counts
 
@@ -3942,6 +4116,29 @@ def sweep_sgd(torch, X_umap, X_cluster, seed, dev) -> dict:
     return out
 
 
+def traverse_probe(torch, args, dev) -> int:
+    """``--traverse-only``: K9's checks alone with random forests (no fits,
+    no sketch): its four timed shapes (the bench forest on the forest rows
+    made from ``--seed`` and binned as the forest phase bins them), each
+    held bit for bit with its controls and timed, the route gate, then the
+    ragged shapes."""
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import tree_kernels as pt
+
+    X, _ = make_data(torch, RF_ROWS, RF_ROWS, args.seed, dev)
+    bins = rf_bins(torch, pt, X, args.seed)
+    del X
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 19)
+    rng = np.random.default_rng(args.seed + 19)
+    reps = max(args.reps, 10)
+    res = phase_k9(torch, rk, pt, g, rng, reps, bench_bins=bins)
+    out = {"probe": "packed_forest_eval", "package": rk.__file__,
+           "shapes": {k: {m: v for m, v in r.items() if m != "controls"} for k, r in res.items()}}
+    emit(out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=12_000_000, help="end-to-end rows (N x 256 f32)")
@@ -3962,6 +4159,9 @@ def main() -> int:
     ap.add_argument("--umap-only", action="store_true",
                     help="a probe: build K4 and K10 alone, run K10's checks and the two UMAP paths (prints no "
                          "result line)")
+    ap.add_argument("--traverse-only", action="store_true",
+                    help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
+                         "(prints no result line)")
     ap.add_argument("--sweep", action="store_true",
                     help="with --gather-only: time chunk sizes and grids too; with --knn-only: other "
                          "geometries; with --kmeans-only: the m = 0 split and stage depths; with "
@@ -3990,7 +4190,8 @@ def main() -> int:
     build_s = _build.build(["rf_byte_gather"] if args.gather_only else ["knn_topk"] if args.knn_only
                            else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
                            else ["logreg_loss_grad"] if args.logreg_only
-                           else ["knn_topk", "umap_sgd_epoch"] if args.umap_only else _build.SOURCES)
+                           else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
+                           else ["rf_traverse"] if args.traverse_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -4013,6 +4214,8 @@ def main() -> int:
         return logreg_probe(torch, args, dev)
     if args.umap_only:
         return umap_probe(torch, args, dev)
+    if args.traverse_only:
+        return traverse_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -4102,6 +4305,9 @@ def main() -> int:
             if sub[name]:
                 by_path[name][path] = sub[name]
 
+    b = kern["packed_forest_eval"]
+    kern["packed_traverse"] = {**{k: b[k] for k in ("rows", "trees", "t_pad", "d_pad", "words", "depth", "k1", "k2")},
+                               **b["i1"], "max_abs_err": 0}
     # name -> (TPU kernel's pallas_call, key of the measurement, source file)
     sources = {
         "shifted_gram": ("spark_rapids_ml_tpu/ops/linalg.py:141", "shifted_gram", "shifted_gram"),
@@ -4112,6 +4318,10 @@ def main() -> int:
         "node_hist_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:190", "node_hist_batched", "rf_hist"),
         # K6 at the 131,072-row level 12 (its other shapes: extra_shapes)
         "node_hist_sel_batched": ("spark_rapids_ml_tpu/ops/rf_pallas.py:312", "node_hist_sel_batched", "rf_hist"),
+        # K9 from the root with its payload sum at the bench forest's batch
+        # (its other shapes: extra_shapes); from a given hop 1 (the TPU
+        # kernel's contract): no caller on a path, its held measurement
+        "packed_forest_eval": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_forest_eval", "rf_traverse"),
         "packed_traverse": ("spark_rapids_ml_tpu/ops/rf_pallas.py:676", "packed_traverse", "rf_traverse"),
         "packed_byte_gather_many": ("spark_rapids_ml_tpu/ops/rf_pallas.py:727", "packed_byte_gather_many",
                                     "rf_byte_gather"),
@@ -4140,7 +4350,8 @@ def main() -> int:
             "shape": {k: r[k] for k in ("n", "d", "k", "K", "nq", "ni", "R", "C", "neg", "n_tab", "T", "level", "F",
                                         "n_nodes",
                                         "n_pad", "r_sub", "S", "nb", "k_pad", "d_pad", "rows", "trees", "t_pad",
-                                        "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks", "mode")
+                                        "k1", "k2", "words", "G", "variant", "BM", "stages", "slab", "blocks", "mode",
+                                        "depth", "V")
                       if k in r},
         }
         kernels.append(entry)
@@ -4188,7 +4399,8 @@ def main() -> int:
              "node_hist_sel_reference_rows_level12": kern["node_hist_sel_ref"],
              "node_hist_sel_gates": node_hist_sel_gates(kern),
              "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
-             "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"]}
+             "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"],
+             **{key: kern[key] for key, *_ in K9_SHAPES[1:]}}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra,
           "launches_by_path": by_path})
     print(smi, flush=True)

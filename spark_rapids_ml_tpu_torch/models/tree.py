@@ -9,8 +9,9 @@ kernels K5 (or K6 at wide feature widths). ``GBTClassifier`` /
 trees through the same builder (``ops/gbt_kernels.gbt_round``).
 
 Every model transforms through one engine chain, packed > bins > legacy
-(``_resolve_transform_engine``): the packed-forest engine (hop 2 in kernel
-K9) when the model carries its bin tables and its depth is at most 14; the
+(``_resolve_transform_engine``): the packed-forest engine (one launch of
+kernel K9 a batch: both hops and the leaf-payload sum) when the model
+carries its bin tables and its depth is at most 14; the
 two-hop bins engine (hop 2's feature bins gathered by kernel K8) on
 request (``engine="bins"``), with the packed engine's results bit for
 bit; else the raw-threshold descent (deeper forests, and JAX-saved models
@@ -48,6 +49,7 @@ from ..ops.tree_kernels import (
     make_bin_edges,
     next_pow2,
     pack_forest,
+    packed_node_tables,
     rf_classify,
     rf_classify_bins,
     rf_classify_packed,
@@ -478,10 +480,10 @@ class _ForestModelBase(_TpuModel):
         return binz
 
     def _packed_operands(self, device: torch.device):
-        """Device copies of the packed tables and a per-batch quantizer."""
+        """The packed tables as K9's node words on the device and a
+        per-batch quantizer."""
         pf = self._ensure_packed()
-        tables = [torch.from_numpy(a).to(device) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2)]
-        return pf, tables, self._binizer(device)
+        return pf, packed_node_tables(pf, device), self._binizer(device)
 
     def _bins_operands(self, device: torch.device):
         """Device copies of the heap tables (features, bin thresholds) and a
@@ -675,13 +677,11 @@ class RandomForestClassificationModel(
 
     def _packed_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
         pred_col, prob_col, raw_col = self._out_cols()
-        pf, (feat1, thr1, feat2, thr2), binz = self._packed_operands(device)
+        pf, (nodes1, nodes2), binz = self._packed_operands(device)
         leafp = torch.from_numpy(self._leaf_probs()).to(device)
 
         def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-            pred, prob, raw = rf_classify_packed(
-                binz(Xb), feat1, thr1, feat2, thr2, leafp, k1=pf.k1, k2=pf.k2
-            )
+            pred, prob, raw = rf_classify_packed(binz(Xb), nodes1, nodes2, leafp, k1=pf.k1, k2=pf.k2)
             return {pred_col: pred.cpu().numpy(), prob_col: prob.cpu().numpy(), raw_col: raw.cpu().numpy()}
 
         return _fn
@@ -767,11 +767,11 @@ class RandomForestRegressionModel(_RandomForestModel):
 
     def _packed_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
         (pred_col,) = self._out_cols()
-        pf, (feat1, thr1, feat2, thr2), binz = self._packed_operands(device)
+        pf, (nodes1, nodes2), binz = self._packed_operands(device)
         leafv = torch.from_numpy(self._leaf_means()).to(device)
 
         def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-            pred = rf_regress_packed(binz(Xb), feat1, thr1, feat2, thr2, leafv, k1=pf.k1, k2=pf.k2)
+            pred = rf_regress_packed(binz(Xb), nodes1, nodes2, leafv, k1=pf.k1, k2=pf.k2)
             return {pred_col: pred.cpu().numpy().astype(Xb.dtype)}
 
         return _fn
@@ -1136,11 +1136,11 @@ class _GBTModel(_GBTClass, _ForestModelBase, _GBTParams):
 
     # -- the three engines (payload: margin contributions) -----------------
     def _packed_transform_fn(self, device: torch.device) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-        pf, (feat1, thr1, feat2, thr2), binz = self._packed_operands(device)
+        pf, (nodes1, nodes2), binz = self._packed_operands(device)
         vals = torch.from_numpy(self._payload_values()).to(device)
 
         def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-            s = rf_eval_packed(binz(Xb), feat1, thr1, feat2, thr2, vals, k1=pf.k1, k2=pf.k2)
+            s = rf_eval_packed(binz(Xb), nodes1, nodes2, vals, k1=pf.k1, k2=pf.k2)
             return self._margin_outputs(self._margins_from_eval(s), np.dtype(Xb.dtype))
 
         return _fn

@@ -3,7 +3,8 @@
 compact level (K5, with the per-node fold its caller applies) and its
 fused-selection form (K6, each node's columns picked from the full rows),
 the packed-byte gather (K8, and K7, its single-index-set form) and the
-packed-forest hop-2 traversal (K9), each a CUDA kernel
+packed-forest descent (K9: both hops and the leaf-payload sum of a
+transform batch), each a CUDA kernel
 (``csrc/rf_hist.cu``, ``csrc/rf_byte_gather.cu``, ``csrc/rf_traverse.cu``)
 beside its plain PyTorch version. The TPU's per-sub-block forms of K5 and
 K6 keep their plain versions (``subblock_hist_plain``,
@@ -711,8 +712,53 @@ packed_byte_gather.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K9: packed-forest hop-2 traversal
+# K9: the packed-forest descent (hop 1, hop 2, leaf-payload sums)
 # ---------------------------------------------------------------------------
+
+# K9's geometry (csrc/rf_traverse.cu): rows a block (two a lane), trees a
+# pass (its warps; the payload sum's group); a block stages its rows in
+# shared memory up to this many bytes (3,200 a row), wider rows are read
+# from global memory (at 3,000 bytes a row, one staged block an SM beat
+# reading them: PERF.md section 6)
+_FOREST_ROWS = 64
+_FOREST_GROUP = 8
+_FOREST_STAGE_MAX = 200 << 10
+
+
+def _forest_geometry(words: int, k1: int, root: bool) -> Tuple[bool, int, int]:
+    """(stage, ws, smem) of a K9 launch on rows of ``words`` int32 words:
+    whether the block's rows are staged in shared memory, a staged row's
+    stride in words (odd: 32 rows' bytes at one feature fall in 32 banks)
+    and the dynamic shared memory in bytes: two buffers (a pass's and the
+    next one's) of the 8 trees' hop-1 node words, two of the leaf ids at 9
+    words a row, and the rows."""
+    ws = words | 1
+    rows_bytes = _FOREST_ROWS * ws * 4
+    stage = rows_bytes <= _FOREST_STAGE_MAX
+    smem = (2 * _FOREST_GROUP * ((1 << k1) - 1) * 4 if root else 0) + 2 * _FOREST_ROWS * (_FOREST_GROUP + 1) * 4
+    return stage, ws, smem + (rows_bytes if stage else 0)
+
+
+# the largest feature a node word holds: (feature << 9) stays below 2^31
+_NODE_FEATURE_MAX = (1 << 22) - 1
+
+
+def forest_nodes(feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """K9's node words of a (feature, bin threshold) table, one int32 a
+    node so that a step of the walk is one load: -1 at a leaf (feature <
+    0), else ``(feature << 9) | (threshold + 1)``, the threshold clamped to
+    [-1, 255] and the feature to 2^22 - 1. Neither clamp changes a test:
+    a byte is above 255 never and above -1 always, and the walk reads a
+    feature past the row as the row's last byte, rows having at most 2^22
+    bytes (``packed_forest_eval`` refuses longer ones)."""
+    w = (feat.long().clamp(max=_NODE_FEATURE_MAX) << 9) | (thr.long().clamp(-1, 255) + 1)
+    return torch.where(feat < 0, torch.full_like(w, -1), w).to(torch.int32)
+
+
+def _node_fields(nodes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(feature, threshold) of node words: feature -1 at a leaf, where the
+    threshold means nothing."""
+    return torch.where(nodes < 0, torch.full_like(nodes, -1), nodes >> 9), (nodes & 511) - 1
 
 
 def _leaf_ids(m: torch.Tensor, l: torch.Tensor, k1: int, k2: int) -> torch.Tensor:
@@ -725,11 +771,29 @@ def _leaf_ids(m: torch.Tensor, l: torch.Tensor, k1: int, k2: int) -> torch.Tenso
     return ((1 << k1) * pd - 1) + l * pd + (m - (pd - 1))
 
 
+def _packed_hop1(xb: torch.Tensor, feat1: torch.Tensor, thr1: torch.Tensor, *, k1: int) -> torch.Tensor:
+    """All trees' hop 1: k1 steps of ``bin > thr`` from the root, as
+    gathers. Returns (n, T_pad) int32 heap indices; a row that stopped at a
+    hop-1 leaf holds an index < 2^k1 - 1."""
+    n, d_pad = xb.shape
+    T_pad, n1 = feat1.shape
+    f1, t1 = feat1.reshape(-1).long(), thr1.reshape(-1).long()
+    base = torch.arange(T_pad, device=xb.device)[None, :] * n1
+    i = torch.zeros((n, T_pad), dtype=torch.int64, device=xb.device)
+    for _ in range(k1):
+        j = base + i
+        f = f1[j]
+        x = xb.gather(1, f.clamp(0, d_pad - 1)).long()
+        e = torch.where(f >= 0, 1 + (x > t1[j]).long(), torch.zeros_like(f))
+        i = torch.where(e > 0, 2 * i + e, i)
+    return i.to(torch.int32)
+
+
 def packed_traverse_plain(
     packed: torch.Tensor, i1: torch.Tensor, feat2: torch.Tensor, thr2: torch.Tensor, *, k1: int, k2: int
 ) -> torch.Tensor:
-    """Plain version of K9: the same walk, as row-chunked gathers over k2
-    steps (a stopped row keeps its slot)."""
+    """Plain version of K9's hop 2: the same walk, as row-chunked gathers
+    over k2 steps (a stopped row keeps its slot)."""
     n, t_pad = i1.shape
     dev = i1.device
     K1 = 1 << k1
@@ -757,16 +821,62 @@ def packed_traverse_plain(
     return out
 
 
+def _packed_payload(leaf: torch.Tensor, values: torch.Tensor, *, n_trees: int, group: int = 8) -> torch.Tensor:
+    """Sum over trees of each tree's leaf payload (n, V), in the JAX
+    package's association: partial sums of 8 trees in tree order, then
+    across groups."""
+    leaf = leaf.long()
+    acc = None
+    for g0 in range(0, n_trees, group):
+        part = None
+        for t in range(g0, min(g0 + group, n_trees)):
+            v = values[t][leaf[:, t]]
+            part = v if part is None else part + v
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _forest_launch(packed, t_pad, k1, k2, nodes2, *, nodes1=None, i1=None, values=None) -> torch.Tensor:
+    """One K9 launch on CUDA tensors the wrapper checked: ROOT (``nodes1``)
+    or I1 (``i1``), SUM (``values``) or LEAF."""
+    n, words = packed.shape
+    root = i1 is None
+    stage, ws, smem = _forest_geometry(words, k1, root)
+    if values is None:
+        out = torch.empty((n, t_pad), dtype=torch.int32, device=packed.device)
+        leaf_out, sum_out, n_trees, M, V = out.data_ptr(), None, 0, 0, 0
+    else:
+        n_trees, M, V = values.shape
+        if _FOREST_GROUP * M * V >= 1 << 31:
+            raise ValueError(f"packed_forest_eval: payload {tuple(values.shape)} past 32-bit offsets in a group")
+        out = torch.empty((n, V), dtype=torch.float32, device=packed.device)
+        leaf_out, sum_out = None, out.data_ptr()
+    if (t_pad << k1) * LANES >= 1 << 31:
+        raise ValueError(f"packed_forest_eval: hop-2 table of {t_pad << k1} rows past 32-bit offsets")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _build.function(
+        "rf_traverse", "packed_forest_launch",
+        [_P, _INT, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _INT, _INT, _INT, _P, _P, _INT, _INT, _INT, _INT, _P],
+    )
+    code = fn(packed.data_ptr(), n, words, ws, int(stage), int(root), ptr(nodes1), ptr(i1), nodes2.data_ptr(),
+              ptr(values), M, V, n_trees, leaf_out, sum_out, t_pad, k1, k2, smem,
+              torch.cuda.current_stream(packed.device).cuda_stream)
+    _build.check("rf_traverse", code)
+    return out
+
+
 def packed_traverse(
     packed: torch.Tensor, i1: torch.Tensor, feat2: torch.Tensor, thr2: torch.Tensor, *, k1: int, k2: int
 ) -> torch.Tensor:
-    """Kernel K9: the global leaf index (n, T_pad) int32 of every (row,
-    tree), from the rows' word-packed bins ``packed`` (n, d_pad/4) int32,
-    their hop-1 heap indices ``i1`` (n, T_pad) int32 and the hop-2 tables
-    ``feat2``/``thr2`` (T_pad·2^k1, 64) int32 of ``pack_forest``. Rows
-    with ``i1 < 2^k1 - 1`` stopped in hop 1 and keep it. Replaces
+    """Kernel K9 from a given hop 1 (its I1 start, LEAF epilogue): the
+    global leaf index (n, T_pad) int32 of every (row, tree), from the rows'
+    word-packed bins ``packed`` (n, d_pad/4) int32, their hop-1 heap
+    indices ``i1`` (n, T_pad) int32 and the hop-2 tables ``feat2``/``thr2``
+    (T_pad·2^k1, 64) int32 of ``pack_forest``. Rows with ``i1 < 2^k1 - 1``
+    stopped in hop 1 and keep it. The contract of
     ``spark_rapids_ml_tpu/ops/rf_pallas.py::packed_traverse``, without its
-    128-word width limit."""
+    128-word width limit; the transform path walks from the root
+    (``packed_forest_eval``)."""
     n, t_pad = i1.shape
     if packed.shape[0] != n or feat2.shape != thr2.shape or feat2.shape[0] != t_pad << k1:
         raise ValueError(
@@ -779,17 +889,67 @@ def packed_traverse(
         return packed_traverse_plain(packed, i1, feat2, thr2, k1=k1, k2=k2)
     _check_cuda("packed_traverse", (packed, torch.int32), (i1, torch.int32), (feat2, torch.int32),
                 (thr2, torch.int32))
-    out = torch.empty_like(i1)
-    fn = _build.function(
-        "rf_traverse", "packed_traverse_launch",
-        [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P],
-    )
-    code = fn(packed.data_ptr(), i1.data_ptr(), feat2.data_ptr(), thr2.data_ptr(), out.data_ptr(), n,
-              packed.shape[1], t_pad, k1, k2, feat2.shape[1],
-              torch.cuda.current_stream(i1.device).cuda_stream)
+    if not 1 <= k1 <= 8 or k2 > 6 or t_pad % _FOREST_GROUP or feat2.shape[1] != LANES:
+        raise ValueError(f"packed_traverse: k1={k1}, k2={k2}, {t_pad} trees, {feat2.shape[1]} lanes: the kernel "
+                         f"takes k1 <= 8, k2 <= 6, trees padded to a multiple of 8, {LANES} lanes")
+    out = _forest_launch(packed, t_pad, k1, k2, forest_nodes(feat2, thr2), i1=i1)
     packed_traverse.launches += 1
-    _build.check("rf_traverse", code)
     return out
 
 
 packed_traverse.launches = 0
+
+
+def packed_forest_eval_plain(packed, nodes1, nodes2, values=None, *, k1: int, k2: int) -> torch.Tensor:
+    """Plain version of ``packed_forest_eval``: the node words read back as
+    the JAX package's tables, then hop 1 as gathers (``_packed_hop1``), hop
+    2 (``packed_traverse_plain``) and the payload sum (``_packed_payload``),
+    the route of the JAX package's ``forest_apply_packed`` /
+    ``rf_eval_packed``."""
+    feat1, thr1 = _node_fields(nodes1)
+    i1 = _packed_hop1(packed.view(torch.uint8), feat1, thr1, k1=k1)
+    leaf = i1 if k2 == 0 else packed_traverse_plain(packed, i1, *_node_fields(nodes2), k1=k1, k2=k2)
+    return leaf if values is None else _packed_payload(leaf, values, n_trees=values.shape[0])
+
+
+def packed_forest_eval(packed, nodes1, nodes2, values=None, *, k1: int, k2: int) -> torch.Tensor:
+    """Kernel K9, the transform's descent in one launch: every (row, tree)
+    walked from the root through the hop-1 node words ``nodes1`` (T_pad,
+    2^k1 - 1) int32 and the hop-2 node words ``nodes2`` (T_pad·2^k1, 64)
+    int32 (``forest_nodes`` of ``pack_forest``'s tables; empty when k2 =
+    0), on the rows' word-packed bins ``packed`` (n, d_pad/4) int32.
+    Returns the global leaf ids (n, T_pad) int32 when ``values`` is None,
+    else the (n, V) f32 sums over the T real trees of ``values`` (T, M, V)
+    at each tree's leaf, in the JAX package's association (partial sums of
+    8 trees in tree order, then across groups), bit for bit. Replaces
+    ``spark_rapids_ml_tpu/ops/rf_pallas.py::packed_traverse`` with its
+    caller's hop 1 and payload sum."""
+    t_pad, n1 = nodes1.shape
+    tensors = [packed, nodes1, nodes2] + ([] if values is None else [values])
+    if len({t.device for t in tensors}) > 1:
+        raise ValueError(f"packed_forest_eval: tensors on {sorted({str(t.device) for t in tensors})}")
+    if 4 * packed.shape[1] > _NODE_FEATURE_MAX + 1:
+        raise ValueError(f"packed_forest_eval: rows of {4 * packed.shape[1]} bytes, past a node word's "
+                         f"{_NODE_FEATURE_MAX + 1} features")
+    if not (1 <= k1 <= 8 and 0 <= k2 <= 6) or n1 != (1 << k1) - 1:
+        raise ValueError(f"packed_forest_eval: hop-1 nodes {tuple(nodes1.shape)} at k1={k1}, k2={k2} "
+                         "(1 <= k1 <= 8, 0 <= k2 <= 6)")
+    if k2 and tuple(nodes2.shape) != (t_pad << k1, LANES):
+        raise ValueError(f"packed_forest_eval: hop-2 nodes {tuple(nodes2.shape)} do not fit {t_pad} trees at "
+                         f"k1={k1}")
+    if values is not None and (values.dim() != 3 or not 1 <= values.shape[0] <= t_pad
+                               or values.shape[1] < (2 << (k1 + k2)) - 1):
+        raise ValueError(f"packed_forest_eval: values {tuple(values.shape)} must be (T <= {t_pad}, "
+                         f">= {(2 << (k1 + k2)) - 1} nodes, V)")
+    if packed.device.type == "cpu":
+        return packed_forest_eval_plain(packed, nodes1, nodes2, values, k1=k1, k2=k2)
+    specs = [(packed, torch.int32), (nodes1, torch.int32), (nodes2, torch.int32)]
+    _check_cuda("packed_forest_eval", *specs, *([] if values is None else [(values, torch.float32)]))
+    if t_pad % _FOREST_GROUP:
+        raise ValueError(f"packed_forest_eval: {t_pad} trees: pack_forest pads to a multiple of 8")
+    out = _forest_launch(packed, t_pad, k1, k2, nodes2, nodes1=nodes1, values=values)
+    packed_forest_eval.launches += 1
+    return out
+
+
+packed_forest_eval.launches = 0

@@ -16,9 +16,10 @@
   the JAX package's formulas, so both packages pad alike at every level.
   A level whose histogram tile exceeds ``_COMPACT_TILE_MAX`` (2^28)
   entries takes a plain scatter, as the JAX package does there.
-* **Inference**: the packed-forest engine (``pack_forest``'s layout, hop 1
-  in plain PyTorch, hop 2 in K9, the JAX package's payload summation
-  order) for forests of depth <= 14; the two-hop bins engine (the same
+* **Inference**: the packed-forest engine (``pack_forest``'s layout as
+  K9's node words, both hops and the payload sum in one K9 launch a batch,
+  the JAX package's summation order) for forests of depth <= 14; the
+  two-hop bins engine (the same
   descent tree by tree in groups of 8, hop 2's feature bins gathered by
   K8, one launch per group), whose results equal the packed engine's bit
   for bit; and the raw-threshold descent (``forest_apply``) for deeper
@@ -57,10 +58,11 @@ from .rf_kernels import (
     BLOCK_ROWS,
     LANES,
     _leaf_ids,
+    forest_nodes,
     node_hist_batched,
     node_hist_sel_batched,
     packed_byte_gather_many,
-    packed_traverse,
+    packed_forest_eval,
 )
 
 # elements per (F, nodes, bins, stats) histogram tile of the gain search
@@ -761,63 +763,40 @@ def pack_bins(xb: torch.Tensor) -> torch.Tensor:
     return xb.contiguous().view(torch.int32)
 
 
-def _packed_hop1(xb: torch.Tensor, feat1: torch.Tensor, thr1: torch.Tensor, *, k1: int) -> torch.Tensor:
-    """All trees' hop 1: k1 steps of ``bin > thr`` from the root, as
-    gathers. Returns (n, T_pad) int32 heap indices; a row that stopped at a
-    hop-1 leaf holds an index < 2^k1 - 1."""
-    n, d_pad = xb.shape
-    T_pad, n1 = feat1.shape
-    f1, t1 = feat1.reshape(-1).long(), thr1.reshape(-1).long()
-    base = torch.arange(T_pad, device=xb.device)[None, :] * n1
-    i = torch.zeros((n, T_pad), dtype=torch.int64, device=xb.device)
-    for _ in range(k1):
-        j = base + i
-        f = f1[j]
-        x = xb.gather(1, f.clamp(0, d_pad - 1)).long()
-        e = torch.where(f >= 0, 1 + (x > t1[j]).long(), torch.zeros_like(f))
-        i = torch.where(e > 0, 2 * i + e, i)
-    return i.to(torch.int32)
+def packed_node_tables(pf: PackedForest, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed layout's two tables as K9's node words on ``device``
+    (``rf_kernels.forest_nodes``: one int32 a node), made once a model:
+    (hop-1 (T_pad, n1), hop-2 (T_pad·2^k1, 64))."""
+    return tuple(forest_nodes(torch.from_numpy(f), torch.from_numpy(t)).to(device)
+                 for f, t in ((pf.feat1, pf.thr1), (pf.feat2, pf.thr2)))
 
 
-def forest_apply_packed(xb, feat1, thr1, feat2, thr2, *, k1: int, k2: int) -> torch.Tensor:
-    """Global leaf index per (row, tree), (n, T_pad) int32: hop 1 in plain
-    PyTorch, hop 2 in K9 (``rf_kernels.packed_traverse``)."""
-    i1 = _packed_hop1(xb, feat1, thr1, k1=k1)
-    if k2 == 0:
-        return i1
-    return packed_traverse(pack_bins(xb), i1, feat2, thr2, k1=k1, k2=k2)
+def forest_apply_packed(xb, nodes1, nodes2, *, k1: int, k2: int) -> torch.Tensor:
+    """Global leaf index per (row, tree), (n, T_pad) int32, from ``xb`` (n,
+    d_pad) uint8 bins and the node words of ``packed_node_tables``: one
+    launch of K9 (``rf_kernels.packed_forest_eval``) on the card, its plain
+    route (hop 1, hop 2) on the CPU."""
+    return packed_forest_eval(pack_bins(xb), nodes1, nodes2, k1=k1, k2=k2)
 
 
-def _packed_payload(leaf: torch.Tensor, values: torch.Tensor, *, n_trees: int, group: int = 8) -> torch.Tensor:
-    """Sum over trees of each tree's leaf payload (n, V), in the JAX
-    package's association: partial sums of 8 trees in tree order, then
-    across groups."""
-    leaf = leaf.long()
-    acc = None
-    for g0 in range(0, n_trees, group):
-        part = None
-        for t in range(g0, min(g0 + group, n_trees)):
-            v = values[t][leaf[:, t]]
-            part = v if part is None else part + v
-        acc = part if acc is None else acc + part
-    return acc
+def rf_eval_packed(xb, nodes1, nodes2, values, *, k1: int, k2: int) -> torch.Tensor:
+    """Sum over trees of each tree's leaf payload, (n, V): one launch of K9
+    on the card (the leaf ids never leave the chip), its plain route (hop
+    1, hop 2, ``_packed_payload``) on the CPU; the same f32 adds in the
+    same order either way."""
+    return packed_forest_eval(pack_bins(xb), nodes1, nodes2, values, k1=k1, k2=k2)
 
 
-def rf_eval_packed(xb, feat1, thr1, feat2, thr2, values, *, k1: int, k2: int) -> torch.Tensor:
-    leaf = forest_apply_packed(xb, feat1, thr1, feat2, thr2, k1=k1, k2=k2)
-    return _packed_payload(leaf, values, n_trees=values.shape[0])
-
-
-def rf_classify_packed(xb, feat1, thr1, feat2, thr2, leaf_prob, *, k1: int, k2: int, pred_dtype=torch.float32):
+def rf_classify_packed(xb, nodes1, nodes2, leaf_prob, *, k1: int, k2: int, pred_dtype=torch.float32):
     """Spark RF vote semantics through the packed engine."""
-    raw = rf_eval_packed(xb, feat1, thr1, feat2, thr2, leaf_prob, k1=k1, k2=k2)
+    raw = rf_eval_packed(xb, nodes1, nodes2, leaf_prob, k1=k1, k2=k2)
     prob = _per_tree(raw, leaf_prob.shape[0])
     pred = torch.argmax(raw, dim=1).to(pred_dtype)
     return pred, prob, raw
 
 
-def rf_regress_packed(xb, feat1, thr1, feat2, thr2, leaf_value, *, k1: int, k2: int) -> torch.Tensor:
-    s = rf_eval_packed(xb, feat1, thr1, feat2, thr2, leaf_value[..., None], k1=k1, k2=k2)
+def rf_regress_packed(xb, nodes1, nodes2, leaf_value, *, k1: int, k2: int) -> torch.Tensor:
+    s = rf_eval_packed(xb, nodes1, nodes2, leaf_value[..., None], k1=k1, k2=k2)
     return _per_tree(s[:, 0], leaf_value.shape[0])
 
 

@@ -108,7 +108,7 @@ def test_bins_engine_matches_jax(monkeypatch, depth, T):
 
     # the packed engine: the same leaves, the same sums
     pf = pt.pack_forest(feat, thrb, max_depth=depth)
-    tables = [torch.from_numpy(a) for a in (pf.feat1, pf.thr1, pf.feat2, pf.thr2)]
+    tables = pt.packed_node_tables(pf, "cpu")
     np.testing.assert_array_equal(
         pt.forest_apply_packed(tx, *tables, k1=pf.k1, k2=pf.k2).numpy()[:, :T].T, ids)
     np.testing.assert_array_equal(pt.rf_eval_packed(tx, *tables, tv, k1=pf.k1, k2=pf.k2).numpy(), s)

@@ -156,7 +156,7 @@ def test_packed_traverse_matches_pallas(depth, T, d):
     assert pf.k2 == depth - 7 and pf.feat1.shape[0] == 8
 
     i1_j = np.asarray(tk._packed_hop1(jnp.asarray(xb, jnp.bfloat16), pf.feat1, pf.thr1, k1=pf.k1))
-    i1 = pt._packed_hop1(torch.from_numpy(xb), torch.from_numpy(pf.feat1), torch.from_numpy(pf.thr1), k1=pf.k1)
+    i1 = rk._packed_hop1(torch.from_numpy(xb), torch.from_numpy(pf.feat1), torch.from_numpy(pf.thr1), k1=pf.k1)
     np.testing.assert_array_equal(i1.numpy(), i1_j)
     assert (i1_j[:, :T] < (1 << pf.k1) - 1).any(), "no row stopped in hop 1"
 
