@@ -17,7 +17,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    K1 (shifted Gram) at the PCA fit's padded 12M x 256 shape (which must
    beat its plain version; a wrong mirror of a diagonal tile's skipped
    quadrant is one of its controls) and at ragged shapes, on and off its
-   float4 path (d % 4 != 0, a base off 16-byte alignment).
+   float4 path (d % 4 != 0, a base off 16-byte alignment); at
+   LinearRegression's shapes, with the controls: row scales m = √w (w
+   uniform in [0.1, 2]) on the 12M × 256 rows, and 1,024,000 × 3,000 (a
+   zero-copy view of them), timed beside its plain version and
+   ``matmul(Xcᵀ, Xc)``.
    K2 (fused Lloyd step: 3xTF32 ``wgmma`` products on the tensor cores fed
    by TMA, the centres split into TF32 hi and lo once a launch, a fused
    argmin, and the accumulation's vector atomics overlapped with the next
@@ -178,7 +182,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    engine (equal bit for bit) and save/load on the rf rows (bench.py's gbt
    config), GBTRegressor likewise on the regressor's label, and a 20,000-row
    10-round GBT fitted on the card and on the CPU (predictions agree on >=
-   99.5% of rows).
+   99.5% of rows); LinearRegression, the reference's three configs
+   (``BASELINE.md:25``: OLS; regParam 1e-5 with elasticNetParam 0.5;
+   regParam 1e-5) fit, transform and RegressionEvaluator (rmse) on the 12M
+   × 256 host rows (``linreg``) and on their 1,024,000 × 3,000 view
+   (``linreg_wide``), labels X·β* + b* + ε from ``--seed``: one K1 launch a
+   fit, OLS's rmse within 1% of ε's σ and its coefficients against an f64
+   solve on the card within a tolerance derived from K1's band and the
+   condition number, and ``fitMultiple`` of the three with one K1 launch,
+   one copy and models equal bit for bit to the separate fits'; and
+   ``linreg_card_vs_cpu``: the three configs, a weightCol fit,
+   fitIntercept=False and an unstandardized elastic net on ``--subset``
+   rows, OLS and the elastic net on 20,000 × 3,000, on the card and on the
+   CPU.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -237,6 +253,12 @@ is a probe of K9: its checks alone with random forests (no fits), at its
 four timed shapes held bit for bit with their controls and timed (device
 time apart from host time a call), the route gate, and the ragged shapes.
 It prints no result line.
+
+    python3 chip_smoke.py --linreg-only
+
+is a probe of the LinearRegression slice: K1 at its two LinearRegression
+shapes, then the three LinearRegression paths on ``--rows`` rows. It
+prints no result line.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -487,8 +509,9 @@ def gram_reference(torch, lin, X, m, mu):
     s = torch.zeros((d,), dtype=f64, device=X.device)
     Ts = torch.zeros_like(s)
     mu64 = mu.to(f64)
-    for lo in range(0, X.shape[0], REF_CHUNK):
-        x, mm = X[lo:lo + REF_CHUNK].to(f64), m[lo:lo + REF_CHUNK].to(f64)
+    step = max(1, min(REF_CHUNK, REF_CHUNK * E2E_D // d))  # ~2 GB of f64 rows a chunk
+    for lo in range(0, X.shape[0], step):
+        x, mm = X[lo:lo + step].to(f64), m[lo:lo + step].to(f64)
         g, sc = lin.shifted_gram_plain(x, mm, mu64)
         a = ((x - mu64) * mm[:, None]).abs()
         G += g
@@ -507,8 +530,11 @@ def check_shifted_gram(torch, lin, X, m, reps, control=False):
     err_s, r_s = held(torch, s, sr, Ts, n)
     check(r_G <= 1.0 and r_s <= 1.0,
           f"shifted_gram {n}x{d}: |dG|/tol {r_G:.3g} or |ds|/tol {r_s:.3g} above 1")
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    T, n_up, nsplit, rows = lin._gram_geometry(n, d, sms, lin._gram_blocks_per_sm())
     out = {"n": n, "d": d, "max_abs_err": err_G, "err_over_tol": r_G, "s_err": err_s,
-           "s_err_over_tol": r_s}
+           "s_err_over_tol": r_s, "col_tiles": T, "upper_tiles": n_up, "splits": nsplit, "split_rows": rows,
+           "partial_bytes": 4 * nsplit * n_up * (lin._GRAM_TILE + 1) * lin._GRAM_TILE}
     if control:  # a kernel that loses an output tile, one row range in a tile,
         # or mirrors a diagonal tile's skipped lower-left quadrant wrongly
         tile = G.clone()
@@ -537,6 +563,29 @@ def check_shifted_gram(torch, lin, X, m, reps, control=False):
         flops = float(n) * d * (d + 1) + 3.0 * n * d  # symmetric G + shift/mask/sum
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
     return out
+
+
+def phase_gram_shapes(torch, lin, X_pca, n_rows, reps, g):
+    """K1 at LinearRegression's shapes, with the controls: (a) row scales
+    m = √w, w uniform in [0.1, 2], padding rows 0, on the padded 12M × 256
+    rows; (b) 3,000 wide, the linreg_wide fit's 1,024,000 × 3,000, a
+    zero-copy view of the 12M × 256 rows."""
+    dev = X_pca.device
+    res = {}
+    m = torch.sqrt(torch.rand(X_pca.shape[0], generator=g, device=dev) * 1.9 + 0.1)
+    m[n_rows:] = 0.0
+    res["shifted_gram_sqrt_w"] = r = check_shifted_gram(torch, lin, X_pca, m, reps, control=True)
+    emit({"phase": "kernels", "kernel": "shifted_gram", "shape": "shifted_gram_sqrt_w", **r})
+    del m
+    n_w = n_rows * E2E_D // LINREG_WIDE_D
+    if n_w:
+        Xw = X_pca[:n_rows].reshape(-1)[:n_w * LINREG_WIDE_D].view(n_w, LINREG_WIDE_D)
+        res["shifted_gram_wide"] = r = check_shifted_gram(torch, lin, Xw, torch.ones(n_w, device=dev), reps,
+                                                          control=True)
+        emit({"phase": "kernels", "kernel": "shifted_gram", "shape": "shifted_gram_wide", **r})
+        del Xw
+    torch.cuda.empty_cache()
+    return res
 
 
 def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17):
@@ -1121,6 +1170,7 @@ def phase_kernels(torch, X_pca, n_rows, reps, seed):
     if reps:  # the redesigned kernel must beat the plain version it replaces
         check(k1["ms"] < k1["plain_ms"],
               f"shifted_gram {k1['ms']:.3f} ms not below its plain version's {k1['plain_ms']:.3f} ms")
+    res.update(phase_gram_shapes(torch, lin, X_pca, n_rows, reps, g))
 
     y = (X[:, 0] > X[:, 0].median()).float()
     res["logreg_loss_grad"] = check_logreg(torch, lk, X, y, m, 1, reps, seed, control=True)
@@ -3064,6 +3114,279 @@ def phase_logreg_many_subset(torch, Xm, y, rows, path="logreg_many", classes=LOG
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LinearRegression: the reference's three configs (BASELINE.md:25)
+# ---------------------------------------------------------------------------
+
+LINREG_CONFIGS = (("ols", {}), ("elastic_net", {"regParam": 1e-5, "elasticNetParam": 0.5}),
+                  ("ridge", {"regParam": 1e-5}))
+LINREG_WIDE_D = 3000
+# the OLS fit's training RMSE within this share of the noise's σ
+LINREG_RMSE_TOL = 0.01
+LINREG_WIDE_SUBSET = 20_000
+# card vs CPU: coefficients ‖D(β_card - β_cpu)‖ / ‖Dβ_cpu‖ (D the columns'
+# std) and the intercept over the terms that make it, |b| + Σ|μᵢβᵢ|: two
+# f32 fits of one well-posed system, far inside this
+LINREG_CPU_TOL = 1e-3
+# the CPU fits at rows × 256 beside the three configs
+LINREG_CPU_EXTRA = (("weighted", {"weightCol": "w"}), ("no_intercept", {"fitIntercept": False}),
+                    ("unstandardized", {"regParam": 1e-5, "elasticNetParam": 0.5, "standardization": False}))
+
+
+def linreg_labels(torch, X, seed):
+    """y = X·β* + b* + ε for the card's rows ``X`` (n × d): β* ~ N(0, 1/d),
+    b* ~ N(0, 1), ε ~ N(0, σ²) with σ = 0.5·std(X·β*), drawn by numpy from
+    ``seed`` (the product on the card). Returns (y as host f32, σ)."""
+    n, d = X.shape
+    rng = np.random.default_rng(seed)
+    beta = rng.normal(size=d) / np.sqrt(d)
+    b = rng.normal()
+    z = (X @ torch.from_numpy(beta.astype(np.float32)).to(X.device)).cpu().numpy().astype(np.float64)
+    sigma = 0.5 * float(z.std())
+    return (z + b + rng.normal(scale=sigma, size=n)).astype(np.float32), sigma
+
+
+def ols_reference(torch, X, y):
+    """OLS on the card's rows ``X`` in f64, in row chunks: the exact means,
+    the centred Gram G and Xᵀy, solved as the port's ``solve_normal``
+    solves (standardized, with its jitter eps(f32)·trace(A)·I), and the
+    tolerance a f32 fit must meet.
+
+    The tolerance is first-order perturbation theory in the standardized
+    system A β_s = b (A = D⁻¹GD⁻¹/n, D the columns' std, β_s = Dβ):
+    ‖δβ_s‖/‖β_s‖ ≤ κ(A)·(ε_A + ε_b)/(1 - κ(A)·ε_A), with ε_A the norm of
+    K1's entry band ``held`` allows on G, u(8·T + 4√n·|G|) with T =
+    |Xc|ᵀ|Xc|, plus the Cholesky solve's backward error γ(3d+1)·‖|L||L|ᵀ‖,
+    each over ‖A‖; and ε_b the same band on Xy (T = |Xc|ᵀ|yc|) over ‖b‖.
+    The intercept's follows: |δb₀| ≤ ‖D⁻¹μ‖·‖Dδβ‖ plus the means' band."""
+    n, d = X.shape
+    f64 = torch.float64
+    dev = X.device
+    yd = torch.from_numpy(y).to(dev, f64)
+    step = max(1, REF_CHUNK * E2E_D // d)
+    sx = torch.zeros(d, dtype=f64, device=dev)
+    for lo in range(0, n, step):
+        sx += X[lo:lo + step].to(f64).sum(dim=0)
+    mx, my = sx / n, yd.mean()
+    G = torch.zeros((d, d), dtype=f64, device=dev)
+    TG = torch.zeros_like(G)
+    Xy = torch.zeros(d, dtype=f64, device=dev)
+    Ty = torch.zeros_like(Xy)
+    for lo in range(0, n, step):
+        xc = X[lo:lo + step].to(f64) - mx
+        yc = yd[lo:lo + step] - my
+        a = xc.abs()
+        G += xc.T @ xc
+        TG += a.T @ a
+        Xy += xc.T @ yc
+        Ty += a.T @ yc.abs()
+        del xc, a
+    std = torch.sqrt(torch.diagonal(G) / n)
+    A = G / n / torch.outer(std, std)
+    b = Xy / n / std
+    eye = torch.eye(d, dtype=f64, device=dev)
+    A = A + float(np.finfo(np.float32).eps) * torch.trace(A) * eye
+    L = torch.linalg.cholesky(A)
+    beta_s = torch.cholesky_solve(b[:, None], L)[:, 0]
+    ev = torch.linalg.eigvalsh(A)
+    kappa = float(ev[-1] / ev[0])
+    band_G = U32 * (TOL_TERMS * TG + TOL_WALK * n ** 0.5 * G.abs()) / n / torch.outer(std, std)
+    band_b = U32 * (TOL_TERMS * Ty + TOL_WALK * n ** 0.5 * Xy.abs()) / n / std
+    g = (3 * d + 1) * U32
+    LL = L.abs() @ L.abs().T  # symmetric, so its 2-norm is its top eigenvalue
+    eps_gram = float(torch.linalg.matrix_norm(band_G) / ev[-1])
+    eps_chol = g / (1 - g) * float(torch.linalg.eigvalsh(LL)[-1] / ev[-1])
+    eps_b = float(torch.linalg.vector_norm(band_b) / torch.linalg.vector_norm(b))
+    eps_A = eps_gram + eps_chol
+    check(kappa * eps_A < 1.0, f"OLS reference: κ·ε_A = {kappa * eps_A:.3g}, no first-order bound")
+    tol = kappa * (eps_A + eps_b) / (1.0 - kappa * eps_A)
+    beta = beta_s / std
+    b0 = my - mx @ beta
+    mu_terms = float(my.abs() + (mx.abs() @ beta.abs()))
+    tol_b = (float(torch.linalg.vector_norm(mx / std)) * tol * float(torch.linalg.vector_norm(beta_s))
+             + U32 * (TOL_TERMS + TOL_WALK * n ** 0.5) * mu_terms)
+    host = lambda t: t.cpu().numpy()
+    return {"beta": host(beta), "intercept": float(b0), "std": host(std), "kappa": kappa, "eps_gram": eps_gram,
+            "eps_chol": eps_chol, "eps_b": eps_b, "coef_tol": tol, "intercept_tol": tol_b}
+
+
+def linreg_data(torch, X, seed):
+    """The linreg paths' labels and f64 OLS references, from the card's
+    rows ``X`` (n × 256): ``linreg`` on all of them, ``linreg_wide`` on the
+    zero-copy (n·256 // 3,000, 3,000) view (1,024,000 × 3,000 at 12M rows,
+    the reference's width; the host rows are the same view)."""
+    n = X.shape[0]
+    n_w = n * E2E_D // LINREG_WIDE_D
+    out = {}
+    for path, Xp, salt in (("linreg", X, 20), ("linreg_wide", X.reshape(-1)[:n_w * LINREG_WIDE_D].view(
+            n_w, LINREG_WIDE_D), 21)):
+        y, sigma = linreg_labels(torch, Xp, seed + salt)
+        ref, t_ref = _timed(torch, lambda: ols_reference(torch, Xp, y))
+        out[path] = {"y": y, "sigma": sigma, "ref": ref}
+        emit({"phase": "e2e", "check": "ols_f64_reference", "path": path, "rows": Xp.shape[0], "d": Xp.shape[1],
+              "sigma": sigma, "s": t_ref, **{k: v for k, v in ref.items() if k not in ("beta", "std")}})
+        torch.cuda.empty_cache()
+    return out
+
+
+def scaled_errors(m, beta, intercept, std, mx):
+    """(‖D(β_m - β)‖ / ‖Dβ‖, |b_m - b| / (|b| + Σ|μᵢβᵢ|)) of model ``m``."""
+    coef = np.asarray(m.coefficients, np.float64)
+    err = float(np.linalg.norm(std * (coef - beta)) / np.linalg.norm(std * beta))
+    err_b = abs(float(m.intercept) - intercept) / (abs(intercept) + float(np.abs(mx) @ np.abs(beta)))
+    return err, err_b
+
+
+def phase_linreg(torch, Xp, data, path):
+    """The reference's three LinearRegression configs (BASELINE.md:25) on
+    ``Xp`` through ``DataFrame``: fit, transform and the port's
+    RegressionEvaluator (rmse) on the card, one K1 launch a fit; OLS held to
+    σ and to the f64 reference (``ols_reference``); then ``fitMultiple`` of
+    the three: one K1 launch, one copy, models equal bit for bit to the
+    separate fits'. Returns the path's K1 launches, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame, core
+    from spark_rapids_ml_tpu_torch.evaluation import RegressionEvaluator
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    y, sigma, ref = data["y"], data["sigma"], data["ref"]
+    n, d = Xp.shape
+    df = DataFrame({"features": Xp, "label": y})
+    lin.shifted_gram.launches = 0
+    fits = {}
+    for name, kw in LINREG_CONFIGS:
+        k0 = lin.shifted_gram.launches
+        m, t_fit = _timed(torch, lambda: LinearRegression(**kw).fit(df))
+        launches = lin.shifted_gram.launches - k0
+        row = {"phase": "e2e", "estimator": "LinearRegression", "path": path, "config": name, **kw, "rows": n,
+               "d": d, "fit_s": t_fit, "fit_rows_per_s": n / t_fit, "n_iter": m._model_attributes["n_iter"],
+               "fit_report": m._fit_report, "shifted_gram_launches": launches}
+        check(np.isfinite(m.coefficients).all() and np.isfinite(m.intercept), f"{path} {name}: not finite")
+        out, t_tr = _timed(torch, lambda: m.transform(df))
+        pred = out.column("prediction")
+        check(pred.shape == (n,) and np.isfinite(pred).all(), f"{path} {name}: predictions not finite/shape")
+        rmse = RegressionEvaluator(metricName="rmse").evaluate(out)
+        row.update(transform_s=t_tr, transform_rows_per_s=n / t_tr, rmse=rmse, rmse_over_sigma=rmse / sigma)
+        del out, pred
+        emit(row)
+        check(launches == 1, f"{path} {name}: {launches} K1 launches in one fit, not 1")
+        fits[name] = (m, row)
+    ols, row = fits["ols"]
+    dev_s = ref["std"] * (np.asarray(ols.coefficients, np.float64) - ref["beta"])
+    err = float(np.linalg.norm(dev_s) / np.linalg.norm(ref["std"] * ref["beta"]))
+    err_b = abs(float(ols.intercept) - ref["intercept"])
+    emit({"phase": "e2e", "check": "ols_vs_f64", "path": path, "coef_scaled_rel_err": err,
+          "coef_tol": ref["coef_tol"], "intercept_abs_err": err_b, "intercept_tol": ref["intercept_tol"],
+          "kappa": ref["kappa"], "rmse_over_sigma": row["rmse_over_sigma"], "rmse_tol": LINREG_RMSE_TOL})
+    check(abs(row["rmse_over_sigma"] - 1.0) <= LINREG_RMSE_TOL,
+          f"{path}: OLS rmse {row['rmse']} not within {LINREG_RMSE_TOL} of σ {sigma}")
+    check(err <= ref["coef_tol"] and err_b <= ref["intercept_tol"],
+          f"{path}: OLS coefficients {err:.3g} (tol {ref['coef_tol']:.3g}) or intercept {err_b:.3g} "
+          f"(tol {ref['intercept_tol']:.3g}) off the f64 solve")
+
+    copies = [0]
+    shard_rows = core.shard_rows
+
+    def counted(*a, **k):
+        copies[0] += 1
+        return shard_rows(*a, **k)
+
+    core.shard_rows = counted
+    try:
+        k0 = lin.shifted_gram.launches
+        multi, t_fm = _timed(torch, lambda: dict(LinearRegression().fitMultiple(df, [kw for _, kw in LINREG_CONFIGS])))
+        launches = lin.shifted_gram.launches - k0
+    finally:
+        core.shard_rows = shard_rows
+    diffs = {name: {"coef_max_abs_diff": float(np.abs(multi[i].coefficients - fits[name][0].coefficients).max()),
+                    "intercept_abs_diff": abs(float(multi[i].intercept) - float(fits[name][0].intercept)),
+                    "n_iter": multi[i]._model_attributes["n_iter"]}
+             for i, (name, _) in enumerate(LINREG_CONFIGS)}
+    emit({"phase": "e2e", "estimator": "LinearRegression", "path": path, "check": "fitMultiple", "rows": n, "d": d,
+          "fit_s": t_fm, "fit_rows_per_s": n / t_fm, "shifted_gram_launches": launches, "copies": copies[0],
+          "vs_separate_fits": diffs, "fit_reports": [multi[i]._fit_report for i in range(len(LINREG_CONFIGS))]})
+    check(launches == 1 and copies[0] == 1, f"{path}: fitMultiple made {launches} K1 launches and {copies[0]} "
+          "copies, not 1 and 1")
+    check(all(v["coef_max_abs_diff"] == 0.0 and v["intercept_abs_diff"] == 0.0 for v in diffs.values()),
+          f"{path}: fitMultiple's models differ from the separate fits': {diffs}")
+    return lin.shifted_gram.launches
+
+
+def phase_linreg_card_vs_cpu(torch, X_host, y, Xw, yw, rows, seed):
+    """LinearRegression fitted on the card and on the CPU (K1's plain
+    version): the three configs, a weightCol fit (weights uniform in
+    [0.1, 2]), fitIntercept=False and an unstandardized elastic net at
+    ``rows`` × 256; OLS and the elastic net at 20,000 × 3,000. Holds
+    coefficients and intercepts within LINREG_CPU_TOL and n_iter within 1.
+    Returns the card fits' K1 launches, counted alone."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    w = np.random.default_rng(seed + 22).uniform(0.1, 2.0, size=rows).astype(np.float32)
+    rw = min(LINREG_WIDE_SUBSET, Xw.shape[0])
+    sets = [(X_host[:rows], y[:rows], LINREG_CONFIGS + LINREG_CPU_EXTRA),
+            (Xw[:rw], yw[:rw], LINREG_CONFIGS[:2])]
+    lin.shifted_gram.launches = 0
+    for X, yl, cases in sets:
+        n, d = X.shape
+        df = DataFrame({"features": X, "label": yl, **({"w": w} if d == E2E_D else {})})
+        std = X.astype(np.float64).std(axis=0)
+        mx = X.astype(np.float64).mean(axis=0)
+        for name, kw in cases:
+            g, t_card = _timed(torch, lambda: LinearRegression(device="cuda:0", **kw).fit(df))
+            t = time.perf_counter()
+            c = LinearRegression(device="cpu", **kw).fit(df)
+            t_cpu = time.perf_counter() - t
+            err, err_b = scaled_errors(g, np.asarray(c.coefficients, np.float64), float(c.intercept), std, mx)
+            it_g, it_c = g._model_attributes["n_iter"], c._model_attributes["n_iter"]
+            row = {"phase": "subset", "estimator": "LinearRegression", "path": "linreg_card_vs_cpu", "rows": n,
+                   "d": d, "config": name, **kw, "card_fit_s": t_card, "cpu_fit_s": t_cpu, "n_iter_card": it_g,
+                   "n_iter_cpu": it_c, "coef_scaled_rel_err": err, "intercept_rel_err": err_b,
+                   "tol": LINREG_CPU_TOL}
+            if it_g != it_c:
+                row["n_iter_reason"] = ("FISTA's stop test max|Δβ| > tol crossed on a different step: the two f32 "
+                                        "Grams differ in summation order")
+            emit(row)
+            check(err <= LINREG_CPU_TOL and err_b <= LINREG_CPU_TOL and abs(it_g - it_c) <= 1,
+                  f"LinearRegression {name} at {n} x {d}: card vs CPU beyond tolerance")
+    return lin.shifted_gram.launches
+
+
+def linreg_paths(torch, X_host, data, subset, seed) -> dict:
+    """The three LinearRegression paths on the host rows (``data`` from
+    ``linreg_data``): their K1 launches, each path counted alone."""
+    n_w = X_host.shape[0] * E2E_D // LINREG_WIDE_D
+    Xw = X_host.reshape(-1)[:n_w * LINREG_WIDE_D].reshape(n_w, LINREG_WIDE_D)
+    return {"linreg": phase_linreg(torch, X_host, data["linreg"], "linreg"),
+            "linreg_wide": phase_linreg(torch, Xw, data["linreg_wide"], "linreg_wide"),
+            "linreg_card_vs_cpu": phase_linreg_card_vs_cpu(
+                torch, X_host, data["linreg"]["y"], Xw, data["linreg_wide"]["y"], min(subset, X_host.shape[0]),
+                seed)}
+
+
+def linreg_probe(torch, args, dev) -> int:
+    """K1 at LinearRegression's shapes, then the three LinearRegression
+    paths, on ``--rows`` rows made from ``--seed``."""
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+
+    t0 = time.perf_counter()
+    n = args.rows
+    csize = PCA._equal_chunk_rows(n, 1, 65_536)
+    X, _ = make_data(torch, n, -(-n // csize) * csize, args.seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 1)
+    phase_gram_shapes(torch, lin, X, n, args.reps, g)
+    data = linreg_data(torch, X[:n], args.seed)
+    X_host = X[:n].cpu().numpy()
+    del X
+    torch.cuda.empty_cache()
+    launches = linreg_paths(torch, X_host, data, args.subset, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches_by_path": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -4159,6 +4482,9 @@ def main() -> int:
     ap.add_argument("--umap-only", action="store_true",
                     help="a probe: build K4 and K10 alone, run K10's checks and the two UMAP paths (prints no "
                          "result line)")
+    ap.add_argument("--linreg-only", action="store_true",
+                    help="a probe: build K1 alone, run its LinearRegression shapes and the three LinearRegression "
+                         "paths (prints no result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -4191,7 +4517,8 @@ def main() -> int:
                            else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
                            else ["logreg_loss_grad"] if args.logreg_only
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
-                           else ["rf_traverse"] if args.traverse_only else _build.SOURCES)
+                           else ["rf_traverse"] if args.traverse_only
+                           else ["shifted_gram"] if args.linreg_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -4216,6 +4543,8 @@ def main() -> int:
         return umap_probe(torch, args, dev)
     if args.traverse_only:
         return traverse_probe(torch, args, dev)
+    if args.linreg_only:
+        return linreg_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -4251,6 +4580,8 @@ def main() -> int:
     for name, ok in gates.items():
         check(ok, f"K6 gate {name} failed: " + json.dumps(
             {k: {m: kern[k][m] for m in ("ms", "route_b_ms", "library_ms")} for k in NODE_HIST_SEL_SHAPES}))
+    # LinearRegression's labels and f64 references, from the rows on the card
+    lin_data = linreg_data(torch, X[:n], args.seed)
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
@@ -4290,6 +4621,8 @@ def main() -> int:
             torch, Xr, yr, min(LOGREG_REALSIM_SUBSET, Xr.shape[0]), "logreg_realsim", 2, {code}, reg, hold_coef,
             "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
     del Xr, yr
+    by_path["shifted_gram"].update(linreg_paths(torch, X_host, lin_data, args.subset, args.seed))
+    del lin_data
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
@@ -4386,7 +4719,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("bound_f32_ms", "general_ms") if k in r},
             "shape": {k: r[k] for k in ("n", "d", "K")}})
-    extra = {"lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
+    extra = {"shifted_gram_sqrt_w": kern["shifted_gram_sqrt_w"], "shifted_gram_wide": kern["shifted_gram_wide"],
+             "lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],
              "umap_sgd_epoch_transform": kern["sgd_epoch_transform"],

@@ -9,6 +9,7 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch.feature import PCA
     from spark_rapids_ml_tpu_torch.clustering import KMeans
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
     from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
     from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
     from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor
@@ -27,6 +28,8 @@ from .knn import NearestNeighbors, NearestNeighborsModel
 from .regression import (
     GBTRegressionModel,
     GBTRegressor,
+    LinearRegression,
+    LinearRegressionModel,
     RandomForestRegressionModel,
     RandomForestRegressor,
 )
@@ -38,6 +41,8 @@ __all__ = [
     "GBTClassifier",
     "GBTRegressionModel",
     "GBTRegressor",
+    "LinearRegression",
+    "LinearRegressionModel",
     "NearestNeighbors",
     "NearestNeighborsModel",
     "RandomForestClassificationModel",

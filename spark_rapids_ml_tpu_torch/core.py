@@ -9,14 +9,16 @@ hook names:
   ``_get_tpu_fit_func``               ``_get_fit_func``
   ``_get_tpu_transform_func``         ``_get_transform_func``
   ``_pre_process_data``               ``_pre_process_data``
-  ``fitMultiple``                     a plain loop over ``fit``
+  ``fitMultiple``                     ``fitMultiple`` (one pass where
+                                      ``_enable_fit_multiple_in_single_pass``)
   ``_Writer`` / ``_Reader``           same on-disk format
 
 ``_pre_process_data`` copies the design matrix onto one torch device
 (``cuda:0`` unless the estimator was given ``device=``) as a padded tensor
-plus a row-validity mask; the fit function is plain PyTorch over those
-tensors, calling the port's CUDA kernels on the card. Gang dispatch, the
-streamed out-of-core decision and telemetry spans are not ported yet.
+plus a row-validity mask, with the labels and the ``weightCol`` weights in
+the same row layout; the fit function is plain PyTorch over those tensors,
+calling the port's CUDA kernels on the card. Gang dispatch, the streamed
+out-of-core decision and telemetry spans are not ported yet.
 
 Persistence writes ``metadata.json``, ``model.npz`` and
 ``attributes.json`` exactly as the JAX package does, so either package's
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from .data.dataframe import DataFrame, _is_sparse
-from .params import HasLabelCol, Params, _TpuParams
+from .params import HasLabelCol, HasWeightCol, Params, _TpuParams
 from .parallel.mesh import shard_aligned, shard_rows
 from .utils.logging import get_logger
 from .utils.platform import resolve_device
@@ -55,6 +57,8 @@ _JAX_CLASSES = {
         ("clustering", "KMeansModel"),
         ("classification", "LogisticRegression"),
         ("classification", "LogisticRegressionModel"),
+        ("regression", "LinearRegression"),
+        ("regression", "LinearRegressionModel"),
         ("umap", "UMAP"),
         ("umap", "UMAPModel"),
         ("tree", "RandomForestClassifier"),
@@ -111,6 +115,7 @@ class FitInputs:
     n_rows: int                          # true (unpadded) row count
     n_features: int
     y: Optional[torch.Tensor] = None     # (N_pad,) labels, padded with 0
+    weight: Optional[torch.Tensor] = None  # (N_pad,) row weights, padded with 0
     dtype: torch.dtype = torch.float32
     csize: int = 1                       # row-chunk size (rows pad to it)
 
@@ -139,6 +144,22 @@ class _TpuEstimator(Params, _TpuParams):
     def _require_label(self) -> bool:
         return isinstance(self, HasLabelCol)
 
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        """True when one fit function may serve every param map of a
+        ``fitMultiple`` over one copy of the data."""
+        return False
+
+    def _resolved_weight_col(self) -> Optional[str]:
+        """The explicitly set weight column, or None."""
+        if (
+            isinstance(self, HasWeightCol)
+            and self.hasParam("weightCol")
+            and self.isSet("weightCol")
+            and self.getOrDefault("weightCol") is not None
+        ):
+            return self.getOrDefault("weightCol")
+        return None
+
     # ---- data plane ------------------------------------------------------
     def _chunk_rows(self, n_rows: int, n_dp: int) -> int:
         """Row-chunk size; subclasses with chunked passes override (rows
@@ -163,11 +184,19 @@ class _TpuEstimator(Params, _TpuParams):
         n_rows, n_features = X.shape
         csize = self._chunk_rows(int(n_rows), 1)
         Xd, maskd = shard_rows(X, device, csize)
-        y = None
+        y = w = None
         if self._require_label():
             label_col = self.getOrDefault("labelCol")
             y_host = np.asarray(dataset.column(label_col), dtype=np.float32)
             y = shard_aligned(y_host, device, Xd.shape[0])
+        wcol = self._resolved_weight_col()
+        if wcol is not None:
+            if wcol not in dataset:
+                raise ValueError(
+                    f"weightCol {wcol!r} not found in dataset columns {dataset.columns}"
+                )
+            w_host = np.asarray(dataset.column(wcol), dtype=np.float32)
+            w = shard_aligned(w_host, device, Xd.shape[0])
         return FitInputs(
             X=Xd,
             mask=maskd,
@@ -175,31 +204,52 @@ class _TpuEstimator(Params, _TpuParams):
             n_rows=int(n_rows),
             n_features=int(n_features),
             y=y,
+            weight=w,
             csize=csize,
         )
 
     # ---- fit -------------------------------------------------------------
     def fit(self, dataset: DataFrame, params: Optional[Dict[Any, Any]] = None) -> "_TpuModel":
         if params:
-            est = self.copy()
-            self._copy_tpu_params(est)
-            kw = {p.name if hasattr(p, "name") else p: v for p, v in params.items()}
-            est._set_params(**kw)
-            return est.fit(dataset)
-        self._apply_verbosity()
-        inputs = self._pre_process_data(dataset)
-        result = self._get_fit_func(dataset)(inputs, dict(self._tpu_params))
-        model = self._create_model(result)
-        self._copyValues(model)
-        self._copy_tpu_params(model)
-        return model
+            return self._with_params(params).fit(dataset)
+        return self._fit_lanes(dataset, None)[0]
 
     def fitMultiple(
         self, dataset: DataFrame, paramMaps: Sequence[Dict[Any, Any]]
     ) -> Iterator[Tuple[int, "_TpuModel"]]:
-        """One fit per param map (the JAX package's single-pass variant,
-        which reuses the resident design matrix, is not ported yet)."""
-        return _FitMultipleIterator([self.fit(dataset, pm) for pm in paramMaps])
+        """Every param map from one copy of the data where the estimator
+        enables it (``_enable_fit_multiple_in_single_pass``): one
+        ``_pre_process_data``, one fit function, one call of it per param
+        map. Otherwise one whole ``fit`` per param map."""
+        if self._enable_fit_multiple_in_single_pass():
+            models = self._fit_lanes(dataset, list(paramMaps))
+        else:
+            models = [self.fit(dataset, pm) for pm in paramMaps]
+        return _FitMultipleIterator(models)
+
+    def _with_params(self, params: Dict[Any, Any]) -> "_TpuEstimator":
+        """A copy of this estimator with ``params`` (Param or name -> value) set."""
+        est = self.copy()
+        self._copy_tpu_params(est)
+        est._set_params(**{p.name if hasattr(p, "name") else p: v for p, v in params.items()})
+        return est
+
+    def _fit_lanes(
+        self, dataset: DataFrame, paramMaps: Optional[List[Dict[Any, Any]]]
+    ) -> List["_TpuModel"]:
+        """One model per param map (``None``: this estimator's own params)
+        over one ``_pre_process_data`` and one fit function."""
+        self._apply_verbosity()
+        inputs = self._pre_process_data(dataset)
+        fit_func = self._get_fit_func(dataset)
+        estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
+        models = []
+        for est in estimators:
+            model = est._create_model(fit_func(inputs, dict(est._tpu_params)))
+            est._copyValues(model)
+            est._copy_tpu_params(model)
+            models.append(model)
+        return models
 
     # ---- persistence -----------------------------------------------------
     def write(self) -> "_Writer":

@@ -1,5 +1,7 @@
-// Shifted Gram pass: G = sum_r m_r (x_r - mu)(x_r - mu)^T and
-// s = sum_r m_r (x_r - mu), in f32, for any n and d.
+// Shifted Gram pass: G = sum_r m_r^2 (x_r - mu)(x_r - mu)^T and
+// s = sum_r m_r (x_r - mu), in f32, for any n and d. Each row is scaled
+// by m_r before the product, so G weighs it by m_r^2: for a 0/1 mask that
+// is m_r, and row weights w_r enter as m_r = sqrt(w_r).
 //
 // Replaces spark_rapids_ml_tpu/ops/linalg.py::_shifted_gram_pallas (the
 // pl.pallas_call at linalg.py:141), which streams row tiles through VMEM

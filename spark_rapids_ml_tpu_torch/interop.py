@@ -28,8 +28,8 @@ def from_jax_attributes(
     device: Optional[str] = None,
 ) -> _TpuModel:
     """The port's model ``cls_name`` (``"PCAModel"``, ``"KMeansModel"``,
-    ``"LogisticRegressionModel"``, ``"UMAPModel"``, or a JAX package's
-    full class path)
+    ``"LogisticRegressionModel"``, ``"LinearRegressionModel"``,
+    ``"UMAPModel"``, or a JAX package's full class path)
     built from a JAX model's attributes and Params (name -> value)."""
     full = cls_name
     if "." not in cls_name:

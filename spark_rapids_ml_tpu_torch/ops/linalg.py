@@ -59,7 +59,7 @@ def mean_and_cov(X: torch.Tensor, mask: torch.Tensor):
 def shifted_gram_plain(
     X: torch.Tensor, m: torch.Tensor, mu: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: ``(Σ m·(x-μ̂)(x-μ̂)ᵀ, Σ m·(x-μ̂))``."""
+    """Plain version of K1: ``(Σ m²·(x-μ̂)(x-μ̂)ᵀ, Σ m·(x-μ̂))``."""
     xs = (X - mu[None, :]) * m[:, None]
     return xs.T @ xs, xs.sum(dim=0)
 
@@ -98,8 +98,12 @@ def _gram_blocks_per_sm() -> int:
 def shifted_gram(
     X: torch.Tensor, m: torch.Tensor, mu: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K1: one pass over the rows of ``X`` (n, d) with row weights
-    ``m`` (n,) and shift ``mu`` (d,); returns ``(G (d, d), s (d,))`` in f32.
+    """Kernel K1: one pass over the rows of ``X`` (n, d) with row scales
+    ``m`` (n,) and shift ``mu`` (d,); returns ``(G, s)`` in f32 with
+    ``G = Σ m²·(x-μ̂)(x-μ̂)ᵀ`` (d, d) and ``s = Σ m·(x-μ̂)`` (d,): each row
+    is scaled by ``m`` before the product. For a 0/1 mask ``m² = m``; row
+    weights ``w`` enter as ``m = √w`` (LinearRegression), and then ``s``
+    is ``Σ √w·(x-μ̂)``, not the weighted sum.
 
     A CPU tensor goes to :func:`shifted_gram_plain`; a CUDA tensor to the
     CUDA kernel, or this raises. Replaces

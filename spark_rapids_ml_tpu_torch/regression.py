@@ -1,7 +1,7 @@
 """Drop-in module alias: ``spark_rapids_ml_tpu_torch.regression`` ≙
-``spark_rapids_ml_tpu.regression`` (RandomForestRegressor and
-GBTRegressor; the linear regressor comes with a later slice)."""
+``spark_rapids_ml_tpu.regression``."""
 
+from .models.regression import LinearRegression, LinearRegressionModel
 from .models.tree import (
     GBTRegressionModel,
     GBTRegressor,
@@ -9,4 +9,11 @@ from .models.tree import (
     RandomForestRegressor,
 )
 
-__all__ = ["GBTRegressionModel", "GBTRegressor", "RandomForestRegressionModel", "RandomForestRegressor"]
+__all__ = [
+    "GBTRegressionModel",
+    "GBTRegressor",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
+]

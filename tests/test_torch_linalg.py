@@ -48,6 +48,30 @@ def test_shifted_gram_plain_matches_pallas_interpret(n, tile, offset, masked):
     assert _rel(s_t, s_j) < 1e-4
 
 
+@pytest.mark.parametrize("n,offset", [(700, 2.0), (512, 1e3)])
+def test_shifted_gram_plain_fractional_m_matches_pallas_interpret(n, offset):
+    # row scales m = √w for weights w in [0.1, 2] (LinearRegression's rows),
+    # padding rows 0: both forms give Σ m²·(x-μ̂)(x-μ̂)ᵀ and Σ m·(x-μ̂)
+    d = 256
+    rng = np.random.default_rng(n + 1)
+    X = (rng.normal(size=(n, d)) + offset).astype(np.float32)
+    m = np.sqrt(rng.uniform(0.1, 2.0, size=n)).astype(np.float32)
+    m[-37:] = 0.0
+    mu = X[:64].mean(axis=0)
+
+    G_j, s_j = jlinalg._shifted_gram_pallas(
+        jnp.asarray(X), jnp.asarray(m), jnp.asarray(mu), tile=128, interpret=True
+    )
+    G_t, s_t = tlinalg.shifted_gram(torch.from_numpy(X), torch.from_numpy(m), torch.from_numpy(mu))
+    assert _rel(G_t, G_j) < 1e-5
+    assert _rel(s_t, s_j) < 1e-4
+    xs = (X.astype(np.float64) - mu) * m[:, None].astype(np.float64)
+    assert _rel(G_t, xs.T @ xs) < 1e-5
+    w = m.astype(np.float64) ** 2
+    G_w = ((X.astype(np.float64) - mu) * w[:, None]).T @ (X.astype(np.float64) - mu)
+    assert _rel(G_t, G_w) < 1e-5  # the weighted Gram Σ w·(x-μ̂)(x-μ̂)ᵀ
+
+
 def test_shifted_gram_ragged_d_matches_float64():
     # d not a multiple of 128 (the reference's d = 3000 is such a width);
     # the JAX package only sends lane-aligned d to Pallas, so the oracle

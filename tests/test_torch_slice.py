@@ -22,6 +22,7 @@ from spark_rapids_ml_tpu.data import DataFrame as JDataFrame
 from spark_rapids_ml_tpu.classification import LogisticRegression as JLogReg
 from spark_rapids_ml_tpu.clustering import KMeans as JKMeans
 from spark_rapids_ml_tpu.feature import PCA as JPCA
+from spark_rapids_ml_tpu.regression import LinearRegression as JLinReg
 from spark_rapids_ml_tpu_torch import DataFrame as TDataFrame
 from spark_rapids_ml_tpu_torch import interop
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression as TLogReg
@@ -146,7 +147,7 @@ def test_save_load_round_trip(tmp_path):
     assert est2.getK() == 4 and est2.getOrDefault("maxIter") == 3
 
 
-@pytest.mark.parametrize("kind", ["pca", "kmeans", "logreg"])
+@pytest.mark.parametrize("kind", ["pca", "kmeans", "logreg", "linreg"])
 def test_cross_load_jax_saved_model(tmp_path, kind):
     X = _blobs(5, n=600, k=6)
     y = (X[:, 0] > np.median(X[:, 0])).astype(np.float32)
@@ -155,6 +156,8 @@ def test_cross_load_jax_saved_model(tmp_path, kind):
         jm, col = JPCA(k=4, num_workers=1).setOutputCol("proj").fit(jdf), "proj"
     elif kind == "kmeans":
         jm, col = JKMeans(k=6, maxIter=5, num_workers=1).fit(jdf), "prediction"
+    elif kind == "linreg":
+        jm, col = JLinReg(num_workers=1, regParam=0.05, elasticNetParam=0.5).fit(jdf), "prediction"
     else:
         jm, col = JLogReg(num_workers=1, maxIter=20, regParam=0.05).fit(jdf), "probability"
     path = str(tmp_path / kind)
@@ -182,7 +185,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import spark_rapids_ml_tpu_torch\n"
         "from spark_rapids_ml_tpu_torch import core, interop, feature, clustering, classification, knn, umap\n"
-        "from spark_rapids_ml_tpu_torch import regression\n"
+        "from spark_rapids_ml_tpu_torch import regression, evaluation, metrics\n"
+        "from spark_rapids_ml_tpu_torch.ops import linreg_kernels\n"
+        "from spark_rapids_ml_tpu_torch.models import regression as mregression\n"
         "from spark_rapids_ml_tpu_torch.ops import _build, linalg, kmeans_kernels, lbfgs, logreg_kernels\n"
         "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels, rf_kernels, tree_kernels, gbt_kernels\n"
         "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap, tree as mtree\n"
