@@ -194,7 +194,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``linreg_card_vs_cpu``: the three configs, a weightCol fit,
    fitIntercept=False and an unstandardized elastic net on ``--subset``
    rows, OLS and the elastic net on 20,000 × 3,000, on the card and on the
-   CPU.
+   CPU. The linreg, linreg_wide, logreg_realsim and logreg_1k rows also
+   give the seconds of the fit's own copy (``shard_rows`` through the
+   page-locked staging ring) and its share of the fit.
+4. streamed (the out-of-core path): (a) the 12M × 256 host rows copied
+   by a plain pageable ``copy_`` and by ``shard_rows`` in turns, GB/s of
+   each, the ring's buffers page-locked and its copy stream not the
+   compute stream; (c) ``streaming=True`` PCA(k=16) and LinearRegression
+   ``fitMultiple`` of the three reference configs over those rows (an
+   ``ArrayChunkSource``), each held to its f64 truth and to the resident
+   fit of the same rows, the ``fitMultiple`` one moments pass and one Gram
+   pass; (d) the north star: PCA(k=16) and the three-config ``fitMultiple``
+   on 100,000,000 × 256 f32 rows (102.4 GB, more than the card holds) from
+   a ``GeneratorChunkSource`` that yields views of a pool of host blocks,
+   through each estimator's streaming fit function, held to the f64 truth
+   of the whole set at a band derived from the chunks, peak device memory
+   under STREAM_PEAK_MAX, one moments and one Gram pass (763 K1 launches)
+   a fit, the ingest report's stage seconds; (e) where pyarrow imports, a
+   parquet scan of 2,000,000 of the rows in 8 files, a streamed PCA fit
+   and transform that leave it on disk, held to the in-memory fit and
+   transform (else a line says it did not run). The K1 launches of these
+   fits are ``launches_by_path["shifted_gram"]["streamed"]``.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -259,6 +279,11 @@ It prints no result line.
 is a probe of the LinearRegression slice: K1 at its two LinearRegression
 shapes, then the three LinearRegression paths on ``--rows`` rows. It
 prints no result line.
+
+    python3 chip_smoke.py --stream-only
+
+is a probe of the streamed path: K1 alone built, the streamed phase alone
+on ``--rows`` rows. It prints no result line.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -2687,6 +2712,17 @@ def _timed(torch, fn):
     return out, time.perf_counter() - t
 
 
+def staged_copy_s(torch, X):
+    """Seconds of the copy a fit of host rows ``X`` starts with,
+    ``shard_rows`` through the staging ring, on its own."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import shard_rows
+
+    placed, t = _timed(torch, lambda: shard_rows(X, torch.device("cuda:0")))
+    del placed
+    torch.cuda.empty_cache()
+    return t
+
+
 def phase_e2e(torch, X_host, y_host, seed):
     from spark_rapids_ml_tpu_torch import DataFrame
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
@@ -2899,6 +2935,7 @@ def phase_logreg_realsim(torch, Xr, y, oracle_acc, k3_ms=None):
     placed, t_h2d = _timed(torch, lambda: torch.from_numpy(Xr).to("cuda:0"))
     del placed
     torch.cuda.empty_cache()
+    t_stage = staged_copy_s(torch, Xr)
     lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
     lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=200, tol=1e-30, regParam=1e-5).fit(df))
     launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
@@ -2907,8 +2944,10 @@ def phase_logreg_realsim(torch, Xr, y, oracle_acc, k3_ms=None):
     k3_s = launches * k3_ms / 1e3 if k3_ms is not None else None
     emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_realsim", "rows": n, "d": d,
           "maxIter": 200, "tol": 1e-30, "regParam": 1e-5, "host_to_device_s": t_h2d,
-          "host_to_device_gb_per_s": Xr.nbytes / t_h2d / 1e9, "fit_s": t_fit, "fit_rows_per_s": n / t_fit,
-          "k3_s": k3_s, "rest_s": t_fit - t_h2d - k3_s if k3_s is not None else None,
+          "host_to_device_gb_per_s": Xr.nbytes / t_h2d / 1e9, "staged_copy_s": t_stage,
+          "staged_gb_per_s": Xr.nbytes / t_stage / 1e9, "copy_share": t_stage / t_fit,
+          "fit_s": t_fit, "fit_rows_per_s": n / t_fit,
+          "k3_s": k3_s, "rest_s": t_fit - t_stage - k3_s if k3_s is not None else None,
           "transform_s": t_tr, "n_iter": lrm.n_iter_, "accuracy": acc, "hyperplane_accuracy": oracle_acc,
           "variant": k3_variant(lk, d, 1, False), "logreg_loss_grad_launches": launches,
           "launches_by_variant": variants})
@@ -3046,6 +3085,7 @@ def phase_logreg_1k(torch, X1, y, oracle):
     placed, t_h2d = _timed(torch, lambda: torch.from_numpy(X1).to("cuda:0"))
     del placed
     torch.cuda.empty_cache()
+    t_stage = staged_copy_s(torch, X1)
     lk.logreg_loss_grad.launches, lk.logreg_loss_grad.variants = 0, {}
     lrm, t_fit = _timed(torch, lambda: LogisticRegression(maxIter=20, regParam=1e-5).fit(df))
     launches, variants = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
@@ -3054,7 +3094,9 @@ def phase_logreg_1k(torch, X1, y, oracle):
     acc = float((out.column("prediction") == y[:nt]).mean())
     emit({"phase": "e2e", "estimator": "LogisticRegression", "path": "logreg_1k", "rows": n,
           "d": X1.shape[1], "classes": LOGREG_1K_CLASSES, "maxIter": 20, "regParam": 1e-5,
-          "host_to_device_s": t_h2d, "host_to_device_gb_per_s": X1.nbytes / t_h2d / 1e9, "fit_s": t_fit,
+          "host_to_device_s": t_h2d, "host_to_device_gb_per_s": X1.nbytes / t_h2d / 1e9,
+          "staged_copy_s": t_stage, "staged_gb_per_s": X1.nbytes / t_stage / 1e9, "copy_share": t_stage / t_fit,
+          "fit_s": t_fit,
           "fit_rows_per_s": n / t_fit, "n_iter": lrm.n_iter_, "transform_rows": nt, "transform_s": t_tr,
           "accuracy_on_transform_rows": acc, "label_map_accuracy": oracle[0],
           "label_map_accuracy_on_transform_rows": oracle[1],
@@ -3181,6 +3223,15 @@ def ols_reference(torch, X, y):
         Xy += xc.T @ yc
         Ty += a.T @ yc.abs()
         del xc, a
+    return ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my)
+
+
+def ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my, terms=TOL_TERMS, walk=None):
+    """``ols_reference``'s solve and tolerance from its f64 sums over n
+    rows: the centred G and Xᵀy, and T = |Xc|ᵀ|Xc|, |Xc|ᵀ|yc|; the band
+    u·(terms·T + walk·|G|), ``walk`` TOL_WALK·√n unless given."""
+    d, f64, dev = G.shape[0], G.dtype, G.device
+    walk = TOL_WALK * n ** 0.5 if walk is None else walk
     std = torch.sqrt(torch.diagonal(G) / n)
     A = G / n / torch.outer(std, std)
     b = Xy / n / std
@@ -3190,8 +3241,8 @@ def ols_reference(torch, X, y):
     beta_s = torch.cholesky_solve(b[:, None], L)[:, 0]
     ev = torch.linalg.eigvalsh(A)
     kappa = float(ev[-1] / ev[0])
-    band_G = U32 * (TOL_TERMS * TG + TOL_WALK * n ** 0.5 * G.abs()) / n / torch.outer(std, std)
-    band_b = U32 * (TOL_TERMS * Ty + TOL_WALK * n ** 0.5 * Xy.abs()) / n / std
+    band_G = U32 * (terms * TG + walk * G.abs()) / n / torch.outer(std, std)
+    band_b = U32 * (terms * Ty + walk * Xy.abs()) / n / std
     g = (3 * d + 1) * U32
     LL = L.abs() @ L.abs().T  # symmetric, so its 2-norm is its top eigenvalue
     eps_gram = float(torch.linalg.matrix_norm(band_G) / ev[-1])
@@ -3204,22 +3255,25 @@ def ols_reference(torch, X, y):
     b0 = my - mx @ beta
     mu_terms = float(my.abs() + (mx.abs() @ beta.abs()))
     tol_b = (float(torch.linalg.vector_norm(mx / std)) * tol * float(torch.linalg.vector_norm(beta_s))
-             + U32 * (TOL_TERMS + TOL_WALK * n ** 0.5) * mu_terms)
+             + U32 * (terms + walk) * mu_terms)
     host = lambda t: t.cpu().numpy()
     return {"beta": host(beta), "intercept": float(b0), "std": host(std), "kappa": kappa, "eps_gram": eps_gram,
             "eps_chol": eps_chol, "eps_b": eps_b, "coef_tol": tol, "intercept_tol": tol_b}
 
 
-def linreg_data(torch, X, seed):
+def linreg_data(torch, X, seed, paths=("linreg", "linreg_wide")):
     """The linreg paths' labels and f64 OLS references, from the card's
     rows ``X`` (n × 256): ``linreg`` on all of them, ``linreg_wide`` on the
     zero-copy (n·256 // 3,000, 3,000) view (1,024,000 × 3,000 at 12M rows,
-    the reference's width; the host rows are the same view)."""
+    the reference's width; the host rows are the same view); those of
+    ``paths``."""
     n = X.shape[0]
     n_w = n * E2E_D // LINREG_WIDE_D
     out = {}
     for path, Xp, salt in (("linreg", X, 20), ("linreg_wide", X.reshape(-1)[:n_w * LINREG_WIDE_D].view(
             n_w, LINREG_WIDE_D), 21)):
+        if path not in paths:
+            continue
         y, sigma = linreg_labels(torch, Xp, seed + salt)
         ref, t_ref = _timed(torch, lambda: ols_reference(torch, Xp, y))
         out[path] = {"y": y, "sigma": sigma, "ref": ref}
@@ -3252,6 +3306,7 @@ def phase_linreg(torch, Xp, data, path):
     y, sigma, ref = data["y"], data["sigma"], data["ref"]
     n, d = Xp.shape
     df = DataFrame({"features": Xp, "label": y})
+    t_stage = staged_copy_s(torch, Xp)
     lin.shifted_gram.launches = 0
     fits = {}
     for name, kw in LINREG_CONFIGS:
@@ -3260,7 +3315,8 @@ def phase_linreg(torch, Xp, data, path):
         launches = lin.shifted_gram.launches - k0
         row = {"phase": "e2e", "estimator": "LinearRegression", "path": path, "config": name, **kw, "rows": n,
                "d": d, "fit_s": t_fit, "fit_rows_per_s": n / t_fit, "n_iter": m._model_attributes["n_iter"],
-               "fit_report": m._fit_report, "shifted_gram_launches": launches}
+               "fit_report": m._fit_report, "shifted_gram_launches": launches,
+               "staged_copy_s": t_stage, "copy_share": t_stage / t_fit}
         check(np.isfinite(m.coefficients).all() and np.isfinite(m.intercept), f"{path} {name}: not finite")
         out, t_tr = _timed(torch, lambda: m.transform(df))
         pred = out.column("prediction")
@@ -3384,6 +3440,464 @@ def linreg_probe(torch, args, dev) -> int:
     torch.cuda.empty_cache()
     launches = linreg_paths(torch, X_host, data, args.subset, args.seed)
     emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches_by_path": launches})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the streamed out-of-core path: pinned staging, streamed fits, 100M rows
+# ---------------------------------------------------------------------------
+
+# chunk rows of the streamed fits: 128 MiB of f32 rows at d = 256
+STREAM_CHUNK_ROWS = 131_072
+# the north star (BASELINE.md:46-49): 100M x 256 f32, 102.4 GB, more than
+# the card's 80 GB; made from a pool of this many chunk-sized host blocks
+STREAM_ROWS = 100_000_000
+STREAM_POOL_BLOCKS = 8
+STREAM_K = 16
+# device memory a streamed fit of any row count may hold at once: a few
+# chunks in flight, K1's partials and the d x d state
+STREAM_PEAK_MAX = 4 << 30
+# timed calls of K1 at the chunk shape (about half a millisecond a call)
+STREAM_K1_REPS = 20
+# the parquet scan: rows of the 12M set written in files of these rows
+PARQUET_ROWS = 2_000_000
+PARQUET_FILE_ROWS = 250_000
+
+
+def rss_bytes() -> int:
+    """This process's resident set size (``/proc/self/status``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def f64_sums(torch, blocks, y_blocks=None):
+    """Exact (f64) sums over weighted row blocks ``[(X_b, c_b)]`` on the
+    card (each block's rows counted c_b times), in two passes: n, the
+    means, Σ|x|, the centred Gram G and T = |Xc|ᵀ|Xc|, and with labels
+    ``[(y_b, c_b)]`` the centred Xᵀy and |Xc|ᵀ|yc|."""
+    f64 = torch.float64
+    d, dev = blocks[0][0].shape[1], blocks[0][0].device
+    n = sum(c * X.shape[0] for X, c in blocks)
+    sx = sum(c * X.to(f64).sum(dim=0) for X, c in blocks)
+    sabs = sum(c * X.to(f64).abs().sum(dim=0) for X, c in blocks)
+    mx = sx / n
+    my = (sum(c * y.to(f64).sum() for y, c in y_blocks) / n) if y_blocks else None
+    out = {"n": n, "mx": mx, "my": my, "abs_mean": sabs / n,
+           "G": torch.zeros((d, d), dtype=f64, device=dev), "TG": torch.zeros((d, d), dtype=f64, device=dev)}
+    if y_blocks:
+        out["Xy"] = torch.zeros(d, dtype=f64, device=dev)
+        out["Ty"] = torch.zeros(d, dtype=f64, device=dev)
+    for i, (X, c) in enumerate(blocks):
+        xc = X.to(f64) - mx
+        a = xc.abs()
+        out["G"] += c * (xc.T @ xc)
+        out["TG"] += c * (a.T @ a)
+        if y_blocks:
+            yc = y_blocks[i][0].to(f64) - my
+            out["Xy"] += c * (xc.T @ yc)
+            out["Ty"] += c * (a.T @ yc.abs())
+        del xc, a
+    return out
+
+
+def pca_truth(torch, sums, k, terms, walk):
+    """The f64 PCA of ``f64_sums`` and the bands a f32 fit must meet.
+
+    A covariance entry of the fit is within u·(terms·T + walk·|G|)/(n-1)
+    of the f64 one (``held``'s band: ``terms`` for the rounding of each
+    term and of sums that cancel, ``walk`` for the drift over the
+    additions); its Frobenius norm E bounds the error's 2-norm. The f32
+    eigensolve adds a backward error of at most d·u·‖C‖. So each
+    eigenvalue is within E + d·u·‖C‖ (Weyl), and the sine of the largest
+    angle between the fitted and the true top-k subspace within (E +
+    d·u·‖C‖)/(λ_k - λ_(k+1)) (Davis-Kahan). The mean is within
+    u·(terms + walk)·mean|x| a column."""
+    n, G = sums["n"], sums["G"]
+    d = G.shape[0]
+    C = G / (n - 1)
+    evals, evecs = torch.linalg.eigh(C)
+    evals, evecs = evals.flip(0), evecs.flip(1)
+    band = U32 * (terms * sums["TG"] + walk * G.abs()) / (n - 1)
+    E = float(torch.linalg.matrix_norm(band)) + d * U32 * float(evals[0])
+    gap = float(evals[k - 1] - evals[k])
+    return {"n": n, "mean": sums["mx"].cpu().numpy(), "ev": evals[:k].cpu().numpy(), "V": evecs[:, :k],
+            "ev_tol": E, "gap": gap, "sin_tol": E / gap, "lambda_1": float(evals[0]),
+            "mean_tol": (U32 * (terms + walk) * sums["abs_mean"]).cpu().numpy()}
+
+
+def pca_errors(torch, model, truth):
+    """(max |λ - λ*|, sin of the largest subspace angle, max |mean - μ*|
+    over its band) of a fitted PCAModel against ``pca_truth``."""
+    V = truth["V"]
+    Vh = torch.from_numpy(np.asarray(model.components_, np.float64)).to(V.device).T
+    resid = Vh - V @ (V.T @ Vh)
+    sin = float(torch.linalg.matrix_norm(resid, ord=2))
+    ev_err = float(np.abs(np.asarray(model.explained_variance_, np.float64) - truth["ev"]).max())
+    mean_ratio = float((np.abs(np.asarray(model.mean_, np.float64) - truth["mean"]) / truth["mean_tol"]).max())
+    return ev_err, sin, mean_ratio
+
+
+def check_pca_fit(torch, model, truth, what, tol_scale=1.0):
+    ev_err, sin, mean_ratio = pca_errors(torch, model, truth)
+    row = {"ev_max_abs_err": ev_err, "ev_tol": tol_scale * truth["ev_tol"], "subspace_sin": sin,
+           "sin_tol": tol_scale * truth["sin_tol"], "mean_err_over_tol": mean_ratio / tol_scale,
+           "gap": truth["gap"], "lambda_1": truth["lambda_1"]}
+    check(truth["sin_tol"] < 1.0, f"{what}: the eigengap {truth['gap']:.3g} gives no subspace bound")
+    check(ev_err <= row["ev_tol"] and sin <= row["sin_tol"] and mean_ratio <= tol_scale,
+          f"{what}: PCA off its f64 truth: {row}")
+    return row
+
+
+def pca_reference(torch, X, k=STREAM_K):
+    """``pca_truth`` of the card's rows ``X`` at the resident band."""
+    step = REF_CHUNK
+    sums = f64_sums(torch, [(X[lo:lo + step], 1) for lo in range(0, X.shape[0], step)])
+    return pca_truth(torch, sums, k, TOL_TERMS, TOL_WALK * X.shape[0] ** 0.5)
+
+
+def ring_state(torch, dev):
+    """The staging ring's buffers (each page-locked) and copy stream (not
+    the compute stream), and its counters."""
+    from spark_rapids_ml_tpu_torch.parallel import mesh
+
+    ring = mesh.pinned_ring(dev)
+    pinned = all(b.is_pinned() for b in ring.slots)
+    own_stream = ring.stream.cuda_stream != torch.cuda.current_stream(dev).cuda_stream
+    check(pinned, "a staging buffer is not page-locked")
+    check(own_stream, "the staging ring copies on the compute stream")
+    return ring, {"slots": len(ring.slots), "slot_bytes": ring.slot_bytes, "pinned": pinned,
+                  "own_copy_stream": own_stream}
+
+
+def phase_stream_copy(torch, X_host):
+    """(a) The 12M x 256 host rows onto the card: a plain pageable
+    ``copy_`` (the old path) and ``shard_rows`` through the staging ring,
+    in turns (pageable, staged, staged, pageable)."""
+    from spark_rapids_ml_tpu_torch.parallel.mesh import shard_rows
+
+    dev = torch.device("cuda:0")
+    nb = X_host.nbytes
+
+    def pageable():
+        xd = torch.empty(X_host.shape, dtype=torch.float32, device=dev)
+        xd.copy_(torch.from_numpy(X_host))
+        return xd
+
+    ring, state = ring_state(torch, dev)
+    times = {"pageable": [], "staged": []}
+    host_s = wait_s = 0.0
+    for kind in ("pageable", "staged", "staged", "pageable"):
+        h0, w0, p0 = ring.host_s, ring.wait_s, ring.pieces
+        out, t = _timed(torch, pageable if kind == "pageable" else lambda: shard_rows(X_host, dev))
+        del out
+        torch.cuda.empty_cache()
+        times[kind].append(t)
+        if kind == "staged":
+            check(ring.pieces - p0 == -(-nb // ring.slot_bytes), "shard_rows did not go through the staging ring")
+            host_s, wait_s = ring.host_s - h0, ring.wait_s - w0
+    row = {"phase": "streamed", "check": "copy", "bytes": nb, **state,
+           "pageable_s": times["pageable"], "staged_s": times["staged"],
+           "pageable_gb_per_s": [nb / t / 1e9 for t in times["pageable"]],
+           "staged_gb_per_s": [nb / t / 1e9 for t in times["staged"]],
+           "staged_host_copy_s": host_s, "staged_buffer_wait_s": wait_s}
+    emit(row)
+    return row
+
+
+def phase_stream_vs_resident(torch, X_host, lin, pca_ref):
+    """(c) streaming=True fits of PCA(k=16) and of LinearRegression's
+    ``fitMultiple`` of the reference's three configs over the in-memory
+    12M x 256 rows (an ``ArrayChunkSource``), beside the resident fits of
+    the same rows. Each is held to its f64 truth (PCA: ``pca_truth``'s
+    bands; OLS: ``ols_reference``'s tolerance, which covers any order of
+    the sums), and streamed against resident to twice that (both within
+    it of the truth). The streamed ``fitMultiple`` must run one moments
+    pass and one Gram pass (one K1 launch a chunk of it). Returns the
+    streamed fits' K1 launches."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin_ops
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    n = X_host.shape[0]
+    n_chunks = -(-n // STREAM_CHUNK_ROWS)
+    df = DataFrame({"features": X_host, "label": lin["y"]})
+    kw = {"stream_chunk_rows": STREAM_CHUNK_ROWS}
+    res_pca, t_res = _timed(torch, lambda: PCA(k=STREAM_K).fit(df))
+    k0 = lin_ops.shifted_gram.launches
+    str_pca, t_str = _timed(torch, lambda: PCA(k=STREAM_K, streaming=True, **kw).fit(df))
+    k_pca = lin_ops.shifted_gram.launches - k0
+    rep = str_pca._ingest_report
+    rows = {"resident": check_pca_fit(torch, res_pca, pca_ref, "resident PCA"),
+            "streamed": check_pca_fit(torch, str_pca, pca_ref, "streamed PCA")}
+    vs = check_pca_fit(torch, str_pca, {**pca_ref, "ev": res_pca.explained_variance_.astype(np.float64),
+                                        "mean": res_pca.mean_.astype(np.float64),
+                                        "V": torch.from_numpy(res_pca.components_.T.astype(np.float64)).to(
+                                            pca_ref["V"].device)},
+                       "streamed vs resident PCA", tol_scale=2.0)
+    emit({"phase": "streamed", "check": "pca_streamed_vs_resident", "rows": n, "k": STREAM_K,
+          "resident_fit_s": t_res, "streamed_fit_s": t_str, "streamed_rows_per_s": n / t_str,
+          "vs_f64": rows, "streamed_vs_resident": vs, "shifted_gram_launches": k_pca, "ingest": rep})
+    check(rep["passes"] == {"moments": 1, "gram": 1} and k_pca == n_chunks,
+          f"streamed PCA: passes {rep['passes']}, {k_pca} K1 launches (want {n_chunks})")
+
+    grid = [c for _, c in LINREG_CONFIGS]
+    res_lr, t_res = _timed(torch, lambda: dict(LinearRegression().fitMultiple(df, grid)))
+    k0 = lin_ops.shifted_gram.launches
+    str_lr, t_str = _timed(torch, lambda: dict(LinearRegression(streaming=True, **kw).fitMultiple(df, grid)))
+    k_lr = lin_ops.shifted_gram.launches - k0
+    ref = lin["ref"]
+    mx = X_host[:: max(1, n // 65536)].astype(np.float64).mean(axis=0)
+    errs = {}
+    for i, (name, _) in enumerate(LINREG_CONFIGS):
+        e_ref = scaled_errors(str_lr[i], ref["beta"], ref["intercept"], ref["std"], mx)
+        e_res = scaled_errors(str_lr[i], np.asarray(res_lr[i].coefficients, np.float64),
+                              float(res_lr[i].intercept), ref["std"], mx)
+        errs[name] = {"vs_resident": e_res, "n_iter": [str_lr[i]._model_attributes["n_iter"],
+                                                        res_lr[i]._model_attributes["n_iter"]]}
+        if name == "ols":
+            errs[name]["vs_f64"] = e_ref
+            check(e_ref[0] <= ref["coef_tol"], f"streamed OLS {e_ref[0]:.3g} off the f64 solve "
+                                               f"(tol {ref['coef_tol']:.3g})")
+        check(np.isfinite(str_lr[i].coefficients).all() and e_res[0] <= 2 * ref["coef_tol"],
+              f"streamed {name} {e_res[0]:.3g} off the resident fit (tol {2 * ref['coef_tol']:.3g})")
+    rep = str_lr[0]._ingest_report
+    emit({"phase": "streamed", "check": "linreg_streamed_vs_resident", "rows": n, "resident_fit_multiple_s": t_res,
+          "streamed_fit_multiple_s": t_str, "streamed_rows_per_s": n / t_str, "errors": errs,
+          "coef_tol": ref["coef_tol"], "shifted_gram_launches": k_lr, "ingest": rep,
+          "fit_reports": [str_lr[i]._fit_report for i in range(len(grid))]})
+    check(rep["passes"] == {"moments": 1, "gram": 1} and k_lr == n_chunks,
+          f"streamed fitMultiple: passes {rep['passes']}, {k_lr} K1 launches (want one Gram pass, {n_chunks})")
+    return k_pca + k_lr
+
+
+def north_star_pool(torch, seed, dev):
+    """STREAM_POOL_BLOCKS host blocks of STREAM_CHUNK_ROWS rows x 256 made
+    on the card from ``seed``: x = (z·s)Qᵀ + μ with z ~ N(0, I), scales s
+    from 3.0 down by 0.1 over the 16 leading directions and 1 past them (an
+    eigengap of ~1.2 after the 16th), Q a random rotation, μ ~ N(0, 4);
+    labels y = x·β* + b* + ε, ε's σ half of std(x·β*). Returns the blocks
+    and labels on the card and on the host."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 30)
+    d = E2E_D
+    s = torch.ones(d, device=dev)
+    s[:STREAM_K] = 3.0 - 0.1 * torch.arange(STREAM_K, device=dev)
+    Q, _ = torch.linalg.qr(torch.randn(d, d, generator=g, device=dev, dtype=torch.float64))
+    mu = 2.0 * torch.randn(d, generator=g, device=dev)
+    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    b0 = float(torch.randn(1, generator=g, device=dev))
+    pool = torch.empty((STREAM_POOL_BLOCKS, STREAM_CHUNK_ROWS, d), dtype=torch.float32, device=dev)
+    ys = torch.empty((STREAM_POOL_BLOCKS, STREAM_CHUNK_ROWS), dtype=torch.float32, device=dev)
+    for b in range(STREAM_POOL_BLOCKS):
+        z = torch.randn(STREAM_CHUNK_ROWS, d, generator=g, device=dev) * s
+        pool[b] = z @ Q.T.to(torch.float32) + mu
+        ys[b] = pool[b] @ beta
+    sigma = 0.5 * float(ys.std())
+    ys += b0 + sigma * torch.randn(ys.shape, generator=g, device=dev)
+    return pool, ys, pool.cpu().numpy(), ys.cpu().numpy()
+
+
+def phase_north_star(torch, seed):
+    """(d) PCA(k=16) and the three-config LinearRegression ``fitMultiple``
+    on 100,000,000 x 256 f32 rows (102.4 GB, more than the card holds),
+    from a ``GeneratorChunkSource``, each through its estimator's own
+    streaming fit function handed a ``StreamInputs`` (the call
+    ``_fit_lanes`` makes). The generator yields views of a pool of host
+    blocks, the block of each chunk drawn from ``seed``, so it does not set
+    the pace, and the f64 truth of the whole set follows from the blocks'
+    f64 sums and their counts. The band is derived from the chunks: each
+    chunk's sums within K1's (walk over its rows), then an f32 sum of
+    n_chunks chunk partials (n_chunks·u·T more). Peak device memory under
+    STREAM_PEAK_MAX; one moments and one Gram pass (n_chunks K1 launches)
+    for each fit. K1 is first held and timed at the chunk shape, and held
+    on the ragged last chunk. Returns the K1 launches of the fits and K1's
+    measurement at the chunk shape."""
+    from spark_rapids_ml_tpu_torch.core import StreamInputs
+    from spark_rapids_ml_tpu_torch.data.chunks import GeneratorChunkSource
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin_ops
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    dev = torch.device("cuda:0")
+    N, CH = STREAM_ROWS, STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    last = N - (n_chunks - 1) * CH
+    (pool, ys, pool_h, ys_h), t_pool = _timed(torch, lambda: north_star_pool(torch, seed, dev))
+    order = np.random.default_rng(seed + 31).integers(0, STREAM_POOL_BLOCKS, size=n_chunks)
+    counts = np.bincount(order[:-1], minlength=STREAM_POOL_BLOCKS)
+    blocks = [(pool[b], int(counts[b])) for b in range(STREAM_POOL_BLOCKS)] + [(pool[order[-1], :last], 1)]
+    yb = [(ys[b], int(counts[b])) for b in range(STREAM_POOL_BLOCKS)] + [(ys[order[-1], :last], 1)]
+    # K1 as the Gram pass calls it: a full chunk, timed, and the ragged last
+    # chunk, its padding rows zero with m = 0, held to the same band
+    k1 = check_shifted_gram(torch, lin_ops, pool[0], torch.ones(CH, device=dev), STREAM_K1_REPS, control=True)
+    emit({"phase": "kernels", "kernel": "shifted_gram", "shape": "shifted_gram_stream_chunk", **k1})
+    ragged = torch.zeros((CH, E2E_D), device=dev)
+    ragged[:last] = pool[order[-1], :last]
+    m_last = torch.zeros(CH, device=dev)
+    m_last[:last] = 1.0
+    r = check_shifted_gram(torch, lin_ops, ragged, m_last, 0)
+    emit({"phase": "kernels", "kernel": "shifted_gram", "shape": "shifted_gram_stream_last_chunk", **r})
+    del ragged, m_last
+    sums, t_truth = _timed(torch, lambda: f64_sums(torch, blocks, yb))
+    check(sums["n"] == N, "north star: the blocks do not count 100M rows")
+    terms, walk = TOL_TERMS + n_chunks, TOL_WALK * CH ** 0.5
+    truth = pca_truth(torch, sums, STREAM_K, terms, walk)
+    ols = ols_solve_reference_band(torch, sums, terms, walk)
+    del pool, ys, blocks, yb
+    torch.cuda.empty_cache()
+
+    def gen(start, count, _seed):
+        b = order[start // CH]
+        return pool_h[b, :count], ys_h[b, :count]
+
+    inputs = StreamInputs(source=GeneratorChunkSource(gen, N, E2E_D, has_label=True), device=dev, n_rows=N,
+                          n_features=E2E_D, dtype=torch.float32, chunk_rows=CH)
+    emit({"phase": "streamed", "check": "north_star_data", "rows": N, "d": E2E_D, "bytes": N * E2E_D * 4,
+          "chunk_rows": CH, "chunks": n_chunks, "last_chunk_rows": last, "pool_blocks": STREAM_POOL_BLOCKS,
+          "pool_s": t_pool, "truth_s": t_truth, "eigengap": truth["gap"], "ols_kappa": ols["kappa"]})
+    launches = 0
+    for what in ("pca", "linreg_fit_multiple"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        st.reset_ingest_report()
+        k0 = lin_ops.shifted_gram.launches
+        rss0 = rss_bytes()
+        t = time.perf_counter()
+        if what == "pca":
+            est = PCA(k=STREAM_K)
+            models = [est._create_model(est._get_streaming_fit_func(None)(inputs, dict(est._tpu_params)))]
+        else:
+            lr = LinearRegression()
+            fit = lr._get_streaming_fit_func(None)
+            models = []
+            for _, kw in LINREG_CONFIGS:
+                est = lr._with_params(kw)
+                models.append(est._create_model(fit(inputs, dict(est._tpu_params))))
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        k = lin_ops.shifted_gram.launches - k0
+        launches += k
+        rep = st.last_ingest_report()
+        row = {"phase": "streamed", "check": f"north_star_{what}", "rows": N, "fit_s": t_fit,
+               "fit_rows_per_s": N / t_fit, "pass_gb_per_s": rep["bytes"] / rep["wall_s"] / 1e9,
+               "peak_device_bytes": peak, "peak_max": STREAM_PEAK_MAX, "host_rss_growth_bytes": rss_bytes() - rss0,
+               "shifted_gram_launches": k, "ingest": rep}
+        if what == "pca":
+            row["vs_f64"] = check_pca_fit(torch, models[0], truth, "north-star PCA")
+        else:
+            row["configs"] = {}
+            for (name, _), m in zip(LINREG_CONFIGS, models):
+                check(np.isfinite(m.coefficients).all() and np.isfinite(m.intercept), f"north-star {name}: not finite")
+                row["configs"][name] = {"n_iter": m._model_attributes["n_iter"], "fit_report": m._fit_report}
+            err, err_b = (float(np.linalg.norm(ols["std"] * (np.asarray(models[0].coefficients, np.float64)
+                                                             - ols["beta"])) / np.linalg.norm(ols["std"] * ols["beta"])),
+                          abs(float(models[0].intercept) - ols["intercept"]))
+            row["ols_vs_f64"] = {"coef_scaled_rel_err": err, "coef_tol": ols["coef_tol"], "intercept_abs_err": err_b,
+                                 "intercept_tol": ols["intercept_tol"], "kappa": ols["kappa"]}
+            check(err <= ols["coef_tol"] and err_b <= ols["intercept_tol"],
+                  f"north-star OLS off its f64 truth: {row['ols_vs_f64']}")
+        emit(row)
+        check(rep["passes"] == {"moments": 1, "gram": 1} and rep["chunks"] == 2 * n_chunks and k == n_chunks,
+              f"north-star {what}: passes {rep['passes']}, {rep['chunks']} chunks, {k} K1 launches "
+              f"(want one moments and one Gram pass of {n_chunks} chunks)")
+        check(peak < STREAM_PEAK_MAX, f"north-star {what}: peak device memory {peak} >= {STREAM_PEAK_MAX}")
+    return launches, k1
+
+
+def ols_solve_reference_band(torch, sums, terms, walk):
+    """``ols_solve_reference`` at a band of u·(terms·T + walk·|G|)."""
+    return ols_solve_reference(torch, sums["n"], sums["G"], sums["TG"], sums["Xy"], sums["Ty"], sums["mx"],
+                               sums["my"], terms=terms, walk=walk)
+
+
+def phase_stream_parquet(torch, X_host):
+    """(e) Where pyarrow imports: the first PARQUET_ROWS of the host rows
+    written in files of PARQUET_FILE_ROWS, ``scan_parquet``, a streamed
+    PCA(k=16) fit and a streamed transform of the scan; neither may
+    materialize it. The fit is held against the in-memory fit of the same
+    rows (twice the resident band of ``pca_truth``), the transform against
+    the model's transform of the rows in memory. Returns the K1 launches,
+    or None when it did not run."""
+    import tempfile
+
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError as e:
+        emit({"phase": "streamed", "check": "parquet", "ran": False, "reason": f"pyarrow is missing: {e}"})
+        return None
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.data.dataframe import AugmentedScanFrame
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin_ops
+
+    X = X_host[:PARQUET_ROWS]
+    n = X.shape[0]
+    dev = torch.device("cuda:0")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, t_write = _timed(torch, lambda: DataFrame({"features": X}).write_parquet(
+            tmp, rows_per_file=PARQUET_FILE_ROWS))
+        scan = DataFrame.scan_parquet(tmp)
+        k0 = lin_ops.shifted_gram.launches
+        model, t_fit = _timed(torch, lambda: PCA(k=STREAM_K, stream_chunk_rows=STREAM_CHUNK_ROWS).fit(scan))
+        k = lin_ops.shifted_gram.launches - k0
+        out, t_tr = _timed(torch, lambda: model.transform(scan))
+        materialized = scan.is_materialized() or out.is_materialized()
+        proj = out.column("pca_features")
+    truth = pca_reference(torch, torch.from_numpy(X).to(dev))
+    mem, t_mem = _timed(torch, lambda: PCA(k=STREAM_K).fit(DataFrame({"features": X})))
+    vs = check_pca_fit(torch, model, {**truth, "ev": mem.explained_variance_.astype(np.float64),
+                                      "mean": mem.mean_.astype(np.float64),
+                                      "V": torch.from_numpy(mem.components_.T.astype(np.float64)).to(dev)},
+                       "parquet PCA vs the in-memory fit", tol_scale=2.0)
+    ref = model.transform(DataFrame({"features": X})).column("pca_features")
+    tr_err = float(np.abs(proj - ref).max())
+    rep = model._ingest_report
+    emit({"phase": "streamed", "check": "parquet", "ran": True, "rows": n, "files": -(-n // PARQUET_FILE_ROWS),
+          "write_s": t_write, "fit_s": t_fit, "fit_rows_per_s": n / t_fit, "in_memory_fit_s": t_mem,
+          "transform_s": t_tr, "materialized": materialized, "vs_in_memory": vs, "transform_max_abs_err": tr_err,
+          "shifted_gram_launches": k, "ingest": rep})
+    check(isinstance(out, AugmentedScanFrame) and not materialized, "the parquet scan was materialized")
+    check(proj.shape == (n, STREAM_K) and tr_err <= 1e-5 * float(np.abs(ref).max()),
+          f"streamed transform of the scan off the in-memory transform: {tr_err}")
+    check(rep["passes"] == {"moments": 1, "gram": 1}, f"parquet PCA passes {rep['passes']}")
+    return k
+
+
+def phase_streamed(torch, X_host, lin, pca_ref, seed):
+    """The streamed phase: (a) the copy, (c) streamed vs resident fits,
+    (d) the north star, (e) the parquet scan. Returns the K1 launches of
+    its fits, counted alone, and K1's measurement at the chunk shape."""
+    t = time.perf_counter()
+    phase_stream_copy(torch, X_host)
+    launches = phase_stream_vs_resident(torch, X_host, lin, pca_ref)
+    k, k1 = phase_north_star(torch, seed)
+    launches += k + (phase_stream_parquet(torch, X_host) or 0)
+    emit({"phase": "streamed", "check": "done", "s": time.perf_counter() - t, "shifted_gram_launches": launches})
+    return launches, k1
+
+
+def stream_probe(torch, args, dev) -> int:
+    """The streamed phase alone on ``--rows`` rows made from ``--seed``."""
+    from spark_rapids_ml_tpu_torch.feature import PCA
+
+    t0 = time.perf_counter()
+    n = args.rows
+    csize = PCA._equal_chunk_rows(n, 1, 65_536)
+    X, _ = make_data(torch, n, -(-n // csize) * csize, args.seed, dev)
+    lin = linreg_data(torch, X[:n], args.seed, paths=("linreg",))["linreg"]
+    pca_ref = pca_reference(torch, X[:n])
+    X_host = X[:n].cpu().numpy()
+    del X
+    torch.cuda.empty_cache()
+    launches, _ = phase_streamed(torch, X_host, lin, pca_ref, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": launches})
     return 0
 
 
@@ -4485,6 +4999,9 @@ def main() -> int:
     ap.add_argument("--linreg-only", action="store_true",
                     help="a probe: build K1 alone, run its LinearRegression shapes and the three LinearRegression "
                          "paths (prints no result line)")
+    ap.add_argument("--stream-only", action="store_true",
+                    help="a probe: build K1 alone and run only the streamed phase: the copy, streamed vs resident "
+                         "fits, the 100M-row fits and the parquet scan (prints no result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -4518,7 +5035,7 @@ def main() -> int:
                            else ["logreg_loss_grad"] if args.logreg_only
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
                            else ["rf_traverse"] if args.traverse_only
-                           else ["shifted_gram"] if args.linreg_only else _build.SOURCES)
+                           else ["shifted_gram"] if args.linreg_only or args.stream_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -4545,6 +5062,8 @@ def main() -> int:
         return traverse_probe(torch, args, dev)
     if args.linreg_only:
         return linreg_probe(torch, args, dev)
+    if args.stream_only:
+        return stream_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -4582,6 +5101,7 @@ def main() -> int:
             {k: {m: kern[k][m] for m in ("ms", "route_b_ms", "library_ms")} for k in NODE_HIST_SEL_SHAPES}))
     # LinearRegression's labels and f64 references, from the rows on the card
     lin_data = linreg_data(torch, X[:n], args.seed)
+    pca_ref = pca_reference(torch, X[:n])
     X_host = X[:n].cpu().numpy()
     y_host = y.cpu().numpy()
     del X, y
@@ -4622,7 +5142,9 @@ def main() -> int:
             "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
     del Xr, yr
     by_path["shifted_gram"].update(linreg_paths(torch, X_host, lin_data, args.subset, args.seed))
-    del lin_data
+    by_path["shifted_gram"]["streamed"], k1_chunk = phase_streamed(torch, X_host, lin_data["linreg"], pca_ref,
+                                                                   args.seed)
+    del lin_data, pca_ref
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
@@ -4720,6 +5242,7 @@ def main() -> int:
             **{k: r[k] for k in ("bound_f32_ms", "general_ms") if k in r},
             "shape": {k: r[k] for k in ("n", "d", "K")}})
     extra = {"shifted_gram_sqrt_w": kern["shifted_gram_sqrt_w"], "shifted_gram_wide": kern["shifted_gram_wide"],
+             "shifted_gram_stream_chunk": k1_chunk,
              "lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
              "knn_topk_join": kern["knn_topk_join"], "knn_topk_umap_graph": kern["knn_topk_umap_graph"],
              "knn_topk_umap_transform": kern["knn_topk_umap_transform"],

@@ -13,6 +13,13 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
     from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
     from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor
+
+Out-of-core data: ``DataFrame.scan_parquet(path)`` (a lazy
+``ParquetScanFrame`` that streamed fits and transforms never materialize)
+and the chunk sources of a streamed fit,
+
+    from spark_rapids_ml_tpu_torch.data.chunks import (
+        ArrayChunkSource, CSRChunkSource, GeneratorChunkSource, ParquetChunkSource)
 """
 
 __version__ = "0.1.0"

@@ -13,12 +13,22 @@ hook names:
                                       ``_enable_fit_multiple_in_single_pass``)
   ``_Writer`` / ``_Reader``           same on-disk format
 
+  ``_get_tpu_streaming_fit_func``     ``_get_streaming_fit_func``
+
 ``_pre_process_data`` copies the design matrix onto one torch device
 (``cuda:0`` unless the estimator was given ``device=``) as a padded tensor
 plus a row-validity mask, with the labels and the ``weightCol`` weights in
 the same row layout; the fit function is plain PyTorch over those tensors,
-calling the port's CUDA kernels on the card. Gang dispatch, the streamed
-out-of-core decision and telemetry spans are not ported yet.
+calling the port's CUDA kernels on the card.
+
+An estimator with a streaming fit function (PCA, LinearRegression) fits
+out of core instead when ``_should_stream`` says so: ``streaming=True``, a
+parquet scan whose columns are on disk, an explicit sparse opt-in, or a
+design matrix larger than ``_default_stream_threshold_bytes``.
+``_pre_process_stream`` then hands the fit a ``StreamInputs`` around a
+chunk source (``data.chunks``), and the card holds a few chunks, never the
+dataset. A model's ``transform`` over a parquet scan streams it the same
+way. Gang dispatch and telemetry spans are not ported yet.
 
 Persistence writes ``metadata.json``, ``model.npz`` and
 ``attributes.json`` exactly as the JAX package does, so either package's
@@ -39,7 +49,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from .data.dataframe import DataFrame, _is_sparse
+from .data.dataframe import AugmentedScanFrame, DataFrame, ParquetScanFrame, _is_sparse
 from .params import HasLabelCol, HasWeightCol, Params, _TpuParams
 from .parallel.mesh import shard_aligned, shard_rows
 from .utils.logging import get_logger
@@ -75,7 +85,8 @@ _JAX_CLASSES = {
 
 def _resolve_feature_matrix(obj: "_TpuParams", dataset: DataFrame) -> np.ndarray:
     """The feature columns of ``dataset`` as one dense matrix (a sparse
-    column is densified: the port has no sparse path yet)."""
+    column is densified whole; a streamed fit densifies it a chunk at a
+    time instead)."""
     input_col, input_cols = obj._get_input_columns()
     if input_cols is not None:
         mats = [np.asarray(dataset.column(c)).reshape(-1, 1) for c in input_cols]
@@ -124,6 +135,34 @@ class FitInputs:
 FitFunc = Callable[[FitInputs, Dict[str, Any]], Dict[str, Any]]
 
 
+@dataclass
+class StreamInputs:
+    """Inputs of a streamed fit: a re-iterable chunk source instead of
+    tensors on the card. The card holds a few chunks and the fit's state,
+    never the dataset."""
+
+    source: Any                          # data.chunks.ChunkSource
+    device: torch.device
+    n_rows: int
+    n_features: int
+    dtype: torch.dtype = torch.float32
+    chunk_rows: int = 1 << 16
+
+
+# streaming fit function: (stream_inputs, params_dict) -> named arrays
+StreamFitFunc = Callable[[StreamInputs, Dict[str, Any]], Dict[str, Any]]
+
+
+def _default_stream_threshold_bytes(device: torch.device) -> int:
+    """Design-matrix bytes above which a fit streams instead of copying the
+    matrix onto the card: 60% of the card's memory (the matrix must leave
+    room for the fit's temporaries), or 8 GiB on the CPU."""
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return int(0.6 * total)
+    return 8 << 30
+
+
 class _TpuEstimator(Params, _TpuParams):
     """Abstract estimator (the JAX package's ``_TpuEstimator``)."""
 
@@ -149,6 +188,11 @@ class _TpuEstimator(Params, _TpuParams):
         ``fitMultiple`` over one copy of the data."""
         return False
 
+    def _get_streaming_fit_func(self, dataset: DataFrame) -> Optional[StreamFitFunc]:
+        """Chunked out-of-core fit, or None where the algorithm needs the
+        matrix on the card. Engaged by :meth:`_should_stream`."""
+        return None
+
     def _resolved_weight_col(self) -> Optional[str]:
         """The explicitly set weight column, or None."""
         if (
@@ -159,6 +203,94 @@ class _TpuEstimator(Params, _TpuParams):
         ):
             return self.getOrDefault("weightCol")
         return None
+
+    # ---- streaming decision / data plane --------------------------------
+    def _should_stream(self, dataset: DataFrame) -> bool:
+        if self._streaming is not None:
+            return bool(self._streaming)
+        input_col, input_cols = self._get_input_columns()
+        if isinstance(dataset, ParquetScanFrame) and not dataset.is_materialized():
+            # only on-disk columns stream: a column a prior transform
+            # appended in memory (AugmentedScanFrame) takes the resident path
+            if input_cols is not None:
+                return False
+            needed = [input_col]
+            if self._require_label():
+                needed.append(self.getOrDefault("labelCol"))
+            wcol = self._resolved_weight_col()
+            if wcol is not None:
+                needed.append(wcol)
+            return all(dataset.has_disk_column(c) for c in needed)
+        if input_cols is not None:
+            n_features = len(input_cols)
+        else:
+            col = dataset.column(input_col)
+            if (
+                _is_sparse(col)
+                and self.hasParam("enable_sparse_data_optim")
+                and self.isDefined("enable_sparse_data_optim")
+                and self.getOrDefault("enable_sparse_data_optim") is True
+            ):
+                # the explicit sparse opt-in: the matrix must never be
+                # densified whole, so CSR chunks are densified one by one
+                return True
+            n_features = int(col.shape[1]) if col.ndim == 2 or _is_sparse(col) else 1
+        itemsize = 4 if self._float32_inputs else 8
+        est_bytes = dataset.count() * n_features * itemsize
+        return est_bytes > _default_stream_threshold_bytes(resolve_device(self._device))
+
+    def _pre_process_stream(self, dataset: DataFrame) -> StreamInputs:
+        """A chunk source over ``dataset``: the scan's parquet files, CSR
+        rows densified a chunk at a time, or the in-memory rows."""
+        from .data.chunks import ArrayChunkSource, CSRChunkSource, auto_chunk_rows
+
+        device = resolve_device(self._device)
+        if self.num_workers != 1:
+            raise NotImplementedError(
+                f"num_workers={self.num_workers}: multi-GPU fits are not ported yet"
+            )
+        if not self._float32_inputs:
+            raise NotImplementedError(
+                "float64 inputs (float32_inputs=False) are not ported yet"
+            )
+        label_col = self.getOrDefault("labelCol") if self._require_label() else None
+        weight_col = self._resolved_weight_col()
+        input_col, input_cols = self._get_input_columns()
+        if (
+            isinstance(dataset, ParquetScanFrame)
+            and not dataset.is_materialized()
+            and all(dataset.has_disk_column(c) for c in (input_col, label_col, weight_col) if c is not None)
+        ):
+            if input_cols is not None:
+                raise ValueError(
+                    "a streamed fit over a parquet scan needs a single vector "
+                    "features column (featuresCols is resident-only)"
+                )
+            source = dataset.chunk_source(features_col=input_col, label_col=label_col, weight_col=weight_col)
+        else:
+            # a column that lives only in memory (a prior streamed
+            # transform's output, maybe shadowing a disk column) is read
+            # through dataset.column()
+            y = None if label_col is None else np.asarray(dataset.column(label_col))
+            if weight_col is not None and weight_col not in dataset:
+                raise ValueError(
+                    f"weightCol {weight_col!r} not found in dataset columns {dataset.columns}"
+                )
+            w = None if weight_col is None else np.asarray(dataset.column(weight_col))
+            col = dataset.column(input_col) if input_cols is None else None
+            if col is not None and _is_sparse(col):
+                source = CSRChunkSource(col, y, w)
+            else:
+                source = ArrayChunkSource(_resolve_feature_matrix(self, dataset), y, w)
+        chunk_rows = self._stream_chunk_rows or auto_chunk_rows(source.n_features, 4, 1)
+        return StreamInputs(
+            source=source,
+            device=device,
+            n_rows=int(source.n_rows),
+            n_features=int(source.n_features),
+            dtype=torch.float32,
+            chunk_rows=int(chunk_rows),
+        )
 
     # ---- data plane ------------------------------------------------------
     def _chunk_rows(self, n_rows: int, n_dp: int) -> int:
@@ -238,16 +370,30 @@ class _TpuEstimator(Params, _TpuParams):
         self, dataset: DataFrame, paramMaps: Optional[List[Dict[Any, Any]]]
     ) -> List["_TpuModel"]:
         """One model per param map (``None``: this estimator's own params)
-        over one ``_pre_process_data`` and one fit function."""
+        over one ``_pre_process_data`` (or ``_pre_process_stream``, where
+        the fit streams) and one fit function."""
+        from .ops.streaming import last_ingest_report, reset_ingest_report
+
         self._apply_verbosity()
-        inputs = self._pre_process_data(dataset)
-        fit_func = self._get_fit_func(dataset)
+        stream_func = self._get_streaming_fit_func(dataset)
+        streaming = stream_func is not None and self._should_stream(dataset)
+        if streaming:
+            self.logger.info("Streamed fit (out-of-core chunked ingest).")
+            inputs: Any = self._pre_process_stream(dataset)
+            fit_func: Any = stream_func
+            reset_ingest_report()
+        else:
+            inputs = self._pre_process_data(dataset)
+            fit_func = self._get_fit_func(dataset)
         estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
         models = []
         for est in estimators:
             model = est._create_model(fit_func(inputs, dict(est._tpu_params)))
             est._copyValues(model)
             est._copy_tpu_params(model)
+            if streaming:
+                # the ingest pipeline's depths and pace over the fit's passes
+                model._ingest_report = last_ingest_report()
             models.append(model)
         return models
 
@@ -302,6 +448,10 @@ class _TpuEstimatorSupervised(_TpuEstimator, HasLabelCol):
 class _TpuModel(Params, _TpuParams):
     """Abstract fitted model (the JAX package's ``_TpuModel``)."""
 
+    # the ingest report of a streamed fit (ops.streaming.last_ingest_report);
+    # {} for resident fits and loaded models
+    _ingest_report: Dict[str, Any] = {}
+
     def __init__(self, **model_attributes: Any) -> None:
         super().__init__()
         self._init_tpu_params()
@@ -337,8 +487,16 @@ class _TpuModel(Params, _TpuParams):
 
     def transform(self, dataset: DataFrame) -> DataFrame:
         """Append prediction/output columns; rows go through the device in
-        batches of :meth:`_transform_batch_rows`."""
+        batches of :meth:`_transform_batch_rows`. A parquet scan whose
+        features column is on disk is streamed, never materialized: the
+        result is an :class:`AugmentedScanFrame` holding the output columns
+        in memory."""
         self._apply_verbosity()
+        if isinstance(dataset, ParquetScanFrame) and not dataset.is_materialized():
+            input_col, input_cols = self._get_input_columns()
+            if input_cols is None and dataset.has_disk_column(input_col):
+                out_columns = self._apply_streamed(self._get_transform_func(dataset), dataset, input_col)
+                return AugmentedScanFrame(dataset, out_columns)
         X = _f32_features(self, _resolve_feature_matrix(self, dataset))
         out_columns = self._apply_batched(self._get_transform_func(dataset), X)
         out = dataset
@@ -360,6 +518,28 @@ class _TpuModel(Params, _TpuParams):
         for lo in range(0, max(n, 1), bs):
             for k, v in fn(X[lo : lo + bs]).items():
                 chunks.setdefault(k, []).append(np.asarray(v))
+        return {k: np.concatenate(v, axis=0) for k, v in chunks.items()}
+
+    def _apply_streamed(
+        self,
+        fn: Callable[[np.ndarray], Dict[str, np.ndarray]],
+        scan: ParquetScanFrame,
+        input_col: str,
+    ) -> Dict[str, np.ndarray]:
+        """``fn`` over the scan's features, one chunk of
+        :meth:`_transform_batch_rows` rows at a time: the host holds the
+        output columns, never the feature matrix."""
+        if not self._float32_inputs:
+            raise NotImplementedError(
+                "float64 inputs (float32_inputs=False) are not ported yet"
+            )
+        source = scan.chunk_source(features_col=input_col)
+        chunks: Dict[str, List[np.ndarray]] = {}
+        for chunk in source.iter_chunks(self._transform_batch_rows(), dtype=np.float32):
+            # writeable too: a parquet chunk may be a read-only arrow view
+            Xb = np.require(chunk.X[: chunk.n_valid], np.float32, ["C", "W"])
+            for k, v in fn(Xb).items():
+                chunks.setdefault(k, []).append(np.asarray(v)[: chunk.n_valid])
         return {k: np.concatenate(v, axis=0) for k, v in chunks.items()}
 
     # ---- persistence -----------------------------------------------------

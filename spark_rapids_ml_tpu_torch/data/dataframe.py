@@ -1,11 +1,12 @@
 """Lightweight host DataFrame — the port's data plane.
 
-A copy of the in-memory part of ``spark_rapids_ml_tpu/data/dataframe.py``
-(the port may not import the JAX package). A ``DataFrame`` is a
+A copy of ``spark_rapids_ml_tpu/data/dataframe.py`` (the port may not
+import the JAX package), without ``kfold``. A ``DataFrame`` is a
 host-resident column store (numpy arrays / scipy CSR matrices) with a
 logical partition count; estimators copy its rows straight onto the card.
-The lazy parquet scan frames belong to the streamed out-of-core path, which
-is not ported yet.
+``DataFrame.scan_parquet`` gives a :class:`ParquetScanFrame` whose columns
+stay on disk: the streamed fits read it chunk by chunk
+(``data.chunks.ParquetChunkSource``) and never materialize it.
 
 Column kinds:
   * scalar column  -> 1-D numpy array (any dtype)
@@ -18,6 +19,7 @@ Row order is meaningful and preserved by all operations.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -28,6 +30,66 @@ ColumnLike = Union[np.ndarray, "sp.csr_matrix"]
 
 def _is_sparse(col: Any) -> bool:
     return sp.issparse(col)
+
+
+def is_spark_vector_struct(arrow_type: Any) -> bool:
+    """True for the parquet physical schema Spark ML writes for VectorUDT:
+    ``struct<type: tinyint, size: int, indices: list<int>, values:
+    list<double>>`` (``type`` 1 = dense, 0 = sparse)."""
+    import pyarrow as pa
+
+    if not pa.types.is_struct(arrow_type):
+        return False
+    names = {arrow_type.field(i).name for i in range(arrow_type.num_fields)}
+    return {"type", "size", "indices", "values"} <= names
+
+
+def spark_vector_to_numpy(col: Any, dtype: Any = np.float64) -> np.ndarray:
+    """Decode a Spark VectorUDT struct column (arrow) to a dense (n, d)
+    array. Dense and sparse rows may be mixed, as Spark allows."""
+    import pyarrow as pa
+
+    if isinstance(col, pa.ChunkedArray):
+        col = col.combine_chunks()
+    n = len(col)
+    kinds = col.field("type").fill_null(1).to_numpy(zero_copy_only=False)
+    sizes = col.field("size").fill_null(-1).to_numpy(zero_copy_only=False)
+    values = col.field("values")
+    indices = col.field("indices")
+    vflat = np.asarray(values.flatten().to_numpy(zero_copy_only=False))
+    voff = np.asarray(values.offsets.to_numpy(zero_copy_only=False))
+    iflat = np.asarray(indices.flatten().to_numpy(zero_copy_only=False))
+    ioff = np.asarray(indices.offsets.to_numpy(zero_copy_only=False))
+
+    dense = kinds == 1
+    vlen = np.diff(voff)
+    if dense.any():
+        d = int(vlen[dense][0])
+        if not (vlen[dense] == d).all():
+            raise ValueError("ragged dense vectors in VectorUDT column")
+    else:
+        d = int(sizes.max())
+    if (sizes[~dense] > d).any() or d <= 0:
+        raise ValueError(
+            f"inconsistent VectorUDT dimensions (dense d={d}, "
+            f"max sparse size={sizes.max()})"
+        )
+
+    out = np.zeros((n, d), dtype=dtype)
+    didx = np.nonzero(dense)[0]
+    if didx.size:
+        gather = voff[didx][:, None] + np.arange(d)[None, :]
+        out[didx] = vflat[gather]
+    if (~dense).any():
+        # indices lists are empty for dense rows, so iflat holds exactly the
+        # sparse rows' columns; align the values by masking them to sparse rows
+        row_of_v = np.repeat(np.arange(n), vlen)
+        sparse_mask = ~dense[row_of_v]
+        row_of_i = np.repeat(np.arange(n), np.diff(ioff))
+        if sparse_mask.sum() != len(iflat):
+            raise ValueError("VectorUDT sparse rows have mismatched lists")
+        out[row_of_i, iflat] = vflat[sparse_mask]
+    return out
 
 
 def _col_nrows(col: ColumnLike) -> int:
@@ -231,3 +293,242 @@ class DataFrame:
 
     def unpersist(self) -> "DataFrame":
         return self
+
+    def toPandas(self) -> "Any":
+        import pandas as pd
+
+        out = {}
+        for k, v in self._data.items():
+            if _is_sparse(v):
+                out[k] = list(np.asarray(v.todense()))
+            elif v.ndim == 2:
+                out[k] = list(v)
+            else:
+                out[k] = v
+        return pd.DataFrame(out)
+
+    @staticmethod
+    def from_pandas(pdf: "Any", num_partitions: int = 1) -> "DataFrame":
+        data: Dict[str, ColumnLike] = {}
+        for k in pdf.columns:
+            col = pdf[k]
+            if len(col) and isinstance(col.iloc[0], (list, tuple, np.ndarray)):
+                data[k] = np.stack([np.asarray(v) for v in col])
+            else:
+                data[k] = col.to_numpy()
+        return DataFrame(data, num_partitions)
+
+    # -- parquet I/O (pyarrow; vector columns as fixed-size lists) ---------
+    def write_parquet(self, path: str, rows_per_file: Optional[int] = None) -> None:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        os.makedirs(path, exist_ok=True)
+        n = self._nrows
+        rows_per_file = rows_per_file or max(1, (n + self._num_partitions - 1) // self._num_partitions)
+        file_idx = 0
+        for lo in range(0, n, rows_per_file):
+            hi = min(lo + rows_per_file, n)
+            arrays, names = [], []
+            for k, v in self._data.items():
+                names.append(k)
+                if _is_sparse(v):
+                    v = np.asarray(v[lo:hi].todense())
+                    arrays.append(pa.FixedSizeListArray.from_arrays(pa.array(v.ravel()), v.shape[1]))
+                elif v.ndim == 2:
+                    chunk = v[lo:hi]
+                    arrays.append(
+                        pa.FixedSizeListArray.from_arrays(pa.array(chunk.ravel()), chunk.shape[1])
+                    )
+                else:
+                    arrays.append(pa.array(v[lo:hi]))
+            table = pa.Table.from_arrays(arrays, names=names)
+            pq.write_table(table, os.path.join(path, f"part-{file_idx:05d}.parquet"))
+            file_idx += 1
+
+    @staticmethod
+    def scan_parquet(path: str, num_partitions: int = 1) -> "ParquetScanFrame":
+        """Lazy parquet scan: rows are never materialized on the host
+        unless a column is accessed. Estimators with a streamed fit read
+        this frame chunk by chunk."""
+        return ParquetScanFrame(path, num_partitions)
+
+    @staticmethod
+    def read_parquet(path: str, num_partitions: int = 1) -> "DataFrame":
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        tables = [pq.read_table(f) for f in _parquet_files(path)]
+        table = pa.concat_tables(tables)
+        data: Dict[str, ColumnLike] = {}
+        for name in table.column_names:
+            col = table.column(name).combine_chunks()
+            if isinstance(col.type, (pa.FixedSizeListType,)):
+                dim = col.type.list_size
+                flat = col.flatten().to_numpy(zero_copy_only=False)
+                data[name] = flat.reshape(-1, dim)
+            elif pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
+                pylist = col.to_pylist()
+                data[name] = np.stack([np.asarray(v) for v in pylist])
+            elif is_spark_vector_struct(col.type):
+                data[name] = spark_vector_to_numpy(col)
+            else:
+                data[name] = col.to_numpy(zero_copy_only=False)
+        return DataFrame(data, num_partitions)
+
+
+def _parquet_files(path: str) -> List[str]:
+    """The ``.parquet`` files of a directory, sorted, or the one file."""
+    if os.path.isdir(path):
+        return sorted(os.path.join(path, f) for f in os.listdir(path) if f.endswith(".parquet"))
+    return [path]
+
+
+class ParquetScanFrame(DataFrame):
+    """A DataFrame whose columns stay on disk until touched.
+
+    ``count()`` / ``columns`` / ``dtypes()`` come from parquet metadata.
+    Accessing any column (or any mutating/materializing method inherited
+    from :class:`DataFrame`) reads the files; streamed estimators instead
+    take :meth:`chunk_source` and never materialize.
+    """
+
+    def __init__(self, path: str, num_partitions: int = 1):
+        import pyarrow.parquet as pq
+
+        from .chunks import parquet_row_counts
+
+        files = _parquet_files(path)
+        if not files:
+            raise FileNotFoundError(f"No parquet files under {path}")
+        self._path = path
+        self._files = files
+        self._schema = pq.ParquetFile(files[0]).schema_arrow
+        self._nrows = sum(parquet_row_counts(files))
+        self._num_partitions = max(1, int(num_partitions))
+        self._materialized: Optional[Dict[str, ColumnLike]] = None
+
+    # `_data` drives every inherited method; materialize on first touch
+    @property
+    def _data(self) -> Dict[str, ColumnLike]:
+        if self._materialized is None:
+            self._materialized = DataFrame.read_parquet(self._path)._data
+        return self._materialized
+
+    @_data.setter
+    def _data(self, value: Dict[str, ColumnLike]) -> None:
+        self._materialized = value
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._schema.names)
+
+    def count(self) -> int:
+        return self._nrows
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._schema.names
+
+    def dtypes(self) -> List[Tuple[str, str]]:
+        import pyarrow as pa
+
+        out = []
+        for f in self._schema:
+            if isinstance(f.type, pa.FixedSizeListType):
+                out.append((f.name, f"vector<{f.type.value_type}>[{f.type.list_size}]"))
+            elif pa.types.is_list(f.type) or pa.types.is_large_list(f.type):
+                out.append((f.name, f"vector<{f.type.value_type}>[?]"))
+            elif is_spark_vector_struct(f.type):
+                out.append((f.name, "vector<spark-udt>[?]"))
+            else:
+                out.append((f.name, str(f.type)))
+        return out
+
+    def is_materialized(self) -> bool:
+        return self._materialized is not None
+
+    def has_disk_column(self, name: str) -> bool:
+        """True when ``name`` is backed by the parquet files themselves
+        (streamable), as opposed to an in-memory appended column."""
+        return name in self._schema.names
+
+    def chunk_source(
+        self,
+        features_col: str = "features",
+        label_col: Optional[str] = None,
+        weight_col: Optional[str] = None,
+    ):
+        from .chunks import ParquetChunkSource
+
+        return ParquetChunkSource(
+            self._path,
+            features_col=features_col,
+            label_col=label_col,
+            weight_col=weight_col,
+            _files=self._files,
+            _n_rows=self._nrows,
+        )
+
+
+class AugmentedScanFrame(ParquetScanFrame):
+    """A parquet scan plus in-memory appended columns: what a streamed
+    ``model.transform(scan)`` returns. Output columns (predictions,
+    projections) live in memory, the on-disk columns stay lazy. Touching
+    an on-disk column materializes the scan; the appended columns never
+    force that."""
+
+    def __init__(self, base: ParquetScanFrame, extra: Dict[str, ColumnLike]):
+        # share the base scan's metadata; a prior streamed transform's
+        # appended columns carry over
+        self._path = base._path
+        self._files = base._files
+        self._schema = base._schema
+        self._nrows = base._nrows
+        self._num_partitions = base._num_partitions
+        self._materialized = None
+        self._extra = {**getattr(base, "_extra", {}), **extra}
+
+    @property
+    def _data(self) -> Dict[str, ColumnLike]:
+        if self._materialized is None:
+            d = DataFrame.read_parquet(self._path)._data
+            d.update(self._extra)
+            self._materialized = d
+        return self._materialized
+
+    @_data.setter
+    def _data(self, value: Dict[str, ColumnLike]) -> None:
+        self._materialized = value
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._schema.names) + [
+            c for c in self._extra if c not in self._schema.names
+        ]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._extra or name in self._schema.names
+
+    def column(self, name: str) -> ColumnLike:
+        if self._materialized is None and name in self._extra:
+            return self._extra[name]
+        return super().column(name)
+
+    def has_disk_column(self, name: str) -> bool:
+        # an in-memory appended column shadows a same-named disk column
+        # (column() prefers it): streaming must not read the stale bytes
+        return name not in self._extra and super().has_disk_column(name)
+
+    def dtypes(self) -> List[Tuple[str, str]]:
+        out = super().dtypes()
+        listed = {n for n, _ in out}
+        for name, col in self._extra.items():
+            if name not in listed:
+                arr = np.asarray(col)
+                kind = (
+                    f"vector<{arr.dtype}>[{arr.shape[1]}]"
+                    if arr.ndim == 2
+                    else str(arr.dtype)
+                )
+                out.append((name, kind))
+        return out

@@ -2,8 +2,11 @@
 
 Fit: the chunked covariance of ``ops.linalg.mean_and_cov_chunked`` (one
 pass over X through kernel K1), then ``eigh`` of the d×d covariance and
-the deterministic sign flip. Transform is Spark's ``X @ pc`` with no mean
-removal — a plain product outside any kernel.
+the deterministic sign flip. The streamed fit (out of core) takes the
+covariance from ``ops.streaming.streamed_suffstats`` instead: a pass of
+means, then a pass of the centred Gram through K1 a chunk. Transform is
+Spark's ``X @ pc`` with no mean removal — a plain product outside any
+kernel.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core import FitFunc, FitInputs, _TpuEstimator, _TpuModel
+from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimator, _TpuModel
 from ..data.dataframe import DataFrame
 from ..ops.linalg import mean_and_cov_chunked, topk_eigh
 from ..params import (
@@ -108,6 +111,28 @@ class PCA(PCAClass, _TpuEstimator, _PCAParams):
                     f"k={k} must be <= number of features {inputs.n_features}"
                 )
             out = _pca_fit_kernel(inputs.X, inputs.mask, k, inputs.csize)
+            return {key: v.cpu().numpy() for key, v in out.items()}
+
+        return _fit
+
+    def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
+        """Out-of-core fit: two streamed passes (the mean, then the centred
+        Gram) give the d×d covariance with O(chunk + d²) device memory; the
+        eigensolve is the resident fit's."""
+        from ..ops.streaming import streamed_suffstats
+
+        def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+            k = int(params.get("n_components") or self.getK())
+            if k > inputs.n_features:
+                raise ValueError(
+                    f"k={k} must be <= number of features {inputs.n_features}"
+                )
+            stats = streamed_suffstats(
+                inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
+                with_y=False, fit_intercept=True,
+            )
+            cov = stats["G"] / (stats["n"] - 1.0)
+            out = _pca_from_cov(stats["mean_x"], cov, stats["n"], k)
             return {key: v.cpu().numpy() for key, v in out.items()}
 
         return _fit

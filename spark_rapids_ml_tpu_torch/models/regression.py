@@ -6,7 +6,9 @@ through kernel K1), then a solver on the d×d system: l1 = 0 is a Cholesky
 solve (OLS and ridge, with Spark's penalty on standardized coefficients),
 l1 > 0 is FISTA (the elastic net and lasso). ``fitMultiple`` fits every
 param map from one copy of the data and one pass of statistics a
-``fitIntercept`` value; ``_combine`` stacks models so that one transform
+``fitIntercept`` value; the streamed fit (out of core) takes the
+statistics from two passes of ``ops.streaming.streamed_suffstats``, once
+a ``fitIntercept`` value too; ``_combine`` stacks models so that one transform
 pass scores them all. Transform is ``X @ w + b`` (``X @ Wᵀ + b`` for a
 combined model) in f32 on the model's device, a plain product.
 """
@@ -19,7 +21,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel
+from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimatorSupervised, _TpuModel
 from ..data.dataframe import DataFrame
 from ..ops.linalg import shifted_gram
 from ..ops.linreg_kernels import (
@@ -213,6 +215,39 @@ class LinearRegression(LinearRegressionClass, _TpuEstimatorSupervised, _LinearRe
                 stats_cache[fit_intercept] = stats
                 if inputs.device.type == "cuda":
                     torch.cuda.synchronize(inputs.device)
+            t1 = time.perf_counter()
+            result = self._solve_from_stats(stats_cache[fit_intercept], params)
+            t2 = time.perf_counter()
+            result[_FIT_REPORT] = {
+                "suffstats_s": t1 - t0,
+                "stats_cached": cached,
+                "solve_s": t2 - t1,
+                "n_iter": result["n_iter"],
+                "shifted_gram_launches": shifted_gram.launches - launches0,
+            }
+            return result
+
+        return _fit
+
+    def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
+        """Out-of-core fit: the statistics (Gram, Xᵀy, moments) accumulate
+        over two streamed passes, once a ``fit_intercept`` value; every
+        solver and param map of a ``fitMultiple`` reuses them with no
+        further pass over the data."""
+        from ..ops.streaming import streamed_suffstats
+
+        stats_cache: Dict[bool, Dict[str, torch.Tensor]] = {}
+
+        def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+            fit_intercept = bool(params["fit_intercept"])
+            launches0 = shifted_gram.launches
+            t0 = time.perf_counter()
+            cached = fit_intercept in stats_cache
+            if not cached:
+                stats_cache[fit_intercept] = streamed_suffstats(
+                    inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
+                    with_y=True, fit_intercept=fit_intercept,
+                )
             t1 = time.perf_counter()
             result = self._solve_from_stats(stats_cache[fit_intercept], params)
             t2 = time.perf_counter()

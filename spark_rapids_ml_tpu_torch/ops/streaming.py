@@ -1,0 +1,479 @@
+"""Streamed (out-of-core) sufficient statistics (counterpart of
+``spark_rapids_ml_tpu/ops/streaming.py``, single device).
+
+A streamed fit never holds the dataset on the card: fixed-shape host
+chunks (``data.chunks``) move through a pipeline of bounded rings and are
+folded into accumulators that stay on the card.
+
+1. **decode**: :func:`prefetch_chunks` runs ``source.iter_chunks`` (parquet
+   decode, CSR densification, a generator) on a thread, ``_PREFETCH_DEPTH``
+   chunks ahead;
+2. **stage**: :func:`_staged_chunks` copies each chunk through the page-
+   locked staging ring of ``parallel.mesh`` onto the card, on the ring's
+   copy stream, ``_STAGE_DEPTH`` chunks ahead of the fold;
+3. **fold**: the caller's loop, on its own stream, which waits for the
+   chunk's copy (an event) before its first read. Each chunk tensor is
+   marked as used by that stream (``record_stream``), so the caching
+   allocator does not hand its memory out again before the fold that read
+   it is done; :class:`StreamGuard` proves the folds done every
+   ``_SYNC_EVERY`` chunks and at the end of a pass, which bounds the
+   chunks in flight.
+
+Host and device memory are O(ring depths × chunk) whatever the row count.
+Order, and so every accumulator, does not depend on the depths (one
+producer a stage, FIFO queues).
+
+Numerics: the means first, the centred Gram second (two passes), as in the
+JAX package. The Gram pass is kernel K1 (``ops.linalg.shifted_gram``) a
+chunk, with row scales √(mask·w) and the exact mean of pass 1 as its shift.
+Accumulators are f32, as in the JAX package.
+
+Not ported (ROADMAP): the wire formats and checkpoint/resume, the retry
+budget and chunk halving of ``stage_chunks``, fault sites, telemetry spans,
+ops-plane gauges and autotune consults, per-host file sharding and the
+blocked (mp) Gram.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..data.chunks import Chunk, ChunkSource
+from ..parallel.mesh import _torch_dtype, pinned_ring
+from .linalg import shifted_gram
+
+# the JAX package's TPUML_STREAM_PREFETCH, TPUML_STREAM_STAGE_DEPTH and
+# TPUML_STREAM_SYNC_EVERY defaults: decoded chunks ahead, staged chunks
+# ahead, and chunks between StreamGuard syncs
+_PREFETCH_DEPTH = 2
+_STAGE_DEPTH = 2
+_SYNC_EVERY = 4
+
+_TENSORS = ("X", "mask", "y", "w")
+
+
+# ---------------------------------------------------------------------------
+# Ingest report: what the pipeline did, for the port to see its own pace
+# ---------------------------------------------------------------------------
+
+_INGEST: Dict[str, Any] = {}
+_INGEST_LOCK = threading.Lock()
+
+
+def reset_ingest_report() -> None:
+    """Start a new report; every pass until the next reset adds to it."""
+    with _INGEST_LOCK:
+        _INGEST.clear()
+
+
+def last_ingest_report() -> Dict[str, Any]:
+    """Copy of the report of the passes since the last reset: the ring
+    depths, the passes by name, the chunks folded and the bytes staged, and
+    the seconds in decode (host), host → page-locked copies (host),
+    waits for a page-locked buffer to come free (host), host → device
+    copies (card: each chunk's span on the copy stream, from its first
+    piece's start to its last's end, so including any wait for the host to
+    fill a buffer; absent on the CPU), and the fold (the caller's loop body
+    on the host, and on the card its stream's time from the chunk's arrival
+    to the fold's end)."""
+    with _INGEST_LOCK:
+        return {k: (dict(v) if isinstance(v, dict) else v) for k, v in _INGEST.items()}
+
+
+def _report_add(**values: Any) -> None:
+    """Add counts and seconds to the report (a dict value adds key by key)."""
+    with _INGEST_LOCK:
+        for k, v in values.items():
+            if isinstance(v, dict):
+                d = _INGEST.setdefault(k, {})
+                for kk, vv in v.items():
+                    d[kk] = d.get(kk, 0) + vv
+            else:
+                _INGEST[k] = _INGEST.get(k, 0) + v
+
+
+# ---------------------------------------------------------------------------
+# Chunk transfer
+# ---------------------------------------------------------------------------
+
+
+class StreamGuard:
+    """Bounds the chunks a streaming loop has in flight.
+
+    Each ``tick`` hands the guard one staged chunk. Every ``_SYNC_EVERY``
+    chunks, and at :meth:`flush`, which every loop must call at its end,
+    the guard records an event on the current stream after the folds
+    enqueued so far and waits for it: that proves every fold that read the
+    held chunks done, and only then drops its references to them. So the
+    host can run at most ``_SYNC_EVERY`` chunks ahead of the card. On the
+    CPU nothing is pending and the sync is a no-op."""
+
+    def __init__(self) -> None:
+        self._pending: list = []
+        self._i = 0
+
+    def _sync_and_release(self) -> None:
+        last = self._pending[-1]
+        if last["X"].is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(last["X"].device))
+            done.synchronize()
+        self._pending.clear()
+
+    def tick(self, dev: Dict[str, Any]) -> None:
+        self._pending.append(dev)
+        self._i += 1
+        if _SYNC_EVERY > 0 and self._i % _SYNC_EVERY == 0:
+            self._sync_and_release()
+
+    def flush(self) -> None:
+        """Sync and release the tail; call after every streaming loop."""
+        if self._pending:
+            self._sync_and_release()
+
+
+def _queue_ring(produce, depth: int, name: str):
+    """Run ``produce(put)`` on a thread that hands items through a FIFO
+    queue of ``depth``; yield them in order. An error in the thread reaches
+    the consumer (after the items made before it); closing the generator
+    early cancels the thread, which polls a flag between puts, and joins it."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    cancel = threading.Event()
+    err: list = []
+
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            produce(put)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the consumer
+            err.append(e)
+        finally:
+            put(end)
+
+    th = threading.Thread(target=worker, name=name, daemon=True)
+    th.start()
+    try:
+        while True:
+            # deliver what was made before a failure, then raise at once
+            # instead of waiting behind `depth` buffered items
+            if err:
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    raise err[0].with_traceback(err[0].__traceback__) from None
+            else:
+                item = q.get()
+            if item is end:
+                break
+            yield item
+        if err:
+            raise err[0].with_traceback(err[0].__traceback__)
+    finally:
+        cancel.set()
+        th.join(timeout=30.0)
+
+
+def prefetch_chunks(it, depth: Optional[int] = None):
+    """Decode chunks on a background thread, ``depth`` ahead (default
+    ``_PREFETCH_DEPTH``; 0 yields ``it`` unchanged), so that decode overlaps
+    the copies and the fold. The seconds spent in ``next(it)`` go to the
+    ingest report as ``decode_s``. Close the generator when abandoning it
+    early."""
+    depth = _PREFETCH_DEPTH if depth is None else depth
+    if depth <= 0:
+        yield from it
+        return
+
+    def produce(put):
+        src = iter(it)
+        decode_s = 0.0
+        try:
+            while True:
+                t = time.perf_counter()
+                c = next(src, None)
+                decode_s += time.perf_counter() - t
+                if c is None or not put(c):
+                    return
+        finally:
+            _report_add(decode_s=decode_s)
+
+    yield from _queue_ring(produce, depth, "chunk-prefetch")
+
+
+def put_chunk(
+    chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.float32, *,
+    need_y: bool = True, need_w: bool = True,
+) -> Dict[str, Any]:
+    """Copy one host chunk onto ``device``: ``X``, ``mask`` (1 for the
+    chunk's ``n_valid`` rows, 0 for its padding), and ``y`` / ``w`` where
+    the chunk has them and ``need_y`` / ``need_w`` ask for them (a step
+    that does not read a column must not pay for its copy).
+
+    A chunk stored in a float narrower than ``dtype`` (f16 parquet) is
+    copied as it is and upcast on the card. On a card every copy goes
+    through the page-locked staging ring on its copy stream and the tensors
+    are made on that stream; ``_ready`` is the event after them, for which
+    a reader on another stream must wait (:func:`iter_device_chunks` does).
+    ``_h2d`` is the pair of timing events around the copies, ``_bytes`` the
+    host bytes moved."""
+    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    x_host = np.asarray(chunk.X)
+    if not (x_host.dtype.kind == "f" and x_host.dtype.itemsize < np_dtype.itemsize):
+        x_host = np.asarray(x_host, dtype=np_dtype)
+    host = {
+        "X": x_host,
+        "y": None if chunk.y is None or not need_y else np.asarray(chunk.y, dtype=np_dtype),
+        "w": None if chunk.w is None or not need_w else np.asarray(chunk.w, dtype=np_dtype),
+    }
+    rows = x_host.shape[0]
+    if device.type != "cuda":
+        out: Dict[str, Any] = {k: None if a is None else torch.from_numpy(np.array(a)).to(dtype)
+                               for k, a in host.items()}
+        out.update(mask=torch.from_numpy(chunk.mask(np_dtype)), _ready=None, _h2d=None, _bytes=0)
+        return out
+    ring = pinned_ring(device)
+    out = {}
+    nbytes = 0
+    with ring.lock, torch.cuda.stream(ring.stream):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(ring.stream)
+        for k, a in host.items():
+            if a is None:
+                out[k] = None
+                continue
+            t = torch.empty(a.shape, dtype=_torch_dtype(a.dtype), device=device)
+            ring.copy(t, a)
+            nbytes += a.nbytes
+            out[k] = t.to(dtype)  # the upcast of narrow storage, on the card
+        mask = torch.zeros((rows,), dtype=dtype, device=device)
+        mask[: chunk.n_valid] = 1.0
+        out["mask"] = mask
+        ready = torch.cuda.Event(enable_timing=True)
+        ready.record(ring.stream)
+    out.update(_ready=ready, _h2d=(start, ready), _bytes=nbytes)
+    return out
+
+
+def _await_chunk(dev: Dict[str, Any], stream: Optional[torch.cuda.Stream]) -> None:
+    """Make ``stream`` wait for a staged chunk, and mark its tensors as used
+    there so their memory is not handed out again before the fold is done."""
+    ready = dev.get("_ready")
+    if ready is None:
+        return
+    stream.wait_event(ready)
+    for k in _TENSORS:
+        if dev[k] is not None:
+            dev[k].record_stream(stream)
+
+
+def stage_chunks(chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.float32, *,
+                 need_y: bool = True, need_w: bool = True):
+    """Stage ``chunk`` on ``device``: yields one ``(chunk, dev)`` pair (the
+    JAX package's retry budget and chunk halving are not ported)."""
+    yield chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w)
+
+
+def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: bool, need_w: bool,
+                   depth: int):
+    """The staging ring stage: a thread pulls decoded chunks and stages
+    them (:func:`put_chunk`) up to ``depth`` ahead of the consumer, so the
+    fold and the StreamGuard's waits do not serialize against the copies.
+    Yields ``(chunk, dev)`` in source order; the seconds of host →
+    page-locked copies and of buffer waits go to the ingest report."""
+    ring = pinned_ring(device) if device.type == "cuda" else None
+
+    def produce(put):
+        if ring is not None:
+            torch.cuda.set_device(device)
+        host0, wait0 = (ring.host_s, ring.wait_s) if ring is not None else (0.0, 0.0)
+        try:
+            for chunk in chunks:
+                if not put((chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w))):
+                    return
+        finally:
+            if ring is not None:
+                _report_add(host_to_pinned_s=ring.host_s - host0, slot_wait_s=ring.wait_s - wait0)
+
+    yield from _queue_ring(produce, depth, "chunk-stage")
+
+
+def iter_device_chunks(
+    source: ChunkSource,
+    device: torch.device,
+    chunk_rows: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    need_y: bool = True,
+    need_w: bool = True,
+    pass_name: str = "pass",
+) -> Iterator[Tuple[Chunk, Dict[str, Any]]]:
+    """The ingest pipeline of every streaming loop: yields ``(chunk, dev)``
+    in source order, ``dev`` ready to read on the caller's current stream.
+    Adds this pass to the ingest report (:func:`last_ingest_report`) under
+    ``pass_name``."""
+    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    it = prefetch_chunks(source.iter_chunks(chunk_rows, np_dtype))
+    if _STAGE_DEPTH > 0:
+        staged = _staged_chunks(it, device, dtype, need_y=need_y, need_w=need_w, depth=_STAGE_DEPTH)
+    else:
+        staged = (pair for chunk in it for pair in stage_chunks(
+            chunk, device, dtype, need_y=need_y, need_w=need_w))
+    h2d, folds = [], []
+    n_chunks = nbytes = 0
+    fold_s = 0.0
+    t_pass = time.perf_counter()
+    try:
+        with contextlib.closing(staged) as staged_it:
+            for chunk, dev in staged_it:
+                _await_chunk(dev, stream)
+                ev0 = ev1 = None
+                if stream is not None:
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev0.record(stream)
+                t = time.perf_counter()
+                yield chunk, dev
+                fold_s += time.perf_counter() - t
+                if stream is not None:
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev1.record(stream)
+                    h2d.append(dev["_h2d"])
+                    folds.append((ev0, ev1))
+                n_chunks += 1
+                nbytes += dev["_bytes"]
+    finally:
+        it.close()
+        card = {}
+        if stream is not None and folds:
+            folds[-1][1].synchronize()
+            h2d[-1][1].synchronize()
+            card = {"host_to_device_s": sum(a.elapsed_time(b) for a, b in h2d) / 1e3,
+                    "fold_device_s": sum(a.elapsed_time(b) for a, b in folds) / 1e3}
+        _report_add(passes={pass_name: 1}, chunks=n_chunks, bytes=nbytes, fold_s=fold_s,
+                    wall_s=time.perf_counter() - t_pass, **card)
+        with _INGEST_LOCK:
+            _INGEST.update(prefetch_depth=_PREFETCH_DEPTH, stage_depth=_STAGE_DEPTH, sync_every=_SYNC_EVERY,
+                           chunk_rows=int(chunk_rows))
+
+
+# ---------------------------------------------------------------------------
+# Pass 1: weighted first moments
+# ---------------------------------------------------------------------------
+
+
+def moments1_init(d: int, device: torch.device, dtype: torch.dtype, with_y: bool) -> Dict[str, torch.Tensor]:
+    acc = {
+        "n": torch.zeros((), dtype=dtype, device=device),
+        "sum_x": torch.zeros((d,), dtype=dtype, device=device),
+    }
+    if with_y:
+        acc["sum_y"] = torch.zeros((), dtype=dtype, device=device)
+    return acc
+
+
+def moments1_step(acc: Dict[str, torch.Tensor], X: torch.Tensor, rw: torch.Tensor,
+                  y: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Fold one chunk into (Σw, Σw·x [, Σw·y]) in place; ``rw`` = mask·weight."""
+    acc["n"] += rw.sum()
+    acc["sum_x"] += rw @ X
+    if y is not None:
+        acc["sum_y"] += y @ rw
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Pass 2: centred second moments (Gram / cross / residual)
+# ---------------------------------------------------------------------------
+
+
+def gram2_init(d: int, device: torch.device, dtype: torch.dtype, with_y: bool) -> Dict[str, torch.Tensor]:
+    acc = {"G": torch.zeros((d, d), dtype=dtype, device=device)}
+    if with_y:
+        acc["Xy"] = torch.zeros((d,), dtype=dtype, device=device)
+        acc["yy"] = torch.zeros((), dtype=dtype, device=device)
+    return acc
+
+
+def gram2_step(acc: Dict[str, torch.Tensor], X: torch.Tensor, rw: torch.Tensor, mean_x: torch.Tensor,
+               y: Optional[torch.Tensor] = None, mean_y: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Fold one chunk into G = (Xc√w)ᵀ(Xc√w) [, Xy, yy], centred at the
+    exact means, in place. G is kernel K1 with m = √w and μ = ``mean_x``;
+    Xy and yy are plain products over the centred, √w-scaled chunk."""
+    sw = torch.sqrt(rw).contiguous()
+    G, _ = shifted_gram(X, sw, mean_x)
+    acc["G"] += G
+    if y is not None:
+        yc = (y - mean_y) * sw
+        acc["Xy"] += ((X - mean_x[None, :]) * sw[:, None]).T @ yc
+        acc["yy"] += yc @ yc
+    return acc
+
+
+def streamed_suffstats(
+    source: ChunkSource,
+    device: torch.device,
+    chunk_rows: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    with_y: bool = False,
+    fit_intercept: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Two streaming passes → the statistics the resident solvers take
+    (``n``, ``mean_x``, ``mean_all``, ``G``, ``var`` [, ``mean_y``, ``Xy``,
+    ``yy``]): LinearRegression's ``_solve_from_stats`` and PCA's
+    ``_pca_from_cov`` are reused unchanged. One process: the JAX package's
+    cross-process sum of the partials is the identity here."""
+    d = source.n_features
+    acc1 = moments1_init(d, device, dtype, with_y)
+    guard = StreamGuard()
+    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=with_y,
+                                               pass_name="moments")) as chunks:
+        for _, dev in chunks:
+            rw = dev["mask"] if dev["w"] is None else dev["mask"] * dev["w"]
+            moments1_step(acc1, dev["X"], rw, dev["y"] if with_y else None)
+            guard.tick(dev)
+        guard.flush()
+    n = acc1["n"]
+    mean_all = acc1["sum_x"] / n
+    if fit_intercept:
+        mean_x = mean_all
+        mean_y = acc1["sum_y"] / n if with_y else None
+    else:
+        mean_x = torch.zeros((d,), dtype=dtype, device=device)
+        mean_y = torch.zeros((), dtype=dtype, device=device) if with_y else None
+    mean_x = mean_x.contiguous()
+
+    acc2 = gram2_init(d, device, dtype, with_y)
+    guard = StreamGuard()
+    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=with_y,
+                                               pass_name="gram")) as chunks:
+        for _, dev in chunks:
+            rw = dev["mask"] if dev["w"] is None else dev["mask"] * dev["w"]
+            gram2_step(acc2, dev["X"], rw, mean_x, dev["y"] if with_y else None, mean_y)
+            guard.tick(dev)
+        guard.flush()
+
+    G = acc2["G"]
+    var = torch.diagonal(G) / n
+    if not fit_intercept:
+        var = var - mean_all * mean_all
+    stats = {"n": n, "mean_x": mean_x, "mean_all": mean_all, "G": G, "var": var}
+    if with_y:
+        stats.update(mean_y=mean_y, Xy=acc2["Xy"], yy=acc2["yy"])
+    return stats
