@@ -214,7 +214,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    parquet scan of 2,000,000 of the rows in 8 files, a streamed PCA fit
    and transform that leave it on disk, held to the in-memory fit and
    transform (else a line says it did not run). The K1 launches of these
-   fits are ``launches_by_path["shifted_gram"]["streamed"]``.
+   fits are ``launches_by_path["shifted_gram"]["streamed"]``. Then the
+   streamed LogisticRegression (host L-BFGS/OWL-QN, each evaluation one
+   chunked pass through K3): (f) K3 at the three chunk shapes it gets
+   (131,072 × 256 binomial, 32,768 × 1,024 with 64 classes, 1,601 ×
+   20,958 binomial) and their zero-padded last chunks, held with every
+   control and timed; LogisticRegression(maxIter=5) streamed and resident
+   on (g) the 12M × 256 rows, (h) the 64-class logreg_many rows (their
+   predictions equal but for near ties) and (j) a CSR matrix of real-sim's
+   shape through the sparse opt-in against the resident dense fit, each
+   model's f64 objective held against an f64 reference fit of the same
+   rows (the same host solver, f64 passes) at a band derived from K3's and
+   the chunk count, one K3 launch a chunk of each objective pass and none
+   of K3's plain version; (k) the north star: LogisticRegression(regParam=
+   1e-5, maxIter=5) on 100,000,000 × 256 rows with binomial labels, its
+   first and last evaluations held against their f64 truth from the pool,
+   the model against the f64 reference fit, peak device memory under
+   STREAM_PEAK_MAX. K3's launches there are the ``logreg_loss_grad_stream_*``
+   rows of the kernels line (and the resident fits' the rows of their
+   kernels).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -282,8 +300,8 @@ prints no result line.
 
     python3 chip_smoke.py --stream-only
 
-is a probe of the streamed path: K1 alone built, the streamed phase alone
-on ``--rows`` rows. It prints no result line.
+is a probe of the streamed path: K1 and K3 alone built, the streamed phase
+alone on ``--rows`` rows. It prints no result line.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -302,6 +320,7 @@ span partials' bound. It prints no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -445,6 +464,26 @@ def cuda_ms(torch, fn, reps: int) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def median_device_ms(torch, fn, reps: int) -> float:
+    """Median milliseconds of ``reps`` calls, each timed by CUDA events
+    around it, after one warm-up call, all queued behind a device wait
+    (``torch.cuda._sleep``) so that the host runs ahead and each interval
+    is the device's time for that call, not the wrapper's host path; the
+    median drops a call that a host stall still reached. Unlike
+    :func:`device_host` it does not fail when the enqueue outlasts the
+    wait."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for i in range(reps):
+        ev[i].record()
+        fn()
+    ev[reps].record()
+    ev[reps].synchronize()
+    return float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(reps)]))
 
 
 def make_data(torch, n_rows: int, n_alloc: int, seed: int, dev):
@@ -799,7 +838,7 @@ def k3_variant(lk, d, K, multinomial, aligned=True) -> str:
     return f"rows(NV={code // 10}, KR=1)" if code < 100 else f"mrows(NV={code // 100}, K={code % 100})"
 
 
-def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False, a_std=0.05):
+def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False, a_std=0.05, n_valid=None):
     """K3 at one shape against its f64 plain version (``logreg_reference``,
     ``held``), naming the kernel that ran it. ``control``: the negative
     controls the band must catch (a zeroed feature tile, lost rows, the
@@ -807,9 +846,11 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False,
     timed shapes and the cluster kernel's ragged ones), the route's
     products in one-pass TF32 and the cluster kernel's last rank dropped
     from every logit, else reported. A's entries are N(0, ``a_std``²).
-    ``reps``: timed beside its plain version and one autograd call (the
-    cluster kernel: and the general kernel forced by its code), with its
-    bound."""
+    ``reps``: timed (median device time) beside its plain version and one
+    autograd call (the cluster kernel: and the general kernel forced by
+    its code), with its bound. ``n_valid``: a streamed chunk's real rows;
+    the multinomial labels past them are 0, as the chunk's padding has
+    them."""
     n, d = X.shape
     g = torch.Generator(device=X.device)
     g.manual_seed(seed)
@@ -817,6 +858,8 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False,
     b = torch.randn(K, generator=g, device=X.device) * 0.1
     multinomial = K > 1
     yk = y if not multinomial else torch.randint(0, K, (n,), generator=g, device=X.device).float()
+    if multinomial and n_valid is not None:
+        yk[n_valid:] = 0.0
     loss, gA, gb = lk.logreg_loss_grad(X, yk, m, A, b, multinomial)
     lr, gAr, gbr, T_gA, T_gb, T_loss = logreg_reference(torch, lk, X, yk, m, A, b, multinomial)
     err, r_gA = held(torch, gA, gAr, T_gA, n)
@@ -871,12 +914,15 @@ def check_logreg(torch, lk, X, y, m, K, reps, seed, control=False, strict=False,
                 ll = torch.nn.functional.softplus(z[:, 0]) - yk * z[:, 0]
             return torch.autograd.grad((ll * m).sum(), (Ar, br))
 
-        out["ms"] = cuda_ms(torch, lambda: lk.logreg_loss_grad(X, yk, m, A, b, multinomial), reps)
+        # device time, the median of the calls: a mean over calls timed by
+        # events around them includes the wrapper's host path, and once read
+        # a host stall as a slow cluster kernel at 20,000 x 20,000
+        out["ms"] = median_device_ms(torch, lambda: lk.logreg_loss_grad(X, yk, m, A, b, multinomial), reps)
         if variant.startswith("cluster"):  # the kernel it replaced at these widths, forced by its code
-            out["general_ms"] = cuda_ms(torch, lambda: lk._logreg_run(X, yk, m, A, b, False, 0), reps)
-        out["plain_ms"] = cuda_ms(
+            out["general_ms"] = median_device_ms(torch, lambda: lk._logreg_run(X, yk, m, A, b, False, 0), reps)
+        out["plain_ms"] = median_device_ms(
             torch, lambda: lk.logreg_loss_grad_plain(X, yk, m, A, b, multinomial), reps)
-        out["library_ms"] = cuda_ms(torch, library, reps)
+        out["library_ms"] = median_device_ms(torch, library, reps)
         nbytes = 4.0 * (n * d + 2 * n + 2 * K * d + 2 * K + 1)
         flops = 4.0 * n * K * d + 10.0 * n * K  # logits + R^T x, loss/residual
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
@@ -3870,17 +3916,498 @@ def phase_stream_parquet(torch, X_host):
     return k
 
 
-def phase_streamed(torch, X_host, lin, pca_ref, seed):
+# ---------------------------------------------------------------------------
+# the streamed LogisticRegression: K3 at the chunk shapes, fits held against
+# f64 reference fits, the north star
+# ---------------------------------------------------------------------------
+
+# maxIter of the streamed LogisticRegression fits (the bench's 20 cut to 5:
+# at 100M every evaluation is a full pass of ~8-10 s) and the north star's
+# regParam (the reference benchmark's)
+STREAM_LR_ITER = 5
+STREAM_LR_REG = 1e-5
+# timed calls of K3 at each chunk shape
+STREAM_K3_REPS = 10
+# the sparse opt-in: LIBSVM real-sim's shape, 72,309 x 20,958 at ~0.25%
+# density (its 3.7M nonzeros), made from --seed
+SPARSE_ROWS = 72_309
+SPARSE_D = 20_958
+SPARSE_DENSITY = 0.0025
+
+
+def sparse_realsim(seed):
+    """A CSR matrix of real-sim's shape and density from ``seed``
+    (uniform [0, 1) values, as tf-idf weights), and labels
+    Bernoulli(σ(2 z)), z the standardized projection on a numpy
+    hyperplane."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed + 40)
+    Xs = sp.random(SPARSE_ROWS, SPARSE_D, density=SPARSE_DENSITY, format="csr", random_state=rng,
+                   dtype=np.float32)
+    z = np.asarray(Xs @ rng.normal(size=SPARSE_D).astype(np.float32)).ravel()
+    z = (z - z.mean()) / z.std()
+    y = (rng.uniform(size=SPARSE_ROWS) < 1.0 / (1.0 + np.exp(-2.0 * z))).astype(np.float32)
+    return Xs, y
+
+
+def dense_rows(rows, a, b):
+    """Rows [a, b) of a dense or CSR matrix as a dense f32 array."""
+    part = rows[a:b]
+    return np.ascontiguousarray(part.toarray() if hasattr(part, "toarray") else part, dtype=np.float32)
+
+
+def chunk_pair(torch, rows, y, chunk):
+    """The first chunk and the zero-padded last chunk a streamed pass
+    gives K3 over ``rows`` (dense or CSR, ``y`` its labels), on the card:
+    ((X, y, m) of each, the last chunk's real rows)."""
+    dev = torch.device("cuda:0")
+    n, d = rows.shape
+    lo = (-(-n // chunk) - 1) * chunk
+    out = []
+    for a, b in ((0, chunk), (lo, n)):
+        X = torch.zeros((chunk, d), device=dev)
+        yy = torch.zeros(chunk, device=dev)
+        m = torch.zeros(chunk, device=dev)
+        X[:b - a] = torch.from_numpy(dense_rows(rows, a, b)).to(dev)
+        yy[:b - a] = torch.from_numpy(y[a:b]).to(dev)
+        m[:b - a] = 1.0
+        out.append((X, yy, m))
+    return out, n - lo
+
+
+def phase_stream_k3(torch, lk, X_host, y_host, Xm, ym, Xs, ys, seed):
+    """(f) K3 at the three shapes a streamed LogisticRegression gives it
+    (``auto_chunk_rows``' 128 MB chunks): 131,072 x 256 binomial (the
+    row-per-warp kernel), 32,768 x 1,024 with 64 classes (the route),
+    1,601 x 20,958 binomial (the cluster kernel), each its first chunk and
+    its zero-padded last chunk (rows past the real ones m = 0, y = 0),
+    held against the f64 plain version with every control (strict), the
+    first timed beside its plain version and one autograd call, with its
+    bound. Returns the measurements by kernels-line row name."""
+    from spark_rapids_ml_tpu_torch.data.chunks import auto_chunk_rows
+
+    out = {}
+    for name, rows, y, K in (("logreg_loss_grad_stream_rows", X_host, y_host, 1),
+                             ("logreg_loss_grad_stream_route", Xm, ym, LOGREG_MANY_CLASSES),
+                             ("logreg_loss_grad_stream_cluster", Xs, ys, 1)):
+        chunk = auto_chunk_rows(rows.shape[1], 4, 1)
+        (first, last), n_valid = chunk_pair(torch, rows, y, chunk)
+        r = check_logreg(torch, lk, *first, K, STREAM_K3_REPS, seed, control=True, strict=True)
+        r_last = check_logreg(torch, lk, *last, K, 0, seed, control=True, strict=True, n_valid=n_valid)
+        r["last_chunk"] = {"n_valid": n_valid, **{k: r_last[k] for k in (
+            "variant", "max_abs_err", "err_over_tol", "loss_err_over_tol", "gb_err_over_tol")},
+            "controls": [(c["control"], c["err_over_tol"]) for c in r_last["controls"]]}
+        check(r["variant"] == r_last["variant"], f"{name}: the last chunk ran {r_last['variant']}, "
+                                                 f"the first {r['variant']}")
+        emit({"phase": "kernels", "kernel": "logreg_loss_grad", "shape": name,
+              **{k: v for k, v in r.items() if k != "controls"},
+              "controls": [(c["control"], c["err_over_tol"]) for c in r["controls"]]})
+        out[name] = r
+        del first, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def lr_blocks(torch, rows, y, chunk):
+    """The streamed chunks of ``rows`` (dense or CSR) and labels ``y`` as
+    f64-reference blocks [(X, y, count)] on the card, one a chunk, real
+    rows only."""
+    dev = torch.device("cuda:0")
+    return [(torch.from_numpy(dense_rows(rows, a, a + chunk)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(y[a:a + chunk])).to(dev), 1)
+            for a in range(0, rows.shape[0], chunk)]
+
+
+def lr_moments64(torch, blocks):
+    """f64 (n, mean, unbiased std) of the blocks' rows, each counted its
+    block's count."""
+    f64 = torch.float64
+    n = sum(c * X.shape[0] for X, _, c in blocks)
+    mean = sum(c * X.to(f64).sum(dim=0) for X, _, c in blocks) / n
+    ss = sum(c * ((X.to(f64) - mean) ** 2).sum(dim=0) for X, _, c in blocks)
+    return float(n), mean, torch.sqrt(ss / max(n - 1.0, 1.0))
+
+
+class LrTruth:
+    """The f64 LogisticRegression objective of weighted row blocks
+    [(X, y, count)] (each block one streamed chunk, or one pool block
+    counted as often as the chunks it backs), in the solver's standardized
+    coordinates at given (mean, inv_std) (standardization and an
+    intercept, the estimator's defaults), with the rounding band of the
+    port's two ways of computing it: streamed (K3 a chunk of ``chunk``
+    rows, then an f32 sum of ``n_chunks`` partials) and resident (one K3
+    call over all rows). A chunk's output is within K3's band u·(8·T +
+    4·√chunk·|ref|) (``held``; T the sum of its terms' absolute values,
+    Σ|r|·|x| for the gradient, not Σ|r|·|x − μ|), the f32 sum of the
+    partials adds at most n_chunks·u·T; the chain rule back to the
+    standardized coefficients, gA = (gAeff − gbeff ⊗ mean)·inv_std, adds
+    the intercept's band times |mean|, since the mean term cancels."""
+
+    def __init__(self, torch, lk, blocks, mean, inv_std, *, K, l2, chunk, n_chunks):
+        self.torch, self.lk, self.blocks = torch, lk, blocks
+        self.mean, self.inv_std = mean.to(torch.float64), inv_std.to(torch.float64)
+        self.K, self.l2 = K, l2
+        self.chunk, self.n_chunks = chunk, n_chunks
+        self.n = float(sum(c * X.shape[0] for X, _, c in blocks))
+        self.d = blocks[0][0].shape[1]
+        self.evals = 0
+
+    def effective(self, w):
+        torch, K, d = self.torch, self.K, self.d
+        w = torch.from_numpy(np.asarray(w, np.float64)).to(self.mean.device)
+        Aeff = w[:K * d].reshape(K, d) * self.inv_std[None, :]
+        return w, Aeff, w[K * d:] - Aeff @ self.mean
+
+    def sums(self, Aeff, beff):
+        """Σ over the blocks of (loss, gA, gb), their T and Σ|ref| a chunk."""
+        torch = self.torch
+        acc = None
+        for X, y, c in self.blocks:
+            m = torch.ones(X.shape[0], device=X.device)
+            l_, gA, gb, TgA, Tgb, Tl = logreg_reference(torch, self.lk, X, y, m, Aeff, beff, self.K > 1)
+            part = {"loss": l_, "gA": gA, "gb": gb, "T_loss": Tl, "T_gA": TgA, "T_gb": Tgb,
+                    "a_loss": l_.abs(), "a_gA": gA.abs(), "a_gb": gb.abs()}
+            acc = {k: c * v for k, v in part.items()} if acc is None else {k: acc[k] + c * v for k, v in part.items()}
+        return acc
+
+    def flat(self, gA, gb):
+        return self.torch.cat([((gA - gb[:, None] * self.mean[None, :]) * self.inv_std[None, :]).reshape(-1), gb])
+
+    def band_flat(self, eA, eb):
+        return self.torch.cat([((eA + eb[:, None] * self.mean.abs()[None, :]) * self.inv_std[None, :]).reshape(-1),
+                               eb])
+
+    def __call__(self, w_np, bands=False):
+        """(f, g) at ``w_np`` as the solver sees them (data term / n plus
+        the L2 term on the coefficients); with ``bands``, also the streamed
+        and the resident bands of f and of each entry of g."""
+        self.evals += 1
+        w, Aeff, beff = self.effective(w_np)
+        s = self.sums(Aeff, beff)
+        coefs = w.clone()
+        coefs[self.K * self.d:] = 0.0
+        f = float(s["loss"]) / self.n + 0.5 * self.l2 * float(coefs @ coefs)
+        g = self.flat(s["gA"], s["gb"]) / self.n + self.l2 * coefs
+        if not bands:
+            return f, g.cpu().numpy()
+        out = {}
+        for mode, terms, walk, a in (("streamed", TOL_TERMS + self.n_chunks, TOL_WALK * self.chunk ** 0.5, "a_"),
+                                     ("resident", TOL_TERMS, TOL_WALK * self.n ** 0.5, "")):
+            e = {k: U32 * (terms * s["T_" + k] + walk * (s[a + k] if a else s[k].abs())) for k in ("loss", "gA", "gb")}
+            out[mode] = (float(e["loss"]) / self.n, (self.band_flat(e["gA"], e["gb"]) / self.n).cpu().numpy())
+        return f, g.cpu().numpy(), out
+
+    def objective_of(self, coef, intercept, std):
+        """The f64 objective of a fitted model's (coef (K, d), intercept
+        (K,)) in original coordinates, its penalty on coef·std."""
+        torch = self.torch
+        dev = self.mean.device
+        Aeff = torch.from_numpy(np.atleast_2d(np.asarray(coef, np.float64))).to(dev)
+        beff = torch.from_numpy(np.atleast_1d(np.asarray(intercept, np.float64))).to(dev)
+        s = self.sums(Aeff, beff)
+        A = Aeff * std[None, :]
+        return float(s["loss"]) / self.n + 0.5 * self.l2 * float((A * A).sum())
+
+
+@contextlib.contextmanager
+def record_streamed_fit(st, lk):
+    """While open: every evaluation of a streamed LogisticRegression's
+    host solver (w, f, g), the moments it used, and the calls of K3's plain
+    version (none may come from the streamed path on the card)."""
+    rec = {"evals": [], "moments": None, "plain_calls": 0}
+    real_min, real_mom, real_plain = st.minimize_lbfgs_host, st.streamed_logreg_moments, lk.logreg_loss_grad_plain
+
+    def minimize(value_grad, w0, **kw):
+        def traced(w):
+            f, g = value_grad(w)
+            rec["evals"].append((np.array(w), float(f), np.array(g)))
+            return f, g
+        return real_min(traced, w0, **kw)
+
+    def moments(*a, **kw):
+        rec["moments"] = real_mom(*a, **kw)
+        return rec["moments"]
+
+    def plain(*a, **kw):
+        rec["plain_calls"] += 1
+        return real_plain(*a, **kw)
+
+    st.minimize_lbfgs_host, st.streamed_logreg_moments, lk.logreg_loss_grad_plain = minimize, moments, plain
+    try:
+        yield rec
+    finally:
+        st.minimize_lbfgs_host, st.streamed_logreg_moments, lk.logreg_loss_grad_plain = real_min, real_mom, real_plain
+
+
+def lr_reference_fit(torch, blocks, lk, *, K, l2, chunk, n_chunks, max_iter, tol=1e-6):
+    """The f64 reference: the port's host solver (``minimize_lbfgs_host``,
+    the same algorithm as the streamed fit's) on the f64 objective of the
+    blocks at their exact moments, ``max_iter`` iterations. Returns the
+    truth, its std, the solver's result, the solution's (coef, intercept)
+    and the evaluations it took."""
+    from spark_rapids_ml_tpu_torch.ops.lbfgs import minimize_lbfgs_host
+
+    n, mean, std = lr_moments64(torch, blocks)
+    inv_std = torch.where(std > 0, 1.0 / std, torch.ones_like(std))
+    truth = LrTruth(torch, lk, blocks, mean, inv_std, K=K, l2=l2, chunk=chunk, n_chunks=n_chunks)
+    res = minimize_lbfgs_host(truth, np.zeros(K * truth.d + K), max_iter=max_iter, tol=tol)
+    _, Aeff, beff = truth.effective(res.w)
+    if K > 1:
+        beff = beff - beff.mean()
+    return truth, std, res, Aeff.cpu().numpy(), beff.cpu().numpy(), truth.evals
+
+
+def hold_fits(torch, truth, std, ref, ref_coef, ref_b, evals, models, what):
+    """Each fitted model's f64 objective against the reference fit's: the
+    gap within the evaluation band at the reference's solution (streamed
+    or resident, as the model was fitted) compounded over the reference's
+    ``evals`` evaluations. Returns the rows of the check."""
+    f_ref = truth.objective_of(ref_coef, ref_b, std)
+    _, _, bands = truth(ref.w, bands=True)
+    rows = {}
+    for mode, m in models.items():
+        f_m = truth.objective_of(m.coefficientMatrix, m.interceptVector, std)
+        tol = evals * bands[mode][0]
+        coef_diff = float(np.abs(np.asarray(m.coefficientMatrix, np.float64) - ref_coef).max())
+        rows[mode] = {"objective_f64": f_m, "gap": f_m - f_ref, "gap_tol": tol, "n_iter": m.n_iter_,
+                      "coef_max_abs_diff_vs_ref": coef_diff,
+                      "coef_rel_diff_vs_ref": coef_diff / float(np.abs(ref_coef).max()),
+                      "intercept_max_abs_diff_vs_ref": float(np.abs(np.asarray(m.interceptVector, np.float64)
+                                                                    - ref_b).max())}
+        check(np.isfinite(m.coefficientMatrix).all() and np.isfinite(m.interceptVector).all(),
+              f"{what} {mode}: not finite")
+        check(abs(f_m - f_ref) <= tol, f"{what} {mode}: f64 objective {f_m!r} off the reference's {f_ref!r} "
+                                       f"by more than {tol:.3g}")
+    return {"reference_objective_f64": f_ref, "reference_n_iter": ref.n_iter, "reference_evals": evals,
+            "fits": rows}
+
+
+def stream_vs_resident_lr(torch, lk, st, rows, y, *, K, what, kernel, codes, seed, reg=0.0, sparse=None):
+    """(g, h, j) LogisticRegression(maxIter=STREAM_LR_ITER) on ``rows`` /
+    ``y`` streamed (``streaming=True``; ``sparse``: the CSR matrix with the
+    sparse opt-in instead) and resident, the streamed fit's K3 launches
+    one a chunk of each objective pass, every one by a kernel of
+    ``codes`` and none of K3's plain version; both held against the f64
+    reference fit of the same rows (``hold_fits``). Returns (streamed
+    launches, resident launches, the streamed model, the resident model)."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.data.chunks import auto_chunk_rows
+
+    n, d = rows.shape
+    chunk = auto_chunk_rows(d, 4, 1)
+    n_chunks = -(-n // chunk)
+    kw = {"maxIter": STREAM_LR_ITER, "regParam": reg}
+    df_str = DataFrame({"features": sparse if sparse is not None else rows, "label": y})
+    est = LogisticRegression(enable_sparse_data_optim=True, **kw) if sparse is not None else LogisticRegression(
+        streaming=True, **kw)
+    k0, v0 = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    with record_streamed_fit(st, lk) as rec:
+        m_str, t_str = _timed(torch, lambda: est.fit(df_str))
+    k_str = lk.logreg_loss_grad.launches - k0
+    v_str = {c: v - v0.get(c, 0) for c, v in lk.logreg_loss_grad.variants.items() if v != v0.get(c, 0)}
+    rep = m_str._ingest_report
+    k0, v0 = lk.logreg_loss_grad.launches, dict(lk.logreg_loss_grad.variants)
+    m_res, t_res = _timed(torch, lambda: LogisticRegression(**kw).fit(DataFrame({"features": rows, "label": y})))
+    k_res = lk.logreg_loss_grad.launches - k0
+    v_res = {c: v - v0.get(c, 0) for c, v in lk.logreg_loss_grad.variants.items() if v != v0.get(c, 0)}
+    check(m_res._ingest_report == {}, f"{what}: the resident fit streamed")
+    blocks = lr_blocks(torch, rows, y, chunk)
+    ref, t_ref = _timed(torch, lambda: lr_reference_fit(
+        torch, blocks, lk, K=K, l2=reg, chunk=chunk, n_chunks=n_chunks, max_iter=STREAM_LR_ITER))
+    truth = ref[0]
+    held_rows = hold_fits(torch, *ref, {"streamed": m_str, "resident": m_res}, what)
+    passes = rep["passes"]
+    row = {"phase": "streamed", "check": what, "rows": n, "d": d, "classes": K if K > 1 else 2, "chunk_rows": chunk,
+           "chunks": n_chunks, "maxIter": STREAM_LR_ITER, "regParam": reg, "streamed_fit_s": t_str,
+           "resident_fit_s": t_res, "reference_fit_s": t_ref, "streamed_rows_per_s": n / t_str,
+           "passes": passes, "objective_pass_s": rep["pass_s"]["objective"] / passes["objective"],
+           "streamed_evals": len(rec["evals"]), "logreg_loss_grad_launches": k_str,
+           "launches_by_variant": v_str, "resident_launches": k_res, "resident_launches_by_variant": v_res,
+           "plain_calls": rec["plain_calls"], **held_rows, "ingest": rep}
+    del blocks, truth
+    torch.cuda.empty_cache()
+    emit(row)
+    check(k_str == n_chunks * passes["objective"] and passes["objective"] == len(rec["evals"]),
+          f"{what}: {k_str} K3 launches over {passes['objective']} objective passes of {n_chunks} chunks")
+    check(set(v_str) <= codes and set(v_res) <= codes, f"{what}: K3 ran {v_str} / {v_res}, not {kernel}")
+    check(rec["plain_calls"] == 0, f"{what}: K3's plain version ran {rec['plain_calls']} times on the card's path")
+    check(passes.get("labels") == 1 and passes.get("moments") == 1 and passes.get("variance") == 1,
+          f"{what}: passes {passes}")
+    return k_str, k_res, m_str, m_res
+
+
+def north_star_labels(torch, pool, seed):
+    """Binomial labels of the pool's rows, Bernoulli(σ(x·β + b)) from
+    ``seed``, β scaled so the logits' spread is about 2 (not separable)."""
+    g = torch.Generator(device=pool.device)
+    g.manual_seed(seed + 32)
+    d = pool.shape[2]
+    beta = torch.randn(d, generator=g, device=pool.device)
+    z = pool @ beta
+    z = (z - z.mean()) * (2.0 / float(z.std())) + 0.3
+    return (torch.rand(z.shape, generator=g, device=pool.device) < torch.sigmoid(z)).to(torch.float32)
+
+
+def phase_north_star_logreg(torch, lk, st, seed):
+    """(k) LogisticRegression(regParam=STREAM_LR_REG, maxIter=STREAM_LR_ITER)
+    on 100,000,000 x 256 f32 rows from a ``GeneratorChunkSource`` of 763
+    chunks (views of the north star's pool, binomial labels from
+    ``seed``), through the estimator's streaming fit function handed a
+    ``StreamInputs``. The first and the last evaluation's (f, g) are held
+    against their f64 truth at the same w (the pool blocks counted as often
+    as they back a chunk, plus the last chunk's prefix) at the streamed
+    band (``LrTruth``); the model against the f64 reference fit of the
+    same rows. One label, moments and variance pass, 763 K3 launches an
+    objective pass, peak device memory under STREAM_PEAK_MAX. Returns the
+    K3 launches."""
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.core import StreamInputs
+    from spark_rapids_ml_tpu_torch.data.chunks import GeneratorChunkSource
+
+    dev = torch.device("cuda:0")
+    N, CH = STREAM_ROWS, STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    last = N - (n_chunks - 1) * CH
+    pool, _, pool_h, _ = north_star_pool(torch, seed, dev)
+    yb = north_star_labels(torch, pool, seed)
+    yb_h = yb.cpu().numpy()
+    order = np.random.default_rng(seed + 31).integers(0, STREAM_POOL_BLOCKS, size=n_chunks)
+    counts = np.bincount(order[:-1], minlength=STREAM_POOL_BLOCKS)
+    blocks = [(pool[b], yb[b], int(counts[b])) for b in range(STREAM_POOL_BLOCKS)] + [
+        (pool[order[-1], :last], yb[order[-1], :last], 1)]
+
+    def gen(start, count, _seed):
+        b = order[start // CH]
+        return pool_h[b, :count], yb_h[b, :count]
+
+    inputs = StreamInputs(source=GeneratorChunkSource(gen, N, E2E_D, has_label=True), device=dev, n_rows=N,
+                          n_features=E2E_D, dtype=torch.float32, chunk_rows=CH)
+    est = LogisticRegression(regParam=STREAM_LR_REG, maxIter=STREAM_LR_ITER)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st.reset_ingest_report()
+    k0 = lk.logreg_loss_grad.launches
+    rss0 = rss_bytes()
+    with record_streamed_fit(st, lk) as rec:
+        model, t_fit = _timed(torch, lambda: est._create_model(est._get_streaming_fit_func(None)(
+            inputs, dict(est._tpu_params))))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    k = lk.logreg_loss_grad.launches - k0
+    rep = st.last_ingest_report()
+    passes = rep["passes"]
+    mom = rec["moments"]
+    # each evaluation against its f64 truth at the fit's own moments
+    truth_fit = LrTruth(torch, lk, blocks, mom["mean"], mom["inv_std"], K=1, l2=STREAM_LR_REG, chunk=CH,
+                        n_chunks=n_chunks)
+    held_evals = []
+    for i in sorted({0, len(rec["evals"]) - 1}):
+        w, f, g = rec["evals"][i]
+        F, G, bands = truth_fit(w, bands=True)
+        ef, eg = bands["streamed"]
+        held_evals.append({"eval": i, "f": f, "f_f64": F, "f_err": abs(f - F), "f_tol": ef,
+                           "g_max_abs_err": float(np.abs(g - G).max()), "g_err_over_tol": float(
+                               (np.abs(g - G) / eg).max()), "g_tol_max": float(eg.max())})
+        check(abs(f - F) <= ef and (np.abs(g - G) <= eg).all(),
+              f"north-star LogReg evaluation {i} off its f64 truth: {held_evals[-1]}")
+    ref, t_ref = _timed(torch, lambda: lr_reference_fit(
+        torch, blocks, lk, K=1, l2=STREAM_LR_REG, chunk=CH, n_chunks=n_chunks, max_iter=STREAM_LR_ITER))
+    truth = ref[0]
+    held = hold_fits(torch, *ref, {"streamed": model}, "north-star LogReg")
+    row = {"phase": "streamed", "check": "north_star_logreg", "rows": N, "d": E2E_D, "chunks": n_chunks,
+           "last_chunk_rows": last, "maxIter": STREAM_LR_ITER, "regParam": STREAM_LR_REG,
+           "label_mean": float(sum(c * float(y.sum()) for _, y, c in blocks) / N), "fit_s": t_fit,
+           "fit_rows_per_s": N / t_fit, "passes": passes, "pass_s": rep["pass_s"],
+           "objective_pass_s": rep["pass_s"]["objective"] / passes["objective"],
+           "pass_gb_per_s": rep["bytes"] / rep["wall_s"] / 1e9, "n_iter": model.n_iter_,
+           "evals": len(rec["evals"]), "stop": "maxIter" if model.n_iter_ == STREAM_LR_ITER else "tol",
+           "peak_device_bytes": peak, "peak_max": STREAM_PEAK_MAX, "host_rss_growth_bytes": rss_bytes() - rss0,
+           "logreg_loss_grad_launches": k, "plain_calls": rec["plain_calls"], "held_evals": held_evals,
+           "reference_fit_s": t_ref, **held, "ingest": rep}
+    emit(row)
+    check(passes.get("labels") == 1 and passes.get("moments") == 1 and passes.get("variance") == 1
+          and k == n_chunks * passes["objective"] and passes["objective"] == len(rec["evals"]),
+          f"north-star LogReg: passes {passes}, {k} K3 launches (want {n_chunks} an objective pass)")
+    check(rec["plain_calls"] == 0, "north-star LogReg: K3's plain version ran on the card's path")
+    check(peak < STREAM_PEAK_MAX, f"north-star LogReg: peak device memory {peak} >= {STREAM_PEAK_MAX}")
+    del pool, yb, blocks, truth, truth_fit
+    torch.cuda.empty_cache()
+    return k
+
+
+def phase_stream_logreg(torch, X_host, y_host, seed):
+    """The streamed LogisticRegression: (f) K3 at its chunk shapes, (g)
+    binomial 12M x 256 streamed vs resident, (h) 64 classes on the
+    logreg_many rows, (j) the sparse opt-in on real-sim's shape against
+    the resident dense fit, (k) the north star. Returns K3's measurements
+    at the chunk shapes and the launches {kernels-line row: {path: n}}."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+
+    t = time.perf_counter()
+    Xm, ym, _ = many_data(torch, X_host, seed)
+    Xs, ys = sparse_realsim(seed)
+    Xd = Xs.toarray()
+    meas = phase_stream_k3(torch, lk, X_host, y_host, Xm, ym, Xs, ys, seed)
+    rows_codes = {lk._k3_variant(E2E_D, 1, False)}
+    route_codes = {lk._k3_variant(LOGREG_MANY_D, LOGREG_MANY_CLASSES, True)}
+    cluster_codes = {lk._k3_variant(SPARSE_D, 1, False, aligned) for aligned in (True, False)}
+    launches = {"logreg_loss_grad": {}, "logreg_loss_grad_route": {}, "logreg_loss_grad_cluster": {},
+                "logreg_loss_grad_stream_rows": {}, "logreg_loss_grad_stream_route": {},
+                "logreg_loss_grad_stream_cluster": {}}
+    k_s, k_r, _, _ = stream_vs_resident_lr(torch, lk, st, X_host, y_host, K=1, what="logreg_streamed_vs_resident",
+                                           kernel="the row-per-warp kernel", codes=rows_codes, seed=seed)
+    launches["logreg_loss_grad_stream_rows"]["logreg_streamed"] = k_s
+    launches["logreg_loss_grad"]["logreg_streamed_resident"] = k_r
+    k_s, k_r, m_s, m_r = stream_vs_resident_lr(torch, lk, st, Xm, ym, K=LOGREG_MANY_CLASSES,
+                                               what="logreg_many_streamed_vs_resident", kernel="the route",
+                                               codes=route_codes, seed=seed)
+    # the two models' transforms of all the rows: equal predictions but
+    # where the resident model's two largest logits are a near tie
+    df_m = DataFrame({"features": Xm})
+    out_s, out_r = m_s.transform(df_m), m_r.transform(df_m)
+    raw = out_r.column("rawPrediction")
+    top2 = np.partition(raw, -2, axis=1)[:, -2:]
+    diff = out_s.column("prediction") != out_r.column("prediction")
+    bad = int((diff & (np.abs(top2[:, 1] - top2[:, 0]) > MANY_NEAR_TIE)).sum())
+    emit({"phase": "streamed", "check": "logreg_many_streamed_predictions", "rows": Xm.shape[0],
+          "agreement": float(1.0 - diff.mean()), "disagreements_past_near_tie": bad, "near_tie": MANY_NEAR_TIE})
+    check(np.isfinite(out_s.column("probability")).all() and bad == 0,
+          f"64-class streamed vs resident: {bad} predictions differ past a near tie")
+    del out_s, out_r, raw, df_m
+    launches["logreg_loss_grad_stream_route"]["logreg_many_streamed"] = k_s
+    launches["logreg_loss_grad_route"]["logreg_many_streamed_resident"] = k_r
+    del Xm, ym
+    k_s, k_r, _, _ = stream_vs_resident_lr(torch, lk, st, Xd, ys, K=1, what="logreg_sparse_optin_vs_dense",
+                                           kernel="the cluster kernel", codes=cluster_codes, seed=seed,
+                                           reg=STREAM_LR_REG, sparse=Xs)
+    launches["logreg_loss_grad_stream_cluster"]["logreg_sparse_streamed"] = k_s
+    launches["logreg_loss_grad_cluster"]["logreg_realsim_dense_resident"] = k_r
+    del Xd, Xs
+    launches["logreg_loss_grad_stream_rows"]["north_star_logreg"] = phase_north_star_logreg(torch, lk, st, seed)
+    emit({"phase": "streamed", "check": "logreg_done", "s": time.perf_counter() - t, "launches": launches})
+    return meas, launches
+
+
+def phase_streamed(torch, X_host, y_host, lin, pca_ref, seed):
     """The streamed phase: (a) the copy, (c) streamed vs resident fits,
-    (d) the north star, (e) the parquet scan. Returns the K1 launches of
-    its fits, counted alone, and K1's measurement at the chunk shape."""
+    (d) the north star, (e) the parquet scan, then the streamed
+    LogisticRegression (f-k, ``phase_stream_logreg``). Returns the K1
+    launches of its fits, counted alone, K1's measurement at the chunk
+    shape, K3's at its chunk shapes and K3's launches by kernels-line row
+    and path."""
     t = time.perf_counter()
     phase_stream_copy(torch, X_host)
     launches = phase_stream_vs_resident(torch, X_host, lin, pca_ref)
     k, k1 = phase_north_star(torch, seed)
     launches += k + (phase_stream_parquet(torch, X_host) or 0)
-    emit({"phase": "streamed", "check": "done", "s": time.perf_counter() - t, "shifted_gram_launches": launches})
-    return launches, k1
+    k3, k3_launches = phase_stream_logreg(torch, X_host, y_host, seed)
+    emit({"phase": "streamed", "check": "done", "s": time.perf_counter() - t, "shifted_gram_launches": launches,
+          "logreg_loss_grad_launches": k3_launches})
+    return launches, k1, k3, k3_launches
 
 
 def stream_probe(torch, args, dev) -> int:
@@ -3890,14 +4417,15 @@ def stream_probe(torch, args, dev) -> int:
     t0 = time.perf_counter()
     n = args.rows
     csize = PCA._equal_chunk_rows(n, 1, 65_536)
-    X, _ = make_data(torch, n, -(-n // csize) * csize, args.seed, dev)
+    X, y = make_data(torch, n, -(-n // csize) * csize, args.seed, dev)
     lin = linreg_data(torch, X[:n], args.seed, paths=("linreg",))["linreg"]
     pca_ref = pca_reference(torch, X[:n])
-    X_host = X[:n].cpu().numpy()
-    del X
+    X_host, y_host = X[:n].cpu().numpy(), y.cpu().numpy()
+    del X, y
     torch.cuda.empty_cache()
-    launches, _ = phase_streamed(torch, X_host, lin, pca_ref, args.seed)
-    emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": launches})
+    launches, _, _, k3_launches = phase_streamed(torch, X_host, y_host, lin, pca_ref, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": launches,
+          "logreg_loss_grad_launches": k3_launches})
     return 0
 
 
@@ -5000,8 +5528,9 @@ def main() -> int:
                     help="a probe: build K1 alone, run its LinearRegression shapes and the three LinearRegression "
                          "paths (prints no result line)")
     ap.add_argument("--stream-only", action="store_true",
-                    help="a probe: build K1 alone and run only the streamed phase: the copy, streamed vs resident "
-                         "fits, the 100M-row fits and the parquet scan (prints no result line)")
+                    help="a probe: build K1 and K3 alone and run only the streamed phase: the copy, streamed vs "
+                         "resident fits, the 100M-row fits, the parquet scan and the streamed LogisticRegression "
+                         "(prints no result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -5035,7 +5564,8 @@ def main() -> int:
                            else ["logreg_loss_grad"] if args.logreg_only
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
                            else ["rf_traverse"] if args.traverse_only
-                           else ["shifted_gram"] if args.linreg_only or args.stream_only else _build.SOURCES)
+                           else ["shifted_gram"] if args.linreg_only
+                           else ["shifted_gram", "logreg_loss_grad"] if args.stream_only else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -5142,8 +5672,11 @@ def main() -> int:
             "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
     del Xr, yr
     by_path["shifted_gram"].update(linreg_paths(torch, X_host, lin_data, args.subset, args.seed))
-    by_path["shifted_gram"]["streamed"], k1_chunk = phase_streamed(torch, X_host, lin_data["linreg"], pca_ref,
-                                                                   args.seed)
+    by_path["shifted_gram"]["streamed"], k1_chunk, k3_stream, k3_launches = phase_streamed(
+        torch, X_host, y_host, lin_data["linreg"], pca_ref, args.seed)
+    kern.update(k3_stream)
+    for row, paths in k3_launches.items():
+        by_path.setdefault(row, {}).update(paths)
     del lin_data, pca_ref
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
@@ -5227,6 +5760,9 @@ def main() -> int:
                ("logreg_loss_grad_route", many, {p: c for p, c in route.items() if p.startswith("logreg_many")}),
                ("logreg_loss_grad_route_tiled", onek, {p: c for p, c in route.items() if p.startswith("logreg_1k")}),
                ("logreg_loss_grad_cluster", realsim, by_path["logreg_loss_grad_cluster"])]
+    # K3 at the streamed LogisticRegression's three chunk shapes (the
+    # launches of the streamed fits)
+    k3_rows += [(name, name, by_path[name]) for name in k3_stream]
     k3_rows += [(k3_key(K3_GENERAL_ROWS, d_r, K_r), k3_key(K3_GENERAL_ROWS, d_r, K_r), {})
                 for d_r, K_r in K3_GENERAL_SHAPES]
     k3_rows += [(k3_key(*shape), k3_key(*shape), {})

@@ -2,7 +2,11 @@
 ``spark_rapids_ml_tpu/models/classification.py``).
 
 Fit is the L-BFGS/OWL-QN of ``ops/logreg_kernels.py``; each objective
-evaluation is one pass over X through kernel K3. Binomial and multinomial
+evaluation is one pass over X through kernel K3. A streamed fit
+(``streaming=True``, a parquet scan, the sparse opt-in, or a matrix past
+the card's threshold) runs ``ops.streaming.streamed_logreg_fit`` instead:
+the host L-BFGS/OWL-QN, each evaluation a chunked pass through K3, and the
+labels read in a host pass of their own. Binomial and multinomial
 fits, the Spark model surface (``coefficients``/``coefficientMatrix``,
 ``intercept``/``interceptVector``) and the prediction, probability and
 raw-prediction columns follow the JAX package.
@@ -15,7 +19,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel
+from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimatorSupervised, _TpuModel
 from ..data.dataframe import DataFrame
 from ..ops.logreg_kernels import logreg_fit, logreg_predict
 from ..parallel.mesh import global_label_summary
@@ -36,6 +40,7 @@ from ..params import (
     TypeConverters,
     _mk,
 )
+from ..utils.logging import get_logger
 from ..utils.platform import resolve_device
 
 
@@ -46,6 +51,31 @@ def _resolve_objective_dtype(params: Dict[str, Any]) -> str:
     if v not in ("float32", "bfloat16"):
         raise ValueError(f"objective_dtype must be float32|bfloat16, got {v!r}")
     return v
+
+
+def _n_classes(ls: Dict[str, Any]) -> int:
+    """The class count of a label summary (``global_label_summary``,
+    ``streamed_label_stats``): Spark's max(label) + 1, at least 2. Raises
+    where a label is negative or not an integer."""
+    if ls["y_min"] < 0 or not ls["all_int"]:
+        raise RuntimeError(
+            "Labels MUST be non-negative integers, got values outside that set"
+        )
+    return max(int(ls["y_max"]) + 1, 2)
+
+
+def _single_label_result(first: float, n_features: int) -> Dict[str, Any]:
+    """The model of all-0 or all-1 binomial labels with an intercept: zero
+    coefficients and an infinite intercept (reference
+    ``classification.py:1119-1132``)."""
+    return {
+        "coef_": np.zeros((1, n_features)),
+        "intercept_": np.asarray([np.inf if first == 1.0 else -np.inf]),
+        "n_classes": 2,
+        "multinomial": False,
+        "n_iter": 0,
+        "objective": 0.0,
+    }
 
 
 class LogisticRegressionClass:
@@ -177,37 +207,26 @@ class LogisticRegression(
         self._set_params(rawPredictionCol=value)
         return self
 
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        """One data copy (or one label pass and one moments pass, where
+        the fit streams) for every param map of a ``fitMultiple``, as in
+        the JAX package."""
+        return True
+
     def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
         # the class count is read from the labels on the host, once
         label_col = self.getOrDefault("labelCol")
         ls = global_label_summary(np.asarray(dataset.column(label_col)))
         if ls["total"] == 0:
             raise ValueError("Labels column is empty")
-        if ls["y_min"] < 0 or not ls["all_int"]:
-            raise RuntimeError(
-                "Labels MUST be non-negative integers, got values outside that set"
-            )
-        # Spark semantics: numClasses = max(label) + 1
-        n_classes = max(int(ls["y_max"]) + 1, 2)
-        single_label = ls["all_same"]
-        single_label_val = ls["first"]
+        n_classes = _n_classes(ls)
 
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             multinomial = n_classes > 2
             fit_intercept = bool(params["fit_intercept"])
 
-            if single_label and n_classes == 2 and fit_intercept:
-                # single-label degenerate case: all-0 or all-1 labels
-                return {
-                    "coef_": np.zeros((1, inputs.n_features)),
-                    "intercept_": np.asarray(
-                        [np.inf if single_label_val == 1.0 else -np.inf]
-                    ),
-                    "n_classes": n_classes,
-                    "multinomial": False,
-                    "n_iter": 0,
-                    "objective": 0.0,
-                }
+            if ls["all_same"] and n_classes == 2 and fit_intercept:
+                return _single_label_result(ls["first"], inputs.n_features)
 
             c = float(params["C"])
             reg = 1.0 / c if c > 0.0 else 0.0
@@ -230,6 +249,57 @@ class LogisticRegression(
             return {
                 "coef_": out["coef_"].detach().cpu().numpy(),
                 "intercept_": out["intercept_"].detach().cpu().numpy(),
+                "n_classes": n_classes,
+                "multinomial": multinomial,
+                "n_iter": int(out["n_iter"]),
+                "objective": float(out["objective"]),
+            }
+
+        return _fit
+
+    def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
+        """Out-of-core fit: the labels in one host pass, the feature
+        moments (and variance) in one or two passes, then the host
+        L-BFGS/OWL-QN whose every evaluation is one chunked pass through K3.
+        Every param map of a ``fitMultiple`` shares the label statistics
+        and the moments."""
+        from ..ops.streaming import streamed_label_stats, streamed_logreg_fit
+
+        label_cache: Dict[str, Any] = {}
+        moments: Dict[str, Any] = {}
+
+        def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+            if not label_cache:
+                label_cache.update(streamed_label_stats(inputs.source, inputs.chunk_rows))
+            ls = label_cache
+            n_classes = _n_classes(ls)
+            multinomial = n_classes > 2
+            fit_intercept = bool(params["fit_intercept"])
+            if ls["all_same"] and n_classes == 2 and fit_intercept:
+                return _single_label_result(ls["first"], inputs.n_features)
+            c = float(params["C"])
+            reg = 1.0 / c if c > 0.0 else 0.0
+            l1_ratio = float(params["l1_ratio"])
+            if _resolve_objective_dtype(params) != "float32":
+                get_logger(type(self)).warning(
+                    "objective_dtype=bfloat16 applies to the resident fit "
+                    "only; the streaming fit reads chunks at wire dtype"
+                )
+            out = streamed_logreg_fit(
+                inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
+                n_classes=n_classes,
+                multinomial=multinomial,
+                fit_intercept=fit_intercept,
+                standardization=bool(params["standardization"]),
+                l1=reg * l1_ratio,
+                l2=reg * (1.0 - l1_ratio),
+                max_iter=int(params["max_iter"]),
+                tol=float(params["tol"]),
+                moments=moments,
+            )
+            return {
+                "coef_": out["coef_"],
+                "intercept_": out["intercept_"],
                 "n_classes": n_classes,
                 "multinomial": multinomial,
                 "n_iter": int(out["n_iter"]),

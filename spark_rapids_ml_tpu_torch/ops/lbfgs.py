@@ -12,17 +12,24 @@ kept only when ``sᵀy > 1e-10``), a first step of ``1/max(‖d‖, 1)`` while n
 pair is stored, and a stop on relative improvement ``<= tol`` or a
 non-descent direction. L1 weights switch to OWL-QN: pseudo-gradient,
 direction sign alignment and orthant projection in the line search.
+
+:func:`minimize_lbfgs_host` (counterpart of ``minimize_lbfgs_host``) is the
+same algorithm in float64 numpy on the host, for objectives whose every
+evaluation streams the dataset through the card in chunks; its arithmetic
+follows the JAX package's line by line, so the same ``value_grad`` gives
+the same iterates bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
 class LbfgsResult(NamedTuple):
-    w: torch.Tensor   # (p,) solution
+    w: Any            # (p,) solution: a tensor (minimize_lbfgs), f64 numpy (minimize_lbfgs_host)
     f: float          # final objective (incl. L1 term)
     n_iter: int       # iterations taken
     converged: bool
@@ -137,3 +144,102 @@ def minimize_lbfgs(
         w, f, g = w_new, f_new, g_new
         it += 1
     return LbfgsResult(w=w, f=f, n_iter=it, converged=converged)
+
+
+def minimize_lbfgs_host(
+    value_grad: Callable[[np.ndarray], Tuple[float, np.ndarray]],
+    w0,
+    *,
+    max_iter: int,
+    tol: float,
+    l1_weights=None,
+    history: int = 10,
+    max_ls: int = 30,
+) -> LbfgsResult:
+    """Host-driven L-BFGS/OWL-QN: the loop and its O(m·p) two-loop
+    recursion in float64 numpy, each ``value_grad(w)`` free to make a full
+    chunked pass over the data on the card. ``value_grad`` returns the
+    SMOOTH ``(f, g)``; the L1 term is added here. Returns ``w`` as f64
+    numpy and ``f``, ``n_iter``, ``converged`` as Python values.
+
+    The JAX package's checkpointer, fault site and preempt point are not
+    ported (ROADMAP queue 1 items 2e and 7)."""
+    w = np.asarray(w0, dtype=np.float64)
+    p = w.shape[0]
+    use_l1 = l1_weights is not None
+    l1w = np.asarray(l1_weights, np.float64) if use_l1 else np.zeros((p,))
+
+    def full_obj(wv):
+        f, g = value_grad(wv)
+        return float(f) + float(np.abs(l1w * wv).sum()), np.asarray(g, np.float64)
+
+    def pseudo_grad(wv, g):
+        nonzero = g + l1w * np.sign(wv)
+        lo = g - l1w
+        hi = g + l1w
+        at_zero = np.where(lo > 0.0, lo, np.where(hi < 0.0, hi, 0.0))
+        return np.where(wv != 0.0, nonzero, at_zero)
+
+    S: list = []
+    Y: list = []
+    c1 = 1e-4
+    it = 0
+    converged = False
+    f, g = full_obj(w)
+    while it < max_iter and not converged:
+        pg = pseudo_grad(w, g) if use_l1 else g
+        # two-loop recursion over the (oldest -> newest) history
+        q = pg.copy()
+        alphas = []
+        for s, yv in reversed(list(zip(S, Y))):
+            rho = 1.0 / max(float(yv @ s), 1e-30)
+            a = rho * float(s @ q)
+            q -= a * yv
+            alphas.append((a, rho))
+        if S:
+            s_r, y_r = S[-1], Y[-1]
+            gamma = float(s_r @ y_r) / max(float(y_r @ y_r), 1e-30)
+        else:
+            gamma = 1.0
+        r = gamma * q
+        for (a, rho), (s, yv) in zip(reversed(alphas), zip(S, Y)):
+            beta = rho * float(yv @ r)
+            r += s * (a - beta)
+        d = -r
+        if use_l1:
+            d = np.where(d * pg < 0.0, d, 0.0)
+            xi = np.where(w != 0.0, np.sign(w), -np.sign(pg))
+        dir_deriv = float(pg @ d)
+
+        d_norm = float(np.sqrt(d @ d))
+        t = 1.0 / max(d_norm, 1.0) if not S else 1.0
+
+        def trial(tv):
+            wt = w + tv * d
+            if use_l1:
+                wt = np.where(wt * xi < 0.0, 0.0, wt)
+            return wt
+
+        f_t, g_t = full_obj(trial(t))
+        n_try = 0
+        while f_t > f + c1 * t * dir_deriv and n_try < max_ls:
+            t *= 0.5
+            f_t, g_t = full_obj(trial(t))
+            n_try += 1
+        w_new = trial(t)
+
+        s = w_new - w
+        yv = g_t - g
+        if float(s @ yv) > 1e-10:
+            S.append(s)
+            Y.append(yv)
+            if len(S) > history:
+                S.pop(0)
+                Y.pop(0)
+
+        denom = max(abs(f), abs(f_t), 1.0)
+        rel_impr = (f - f_t) / denom
+        converged = rel_impr <= tol or dir_deriv >= 0.0
+        w, f, g = w_new, f_t, g_t
+        it += 1
+    return LbfgsResult(w=w, f=float(f), n_iter=int(it), converged=bool(converged))

@@ -28,10 +28,19 @@ JAX package. The Gram pass is kernel K1 (``ops.linalg.shifted_gram``) a
 chunk, with row scales √(mask·w) and the exact mean of pass 1 as its shift.
 Accumulators are f32, as in the JAX package.
 
+LogisticRegression (:func:`streamed_logreg_fit`): one host pass over the
+labels, a moments pass and, under ``standardization``, a variance pass,
+then the host L-BFGS/OWL-QN of ``ops.lbfgs``, each of whose evaluations is
+one pass that folds every chunk through kernel K3
+(``ops.logreg_kernels.logreg_loss_grad``) at the evaluation's effective
+coefficients; the chain rule back to the solver's coordinates is applied
+once a pass, in f64 on the host.
+
 Not ported (ROADMAP): the wire formats and checkpoint/resume, the retry
-budget and chunk halving of ``stage_chunks``, fault sites, telemetry spans,
-ops-plane gauges and autotune consults, per-host file sharding and the
-blocked (mp) Gram.
+budget and chunk halving of ``stage_chunks``, fault sites, preempt points,
+telemetry spans, ops-plane gauges and autotune consults, per-host file
+sharding, the blocked (mp) Gram and the cross-process sums of partials and
+label summaries (the identity on one process).
 """
 
 from __future__ import annotations
@@ -47,7 +56,9 @@ import torch
 
 from ..data.chunks import Chunk, ChunkSource
 from ..parallel.mesh import _torch_dtype, pinned_ring
+from .lbfgs import minimize_lbfgs_host
 from .linalg import shifted_gram
+from .logreg_kernels import logreg_loss_grad
 
 # the JAX package's TPUML_STREAM_PREFETCH, TPUML_STREAM_STAGE_DEPTH and
 # TPUML_STREAM_SYNC_EVERY defaults: decoded chunks ahead, staged chunks
@@ -75,8 +86,8 @@ def reset_ingest_report() -> None:
 
 def last_ingest_report() -> Dict[str, Any]:
     """Copy of the report of the passes since the last reset: the ring
-    depths, the passes by name, the chunks folded and the bytes staged, and
-    the seconds in decode (host), host → page-locked copies (host),
+    depths, the passes by name and their wall seconds by name (``pass_s``),
+    the chunks folded and the bytes staged, and the seconds in decode (host), host → page-locked copies (host),
     waits for a page-locked buffer to come free (host), host → device
     copies (card: each chunk's span on the copy stream, from its first
     piece's start to its last's end, so including any wait for the host to
@@ -365,8 +376,9 @@ def iter_device_chunks(
             h2d[-1][1].synchronize()
             card = {"host_to_device_s": sum(a.elapsed_time(b) for a, b in h2d) / 1e3,
                     "fold_device_s": sum(a.elapsed_time(b) for a, b in folds) / 1e3}
-        _report_add(passes={pass_name: 1}, chunks=n_chunks, bytes=nbytes, fold_s=fold_s,
-                    wall_s=time.perf_counter() - t_pass, **card)
+        wall = time.perf_counter() - t_pass
+        _report_add(passes={pass_name: 1}, pass_s={pass_name: wall}, chunks=n_chunks, bytes=nbytes,
+                    fold_s=fold_s, wall_s=wall, **card)
         with _INGEST_LOCK:
             _INGEST.update(prefetch_depth=_PREFETCH_DEPTH, stage_depth=_STAGE_DEPTH, sync_every=_SYNC_EVERY,
                            chunk_rows=int(chunk_rows))
@@ -477,3 +489,196 @@ def streamed_suffstats(
     if with_y:
         stats.update(mean_y=mean_y, Xy=acc2["Xy"], yy=acc2["yy"])
     return stats
+
+
+# ---------------------------------------------------------------------------
+# LogisticRegression: label statistics, feature moments, objective passes
+# ---------------------------------------------------------------------------
+
+
+def streamed_label_stats(source: ChunkSource, chunk_rows: int) -> Dict[str, Any]:
+    """One host pass over the label stream (``source.iter_labels``): what
+    ``parallel.mesh.global_label_summary`` returns on one process
+    (``y_max``, ``y_min``, ``all_int``, ``all_same``, ``first``,
+    ``total``), without materializing the dataset. Raises ``ValueError``
+    on an empty label column. Counts as a ``labels`` pass in the report."""
+    y_max = -np.inf
+    y_min = np.inf
+    all_int = True
+    first = None
+    all_same = True
+    n_seen = 0
+    t = time.perf_counter()
+    for yv in source.iter_labels(chunk_rows):
+        if yv.size == 0:
+            continue
+        n_seen += yv.size
+        y_max = max(y_max, float(yv.max()))
+        y_min = min(y_min, float(yv.min()))
+        if not np.all(yv == np.floor(yv)):
+            all_int = False
+        if first is None:
+            first = float(yv[0])
+        if not np.all(yv == first):
+            all_same = False
+    _report_add(passes={"labels": 1}, pass_s={"labels": time.perf_counter() - t})
+    if n_seen == 0:
+        raise ValueError("Labels column is empty")
+    return {"y_max": float(y_max), "y_min": float(y_min), "all_int": all_int, "all_same": all_same,
+            "first": float(first), "total": int(n_seen)}
+
+
+def var_chunk_step(acc: torch.Tensor, X: torch.Tensor, rw: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """Fold one chunk into Σ w·(x − mean)² (the diagonal of the centred
+    second moment) in place; ``rw`` = mask·weight."""
+    dx = (X - mean[None, :]) * torch.sqrt(rw)[:, None]
+    acc += (dx * dx).sum(dim=0)
+    return acc
+
+
+def logreg_chunk_vg_step(
+    acc: Dict[str, torch.Tensor], X: torch.Tensor, mask: torch.Tensor, y: torch.Tensor,
+    Aeff: torch.Tensor, beff: torch.Tensor, multinomial: bool,
+) -> Dict[str, torch.Tensor]:
+    """Fold one chunk's masked log-loss and its gradient with respect to
+    the effective coefficients ``(Aeff (K, d), beff (K,))`` into ``acc``
+    (``f``, ``gA``, ``gb``) in place: kernel K3 on the card, its plain
+    version on the CPU."""
+    loss, gA, gb = logreg_loss_grad(X, y, mask, Aeff, beff, multinomial)
+    acc["f"] += loss
+    acc["gA"] += gA
+    acc["gb"] += gb
+    return acc
+
+
+def logreg_effective(A: np.ndarray, b: np.ndarray, mean: np.ndarray, inv_std: np.ndarray,
+                     use_center: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """The logits' coefficients of standardized-space ``(A, b)``:
+    ``Aeff = A·inv_std``, ``beff = b − Aeff·mean`` (``b`` where not
+    ``use_center``), in f64."""
+    Aeff = A * inv_std[None, :]
+    return Aeff, (b - Aeff @ mean) if use_center else b
+
+
+def logreg_flat_grad(gA: np.ndarray, gb: np.ndarray, mean: np.ndarray, inv_std: np.ndarray, *,
+                     use_center: bool, fit_intercept: bool) -> np.ndarray:
+    """The chain rule from the effective coefficients' gradient back to the
+    solver's flat vector ``[A.ravel(), b]``, in f64: ``gA = (gAeff −
+    gbeff ⊗ mean)·inv_std`` (the mean term only where ``use_center``),
+    ``gb = gbeff`` (absent without an intercept)."""
+    gA = np.asarray(gA, np.float64)
+    gb = np.asarray(gb, np.float64)
+    if use_center:
+        gA = gA - gb[:, None] * mean[None, :]
+    gA = gA * inv_std[None, :]
+    return np.concatenate([gA.ravel(), gb]) if fit_intercept else gA.ravel()
+
+
+def streamed_logreg_moments(
+    source: ChunkSource, device: torch.device, chunk_rows: int, dtype: torch.dtype = torch.float32, *,
+    variance: bool, cache: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """The feature statistics of a streamed LogisticRegression, into
+    ``cache`` (a fresh dict if None) where it lacks them: pass 1 the row
+    count ``n`` (a float) and ``mean`` (f32 on ``device``); where
+    ``variance``, pass 2 the unbiased variance (n − 1, the reference's
+    denominator) as ``inv_std`` (1 where a column is constant). Every param
+    map of one ``fitMultiple`` shares one cache, so one moments pass and at
+    most one variance pass serve them all."""
+    cache = {} if cache is None else cache
+    d = source.n_features
+    if "mean" not in cache:
+        acc = moments1_init(d, device, dtype, with_y=False)
+        guard = StreamGuard()
+        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                                   need_w=False, pass_name="moments")) as chunks:
+            for _, dev in chunks:
+                moments1_step(acc, dev["X"], dev["mask"])
+                guard.tick(dev)
+            guard.flush()
+        cache["n"] = float(acc["n"])
+        cache["mean"] = (acc["sum_x"] / acc["n"]).contiguous()
+    if variance and "inv_std" not in cache:
+        vacc = torch.zeros((d,), dtype=dtype, device=device)
+        guard = StreamGuard()
+        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                                   need_w=False, pass_name="variance")) as chunks:
+            for _, dev in chunks:
+                var_chunk_step(vacc, dev["X"], dev["mask"], cache["mean"])
+                guard.tick(dev)
+            guard.flush()
+        std = torch.sqrt(torch.clamp(vacc / max(cache["n"] - 1.0, 1.0), min=0.0))
+        cache["inv_std"] = torch.where(std > 0, 1.0 / std, torch.ones_like(std))
+    return cache
+
+
+def streamed_logreg_fit(
+    source: ChunkSource,
+    device: torch.device,
+    chunk_rows: int,
+    dtype: torch.dtype = torch.float32,
+    *,
+    n_classes: int,
+    multinomial: bool,
+    fit_intercept: bool,
+    standardization: bool,
+    l1: float,
+    l2: float,
+    max_iter: int,
+    tol: float,
+    history: int = 10,
+    moments: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Out-of-core LogisticRegression: :func:`minimize_lbfgs_host` whose
+    every evaluation is one chunked pass, each chunk folded through K3
+    (:func:`logreg_chunk_vg_step`) into f32 accumulators on the card, read
+    back once a pass.
+
+    The objective is the resident fit's (``ops.logreg_kernels.logreg_fit``):
+    (1/n)·Σ logloss + λ[(1−α)/2‖β‖₂² + α‖β‖₁] on the standardized
+    coefficients, never on intercepts; standardization folds into the
+    effective coefficients, formed once an evaluation; multinomial
+    intercepts are centred. ``moments``: a cache shared across calls
+    (:func:`streamed_logreg_moments`). Returns ``coef_`` (K, d) and
+    ``intercept_`` (K,) as f32 numpy, ``n_iter`` and ``objective``."""
+    d = source.n_features
+    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    moments = streamed_logreg_moments(source, device, chunk_rows, dtype, variance=standardization, cache=moments)
+    n = moments["n"]
+    mean = moments["mean"].double().cpu().numpy()
+    inv_std = moments["inv_std"].double().cpu().numpy() if standardization else np.ones((d,))
+    use_center = standardization and fit_intercept
+    K = n_classes if multinomial else 1
+    n_coef = K * d
+    p = n_coef + (K if fit_intercept else 0)
+    coef_mask = np.concatenate([np.ones(n_coef), np.zeros(p - n_coef)])
+
+    def unpack(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        return w[:n_coef].reshape(K, d), w[n_coef:] if fit_intercept else np.zeros((K,))
+
+    def value_grad(w: np.ndarray) -> Tuple[float, np.ndarray]:
+        Aeff, beff = logreg_effective(*unpack(w), mean, inv_std, use_center)
+        Aeff_d = torch.from_numpy(Aeff.astype(np_dtype)).to(device)
+        beff_d = torch.from_numpy(np.asarray(beff, np_dtype)).to(device)
+        acc = {"f": torch.zeros((), dtype=dtype, device=device),
+               "gA": torch.zeros((K, d), dtype=dtype, device=device),
+               "gb": torch.zeros((K,), dtype=dtype, device=device)}
+        guard = StreamGuard()
+        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_w=False,
+                                                   pass_name="objective")) as chunks:
+            for _, dev in chunks:
+                logreg_chunk_vg_step(acc, dev["X"], dev["mask"], dev["y"], Aeff_d, beff_d, multinomial)
+                guard.tick(dev)
+            guard.flush()
+        g = logreg_flat_grad(acc["gA"].cpu().numpy(), acc["gb"].cpu().numpy(), mean, inv_std,
+                             use_center=use_center, fit_intercept=fit_intercept)
+        coefs = w * coef_mask
+        return float(acc["f"]) / n + 0.5 * l2 * float(coefs @ coefs), g / n + l2 * coefs
+
+    res = minimize_lbfgs_host(value_grad, np.zeros((p,)), max_iter=max_iter, tol=tol,
+                              l1_weights=(l1 * coef_mask) if l1 > 0.0 else None, history=history)
+    coef, intercept = logreg_effective(*unpack(res.w), mean, inv_std, use_center)
+    if fit_intercept and K > 1:
+        intercept = intercept - intercept.mean()
+    return {"coef_": coef.astype(np_dtype), "intercept_": np.asarray(intercept, np_dtype),
+            "n_iter": res.n_iter, "objective": res.f}
