@@ -232,7 +232,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the model against the f64 reference fit, peak device memory under
    STREAM_PEAK_MAX. K3's launches there are the ``logreg_loss_grad_stream_*``
    rows of the kernels line (and the resident fits' the rows of their
-   kernels).
+   kernels). Then the streamed KMeans (Lloyd as one chunked pass an
+   iteration and the k-means|| seeding passes, K2 on every chunk of each
+   Lloyd, cost and candidate-count pass): (l) K2 at the chunk shapes it
+   gets (131,072 x 256 at k = 1,024, 1,000 and 4,097) and their
+   zero-padded last chunks (72,448 and 123,136 rows), held with its
+   controls and timed as median device times, no chunk copied by its
+   wrapper; (m) KMeans(k=1024) streamed and resident on the 12M rows:
+   random init from the same seeds bit for bit, one Lloyd iteration of
+   each held against the f64 one, 5-iteration fits' costs and centres
+   within their compounded bands, at least
+   KM_AGREE_MIN of predictions equal (the rest reported by near tie);
+   k-means|| (the default, maxIter=10) within 2% of the resident cost, both
+   seeding splits (``_fit_report``) side by side; (n) the north star: the
+   reference's KMeans(k=1000, tol=1e-20, initMode="random"), maxIter cut to
+   3, on 100,000,000 x 256 rows from a generator of views of the 12M
+   rows' 131,072-row blocks: its seeds equal the rows the seed names, a
+   maxIter=0 fit's cost held against its f64 truth from the pool, the
+   fit's cost against an f64 walk's, peak device memory under
+   STREAM_PEAK_MAX. K2's launches there are the ``lloyd_step_stream_*``
+   rows of the kernels line (the resident fits' the ``lloyd_step`` row's).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -300,8 +319,8 @@ prints no result line.
 
     python3 chip_smoke.py --stream-only
 
-is a probe of the streamed path: K1 and K3 alone built, the streamed phase
-alone on ``--rows`` rows. It prints no result line.
+is a probe of the streamed path: K1, K3 and K2 alone built, the streamed
+phase alone on ``--rows`` rows. It prints no result line.
 
     python3 chip_smoke.py --hist-only [--sweep]
 
@@ -534,14 +553,18 @@ TAU_UNITS = 4.0
 REF_CHUNK = 1 << 20
 
 
-def held(torch, out, ref, T, n, slack=None):
+def held(torch, out, ref, T, n, slack=None, terms=TOL_TERMS, walk=None):
     """Per-entry comparison of ``out`` with the f64 ``ref``; returns the
     largest absolute error and the largest rounding error over its
     tolerance (the error beyond ``slack``, the part a known cause such as a
-    near tie explains). Holds when the ratio is at most 1."""
+    near tie explains). Holds when the ratio is at most 1. ``terms`` and
+    ``walk`` (TOL_WALK·√n when None) weigh the two parts of the band (a
+    streamed pass: more terms for the f32 sum of its chunk partials, the
+    walk over one chunk's rows)."""
     ref = ref.to(torch.float64)
     err = (out.to(torch.float64) - ref).abs()
-    tol = U32 * (TOL_TERMS * T + TOL_WALK * (n ** 0.5) * ref.abs())
+    walk = TOL_WALK * (n ** 0.5) if walk is None else walk
+    tol = U32 * (terms * T + walk * ref.abs())
     excess = err if slack is None else torch.clamp(err - slack, min=0.0)
     ratio = torch.where(excess > 0, excess / tol, torch.zeros_like(err))
     return float(err.max()), float(ratio.max())
@@ -652,12 +675,16 @@ def phase_gram_shapes(torch, lin, X_pca, n_rows, reps, g):
     return res
 
 
-def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17):
+def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17, weighted=False):
     """K2's plain version in f64, in row chunks, with the absolute sums T
     and the near ties: rows whose second (or third) best f64 score lies
     within the f32 rounding band of the best, which the kernel may assign
     to any of those centres. For each centre, ``near`` counts such rows
-    with the centre in their band and ``slack`` adds up their ``m·|x|``."""
+    with the centre in their band and ``slack`` adds up their ``m·|x|``.
+    ``A`` adds up the absolute values of each chunk's sums (the band of a
+    streamed pass whose chunks are these). ``weighted``: a row counts m
+    times in ``counts`` and ``near`` (m a row multiplicity: the rows of a
+    streamed pass that repeats rows), not once where m > 0 as in K2."""
     k, d = C.shape
     f64, dev = torch.float64, X.device
     C64 = C.to(f64)
@@ -672,15 +699,18 @@ def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17):
          "near": torch.zeros((k,), dtype=torch.int64, device=dev),
          "slack": torch.zeros((k, d), dtype=f64, device=dev),
          "slack_cost": torch.zeros((), dtype=f64, device=dev),
+         "A": torch.zeros((k, d), dtype=f64, device=dev),
          "near_rows": 0}
     for lo in range(0, X.shape[0], chunk):
         x, mm = X[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
         s_, c_, cost_ = kk.lloyd_step_plain(x, mm, C64)
         r["sums"] += s_
-        r["counts"] += c_.to(torch.int64)
+        r["A"] += s_.abs()
         r["cost"] += cost_
         sc = c_sq[None, :] - 2.0 * (x @ C64.T)
         _, a = torch.min(sc, dim=1)
+        r["counts"] += (torch.bincount(a, weights=mm, minlength=k).round().to(torch.int64) if weighted
+                        else c_.to(torch.int64))
         ax = x.abs() * mm[:, None]
         r["T"].index_add_(0, a, ax)
         r["T_cost"] += (mm * ((x.abs() + C64_abs[a]) ** 2).sum(dim=1)).sum()
@@ -692,10 +722,14 @@ def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17):
         band = ((top.values - top.values[:, :1]) < tau[:, None]) & near_row[:, None]
         for col in range(top.indices.shape[1]):
             sel = band[:, col]
-            r["near"] += torch.bincount(top.indices[sel, col], minlength=k)
+            if weighted:
+                r["near"] += torch.bincount(top.indices[sel, col], weights=mm[sel], minlength=k).round().to(
+                    torch.int64)
+            else:
+                r["near"] += torch.bincount(top.indices[sel, col], minlength=k)
             r["slack"].index_add_(0, top.indices[sel, col], ax[sel])
         r["slack_cost"] += (tau * mm)[near_row].sum()
-        r["near_rows"] += int(near_row.sum())
+        r["near_rows"] += int(mm[near_row].sum()) if weighted else int(near_row.sum())
     return r
 
 
@@ -711,7 +745,12 @@ def lloyd_verdict(torch, sums, counts, cost, ref, n):
     return counts_ok, dcount, err, r_sums, r_cost
 
 
-def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
+def check_lloyd_step(torch, kk, X, m, C, reps, control=False, timer=None):
+    """K2 on (X, m, C) held against ``lloyd_reference`` by ``lloyd_verdict``
+    (with its negative controls where ``control``), and timed over ``reps``
+    calls by ``timer`` (``cuda_ms`` when None) beside its plain version and
+    one matmul + argmin + ``index_add_``, with its bound."""
+    timer = cuda_ms if timer is None else timer
     n, d = X.shape
     k = C.shape[0]
     sums, counts, cost = kk.lloyd_step(X, m, C)
@@ -761,9 +800,9 @@ def check_lloyd_step(torch, kk, X, m, C, reps, control=False):
                 acc.index_add_(0, a, xs * m[lo:lo + (1 << 20), None])
             return acc
 
-        out["ms"] = cuda_ms(torch, lambda: kk.lloyd_step(X, m, C), reps)
-        out["plain_ms"] = cuda_ms(torch, lambda: kk.lloyd_step_plain(X, m, C), reps)
-        out["library_ms"] = cuda_ms(torch, library, reps)
+        out["ms"] = timer(torch, lambda: kk.lloyd_step(X, m, C), reps)
+        out["plain_ms"] = timer(torch, lambda: kk.lloyd_step_plain(X, m, C), reps)
+        out["library_ms"] = timer(torch, library, reps)
         nbytes = 4.0 * (n * d + n + k * d + k * d + k + 1)
         # the score product runs on the tensor cores in 3xTF32: three TF32
         # products per (row, centre, feature), at the dense TF32 rate; the
@@ -2770,6 +2809,10 @@ def staged_copy_s(torch, X):
 
 
 def phase_e2e(torch, X_host, y_host, seed):
+    """PCA(k=16), KMeans(k=1024, maxIter=10) and LogisticRegression(
+    maxIter=20) fit and transform on the host rows, each kernel counted.
+    Returns the launches {kernel: n} and the KMeans model with its fit
+    seconds."""
     from spark_rapids_ml_tpu_torch import DataFrame
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
     from spark_rapids_ml_tpu_torch.clustering import KMeans
@@ -2816,7 +2859,8 @@ def phase_e2e(torch, X_host, y_host, seed):
     emit({"phase": "e2e", "estimator": "KMeans", "k": E2E_CENTRES, "maxIter": 10, "rows": n,
           "fit_s": t_fit, "transform_s": t_tr, "fit_rows_per_s": n / t_fit,
           "transform_rows_per_s": n / t_tr, "n_iter": kmm.numIter, "cost": kmm.trainingCost,
-          "lloyd_step_launches": wrappers["lloyd_step"].launches})
+          "lloyd_step_launches": wrappers["lloyd_step"].launches, "fit_report": kmm._fit_report})
+    km_fit_s = t_fit
 
     lr = LogisticRegression(maxIter=20)
     lrm, t_fit = _timed(torch, lambda: lr.fit(df))
@@ -2840,8 +2884,8 @@ def phase_e2e(torch, X_host, y_host, seed):
     check(kmm.trainingCost <= km0.trainingCost * (1 + 1e-6),
           f"KMeans cost {kmm.trainingCost} above its seeds' {km0.trainingCost}")
     emit({"phase": "e2e", "check": "kmeans_cost_vs_seeds", "cost": kmm.trainingCost,
-          "seed_cost": km0.trainingCost, "maxIter0_fit_s": t_seed})
-    return launches
+          "seed_cost": km0.trainingCost, "maxIter0_fit_s": t_seed, "maxIter0_fit_report": km0._fit_report})
+    return launches, (kmm, km_fit_s)
 
 
 def phase_subset(torch, X_host, y_host, seed, rows):
@@ -4392,22 +4436,538 @@ def phase_stream_logreg(torch, X_host, y_host, seed):
     return meas, launches
 
 
-def phase_streamed(torch, X_host, y_host, lin, pca_ref, seed):
+# ---------------------------------------------------------------------------
+# the streamed KMeans: Lloyd and the k-means|| seeding as chunked passes, K2
+# on every chunk of each Lloyd, cost and candidate-count pass
+# ---------------------------------------------------------------------------
+
+# the reference's KMeans benchmark config (BASELINE.md:23, from
+# databricks/run_benchmark.sh:46-55): k=1000, tol=1e-20, random init; its
+# maxIter=30 cut to STREAM_KM_ITER at 100M, where every iteration is one
+# pass of ~9-14 s (at 5 iterations the whole script took 984 s of its
+# 1,200 on an H100 80GB HBM3 at 700 W)
+STREAM_KM_K = 1000
+STREAM_KM_ITER = 3
+STREAM_KM_TOL = 1e-20
+# the bench's KMeans (bench.py: k = E2E_CENTRES, maxIter=10) on the 12M
+# rows, streamed and resident: k-means|| at its maxIter (the resident fit
+# is the e2e phase's), random init cut to STREAM_KM_WALK_ITER
+STREAM_KM_E2E_ITER = 10
+STREAM_KM_WALK_ITER = 5
+# the k-means|| candidate count K2 is timed at: 1 + 2 steps x 2k draws at
+# oversampling 2 (k of the candidate-count pass)
+STREAM_KM_CANDS = 4097
+# timed calls of K2 at each chunk shape
+STREAM_K2_REPS = 10
+# the share of the 12M rows two KMeans walks from the same
+# seeds (streamed, resident) must predict alike (the card-vs-CPU agreement
+# floor of the 64-class LogisticRegression, MANY_AGREE_MIN); the rows that
+# differ are reported by whether their squared distances to the two
+# centres lie within KM_NEAR_TIE of the nearer, in one model or the other
+KM_AGREE_MIN = 0.995
+KM_NEAR_TIE = 1e-3
+# k-means|| streamed vs resident: an ulp of distance may flip one draw near
+# its threshold, so the cost is held as the card-vs-CPU fits hold it
+# (phase_subset)
+KM_PLUSPLUS_COST_TOL = 0.02
+
+
+@contextlib.contextmanager
+def record_kmeans_fit(kk):
+    """While open: the seeds a KMeans fit starts from (the outermost
+    seeding call's output), the calls of K2's plain version (none may come
+    from a card path), the operand copies K2's wrapper makes
+    (``lloyd_operands``: none for a fresh 256-wide chunk), and the K2
+    launches of the streamed chunk steps by pass kind, each read around its
+    step (``lloyd``: the Lloyd and cost passes' ``kmeans_chunk_step``;
+    ``count``: the candidate-count pass's ``count_closest_chunk_step``,
+    with the candidate counts it ran at); on leaving, all K2 launches made
+    inside."""
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+
+    rec = {"centers0": None, "plain_calls": 0, "operand_copies": 0, "launches": 0,
+           "pass_launches": {"lloyd": 0, "count": 0}, "count_k": []}
+    saved = {name: KMeans.__dict__[name] for name in ("_seed_random", "_seed_scalable_kmeanspp")}
+    real_plain, real_ops = kk.lloyd_step_plain, kk.lloyd_operands
+    steps = {"lloyd": ("kmeans_chunk_step", st.kmeans_chunk_step),
+             "count": ("count_closest_chunk_step", st.count_closest_chunk_step)}
+    k0 = kk.lloyd_step.launches
+
+    def seeding(fn):
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            rec["centers0"] = np.array(out)
+            return out
+        return staticmethod(wrapper)
+
+    def plain(*a, **kw):
+        rec["plain_calls"] += 1
+        return real_plain(*a, **kw)
+
+    def operands(X, C):
+        out = real_ops(X, C)
+        rec["operand_copies"] += int(out[0] is not X) + int(out[1] is not C)
+        return out
+
+    def counted(kind, fn):
+        def step(acc, X, mask, C):
+            before = kk.lloyd_step.launches
+            out = fn(acc, X, mask, C)
+            rec["pass_launches"][kind] += kk.lloyd_step.launches - before
+            if kind == "count" and C.shape[0] not in rec["count_k"]:
+                rec["count_k"].append(int(C.shape[0]))
+            return out
+        return step
+
+    for name, sm in saved.items():
+        setattr(KMeans, name, seeding(sm.__func__))
+    for kind, (name, fn) in steps.items():
+        setattr(st, name, counted(kind, fn))
+    kk.lloyd_step_plain, kk.lloyd_operands = plain, operands
+    try:
+        yield rec
+    finally:
+        for name, sm in saved.items():
+            setattr(KMeans, name, sm)
+        for name, fn in steps.values():
+            setattr(st, name, fn)
+        kk.lloyd_step_plain, kk.lloyd_operands = real_plain, real_ops
+        rec["launches"] = kk.lloyd_step.launches - k0
+
+
+def phase_stream_k2(torch, kk, X_host, seed):
+    """(l) K2 at the shapes a streamed KMeans gives it (``auto_chunk_rows``'
+    131,072 x 256 chunk): k = 1,024 (the bench's Lloyd passes on the 12M
+    rows), k = 1,000 (the reference's config at 100M) and k = 4,097 (the
+    k-means|| candidate count), each held with its controls and timed as a
+    median device time beside its plain version and one matmul + argmin +
+    ``index_add_``, with its bound; each also on its zero-padded last chunk
+    (the 12M rows' 72,448 at k = 1,024 and 4,097, the 100M rows' 123,136 at
+    k = 1,000; m = 0 past them), where the counts must add up to the real
+    rows. A chunk must reach the kernel as it is (``lloyd_operands`` makes
+    no copy). Returns the measurements by kernels-line row."""
+    dev = torch.device("cuda:0")
+    CH = STREAM_CHUNK_ROWS
+    n = X_host.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 34)
+    first = torch.from_numpy(X_host[:CH]).to(dev)
+    ones = torch.ones(CH, device=dev)
+
+    def rows(k):
+        return first[torch.randint(0, CH, (k,), generator=g, device=dev)].contiguous()
+
+    # a Lloyd iteration's centres (rows moved off the data), the random
+    # init's seeds, the k-means|| candidates (rows)
+    cents = {E2E_CENTRES: (rows(E2E_CENTRES) + 0.1 * torch.randn(E2E_CENTRES, E2E_D, generator=g, device=dev)),
+             STREAM_KM_K: rows(STREAM_KM_K), STREAM_KM_CANDS: rows(STREAM_KM_CANDS)}
+    last_12m = n - (-(-n // CH) - 1) * CH
+    last_100m = STREAM_ROWS - (-(-STREAM_ROWS // CH) - 1) * CH
+    out = {}
+    for k, C in cents.items():
+        name = f"lloyd_step_stream_k{k}"
+        Xk, Ck = kk.lloyd_operands(first, C)
+        check(Xk is first and Ck is C, f"{name}: K2's wrapper copies a chunk operand")
+        r = check_lloyd_step(torch, kk, first, ones, C, STREAM_K2_REPS, control=True, timer=median_device_ms)
+        nv, src = (last_100m, X_host[:last_100m]) if k == STREAM_KM_K else (last_12m, X_host[n - last_12m:])
+        Xl = torch.zeros((CH, E2E_D), device=dev)
+        Xl[:nv] = torch.from_numpy(src).to(dev)
+        ml = torch.zeros(CH, device=dev)
+        ml[:nv] = 1.0
+        rl = check_lloyd_step(torch, kk, Xl, ml, C, 0)
+        counted = int(kk.lloyd_step(Xl, ml, C)[1].sum())
+        check(counted == nv, f"{name}: the last chunk's counts add up to {counted}, not its {nv} rows")
+        r["last_chunk"] = {"n_valid": nv, "rows_counted": counted, **{key: rl[key] for key in (
+            "max_abs_err", "err_over_tol", "count_changes", "near_tie_rows", "cost_err_over_tol")}}
+        r["operands_as_given"] = True
+        emit({"phase": "kernels", "kernel": "lloyd_step", "shape": name,
+              **{key: v for key, v in r.items() if key != "controls"},
+              "controls": [(c["control"], c["err_over_tol"]) for c in r["controls"]]})
+        out[name] = r
+        del Xl, ml
+    del first, ones, cents
+    torch.cuda.empty_cache()
+    return out
+
+
+def km_fit(torch, kk, df, **kw):
+    """A KMeans fit of ``df`` with ``kw``, recorded (``record_kmeans_fit``):
+    (model, seconds, record)."""
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+
+    with record_kmeans_fit(kk) as rec:
+        model, t = _timed(torch, lambda: KMeans(**kw).fit(df))
+    return model, t, rec
+
+
+def check_streamed_km(model, rec, n_chunks, what):
+    """A streamed KMeans fit's passes and K2 launches: one launch a chunk
+    of each Lloyd and cost pass, and of each candidate-count pass, each
+    counted around its chunk step, and no other; none of K2's plain
+    version, no operand copy, one Lloyd pass an iteration and one cost
+    pass. Returns the passes."""
+    passes = model._ingest_report["passes"]
+    lloyd = passes.get("lloyd", 0) + passes.get("cost", 0)
+    pl = rec["pass_launches"]
+    check(pl["lloyd"] == n_chunks * lloyd and pl["count"] == n_chunks * passes.get("seed_count", 0)
+          and rec["launches"] == pl["lloyd"] + pl["count"],
+          f"{what}: K2 launches {rec['launches']} ({pl}) over passes {passes} of {n_chunks} chunks")
+    check(rec["plain_calls"] == 0 and rec["operand_copies"] == 0,
+          f"{what}: K2's plain version ran {rec['plain_calls']} times, {rec['operand_copies']} operand copies")
+    check(passes.get("cost") == 1 and passes.get("lloyd", 0) == model.numIter, f"{what}: passes {passes}")
+    return passes
+
+
+def prediction_agreement(torch, X_host, models, near_tie=KM_NEAR_TIE):
+    """The share of equal predictions of two KMeans models over the
+    transformed rows, and of the rows that differ, those past a near tie:
+    their squared distances (f64) to the two predicted centres differ by
+    more than ``near_tie`` of the nearer in both models (with the largest
+    such share of the differing rows)."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+
+    df = DataFrame({"features": X_host})
+    (pa, ta), (pb, tb) = (_timed(torch, lambda: np.asarray(m.transform(df).column("prediction")))
+                          for m in models)
+    diff = np.nonzero(pa != pb)[0]
+    bad, worst = 0, 0.0
+    for lo in range(0, len(diff), 1 << 16):
+        rows = diff[lo:lo + (1 << 16)]
+        x = X_host[rows].astype(np.float64)
+        gaps = []
+        for m in models:
+            c = np.asarray(m.cluster_centers_, np.float64)
+            da, db = ((x - c[pa[rows]]) ** 2).sum(1), ((x - c[pb[rows]]) ** 2).sum(1)
+            gaps.append(np.abs(da - db) / np.maximum(np.minimum(da, db), 1e-30))
+        gap = np.minimum(*gaps)
+        bad += int((gap > near_tie).sum())
+        worst = max(worst, float(gap.max()))
+    return {"agreement": float(1.0 - len(diff) / len(pa)), "rows_differing": int(len(diff)),
+            "differing_past_near_tie": bad, "near_tie": near_tie, "largest_relative_gap": worst,
+            "transform_s": [ta, tb]}
+
+
+def km_centre_bands(torch, ref, C0, n, chunk, n_chunks):
+    """f64 centres after one Lloyd iteration from ``C0`` and, entry by
+    entry, the bands of a streamed and of a resident iteration around them:
+    each centre's sums within K2's band (streamed: each chunk's, then an f32
+    sum of ``n_chunks`` partials; resident: one launch over ``n`` rows) and
+    its near ties' slack, over the f64 count, plus the count's change
+    across the near ties and the rounding of the update (streamed: f64 then
+    one rounding to f32; resident: an f32 division). A centre whose near
+    ties reach its count has no band (NaN)."""
+    f64 = torch.float64
+    N = ref["counts"].to(f64)
+    near = ref["near"].to(f64)
+    Nc = torch.clamp(N, min=1.0)[:, None]
+    C0 = C0.to(f64)
+    c = torch.where(N[:, None] > 0, ref["sums"] / Nc, C0)
+    common = ref["slack"] / Nc + c.abs() * (near[:, None] / Nc)
+    e_s = U32 * ((TOL_TERMS + n_chunks) * ref["T"] + TOL_WALK * chunk ** 0.5 * ref["A"]) / Nc + common \
+        + U32 * c.abs()
+    e_r = U32 * (TOL_TERMS * ref["T"] + TOL_WALK * n ** 0.5 * ref["sums"].abs()) / Nc + common + 2.0 * U32 * c.abs()
+    unheld = (near >= N) & ~((N == 0) & (near == 0))
+    e_s[unheld], e_r[unheld] = float("nan"), float("nan")
+    return c, e_s, e_r
+
+
+def centre_ratio(torch, centres, c, e):
+    """(max |centres - c|, max |centres - c| / e) over the centres with a
+    band; an error where the band is 0 gives an infinite ratio."""
+    err = (torch.from_numpy(np.asarray(centres, np.float64)).to(c.device) - c).abs()
+    ok = ~torch.isnan(e).any(dim=1)
+    ratio = torch.where(err > 0, err / e, torch.zeros_like(err))[ok]
+    return float(err[ok].max()), float(ratio.max())
+
+
+def phase_stream_kmeans_vs_resident(torch, kk, X_host, seed, km_resident=None):
+    """(m) The bench's KMeans(k=1024, seed) on the 12M x 256 host rows,
+    streamed (``streaming=True``: an ``ArrayChunkSource`` of 92 chunks) and
+    resident (maxIter STREAM_KM_WALK_ITER from random seeds, the bench's 10
+    with k-means||). Random init: both fits start from the same seeds,
+    bit for bit; one Lloyd iteration (``maxIter=1``) of each is held
+    against the f64 iteration from those seeds (``km_centre_bands``); the
+    STREAM_KM_WALK_ITER-iteration fits stop at the same iteration (or a shift lies within
+    rounding of tol²), their costs agree within the two sides' per-pass
+    cost band compounded over the passes, their centres within the
+    one-iteration bands compounded over the iterations, and at least
+    KM_AGREE_MIN of their predictions are equal (the rows that differ
+    reported by near tie: a near-tie flip in one iteration moves the next
+    iteration's boundary, so the walks part in blobs that two seeds split). k-means|| (the default): the cost within
+    KM_PLUSPLUS_COST_TOL of the resident fit's (``km_resident``, the e2e
+    phase's model, where given). Each streamed fit: one K2 launch a chunk
+    of each device pass, none of its plain version. Reports fit seconds,
+    passes, launches and both fits' seeding split. Returns the K2 launches
+    {kernels-line row: {path: n}} and the candidate counts the k-means||
+    fit's count pass ran at (its launches sit in the k = STREAM_KM_CANDS
+    row, which is timed at that nominal count)."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+
+    dev = torch.device("cuda:0")
+    n = X_host.shape[0]
+    CH = STREAM_CHUNK_ROWS
+    n_chunks = -(-n // CH)
+    df = DataFrame({"features": X_host})
+    lloyd_row, cand_row = f"lloyd_step_stream_k{E2E_CENTRES}", f"lloyd_step_stream_k{STREAM_KM_CANDS}"
+    launches = {"lloyd_step": {}, lloyd_row: {}, cand_row: {}}
+    base = {"k": E2E_CENTRES, "seed": seed, "initMode": "random"}
+    stream = {"streaming": True, "stream_chunk_rows": CH}
+
+    # one Lloyd iteration from the same seeds, each held against the f64 one
+    s1, t_s1, rec_s1 = km_fit(torch, kk, df, maxIter=1, **base, **stream)
+    r1, t_r1, rec_r1 = km_fit(torch, kk, df, maxIter=1, **base)
+    check_streamed_km(s1, rec_s1, n_chunks, "streamed KMeans, one iteration")
+    C0 = rec_s1["centers0"]
+    check(C0 is not None and np.array_equal(C0, rec_r1["centers0"]),
+          "streamed vs resident KMeans: the random seeds differ")
+    Xd = torch.from_numpy(X_host).to(dev)
+    ref, t_ref = _timed(torch, lambda: lloyd_reference(torch, kk, Xd, torch.ones(n, device=dev),
+                                                       torch.from_numpy(C0).to(dev), chunk=CH))
+    del Xd
+    torch.cuda.empty_cache()
+    c1, e_s, e_r = km_centre_bands(torch, ref, torch.from_numpy(C0).to(dev), n, CH, n_chunks)
+    err_s, ratio_s = centre_ratio(torch, s1.cluster_centers_, c1, e_s)
+    err_r, ratio_r = centre_ratio(torch, r1.cluster_centers_, c1, e_r)
+    one = {"streamed_max_abs_err": err_s, "streamed_err_over_tol": ratio_s, "resident_max_abs_err": err_r,
+           "resident_err_over_tol": ratio_r, "near_tie_rows": ref["near_rows"],
+           "centres_without_band": int(torch.isnan(e_s).any(dim=1).sum()),
+           "streamed_vs_resident_max_abs_diff": float(np.abs(s1.cluster_centers_ - r1.cluster_centers_).max()),
+           "streamed_fit_s": t_s1, "resident_fit_s": t_r1, "reference_s": t_ref}
+    emit({"phase": "streamed", "check": "kmeans_one_iteration", "rows": n, "k": E2E_CENTRES, **one})
+    check(ratio_s <= 1.0 and ratio_r <= 1.0, f"one Lloyd iteration off its f64 truth: {one}")
+    launches[lloyd_row]["kmeans_streamed_1iter"] = rec_s1["launches"]
+    launches["lloyd_step"]["kmeans_resident_1iter"] = rec_r1["launches"]
+
+    # the walks
+    s10, t_s10, rec_s10 = km_fit(torch, kk, df, maxIter=STREAM_KM_WALK_ITER, **base, **stream)
+    r10, t_r10, rec_r10 = km_fit(torch, kk, df, maxIter=STREAM_KM_WALK_ITER, **base)
+    passes = check_streamed_km(s10, rec_s10, n_chunks, "streamed KMeans")
+    check(np.array_equal(rec_s10["centers0"], C0) and np.array_equal(rec_r10["centers0"], C0),
+          "the walks start from other seeds")
+    tol2 = 1e-4 ** 2
+    sh_s, sh_r = s10._fit_report["shifts"], r10._fit_report["shifts"]
+    walk = {"n_iter": [s10.numIter, r10.numIter], "stop": "maxIter" if min(s10.numIter, r10.numIter) == (
+        STREAM_KM_WALK_ITER) else "tol", "shifts_streamed": sh_s, "shifts_resident": sh_r}
+    if s10.numIter != r10.numIter:
+        i = min(s10.numIter, r10.numIter) - 1
+        walk["iteration_apart"] = i + 1
+        check(abs(sh_s[i] - sh_r[i]) <= 0.5 * tol2, f"the walks stop apart at iteration {i + 1}, their shifts "
+                                                    f"{sh_s[i]!r} / {sh_r[i]!r} not within rounding of tol²")
+    iters = max(s10.numIter, r10.numIter)
+    cost_pass = U32 * ((2.0 * TOL_TERMS + n_chunks) * float(ref["T_cost"])
+                       + TOL_WALK * (CH ** 0.5 + n ** 0.5) * float(ref["cost"])) + 2.0 * float(ref["slack_cost"])
+    cost_tol = (iters + 1) * cost_pass
+    d_cost = abs(s10.trainingCost - r10.trainingCost)
+    band = float(torch.nan_to_num(e_s + e_r, nan=0.0).max()) * iters
+    dc = np.abs(s10.cluster_centers_.astype(np.float64) - r10.cluster_centers_)
+    pred = prediction_agreement(torch, X_host, (s10, r10))
+    walk.update({"cost": [s10.trainingCost, r10.trainingCost], "cost_abs_diff": d_cost, "cost_tol": cost_tol,
+                 "cost_rel_diff": d_cost / r10.trainingCost, "centre_max_abs_diff": float(dc.max()),
+                 "centre_band_compounded": band, "centres_beyond_band": int((dc.max(axis=1) > band).sum()),
+                 "predictions": pred, "streamed_fit_s": t_s10, "resident_fit_s": t_r10,
+                 "streamed_rows_per_s": n / t_s10, "passes": passes,
+                 "lloyd_pass_s": s10._ingest_report["pass_s"]["lloyd"] / passes["lloyd"],
+                 "lloyd_step_launches": rec_s10["launches"], "resident_launches": rec_r10["launches"],
+                 "fit_report_streamed": s10._fit_report, "fit_report_resident": r10._fit_report,
+                 "ingest": s10._ingest_report})
+    emit({"phase": "streamed", "check": "kmeans_streamed_vs_resident", "init": "random", "rows": n,
+          "k": E2E_CENTRES, "maxIter": STREAM_KM_WALK_ITER, "chunks": n_chunks, **walk})
+    check(d_cost <= cost_tol, f"streamed vs resident KMeans: costs {d_cost!r} apart (tol {cost_tol!r})")
+    check(np.isfinite(s10.cluster_centers_).all() and pred["agreement"] >= KM_AGREE_MIN,
+          f"streamed vs resident KMeans: {pred['agreement']} of predictions equal, below {KM_AGREE_MIN}")
+    check(walk["centres_beyond_band"] == 0, f"streamed vs resident KMeans: {walk['centres_beyond_band']} centres "
+                                            f"beyond the compounded band {band!r}")
+    launches[lloyd_row]["kmeans_streamed"] = rec_s10["launches"]
+    launches["lloyd_step"]["kmeans_resident"] = rec_r10["launches"]
+
+    # k-means||, the default init
+    kw = {"k": E2E_CENTRES, "seed": seed, "maxIter": STREAM_KM_E2E_ITER}
+    sp, t_sp, rec_sp = km_fit(torch, kk, df, **kw, **stream)
+    passes = check_streamed_km(sp, rec_sp, n_chunks, "streamed k-means||")
+    check(passes.get("seed_count") == 1 and passes.get("seed_min_d2", 0) >= 1, f"streamed k-means||: {passes}")
+    if km_resident is None:
+        rp, t_rp, rec_rp = km_fit(torch, kk, df, **kw)
+        launches["lloyd_step"]["kmeans_resident_kmeanspp"] = rec_rp["launches"]
+    else:
+        rp, t_rp = km_resident
+    rel = abs(sp.trainingCost - rp.trainingCost) / rp.trainingCost
+    emit({"phase": "streamed", "check": "kmeans_streamed_vs_resident", "init": "k-means||", "rows": n,
+          "k": E2E_CENTRES, "maxIter": STREAM_KM_E2E_ITER, "cost": [sp.trainingCost, rp.trainingCost],
+          "cost_rel_diff": rel, "cost_tol": KM_PLUSPLUS_COST_TOL, "n_iter": [sp.numIter, rp.numIter],
+          "streamed_fit_s": t_sp, "resident_fit_s": t_rp, "resident_from_e2e": km_resident is not None,
+          "passes": passes, "pass_s": sp._ingest_report["pass_s"], "lloyd_step_launches": rec_sp["launches"],
+          "lloyd_pass_launches": rec_sp["pass_launches"]["lloyd"],
+          "candidate_count_launches": rec_sp["pass_launches"]["count"], "candidates": rec_sp["count_k"],
+          "fit_report_streamed": sp._fit_report,
+          "fit_report_resident": rp._fit_report, "ingest": sp._ingest_report})
+    check(rel <= KM_PLUSPLUS_COST_TOL, f"streamed vs resident k-means||: cost {rel:.3g} apart")
+    launches[lloyd_row]["kmeans_streamed_kmeanspp"] = rec_sp["pass_launches"]["lloyd"]
+    launches[cand_row]["kmeans_streamed_kmeanspp"] = rec_sp["pass_launches"]["count"]
+    return launches, rec_sp["count_k"]
+
+
+def lloyd_walk64(torch, kk, X, m, C0, iters):
+    """The f64 Lloyd walk from ``C0`` over the rows of ``X`` each counted
+    ``m`` times (``lloyd_reference``, weighted) for ``iters`` iterations
+    (an empty cluster keeps its centre), then its cost: (centres, cost)."""
+    C = C0.to(torch.float64)
+    for _ in range(iters):
+        r = lloyd_reference(torch, kk, X, m, C, chunk=STREAM_CHUNK_ROWS, weighted=True)
+        counts = r["counts"].to(torch.float64)
+        C = torch.where(counts[:, None] > 0, r["sums"] / torch.clamp(counts, min=1.0)[:, None], C)
+    return C, float(lloyd_reference(torch, kk, X, m, C, chunk=STREAM_CHUNK_ROWS, weighted=True)["cost"])
+
+
+def phase_north_star_kmeans(torch, kk, st, X_host, seed):
+    """(n) The reference's KMeans(k=1000, tol=1e-20, initMode="random"),
+    maxIter cut to STREAM_KM_ITER, on 100,000,000 x 256 f32 rows from a
+    ``GeneratorChunkSource`` of 763 chunks, each a view of one of the full
+    131,072-row chunks of the 12M blob rows (the block of each drawn from
+    ``seed``; the last chunk a 123,136-row prefix), through the estimator's
+    streaming fit function handed a ``StreamInputs``. Every pass's f64
+    truth is ``lloyd_reference`` on the pool rows with their multiplicities
+    as row weights. Held: the seeds equal the pool rows that ``seed``'s
+    ``rng.choice`` names, bit for bit (the gather pass, its offsets and the
+    prefix); a maxIter=0 fit's cost (one cost pass at the seeds) against
+    its truth at K2's band widened for an f32 sum of 763 chunk partials;
+    the fit's cost against an f64 walk's from the same seeds, within that
+    pass band compounded over its passes, and at most the seeds' cost; one
+    K2 launch a chunk of each pass, none of its plain version; peak device
+    memory under STREAM_PEAK_MAX. Returns the K2 launches by path."""
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.core import StreamInputs
+    from spark_rapids_ml_tpu_torch.data.chunks import GeneratorChunkSource
+
+    dev = torch.device("cuda:0")
+    N, CH = STREAM_ROWS, STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    last = N - (n_chunks - 1) * CH
+    n_blocks = X_host.shape[0] // CH
+    check(n_blocks >= 1 and last <= CH, f"north-star KMeans: {X_host.shape[0]} rows make no 131,072-row block")
+    pool_h = X_host[:n_blocks * CH]
+    order = np.random.default_rng(seed + 35).integers(0, n_blocks, size=n_chunks)
+    mult = np.repeat(np.bincount(order[:-1], minlength=n_blocks), CH).astype(np.float32)
+    mult[order[-1] * CH:order[-1] * CH + last] += 1.0
+    check(float(mult.sum(dtype=np.float64)) == N, "north-star KMeans: the multiplicities do not count 100M rows")
+
+    def gen(start, count, _seed):
+        b = order[start // CH]
+        return pool_h[b * CH:b * CH + count], None
+
+    inputs = StreamInputs(source=GeneratorChunkSource(gen, N, E2E_D), device=dev, n_rows=N, n_features=E2E_D,
+                          dtype=torch.float32, chunk_rows=CH)
+    # the seeds the fit must gather: the seed's rng.choice, mapped through
+    # the chunk -> block map
+    idx = np.sort(np.random.default_rng(seed or 0).choice(N, size=STREAM_KM_K, replace=False))
+    C0 = pool_h[order[idx // CH] * CH + idx % CH]
+    t = time.perf_counter()
+    Xp = torch.from_numpy(pool_h).to(dev)
+    md = torch.from_numpy(mult).to(dev)
+    C0d = torch.from_numpy(C0).to(dev)
+    ref = lloyd_reference(torch, kk, Xp, md, C0d, chunk=CH, weighted=True)
+    walk_C, walk_cost = lloyd_walk64(torch, kk, Xp, md, C0d, STREAM_KM_ITER)
+    walk_C = walk_C.cpu().numpy()
+    t_truth = time.perf_counter() - t
+    del Xp, md
+    torch.cuda.empty_cache()
+    check(int(ref["counts"].sum()) == N, "north-star KMeans: the truth does not count 100M rows")
+
+    def streamed_fit(max_iter):
+        est = KMeans(k=STREAM_KM_K, maxIter=max_iter, tol=STREAM_KM_TOL, initMode="random", seed=seed)
+        st.reset_ingest_report()
+        with record_kmeans_fit(kk) as rec:
+            model, t_fit = _timed(torch, lambda: est._create_model(est._get_streaming_fit_func(None)(
+                inputs, dict(est._tpu_params))))
+        model._ingest_report = st.last_ingest_report()
+        return model, t_fit, rec
+
+    # one pass: the maxIter=0 fit's cost at the seeds
+    m0, t0, rec0 = streamed_fit(0)
+    check(np.array_equal(m0.cluster_centers_, C0), "north-star KMeans: the seeds are not the rows the seed names")
+    err0, ratio0 = held(torch, torch.tensor(m0.trainingCost, dtype=torch.float64), ref["cost"], ref["T_cost"], CH,
+                        ref["slack_cost"], terms=TOL_TERMS + n_chunks, walk=TOL_WALK * CH ** 0.5)
+    check_streamed_km(m0, rec0, n_chunks, "north-star KMeans, maxIter=0")
+    emit({"phase": "streamed", "check": "north_star_kmeans_seeds", "rows": N, "k": STREAM_KM_K, "chunks": n_chunks,
+          "last_chunk_rows": last, "pool_blocks": n_blocks, "seeds_equal": True, "cost": m0.trainingCost,
+          "cost_f64": float(ref["cost"]), "cost_abs_err": err0, "cost_err_over_tol": ratio0,
+          "near_tie_rows": ref["near_rows"], "fit_s": t0, "truth_s": t_truth, "passes": m0._ingest_report["passes"],
+          "pass_s": m0._ingest_report["pass_s"], "lloyd_step_launches": rec0["launches"],
+          "fit_report": m0._fit_report})
+    check(ratio0 <= 1.0, f"north-star KMeans: the seeds' cost {m0.trainingCost!r} off its f64 truth "
+                         f"{float(ref['cost'])!r} (err/tol {ratio0:.3g})")
+
+    # the fit
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rss0 = rss_bytes()
+    model, t_fit, rec = streamed_fit(STREAM_KM_ITER)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    rep = model._ingest_report
+    passes = check_streamed_km(model, rec, n_chunks, "north-star KMeans")
+    pass_tol = U32 * ((TOL_TERMS + n_chunks) * float(ref["T_cost"]) + TOL_WALK * CH ** 0.5 * float(ref["cost"])) \
+        + float(ref["slack_cost"])
+    cost_tol = (STREAM_KM_ITER + 1) * pass_tol
+    d_cost = abs(model.trainingCost - walk_cost)
+    dc = np.abs(model.cluster_centers_.astype(np.float64) - walk_C)
+    row = {"phase": "streamed", "check": "north_star_kmeans", "rows": N, "d": E2E_D, "k": STREAM_KM_K,
+           "maxIter": STREAM_KM_ITER, "tol": STREAM_KM_TOL, "chunks": n_chunks, "fit_s": t_fit,
+           "fit_rows_per_s": N / t_fit, "n_iter": model.numIter, "passes": passes, "pass_s": rep["pass_s"],
+           "lloyd_pass_s": rep["pass_s"]["lloyd"] / passes["lloyd"],
+           "pass_gb_per_s": rep["bytes"] / rep["wall_s"] / 1e9, "cost": model.trainingCost,
+           "seed_cost": m0.trainingCost, "walk_cost_f64": walk_cost, "cost_abs_diff": d_cost, "cost_tol": cost_tol,
+           "cost_rel_diff": d_cost / walk_cost, "centre_max_abs_diff_vs_walk": float(dc.max()),
+           "centre_rel_diff_vs_walk": float(dc.max() / np.abs(walk_C).max()),
+           "peak_device_bytes": peak, "peak_max": STREAM_PEAK_MAX, "host_rss_growth_bytes": rss_bytes() - rss0,
+           "lloyd_step_launches": rec["launches"], "plain_calls": rec["plain_calls"],
+           "fit_report": model._fit_report, "ingest": rep}
+    emit(row)
+    check(passes == {"seed_rows": 1, "lloyd": STREAM_KM_ITER, "cost": 1}, f"north-star KMeans: passes {passes}")
+    check(np.isfinite(model.cluster_centers_).all() and d_cost <= cost_tol,
+          f"north-star KMeans: cost {model.trainingCost!r} off the f64 walk's {walk_cost!r} (tol {cost_tol:.4g})")
+    check(model.trainingCost <= m0.trainingCost * (1 + 1e-6),
+          f"north-star KMeans: cost {model.trainingCost!r} above its seeds' {m0.trainingCost!r}")
+    check(peak < STREAM_PEAK_MAX, f"north-star KMeans: peak device memory {peak} >= {STREAM_PEAK_MAX}")
+    return {"north_star_kmeans_seeds": rec0["launches"], "north_star_kmeans": rec["launches"]}
+
+
+def phase_stream_kmeans(torch, X_host, seed, km_resident=None):
+    """The streamed KMeans: (l) K2 at its chunk shapes, (m) streamed vs
+    resident on the 12M rows, (n) the reference's config at 100M. Returns
+    K2's measurements at the chunk shapes and its launches {kernels-line
+    row: {path: n}}."""
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+
+    t = time.perf_counter()
+    meas = phase_stream_k2(torch, kk, X_host, seed)
+    launches, cand_k = phase_stream_kmeans_vs_resident(torch, kk, X_host, seed, km_resident)
+    meas[f"lloyd_step_stream_k{STREAM_KM_CANDS}"]["main_path_k"] = cand_k
+    launches[f"lloyd_step_stream_k{STREAM_KM_K}"] = phase_north_star_kmeans(torch, kk, st, X_host, seed)
+    emit({"phase": "streamed", "check": "kmeans_done", "s": time.perf_counter() - t, "launches": launches})
+    return meas, launches
+
+
+def phase_streamed(torch, X_host, y_host, lin, pca_ref, seed, km_resident=None):
     """The streamed phase: (a) the copy, (c) streamed vs resident fits,
     (d) the north star, (e) the parquet scan, then the streamed
-    LogisticRegression (f-k, ``phase_stream_logreg``). Returns the K1
+    LogisticRegression (f-k, ``phase_stream_logreg``) and the streamed
+    KMeans (l-n, ``phase_stream_kmeans``; ``km_resident``: the e2e phase's
+    k-means|| model and its fit seconds, where it ran). Returns the K1
     launches of its fits, counted alone, K1's measurement at the chunk
-    shape, K3's at its chunk shapes and K3's launches by kernels-line row
-    and path."""
+    shape, K3's and K2's at their chunk shapes and K3's and K2's launches
+    by kernels-line row and path."""
     t = time.perf_counter()
     phase_stream_copy(torch, X_host)
     launches = phase_stream_vs_resident(torch, X_host, lin, pca_ref)
     k, k1 = phase_north_star(torch, seed)
     launches += k + (phase_stream_parquet(torch, X_host) or 0)
     k3, k3_launches = phase_stream_logreg(torch, X_host, y_host, seed)
+    k2, k2_launches = phase_stream_kmeans(torch, X_host, seed, km_resident)
     emit({"phase": "streamed", "check": "done", "s": time.perf_counter() - t, "shifted_gram_launches": launches,
-          "logreg_loss_grad_launches": k3_launches})
-    return launches, k1, k3, k3_launches
+          "logreg_loss_grad_launches": k3_launches, "lloyd_step_launches": k2_launches})
+    return launches, k1, k3, k3_launches, k2, k2_launches
 
 
 def stream_probe(torch, args, dev) -> int:
@@ -4423,9 +4983,9 @@ def stream_probe(torch, args, dev) -> int:
     X_host, y_host = X[:n].cpu().numpy(), y.cpu().numpy()
     del X, y
     torch.cuda.empty_cache()
-    launches, _, _, k3_launches = phase_streamed(torch, X_host, y_host, lin, pca_ref, args.seed)
+    launches, _, _, k3_launches, _, k2_launches = phase_streamed(torch, X_host, y_host, lin, pca_ref, args.seed)
     emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": launches,
-          "logreg_loss_grad_launches": k3_launches})
+          "logreg_loss_grad_launches": k3_launches, "lloyd_step_launches": k2_launches})
     return 0
 
 
@@ -5528,9 +6088,9 @@ def main() -> int:
                     help="a probe: build K1 alone, run its LinearRegression shapes and the three LinearRegression "
                          "paths (prints no result line)")
     ap.add_argument("--stream-only", action="store_true",
-                    help="a probe: build K1 and K3 alone and run only the streamed phase: the copy, streamed vs "
-                         "resident fits, the 100M-row fits, the parquet scan and the streamed LogisticRegression "
-                         "(prints no result line)")
+                    help="a probe: build K1, K3 and K2 alone and run only the streamed phase: the copy, streamed "
+                         "vs resident fits, the 100M-row fits, the parquet scan, the streamed LogisticRegression "
+                         "and the streamed KMeans (prints no result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -5565,7 +6125,8 @@ def main() -> int:
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
-                           else ["shifted_gram", "logreg_loss_grad"] if args.stream_only else _build.SOURCES)
+                           else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if args.stream_only
+                           else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
         name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
@@ -5638,7 +6199,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # each path runs with the launch counters zeroed just before it and
     # read just after: {kernel: {path: launches}}
-    by_path = {key: {"pca_kmeans_logreg": c} for key, c in phase_e2e(torch, X_host, y_host, args.seed).items()}
+    e2e_launches, km_resident = phase_e2e(torch, X_host, y_host, args.seed)
+    by_path = {key: {"pca_kmeans_logreg": c} for key, c in e2e_launches.items()}
     phase_subset(torch, X_host, y_host, args.seed, min(args.subset, n))
     by_path["logreg_loss_grad"]["logreg10_card_vs_cpu"] = phase_logreg10_subset(
         torch, X_host, args.seed, min(args.subset, n))
@@ -5672,10 +6234,11 @@ def main() -> int:
             "the cluster kernel") for reg, hold_coef in ((1e-5, False), (LOGREG_1K_SUBSET_REG, True)))}
     del Xr, yr
     by_path["shifted_gram"].update(linreg_paths(torch, X_host, lin_data, args.subset, args.seed))
-    by_path["shifted_gram"]["streamed"], k1_chunk, k3_stream, k3_launches = phase_streamed(
-        torch, X_host, y_host, lin_data["linreg"], pca_ref, args.seed)
+    by_path["shifted_gram"]["streamed"], k1_chunk, k3_stream, k3_launches, k2_stream, k2_launches = phase_streamed(
+        torch, X_host, y_host, lin_data["linreg"], pca_ref, args.seed, km_resident)
     kern.update(k3_stream)
-    for row, paths in k3_launches.items():
+    kern.update(k2_stream)
+    for row, paths in list(k3_launches.items()) + list(k2_launches.items()):
         by_path.setdefault(row, {}).update(paths)
     del lin_data, pca_ref
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
@@ -5744,6 +6307,20 @@ def main() -> int:
         }
         kernels.append(entry)
     kernels += k10_entries(kern, by_path)
+    # K2 at the streamed KMeans' chunk shapes: the launches of the streamed
+    # fits' Lloyd and cost passes (k = 1,024 on the 12M rows, 1,000 at
+    # 100M) and of the k-means|| candidate-count pass (k ~ 4,097)
+    for name in k2_stream:
+        r = kern[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/lloyd_step.cu",
+            "replaces": sources["lloyd_step"][0], "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "bound_f32_ms": r["bound_f32_ms"], "last_chunk": r["last_chunk"],
+            # the candidate-count row: the counts its main-path launches ran at
+            **{k: r[k] for k in ("main_path_k",) if k in r},
+            "shape": {k: r[k] for k in ("n", "d", "k")}})
     # K3's tile kernel at the wide fit's shape (the launches of the wide
     # paths), and timed beside its autograd call at the general route's
     # three shapes; the route past the tile kernel's cap at the

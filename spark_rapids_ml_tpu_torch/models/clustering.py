@@ -7,16 +7,24 @@ candidate weights, the small weighted k-means++ on the host), then Lloyd
 from a host ``np.random.Generator`` in the JAX package's exact order, so
 with the same seed both packages draw the same numbers. There is no lane
 padding of the features on the GPU (the JAX package pads to 128 on a TPU).
+
+A streamed fit (``streaming=True``, a parquet scan, or a matrix above the
+stream threshold) runs the same seeding over chunked passes and Lloyd as
+one chunked pass an iteration (``ops.streaming.streamed_kmeans_lloyd``),
+K2 on every chunk. Both fits time the seeding by part in the model's
+``_fit_report``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import contextlib
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from ..core import FitFunc, FitInputs, _TpuEstimator, _TpuModel
+from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimator, _TpuModel
 from ..data.dataframe import DataFrame
 from ..ops.kmeans_kernels import count_closest, kmeans_lloyd, min_sq_dists, pairwise_sq_dists
 from ..params import (
@@ -33,6 +41,29 @@ from ..params import (
 from ..utils.platform import resolve_device
 
 _CHUNK = 4096
+
+# key of the fit's provenance in a fit's result (not a model attribute)
+_FIT_REPORT = "_fit_report"
+
+
+class _SeedTimes:
+    """Wall seconds of the seeding's parts by name (``part``), the calls of
+    each, and the k-means|| candidate count. Reads the host clock only: it
+    draws nothing and waits for nothing."""
+
+    def __init__(self) -> None:
+        self.seconds: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self.candidates = 0
+
+    @contextlib.contextmanager
+    def part(self, name: str) -> Iterator[None]:
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t
+            self.calls[name] = self.calls.get(name, 0) + 1
 
 
 class KMeansClass:
@@ -172,19 +203,21 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         return r
 
     @staticmethod
-    def _gather_global(owner: Dict[str, Any], idx: np.ndarray) -> np.ndarray:
-        """Rows for sorted global indices."""
-        idx = np.sort(np.asarray(idx, np.int64))
-        off, nl = owner["offset"], owner["n_local"]
-        mine = idx[(idx >= off) & (idx < off + nl)] - off
-        return owner["assemble"](owner["gather_local"](mine))
+    def _gather_global(owner: Dict[str, Any], idx: np.ndarray, times: _SeedTimes) -> np.ndarray:
+        """Rows for sorted global indices (timed as ``gather``)."""
+        with times.part("gather"):
+            idx = np.sort(np.asarray(idx, np.int64))
+            off, nl = owner["offset"], owner["n_local"]
+            mine = idx[(idx >= off) & (idx < off + nl)] - off
+            return owner["assemble"](owner["gather_local"](mine))
 
     @staticmethod
     def _seed_random(
-        n_rows: int, k: int, rng: np.random.Generator, owner: Dict[str, Any]
+        n_rows: int, k: int, rng: np.random.Generator, owner: Dict[str, Any], times: _SeedTimes
     ) -> np.ndarray:
-        idx = rng.choice(n_rows, size=k, replace=n_rows < k)
-        return KMeans._gather_global(owner, idx)
+        with times.part("draws"):
+            idx = rng.choice(n_rows, size=k, replace=n_rows < k)
+        return KMeans._gather_global(owner, idx, times)
 
     @staticmethod
     def _seed_scalable_kmeanspp(
@@ -194,36 +227,50 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         oversample: float,
         rng: np.random.Generator,
         owner: Dict[str, Any],
+        times: Optional[_SeedTimes] = None,
     ) -> np.ndarray:
         """k-means|| (Bahmani et al.): sample ~l=oversample*k candidates per
         round with prob l*d²/Σd², then reduce candidates to k centres with
-        weighted k-means++ on host (the candidate set is small)."""
+        weighted k-means++ on host (the candidate set is small). ``times`` (a
+        fresh one where None) gets the seconds of the gathers, the min-distance passes
+        (``min_d2``, with their host fold), the host draws and selection
+        (``draws``), the candidate-count pass (``count``) and the weighted
+        k-means++ (``kmeanspp``), and the candidate count."""
+        times = _SeedTimes() if times is None else times
         l = max(int(oversample * k), 1)
         off, nl = owner["offset"], owner["n_local"]
-        first = int(rng.integers(0, n_rows))
-        cands = KMeans._gather_global(owner, np.asarray([first]))
-        local_d2 = np.asarray(owner["min_d2_vs"](cands), np.float64)
+        with times.part("draws"):
+            first = int(rng.integers(0, n_rows))
+        cands = KMeans._gather_global(owner, np.asarray([first]), times)
+        with times.part("min_d2"):
+            local_d2 = np.asarray(owner["min_d2_vs"](cands), np.float64)
         for _ in range(steps):
-            total = float(owner["reduce_sum"](float(local_d2.sum())))
-            if total <= 0:
-                break
-            r = KMeans._rng_slice(rng, n_rows, off, nl)
-            sel = np.nonzero(r < np.minimum(l * local_d2 / total, 1.0))[0]
-            new = owner["assemble"](owner["gather_local"](sel))
+            with times.part("draws"):
+                total = float(owner["reduce_sum"](float(local_d2.sum())))
+                if total <= 0:
+                    break
+                r = KMeans._rng_slice(rng, n_rows, off, nl)
+                sel = np.nonzero(r < np.minimum(l * local_d2 / total, 1.0))[0]
+            with times.part("gather"):
+                new = owner["assemble"](owner["gather_local"](sel))
             if len(new) == 0:
                 continue
             cands = np.concatenate([cands, new], axis=0)
-            local_d2 = np.minimum(
-                local_d2, np.asarray(owner["min_d2_vs"](new), np.float64)
-            )
+            with times.part("min_d2"):
+                local_d2 = np.minimum(
+                    local_d2, np.asarray(owner["min_d2_vs"](new), np.float64)
+                )
+        times.candidates = len(cands)
         if len(cands) < k:
             # not enough candidates — top up with random rows
-            extra = KMeans._seed_random(n_rows, k - len(cands), rng, owner)
+            extra = KMeans._seed_random(n_rows, k - len(cands), rng, owner, times)
             return np.concatenate([cands, extra], axis=0)
         if len(cands) == k:
             return cands
-        weights = np.asarray(owner["count_closest"](cands), np.float64)
-        return _weighted_kmeanspp(cands.astype(np.float64), weights, k, rng)
+        with times.part("count"):
+            weights = np.asarray(owner["count_closest"](cands), np.float64)
+        with times.part("kmeanspp"):
+            return _weighted_kmeanspp(cands.astype(np.float64), weights, k, rng)
 
     def _resident_owner(self, inputs: FitInputs) -> Dict[str, Any]:
         """Owner of all rows: valid rows are the first ``n_rows`` (padding
@@ -256,39 +303,111 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
             "count_closest": count_closest_fn,
         }
 
+    def _stream_owner(self, inputs: StreamInputs) -> Dict[str, Any]:
+        """Owner of all rows of a chunk source on one process: each seeding
+        step is one chunked pass (``ops.streaming``); the host keeps the
+        min distances (8 bytes a row), never the rows. The JAX package's
+        process offset, ragged allgather and cross-process sums are the
+        identity and 0 on one process."""
+        from ..ops.streaming import streamed_count_closest, streamed_min_sq_dists_update, streamed_rows_at
+
+        src, dev, rows, dt = inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype
+        return {
+            "offset": 0,
+            "n_local": int(src.n_rows),
+            "gather_local": lambda idx: streamed_rows_at(src, rows, idx, dt),
+            "assemble": lambda rows_: rows_,
+            "min_d2_vs": lambda cands: streamed_min_sq_dists_update(src, dev, rows, dt, cands),
+            "reduce_sum": lambda x: x,
+            "count_closest": lambda cands: streamed_count_closest(src, dev, rows, dt, cands),
+        }
+
     # ---- fit -------------------------------------------------------------
+    def _fit_centres(
+        self, params: Dict[str, Any], n_rows: int, owner: Dict[str, Any], lloyd: Callable[..., tuple]
+    ) -> Dict[str, Any]:
+        """The fit both paths share: the checks, the seeding over ``owner``,
+        then ``lloyd(centers0, max_iter=, tol=, shifts=)`` -> ``(centers,
+        cost, n_iter)``. The result carries the
+        fit's ``_fit_report``: the init mode, the seeding's seconds
+        (``seed_s``) and its parts' (``seed_parts_s``: gathers, min-distance
+        and candidate-count passes, host draws and selection, weighted
+        k-means++) and calls (``seed_calls``), the candidate count, the
+        Lloyd loop's seconds with its final cost pass (``lloyd_s``), the
+        iterations and each iteration's largest squared centre shift."""
+        k = int(params["n_clusters"])
+        if k > n_rows:
+            raise ValueError(f"k={k} must be <= number of rows {n_rows}")
+        self._check_matmul_dtype(params)
+        rng = np.random.default_rng(int(params.get("random_state") or 0))
+        times = _SeedTimes()
+        init = str(params.get("init"))
+        t0 = time.perf_counter()
+        if init == "random":
+            centers0 = self._seed_random(n_rows, k, rng, owner, times)
+        else:
+            centers0 = self._seed_scalable_kmeanspp(
+                n_rows, k, int(params.get("init_steps", 2)),
+                float(params.get("oversampling_factor", 2.0)), rng, owner, times,
+            )
+        t1 = time.perf_counter()
+        shifts: List[float] = []
+        centers, cost, n_iter = lloyd(
+            centers0, max_iter=int(params["max_iter"]), tol=float(params["tol"]), shifts=shifts
+        )
+        t2 = time.perf_counter()
+        return {
+            "cluster_centers": np.asarray(centers),
+            "training_cost": float(cost),
+            "n_iter": int(n_iter),
+            _FIT_REPORT: {
+                "init": init,
+                "seed_s": t1 - t0,
+                "seed_parts_s": dict(times.seconds),
+                "seed_calls": dict(times.calls),
+                "seed_candidates": times.candidates,
+                "lloyd_s": t2 - t1,
+                "n_iter": int(n_iter),
+                "shifts": shifts,
+            },
+        }
+
     def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
         def _fit(inputs: FitInputs, params: Dict[str, Any]) -> Dict[str, Any]:
-            k = int(params["n_clusters"])
-            if k > inputs.n_rows:
-                raise ValueError(f"k={k} must be <= number of rows {inputs.n_rows}")
-            self._check_matmul_dtype(params)
-            rng = np.random.default_rng(int(params.get("random_state") or 0))
-            owner = self._resident_owner(inputs)
-            if params.get("init") == "random":
-                centers0 = self._seed_random(inputs.n_rows, k, rng, owner)
-            else:
-                centers0 = self._seed_scalable_kmeanspp(
-                    inputs.n_rows, k, int(params.get("init_steps", 2)),
-                    float(params.get("oversampling_factor", 2.0)), rng, owner,
-                )
-            centers, cost, n_iter = kmeans_lloyd(
-                inputs.X,
-                inputs.mask,
-                torch.as_tensor(centers0, dtype=inputs.dtype, device=inputs.device),
-                max_iter=int(params["max_iter"]),
-                tol=float(params["tol"]),
-            )
-            return {
-                "cluster_centers": centers.cpu().numpy(),
-                "training_cost": float(cost),
-                "n_iter": int(n_iter),
-            }
+            def lloyd(centers0: np.ndarray, **kw: Any) -> tuple:
+                C0 = torch.as_tensor(centers0, dtype=inputs.dtype, device=inputs.device)
+                centers, cost, n_iter = kmeans_lloyd(inputs.X, inputs.mask, C0, **kw)
+                return centers.cpu().numpy(), cost, n_iter
+
+            return self._fit_centres(params, inputs.n_rows, self._resident_owner(inputs), lloyd)
+
+        return _fit
+
+    def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
+        """Out-of-core fit: the seeding and every Lloyd iteration are
+        chunked passes (``ops.streaming``); the card holds a few chunks and
+        the k x d state, the host the min distances of k-means|| (8 bytes a
+        row), never the rows. One seed draws the same numbers as the
+        resident fit. No checkpointer: the JAX package's
+        ``FitCheckpointer.from_env("kmeans", ...)`` resume is not ported."""
+        from ..ops.streaming import streamed_kmeans_lloyd
+
+        def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
+            def lloyd(centers0: np.ndarray, **kw: Any) -> tuple:
+                return streamed_kmeans_lloyd(inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
+                                             np.asarray(centers0), **kw)
+
+            return self._fit_centres(params, inputs.n_rows, self._stream_owner(inputs), lloyd)
 
         return _fit
 
     def _create_model(self, result: Dict[str, Any]) -> "KMeansModel":
-        return KMeansModel(**result)
+        report = result.pop(_FIT_REPORT, None)
+        model = KMeansModel(**result)
+        if report is not None:
+            # fit provenance (not persisted): where the fit's time went
+            model._fit_report = report
+        return model
 
 
 class KMeansModel(KMeansClass, _TpuModel, _KMeansParams):

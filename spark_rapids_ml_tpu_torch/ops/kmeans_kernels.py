@@ -221,14 +221,16 @@ def kmeans_lloyd(
     *,
     max_iter: int,
     tol: float,
+    shifts: Optional[list] = None,
 ) -> Tuple[torch.Tensor, float, int]:
     """Lloyd to convergence: ``(centers, cost, n_iters)``.
 
     Runs until ``max_iter`` or until the largest squared centre shift is
-    ``<= tol²``; an empty cluster keeps its centre (Spark behaviour); a
-    final f32 cost pass at the converged centres follows the loop. Each
-    pass over the rows is one launch of kernel K2 (the JAX package's
-    ``_chunk_stats`` at its Pallas branch)."""
+    ``<= tol²`` (each iteration's appended to ``shifts`` where given); an
+    empty cluster keeps its centre (Spark behaviour); a final f32 cost pass
+    at the converged centres follows the loop. Each pass over the rows is
+    one launch of kernel K2 (the JAX package's ``_chunk_stats`` at its
+    Pallas branch)."""
     centers = centers0
     shift = float("inf")
     it = 0
@@ -238,6 +240,8 @@ def kmeans_lloyd(
         safe = torch.clamp(countsf, min=1.0)
         new_centers = torch.where(counts[:, None] > 0, sums / safe[:, None], centers)
         shift = float(((new_centers - centers) ** 2).sum(dim=1).max())
+        if shifts is not None:
+            shifts.append(shift)
         centers = new_centers
         it += 1
     _, _, cost = lloyd_step(X, mask, centers)

@@ -36,6 +36,15 @@ one pass that folds every chunk through kernel K3
 coefficients; the chain rule back to the solver's coordinates is applied
 once a pass, in f64 on the host.
 
+KMeans (:func:`streamed_kmeans_lloyd`): one pass a Lloyd iteration, every
+chunk folded through kernel K2 (``ops.kmeans_kernels.lloyd_step``) into
+``(sums, counts, cost)`` on the card, the centre update on the host in
+f64, and a final cost pass. The k-means|| seeding passes: a host gather of
+rows by global index (:func:`streamed_rows_at`), the min distances to the
+candidates into a host f64 array (:func:`streamed_min_sq_dists_update`,
+the plain distance product) and the candidates' closest-row counts
+(:func:`streamed_count_closest`, K2's counts).
+
 Not ported (ROADMAP): the wire formats and checkpoint/resume, the retry
 budget and chunk halving of ``stage_chunks``, fault sites, preempt points,
 telemetry spans, ops-plane gauges and autotune consults, per-host file
@@ -55,7 +64,8 @@ import numpy as np
 import torch
 
 from ..data.chunks import Chunk, ChunkSource
-from ..parallel.mesh import _torch_dtype, pinned_ring
+from ..parallel.mesh import _np_dtype, _torch_dtype, pinned_ring
+from .kmeans_kernels import lloyd_step, min_sq_dists
 from .lbfgs import minimize_lbfgs_host
 from .linalg import shifted_gram
 from .logreg_kernels import logreg_loss_grad
@@ -243,7 +253,7 @@ def put_chunk(
     a reader on another stream must wait (:func:`iter_device_chunks` does).
     ``_h2d`` is the pair of timing events around the copies, ``_bytes`` the
     host bytes moved."""
-    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    np_dtype = _np_dtype(dtype)
     x_host = np.asarray(chunk.X)
     if not (x_host.dtype.kind == "f" and x_host.dtype.itemsize < np_dtype.itemsize):
         x_host = np.asarray(x_host, dtype=np_dtype)
@@ -338,7 +348,7 @@ def iter_device_chunks(
     in source order, ``dev`` ready to read on the caller's current stream.
     Adds this pass to the ingest report (:func:`last_ingest_report`) under
     ``pass_name``."""
-    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    np_dtype = _np_dtype(dtype)
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
     it = prefetch_chunks(source.iter_chunks(chunk_rows, np_dtype))
     if _STAGE_DEPTH > 0:
@@ -642,7 +652,7 @@ def streamed_logreg_fit(
     (:func:`streamed_logreg_moments`). Returns ``coef_`` (K, d) and
     ``intercept_`` (K,) as f32 numpy, ``n_iter`` and ``objective``."""
     d = source.n_features
-    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    np_dtype = _np_dtype(dtype)
     moments = streamed_logreg_moments(source, device, chunk_rows, dtype, variance=standardization, cache=moments)
     n = moments["n"]
     mean = moments["mean"].double().cpu().numpy()
@@ -682,3 +692,206 @@ def streamed_logreg_fit(
         intercept = intercept - intercept.mean()
     return {"coef_": coef.astype(np_dtype), "intercept_": np.asarray(intercept, np_dtype),
             "n_iter": res.n_iter, "objective": res.f}
+
+
+# ---------------------------------------------------------------------------
+# KMeans: Lloyd passes and the k-means|| seeding passes
+# ---------------------------------------------------------------------------
+
+# elements of one (rows, k) distance block of the min-distance pass: a
+# 131,072-row chunk against ~4k k-means|| candidates would be 2 GB at once
+_MIN_D2_BLOCK = 1 << 25
+# chunks whose min distances may be in flight to the host at once
+_MIN_D2_INFLIGHT = 2 * _SYNC_EVERY
+
+
+def kmeans_chunk_step(
+    acc: Dict[str, torch.Tensor], X: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """Fold one chunk's assignment statistics into ``acc`` (``sums`` in the
+    chunk dtype, ``counts`` int32, ``cost``) in place: kernel K2
+    (``ops.kmeans_kernels.lloyd_step``) on the card, its plain version on
+    the CPU. Counts stay int32: a float count drops +1 increments past 2²⁴
+    rows."""
+    sums, counts, cost = lloyd_step(X, mask, centers)
+    acc["sums"] += sums
+    acc["counts"] += counts
+    acc["cost"] += cost
+    return acc
+
+
+def chunk_min_sq_dists(X: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Per-row min squared distance of a chunk to ``centers`` (padding rows
+    -> 0): the plain ``pairwise_sq_dists`` product, in row blocks of at
+    most ``_MIN_D2_BLOCK`` distances."""
+    rows = max(1, _MIN_D2_BLOCK // max(1, centers.shape[0]))
+    return min_sq_dists(X, mask, centers, csize=rows)
+
+
+def count_closest_chunk_step(counts: torch.Tensor, X: torch.Tensor, mask: torch.Tensor,
+                             cands: torch.Tensor) -> torch.Tensor:
+    """Fold one chunk into the int32 closest-row counts of the k-means||
+    candidates in place: K2's counts at k = the candidate count."""
+    counts += lloyd_step(X, mask, cands)[1]
+    return counts
+
+
+def _on_device(a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=_np_dtype(dtype))).to(device)
+
+
+def streamed_kmeans_lloyd(
+    source: ChunkSource,
+    device: torch.device,
+    chunk_rows: int,
+    dtype: torch.dtype,
+    centers0: np.ndarray,
+    *,
+    max_iter: int,
+    tol: float,
+    shifts: Optional[list] = None,
+) -> Tuple[np.ndarray, float, int]:
+    """Out-of-core Lloyd: one chunked pass an iteration (a ``lloyd`` pass
+    in the ingest report) folds every chunk through K2 into ``(sums,
+    counts, cost)`` on the card, read back once a pass. The update runs on
+    the host in f64, as in the JAX package: ``where(counts > 0, sums /
+    max(counts, 1), centers)`` (an empty cluster keeps its centre, Spark's
+    rule), then the centres return to the card in the chunk dtype. The loop
+    runs while ``it < max_iter`` and the largest squared centre shift of the
+    last iteration is above ``tol²`` (each one appended to ``shifts``
+    where given); a final ``cost`` pass at the last centres follows.
+    Returns ``(centers, cost, n_iter)`` as host values. No checkpointer
+    (the JAX package's ``checkpointer=`` is not ported)."""
+    np_dtype = _np_dtype(dtype)
+    k, d = centers0.shape
+    centers = np.asarray(centers0, np_dtype)
+
+    def one_pass(cts: np.ndarray, name: str) -> Dict[str, torch.Tensor]:
+        cts_d = _on_device(cts, device, dtype)
+        acc = {"sums": torch.zeros((k, d), dtype=dtype, device=device),
+               "counts": torch.zeros((k,), dtype=torch.int32, device=device),
+               "cost": torch.zeros((), dtype=dtype, device=device)}
+        guard = StreamGuard()
+        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                                   need_w=False, pass_name=name)) as chunks:
+            for _, dev in chunks:
+                kmeans_chunk_step(acc, dev["X"], dev["mask"], cts_d)
+                guard.tick(dev)
+            guard.flush()
+        return acc
+
+    it = 0
+    prev_shift = np.inf
+    while it < max_iter and prev_shift > tol * tol:
+        acc = one_pass(centers, "lloyd")
+        sums = acc["sums"].cpu().numpy().astype(np.float64)
+        counts = acc["counts"].cpu().numpy()
+        old = centers.astype(np.float64)
+        safe = np.maximum(counts.astype(np.float64), 1.0)
+        new_centers = np.where(counts[:, None] > 0, sums / safe[:, None], old)
+        prev_shift = float(((new_centers - old) ** 2).sum(axis=1).max())
+        if shifts is not None:
+            shifts.append(prev_shift)
+        centers = new_centers.astype(np_dtype)
+        it += 1
+    final = one_pass(centers, "cost")
+    return centers, float(final["cost"]), it
+
+
+def streamed_rows_at(source: ChunkSource, chunk_rows: int, idx: np.ndarray, dtype) -> np.ndarray:
+    """Rows at global indices ``idx`` in one sequential host pass over
+    ``source.iter_chunks`` (a ``seed_rows`` pass in the ingest report),
+    in sorted index order: the out-of-core replacement for indexing the
+    resident matrix. Stops once the last index is served; raises
+    ``IndexError`` for an index past the end. A chunk's padding rows are
+    never served."""
+    np_dtype = _np_dtype(dtype)
+    idx = np.sort(np.asarray(idx, np.int64))
+    out = np.empty((len(idx), source.n_features), dtype=np_dtype)
+    if len(idx) == 0:
+        return out
+    t = time.perf_counter()
+    pos = 0  # next unserved request
+    offset = 0
+    with contextlib.closing(source.iter_chunks(chunk_rows, np_dtype)) as chunks:
+        for chunk in chunks:
+            hi = offset + chunk.n_valid
+            end = int(np.searchsorted(idx, hi, side="left"))
+            out[pos:end] = chunk.X[idx[pos:end] - offset]
+            pos, offset = end, hi
+            if pos == len(idx):
+                break
+    _report_add(passes={"seed_rows": 1}, pass_s={"seed_rows": time.perf_counter() - t})
+    if pos != len(idx):
+        raise IndexError(f"row index {idx[pos]} out of range ({offset} rows)")
+    return out
+
+
+def streamed_min_sq_dists_update(
+    source: ChunkSource,
+    device: torch.device,
+    chunk_rows: int,
+    dtype: torch.dtype,
+    cands: np.ndarray,
+    min_d2: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """One chunked pass (``seed_min_d2``): each row's min squared distance
+    to ``cands``, folded into the host f64 array ``min_d2`` (one entry a
+    row, ∞ where None: the only per-row state k-means|| keeps; the dataset
+    never materializes). Each chunk's f32 distances reach the host by an
+    asynchronous copy into page-locked memory, folded once the copy is
+    proved done, so the loop does not wait on the card a chunk; f32 to
+    f64 is exact, as in the JAX package."""
+    cands_d = _on_device(cands, device, dtype)
+    out = np.full((source.n_rows,), np.inf, np.float64) if min_d2 is None else min_d2
+    cuda = device.type == "cuda"
+    pinned = [torch.empty((chunk_rows,), dtype=dtype, pin_memory=True) for _ in range(_MIN_D2_INFLIGHT)] \
+        if cuda else []
+    pending: list = []  # (done event or None, host distances, offset, n_valid)
+
+    def fold_oldest() -> None:
+        done, host, lo, nv = pending.pop(0)
+        if done is not None:
+            done.synchronize()
+        np.minimum(out[lo:lo + nv], host[:nv], out=out[lo:lo + nv])
+
+    offset = 0
+    guard = StreamGuard()
+    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                               need_w=False, pass_name="seed_min_d2")) as chunks:
+        for i, (piece, dev) in enumerate(chunks):
+            d2 = chunk_min_sq_dists(dev["X"], dev["mask"], cands_d)
+            if len(pending) == _MIN_D2_INFLIGHT:
+                fold_oldest()
+            if cuda:
+                buf = pinned[i % _MIN_D2_INFLIGHT]
+                buf[: d2.shape[0]].copy_(d2, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+                pending.append((done, buf.numpy(), offset, piece.n_valid))
+            else:
+                pending.append((None, d2.numpy(), offset, piece.n_valid))
+            guard.tick(dev)
+            offset += piece.n_valid
+        guard.flush()
+    while pending:
+        fold_oldest()
+    return out
+
+
+def streamed_count_closest(
+    source: ChunkSource, device: torch.device, chunk_rows: int, dtype: torch.dtype, cands: np.ndarray
+) -> np.ndarray:
+    """One chunked pass (``seed_count``): how many rows are closest to each
+    candidate (the k-means|| candidate weights), K2's counts a chunk in
+    int32 on the card; returned as f64 on the host."""
+    cands_d = _on_device(cands, device, dtype)
+    counts = torch.zeros((cands.shape[0],), dtype=torch.int32, device=device)
+    guard = StreamGuard()
+    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                               need_w=False, pass_name="seed_count")) as chunks:
+        for _, dev in chunks:
+            count_closest_chunk_step(counts, dev["X"], dev["mask"], cands_d)
+            guard.tick(dev)
+        guard.flush()
+    return counts.cpu().numpy().astype(np.float64)

@@ -191,3 +191,7 @@ def global_label_summary(y_local: np.ndarray) -> Dict[str, Any]:
 
 def _torch_dtype(dtype: Any) -> torch.dtype:
     return torch.from_numpy(np.zeros((0,), dtype=dtype)).dtype
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return np.dtype(str(dtype).replace("torch.", ""))

@@ -27,6 +27,7 @@ import torch
 import jax.numpy as jnp
 
 from spark_rapids_ml_tpu.classification import LogisticRegression as JLogReg
+from spark_rapids_ml_tpu.clustering import KMeans as JKMeans
 from spark_rapids_ml_tpu.data import DataFrame as JDataFrame
 from spark_rapids_ml_tpu.data import chunks as jchunks
 from spark_rapids_ml_tpu.feature import PCA as JPCA
@@ -36,6 +37,7 @@ from spark_rapids_ml_tpu.regression import LinearRegression as JLinReg
 from spark_rapids_ml_tpu_torch import DataFrame as TDataFrame
 from spark_rapids_ml_tpu_torch import core
 from spark_rapids_ml_tpu_torch.classification import LogisticRegression as TLogReg
+from spark_rapids_ml_tpu_torch.clustering import KMeans as TKMeans
 from spark_rapids_ml_tpu_torch.data import chunks as tchunks
 from spark_rapids_ml_tpu_torch.feature import PCA as TPCA
 from spark_rapids_ml_tpu_torch.ops import streaming as st
@@ -371,7 +373,7 @@ def test_should_stream_matches_jax(monkeypatch, tmp_path, threshold):
     for cols, scan_path in frames:
         for streaming in (None, True, False):
             for T, J, kw in ((TPCA, JPCA, {"k": 2}), (TLinReg, JLinReg, {}),
-                             (TLogReg, JLogReg, {"enable_sparse_data_optim": True})):
+                             (TLogReg, JLogReg, {"enable_sparse_data_optim": True}), (TKMeans, JKMeans, {"k": 2})):
                 t_df = TDataFrame.scan_parquet(scan_path) if scan_path else TDataFrame(cols)
                 j_df = JDataFrame.scan_parquet(scan_path) if scan_path else JDataFrame(cols)
                 t = T(device="cpu", streaming=streaming, **kw)
