@@ -164,7 +164,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and transform of 70,000 x 784 (MNIST's shape, 10 Gaussian blobs made on
    the card), held likewise, and its first 10,000 rows fitted on the card
    and on the CPU (random init); each UMAP path must launch K10 once an
-   epoch;
+   epoch; ann: ApproximateNearestNeighbors(k=16) at the default algoParams
+   on bench.py's ANN workload (131,072 x 256 items from 64 blobs, its
+   first 65,536 rows the queries): the IVF engine at nlist 362 and nprobe
+   46, K2 launched by the index build (and first held and timed at the
+   quantizer's shape, 131,072 x 256 at k = 362), no K4, recall@16 at least
+   0.95 against K4's exact answer on 4,096 queries, the scan at nprobe =
+   nlist on 1,024 equal to an f64 exact answer up to near ties, the bytes
+   the scan's tiles gathered per search second, one query chunk's scan
+   timed whole and by its gathers and bmms, and 65,536 items (below the
+   gate) answered by the exact search, equal to NearestNeighbors bit for
+   bit; umap_ivf: UMAP(n_neighbors=15, random_state=42) fit of 131,072
+   rows of the umap path's blobs, where the default graph engine is IVF,
+   and transform of their first 32,768: K2 in both index builds, no K4,
+   K10 200 fit epochs, the fit's graph at recall@15 of at least 0.95
+   against K4's exact graph on 4,096 rows, trustworthiness held as on the
+   umap path; then K10 held and timed on the rows the path gave it (the
+   fit's CSR rows of its IVF graph, the transform's 32,768 x 15 into the
+   frozen table), each shape a kernels-line row with its launches;
    RandomForestClassifier(numTrees=50, maxDepth=13, maxBins=128) fit,
    transform, save/load and transform on the first 131,072 rows (bench.py's
    rf config), RandomForestRegressor(numTrees=8) on the same rows with a
@@ -302,6 +319,13 @@ the shape. It prints no result line and exits 1 if a check failed.
 is a probe of K10: its checks at its four shapes, then the two UMAP paths
 with their card-vs-CPU fits; ``--sweep`` first times its STEP epilogue with
 parts of its work knocked out. It prints no result line and exits 1 if a
+check failed.
+
+    python3 chip_smoke.py --ann-only
+
+is a probe of the IVF slice: K2, K4 and K10 alone built, K2 at the
+quantizer's shape, then the ann and umap_ivf paths, then K10 at the
+umap_ivf path's two shapes. It prints no result line and exits 1 if a
 check failed.
 
     python3 chip_smoke.py --traverse-only
@@ -5972,17 +5996,25 @@ def umap_paths(torch, X_umap, X_cluster, seed) -> dict:
 
 def k10_entries(kern, by_path) -> list:
     """The ``kernels``-line entries of K10: its STEP epilogue's instance
-    for C = 2 at the fit shape (the launches of the umap path), its
+    for C = 2 at the umap fit shape (the umap path's launches), its
     generic instance at the umap_cluster shape (C = 10: that path's
-    launches) and its ROWS epilogue at the fit shape (no path launches it).
-    The transform shape's numbers are in ``extra_shapes``."""
-    rows = [("umap_sgd_epoch", "sgd_epoch", "", "umap"), ("umap_sgd_epoch_generic", "sgd_epoch_cluster", "",
-                                                         "umap_cluster"),
-            ("umap_sgd_epoch_rows", "sgd_epoch", "rows_", None)]
+    launches), the C = 2 instance at the umap_ivf fit's and transform's
+    own shapes (that path's launches at each) and its ROWS epilogue at the
+    umap fit shape (no path launches it). The umap and umap_cluster
+    transform shapes' numbers are in ``extra_shapes``."""
+    step = by_path["sgd_epoch_step"]
+    ivf_fit, ivf_tr = kern["sgd_epoch_umap_ivf"], kern["sgd_epoch_umap_ivf_transform"]
+    rows = [("umap_sgd_epoch", "sgd_epoch", "", {p: step[p] for p in ("umap",) if p in step}),
+            ("umap_sgd_epoch_generic", "sgd_epoch_cluster", "", {p: step[p] for p in ("umap_cluster",) if p in step}),
+            ("umap_sgd_epoch_ivf", "sgd_epoch_umap_ivf", "", {"umap_ivf": ivf_fit["launches"]}),
+            ("umap_sgd_epoch_ivf_transform", "sgd_epoch_umap_ivf_transform", "", {"umap_ivf": ivf_tr["launches"]}),
+            ("umap_sgd_epoch_rows", "sgd_epoch", "rows_", {})]
+    check(ivf_fit["launches"] + ivf_tr["launches"] == step.get("umap_ivf"),
+          f"K10's umap_ivf launches at its two shapes {ivf_fit['launches']} + {ivf_tr['launches']}, of the path "
+          f"{step.get('umap_ivf')}")
     out = []
-    for name, key, pre, path in rows:
+    for name, key, pre, paths in rows:
         r = kern[key]
-        paths = {path: by_path["sgd_epoch_step"][path]} if path else {}
         out.append({
             "name": name, "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/umap_sgd_epoch.cu",
             "replaces": "spark_rapids_ml_tpu/ops/umap_pallas.py:277", "epilogue": "ROWS" if pre else "STEP",
@@ -5991,6 +6023,350 @@ def k10_entries(kern, by_path) -> list:
             "bound_ms": r[pre + "bound_ms"], "bound_by": r[pre + "bound_by"], "library_ms": r[pre + "library_ms"],
             "shape": {k: r[k] for k in ("R", "K", "C", "neg", "n_tab", "n_head", "rows_live", "active_slots")}})
     return out
+
+
+# the ANN workload of bench.py (bench.py:1205-1252): 131,072 x 256 items
+# from 64 blobs (centre scale 4, unit noise), its first 65,536 rows the
+# queries, k = 16; at 131,072 items the default index has nlist = 362 and
+# nprobe = 46, and the ANN gate (131,072 items) routes it to the IVF engine
+ANN_ROWS = 131_072
+ANN_QUERIES = 65_536
+ANN_K = 16
+ANN_BLOBS = 64
+ANN_NLIST, ANN_NPROBE = 362, 46
+# recall@k against K4's exact answer on this many queries, and its floor
+# (the JAX package's target, tests/test_ann.py:57)
+ANN_RECALL_QUERIES = 4096
+ANN_RECALL_MIN = 0.95
+# queries of the scan at nprobe = nlist (362 probes a query chunk)
+ANN_FULL_PROBE_QUERIES = 1024
+# the negative control: this many items lie below the gate and must be
+# answered by the exact search
+ANN_CONTROL_ROWS = 65_536
+# the umap_ivf path: UMAP(n_neighbors=15) on 131,072 rows of the umap
+# path's 32 blobs, where the default graph engine is IVF
+UMAP_IVF_ROWS = 131_072
+UMAP_IVF_EPOCHS = 200  # the default epochs from 10,000 rows
+# rows its transform embeds, its first quarter: a transform of all 131,072
+# rows repeats the fit graph's probe scan (11.4 s on an H100 80GB HBM3 at
+# 700 W) and would take the two IVF paths past 40 s
+UMAP_IVF_TRANSFORM_ROWS = 32_768
+
+
+def make_ann_data(seed: int) -> np.ndarray:
+    """(131,072, 256) f32 host rows: 64 Gaussian blobs (centre scale 4,
+    unit noise), the recipe of ``bench.py``'s ANN entry (its seed 11 at
+    ``--seed 0``)."""
+    rng = np.random.default_rng(seed + 11)
+    centers = rng.normal(size=(ANN_BLOBS, E2E_D)).astype(np.float32) * 4.0
+    lab = rng.integers(0, ANN_BLOBS, size=ANN_ROWS)
+    return (centers[lab] + rng.normal(size=(ANN_ROWS, E2E_D))).astype(np.float32)
+
+
+def ivf_counters(zero=False) -> dict:
+    """The launch counts of the kernels the IVF paths may run: K2 (the
+    coarse quantizer), K4 (the exact search) and K10 (UMAP's epochs, both
+    epilogues); ``zero`` sets them to 0 first."""
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    fns = {"lloyd_step": kk.lloyd_step, "knn_topk": kn.knn_topk_pass, "sgd_epoch_step": uk.sgd_epoch_step,
+           "sgd_epoch_rows": uk.sgd_epoch_rows}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def phase_ivf_quantizer_k2(torch, X_host, seed):
+    """K2 at the IVF coarse quantizer's shape: the build's Lloyd runs on
+    all 131,072 x 256 items (fewer than its 2^18-row sample) against nlist
+    = 362 centres, here 362 items drawn from ``seed``; held with its
+    controls and timed as a median device time beside its plain version
+    and one matmul + argmin + ``index_add_``, with its bound."""
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+
+    dev = torch.device("cuda:0")
+    X = torch.from_numpy(X_host).to(dev)
+    pick = np.random.default_rng(seed + 12).choice(X.shape[0], ANN_NLIST, replace=False)
+    C = X[torch.from_numpy(pick).to(dev)].contiguous()
+    r = check_lloyd_step(torch, kk, X, torch.ones(X.shape[0], device=dev), C, STREAM_K2_REPS, control=True,
+                         timer=median_device_ms)
+    emit({"phase": "kernels", "kernel": "lloyd_step", "shape": "lloyd_step_ivf_quantizer",
+          **{key: v for key, v in r.items() if key != "controls"},
+          "controls": [(c["control"], c["err_over_tol"]) for c in r["controls"]]})
+    del X, C
+    torch.cuda.empty_cache()
+    return r
+
+
+def set_recall(torch, got, want) -> float:
+    """Mean over rows of |got ∩ want| / k for (rows, k) id tensors."""
+    return float((got[:, :, None] == want[:, None, :]).any(dim=2).float().mean())
+
+
+def scan_split(torch, ik, xq, index, k, nprobe, reps=3) -> dict:
+    """Device ms (``cuda_ms``) of one query chunk's probe scan (``xq``:
+    its qc rows): whole (``ivf_search``), its ``nprobe`` window gathers
+    alone and its ``nprobe`` ``bmm`` alone; the rest is the coarse step,
+    the clamps and the selections. With the gather's rate (each (qc, cap,
+    d) tile read once and written once) and the ``bmm``'s (each tile read
+    once)."""
+    cap, d = index.cap, xq.shape[1]
+    gx3 = index.grouped_x.view(-1, cap, d)
+    cents = index.centroids
+    probes = ik._stable_smallest(ik.pairwise_sq_dists(xq, cents, (cents * cents).sum(dim=1)), nprobe)
+    xi = gx3[probes[:, 0]]
+
+    def gathers():
+        for j in range(nprobe):
+            gx3[probes[:, j]]
+
+    def bmms():
+        for _ in range(nprobe):
+            torch.bmm(xi, xq[:, :, None])
+
+    whole = cuda_ms(torch, lambda: ik.ivf_search(xq, index, k=k, nprobe=nprobe), reps)
+    gather, bmm = cuda_ms(torch, gathers, reps), cuda_ms(torch, bmms, reps)
+    tiles = float(xq.shape[0]) * cap * d * 4 * nprobe
+    return {"qc": xq.shape[0], "steps": nprobe, "whole_ms": whole, "gather_ms": gather, "bmm_ms": bmm,
+            "rest_ms": whole - gather - bmm, "gather_tb_per_s": 2 * tiles / gather * 1e-9,
+            "bmm_tb_per_s": tiles / bmm * 1e-9}
+
+
+def phase_ann(torch, X_host):
+    """ApproximateNearestNeighbors(k=16) at the default algoParams on the
+    ANN workload, through DataFrame (the IVF engine: K2 in the build, the
+    plain probe scan), with the launch counters zeroed just before
+    ``kneighbors`` and read just after; then, outside the counted run:
+    recall@16 against K4's exact answer on the first 4,096 queries (at
+    least ANN_RECALL_MIN), the scan at nprobe = nlist on the first 1,024
+    (the exact neighbours, held against an f64 reference up to near ties
+    at the k-th distance), the bytes the scan's (qc, cap, d) tiles gathered
+    per search second, one query chunk's scan split (``scan_split``), and
+    the negative control: 65,536 items (below the
+    gate) answered by the exact search, equal to NearestNeighbors bit for
+    bit. Returns ``{path: {kernel: launches}}``."""
+    from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors, DataFrame, NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import ivf_kernels as ik
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+
+    dev = torch.device("cuda:0")
+    nq, k, nr = ANN_QUERIES, ANN_K, ANN_RECALL_QUERIES
+    item_df = DataFrame({"features": X_host})
+    query_df = DataFrame({"features": X_host[:nq]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    ivf_counters(zero=True)
+    model = ApproximateNearestNeighbors(k=k).fit(item_df)
+    (_, _, knn_df), t = _timed(torch, lambda: model.kneighbors(query_df))
+    launches = ivf_counters()
+    peak = torch.cuda.max_memory_allocated()
+    rep = model._ann_report
+    check(rep["engine"] == "ivf" and (rep["nlist"], rep["nprobe"]) == (ANN_NLIST, ANN_NPROBE),
+          f"ann: the engine report {rep}, not ivf at nlist {ANN_NLIST}, nprobe {ANN_NPROBE}")
+    check(launches["lloyd_step"] > 0, f"ann: kernel lloyd_step was not launched by the index build: {launches}")
+    check(launches["knn_topk"] == 0, f"ann: the IVF search launched the exact kernel: {launches}")
+    idx = np.asarray(knn_df.column("indices"))
+    dist = np.asarray(knn_df.column("distances"))
+    check(idx.shape == (nq, k) and np.isfinite(dist).all() and (idx >= 0).all(), "ann: kneighbors shape, ids, finiteness")
+    check(bool((np.diff(dist, axis=1) >= 0).all()), "ann: kneighbors distances not ascending")
+
+    # the scan's gathered tiles: every query reads nprobe windows of cap rows
+    index = next(iter(model._ivf_index_cache.values()))
+    qc = ik._search_qchunk(index.cap, E2E_D)
+    gathered = float(nq) * ANN_NPROBE * index.cap * E2E_D * 4
+    Xq = torch.from_numpy(X_host[:nq]).to(dev)
+
+    # recall@k against K4's exact answer (counted launches already read)
+    Xi = torch.from_numpy(X_host).to(dev)
+    ones, ar = torch.ones(Xi.shape[0], device=dev), torch.arange(Xi.shape[0], dtype=torch.int32, device=dev)
+    _, exact = kn.knn_search(Xq[:nr], Xi, ones, ar, k)
+    recall = set_recall(torch, torch.from_numpy(idx[:nr]).to(dev), exact)
+    check(recall >= ANN_RECALL_MIN, f"ann: recall@{k} {recall} below {ANN_RECALL_MIN}")
+    # every list scanned: the exact neighbours
+    nf = min(ANN_FULL_PROBE_QUERIES, nr)
+    (fd2, fids), t_full = _timed(torch, lambda: ik.ivf_search(Xq[:nf], index, k=k, nprobe=index.nlist))
+    recall_full = set_recall(torch, fids, exact[:nf])
+    ref_d2, ref_ids, tau = knn_reference(torch, kn, Xq[:nf], Xi, (Xi * Xi).sum(dim=1), ar, k)
+    err, ratio, differ, near, outside = knn_held(torch, fd2, fids, ref_d2, ref_ids, tau)
+    check(ratio <= 1.0 and outside == 0,
+          f"ann: nprobe = nlist off the f64 exact answer: err/tau {ratio}, {outside} rows differ past a near tie")
+    del Xi, exact, fd2, fids, ref_d2, ref_ids, tau
+    split = scan_split(torch, ik, Xq[:qc], index, k, ANN_NPROBE)
+
+    # the negative control: below the gate the exact search answers
+    ctrl_items = DataFrame({"features": X_host[:ANN_CONTROL_ROWS]})
+    ctrl_q = DataFrame({"features": X_host[:nr]})
+    ivf_counters(zero=True)
+    ann_c = ApproximateNearestNeighbors(k=k).fit(ctrl_items)
+    (_, _, ck), t_ctrl = _timed(torch, lambda: ann_c.kneighbors(ctrl_q))
+    ctrl_launches = ivf_counters()
+    _, _, nk = NearestNeighbors(k=k).fit(ctrl_items).kneighbors(ctrl_q)
+    same = all(np.array_equal(np.asarray(ck.column(c)), np.asarray(nk.column(c))) for c in ("indices", "distances"))
+    check(ann_c._ann_report["engine"] == "exact" and ctrl_launches["lloyd_step"] == 0
+          and ctrl_launches["knn_topk"] > 0 and same,
+          f"ann: {ANN_CONTROL_ROWS} items: {ann_c._ann_report}, launches {ctrl_launches}, equal to "
+          f"NearestNeighbors {same}")
+    emit({"phase": "e2e", "estimator": "ApproximateNearestNeighbors", "path": "ann", "k": k, "items": ANN_ROWS,
+          "queries": nq, "kneighbors_s": t, "queries_per_s": nq / t, **rep, "cap": index.cap,
+          "lens_max": int(index.lens.max()), "lens_min": int(index.lens.min()),
+          "hard_capacity": ik.hard_capacity(ANN_ROWS, ANN_NLIST), "qchunk": qc,
+          "scan_steps": -(-nq // qc) * ANN_NPROBE, "gathered_bytes": gathered,
+          "gathered_gb_per_search_s": gathered / rep["search_seconds"] * 1e-9, "scan_split": split,
+          "peak_device_bytes": peak,
+          "device_bytes_before": mem0, "recall": recall, "recall_queries": nr, "recall_min": ANN_RECALL_MIN,
+          "nprobe_nlist_queries": nf, "nprobe_nlist_s": t_full, "recall_nprobe_nlist": recall_full,
+          "nprobe_nlist_err_over_tau": ratio, "nprobe_nlist_rows_differ": differ, "nprobe_nlist_near_ties": near,
+          "launches": launches, "control_items": ANN_CONTROL_ROWS, "control_engine": ann_c._ann_report["engine"],
+          "control_s": t_ctrl, "control_launches": ctrl_launches, "control_equal_to_exact": same})
+    return {"ann": launches, "ann_exact_control": ctrl_launches}
+
+
+def phase_umap_ivf(torch, seed):
+    """UMAP(n_neighbors=15, random_state=42) fit of 131,072 rows of the
+    umap path's blobs, where the default graph engine is IVF, and transform
+    of their first 32,768:
+    K2 in each index build (the fit's, then the transform's over the frozen
+    rows), no K4, K10 once an epoch (200 fit epochs and the refine
+    epochs). The fit's kNN graph (recorded as the fit hands it to
+    ``drop_self_column``) holds recall@15 against K4's exact graph on 4,096
+    rows (at least ANN_RECALL_MIN), and the embeddings hold trustworthiness
+    as the umap path does. Returns ``({kernel: launches}`` of the fit and
+    transform, ``{"fit" | "transform": K10's inputs})``: the inputs each
+    ``umap_sgd`` call of the path got (recorded as the model hands them
+    over) and the launches it made, for ``phase_umap_ivf_sgd``."""
+    from spark_rapids_ml_tpu_torch import DataFrame, UMAP
+    from spark_rapids_ml_tpu_torch.models import umap as mumap
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+
+    dev = torch.device("cuda:0")
+    k = UMAP_NEIGHBORS
+    X = make_umap_data(UMAP_IVF_ROWS, seed)
+    n = X.shape[0]
+    df = DataFrame({"features": X})
+    graphs, sgd_calls = [], []
+    real, real_sgd = mumap.drop_self_column, mumap.umap_sgd
+
+    def recording(dists, idx, *, k):
+        out = real(dists, idx, k=k)
+        graphs.append(out[1])
+        return out
+
+    def recording_sgd(emb, table, row_heads, tails, p, generator, **kw):
+        sgd_calls.append({"n_tab": table.shape[0], "n_head": emb.shape[0], "C": emb.shape[1], "row_heads": row_heads,
+                          "tails": tails, "p": p, "a": kw["a"], "b": kw["b"], "neg": kw["negative_sample_rate"],
+                          "self_table": kw["self_table"]})
+        return real_sgd(emb, table, row_heads, tails, p, generator, **kw)
+
+    mumap.drop_self_column, mumap.umap_sgd = recording, recording_sgd
+    nt = UMAP_IVF_TRANSFORM_ROWS
+    try:
+        ivf_counters(zero=True)
+        model, t_fit = _timed(torch, lambda: UMAP(n_neighbors=k, random_state=42).fit(df))
+        fit_launches = ivf_counters()
+        out, t_tr = _timed(torch, lambda: model.transform(DataFrame({"features": X[:nt]})))
+        launches = ivf_counters()
+    finally:
+        mumap.drop_self_column, mumap.umap_sgd = real, real_sgd
+    rep = model._fit_report
+    check(rep["graph_engine"] == "ivf" and (rep["ann_nlist"], rep["ann_nprobe"]) == (ANN_NLIST, ANN_NPROBE),
+          f"umap_ivf: the fit's graph engine {rep}")
+    refine = model._transform_report["refine_epochs"]
+    check(model._transform_report["graph_engine"] == "ivf", f"umap_ivf: transform report {model._transform_report}")
+    check(fit_launches["lloyd_step"] > 0 and launches["lloyd_step"] > fit_launches["lloyd_step"]
+          and launches["knn_topk"] == 0, f"umap_ivf: K2 / K4 launches {fit_launches}, with the transform {launches}")
+    check(fit_launches["sgd_epoch_step"] == rep["n_epochs"] == UMAP_IVF_EPOCHS
+          and launches["sgd_epoch_step"] - fit_launches["sgd_epoch_step"] == refine and launches["sgd_epoch_rows"] == 0,
+          f"umap_ivf: K10 launches {fit_launches} (fit, {rep['n_epochs']} epochs), {launches} (refine {refine})")
+    emb, emb_t = model.embedding_, np.asarray(out.column("embedding"))
+    check(emb.shape == (n, 2) and np.isfinite(emb).all() and emb_t.shape == (nt, 2) and np.isfinite(emb_t).all(),
+          "umap_ivf: embedding shape or finiteness")
+    trust_fit, trust_tr = _trust_sample(torch, X, emb, seed), _trust_sample(torch, X[:nt], emb_t, seed)
+    check(trust_fit > TRUST_MIN and trust_tr > TRUST_MIN,
+          f"umap_ivf: trustworthiness fit {trust_fit}, transform {trust_tr} not above {TRUST_MIN}")
+    # the fit's graph against K4's exact graph (self dropped) on 4,096 rows
+    Xd = torch.from_numpy(X).to(dev)
+    rows = query_sample(torch, n, dev)
+    _, ie = kn.knn_search(Xd[rows], Xd, torch.ones(n, device=dev), torch.arange(n, dtype=torch.int32, device=dev),
+                          k + 1)
+    self_mask = ie == rows[:, None].to(ie.dtype)
+    drop = torch.where(self_mask.any(dim=1), self_mask.to(torch.int32).argmax(dim=1), k)
+    cols = torch.arange(k, device=dev)[None, :]
+    exact = ie.gather(1, cols + (cols >= drop[:, None]).long())
+    recall = set_recall(torch, graphs[0][rows], exact)
+    check(recall >= ANN_RECALL_MIN, f"umap_ivf: graph recall@{k} {recall} below {ANN_RECALL_MIN}")
+    del Xd, ie, exact
+    emit({"phase": "e2e", "estimator": "UMAP", "path": "umap_ivf", "n_neighbors": k, "rows": n, "fit_s": t_fit,
+          "transform_rows": nt, "transform_s": t_tr, "graph_s": rep["graph_seconds"], "init_s": rep["init_seconds"],
+          "sgd_s": rep["sgd_seconds"], "epoch_ms": rep["epoch_ms"], "n_epochs": rep["n_epochs"],
+          "graph_engine": rep["graph_engine"], "ann_nlist": rep["ann_nlist"], "ann_nprobe": rep["ann_nprobe"],
+          "transform_graph_engine": model._transform_report["graph_engine"], "refine_epochs": refine,
+          "graph_recall": recall, "recall_rows": int(rows.numel()), "recall_min": ANN_RECALL_MIN,
+          "trustworthiness_fit": trust_fit, "trustworthiness_transform": trust_tr, "trust_min": TRUST_MIN,
+          "fit_launches": fit_launches, "launches": launches})
+    check(len(sgd_calls) == 2 and sgd_calls[0]["self_table"] and not sgd_calls[1]["self_table"],
+          f"umap_ivf: {len(sgd_calls)} umap_sgd calls, not the fit's and the transform's")
+    sgd_calls[0]["launches"] = fit_launches["sgd_epoch_step"]
+    sgd_calls[1]["launches"] = launches["sgd_epoch_step"] - fit_launches["sgd_epoch_step"]
+    return launches, {"fit": sgd_calls[0], "transform": sgd_calls[1]}
+
+
+def phase_umap_ivf_sgd(torch, calls, reps, seed) -> dict:
+    """K10 at the umap_ivf path's two shapes, on the rows the path gave it
+    (``calls``, from ``phase_umap_ivf``): the fit's CSR rows of the
+    131,072-row IVF graph (K = 24, C = 2, neg = 5, the self table) and the
+    transform's 32,768 rows of K = 15 neighbours into the frozen 131,072 x
+    2 table, each on a random table, held with its controls and timed
+    beside its plain version, with its bound. Returns ``{key: result}``,
+    each with the launches the path made at its shape."""
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 107)
+    res = {}
+    for key, shape, salt in (("sgd_epoch_umap_ivf", "fit", 107), ("sgd_epoch_umap_ivf_transform", "transform", 108)):
+        c = calls[shape]
+        src = torch.rand((c["n_tab"], c["C"]), generator=g, device=dev) * 20.0 - 10.0
+        emb = src if c["self_table"] else torch.rand((c["n_head"], c["C"]), generator=g, device=dev) * 20.0 - 10.0
+        R, K = c["tails"].shape
+        u = torch.rand((R, K), generator=g, device=dev)
+        perm = torch.randperm(c["n_tab"], generator=g, device=dev, dtype=torch.int32)
+        offs = torch.randint(0, R, (c["neg"],), generator=g, device=dev, dtype=torch.int32)
+        res[key] = {**check_sgd_epoch(torch, uk, "umap_ivf_" + shape, src, emb, c["row_heads"], c["tails"], c["p"],
+                                      perm, offs, u, c["a"], c["b"], reps, 2.0 if c["self_table"] else 1.0,
+                                      seed + salt), "launches": c["launches"]}
+        emit({"phase": "kernels", "kernel": "umap_sgd_epoch", **res[key]})
+    torch.cuda.synchronize()
+    return res
+
+
+def ivf_paths(torch, X_ann, seed):
+    """The ann and umap_ivf paths, each with the launch counters zeroed
+    just before it and read just after: ``({path: {kernel: launches}},
+    K10's inputs on the umap_ivf path)``."""
+    out = phase_ann(torch, X_ann)
+    out["umap_ivf"], k10_calls = phase_umap_ivf(torch, seed)
+    return out, k10_calls
+
+
+def ann_probe(torch, args, dev) -> int:
+    """``--ann-only``: K2 at the quantizer's shape, then the ann and
+    umap_ivf paths, then K10 at the umap_ivf path's shapes. Exits 1 if a
+    check failed."""
+    X_ann = make_ann_data(args.seed)
+    r = phase_ivf_quantizer_k2(torch, X_ann, args.seed)
+    t = time.perf_counter()
+    launches, k10_calls = ivf_paths(torch, X_ann, args.seed)
+    paths_s = time.perf_counter() - t
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "err_over_tol")
+    k10 = phase_umap_ivf_sgd(torch, k10_calls, args.reps, args.seed)
+    emit({"probe": "ann", "paths_s": paths_s, "launches_by_path": launches, "k2": {m: r[m] for m in keys},
+          "k10": {name: {m: v[m] for m in keys + ("launches",)} for name, v in k10.items()}})
+    return 0
 
 
 def umap_probe(torch, args, dev) -> int:
@@ -6091,6 +6467,9 @@ def main() -> int:
                     help="a probe: build K1, K3 and K2 alone and run only the streamed phase: the copy, streamed "
                          "vs resident fits, the 100M-row fits, the parquet scan, the streamed LogisticRegression "
                          "and the streamed KMeans (prints no result line)")
+    ap.add_argument("--ann-only", action="store_true",
+                    help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
+                         "and umap_ivf paths (prints no result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -6123,6 +6502,7 @@ def main() -> int:
                            else ["lloyd_step"] if args.kmeans_only else ["rf_hist"] if args.hist_only
                            else ["logreg_loss_grad"] if args.logreg_only
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
+                           else ["lloyd_step", "knn_topk", "umap_sgd_epoch"] if args.ann_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
                            else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if args.stream_only
@@ -6149,6 +6529,8 @@ def main() -> int:
         return logreg_probe(torch, args, dev)
     if args.umap_only:
         return umap_probe(torch, args, dev)
+    if args.ann_only:
+        return ann_probe(torch, args, dev)
     if args.traverse_only:
         return traverse_probe(torch, args, dev)
     if args.linreg_only:
@@ -6245,6 +6627,20 @@ def main() -> int:
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
             by_path.setdefault(key, {})[path] = count
+    # the IVF paths: K2 at the quantizer's shape has a row of its own
+    X_ann = make_ann_data(args.seed)
+    kern["lloyd_step_ivf_quantizer"] = phase_ivf_quantizer_k2(torch, X_ann, args.seed)
+    t_ivf = time.perf_counter()
+    ivf_launches, k10_calls = ivf_paths(torch, X_ann, args.seed)
+    ivf_paths_s = time.perf_counter() - t_ivf
+    # K10 at the umap_ivf path's own shapes, on the rows it gave K10
+    kern.update(phase_umap_ivf_sgd(torch, k10_calls, args.reps, args.seed))
+    del k10_calls
+    for path, launches in ivf_launches.items():
+        for key, count in launches.items():
+            if count:
+                by_path.setdefault("lloyd_step_ivf_quantizer" if key == "lloyd_step" else key, {})[path] = count
+    del X_ann
     rf_paths = phase_rf_e2e(torch, X_host, y_host, args.seed)
     phase_rf_profile(torch, X_host, y_host, args.seed)
     rf_subset = phase_rf_subset(torch, X_host, y_host, args.seed, min(RF_SUBSET_ROWS, n))
@@ -6321,6 +6717,15 @@ def main() -> int:
             # the candidate-count row: the counts its main-path launches ran at
             **{k: r[k] for k in ("main_path_k",) if k in r},
             "shape": {k: r[k] for k in ("n", "d", "k")}})
+    # K2 at the IVF coarse quantizer's shape: the launches of the index
+    # builds of the ann and umap_ivf paths
+    r = kern["lloyd_step_ivf_quantizer"]
+    kernels.append({
+        "name": "lloyd_step_ivf_quantizer", "route": "cuda", "source": "spark_rapids_ml_tpu_torch/csrc/lloyd_step.cu",
+        "replaces": sources["lloyd_step"][0], "launches": sum(by_path["lloyd_step_ivf_quantizer"].values()),
+        "launches_by_path": by_path["lloyd_step_ivf_quantizer"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "bound_f32_ms": r["bound_f32_ms"], "shape": {k: r[k] for k in ("n", "d", "k")}})
     # K3's tile kernel at the wide fit's shape (the launches of the wide
     # paths), and timed beside its autograd call at the general route's
     # three shapes; the route past the tile kernel's cap at the
@@ -6371,7 +6776,7 @@ def main() -> int:
              "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
              "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"],
              **{key: kern[key] for key, *_ in K9_SHAPES[1:]}}
-    emit({"phase": "done", "total_s": time.perf_counter() - t_start, "extra_shapes": extra,
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start, "ivf_paths_s": ivf_paths_s, "extra_shapes": extra,
           "launches_by_path": by_path})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -10,7 +10,7 @@ on its path with a CUDA kernel written for Hopper (``csrc/``). It imports
     from spark_rapids_ml_tpu_torch.clustering import KMeans
     from spark_rapids_ml_tpu_torch.classification import LogisticRegression
     from spark_rapids_ml_tpu_torch.regression import LinearRegression
-    from spark_rapids_ml_tpu_torch import NearestNeighbors, UMAP
+    from spark_rapids_ml_tpu_torch import NearestNeighbors, ApproximateNearestNeighbors, UMAP
     from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
     from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor
 
@@ -31,7 +31,12 @@ from .classification import (
     RandomForestClassificationModel,
     RandomForestClassifier,
 )
-from .knn import NearestNeighbors, NearestNeighborsModel
+from .knn import (
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
 from .regression import (
     GBTRegressionModel,
     GBTRegressor,
@@ -43,6 +48,8 @@ from .regression import (
 from .umap import UMAP, UMAPModel
 
 __all__ = [
+    "ApproximateNearestNeighbors",
+    "ApproximateNearestNeighborsModel",
     "DataFrame",
     "GBTClassificationModel",
     "GBTClassifier",

@@ -12,12 +12,17 @@ Contract as in the JAX package:
 * no persistence: ``write``/``read`` raise.
 
 The search is one pass of kernel K4 over all items on one card
-(``ops.knn_kernels.knn_search``). Multi-process searches and
-``ApproximateNearestNeighbors`` are not ported yet.
+(``ops.knn_kernels.knn_search``). ``ApproximateNearestNeighbors`` (IVF-Flat,
+``ops.ivf_kernels``) answers through the same result frames; from
+``ivf_kernels.ANN_GATE_ROWS`` items on a feasible shape it builds a coarse
+quantizer (Lloyd through kernel K2) and scans the probed lists, below
+that it answers through the exact search. Multi-process searches are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -25,6 +30,7 @@ import torch
 
 from ..core import _resolve_features_f32, _TpuEstimator, _TpuModel
 from ..data.dataframe import DataFrame
+from ..ops import ivf_kernels
 from ..ops.knn_kernels import knn_search
 from ..params import Params, TypeConverters, _mk
 from ..utils.platform import resolve_device
@@ -232,3 +238,194 @@ class NearestNeighborsModel(NearestNeighborsClass, _TpuModel, _NearestNeighborsP
         raise NotImplementedError(
             "NearestNeighborsModel does not support saving/loading, just re-fit the estimator to re-create a model."
         )
+
+
+# ==========================================================================
+# Approximate nearest neighbors (IVF-Flat)
+# ==========================================================================
+
+_ANN_ALGO_KEYS = frozenset(("nlist", "nprobe", "seed"))
+
+
+def _algo_params_conv(value: Any) -> Optional[Dict[str, int]]:
+    """``algoParams`` converter: None or a {nlist, nprobe, seed} -> int
+    mapping. Unknown keys raise rather than silently doing nothing."""
+    if value is None:
+        return None
+    if not isinstance(value, dict):
+        raise TypeError(f"algoParams must be a dict or None, got {type(value).__name__}")
+    unknown = set(value) - _ANN_ALGO_KEYS
+    if unknown:
+        raise ValueError(f"algoParams keys {sorted(unknown)} not supported; accepted: {sorted(_ANN_ALGO_KEYS)}")
+    return {k: int(v) for k, v in value.items()}
+
+
+class ApproximateNearestNeighborsClass(NearestNeighborsClass):
+    @classmethod
+    def _param_mapping(cls) -> Dict[str, Optional[str]]:
+        return {"k": "n_neighbors", "algorithm": "algorithm", "algoParams": "algoParams"}
+
+    @classmethod
+    def _get_tpu_params_default(cls) -> Dict[str, Any]:
+        return {"n_neighbors": 5, "algorithm": "ivfflat", "algoParams": None}
+
+
+class _ApproximateNearestNeighborsParams(_NearestNeighborsParams):
+    algorithm = _mk("algorithm", "ANN algorithm (only ivfflat is supported)", TypeConverters.toString)
+    algoParams = _mk(
+        "algoParams", "algorithm tuning dict: nlist, nprobe, seed (unset keys fall back to heuristics)",
+        _algo_params_conv,
+    )
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(algorithm="ivfflat")
+
+    def getAlgorithm(self) -> str:
+        return self.getOrDefault("algorithm")
+
+    def setAlgorithm(self, value: str) -> "_ApproximateNearestNeighborsParams":
+        self._set_params(algorithm=value)  # type: ignore[attr-defined]
+        return self
+
+    def getAlgoParams(self) -> Optional[Dict[str, int]]:
+        return self.getOrDefault("algoParams") if self.isDefined("algoParams") and self.isSet("algoParams") else None
+
+    def setAlgoParams(self, value: Optional[Dict[str, int]]) -> "_ApproximateNearestNeighborsParams":
+        self._set_params(algoParams=value)  # type: ignore[attr-defined]
+        return self
+
+    def _check_algorithm(self) -> None:
+        algo = self.getAlgorithm()
+        if algo != "ivfflat":
+            raise ValueError(
+                f"algorithm={algo!r} is not supported; only 'ivfflat' is "
+                "(the reference's cagra/ivfpq backends have no engine here)"
+            )
+
+    def _resolved_algo_params(self, n_items: int) -> Tuple[int, int, int]:
+        """Validated ``(nlist, nprobe, seed)`` for an ``n_items`` index:
+        ``algoParams`` wins over the sqrt(n) heuristics. Raises
+        ``ValueError`` on out-of-domain values."""
+        ap = self.getAlgoParams() or {}
+        nlist, nprobe = ivf_kernels.resolve_ann_params(n_items, nlist=ap.get("nlist"), nprobe=ap.get("nprobe"))
+        return nlist, nprobe, int(ap.get("seed", 0))
+
+
+class ApproximateNearestNeighbors(ApproximateNearestNeighborsClass, _TpuEstimator, _ApproximateNearestNeighborsParams):
+    """``ApproximateNearestNeighbors(k=3, algorithm="ivfflat", algoParams=
+    {"nlist": 64, "nprobe": 8}).fit(item_df)``: IVF-Flat approximate kNN.
+    ``kneighbors`` output has the exact estimator's shape and semantics;
+    below ``ivf_kernels.ANN_GATE_ROWS`` items the model answers with the
+    exact search (and the answer is then exact)."""
+
+    def __init__(self, **kwargs: Any) -> None:
+        _TpuEstimator.__init__(self)
+        _ApproximateNearestNeighborsParams.__init__(self)
+        if kwargs.pop("float32_inputs", True) is False:
+            self.logger.warning("This estimator does not support double precision inputs; ignoring")
+        self._set_params(**kwargs)
+
+    def fit(self, dataset: DataFrame, params: Optional[Dict[Any, Any]] = None) -> "ApproximateNearestNeighborsModel":
+        if params:  # a copy with ``params`` set, fitted by this method
+            return super().fit(dataset, params)
+        # fail fast on a bad algorithm / algoParams, before any query
+        self._check_algorithm()
+        _algo_params_conv(self.getAlgoParams())
+        model = ApproximateNearestNeighborsModel(item_df=self._ensureIdCol(dataset))
+        self._copyValues(model)
+        self._copy_tpu_params(model)
+        return model
+
+    def _get_fit_func(self, dataset: DataFrame):  # pragma: no cover
+        raise NotImplementedError("ApproximateNearestNeighbors overrides fit directly")
+
+    def _create_model(self, result: Dict[str, Any]):  # pragma: no cover
+        raise NotImplementedError("ApproximateNearestNeighbors overrides fit directly")
+
+    def write(self) -> Any:
+        raise NotImplementedError(
+            "ApproximateNearestNeighbors does not support saving/loading, just re-create the estimator."
+        )
+
+    @classmethod
+    def read(cls) -> Any:
+        raise NotImplementedError(
+            "ApproximateNearestNeighbors does not support saving/loading, just re-create the estimator."
+        )
+
+
+class ApproximateNearestNeighborsModel(
+    ApproximateNearestNeighborsClass, NearestNeighborsModel, _ApproximateNearestNeighborsParams
+):
+    """``kneighbors`` runs the IVF-Flat probe search (``ops.ivf_kernels``)
+    against an index built on first use and cached on the model; below the
+    row gate, or on an infeasible shape, the exact search of the parent
+    answers. ``_ann_report``: the engine, nlist, nprobe and, for the IVF
+    engine, the build and search seconds."""
+
+    def __init__(self, item_df: DataFrame, **attrs: Any) -> None:
+        _TpuModel.__init__(self, **attrs)
+        _ApproximateNearestNeighborsParams.__init__(self)
+        self._item_df_withid = item_df
+
+    def _ivf_index(self, Xi: np.ndarray, nlist: int, seed: int, device: torch.device) -> ivf_kernels.IvfIndex:
+        """Build-once index cache, keyed by what changes the layout (the
+        item set is frozen at fit)."""
+        cache = getattr(self, "_ivf_index_cache", None)
+        if cache is None:
+            cache = self._ivf_index_cache = {}
+        key = (nlist, seed, Xi.shape[0], str(device))
+        if key not in cache:
+            cache[key] = ivf_kernels.build_ivf_index(Xi, nlist=nlist, seed=seed, device=device)
+        return cache[key]
+
+    def kneighbors(self, query_df: DataFrame) -> Tuple[DataFrame, DataFrame, DataFrame]:
+        self._check_algorithm()
+        if self.num_workers != 1:
+            raise NotImplementedError(f"num_workers={self.num_workers}: multi-GPU searches are not ported yet")
+        k = self.getK()
+        item_df = self._item_df_withid
+        n_items = item_df.count()
+        if k > n_items:
+            raise ValueError(f"k={k} must be <= number of item rows {n_items}")
+        # resolve and validate FIRST: a bad nlist/nprobe raises even where
+        # the gate routes this call to the exact search
+        nlist, nprobe, seed = self._resolved_algo_params(n_items)
+        gated = n_items >= ivf_kernels.ANN_GATE_ROWS
+        if not (gated and ivf_kernels.ivf_feasible(n_items, k, nlist, nprobe)):
+            if gated:
+                self.logger.warning(
+                    "ivfflat infeasible for shape (n_items=%d, k=%d, nlist=%d, nprobe=%d); "
+                    "answering with the exact search", n_items, k, nlist, nprobe,
+                )
+            out = super().kneighbors(query_df)
+            self._ann_report = {"engine": "exact", "nlist": nlist, "nprobe": nprobe}
+            return out
+
+        device = resolve_device(self._device)
+        query_df_withid = self._ensureIdCol(query_df)
+        Xi = _resolve_features_f32(self, item_df)
+        Xq = _resolve_features_f32(self, query_df_withid)
+        if Xi.shape[1] != Xq.shape[1]:
+            raise ValueError(f"item/query dims differ: {Xi.shape[1]} vs {Xq.shape[1]}")
+        ids_arr = np.asarray(item_df.column(self.getIdCol()))
+        t0 = time.perf_counter()
+        index = self._ivf_index(Xi, nlist, seed, device)
+        if device.type == "cuda":  # the build's device work inside its seconds
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        d2, idx = ivf_kernels.ivf_search(torch.from_numpy(Xq).to(device), index, k=k, nprobe=nprobe)
+        d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
+        t2 = time.perf_counter()
+        knn_df = self._knn_result_df(query_df_withid, d2, idx, ids_arr)
+        self._ann_report = {
+            "engine": "ivf", "nlist": nlist, "nprobe": nprobe,
+            "build_seconds": round(t1 - t0, 4), "search_seconds": round(t2 - t1, 4),
+        }
+        return item_df, query_df_withid, knn_df
+
+    def approxSimilarityJoin(self, query_df: DataFrame, distCol: str = "distCol") -> DataFrame:
+        """One row per (item, query) pair of the approximate result: the
+        exact estimator's join semantics over this model's kneighbors."""
+        return self.exactNearestNeighborsJoin(query_df, distCol)

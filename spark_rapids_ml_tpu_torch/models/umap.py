@@ -1,8 +1,7 @@
 """UMAP of the port (counterpart of ``spark_rapids_ml_tpu/models/umap.py``).
 
 Fit runs on one device, optionally on a ``sample_fraction`` subsample:
-exact kNN graph (kernel K4, ``ops.knn_kernels.knn_search`` of the rows
-against themselves) → fuzzy simplicial set (host scipy, + the supervised
+kNN graph → fuzzy simplicial set (host scipy, + the supervised
 intersection when ``labelCol`` is set) → spectral or random init →
 negative-sampling SGD over CSR-padded rows (kernel K10 each epoch,
 ``ops.umap_kernels.umap_sgd``). The model holds the embedding and the raw
@@ -10,10 +9,15 @@ training rows; transform embeds new points by membership-weighted
 neighbour averaging, refined by the same SGD against the frozen training
 embedding.
 
-The graph is exact at every size: the JAX package switches to its IVF
-engine from ``TPUML_ANN_GATE_ROWS`` (131,072) rows, which is not ported,
-so above that size the two packages build different graphs.
-Checkpoint/resume, fault sites and telemetry spans are not ported.
+The graph engine is chosen as in the JAX package
+(``ops.ivf_kernels.select_graph_engine``): the exact graph (kernel K4,
+``ops.knn_kernels.knn_search`` of the rows against themselves) below
+``ivf_kernels.ANN_GATE_ROWS`` (131,072) rows, the IVF-Flat graph (a coarse
+quantizer trained through kernel K2, then the probe scan) from there on a
+feasible shape; ``ivf_kernels.UMAP_GRAPH`` pins either. The transform's
+kNN takes the same engine against an index of the training rows built
+once a model. Checkpoint/resume, fault sites and telemetry spans are not
+ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..core import _resolve_features_f32, _TpuEstimator, _TpuModel
 from ..data.dataframe import DataFrame
+from ..ops import ivf_kernels
 from ..ops.knn_kernels import knn_search
 from ..ops.umap_kernels import (
     build_row_adjacency,
@@ -230,9 +235,19 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
         # stage split (graph / init / sgd); each stage ends in a host read,
         # so the device work is inside its own stage
         t0 = time.perf_counter()
-        # 1) exact kNN graph: fetch k+1, drop the self entry
+        # 1) kNN graph: fetch k+1 (the self entry is dropped) through the
+        # engine the dispatch picks: the exact search or the IVF index
+        graph_engine = ivf_kernels.select_graph_engine(n, k + 1)
+        ann_nlist = ann_nprobe = None
         Xd = torch.from_numpy(X).to(device)
-        dists, idx = knn_brute(Xd, Xd, k=k + 1)
+        if graph_engine == "ivf":
+            ann_nlist, ann_nprobe = ivf_kernels.resolve_ann_params(n)
+            ivf_index = ivf_kernels.build_ivf_index(X, nlist=ann_nlist, seed=seed, device=device)
+            d2, idx = ivf_kernels.ivf_search(Xd, ivf_index, k=k + 1, nprobe=ann_nprobe)
+            dists = torch.sqrt(torch.clamp(d2, min=0.0))
+            del ivf_index, d2
+        else:
+            dists, idx = knn_brute(Xd, Xd, k=k + 1)
         knn_d, knn_i = drop_self_column(dists, idx, k=k)
         # 2) fuzzy simplicial set (+ categorical intersection when supervised)
         heads, tails, weights = fuzzy_simplicial_set(
@@ -287,10 +302,13 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
             "sgd_seconds": t3 - t2,
             "epoch_ms": (t3 - t2) / max(n_epochs, 1) * 1e3,
             "sgd_engine": "cuda" if device.type == "cuda" else "plain",
-            "graph_engine": "exact",
+            "graph_engine": graph_engine,
             "rows": int(tails_pad.shape[0]),
             "n_epochs": n_epochs,
         }
+        if graph_engine == "ivf":  # the index's parameters, to rebuild it
+            model._fit_report["ann_nlist"] = ann_nlist
+            model._fit_report["ann_nprobe"] = ann_nprobe
         return model
 
     def _get_fit_func(self, dataset: DataFrame):  # pragma: no cover
@@ -336,14 +354,37 @@ class UMAPModel(UMAPClass, _TpuModel, _UMAPParams):
             "alpha": float(tp.get("learning_rate", 1.0)),
         }
 
+    def _transform_ivf_index(self, k: int, device: torch.device) -> Optional[Tuple[ivf_kernels.IvfIndex, int]]:
+        """The IVF index over the frozen training rows for the transform's
+        kNN, built once a (nlist, nprobe, seed, mode, device): ``(index,
+        nprobe)``, or None where the dispatch picks the exact search."""
+        n_train = int(self.raw_data_.shape[0])
+        if ivf_kernels.select_graph_engine(n_train, k) != "ivf":
+            return None
+        nlist, nprobe = ivf_kernels.resolve_ann_params(n_train)
+        seed = int(self._tpu_params.get("random_state") or 0)
+        cache = getattr(self, "_ivf_index_cache", None)
+        if cache is None:
+            cache = self._ivf_index_cache = {}
+        key = (nlist, nprobe, seed, ivf_kernels.resolve_umap_graph(), str(device))
+        if key not in cache:
+            cache[key] = ivf_kernels.build_ivf_index(self.raw_data_, nlist=nlist, seed=seed, device=device)
+        return cache[key], nprobe
+
     @staticmethod
     def _transform_init(
-        Xb: torch.Tensor, train_X: torch.Tensor, train_emb: torch.Tensor, k: int, lc: float
+        Xb: torch.Tensor, train_X: torch.Tensor, train_emb: torch.Tensor, k: int, lc: float,
+        ivf: Optional[Tuple[ivf_kernels.IvfIndex, int]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(emb0, idx, w)`` of a query batch: its kNN among the training
-        rows, their membership weights, and the weight-averaged training
-        embedding it starts from."""
-        dists, idx = knn_brute(train_X, Xb, k=k)
+        rows (the exact search, or the IVF search of ``ivf = (index,
+        nprobe)``), their membership weights, and the weight-averaged
+        training embedding it starts from."""
+        if ivf is None:
+            dists, idx = knn_brute(train_X, Xb, k=k)
+        else:
+            d2, idx = ivf_kernels.ivf_search(Xb, ivf[0], k=k, nprobe=ivf[1])
+            dists = torch.sqrt(torch.clamp(d2, min=0.0))
         rho, sigma = smooth_knn_dist(dists, lc)
         w = membership_strengths(dists, rho, sigma)
         wn = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
@@ -363,8 +404,11 @@ class UMAPModel(UMAPClass, _TpuModel, _UMAPParams):
 
             def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
                 nq = Xb.shape[0]
+                # the same engine dispatch as the fit, resolved a batch; the
+                # index of the frozen training rows is built once
+                ivf = self._transform_ivf_index(st["k"], device)
                 emb0, idx, w = self._transform_init(
-                    torch.from_numpy(Xb).to(device), train_X, train_emb, st["k"], st["lc"]
+                    torch.from_numpy(Xb).to(device), train_X, train_emb, st["k"], st["lc"], ivf
                 )
                 # query q's rows are exactly its k membership edges: one
                 # CSR row per query, refined against the frozen table
@@ -376,7 +420,8 @@ class UMAPModel(UMAPClass, _TpuModel, _UMAPParams):
                     n_epochs=st["refine"], a=st["a"], b=st["b"], gamma=st["gamma"],
                     initial_alpha=st["alpha"], negative_sample_rate=st["neg"], self_table=False,
                 )
-                self._transform_report = {"refine_epochs": st["refine"], "graph_engine": "exact"}
+                self._transform_report = {
+                    "refine_epochs": st["refine"], "graph_engine": "exact" if ivf is None else "ivf"}
                 return {out_col: emb.cpu().numpy()}
 
             return _fn

@@ -190,6 +190,8 @@ def test_import_leaves_jax_out():
         "from spark_rapids_ml_tpu_torch.models import regression as mregression\n"
         "from spark_rapids_ml_tpu_torch.ops import _build, linalg, kmeans_kernels, lbfgs, logreg_kernels\n"
         "from spark_rapids_ml_tpu_torch.ops import knn_kernels, umap_kernels, rf_kernels, tree_kernels, gbt_kernels\n"
+        "from spark_rapids_ml_tpu_torch.ops import ivf_kernels\n"
+        "from spark_rapids_ml_tpu_torch.knn import ApproximateNearestNeighbors\n"
         "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap, tree as mtree\n"
         "from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor, GBTClassificationModel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
