@@ -269,6 +269,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fit's cost against an f64 walk's, peak device memory under
    STREAM_PEAK_MAX. K2's launches there are the ``lloyd_step_stream_*``
    rows of the kernels line (the resident fits' the ``lloyd_step`` row's).
+   Then (o) the wire formats on the first 1,572,864 rows as a generator
+   of 12 chunks: one chunk dequantized on the card at f16, int8 and e4m3
+   f8, held entry by entry against its f32 rows (an int8 dequantize with
+   its offset two steps off refused); streamed PCA(k=16) at f32 (held to
+   its f64 truth), f16, int8, f8 and auto, the three-config
+   LinearRegression ``fitMultiple`` at f32 (OLS to its f64 solve) and f16,
+   KMeans(k=1024, random, maxIter 3) at f32 and int8, each narrow fit
+   held against the f32 one at the JAX package's wire tolerances, with
+   each wire's bytes, encode and host-copy seconds and seconds a pass;
+   (p) checkpoint/resume on those rows: LogisticRegression(maxIter=5) and
+   KMeans(k=1024, random, maxIter 4), each interrupted in the first pass
+   after its iteration-2 checkpoint and fitted again, starting there (the
+   passes it skipped), leaving no file, LogisticRegression equal to the
+   uninterrupted fit bit for bit, KMeans within its band. Their K2 and K3
+   launches are the ``stream_wire`` and ``stream_resume`` paths of the
+   streamed rows, their K1 launches in ``streamed``.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -346,6 +362,12 @@ prints no result line.
 is a probe of the streamed path: K1, K3 and K2 alone built, the streamed
 phase alone on ``--rows`` rows. It prints no result line.
 
+    python3 chip_smoke.py --wire-only
+
+is a probe of the wire formats and checkpoint/resume: K1, K3 and K2 alone
+built, phases (o) and (p) alone on STREAM_WIRE_ROWS rows made from
+``--seed`` (fewer with a smaller ``--rows``). It prints no result line.
+
     python3 chip_smoke.py --hist-only [--sweep]
 
 is a probe of K5 and K6: K5 at the GBT's level 7 and the bench forest's
@@ -366,6 +388,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4973,6 +4996,446 @@ def phase_stream_kmeans(torch, X_host, seed, km_resident=None):
     return meas, launches
 
 
+# ---------------------------------------------------------------------------
+# the streamed path's wire formats and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+# rows of the wire and resume phases: the first 12 chunks of the host rows,
+# at the main path's full width, as a generator source (16 chunks took the
+# two phases 63.4 s on an H100, over their 60 s)
+STREAM_WIRE_ROWS = 1_572_864
+WIRE_KINDS = ("f32", "f16", "int8", "f8", "auto")
+# the JAX package's wire tolerances (tests/test_streaming_wire.py:50-130):
+# statistics (here a PCA's mean and explained variance) within f16 2e-3 /
+# int8 3e-2 of their largest entry, a PCA's explained variance at rtol 5e-2
+# and its components' |cosines| within 5e-2 of 1 at int8, LinearRegression's
+# coefficients at atol 1e-2 (f16), KMeans' centres at atol 0.5 (int8; here
+# the root mean square of the centres' entries weighted by their rows: a
+# centre of a few rows near a tie moves by a row's distance when one row
+# flips); e4m3 (3 mantissa bits) held at int8's
+WIRE_STAT_TOL = {"f16": 2e-3, "int8": 3e-2, "f8": 3e-2}
+WIRE_EV_RTOL = {"f16": 2e-3, "int8": 5e-2, "f8": 5e-2}
+WIRE_COS_TOL = 5e-2
+WIRE_LINREG_ATOL = 1e-2
+WIRE_KM_ATOL = 0.5
+# the resume phase: LogisticRegression maxIter 5 and KMeans (random init,
+# k = 1,024, tol 1e-20) maxIter 4, each interrupted in the first pass that
+# starts after the checkpoint of iteration RESUME_AFTER was committed
+RESUME_LR_ITER = 5
+RESUME_KM_ITER = 4
+RESUME_AFTER = 2
+
+
+class ResumeInterrupt(Exception):
+    """The interruption ``interrupting_source`` raises inside a pass."""
+
+
+def wire_source(X_host, y, rows):
+    """The first ``rows`` host rows (and labels ``y``) as a
+    ``GeneratorChunkSource``: each chunk a view, so the generator does not
+    set the pace."""
+    from spark_rapids_ml_tpu_torch.data.chunks import GeneratorChunkSource
+
+    def gen(start, count, _seed):
+        return X_host[start:start + count], None if y is None else y[start:start + count]
+
+    return GeneratorChunkSource(gen, rows, X_host.shape[1], has_label=y is not None)
+
+
+def committed_iteration(ckpt_dir) -> int:
+    """The iteration of the checkpoint committed in ``ckpt_dir`` (its
+    manifest), else 0."""
+    its = []
+    for name in os.listdir(ckpt_dir):
+        if name.endswith(".json"):
+            with open(os.path.join(ckpt_dir, name)) as f:
+                its.append(json.load(f)["iteration"])
+    return max(its, default=0)
+
+
+def interrupting_source(X_host, y, rows, ckpt_dir, after=RESUME_AFTER):
+    """``wire_source`` whose every pass that starts after the checkpoint of
+    iteration ``after`` was committed in ``ckpt_dir`` raises
+    ``ResumeInterrupt`` after its first chunk."""
+    src = wire_source(X_host, y, rows)
+    real = src.iter_chunks
+
+    def iter_chunks(chunk_rows, dtype=np.float32):
+        armed = committed_iteration(ckpt_dir) >= after
+        for i, c in enumerate(real(chunk_rows, dtype)):
+            if armed and i == 1:
+                raise ResumeInterrupt(f"interrupted after the checkpoint of iteration {after}")
+            yield c
+
+    src.iter_chunks = iter_chunks
+    return src
+
+
+def stream_fit(torch, st, ests, source, rows, wire=None):
+    """``ests`` fitted on ``source`` through the first one's streaming fit
+    function (shared, as ``fitMultiple`` shares it) handed a
+    ``StreamInputs``, with ``ops.streaming.WIRE_DTYPE`` at ``wire`` where
+    given: (models, seconds, the ingest report)."""
+    from spark_rapids_ml_tpu_torch.core import StreamInputs
+
+    dev = torch.device("cuda:0")
+    inputs = StreamInputs(source=source, device=dev, n_rows=rows, n_features=E2E_D, dtype=torch.float32,
+                          chunk_rows=STREAM_CHUNK_ROWS)
+    saved = st.WIRE_DTYPE
+    st.WIRE_DTYPE = saved if wire is None else wire
+    st.reset_ingest_report()
+    try:
+        fit = ests[0]._get_streaming_fit_func(None)
+        models, t = _timed(torch, lambda: [e._create_model(fit(inputs, dict(e._tpu_params))) for e in ests])
+    finally:
+        st.WIRE_DTYPE = saved
+    return models, t, st.last_ingest_report()
+
+
+def wire_report(rep):
+    """What a fit's ingest report says of its wire: the resolved encoding,
+    the bytes sent, the host seconds of encoding and of copies into the
+    ring, the card's copy-stream seconds and the seconds a pass."""
+    chunked = [k for k in rep["passes"] if k not in ("labels", "seed_rows")]  # not host passes
+    return {"wire_dtype": rep.get("wire_dtype"), "bytes": rep["bytes"], "chunks": rep["chunks"],
+            "encode_s": rep["encode_s"], "host_to_pinned_s": rep.get("host_to_pinned_s"),
+            "host_to_device_s": rep.get("host_to_device_s"), "fold_device_s": rep.get("fold_device_s"),
+            "decode_s": rep.get("decode_s"), "passes": rep["passes"],
+            "pass_s": sum(rep["pass_s"][k] for k in chunked) / sum(rep["passes"][k] for k in chunked)}
+
+
+def wire_chunk_hold(torch, st, chunk, Xd, wire):
+    """One host chunk through ``put_chunk`` at ``wire`` onto the card,
+    each entry of the dequantized ``X`` held against the f32 rows ``Xd``:
+    f16 within half an f16 ulp (2⁻¹¹·|x| + 2⁻²⁵); int8 within half its
+    column's step s plus the f32 roundings of the host quotient and the
+    card's multiply and add, s/2 + 4u·(|offset| + 128·s); e4m3 within half
+    an ulp of 3 mantissa bits, 2⁻⁴·|x| + 2⁻¹⁰·s (subnormals), plus 4u·|x|
+    (f32's). Returns the largest |error| / tolerance and the bytes sent."""
+    dev = st.put_chunk(chunk, Xd.device, wire=wire)
+    torch.cuda.current_stream().wait_event(dev["_ready"])
+    err = (dev["X"] - Xd).abs()
+    x = Xd.abs()
+    lo, hi = Xd.amin(dim=0), Xd.amax(dim=0)
+    if wire == "f16":
+        tol = 2.0 ** -11 * x + 2.0 ** -25
+    elif wire == "int8":
+        s = torch.where(hi > lo, (hi - lo) / 254.0, torch.ones_like(hi))
+        tol = (0.5 * s + 4.0 * U32 * ((hi + lo).abs() * 0.5 + 128.0 * s))[None, :].expand_as(x)
+    else:
+        amax = torch.maximum(hi.abs(), lo.abs())
+        s = torch.where(amax > 0, amax / 448.0, torch.ones_like(amax))
+        tol = 2.0 ** -4 * x + 2.0 ** -10 * s[None, :] + 4.0 * U32 * x
+    return float((err / tol).max()), dev["_bytes"]
+
+
+def phase_stream_wire(torch, X_host, lin, seed):
+    """(o) The wire formats: the first STREAM_WIRE_ROWS host rows as a
+    generator of 12 chunks. First one chunk through ``put_chunk`` at f16,
+    int8 and f8, held entry by entry (``wire_chunk_hold``), and int8 again
+    with the card's dequantize given an offset two steps off, which the
+    hold must refuse. Then streamed PCA(k=16) at each of WIRE_KINDS (the
+    f32 fit held to the f64 truth of the rows; each other against it at
+    the JAX package's wire tolerances), the three-config LinearRegression
+    ``fitMultiple`` at f32 (OLS held to its f64 solve) and f16 (against
+    f32), and KMeans(k=1024, random init, maxIter 3) at f32 and int8 (the
+    same seeds; int8 against f32). Each fit: its K1 or K2 launches one a
+    chunk of each Gram, Lloyd and cost pass, none of K2's plain version;
+    its wire's bytes, encode and host-copy seconds and seconds a pass.
+    Returns the K1 launches and the K2 launches {row: {path: n}}."""
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.data.chunks import Chunk
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin_ops
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    N, CH = min(STREAM_WIRE_ROWS, X_host.shape[0]), STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    # one chunk, entry by entry, and the perturbed-offset control
+    first = np.ascontiguousarray(X_host[:CH])
+    chunk = Chunk(X=first, n_valid=first.shape[0])
+    Xd = torch.from_numpy(first).to(dev)
+    holds = {w: wire_chunk_hold(torch, st, chunk, Xd, w) for w in ("f16", "int8", "f8")}
+    real = st._dequantize
+    st._dequantize = lambda q, s, o, w, dt: real(q, s, None if o is None else o + 2.0 * s.to(dt), w, dt)
+    try:
+        control = wire_chunk_hold(torch, st, chunk, Xd, "int8")[0]
+    finally:
+        st._dequantize = real
+    del Xd
+    emit({"phase": "streamed", "check": "wire_chunk", "rows": first.shape[0], "f32_bytes": first.nbytes,
+          "err_over_tol": {w: r for w, (r, _) in holds.items()}, "bytes": {w: b for w, (_, b) in holds.items()},
+          "perturbed_offset_control_err_over_tol": control})
+    for w, (r, _) in holds.items():
+        check(r <= 1.0, f"the {w} wire's chunk is {r:.3g} x its tolerance off the f32 rows")
+    check(control > 1.0, f"the int8 hold did not refuse an offset two steps off ({control:.3g})")
+
+    # the f64 truths of the rows, at the band of a pass of n_chunks chunks
+    # (each chunk's sums within K1's band, then an f32 sum of the partials)
+    y = np.ascontiguousarray(lin["y"][:N])
+    Xd, yd = torch.from_numpy(X_host[:N]).to(dev), torch.from_numpy(y).to(dev)
+    sums = f64_sums(torch, [(Xd[lo:lo + CH], 1) for lo in range(0, N, CH)],
+                    [(yd[lo:lo + CH], 1) for lo in range(0, N, CH)])
+    terms, walk = TOL_TERMS + n_chunks, TOL_WALK * CH ** 0.5
+    truth = pca_truth(torch, sums, STREAM_K, terms, walk)
+    ols = ols_solve_reference_band(torch, sums, terms, walk)
+    mx = sums["mx"].cpu().numpy()
+    del Xd, yd, sums
+    torch.cuda.empty_cache()
+    src, src_y = wire_source(X_host, None, N), wire_source(X_host, y, N)
+
+    rows, pca = {}, {}
+    k1 = 0
+    for w in WIRE_KINDS:
+        l0 = lin_ops.shifted_gram.launches
+        (m,), t, rep = stream_fit(torch, st, [PCA(k=STREAM_K)], src, N, w)
+        k = lin_ops.shifted_gram.launches - l0
+        k1 += k
+        pca[w] = m
+        row = {"fit_s": t, "shifted_gram_launches": k, **wire_report(rep)}
+        check(rep["passes"] == {"moments": 1, "gram": 1} and k == n_chunks,
+              f"PCA at {w}: passes {rep['passes']}, {k} K1 launches (want {n_chunks})")
+        resolved = rep.get("wire_dtype")
+        check(resolved in WIRE_KINDS[:4] and (w == "auto" or resolved == w),
+              f"PCA at {w}: the passes shipped {resolved}")
+        if w == "f32":
+            row["vs_f64"] = check_pca_fit(torch, m, truth, "PCA at f32")
+        else:
+            row["vs_f32"] = pca_wire_errors(pca["f32"], m, resolved)
+            check(all(v <= 1.0 for v in row["vs_f32"]["over_tol"].values()),
+                  f"PCA at {w} ({resolved}) off the f32 fit: {row['vs_f32']}")
+        rows[w] = row
+    emit({"phase": "streamed", "check": "wire_pca", "rows": N, "k": STREAM_K, "chunks": n_chunks, "fits": rows})
+
+    grid = [c for _, c in LINREG_CONFIGS]
+    lr_rows, lr = {}, {}
+    for w in ("f32", "f16"):
+        l0 = lin_ops.shifted_gram.launches
+        lr[w], t, rep = stream_fit(torch, st, [LinearRegression()._with_params(c) for c in grid], src_y, N, w)
+        k = lin_ops.shifted_gram.launches - l0
+        k1 += k
+        lr_rows[w] = {"fit_multiple_s": t, "shifted_gram_launches": k, **wire_report(rep)}
+        check(rep["passes"] == {"moments": 1, "gram": 1} and k == n_chunks and rep.get("wire_dtype") == w,
+              f"LinearRegression fitMultiple at {w}: passes {rep['passes']}, {k} K1 launches, "
+              f"wire {rep.get('wire_dtype')}")
+    e_ref = scaled_errors(lr["f32"][0], ols["beta"], ols["intercept"], ols["std"], mx)
+    err_b = abs(float(lr["f32"][0].intercept) - ols["intercept"])
+    lr_rows["f32"]["ols_vs_f64"] = {"coef_scaled_rel_err": e_ref[0], "coef_tol": ols["coef_tol"],
+                                    "intercept_abs_err": err_b, "intercept_tol": ols["intercept_tol"]}
+    check(e_ref[0] <= ols["coef_tol"] and err_b <= ols["intercept_tol"],
+          f"OLS at f32 off its f64 solve: {lr_rows['f32']['ols_vs_f64']}")
+    diffs = {name: {"coef_max_abs_diff": float(np.abs(np.asarray(a.coefficients, np.float64) - b.coefficients).max()),
+                    "intercept_abs_diff": abs(float(a.intercept) - float(b.intercept))}
+             for (name, _), a, b in zip(LINREG_CONFIGS, lr["f16"], lr["f32"])}
+    lr_rows["f16"]["vs_f32"] = {"configs": diffs, "atol": WIRE_LINREG_ATOL}
+    emit({"phase": "streamed", "check": "wire_linreg", "rows": N, "fits": lr_rows})
+    for name, dd in diffs.items():
+        check(np.isfinite(dd["coef_max_abs_diff"]) and max(dd.values()) <= WIRE_LINREG_ATOL,
+              f"LinearRegression {name} at f16 off the f32 fit: {dd}")
+
+    km, km_rows, k2 = {}, {}, 0
+    for w in ("f32", "int8"):
+        with record_kmeans_fit(kk) as rec:
+            (km[w],), t, rep = stream_fit(torch, st, [KMeans(k=E2E_CENTRES, seed=seed, initMode="random",
+                                                             maxIter=STREAM_KM_ITER)], src, N, w)
+        k2 += rec["launches"]
+        km[w + "_seeds"] = rec["centers0"]
+        km_rows[w] = {"fit_s": t, "n_iter": km[w].numIter, "cost": km[w].trainingCost,
+                      "lloyd_step_launches": rec["launches"], **wire_report(rep)}
+        check(rep.get("wire_dtype") == w and rec["plain_calls"] == 0
+              and rec["launches"] == n_chunks * (rep["passes"].get("lloyd", 0) + rep["passes"].get("cost", 0))
+              and rep["passes"].get("lloyd") == km[w].numIter,
+              f"KMeans at {w}: passes {rep['passes']}, {rec['launches']} K2 launches, "
+              f"{rec['plain_calls']} plain calls, wire {rep.get('wire_dtype')}")
+    c8, c32 = km["int8"].cluster_centers_.astype(np.float64), km["f32"].cluster_centers_.astype(np.float64)
+    counts = centre_counts(torch, X_host[:N], c32)
+    d2 = ((c8 - c32) ** 2).mean(axis=1)
+    rms = float(np.sqrt((counts * d2).sum() / counts.sum()))
+    worst = int(np.argmax(d2))
+    dcost = abs(km["int8"].trainingCost - km["f32"].trainingCost) / km["f32"].trainingCost
+    km_rows["int8"]["vs_f32"] = {"centre_rms_diff_by_rows": rms, "atol": WIRE_KM_ATOL, "cost_rel_diff": dcost,
+                                 "cost_rtol": WIRE_STAT_TOL["int8"],
+                                 "centre_max_abs_diff": float(np.abs(c8 - c32).max()),
+                                 "rows_of_the_centre_furthest_apart": int(counts[worst]),
+                                 "mean_rows_a_centre": N / E2E_CENTRES}
+    emit({"phase": "streamed", "check": "wire_kmeans", "rows": N, "k": E2E_CENTRES, "maxIter": STREAM_KM_ITER,
+          "fits": km_rows})
+    check(np.array_equal(km["f32_seeds"], km["int8_seeds"]), "KMeans at f32 and int8: the random seeds differ")
+    check(rms <= WIRE_KM_ATOL and dcost <= WIRE_STAT_TOL["int8"],
+          f"KMeans at int8 off the f32 fit: {km_rows['int8']['vs_f32']}")
+    emit({"phase": "streamed", "check": "wire_done", "s": time.perf_counter() - t0, "shifted_gram_launches": k1,
+          "lloyd_step_launches": k2})
+    return k1, {f"lloyd_step_stream_k{E2E_CENTRES}": {"stream_wire": k2}}
+
+
+def centre_counts(torch, X_host, C):
+    """The rows of ``X_host`` nearest each centre of ``C`` (f64 scores on
+    the card, in chunks)."""
+    dev = torch.device("cuda:0")
+    Cd = torch.from_numpy(C).to(dev)
+    c_sq = (Cd * Cd).sum(dim=1)
+    counts = torch.zeros(C.shape[0], dtype=torch.int64, device=dev)
+    for lo in range(0, X_host.shape[0], STREAM_CHUNK_ROWS):
+        x = torch.from_numpy(X_host[lo:lo + STREAM_CHUNK_ROWS]).to(dev, torch.float64)
+        counts += torch.bincount(torch.argmin(c_sq[None, :] - 2.0 * (x @ Cd.T), dim=1), minlength=C.shape[0])
+    return counts.cpu().numpy().astype(np.float64)
+
+
+def pca_wire_errors(ref, m, wire):
+    """A PCA fit at ``wire`` against the f32 fit ``ref``: its mean (over
+    the largest |mean|) and explained variance (relative) within the
+    wire's statistics tolerance, the variances at WIRE_EV_RTOL, each
+    component's |cosine| with its f32 counterpart within WIRE_COS_TOL of
+    1. Returns the errors and each over its tolerance."""
+    mean_err = float(np.abs(m.mean_ - ref.mean_).max() / np.abs(ref.mean_).max())
+    ev_err = float((np.abs(m.explained_variance_ - ref.explained_variance_) / ref.explained_variance_).max())
+    a, b = np.asarray(m.components_, np.float64), np.asarray(ref.components_, np.float64)
+    cos = np.abs((a * b).sum(axis=1)) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    cos_err = float((1.0 - cos).max())
+    return {"wire": wire, "mean_rel_err": mean_err, "ev_rel_err": ev_err, "cos_err": cos_err,
+            "over_tol": {"mean": mean_err / WIRE_STAT_TOL[wire], "ev": ev_err / WIRE_EV_RTOL[wire],
+                         "cos": cos_err / WIRE_COS_TOL}}
+
+
+def phase_stream_resume(torch, X_host, y_host, seed):
+    """(p) Checkpoint/resume, on the wire phase's rows with
+    ``runtime.checkpoint.CKPT_DIR`` a temporary directory:
+    LogisticRegression(maxIter=RESUME_LR_ITER) and KMeans(k=1024, random
+    init, tol 1e-20, maxIter=RESUME_KM_ITER), each fitted uninterrupted
+    (no checkpoints), interrupted by ``interrupting_source`` in the first
+    pass after the checkpoint of iteration RESUME_AFTER, and fitted again.
+    The resumed fit must start at the committed iteration (its objective or
+    Lloyd passes fewer by those the interrupted fit completed), leave no
+    file behind, and equal the uninterrupted fit: LogisticRegression bit
+    for bit (K3 adds no atomics, every pass repeats itself); KMeans within
+    two streamed walks' band from one f64 iteration compounded over the
+    iterations (K2 adds with atomics: bitwise equality reported). Returns
+    the K3 and K2 launches {row: {path: n}}."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+    from spark_rapids_ml_tpu_torch.runtime import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    N, CH = min(STREAM_WIRE_ROWS, X_host.shape[0]), STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    y = np.ascontiguousarray(y_host[:N])
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saved = ckpt.CKPT_DIR
+    k3 = k2 = 0
+    try:
+        # LogisticRegression
+        def lr_fit(source):
+            return stream_fit(torch, st, [LogisticRegression(maxIter=RESUME_LR_ITER)], source, N)
+
+        l0 = lk.logreg_loss_grad.launches
+        (full,), t_full, rep_full = lr_fit(wire_source(X_host, y, N))
+        ckpt.CKPT_DIR = ckpt_dir
+        t = time.perf_counter()
+        try:
+            lr_fit(interrupting_source(X_host, y, N, ckpt_dir))
+            interrupted = False
+        except ResumeInterrupt:
+            interrupted = True
+        t_int = time.perf_counter() - t
+        torch.cuda.synchronize()
+        done = st.last_ingest_report()["passes"].get("objective", 1) - 1
+        at = committed_iteration(ckpt_dir)
+        (res,), t_res, rep = lr_fit(wire_source(X_host, y, N))
+        ckpt.CKPT_DIR = saved
+        k3 = lk.logreg_loss_grad.launches - l0
+        left = os.listdir(ckpt_dir)
+        same = (res.coefficientMatrix.tobytes() == full.coefficientMatrix.tobytes()
+                and res.interceptVector.tobytes() == full.interceptVector.tobytes())
+        lr_row = {"interrupted": interrupted, "committed_iteration": at, "objective_passes_done": done,
+                  "passes": [rep_full["passes"], rep["passes"]], "fit_s": [t_full, t_int, t_res],
+                  "n_iter": [full.n_iter_, res.n_iter_], "bit_for_bit": same, "files_left": left,
+                  "coef_max_abs_diff": float(np.abs(res.coefficientMatrix - full.coefficientMatrix).max()),
+                  "logreg_loss_grad_launches": k3}
+        emit({"phase": "streamed", "check": "resume_logreg", "rows": N, "maxIter": RESUME_LR_ITER, **lr_row})
+        check(interrupted and at == RESUME_AFTER, f"LogisticRegression resume: interrupted {interrupted} "
+                                                  f"after the checkpoint of iteration {at}")
+        check(rep["passes"]["objective"] == rep_full["passes"]["objective"] - done and done > 0,
+              f"resumed LogisticRegression: {rep['passes']} against {rep_full['passes']}, {done} passes done")
+        check(same and res.n_iter_ == full.n_iter_ and not left,
+              f"resumed LogisticRegression differs from the uninterrupted fit or left {left}")
+
+        # KMeans
+        def km_fit_at(source):
+            with record_kmeans_fit(kk) as rec:
+                (m,), t, rep = stream_fit(torch, st, [KMeans(k=E2E_CENTRES, seed=seed, initMode="random",
+                                                             tol=STREAM_KM_TOL, maxIter=RESUME_KM_ITER)], source, N)
+            return m, t, rep, rec
+
+        ckpt.CKPT_DIR = None
+        full, t_full, rep_full, rec_full = km_fit_at(wire_source(X_host, None, N))
+        k2 += rec_full["launches"]
+        ckpt.CKPT_DIR = ckpt_dir
+        t = time.perf_counter()
+        try:
+            with record_kmeans_fit(kk) as rec_int:
+                stream_fit(torch, st, [KMeans(k=E2E_CENTRES, seed=seed, initMode="random", tol=STREAM_KM_TOL,
+                                              maxIter=RESUME_KM_ITER)], interrupting_source(X_host, None, N, ckpt_dir),
+                           N)
+            interrupted = False
+        except ResumeInterrupt:
+            interrupted = True
+        t_int = time.perf_counter() - t
+        torch.cuda.synchronize()
+        k2 += rec_int["launches"]
+        done = st.last_ingest_report()["passes"].get("lloyd", 1) - 1
+        at = committed_iteration(ckpt_dir)
+        res, t_res, rep, rec = km_fit_at(wire_source(X_host, None, N))
+        ckpt.CKPT_DIR = saved
+        k2 += rec["launches"]
+        left = os.listdir(ckpt_dir)
+        C0 = rec["centers0"]
+        Xd = torch.from_numpy(X_host[:N]).to(dev)
+        ref = lloyd_reference(torch, kk, Xd, torch.ones(N, device=dev), torch.from_numpy(C0).to(dev), chunk=CH)
+        del Xd
+        torch.cuda.empty_cache()
+        _, e_s, _ = km_centre_bands(torch, ref, torch.from_numpy(C0).to(dev), N, CH, n_chunks)
+        iters = RESUME_KM_ITER
+        band = 2.0 * float(torch.nan_to_num(e_s, nan=0.0).max()) * iters
+        cost_pass = U32 * ((2.0 * TOL_TERMS + 2.0 * n_chunks) * float(ref["T_cost"])
+                           + 2.0 * TOL_WALK * CH ** 0.5 * float(ref["cost"])) + 2.0 * float(ref["slack_cost"])
+        dc = np.abs(res.cluster_centers_.astype(np.float64) - full.cluster_centers_).max(axis=1)
+        d_cost = abs(res.trainingCost - full.trainingCost)
+        km_row = {"interrupted": interrupted, "committed_iteration": at, "lloyd_passes_done": done,
+                  "passes": [rep_full["passes"], rep["passes"]], "fit_s": [t_full, t_int, t_res],
+                  "n_iter": [full.numIter, res.numIter], "bit_for_bit": res.cluster_centers_.tobytes() == (
+                      full.cluster_centers_.tobytes()), "files_left": left, "centre_max_abs_diff": float(dc.max()),
+                  "centre_band": band, "centres_beyond_band": int((dc > band).sum()), "cost_abs_diff": d_cost,
+                  "cost_tol": (iters + 1) * cost_pass, "seeds_equal": np.array_equal(C0, rec_full["centers0"]),
+                  "lloyd_step_launches": k2}
+        emit({"phase": "streamed", "check": "resume_kmeans", "rows": N, "k": E2E_CENTRES, "maxIter": RESUME_KM_ITER,
+              **km_row})
+        check(interrupted and at == RESUME_AFTER and done == RESUME_AFTER,
+              f"KMeans resume: interrupted {interrupted} after the checkpoint of iteration {at}, {done} passes done")
+        check(rep["passes"].get("lloyd") == rep_full["passes"]["lloyd"] - done and rep["passes"].get("cost") == 1,
+              f"resumed KMeans: {rep['passes']} against {rep_full['passes']}")
+        check(km_row["seeds_equal"] and res.numIter == full.numIter and not left and rec["plain_calls"] == 0,
+              f"resumed KMeans: seeds, iterations or files differ: {km_row}")
+        check(km_row["centres_beyond_band"] == 0 and d_cost <= km_row["cost_tol"],
+              f"resumed KMeans off the uninterrupted fit: {km_row}")
+    finally:
+        ckpt.CKPT_DIR = saved
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "streamed", "check": "resume_done", "s": time.perf_counter() - t0})
+    return {"logreg_loss_grad_stream_rows": {"stream_resume": k3},
+            f"lloyd_step_stream_k{E2E_CENTRES}": {"stream_resume": k2}}
+
+
 def phase_streamed(torch, X_host, y_host, lin, pca_ref, seed, km_resident=None):
     """The streamed phase: (a) the copy, (c) streamed vs resident fits,
     (d) the north star, (e) the parquet scan, then the streamed
@@ -4989,6 +5452,10 @@ def phase_streamed(torch, X_host, y_host, lin, pca_ref, seed, km_resident=None):
     launches += k + (phase_stream_parquet(torch, X_host) or 0)
     k3, k3_launches = phase_stream_logreg(torch, X_host, y_host, seed)
     k2, k2_launches = phase_stream_kmeans(torch, X_host, seed, km_resident)
+    k, wire_k2 = phase_stream_wire(torch, X_host, lin, seed)
+    launches += k
+    for row, paths in list(wire_k2.items()) + list(phase_stream_resume(torch, X_host, y_host, seed).items()):
+        (k3_launches if row.startswith("logreg") else k2_launches).setdefault(row, {}).update(paths)
     emit({"phase": "streamed", "check": "done", "s": time.perf_counter() - t, "shifted_gram_launches": launches,
           "logreg_loss_grad_launches": k3_launches, "lloyd_step_launches": k2_launches})
     return launches, k1, k3, k3_launches, k2, k2_launches
@@ -5010,6 +5477,23 @@ def stream_probe(torch, args, dev) -> int:
     launches, _, _, k3_launches, _, k2_launches = phase_streamed(torch, X_host, y_host, lin, pca_ref, args.seed)
     emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": launches,
           "logreg_loss_grad_launches": k3_launches, "lloyd_step_launches": k2_launches})
+    return 0
+
+
+def wire_probe(torch, args, dev) -> int:
+    """The wire and resume phases alone, on min(``--rows``,
+    STREAM_WIRE_ROWS) rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    n = min(args.rows, STREAM_WIRE_ROWS)
+    X, y = make_data(torch, n, n, args.seed, dev)
+    lin = linreg_data(torch, X, args.seed, paths=("linreg",))["linreg"]
+    X_host, y_host = X.cpu().numpy(), y.cpu().numpy()
+    del X, y
+    torch.cuda.empty_cache()
+    k1, launches = phase_stream_wire(torch, X_host, lin, args.seed)
+    for row, paths in phase_stream_resume(torch, X_host, y_host, args.seed).items():
+        launches.setdefault(row, {}).update(paths)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "shifted_gram_launches": k1, "launches": launches})
     return 0
 
 
@@ -6465,8 +6949,11 @@ def main() -> int:
                          "paths (prints no result line)")
     ap.add_argument("--stream-only", action="store_true",
                     help="a probe: build K1, K3 and K2 alone and run only the streamed phase: the copy, streamed "
-                         "vs resident fits, the 100M-row fits, the parquet scan, the streamed LogisticRegression "
-                         "and the streamed KMeans (prints no result line)")
+                         "vs resident fits, the 100M-row fits, the parquet scan, the streamed LogisticRegression, "
+                         "the streamed KMeans, the wire formats and checkpoint/resume (prints no result line)")
+    ap.add_argument("--wire-only", action="store_true",
+                    help="a probe: build K1, K3 and K2 alone and run only the wire formats and checkpoint/resume "
+                         "phases on min(--rows, STREAM_WIRE_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -6505,7 +6992,7 @@ def main() -> int:
                            else ["lloyd_step", "knn_topk", "umap_sgd_epoch"] if args.ann_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
-                           else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if args.stream_only
+                           else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if args.stream_only or args.wire_only
                            else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
@@ -6537,6 +7024,8 @@ def main() -> int:
         return linreg_probe(torch, args, dev)
     if args.stream_only:
         return stream_probe(torch, args, dev)
+    if args.wire_only:
+        return wire_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA

@@ -262,8 +262,10 @@ class LogisticRegression(
         moments (and variance) in one or two passes, then the host
         L-BFGS/OWL-QN whose every evaluation is one chunked pass through K3.
         Every param map of a ``fitMultiple`` shares the label statistics
-        and the moments."""
+        and the moments. With ``runtime.checkpoint.CKPT_DIR`` set, the
+        solver checkpoints after each iteration and a refit resumes."""
         from ..ops.streaming import streamed_label_stats, streamed_logreg_fit
+        from ..runtime.checkpoint import FitCheckpointer
 
         label_cache: Dict[str, Any] = {}
         moments: Dict[str, Any] = {}
@@ -285,6 +287,25 @@ class LogisticRegression(
                     "objective_dtype=bfloat16 applies to the resident fit "
                     "only; the streaming fit reads chunks at wire dtype"
                 )
+            # checkpoint identity, the JAX package's key for key: the
+            # L-BFGS walk is determined by the objective config and the
+            # data, whose shape stands in for a digest (a content pass
+            # would cost a full extra read)
+            ckpt = FitCheckpointer.from_settings(
+                "logreg",
+                {
+                    "n_classes": n_classes,
+                    "multinomial": multinomial,
+                    "fit_intercept": fit_intercept,
+                    "standardization": bool(params["standardization"]),
+                    "l1": reg * l1_ratio,
+                    "l2": reg * (1.0 - l1_ratio),
+                    "max_iter": int(params["max_iter"]),
+                    "tol": float(params["tol"]),
+                    "n_rows": int(inputs.n_rows),
+                    "d": int(inputs.n_features),
+                },
+            )
             out = streamed_logreg_fit(
                 inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
                 n_classes=n_classes,
@@ -296,6 +317,7 @@ class LogisticRegression(
                 max_iter=int(params["max_iter"]),
                 tol=float(params["tol"]),
                 moments=moments,
+                checkpointer=ckpt if ckpt.enabled else None,
             )
             return {
                 "coef_": out["coef_"],

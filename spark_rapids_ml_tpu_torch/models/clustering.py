@@ -388,14 +388,34 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         chunked passes (``ops.streaming``); the card holds a few chunks and
         the k x d state, the host the min distances of k-means|| (8 bytes a
         row), never the rows. One seed draws the same numbers as the
-        resident fit. No checkpointer: the JAX package's
-        ``FitCheckpointer.from_env("kmeans", ...)`` resume is not ported."""
+        resident fit. With ``runtime.checkpoint.CKPT_DIR`` set, Lloyd
+        checkpoints after each iteration and a refit resumes: it reruns
+        the seeding, which is deterministic, and the digest of its seeds in
+        the identity proves the walk being resumed is this one."""
         from ..ops.streaming import streamed_kmeans_lloyd
+        from ..runtime.checkpoint import FitCheckpointer, array_digest
 
         def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             def lloyd(centers0: np.ndarray, **kw: Any) -> tuple:
+                # checkpoint identity, the JAX package's key for key
+                # ("matmul_dtype": its None, the f32 Lloyd; bf16 raises here)
+                ckpt = FitCheckpointer.from_settings(
+                    "kmeans",
+                    {
+                        "k": int(params["n_clusters"]),
+                        "d": int(inputs.source.n_features),
+                        "n_rows": int(inputs.n_rows),
+                        "max_iter": int(params["max_iter"]),
+                        "tol": float(params["tol"]),
+                        "seed": int(params.get("random_state") or 0),
+                        "init": str(params.get("init")),
+                        "matmul_dtype": str(None),
+                        "centers0": array_digest(centers0),
+                    },
+                )
                 return streamed_kmeans_lloyd(inputs.source, inputs.device, inputs.chunk_rows, inputs.dtype,
-                                             np.asarray(centers0), **kw)
+                                             np.asarray(centers0), checkpointer=ckpt if ckpt.enabled else None,
+                                             **kw)
 
             return self._fit_centres(params, inputs.n_rows, self._stream_owner(inputs), lloyd)
 

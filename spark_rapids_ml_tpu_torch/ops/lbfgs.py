@@ -155,6 +155,7 @@ def minimize_lbfgs_host(
     l1_weights=None,
     history: int = 10,
     max_ls: int = 30,
+    checkpointer=None,
 ) -> LbfgsResult:
     """Host-driven L-BFGS/OWL-QN: the loop and its O(m·p) two-loop
     recursion in float64 numpy, each ``value_grad(w)`` free to make a full
@@ -162,8 +163,14 @@ def minimize_lbfgs_host(
     SMOOTH ``(f, g)``; the L1 term is added here. Returns ``w`` as f64
     numpy and ``f``, ``n_iter``, ``converged`` as Python values.
 
-    The JAX package's checkpointer, fault site and preempt point are not
-    ported (ROADMAP queue 1 items 2e and 7)."""
+    ``checkpointer`` (a ``runtime.FitCheckpointer``, or None) snapshots
+    the whole carry (``w``, ``g``, the ``S``/``Y`` history, ``f`` and
+    ``converged``) after each iteration, and a refit resumes from the last
+    committed one, skipping the evaluations before it: the algorithm is
+    deterministic given the carry, so the resumed walk takes the
+    uninterrupted walk's iterates. The files are cleared at the end. The
+    JAX package's fault site and preempt point are not ported (ROADMAP
+    queue 1 item 7)."""
     w = np.asarray(w0, dtype=np.float64)
     p = w.shape[0]
     use_l1 = l1_weights is not None
@@ -185,7 +192,17 @@ def minimize_lbfgs_host(
     c1 = 1e-4
     it = 0
     converged = False
-    f, g = full_obj(w)
+    resumed = checkpointer.load() if checkpointer is not None else None
+    if resumed is not None:
+        it, arrays, extra = resumed
+        w = np.asarray(arrays["w"], np.float64)
+        g = np.asarray(arrays["g"], np.float64)
+        S = [np.asarray(row, np.float64) for row in arrays["S"]]
+        Y = [np.asarray(row, np.float64) for row in arrays["Y"]]
+        f = float(extra["f"])
+        converged = bool(extra.get("converged", False))
+    else:
+        f, g = full_obj(w)
     while it < max_iter and not converged:
         pg = pseudo_grad(w, g) if use_l1 else g
         # two-loop recursion over the (oldest -> newest) history
@@ -242,4 +259,13 @@ def minimize_lbfgs_host(
         converged = rel_impr <= tol or dir_deriv >= 0.0
         w, f, g = w_new, f_t, g_t
         it += 1
+        if checkpointer is not None:
+            checkpointer.maybe_save(
+                it,
+                {"w": w, "g": g, "S": np.stack(S) if S else np.zeros((0, p)),
+                 "Y": np.stack(Y) if Y else np.zeros((0, p))},
+                {"f": f, "converged": bool(converged)},
+            )
+    if checkpointer is not None:
+        checkpointer.clear()
     return LbfgsResult(w=w, f=float(f), n_iter=int(it), converged=bool(converged))

@@ -45,9 +45,22 @@ candidates into a host f64 array (:func:`streamed_min_sq_dists_update`,
 the plain distance product) and the candidates' closest-row counts
 (:func:`streamed_count_closest`, K2's counts).
 
-Not ported (ROADMAP): the wire formats and checkpoint/resume, the retry
-budget and chunk halving of ``stage_chunks``, fault sites, preempt points,
-telemetry spans, ops-plane gauges and autotune consults, per-host file
+Wire formats (``WIRE_DTYPE``, or ``wire=`` of :func:`iter_device_chunks`
+for one loop): the staging thread encodes each chunk's ``X`` as f32 (the
+default), f16, per-column affine int8 or scaled e4m3 f8 (:func:`put_chunk`;
+the bytes are the JAX package's), the ring moves the narrow buffer and its
+O(d) scales, and the card dequantizes it on the ring's copy stream, so the
+folds and kernels K1/K2/K3 read an f32 ``X`` as before; ``auto`` picks a
+pass's encoding from its first chunk (:func:`select_wire_format`).
+
+Checkpoint/resume: the streamed LogisticRegression (through
+``ops.lbfgs.minimize_lbfgs_host``) and the streamed Lloyd take a
+``runtime.checkpoint.FitCheckpointer`` and resume from its last committed
+iteration.
+
+Not ported (ROADMAP): the retry budget and chunk halving of
+``stage_chunks``, fault sites, preempt points, telemetry spans, ops-plane
+gauges and autotune consults (the wire's among them), per-host file
 sharding, the blocked (mp) Gram and the cross-process sums of partials and
 label summaries (the identity on one process).
 """
@@ -55,6 +68,7 @@ label summaries (the identity on one process).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -65,6 +79,7 @@ import torch
 
 from ..data.chunks import Chunk, ChunkSource
 from ..parallel.mesh import _np_dtype, _torch_dtype, pinned_ring
+from ..utils.logging import get_logger
 from .kmeans_kernels import lloyd_step, min_sq_dists
 from .lbfgs import minimize_lbfgs_host
 from .linalg import shifted_gram
@@ -96,9 +111,12 @@ def reset_ingest_report() -> None:
 
 def last_ingest_report() -> Dict[str, Any]:
     """Copy of the report of the passes since the last reset: the ring
-    depths, the passes by name and their wall seconds by name (``pass_s``),
-    the chunks folded and the bytes staged, and the seconds in decode (host), host → page-locked copies (host),
-    waits for a page-locked buffer to come free (host), host → device
+    depths, the wire encoding of the last pass (``wire_dtype``), the passes
+    by name and their wall seconds by name (``pass_s``), the chunks folded
+    and the bytes the card was sent (at the wire's width, scales included;
+    0 on the CPU), and the seconds in decode (host), wire encoding (host,
+    ``encode_s``), host → page-locked copies (host), waits for a
+    page-locked buffer to come free (host), host → device
     copies (card: each chunk's span on the copy stream, from its first
     piece's start to its last's end, so including any wait for the host to
     fill a buffer; absent on the CPU), and the fold (the caller's loop body
@@ -237,57 +255,221 @@ def prefetch_chunks(it, depth: Optional[int] = None):
     yield from _queue_ring(produce, depth, "chunk-prefetch")
 
 
+# ---------------------------------------------------------------------------
+# Wire formats: fewer bytes over the host -> device link
+# ---------------------------------------------------------------------------
+
+# the wire encoding of streamed feature chunks, the JAX package's
+# TPUML_WIRE_DTYPE: "f32" ships the storage dtype unchanged (the default),
+# "f16" downcasts on the host and upcasts on the card, "int8" / "f8"
+# quantize per chunk column on the host (affine / e4m3 scaled) and
+# dequantize on the card, "auto" probes the first chunk of a pass
+WIRE_DTYPE = "f32"
+_WIRE_KINDS = ("f32", "f16", "int8", "f8", "auto")
+
+# float8 e4m3 finite max (S.1111.110 -> 448); quantization maps each
+# column's observed absmax onto it
+_F8_MAX = 448.0
+
+# auto-probe acceptance thresholds: relative RMS reconstruction error of
+# the first chunk under each encoding
+_AUTO_INT8_TOL = 2e-2
+_AUTO_F16_TOL = 2e-3
+
+_WIRE_LOGGER = get_logger("streaming.wire")
+
+
+def _quantize_int8(x: np.ndarray, n_valid: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-chunk-column affine int8: ``x ~ q * scale + offset``.
+
+    Ranges come from the valid rows only (padding rows quantize to
+    whatever clips: every fold step multiplies them away by the mask). A
+    constant column gets scale 1 so the reconstruction is exact. The bytes
+    are the JAX package's."""
+    v = x[:n_valid] if 0 < n_valid < x.shape[0] else x
+    lo = v.min(axis=0).astype(np.float32)
+    hi = v.max(axis=0).astype(np.float32)
+    scale = ((hi - lo) / np.float32(254.0)).astype(np.float32)
+    scale = np.where(scale > 0, scale, np.float32(1.0))
+    offset = ((hi + lo) * np.float32(0.5)).astype(np.float32)
+    # in place: this runs a chunk on the staging thread, so no stack of
+    # chunk-sized temporaries
+    q = x - offset
+    q /= scale
+    np.rint(q, out=q)
+    np.clip(q, -127, 127, out=q)
+    return q.astype(np.int8), scale, offset
+
+
+def _f8_supported() -> bool:
+    """True where torch has the e4m3 dtype the f8 wire encodes with."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+def _quantize_f8(x: np.ndarray, n_valid: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-chunk-column scaled e4m3: ``x ~ q * scale`` with each column's
+    absmax mapped to the f8 finite max (no offset). ``q`` is the e4m3 bytes
+    as ``uint8``, cast by torch (numpy has no e4m3 without ``ml_dtypes``):
+    round to nearest even, as ``ml_dtypes`` rounds. Past 464 torch
+    saturates to 448 where ``ml_dtypes`` gives NaN, but a scaled value
+    exceeds 448 by at most its rounding, so the bytes are the JAX
+    package's."""
+    v = x[:n_valid] if 0 < n_valid < x.shape[0] else x
+    amax = np.abs(v).max(axis=0).astype(np.float32)
+    scale = np.where(amax > 0, amax / np.float32(_F8_MAX), np.float32(1.0))
+    q = torch.from_numpy(np.ascontiguousarray(x / scale)).to(torch.float8_e4m3fn).view(torch.uint8)
+    return q.numpy(), scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, offset: Optional[torch.Tensor], wire: str,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The dense chunk of a quantized wire buffer, as the JAX package's
+    ``QuantizedWire.dense``: ``q`` upcast, times ``scale``, then plus
+    ``offset`` (absent for f8), each step rounded to ``dtype``."""
+    if wire == "f8":
+        q = q.view(torch.float8_e4m3fn)
+    x = q.to(dtype)
+    x.mul_(scale.to(dtype))
+    if offset is not None:
+        x.add_(offset.to(dtype))
+    return x
+
+
+def resolve_wire_dtype(requested: Optional[str] = None) -> str:
+    """``requested``, or ``WIRE_DTYPE`` where None, checked: ``ValueError``
+    for anything but f32, f16, int8, f8 or auto."""
+    kind = WIRE_DTYPE if requested is None else requested
+    if kind not in _WIRE_KINDS:
+        raise ValueError(f"wire dtype {kind!r} must be one of {', '.join(_WIRE_KINDS)}")
+    return kind
+
+
+def _probe_quant_error(x: np.ndarray, kind: str) -> float:
+    """Relative RMS reconstruction error of encoding ``x`` as ``kind``."""
+    v = np.asarray(x, np.float32)
+    if kind == "int8":
+        q, scale, offset = _quantize_int8(v, v.shape[0])
+        rec = q.astype(np.float32) * scale + offset
+    else:  # f16
+        rec = v.astype(np.float16).astype(np.float32)
+    rms = float(np.sqrt(np.mean(v * v)))
+    return float(np.sqrt(np.mean((rec - v) ** 2))) / max(rms, 1e-12)
+
+
+def select_wire_format(sample_X: np.ndarray, requested: Optional[str] = None) -> str:
+    """The wire encoding of one streaming pass (never ``auto``), from its
+    first chunk: ``requested`` (None: ``WIRE_DTYPE``); non-float storage
+    ships as ``f32``; ``auto`` takes int8 where the chunk's int8
+    reconstruction error is within ``_AUTO_INT8_TOL``, else f16 within
+    ``_AUTO_F16_TOL``, else f32; an explicit request is never second-
+    guessed, but f8 on a torch without e4m3 warns and ships f16."""
+    kind = resolve_wire_dtype(requested)
+    x = np.asarray(sample_X)
+    if x.dtype.kind != "f":
+        return "f32"
+    if kind == "auto":
+        err8 = _probe_quant_error(x, "int8")
+        if err8 <= _AUTO_INT8_TOL:
+            kind = "int8"
+        elif _probe_quant_error(x, "f16") <= _AUTO_F16_TOL:
+            kind = "f16"
+        else:
+            kind = "f32"
+        _WIRE_LOGGER.info("wire auto: int8 probe error %.2e -> wire %s", err8, kind)
+    if kind == "f8" and not _f8_supported():
+        _WIRE_LOGGER.warning("wire f8 requested but this torch has no float8_e4m3fn; falling back to f16")
+        kind = "f16"
+    return kind
+
+
+def _encode(x: np.ndarray, n_valid: int, wire: str, np_dtype: np.dtype):
+    """``(X as it ships, scale, offset)`` of a host chunk at the resolved
+    ``wire``: int8 / f8 quantized with their O(d) scales (f8: no offset);
+    a float narrower than ``np_dtype`` (f16 storage) as it is; f16 a
+    downcast; else ``X`` in ``np_dtype``."""
+    if wire in ("int8", "f8") and x.dtype.kind == "f":
+        if wire == "int8":
+            return _quantize_int8(x, n_valid)
+        return (*_quantize_f8(x, n_valid), None)
+    if x.dtype.kind == "f" and x.dtype.itemsize < np_dtype.itemsize:
+        return x, None, None
+    if wire == "f16" and x.dtype.kind == "f" and x.dtype.itemsize > 2:
+        return x.astype(np.float16), None, None
+    return np.asarray(x, dtype=np_dtype), None, None
+
+
 def put_chunk(
     chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.float32, *,
-    need_y: bool = True, need_w: bool = True,
+    need_y: bool = True, need_w: bool = True, wire: str = "f32",
 ) -> Dict[str, Any]:
     """Copy one host chunk onto ``device``: ``X``, ``mask`` (1 for the
     chunk's ``n_valid`` rows, 0 for its padding), and ``y`` / ``w`` where
     the chunk has them and ``need_y`` / ``need_w`` ask for them (a step
     that does not read a column must not pay for its copy).
 
-    A chunk stored in a float narrower than ``dtype`` (f16 parquet) is
-    copied as it is and upcast on the card. On a card every copy goes
+    ``wire`` is a resolved :func:`select_wire_format` value (never
+    ``auto``): int8 / f8 quantize ``X`` per chunk column on the host and
+    ship the 1-byte buffer with its O(d) ``scale`` (and int8's ``offset``),
+    dequantized on the card (:func:`_dequantize`); f16 downcasts on the
+    host. A chunk stored in a float narrower than ``dtype`` (f16 parquet,
+    or the f16 wire) is copied as it is and upcast on the card. So every
+    fold reads an f32 ``X``; the narrow buffer is dropped once the upcast
+    is enqueued behind it on the same stream. On a card every copy goes
     through the page-locked staging ring on its copy stream and the tensors
     are made on that stream; ``_ready`` is the event after them, for which
     a reader on another stream must wait (:func:`iter_device_chunks` does).
     ``_h2d`` is the pair of timing events around the copies, ``_bytes`` the
-    host bytes moved."""
+    host bytes moved, ``_encode_s`` the host seconds of the encoding."""
     np_dtype = _np_dtype(dtype)
-    x_host = np.asarray(chunk.X)
-    if not (x_host.dtype.kind == "f" and x_host.dtype.itemsize < np_dtype.itemsize):
-        x_host = np.asarray(x_host, dtype=np_dtype)
+    t0 = time.perf_counter()
+    x_host, scale, offset = _encode(np.asarray(chunk.X), chunk.n_valid, wire, np_dtype)
+    encode_s = time.perf_counter() - t0
     host = {
         "X": x_host,
+        "scale": scale,
+        "offset": offset,
         "y": None if chunk.y is None or not need_y else np.asarray(chunk.y, dtype=np_dtype),
         "w": None if chunk.w is None or not need_w else np.asarray(chunk.w, dtype=np_dtype),
     }
     rows = x_host.shape[0]
     if device.type != "cuda":
-        out: Dict[str, Any] = {k: None if a is None else torch.from_numpy(np.array(a)).to(dtype)
-                               for k, a in host.items()}
-        out.update(mask=torch.from_numpy(chunk.mask(np_dtype)), _ready=None, _h2d=None, _bytes=0)
+        dev = {k: None if a is None else torch.from_numpy(np.array(a)) for k, a in host.items()}
+        out = _dense_columns(dev, wire, dtype)
+        out.update(mask=torch.from_numpy(chunk.mask(np_dtype)), _ready=None, _h2d=None, _bytes=0,
+                   _encode_s=encode_s)
         return out
     ring = pinned_ring(device)
-    out = {}
+    dev = {}
     nbytes = 0
     with ring.lock, torch.cuda.stream(ring.stream):
         start = torch.cuda.Event(enable_timing=True)
         start.record(ring.stream)
         for k, a in host.items():
             if a is None:
-                out[k] = None
+                dev[k] = None
                 continue
             t = torch.empty(a.shape, dtype=_torch_dtype(a.dtype), device=device)
             ring.copy(t, a)
             nbytes += a.nbytes
-            out[k] = t.to(dtype)  # the upcast of narrow storage, on the card
+            dev[k] = t
+        out = _dense_columns(dev, wire, dtype)  # the dequantize / upcast, on the card
         mask = torch.zeros((rows,), dtype=dtype, device=device)
         mask[: chunk.n_valid] = 1.0
         out["mask"] = mask
         ready = torch.cuda.Event(enable_timing=True)
         ready.record(ring.stream)
-    out.update(_ready=ready, _h2d=(start, ready), _bytes=nbytes)
+    out.update(_ready=ready, _h2d=(start, ready), _bytes=nbytes, _encode_s=encode_s)
+    return out
+
+
+def _dense_columns(dev: Dict[str, Optional[torch.Tensor]], wire: str, dtype: torch.dtype) -> Dict[str, Any]:
+    """``X``, ``y``, ``w`` in ``dtype`` from the tensors as they were
+    shipped: ``X`` dequantized where it came with a ``scale``."""
+    out: Dict[str, Any] = {k: None if dev[k] is None else dev[k].to(dtype) for k in ("y", "w")}
+    if dev["scale"] is not None:
+        out["X"] = _dequantize(dev["X"], dev["scale"], dev["offset"], wire, dtype)
+    else:
+        out["X"] = dev["X"].to(dtype)
     return out
 
 
@@ -304,19 +486,20 @@ def _await_chunk(dev: Dict[str, Any], stream: Optional[torch.cuda.Stream]) -> No
 
 
 def stage_chunks(chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.float32, *,
-                 need_y: bool = True, need_w: bool = True):
+                 need_y: bool = True, need_w: bool = True, wire: str = "f32"):
     """Stage ``chunk`` on ``device``: yields one ``(chunk, dev)`` pair (the
     JAX package's retry budget and chunk halving are not ported)."""
-    yield chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w)
+    yield chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
 
 
 def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: bool, need_w: bool,
-                   depth: int):
-    """The staging ring stage: a thread pulls decoded chunks and stages
-    them (:func:`put_chunk`) up to ``depth`` ahead of the consumer, so the
-    fold and the StreamGuard's waits do not serialize against the copies.
-    Yields ``(chunk, dev)`` in source order; the seconds of host →
-    page-locked copies and of buffer waits go to the ingest report."""
+                   wire: str, depth: int):
+    """The staging ring stage: a thread pulls decoded chunks, encodes them
+    for the ``wire`` and stages them (:func:`put_chunk`) up to ``depth``
+    ahead of the consumer, so the fold and the StreamGuard's waits do not
+    serialize against the encoding and the copies. Yields ``(chunk, dev)``
+    in source order; the seconds of host → page-locked copies and of
+    buffer waits go to the ingest report."""
     ring = pinned_ring(device) if device.type == "cuda" else None
 
     def produce(put):
@@ -325,7 +508,7 @@ def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: 
         host0, wait0 = (ring.host_s, ring.wait_s) if ring is not None else (0.0, 0.0)
         try:
             for chunk in chunks:
-                if not put((chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w))):
+                if not put((chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire))):
                     return
         finally:
             if ring is not None:
@@ -343,24 +526,33 @@ def iter_device_chunks(
     need_y: bool = True,
     need_w: bool = True,
     pass_name: str = "pass",
+    wire: Optional[str] = None,
 ) -> Iterator[Tuple[Chunk, Dict[str, Any]]]:
     """The ingest pipeline of every streaming loop: yields ``(chunk, dev)``
     in source order, ``dev`` ready to read on the caller's current stream.
-    Adds this pass to the ingest report (:func:`last_ingest_report`) under
-    ``pass_name``."""
+    The wire encoding is resolved once, from the first chunk
+    (:func:`select_wire_format`; ``wire`` None: ``WIRE_DTYPE``), and every
+    chunk of the pass ships in it. Adds this pass to the ingest report
+    (:func:`last_ingest_report`) under ``pass_name``."""
+    requested = resolve_wire_dtype(wire)
     np_dtype = _np_dtype(dtype)
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
     it = prefetch_chunks(source.iter_chunks(chunk_rows, np_dtype))
-    if _STAGE_DEPTH > 0:
-        staged = _staged_chunks(it, device, dtype, need_y=need_y, need_w=need_w, depth=_STAGE_DEPTH)
-    else:
-        staged = (pair for chunk in it for pair in stage_chunks(
-            chunk, device, dtype, need_y=need_y, need_w=need_w))
     h2d, folds = [], []
     n_chunks = nbytes = 0
-    fold_s = 0.0
+    fold_s = encode_s = 0.0
+    kind = None
     t_pass = time.perf_counter()
     try:
+        first = next(it, None)
+        kind = "f32" if first is None else select_wire_format(first.X, requested)
+        chunks = iter(()) if first is None else itertools.chain([first], it)
+        if _STAGE_DEPTH > 0:
+            staged = _staged_chunks(chunks, device, dtype, need_y=need_y, need_w=need_w, wire=kind,
+                                    depth=_STAGE_DEPTH)
+        else:
+            staged = (pair for chunk in chunks for pair in stage_chunks(
+                chunk, device, dtype, need_y=need_y, need_w=need_w, wire=kind))
         with contextlib.closing(staged) as staged_it:
             for chunk, dev in staged_it:
                 _await_chunk(dev, stream)
@@ -378,6 +570,7 @@ def iter_device_chunks(
                     folds.append((ev0, ev1))
                 n_chunks += 1
                 nbytes += dev["_bytes"]
+                encode_s += dev["_encode_s"]
     finally:
         it.close()
         card = {}
@@ -388,10 +581,12 @@ def iter_device_chunks(
                     "fold_device_s": sum(a.elapsed_time(b) for a, b in folds) / 1e3}
         wall = time.perf_counter() - t_pass
         _report_add(passes={pass_name: 1}, pass_s={pass_name: wall}, chunks=n_chunks, bytes=nbytes,
-                    fold_s=fold_s, wall_s=wall, **card)
+                    encode_s=encode_s, fold_s=fold_s, wall_s=wall, **card)
         with _INGEST_LOCK:
             _INGEST.update(prefetch_depth=_PREFETCH_DEPTH, stage_depth=_STAGE_DEPTH, sync_every=_SYNC_EVERY,
                            chunk_rows=int(chunk_rows))
+            if kind is not None:
+                _INGEST["wire_dtype"] = kind
 
 
 # ---------------------------------------------------------------------------
@@ -638,6 +833,7 @@ def streamed_logreg_fit(
     tol: float,
     history: int = 10,
     moments: Optional[Dict[str, Any]] = None,
+    checkpointer=None,
 ) -> Dict[str, Any]:
     """Out-of-core LogisticRegression: :func:`minimize_lbfgs_host` whose
     every evaluation is one chunked pass, each chunk folded through K3
@@ -649,8 +845,10 @@ def streamed_logreg_fit(
     coefficients, never on intercepts; standardization folds into the
     effective coefficients, formed once an evaluation; multinomial
     intercepts are centred. ``moments``: a cache shared across calls
-    (:func:`streamed_logreg_moments`). Returns ``coef_`` (K, d) and
-    ``intercept_`` (K,) as f32 numpy, ``n_iter`` and ``objective``."""
+    (:func:`streamed_logreg_moments`). ``checkpointer``: the solver's
+    (:func:`minimize_lbfgs_host`); a resumed fit reruns the moment passes
+    and skips the evaluations before its checkpoint. Returns ``coef_`` (K,
+    d) and ``intercept_`` (K,) as f32 numpy, ``n_iter`` and ``objective``."""
     d = source.n_features
     np_dtype = _np_dtype(dtype)
     moments = streamed_logreg_moments(source, device, chunk_rows, dtype, variance=standardization, cache=moments)
@@ -686,7 +884,8 @@ def streamed_logreg_fit(
         return float(acc["f"]) / n + 0.5 * l2 * float(coefs @ coefs), g / n + l2 * coefs
 
     res = minimize_lbfgs_host(value_grad, np.zeros((p,)), max_iter=max_iter, tol=tol,
-                              l1_weights=(l1 * coef_mask) if l1 > 0.0 else None, history=history)
+                              l1_weights=(l1 * coef_mask) if l1 > 0.0 else None, history=history,
+                              checkpointer=checkpointer)
     coef, intercept = logreg_effective(*unpack(res.w), mean, inv_std, use_center)
     if fit_intercept and K > 1:
         intercept = intercept - intercept.mean()
@@ -750,6 +949,7 @@ def streamed_kmeans_lloyd(
     max_iter: int,
     tol: float,
     shifts: Optional[list] = None,
+    checkpointer=None,
 ) -> Tuple[np.ndarray, float, int]:
     """Out-of-core Lloyd: one chunked pass an iteration (a ``lloyd`` pass
     in the ingest report) folds every chunk through K2 into ``(sums,
@@ -760,8 +960,14 @@ def streamed_kmeans_lloyd(
     runs while ``it < max_iter`` and the largest squared centre shift of the
     last iteration is above ``tol²`` (each one appended to ``shifts``
     where given); a final ``cost`` pass at the last centres follows.
-    Returns ``(centers, cost, n_iter)`` as host values. No checkpointer
-    (the JAX package's ``checkpointer=`` is not ported)."""
+    Returns ``(centers, cost, n_iter)`` as host values.
+
+    ``checkpointer`` (a ``runtime.FitCheckpointer``, or None) snapshots the
+    centres and the last shift after each iteration; a refit resumes from
+    the last committed iteration (Lloyd is deterministic given the
+    centres, so it walks the same centres and stops at the same iteration;
+    ``shifts`` then holds the resumed iterations' only) and clears the
+    files after the final cost pass."""
     np_dtype = _np_dtype(dtype)
     k, d = centers0.shape
     centers = np.asarray(centers0, np_dtype)
@@ -782,6 +988,11 @@ def streamed_kmeans_lloyd(
 
     it = 0
     prev_shift = np.inf
+    resumed = checkpointer.load() if checkpointer is not None else None
+    if resumed is not None:
+        it, arrays, extra = resumed
+        centers = np.asarray(arrays["centers"], np_dtype)
+        prev_shift = float(extra["prev_shift"])
     while it < max_iter and prev_shift > tol * tol:
         acc = one_pass(centers, "lloyd")
         sums = acc["sums"].cpu().numpy().astype(np.float64)
@@ -794,7 +1005,11 @@ def streamed_kmeans_lloyd(
             shifts.append(prev_shift)
         centers = new_centers.astype(np_dtype)
         it += 1
+        if checkpointer is not None:
+            checkpointer.maybe_save(it, {"centers": centers}, {"prev_shift": prev_shift})
     final = one_pass(centers, "cost")
+    if checkpointer is not None:
+        checkpointer.clear()
     return centers, float(final["cost"]), it
 
 
