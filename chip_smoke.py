@@ -285,6 +285,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    uninterrupted fit bit for bit, KMeans within its band. Their K2 and K3
    launches are the ``stream_wire`` and ``stream_resume`` paths of the
    streamed rows, their K1 launches in ``streamed``.
+5. float64 inputs (q, ``phase_f64``): the first 1,572,864 host rows in f64
+   (3.2 GB at d = 256) with ``float32_inputs=False``: PCA(k=16), the
+   three-config LinearRegression ``fitMultiple``, binomial
+   LogisticRegression(maxIter 20) on labels no hyperplane separates,
+   KMeans(k=1024, random, maxIter 5), streamed PCA(k=16) and
+   LogisticRegression(maxIter 5) at 131,072-row chunks, each beside the same
+   fit at f32, with seconds and peak device memory, and the four
+   transforms (f64 columns; KMeans' int32). Truths on the card in f64: the
+   covariance as one product with ``eigh``, OLS from the normal equations,
+   an f64 L-BFGS of the phase's own objective. The f64 PCA and OLS fits
+   within the f64 ``held`` band (u = 2⁻⁵³) of their truths and the f32 fits
+   outside it (the negative control); the streamed f64 fits against the
+   resident ones within 8·√n·u (PCA entry by entry, LogisticRegression on
+   its f64 objective); LogisticRegression within the JAX package's f64
+   test tolerance of its truth; KMeans f64 against f32 on >= 99.9% of
+   predictions, costs within the f32 band. The f64 fits launch no K1, K2
+   or K3 and call no plain version; the f32 fits launch each (the
+   ``f64_phase_f32`` path of the ``shifted_gram``, ``lloyd_step``,
+   ``logreg_loss_grad`` and ``logreg_loss_grad_stream_rows`` rows); each
+   wrapper given an f64 card tensor raises.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -361,6 +381,12 @@ prints no result line.
 
 is a probe of the streamed path: K1, K3 and K2 alone built, the streamed
 phase alone on ``--rows`` rows. It prints no result line.
+
+    python3 chip_smoke.py --f64-only
+
+is a probe of the float64 phase (q): K1, K3 and K2 alone built, the phase
+alone on F64_ROWS rows made from ``--seed`` (fewer with a smaller
+``--rows``). It prints no result line.
 
     python3 chip_smoke.py --wire-only
 
@@ -3325,7 +3351,7 @@ def linreg_labels(torch, X, seed):
     return (z + b + rng.normal(scale=sigma, size=n)).astype(np.float32), sigma
 
 
-def ols_reference(torch, X, y):
+def ols_reference(torch, X, y, u=U32):
     """OLS on the card's rows ``X`` in f64, in row chunks: the exact means,
     the centred Gram G and Xᵀy, solved as the port's ``solve_normal``
     solves (standardized, with its jitter eps(f32)·trace(A)·I), and the
@@ -3337,7 +3363,9 @@ def ols_reference(torch, X, y):
     K1's entry band ``held`` allows on G, u(8·T + 4√n·|G|) with T =
     |Xc|ᵀ|Xc|, plus the Cholesky solve's backward error γ(3d+1)·‖|L||L|ᵀ‖,
     each over ‖A‖; and ε_b the same band on Xy (T = |Xc|ᵀ|yc|) over ‖b‖.
-    The intercept's follows: |δb₀| ≤ ‖D⁻¹μ‖·‖Dδβ‖ plus the means' band."""
+    The intercept's follows: |δb₀| ≤ ‖D⁻¹μ‖·‖Dδβ‖ plus the means' band.
+    ``u``: the unit roundoff of the fit held (2⁻⁵³ for a float64 fit,
+    whose solve's jitter is then eps(f64)·trace(A)·I)."""
     n, d = X.shape
     f64 = torch.float64
     dev = X.device
@@ -3360,27 +3388,28 @@ def ols_reference(torch, X, y):
         Xy += xc.T @ yc
         Ty += a.T @ yc.abs()
         del xc, a
-    return ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my)
+    return ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my, u=u)
 
 
-def ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my, terms=TOL_TERMS, walk=None):
+def ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my, terms=TOL_TERMS, walk=None, u=U32):
     """``ols_reference``'s solve and tolerance from its f64 sums over n
     rows: the centred G and Xᵀy, and T = |Xc|ᵀ|Xc|, |Xc|ᵀ|yc|; the band
-    u·(terms·T + walk·|G|), ``walk`` TOL_WALK·√n unless given."""
+    u·(terms·T + walk·|G|), ``walk`` TOL_WALK·√n unless given, the jitter
+    the fit's own eps = 2u."""
     d, f64, dev = G.shape[0], G.dtype, G.device
     walk = TOL_WALK * n ** 0.5 if walk is None else walk
     std = torch.sqrt(torch.diagonal(G) / n)
     A = G / n / torch.outer(std, std)
     b = Xy / n / std
     eye = torch.eye(d, dtype=f64, device=dev)
-    A = A + float(np.finfo(np.float32).eps) * torch.trace(A) * eye
+    A = A + 2.0 * u * torch.trace(A) * eye
     L = torch.linalg.cholesky(A)
     beta_s = torch.cholesky_solve(b[:, None], L)[:, 0]
     ev = torch.linalg.eigvalsh(A)
     kappa = float(ev[-1] / ev[0])
-    band_G = U32 * (terms * TG + walk * G.abs()) / n / torch.outer(std, std)
-    band_b = U32 * (terms * Ty + walk * Xy.abs()) / n / std
-    g = (3 * d + 1) * U32
+    band_G = u * (terms * TG + walk * G.abs()) / n / torch.outer(std, std)
+    band_b = u * (terms * Ty + walk * Xy.abs()) / n / std
+    g = (3 * d + 1) * u
     LL = L.abs() @ L.abs().T  # symmetric, so its 2-norm is its top eigenvalue
     eps_gram = float(torch.linalg.matrix_norm(band_G) / ev[-1])
     eps_chol = g / (1 - g) * float(torch.linalg.eigvalsh(LL)[-1] / ev[-1])
@@ -3392,7 +3421,7 @@ def ols_solve_reference(torch, n, G, TG, Xy, Ty, mx, my, terms=TOL_TERMS, walk=N
     b0 = my - mx @ beta
     mu_terms = float(my.abs() + (mx.abs() @ beta.abs()))
     tol_b = (float(torch.linalg.vector_norm(mx / std)) * tol * float(torch.linalg.vector_norm(beta_s))
-             + U32 * (terms + walk) * mu_terms)
+             + u * (terms + walk) * mu_terms)
     host = lambda t: t.cpu().numpy()
     return {"beta": host(beta), "intercept": float(b0), "std": host(std), "kappa": kappa, "eps_gram": eps_gram,
             "eps_chol": eps_chol, "eps_b": eps_b, "coef_tol": tol, "intercept_tol": tol_b}
@@ -3640,7 +3669,7 @@ def f64_sums(torch, blocks, y_blocks=None):
     return out
 
 
-def pca_truth(torch, sums, k, terms, walk):
+def pca_truth(torch, sums, k, terms, walk, u=U32):
     """The f64 PCA of ``f64_sums`` and the bands a f32 fit must meet.
 
     A covariance entry of the fit is within u·(terms·T + walk·|G|)/(n-1)
@@ -3651,18 +3680,19 @@ def pca_truth(torch, sums, k, terms, walk):
     eigenvalue is within E + d·u·‖C‖ (Weyl), and the sine of the largest
     angle between the fitted and the true top-k subspace within (E +
     d·u·‖C‖)/(λ_k - λ_(k+1)) (Davis-Kahan). The mean is within
-    u·(terms + walk)·mean|x| a column."""
+    u·(terms + walk)·mean|x| a column. ``u``: the fit's unit roundoff
+    (2⁻⁵³ for a float64 fit)."""
     n, G = sums["n"], sums["G"]
     d = G.shape[0]
     C = G / (n - 1)
     evals, evecs = torch.linalg.eigh(C)
     evals, evecs = evals.flip(0), evecs.flip(1)
-    band = U32 * (terms * sums["TG"] + walk * G.abs()) / (n - 1)
-    E = float(torch.linalg.matrix_norm(band)) + d * U32 * float(evals[0])
+    band = u * (terms * sums["TG"] + walk * G.abs()) / (n - 1)
+    E = float(torch.linalg.matrix_norm(band)) + d * u * float(evals[0])
     gap = float(evals[k - 1] - evals[k])
     return {"n": n, "mean": sums["mx"].cpu().numpy(), "ev": evals[:k].cpu().numpy(), "V": evecs[:, :k],
             "ev_tol": E, "gap": gap, "sin_tol": E / gap, "lambda_1": float(evals[0]),
-            "mean_tol": (U32 * (terms + walk) * sums["abs_mean"]).cpu().numpy()}
+            "mean_tol": (u * (terms + walk) * sums["abs_mean"]).cpu().numpy()}
 
 
 def pca_errors(torch, model, truth):
@@ -5497,6 +5527,301 @@ def wire_probe(torch, args, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# float64 inputs: the main path's fits at float32_inputs=False
+# ---------------------------------------------------------------------------
+
+# the first rows of the 12M (the wire phase's count), in f64: 3.2 GB at the
+# main path's width
+F64_ROWS = 1_572_864
+F64_K = 16
+F64_KM_K = 1024
+F64_KM_ITER = 5
+F64_LR_ITER = 20
+F64_STREAM_LR_ITER = 5
+# a penalty that keeps the phase's labels' fit bounded
+F64_LR_REG = 1e-3
+# the JAX package's f64 LogisticRegression tests hold coefficients at atol 1e-4
+F64_LR_ATOL = 1e-4
+F64_KM_AGREE_MIN = 0.999
+U64 = 2.0 ** -53
+
+
+def f64_labels(torch, X, seed):
+    """Binomial labels no hyperplane separates (the e2e labels are a
+    hyperplane's): p = sigmoid(2·(z - median z) / std z) for z = X·w, w ~
+    N(0, 1) and the draws from numpy's ``seed`` (the product on the card in
+    f64). Returns host f64 labels."""
+    rng = np.random.default_rng(seed + 26)
+    w = torch.from_numpy(rng.normal(size=X.shape[1])).to(X.device)
+    z = X.to(torch.float64) @ w
+    z = 2.0 * (z - z.median()) / z.std()
+    p = torch.sigmoid(z).cpu().numpy()
+    return (rng.random(p.shape[0]) < p).astype(np.float64)
+
+
+class LrObjective64:
+    """The binomial LogisticRegression objective in f64 on the card, the
+    phase's own (no port code): the mean log-loss of the logits X·(a·s) + b
+    - (a·s)·μ in the solver's standardized coordinates (s = 1/std, the
+    unbiased std; μ the mean), plus l2/2·‖a‖²; value and gradient in closed
+    form, for ``minimize_lbfgs_host``."""
+
+    def __init__(self, torch, X, y, l2):
+        self.torch, self.X, self.y, self.l2 = torch, X, y, l2
+        self.n, self.d = X.shape
+        self.mean = X.mean(dim=0)
+        std = ((X - self.mean) ** 2).sum(dim=0).div(self.n - 1).sqrt()
+        self.inv_std = torch.where(std > 0, 1.0 / std, torch.ones_like(std))
+        self.std = std
+
+    def effective(self, w):
+        w = self.torch.from_numpy(np.asarray(w, np.float64)).to(self.X.device)
+        A = w[:self.d] * self.inv_std
+        return w, A, w[self.d] - A @ self.mean
+
+    def __call__(self, w_np):
+        torch = self.torch
+        w, A, b = self.effective(w_np)
+        z = self.X @ A + b
+        f = float((torch.nn.functional.softplus(z) - self.y * z).mean()) + 0.5 * self.l2 * float(w[:self.d] @ w[:self.d])
+        r = torch.sigmoid(z) - self.y
+        gb = r.mean()
+        gA = ((self.X.T @ r) / self.n - gb * self.mean) * self.inv_std + self.l2 * w[:self.d]
+        return f, torch.cat([gA, gb[None]]).cpu().numpy()
+
+    def objective_of(self, coef, intercept):
+        """The f64 objective of a fitted model's (coef, intercept) in
+        original coordinates, its penalty on coef·std."""
+        torch = self.torch
+        a = torch.from_numpy(np.asarray(coef, np.float64).reshape(-1)).to(self.X.device)
+        z = self.X @ a + float(np.asarray(intercept).reshape(-1)[0])
+        return float((torch.nn.functional.softplus(z) - self.y * z).mean()) + 0.5 * self.l2 * float(
+            ((a * self.std) ** 2).sum())
+
+
+@contextlib.contextmanager
+def kernel_counts(lin, kk, lk):
+    """While open: the launches of K1, K2 and K3 and the calls of their plain
+    versions (none may come on the card), read as ``rec()``."""
+    plain = {"shifted_gram_plain": 0, "lloyd_step_plain": 0, "logreg_loss_grad_plain": 0}
+    reals = {(mod, name): getattr(mod, name) for mod, name in ((lin, "shifted_gram_plain"),
+                                                               (kk, "lloyd_step_plain"),
+                                                               (lk, "logreg_loss_grad_plain"))}
+    for (mod, name), real in reals.items():
+        def spy(*a, _name=name, _real=real, **kw):
+            plain[_name] += 1
+            return _real(*a, **kw)
+        setattr(mod, name, spy)
+    k0 = (lin.shifted_gram.launches, kk.lloyd_step.launches, lk.logreg_loss_grad.launches)
+    try:
+        yield lambda: {"shifted_gram": lin.shifted_gram.launches - k0[0], "lloyd_step": kk.lloyd_step.launches - k0[1],
+                       "logreg_loss_grad": lk.logreg_loss_grad.launches - k0[2], **plain}
+    finally:
+        for (mod, name), real in reals.items():
+            setattr(mod, name, real)
+
+
+def phase_f64(torch, X_host, seed):
+    """(q) float64 inputs (``float32_inputs=False``) on the first F64_ROWS of
+    the host rows in f64 (3.2 GB at d = 256): PCA(k=16), the three-config
+    LinearRegression ``fitMultiple``, binomial LogisticRegression(maxIter
+    20), KMeans(k=1024, random, maxIter 5), streamed PCA(k=16) and streamed
+    LogisticRegression(maxIter 5) at 131,072-row chunks, each beside the same
+    fit at f32 on the same rows, and the four transforms. Truths on the card
+    in f64, outside the port: the covariance as one Xcᵀ·Xc product with
+    ``eigh``, OLS from the normal equations, an f64 L-BFGS
+    (``minimize_lbfgs_host``) of the phase's own objective. Holds: f64 PCA and
+    OLS within the f64 ``held`` band (u = 2⁻⁵³) of their truths, the f32 fits
+    outside it; streamed f64 PCA within 8·√n·u of the resident f64 fit, entry
+    by entry, the streamed LogisticRegression's f64 objective within 8·√n·u
+    of the resident's (its coefficients reported); LogisticRegression within
+    F64_LR_ATOL of its truth; KMeans f64 against f32 on >= F64_KM_AGREE_MIN
+    of the predictions, costs within the f32 band; every f64 transform in
+    f64. The f64 fits launch no K1, K2 or K3 and call no plain version, the
+    f32 fits launch each; a kernel wrapper given an f64 card tensor raises.
+    Returns the f32 fits' launches {kernels-line row: {path: n}}."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.ops.lbfgs import minimize_lbfgs_host
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    n = min(F64_ROWS, X_host.shape[0])
+    X32 = np.ascontiguousarray(X_host[:n])
+    X64 = X32.astype(np.float64)
+    band = 8.0 * n ** 0.5 * U64
+
+    # the wrappers refuse an f64 card tensor: there is no fallback on the card
+    x, m = torch.ones((64, 8), dtype=torch.float64, device=dev), torch.ones(64, dtype=torch.float64, device=dev)
+    refusals = {}
+    for name, call in (("shifted_gram", lambda: lin.shifted_gram(x, m, x[0])),
+                       ("lloyd_step", lambda: kk.lloyd_step(x, m, x[:4])),
+                       ("logreg_loss_grad", lambda: lk.logreg_loss_grad(x, m, m, x[:1], m[:1], False))):
+        try:
+            call()
+            refusals[name] = "accepted"
+        except NotImplementedError as e:
+            refusals[name] = str(e)
+    emit({"phase": "f64", "check": "wrappers_refuse_f64", "refusals": refusals})
+    check(all(v != "accepted" for v in refusals.values()), f"a kernel wrapper took an f64 tensor: {refusals}")
+    del x, m
+
+    # labels and truths, on the card in f64
+    Xd = torch.from_numpy(X64).to(dev)
+    y_lr = f64_labels(torch, Xd, seed)
+    y_ols, _ = linreg_labels(torch, torch.from_numpy(X32).to(dev), seed + 27)
+    t = time.perf_counter()
+    pca64 = pca_truth(torch, f64_sums(torch, [(Xd, 1)]), F64_K, TOL_TERMS, TOL_WALK * n ** 0.5, u=U64)
+    ols64 = ols_reference(torch, Xd, y_ols.astype(np.float64), u=U64)
+    obj = LrObjective64(torch, Xd, torch.from_numpy(y_lr).to(dev), F64_LR_REG)
+    ref = minimize_lbfgs_host(obj, np.zeros(X64.shape[1] + 1), max_iter=F64_LR_ITER, tol=1e-6)
+    _, ref_A, ref_b = obj.effective(ref.w)
+    ref_coef, ref_b = ref_A.cpu().numpy(), float(ref_b)
+    truth_s = time.perf_counter() - t
+    emit({"phase": "f64", "check": "truths", "rows": n, "d": X64.shape[1], "s": truth_s,
+          "pca_gap": pca64["gap"], "pca_sin_tol": pca64["sin_tol"], "ols_kappa": ols64["kappa"],
+          "ols_coef_tol": ols64["coef_tol"], "ols_intercept_tol": ols64["intercept_tol"],
+          "lr_reference_n_iter": ref.n_iter, "lr_reference_objective": ref.f, "labels_mean": float(y_lr.mean())})
+
+    frames = {dt: (DataFrame({"features": X, "label": y_lr.astype(dt)}),
+                   DataFrame({"features": X, "label": y_ols.astype(dt)}))
+              for dt, X in ((np.float64, X64), (np.float32, X32))}
+    chunk = STREAM_CHUNK_ROWS
+    fits = (("pca", "shifted_gram", lambda f32, df, _: PCA(k=F64_K, float32_inputs=f32).fit(df)),
+            ("linreg_fitMultiple", "shifted_gram", lambda f32, _, df: [m for _, m in sorted(
+                LinearRegression(float32_inputs=f32).fitMultiple(df, [kw for _, kw in LINREG_CONFIGS]),
+                key=lambda t: t[0])]),
+            ("logreg", "logreg_loss_grad", lambda f32, df, _: LogisticRegression(
+                maxIter=F64_LR_ITER, regParam=F64_LR_REG, float32_inputs=f32).fit(df)),
+            ("kmeans", "lloyd_step", lambda f32, df, _: KMeans(
+                k=F64_KM_K, initMode="random", maxIter=F64_KM_ITER, seed=seed, float32_inputs=f32).fit(df)),
+            ("pca_streamed", "shifted_gram", lambda f32, df, _: PCA(
+                k=F64_K, streaming=True, stream_chunk_rows=chunk, float32_inputs=f32).fit(df)),
+            ("logreg_streamed", "logreg_loss_grad", lambda f32, df, _: LogisticRegression(
+                maxIter=F64_STREAM_LR_ITER, regParam=F64_LR_REG, streaming=True, stream_chunk_rows=chunk,
+                float32_inputs=f32).fit(df)),
+            ("logreg_5", "logreg_loss_grad", lambda f32, df, _: LogisticRegression(
+                maxIter=F64_STREAM_LR_ITER, regParam=F64_LR_REG, float32_inputs=f32).fit(df)))
+    models = {}
+    launches = {"shifted_gram": {}, "lloyd_step": {}, "logreg_loss_grad": {}, "logreg_loss_grad_stream_rows": {}}
+    for name, kernel, fit in fits:
+        row = {"phase": "f64", "fit": name}
+        for dt in (np.float64, np.float32):
+            if name == "logreg_5" and dt == np.float32:
+                continue  # the streamed fit's resident twin, at f64 only
+            tag = "f64" if dt == np.float64 else "f32"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with kernel_counts(lin, kk, lk) as counts:
+                model, s = _timed(torch, lambda: fit(dt == np.float32, *frames[dt]))
+                c = counts()
+            models[name, tag] = model
+            row[tag] = {"fit_s": s, "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "counts": c}
+            if tag == "f64":
+                check(all(v == 0 for v in c.values()), f"f64 {name}: a kernel or its plain version ran: {c}")
+            else:
+                check(c[kernel] > 0 and not any(v for k, v in c.items() if k.endswith("_plain")),
+                      f"f32 {name}: {kernel} not launched, or a plain version ran: {c}")
+                k_row = "logreg_loss_grad_stream_rows" if name == "logreg_streamed" else kernel
+                launches[k_row]["f64_phase_f32"] = launches[k_row].get("f64_phase_f32", 0) + c[kernel]
+        emit(row)
+
+    # the transforms of the f64 models, each in f64 (KMeans: int32, as in the JAX package)
+    df64_lr, df64_ols = frames[np.float64]
+    tr = {}
+    for name, model, df, col, want in (("pca", models["pca", "f64"], df64_lr, "pca_features", np.float64),
+                                       ("linreg", models["linreg_fitMultiple", "f64"][0], df64_ols, "prediction",
+                                        np.float64),
+                                       ("logreg", models["logreg", "f64"], df64_lr, "probability", np.float64),
+                                       ("kmeans", models["kmeans", "f64"], df64_lr, "prediction", np.int32)):
+        with kernel_counts(lin, kk, lk) as counts:
+            out, s = _timed(torch, lambda: model.transform(df))
+            c = counts()
+        v = out.column(col)
+        tr[name] = {"s": s, "dtype": str(v.dtype), "shape": list(v.shape)}
+        check(v.dtype == want and v.shape[0] == n and np.isfinite(v).all() and not any(c.values()),
+              f"f64 {name} transform: {v.dtype} (want {np.dtype(want)}), {v.shape}, {c}")
+        if name == "kmeans":
+            pred64 = v
+        del out, v
+    pred32 = models["kmeans", "f32"].transform(frames[np.float32][0]).column("prediction")
+    emit({"phase": "f64", "check": "transforms", "transforms": tr})
+
+    # PCA and OLS against their f64 truths; the f32 fits must fail the band
+    holds = {}
+    for tag in ("f64", "f32"):
+        ev_err, sin, mean_ratio = pca_errors(torch, models["pca", tag], pca64)
+        ok = ev_err <= pca64["ev_tol"] and sin <= pca64["sin_tol"] and mean_ratio <= 1.0
+        holds[f"pca_{tag}"] = {"ev_err_over_tol": ev_err / pca64["ev_tol"], "sin_over_tol": sin / pca64["sin_tol"],
+                               "mean_err_over_tol": mean_ratio, "held": ok}
+        ols = models["linreg_fitMultiple", tag][0]
+        dev_s = ols64["std"] * (np.asarray(ols.coefficients, np.float64) - ols64["beta"])
+        err = float(np.linalg.norm(dev_s) / np.linalg.norm(ols64["std"] * ols64["beta"]))
+        err_b = abs(float(ols.intercept) - ols64["intercept"])
+        ok_ols = err <= ols64["coef_tol"] and err_b <= ols64["intercept_tol"]
+        holds[f"ols_{tag}"] = {"coef_err_over_tol": err / ols64["coef_tol"],
+                               "intercept_err_over_tol": err_b / ols64["intercept_tol"], "held": ok_ols}
+    # streamed f64 against resident f64: PCA entry by entry within 8·√n·u of
+    # each array's largest entry; LogisticRegression on its f64 objective
+    ps, pr = models["pca_streamed", "f64"], models["pca", "f64"]
+    pca_s = {a: float(np.abs(np.asarray(getattr(ps, a)) - np.asarray(getattr(pr, a))).max()
+                      / np.abs(np.asarray(getattr(pr, a))).max()) / band
+             for a in ("mean_", "explained_variance_", "components_")}
+    ls, lr5 = models["logreg_streamed", "f64"], models["logreg_5", "f64"]
+    f_s, f_r = obj.objective_of(ls.coef_, ls.intercept_), obj.objective_of(lr5.coef_, lr5.intercept_)
+    lr_s = {"objective_gap_over_band": abs(f_s - f_r) / (band * abs(f_r)),
+            "coef_rel_diff": float(np.abs(ls.coef_ - lr5.coef_).max() / np.abs(lr5.coef_).max()),
+            "coef_rel_diff_over_band": float(np.abs(ls.coef_ - lr5.coef_).max() / np.abs(lr5.coef_).max()) / band,
+            "n_iter": [ls.n_iter_, lr5.n_iter_]}
+    # LogisticRegression against the f64 L-BFGS of the phase's own objective
+    lr = models["logreg", "f64"]
+    lr_ref = {"coef_max_abs_diff": float(np.abs(lr.coef_.reshape(-1) - ref_coef).max()),
+              "intercept_abs_diff": abs(float(lr.intercept) - ref_b), "atol": F64_LR_ATOL,
+              "n_iter": [lr.n_iter_, ref.n_iter], "objective_f64": obj.objective_of(lr.coef_, lr.intercept_),
+              "reference_objective_f64": ref.f,
+              "f32_coef_max_abs_diff": float(np.abs(models["logreg", "f32"].coef_.reshape(-1) - ref_coef).max())}
+    # KMeans f64 against f32 on the same rows from the same seeds
+    km64, km32 = models["kmeans", "f64"], models["kmeans", "f32"]
+    cost_tol = U32 * (TOL_TERMS + TOL_WALK * n ** 0.5) * km64.trainingCost
+    km = {"agreement": float((pred64 == pred32).mean()), "cost_f64": km64.trainingCost, "cost_f32": km32.trainingCost,
+          "cost_diff": abs(km64.trainingCost - km32.trainingCost), "cost_tol": cost_tol,
+          "n_iter": [km64.numIter, km32.numIter]}
+    emit({"phase": "f64", "check": "holds", "rows": n, "band_8_sqrt_n_u": band, "vs_truth": holds,
+          "pca_streamed_vs_resident_over_band": pca_s, "logreg_streamed_vs_resident": lr_s,
+          "logreg_vs_f64_lbfgs": lr_ref, "kmeans_f64_vs_f32": km, "s": time.perf_counter() - t0})
+    check(holds["pca_f64"]["held"] and holds["ols_f64"]["held"], f"f64 PCA or OLS off its f64 truth: {holds}")
+    check(not holds["pca_f32"]["held"] and not holds["ols_f32"]["held"],
+          f"negative control: an f32 fit meets the f64 band: {holds}")
+    check(all(v <= 1.0 for v in pca_s.values()), f"streamed f64 PCA off the resident f64 fit: {pca_s}")
+    check(lr_s["objective_gap_over_band"] <= 1.0, f"streamed f64 LogisticRegression off the resident: {lr_s}")
+    check(lr_ref["coef_max_abs_diff"] <= F64_LR_ATOL and lr_ref["intercept_abs_diff"] <= F64_LR_ATOL,
+          f"f64 LogisticRegression off its f64 L-BFGS: {lr_ref}")
+    check(km["agreement"] >= F64_KM_AGREE_MIN and km["cost_diff"] <= cost_tol, f"KMeans f64 vs f32: {km}")
+    del Xd, obj, frames, models
+    torch.cuda.empty_cache()
+    return {row: paths for row, paths in launches.items() if paths}
+
+
+def f64_probe(torch, args, dev) -> int:
+    """Phase (q) alone, on min(``--rows``, F64_ROWS) rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    n = min(args.rows, F64_ROWS)
+    X, _ = make_data(torch, n, n, args.seed, dev)
+    X_host = X.cpu().numpy()
+    del X
+    torch.cuda.empty_cache()
+    launches = phase_f64(torch, X_host, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -6954,6 +7279,9 @@ def main() -> int:
     ap.add_argument("--wire-only", action="store_true",
                     help="a probe: build K1, K3 and K2 alone and run only the wire formats and checkpoint/resume "
                          "phases on min(--rows, STREAM_WIRE_ROWS) rows (prints no result line)")
+    ap.add_argument("--f64-only", action="store_true",
+                    help="a probe: build K1, K3 and K2 alone and run only the float64 phase on min(--rows, "
+                         "F64_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -6992,7 +7320,8 @@ def main() -> int:
                            else ["lloyd_step", "knn_topk", "umap_sgd_epoch"] if args.ann_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
-                           else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if args.stream_only or args.wire_only
+                           else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if (
+                               args.stream_only or args.wire_only or args.f64_only)
                            else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
@@ -7026,6 +7355,8 @@ def main() -> int:
         return stream_probe(torch, args, dev)
     if args.wire_only:
         return wire_probe(torch, args, dev)
+    if args.f64_only:
+        return f64_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -7112,6 +7443,8 @@ def main() -> int:
     for row, paths in list(k3_launches.items()) + list(k2_launches.items()):
         by_path.setdefault(row, {}).update(paths)
     del lin_data, pca_ref
+    for row, paths in phase_f64(torch, X_host, args.seed).items():
+        by_path.setdefault(row, {}).update(paths)
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():

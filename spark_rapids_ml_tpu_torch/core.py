@@ -30,6 +30,14 @@ chunk source (``data.chunks``), and the card holds a few chunks, never the
 dataset. A model's ``transform`` over a parquet scan streams it the same
 way. Gang dispatch and telemetry spans are not ported yet.
 
+Float64 (``float32_inputs=False`` on float64 data, the JAX package's
+``_target_dtype``) places the rows, labels and weights in f64 and streams
+f64 chunks; each fit then takes its kernels' float64 routes, chosen by
+dtype before any kernel wrapper. An estimator or model that computes in
+float32 only overrides ``_compute_dtype`` (UMAP coerces, forests and GBT
+refuse). ``_TpuModel.cpu()`` / ``to_sklearn()`` export a fitted model
+(``export``).
+
 Persistence writes ``metadata.json``, ``model.npz`` and
 ``attributes.json`` exactly as the JAX package does, so either package's
 saved models load in the port; a JAX class name is mapped onto the port's
@@ -51,7 +59,7 @@ import torch
 
 from .data.dataframe import AugmentedScanFrame, DataFrame, ParquetScanFrame, _is_sparse
 from .params import HasLabelCol, HasWeightCol, Params, _TpuParams
-from .parallel.mesh import shard_aligned, shard_rows
+from .parallel.mesh import _torch_dtype, shard_aligned, shard_rows
 from .utils.logging import get_logger
 from .utils.platform import resolve_device
 
@@ -100,14 +108,19 @@ def _resolve_feature_matrix(obj: "_TpuParams", dataset: DataFrame) -> np.ndarray
     return X
 
 
-def _f32_features(obj: "_TpuParams", X: np.ndarray) -> np.ndarray:
-    """Features as contiguous float32; float64 inputs
-    (``float32_inputs=False``) are not ported yet."""
-    if not obj._float32_inputs and X.dtype == np.float64:
-        raise NotImplementedError(
-            "float64 inputs (float32_inputs=False) are not ported yet"
-        )
-    return np.ascontiguousarray(X, dtype=np.float32)
+def _target_dtype(obj: "_TpuParams", X: Optional[np.ndarray]) -> type:
+    """The dtype a fit or transform computes in (the JAX package's
+    ``_target_dtype``): float32, unless ``float32_inputs=False`` and ``X`` is
+    float64."""
+    if not obj._float32_inputs and X is not None and X.dtype == np.float64:
+        return np.float64
+    return np.float32
+
+
+def _features(obj: Any, X: np.ndarray) -> np.ndarray:
+    """Features as one contiguous matrix in the dtype ``obj`` computes in
+    (:func:`_target_dtype`, through the class's ``_compute_dtype``)."""
+    return np.ascontiguousarray(X, dtype=obj._compute_dtype(_target_dtype(obj, X)))
 
 
 def _resolve_features_f32(obj: "_TpuParams", dataset: DataFrame) -> np.ndarray:
@@ -183,6 +196,12 @@ class _TpuEstimator(Params, _TpuParams):
     def _require_label(self) -> bool:
         return isinstance(self, HasLabelCol)
 
+    def _compute_dtype(self, dtype: type) -> type:
+        """The dtype this estimator fits in, given the one the data plane
+        chose (float32 or float64); estimators that fit in float32 only
+        coerce or refuse float64 here."""
+        return dtype
+
     def _enable_fit_multiple_in_single_pass(self) -> bool:
         """True when one fit function may serve every param map of a
         ``fitMultiple`` over one copy of the data."""
@@ -249,10 +268,6 @@ class _TpuEstimator(Params, _TpuParams):
             raise NotImplementedError(
                 f"num_workers={self.num_workers}: multi-GPU fits are not ported yet"
             )
-        if not self._float32_inputs:
-            raise NotImplementedError(
-                "float64 inputs (float32_inputs=False) are not ported yet"
-            )
         label_col = self.getOrDefault("labelCol") if self._require_label() else None
         weight_col = self._resolved_weight_col()
         input_col, input_cols = self._get_input_columns()
@@ -267,6 +282,7 @@ class _TpuEstimator(Params, _TpuParams):
                     "features column (featuresCols is resident-only)"
                 )
             source = dataset.chunk_source(features_col=input_col, label_col=label_col, weight_col=weight_col)
+            dtype = np.float32 if self._float32_inputs else np.float64
         else:
             # a column that lives only in memory (a prior streamed
             # transform's output, maybe shadowing a disk column) is read
@@ -280,15 +296,19 @@ class _TpuEstimator(Params, _TpuParams):
             col = dataset.column(input_col) if input_cols is None else None
             if col is not None and _is_sparse(col):
                 source = CSRChunkSource(col, y, w)
+                dtype = np.float32 if self._float32_inputs else np.float64
             else:
-                source = ArrayChunkSource(_resolve_feature_matrix(self, dataset), y, w)
-        chunk_rows = self._stream_chunk_rows or auto_chunk_rows(source.n_features, 4, 1)
+                X = _resolve_feature_matrix(self, dataset)
+                source = ArrayChunkSource(X, y, w)
+                dtype = _target_dtype(self, X)
+        dtype = self._compute_dtype(dtype)
+        chunk_rows = self._stream_chunk_rows or auto_chunk_rows(source.n_features, np.dtype(dtype).itemsize, 1)
         return StreamInputs(
             source=source,
             device=device,
             n_rows=int(source.n_rows),
             n_features=int(source.n_features),
-            dtype=torch.float32,
+            dtype=_torch_dtype(dtype),
             chunk_rows=int(chunk_rows),
         )
 
@@ -312,14 +332,14 @@ class _TpuEstimator(Params, _TpuParams):
             raise NotImplementedError(
                 f"num_workers={self.num_workers}: multi-GPU fits are not ported yet"
             )
-        X = _f32_features(self, _resolve_feature_matrix(self, dataset))
+        X = _features(self, _resolve_feature_matrix(self, dataset))
         n_rows, n_features = X.shape
         csize = self._chunk_rows(int(n_rows), 1)
         Xd, maskd = shard_rows(X, device, csize)
         y = w = None
         if self._require_label():
             label_col = self.getOrDefault("labelCol")
-            y_host = np.asarray(dataset.column(label_col), dtype=np.float32)
+            y_host = np.asarray(dataset.column(label_col), dtype=X.dtype)
             y = shard_aligned(y_host, device, Xd.shape[0])
         wcol = self._resolved_weight_col()
         if wcol is not None:
@@ -327,7 +347,7 @@ class _TpuEstimator(Params, _TpuParams):
                 raise ValueError(
                     f"weightCol {wcol!r} not found in dataset columns {dataset.columns}"
                 )
-            w_host = np.asarray(dataset.column(wcol), dtype=np.float32)
+            w_host = np.asarray(dataset.column(wcol), dtype=X.dtype)
             w = shard_aligned(w_host, device, Xd.shape[0])
         return FitInputs(
             X=Xd,
@@ -337,6 +357,7 @@ class _TpuEstimator(Params, _TpuParams):
             n_features=int(n_features),
             y=y,
             weight=w,
+            dtype=Xd.dtype,
             csize=csize,
         )
 
@@ -461,6 +482,27 @@ class _TpuModel(Params, _TpuParams):
     def _get_model_attributes(self) -> Dict[str, Any]:
         return self._model_attributes
 
+    def _compute_dtype(self, dtype: type) -> type:
+        """The dtype this model transforms in, given the one the data plane
+        chose (float32 or float64); models that compute in float32 only
+        coerce or refuse float64 here."""
+        return dtype
+
+    def cpu(self) -> "_TpuModel":
+        """The model itself: the reference converts to a Spark JVM model
+        (its ``feature.py:365-379``), but without Spark the model already
+        transforms on the CPU (``device="cpu"``). :meth:`to_sklearn` exports
+        a fitted scikit-learn estimator for serving outside this package."""
+        return self
+
+    def to_sklearn(self) -> Any:
+        """A fitted scikit-learn estimator whose ``predict`` / ``transform``
+        reproduces this model's transform (:mod:`..export`; sklearn is
+        imported here, not with the package)."""
+        from .export import to_sklearn
+
+        return to_sklearn(self)
+
     # ---- transform -------------------------------------------------------
     @abstractmethod
     def _get_transform_func(
@@ -497,7 +539,7 @@ class _TpuModel(Params, _TpuParams):
             if input_cols is None and dataset.has_disk_column(input_col):
                 out_columns = self._apply_streamed(self._get_transform_func(dataset), dataset, input_col)
                 return AugmentedScanFrame(dataset, out_columns)
-        X = _f32_features(self, _resolve_feature_matrix(self, dataset))
+        X = _features(self, _resolve_feature_matrix(self, dataset))
         out_columns = self._apply_batched(self._get_transform_func(dataset), X)
         out = dataset
         for name, col in out_columns.items():
@@ -528,16 +570,14 @@ class _TpuModel(Params, _TpuParams):
     ) -> Dict[str, np.ndarray]:
         """``fn`` over the scan's features, one chunk of
         :meth:`_transform_batch_rows` rows at a time: the host holds the
-        output columns, never the feature matrix."""
-        if not self._float32_inputs:
-            raise NotImplementedError(
-                "float64 inputs (float32_inputs=False) are not ported yet"
-            )
+        output columns, never the feature matrix. The chunks are float64
+        where ``float32_inputs=False``, as in the JAX package."""
+        dtype = self._compute_dtype(np.float32 if self._float32_inputs else np.float64)
         source = scan.chunk_source(features_col=input_col)
         chunks: Dict[str, List[np.ndarray]] = {}
-        for chunk in source.iter_chunks(self._transform_batch_rows(), dtype=np.float32):
+        for chunk in source.iter_chunks(self._transform_batch_rows(), dtype=dtype):
             # writeable too: a parquet chunk may be a read-only arrow view
-            Xb = np.require(chunk.X[: chunk.n_valid], np.float32, ["C", "W"])
+            Xb = np.require(chunk.X[: chunk.n_valid], dtype, ["C", "W"])
             for k, v in fn(Xb).items():
                 chunks.setdefault(k, []).append(np.asarray(v)[: chunk.n_valid])
         return {k: np.concatenate(v, axis=0) for k, v in chunks.items()}

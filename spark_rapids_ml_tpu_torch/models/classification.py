@@ -437,13 +437,14 @@ class LogisticRegressionModel(
 
             return _const
 
-        coef = torch.tensor(np.atleast_2d(self.coef_), dtype=torch.float32, device=device)
-        b = torch.tensor(b_np, dtype=torch.float32, device=device)
+        coef = torch.tensor(np.atleast_2d(self.coef_), device=device)
+        b = torch.tensor(b_np, device=device)
 
         def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-            pred, prob, raw = logreg_predict(
-                torch.from_numpy(Xb).to(device), coef, b, multinomial=multinomial
-            )
+            # in the batch's dtype: a float64 batch gives float64 columns, as
+            # in the JAX package
+            xb = torch.from_numpy(Xb).to(device)
+            pred, prob, raw = logreg_predict(xb, coef.to(xb.dtype), b.to(xb.dtype), multinomial=multinomial)
             return {
                 pred_col: pred.cpu().numpy(),
                 prob_col: prob.cpu().numpy(),

@@ -26,6 +26,7 @@ import torch
 
 from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimator, _TpuModel
 from ..data.dataframe import DataFrame
+from ..parallel.mesh import _np_dtype
 from ..ops.kmeans_kernels import count_closest, kmeans_lloyd, min_sq_dists, pairwise_sq_dists
 from ..params import (
     HasFeaturesCol,
@@ -279,7 +280,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
 
         def gather_local(idx: np.ndarray) -> np.ndarray:
             if len(idx) == 0:
-                return np.empty((0, inputs.n_features), np.float32)
+                return np.empty((0, inputs.n_features), _np_dtype(inputs.dtype))
             sel = torch.as_tensor(idx, dtype=torch.int64, device=inputs.device)
             return inputs.X.index_select(0, sel).cpu().numpy()
 
@@ -453,9 +454,11 @@ class KMeansModel(KMeansClass, _TpuModel, _KMeansParams):
         return int(self._model_attributes["n_iter"])
 
     def predict(self, vector: Any) -> int:
-        """Single-vector predict through the transform function."""
+        """Single-vector predict through the transform function, in the
+        model's input dtype (float64 under ``float32_inputs=False``)."""
         pred_col = self.getOrDefault("predictionCol")
-        out = self._get_transform_func()(np.asarray(vector, dtype=np.float32).reshape(1, -1))
+        dtype = np.float32 if self._float32_inputs else np.float64
+        out = self._get_transform_func()(np.asarray(vector, dtype=dtype).reshape(1, -1))
         return int(out[pred_col][0])
 
     def _get_transform_func(
@@ -465,11 +468,12 @@ class KMeansModel(KMeansClass, _TpuModel, _KMeansParams):
         device = resolve_device(self._device)
 
         def _build() -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-            centers = torch.tensor(self.cluster_centers_, dtype=torch.float32, device=device)
-            c_sq = (centers * centers).sum(dim=1)
+            centers = torch.tensor(self.cluster_centers_, device=device)
 
             def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-                d2 = pairwise_sq_dists(torch.from_numpy(Xb).to(device), centers, c_sq)
+                # the centres in the batch's dtype, as the JAX package casts them
+                xb = torch.from_numpy(Xb).to(device)
+                d2 = pairwise_sq_dists(xb, centers.to(xb.dtype))
                 return {pred_col: torch.argmin(d2, dim=1).to(torch.int32).cpu().numpy()}
 
             return _fn

@@ -6,7 +6,9 @@ the deterministic sign flip. The streamed fit (out of core) takes the
 covariance from ``ops.streaming.streamed_suffstats`` instead: a pass of
 means, then a pass of the centred Gram through K1 a chunk. Transform is
 Spark's ``X @ pc`` with no mean removal — a plain product outside any
-kernel.
+kernel, in the batch's dtype. A float64 fit (``float32_inputs=False``)
+takes the covariance's float64 route (``ops.linalg.shifted_gram_scan``)
+and its eigensolve in float64.
 """
 
 from __future__ import annotations
@@ -192,12 +194,13 @@ class PCAModel(PCAClass, _TpuModel, _PCAParams):
         device = resolve_device(self._device)
 
         def _build() -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-            components = torch.tensor(self.components_, dtype=torch.float32, device=device)
+            components = torch.tensor(self.components_, device=device)
 
             def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
-                # Spark semantics: no mean removal
+                # Spark semantics: no mean removal; in the batch's dtype (a
+                # float64 batch gives float64 columns, as in the JAX package)
                 xb = torch.from_numpy(Xb).to(device)
-                return {out_col: (xb @ components.T).cpu().numpy()}
+                return {out_col: (xb @ components.to(xb.dtype).T).cpu().numpy()}
 
             return _fn
 

@@ -314,13 +314,13 @@ class LinearRegressionModel(LinearRegressionClass, _TpuModel, _LinearRegressionP
     def _transformEvaluate(self, dataset: DataFrame, evaluator: Any) -> List[float]:
         """One transform pass computes every model's predictions; each
         model's metric comes from its moment buffers."""
-        from ..core import _f32_features, _resolve_feature_matrix
+        from ..core import _features, _resolve_feature_matrix
         from ..evaluation import RegressionEvaluator
         from ..metrics import RegressionMetrics
 
         if not isinstance(evaluator, RegressionEvaluator):
             raise NotImplementedError(f"Evaluator {type(evaluator).__name__} is not supported")
-        X = _f32_features(self, _resolve_feature_matrix(self, dataset))
+        X = _features(self, _resolve_feature_matrix(self, dataset))
         preds = self._apply_batched(self._get_transform_func(dataset), X)[self.getOrDefault("predictionCol")]
         y = np.asarray(dataset.column(evaluator.getLabelCol()), dtype=np.float64)
         P = preds[:, None] if preds.ndim == 1 else preds  # (n, m)
@@ -333,14 +333,16 @@ class LinearRegressionModel(LinearRegressionClass, _TpuModel, _LinearRegressionP
         device = resolve_device(self._device)
 
         def _build() -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
-            coef = torch.tensor(self.coefficients, dtype=torch.float32, device=device)
-            b = torch.tensor(np.asarray(self.intercept), dtype=torch.float32, device=device)
+            coef = torch.tensor(self.coefficients, device=device)
+            b = torch.tensor(np.asarray(self.intercept, dtype=np.float64), device=device)
             # (d,) -> X @ w + b; (m, d) -> X @ Wᵀ + b
             W = coef if coef.ndim == 1 else coef.T.contiguous()
 
             def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+                # in the batch's dtype: a float64 batch gives float64
+                # predictions, as in the JAX package
                 xb = torch.from_numpy(Xb).to(device)
-                return {pred_col: (xb @ W + b).cpu().numpy()}
+                return {pred_col: (xb @ W.to(xb.dtype) + b.to(xb.dtype)).cpu().numpy()}
 
             return _fn
 

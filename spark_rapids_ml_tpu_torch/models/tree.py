@@ -82,6 +82,20 @@ _ENGINE_MODES = ("auto", "packed", "bins", "legacy")
 _FIT_REPORT = "_fit_report"
 
 
+class _Float32Only:
+    """Forests and GBT bin and compare in float32 (K5, K6 and K9 take uint8
+    bins): a float64 fit or transform (``float32_inputs=False`` on float64
+    data) raises until ROADMAP queue 1 item 3a-ii ports it."""
+
+    def _compute_dtype(self, dtype: type) -> type:
+        if np.dtype(dtype) == np.float64:
+            raise NotImplementedError(
+                "RandomForest and GBT take float32 inputs only: float64 inputs "
+                "(float32_inputs=False) are ROADMAP queue 1 item 3a-ii"
+            )
+        return dtype
+
+
 def _str_or_numerical(value: str) -> Union[str, float, int]:
     """Parse featureSubsetStrategy strings that encode numbers."""
     try:
@@ -263,7 +277,7 @@ def _quantize_features(inputs: FitInputs, n_bins: int, d_pad: int, seed: int, al
     return edges_np, bins
 
 
-class _RandomForestEstimator(_RandomForestClass, _TpuEstimatorSupervised, _RandomForestParams):
+class _RandomForestEstimator(_RandomForestClass, _Float32Only, _TpuEstimatorSupervised, _RandomForestParams):
     """Shared fit machinery."""
 
     _is_classification = False
@@ -392,7 +406,7 @@ def _model_with_report(cls: type, result: Dict[str, Any]) -> "_RandomForestModel
     return model
 
 
-class _ForestModelBase(_TpuModel):
+class _ForestModelBase(_Float32Only, _TpuModel):
     """Shared fitted-forest surface of RandomForest and GBT models: node
     tables, structure, and the transform engine chain (packed > bins >
     legacy). Subclasses supply each engine's closure around their per-node
@@ -934,7 +948,7 @@ def _init_margin(loss: str, y: np.ndarray, n_classes: int) -> np.ndarray:
     return np.log(np.clip(prior, 1e-6, None)).astype(np.float32)
 
 
-class _GBTEstimator(_GBTClass, _TpuEstimatorSupervised, _GBTParams):
+class _GBTEstimator(_GBTClass, _Float32Only, _TpuEstimatorSupervised, _GBTParams):
     """Shared boosting fit: quantize once, then sequential rounds of
     ``gbt_round``, each one tree batch on the current gradient field with
     the margins advanced on the device."""

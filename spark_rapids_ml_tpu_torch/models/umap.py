@@ -326,6 +326,11 @@ class UMAPModel(UMAPClass, _TpuModel, _UMAPParams):
         _TpuModel.__init__(self, **attrs)
         _UMAPParams.__init__(self)
 
+    def _compute_dtype(self, dtype: type) -> type:
+        """float32 whatever ``float32_inputs`` says: UMAP computes in float32
+        (K4, K10), as in the JAX package."""
+        return np.float32
+
     @property
     def embedding_(self) -> np.ndarray:
         return np.asarray(self._model_attributes["embedding_"])

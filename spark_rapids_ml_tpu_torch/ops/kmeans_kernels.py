@@ -14,6 +14,11 @@ three TF32 products are accumulated per pair in a fresh f32 accumulator
 for each slab of ``K2_SLAB`` features, and the slabs are folded into the
 running f32 score with rounded adds. :func:`lloyd_geometry` picks its
 stage depth and persistent grid.
+
+K2 takes float32. A float64 fit (``float32_inputs=False``) takes
+:func:`chunk_stats_xla` instead, chosen by dtype in :func:`chunk_stats`
+before any kernel wrapper is called, as the JAX package's
+``kmeans_pallas_ok`` sends f64 to the XLA branch of ``_chunk_stats``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ _WALK_WARPS = 3
 _STAGES = (4, 3, 2)  # stage depths, the deepest that fits first
 # rows per chunk of the plain version: bounds its (rows, k) score block
 _PLAIN_CHUNK = 65_536
+# distances a row block of the float64 route holds (the seeding's
+# min-distance passes block the same way)
+_XLA_BLOCK = 1 << 25
 
 
 def pairwise_sq_dists(
@@ -214,6 +222,47 @@ def lloyd_step(
 lloyd_step.launches = 0
 
 
+def lloyd_kernel_ok(dtype: torch.dtype) -> bool:
+    """True where K2 takes a Lloyd pass of this dtype: float32 only (the JAX
+    package's ``kmeans_pallas_ok`` gate on dtype)."""
+    return dtype == torch.float32
+
+
+def chunk_stats_xla(
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's contract in ``X``'s dtype, outside any kernel: the counterpart
+    of the XLA branch of the JAX package's ``_chunk_stats``: distances
+    ``max(||x||² - 2x·c + ||c||², 0)``, the first index of the minimum, the
+    weighted sums (``index_add_`` for the one-hot product), int32 counts and
+    the cost ``Σ m·min d²``, in row blocks of at most ``_XLA_BLOCK``
+    distances. The route of float64 fits, on the CPU and the card."""
+    k, d = C.shape
+    c_sq = (C * C).sum(dim=1)
+    sums = torch.zeros((k, d), dtype=X.dtype, device=X.device)
+    counts = torch.zeros((k,), dtype=torch.int64, device=X.device)
+    cost = torch.zeros((), dtype=X.dtype, device=X.device)
+    rows = max(1, _XLA_BLOCK // max(1, k))
+    for lo in range(0, X.shape[0], rows):
+        x, mm = X[lo : lo + rows], m[lo : lo + rows]
+        best, a = torch.min(pairwise_sq_dists(x, C, c_sq), dim=1)
+        cost = cost + (best * mm).sum()
+        counts += torch.bincount(a[mm > 0], minlength=k)
+        sums.index_add_(0, a, x * mm[:, None])
+    return sums, counts.to(torch.int32), cost
+
+
+def chunk_stats(
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lloyd accumulation pass ``(sums, counts, cost)`` (the JAX
+    package's ``_chunk_stats``): kernel K2 for float32 rows, the XLA
+    branch's counterpart (:func:`chunk_stats_xla`) for float64."""
+    if lloyd_kernel_ok(X.dtype):
+        return lloyd_step(X, m, C)
+    return chunk_stats_xla(X, m, C)
+
+
 def kmeans_lloyd(
     X: torch.Tensor,
     mask: torch.Tensor,
@@ -227,15 +276,15 @@ def kmeans_lloyd(
 
     Runs until ``max_iter`` or until the largest squared centre shift is
     ``<= tol²`` (each iteration's appended to ``shifts`` where given); an
-    empty cluster keeps its centre (Spark behaviour); a final f32 cost pass
-    at the converged centres follows the loop. Each pass over the rows is
-    one launch of kernel K2 (the JAX package's ``_chunk_stats`` at its
-    Pallas branch)."""
+    empty cluster keeps its centre (Spark behaviour); a final cost pass at
+    the converged centres follows the loop. Each pass over the rows is one
+    :func:`chunk_stats`: a launch of kernel K2 (the JAX package's
+    ``_chunk_stats`` at its Pallas branch), or its float64 route."""
     centers = centers0
     shift = float("inf")
     it = 0
     while it < max_iter and shift > tol * tol:
-        sums, counts, _ = lloyd_step(X, mask, centers)
+        sums, counts, _ = chunk_stats(X, mask, centers)
         countsf = counts.to(sums.dtype)
         safe = torch.clamp(countsf, min=1.0)
         new_centers = torch.where(counts[:, None] > 0, sums / safe[:, None], centers)
@@ -244,7 +293,7 @@ def kmeans_lloyd(
             shifts.append(shift)
         centers = new_centers
         it += 1
-    _, _, cost = lloyd_step(X, mask, centers)
+    _, _, cost = chunk_stats(X, mask, centers)
     return centers, float(cost), it
 
 
@@ -263,6 +312,6 @@ def min_sq_dists(
 
 def count_closest(X: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """How many rows are closest to each centre — k-means|| candidate
-    weights (kernel K2 at k = the candidate count)."""
-    _, counts, _ = lloyd_step(X, mask, centers)
+    weights (kernel K2 at k = the candidate count, or its float64 route)."""
+    _, counts, _ = chunk_stats(X, mask, centers)
     return counts

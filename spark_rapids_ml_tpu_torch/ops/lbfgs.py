@@ -85,7 +85,8 @@ def minimize_lbfgs(
 
     ``fun`` is a smooth scalar loss, differentiable by ``torch.autograd``.
     With ``l1_weights`` None the algorithm is plain L-BFGS; otherwise
-    OWL-QN."""
+    OWL-QN. The iterates, history and two-loop recursion are in ``w0``'s
+    dtype (the fit's: float32, or float64 under ``float32_inputs=False``)."""
     use_l1 = l1_weights is not None
     l1w = l1_weights if use_l1 else torch.zeros_like(w0)
 

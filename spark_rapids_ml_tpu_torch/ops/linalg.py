@@ -6,6 +6,11 @@ its plain PyTorch version, and the covariance / eigendecomposition glue
 around it. The mean estimate, the shift and the exact rank-1 re-centre
 follow the JAX package step for step, so at ``num_workers=1`` both
 packages shift by the same μ̂.
+
+K1 takes float32. A float64 fit (``float32_inputs=False``) takes
+:func:`shifted_gram_scan` instead, chosen by dtype at the call site
+(:func:`gram_kernel_ok`), as the JAX package's ``_pallas_gram_ok`` sends
+f64 to its scan branch: on the card a float64 product through cuBLAS.
 """
 
 from __future__ import annotations
@@ -142,6 +147,30 @@ def shifted_gram(
 shifted_gram.launches = 0
 
 
+def gram_kernel_ok(dtype: torch.dtype) -> bool:
+    """True where K1 takes a Gram pass of this dtype: float32 only (the JAX
+    package's ``_pallas_gram_ok`` gate on dtype). Callers route float64 to
+    :func:`shifted_gram_scan` before any wrapper is called."""
+    return dtype == torch.float32
+
+
+def shifted_gram_scan(
+    X: torch.Tensor, m: torch.Tensor, mu: torch.Tensor, rows: int = _MOMENT_CHUNK
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's contract in ``X``'s dtype, outside any kernel: the counterpart
+    of the scan branch of the JAX package's ``mean_and_cov_chunked``
+    (``xs = (x - μ̂)·m`` a chunk of ``rows`` rows, ``G += xsᵀxs``,
+    ``s += Σ xs``). The route of float64 fits, on the CPU and the card."""
+    d = X.shape[1]
+    G = torch.zeros((d, d), dtype=X.dtype, device=X.device)
+    s = torch.zeros((d,), dtype=X.dtype, device=X.device)
+    for lo in range(0, X.shape[0], rows):
+        xs = (X[lo : lo + rows] - mu[None, :]) * m[lo : lo + rows, None]
+        G += xs.T @ xs
+        s += xs.sum(dim=0)
+    return G, s
+
+
 def _check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """The kernels' common argument contract: f32, contiguous, one CUDA
     device. Anything else raises — there is no fallback on the card."""
@@ -170,7 +199,8 @@ def mean_and_cov_chunked(
     accumulates the Gram and row sum shifted by that estimate (kernel K1),
     and an exact rank-1 correction re-centres: with ``δ = mean - μ̂`` small
     the correction does not cancel. Rows must be padded to a ``csize``
-    multiple (:func:`parallel.mesh.shard_rows`), as in the JAX package."""
+    multiple (:func:`parallel.mesh.shard_rows`), as in the JAX package.
+    Float64 rows take :func:`shifted_gram_scan` in ``csize`` chunks."""
     N = X.shape[0]
     e = min(csize, N)
     stride = max(1, N // e)
@@ -178,7 +208,10 @@ def mean_and_cov_chunked(
     s0 = (x0 * m0[:, None]).sum(dim=0)
     c0 = m0.sum()
     mean_hat = (s0 / torch.clamp(c0, min=1.0)).contiguous()
-    G, s = shifted_gram(X, mask, mean_hat)
+    if gram_kernel_ok(X.dtype):
+        G, s = shifted_gram(X, mask, mean_hat)
+    else:
+        G, s = shifted_gram_scan(X, mask, mean_hat, csize)
     n = mask.sum()
     delta = s / n  # exact mean minus μ̂
     mean = mean_hat + delta

@@ -9,6 +9,12 @@ so each L-BFGS value-and-gradient costs one read of X (the contract of the
 JAX package's custom VJP). ``logreg_fit`` keeps the JAX package's
 standardization-as-reparametrization, intercept handling and multinomial
 intercept centring.
+
+K3 takes float32. A float64 fit (``float32_inputs=False``) takes
+:func:`data_loss_xla` instead, chosen by dtype in
+:func:`make_fused_data_loss` before any kernel wrapper is called, as the
+JAX package's ``logreg_pallas_ok`` sends f64 to its XLA logits: the masked
+log-loss of the logits ``X Aᵀ + b`` in float64, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -591,11 +597,56 @@ class _FusedDataLoss(torch.autograd.Function):
         return g * gA, g * gb, None, None, None, None
 
 
+def logreg_kernel_ok(dtype: torch.dtype) -> bool:
+    """True where K3 takes a data pass of this dtype: float32 only (the JAX
+    package's ``logreg_pallas_ok`` gate on dtype; bf16 operands are not
+    ported)."""
+    return dtype == torch.float32
+
+
+def data_loss_xla(
+    X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, multinomial: bool
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``f(Aeff, beff) -> Σ m·logloss`` in ``X``'s dtype, outside any kernel,
+    its gradient by autograd: the counterpart of the JAX package's
+    ``smooth_loss`` where no Pallas loss is fused (softplus for the
+    binomial form, logsumexp less the label's logit for the multinomial
+    one). The route of float64 fits, on the CPU and the card."""
+    yi = y.to(torch.int64)[:, None] if multinomial else None
+
+    def f(Aeff: torch.Tensor, beff: torch.Tensor) -> torch.Tensor:
+        logits = X @ Aeff.T + beff[None, :]
+        if multinomial:
+            ll = torch.logsumexp(logits, dim=1) - torch.gather(logits, 1, yi)[:, 0]
+        else:
+            z = logits[:, 0]
+            ll = torch.nn.functional.softplus(z) - y * z
+        return (ll * mask).sum()
+
+    return f
+
+
+def logreg_loss_grad_xla(
+    X: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+    A: torch.Tensor, b: torch.Tensor, multinomial: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's contract ``(Σ m·logloss, gA, gb)`` from :func:`data_loss_xla` and
+    autograd, in ``X``'s dtype: the float64 fold of a streamed chunk."""
+    Av, bv = A.detach().requires_grad_(True), b.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = data_loss_xla(X, y, m, multinomial)(Av, bv)
+        gA, gb = torch.autograd.grad(loss, (Av, bv))
+    return loss.detach(), gA, gb
+
+
 def make_fused_data_loss(
     X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, multinomial: bool
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``f(Aeff, beff) -> Σ m·logloss`` whose value and gradient cost one
-    data pass (kernel K3 on the card, its plain version on the CPU)."""
+    data pass (kernel K3 on the card, its plain version on the CPU); for
+    float64 ``X`` the autograd route :func:`data_loss_xla`."""
+    if not logreg_kernel_ok(X.dtype):
+        return data_loss_xla(X, y, mask, multinomial)
 
     def f(Aeff: torch.Tensor, beff: torch.Tensor) -> torch.Tensor:
         return _FusedDataLoss.apply(Aeff, beff, X, y, mask, multinomial)
@@ -628,7 +679,8 @@ def logreg_fit(
     standardized coefficients, never on intercepts. Standardization is a
     reparametrization: the solver works in standardized-coefficient space
     and the affine map folds into the logits (``to_original``), so X is
-    never copied."""
+    never copied. The fit runs in ``X``'s dtype: float64 ``X`` takes the
+    autograd objective and an L-BFGS in float64."""
     if objective_dtype != "float32":
         raise NotImplementedError(
             f"objective_dtype={objective_dtype!r}: only float32 is ported"

@@ -26,7 +26,10 @@ producer a stage, FIFO queues).
 Numerics: the means first, the centred Gram second (two passes), as in the
 JAX package. The Gram pass is kernel K1 (``ops.linalg.shifted_gram``) a
 chunk, with row scales √(mask·w) and the exact mean of pass 1 as its shift.
-Accumulators are f32, as in the JAX package.
+Accumulators are in the fit's dtype, as in the JAX package: f32, or f64
+under ``float32_inputs=False``, where the chunks travel as f64 and every
+fold takes its kernel's float64 route (chosen by dtype at the fold:
+``shifted_gram_scan``, ``logreg_loss_grad_xla``, ``chunk_stats_xla``).
 
 LogisticRegression (:func:`streamed_logreg_fit`): one host pass over the
 labels, a moments pass and, under ``standardization``, a variance pass,
@@ -49,9 +52,11 @@ Wire formats (``WIRE_DTYPE``, or ``wire=`` of :func:`iter_device_chunks`
 for one loop): the staging thread encodes each chunk's ``X`` as f32 (the
 default), f16, per-column affine int8 or scaled e4m3 f8 (:func:`put_chunk`;
 the bytes are the JAX package's), the ring moves the narrow buffer and its
-O(d) scales, and the card dequantizes it on the ring's copy stream, so the
-folds and kernels K1/K2/K3 read an f32 ``X`` as before; ``auto`` picks a
-pass's encoding from its first chunk (:func:`select_wire_format`).
+O(d) scales, and the card dequantizes it on the ring's copy stream into the
+fit's dtype, so the folds and kernels K1/K2/K3 read an f32 ``X`` as before
+(a float64 fit: an f64 ``X``; its ``f32`` wire ships f64 unchanged);
+``auto`` picks a pass's encoding from its first chunk
+(:func:`select_wire_format`).
 
 Checkpoint/resume: the streamed LogisticRegression (through
 ``ops.lbfgs.minimize_lbfgs_host``) and the streamed Lloyd take a
@@ -80,10 +85,10 @@ import torch
 from ..data.chunks import Chunk, ChunkSource
 from ..parallel.mesh import _np_dtype, _torch_dtype, pinned_ring
 from ..utils.logging import get_logger
-from .kmeans_kernels import lloyd_step, min_sq_dists
+from .kmeans_kernels import chunk_stats, min_sq_dists
 from .lbfgs import minimize_lbfgs_host
-from .linalg import shifted_gram
-from .logreg_kernels import logreg_loss_grad
+from .linalg import gram_kernel_ok, shifted_gram, shifted_gram_scan
+from .logreg_kernels import logreg_kernel_ok, logreg_loss_grad, logreg_loss_grad_xla
 
 # the JAX package's TPUML_STREAM_PREFETCH, TPUML_STREAM_STAGE_DEPTH and
 # TPUML_STREAM_SYNC_EVERY defaults: decoded chunks ahead, staged chunks
@@ -413,7 +418,7 @@ def put_chunk(
     dequantized on the card (:func:`_dequantize`); f16 downcasts on the
     host. A chunk stored in a float narrower than ``dtype`` (f16 parquet,
     or the f16 wire) is copied as it is and upcast on the card. So every
-    fold reads an f32 ``X``; the narrow buffer is dropped once the upcast
+    fold reads ``X`` in ``dtype``; the narrow buffer is dropped once the upcast
     is enqueued behind it on the same stream. On a card every copy goes
     through the page-locked staging ring on its copy stream and the tensors
     are made on that stream; ``_ready`` is the event after them, for which
@@ -630,10 +635,11 @@ def gram2_init(d: int, device: torch.device, dtype: torch.dtype, with_y: bool) -
 def gram2_step(acc: Dict[str, torch.Tensor], X: torch.Tensor, rw: torch.Tensor, mean_x: torch.Tensor,
                y: Optional[torch.Tensor] = None, mean_y: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Fold one chunk into G = (Xc√w)ᵀ(Xc√w) [, Xy, yy], centred at the
-    exact means, in place. G is kernel K1 with m = √w and μ = ``mean_x``;
-    Xy and yy are plain products over the centred, √w-scaled chunk."""
+    exact means, in place. G is kernel K1 with m = √w and μ = ``mean_x``
+    (a float64 chunk: ``shifted_gram_scan``); Xy and yy are plain products
+    over the centred, √w-scaled chunk."""
     sw = torch.sqrt(rw).contiguous()
-    G, _ = shifted_gram(X, sw, mean_x)
+    G, _ = shifted_gram(X, sw, mean_x) if gram_kernel_ok(X.dtype) else shifted_gram_scan(X, sw, mean_x)
     acc["G"] += G
     if y is not None:
         yc = (y - mean_y) * sw
@@ -748,8 +754,12 @@ def logreg_chunk_vg_step(
     """Fold one chunk's masked log-loss and its gradient with respect to
     the effective coefficients ``(Aeff (K, d), beff (K,))`` into ``acc``
     (``f``, ``gA``, ``gb``) in place: kernel K3 on the card, its plain
-    version on the CPU."""
-    loss, gA, gb = logreg_loss_grad(X, y, mask, Aeff, beff, multinomial)
+    version on the CPU; a float64 chunk the autograd route
+    (``logreg_loss_grad_xla``) on either."""
+    if logreg_kernel_ok(X.dtype):
+        loss, gA, gb = logreg_loss_grad(X, y, mask, Aeff, beff, multinomial)
+    else:
+        loss, gA, gb = logreg_loss_grad_xla(X, y, mask, Aeff, beff, multinomial)
     acc["f"] += loss
     acc["gA"] += gA
     acc["gb"] += gb
@@ -837,8 +847,8 @@ def streamed_logreg_fit(
 ) -> Dict[str, Any]:
     """Out-of-core LogisticRegression: :func:`minimize_lbfgs_host` whose
     every evaluation is one chunked pass, each chunk folded through K3
-    (:func:`logreg_chunk_vg_step`) into f32 accumulators on the card, read
-    back once a pass.
+    (:func:`logreg_chunk_vg_step`) into accumulators of ``dtype`` on the
+    card, read back once a pass.
 
     The objective is the resident fit's (``ops.logreg_kernels.logreg_fit``):
     (1/n)·Σ logloss + λ[(1−α)/2‖β‖₂² + α‖β‖₁] on the standardized
@@ -848,7 +858,8 @@ def streamed_logreg_fit(
     (:func:`streamed_logreg_moments`). ``checkpointer``: the solver's
     (:func:`minimize_lbfgs_host`); a resumed fit reruns the moment passes
     and skips the evaluations before its checkpoint. Returns ``coef_`` (K,
-    d) and ``intercept_`` (K,) as f32 numpy, ``n_iter`` and ``objective``."""
+    d) and ``intercept_`` (K,) as numpy of ``dtype``, ``n_iter`` and
+    ``objective``."""
     d = source.n_features
     np_dtype = _np_dtype(dtype)
     moments = streamed_logreg_moments(source, device, chunk_rows, dtype, variance=standardization, cache=moments)
@@ -910,9 +921,10 @@ def kmeans_chunk_step(
     """Fold one chunk's assignment statistics into ``acc`` (``sums`` in the
     chunk dtype, ``counts`` int32, ``cost``) in place: kernel K2
     (``ops.kmeans_kernels.lloyd_step``) on the card, its plain version on
-    the CPU. Counts stay int32: a float count drops +1 increments past 2²⁴
-    rows."""
-    sums, counts, cost = lloyd_step(X, mask, centers)
+    the CPU; a float64 chunk ``chunk_stats_xla`` on either
+    (``ops.kmeans_kernels.chunk_stats``). Counts stay int32: a float count
+    drops +1 increments past 2²⁴ rows."""
+    sums, counts, cost = chunk_stats(X, mask, centers)
     acc["sums"] += sums
     acc["counts"] += counts
     acc["cost"] += cost
@@ -930,8 +942,9 @@ def chunk_min_sq_dists(X: torch.Tensor, mask: torch.Tensor, centers: torch.Tenso
 def count_closest_chunk_step(counts: torch.Tensor, X: torch.Tensor, mask: torch.Tensor,
                              cands: torch.Tensor) -> torch.Tensor:
     """Fold one chunk into the int32 closest-row counts of the k-means||
-    candidates in place: K2's counts at k = the candidate count."""
-    counts += lloyd_step(X, mask, cands)[1]
+    candidates in place: K2's counts at k = the candidate count (a float64
+    chunk: ``chunk_stats_xla``'s)."""
+    counts += chunk_stats(X, mask, cands)[1]
     return counts
 
 

@@ -135,7 +135,9 @@ def shard_rows(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Copy host rows onto ``device``, zero-padded to a ``row_multiple``.
 
-    Returns ``(x_padded, mask)``. The padded tensor is allocated on the
+    Returns ``(x_padded, mask)``; the mask is in the rows' dtype where they
+    are float64 (a float64 fit's masked products keep one dtype), else
+    float32. The padded tensor is allocated on the
     device and filled in place, so no padded host copy is made (at
     12M x 256 f32 that copy alone would be 12 GB). On a card the rows go
     through the :class:`PinnedRing`, and the current stream waits for the
@@ -146,7 +148,7 @@ def shard_rows(
     xd = torch.empty((n_pad,) + x.shape[1:], dtype=_torch_dtype(x.dtype), device=device)
     _fill(xd[:n], x)
     xd[n:].zero_()
-    mask = torch.zeros((n_pad,), dtype=torch.float32, device=device)
+    mask = torch.zeros((n_pad,), dtype=torch.float64 if xd.dtype == torch.float64 else torch.float32, device=device)
     mask[:n] = 1.0
     return xd, mask
 

@@ -250,9 +250,14 @@ def test_linreg_refusals(case):
         with pytest.raises(ValueError, match="squaredError"):
             TLinReg(loss="huber", device="cpu")
     else:
-        df64 = TDataFrame({"features": X.astype(np.float64), "label": y})
-        with pytest.raises(NotImplementedError):
-            TLinReg(float32_inputs=False, device="cpu").fit(df64)
+        # float64 inputs are no longer refused: the f64 fit (K1's float64
+        # route) matches the JAX package's float32_inputs=False fit
+        cols = {"features": X.astype(np.float64), "label": y.astype(np.float64)}
+        tm = TLinReg(float32_inputs=False, device="cpu").fit(TDataFrame(cols))
+        jm = JLinReg(float32_inputs=False, num_workers=1).fit(JDataFrame(cols))
+        assert tm.coefficients.dtype == np.asarray(jm.coefficients).dtype == np.float64
+        np.testing.assert_allclose(tm.coefficients, np.asarray(jm.coefficients), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(tm.intercept, float(jm.intercept), rtol=1e-10, atol=1e-12)
 
 
 def test_fit_multiple_makes_one_pass(monkeypatch):
