@@ -228,7 +228,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    of the whole set at a band derived from the chunks, peak device memory
    under STREAM_PEAK_MAX, one moments and one Gram pass (763 K1 launches)
    a fit, the ingest report's stage seconds; (e) where pyarrow imports, a
-   parquet scan of 2,000,000 of the rows in 8 files, a streamed PCA fit
+   parquet scan of 1,000,000 of the rows in 4 files, a streamed PCA fit
    and transform that leave it on disk, held to the in-memory fit and
    transform (else a line says it did not run). The K1 launches of these
    fits are ``launches_by_path["shifted_gram"]["streamed"]``. Then the
@@ -236,7 +236,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    chunked pass through K3): (f) K3 at the three chunk shapes it gets
    (131,072 × 256 binomial, 32,768 × 1,024 with 64 classes, 1,601 ×
    20,958 binomial) and their zero-padded last chunks, held with every
-   control and timed; LogisticRegression(maxIter=5) streamed and resident
+   control and timed; LogisticRegression(maxIter=3) streamed and resident
    on (g) the 12M × 256 rows, (h) the 64-class logreg_many rows (their
    predictions equal but for near ties) and (j) a CSR matrix of real-sim's
    shape through the sparse opt-in against the resident dense fit, each
@@ -244,7 +244,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    rows (the same host solver, f64 passes) at a band derived from K3's and
    the chunk count, one K3 launch a chunk of each objective pass and none
    of K3's plain version; (k) the north star: LogisticRegression(regParam=
-   1e-5, maxIter=5) on 100,000,000 × 256 rows with binomial labels, its
+   1e-5, maxIter=2) on 100,000,000 × 256 rows with binomial labels, its
    first and last evaluations held against their f64 truth from the pool,
    the model against the f64 reference fit, peak device memory under
    STREAM_PEAK_MAX. K3's launches there are the ``logreg_loss_grad_stream_*``
@@ -263,7 +263,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    k-means|| (the default, maxIter=10) within 2% of the resident cost, both
    seeding splits (``_fit_report``) side by side; (n) the north star: the
    reference's KMeans(k=1000, tol=1e-20, initMode="random"), maxIter cut to
-   3, on 100,000,000 x 256 rows from a generator of views of the 12M
+   2, on 100,000,000 x 256 rows from a generator of views of the 12M
    rows' 131,072-row blocks: its seeds equal the rows the seed names, a
    maxIter=0 fit's cost held against its f64 truth from the pool, the
    fit's cost against an f64 walk's, peak device memory under
@@ -275,7 +275,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    its offset two steps off refused); streamed PCA(k=16) at f32 (held to
    its f64 truth), f16, int8, f8 and auto, the three-config
    LinearRegression ``fitMultiple`` at f32 (OLS to its f64 solve) and f16,
-   KMeans(k=1024, random, maxIter 3) at f32 and int8, each narrow fit
+   KMeans(k=1024, random, maxIter 2) at f32 and int8, each narrow fit
    held against the f32 one at the JAX package's wire tolerances, with
    each wire's bytes, encode and host-copy seconds and seconds a pass;
    (p) checkpoint/resume on those rows: LogisticRegression(maxIter=5) and
@@ -305,6 +305,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``f64_phase_f32`` path of the ``shifted_gram``, ``lloyd_step``,
    ``logreg_loss_grad`` and ``logreg_loss_grad_stream_rows`` rows); each
    wrapper given an f64 card tensor raises.
+6. tuning (r, ``phase_tuning``): the first 1,572,864 host rows with the
+   phase's own binomial, 10-class and regression labels:
+   CrossValidator(LogisticRegression(maxIter 20)) over regParam {1e-4,
+   1e-2} × elasticNetParam {0, 0.5}, 3 folds, accuracy (its single pass:
+   ``fitMultiple``, ``_combine``, one ``_transformEvaluate`` a fold),
+   beside the per-map loop, ``parallelism=3`` and another fold seed, and on
+   the first 131,072 rows beside the same CV on the CPU;
+   CrossValidator(LinearRegression) over regParam {0, 0.01, 100} ×
+   elasticNetParam {0, 0.5}, rmse; CrossValidator(RandomForestClassifier(10
+   trees, 32 bins)) over maxDepth {4, 8}, 2 folds, on the first 65,536 rows;
+   OneVsRest(LogisticRegression) on 10 classes beside the multinomial fit;
+   Pipeline([PCA(k=16), LogisticRegression]) fitted, saved, loaded. Holds:
+   the folds numpy's draw; the single pass against the loop (sub-models bit
+   for bit, predictions equal but for rows within 1e-5 of p1 = 0.5);
+   parallelism 3 bit for bit; card vs CPU: the same best index, avgMetrics
+   within 1e-3; each fold's OLS candidate within ``ols_reference``'s band of
+   an f64 fit of its rows, its rmse within 1e-5 of that fit's, regParam 100
+   never chosen; the forests' combined metrics equal their own transforms'
+   bit for bit; OneVsRest's raw columns its binary models' raw scores bit
+   for bit, its accuracy within 0.05 of the multinomial's; the Pipeline's
+   predictions after save and load bit for bit; each with a negative
+   control. K1, K3, K5 (or K6) and K9 launch, no plain version runs on the
+   card (the ``tuning`` path of their rows).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -386,6 +409,12 @@ phase alone on ``--rows`` rows. It prints no result line.
 
 is a probe of the float64 phase (q): K1, K3 and K2 alone built, the phase
 alone on F64_ROWS rows made from ``--seed`` (fewer with a smaller
+``--rows``). It prints no result line.
+
+    python3 chip_smoke.py --tuning-only
+
+is a probe of the tuning phase (r): K1, K3, K5/K6 and K9 alone built, the
+phase alone on TUNING_ROWS rows made from ``--seed`` (fewer with a smaller
 ``--rows``). It prints no result line.
 
     python3 chip_smoke.py --wire-only
@@ -3626,7 +3655,8 @@ STREAM_PEAK_MAX = 4 << 30
 # timed calls of K1 at the chunk shape (about half a millisecond a call)
 STREAM_K1_REPS = 20
 # the parquet scan: rows of the 12M set written in files of these rows
-PARQUET_ROWS = 2_000_000
+# (2,000,000 cut to 1,000,000 when the tuning phase (r) joined the run)
+PARQUET_ROWS = 1_000_000
 PARQUET_FILE_ROWS = 250_000
 
 
@@ -4043,10 +4073,14 @@ def phase_stream_parquet(torch, X_host):
 # ---------------------------------------------------------------------------
 
 # maxIter of the streamed LogisticRegression fits (the bench's 20 cut to 5:
-# at 100M every evaluation is a full pass of ~8-10 s) and the north star's
-# regParam (the reference benchmark's)
-STREAM_LR_ITER = 5
+# at 100M every evaluation is a full pass of ~8-12 s; 5 cut to 3 when the
+# tuning phase (r) joined the run) and the north star's regParam (the
+# reference benchmark's)
+STREAM_LR_ITER = 3
 STREAM_LR_REG = 1e-5
+# the north star's maxIter: 5 cut to 2 when the tuning phase (r) joined the
+# run
+NORTH_STAR_LR_ITER = 2
 # timed calls of K3 at each chunk shape
 STREAM_K3_REPS = 10
 # the sparse opt-in: LIBSVM real-sim's shape, 72,309 x 20,958 at ~0.25%
@@ -4372,7 +4406,7 @@ def north_star_labels(torch, pool, seed):
 
 
 def phase_north_star_logreg(torch, lk, st, seed):
-    """(k) LogisticRegression(regParam=STREAM_LR_REG, maxIter=STREAM_LR_ITER)
+    """(k) LogisticRegression(regParam=STREAM_LR_REG, maxIter=NORTH_STAR_LR_ITER)
     on 100,000,000 x 256 f32 rows from a ``GeneratorChunkSource`` of 763
     chunks (views of the north star's pool, binomial labels from
     ``seed``), through the estimator's streaming fit function handed a
@@ -4405,7 +4439,7 @@ def phase_north_star_logreg(torch, lk, st, seed):
 
     inputs = StreamInputs(source=GeneratorChunkSource(gen, N, E2E_D, has_label=True), device=dev, n_rows=N,
                           n_features=E2E_D, dtype=torch.float32, chunk_rows=CH)
-    est = LogisticRegression(regParam=STREAM_LR_REG, maxIter=STREAM_LR_ITER)
+    est = LogisticRegression(regParam=STREAM_LR_REG, maxIter=NORTH_STAR_LR_ITER)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4434,16 +4468,16 @@ def phase_north_star_logreg(torch, lk, st, seed):
         check(abs(f - F) <= ef and (np.abs(g - G) <= eg).all(),
               f"north-star LogReg evaluation {i} off its f64 truth: {held_evals[-1]}")
     ref, t_ref = _timed(torch, lambda: lr_reference_fit(
-        torch, blocks, lk, K=1, l2=STREAM_LR_REG, chunk=CH, n_chunks=n_chunks, max_iter=STREAM_LR_ITER))
+        torch, blocks, lk, K=1, l2=STREAM_LR_REG, chunk=CH, n_chunks=n_chunks, max_iter=NORTH_STAR_LR_ITER))
     truth = ref[0]
     held = hold_fits(torch, *ref, {"streamed": model}, "north-star LogReg")
     row = {"phase": "streamed", "check": "north_star_logreg", "rows": N, "d": E2E_D, "chunks": n_chunks,
-           "last_chunk_rows": last, "maxIter": STREAM_LR_ITER, "regParam": STREAM_LR_REG,
+           "last_chunk_rows": last, "maxIter": NORTH_STAR_LR_ITER, "regParam": STREAM_LR_REG,
            "label_mean": float(sum(c * float(y.sum()) for _, y, c in blocks) / N), "fit_s": t_fit,
            "fit_rows_per_s": N / t_fit, "passes": passes, "pass_s": rep["pass_s"],
            "objective_pass_s": rep["pass_s"]["objective"] / passes["objective"],
            "pass_gb_per_s": rep["bytes"] / rep["wall_s"] / 1e9, "n_iter": model.n_iter_,
-           "evals": len(rec["evals"]), "stop": "maxIter" if model.n_iter_ == STREAM_LR_ITER else "tol",
+           "evals": len(rec["evals"]), "stop": "maxIter" if model.n_iter_ == NORTH_STAR_LR_ITER else "tol",
            "peak_device_bytes": peak, "peak_max": STREAM_PEAK_MAX, "host_rss_growth_bytes": rss_bytes() - rss0,
            "logreg_loss_grad_launches": k, "plain_calls": rec["plain_calls"], "held_evals": held_evals,
            "reference_fit_s": t_ref, **held, "ingest": rep}
@@ -4522,9 +4556,10 @@ def phase_stream_logreg(torch, X_host, y_host, seed):
 # databricks/run_benchmark.sh:46-55): k=1000, tol=1e-20, random init; its
 # maxIter=30 cut to STREAM_KM_ITER at 100M, where every iteration is one
 # pass of ~9-14 s (at 5 iterations the whole script took 984 s of its
-# 1,200 on an H100 80GB HBM3 at 700 W)
+# 1,200 on an H100 80GB HBM3 at 700 W; 3 cut to 2 when the tuning phase (r)
+# joined the run)
 STREAM_KM_K = 1000
-STREAM_KM_ITER = 3
+STREAM_KM_ITER = 2
 STREAM_KM_TOL = 1e-20
 # the bench's KMeans (bench.py: k = E2E_CENTRES, maxIter=10) on the 12M
 # rows, streamed and resident: k-means|| at its maxIter (the resident fit
@@ -5168,7 +5203,7 @@ def phase_stream_wire(torch, X_host, lin, seed):
     f32 fit held to the f64 truth of the rows; each other against it at
     the JAX package's wire tolerances), the three-config LinearRegression
     ``fitMultiple`` at f32 (OLS held to its f64 solve) and f16 (against
-    f32), and KMeans(k=1024, random init, maxIter 3) at f32 and int8 (the
+    f32), and KMeans(k=1024, random init, maxIter 2) at f32 and int8 (the
     same seeds; int8 against f32). Each fit: its K1 or K2 launches one a
     chunk of each Gram, Lloyd and cost pass, none of K2's plain version;
     its wire's bytes, encode and host-copy seconds and seconds a pass.
@@ -5601,25 +5636,29 @@ class LrObjective64:
 
 
 @contextlib.contextmanager
-def kernel_counts(lin, kk, lk):
-    """While open: the launches of K1, K2 and K3 and the calls of their plain
-    versions (none may come on the card), read as ``rec()``."""
-    plain = {"shifted_gram_plain": 0, "lloyd_step_plain": 0, "logreg_loss_grad_plain": 0}
-    reals = {(mod, name): getattr(mod, name) for mod, name in ((lin, "shifted_gram_plain"),
-                                                               (kk, "lloyd_step_plain"),
-                                                               (lk, "logreg_loss_grad_plain"))}
+def launch_counts(wrappers):
+    """While open: the launches of each (module, wrapper, plain version)
+    triple's wrapper and the calls of its plain version (none may come on
+    the card), read as ``rec()``."""
+    plain = {p: 0 for _, _, p in wrappers}
+    reals = {(mod, p): getattr(mod, p) for mod, _, p in wrappers}
     for (mod, name), real in reals.items():
         def spy(*a, _name=name, _real=real, **kw):
             plain[_name] += 1
             return _real(*a, **kw)
         setattr(mod, name, spy)
-    k0 = (lin.shifted_gram.launches, kk.lloyd_step.launches, lk.logreg_loss_grad.launches)
+    k0 = {w: getattr(mod, w).launches for mod, w, _ in wrappers}
     try:
-        yield lambda: {"shifted_gram": lin.shifted_gram.launches - k0[0], "lloyd_step": kk.lloyd_step.launches - k0[1],
-                       "logreg_loss_grad": lk.logreg_loss_grad.launches - k0[2], **plain}
+        yield lambda: {**{w: getattr(mod, w).launches - k0[w] for mod, w, _ in wrappers}, **plain}
     finally:
         for (mod, name), real in reals.items():
             setattr(mod, name, real)
+
+
+def kernel_counts(lin, kk, lk):
+    """``launch_counts`` of K1, K2 and K3."""
+    return launch_counts(((lin, "shifted_gram", "shifted_gram_plain"), (kk, "lloyd_step", "lloyd_step_plain"),
+                          (lk, "logreg_loss_grad", "logreg_loss_grad_plain")))
 
 
 def phase_f64(torch, X_host, seed):
@@ -5818,6 +5857,344 @@ def f64_probe(torch, args, dev) -> int:
     del X
     torch.cuda.empty_cache()
     launches = phase_f64(torch, X_host, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase (r): tuning — CrossValidator, OneVsRest and Pipeline
+# ---------------------------------------------------------------------------
+
+TUNING_ROWS = 1_572_864
+TUNING_RF_ROWS = 65_536
+TUNING_CPU_ROWS = 131_072
+TUNING_CLASSES = 10
+TUNING_INFORMATIVE = 16
+# the binomial labels' logit scale: a weak signal (Bayes accuracy ~0.6), so
+# the grid's penalties move the CV's accuracy by ~0.002, some 90 rows a fold,
+# and its best map stands clear of card-vs-CPU rounding
+TUNING_SIGNAL = 0.5
+TUNING_LR_ITER = 20
+TUNING_FOLDS = 3
+TUNING_GRIDS = {"logreg": {"regParam": [1e-4, 1e-2], "elasticNetParam": [0.0, 0.5]},
+                "linreg": {"regParam": [0.0, 0.01, 100.0], "elasticNetParam": [0.0, 0.5]},
+                "rf": {"maxDepth": [4, 8]}}
+# rows whose p1 lies this close to 0.5 may be predicted either way by two
+# products of different shapes (the combined model's one (m·K, d) product
+# and each model's own (K, d) one)
+TUNING_NEAR_HALF = 1e-5
+# the card's CV against the CPU's: avgMetrics entry by entry
+TUNING_CPU_ATOL = 1e-3
+# a fold's OLS candidate's rmse against the f64 normal equations' (relative)
+TUNING_RMSE_RTOL = 1e-5
+# OneVsRest's accuracy at most this far below the multinomial fit's (the
+# JAX package's tests/test_pipeline.py)
+TUNING_OVR_SLACK = 0.05
+
+
+def tuning_labels(torch, Xd, seed):
+    """The phase's labels for the card's rows ``Xd``, numpy's draws from
+    ``seed`` (the products on the card in f64): binomial with p =
+    sigmoid(TUNING_SIGNAL·z), z = X·w standardized, w on TUNING_INFORMATIVE
+    of the columns (so an L1 penalty has columns to drop); TUNING_CLASSES classes,
+    the argmax of 2·X·W standardized plus Gumbel noise; a regression target
+    (``linreg_labels``). Returns host f32 (binomial, classes, target)."""
+    rng = np.random.default_rng(seed + 27)
+    n, d = Xd.shape
+    W = rng.normal(size=(d, 1 + TUNING_CLASSES))
+    W[rng.permutation(d)[TUNING_INFORMATIVE:], 0] = 0.0
+    z = Xd.to(torch.float64) @ torch.from_numpy(W).to(Xd.device)
+    z = ((z - z.mean(dim=0)) / z.std(dim=0)).cpu().numpy()
+    yb = (rng.random(n) < 1.0 / (1.0 + np.exp(-TUNING_SIGNAL * z[:, 0]))).astype(np.float32)
+    yk = (2.0 * z[:, 1:] + rng.gumbel(size=(n, TUNING_CLASSES))).argmax(axis=1).astype(np.float32)
+    yr, _ = linreg_labels(torch, Xd, seed + 28)
+    return yb, yk, yr
+
+
+def cv_of(est, grid, eva, **kw):
+    """A ``CrossValidator`` over ``est`` with the grid {param name: values}."""
+    from spark_rapids_ml_tpu_torch.tuning import CrossValidator, ParamGridBuilder
+
+    b = ParamGridBuilder()
+    for name, values in grid.items():
+        b.addGrid(est.getParam(name), values)
+    return CrossValidator(estimator=est, estimatorParamMaps=b.build(), evaluator=eva, **kw)
+
+
+def single_vs_loop(torch, fast, loop, folds):
+    """The single-pass CV's sub-models (``fast``) against the per-map loop's
+    (``loop``) on the same folds: the coefficients bit for bit, then each
+    fold's combined transform (one product of the stacked coefficients)
+    against each model's own, their predictions equal but for rows whose p1
+    lies within TUNING_NEAR_HALF of 0.5. Returns the comparison."""
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegressionModel
+
+    coef_equal, differ, far, near_rows = True, [], 0, 0
+    for (_, val), subs_f, subs_l in zip(folds, fast.subModels, loop.subModels):
+        for a, b in zip(subs_f, subs_l):
+            coef_equal &= np.array_equal(a.coef_, b.coef_) and np.array_equal(a.intercept_, b.intercept_)
+        out = LogisticRegressionModel._combine(subs_f).transform(val)
+        pred, prob = out.column("prediction"), out.column("probability")
+        row = []
+        for j, m in enumerate(subs_l):
+            own = m.transform(val)
+            p1 = own.column("probability")[:, 1]
+            near = np.abs(p1.astype(np.float64) - 0.5) <= TUNING_NEAR_HALF
+            d = pred[:, j] != own.column("prediction")
+            row.append(int(d.sum()))
+            far += int((d & ~near).sum())
+            near_rows += int(near.sum())
+            del own
+        differ.append(row)
+        del out, pred, prob
+    n_val = [v.count() for _, v in folds]
+    # |Δaccuracy| of map j: at most its differing rows over each fold's rows
+    bound = [float(np.mean([differ[i][j] / n_val[i] for i in range(len(folds))])) for j in range(len(differ[0]))]
+    gap = [abs(a - b) for a, b in zip(fast.avgMetrics, loop.avgMetrics)]
+    return {"sub_models_bit_equal": bool(coef_equal), "differing_rows": differ, "differing_rows_off_threshold": far,
+            "rows_within_1e-5_of_half": near_rows, "avg_gap": gap, "avg_gap_bound": bound,
+            "held": bool(coef_equal and far == 0 and all(g <= b for g, b in zip(gap, bound)))}
+
+
+def phase_tuning(torch, X_host, seed):
+    """(r) the meta-algorithms on the first TUNING_ROWS host rows with the
+    phase's own labels (``tuning_labels``): CrossValidator over
+    LogisticRegression (its single pass: ``fitMultiple``, ``_combine``, one
+    ``_transformEvaluate`` a fold), over LinearRegression and over
+    RandomForestClassifier (its first TUNING_RF_ROWS), OneVsRest over
+    LogisticRegression on TUNING_CLASSES classes, and Pipeline([PCA(k=16),
+    LogisticRegression]) saved and loaded. Holds: the folds equal numpy's
+    draw; the single pass against the per-map loop (``single_vs_loop``);
+    parallelism 3 against 1 bit for bit; the card's CV against the CPU's on
+    the first TUNING_CPU_ROWS (the same best index, avgMetrics within
+    TUNING_CPU_ATOL); each fold's OLS candidate within ``ols_reference``'s
+    band of an f64 normal-equations fit of its training rows and its rmse
+    within TUNING_RMSE_RTOL of that fit's, regParam 100 never chosen; each
+    forest sub-model's metric from the combined ``_transformEvaluate`` equal
+    to its own transform's bit for bit; OneVsRest's raw columns equal to its
+    binary models' raw scores bit for bit, its accuracy within
+    TUNING_OVR_SLACK of the multinomial fit's; the Pipeline's predictions
+    after save and load bit for bit; each with a negative control. The card
+    work launches K1, K3, K5 (or K6) and K9 and calls no plain version.
+    Returns {kernels-line row: launches}."""
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import (
+        LogisticRegression, OneVsRest, RandomForestClassificationModel, RandomForestClassifier)
+    from spark_rapids_ml_tpu_torch.data.dataframe import kfold, kfold_ids
+    from spark_rapids_ml_tpu_torch.evaluation import MulticlassClassificationEvaluator, RegressionEvaluator
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.pipeline import Pipeline, PipelineModel
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    n = min(TUNING_ROWS, X_host.shape[0])
+    X = np.ascontiguousarray(X_host[:n])
+    Xd = torch.from_numpy(X).to(dev)
+    yb, yk, yr = tuning_labels(torch, Xd, seed)
+    del Xd
+    torch.cuda.empty_cache()
+    df = DataFrame({"features": X, "label": yb})
+    acc = MulticlassClassificationEvaluator(metricName="accuracy")
+    rmse = RegressionEvaluator(metricName="rmse")
+    lr = lambda **kw: LogisticRegression(maxIter=TUNING_LR_ITER, **kw)
+    wrappers = ((lin, "shifted_gram", "shifted_gram_plain"), (lk, "logreg_loss_grad", "logreg_loss_grad_plain"),
+                (rk, "node_hist_batched", "node_hist_plain"), (rk, "node_hist_sel_batched", "node_hist_sel_plain"),
+                (rk, "packed_forest_eval", "packed_forest_eval_plain"))
+    for mod, w, _ in wrappers:
+        getattr(mod, w).launches = 0
+    parts, counts = {}, {}
+
+    def part(name, fn):
+        with launch_counts(wrappers) as rec:
+            out, parts[name] = _timed(torch, fn)
+            counts[name] = {k: v for k, v in rec().items() if v}
+        return out
+
+    # the folds: one numpy draw
+    ids = kfold_ids(n, TUNING_FOLDS, seed)
+    want = np.random.default_rng(seed).integers(0, TUNING_FOLDS, size=n).astype(np.int8)
+    folds = kfold(df, TUNING_FOLDS, seed)
+    split = {"ids_equal": bool(np.array_equal(ids, want)),
+             "rows_equal": all(np.array_equal(v.column("features"), X[ids == i]) and
+                               np.array_equal(t.column("label"), yb[ids != i]) for i, (t, v) in enumerate(folds)),
+             "control_other_seed_differs": not np.array_equal(kfold_ids(n, TUNING_FOLDS, seed + 1), ids),
+             "val_rows": [v.count() for _, v in folds]}
+    emit({"phase": "tuning", "check": "folds", **split})
+    check(split["ids_equal"] and split["rows_equal"] and split["control_other_seed_differs"],
+          f"tuning: the folds are not numpy's draw: {split}")
+
+    # CrossValidator(LogisticRegression): single pass, per-map loop, threads
+    grid = TUNING_GRIDS["logreg"]
+    fast = part("logreg_cv", lambda: cv_of(lr(), grid, acc, numFolds=TUNING_FOLDS, seed=seed,
+                                           collectSubModels=True).fit(df))
+    slow_est = lr()
+    slow_est._supportsTransformEvaluate = lambda e: False
+    loop = part("logreg_cv_loop", lambda: cv_of(slow_est, grid, acc, numFolds=TUNING_FOLDS, seed=seed,
+                                                collectSubModels=True).fit(df))
+    par = part("logreg_cv_parallel3", lambda: cv_of(lr(), grid, acc, numFolds=TUNING_FOLDS, seed=seed,
+                                                    parallelism=3).fit(df))
+    svl = part("logreg_single_vs_loop", lambda: single_vs_loop(torch, fast, loop, folds))
+    del folds
+    lr_cv = {"avgMetrics": fast.avgMetrics, "stdMetrics": fast.stdMetrics, "loop_avgMetrics": loop.avgMetrics,
+             "single_vs_loop": svl, "parallel3_avgMetrics": par.avgMetrics,
+             "parallel3_bit_equal": par.avgMetrics == fast.avgMetrics}
+    fast.subModels = loop.subModels = None
+
+    # card vs CPU on the first rows; there, the folds of another seed (the
+    # control of the equalities above: other folds, other metrics)
+    m = min(TUNING_CPU_ROWS, n)
+    dfc = DataFrame({"features": X[:m], "label": yb[:m]})
+    card = part("logreg_cv_card_small", lambda: cv_of(lr(), grid, acc, numFolds=TUNING_FOLDS, seed=seed).fit(dfc))
+    other = part("logreg_cv_card_small_seed_plus_1", lambda: cv_of(lr(), grid, acc, numFolds=TUNING_FOLDS,
+                                                                   seed=seed + 1).fit(dfc))
+    lr_cv["control_seed_plus_1_avgMetrics"] = other.avgMetrics
+    lr_cv["control_seed_plus_1_differs"] = other.avgMetrics != card.avgMetrics
+    t = time.perf_counter()
+    cpu = cv_of(lr(device="cpu"), grid, acc, numFolds=TUNING_FOLDS, seed=seed).fit(dfc)
+    strong = {"regParam": [100 * v for v in grid["regParam"]], "elasticNetParam": grid["elasticNetParam"]}
+    cpu_strong = cv_of(lr(device="cpu"), strong, acc, numFolds=TUNING_FOLDS, seed=seed).fit(dfc)
+    parts["logreg_cv_cpu_small_and_control"] = time.perf_counter() - t
+    best = lambda cv: int(np.argmax(cv.avgMetrics))
+    gap = max(abs(a - b) for a, b in zip(card.avgMetrics, cpu.avgMetrics))
+    ctl = max(abs(a - b) for a, b in zip(card.avgMetrics, cpu_strong.avgMetrics))
+    lr_cv["card_vs_cpu"] = {"rows": m, "card_avgMetrics": card.avgMetrics, "cpu_avgMetrics": cpu.avgMetrics,
+                            "best": [best(card), best(cpu)], "max_gap": gap, "atol": TUNING_CPU_ATOL,
+                            "control_cpu_regParam_x100_avgMetrics": cpu_strong.avgMetrics, "control_max_gap": ctl}
+    emit({"phase": "tuning", "check": "logreg_cv", **lr_cv})
+    check(svl["held"], f"tuning: the single pass off the per-map loop: {svl}")
+    check(lr_cv["parallel3_bit_equal"] and lr_cv["control_seed_plus_1_differs"],
+          f"tuning: parallelism 3 against 1, or the fold-seed control: {lr_cv}")
+    check(best(card) == best(cpu) and gap <= TUNING_CPU_ATOL and ctl > TUNING_CPU_ATOL,
+          f"tuning: the card's CV against the CPU's: {lr_cv['card_vs_cpu']}")
+
+    # CrossValidator(LinearRegression): each fold's OLS candidate against f64
+    dfr = DataFrame({"features": X, "label": yr})
+    lcv = part("linreg_cv", lambda: cv_of(LinearRegression(), TUNING_GRIDS["linreg"], rmse, numFolds=TUNING_FOLDS,
+                                          seed=seed, collectSubModels=True).fit(dfr))
+    ols = []
+    t = time.perf_counter()
+    Xd = torch.from_numpy(X).to(dev)
+    fold_d = torch.from_numpy(ids).to(dev)
+    for i, subs in enumerate(lcv.subModels):
+        # the fold's rows split on the card, outside the port
+        ref = ols_reference(torch, Xd[fold_d != i], yr[ids != i])
+        Xv = Xd[fold_d == i].to(torch.float64)
+        yv = torch.from_numpy(yr[ids == i]).to(dev, torch.float64)
+        pred = Xv @ torch.from_numpy(ref["beta"]).to(dev) + ref["intercept"]
+        rmse_ref = float(((pred - yv) ** 2).mean().sqrt())
+        del Xv, yv, pred
+        val = DataFrame({"features": X[ids == i], "label": yr[ids == i]})
+        row = {"rmse_f64": rmse_ref}
+        for tag, sub in (("ols", subs[0]), ("control_regParam_100", subs[4])):
+            dev_s = ref["std"] * (np.asarray(sub.coefficients, np.float64) - ref["beta"])
+            err = float(np.linalg.norm(dev_s) / np.linalg.norm(ref["std"] * ref["beta"]))
+            err_b = abs(float(sub.intercept) - ref["intercept"])
+            r = rmse.evaluate(sub.transform(val))
+            row[tag] = {"coef_err_over_tol": err / ref["coef_tol"], "intercept_err_over_tol": err_b / ref[
+                "intercept_tol"], "rmse": r, "rmse_rel_diff": abs(r - rmse_ref) / rmse_ref,
+                "held": err <= ref["coef_tol"] and err_b <= ref["intercept_tol"] and abs(
+                    r - rmse_ref) <= TUNING_RMSE_RTOL * rmse_ref}
+        ols.append(row)
+    parts["linreg_cv_f64_reference"] = time.perf_counter() - t
+    del Xd, fold_d, val
+    torch.cuda.empty_cache()
+    lin_best = int(np.argmin(lcv.avgMetrics))
+    emit({"phase": "tuning", "check": "linreg_cv", "avgMetrics": lcv.avgMetrics, "stdMetrics": lcv.stdMetrics,
+          "best": lin_best, "folds": ols})
+    check(all(r["ols"]["held"] for r in ols) and not any(r["control_regParam_100"]["held"] for r in ols),
+          f"tuning: an OLS candidate off its f64 fit, or the regParam 100 control held: {ols}")
+    check(lin_best not in (4, 5), f"tuning: regParam 100 chosen: {lcv.avgMetrics}")
+    lcv.subModels = None
+
+    # CrossValidator(RandomForestClassifier): the combined evaluation pass
+    r_rows = min(TUNING_RF_ROWS, n)
+    dff = DataFrame({"features": X[:r_rows], "label": yb[:r_rows]})
+    rf = RandomForestClassifier(numTrees=10, maxBins=32, seed=seed)
+    rcv = part("rf_cv", lambda: cv_of(rf, TUNING_GRIDS["rf"], acc, numFolds=2, seed=seed,
+                                      collectSubModels=True).fit(dff))
+    rf_rows = []
+
+    def rf_holds():
+        for (_, val), subs in zip(kfold(dff, 2, seed), rcv.subModels):
+            combined = RandomForestClassificationModel._combine(subs)
+            vals = combined._transformEvaluate(val, acc)
+            own = [acc.evaluate(s.transform(val)) for s in subs]
+            rf_rows.append({"combined": vals, "own": own, "equal": vals == own,
+                            "control_maps_differ": vals[0] != vals[1]})
+
+    part("rf_cv_holds", rf_holds)
+    emit({"phase": "tuning", "check": "rf_cv", "rows": r_rows, "avgMetrics": rcv.avgMetrics,
+          "stdMetrics": rcv.stdMetrics, "folds": rf_rows,
+          "fit_reports": [s._fit_report for s in rcv.subModels[0]]})
+    check(all(r["equal"] and r["control_maps_differ"] for r in rf_rows),
+          f"tuning: a forest sub-model's combined metric off its own: {rf_rows}")
+    rcv.subModels = None
+
+    # OneVsRest(LogisticRegression) on TUNING_CLASSES classes
+    dfk = DataFrame({"features": X, "label": yk})
+    ovr = part("ovr_fit", lambda: OneVsRest(classifier=lr(regParam=1e-4)).fit(dfk))
+    out = part("ovr_transform", lambda: ovr.transform(dfk))
+    raw, pred = out.column("rawPrediction"), out.column("prediction")
+    multi = part("multinomial_fit", lambda: lr(regParam=1e-4).fit(dfk))
+    acc_multi = float((multi.transform(dfk).column("prediction") == yk).mean())
+    acc_ovr = float((pred == yk).mean())
+    dfs = DataFrame({"features": X[:m]})
+    cols = [ovr.models[k].transform(dfs).column("rawPrediction")[:, 1] for k in range(TUNING_CLASSES)]
+    ovr_row = {"shape": list(raw.shape), "columns_bit_equal": all(np.array_equal(raw[:m, k], c)
+                                                                   for k, c in enumerate(cols)),
+               "control_next_model_differs": not np.array_equal(raw[:m, 0], cols[1]),
+               "accuracy": acc_ovr, "multinomial_accuracy": acc_multi, "n_iter": [mm.n_iter_ for mm in ovr.models]}
+    emit({"phase": "tuning", "check": "one_vs_rest", **ovr_row})
+    check(ovr_row["shape"] == [n, TUNING_CLASSES] and ovr_row["columns_bit_equal"] and
+          ovr_row["control_next_model_differs"] and acc_ovr >= acc_multi - TUNING_OVR_SLACK,
+          f"tuning: OneVsRest: {ovr_row}")
+    del out, raw, pred, cols, ovr, multi
+
+    # Pipeline([PCA(k=16), LogisticRegression]), saved and loaded
+    pipe = Pipeline(stages=[PCA(k=16, inputCol="features", outputCol="pca"),
+                            lr(featuresCol="pca", regParam=1e-4)])
+    pm = part("pipeline_fit", lambda: pipe.fit(dfk))
+    p1 = part("pipeline_transform", lambda: pm.transform(dfk).column("prediction"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline")
+        pm.write().overwrite().save(path)
+        loaded = PipelineModel.load(path)
+    p2 = part("pipeline_loaded_transform", lambda: loaded.transform(dfk).column("prediction"))
+    flipped = loaded.stages[1]
+    flipped._model_attributes["coef_"] = -np.asarray(flipped.coef_)
+    flipped._transform_fn_cache = {}
+    p3 = loaded.transform(dfk).column("prediction")
+    pipe_row = {"bit_equal": bool(np.array_equal(p1, p2)), "control_negated_coefficients_differ":
+                not np.array_equal(p1, p3), "accuracy": float((p1 == yk).mean())}
+    emit({"phase": "tuning", "check": "pipeline", **pipe_row})
+    check(pipe_row["bit_equal"] and pipe_row["control_negated_coefficients_differ"], f"tuning: Pipeline: {pipe_row}")
+
+    total = {k: sum(c.get(k, 0) for c in counts.values()) for k in [w for _, w, _ in wrappers] + [
+        p for _, _, p in wrappers]}
+    emit({"phase": "tuning", "check": "launches", "rows": n, "by_part": counts, "total": total, "parts_s": parts,
+          "s": time.perf_counter() - t0})
+    check(total["shifted_gram"] > 0 and total["logreg_loss_grad"] > 0 and total["packed_forest_eval"] > 0 and
+          total["node_hist_batched"] + total["node_hist_sel_batched"] > 0 and
+          not any(v for k, v in total.items() if k.endswith("_plain")),
+          f"tuning: a kernel of the path not launched, or a plain version ran on the card: {total}")
+    return {w: total[w] for _, w, _ in wrappers if total[w]}
+
+
+def tuning_probe(torch, args, dev) -> int:
+    """Phase (r) alone, on min(``--rows``, TUNING_ROWS) rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    n = min(args.rows, TUNING_ROWS)
+    X, _ = make_data(torch, n, n, args.seed, dev)
+    X_host = X.cpu().numpy()
+    del X
+    torch.cuda.empty_cache()
+    launches = phase_tuning(torch, X_host, args.seed)
     emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
     return 0
 
@@ -7282,6 +7659,9 @@ def main() -> int:
     ap.add_argument("--f64-only", action="store_true",
                     help="a probe: build K1, K3 and K2 alone and run only the float64 phase on min(--rows, "
                          "F64_ROWS) rows (prints no result line)")
+    ap.add_argument("--tuning-only", action="store_true",
+                    help="a probe: build K1, K3, K5/K6 and K9 alone and run only the tuning phase (r) on "
+                         "min(--rows, TUNING_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -7320,6 +7700,7 @@ def main() -> int:
                            else ["lloyd_step", "knn_topk", "umap_sgd_epoch"] if args.ann_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
+                           else ["shifted_gram", "logreg_loss_grad", "rf_hist", "rf_traverse"] if args.tuning_only
                            else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if (
                                args.stream_only or args.wire_only or args.f64_only)
                            else _build.SOURCES)
@@ -7357,6 +7738,8 @@ def main() -> int:
         return wire_probe(torch, args, dev)
     if args.f64_only:
         return f64_probe(torch, args, dev)
+    if args.tuning_only:
+        return tuning_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -7445,6 +7828,7 @@ def main() -> int:
     del lin_data, pca_ref
     for row, paths in phase_f64(torch, X_host, args.seed).items():
         by_path.setdefault(row, {}).update(paths)
+    tuning_launches = phase_tuning(torch, X_host, args.seed)
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
@@ -7473,6 +7857,9 @@ def main() -> int:
         for path, sub in (("rf_card_vs_cpu", rf_subset), ("gbt_card_vs_cpu", gbt_subset)):
             if sub[name]:
                 by_path[name][path] = sub[name]
+    # the tuning phase's launches, each kernel's in its main-shape row
+    for row, count in tuning_launches.items():
+        by_path.setdefault(row, {})["tuning"] = count
 
     b = kern["packed_forest_eval"]
     kern["packed_traverse"] = {**{k: b[k] for k in ("rows", "trees", "t_pad", "d_pad", "words", "depth", "k1", "k2")},

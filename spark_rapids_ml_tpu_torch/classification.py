@@ -1,6 +1,6 @@
 """Drop-in module alias: ``spark_rapids_ml_tpu_torch.classification`` ≙
 ``spark_rapids_ml_tpu.classification`` (LogisticRegression,
-RandomForestClassifier and GBTClassifier)."""
+RandomForestClassifier, GBTClassifier and OneVsRest)."""
 
 from .models.classification import LogisticRegression, LogisticRegressionModel
 from .models.tree import (
@@ -9,12 +9,15 @@ from .models.tree import (
     RandomForestClassificationModel,
     RandomForestClassifier,
 )
+from .pipeline import OneVsRest, OneVsRestModel  # pyspark.ml.classification layout
 
 __all__ = [
     "GBTClassificationModel",
     "GBTClassifier",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "OneVsRest",
+    "OneVsRestModel",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
 ]

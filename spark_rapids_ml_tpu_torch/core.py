@@ -28,7 +28,10 @@ design matrix larger than ``_default_stream_threshold_bytes``.
 ``_pre_process_stream`` then hands the fit a ``StreamInputs`` around a
 chunk source (``data.chunks``), and the card holds a few chunks, never the
 dataset. A model's ``transform`` over a parquet scan streams it the same
-way. Gang dispatch and telemetry spans are not ported yet.
+way. ``tuning.CrossValidator`` evaluates a fold in one pass where the
+estimator says so (``_supportsTransformEvaluate``): ``fitMultiple``, the
+model class's ``_combine``, then one ``_transformEvaluate``. Gang dispatch
+and telemetry spans are not ported yet.
 
 Float64 (``float32_inputs=False`` on float64 data, the JAX package's
 ``_target_dtype``) places the rows, labels and weights in f64 and streams
@@ -201,6 +204,12 @@ class _TpuEstimator(Params, _TpuParams):
         chose (float32 or float64); estimators that fit in float32 only
         coerce or refuse float64 here."""
         return dtype
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        """True when this estimator's models evaluate every param map of a
+        CV fold in one pass (``_TpuModel._combine`` and
+        ``_transformEvaluate``) under ``evaluator``."""
+        return False
 
     def _enable_fit_multiple_in_single_pass(self) -> bool:
         """True when one fit function may serve every param map of a
@@ -581,6 +590,16 @@ class _TpuModel(Params, _TpuParams):
             for k, v in fn(Xb).items():
                 chunks.setdefault(k, []).append(np.asarray(v)[: chunk.n_valid])
         return {k: np.concatenate(v, axis=0) for k, v in chunks.items()}
+
+    # ---- multi-model support (CV single pass) ----------------------------
+    @classmethod
+    def _combine(cls, models: List["_TpuModel"]) -> "_TpuModel":
+        raise NotImplementedError(f"{cls.__name__} does not support _combine")
+
+    def _transformEvaluate(self, dataset: DataFrame, evaluator: Any) -> List[float]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support _transformEvaluate"
+        )
 
     # ---- persistence -----------------------------------------------------
     def write(self) -> "_Writer":

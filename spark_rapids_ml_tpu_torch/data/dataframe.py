@@ -1,7 +1,7 @@
 """Lightweight host DataFrame — the port's data plane.
 
 A copy of ``spark_rapids_ml_tpu/data/dataframe.py`` (the port may not
-import the JAX package), without ``kfold``. A ``DataFrame`` is a
+import the JAX package). A ``DataFrame`` is a
 host-resident column store (numpy arrays / scipy CSR matrices) with a
 logical partition count; estimators copy its rows straight onto the card.
 ``DataFrame.scan_parquet`` gives a :class:`ParquetScanFrame` whose columns
@@ -532,3 +532,21 @@ class AugmentedScanFrame(ParquetScanFrame):
                 )
                 out.append((name, kind))
         return out
+
+
+def kfold_ids(n_rows: int, n_folds: int, seed: int = 0) -> np.ndarray:
+    """Per-row fold assignment: one seeded numpy draw, the JAX package's,
+    so both packages split a dataset into the same folds."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n_folds, size=n_rows).astype(np.int8)
+
+
+def kfold(df: DataFrame, n_folds: int, seed: int = 0) -> List[Tuple[DataFrame, DataFrame]]:
+    """Random k-fold split -> list of (train, validation) pairs, the analog
+    of pyspark CrossValidator's ``_kFold``."""
+    fold_of = kfold_ids(df.count(), n_folds, seed)
+    out = []
+    for f in range(n_folds):
+        val_mask = fold_of == f
+        out.append((df.filter(~val_mask), df.filter(val_mask)))
+    return out

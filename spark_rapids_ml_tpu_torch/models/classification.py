@@ -14,14 +14,14 @@ raw-prediction columns follow the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimatorSupervised, _TpuModel
 from ..data.dataframe import DataFrame
-from ..ops.logreg_kernels import logreg_fit, logreg_predict
+from ..ops.logreg_kernels import logreg_fit, logreg_link, logreg_predict
 from ..parallel.mesh import global_label_summary
 from ..params import (
     HasElasticNetParam,
@@ -212,6 +212,11 @@ class LogisticRegression(
         the fit streams) for every param map of a ``fitMultiple``, as in
         the JAX package."""
         return True
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        from ..evaluation import MulticlassClassificationEvaluator
+
+        return isinstance(evaluator, MulticlassClassificationEvaluator)
 
     def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
         # the class count is read from the labels on the host, once
@@ -420,9 +425,11 @@ class LogisticRegressionModel(
     ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
         b_np = np.atleast_1d(self.intercept_)
         multinomial = self._multinomial
-        if not np.all(np.isfinite(b_np)):
+        if not self._is_multi_model and not np.all(np.isfinite(b_np)):
             # degenerate single-label model: ±inf intercept would poison the
-            # product; emit constant predictions directly
+            # product; emit constant predictions directly (a combined model
+            # keeps its per-model columns: zero coefficients and an infinite
+            # intercept give that sub-model's constant scores)
             const_pred = 1.0 if b_np.reshape(-1)[0] > 0 else 0.0
 
             def _const(Xb: np.ndarray) -> Dict[str, np.ndarray]:
@@ -436,6 +443,9 @@ class LogisticRegressionModel(
                 return {pred_col: pred, prob_col: prob, raw_col: raw}
 
             return _const
+
+        if self._is_multi_model:
+            return self._multi_transform_fn(pred_col, prob_col, raw_col, device)
 
         coef = torch.tensor(np.atleast_2d(self.coef_), device=device)
         b = torch.tensor(b_np, device=device)
@@ -452,3 +462,74 @@ class LogisticRegressionModel(
             }
 
         return _fn
+
+    def _multi_transform_fn(
+        self, pred_col: str, prob_col: str, raw_col: str, device: torch.device
+    ) -> Callable[[np.ndarray], Dict[str, np.ndarray]]:
+        """The combined model's transform: coef_ (m, K, d) -> prediction (n,
+        m), probability (n, m, K), rawPrediction (n, m, K), the scores of
+        all m models as one product of the batch with the stacked (m·K, d)
+        coefficients, in the batch's dtype."""
+        m, K, d = self.coef_.shape
+        coef = torch.tensor(self.coef_.reshape(m * K, d), device=device)
+        b = torch.tensor(np.atleast_2d(self.intercept_).reshape(m * K), device=device)
+        multinomial = self._multinomial
+
+        def _fn(Xb: np.ndarray) -> Dict[str, np.ndarray]:
+            xb = torch.from_numpy(Xb).to(device)
+            scores = (xb @ coef.to(xb.dtype).T + b.to(xb.dtype)).reshape(-1, m, K)
+            pred, prob, raw = logreg_link(scores, multinomial=multinomial)
+            return {
+                pred_col: pred.cpu().numpy(),
+                prob_col: prob.cpu().numpy(),
+                raw_col: raw.cpu().numpy(),
+            }
+
+        return _fn
+
+    # -- multi-model support (CV single pass) ------------------------------
+    @classmethod
+    def _combine(cls, models: List["LogisticRegressionModel"]) -> "LogisticRegressionModel":
+        """Stack models for a single-pass evaluation of every model: coef_
+        (m, K, d), intercept_ (m, K)."""
+        coefs = np.stack([np.atleast_2d(m.coef_) for m in models])
+        intercepts = np.stack([np.atleast_1d(m.intercept_) for m in models])
+        combined = cls(
+            coef_=coefs,
+            intercept_=intercepts,
+            n_classes=models[0].numClasses,
+            multinomial=models[0]._multinomial,
+            n_iter=0,
+            objective=0.0,
+        )
+        models[0]._copyValues(combined)
+        models[0]._copy_tpu_params(combined)
+        return combined
+
+    @property
+    def _is_multi_model(self) -> bool:
+        return self.coef_.ndim == 3
+
+    def _transformEvaluate(self, dataset: DataFrame, evaluator: Any) -> List[float]:
+        """One transform pass for every model, then each model's metric from
+        its confusion (and, for ``logLoss``, its probabilities)."""
+        from ..core import _features, _resolve_feature_matrix
+        from ..evaluation import MulticlassClassificationEvaluator
+        from ..metrics import MulticlassMetrics
+
+        if not isinstance(evaluator, MulticlassClassificationEvaluator):
+            raise NotImplementedError(f"Evaluator {type(evaluator).__name__} is not supported")
+        X = _features(self, _resolve_feature_matrix(self, dataset))
+        out = self._apply_batched(self._get_transform_func(dataset), X)
+        preds = out[self.getOrDefault("predictionCol")]
+        probs = out[self.getOrDefault("probabilityCol")]
+        y = np.asarray(dataset.column(evaluator.getLabelCol()), dtype=np.float64)
+        need_probs = evaluator.getMetricName() == "logLoss"
+        if preds.ndim == 1:
+            preds, probs = preds[:, None], probs[:, None, :]
+        return [
+            MulticlassMetrics.from_predictions(
+                y, preds[:, j], probs[:, j, :] if need_probs else None, evaluator.getEps()
+            ).evaluate(evaluator)
+            for j in range(preds.shape[1])
+        ]

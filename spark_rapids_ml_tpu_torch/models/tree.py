@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel
+from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel, _features, _resolve_feature_matrix
 from ..data.dataframe import DataFrame
 from ..ops.gbt_kernels import GBTConfig, gbt_round
 from ..ops.tree_kernels import (
@@ -312,6 +312,19 @@ class _RandomForestEstimator(_RandomForestClass, _Float32Only, _TpuEstimatorSupe
     def setSeed(self, value: int) -> "_RandomForestEstimator":
         self._set_params(seed=value)
         return self
+
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        """One ``_pre_process_data`` for every param map of a
+        ``fitMultiple``; each map's fit still runs its own quantile sketch,
+        as in the JAX package."""
+        return True
+
+    def _supportsTransformEvaluate(self, evaluator: Any) -> bool:
+        from ..evaluation import MulticlassClassificationEvaluator, RegressionEvaluator
+
+        if self._is_classification:
+            return isinstance(evaluator, MulticlassClassificationEvaluator)
+        return isinstance(evaluator, RegressionEvaluator)
 
     # -- label handling ----------------------------------------------------
     def _process_labels(self, y_host: np.ndarray) -> int:
@@ -600,6 +613,19 @@ class _ForestModelBase(_Float32Only, _TpuModel):
             f"{self.totalNumNodes} nodes, depth<={self._max_depth_built}"
         )
 
+    # -- multi-model support (CV single pass) ------------------------------
+    @classmethod
+    def _combine(cls, models: List["_ForestModelBase"]) -> "_ForestModelBase":
+        """Forests are ragged across param maps (numTrees, maxDepth), so the
+        combined model is a copy of the first that keeps the sub-model list
+        and evaluates each against one feature extraction."""
+        combined = models[0].copy()
+        combined._cv_models = list(models)
+        return combined
+
+    def _eval_models(self) -> List["_ForestModelBase"]:
+        return getattr(self, "_cv_models", None) or [self]
+
 
 class _RandomForestModel(_RandomForestClass, _ForestModelBase, _RandomForestParams):
     """Shared model surface."""
@@ -733,6 +759,30 @@ class RandomForestClassificationModel(
         x = np.asarray(vector, dtype=np.float32).reshape(1, -1)
         return self._get_transform_func()(x)[self.getOrDefault("rawPredictionCol")][0]
 
+    def _transformEvaluate(self, dataset: DataFrame, evaluator: Any) -> List[float]:
+        """One feature extraction, then one transform a sub-model (one K9
+        launch a batch on the card) and its metric."""
+        from ..evaluation import MulticlassClassificationEvaluator
+        from ..metrics import MulticlassMetrics
+
+        if not isinstance(evaluator, MulticlassClassificationEvaluator):
+            raise NotImplementedError(f"Evaluator {type(evaluator).__name__} is not supported")
+        X = _features(self, _resolve_feature_matrix(self, dataset))
+        y = np.asarray(dataset.column(evaluator.getLabelCol()), dtype=np.float64)
+        need_probs = evaluator.getMetricName() == "logLoss"
+        results = []
+        for m in self._eval_models():
+            out = m._apply_batched(m._get_transform_func(dataset), X)
+            results.append(
+                MulticlassMetrics.from_predictions(
+                    y,
+                    out[m.getOrDefault("predictionCol")],
+                    out[m.getOrDefault("probabilityCol")] if need_probs else None,
+                    evaluator.getEps(),
+                ).evaluate(evaluator)
+            )
+        return results
+
 
 # ---------------------------------------------------------------------------
 # regressor
@@ -814,6 +864,23 @@ class RandomForestRegressionModel(_RandomForestModel):
             return {pred_col: pred.cpu().numpy()}
 
         return _fn
+
+    def _transformEvaluate(self, dataset: DataFrame, evaluator: Any) -> List[float]:
+        """One feature extraction, then one transform a sub-model (one K9
+        launch a batch on the card) and its metric."""
+        from ..evaluation import RegressionEvaluator
+        from ..metrics import RegressionMetrics
+
+        if not isinstance(evaluator, RegressionEvaluator):
+            raise NotImplementedError(f"Evaluator {type(evaluator).__name__} is not supported")
+        X = _features(self, _resolve_feature_matrix(self, dataset))
+        y = np.asarray(dataset.column(evaluator.getLabelCol()), dtype=np.float64)
+        return [
+            RegressionMetrics.from_predictions(
+                y, m._apply_batched(m._get_transform_func(dataset), X)[m.getOrDefault("predictionCol")]
+            ).evaluate(evaluator)
+            for m in self._eval_models()
+        ]
 
 
 # ---------------------------------------------------------------------------

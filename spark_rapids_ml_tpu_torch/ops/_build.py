@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
@@ -43,6 +44,9 @@ NVCC_FLAGS = (
 # library cannot be unloaded, so the cache lives as long as the process)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
+# covers function()'s check, build and load: threads of one process that
+# first touch a kernel together build and load it once
+_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -76,7 +80,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if out.exists():
             seconds[name] = 0.0
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # by process and thread: no other build writes this file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd: List[str] = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -99,16 +104,17 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of kernel library ``name`` (built on
     first use), with its argument types declared."""
     key = f"{name}:{symbol}"
-    fn = _FUNCS.get(key)
-    if fn is None:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[key] = fn
+    with _LOCK:
+        fn = _FUNCS.get(key)
+        if fn is None:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _FUNCS[key] = fn
     return fn
 
 

@@ -753,15 +753,21 @@ def logreg_predict(
 ):
     """Batch inference -> (prediction, probability, rawPrediction); the
     binomial rawPrediction follows Spark's [-m, m] convention."""
-    scores = Xb @ coef.T + intercept[None, :]
+    return logreg_link(Xb @ coef.T + intercept[None, :], multinomial=multinomial)
+
+
+def logreg_link(scores: torch.Tensor, *, multinomial: bool):
+    """(prediction, probability, rawPrediction) of scores whose last axis
+    is the classes' (one class, the binomial margin, where not
+    multinomial): (n, K) for one model, (n, m, K) for m stacked ones."""
     if multinomial:
         raw = scores
-        prob = torch.softmax(scores, dim=1)
-        pred = torch.argmax(scores, dim=1).to(Xb.dtype)
+        prob = torch.softmax(scores, dim=-1)
+        pred = torch.argmax(scores, dim=-1).to(scores.dtype)
     else:
-        z = scores[:, 0]
-        raw = torch.stack([-z, z], dim=1)
+        z = scores[..., 0]
+        raw = torch.stack([-z, z], dim=-1)
         p1 = torch.sigmoid(z)
-        prob = torch.stack([1.0 - p1, p1], dim=1)
-        pred = (p1 > 0.5).to(Xb.dtype)
+        prob = torch.stack([1.0 - p1, p1], dim=-1)
+        pred = (p1 > 0.5).to(scores.dtype)
     return pred, prob, raw
