@@ -328,6 +328,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
    predictions after save and load bit for bit; each with a negative
    control. K1, K3, K5 (or K6) and K9 launch, no plain version runs on the
    card (the ``tuning`` path of their rows).
+7. telemetry (s, ``phase_telemetry``): the first 1,572,864 host rows (12
+   chunks of 131,072) with ``runtime.telemetry.TRACE_DIR`` a temporary
+   directory and ``DEVICE_TIME`` on: streamed PCA(k=16), streamed
+   LogisticRegression(maxIter 5) and resident KMeans(k=1024, random,
+   maxIter 5). The Chrome trace and the JSONL log parse; every span has
+   its parent in the tree, rooted at ``<Est>.fit`` (the decode and staging
+   threads' spans too); ``stream.fold`` counts the chunks of every pass,
+   ``logreg.objective_pass`` the fit's evaluations, ``kmeans.lloyd_pass``
+   its iterations and the cost pass; K1, K3 and K2 launch as predicted
+   (12; 12 an evaluation; an iteration plus the cost pass) and no plain
+   version runs; every fenced span (``fit.dispatch``, ``stream.fold``,
+   ``kmeans.lloyd_pass``) has device seconds; no child outlasts its
+   parent. ``span_stats`` of the PCA fit beside its ingest report. The
+   three fits again traced with device time off and untraced: PCA and
+   LogisticRegression equal bit for bit (K1 and K3 have no atomics),
+   KMeans on at least KM_AGREE_MIN of the predictions, its cost within
+   the f32 band (K2 adds with atomics), with each fit's seconds in the
+   three modes. Then the streamed LogisticRegression through ``fit``,
+   interrupted after its iteration-2 checkpoint and fitted again: its
+   ``_resilience_report`` is ``{"resumed_fits": 1, "resumed_from": 2}``
+   and it equals the uninterrupted fit bit for bit. Its K1, K2 and K3
+   launches are the ``telemetry`` path of the ``shifted_gram``,
+   ``lloyd_step`` and ``logreg_loss_grad_stream_rows`` rows.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -415,6 +438,12 @@ alone on F64_ROWS rows made from ``--seed`` (fewer with a smaller
 
 is a probe of the tuning phase (r): K1, K3, K5/K6 and K9 alone built, the
 phase alone on TUNING_ROWS rows made from ``--seed`` (fewer with a smaller
+``--rows``). It prints no result line.
+
+    python3 chip_smoke.py --telemetry-only
+
+is a probe of the telemetry phase (s): K1, K3 and K2 alone built, the phase
+alone on TELEMETRY_ROWS rows made from ``--seed`` (fewer with a smaller
 ``--rows``). It prints no result line.
 
     python3 chip_smoke.py --wire-only
@@ -6199,6 +6228,269 @@ def tuning_probe(torch, args, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase (s): telemetry — traced fits, their span tree and their cost
+# ---------------------------------------------------------------------------
+
+TELEMETRY_ROWS = 1_572_864
+TELEMETRY_K = 16
+TELEMETRY_LR_ITER = 5
+TELEMETRY_KM_ITER = 5
+# the spans that fence the device at their close
+FENCED_SPANS = ("fit.dispatch", "stream.fold", "kmeans.lloyd_pass")
+
+
+@contextlib.contextmanager
+def interrupted_array_chunks(ckpt_dir, after=RESUME_AFTER):
+    """While open: every pass of an ``ArrayChunkSource`` that starts after
+    the checkpoint of iteration ``after`` was committed in ``ckpt_dir``
+    raises ``ResumeInterrupt`` after its first chunk (the source a fit of a
+    DataFrame streams)."""
+    from spark_rapids_ml_tpu_torch.data import chunks
+
+    real = chunks.ArrayChunkSource.iter_chunks
+
+    def iter_chunks(self, chunk_rows, dtype=np.float32):
+        armed = committed_iteration(ckpt_dir) >= after
+        for i, c in enumerate(real(self, chunk_rows, dtype)):
+            if armed and i == 1:
+                raise ResumeInterrupt(f"interrupted after the checkpoint of iteration {after}")
+            yield c
+
+    chunks.ArrayChunkSource.iter_chunks = iter_chunks
+    try:
+        yield
+    finally:
+        chunks.ArrayChunkSource.iter_chunks = real
+
+
+def trace_tree(trace_dir):
+    """The Chrome trace and JSONL log of ``trace_dir`` parsed: (X events,
+    JSONL lines, {span_id: event}, {span_id: root event})."""
+    files = sorted(os.listdir(trace_dir))
+    traces = [f for f in files if f.startswith("trace-") and f.endswith(".json")]
+    logs = [f for f in files if f.startswith("events-") and f.endswith(".jsonl")]
+    check(len(traces) == 1 and len(logs) == 1, f"telemetry: trace files {files}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        doc = json.load(f)
+    with open(os.path.join(trace_dir, logs[0])) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    by_id = {e["args"]["span_id"]: e for e in xs}
+    roots = {}
+    for sid, e in by_id.items():
+        r, hops = e, 0
+        while "parent_id" in r["args"]:
+            check(r["args"]["parent_id"] in by_id, f"telemetry: span {r['name']} has no parent in the tree")
+            r, hops = by_id[r["args"]["parent_id"]], hops + 1
+            check(hops < 64, "telemetry: a parent cycle")
+        roots[sid] = r
+    return xs, lines, by_id, roots
+
+
+def phase_telemetry(torch, X_host, y_host, seed):
+    """(s) the telemetry on the first TELEMETRY_ROWS host rows: streamed
+    PCA(k=16), streamed LogisticRegression(maxIter 5) and resident
+    KMeans(k=1024, random, maxIter 5), traced with device time on, checked
+    (the trace parses, the span tree, the pass and launch counts, device
+    seconds on every fenced span, nesting); again traced with device time
+    off and untraced (PCA and LogisticRegression bit for bit, KMeans within
+    its band); then the streamed LogisticRegression interrupted and resumed
+    through ``fit`` (its ``_resilience_report``). Returns the launches
+    {kernels-line row: n}."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.runtime import checkpoint as ckpt
+    from spark_rapids_ml_tpu_torch.runtime import telemetry as tel
+
+    t0 = time.perf_counter()
+    N, CH = min(TELEMETRY_ROWS, X_host.shape[0]), STREAM_CHUNK_ROWS
+    n_chunks = -(-N // CH)
+    df = DataFrame({"features": X_host[:N], "label": np.ascontiguousarray(y_host[:N])})
+    fits = (("pca", "PCA.fit", lambda: PCA(k=TELEMETRY_K, streaming=True, stream_chunk_rows=CH).fit(df)),
+            ("logreg", "LogisticRegression.fit", lambda: LogisticRegression(
+                maxIter=TELEMETRY_LR_ITER, streaming=True, stream_chunk_rows=CH).fit(df)),
+            ("kmeans", "KMeans.fit", lambda: KMeans(k=E2E_CENTRES, initMode="random", maxIter=TELEMETRY_KM_ITER,
+                                                    seed=seed).fit(df)))
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    saved = (tel.TRACE_DIR, tel.DEVICE_TIME)
+    # a warm-up round, then each mode twice in mirrored order, so no mode
+    # pays the first calls or sits at one end of a drifting host clock
+    modes = {"untraced": (False, False), "traced": (True, False), "traced_device_time": (True, True)}
+    schedule = ["untraced", "untraced", "traced", "traced_device_time", "traced_device_time", "traced", "untraced"]
+    runs, seconds, counts, stats_after, files = {}, {}, [], {}, {}
+    try:
+        for r, mode in enumerate(schedule):
+            trace, device_time = modes[mode]
+            tel.reset_telemetry()
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            os.makedirs(trace_dir)
+            tel.TRACE_DIR, tel.DEVICE_TIME = (trace_dir if trace else None), device_time
+            for name, _, fit in fits:
+                torch.cuda.empty_cache()
+                with kernel_counts(lin, kk, lk) as rec:
+                    model, s = _timed(torch, fit)
+                    c = rec()
+                counts.append((mode, name, model, c))
+                if r == 0:
+                    continue  # the warm-up
+                runs.setdefault((mode, name), model)
+                seconds.setdefault(name, {}).setdefault(mode, []).append(s)
+                if mode == "traced_device_time" and name not in stats_after:
+                    stats_after[name] = tel.span_stats()
+            if mode == "traced_device_time" and "xs" not in files:
+                files["xs"] = trace_tree(trace_dir)
+            files[r] = os.listdir(trace_dir)
+            tel.TRACE_DIR, tel.DEVICE_TIME = saved
+    finally:
+        tel.TRACE_DIR, tel.DEVICE_TIME = saved
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    written = {r: files[r] for r, mode in enumerate(schedule) if mode == "untraced" and files[r]}
+    check(not written, f"telemetry: an untraced run wrote {written}")
+    xs, lines, by_id, roots = files["xs"]
+
+    # the span tree of the traced run with device time on
+    pca, lr, km = (runs["traced_device_time", n] for n in ("pca", "logreg", "kmeans"))
+    check(len(lines) == len(xs) and all(ln["event"] == "span" for ln in lines),
+          f"telemetry: {len(lines)} JSONL lines for {len(xs)} spans")
+    per_root = {}
+    for sid, e in by_id.items():
+        per_root.setdefault(roots[sid]["args"]["span_id"], []).append(e)
+    root_names = [by_id[r]["name"] for r in sorted(per_root)]
+    check(root_names == [root for _, root, _ in fits], f"telemetry: roots {root_names}")
+    spans = dict(zip(("pca", "logreg", "kmeans"), (per_root[r] for r in sorted(per_root))))
+    tree = {}
+    for name, evs in spans.items():
+        names = [e["name"] for e in evs]
+        tree[name] = {n: names.count(n) for n in sorted(set(names))}
+    reports = {"pca": pca._ingest_report, "logreg": lr._ingest_report}
+    for name in ("pca", "logreg"):
+        rep = reports[name]
+        chunked = sum(v for k, v in rep["passes"].items() if k != "labels")
+        check(rep["chunks"] == n_chunks * chunked, f"telemetry: {name} ingest report {rep['passes']}")
+        check(tree[name].get("stream.fold") == n_chunks * chunked and tree[name].get("stream.ingest") == chunked
+              and tree[name].get("stream.decode", 0) >= n_chunks * chunked
+              and tree[name].get("stream.stage") == n_chunks * chunked,
+              f"telemetry: {name} stream spans {tree[name]} for {chunked} passes of {n_chunks} chunks")
+        threads = {(by_id[e["args"]["parent_id"]]["name"]) for e in spans[name] if e["name"] in (
+            "stream.decode", "stream.stage")}
+        check(threads == {"stream.ingest"}, f"telemetry: {name} decode/stage spans under {threads}")
+    check(tree["pca"].get("suffstats.pass") == 2, f"telemetry: PCA spans {tree['pca']}")
+    check(tree["logreg"].get("logreg.objective_pass") == lr._ingest_report["passes"]["objective"],
+          f"telemetry: {tree['logreg']} for {lr._ingest_report['passes']}")
+    iters = [e["args"]["iteration"] for e in spans["kmeans"] if e["name"] == "kmeans.lloyd_pass"]
+    check(iters == list(range(km.numIter)) + [None], f"telemetry: lloyd passes {iters}, {km.numIter} iterations")
+    # the launches each fit predicts, in every run, and no plain version
+    for mode, name, model, c in counts:
+        if name == "pca":
+            want = {"shifted_gram": n_chunks}
+        elif name == "logreg":
+            want = {"logreg_loss_grad": n_chunks * model._ingest_report["passes"]["objective"]}
+        else:
+            want = {"lloyd_step": model.numIter + 1}
+        got = {k: v for k, v in c.items() if v}
+        check(got == want, f"telemetry: {name} ({mode}) launches {c}, predicted {want}")
+    # device seconds on every fenced span (the export writes the key where
+    # the span's wait was > 0, rounded to the µs); no child outlasts its parent
+    fenced = [e for e in xs if e["name"] in FENCED_SPANS]
+    no_device = [e["name"] for e in fenced if "device_seconds" not in e["args"]]
+    check(fenced and not no_device, f"telemetry: fenced spans without device seconds: {no_device}")
+    longer = [(e["name"], by_id[e["args"]["parent_id"]]["name"]) for e in xs if "parent_id" in e["args"]
+              and e["dur"] > by_id[e["args"]["parent_id"]]["dur"] + 1e-3]
+    check(not longer, f"telemetry: children longer than their parents: {longer[:5]}")
+    pca_stats = stats_after["pca"]
+    rep = pca._ingest_report
+    emit({"phase": "telemetry", "check": "trace", "rows": N, "chunks_a_pass": n_chunks, "spans": len(xs),
+          "span_tree": tree, "launches": {name: c for mode, name, _, c in counts if mode == "traced_device_time"},
+          "fenced_spans": len(fenced),
+          "pca_span_stats": pca_stats,
+          "pca_ingest_report_s": {k: rep.get(k) for k in ("wall_s", "decode_s", "encode_s", "host_to_pinned_s",
+                                                            "slot_wait_s", "host_to_device_s", "fold_s",
+                                                            "fold_device_s", "pass_s")}})
+
+    # traced against untraced: PCA and LogisticRegression bit for bit,
+    # KMeans within its band
+    same = {}
+    for mode in ("traced", "untraced"):
+        p, l_ = runs[mode, "pca"], runs[mode, "logreg"]
+        same[mode] = {"pca": all(getattr(p, a).tobytes() == getattr(pca, a).tobytes()
+                                 for a in ("mean_", "components_", "explained_variance_")),
+                      "logreg": (l_.coefficientMatrix.tobytes() == lr.coefficientMatrix.tobytes()
+                                 and l_.interceptVector.tobytes() == lr.interceptVector.tobytes())}
+    km_u = runs["untraced", "kmeans"]
+    agree = prediction_agreement(torch, X_host[:N], (km, km_u))
+    cost_tol = U32 * (TOL_TERMS + TOL_WALK * N ** 0.5) * km_u.trainingCost
+    km_row = {**agree, "cost": [km.trainingCost, km_u.trainingCost], "cost_tol": cost_tol,
+              "n_iter": [km.numIter, km_u.numIter], "bit_for_bit": km.cluster_centers_.tobytes() == (
+                  km_u.cluster_centers_.tobytes())}
+    emit({"phase": "telemetry", "check": "overhead", "rows": N, "schedule": schedule, "fit_s": seconds,
+          "fit_s_mean": {name: {mode: sum(v) / len(v) for mode, v in by.items()} for name, by in seconds.items()},
+          "bit_for_bit": same,
+          "kmeans_traced_vs_untraced": km_row})
+    check(all(all(v.values()) for v in same.values()), f"telemetry: a traced fit differs from the untraced: {same}")
+    check(agree["agreement"] >= KM_AGREE_MIN and abs(km.trainingCost - km_u.trainingCost) <= cost_tol
+          and km.numIter == km_u.numIter, f"telemetry: KMeans traced vs untraced: {km_row}")
+
+    # resume through fit: the model's _resilience_report
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saved_ckpt = ckpt.CKPT_DIR
+    k3 = lk.logreg_loss_grad.launches
+    try:
+        ckpt.CKPT_DIR = ckpt_dir
+        with interrupted_array_chunks(ckpt_dir):
+            try:
+                fits[1][2]()
+                interrupted = False
+            except ResumeInterrupt:
+                interrupted = True
+        torch.cuda.synchronize()
+        at = committed_iteration(ckpt_dir)
+        res, t_res = _timed(torch, fits[1][2])
+        left = os.listdir(ckpt_dir)
+    finally:
+        ckpt.CKPT_DIR = saved_ckpt
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    k3 = lk.logreg_loss_grad.launches - k3
+    l_u = runs["untraced", "logreg"]
+    row = {"interrupted": interrupted, "committed_iteration": at, "resilience_report": res._resilience_report,
+           "clean_report": l_u._resilience_report, "passes": res._ingest_report["passes"], "fit_s": t_res,
+           "bit_for_bit": res.coefficientMatrix.tobytes() == l_u.coefficientMatrix.tobytes()
+           and res.interceptVector.tobytes() == l_u.interceptVector.tobytes(), "files_left": left,
+           "logreg_loss_grad_launches": k3}
+    emit({"phase": "telemetry", "check": "resume", **row, "s": time.perf_counter() - t0})
+    check(interrupted and at == RESUME_AFTER, f"telemetry resume: interrupted {interrupted} at {at}")
+    check(res._resilience_report == {"resumed_fits": 1, "resumed_from": at} and l_u._resilience_report == {},
+          f"telemetry resume: reports {res._resilience_report}, clean {l_u._resilience_report}")
+    check(row["bit_for_bit"] and not left, f"telemetry resume: {row}")
+    launches = {"shifted_gram": 0, "logreg_loss_grad_stream_rows": k3, "lloyd_step": 0}
+    for _, _, _, c in counts:
+        launches["shifted_gram"] += c["shifted_gram"]
+        launches["logreg_loss_grad_stream_rows"] += c["logreg_loss_grad"]
+        launches["lloyd_step"] += c["lloyd_step"]
+    return launches
+
+
+def telemetry_probe(torch, args, dev) -> int:
+    """Phase (s) alone, on min(``--rows``, TELEMETRY_ROWS) rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    n = min(args.rows, TELEMETRY_ROWS)
+    X, y = make_data(torch, n, n, args.seed, dev)
+    X_host, y_host = X.cpu().numpy(), y.cpu().numpy()
+    del X, y
+    torch.cuda.empty_cache()
+    launches = phase_telemetry(torch, X_host, y_host, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -7662,6 +7954,9 @@ def main() -> int:
     ap.add_argument("--tuning-only", action="store_true",
                     help="a probe: build K1, K3, K5/K6 and K9 alone and run only the tuning phase (r) on "
                          "min(--rows, TUNING_ROWS) rows (prints no result line)")
+    ap.add_argument("--telemetry-only", action="store_true",
+                    help="a probe: build K1, K3 and K2 alone and run only the telemetry phase (s) on "
+                         "min(--rows, TELEMETRY_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -7702,7 +7997,7 @@ def main() -> int:
                            else ["shifted_gram"] if args.linreg_only
                            else ["shifted_gram", "logreg_loss_grad", "rf_hist", "rf_traverse"] if args.tuning_only
                            else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if (
-                               args.stream_only or args.wire_only or args.f64_only)
+                               args.stream_only or args.wire_only or args.f64_only or args.telemetry_only)
                            else _build.SOURCES)
     build_total = time.perf_counter() - t
     ptxas = {
@@ -7740,6 +8035,8 @@ def main() -> int:
         return f64_probe(torch, args, dev)
     if args.tuning_only:
         return tuning_probe(torch, args, dev)
+    if args.telemetry_only:
+        return telemetry_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -7829,6 +8126,8 @@ def main() -> int:
     for row, paths in phase_f64(torch, X_host, args.seed).items():
         by_path.setdefault(row, {}).update(paths)
     tuning_launches = phase_tuning(torch, X_host, args.seed)
+    for row, count in phase_telemetry(torch, X_host, y_host, args.seed).items():
+        by_path.setdefault(row, {})["telemetry"] = count
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():

@@ -31,7 +31,14 @@ dataset. A model's ``transform`` over a parquet scan streams it the same
 way. ``tuning.CrossValidator`` evaluates a fold in one pass where the
 estimator says so (``_supportsTransformEvaluate``): ``fitMultiple``, the
 model class's ``_combine``, then one ``_transformEvaluate``. Gang dispatch
-and telemetry spans are not ported yet.
+is not ported yet.
+
+Telemetry (``runtime.telemetry``, inert unless ``telemetry.TRACE_DIR`` is
+set): every fit opens the root span ``<Est>.fit``, with ``preprocess``
+(``streaming=``) and one ``fit.dispatch`` a lane (``lane=``,
+``streaming=``) under it; a transform opens ``<Model>.transform``
+(``streamed=``). Each lane's ``runtime.counters`` delta is its model's
+``_resilience_report`` (``{}`` on a clean fit).
 
 Float64 (``float32_inputs=False`` on float64 data, the JAX package's
 ``_target_dtype``) places the rows, labels and weights in f64 and streams
@@ -63,7 +70,9 @@ import torch
 from .data.dataframe import AugmentedScanFrame, DataFrame, ParquetScanFrame, _is_sparse
 from .params import HasLabelCol, HasWeightCol, Params, _TpuParams
 from .parallel.mesh import _torch_dtype, shard_aligned, shard_rows
+from .runtime import counters, telemetry
 from .utils.logging import get_logger
+from .utils.profiling import annotate, timed
 from .utils.platform import resolve_device
 
 _PKG = __name__.rsplit(".", 1)[0]
@@ -401,26 +410,55 @@ class _TpuEstimator(Params, _TpuParams):
     ) -> List["_TpuModel"]:
         """One model per param map (``None``: this estimator's own params)
         over one ``_pre_process_data`` (or ``_pre_process_stream``, where
-        the fit streams) and one fit function."""
+        the fit streams) and one fit function, under the fit's root span:
+        every preprocess, dispatch and streaming span of the fit nests
+        under it, so a trace accounts the fit's whole wall time."""
+        with telemetry.span(f"{type(self).__name__}.fit"):
+            return self._fit_lanes_traced(dataset, paramMaps)
+
+    def _fit_lanes_traced(
+        self, dataset: DataFrame, paramMaps: Optional[List[Dict[Any, Any]]]
+    ) -> List["_TpuModel"]:
         from .ops.streaming import last_ingest_report, reset_ingest_report
 
         self._apply_verbosity()
+        cls_name = type(self).__name__
         stream_func = self._get_streaming_fit_func(dataset)
         streaming = stream_func is not None and self._should_stream(dataset)
         if streaming:
             self.logger.info("Streamed fit (out-of-core chunked ingest).")
-            inputs: Any = self._pre_process_stream(dataset)
+            with annotate(f"{cls_name}.preprocess"), timed(self.logger, "preprocess"), telemetry.span(
+                "preprocess", streaming=True
+            ):
+                inputs: Any = self._pre_process_stream(dataset)
             fit_func: Any = stream_func
             reset_ingest_report()
         else:
-            inputs = self._pre_process_data(dataset)
+            with annotate(f"{cls_name}.preprocess"), timed(self.logger, "preprocess"), telemetry.span(
+                "preprocess", streaming=False
+            ):
+                inputs = self._pre_process_data(dataset)
             fit_func = self._get_fit_func(dataset)
         estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
         models = []
-        for est in estimators:
-            model = est._create_model(fit_func(inputs, dict(est._tpu_params)))
+        for lane, est in enumerate(estimators):
+            res_base = counters.snapshot()
+            with annotate(f"{cls_name}.fit"), timed(self.logger, "fit"), telemetry.span(
+                "fit.dispatch", lane=lane, streaming=streaming
+            ) as d_span:
+                result = fit_func(inputs, dict(est._tpu_params))
+                # a fit function returns host values: the fence is the
+                # device the lane ran on
+                d_span.fence((result, inputs.device))
+            model = est._create_model(result)
             est._copyValues(model)
             est._copy_tpu_params(model)
+            # what the runtime had to do to land this fit (a resume, ...);
+            # {} and no log line on a clean fit
+            res_delta = counters.delta_since(res_base)
+            model._resilience_report = res_delta
+            if res_delta:
+                self.logger.info("resilience events during fit: %s", res_delta)
             if streaming:
                 # the ingest pipeline's depths and pace over the fit's passes
                 model._ingest_report = last_ingest_report()
@@ -481,6 +519,11 @@ class _TpuModel(Params, _TpuParams):
     # the ingest report of a streamed fit (ops.streaming.last_ingest_report);
     # {} for resident fits and loaded models
     _ingest_report: Dict[str, Any] = {}
+
+    # resilience events observed during this model's fit (runtime.counters
+    # delta; {} on a clean fit). A class default, so models that never went
+    # through a fit loop (loaded ones) expose it too.
+    _resilience_report: Dict[str, int] = {}
 
     def __init__(self, **model_attributes: Any) -> None:
         super().__init__()
@@ -543,13 +586,22 @@ class _TpuModel(Params, _TpuParams):
         result is an :class:`AugmentedScanFrame` holding the output columns
         in memory."""
         self._apply_verbosity()
+        cls_name = type(self).__name__
         if isinstance(dataset, ParquetScanFrame) and not dataset.is_materialized():
             input_col, input_cols = self._get_input_columns()
             if input_cols is None and dataset.has_disk_column(input_col):
-                out_columns = self._apply_streamed(self._get_transform_func(dataset), dataset, input_col)
+                fn = self._get_transform_func(dataset)
+                with annotate(f"{cls_name}.transform"), timed(self.logger, "transform(streamed)"), telemetry.span(
+                    f"{cls_name}.transform", streamed=True
+                ):
+                    out_columns = self._apply_streamed(fn, dataset, input_col)
                 return AugmentedScanFrame(dataset, out_columns)
         X = _features(self, _resolve_feature_matrix(self, dataset))
-        out_columns = self._apply_batched(self._get_transform_func(dataset), X)
+        fn = self._get_transform_func(dataset)
+        with annotate(f"{cls_name}.transform"), timed(self.logger, "transform"), telemetry.span(
+            f"{cls_name}.transform", streamed=False
+        ):
+            out_columns = self._apply_batched(fn, X)
         out = dataset
         for name, col in out_columns.items():
             out = out.withColumn(name, col)

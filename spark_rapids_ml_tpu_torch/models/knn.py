@@ -16,13 +16,14 @@ The search is one pass of kernel K4 over all items on one card
 ``ops.ivf_kernels``) answers through the same result frames; from
 ``ivf_kernels.ANN_GATE_ROWS`` items on a feasible shape it builds a coarse
 quantizer (Lloyd through kernel K2) and scans the probed lists, below
-that it answers through the exact search. Multi-process searches are not
-ported yet.
+that it answers through the exact search, inside the span
+``ann.kneighbors`` (``nlist=``, ``nprobe=``; its build and search are
+``ann.kneighbors.build`` / ``.search`` stages). Multi-process searches are
+not ported yet.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -33,7 +34,9 @@ from ..data.dataframe import DataFrame
 from ..ops import ivf_kernels
 from ..ops.knn_kernels import knn_search
 from ..params import Params, TypeConverters, _mk
+from ..runtime import telemetry
 from ..utils.platform import resolve_device
+from ..utils.profiling import StageTimer
 
 _DEFAULT_ID_COL = "unique_id"
 
@@ -410,18 +413,19 @@ class ApproximateNearestNeighborsModel(
         if Xi.shape[1] != Xq.shape[1]:
             raise ValueError(f"item/query dims differ: {Xi.shape[1]} vs {Xq.shape[1]}")
         ids_arr = np.asarray(item_df.column(self.getIdCol()))
-        t0 = time.perf_counter()
-        index = self._ivf_index(Xi, nlist, seed, device)
-        if device.type == "cuda":  # the build's device work inside its seconds
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        d2, idx = ivf_kernels.ivf_search(torch.from_numpy(Xq).to(device), index, k=k, nprobe=nprobe)
-        d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
-        t2 = time.perf_counter()
+        timer = StageTimer("ann.kneighbors")
+        with telemetry.span("ann.kneighbors", nlist=nlist, nprobe=nprobe):
+            with timer.stage("build"):
+                index = self._ivf_index(Xi, nlist, seed, device)
+                if device.type == "cuda":  # the build's device work inside its seconds
+                    torch.cuda.synchronize(device)
+            with timer.stage("search"):
+                d2, idx = ivf_kernels.ivf_search(torch.from_numpy(Xq).to(device), index, k=k, nprobe=nprobe)
+                d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
         knn_df = self._knn_result_df(query_df_withid, d2, idx, ids_arr)
         self._ann_report = {
             "engine": "ivf", "nlist": nlist, "nprobe": nprobe,
-            "build_seconds": round(t1 - t0, 4), "search_seconds": round(t2 - t1, 4),
+            "build_seconds": round(timer.totals["build"], 4), "search_seconds": round(timer.totals["search"], 4),
         }
         return item_df, query_df_withid, knn_df
 

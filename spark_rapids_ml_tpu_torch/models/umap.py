@@ -16,13 +16,15 @@ The graph engine is chosen as in the JAX package
 quantizer trained through kernel K2, then the probe scan) from there on a
 feasible shape; ``ivf_kernels.UMAP_GRAPH`` pins either. The transform's
 kNN takes the same engine against an index of the training rows built
-once a model. Checkpoint/resume, fault sites and telemetry spans are not
-ported.
+once a model. Telemetry: the fit's root span ``UMAP.fit`` with its
+``umap.fit.graph`` / ``.init`` / ``.sgd`` stages, and ``umap.ivf_build``
+(``nlist=``) around the transform index's one build; the fit's
+``runtime.counters`` delta is the model's ``_resilience_report``.
+Checkpoint/resume and fault sites are not ported.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -44,7 +46,9 @@ from ..ops.umap_kernels import (
     umap_sgd,
 )
 from ..params import HasFeaturesCol, HasFeaturesCols, HasLabelCol, HasOutputCol, TypeConverters, _mk
+from ..runtime import counters, telemetry
 from ..utils.platform import resolve_device
+from ..utils.profiling import StageTimer
 
 
 def knn_brute(X: torch.Tensor, Xq: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -212,10 +216,14 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
                 f"num_workers={self.num_workers}: multi-GPU fits are not ported yet"
             )
         self._apply_verbosity()
-        return self._fit_umap(dataset)
+        # UMAP bypasses the core fit loop, so it opens the fit's root span
+        # itself (the name shape of core's ``<Est>.fit``)
+        with telemetry.span("UMAP.fit"):
+            return self._fit_umap(dataset)
 
     def _fit_umap(self, dataset: DataFrame) -> "UMAPModel":
         device = resolve_device(self._device)
+        res_base = counters.snapshot()
         tp = self._tpu_params
         seed = int(tp.get("random_state") or 0)
         frac = float(self.getSampleFraction())
@@ -234,73 +242,78 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
 
         # stage split (graph / init / sgd); each stage ends in a host read,
         # so the device work is inside its own stage
-        t0 = time.perf_counter()
-        # 1) kNN graph: fetch k+1 (the self entry is dropped) through the
-        # engine the dispatch picks: the exact search or the IVF index
-        graph_engine = ivf_kernels.select_graph_engine(n, k + 1)
-        ann_nlist = ann_nprobe = None
-        Xd = torch.from_numpy(X).to(device)
-        if graph_engine == "ivf":
-            ann_nlist, ann_nprobe = ivf_kernels.resolve_ann_params(n)
-            ivf_index = ivf_kernels.build_ivf_index(X, nlist=ann_nlist, seed=seed, device=device)
-            d2, idx = ivf_kernels.ivf_search(Xd, ivf_index, k=k + 1, nprobe=ann_nprobe)
-            dists = torch.sqrt(torch.clamp(d2, min=0.0))
-            del ivf_index, d2
-        else:
-            dists, idx = knn_brute(Xd, Xd, k=k + 1)
-        knn_d, knn_i = drop_self_column(dists, idx, k=k)
-        # 2) fuzzy simplicial set (+ categorical intersection when supervised)
-        heads, tails, weights = fuzzy_simplicial_set(
-            knn_i.cpu().numpy(), knn_d,
-            float(tp.get("local_connectivity", 1.0)), float(tp.get("set_op_mix_ratio", 1.0)),
-            device=device,
-        )
-        if y_labels is not None:
-            heads, tails, weights = categorical_simplicial_set_intersection(heads, tails, weights, y_labels, n)
-        del Xd, dists, idx, knn_d, knn_i
-        t1 = time.perf_counter()
+        timer = StageTimer("umap.fit")
+        with timer.stage("graph"):
+            # 1) kNN graph: fetch k+1 (the self entry is dropped) through the
+            # engine the dispatch picks: the exact search or the IVF index
+            graph_engine = ivf_kernels.select_graph_engine(n, k + 1)
+            ann_nlist = ann_nprobe = None
+            Xd = torch.from_numpy(X).to(device)
+            if graph_engine == "ivf":
+                ann_nlist, ann_nprobe = ivf_kernels.resolve_ann_params(n)
+                ivf_index = ivf_kernels.build_ivf_index(X, nlist=ann_nlist, seed=seed, device=device)
+                d2, idx = ivf_kernels.ivf_search(Xd, ivf_index, k=k + 1, nprobe=ann_nprobe)
+                dists = torch.sqrt(torch.clamp(d2, min=0.0))
+                del ivf_index, d2
+            else:
+                dists, idx = knn_brute(Xd, Xd, k=k + 1)
+            knn_d, knn_i = drop_self_column(dists, idx, k=k)
+            # 2) fuzzy simplicial set (+ categorical intersection when supervised)
+            heads, tails, weights = fuzzy_simplicial_set(
+                knn_i.cpu().numpy(), knn_d,
+                float(tp.get("local_connectivity", 1.0)), float(tp.get("set_op_mix_ratio", 1.0)),
+                device=device,
+            )
+            if y_labels is not None:
+                heads, tails, weights = categorical_simplicial_set_intersection(heads, tails, weights, y_labels, n)
+            del Xd, dists, idx, knn_d, knn_i
 
-        # 3) curve params + init
-        a, b = tp.get("a"), tp.get("b")
-        if a is None or b is None:
-            a, b = find_ab_params(float(tp.get("spread", 1.0)), float(tp.get("min_dist", 0.1)))
-        n_comp = int(tp.get("n_components", 2))
-        if tp.get("init", "spectral") == "spectral":
-            emb0 = spectral_init(heads, tails, weights, n, n_comp, seed)
-        else:
-            emb0 = np.random.default_rng(seed).uniform(-10, 10, size=(n, n_comp)).astype(np.float32)
-        t2 = time.perf_counter()
+        with timer.stage("init"):
+            # 3) curve params + init
+            a, b = tp.get("a"), tp.get("b")
+            if a is None or b is None:
+                a, b = find_ab_params(float(tp.get("spread", 1.0)), float(tp.get("min_dist", 0.1)))
+            n_comp = int(tp.get("n_components", 2))
+            if tp.get("init", "spectral") == "spectral":
+                emb0 = spectral_init(heads, tails, weights, n, n_comp, seed)
+            else:
+                emb0 = np.random.default_rng(seed).uniform(-10, 10, size=(n, n_comp)).astype(np.float32)
 
-        # 4) SGD over CSR-padded rows of K = 24 slots; small fits pad rows
-        # to 256 rather than 4096
-        row_heads, tails_pad, p_pad = build_row_adjacency(
-            heads, tails, weights, n, K=24, row_bucket=4096 if n >= 4096 else 256
-        )
-        n_epochs = int(tp.get("n_epochs") or default_n_epochs(n))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        emb_d = torch.from_numpy(emb0).to(device)
-        emb = umap_sgd(
-            emb_d, emb_d,
-            torch.from_numpy(row_heads).to(device), torch.from_numpy(tails_pad).to(device),
-            torch.from_numpy(p_pad).to(device), gen,
-            n_epochs=n_epochs, a=float(a), b=float(b),
-            gamma=float(tp.get("repulsion_strength", 1.0)),
-            initial_alpha=float(tp.get("learning_rate", 1.0)),
-            negative_sample_rate=int(tp.get("negative_sample_rate", 5)),
-            self_table=True,
-        ).cpu().numpy()
-        t3 = time.perf_counter()
+        with timer.stage("sgd"):
+            # 4) SGD over CSR-padded rows of K = 24 slots; small fits pad rows
+            # to 256 rather than 4096
+            row_heads, tails_pad, p_pad = build_row_adjacency(
+                heads, tails, weights, n, K=24, row_bucket=4096 if n >= 4096 else 256
+            )
+            n_epochs = int(tp.get("n_epochs") or default_n_epochs(n))
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            emb_d = torch.from_numpy(emb0).to(device)
+            emb = umap_sgd(
+                emb_d, emb_d,
+                torch.from_numpy(row_heads).to(device), torch.from_numpy(tails_pad).to(device),
+                torch.from_numpy(p_pad).to(device), gen,
+                n_epochs=n_epochs, a=float(a), b=float(b),
+                gamma=float(tp.get("repulsion_strength", 1.0)),
+                initial_alpha=float(tp.get("learning_rate", 1.0)),
+                negative_sample_rate=int(tp.get("negative_sample_rate", 5)),
+                self_table=True,
+            ).cpu().numpy()
+        stages = dict(timer.totals)
+        timer.log_summary(self.logger)
 
         model = UMAPModel(embedding_=emb, raw_data_=X, a=float(a), b=float(b))
         self._copyValues(model)
         self._copy_tpu_params(model)
+        model._resilience_report = counters.delta_since(res_base)
+        if model._resilience_report:
+            self.logger.info("resilience events during fit: %s", model._resilience_report)
         # fit provenance (not persisted): where the fit's wall clock went
         model._fit_report = {
-            "graph_seconds": t1 - t0,
-            "init_seconds": t2 - t1,
-            "sgd_seconds": t3 - t2,
-            "epoch_ms": (t3 - t2) / max(n_epochs, 1) * 1e3,
+            "graph_seconds": stages["graph"],
+            "init_seconds": stages["init"],
+            "sgd_seconds": stages["sgd"],
+            "epoch_ms": stages["sgd"] / max(n_epochs, 1) * 1e3,
             "sgd_engine": "cuda" if device.type == "cuda" else "plain",
             "graph_engine": graph_engine,
             "rows": int(tails_pad.shape[0]),
@@ -373,7 +386,9 @@ class UMAPModel(UMAPClass, _TpuModel, _UMAPParams):
             cache = self._ivf_index_cache = {}
         key = (nlist, nprobe, seed, ivf_kernels.resolve_umap_graph(), str(device))
         if key not in cache:
-            cache[key] = ivf_kernels.build_ivf_index(self.raw_data_, nlist=nlist, seed=seed, device=device)
+            # one span a build: its count stays 1 across transforms
+            with telemetry.span("umap.ivf_build", nlist=nlist):
+                cache[key] = ivf_kernels.build_ivf_index(self.raw_data_, nlist=nlist, seed=seed, device=device)
         return cache[key], nprobe
 
     @staticmethod

@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 SOURCES = (
     "shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "umap_sgd_epoch", "rf_hist",
@@ -47,6 +47,17 @@ _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 # covers function()'s check, build and load: threads of one process that
 # first touch a kernel together build and load it once
 _LOCK = threading.Lock()
+# callables fed (library name, seconds) after each library's build and
+# load in this process (the telemetry's build watchdog registers here)
+_BUILD_LISTENERS: List[Callable[[str, float], None]] = []
+
+
+def add_build_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, seconds)`` after each kernel library is built (where
+    it was not built yet) and loaded into this process."""
+    with _LOCK:
+        if fn not in _BUILD_LISTENERS:
+            _BUILD_LISTENERS.append(fn)
 
 
 def nvcc() -> str:
@@ -104,17 +115,23 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of kernel library ``name`` (built on
     first use), with its argument types declared."""
     key = f"{name}:{symbol}"
+    loaded = None
     with _LOCK:
         fn = _FUNCS.get(key)
         if fn is None:
             lib = _LIBS.get(name)
             if lib is None:
+                t0 = time.perf_counter()
                 build([name])
                 lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+                loaded = time.perf_counter() - t0
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _FUNCS[key] = fn
+        listeners = list(_BUILD_LISTENERS) if loaded is not None else []
+    for listener in listeners:
+        listener(name, loaded)
     return fn
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..runtime import telemetry
 from . import _build
 from .knn_kernels import SMEM_PER_BLOCK, TF32_BIAS, TF32_MASK
 from .linalg import _check_cuda_f32
@@ -284,7 +285,11 @@ def kmeans_lloyd(
     shift = float("inf")
     it = 0
     while it < max_iter and shift > tol * tol:
-        sums, counts, _ = chunk_stats(X, mask, centers)
+        # a span a pass, as the streamed Lloyd opens (the JAX package's
+        # resident Lloyd is one compiled loop, with none)
+        with telemetry.span("kmeans.lloyd_pass", iteration=it) as p_span:
+            sums, counts, _ = chunk_stats(X, mask, centers)
+            p_span.fence(sums)
         countsf = counts.to(sums.dtype)
         safe = torch.clamp(countsf, min=1.0)
         new_centers = torch.where(counts[:, None] > 0, sums / safe[:, None], centers)
@@ -293,7 +298,9 @@ def kmeans_lloyd(
             shifts.append(shift)
         centers = new_centers
         it += 1
-    _, _, cost = chunk_stats(X, mask, centers)
+    with telemetry.span("kmeans.lloyd_pass", iteration=None) as p_span:
+        _, _, cost = chunk_stats(X, mask, centers)
+        p_span.fence(cost)
     return centers, float(cost), it
 
 

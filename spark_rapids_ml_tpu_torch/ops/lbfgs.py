@@ -27,6 +27,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime import counters
+
 
 class LbfgsResult(NamedTuple):
     w: Any            # (p,) solution: a tensor (minimize_lbfgs), f64 numpy (minimize_lbfgs_host)
@@ -169,9 +171,10 @@ def minimize_lbfgs_host(
     ``converged``) after each iteration, and a refit resumes from the last
     committed one, skipping the evaluations before it: the algorithm is
     deterministic given the carry, so the resumed walk takes the
-    uninterrupted walk's iterates. The files are cleared at the end. The
-    JAX package's fault site and preempt point are not ported (ROADMAP
-    queue 1 item 7)."""
+    uninterrupted walk's iterates, and bumps ``resumed_fits`` and notes
+    ``resumed_from`` (``runtime.counters``). The files are cleared at the
+    end. The JAX package's fault site and preempt point are not ported
+    (ROADMAP queue 1 item 7b)."""
     w = np.asarray(w0, dtype=np.float64)
     p = w.shape[0]
     use_l1 = l1_weights is not None
@@ -202,6 +205,8 @@ def minimize_lbfgs_host(
         Y = [np.asarray(row, np.float64) for row in arrays["Y"]]
         f = float(extra["f"])
         converged = bool(extra.get("converged", False))
+        counters.bump("resumed_fits")
+        counters.note("resumed_from", it)
     else:
         f, g = full_obj(w)
     while it < max_iter and not converged:

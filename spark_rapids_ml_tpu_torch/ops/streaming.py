@@ -63,11 +63,28 @@ Checkpoint/resume: the streamed LogisticRegression (through
 ``runtime.checkpoint.FitCheckpointer`` and resume from its last committed
 iteration.
 
+Telemetry (``runtime.telemetry``; inert unless ``telemetry.TRACE_DIR`` is
+set), the JAX package's spans: ``stream.ingest`` over a pipeline pass,
+``stream.decode`` a chunk on the decode thread, ``stream.stage`` (``rows=``)
+a chunk on the staging thread, ``stream.fold`` (``chunk=``, fenced) around
+the consumer's fold of a chunk, ``stream.sync`` (``pending=``) at each
+StreamGuard sync, and over whole passes ``suffstats.pass``
+(``which=``), ``logreg.objective_pass`` and ``kmeans.lloyd_pass``
+(``iteration=``; None for the final cost pass). The decode and staging
+threads start through ``telemetry.bind_context``, so their spans parent
+under the fit's. Gauges: ``ingest_ring_occupancy``, ``loop_heartbeat_ts``
+(``loop=stream_ingest`` / ``stream_stage``), ``hbm_budget_bytes`` /
+``hbm_live_bytes`` at ``stream_stage``; counters: ``resumed_fits`` and the
+gauge ``resumed_from`` on a resumed Lloyd. ``wire_release_errors`` has no
+site: the StreamGuard releases a chunk by dropping its references (the
+caching allocator reuses the memory), which cannot fail.
+
 Not ported (ROADMAP): the retry budget and chunk halving of
-``stage_chunks``, fault sites, preempt points, telemetry spans, ops-plane
-gauges and autotune consults (the wire's among them), per-host file
-sharding, the blocked (mp) Gram and the cross-process sums of partials and
-label summaries (the identity on one process).
+``stage_chunks`` (item 7b, with ``retries`` / ``chunk_halvings``), fault
+sites, preempt points, the ops plane (item 7d) and autotune consults (the
+wire's among them, item 7c), per-host file sharding, the blocked (mp) Gram
+and the cross-process sums of partials and label summaries (the identity
+on one process).
 """
 
 from __future__ import annotations
@@ -84,6 +101,7 @@ import torch
 
 from ..data.chunks import Chunk, ChunkSource
 from ..parallel.mesh import _np_dtype, _torch_dtype, pinned_ring
+from ..runtime import counters, telemetry
 from ..utils.logging import get_logger
 from .kmeans_kernels import chunk_stats, min_sq_dists
 from .lbfgs import minimize_lbfgs_host
@@ -164,12 +182,13 @@ class StreamGuard:
         self._i = 0
 
     def _sync_and_release(self) -> None:
-        last = self._pending[-1]
-        if last["X"].is_cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(last["X"].device))
-            done.synchronize()
-        self._pending.clear()
+        with telemetry.span("stream.sync", pending=len(self._pending)):
+            last = self._pending[-1]
+            if last["X"].is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(last["X"].device))
+                done.synchronize()
+            self._pending.clear()
 
     def tick(self, dev: Dict[str, Any]) -> None:
         self._pending.append(dev)
@@ -183,11 +202,14 @@ class StreamGuard:
             self._sync_and_release()
 
 
-def _queue_ring(produce, depth: int, name: str):
+def _queue_ring(produce, depth: int, name: str, on_put=None):
     """Run ``produce(put)`` on a thread that hands items through a FIFO
-    queue of ``depth``; yield them in order. An error in the thread reaches
+    queue of ``depth``; yield them in order. ``on_put(occupancy)`` runs on
+    the thread after each item is queued. An error in the thread reaches
     the consumer (after the items made before it); closing the generator
-    early cancels the thread, which polls a flag between puts, and joins it."""
+    early cancels the thread, which polls a flag between puts, and joins it.
+    The thread runs in the caller's telemetry context, so its spans parent
+    under the caller's open span."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
     cancel = threading.Event()
@@ -197,6 +219,8 @@ def _queue_ring(produce, depth: int, name: str):
         while not cancel.is_set():
             try:
                 q.put(item, timeout=0.1)
+                if on_put is not None and item is not end:
+                    on_put(q.qsize())
                 return True
             except queue.Full:
                 continue
@@ -210,7 +234,7 @@ def _queue_ring(produce, depth: int, name: str):
         finally:
             put(end)
 
-    th = threading.Thread(target=worker, name=name, daemon=True)
+    th = threading.Thread(target=telemetry.bind_context(worker), name=name, daemon=True)
     th.start()
     try:
         while True:
@@ -250,7 +274,9 @@ def prefetch_chunks(it, depth: Optional[int] = None):
         try:
             while True:
                 t = time.perf_counter()
-                c = next(src, None)
+                # the decode of ONE chunk, not the backpressured put
+                with telemetry.span("stream.decode"):
+                    c = next(src, None)
                 decode_s += time.perf_counter() - t
                 if c is None or not put(c):
                     return
@@ -494,7 +520,9 @@ def stage_chunks(chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.
                  need_y: bool = True, need_w: bool = True, wire: str = "f32"):
     """Stage ``chunk`` on ``device``: yields one ``(chunk, dev)`` pair (the
     JAX package's retry budget and chunk halving are not ported)."""
-    yield chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
+    with telemetry.span("stream.stage", rows=chunk.X.shape[0]):
+        dev = put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
+    yield chunk, dev
 
 
 def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: bool, need_w: bool,
@@ -513,13 +541,22 @@ def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: 
         host0, wait0 = (ring.host_s, ring.wait_s) if ring is not None else (0.0, 0.0)
         try:
             for chunk in chunks:
-                if not put((chunk, put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire))):
+                # the encoding and copies of ONE chunk, not the backpressured put
+                with telemetry.span("stream.stage", rows=chunk.X.shape[0]):
+                    dev = put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
+                if not put((chunk, dev)):
                     return
         finally:
             if ring is not None:
                 _report_add(host_to_pinned_s=ring.host_s - host0, slot_wait_s=ring.wait_s - wait0)
 
-    yield from _queue_ring(produce, depth, "chunk-stage")
+    def on_put(occupancy: int) -> None:
+        # occupancy right after the put, and a heartbeat: a wedged staging
+        # thread shows apart from a fold-bound one
+        telemetry.gauge("ingest_ring_occupancy").set(occupancy)
+        telemetry.gauge("loop_heartbeat_ts").set(time.monotonic(), loop="stream_stage")
+
+    yield from _queue_ring(produce, depth, "chunk-stage", on_put=on_put)
 
 
 def iter_device_chunks(
@@ -548,9 +585,21 @@ def iter_device_chunks(
     fold_s = encode_s = 0.0
     kind = None
     t_pass = time.perf_counter()
+    # entered and left by hand: a `with` around a generator body would not
+    # survive the consumer abandoning the iterator mid-pass
+    ingest_span = telemetry.span("stream.ingest")
+    ingest_span.__enter__()
     try:
         first = next(it, None)
         kind = "f32" if first is None else select_wire_format(first.X, requested)
+        ingest_span.set_attr(wire=kind, stage_depth=_STAGE_DEPTH)
+        if first is not None:
+            # the staged chunks ahead of the fold, and on a card the staging
+            # ring's page-locked buffers behind them
+            ring = pinned_ring(device) if device.type == "cuda" else None
+            pinned = len(ring.slots) * ring.slot_bytes if ring is not None else 0
+            telemetry.record_hbm_estimate(
+                "stream_stage", float(first.X.nbytes) * float(max(1, _STAGE_DEPTH)) + pinned, device)
         chunks = iter(()) if first is None else itertools.chain([first], it)
         if _STAGE_DEPTH > 0:
             staged = _staged_chunks(chunks, device, dtype, need_y=need_y, need_w=need_w, wire=kind,
@@ -559,15 +608,24 @@ def iter_device_chunks(
             staged = (pair for chunk in chunks for pair in stage_chunks(
                 chunk, device, dtype, need_y=need_y, need_w=need_w, wire=kind))
         with contextlib.closing(staged) as staged_it:
-            for chunk, dev in staged_it:
+            for i, (chunk, dev) in enumerate(staged_it):
+                telemetry.gauge("loop_heartbeat_ts").set(time.monotonic(), loop="stream_ingest")
                 _await_chunk(dev, stream)
                 ev0 = ev1 = None
                 if stream is not None:
                     ev0 = torch.cuda.Event(enable_timing=True)
                     ev0.record(stream)
-                t = time.perf_counter()
-                yield chunk, dev
-                fold_s += time.perf_counter() - t
+                # the fold span brackets the yield: the consumer's fold of
+                # this chunk, fenced on the chunk's device
+                fold_span = telemetry.span("stream.fold", chunk=i)
+                fold_span.__enter__()
+                try:
+                    fold_span.fence(dev["X"])
+                    t = time.perf_counter()
+                    yield chunk, dev
+                    fold_s += time.perf_counter() - t
+                finally:
+                    fold_span.__exit__(None, None, None)
                 if stream is not None:
                     ev1 = torch.cuda.Event(enable_timing=True)
                     ev1.record(stream)
@@ -578,6 +636,7 @@ def iter_device_chunks(
                 encode_s += dev["_encode_s"]
     finally:
         it.close()
+        ingest_span.__exit__(None, None, None)
         card = {}
         if stream is not None and folds:
             folds[-1][1].synchronize()
@@ -665,8 +724,8 @@ def streamed_suffstats(
     d = source.n_features
     acc1 = moments1_init(d, device, dtype, with_y)
     guard = StreamGuard()
-    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=with_y,
-                                               pass_name="moments")) as chunks:
+    with telemetry.span("suffstats.pass", which="moments"), contextlib.closing(iter_device_chunks(
+            source, device, chunk_rows, dtype, need_y=with_y, pass_name="moments")) as chunks:
         for _, dev in chunks:
             rw = dev["mask"] if dev["w"] is None else dev["mask"] * dev["w"]
             moments1_step(acc1, dev["X"], rw, dev["y"] if with_y else None)
@@ -684,8 +743,8 @@ def streamed_suffstats(
 
     acc2 = gram2_init(d, device, dtype, with_y)
     guard = StreamGuard()
-    with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=with_y,
-                                               pass_name="gram")) as chunks:
+    with telemetry.span("suffstats.pass", which="gram"), contextlib.closing(iter_device_chunks(
+            source, device, chunk_rows, dtype, need_y=with_y, pass_name="gram")) as chunks:
         for _, dev in chunks:
             rw = dev["mask"] if dev["w"] is None else dev["mask"] * dev["w"]
             gram2_step(acc2, dev["X"], rw, mean_x, dev["y"] if with_y else None, mean_y)
@@ -883,8 +942,8 @@ def streamed_logreg_fit(
                "gA": torch.zeros((K, d), dtype=dtype, device=device),
                "gb": torch.zeros((K,), dtype=dtype, device=device)}
         guard = StreamGuard()
-        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_w=False,
-                                                   pass_name="objective")) as chunks:
+        with telemetry.span("logreg.objective_pass"), contextlib.closing(iter_device_chunks(
+                source, device, chunk_rows, dtype, need_w=False, pass_name="objective")) as chunks:
             for _, dev in chunks:
                 logreg_chunk_vg_step(acc, dev["X"], dev["mask"], dev["y"], Aeff_d, beff_d, multinomial)
                 guard.tick(dev)
@@ -985,18 +1044,20 @@ def streamed_kmeans_lloyd(
     k, d = centers0.shape
     centers = np.asarray(centers0, np_dtype)
 
-    def one_pass(cts: np.ndarray, name: str) -> Dict[str, torch.Tensor]:
+    def one_pass(cts: np.ndarray, name: str, iteration: Optional[int]) -> Dict[str, torch.Tensor]:
         cts_d = _on_device(cts, device, dtype)
         acc = {"sums": torch.zeros((k, d), dtype=dtype, device=device),
                "counts": torch.zeros((k,), dtype=torch.int32, device=device),
                "cost": torch.zeros((), dtype=dtype, device=device)}
         guard = StreamGuard()
-        with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
-                                                   need_w=False, pass_name=name)) as chunks:
-            for _, dev in chunks:
-                kmeans_chunk_step(acc, dev["X"], dev["mask"], cts_d)
-                guard.tick(dev)
-            guard.flush()
+        with telemetry.span("kmeans.lloyd_pass", iteration=iteration) as p_span:
+            with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
+                                                       need_w=False, pass_name=name)) as chunks:
+                for _, dev in chunks:
+                    kmeans_chunk_step(acc, dev["X"], dev["mask"], cts_d)
+                    guard.tick(dev)
+                guard.flush()
+            p_span.fence(acc)
         return acc
 
     it = 0
@@ -1006,8 +1067,10 @@ def streamed_kmeans_lloyd(
         it, arrays, extra = resumed
         centers = np.asarray(arrays["centers"], np_dtype)
         prev_shift = float(extra["prev_shift"])
+        counters.bump("resumed_fits")
+        counters.note("resumed_from", it)
     while it < max_iter and prev_shift > tol * tol:
-        acc = one_pass(centers, "lloyd")
+        acc = one_pass(centers, "lloyd", it)
         sums = acc["sums"].cpu().numpy().astype(np.float64)
         counts = acc["counts"].cpu().numpy()
         old = centers.astype(np.float64)
@@ -1020,7 +1083,7 @@ def streamed_kmeans_lloyd(
         it += 1
         if checkpointer is not None:
             checkpointer.maybe_save(it, {"centers": centers}, {"prev_shift": prev_shift})
-    final = one_pass(centers, "cost")
+    final = one_pass(centers, "cost", None)
     if checkpointer is not None:
         checkpointer.clear()
     return centers, float(final["cost"]), it

@@ -53,6 +53,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime import telemetry
 from .rf_kernels import (
     _NH_SCRATCH_MAX,
     BLOCK_ROWS,
@@ -644,10 +645,15 @@ def build_forest(
     for g0 in range(0, n_trees, group):
         trees = list(range(g0, min(g0 + group, n_trees)))
         tb = resolve_tree_batch(len(trees), cfg, bins.shape[0], bins.device)
-        for b0 in range(0, len(trees), tb):
-            out = _build_trees_batched(bins, stats, mask, trees[b0:b0 + tb], draws, cfg)
-            for k, v in out.items():
-                pieces.setdefault(k, []).append(v.cpu().numpy())
+        # the JAX package's span attrs: every level takes the compact route
+        # here, and one device never gathers rows
+        with telemetry.span("forest.grow_group", trees=len(trees), tree_batch=tb, hist_strategy="compact",
+                            gather=False) as f_span:
+            for b0 in range(0, len(trees), tb):
+                out = _build_trees_batched(bins, stats, mask, trees[b0:b0 + tb], draws, cfg)
+                for k, v in out.items():
+                    pieces.setdefault(k, []).append(v.cpu().numpy())
+            f_span.fence(bins)
     return {k: np.concatenate(v, axis=0) for k, v in pieces.items()}
 
 

@@ -14,8 +14,11 @@ Differences from the JAX package, by design:
 
 * ``TPUML_CV_FAILFAST`` is the module constant :data:`CV_FAILFAST`;
 * there is no gang branch: this is the JAX CV at ``TPUML_GANG_FIT=off``,
-  its default;
-* the ``cv.fold`` span and the ``cv_failed_fits`` counter are not ported.
+  its default.
+
+Each fold runs in the span ``cv.fold`` (``fold=``), the pool's threads in
+the caller's telemetry context; in the tolerant mode each failed
+combination bumps ``cv_failed_fits`` (``runtime.counters``).
 
 The CV has no device of its own: each fit and transform runs where the
 estimator runs (``cuda:0`` unless it was given ``device="cpu"``).
@@ -36,6 +39,7 @@ from .core import _Reader, _TpuEstimator, _TpuModel
 from .data.dataframe import DataFrame, kfold
 from .evaluation import Evaluator
 from .params import Param, Params, TypeConverters, _mk
+from .runtime import counters, telemetry
 from .utils.logging import get_logger
 
 # True (the reference's semantics): a failed fit or evaluation of any fold
@@ -178,6 +182,10 @@ class CrossValidator(_CrossValidatorParams):
         worst = -np.inf if eva.isLargerBetter() else np.inf
 
         def run_fold(i: int) -> Tuple[np.ndarray, Optional[List[_TpuModel]]]:
+            with telemetry.span("cv.fold", fold=i):
+                return _run_fold(i)
+
+        def _run_fold(i: int) -> Tuple[np.ndarray, Optional[List[_TpuModel]]]:
             train, validation = folds[i]
             if single_pass:
                 try:
@@ -211,6 +219,7 @@ class CrossValidator(_CrossValidatorParams):
                         "fold %d param map %d: fit/evaluate failed; recording the worst metric "
                         "(CV_FAILFAST=False)", i, j,
                     )
+                    counters.bump("cv_failed_fits")
                     vals.append(worst)
                     model = None
                 if collect_sub:
@@ -220,7 +229,8 @@ class CrossValidator(_CrossValidatorParams):
         par = max(1, self.getParallelism())
         if par > 1:
             with ThreadPool(processes=min(par, n_folds)) as pool:
-                fold_results = pool.map(run_fold, range(n_folds))
+                # the pool's threads open their fold spans under the caller's
+                fold_results = pool.map(telemetry.bind_context(run_fold), range(n_folds))
         else:
             fold_results = [run_fold(i) for i in range(n_folds)]
         metrics = np.stack([m for m, _ in fold_results])

@@ -194,6 +194,8 @@ def test_import_leaves_jax_out():
         "from spark_rapids_ml_tpu_torch.knn import ApproximateNearestNeighbors\n"
         "from spark_rapids_ml_tpu_torch.models import knn as mknn, umap as mumap, tree as mtree\n"
         "from spark_rapids_ml_tpu_torch import GBTClassifier, GBTRegressor, GBTClassificationModel\n"
+        "from spark_rapids_ml_tpu_torch.runtime import telemetry, counters, metricspec, lockspec, lockwitness\n"
+        "from spark_rapids_ml_tpu_torch.utils import profiling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spark_rapids_ml_tpu' or m.startswith('spark_rapids_ml_tpu.')]\n"
         "print(bad)\n"
@@ -226,6 +228,33 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "spark_rapids_ml_tpu"), f"{f} imports {mod}"
+
+
+def test_port_reads_no_tpuml_variable():
+    """The port's settings are module constants: no file of the port (nor
+    ``chip_smoke.py``) reads a ``TPUML_*`` environment variable."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "spark_rapids_ml_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for new in ("telemetry.py", "counters.py", "metricspec.py", "lockspec.py", "lockwitness.py", "profiling.py"):
+        assert any(f.endswith(os.sep + new) for f in files), new
+    for f in files:
+        with open(f) as fh:
+            tree = ast.parse(fh.read(), f)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = ast.unparse(node.func)
+            reads_env = fn in ("os.getenv", "getenv") or (fn.endswith(".get") and "environ" in fn)
+            if reads_env and node.args:
+                arg = node.args[0]
+                assert not (isinstance(arg, ast.Constant) and str(arg.value).startswith("TPUML_")), (
+                    f"{f}:{node.lineno} reads {arg.value}")
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Subscript) and ast.unparse(node.value) == "os.environ":
+                key = node.slice
+                assert not (isinstance(key, ast.Constant) and str(key.value).startswith("TPUML_")), (
+                    f"{f}:{node.lineno} reads {key.value}")
 
 
 def test_entry_point_without_device_needs_cuda():
