@@ -244,7 +244,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    rows (the same host solver, f64 passes) at a band derived from K3's and
    the chunk count, one K3 launch a chunk of each objective pass and none
    of K3's plain version; (k) the north star: LogisticRegression(regParam=
-   1e-5, maxIter=2) on 100,000,000 × 256 rows with binomial labels, its
+   1e-5, maxIter=1) on 100,000,000 × 256 rows with binomial labels, its
    first and last evaluations held against their f64 truth from the pool,
    the model against the f64 reference fit, peak device memory under
    STREAM_PEAK_MAX. K3's launches there are the ``logreg_loss_grad_stream_*``
@@ -263,7 +263,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    k-means|| (the default, maxIter=10) within 2% of the resident cost, both
    seeding splits (``_fit_report``) side by side; (n) the north star: the
    reference's KMeans(k=1000, tol=1e-20, initMode="random"), maxIter cut to
-   2, on 100,000,000 x 256 rows from a generator of views of the 12M
+   1, on 100,000,000 x 256 rows from a generator of views of the 12M
    rows' 131,072-row blocks: its seeds equal the rows the seed names, a
    maxIter=0 fit's cost held against its f64 truth from the pool, the
    fit's cost against an f64 walk's, peak device memory under
@@ -275,7 +275,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    its offset two steps off refused); streamed PCA(k=16) at f32 (held to
    its f64 truth), f16, int8, f8 and auto, the three-config
    LinearRegression ``fitMultiple`` at f32 (OLS to its f64 solve) and f16,
-   KMeans(k=1024, random, maxIter 2) at f32 and int8, each narrow fit
+   KMeans(k=1024, random, maxIter 1) at f32 and int8, each narrow fit
    held against the f32 one at the JAX package's wire tolerances, with
    each wire's bytes, encode and host-copy seconds and seconds a pass;
    (p) checkpoint/resume on those rows: LogisticRegression(maxIter=5) and
@@ -351,6 +351,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and it equals the uninterrupted fit bit for bit. Its K1, K2 and K3
    launches are the ``telemetry`` path of the ``shifted_gram``,
    ``lloyd_step`` and ``logreg_loss_grad_stream_rows`` rows.
+8. gang (t, ``phase_gang``): the first 1,572,864 host rows with phase (r)'s
+   labels, each run at ``core.GANG_FIT = "auto"`` and ``"off"``:
+   ``fitMultiple`` of binomial LogisticRegression(maxIter 20) over regParam
+   {1e-4, 1e-3, 1e-2, 1e-1} × elasticNetParam {0, 0.5} (two buckets of 4),
+   its 4 plain maps on 10 classes (traced), LinearRegression(maxIter 300)
+   over 4 FISTA maps and a Cholesky map, the plain bucket under a budget of
+   two lanes' bytes, and CrossValidator(LogisticRegression) over phase (r)'s
+   4 maps × 3 folds against its per-fold path. Holds, each with a negative
+   control: TF32 off; each gang lane against its sequential fit at the JAX
+   package's gang-test tolerances; the CV's avgMetrics, best index and
+   sub-models; the freeze on the card (``logreg_fit_batched``, lane 0 bit
+   for bit when the other lanes' tol changes); counters, reports, the span
+   ``LogisticRegression.gang_fit`` under ``LogisticRegression.fit``. Each
+   run's seconds, L-BFGS evaluations, peak device memory beside the lane
+   bytes estimate; K1 and K3 launch (the gang's own objective is a plain
+   product, no kernel) and no plain version runs: the ``gang`` path of the
+   ``shifted_gram`` and ``logreg_loss_grad`` rows.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -445,6 +462,12 @@ phase alone on TUNING_ROWS rows made from ``--seed`` (fewer with a smaller
 is a probe of the telemetry phase (s): K1, K3 and K2 alone built, the phase
 alone on TELEMETRY_ROWS rows made from ``--seed`` (fewer with a smaller
 ``--rows``). It prints no result line.
+
+    python3 chip_smoke.py --gang-only
+
+is a probe of the gang phase (t): K1 and K3 alone built, the phase alone on
+TUNING_ROWS rows made from ``--seed`` (fewer with a smaller ``--rows``). It
+prints no result line.
 
     python3 chip_smoke.py --wire-only
 
@@ -4108,8 +4131,8 @@ def phase_stream_parquet(torch, X_host):
 STREAM_LR_ITER = 3
 STREAM_LR_REG = 1e-5
 # the north star's maxIter: 5 cut to 2 when the tuning phase (r) joined the
-# run
-NORTH_STAR_LR_ITER = 2
+# run, 2 to 1 when the gang phase (t) did
+NORTH_STAR_LR_ITER = 1
 # timed calls of K3 at each chunk shape
 STREAM_K3_REPS = 10
 # the sparse opt-in: LIBSVM real-sim's shape, 72,309 x 20,958 at ~0.25%
@@ -4586,9 +4609,9 @@ def phase_stream_logreg(torch, X_host, y_host, seed):
 # maxIter=30 cut to STREAM_KM_ITER at 100M, where every iteration is one
 # pass of ~9-14 s (at 5 iterations the whole script took 984 s of its
 # 1,200 on an H100 80GB HBM3 at 700 W; 3 cut to 2 when the tuning phase (r)
-# joined the run)
+# joined the run, 2 to 1 when the gang phase (t) did)
 STREAM_KM_K = 1000
-STREAM_KM_ITER = 2
+STREAM_KM_ITER = 1
 STREAM_KM_TOL = 1e-20
 # the bench's KMeans (bench.py: k = E2E_CENTRES, maxIter=10) on the 12M
 # rows, streamed and resident: k-means|| at its maxIter (the resident fit
@@ -6491,6 +6514,370 @@ def telemetry_probe(torch, args, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase (t): the gang paths — batched fitMultiple and the fold-masked CV
+# ---------------------------------------------------------------------------
+
+GANG_LR_ITER = 20
+GANG_GRID = {"regParam": [1e-4, 1e-3, 1e-2, 1e-1], "elasticNetParam": [0.0, 0.5]}
+GANG_LIN_ITER = 300
+GANG_LIN_TOL = 1e-10
+GANG_LIN_GRID = {"regParam": [0.01, 0.1], "elasticNetParam": [0.5, 1.0]}
+# the JAX package's tests/test_gang_fit.py: a gang lane against its
+# sequential fit, coefficients within rtol 5e-3 and atol 1e-5·max(1,
+# max|coef|) and iterations within 1 (LogisticRegression); rtol 1e-5 and
+# atol 1e-8 (LinearRegression); the CV's avgMetrics within rtol 5e-3 (atol
+# 5e-4) with the same best index, its sub-models within rtol 2e-2 and atol
+# 1e-4·max(1, max|coef|)
+GANG_RTOL = 5e-3
+GANG_LIN_RTOL = 1e-5
+GANG_LIN_ATOL = 1e-8
+GANG_CV_RTOL = 5e-3
+GANG_CV_ATOL = 5e-4
+GANG_SUB_RTOL = 2e-2
+# the freeze on the card: a loose tol that lane 0 meets within GANG_LR_ITER
+# iterations, and the brutal one the other lanes get in the second run
+GANG_FREEZE_TOLS = (1e-3, 1e-12)
+
+
+@contextlib.contextmanager
+def lbfgs_evaluations():
+    """While open: the objective evaluations of each call of the solo
+    (``minimize_lbfgs``: a fit) and batched (``minimize_lbfgs_batched``: a
+    dispatch) solvers that ``ops.logreg_kernels`` runs, read as ``rec()``
+    -> {"solo": [n, ...], "batched": [n, ...]} (a batched evaluation is one
+    pass for all its lanes)."""
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+
+    counts = {"solo": [], "batched": []}
+    reals = {"solo": lk.minimize_lbfgs, "batched": lk.minimize_lbfgs_batched}
+
+    def spy(kind):
+        def call(fun, w0, **kw):
+            counts[kind].append(0)
+
+            def counted(w):
+                counts[kind][-1] += 1
+                return fun(w)
+            return reals[kind](counted, w0, **kw)
+        return call
+
+    lk.minimize_lbfgs, lk.minimize_lbfgs_batched = spy("solo"), spy("batched")
+    try:
+        yield lambda: {k: list(v) for k, v in counts.items()}
+    finally:
+        lk.minimize_lbfgs, lk.minimize_lbfgs_batched = reals["solo"], reals["batched"]
+
+
+@contextlib.contextmanager
+def timed_calls(torch, targets):
+    """While open: the seconds spent in each ``(owner, attribute, label)``
+    callable (each call ended by a device synchronize), summed by label and
+    read as ``rec()``."""
+    secs = {label: 0.0 for _, _, label in targets}
+    reals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+
+    def wrap(real, label):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                secs[label] += time.perf_counter() - t
+        return call
+
+    for (owner, attr, real), (_, _, label) in zip(reals, targets):
+        setattr(owner, attr, wrap(real, label))
+    try:
+        yield lambda: dict(secs)
+    finally:
+        for owner, attr, real in reals:
+            setattr(owner, attr, real)
+
+
+def grid_of(est, grid):
+    """The param maps of {param name: values} (ParamGridBuilder's order)."""
+    from spark_rapids_ml_tpu_torch.tuning import ParamGridBuilder
+
+    b = ParamGridBuilder()
+    for name, values in grid.items():
+        b.addGrid(est.getParam(name), values)
+    return b.build()
+
+
+def gang_hold(seq, gang, coef="coef_", rtol=GANG_RTOL, atol=None, iters=True):
+    """Each gang model against its sequential twin: the coefficients within
+    ``rtol`` and ``atol`` (default the JAX test's 1e-5·max(1, max|coef|)),
+    the iterations within 1 where ``iters``. Per lane: its worst element's
+    ratio to the tolerance, where it is, both values, the intercepts' gap."""
+    rows = []
+    for a, b in zip(seq, gang):
+        ca = np.asarray(getattr(a, coef), np.float64)
+        cb = np.asarray(getattr(b, coef), np.float64)
+        at = 1e-5 * max(1.0, float(np.abs(ca).max())) if atol is None else atol
+        ratio = np.abs(cb - ca) / (rtol * np.abs(ca) + at)
+        i = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
+        ia = np.asarray(a.intercept if coef == "coefficients" else a.intercept_, np.float64)
+        ib = np.asarray(b.intercept if coef == "coefficients" else b.intercept_, np.float64)
+        it = [int(a._model_attributes["n_iter"]), int(b._model_attributes["n_iter"])]
+        rows.append({"n_iter": it, "worst_over_tol": float(ratio.max()), "worst_element": [int(v) for v in i],
+                     "seq": float(ca[i]), "gang": float(cb[i]), "max_abs_err": float(np.abs(cb - ca).max()),
+                     "intercept_max_abs_err": float(np.abs(ib - ia).max()),
+                     "held": bool(ratio.max() <= 1.0 and (not iters or abs(it[0] - it[1]) <= 1))})
+    return rows
+
+
+def phase_gang(torch, X_host, seed):
+    """(t) the gang paths on the first TUNING_ROWS host rows with phase
+    (r)'s labels (``tuning_labels``), each run at ``core.GANG_FIT = "auto"``
+    and at ``"off"``: ``fitMultiple`` of binomial LogisticRegression(maxIter
+    GANG_LR_ITER) over GANG_GRID (8 maps: a bucket of 4 plain lanes and one
+    of 4 OWL-QN lanes), the 4 plain maps on the TUNING_CLASSES-class labels
+    (traced: ``<Est>.gang_fit`` under ``<Est>.fit``), LinearRegression
+    (maxIter GANG_LIN_ITER) over GANG_LIN_GRID (4 FISTA lanes, K1 once) plus a
+    Cholesky map that takes the loop, the binomial plain bucket under a
+    ``GANG_FIT_BUDGET`` of two lanes' bytes (2 dispatches of 2), and
+    CrossValidator(LogisticRegression) over phase (r)'s 4 maps × 3 folds
+    (12 fold-masked lanes) against its per-fold path. Holds: the precision
+    (TF32 off, "highest"); each gang lane against its sequential fit at the
+    JAX test's tolerances (``gang_hold``); the CV's avgMetrics, best index
+    and sub-models; the freeze on the card (``logreg_fit_batched``: lane 0
+    bit for bit when the other lanes' tol is made brutal); the counters,
+    the reports and the span; each with a negative control (a lane against
+    the sequential fit of another regParam; the lane whose tol changed; the
+    loop's counters and reports; the CV of a grid with one regParam moved).
+    Prints each run's seconds, L-BFGS evaluations, peak device memory beside
+    the resolver's lane-bytes estimate, and K1 / K3 launches; no plain
+    version runs on the card. Returns {kernels-line row: launches}."""
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, core, tuning
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression, LogisticRegressionModel
+    from spark_rapids_ml_tpu_torch.evaluation import MulticlassClassificationEvaluator
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+    from spark_rapids_ml_tpu_torch.runtime import counters
+    from spark_rapids_ml_tpu_torch.runtime import telemetry as tel
+
+    t0 = time.perf_counter()
+    precision = {"allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+                 "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    emit({"phase": "gang", "check": "precision", **precision})
+    check(not precision["allow_tf32"] and precision["float32_matmul_precision"] == "highest",
+          f"gang: the f32 products are not exact f32: {precision}")
+    dev = torch.device("cuda:0")
+    n = min(TUNING_ROWS, X_host.shape[0])
+    X = np.ascontiguousarray(X_host[:n])
+    Xd = torch.from_numpy(X).to(dev)
+    yb, yk, yr = tuning_labels(torch, Xd, seed)
+    wrappers = ((lin, "shifted_gram", "shifted_gram_plain"), (lk, "logreg_loss_grad", "logreg_loss_grad_plain"))
+    total = {k: 0 for mod, w, p in wrappers for k in (w, p)}
+    runs = {}
+    saved = (core.GANG_FIT, core.GANG_FIT_BUDGET)
+
+    def run(name, mode, fit, lanes_bytes=None, budget=None):
+        """``fit()`` at GANG_FIT ``mode``: its seconds (synchronized), peak
+        device memory over what was allocated before, L-BFGS evaluations,
+        K1 / K3 launches and gang counters."""
+        core.GANG_FIT, core.GANG_FIT_BUDGET = mode, budget
+        base = counters.snapshot()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        with launch_counts(wrappers) as rec, lbfgs_evaluations() as evs:
+            t = time.perf_counter()
+            out = fit()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+        launches = rec()
+        for k, v in launches.items():
+            total[k] += v
+        runs[name] = {"gang_fit": str(mode), "s": s, "evaluations": evs(),
+                      "peak_bytes": torch.cuda.max_memory_allocated() - mem0,
+                      "lane_bytes_estimate": lanes_bytes, "budget": budget,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "counters": {k: v for k, v in counters.delta_since(base).items() if k.startswith("gang_")}}
+        return out
+
+    def fit_multiple(est, df, maps):
+        return lambda: [m for _, m in sorted(est.fitMultiple(df, maps), key=lambda t: t[0])]
+
+    try:
+        # fitMultiple of binomial LogisticRegression: 2 buckets of 4 lanes
+        df = DataFrame({"features": X, "label": yb})
+        lr = lambda **kw: LogisticRegression(maxIter=GANG_LR_ITER, **kw)
+        maps = grid_of(lr(), GANG_GRID)
+        # the resolver's estimate (_gang_lane_bytes: 16·n·K a lane) times the lanes
+        est4 = 16.0 * n * 1 * 4
+        # each mode twice (the first gang run pays its products' first calls)
+        gang = run("logreg_gang", "auto", fit_multiple(lr(), df, maps), est4)
+        loop = run("logreg_loop", "off", fit_multiple(lr(), df, maps))
+        run("logreg_loop_again", "off", fit_multiple(lr(), df, maps))
+        run("logreg_gang_again", "auto", fit_multiple(lr(), df, maps), est4)
+        hold = gang_hold(loop, gang)
+        # the control: the (1e-2, 0) lane against the loop's (1e-1, 0) fit
+        ctl = gang_hold([loop[6]], [gang[4]])[0]
+        reports = [m._fit_report for m in gang]
+        row = {"maps": len(maps), "lanes": hold, "control_regParam_moved": ctl,
+               "gang_reports": reports, "loop_reports": [m._fit_report for m in loop],
+               "runs": {k: runs[k] for k in ("logreg_gang", "logreg_loop", "logreg_loop_again",
+                                             "logreg_gang_again")}}
+        emit({"phase": "gang", "check": "logreg_binomial", **row})
+        check(all(r["held"] for r in hold) and not ctl["held"],
+              f"gang: a binomial lane off its sequential fit, or the control held: {hold} {ctl}")
+        check(all(r.get("gang_lanes") == 4 and r.get("gang_groups") == 2 for r in reports) and
+              all(m._fit_report == {} for m in loop),
+              f"gang: the binomial reports: {reports}")
+        check(runs["logreg_gang"]["counters"] == {"gang_dispatches": 2, "gang_lanes_total": 8} and
+              runs["logreg_loop"]["counters"] == {} and "logreg_loss_grad" not in runs["logreg_gang"]["launches"]
+              and runs["logreg_loop"]["launches"].get("logreg_loss_grad", 0) > 0,
+              f"gang: the binomial counters or launches: {row['runs']}")
+        del gang, loop
+
+        # the freeze on the card: lane 0 converges first; the other lanes'
+        # tol brutal in the second run
+        mask = torch.ones(n, device=dev)
+        yd = torch.from_numpy(yb).to(dev)
+        kw = dict(n_classes=2, multinomial=False, fit_intercept=True, standardization=True,
+                  l1=[0.0] * 3, l2=[1e-3, 1e-2, 1e-1], use_l1=False, max_iter=GANG_LR_ITER)
+        loose, brutal = GANG_FREEZE_TOLS
+        short = lk.logreg_fit_batched(Xd, mask, yd, tol=[loose] * 3, **kw)
+        long = lk.logreg_fit_batched(Xd, mask, yd, tol=[loose, brutal, brutal], **kw)
+        frz = {"n_iter_short": short["n_iter"].tolist(), "n_iter_long": long["n_iter"].tolist(),
+               "lane0_bit_equal": bool(torch.equal(short["coef_"][0], long["coef_"][0]) and torch.equal(
+                   short["objective"][0], long["objective"][0])),
+               "control_lane1_differs": not torch.equal(short["coef_"][1], long["coef_"][1])}
+        frz["loop_ran_on"] = max(frz["n_iter_long"]) > frz["n_iter_short"][0]
+        emit({"phase": "gang", "check": "freeze", **frz})
+        check(frz["lane0_bit_equal"] and frz["control_lane1_differs"] and frz["loop_ran_on"],
+              f"gang: the freeze on the card: {frz}")
+        del short, long, mask, yd, Xd
+        torch.cuda.empty_cache()
+
+        # the plain maps on TUNING_CLASSES classes, traced
+        dfk = DataFrame({"features": X, "label": yk})
+        maps_k = grid_of(lr(), {"regParam": GANG_GRID["regParam"], "elasticNetParam": [0.0]})
+        saved_tel = (tel.TRACE_DIR, tel.DEVICE_TIME)
+        with tempfile.TemporaryDirectory() as trace_dir:
+            tel.TRACE_DIR, tel.DEVICE_TIME = trace_dir, False
+            try:
+                gang_k = run("logreg10_gang", "auto", fit_multiple(lr(), dfk, maps_k),
+                             16.0 * n * TUNING_CLASSES * 4)
+            finally:
+                tel.TRACE_DIR, tel.DEVICE_TIME = saved_tel
+            xs, _, by_id, _ = trace_tree(trace_dir)
+        loop_k = run("logreg10_loop", "off", fit_multiple(lr(), dfk, maps_k))
+        spans = [(e["name"], by_id[e["args"]["parent_id"]]["name"] if "parent_id" in e["args"] else None,
+                  {k: e["args"].get(k) for k in ("lanes", "bucket")}) for e in xs]
+        gspans = [s for s in spans if s[0] == "LogisticRegression.gang_fit"]
+        hold_k = gang_hold(loop_k, gang_k)
+        ctl_k = gang_hold([loop_k[3]], [gang_k[2]])[0]
+        row = {"classes": TUNING_CLASSES, "lanes": hold_k, "control_regParam_moved": ctl_k,
+               "gang_spans": gspans, "span_names": sorted({s[0] for s in spans}),
+               "runs": {k: runs[k] for k in ("logreg10_gang", "logreg10_loop")}}
+        emit({"phase": "gang", "check": "logreg_multinomial", **row})
+        check(all(r["held"] for r in hold_k) and not ctl_k["held"],
+              f"gang: a {TUNING_CLASSES}-class lane off its sequential fit, or the control held: {hold_k} {ctl_k}")
+        check(len(gspans) == 1 and gspans[0][1] == "LogisticRegression.fit" and gspans[0][2]["lanes"] == 4 and
+              ("fit.dispatch", "LogisticRegression.fit", {"lanes": None, "bucket": None}) not in spans,
+              f"gang: the span tree: {spans}")
+        del gang_k, loop_k
+
+        # LinearRegression: 4 FISTA lanes in one dispatch, a Cholesky map in the loop
+        dfr = DataFrame({"features": X, "label": yr})
+        ln = lambda: LinearRegression(maxIter=GANG_LIN_ITER, tol=GANG_LIN_TOL)
+        maps_r = grid_of(ln(), GANG_LIN_GRID) + [{ln().getParam("regParam"): 0.1}]
+        gang_r = run("linreg_gang", "auto", fit_multiple(ln(), dfr, maps_r), 32.0 * X.shape[1] * 4)
+        loop_r = run("linreg_loop", "off", fit_multiple(ln(), dfr, maps_r))
+        hold_r = gang_hold(loop_r, gang_r, "coefficients", GANG_LIN_RTOL, GANG_LIN_ATOL, iters=False)
+        ctl_r = gang_hold([loop_r[2]], [gang_r[0]], "coefficients", GANG_LIN_RTOL, GANG_LIN_ATOL, False)[0]
+        reports_r = [m._fit_report for m in gang_r]
+        row = {"lanes": hold_r, "control_regParam_moved": ctl_r, "gang_reports": reports_r,
+               "runs": {k: runs[k] for k in ("linreg_gang", "linreg_loop")}}
+        emit({"phase": "gang", "check": "linreg", **row})
+        check(all(r["held"] for r in hold_r) and not ctl_r["held"],
+              f"gang: a LinearRegression lane off its sequential fit, or the control held: {hold_r} {ctl_r}")
+        check(all(r.get("gang_lanes") == 4 for r in reports_r[:4]) and "gang_lanes" not in reports_r[4] and
+              runs["linreg_gang"]["counters"] == {"gang_dispatches": 1, "gang_lanes_total": 4} and
+              runs["linreg_gang"]["launches"].get("shifted_gram", 0) > 0,
+              f"gang: the LinearRegression reports, counters or K1 launches: {row}")
+        del gang_r, loop_r
+
+        # the budget clamp: two lanes' bytes split the plain bucket of 4
+        plain = [pm for pm in maps if {p.name: v for p, v in pm.items()}["elasticNetParam"] == 0.0]
+        budget = 2 * 16.0 * n
+        gang_b = run("logreg_budget", "auto", fit_multiple(lr(), df, plain), est4 / 2, budget)
+        reports_b = [m._fit_report for m in gang_b]
+        row = {"budget": budget, "reports": reports_b, "run": runs["logreg_budget"],
+               "control_no_budget": runs["logreg_gang"]["counters"]}
+        emit({"phase": "gang", "check": "budget", **row})
+        check(runs["logreg_budget"]["counters"] == {"gang_dispatches": 2, "gang_lanes_total": 4} and
+              all(r.get("gang_lanes") == 2 and r.get("gang_groups") == 2 for r in reports_b),
+              f"gang: the budget clamp: {row}")
+        del gang_b
+
+        # CrossValidator(LogisticRegression): 4 maps x 3 folds
+        acc = MulticlassClassificationEvaluator(metricName="accuracy")
+        grid = TUNING_GRIDS["logreg"]
+        mk = lambda g: cv_of(lr(), g, acc, numFolds=TUNING_FOLDS, seed=seed, collectSubModels=True)
+        # the CV's seconds by part: the folds' host split, the gang grid or
+        # the folds' fitMultiple, the evaluation passes (the rest: the refit)
+        parts = [(tuning, "kfold", "kfold"), (LogisticRegression, "_gang_cv_fit_multiple", "gang_grid"),
+                 (LogisticRegression, "fitMultiple", "fold_fit_multiple"),
+                 (LogisticRegressionModel, "_transformEvaluate", "evaluate")]
+        with timed_calls(torch, parts) as cv_parts:
+            cv_g = run("cv_gang", "auto", lambda: mk(grid).fit(df), 16.0 * n * 6)
+        runs["cv_gang"]["parts_s"] = cv_parts()
+        with timed_calls(torch, parts) as cv_parts:
+            cv_l = run("cv_per_fold", "off", lambda: mk(grid).fit(df))
+        runs["cv_per_fold"]["parts_s"] = cv_parts()
+        moved = {"regParam": [grid["regParam"][0], 10.0], "elasticNetParam": grid["elasticNetParam"]}
+        cv_m = run("cv_gang_regParam_moved", "auto", lambda: mk(moved).fit(df))
+        gap = lambda a, b: [abs(x - y) / (GANG_CV_RTOL * abs(y) + GANG_CV_ATOL) for x, y in zip(a, b)]
+        subs = [gang_hold(l_f, g_f, rtol=GANG_SUB_RTOL, iters=False) for l_f, g_f in zip(cv_l.subModels,
+                                                                                         cv_g.subModels)]
+        folds = [[m._fit_report.get("gang_fold") for m in g_f] for g_f in cv_g.subModels]
+        row = {"gang_avgMetrics": cv_g.avgMetrics, "per_fold_avgMetrics": cv_l.avgMetrics,
+               "gap_over_tol": gap(cv_g.avgMetrics, cv_l.avgMetrics),
+               "best": [int(np.argmax(cv_g.avgMetrics)), int(np.argmax(cv_l.avgMetrics))],
+               "sub_models_worst_over_tol": [max(r["worst_over_tol"] for r in f) for f in subs],
+               "gang_folds": folds, "control_avgMetrics": cv_m.avgMetrics,
+               "control_gap_over_tol": gap(cv_m.avgMetrics, cv_l.avgMetrics),
+               "runs": {k: runs[k] for k in ("cv_gang", "cv_per_fold", "cv_gang_regParam_moved")}}
+        emit({"phase": "gang", "check": "cv", **row})
+        check(max(row["gap_over_tol"]) <= 1.0 and row["best"][0] == row["best"][1] and
+              all(r["held"] for f in subs for r in f) and max(row["control_gap_over_tol"]) > 1.0,
+              f"gang: the CV against its per-fold path, or the control held: {row}")
+        check(folds == [[f] * len(cv_g.subModels[f]) for f in range(TUNING_FOLDS)] and
+              runs["cv_gang"]["counters"] == {"gang_dispatches": 2, "gang_lanes_total": 12} and
+              runs["cv_per_fold"]["counters"] == {},
+              f"gang: the CV's folds or counters: {row}")
+    finally:
+        core.GANG_FIT, core.GANG_FIT_BUDGET = saved
+
+    emit({"phase": "gang", "check": "launches", "rows": n, "total": total,
+          "s": time.perf_counter() - t0})
+    check(total["shifted_gram"] > 0 and total["logreg_loss_grad"] > 0 and
+          not any(v for k, v in total.items() if k.endswith("_plain")),
+          f"gang: a kernel of the path not launched, or a plain version ran on the card: {total}")
+    return {w: total[w] for _, w, _ in wrappers if total[w]}
+
+
+def gang_probe(torch, args, dev) -> int:
+    """Phase (t) alone, on min(``--rows``, TUNING_ROWS) rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    n = min(args.rows, TUNING_ROWS)
+    X, _ = make_data(torch, n, n, args.seed, dev)
+    X_host = X.cpu().numpy()
+    del X
+    torch.cuda.empty_cache()
+    launches = phase_gang(torch, X_host, args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -7957,6 +8344,9 @@ def main() -> int:
     ap.add_argument("--telemetry-only", action="store_true",
                     help="a probe: build K1, K3 and K2 alone and run only the telemetry phase (s) on "
                          "min(--rows, TELEMETRY_ROWS) rows (prints no result line)")
+    ap.add_argument("--gang-only", action="store_true",
+                    help="a probe: build K1 and K3 alone and run only the gang phase (t) on min(--rows, "
+                         "TUNING_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -7996,6 +8386,7 @@ def main() -> int:
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
                            else ["shifted_gram", "logreg_loss_grad", "rf_hist", "rf_traverse"] if args.tuning_only
+                           else ["shifted_gram", "logreg_loss_grad"] if args.gang_only
                            else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if (
                                args.stream_only or args.wire_only or args.f64_only or args.telemetry_only)
                            else _build.SOURCES)
@@ -8037,6 +8428,8 @@ def main() -> int:
         return tuning_probe(torch, args, dev)
     if args.telemetry_only:
         return telemetry_probe(torch, args, dev)
+    if args.gang_only:
+        return gang_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -8128,6 +8521,8 @@ def main() -> int:
     tuning_launches = phase_tuning(torch, X_host, args.seed)
     for row, count in phase_telemetry(torch, X_host, y_host, args.seed).items():
         by_path.setdefault(row, {})["telemetry"] = count
+    for row, count in phase_gang(torch, X_host, args.seed).items():
+        by_path.setdefault(row, {})["gang"] = count
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():

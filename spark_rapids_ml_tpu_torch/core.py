@@ -30,8 +30,21 @@ chunk source (``data.chunks``), and the card holds a few chunks, never the
 dataset. A model's ``transform`` over a parquet scan streams it the same
 way. ``tuning.CrossValidator`` evaluates a fold in one pass where the
 estimator says so (``_supportsTransformEvaluate``): ``fitMultiple``, the
-model class's ``_combine``, then one ``_transformEvaluate``. Gang dispatch
-is not ported yet.
+model class's ``_combine``, then one ``_transformEvaluate``.
+
+Gang fits (the JAX package's ``TPUML_GANG_FIT``, here the module constants
+:data:`GANG_FIT` and :data:`GANG_FIT_BUDGET`): with ``GANG_FIT`` other than
+``"off"``, a resident ``fitMultiple`` fits each static bucket of its param
+maps (``_gang_fit_groups``) as one batched solve (``_get_gang_fit_func``),
+and ``CrossValidator`` fits its whole folds × maps grid as fold-masked
+lanes over one copy of the rows (``_gang_cv_fit_multiple``). The lane
+width is ``resolve_gang_fit``'s: the whole bucket (``"auto"``) or the
+given width, clamped so the lanes' residents (``_gang_lane_bytes``) fit
+the budget. A lane the gang declines takes the sequential loop. Each
+dispatch opens the span ``<Est>.gang_fit`` (``lanes=``, ``bucket=``),
+bumps ``gang_dispatches`` and ``gang_lanes_total``, and adds
+``gang_lanes`` / ``gang_groups`` / ``gang_bucket`` (``gang_fold`` in the
+CV) to each lane's model's ``_fit_report``.
 
 Telemetry (``runtime.telemetry``, inert unless ``telemetry.TRACE_DIR`` is
 set): every fit opens the root span ``<Est>.fit``, with ``preprocess``
@@ -67,7 +80,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from .data.dataframe import AugmentedScanFrame, DataFrame, ParquetScanFrame, _is_sparse
+from .data.dataframe import AugmentedScanFrame, DataFrame, ParquetScanFrame, _is_sparse, kfold_ids
 from .params import HasLabelCol, HasWeightCol, Params, _TpuParams
 from .parallel.mesh import _torch_dtype, shard_aligned, shard_rows
 from .runtime import counters, telemetry
@@ -188,6 +201,80 @@ def _default_stream_threshold_bytes(device: torch.device) -> int:
     return 8 << 30
 
 
+# gang fits of fitMultiple and CrossValidator (the JAX package's
+# TPUML_GANG_FIT): "off" keeps the sequential loop, "auto" fits each static
+# bucket of param maps in one batched solve, a positive int pins the lane
+# width; either is clamped to the budget below
+GANG_FIT: Union[str, int] = "off"
+# bytes the gang's lanes may keep resident on the device
+# (TPUML_GANG_FIT_BUDGET): None is a quarter of the card's memory, 4 GiB
+# on the CPU (the JAX package's 16 GiB fallback over 4)
+GANG_FIT_BUDGET: Optional[float] = None
+
+# one debug log a process of the first gang plan's partition
+_GANG_PARTITION_LOGGED = False
+
+
+class GangFitConfigError(ValueError):
+    """A bad :data:`GANG_FIT` or :data:`GANG_FIT_BUDGET` (the JAX package
+    raises ``EnvSpecError`` for its environment variables). The
+    CrossValidator re-raises it whatever ``CV_FAILFAST`` says."""
+
+
+def _default_gang_budget(device: torch.device) -> float:
+    """A quarter of the card's memory (read as
+    :func:`_default_stream_threshold_bytes` reads it); 4 GiB on the CPU."""
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return float(total) / 4.0
+    return float(16 << 30) / 4.0
+
+
+def _gang_on() -> bool:
+    """Is :data:`GANG_FIT` anything but off? Does not validate it:
+    :func:`resolve_gang_fit` does, so a bad value raises on the gang path
+    instead of running the sequential loop."""
+    return str(GANG_FIT).strip().lower() != "off"
+
+
+def resolve_gang_fit(n_lanes: int, lane_bytes: float, device: torch.device) -> int:
+    """Lanes a gang dispatch fits (1: the sequential loop).
+
+    :data:`GANG_FIT` ``"off"`` gives 1, ``"auto"`` the whole bucket
+    (``n_lanes``), an int that width. The result is clamped to the widest
+    gang whose lanes (``lane_bytes`` each, the estimator's
+    ``_gang_lane_bytes``) fit :data:`GANG_FIT_BUDGET` (None: a quarter of
+    ``device``'s memory). The JAX package's autotune consult of ``"auto"``
+    and its heuristic record are not ported (ROADMAP queue 1 item 7c)."""
+    raw = str(GANG_FIT).strip().lower()
+    if raw == "off":
+        return 1
+    if raw == "auto":
+        want = n_lanes
+    else:
+        try:
+            want = int(raw)
+        except ValueError:
+            raise GangFitConfigError(
+                f"GANG_FIT={GANG_FIT!r}: expected 'auto', 'off', or a positive integer"
+            ) from None
+        if want < 1:
+            raise GangFitConfigError(f"GANG_FIT={want}: lane width must be >= 1")
+    if GANG_FIT_BUDGET is None:
+        budget = _default_gang_budget(device)
+    else:
+        try:
+            budget = float(GANG_FIT_BUDGET)
+        except (TypeError, ValueError):
+            raise GangFitConfigError(f"GANG_FIT_BUDGET={GANG_FIT_BUDGET!r}: expected bytes > 0") from None
+        if not budget > 0.0:
+            raise GangFitConfigError(f"GANG_FIT_BUDGET={GANG_FIT_BUDGET!r}: must be > 0")
+    fit = max(1, int(budget // max(1.0, float(lane_bytes))))
+    lanes = max(1, min(want, fit))
+    telemetry.record_hbm_estimate("gang_fit", float(lane_bytes) * lanes, device)
+    return lanes
+
+
 class _TpuEstimator(Params, _TpuParams):
     """Abstract estimator (the JAX package's ``_TpuEstimator``)."""
 
@@ -229,6 +316,161 @@ class _TpuEstimator(Params, _TpuParams):
         """Chunked out-of-core fit, or None where the algorithm needs the
         matrix on the card. Engaged by :meth:`_should_stream`."""
         return None
+
+    # ---- gang hooks ------------------------------------------------------
+    def _gang_fit_groups(
+        self, param_sets: List[Dict[str, Any]]
+    ) -> Optional[List[Tuple[Any, List[int]]]]:
+        """The static buckets of ``param_sets`` for the gang: ``(key, [lane
+        indices])``, every lane of a bucket sharing what the batched solve
+        takes as common (continuous params ride (B,) lane tensors). A lane
+        in no bucket takes the sequential loop. None: no gang path."""
+        return None
+
+    def _get_gang_fit_func(self, dataset: DataFrame) -> Optional[Callable[..., List[Dict[str, Any]]]]:
+        """Gang companion of :meth:`_get_fit_func`:
+        ``fn(inputs, group_param_sets, **fold_kwargs) -> [result, ...]``
+        fitting one static bucket in one batched solve, or None where this
+        dataset cannot gang (degenerate labels)."""
+        return None
+
+    def _gang_fit_supports_folds(self) -> bool:
+        """Whether the gang fit function takes ``fold_id`` / ``lane_fold`` /
+        ``n_folds`` for the CrossValidator's fold-masked lanes."""
+        return False
+
+    def _gang_lane_bytes(self, inputs: FitInputs) -> float:
+        """Device bytes each further gang lane keeps resident (the budget
+        clamp of :func:`resolve_gang_fit`): a few row-vector temporaries."""
+        return 16.0 * float(inputs.X.shape[0])
+
+    def _gang_dispatch(
+        self,
+        inputs: FitInputs,
+        param_sets: List[Dict[str, Any]],
+        *,
+        gang_fit: Callable[..., List[Dict[str, Any]]],
+        cls_name: str,
+        fold_id: Optional[torch.Tensor] = None,
+        lane_folds: Optional[List[int]] = None,
+        n_folds: int = 0,
+        allow_singletons: bool = False,
+    ) -> Tuple[Dict[int, Dict[str, Any]], Dict[int, Dict[str, Any]], Dict[int, Dict[str, int]]]:
+        """Fit as many lanes of ``param_sets`` as :func:`resolve_gang_fit`
+        allows, a batched solve a chunk of a bucket. Returns ``(results,
+        reports, resilience deltas)`` keyed by lane; a lane not in them
+        takes the caller's sequential loop. A chunk of one lane stays
+        sequential (the solo solver's numbers), unless ``allow_singletons``
+        (the fold-masked CV, where every lane needs the masked solve)."""
+        global _GANG_PARTITION_LOGGED
+        groups = self._gang_fit_groups(param_sets)
+        if not groups:
+            return {}, {}, {}
+        lane_bytes = float(self._gang_lane_bytes(inputs))
+        min_chunk = 1 if allow_singletons else 2
+        plan: List[Tuple[Any, List[int]]] = []
+        for key, idxs in groups:
+            width = resolve_gang_fit(len(idxs), lane_bytes, inputs.device)
+            if width < min_chunk:
+                continue
+            for c0 in range(0, len(idxs), width):
+                chunk = idxs[c0 : c0 + width]
+                if len(chunk) >= min_chunk:
+                    plan.append((key, chunk))
+        if not plan:
+            return {}, {}, {}
+        if not _GANG_PARTITION_LOGGED:
+            self.logger.debug("gang-fit static-bucket partition: %s", [(str(k), len(c)) for k, c in plan])
+            _GANG_PARTITION_LOGGED = True
+        results: Dict[int, Dict[str, Any]] = {}
+        reports: Dict[int, Dict[str, Any]] = {}
+        deltas: Dict[int, Dict[str, int]] = {}
+        for key, chunk in plan:
+            res_base = counters.snapshot()
+            kw: Dict[str, Any] = {}
+            if fold_id is not None:
+                kw = dict(fold_id=fold_id, lane_fold=[lane_folds[i] for i in chunk], n_folds=n_folds)
+            with annotate(f"{cls_name}.gang_fit"), timed(self.logger, "gang_fit"), telemetry.span(
+                f"{cls_name}.gang_fit", lanes=len(chunk), bucket=str(key)
+            ) as g_span:
+                outs = gang_fit(inputs, [param_sets[i] for i in chunk], **kw)
+                # the gang function returns host values: the fence is the
+                # device the lanes ran on
+                g_span.fence((outs, inputs.device))
+            res_delta = counters.delta_since(res_base)
+            counters.bump("gang_dispatches")
+            counters.bump("gang_lanes_total", len(chunk))
+            for pos, i in enumerate(chunk):
+                results[i] = outs[pos]
+                deltas[i] = res_delta
+                reports[i] = {"gang_lanes": len(chunk), "gang_groups": len(plan), "gang_bucket": str(key)}
+                if lane_folds is not None:
+                    reports[i]["gang_fold"] = int(lane_folds[i])
+        return results, reports, deltas
+
+    @staticmethod
+    def _gang_model(
+        est: "_TpuEstimator", result: Dict[str, Any], report: Dict[str, Any], delta: Dict[str, int]
+    ) -> "_TpuModel":
+        """The model of one gang lane: the estimator's own report (where its
+        ``_create_model`` sets one) with the gang's keys added."""
+        model = est._create_model(result)
+        est._copyValues(model)
+        est._copy_tpu_params(model)
+        model._resilience_report = delta
+        model._fit_report = {**model._fit_report, **report}
+        return model
+
+    def _gang_cv_fit_multiple(
+        self, dataset: DataFrame, paramMaps: Sequence[Dict[Any, Any]], n_folds: int, seed: int
+    ) -> Optional[List[List["_TpuModel"]]]:
+        """The fold-masked gang CV: the whole ``n_folds × len(paramMaps)``
+        grid as gang lanes over one copy of the rows, lane ``(fold, map)``
+        weighting out the rows of its fold. Returns ``models[fold][map]``,
+        or None (the caller's per-fold path runs) where the gang is off,
+        the estimator has no fold-masked gang, the fit streams, or the data
+        cannot gang. All or nothing: a grid the gang does not fit whole is
+        declined. The rows run in their own dtype (float64 under
+        ``float32_inputs=False``)."""
+        if not _gang_on() or not self._gang_fit_supports_folds():
+            return None
+        stream_func = self._get_streaming_fit_func(dataset)
+        if stream_func is not None and self._should_stream(dataset):
+            # fold masking needs the rows on the device
+            return None
+        gang_fit = self._get_gang_fit_func(dataset)
+        if gang_fit is None:
+            return None
+        self._apply_verbosity()
+        cls_name = type(self).__name__
+        with annotate(f"{cls_name}.preprocess"), timed(self.logger, "preprocess"), telemetry.span(
+            "preprocess", gang_cv=True
+        ):
+            inputs = self._pre_process_data(dataset)
+        # kfold's own draw, so each masked lane trains on the rows the
+        # per-fold path would
+        fold_ids = kfold_ids(dataset.count(), n_folds, seed)
+        fold_dev = shard_aligned(fold_ids.astype(np.int32), inputs.device, inputs.X.shape[0])
+        estimators = [self._with_params(pm) for pm in paramMaps]
+        map_param_sets = [dict(est._tpu_params) for est in estimators]
+        lanes = [(f, j) for f in range(n_folds) for j in range(len(paramMaps))]
+        results, reports, deltas = self._gang_dispatch(
+            inputs,
+            [map_param_sets[j] for _, j in lanes],
+            gang_fit=gang_fit,
+            cls_name=cls_name,
+            fold_id=fold_dev,
+            lane_folds=[f for f, _ in lanes],
+            n_folds=n_folds,
+            allow_singletons=True,
+        )
+        if len(results) < len(lanes):
+            return None
+        return [
+            [self._gang_model(estimators[j], results[i], reports[i], deltas[i])
+             for i, (fold, j) in enumerate(lanes) if fold == f]
+            for f in range(n_folds)
+        ]
 
     def _resolved_weight_col(self) -> Optional[str]:
         """The explicitly set weight column, or None."""
@@ -440,13 +682,32 @@ class _TpuEstimator(Params, _TpuParams):
                 inputs = self._pre_process_data(dataset)
             fit_func = self._get_fit_func(dataset)
         estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
+        param_sets = [dict(est._tpu_params) for est in estimators]
+        # the gang: lanes that share a static bucket in one batched solve
+        # over the resident rows (GANG_FIT, off by default, so the loop
+        # below is today's path); a lane it declines takes the loop. The
+        # JAX package's scheduler entry (_fit_coscheduled) and autotune
+        # collection around the gang are not ported (ROADMAP queue 1 items
+        # 7b and 7c).
+        gang_results: Dict[int, Dict[str, Any]] = {}
+        gang_reports: Dict[int, Dict[str, Any]] = {}
+        gang_deltas: Dict[int, Dict[str, int]] = {}
+        if not streaming and len(param_sets) > 1 and _gang_on():
+            gang_fit = self._get_gang_fit_func(dataset)
+            if gang_fit is not None:
+                gang_results, gang_reports, gang_deltas = self._gang_dispatch(
+                    inputs, param_sets, gang_fit=gang_fit, cls_name=cls_name
+                )
         models = []
         for lane, est in enumerate(estimators):
+            if lane in gang_results:
+                models.append(self._gang_model(est, gang_results[lane], gang_reports[lane], gang_deltas[lane]))
+                continue
             res_base = counters.snapshot()
             with annotate(f"{cls_name}.fit"), timed(self.logger, "fit"), telemetry.span(
                 "fit.dispatch", lane=lane, streaming=streaming
             ) as d_span:
-                result = fit_func(inputs, dict(est._tpu_params))
+                result = fit_func(inputs, param_sets[lane])
                 # a fit function returns host values: the fence is the
                 # device the lane ran on
                 d_span.fence((result, inputs.device))
@@ -524,6 +785,11 @@ class _TpuModel(Params, _TpuParams):
     # delta; {} on a clean fit). A class default, so models that never went
     # through a fit loop (loaded ones) expose it too.
     _resilience_report: Dict[str, int] = {}
+
+    # the fit's provenance: a model class's own report where it sets one,
+    # and gang_lanes / gang_groups / gang_bucket (gang_fold in the CV) where
+    # the model came out of a gang dispatch; {} otherwise
+    _fit_report: Dict[str, Any] = {}
 
     def __init__(self, **model_attributes: Any) -> None:
         super().__init__()

@@ -14,14 +14,14 @@ raw-prediction columns follow the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import FitFunc, FitInputs, StreamFitFunc, StreamInputs, _TpuEstimatorSupervised, _TpuModel
 from ..data.dataframe import DataFrame
-from ..ops.logreg_kernels import logreg_fit, logreg_link, logreg_predict
+from ..ops.logreg_kernels import logreg_fit, logreg_fit_batched, logreg_link, logreg_predict
 from ..parallel.mesh import global_label_summary
 from ..params import (
     HasElasticNetParam,
@@ -233,9 +233,7 @@ class LogisticRegression(
             if ls["all_same"] and n_classes == 2 and fit_intercept:
                 return _single_label_result(ls["first"], inputs.n_features)
 
-            c = float(params["C"])
-            reg = 1.0 / c if c > 0.0 else 0.0
-            l1_ratio = float(params["l1_ratio"])
+            l1, l2 = self._gang_reg_pair(params)
             out = logreg_fit(
                 inputs.X,
                 inputs.mask,
@@ -244,9 +242,9 @@ class LogisticRegression(
                 multinomial=multinomial,
                 fit_intercept=fit_intercept,
                 standardization=bool(params["standardization"]),
-                l1=reg * l1_ratio,
-                l2=reg * (1.0 - l1_ratio),
-                use_l1=reg * l1_ratio > 0.0,
+                l1=l1,
+                l2=l2,
+                use_l1=l1 > 0.0,
                 max_iter=int(params["max_iter"]),
                 tol=float(params["tol"]),
                 objective_dtype=_resolve_objective_dtype(params),
@@ -261,6 +259,98 @@ class LogisticRegression(
             }
 
         return _fit
+
+    # ---- gang fits ---------------------------------------------------------
+    @staticmethod
+    def _gang_reg_pair(ps: Dict[str, Any]) -> Tuple[float, float]:
+        """(l1, l2) strengths from the stored C / l1_ratio: a solo fit's, a
+        streamed fit's and a gang lane's."""
+        c = float(ps["C"])
+        reg = 1.0 / c if c > 0.0 else 0.0
+        l1_ratio = float(ps["l1_ratio"])
+        return reg * l1_ratio, reg * (1.0 - l1_ratio)
+
+    def _gang_fit_groups(self, param_sets: List[Dict[str, Any]]) -> List[Tuple[Any, List[int]]]:
+        # l1 / l2 / tol ride (B,) lane tensors; the rest splits buckets.
+        # l1 > 0 too: OWL-QN's sign fix and orthant projection are no
+        # identities at l1 = 0, so plain and OWL-QN lanes solve apart
+        groups: Dict[Tuple[Any, ...], List[int]] = {}
+        for i, ps in enumerate(param_sets):
+            l1, _ = self._gang_reg_pair(ps)
+            key = (
+                bool(ps["fit_intercept"]),
+                bool(ps["standardization"]),
+                l1 > 0.0,
+                int(ps["max_iter"]),
+                _resolve_objective_dtype(ps),
+            )
+            groups.setdefault(key, []).append(i)
+        return list(groups.items())
+
+    def _gang_fit_supports_folds(self) -> bool:
+        return True
+
+    def _gang_lane_bytes(self, inputs: FitInputs) -> float:
+        # the (n, B, K) logits and their backward twin: about four such
+        # temporaries live a lane through an evaluation
+        return 16.0 * float(inputs.X.shape[0]) * float(getattr(self, "_gang_k_eff", 1))
+
+    def _get_gang_fit_func(self, dataset: DataFrame) -> Optional[Callable[..., List[Dict[str, Any]]]]:
+        """One static bucket in one :func:`logreg_fit_batched`; None for
+        labels the gang leaves to the solo fit (empty, negative or not
+        integer: its error; all one label: its degenerate model)."""
+        ls = global_label_summary(np.asarray(dataset.column(self.getOrDefault("labelCol"))))
+        if ls["total"] == 0 or ls["y_min"] < 0 or not ls["all_int"] or ls["all_same"]:
+            return None
+        n_classes = _n_classes(ls)
+        multinomial = n_classes > 2
+        self._gang_k_eff = n_classes if multinomial else 1
+
+        def _gang_fit(
+            inputs: FitInputs,
+            group_ps: List[Dict[str, Any]],
+            *,
+            fold_id: Optional[torch.Tensor] = None,
+            lane_fold: Optional[List[int]] = None,
+            n_folds: int = 0,
+        ) -> List[Dict[str, Any]]:
+            ps0 = group_ps[0]
+            pairs = [self._gang_reg_pair(ps) for ps in group_ps]
+            out = logreg_fit_batched(
+                inputs.X,
+                inputs.mask,
+                inputs.y,
+                n_classes=n_classes,
+                multinomial=multinomial,
+                fit_intercept=bool(ps0["fit_intercept"]),
+                standardization=bool(ps0["standardization"]),
+                l1=[l1 for l1, _ in pairs],
+                l2=[l2 for _, l2 in pairs],
+                use_l1=pairs[0][0] > 0.0,
+                max_iter=int(ps0["max_iter"]),
+                tol=[float(ps["tol"]) for ps in group_ps],
+                objective_dtype=_resolve_objective_dtype(ps0),
+                fold_id=fold_id,
+                lane_fold=lane_fold,
+                n_folds=int(n_folds),
+            )
+            coef = out["coef_"].detach().cpu().numpy()
+            intercept = out["intercept_"].detach().cpu().numpy()
+            n_iter = out["n_iter"].cpu().numpy()
+            objective = out["objective"].cpu().numpy()
+            return [
+                {
+                    "coef_": coef[b],
+                    "intercept_": intercept[b],
+                    "n_classes": n_classes,
+                    "multinomial": multinomial,
+                    "n_iter": int(n_iter[b]),
+                    "objective": float(objective[b]),
+                }
+                for b in range(len(group_ps))
+            ]
+
+        return _gang_fit
 
     def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
         """Out-of-core fit: the labels in one host pass, the feature
@@ -284,9 +374,7 @@ class LogisticRegression(
             fit_intercept = bool(params["fit_intercept"])
             if ls["all_same"] and n_classes == 2 and fit_intercept:
                 return _single_label_result(ls["first"], inputs.n_features)
-            c = float(params["C"])
-            reg = 1.0 / c if c > 0.0 else 0.0
-            l1_ratio = float(params["l1_ratio"])
+            l1, l2 = self._gang_reg_pair(params)
             if _resolve_objective_dtype(params) != "float32":
                 get_logger(type(self)).warning(
                     "objective_dtype=bfloat16 applies to the resident fit "
@@ -303,8 +391,8 @@ class LogisticRegression(
                     "multinomial": multinomial,
                     "fit_intercept": fit_intercept,
                     "standardization": bool(params["standardization"]),
-                    "l1": reg * l1_ratio,
-                    "l2": reg * (1.0 - l1_ratio),
+                    "l1": l1,
+                    "l2": l2,
                     "max_iter": int(params["max_iter"]),
                     "tol": float(params["tol"]),
                     "n_rows": int(inputs.n_rows),
@@ -317,8 +405,8 @@ class LogisticRegression(
                 multinomial=multinomial,
                 fit_intercept=fit_intercept,
                 standardization=bool(params["standardization"]),
-                l1=reg * l1_ratio,
-                l2=reg * (1.0 - l1_ratio),
+                l1=l1,
+                l2=l2,
                 max_iter=int(params["max_iter"]),
                 tol=float(params["tol"]),
                 moments=moments,

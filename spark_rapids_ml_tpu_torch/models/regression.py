@@ -8,15 +8,19 @@ l1 > 0 is FISTA (the elastic net and lasso). ``fitMultiple`` fits every
 param map from one copy of the data and one pass of statistics a
 ``fitIntercept`` value; the streamed fit (out of core) takes the
 statistics from two passes of ``ops.streaming.streamed_suffstats``, once
-a ``fitIntercept`` value too; ``_combine`` stacks models so that one transform
-pass scores them all. Transform is ``X @ w + b`` (``X @ Wᵀ + b`` for a
-combined model) in f32 on the model's device, a plain product.
+a ``fitIntercept`` value too. With ``core.GANG_FIT`` on, a resident
+``fitMultiple`` solves the FISTA maps of a bucket in one batched FISTA
+(``solve_elasticnet_batched``) over statistics of its own, once a
+``fitIntercept`` value; its Cholesky maps (l1 = 0) take the loop.
+``_combine`` stacks models so that one transform pass scores them all.
+Transform is ``X @ w + b`` (``X @ Wᵀ + b`` for a combined model) in f32 on
+the model's device, a plain product.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +32,7 @@ from ..ops.linreg_kernels import (
     linreg_suffstats,
     linreg_suffstats_chunked,
     solve_elasticnet,
+    solve_elasticnet_batched,
     solve_normal,
 )
 from ..params import (
@@ -191,6 +196,30 @@ class LinearRegression(LinearRegressionClass, _TpuEstimatorSupervised, _LinearRe
         # the JAX package's chunk rule: it sets the rows μ̂ is taken from
         return self._equal_chunk_rows(n_rows, n_dp, 65_536)
 
+    @staticmethod
+    def _resident_stats(
+        stats_cache: Dict[bool, Dict[str, torch.Tensor]], inputs: FitInputs, fit_intercept: bool
+    ) -> bool:
+        """Fill ``stats_cache[fit_intercept]`` from one pass over the rows on
+        the device (the Gram through K1) unless it holds them; True where it
+        did."""
+        if fit_intercept in stats_cache:
+            return True
+        csize = inputs.csize
+        if csize > 1 and inputs.X.shape[0] % csize == 0:
+            stats = linreg_suffstats_chunked(
+                inputs.X, inputs.mask, inputs.y, inputs.weight, csize=csize,
+                fit_intercept=fit_intercept,
+            )
+        else:
+            stats = linreg_suffstats(
+                inputs.X, inputs.mask, inputs.y, inputs.weight, fit_intercept=fit_intercept
+            )
+        stats_cache[fit_intercept] = stats
+        if inputs.device.type == "cuda":
+            torch.cuda.synchronize(inputs.device)
+        return False
+
     def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
         # one pass of statistics per fit_intercept value, shared by every
         # param map of one fitMultiple
@@ -200,21 +229,7 @@ class LinearRegression(LinearRegressionClass, _TpuEstimatorSupervised, _LinearRe
             fit_intercept = bool(params["fit_intercept"])
             launches0 = shifted_gram.launches
             t0 = time.perf_counter()
-            cached = fit_intercept in stats_cache
-            if not cached:
-                csize = inputs.csize
-                if csize > 1 and inputs.X.shape[0] % csize == 0:
-                    stats = linreg_suffstats_chunked(
-                        inputs.X, inputs.mask, inputs.y, inputs.weight, csize=csize,
-                        fit_intercept=fit_intercept,
-                    )
-                else:
-                    stats = linreg_suffstats(
-                        inputs.X, inputs.mask, inputs.y, inputs.weight, fit_intercept=fit_intercept
-                    )
-                stats_cache[fit_intercept] = stats
-                if inputs.device.type == "cuda":
-                    torch.cuda.synchronize(inputs.device)
+            cached = self._resident_stats(stats_cache, inputs, fit_intercept)
             t1 = time.perf_counter()
             result = self._solve_from_stats(stats_cache[fit_intercept], params)
             t2 = time.perf_counter()
@@ -228,6 +243,64 @@ class LinearRegression(LinearRegressionClass, _TpuEstimatorSupervised, _LinearRe
             return result
 
         return _fit
+
+    # ---- gang fits ---------------------------------------------------------
+    def _gang_fit_groups(self, param_sets: List[Dict[str, Any]]) -> Optional[List[Tuple[Any, List[int]]]]:
+        # the FISTA lanes alone: an l1 = 0 lane is one Cholesky solve on
+        # the shared statistics, nothing to batch, and takes the loop
+        groups: Dict[Tuple[Any, ...], List[int]] = {}
+        for i, ps in enumerate(param_sets):
+            if float(ps["alpha"]) * float(ps["l1_ratio"]) == 0.0:
+                continue
+            key = (bool(ps["fit_intercept"]), bool(ps["standardization"]), int(ps["max_iter"]))
+            groups.setdefault(key, []).append(i)
+        return list(groups.items()) or None
+
+    def _gang_lane_bytes(self, inputs: FitInputs) -> float:
+        # FISTA's state is O(d) a lane over the shared d×d system
+        return 32.0 * float(inputs.n_features)
+
+    def _get_gang_fit_func(self, dataset: DataFrame) -> Callable[..., List[Dict[str, Any]]]:
+        """One bucket of FISTA lanes in one :func:`solve_elasticnet_batched`
+        on statistics of its own (one pass through K1 a ``fit_intercept``
+        value, apart from the loop's, as in the JAX package). Each lane's
+        result carries the solo fit's report keys."""
+        stats_cache: Dict[bool, Dict[str, torch.Tensor]] = {}
+
+        def _gang_fit(inputs: FitInputs, group_ps: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+            ps0 = group_ps[0]
+            fit_intercept = bool(ps0["fit_intercept"])
+            launches0 = shifted_gram.launches
+            t0 = time.perf_counter()
+            cached = self._resident_stats(stats_cache, inputs, fit_intercept)
+            t1 = time.perf_counter()
+            beta, intercept, it = solve_elasticnet_batched(
+                stats_cache[fit_intercept],
+                [float(ps["alpha"]) * float(ps["l1_ratio"]) for ps in group_ps],
+                [float(ps["alpha"]) * (1.0 - float(ps["l1_ratio"])) for ps in group_ps],
+                standardization=bool(ps0["standardization"]),
+                max_iter=int(ps0["max_iter"]),
+                tol=[float(ps["tol"]) for ps in group_ps],
+            )
+            beta_h, intercept_h, it_h = beta.cpu().numpy(), intercept.cpu().numpy(), it.cpu().numpy()
+            t2 = time.perf_counter()
+            report = {
+                "suffstats_s": t1 - t0,
+                "stats_cached": cached,
+                "solve_s": t2 - t1,
+                "shifted_gram_launches": shifted_gram.launches - launches0,
+            }
+            return [
+                {
+                    "coefficients": beta_h[b],
+                    "intercept": float(intercept_h[b]),
+                    "n_iter": int(it_h[b]),
+                    _FIT_REPORT: {**report, "n_iter": int(it_h[b])},
+                }
+                for b in range(len(group_ps))
+            ]
+
+        return _gang_fit
 
     def _get_streaming_fit_func(self, dataset: DataFrame) -> StreamFitFunc:
         """Out-of-core fit: the statistics (Gram, Xᵀy, moments) accumulate

@@ -18,6 +18,15 @@ same algorithm in float64 numpy on the host, for objectives whose every
 evaluation streams the dataset through the card in chunks; its arithmetic
 follows the JAX package's line by line, so the same ``value_grad`` gives
 the same iterates bit for bit.
+
+:func:`minimize_lbfgs_batched` (counterpart of ``minimize_lbfgs_batched``)
+runs B independent problems in one loop, each objective evaluation one
+batched pass for all lanes: the gang fits of ``fitMultiple`` and the
+CrossValidator. The JAX package's state layout is kept (circular
+``(B, history, p)`` history buffers and a per-lane pair count), and a lane
+that has converged or run out of iterations is frozen bit for bit while
+the others run on. The loop is driven from the host: one read of a
+``(B,)`` flag a round and one a halving round of the line search.
 """
 
 from __future__ import annotations
@@ -147,6 +156,164 @@ def minimize_lbfgs(
         w, f, g = w_new, f_new, g_new
         it += 1
     return LbfgsResult(w=w, f=f, n_iter=it, converged=converged)
+
+
+class LbfgsBatchedResult(NamedTuple):
+    w: torch.Tensor          # (B, p) per-lane solutions
+    f: torch.Tensor          # (B,) final objectives (incl. L1 term)
+    n_iter: torch.Tensor     # (B,) iterations each lane took
+    converged: torch.Tensor  # (B,) bool
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lane by lane dot products of two (B, p) tensors."""
+    return (a * b).sum(dim=-1)
+
+
+def _two_loop_batched(
+    g: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, k: torch.Tensor
+) -> torch.Tensor:
+    """The two-loop recursion H·g of every lane on circular buffers, the
+    JAX package's ``_two_loop`` mapped over lanes: ``S``/``Y`` are
+    (B, m, p), entry i of lane b is valid iff i < min(k[b], m), and lane b's
+    newest pair lives at (k[b] - 1) % m. Each lane reads its pairs newest
+    to oldest, then oldest to newest, as the solo recursion reads its
+    list; invalid entries contribute exact zeros."""
+    B, m, _ = S.shape
+    tiny = 1e-30
+    lanes = torch.arange(B, device=g.device)
+    n_valid = torch.clamp(k, max=m)
+    q = g
+    alphas = torch.zeros((B, m), dtype=g.dtype, device=g.device)
+    for i in range(m):
+        idx = (k - 1 - i) % m
+        valid = (i < n_valid).to(g.dtype)
+        s, y = S[lanes, idx], Y[lanes, idx]
+        rho = 1.0 / torch.clamp(_vdot(y, s), min=tiny)
+        alpha = rho * _vdot(s, q) * valid
+        q = q - alpha[:, None] * y
+        alphas[lanes, idx] = alpha
+    recent = (k - 1) % m
+    s_r, y_r = S[lanes, recent], Y[lanes, recent]
+    gamma = torch.where(
+        k > 0, _vdot(s_r, y_r) / torch.clamp(_vdot(y_r, y_r), min=tiny), torch.ones_like(alphas[:, 0])
+    )
+    r = gamma[:, None] * q
+    for i in range(m):
+        idx = (k - n_valid + i) % m  # oldest -> newest
+        valid = (i < n_valid).to(g.dtype)
+        s, y = S[lanes, idx], Y[lanes, idx]
+        rho = 1.0 / torch.clamp(_vdot(y, s), min=tiny)
+        beta = rho * _vdot(y, r)
+        r = r + s * ((alphas[lanes, idx] - beta) * valid)[:, None]
+    return r
+
+
+def minimize_lbfgs_batched(
+    fun: Callable[[torch.Tensor], torch.Tensor],
+    w0: torch.Tensor,
+    *,
+    max_iter: int,
+    tol: torch.Tensor,
+    l1_weights: Optional[torch.Tensor] = None,
+    history: int = 10,
+    max_ls: int = 30,
+) -> LbfgsBatchedResult:
+    """B independent :func:`minimize_lbfgs` problems in one loop.
+
+    ``fun`` is the batched smooth loss ``(B, p) -> (B,)``, lane b's value a
+    function of row b alone, so one backward pass with a ones cotangent
+    gives every lane's gradient: one forward and backward data pass for
+    all lanes. ``w0`` is (B, p), ``tol`` (B,); ``l1_weights`` (B, p), where
+    given, switches the whole call to OWL-QN (its sign fix is no identity
+    at l1 = 0, so plain lanes go in a call of their own).
+
+    A lane that converges or reaches ``max_iter`` is frozen: every update
+    is ``torch.where(active, new, old)``, so its ``w / f / g / S / Y / k``
+    stay bit for bit however long the other lanes run. Every pass keeps
+    all B lanes (a frozen lane's row is computed and discarded), so a
+    lane's arithmetic never depends on how many others are still running.
+    The Armijo line search is per lane: each halving round is one batched
+    pass, whose values only the lanes still searching take."""
+    dtype, device = w0.dtype, w0.device
+    B, p = w0.shape
+    use_l1 = l1_weights is not None
+    l1w = l1_weights if use_l1 else torch.zeros_like(w0)
+    tol = torch.as_tensor(tol, dtype=dtype, device=device)
+
+    def full_obj_parts(W: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-lane (L1-inclusive objective, smooth gradient), one shared
+        forward and backward pass."""
+        Wv = W.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = fun(Wv)
+            (g,) = torch.autograd.grad(f, Wv, grad_outputs=torch.ones_like(f))
+        return f.detach() + torch.abs(l1w * W).sum(dim=-1), g
+
+    w = w0.clone()
+    f, g = full_obj_parts(w)
+    S = torch.zeros((B, history, p), dtype=dtype, device=device)
+    Y = torch.zeros((B, history, p), dtype=dtype, device=device)
+    k = torch.zeros((B,), dtype=torch.int64, device=device)
+    it = torch.zeros((B,), dtype=torch.int64, device=device)
+    converged = torch.zeros((B,), dtype=torch.bool, device=device)
+    lanes = torch.arange(B, device=device)
+    c1 = 1e-4
+    while True:
+        # lanes still running this round; what a frozen lane computes below
+        # is discarded by the where-guards
+        active = ~converged & (it < max_iter)
+        if not bool(active.any()):
+            break
+        pg = _pseudo_gradient(w, g, l1w) if use_l1 else g
+        d = -_two_loop_batched(pg, S, Y, k)
+        if use_l1:
+            d = torch.where(d * pg < 0.0, d, torch.zeros_like(d))  # sign fix
+            xi = torch.where(w != 0.0, torch.sign(w), -torch.sign(pg))  # orthant
+        dir_deriv = _vdot(pg, d)
+        d_norm = torch.sqrt(_vdot(d, d))
+        t = torch.where(k == 0, 1.0 / torch.clamp(d_norm, min=1.0), torch.ones_like(d_norm))
+
+        def trial_point(tv: torch.Tensor) -> torch.Tensor:
+            w_t = w + tv[:, None] * d
+            if use_l1:
+                w_t = torch.where(w_t * xi < 0.0, torch.zeros_like(w_t), w_t)
+            return w_t
+
+        f_t, g_t = full_obj_parts(trial_point(t))
+        ok = f_t <= f + c1 * t * dir_deriv
+        n_try = torch.zeros((B,), dtype=torch.int64, device=device)
+        while True:
+            need = active & ~ok & (n_try < max_ls)
+            if not bool(need.any()):
+                break
+            t = torch.where(need, t * 0.5, t)
+            f_n, g_n = full_obj_parts(trial_point(t))
+            f_t = torch.where(need, f_n, f_t)
+            g_t = torch.where(need[:, None], g_n, g_t)
+            ok = torch.where(need, f_t <= f + c1 * t * dir_deriv, ok)
+            n_try = n_try + need.to(torch.int64)
+        w_new = trial_point(t)
+
+        s = w_new - w
+        yv = g_t - g
+        store = active & (_vdot(s, yv) > 1e-10)
+        idx = k % history
+        S[lanes, idx] = torch.where(store[:, None], s, S[lanes, idx])
+        Y[lanes, idx] = torch.where(store[:, None], yv, Y[lanes, idx])
+        k = torch.where(store, k + 1, k)
+
+        denom = torch.clamp(torch.maximum(torch.abs(f), torch.abs(f_t)), min=1.0)
+        rel_impr = (f - f_t) / denom
+        conv_now = (rel_impr <= tol) | (dir_deriv >= 0.0)
+        # the freeze: frozen lanes keep w / f / g (and S / Y / k through
+        # the store guard, which needs `active`) bit for bit
+        w = torch.where(active[:, None], w_new, w)
+        f = torch.where(active, f_t, f)
+        g = torch.where(active[:, None], g_t, g)
+        converged = torch.where(active, conv_now, converged)
+        it = it + active.to(torch.int64)
+    return LbfgsBatchedResult(w=w, f=f, n_iter=it, converged=converged)
 
 
 def minimize_lbfgs_host(

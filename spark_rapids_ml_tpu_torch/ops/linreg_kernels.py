@@ -187,6 +187,26 @@ def solve_normal(
     return _finish(stats, beta, std, safe, standardization)
 
 
+def _lipschitz_smooth(Gn: torch.Tensor) -> torch.Tensor:
+    """The smooth part's Lipschitz bound: 16 power iterations on ``G/n``
+    from the cos start vector (an all-ones start can be orthogonal to the
+    top eigenvector), times 1.01; the Frobenius norm, a sure bound, where
+    the iterate collapses."""
+    d = Gn.shape[0]
+    v = torch.cos(torch.arange(d, dtype=Gn.dtype, device=Gn.device) * 1.61803398875 + 0.5)
+    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+    for _ in range(16):
+        v = Gn @ v
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+    fro = torch.sqrt((Gn * Gn).sum())
+    L_pow = (v @ (Gn @ v)) / torch.clamp(v @ v, min=1e-30)
+    return torch.where(L_pow > 1e-6 * fro, L_pow * 1.01, fro)
+
+
+def _soft(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+
+
 def solve_elasticnet(
     stats: Dict[str, torch.Tensor],
     l1: float,
@@ -207,19 +227,7 @@ def solve_elasticnet(
     d = G.shape[0]
     Gn = G / n
     b = Xy / n
-
-    v = torch.cos(torch.arange(d, dtype=G.dtype, device=G.device) * 1.61803398875 + 0.5)
-    v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-    for _ in range(16):
-        v = Gn @ v
-        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-    fro = torch.sqrt((Gn * Gn).sum())
-    L_pow = (v @ (Gn @ v)) / torch.clamp(v @ v, min=1e-30)
-    L_smooth = torch.where(L_pow > 1e-6 * fro, L_pow * 1.01, fro)
-    L = L_smooth + l2 + 1e-12
-
-    def soft(x, t):
-        return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+    L = _lipschitz_smooth(Gn) + l2 + 1e-12
 
     # the momentum scalar and the stopping test in G's dtype, as in the JAX loop
     ft = _np_dtype(G.dtype).type
@@ -232,10 +240,63 @@ def solve_elasticnet(
     delta = ft(np.inf)
     while it < max_iter and delta > tol_g:
         grad = Gn @ z - b + l2 * z
-        beta_new = soft(z - grad / L, l1 / L)
+        beta_new = _soft(z - grad / L, l1 / L)
         t_new = ft(0.5) * (one + np.sqrt(one + ft(4.0) * t * t))
         z = beta_new + float((t - one) / t_new) * (beta_new - beta)
         delta = ft(torch.abs(beta_new - beta).max().item())
         beta, t, it = beta_new, t_new, it + 1
     beta, intercept = _finish(stats, beta, std, safe, standardization)
+    return beta, intercept, it
+
+
+def solve_elasticnet_batched(
+    stats: Dict[str, torch.Tensor],
+    l1: torch.Tensor,
+    l2: torch.Tensor,
+    *,
+    standardization: bool,
+    max_iter: int,
+    tol: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B FISTA solves over one shared quadratic form (the JAX package's
+    ``solve_elasticnet_batched``): ``l1`` / ``l2`` / ``tol`` are (B,) lane
+    tensors, the power iteration runs once and lane b takes ``L = L_smooth
+    + l2[b] + 1e-12``. The loop runs while any lane has ``it < max_iter and
+    delta > tol`` (one host read of that (B,) flag an iteration); a lane
+    that is done is frozen by ``torch.where(active, new, old)``, bit for
+    bit, as in :func:`.lbfgs.minimize_lbfgs_batched`. Returns
+    (coefficients (B, d), intercepts (B,), n_iter (B,))."""
+    n = stats["n"]
+    G, Xy, std, safe = _to_standardized(stats, standardization)
+    d = G.shape[0]
+    Gn = G / n
+    b = Xy / n
+    l1 = torch.as_tensor(l1, dtype=G.dtype, device=G.device)
+    l2 = torch.as_tensor(l2, dtype=G.dtype, device=G.device)
+    tol = torch.as_tensor(tol, dtype=G.dtype, device=G.device)
+    B = l1.shape[0]
+    L = _lipschitz_smooth(Gn) + l2 + 1e-12  # (B,)
+
+    beta = torch.zeros((B, d), dtype=G.dtype, device=G.device)
+    z = beta
+    t = torch.ones((B,), dtype=G.dtype, device=G.device)
+    it = torch.zeros((B,), dtype=torch.int64, device=G.device)
+    delta = torch.full((B,), float("inf"), dtype=G.dtype, device=G.device)
+    while True:
+        active = (it < max_iter) & (delta > tol)
+        if not bool(active.any()):
+            break
+        grad = z @ Gn.T + l2[:, None] * z - b[None, :]
+        beta_new = _soft(z - grad / L[:, None], (l1 / L)[:, None])
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        z_new = beta_new + ((t - 1.0) / t_new)[:, None] * (beta_new - beta)
+        delta_new = torch.abs(beta_new - beta).amax(dim=1)
+        beta = torch.where(active[:, None], beta_new, beta)
+        z = torch.where(active[:, None], z_new, z)
+        t = torch.where(active, t_new, t)
+        delta = torch.where(active, delta_new, delta)
+        it = it + active.to(torch.int64)
+    if standardization:
+        beta = torch.where((std > 0)[None, :], beta / safe[None, :], torch.zeros_like(beta))
+    intercept = stats["mean_y"] - beta @ stats["mean_x"]
     return beta, intercept, it

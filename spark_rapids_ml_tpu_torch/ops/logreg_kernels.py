@@ -15,6 +15,11 @@ K3 takes float32. A float64 fit (``float32_inputs=False``) takes
 :func:`make_fused_data_loss` before any kernel wrapper is called, as the
 JAX package's ``logreg_pallas_ok`` sends f64 to its XLA logits: the masked
 log-loss of the logits ``X Aᵀ + b`` in float64, differentiated by autograd.
+
+:func:`logreg_fit_batched` is the gang fit (the JAX package's
+``logreg_fit_batched``): B solves whose every evaluation shares one product
+of X with all lanes' coefficients, outside K3 (B binomial lanes are B
+sigmoids, not one softmax), with fold-masked lanes for the CrossValidator.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 
 from . import _build
 from .knn_kernels import TF32_BIAS, TF32_MASK
-from .lbfgs import minimize_lbfgs
+from .lbfgs import minimize_lbfgs, minimize_lbfgs_batched
 from .linalg import _check_cuda_f32, masked_mean, standardize_moments
 
 _I64, _P = ctypes.c_int64, ctypes.c_void_p
@@ -745,6 +750,144 @@ def logreg_fit(
         "intercept_": intercept,
         "n_iter": res.n_iter,
         "objective": res.f,
+    }
+
+
+def logreg_fit_batched(
+    X: torch.Tensor,
+    mask: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    n_classes: int,
+    multinomial: bool,
+    fit_intercept: bool,
+    standardization: bool,
+    l1: torch.Tensor,
+    l2: torch.Tensor,
+    use_l1: bool,
+    max_iter: int,
+    tol: torch.Tensor,
+    history: int = 10,
+    objective_dtype: str = "float32",
+    fold_id: Optional[torch.Tensor] = None,
+    lane_fold: Optional[torch.Tensor] = None,
+    n_folds: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """B :func:`logreg_fit` solves that share every data pass.
+
+    ``l1`` / ``l2`` / ``tol`` are (B,) lane tensors; everything else is
+    common to the gang, which is why the estimator splits its param maps
+    into static buckets. Each evaluation reads X once for all lanes: the
+    logits (n, B, K) are one product of (n, d) by (d, B·K), then the
+    masked log-loss of every lane, and autograd's backward pass reads X
+    once more for every lane's gradient.
+
+    Fold-masked lanes: with ``fold_id`` (n,) (each row's fold, padded like
+    ``mask``), ``lane_fold`` (B,) and ``n_folds``, lane b's row weight is
+    ``mask · (fold_id != lane_fold[b])``, and its standardization moments
+    are its fold's training rows' (one masked pass a fold). Without folds
+    the moments are the solo fit's shared ones.
+
+    Returns ``coef_`` (B, K, d), ``intercept_`` (B, K), and ``n_iter``,
+    ``objective`` and ``converged`` of shape (B,). The gang runs in X's
+    dtype (float32, or float64 under ``float32_inputs=False``)."""
+    if objective_dtype != "float32":
+        raise NotImplementedError(
+            f"objective_dtype={objective_dtype!r}: only float32 is ported"
+        )
+    dtype, device = X.dtype, X.device
+    n_rows, d = X.shape
+    l1 = torch.as_tensor(l1, dtype=dtype, device=device)
+    l2 = torch.as_tensor(l2, dtype=dtype, device=device)
+    tol = torch.as_tensor(tol, dtype=dtype, device=device)
+    B = l1.shape[0]
+    yf = y.to(dtype)
+
+    def moments(w: torch.Tensor):
+        if standardization:
+            mean, std, n = standardize_moments(X, w, ddof=1)
+            inv_std = torch.where(std > 0, 1.0 / std, torch.ones_like(std))
+        else:
+            mean, n = masked_mean(X, w)
+            inv_std = torch.ones((d,), dtype=dtype, device=device)
+        return mean, inv_std, n
+
+    if fold_id is not None:
+        if lane_fold is None or n_folds < 2:
+            raise ValueError("fold-masked lanes need lane_fold and n_folds >= 2")
+        fid = fold_id.to(device=device, dtype=torch.int64)
+        lane_fold = torch.as_tensor(lane_fold, dtype=torch.int64, device=device)
+        # fold f's lanes train on the rows with fold_id != f: one masked
+        # pass a fold, then gathered per lane
+        per_fold = [moments(mask * (fid != f).to(dtype)) for f in range(n_folds)]
+        lane_mean = torch.stack([m for m, _, _ in per_fold])[lane_fold]        # (B, d)
+        lane_inv_std = torch.stack([s for _, s, _ in per_fold])[lane_fold]    # (B, d)
+        lane_n = torch.stack([c for _, _, c in per_fold])[lane_fold]          # (B,)
+        wrow = mask[:, None] * (fid[:, None] != lane_fold[None, :]).to(dtype)  # (n, B)
+    else:
+        mean, inv_std, n = moments(mask)
+        lane_mean = mean.expand(B, d)
+        lane_inv_std = inv_std.expand(B, d)
+        lane_n = n.expand(B)
+        wrow = mask[:, None]
+    # the reference skips centering when fit_intercept=False
+    use_center = standardization and fit_intercept
+
+    K = n_classes if multinomial else 1
+    n_coef = K * d
+    p = n_coef + (K if fit_intercept else 0)
+
+    def unpack(W: torch.Tensor):
+        A = W[:, :n_coef].reshape(B, K, d)
+        b = W[:, n_coef:] if fit_intercept else torch.zeros((B, K), dtype=dtype, device=device)
+        return A, b
+
+    def to_original(A: torch.Tensor, b: torch.Tensor):
+        Aeff = A * lane_inv_std[:, None, :]
+        beff = b - torch.einsum("bkd,bd->bk", Aeff, lane_mean) if use_center else b
+        return Aeff, beff
+
+    coef_mask = torch.cat([
+        torch.ones((n_coef,), dtype=dtype, device=device),
+        torch.zeros((p - n_coef,), dtype=dtype, device=device),
+    ])
+    ysel_idx = y.to(torch.int64)[:, None, None].expand(n_rows, B, 1) if multinomial else None
+
+    def smooth_loss(W: torch.Tensor) -> torch.Tensor:
+        A, b = unpack(W)
+        Aeff, beff = to_original(A, b)
+        # the shared data pass: one product feeds all B lanes' logits. A
+        # plain matmul, no port of K3: K3 fuses one model's loss, and B
+        # binomial lanes are B sigmoids, not one softmax
+        logits = (X @ Aeff.reshape(B * K, d).T).reshape(n_rows, B, K) + beff[None, :, :]
+        if multinomial:
+            ll = torch.logsumexp(logits, dim=2) - torch.gather(logits, 2, ysel_idx)[:, :, 0]  # (n, B)
+        else:
+            z = logits[:, :, 0]
+            ll = torch.nn.functional.softplus(z) - yf[:, None] * z
+        data_loss = (ll * wrow).sum(dim=0) / lane_n  # (B,)
+        coefs = W * coef_mask[None, :]  # the penalty never touches intercepts
+        return data_loss + 0.5 * l2 * (coefs * coefs).sum(dim=-1)
+
+    res = minimize_lbfgs_batched(
+        smooth_loss,
+        torch.zeros((B, p), dtype=dtype, device=device),
+        max_iter=max_iter,
+        tol=tol,
+        l1_weights=l1[:, None] * coef_mask[None, :] if use_l1 else None,
+        history=history,
+    )
+    A, b = unpack(res.w)
+    coef, intercept = to_original(A, b)
+    if fit_intercept and K > 1:
+        # Spark centers multinomial intercepts
+        intercept = intercept - intercept.mean(dim=1, keepdim=True)
+    return {
+        "coef_": coef,
+        "intercept_": intercept,
+        "n_iter": res.n_iter,
+        "objective": res.f,
+        "converged": res.converged,
     }
 
 

@@ -107,7 +107,7 @@ SPEC: Dict[str, MetricSpec] = _registry(
     MetricSpec(
         "gang_dispatches", "counter",
         "Batched gang-fit device dispatches issued by "
-        "`core._TpuEstimator._gang_dispatch` (`TPUML_GANG_FIT`); one "
+        "`core._TpuEstimator._gang_dispatch` (`core.GANG_FIT`); one "
         "per static-bucket chunk.",
         legacy=True,
     ),

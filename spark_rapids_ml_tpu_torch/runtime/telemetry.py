@@ -1087,7 +1087,8 @@ def _ensure_hooks() -> None:
 def record_hbm_estimate(site: str, nbytes: float, device: Any = None) -> None:
     """File a budget's peak device-memory estimate (``site`` is, in the
     port, ``stream_stage``: the staged chunks and the staging ring's
-    page-locked buffers) next to the live bytes
+    page-locked buffers, or ``gang_fit``: a gang dispatch's lanes) next to
+    the live bytes
     ``torch.cuda.memory_allocated(device)`` reports (the current device
     where None; skipped without a card). No-op while nothing records, so
     budget resolution stays allocation-free by default."""

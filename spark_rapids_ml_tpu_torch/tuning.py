@@ -13,8 +13,17 @@ evaluates one param map at a time. The folds are the JAX package's
 Differences from the JAX package, by design:
 
 * ``TPUML_CV_FAILFAST`` is the module constant :data:`CV_FAILFAST`;
-* there is no gang branch: this is the JAX CV at ``TPUML_GANG_FIT=off``,
-  its default.
+* the gang branch reads ``core.GANG_FIT`` (the JAX package's
+  ``TPUML_GANG_FIT``), "off" by default, and a bad setting raises
+  ``core.GangFitConfigError`` (the JAX package's ``EnvSpecError``).
+
+With ``core.GANG_FIT`` on and a single-pass estimator whose gang takes
+fold-masked lanes (LogisticRegression), the CV first fits the whole folds
+× maps grid in gang dispatches over one copy of the rows
+(``_gang_cv_fit_multiple``), before the fold pool starts; each fold then
+takes its models from that grid and runs ``_combine`` and
+``_transformEvaluate`` as before. Where the estimator declines (gang off,
+no fold-masked gang, a streamed fit), the per-fold path runs unchanged.
 
 Each fold runs in the span ``cv.fold`` (``fold=``), the pool's threads in
 the caller's telemetry context; in the tolerant mode each failed
@@ -35,7 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .core import _Reader, _TpuEstimator, _TpuModel
+from .core import GangFitConfigError, _Reader, _TpuEstimator, _TpuModel
 from .data.dataframe import DataFrame, kfold
 from .evaluation import Evaluator
 from .params import Param, Params, TypeConverters, _mk
@@ -181,6 +190,23 @@ class CrossValidator(_CrossValidatorParams):
         # argmin, and shows as ±inf in avgMetrics
         worst = -np.inf if eva.isLargerBetter() else np.inf
 
+        # the gang: the whole folds × maps grid as fold-masked lanes over one
+        # copy of the rows (None: the estimator declines, and the per-fold
+        # path below runs unchanged). Before the pool starts: no device lock
+        gang_grid: Optional[List[List[_TpuModel]]] = None
+        if single_pass:
+            try:
+                gang_grid = est._gang_cv_fit_multiple(dataset, epm, n_folds, self.getSeed())
+            except GangFitConfigError:
+                raise  # a bad setting surfaces in either mode
+            except Exception:
+                if failfast:
+                    raise
+                self.logger.exception(
+                    "gang CV fit failed; falling back to the per-fold path (CV_FAILFAST=False)"
+                )
+                gang_grid = None
+
         def run_fold(i: int) -> Tuple[np.ndarray, Optional[List[_TpuModel]]]:
             with telemetry.span("cv.fold", fold=i):
                 return _run_fold(i)
@@ -189,9 +215,12 @@ class CrossValidator(_CrossValidatorParams):
             train, validation = folds[i]
             if single_pass:
                 try:
-                    with _FOLD_DEVICE_LOCK:
-                        # one data pass fits every param map
-                        models: List[_TpuModel] = [m for _, m in est.fitMultiple(train, epm)]
+                    if gang_grid is not None:
+                        models: List[_TpuModel] = gang_grid[i]
+                    else:
+                        with _FOLD_DEVICE_LOCK:
+                            # one data pass fits every param map
+                            models = [m for _, m in est.fitMultiple(train, epm)]
                     combined = type(models[0])._combine(models)
                     with _FOLD_DEVICE_LOCK:
                         # one evaluation pass for every candidate

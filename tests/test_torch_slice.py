@@ -236,7 +236,8 @@ def test_port_reads_no_tpuml_variable():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "spark_rapids_ml_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    for new in ("telemetry.py", "counters.py", "metricspec.py", "lockspec.py", "lockwitness.py", "profiling.py"):
+    for new in ("telemetry.py", "counters.py", "metricspec.py", "lockspec.py", "lockwitness.py", "profiling.py",
+                "lbfgs.py", "linreg_kernels.py", "logreg_kernels.py", "core.py", "tuning.py"):
         assert any(f.endswith(os.sep + new) for f in files), new
     for f in files:
         with open(f) as fh:
