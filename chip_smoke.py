@@ -368,6 +368,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bytes estimate; K1 and K3 launch (the gang's own objective is a plain
    product, no kernel) and no plain version runs: the ``gang`` path of the
    ``shifted_gram`` and ``logreg_loss_grad`` rows.
+9. resilience (u, ``phase_resilience``): faults, retry and preemption on
+   the first 1,572,864 host rows (12 chunks of 131,072), each step with
+   its settings (``runtime.retry.RETRIES`` / ``BACKOFF_MS``,
+   ``runtime.faults.FAULT_SPEC``, ``runtime.checkpoint.CKPT_DIR`` /
+   ``CKPT_EVERY``, ``core.GANG_FIT``, ``models.tree.RF_CHECK_FINITE``)
+   restored after it and a negative control: streamed PCA(k=16),
+   LogisticRegression(maxIter 3) and KMeans(k=1024, random, maxIter 2)
+   with injected allocator failures (chunks halved: two 65,536-row
+   launches of K1, K3 and K2 each) against their unfaulted fits, and K1,
+   K2 and K3 held at the 65,536-row half against their f64 plain versions
+   and timed there; a real out-of-memory error classified; a retried chunk
+   (bit for bit; without a budget the fault raises); the streamed
+   LogisticRegression (bit for bit) and KMeans preempted and resumed by
+   ``FitScheduler(quantum_ms=1)``, with the checkpoints' save and load
+   seconds; a GBTClassifier (131,072 x 256, 6 rounds, depth 8) preempted
+   at round 3 and resumed, predictions bit for bit; UMAP on the umap
+   path's 65,536 rows preempted at epoch 100 and resumed, the embedding
+   bit for bit; 4 LinearRegression and 4 LogisticRegression jobs ganged
+   through one ``_fit_coscheduled`` a class at ``GANG_FIT = "auto"``, each
+   lane within the JAX gang test's tolerances of its solo fit; a fleet of 4
+   tenants with one dispatch faulted (the others bit for bit their solo
+   fits) and drained; the forests' finite screen on and off. Its launches
+   are the ``resilience`` path of the rows (the halved chunks' in the
+   ``*_stream_half`` rows); no plain version runs on the card.
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -468,6 +492,13 @@ alone on TELEMETRY_ROWS rows made from ``--seed`` (fewer with a smaller
 is a probe of the gang phase (t): K1 and K3 alone built, the phase alone on
 TUNING_ROWS rows made from ``--seed`` (fewer with a smaller ``--rows``). It
 prints no result line.
+
+    python3 chip_smoke.py --resilience-only
+
+is a probe of the resilience phase (u): K1, K2, K3, K4, K5, K8, K9 and K10
+alone built, the phase alone on RESILIENCE_ROWS rows made from ``--seed``
+(fewer with a smaller ``--rows``) and the umap path's rows. It prints no
+result line.
 
     python3 chip_smoke.py --wire-only
 
@@ -6878,6 +6909,631 @@ def gang_probe(torch, args, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase (u): faults, retry and preemption
+# ---------------------------------------------------------------------------
+
+RESILIENCE_ROWS = 1_572_864
+RES_PCA_K = 16
+RES_LR_ITER = 3
+RES_KM_ITER = 2
+RES_GBT_ROUNDS = 6
+RES_GBT_PREEMPT_ROUND = 3
+# UMAP's epochs a checkpoint segment, and the segment boundary (0-based
+# fault-site hit) the preemption fires at: 50 x 2 = epoch 100 of 200
+RES_UMAP_EVERY = 50
+RES_UMAP_PREEMPT_SITE = 2
+RES_GANG_LR_REGS = (1e-4, 1e-3, 1e-2, 1e-1)
+RES_GANG_LIN_REGS = (0.01, 0.02, 0.05, 0.1)
+# the JAX package's tests/test_torch_streaming.py: a streamed PCA against
+# another f32 fit of the same rows (its attributes, components up to sign)
+RES_PCA_RTOL, RES_PCA_ATOL = 2e-4, 2e-5
+# tests/test_torch_streaming_logreg.py: a streamed LogisticRegression
+# against another f32 fit of the same rows
+RES_LR_RTOL, RES_LR_ATOL = 1e-3, 1e-4
+# the isolation fleet: tenants each with its own row slab (a pack key of its
+# own, so each dispatches solo), and the dispatch the fault fires at
+RES_FLEET_ROWS = 262_144
+RES_FLEET_FAULT = 1
+
+
+class _HeldJob:
+    """A fit job that only waits: holds the scheduler's dispatcher while
+    the jobs behind it queue up together (the JAX test's fake estimator's
+    surface)."""
+
+    num_workers = 1
+    _device = "cuda:0"
+
+    def __init__(self, delay_s):
+        self.delay_s = delay_s
+
+    def _get_input_columns(self):
+        return "features", None
+
+    def _require_label(self):
+        return False
+
+    def _get_streaming_fit_func(self, dataset):
+        return None
+
+    def fit(self, dataset):
+        time.sleep(self.delay_s)
+        return "held"
+
+
+def _pca_close(a, b):
+    """A streamed PCA against another fit of the same rows: the largest
+    ratio of |difference| to rtol·|b| + atol over mean_, components_ (up
+    to sign) and explained_variance_."""
+    worst = 0.0
+    for attr in ("mean_", "components_", "explained_variance_"):
+        x, y = np.asarray(getattr(a, attr), np.float64), np.asarray(getattr(b, attr), np.float64)
+        if attr == "components_":
+            x = x * np.sign((x * y).sum(axis=1, keepdims=True))
+        worst = max(worst, float((np.abs(x - y) / (RES_PCA_RTOL * np.abs(y) + RES_PCA_ATOL)).max()))
+    return worst
+
+
+def _lr_close(a, b):
+    x = np.append(np.asarray(a.coefficientMatrix, np.float64).ravel(), np.asarray(a.interceptVector, np.float64))
+    y = np.append(np.asarray(b.coefficientMatrix, np.float64).ravel(), np.asarray(b.interceptVector, np.float64))
+    return float((np.abs(x - y) / (RES_LR_RTOL * np.abs(y) + RES_LR_ATOL)).max())
+
+
+def _same_lr(a, b):
+    return (a.coefficientMatrix.tobytes() == b.coefficientMatrix.tobytes()
+            and a.interceptVector.tobytes() == b.interceptVector.tobytes())
+
+
+@contextlib.contextmanager
+def half_chunk_launches(st, lin, kk, lk, rows):
+    """While open: the launches of K1, K2 and K3 made by the streamed fold
+    steps on chunks of ``rows`` rows (a halved chunk), each counted around
+    its step, read as ``rec()``."""
+    counts = {"shifted_gram": 0, "lloyd_step": 0, "logreg_loss_grad": 0}
+    steps = {"gram2_step": (lin.shifted_gram, "shifted_gram"), "kmeans_chunk_step": (kk.lloyd_step, "lloyd_step"),
+             "logreg_chunk_vg_step": (lk.logreg_loss_grad, "logreg_loss_grad")}
+    reals = {name: getattr(st, name) for name in steps}
+
+    def counted(name, real):
+        wrapper, key = steps[name]
+
+        def step(acc, X, *a, **kw):
+            before = wrapper.launches
+            out = real(acc, X, *a, **kw)
+            if X.shape[0] == rows:
+                counts[key] += wrapper.launches - before
+            return out
+        return step
+
+    for name, real in reals.items():
+        setattr(st, name, counted(name, real))
+    try:
+        yield lambda: dict(counts)
+    finally:
+        for name, real in reals.items():
+            setattr(st, name, real)
+
+
+def phase_resilience(torch, X_host, y_host, X_umap, seed):
+    """(u) faults, retry and preemption on the first RESILIENCE_ROWS host
+    rows (12 chunks of STREAM_CHUNK_ROWS), with ``runtime.checkpoint.
+    CKPT_DIR`` a temporary directory where a step checkpoints; every
+    setting a step changes is restored after it. Steps, each held with a
+    negative control:
+
+    1. halving: ``runtime.retry.RETRIES = 2``, ``BACKOFF_MS = 1``,
+       ``runtime.faults.FAULT_SPEC = "ingest:chunk:1:oom"`` (and, for PCA
+       and LogisticRegression, a second ``oom`` at the second chunk of the
+       pass that launches their kernel, so K1 and K3 fold halves too):
+       streamed PCA(k=16), LogisticRegression(maxIter 3) and KMeans(k=1024,
+       random, maxIter 2) against their unfaulted fits (PCA and
+       LogisticRegression at the streamed tests' f32 tolerances; KMeans'
+       cost in the f32 band, >= KM_AGREE_MIN of its predictions equal),
+       ``chunk_halvings`` >= 1 each, two halved-chunk launches of each
+       kernel; K1, K2 and K3 held at the 65,536-row half against their f64
+       plain versions (with their controls) and timed there;
+    2. a real allocator failure (a tensor larger than the card) is
+       ``is_resource_exhausted``, an injected ``raise`` is not;
+    3. retry: ``"ingest:chunk:2:raise"`` at ``RETRIES = 2``: one retry, the
+       streamed PCA and LogisticRegression equal their unfaulted fits bit
+       for bit; at ``RETRIES = 0`` the fit raises ``InjectedFault``;
+    4. preemption: ``FitScheduler(quantum_ms=1)`` at ``CKPT_EVERY = 1`` on
+       the streamed LogisticRegression (bit for bit its unfaulted fit) and
+       KMeans (step 1's band): preemptions >= 1, resumes = preemptions =
+       ``resumed_fits``; the seconds of the checkpoint saves and loads;
+    5. GBT: the GBTClassifier rows (RF_ROWS x 256, depth 8, 128 bins) at
+       RES_GBT_ROUNDS rounds, ``"gbt:round:3:preempt"``: the fit raises
+       ``SimulatedPreemption``, the refit resumes from round 3, its
+       predictions equal the uninterrupted fit's bit for bit;
+    6. UMAP: the umap path's 65,536 rows (random init), CKPT_EVERY
+       RES_UMAP_EVERY epochs, preempted at the third segment boundary and
+       refitted: the embedding equals the uninterrupted fit's bit for bit;
+    7. the scheduler's gang and fault isolation at ``core.GANG_FIT =
+       "auto"``: 4 LinearRegression and 4 binomial LogisticRegression jobs
+       of one pack key each go through one ``_fit_coscheduled`` a class,
+       each lane against its solo fit at the JAX gang test's tolerances;
+       then a fleet of 4 tenants on their own row slabs with
+       ``"sched:dispatch:1:raise"``: the second tenant's future raises
+       ``InjectedFault``, the others equal their solo fits bit for bit; a
+       ``drain()`` resolves every future;
+    8. ``models.tree.RF_CHECK_FINITE``: on, a GBT transform batch with one
+       NaN raises ``ValueError``; off, the transform equals the unscreened
+       one bit for bit.
+
+    No plain version runs on the card. Returns ({kernels-line row:
+    launches}, the halved-chunk measurements by kernels-line row)."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import DataFrame, GBTClassifier, UMAP, core
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.feature import PCA
+    from spark_rapids_ml_tpu_torch.models import tree
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import knn_kernels as kn
+    from spark_rapids_ml_tpu_torch.ops import linalg as lin
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.ops import rf_kernels as rk
+    from spark_rapids_ml_tpu_torch.ops import streaming as st
+    from spark_rapids_ml_tpu_torch.ops import umap_kernels as uk
+    from spark_rapids_ml_tpu_torch.regression import LinearRegression
+    from spark_rapids_ml_tpu_torch.runtime import checkpoint as ckpt
+    from spark_rapids_ml_tpu_torch.runtime import counters, faults, retry
+    from spark_rapids_ml_tpu_torch.runtime.scheduler import FitScheduler
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    N, CH = min(RESILIENCE_ROWS, X_host.shape[0]), STREAM_CHUNK_ROWS
+    HALF = CH // 2
+    n_chunks = -(-N // CH)
+    X = np.ascontiguousarray(X_host[:N])
+    df = DataFrame({"features": X, "label": np.ascontiguousarray(y_host[:N])})
+    saved = {(retry, "RETRIES"): retry.RETRIES, (retry, "BACKOFF_MS"): retry.BACKOFF_MS,
+             (faults, "FAULT_SPEC"): faults.FAULT_SPEC, (ckpt, "CKPT_DIR"): ckpt.CKPT_DIR,
+             (ckpt, "CKPT_EVERY"): ckpt.CKPT_EVERY, (core, "GANG_FIT"): core.GANG_FIT,
+             (tree, "RF_CHECK_FINITE"): tree.RF_CHECK_FINITE}
+    wrappers = ((lin, "shifted_gram", "shifted_gram_plain"), (kk, "lloyd_step", "lloyd_step_plain"),
+                (lk, "logreg_loss_grad", "logreg_loss_grad_plain"))
+    # every launch and plain call of the phase's fits, the streamed fits'
+    # apart from the resident ones
+    total = {"stream": {}, "resident": {}}
+    steps = {}
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+
+    def settings(**kw):
+        for (mod, name), v in saved.items():
+            setattr(mod, name, kw.get(name, v))
+        faults.reset_faults()
+
+    def counted(fn, kind="stream"):
+        """``fn()`` with its K1/K2/K3 launches and plain calls added to the
+        phase's ``kind`` totals; (result, seconds, counter delta)."""
+        base = counters.snapshot()
+        with launch_counts(wrappers) as rec:
+            out, s = _timed(torch, fn)
+        for k, v in rec().items():
+            total[kind][k] = total[kind].get(k, 0) + v
+        return out, s, counters.delta_since(base)
+
+    def step_done(name, t0, **row):
+        steps[name] = time.perf_counter() - t0
+        emit({"phase": "resilience", "step": name, "s": steps[name], **row})
+
+    pca = lambda: PCA(k=RES_PCA_K, streaming=True, stream_chunk_rows=CH)  # noqa: E731
+    logreg = lambda: LogisticRegression(maxIter=RES_LR_ITER, streaming=True, stream_chunk_rows=CH)  # noqa: E731
+    kmeans = lambda: KMeans(k=E2E_CENTRES, initMode="random", maxIter=RES_KM_ITER, seed=seed,  # noqa: E731
+                            streaming=True, stream_chunk_rows=CH)
+    try:
+        # ---- 1. halving ------------------------------------------------
+        t0 = time.perf_counter()
+        settings()
+        clean, clean_s = {}, {}
+        for name, f in (("pca", pca), ("logreg", logreg), ("kmeans", kmeans)):
+            clean[name], clean_s[name], _ = counted(lambda f=f: f().fit(df))
+        # the hit of the second chunk of the pass with the kernel: PCA's
+        # gram pass after its moments pass (n + 2 hits with one halving);
+        # LogisticRegression's first objective pass after its moments and
+        # variance passes (2n + 2 hits); KMeans' first Lloyd pass
+        specs = {"pca": f"ingest:chunk:1:oom,ingest:chunk:{n_chunks + 3}:oom",
+                 "logreg": f"ingest:chunk:1:oom,ingest:chunk:{2 * n_chunks + 3}:oom",
+                 "kmeans": "ingest:chunk:1:oom"}
+        kernel_of = {"pca": "shifted_gram", "logreg": "logreg_loss_grad", "kmeans": "lloyd_step"}
+        halved, half_launches, rows = {}, {}, {}
+        for name, make in (("pca", pca), ("logreg", logreg), ("kmeans", kmeans)):
+            settings(RETRIES=2, BACKOFF_MS=1.0, FAULT_SPEC=specs[name])
+            with half_chunk_launches(st, lin, kk, lk, HALF) as rec:
+                halved[name], s, delta = counted(lambda m=make: m().fit(df))
+            half_launches[name] = rec()
+            rows[name] = {"spec": specs[name], "s": s, "clean_s": clean_s[name], "counters": delta,
+                          "half_chunk_launches": half_launches[name],
+                          "chunks": halved[name]._ingest_report["chunks"],
+                          "passes": halved[name]._ingest_report["passes"]}
+        rows["pca"]["worst_over_tol"] = _pca_close(halved["pca"], clean["pca"])
+        rows["logreg"]["worst_over_tol"] = _lr_close(halved["logreg"], clean["logreg"])
+        agree = prediction_agreement(torch, X, (halved["kmeans"], clean["kmeans"]))
+        km_cost = [halved["kmeans"].trainingCost, clean["kmeans"].trainingCost]
+        km_tol = U32 * (TOL_TERMS + TOL_WALK * N ** 0.5) * km_cost[1]
+        rows["kmeans"].update(agree, cost=km_cost, cost_tol=km_tol)
+        # the controls: an unfaulted fit of another config against the same
+        # clean fit must miss the same tolerance
+        ctl_pca = _pca_close(counted(lambda: PCA(k=RES_PCA_K, streaming=True, stream_chunk_rows=CH // 4).fit(
+            DataFrame({"features": X[: N - CH]})))[0], clean["pca"])
+        ctl_lr = _lr_close(counted(lambda: LogisticRegression(maxIter=RES_LR_ITER, regParam=0.1, streaming=True,
+                                                              stream_chunk_rows=CH).fit(df))[0], clean["logreg"])
+        settings()
+        # the kernels at the halved chunk against their f64 plain versions
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 61)
+        Xh = torch.from_numpy(X[CH:CH + HALF]).to(dev)
+        ones = torch.ones(HALF, device=dev)
+        yh = torch.from_numpy(np.ascontiguousarray(y_host[CH:CH + HALF])).to(dev)
+        C = Xh[torch.randint(0, HALF, (E2E_CENTRES,), generator=g, device=dev)] + 0.1 * torch.randn(
+            E2E_CENTRES, E2E_D, generator=g, device=dev)
+        kern = {"shifted_gram_stream_half": check_shifted_gram(torch, lin, Xh, ones, STREAM_K2_REPS, control=True),
+                "lloyd_step_stream_half": check_lloyd_step(torch, kk, Xh, ones, C, STREAM_K2_REPS, control=True,
+                                                           timer=median_device_ms),
+                "logreg_loss_grad_stream_half": check_logreg(torch, lk, Xh, yh, ones, 1, STREAM_K3_REPS, seed,
+                                                             control=True, strict=True)}
+        for key, r in kern.items():
+            emit({"phase": "kernels", "kernel": key, **{k: v for k, v in r.items() if k != "controls"},
+                  "controls": [(c["control"], c["err_over_tol"]) for c in r.get("controls", [])]})
+        del Xh, ones, yh, C
+        torch.cuda.empty_cache()
+        step_done("halving", t0, fits=rows, control_pca_worst_over_tol=ctl_pca,
+                  control_logreg_worst_over_tol=ctl_lr)
+        for name in rows:
+            check(rows[name]["counters"].get("chunk_halvings", 0) >= 1,
+                  f"resilience halving: {name} counted no halving: {rows[name]['counters']}")
+            check(half_launches[name][kernel_of[name]] == 2,
+                  f"resilience halving: {name} launched {kernel_of[name]} {half_launches[name]} times at the "
+                  f"{HALF}-row half, not 2")
+        check(rows["pca"]["worst_over_tol"] <= 1.0 < ctl_pca and rows["logreg"]["worst_over_tol"] <= 1.0 < ctl_lr,
+              f"resilience halving: PCA {rows['pca']['worst_over_tol']} (control {ctl_pca}), LogisticRegression "
+              f"{rows['logreg']['worst_over_tol']} (control {ctl_lr}) against the unfaulted fits")
+        check(agree["agreement"] >= KM_AGREE_MIN and abs(km_cost[0] - km_cost[1]) <= km_tol,
+              f"resilience halving: KMeans {rows['kmeans']}")
+
+        # ---- 2. a real allocator failure ----------------------------------
+        t0 = time.perf_counter()
+        too_big = torch.cuda.get_device_properties(dev).total_memory * 2 // 4
+        try:
+            torch.empty(int(too_big), dtype=torch.float32, device=dev)
+            real = None
+        except Exception as e:  # noqa: BLE001 - what the allocator raises is the point
+            real = e
+        torch.cuda.empty_cache()
+        injected = faults.InjectedFault("injected fault at ingest:chunk[2]")
+        row = {"raised": type(real).__name__, "message": str(real)[:120],
+               "is_resource_exhausted": real is not None and retry.is_resource_exhausted(real),
+               "injected_raise_is_resource_exhausted": retry.is_resource_exhausted(injected)}
+        step_done("allocator", t0, **row)
+        check(row["is_resource_exhausted"] and not row["injected_raise_is_resource_exhausted"],
+              f"resilience allocator: {row}")
+
+        # ---- 3. retry --------------------------------------------------------
+        t0 = time.perf_counter()
+        rows = {}
+        for name, make in (("pca", pca), ("logreg", logreg)):
+            settings(RETRIES=2, BACKOFF_MS=1.0, FAULT_SPEC="ingest:chunk:2:raise")
+            m, s, delta = counted(lambda mk=make: mk().fit(df))
+            same = (all(getattr(m, a).tobytes() == getattr(clean["pca"], a).tobytes()
+                        for a in ("mean_", "components_", "explained_variance_"))
+                    if name == "pca" else _same_lr(m, clean["logreg"]))
+            # the control: the budget without the fault moves no count
+            settings(RETRIES=2, BACKOFF_MS=1.0)
+            _, _, ctl = counted(lambda mk=make: mk().fit(df))
+            settings(FAULT_SPEC="ingest:chunk:2:raise")
+            try:
+                counted(lambda mk=make: mk().fit(df))
+                raised = None
+            except faults.InjectedFault as e:
+                raised = type(e).__name__
+            rows[name] = {"s": s, "counters": delta, "bit_for_bit": same, "control_counters": ctl,
+                          "no_budget_raised": raised}
+        settings()
+        step_done("retry", t0, fits=rows)
+        for name, r in rows.items():
+            check(r["counters"] == {"retries": 1} and r["bit_for_bit"] and r["control_counters"] == {}
+                  and r["no_budget_raised"] == "InjectedFault", f"resilience retry: {name} {r}")
+
+        # ---- 4. preemption through the scheduler ------------------------------
+        t0 = time.perf_counter()
+        io = {"save_s": 0.0, "saves": 0, "load_s": 0.0, "loads": 0}
+        real_save, real_load = ckpt.FitCheckpointer.save, ckpt.FitCheckpointer.load
+
+        def timed_save(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return real_save(self, *a, **kw)
+            finally:
+                io["save_s"] += time.perf_counter() - t
+                io["saves"] += 1
+
+        def timed_load(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return real_load(self, *a, **kw)
+            finally:
+                if self.enabled:
+                    io["load_s"] += time.perf_counter() - t
+                    io["loads"] += 1
+
+        rows = {}
+        ckpt.FitCheckpointer.save, ckpt.FitCheckpointer.load = timed_save, timed_load
+        try:
+            for name, make in (("logreg", logreg), ("kmeans", kmeans)):
+                settings(CKPT_DIR=os.path.join(ckpt_root, "sched_" + name), CKPT_EVERY=1)
+                with FitScheduler(quantum_ms=1.0) as sched:
+                    m, s, delta = counted(lambda mk=make: sched.fit(mk(), df, tenant=name, timeout=600))
+                    stats = sched.stats()
+                rows[name] = {"s": s, "stats": stats, "counters": delta, "resilience_report": m._resilience_report,
+                              "files_left": os.listdir(ckpt.CKPT_DIR)}
+                if name == "logreg":
+                    rows[name]["bit_for_bit"] = _same_lr(m, clean["logreg"])
+                else:
+                    a = prediction_agreement(torch, X, (m, clean["kmeans"]))
+                    rows[name].update(a, cost=[m.trainingCost, clean["kmeans"].trainingCost])
+            # the control: without a checkpoint directory a quantum preempts nothing
+            settings()
+            with FitScheduler(quantum_ms=1.0) as sched:
+                counted(lambda: sched.fit(logreg(), df, timeout=600))
+                ctl = sched.stats()["preemptions"]
+        finally:
+            ckpt.FitCheckpointer.save, ckpt.FitCheckpointer.load = real_save, real_load
+        step_done("preempt", t0, fits=rows, checkpoint_io=io, control_preemptions=ctl)
+        for name, r in rows.items():
+            st_ = r["stats"]
+            check(st_["preemptions"] >= 1 and st_["resumes"] == st_["preemptions"] and st_["dispatches"] == 1
+                  and r["counters"].get("resumed_fits", 0) == st_["resumes"] and not r["files_left"],
+                  f"resilience preempt: {name} {r}")
+        check(rows["logreg"]["bit_for_bit"], "resilience preempt: the resumed LogisticRegression differs from its "
+                                             "uninterrupted twin")
+        check(rows["kmeans"]["agreement"] >= KM_AGREE_MIN
+              and abs(rows["kmeans"]["cost"][0] - rows["kmeans"]["cost"][1]) <= km_tol,
+              f"resilience preempt: KMeans {rows['kmeans']}")
+        check(ctl == 0, f"resilience preempt: {ctl} preemptions without a checkpoint directory")
+        del clean, halved
+
+        # ---- 5. GBT interrupted and resumed ---------------------------------
+        t0 = time.perf_counter()
+        Xg, yg = X_host[:RF_ROWS], y_host[:RF_ROWS]
+        gdf, feats = DataFrame({"features": Xg, "label": yg}), DataFrame({"features": Xg})
+        gbt = lambda rounds=RES_GBT_ROUNDS: GBTClassifier(maxIter=rounds, maxDepth=GBT_DEPTH,  # noqa: E731
+                                                          maxBins=RF_BINS, seed=seed)
+        rf0 = _rf_counts(rk)
+        settings()
+        g_clean, s_clean, _ = counted(lambda: gbt().fit(gdf))
+        p_clean = g_clean.transform(feats).column("prediction")
+        settings(CKPT_DIR=os.path.join(ckpt_root, "gbt"), CKPT_EVERY=1,
+                 FAULT_SPEC=f"gbt:round:{RES_GBT_PREEMPT_ROUND}:preempt")
+        try:
+            counted(lambda: gbt().fit(gdf))
+            preempted = None
+        except faults.SimulatedPreemption as e:
+            preempted = type(e).__name__
+        faults.FAULT_SPEC = ""
+        faults.reset_faults()
+        g_res, s_res, delta = counted(lambda: gbt().fit(gdf))
+        out_res = g_res.transform(feats)
+        p_res = out_res.column("prediction")
+        # the bins engine (K8) on the resumed model: the packed engine's columns
+        t_bins = bins_engine_equal(torch, g_res, Xg, out_res, "resilience gbt")
+        left = os.listdir(ckpt.CKPT_DIR)
+        settings()
+        # the control: the resumed model with the trees of its last round
+        # negated (what a resume that lost them would predict) predicts otherwise
+        attrs = dict(g_res._model_attributes)
+        lv = np.array(attrs["leaf_values"])
+        lv[-1] = -lv[-1]
+        attrs["leaf_values"] = lv
+        ctl = type(g_res)(**attrs)
+        g_res._copyValues(ctl)
+        p_ctl = ctl.transform(feats).column("prediction")
+        rf1 = _rf_counts(rk)
+        gbt_launches = {k: rf1[k] - rf0[k] for k in rf1}
+        row = {"rows": Xg.shape[0], "rounds": RES_GBT_ROUNDS, "preempted": preempted, "counters": delta,
+               "fit_s": s_clean, "resumed_fit_s": s_res, "predictions_equal": bool(np.array_equal(p_res, p_clean)),
+               "tables_equal": all(g_res._model_attributes[k].tobytes() == g_clean._model_attributes[k].tobytes()
+                                   for k in ("features", "threshold_bins", "leaf_values")),
+               "bins_engine_s": t_bins, "control_rows_differing": int((p_ctl != p_clean).sum()),
+               "files_left": left, "launches": gbt_launches}
+        step_done("gbt", t0, **row)
+        check(preempted == "SimulatedPreemption" and delta == {"resumed_fits": 1,
+                                                               "resumed_from": RES_GBT_PREEMPT_ROUND}
+              and row["predictions_equal"] and row["tables_equal"] and row["control_rows_differing"] > 0
+              and not left, f"resilience gbt: {row}")
+        for name in ("node_hist_batched", "packed_forest_eval", "packed_byte_gather_many"):
+            check(gbt_launches[name] > 0, f"resilience gbt: kernel {name} was not launched")
+
+        # ---- 8. the finite screen (on the GBT above) -----------------------
+        t0 = time.perf_counter()
+        Xn = np.array(Xg[:4096])
+        Xn[17, 5] = np.nan
+        part = DataFrame({"features": Xg[:4096]})
+        settings(RF_CHECK_FINITE=True)
+        try:
+            g_clean.transform(DataFrame({"features": Xn}))
+            screened = None
+        except ValueError as e:
+            screened = str(e)[:80]
+        on = g_clean.transform(part)
+        settings()
+        off = g_clean.transform(part)
+        # the control: off, the NaN batch goes through (to bin 0)
+        nan_off = g_clean.transform(DataFrame({"features": Xn})).column("prediction")
+        same = all(np.asarray(on.column(c)).tobytes() == np.asarray(off.column(c)).tobytes()
+                   for c in g_clean._out_cols())
+        step_done("finite_screen", t0, raised=screened, screened_equals_unscreened=same,
+                  nan_batch_unscreened_rows=int(nan_off.shape[0]))
+        check(screened is not None and same and nan_off.shape == (4096,), "resilience finite screen: on raised "
+              f"{screened}, on equals off {same}")
+        rf2 = _rf_counts(rk)
+        gbt_launches = {k: rf2[k] - rf0[k] for k in rf2}
+        del g_clean, g_res, ctl
+
+        # ---- 6. UMAP interrupted and resumed --------------------------------
+        t0 = time.perf_counter()
+        udf = DataFrame({"features": X_umap})
+        umap = lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=42, init="random")  # noqa: E731
+        k4_0, k10_0 = kn.knn_topk_pass.launches, uk.sgd_epoch_step.launches
+        settings()
+        u_clean, s_clean, _ = counted(lambda: umap().fit(udf))
+        settings(CKPT_DIR=os.path.join(ckpt_root, "umap"), CKPT_EVERY=RES_UMAP_EVERY,
+                 FAULT_SPEC=f"sgd:epoch:{RES_UMAP_PREEMPT_SITE}:preempt")
+        try:
+            counted(lambda: umap().fit(udf))
+            preempted = None
+        except faults.SimulatedPreemption as e:
+            preempted = type(e).__name__
+        faults.FAULT_SPEC = ""
+        faults.reset_faults()
+        u_res, s_res, delta = counted(lambda: umap().fit(udf))
+        left = os.listdir(ckpt.CKPT_DIR)
+        settings()
+        at = RES_UMAP_EVERY * RES_UMAP_PREEMPT_SITE
+        # the control: another random_state's embedding differs
+        u_ctl = counted(lambda: UMAP(n_neighbors=UMAP_NEIGHBORS, random_state=43, init="random").fit(udf))[0]
+        umap_launches = {"knn_topk": kn.knn_topk_pass.launches - k4_0,
+                         "sgd_epoch_step": uk.sgd_epoch_step.launches - k10_0}
+        emb_equal = u_res.embedding_.tobytes() == u_clean.embedding_.tobytes()
+        row = {"rows": X_umap.shape[0], "n_epochs": u_clean._fit_report["n_epochs"], "preempted": preempted,
+               "counters": delta, "fit_s": s_clean, "resumed_fit_s": s_res, "embedding_equal": emb_equal,
+               "max_abs_diff": float(np.abs(u_res.embedding_ - u_clean.embedding_).max()),
+               "control_equal": u_ctl.embedding_.tobytes() == u_clean.embedding_.tobytes(), "files_left": left,
+               "launches": umap_launches}
+        if not emb_equal:
+            row["trustworthiness_resumed"] = _trust_sample(torch, X_umap, u_res.embedding_, seed)
+        step_done("umap", t0, **row)
+        check(preempted == "SimulatedPreemption" and delta == {"resumed_fits": 1, "resumed_from": at}
+              and emb_equal and not row["control_equal"] and not left, f"resilience umap: {row}")
+        del u_clean, u_res, u_ctl
+
+        # ---- 7. the gang and fault isolation --------------------------------
+        t0 = time.perf_counter()
+        Xd = torch.from_numpy(X).to(dev)
+        yb, _, yr = tuning_labels(torch, Xd, seed)
+        del Xd
+        torch.cuda.empty_cache()
+        gdf_b = DataFrame({"features": X, "label": yb})
+        gdf_r = DataFrame({"features": X, "label": yr})
+        lr_of = lambda r: LogisticRegression(maxIter=GANG_LR_ITER, regParam=r)  # noqa: E731
+        lin_of = lambda r: LinearRegression(maxIter=GANG_LIN_ITER, tol=GANG_LIN_TOL, regParam=r,  # noqa: E731
+                                            elasticNetParam=0.5)
+        solo_lr = [counted(lambda r=r: lr_of(r).fit(gdf_b), "resident")[0] for r in RES_GANG_LR_REGS]
+        solo_lin = [counted(lambda r=r: lin_of(r).fit(gdf_r), "resident")[0] for r in RES_GANG_LIN_REGS]
+        gangs = {}
+        reals = {cls: cls.__dict__.get("_fit_coscheduled") for cls in (LogisticRegression, LinearRegression)}
+
+        def spy_for(cls):
+            real = cls._fit_coscheduled
+
+            def spy(self, dataset, estimators):
+                gangs.setdefault(cls.__name__, []).append(len(estimators))
+                return real(self, dataset, estimators)
+            return spy
+
+        for cls in reals:
+            cls._fit_coscheduled = spy_for(cls)
+        settings(GANG_FIT="auto")
+        try:
+            with FitScheduler() as sched:
+                def gang_run():
+                    held = sched.submit(_HeldJob(1.0), object())
+                    f_lr = [sched.submit(lr_of(r), gdf_b, tenant=f"lr{i}") for i, r in enumerate(RES_GANG_LR_REGS)]
+                    f_lin = [sched.submit(lin_of(r), gdf_r, tenant=f"lin{i}")
+                             for i, r in enumerate(RES_GANG_LIN_REGS)]
+                    held.result(timeout=60)
+                    return [f.result(timeout=600) for f in f_lr], [f.result(timeout=600) for f in f_lin]
+                (g_lr, g_lin), s_gang, _ = counted(gang_run, "resident")
+                gang_stats = sched.stats()
+        finally:
+            for cls, real in reals.items():
+                if real is None:
+                    del cls._fit_coscheduled
+                else:
+                    cls._fit_coscheduled = real
+            settings()
+        hold_lr = gang_hold(solo_lr, g_lr)
+        hold_lin = gang_hold(solo_lin, g_lin, "coefficients", GANG_LIN_RTOL, GANG_LIN_ATOL, iters=False)
+        # the control: a lane against the solo fit of another regParam
+        ctl_lr = gang_hold([solo_lr[3]], [g_lr[1]])[0]
+        # the fleet: 4 tenants on their own slabs, the second dispatch faulted
+        slab = min(RES_FLEET_ROWS, N // 4)
+        slabs = [DataFrame({"features": X[i * slab:(i + 1) * slab],
+                            "label": (yb if i % 2 else yr)[i * slab:(i + 1) * slab]}) for i in range(4)]
+        fleet = [(lambda: lin_of(0.01)) if i % 2 == 0 else (lambda: lr_of(1e-2)) for i in range(4)]
+        solo_fleet = [counted(lambda i=i: fleet[i]().fit(slabs[i]), "resident")[0] for i in range(4)]
+        settings(FAULT_SPEC=f"sched:dispatch:{RES_FLEET_FAULT}:raise")
+        sched = FitScheduler()
+        futs = [sched.submit(fleet[i](), slabs[i], tenant=f"t{i}") for i in range(4)]
+        late = [sched.submit(_HeldJob(0.05), object(), tenant="late") for _ in range(2)]
+        drained, t_drain, _ = counted(lambda: sched.drain(timeout=600), "resident")
+        settings()
+        outcome = []
+        for i, f in enumerate(futs):
+            try:
+                m = f.result(timeout=1)
+                outcome.append("equal" if np.asarray(m.coefficients).tobytes() == np.asarray(
+                    solo_fleet[i].coefficients).tobytes() else "differs")
+            except faults.InjectedFault:
+                outcome.append("InjectedFault")
+        late_done = [f.done() and f.exception() is None for f in late]
+        row = {"rows": N, "gang_s": s_gang, "coscheduled": gangs, "gang_stats": gang_stats,
+               "logreg_lanes": hold_lr, "linreg_lanes": hold_lin, "control_lane": ctl_lr,
+               "gang_reports": [m._fit_report.get("gang_lanes") for m in g_lr + g_lin],
+               "fleet_rows": slab, "fleet": outcome, "drain": drained, "drain_s": t_drain,
+               "late_jobs_done": late_done}
+        step_done("gang_isolation", t0, **row)
+        check(gangs == {"LogisticRegression": [4], "LinearRegression": [4]},
+              f"resilience gang: _fit_coscheduled calls {gangs}")
+        check(all(h["held"] for h in hold_lr + hold_lin) and not ctl_lr["held"]
+              and all(r == 4 for r in row["gang_reports"]), f"resilience gang: lanes {row}")
+        check(outcome == ["equal" if i != RES_FLEET_FAULT else "InjectedFault" for i in range(4)]
+              and drained == {"drained": True, "aborted": 0} and all(late_done), f"resilience isolation: {row}")
+    finally:
+        settings()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    ts, tr = total["stream"], total["resident"]
+    plain = {f"{kind}:{k}": v for kind in total for k, v in total[kind].items() if k.endswith("_plain") and v}
+    half = {"shifted_gram_stream_half": half_launches["pca"]["shifted_gram"],
+            "lloyd_step_stream_half": half_launches["kmeans"]["lloyd_step"],
+            "logreg_loss_grad_stream_half": half_launches["logreg"]["logreg_loss_grad"]}
+    # each launch in one kernels-line row: the halved chunks' in theirs,
+    # the streamed fits' other K2 and K3 launches in the streamed chunk
+    # rows (k = 1,024; the rows kernel), K1's and the resident fits' in
+    # the main rows
+    launches = {"shifted_gram": ts.get("shifted_gram", 0) + tr.get("shifted_gram", 0)
+                - half["shifted_gram_stream_half"],
+                f"lloyd_step_stream_k{E2E_CENTRES}": ts.get("lloyd_step", 0) - half["lloyd_step_stream_half"],
+                "lloyd_step": tr.get("lloyd_step", 0),
+                "logreg_loss_grad_stream_rows": ts.get("logreg_loss_grad", 0) - half["logreg_loss_grad_stream_half"],
+                "logreg_loss_grad": tr.get("logreg_loss_grad", 0), **half,
+                **{k: v for k, v in gbt_launches.items() if v}, **umap_launches}
+    launches = {k: v for k, v in launches.items() if v}
+    emit({"phase": "resilience", "check": "done", "rows": N, "chunks_a_pass": n_chunks, "steps_s": steps,
+          "launches": launches, "fit_launches": total, "plain_calls": plain,
+          "s": time.perf_counter() - t_phase})
+    check(not plain, f"resilience: plain versions ran on the card: {plain}")
+    return launches, kern
+
+
+def resilience_probe(torch, args, dev) -> int:
+    """Phase (u) alone, on min(``--rows``, RESILIENCE_ROWS) rows made from
+    ``--seed`` (and the umap path's UMAP_ROWS rows)."""
+    t0 = time.perf_counter()
+    n = min(args.rows, RESILIENCE_ROWS)
+    X, y = make_data(torch, n, n, args.seed, dev)
+    X_host, y_host = X.cpu().numpy(), y.cpu().numpy()
+    del X, y
+    torch.cuda.empty_cache()
+    launches, _ = phase_resilience(torch, X_host, y_host, make_umap_data(UMAP_ROWS, args.seed), args.seed)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -7861,7 +8517,7 @@ def umap_paths(torch, X_umap, X_cluster, seed) -> dict:
 
 def k10_entries(kern, by_path) -> list:
     """The ``kernels``-line entries of K10: its STEP epilogue's instance
-    for C = 2 at the umap fit shape (the umap path's launches), its
+    for C = 2 at the umap fit shape (the umap and resilience paths' launches), its
     generic instance at the umap_cluster shape (C = 10: that path's
     launches), the C = 2 instance at the umap_ivf fit's and transform's
     own shapes (that path's launches at each) and its ROWS epilogue at the
@@ -7869,7 +8525,7 @@ def k10_entries(kern, by_path) -> list:
     transform shapes' numbers are in ``extra_shapes``."""
     step = by_path["sgd_epoch_step"]
     ivf_fit, ivf_tr = kern["sgd_epoch_umap_ivf"], kern["sgd_epoch_umap_ivf_transform"]
-    rows = [("umap_sgd_epoch", "sgd_epoch", "", {p: step[p] for p in ("umap",) if p in step}),
+    rows = [("umap_sgd_epoch", "sgd_epoch", "", {p: step[p] for p in ("umap", "resilience") if p in step}),
             ("umap_sgd_epoch_generic", "sgd_epoch_cluster", "", {p: step[p] for p in ("umap_cluster",) if p in step}),
             ("umap_sgd_epoch_ivf", "sgd_epoch_umap_ivf", "", {"umap_ivf": ivf_fit["launches"]}),
             ("umap_sgd_epoch_ivf_transform", "sgd_epoch_umap_ivf_transform", "", {"umap_ivf": ivf_tr["launches"]}),
@@ -8347,6 +9003,9 @@ def main() -> int:
     ap.add_argument("--gang-only", action="store_true",
                     help="a probe: build K1 and K3 alone and run only the gang phase (t) on min(--rows, "
                          "TUNING_ROWS) rows (prints no result line)")
+    ap.add_argument("--resilience-only", action="store_true",
+                    help="a probe: build K1, K2, K3, K4, K5, K8, K9 and K10 alone and run only the resilience phase "
+                         "(u) on min(--rows, RESILIENCE_ROWS) rows (prints no result line)")
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
@@ -8387,6 +9046,8 @@ def main() -> int:
                            else ["shifted_gram"] if args.linreg_only
                            else ["shifted_gram", "logreg_loss_grad", "rf_hist", "rf_traverse"] if args.tuning_only
                            else ["shifted_gram", "logreg_loss_grad"] if args.gang_only
+                           else ["shifted_gram", "lloyd_step", "logreg_loss_grad", "knn_topk", "rf_hist",
+                                 "rf_byte_gather", "rf_traverse", "umap_sgd_epoch"] if args.resilience_only
                            else ["shifted_gram", "logreg_loss_grad", "lloyd_step"] if (
                                args.stream_only or args.wire_only or args.f64_only or args.telemetry_only)
                            else _build.SOURCES)
@@ -8430,6 +9091,8 @@ def main() -> int:
         return telemetry_probe(torch, args, dev)
     if args.gang_only:
         return gang_probe(torch, args, dev)
+    if args.resilience_only:
+        return resilience_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -8523,6 +9186,8 @@ def main() -> int:
         by_path.setdefault(row, {})["telemetry"] = count
     for row, count in phase_gang(torch, X_host, args.seed).items():
         by_path.setdefault(row, {})["gang"] = count
+    resilience_launches, res_kern = phase_resilience(torch, X_host, y_host, X_umap, args.seed)
+    kern.update(res_kern)
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
@@ -8551,9 +9216,12 @@ def main() -> int:
         for path, sub in (("rf_card_vs_cpu", rf_subset), ("gbt_card_vs_cpu", gbt_subset)):
             if sub[name]:
                 by_path[name][path] = sub[name]
-    # the tuning phase's launches, each kernel's in its main-shape row
+    # the tuning and resilience phases' launches, each kernel's in its
+    # main-shape row (the resilience phase's halved chunks in their own)
     for row, count in tuning_launches.items():
         by_path.setdefault(row, {})["tuning"] = count
+    for row, count in resilience_launches.items():
+        by_path.setdefault(row, {})["resilience"] = count
 
     b = kern["packed_forest_eval"]
     kern["packed_traverse"] = {**{k: b[k] for k in ("rows", "trees", "t_pad", "d_pad", "words", "depth", "k1", "k2")},
@@ -8662,6 +9330,19 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("bound_f32_ms", "general_ms") if k in r},
             "shape": {k: r[k] for k in ("n", "d", "K")}})
+    # K1, K2 and K3 at the resilience phase's halved chunk (65,536 x 256):
+    # the launches of the halved pieces of its streamed fits
+    for name, src, rep in (("shifted_gram_stream_half", "shifted_gram", "shifted_gram"),
+                           ("lloyd_step_stream_half", "lloyd_step", "lloyd_step"),
+                           ("logreg_loss_grad_stream_half", "logreg_loss_grad", "logreg_loss_grad")):
+        r = kern[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"spark_rapids_ml_tpu_torch/csrc/{src}.cu",
+            "replaces": sources[rep][0], "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("bound_f32_ms", "variant") if k in r},
+            "shape": {k: r[k] for k in ("n", "d", "k", "K") if k in r}})
     extra = {"shifted_gram_sqrt_w": kern["shifted_gram_sqrt_w"], "shifted_gram_wide": kern["shifted_gram_wide"],
              "shifted_gram_stream_chunk": k1_chunk,
              "lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],

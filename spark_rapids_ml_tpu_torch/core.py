@@ -658,8 +658,22 @@ class _TpuEstimator(Params, _TpuParams):
         with telemetry.span(f"{type(self).__name__}.fit"):
             return self._fit_lanes_traced(dataset, paramMaps)
 
+    def _fit_coscheduled(self, dataset: DataFrame, estimators: List["_TpuEstimator"]) -> List["_TpuModel"]:
+        """The fit scheduler's gang entry (``runtime.scheduler``): several
+        ready estimator instances of this class fitted over one shared
+        dataset in one pass — one preprocess, each lane with its own
+        estimator's params, the gang's batched lanes where ``GANG_FIT`` is on
+        and the estimator has a gang path, the sequential loop otherwise.
+        Returns the models in the order of ``estimators``. A direct ``fit``
+        or ``fitMultiple`` never takes this entry."""
+        with telemetry.span(f"{type(self).__name__}.fit", coscheduled=len(estimators)):
+            return self._fit_lanes_traced(dataset, None, coscheduled=estimators)
+
     def _fit_lanes_traced(
-        self, dataset: DataFrame, paramMaps: Optional[List[Dict[Any, Any]]]
+        self,
+        dataset: DataFrame,
+        paramMaps: Optional[List[Dict[Any, Any]]],
+        coscheduled: Optional[List["_TpuEstimator"]] = None,
     ) -> List["_TpuModel"]:
         from .ops.streaming import last_ingest_report, reset_ingest_report
 
@@ -681,14 +695,18 @@ class _TpuEstimator(Params, _TpuParams):
             ):
                 inputs = self._pre_process_data(dataset)
             fit_func = self._get_fit_func(dataset)
-        estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
+        if coscheduled is not None:
+            # the scheduler's gang: the lanes are ready estimator instances
+            # (each tenant's own object), not param maps over self
+            estimators = list(coscheduled)
+        else:
+            estimators = [self] if paramMaps is None else [self._with_params(pm) for pm in paramMaps]
         param_sets = [dict(est._tpu_params) for est in estimators]
         # the gang: lanes that share a static bucket in one batched solve
         # over the resident rows (GANG_FIT, off by default, so the loop
         # below is today's path); a lane it declines takes the loop. The
-        # JAX package's scheduler entry (_fit_coscheduled) and autotune
-        # collection around the gang are not ported (ROADMAP queue 1 items
-        # 7b and 7c).
+        # JAX package's autotune collection around the gang is not ported
+        # (ROADMAP queue 1 item 7c).
         gang_results: Dict[int, Dict[str, Any]] = {}
         gang_reports: Dict[int, Dict[str, Any]] = {}
         gang_deltas: Dict[int, Dict[str, int]] = {}

@@ -20,6 +20,16 @@ without bin tables). Param mapping, defaults, the model surface
 ``predict``/``predictProbability``/``predictRaw``) and the saved
 attributes, ``packed_*`` included, are the JAX package's.
 
+A GBT fit checkpoints its boosting loop where ``runtime.checkpoint.
+CKPT_DIR`` is set (the margins and the committed trees every ``CKPT_EVERY``
+rounds) and a refit of the same identity resumes there; each round is a
+``gbt:round`` fault site (``runtime.faults``) and yields to the fit
+scheduler after it (``runtime.scheduler.preempt_point``). The draws are a
+function of the absolute tree index, so a resumed fit grows the trees of
+the uninterrupted one. :data:`GBT_ROUND_LOG_EVERY` logs the training loss
+every that many rounds; :data:`RF_CHECK_FINITE` screens every transform
+batch for NaN/Inf.
+
 A port fit and a JAX fit with the same ``seed`` grow different forests
 when they draw: the port draws its bootstrap weights and feature subsets
 from ``torch.Generator``s (``ops.tree_kernels.TorchDraws``). Without
@@ -38,7 +48,7 @@ import torch
 
 from ..core import FitFunc, FitInputs, _TpuEstimatorSupervised, _TpuModel, _features, _resolve_feature_matrix
 from ..data.dataframe import DataFrame
-from ..ops.gbt_kernels import GBTConfig, gbt_round
+from ..ops.gbt_kernels import GBTConfig, gbt_loss, gbt_round
 from ..ops.tree_kernels import (
     ForestConfig,
     PackedForest,
@@ -71,7 +81,19 @@ from ..params import (
     TypeConverters,
     _mk,
 )
+from ..runtime import counters
+from ..runtime.checkpoint import FitCheckpointer, array_digest
+from ..runtime.faults import fault_site
+from ..runtime.scheduler import preempt_point
 from ..utils.platform import resolve_device
+
+# the JAX package's TPUML_RF_CHECK_FINITE: screen every forest/GBT
+# transform batch for NaN/Inf (a host pass a batch; binize sends NaN to
+# bin 0 otherwise)
+RF_CHECK_FINITE = False
+# the JAX package's TPUML_GBT_ROUND_LOG_EVERY: log the GBT training loss
+# every that many rounds (0: never; each is a reduction and a host read)
+GBT_ROUND_LOG_EVERY = 0
 
 _MAX_SUPPORTED_DEPTH = 18  # full binary layout: 2^(d+1)-1 nodes per tree
 # deepest forest the packed layout holds (k2 <= 6 below k1 <= 8)
@@ -80,6 +102,8 @@ _MAX_PACKED_DEPTH = 14
 _ENGINE_MODES = ("auto", "packed", "bins", "legacy")
 # key of the fit-stage seconds in a fit's result (not a model attribute)
 _FIT_REPORT = "_fit_report"
+# the tree tables of a GBT round (and of its checkpoint)
+_GBT_TABLES = ("feature", "threshold_bin", "leaf_stats", "gain", "values")
 
 
 class _Float32Only:
@@ -497,11 +521,20 @@ class _ForestModelBase(_Float32Only, _TpuModel):
 
     def _binizer(self, device: torch.device) -> Callable[[np.ndarray], torch.Tensor]:
         """Per-batch quantizer (the edges moved once), rows padded with bin
-        0 to a multiple of 4 features (word packing)."""
+        0 to a multiple of 4 features (word packing). With
+        :data:`RF_CHECK_FINITE` on, a batch holding NaN or Inf raises (the
+        finite-input contract; binize sends NaN to bin 0)."""
         edges = torch.from_numpy(np.asarray(self._model_attributes["bin_edges"], dtype=np.float32)).to(device)
         d_pad = -(-edges.shape[0] // 4) * 4
 
         def binz(Xb: np.ndarray) -> torch.Tensor:
+            # read a batch at a time, so the setting holds for a model
+            # whose transform closure is already cached
+            if RF_CHECK_FINITE and not np.isfinite(np.asarray(Xb)).all():
+                raise ValueError(
+                    "RandomForest transform batch contains NaN/Inf "
+                    "(finite-input contract, models.tree.RF_CHECK_FINITE=True)"
+                )
             return binize(torch.from_numpy(Xb).to(device), edges, d_pad=d_pad)
 
         return binz
@@ -1121,19 +1154,53 @@ class _GBTEstimator(_GBTClass, _Float32Only, _TpuEstimatorSupervised, _GBTParams
             )
             margins = torch.from_numpy(init).to(inputs.device).expand(bins.shape[0], n_v).contiguous()
             draws = TorchDraws(seed)
+            log_every = int(GBT_ROUND_LOG_EVERY)
+            # checkpoint/resume over the boosting loop, with the JAX
+            # package's identity: the draws are a function of the absolute
+            # tree index and the f32 margins round-trip through .npz bit
+            # for bit, so a resumed fit grows the uninterrupted fit's trees
+            # (the identity is built only where checkpointing is on)
+            ckpt = FitCheckpointer.from_settings("gbt", lambda: {
+                "loss": loss, "n_rounds": n_rounds, "lr": lr, "max_depth": max_depth, "n_bins": n_bins,
+                "d": d, "n_rows": inputs.n_rows, "seed": seed,
+                "edges": array_digest(edges_np), "init": array_digest(init),
+            })
 
             t_quant = time.perf_counter()
             outs: List[Dict[str, torch.Tensor]] = []
-            for r in range(n_rounds):
+            r0 = 0
+            resumed = ckpt.load() if ckpt.enabled else None
+            if resumed is not None:
+                r0, saved, _ = resumed
+                margins = torch.from_numpy(saved["margins"]).to(inputs.device)
+                # the committed trees ride as one entry ahead of the new rounds'
+                outs.append({k: torch.from_numpy(saved[k]).to(inputs.device) for k in _GBT_TABLES})
+                counters.bump("resumed_fits")
+                counters.note("resumed_from", r0)
+                self.logger.info("GBT resume: restored %d/%d committed rounds", r0, n_rounds)
+            for r in range(r0, n_rounds):
+                fault_site("gbt:round")
                 out = gbt_round(
                     bins, inputs.mask, inputs.y, margins, cfg=cfg,
                     trees=[r * n_out + j for j in range(n_out)], draws=draws,
                 )
                 margins = out.pop("margins")
                 outs.append(out)
+                if ckpt.enabled:
+                    def _snapshot() -> Dict[str, np.ndarray]:
+                        return {"margins": margins.cpu().numpy(),
+                                **{k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in _GBT_TABLES}}
+
+                    if (r + 1) % ckpt.every == 0:
+                        ckpt.save(r + 1, _snapshot())
+                    preempt_point(ckpt, r + 1, _snapshot)
+                if log_every and (r + 1) % log_every == 0:
+                    lv = float(gbt_loss(inputs.y, margins, inputs.mask, loss=loss))
+                    self.logger.info("GBT round %d/%d: train %s loss %.6f", r + 1, n_rounds, loss, lv)
             # one host copy per table after the loop: the rounds depend on
             # each other through the margins, not through these copies
-            tables = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+            tables = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in _GBT_TABLES}
+            ckpt.clear()
             t_boost = time.perf_counter()
             feat = tables["feature"].astype(np.int32)
             thr_bin = tables["threshold_bin"].astype(np.int32)

@@ -20,7 +20,17 @@ once a model. Telemetry: the fit's root span ``UMAP.fit`` with its
 ``umap.fit.graph`` / ``.init`` / ``.sgd`` stages, and ``umap.ivf_build``
 (``nlist=``) around the transform index's one build; the fit's
 ``runtime.counters`` delta is the model's ``_resilience_report``.
-Checkpoint/resume and fault sites are not ported.
+
+Checkpoint/resume: where ``runtime.checkpoint.CKPT_DIR`` is set (or an
+``sgd:epoch`` fault is pending in ``runtime.faults.FAULT_SPEC``) the SGD
+walks its epochs in segments of ``CKPT_EVERY`` (else 1), each an
+``sgd:epoch`` fault site, saving after each the embedding, the epoch
+cursor, the epoch generator's state and the hash seed, then yielding to
+the fit scheduler where its quantum has run out
+(``runtime.scheduler.preempt_point``). A refit of the same identity (the
+JAX package's, with the port's engine name) restores all four and takes
+the uninterrupted walk's epochs. Without either setting the fit is one
+unsegmented walk, as before.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from ..ops.umap_kernels import (
     build_row_adjacency,
     categorical_simplicial_set_intersection,
     default_n_epochs,
+    draw_seed_base,
     find_ab_params,
     fuzzy_simplicial_set,
     membership_strengths,
@@ -47,8 +58,60 @@ from ..ops.umap_kernels import (
 )
 from ..params import HasFeaturesCol, HasFeaturesCols, HasLabelCol, HasOutputCol, TypeConverters, _mk
 from ..runtime import counters, telemetry
+from ..runtime.checkpoint import FitCheckpointer, array_digest
+from ..runtime.faults import fault_sites_active
+from ..runtime.scheduler import preempt_point
 from ..utils.platform import resolve_device
 from ..utils.profiling import StageTimer
+
+
+def _sgd_engine(device: torch.device) -> str:
+    """The SGD engine of a fit on ``device``: K10 on a card, its plain
+    version on the CPU."""
+    return "cuda" if device.type == "cuda" else "plain"
+
+
+def _sgd_segmented(emb0: torch.Tensor, sgd_args: tuple, sgd_kwargs: Dict[str, Any],
+                   ckpt: FitCheckpointer) -> torch.Tensor:
+    """The fit's SGD: with the checkpointer on, in segments of
+    ``ckpt.every`` epochs; with it off, in segments of 1 where an
+    ``sgd:epoch`` fault is pending, else unsegmented. Each segment starts
+    at an ``sgd:epoch`` fault site and ends with a save and a preempt
+    point: the embedding and, as the walk's cursor, the epochs done, the
+    epoch generator's state and the hash seed. A committed checkpoint
+    restores all four and the walk goes on from its epoch, so the result
+    equals the unsegmented walk's; the unsegmented walk is ``umap_sgd``'s
+    own, its one seed draw included."""
+    gen = sgd_args[-1]
+    start, emb = 0, emb0
+    resumed = ckpt.load()
+    if resumed is not None:
+        start, arrays, extra = resumed
+        emb = torch.from_numpy(arrays["embedding"]).to(emb0.device)
+        gen.set_state(torch.from_numpy(arrays["generator"]))
+        seed_base = int(extra["seed_base"])
+        counters.bump("resumed_fits")
+        counters.note("resumed_from", start)
+    else:
+        seed_base = draw_seed_base(gen, emb0.device)
+
+    def boundary(e: int, e_emb: torch.Tensor) -> None:
+        def state() -> Dict[str, np.ndarray]:
+            return {"embedding": e_emb.cpu().numpy(), "generator": gen.get_state().numpy()}
+
+        extra = {"seed_base": seed_base}
+        if ckpt.enabled and e % ckpt.every == 0:
+            ckpt.save(e, state(), extra)
+        preempt_point(ckpt, e, state, extra)
+
+    if ckpt.enabled:
+        segment = ckpt.every
+    else:
+        segment = 1 if fault_sites_active("sgd:epoch") else 0
+    out = umap_sgd(emb, emb, *sgd_args, start_epoch=start, seed_base=seed_base,
+                   segment=segment, on_segment=boundary, **sgd_kwargs)
+    ckpt.clear()
+    return out
 
 
 def knn_brute(X: torch.Tensor, Xq: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -289,16 +352,23 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
             emb_d = torch.from_numpy(emb0).to(device)
-            emb = umap_sgd(
-                emb_d, emb_d,
-                torch.from_numpy(row_heads).to(device), torch.from_numpy(tails_pad).to(device),
-                torch.from_numpy(p_pad).to(device), gen,
-                n_epochs=n_epochs, a=float(a), b=float(b),
-                gamma=float(tp.get("repulsion_strength", 1.0)),
-                initial_alpha=float(tp.get("learning_rate", 1.0)),
-                negative_sample_rate=int(tp.get("negative_sample_rate", 5)),
-                self_table=True,
-            ).cpu().numpy()
+            gamma_v = float(tp.get("repulsion_strength", 1.0))
+            alpha_v = float(tp.get("learning_rate", 1.0))
+            neg_rate = int(tp.get("negative_sample_rate", 5))
+            sgd_args = (torch.from_numpy(row_heads).to(device), torch.from_numpy(tails_pad).to(device),
+                        torch.from_numpy(p_pad).to(device), gen)
+            sgd_kwargs = dict(n_epochs=n_epochs, a=float(a), b=float(b), gamma=gamma_v, initial_alpha=alpha_v,
+                              negative_sample_rate=neg_rate, self_table=True)
+            # checkpoint identity: everything the epoch sequence depends
+            # on, array inputs content-digested (the JAX package's keys);
+            # built only where checkpointing is on
+            ckpt = FitCheckpointer.from_settings("umap", lambda: {
+                "seed": seed, "n_epochs": n_epochs, "a": float(a), "b": float(b), "gamma": gamma_v,
+                "alpha": alpha_v, "neg": neg_rate, "engine": _sgd_engine(device), "n": n, "n_comp": n_comp,
+                "emb0": array_digest(emb0), "row_heads": array_digest(row_heads),
+                "tails": array_digest(tails_pad), "p": array_digest(p_pad),
+            })
+            emb = _sgd_segmented(emb_d, sgd_args, sgd_kwargs, ckpt).cpu().numpy()
         stages = dict(timer.totals)
         timer.log_summary(self.logger)
 
@@ -314,7 +384,7 @@ class UMAP(UMAPClass, _TpuEstimator, _UMAPParams):
             "init_seconds": stages["init"],
             "sgd_seconds": stages["sgd"],
             "epoch_ms": stages["sgd"] / max(n_epochs, 1) * 1e3,
-            "sgd_engine": "cuda" if device.type == "cuda" else "plain",
+            "sgd_engine": _sgd_engine(device),
             "graph_engine": graph_engine,
             "rows": int(tails_pad.shape[0]),
             "n_epochs": n_epochs,

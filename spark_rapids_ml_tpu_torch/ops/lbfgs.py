@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from ..runtime import counters
+from ..runtime.faults import fault_site
+from ..runtime.scheduler import preempt_point
 
 
 class LbfgsResult(NamedTuple):
@@ -340,8 +342,11 @@ def minimize_lbfgs_host(
     deterministic given the carry, so the resumed walk takes the
     uninterrupted walk's iterates, and bumps ``resumed_fits`` and notes
     ``resumed_from`` (``runtime.counters``). The files are cleared at the
-    end. The JAX package's fault site and preempt point are not ported
-    (ROADMAP queue 1 item 7b)."""
+    end. Each iteration is an ``sgd:epoch`` fault site
+    (``runtime.faults``), and after each checkpoint the loop yields to the
+    fit scheduler where its quantum has run out
+    (``runtime.scheduler.preempt_point``: a forced save at that iteration,
+    then ``FitPreempted``)."""
     w = np.asarray(w0, dtype=np.float64)
     p = w.shape[0]
     use_l1 = l1_weights is not None
@@ -377,6 +382,7 @@ def minimize_lbfgs_host(
     else:
         f, g = full_obj(w)
     while it < max_iter and not converged:
+        fault_site("sgd:epoch")
         pg = pseudo_grad(w, g) if use_l1 else g
         # two-loop recursion over the (oldest -> newest) history
         q = pg.copy()
@@ -433,12 +439,13 @@ def minimize_lbfgs_host(
         w, f, g = w_new, f_t, g_t
         it += 1
         if checkpointer is not None:
-            checkpointer.maybe_save(
-                it,
-                {"w": w, "g": g, "S": np.stack(S) if S else np.zeros((0, p)),
-                 "Y": np.stack(Y) if Y else np.zeros((0, p))},
-                {"f": f, "converged": bool(converged)},
-            )
+            def state():
+                return {"w": w, "g": g, "S": np.stack(S) if S else np.zeros((0, p)),
+                        "Y": np.stack(Y) if Y else np.zeros((0, p))}
+
+            extra = {"f": f, "converged": bool(converged)}
+            checkpointer.maybe_save(it, state(), extra)
+            preempt_point(checkpointer, it, state, extra)
     if checkpointer is not None:
         checkpointer.clear()
     return LbfgsResult(w=w, f=float(f), n_iter=int(it), converged=bool(converged))

@@ -79,9 +79,17 @@ gauge ``resumed_from`` on a resumed Lloyd. ``wire_release_errors`` has no
 site: the StreamGuard releases a chunk by dropping its references (the
 caching allocator reuses the memory), which cannot fail.
 
-Not ported (ROADMAP): the retry budget and chunk halving of
-``stage_chunks`` (item 7b, with ``retries`` / ``chunk_halvings``), fault
-sites, preempt points, the ops plane (item 7d) and autotune consults (the
+Faults and retries (``runtime.faults`` / ``runtime.retry``, inert by
+default): ``put_chunk`` is the ``ingest:chunk`` fault site; with a retry
+budget (``runtime.retry.RETRIES`` > 0) a pass stages its chunks serially
+through :func:`stage_chunks` instead of the staging ring, where an
+allocator failure halves the chunk (``chunk_halvings``) and any other
+failure is retried on the backoff schedule (``retries``). The streamed
+Lloyd's iterations are ``sgd:epoch`` fault sites, and it yields to the fit
+scheduler (``runtime.scheduler.preempt_point``) after each checkpoint, as
+``minimize_lbfgs_host`` does.
+
+Not ported (ROADMAP): the ops plane (item 7d) and autotune consults (the
 wire's among them, item 7c), per-host file sharding, the blocked (mp) Gram
 and the cross-process sums of partials and label summaries (the identity
 on one process).
@@ -102,6 +110,9 @@ import torch
 from ..data.chunks import Chunk, ChunkSource
 from ..parallel.mesh import _np_dtype, _torch_dtype, pinned_ring
 from ..runtime import counters, telemetry
+from ..runtime.faults import SimulatedPreemption, fault_site
+from ..runtime.retry import backoff_schedule, is_resource_exhausted, resolve_backoff_ms, resolve_retries
+from ..runtime.scheduler import preempt_point
 from ..utils.logging import get_logger
 from .kmeans_kernels import chunk_stats, min_sq_dists
 from .lbfgs import minimize_lbfgs_host
@@ -308,6 +319,7 @@ _AUTO_INT8_TOL = 2e-2
 _AUTO_F16_TOL = 2e-3
 
 _WIRE_LOGGER = get_logger("streaming.wire")
+_RES_LOGGER = get_logger("streaming.resilience")
 
 
 def _quantize_int8(x: np.ndarray, n_valid: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -451,6 +463,7 @@ def put_chunk(
     a reader on another stream must wait (:func:`iter_device_chunks` does).
     ``_h2d`` is the pair of timing events around the copies, ``_bytes`` the
     host bytes moved, ``_encode_s`` the host seconds of the encoding."""
+    fault_site("ingest:chunk")
     np_dtype = _np_dtype(dtype)
     t0 = time.perf_counter()
     x_host, scale, offset = _encode(np.asarray(chunk.X), chunk.n_valid, wire, np_dtype)
@@ -516,13 +529,79 @@ def _await_chunk(dev: Dict[str, Any], stream: Optional[torch.cuda.Stream]) -> No
             dev[k].record_stream(stream)
 
 
+def _split_chunk(chunk: Chunk, row_mult: int = 1) -> Optional[Tuple[Chunk, Chunk]]:
+    """Split a chunk into two row slabs, each a multiple of ``row_mult``
+    rows (1 on one card: the JAX package's dp mesh size), each with its
+    sliced ``n_valid``, labels and weights. None when the chunk is already
+    at the minimum splittable size."""
+    rows = chunk.X.shape[0]
+    if rows < 2 * row_mult or rows % row_mult != 0:
+        return None
+    half = max((rows // 2 // row_mult) * row_mult, row_mult)
+
+    def slab(lo: int, hi: int) -> Chunk:
+        return Chunk(
+            X=chunk.X[lo:hi],
+            n_valid=int(np.clip(chunk.n_valid - lo, 0, hi - lo)),
+            y=None if chunk.y is None else chunk.y[lo:hi],
+            w=None if chunk.w is None else chunk.w[lo:hi],
+        )
+
+    return slab(0, half), slab(half, rows)
+
+
 def stage_chunks(chunk: Chunk, device: torch.device, dtype: torch.dtype = torch.float32, *,
                  need_y: bool = True, need_w: bool = True, wire: str = "f32"):
-    """Stage ``chunk`` on ``device``: yields one ``(chunk, dev)`` pair (the
-    JAX package's retry budget and chunk halving are not ported)."""
-    with telemetry.span("stream.stage", rows=chunk.X.shape[0]):
-        dev = put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
-    yield chunk, dev
+    """Stage ``chunk`` on ``device``, degrading under failure. Yields
+    ``(piece, dev)`` pairs: normally one, the whole chunk. With a retry
+    budget (``runtime.retry.RETRIES`` > 0):
+
+    - an allocator failure (``is_resource_exhausted``: the caching
+      allocator's out-of-memory error or an injected ``oom``) halves the
+      piece and stages the halves, recursively down to one row; the
+      ``chunk_halvings`` counter counts each split;
+    - any other failure is retried on the backoff schedule (``retries``)
+      until the budget is spent, then raised;
+    - ``SimulatedPreemption`` is terminal, never absorbed.
+
+    With no budget this is one ``put_chunk`` call. Every fold downstream is
+    a sum over rows, so the halves fold to the sums of the whole chunk (up
+    to the order of the f32 additions); each half carries its own mask."""
+    budget = resolve_retries()
+    if budget <= 0:
+        with telemetry.span("stream.stage", rows=chunk.X.shape[0]):
+            dev = put_chunk(chunk, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
+        yield chunk, dev
+        return
+    delays = backoff_schedule(budget, resolve_backoff_ms())
+    attempts = 0
+    pending = [chunk]
+    while pending:
+        piece = pending[0]
+        try:
+            with telemetry.span("stream.stage", rows=piece.X.shape[0]):
+                dev = put_chunk(piece, device, dtype, need_y=need_y, need_w=need_w, wire=wire)
+        except SimulatedPreemption:
+            raise
+        except Exception as exc:
+            if is_resource_exhausted(exc):
+                halves = _split_chunk(piece)
+                if halves is not None:
+                    counters.bump("chunk_halvings")
+                    _RES_LOGGER.warning("chunk staging hit an allocator failure (%s); halving %d rows -> 2 x "
+                                        "%d-row slabs", exc, piece.X.shape[0], halves[0].X.shape[0])
+                    pending[0:1] = list(halves)
+                    continue
+            if attempts >= budget:
+                raise
+            counters.bump("retries")
+            _RES_LOGGER.warning("chunk staging failed (attempt %d/%d): %s — retrying in %.0f ms",
+                                attempts + 1, budget + 1, exc, delays[attempts])
+            time.sleep(delays[attempts] / 1000.0)
+            attempts += 1
+            continue
+        pending.pop(0)
+        yield piece, dev
 
 
 def _staged_chunks(chunks, device: torch.device, dtype: torch.dtype, *, need_y: bool, need_w: bool,
@@ -601,7 +680,9 @@ def iter_device_chunks(
             telemetry.record_hbm_estimate(
                 "stream_stage", float(first.X.nbytes) * float(max(1, _STAGE_DEPTH)) + pinned, device)
         chunks = iter(()) if first is None else itertools.chain([first], it)
-        if _STAGE_DEPTH > 0:
+        # under a retry budget the chunks stage serially, each through the
+        # retry and halving loop of stage_chunks, as in the JAX package
+        if _STAGE_DEPTH > 0 and resolve_retries() <= 0:
             staged = _staged_chunks(chunks, device, dtype, need_y=need_y, need_w=need_w, wire=kind,
                                     depth=_STAGE_DEPTH)
         else:
@@ -1034,9 +1115,11 @@ def streamed_kmeans_lloyd(
     where given); a final ``cost`` pass at the last centres follows.
     Returns ``(centers, cost, n_iter)`` as host values.
 
-    ``checkpointer`` (a ``runtime.FitCheckpointer``, or None) snapshots the
-    centres and the last shift after each iteration; a refit resumes from
-    the last committed iteration (Lloyd is deterministic given the
+    Each iteration is an ``sgd:epoch`` fault site. ``checkpointer`` (a
+    ``runtime.FitCheckpointer``, or None) snapshots the centres and the
+    last shift after each iteration, then yields to the fit scheduler
+    where its quantum has run out (``runtime.scheduler.preempt_point``);
+    a refit resumes from the last committed iteration (Lloyd is deterministic given the
     centres, so it walks the same centres and stops at the same iteration;
     ``shifts`` then holds the resumed iterations' only) and clears the
     files after the final cost pass."""
@@ -1070,6 +1153,7 @@ def streamed_kmeans_lloyd(
         counters.bump("resumed_fits")
         counters.note("resumed_from", it)
     while it < max_iter and prev_shift > tol * tol:
+        fault_site("sgd:epoch")
         acc = one_pass(centers, "lloyd", it)
         sums = acc["sums"].cpu().numpy().astype(np.float64)
         counts = acc["counts"].cpu().numpy()
@@ -1083,6 +1167,7 @@ def streamed_kmeans_lloyd(
         it += 1
         if checkpointer is not None:
             checkpointer.maybe_save(it, {"centers": centers}, {"prev_shift": prev_shift})
+            preempt_point(checkpointer, it, {"centers": centers}, {"prev_shift": prev_shift})
     final = one_pass(centers, "cost", None)
     if checkpointer is not None:
         checkpointer.clear()

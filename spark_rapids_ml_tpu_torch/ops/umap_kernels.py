@@ -32,6 +32,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime.faults import fault_site
 from . import _build
 from .linalg import _check_cuda_f32
 
@@ -620,20 +621,34 @@ def umap_sgd(
     negative_sample_rate: int = 5,
     self_table: bool = True,
     draws: Optional[Draws] = None,
+    start_epoch: int = 0,
+    seed_base: Optional[int] = None,
+    segment: int = 0,
+    on_segment: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> torch.Tensor:
-    """Head-only negative-sampling SGD over CSR-padded rows: ``n_epochs``
-    epochs of ``emb_head`` (n_head, C) against ``table`` (n_tab, C) (for
-    fit the embedding itself: ``self_table=True``); ``row_heads`` (R,)
-    ascending, ``tails_pad`` (R, K) int32 and ``p_pad`` (R, K). Returns the
-    new embedding (the input is not modified).
+    """Head-only negative-sampling SGD over CSR-padded rows: epochs
+    ``start_epoch`` to ``n_epochs`` of ``emb_head`` (n_head, C) against
+    ``table`` (n_tab, C) (for fit the embedding itself:
+    ``self_table=True``); ``row_heads`` (R,) ascending, ``tails_pad`` (R, K)
+    int32 and ``p_pad`` (R, K). Returns the new embedding (the input is not
+    modified).
 
     Each epoch draws its permutation ``perm`` (n_tab,) and roll offsets
     ``offs`` (neg,) from ``generator`` (on the tensors' device), its slot
-    uniforms from the hash of ``seed + e`` (the seed drawn from
-    ``generator`` once a call), or takes all three from ``draws(e)``; then
-    one K10 STEP launch into the second of two buffers. Attractive terms
-    count twice on a self table: each directed edge moves only its head,
-    and the reverse copy supplies the other endpoint's pull.
+    uniforms from the hash of ``seed_base + e`` (``seed_base`` drawn from
+    ``generator`` once a call by :func:`draw_seed_base` where not given),
+    or takes all three from ``draws(e)``; then one K10 STEP launch into the
+    second of two buffers. Attractive terms count twice on a self table:
+    each directed edge moves only its head, and the reverse copy supplies
+    the other endpoint's pull.
+
+    ``segment`` > 0 walks the epochs in segments of that many from
+    ``start_epoch``: each segment starts at an ``sgd:epoch`` fault site
+    (``runtime.faults``) and ends with ``on_segment(epoch, emb)`` (the
+    epochs done, the embedding after them). The learning rate and the
+    hash are functions of the absolute epoch, so a walk resumed at a
+    segment boundary with the generator's state and ``seed_base`` of that
+    boundary takes the uninterrupted walk's epochs.
     """
     R = tails_pad.shape[0]
     n_tab = table.shape[0]
@@ -643,10 +658,13 @@ def umap_sgd(
     emb = emb_head.clone(memory_format=torch.contiguous_format)
     nxt = torch.empty_like(emb)
     rows = head_rows(row_heads, p_pad, emb.shape[0], emb.shape[1])
-    seed_base = 0
-    if draws is None:
-        seed_base = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=dev))
-    for e in range(n_epochs):
+    if draws is not None:
+        seed_base = 0
+    elif seed_base is None:
+        seed_base = draw_seed_base(generator, dev)
+    for e in range(start_epoch, n_epochs):
+        if segment and (e - start_epoch) % segment == 0:
+            fault_site("sgd:epoch")
         if draws is None:
             u, seed = None, (seed_base + e) & _M32
             perm = torch.randperm(n_tab, generator=generator, device=dev, dtype=torch.int32)
@@ -656,4 +674,12 @@ def umap_sgd(
         sgd_epoch_step(emb, emb if self_table else table, rows, tails_pad, p_pad, perm, offs, a, b, gamma,
                        attract_scale, epoch_alpha(initial_alpha, e, n_epochs), u=u, seed=seed, out=nxt)
         emb, nxt = nxt, emb
+        if segment and on_segment is not None and ((e + 1 - start_epoch) % segment == 0 or e + 1 == n_epochs):
+            on_segment(e + 1, emb)
     return emb
+
+
+def draw_seed_base(generator: Optional[torch.Generator], dev: torch.device) -> int:
+    """The base of a ``umap_sgd`` call's slot-hash seeds: one draw from
+    ``generator``, before the call's first epoch draws."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=dev))

@@ -41,7 +41,7 @@ import json
 import logging
 import os
 import tempfile
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
@@ -94,8 +94,15 @@ class FitCheckpointer:
         self.enabled = bool(ckpt_dir)
 
     @classmethod
-    def from_settings(cls, algo: str, params: Mapping[str, Any]) -> "FitCheckpointer":
-        """Build from the module's ``CKPT_DIR`` / ``CKPT_EVERY``."""
+    def from_settings(
+        cls, algo: str, params: Union[Mapping[str, Any], Callable[[], Mapping[str, Any]]]
+    ) -> "FitCheckpointer":
+        """Build from the module's ``CKPT_DIR`` / ``CKPT_EVERY``. ``params``
+        may be a function that builds the identity, called only where
+        ``CKPT_DIR`` is set, so a fit with checkpointing off digests
+        nothing."""
+        if callable(params):
+            params = params() if CKPT_DIR else {}
         return cls(algo, params, CKPT_DIR, CKPT_EVERY)
 
     @property

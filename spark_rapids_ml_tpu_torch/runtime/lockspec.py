@@ -9,9 +9,11 @@ real per-thread acquisition order when ``lockwitness.MODE`` is not
 ``"off"``.
 
 The port catalogs the locks of the modules it has ported, with the JAX
-package's names and ranks: the three telemetry registries (the innermost
-band, 90-92). The ops plane, lifecycle, scheduler, serving, registry,
-admission, fault, autotune and roofline locks come with their modules.
+package's names and ranks: the fit scheduler's (30, 32), the shared
+admission primitives' (56, 58), the fault injector's (80, 81) and the three
+telemetry registries (the innermost band, 90-92). The ops plane,
+lifecycle, serving, router, registry, serving admission controller,
+autotune and roofline locks come with their modules.
 The JAX package declares no lock of its streaming, tuning, mesh or build
 code, so the port's locks there (``ops/_build.py``, ``ops/streaming.py``,
 ``parallel/mesh.py``, ``tuning.py``) stay plain ``threading`` locks.
@@ -60,6 +62,36 @@ def _registry(*specs: LockSpec) -> Dict[str, LockSpec]:
 _RT = "spark_rapids_ml_tpu_torch/runtime"
 
 SPEC: Dict[str, LockSpec] = _registry(
+    # --- fit scheduler -----------------------------------------------------
+    LockSpec(
+        "scheduler.state", 30, "lock", f"{_RT}/scheduler.py", "FitScheduler", "_lock",
+        "Scheduler queue/dispatcher state; also the lock under the "
+        "scheduler's Condition (`_cv` shares it).",
+    ),
+    LockSpec(
+        "scheduler.breakers", 32, "lock", f"{_RT}/scheduler.py", "FitScheduler", "_block",
+        "Per-tenant breaker map; `submit` takes it while holding "
+        "`scheduler.state` (the one sanctioned scheduler nesting).",
+    ),
+    # --- admission ------------------------------------------------------------
+    LockSpec(
+        "admission.ewma", 56, "lock", f"{_RT}/admission.py", "ServiceEwma", "_lock",
+        "One service-time EWMA accumulator.",
+    ),
+    LockSpec(
+        "admission.breaker", 58, "lock", f"{_RT}/admission.py", "CircuitBreaker", "_lock",
+        "One circuit breaker's state machine; the state-change callback "
+        "(telemetry gauge) fires under it.",
+    ),
+    # --- fault injection ------------------------------------------------------
+    LockSpec(
+        "faults.plan", 80, "lock", f"{_RT}/faults.py", "FaultInjector", "_lock",
+        "One fault injector's hit counters and pending actions.",
+    ),
+    LockSpec(
+        "faults.cache", 81, "lock", f"{_RT}/faults.py", "", "_cache_lock",
+        "The process-wide parsed-plan cache.",
+    ),
     # --- telemetry (innermost leaves) --------------------------------------
     LockSpec(
         "telemetry.metrics", 90, "rlock", f"{_RT}/telemetry.py", "", "_MLOCK",

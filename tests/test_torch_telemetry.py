@@ -149,7 +149,9 @@ def test_lock_catalog_is_the_jax_telemetry_band():
         j = jlockspec.SPEC[name]
         assert (spec.rank, spec.kind, spec.cls, spec.attr) == (j.rank, j.kind, j.cls, j.attr)
         assert spec.module == j.module.replace("spark_rapids_ml_tpu/", "spark_rapids_ml_tpu_torch/")
-    assert set(tlockspec.SPEC) == {"telemetry.metrics", "telemetry.trace", "telemetry.watchdog"}
+    assert set(tlockspec.SPEC) == {"telemetry.metrics", "telemetry.trace", "telemetry.watchdog",
+                                   "scheduler.state", "scheduler.breakers", "admission.ewma", "admission.breaker",
+                                   "faults.plan", "faults.cache"}
 
 
 # ---------------------------------------------------------------------------
