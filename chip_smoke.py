@@ -392,6 +392,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fits) and drained; the forests' finite screen on and off. Its launches
    are the ``resilience`` path of the rows (the halved chunks' in the
    ``*_stream_half`` rows); no plain version runs on the card.
+10. bf16 (v, ``phase_bf16``): K2's bf16 instance (the Pallas kernel's
+   ``matmul_dtype=bfloat16`` contract: bf16 ``wgmma`` products) at the 12M
+   rows with k = 1,024 and at the streamed chunk (131,072 rows; 0/1
+   weights, then weights 1 + 0.9·2⁻⁸ that bf16 rounds to 1), K3's bf16
+   instances (bf16 X; A and R rounded where the JAX package would run
+   Pallas) at the 12M rows (K = 1, the rows kernel) and through the
+   general kernel at 1,024,000 x 1,024 with K = 64 (the rounding
+   contract) and 200,000 x 512 with K = 300 (the XLA one), views of the
+   rows; each held against the f64 plain version of its contract, with
+   controls the band must refuse (K2: the f32 contract, the kernel's sums
+   with the unrounded weight; K3: a zeroed tile, lost rows, the kernel
+   with R unrounded at small coefficients), and timed beside its plain
+   version and its library call; then KMeans(k=1024, random,
+   matmul_dtype="bfloat16") resident (maxIter 10) and streamed (maxIter
+   1) and LogisticRegression(objective_dtype="bfloat16", maxIter 20), each
+   beside its f32 twin: seconds, the cost within 2e-2 of the twin's (the
+   JAX test's), the first 1,048,576 predictions compared, accuracy within
+   0.01 and peak device GB under the twin's. Its launches are the
+   ``lloyd_step_bf16`` rows' and ``logreg_loss_grad_bf16``'s (K2's bf16
+   launches counted by ``lloyd_step.bf16_launches``, K3's by its codes
+   from ``BF16_VARIANT`` in ``logreg_loss_grad.variants``).
 
 The last three lines are the card line, ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits 1
@@ -450,6 +471,11 @@ is a probe of the IVF slice: K2, K4 and K10 alone built, K2 at the
 quantizer's shape, then the ann and umap_ivf paths, then K10 at the
 umap_ivf path's two shapes. It prints no result line and exits 1 if a
 check failed.
+
+    python3 chip_smoke.py --bf16-only [--rows N]
+
+is a probe of phase (v): K2 and K3 alone built, the bf16 phase alone on
+``--rows`` rows made from ``--seed``. It prints no result line.
 
     python3 chip_smoke.py --traverse-only
 
@@ -537,6 +563,7 @@ import numpy as np
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 # timed calls of K7/K8 and their library call: launch-sized, so many
 SLEEP_CYCLES = 60_000_000  # the device wait ahead of them: ~30 ms at 1.98 GHz
@@ -860,7 +887,7 @@ def phase_gram_shapes(torch, lin, X_pca, n_rows, reps, g):
     return res
 
 
-def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17, weighted=False):
+def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17, weighted=False, matmul_dtype=None):
     """K2's plain version in f64, in row chunks, with the absolute sums T
     and the near ties: rows whose second (or third) best f64 score lies
     within the f32 rounding band of the best, which the kernel may assign
@@ -869,12 +896,18 @@ def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17, weighted=False):
     ``A`` adds up the absolute values of each chunk's sums (the band of a
     streamed pass whose chunks are these). ``weighted``: a row counts m
     times in ``counts`` and ``near`` (m a row multiplicity: the rows of a
-    streamed pass that repeats rows), not once where m > 0 as in K2."""
+    streamed pass that repeats rows), not once where m > 0 as in K2.
+    ``matmul_dtype`` bf16: the bf16 contract in f64 (rows, centres and
+    weights rounded to bf16 in the two products; a product of two bf16
+    values is exact, so the kernel's only rounding past them is its f32
+    sums, which the same bands hold)."""
     k, d = C.shape
     f64, dev = torch.float64, X.device
+    bf = kk.is_bf16(matmul_dtype)
     C64 = C.to(f64)
     C64_abs = C64.abs()
     c_sq = (C64 * C64).sum(dim=1)
+    Cm = kk.bf16_round(C64) if bf else C64
     c_sq_max = float(c_sq.max())
     r = {"sums": torch.zeros((k, d), dtype=f64, device=dev),
          "counts": torch.zeros((k,), dtype=torch.int64, device=dev),
@@ -888,15 +921,16 @@ def lloyd_reference(torch, kk, X, m, C, chunk=1 << 17, weighted=False):
          "near_rows": 0}
     for lo in range(0, X.shape[0], chunk):
         x, mm = X[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
-        s_, c_, cost_ = kk.lloyd_step_plain(x, mm, C64)
+        s_, c_, cost_ = kk.lloyd_step_plain(x, mm, C64, matmul_dtype=matmul_dtype)
         r["sums"] += s_
         r["A"] += s_.abs()
         r["cost"] += cost_
-        sc = c_sq[None, :] - 2.0 * (x @ C64.T)
+        xm = kk.bf16_round(x) if bf else x
+        sc = c_sq[None, :] - 2.0 * (xm @ Cm.T)
         _, a = torch.min(sc, dim=1)
         r["counts"] += (torch.bincount(a, weights=mm, minlength=k).round().to(torch.int64) if weighted
                         else c_.to(torch.int64))
-        ax = x.abs() * mm[:, None]
+        ax = xm.abs() * (kk.bf16_round(mm) if bf else mm)[:, None]
         r["T"].index_add_(0, a, ax)
         r["T_cost"] += (mm * ((x.abs() + C64_abs[a]) ** 2).sum(dim=1)).sum()
         if k < 2:
@@ -999,7 +1033,7 @@ def check_lloyd_step(torch, kk, X, m, C, reps, control=False, timer=None):
     return out
 
 
-def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
+def logreg_reference(torch, lk, X, y, m, A, b, multinomial, round_ops=False):
     """K3's plain version in f64, in row chunks, with the absolute sums T.
     The f32 logits are off by at most about u·S (S = the row's largest
     Σ|x·a| + |b|), which moves a probability p by at most 2·u·S·p (its
@@ -1011,10 +1045,16 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     m·(|R| + 2·S·p·(1 - p) + p)) in gA's and gb's T, each row m·2·S in the
     loss's. Per class, so at many classes a class's band
     follows its own residuals, not K times a row's (a p that f32 cannot
-    hold, below its least normal number, adds F32_TINY / u)."""
+    hold, below its least normal number, adds F32_TINY / u).
+    ``round_ops``: K3's bf16 Pallas contract in f64 (A rounded to bf16 in
+    the logits, R in the gradient; a bf16 X is read exactly); a flip of
+    R's bf16 rounding where the f32 R sits within a few ulps of a rounding
+    boundary moves one term by a bf16 ulp, in random directions, which
+    the terms' band covers."""
     d, K, f64 = X.shape[1], A.shape[0], torch.float64
     chunk = max(1, REF_CHUNK * E2E_D // max(d, K))  # f64 chunks of at most 2 GB
     A64, b64 = A.to(f64), b.to(f64)
+    Az = A64.to(torch.bfloat16).to(f64) if round_ops else A64  # the logits' operand
     loss = torch.zeros((), dtype=f64, device=X.device)
     gA = torch.zeros((K, d), dtype=f64, device=X.device)
     gb = torch.zeros((K,), dtype=f64, device=X.device)
@@ -1023,12 +1063,12 @@ def logreg_reference(torch, lk, X, y, m, A, b, multinomial):
     T_z = torch.zeros((), dtype=f64, device=X.device)
     for lo in range(0, X.shape[0], chunk):
         x, yy, mm = X[lo:lo + chunk].to(f64), y[lo:lo + chunk].to(f64), m[lo:lo + chunk].to(f64)
-        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, yy, mm, A64, b64, multinomial)
+        l_, gA_, gb_ = lk.logreg_loss_grad_plain(x, yy, mm, A64, b64, multinomial, round_ops)
         loss += l_
         gA += gA_
         gb += gb_
-        S = (x.abs() @ A64.abs().T + b64.abs()[None, :]).max(dim=1).values
-        z = x @ A64.T + b64[None, :]
+        S = (x.abs() @ Az.abs().T + b64.abs()[None, :]).max(dim=1).values
+        z = x @ Az.T + b64[None, :]
         if multinomial:
             p = torch.softmax(z, dim=1)
             R = p - torch.nn.functional.one_hot(yy.long(), K).to(f64)
@@ -4706,9 +4746,9 @@ def record_kmeans_fit(kk):
         return out
 
     def counted(kind, fn):
-        def step(acc, X, mask, C):
+        def step(acc, X, mask, C, **kw):
             before = kk.lloyd_step.launches
-            out = fn(acc, X, mask, C)
+            out = fn(acc, X, mask, C, **kw)
             rec["pass_launches"][kind] += kk.lloyd_step.launches - before
             if kind == "count" and C.shape[0] not in rec["count_k"]:
                 rec["count_k"].append(int(C.shape[0]))
@@ -7534,6 +7574,333 @@ def resilience_probe(torch, args, dev) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase (v): the bf16 contracts, K2's and K3's bf16 instances, and the fits
+# ---------------------------------------------------------------------------
+
+# the resident KMeans twins' iterations (the e2e fit's), the streamed
+# twins' (cut to 1: a streamed pass of the 12M rows is ~1 s), the
+# LogisticRegression twins' (the e2e fit's)
+BF16_KM_ITER = 10
+BF16_KM_STREAM_ITER = 1
+BF16_LR_ITER = 20
+# the JAX package's bf16 tests: a bf16 KMeans cost within 2e-2 of its f32
+# twin's (test_kmeans.py), a bf16 LogisticRegression's accuracy within 0.01
+# of its f32 twin's (test_logistic_regression.py)
+BF16_KM_COST_RTOL = 2e-2
+BF16_LR_ACC_DROP = 0.01
+# K2's bf16 hold with weights that bf16 rounds to 1 (1 + 0.9 * 2^-8), at
+# the streamed chunk: a kernel that multiplies the rows by the unrounded
+# weight adds 0.35% to every sum, tens of times the band there (the main
+# path's 0/1 weights round to themselves and cannot show it)
+BF16_BIASED_WEIGHT = 1.0 + 0.9 * 2.0 ** -8
+# K3's bf16 general kernel at (rows, d, K): the Pallas contract
+# (logreg_many's shape) and the XLA one (past 120 classes)
+K3_BF16_GENERAL_SHAPES = ((1_024_000, 1_024, 64), (200_000, 512, 300))
+# rows of the first KMeans predictions compared between a bf16 fit and its
+# f32 twin
+BF16_AGREE_ROWS = 1 << 20
+
+
+def check_lloyd_bf16(torch, kk, X, m, C, reps, timer=None, knock_control=False):
+    """K2's bf16 instance on (X, m, C) held by ``lloyd_verdict`` against
+    the f64 plain version of the bf16 contract, with its controls: the f32
+    contract (the plain version's unrounded products) and, where
+    ``knock_control`` (weights that bf16 rounds), the kernel with its knock
+    1 (the sums take the unrounded weight), each of which the rule must
+    refuse. Timed over
+    ``reps`` calls by ``timer`` beside its plain version and one bf16
+    ``matmul`` + argmin + ``index_add_``, with its bound (the score product
+    at the dense bf16 rate)."""
+    timer = cuda_ms if timer is None else timer
+    bf = torch.bfloat16
+    n, d = X.shape
+    k = C.shape[0]
+    sums, counts, cost = kk.lloyd_step(X, m, C, matmul_dtype=bf)
+    ref = lloyd_reference(torch, kk, X, m, C, matmul_dtype=bf)
+    counts_ok, dcount, err, r_sums, r_cost = lloyd_verdict(torch, sums, counts, cost, ref, n)
+    check(counts_ok and r_sums <= 1.0 and r_cost <= 1.0,
+          f"lloyd_step bf16 {n}x{d} k={k}: counts beyond the near ties ({counts_ok}), "
+          f"|dsums|/tol {r_sums:.3g} or |dcost|/tol {r_cost:.3g} above 1")
+    out = {"n": n, "d": d, "k": k, "max_abs_err": err, "err_over_tol": r_sums,
+           "count_changes": int(dcount.sum()), "near_tie_rows": ref["near_rows"],
+           "cost_rel_err": abs(float(cost) - float(ref["cost"])) / float(ref["cost"]),
+           "cost_err_over_tol": r_cost, "controls": []}
+    cases = {"the f32 contract (unrounded products)": kk.lloyd_step_plain(X, m, C)}
+    if knock_control:
+        cases["kernel knock 1: the sums' weight unrounded"] = kk._lloyd_run(X, m, C, matmul_dtype=bf, knock=1)
+    for what, (s_, c_, cost_) in cases.items():
+        ok_, dc_, _, rs_, rc_ = lloyd_verdict(torch, s_, c_, cost_, ref, n)
+        check(not (ok_ and rs_ <= 1.0 and rc_ <= 1.0), f"the K2 bf16 check does not catch {what}")
+        out["controls"].append({"control": what, "counts_within_near_ties": ok_, "count_changes": int(dc_.sum()),
+                                "err_over_tol": rs_, "cost_err_over_tol": rc_})
+    del cases, ref
+    if reps:
+        c_sq = (C * C).sum(dim=1)
+        cb = C.to(bf)
+
+        def library():  # a bf16 score product, argmin, index_add_, 1M rows a call
+            acc = torch.zeros_like(sums)
+            for lo in range(0, n, 1 << 20):
+                xs = X[lo:lo + (1 << 20)].to(bf)
+                a = torch.argmin(c_sq[None, :] - 2.0 * (xs @ cb.T).float(), dim=1)
+                acc.index_add_(0, a, xs.float() * m[lo:lo + (1 << 20), None].to(bf).float())
+            return acc
+
+        out["ms"] = timer(torch, lambda: kk.lloyd_step(X, m, C, matmul_dtype=bf), reps)
+        out["plain_ms"] = timer(torch, lambda: kk.lloyd_step_plain(X, m, C, matmul_dtype=bf), reps)
+        out["library_ms"] = timer(torch, library, reps)
+        nbytes = 4.0 * (n * d + n + k * d + k * d + k + 1)
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 2.0 * n * k * d, PEAK_BF16_FLOPS)
+        out["bound_f32_ms"] = bound_ms(nbytes, 2.0 * n * k * d + 2.0 * n * d + 3.0 * n * k)[0]
+    return out
+
+
+# coefficients of K3's bf16 knock control: logits small enough that their
+# f32 rounding (2·S·p of each term's band) does not hide R's bf16 rounding
+BF16_KNOCK_A_STD = 1e-3
+# the binomial (K = 1) knock's: there R's bf16 rounding errors cancel
+# across rows unless R holds within a fraction of a bf16 ulp, so A is
+# smaller (R's spread over the rows 0.1-0.25 ulp) and b puts sigmoid(b)
+# 0.3 of a bf16 ulp above 0.5: R = p - y then rounds the same way on most
+# rows of each label, a bias the sums do not cancel (err/tol of a kernel
+# that leaves R unrounded: 51 on 1,024,000 of make_data's rows and 12 on
+# 4,194,304, in a model of it with the plain versions)
+BF16_KNOCK_A_STD_BINOMIAL = 1e-4
+BF16_KNOCK_P_BINOMIAL = 0.5 + 0.3 * 2.0 ** -8
+BF16_KNOCK_B_BINOMIAL = float(np.log(BF16_KNOCK_P_BINOMIAL / (1.0 - BF16_KNOCK_P_BINOMIAL)))
+
+
+def check_logreg_bf16(torch, lk, Xb, y, m, K, reps, seed, strict_knock=False):
+    """K3's bf16 instance (the one the wrapper picks) on bf16 ``Xb`` at K
+    classes against the f64 plain version of the contract the wrapper
+    picks (``bf16_round_ops``), with its controls (a zeroed feature tile
+    and lost rows, which must fail). Under the rounding contract the kernel
+    with R unrounded (knock 256) is held too: at A of N(0, 0.05²) it is
+    reported (the logits' f32 band hides R's rounding there); where
+    ``strict_knock``, at A of N(0, BF16_KNOCK_A_STD²) (binomial: of
+    N(0, BF16_KNOCK_A_STD_BINOMIAL²) and b = BF16_KNOCK_B_BINOMIAL) the
+    kernel must pass and its knock fail. Timed (median device time) beside
+    its plain version and autograd of it, with its bound (X at 2 bytes, the
+    products at the dense bf16 rate)."""
+    n, d = Xb.shape
+    g = torch.Generator(device=Xb.device)
+    g.manual_seed(seed)
+    A = (torch.randn(K, d, generator=g, device=Xb.device) * 0.05).contiguous()
+    b = torch.randn(K, generator=g, device=Xb.device) * 0.1
+    multinomial = K > 1
+    yk = y if not multinomial else torch.randint(0, K, (n,), generator=g, device=Xb.device).float()
+    round_ops = lk.bf16_round_ops(d, K)
+    variant = lk.BF16_VARIANT + lk._k3_variant_bf16(d, K, multinomial, Xb.data_ptr() % 8 == 0)
+    loss, gA, gb = lk.logreg_loss_grad(Xb, yk, m, A, b, multinomial)
+    lr, gAr, gbr, T_gA, T_gb, T_loss = logreg_reference(torch, lk, Xb, yk, m, A, b, multinomial, round_ops)
+    err, r_gA = held(torch, gA, gAr, T_gA, n)
+    gb_err, r_gb = held(torch, gb, gbr, T_gb, n)
+    _, r_loss = held(torch, loss, lr, T_loss, n)
+    check(r_gA <= 1.0 and r_gb <= 1.0 and r_loss <= 1.0,
+          f"logreg_loss_grad bf16 {n}x{d} K={K}: |dgA|/tol {r_gA:.3g}, |dgb|/tol {r_gb:.3g} "
+          f"or |dloss|/tol {r_loss:.3g} above 1")
+    out = {"n": n, "d": d, "K": K, "variant": variant, "round_ops": round_ops, "max_abs_err": err,
+           "err_over_tol": r_gA, "loss_rel_err": abs(float(loss) - float(lr)) / abs(float(lr)),
+           "loss_err_over_tol": r_loss, "gb_err": gb_err, "gb_err_over_tol": r_gb}
+    tile = gA.clone()
+    tile[:, 128:] = 0.0
+    L = n // CONTROL_SPLIT
+    lost = gA.clone()
+    lost[:, 128:] -= lk.logreg_loss_grad_plain(Xb[:L], yk[:L], m[:L], A, b, multinomial, round_ops)[1][:, 128:]
+    cases = {"gA[:, 128:] zeroed": tile, f"first 1/{CONTROL_SPLIT} of rows lost in gA[:, 128:]": lost}
+    out["controls"] = negative_controls(torch, cases, gAr, T_gA, n)
+    del cases, tile, lost
+    if round_ops:
+        out["r_unrounded_err_over_tol"] = held(
+            torch, lk._logreg_run(Xb, yk, m, A, b, multinomial, variant, 256, True)[1], gAr, T_gA, n)[1]
+    if round_ops and strict_knock:
+        a_std = BF16_KNOCK_A_STD if multinomial else BF16_KNOCK_A_STD_BINOMIAL
+        A2 = (torch.randn(K, d, generator=g, device=Xb.device) * a_std).contiguous()
+        b2 = b if multinomial else torch.full_like(b, BF16_KNOCK_B_BINOMIAL)
+        ref2 = logreg_reference(torch, lk, Xb, yk, m, A2, b2, multinomial, True)
+        r2 = held(torch, lk.logreg_loss_grad(Xb, yk, m, A2, b2, multinomial)[1], ref2[1], ref2[3], n)[1]
+        check(r2 <= 1.0, f"logreg_loss_grad bf16 {n}x{d} K={K} at small A: |dgA|/tol {r2:.3g} above 1")
+        out["small_a_err_over_tol"] = r2
+        out["controls"] += negative_controls(torch, {
+            f"kernel knock 256: R unrounded (A of N(0, {a_std}^2))":
+                lk._logreg_run(Xb, yk, m, A2, b2, multinomial, variant, 256, True)[1]}, ref2[1], ref2[3], n)
+        del A2, b2, ref2
+    if reps:
+        def library():  # autograd of the plain bf16 version
+            Ar = A.detach().requires_grad_(True)
+            br = b.detach().requires_grad_(True)
+            z = Xb.float() @ (Ar.to(torch.bfloat16).float() if round_ops else Ar).T + br[None, :]
+            if multinomial:
+                ll = torch.logsumexp(z, 1) - z.gather(1, yk.long()[:, None])[:, 0]
+            else:
+                ll = torch.nn.functional.softplus(z[:, 0]) - yk * z[:, 0]
+            return torch.autograd.grad((ll * m).sum(), (Ar, br))
+
+        out["ms"] = median_device_ms(torch, lambda: lk.logreg_loss_grad(Xb, yk, m, A, b, multinomial), reps)
+        out["plain_ms"] = median_device_ms(
+            torch, lambda: lk.logreg_loss_grad_plain(Xb, yk, m, A, b, multinomial, round_ops), reps)
+        out["library_ms"] = median_device_ms(torch, library, reps)
+        nbytes = 2.0 * n * d + 4.0 * (2 * n + 2 * K * d + 2 * K + 1)
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 4.0 * n * K * d + 10.0 * n * K, PEAK_BF16_FLOPS)
+    return out
+
+
+def first_predictions(torch, X_host, centres, rows=BF16_AGREE_ROWS):
+    """The nearest centre of each of the first ``rows`` host rows, on the
+    card (f32 distances)."""
+    from spark_rapids_ml_tpu_torch.ops.kmeans_kernels import pairwise_sq_dists
+
+    dev = torch.device("cuda:0")
+    x = torch.from_numpy(X_host[:rows]).to(dev)
+    return pairwise_sq_dists(x, torch.from_numpy(np.ascontiguousarray(centres, np.float32)).to(dev)).argmin(dim=1)
+
+
+def phase_bf16(torch, X_host, y_host, seed, reps):
+    """(v) the bf16 contracts on the host rows: K2's bf16 instance at the
+    12M rows (k = 1,024) and at the streamed chunk (0/1 weights, then
+    weights that bf16 rounds), K3's rows-kernel bf16 instance at the 12M rows (K =
+    1) and its general kernel's at K3_BF16_GENERAL_SHAPES (views of the
+    rows), each against its f64 contract with controls; then
+    KMeans(k=1024, matmul_dtype="bfloat16", random) resident (maxIter 10)
+    and streamed (maxIter BF16_KM_STREAM_ITER), and
+    LogisticRegression(objective_dtype="bfloat16", maxIter 20), each beside
+    its f32 twin (seconds, agreement; the LogisticRegression pair's peak
+    device GB). Returns (measurements by kernels-line row, {row: {path:
+    launches}}), the launches of the bf16 instances read around each fit."""
+    from spark_rapids_ml_tpu_torch import DataFrame
+    from spark_rapids_ml_tpu_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu_torch.clustering import KMeans
+    from spark_rapids_ml_tpu_torch.ops import kmeans_kernels as kk
+    from spark_rapids_ml_tpu_torch.ops import logreg_kernels as lk
+    from spark_rapids_ml_tpu_torch.parallel.mesh import shard_rows
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    bf = torch.bfloat16
+    n = X_host.shape[0]
+    kern = {}
+    X = shard_rows(X_host, dev)[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 71)
+    C = (X[torch.randint(0, n, (E2E_CENTRES,), generator=g, device=dev)]
+         + 0.1 * torch.randn(E2E_CENTRES, E2E_D, generator=g, device=dev)).contiguous()
+    ones = torch.ones(n, device=dev)
+    kern["lloyd_step_bf16"] = r = check_lloyd_bf16(torch, kk, X, ones, C, reps)
+    emit({"phase": "bf16", "kernel": "lloyd_step", "shape": "lloyd_step_bf16", **r})
+    CH = min(STREAM_CHUNK_ROWS, n)
+    kern["lloyd_step_bf16_stream_chunk"] = r = check_lloyd_bf16(
+        torch, kk, X[:CH].contiguous(), ones[:CH].contiguous(), C, STREAM_K2_REPS, timer=median_device_ms)
+    emit({"phase": "bf16", "kernel": "lloyd_step", "shape": "lloyd_step_bf16_stream_chunk", **r})
+    r = check_lloyd_bf16(torch, kk, X[:CH].contiguous(), torch.full((CH,), BF16_BIASED_WEIGHT, device=dev), C, 0,
+                         knock_control=True)
+    kern["lloyd_step_bf16_weights"] = r
+    emit({"phase": "bf16", "kernel": "lloyd_step", "shape": "lloyd_step_bf16_weights",
+          "weight": BF16_BIASED_WEIGHT, **r})
+    y = torch.from_numpy(y_host).to(dev)
+    Xb = X.to(bf)
+    kern["logreg_loss_grad_bf16"] = r = check_logreg_bf16(torch, lk, Xb, y, ones, 1, reps, seed + 72,
+                                                          strict_knock=True)
+    emit({"phase": "bf16", "kernel": "logreg_loss_grad", "shape": "logreg_loss_grad_bf16", **r})
+    del Xb
+    for rows, d, K in K3_BF16_GENERAL_SHAPES:
+        rows = min(rows, n * E2E_D // d)
+        Xv = X.reshape(-1)[:rows * d].view(rows, d).to(bf)
+        name = f"logreg_loss_grad_bf16_{rows}x{d}_K{K}"
+        kern[name] = r = check_logreg_bf16(torch, lk, Xv, y[:rows].contiguous(), ones[:rows].contiguous(), K, reps,
+                                           seed + K, strict_knock=True)
+        emit({"phase": "bf16", "kernel": "logreg_loss_grad", "shape": name, **r})
+        del Xv
+    del X, y, ones, C
+    torch.cuda.empty_cache()
+    kernels_s = time.perf_counter() - t_phase
+    # registers, spill bytes, resident blocks an SM and shared memory of
+    # the bf16 instances that ran
+    stages = kk.lloyd_geometry(n, E2E_CENTRES, E2E_D).stages
+    emit({"phase": "bf16", "check": "attributes", **{
+        name: dict(zip(("registers", "local_bytes", "blocks_per_sm", "smem"), attrs)) for name, attrs in (
+            ("lloyd_kernel<true>", kk._lloyd_attributes(stages, True)),
+            ("logreg_rows_kernel<2, 1, true>", lk._logreg_attributes(lk.BF16_VARIANT + 21)),
+            ("logreg_partial_kernel<true>", lk._logreg_attributes(lk.BF16_VARIANT)))}})
+
+    df = DataFrame({"features": X_host, "label": y_host})
+    launches = {"lloyd_step_bf16": {}, "lloyd_step_bf16_stream_chunk": {}, "logreg_loss_grad_bf16": {}}
+
+    def k3_bf16():
+        return sum(c for v, c in lk.logreg_loss_grad.variants.items() if v >= lk.BF16_VARIANT)
+
+    fits = {}
+    for path, row, extra in (("bf16_kmeans", "lloyd_step_bf16", {"maxIter": BF16_KM_ITER}),
+                             ("bf16_kmeans_streamed", "lloyd_step_bf16_stream_chunk",
+                              {"maxIter": BF16_KM_STREAM_ITER, "streaming": True})):
+        kw = dict(k=E2E_CENTRES, seed=seed, initMode="random", **extra)
+        m32, t32 = _timed(torch, lambda: KMeans(**kw).fit(df))
+        k0, b0 = kk.lloyd_step.launches, kk.lloyd_step.bf16_launches
+        m16, t16 = _timed(torch, lambda: KMeans(matmul_dtype="bfloat16", **kw).fit(df))
+        launches[row][path] = kk.lloyd_step.bf16_launches - b0
+        check(launches[row][path] > 0 and launches[row][path] == kk.lloyd_step.launches - k0 - (
+            -(-n // STREAM_CHUNK_ROWS) if extra.get("streaming") else 1),
+              f"{path}: the bf16 fit's Lloyd passes did not all run K2's bf16 instance")
+        check(np.isfinite(m16.cluster_centers_).all() and np.isfinite(m16.trainingCost), f"{path}: not finite")
+        rel = abs(m16.trainingCost - m32.trainingCost) / m32.trainingCost
+        check(rel <= BF16_KM_COST_RTOL, f"{path}: bf16 cost {m16.trainingCost} vs f32 {m32.trainingCost}")
+        agree = float((first_predictions(torch, X_host, m16.cluster_centers_)
+                       == first_predictions(torch, X_host, m32.cluster_centers_)).float().mean())
+        fits[path] = {"fit_s": t16, "f32_fit_s": t32, "cost": m16.trainingCost, "f32_cost": m32.trainingCost,
+                      "cost_rel_diff": rel, "predictions_equal": agree, "n_iter": m16.numIter,
+                      "f32_n_iter": m32.numIter, "launches": launches[row][path],
+                      "centres_max_abs_diff": float(np.abs(m16.cluster_centers_ - m32.cluster_centers_).max())}
+        if extra.get("streaming"):
+            fits[path]["pass_s"] = m16._ingest_report["pass_s"]
+            fits[path]["f32_pass_s"] = m32._ingest_report["pass_s"]
+        emit({"phase": "bf16", "fit": path, "rows": n, **kw, **fits[path]})
+        del m16, m32
+
+    def peak_fit(est):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, t = _timed(torch, lambda: est.fit(df))
+        return model, t, torch.cuda.max_memory_allocated() / 1e9
+
+    m32, t32, gb32 = peak_fit(LogisticRegression(maxIter=BF16_LR_ITER))
+    v0 = k3_bf16()
+    m16, t16, gb16 = peak_fit(LogisticRegression(maxIter=BF16_LR_ITER, objective_dtype="bfloat16"))
+    launches["logreg_loss_grad_bf16"]["bf16_logreg"] = k3_bf16() - v0
+    check(launches["logreg_loss_grad_bf16"]["bf16_logreg"] > 0, "bf16_logreg: K3's bf16 instance did not run")
+    check(np.isfinite(m16.coefficients).all(), "bf16_logreg: coefficients not finite")
+
+    def accuracy(model):
+        z = X_host @ np.asarray(model.coefficients, np.float32) + np.float32(model.intercept)
+        return float(((z > 0).astype(np.float32) == y_host).mean())
+
+    a16, a32 = accuracy(m16), accuracy(m32)
+    check(a16 >= a32 - BF16_LR_ACC_DROP, f"bf16_logreg: accuracy {a16} vs its f32 twin's {a32}")
+    c16, c32 = np.asarray(m16.coefficients), np.asarray(m32.coefficients)
+    fits["bf16_logreg"] = {"fit_s": t16, "f32_fit_s": t32, "peak_device_gb": gb16, "f32_peak_device_gb": gb32,
+                           "accuracy": a16, "f32_accuracy": a32, "n_iter": m16.n_iter_, "f32_n_iter": m32.n_iter_,
+                           "coef_rel_diff": float(np.abs(c16 - c32).max() / np.abs(c32).max()),
+                           "coef_cosine": float(c16 @ c32 / np.linalg.norm(c16) / np.linalg.norm(c32)),
+                           "launches": launches["logreg_loss_grad_bf16"]["bf16_logreg"]}
+    check(gb16 < gb32, f"bf16_logreg: peak device {gb16:.3f} GB not under its f32 twin's {gb32:.3f}")
+    emit({"phase": "bf16", "fit": "bf16_logreg", "rows": n, "maxIter": BF16_LR_ITER, **fits["bf16_logreg"]})
+    emit({"phase": "bf16", "check": "done", "kernels_s": kernels_s, "phase_s": time.perf_counter() - t_phase,
+          "launches": launches})
+    return kern, launches
+
+
+def bf16_probe(torch, args, dev) -> int:
+    """Phase (v) alone, on ``--rows`` rows made from ``--seed``."""
+    t0 = time.perf_counter()
+    X, y = make_data(torch, args.rows, args.rows, args.seed, dev)
+    X_host, y_host = X.cpu().numpy(), y.cpu().numpy()
+    del X, y
+    torch.cuda.empty_cache()
+    _, launches = phase_bf16(torch, X_host, y_host, args.seed, args.reps)
+    emit({"phase": "done", "total_s": time.perf_counter() - t0, "launches": launches})
+    return 0
+
+
 def trustworthiness(torch, X, E, k: int) -> float:
     """sklearn.manifold.trustworthiness (euclidean) of the embedding ``E``
     of the rows ``X``, in f64 on their device: 1 minus the normalized sum
@@ -9009,6 +9376,9 @@ def main() -> int:
     ap.add_argument("--ann-only", action="store_true",
                     help="a probe: build K2, K4 and K10 alone, time K2 at the IVF quantizer's shape and run the ann "
                          "and umap_ivf paths (prints no result line)")
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="a probe: build K2 and K3 alone and run only the bf16 phase (v) on --rows rows (prints no "
+                         "result line)")
     ap.add_argument("--traverse-only", action="store_true",
                     help="a probe: build K9 alone and run its checks at every shape with random forests, no fits "
                          "(prints no result line)")
@@ -9042,6 +9412,7 @@ def main() -> int:
                            else ["logreg_loss_grad"] if args.logreg_only
                            else ["knn_topk", "umap_sgd_epoch"] if args.umap_only
                            else ["lloyd_step", "knn_topk", "umap_sgd_epoch"] if args.ann_only
+                           else ["lloyd_step", "logreg_loss_grad"] if args.bf16_only
                            else ["rf_traverse"] if args.traverse_only
                            else ["shifted_gram"] if args.linreg_only
                            else ["shifted_gram", "logreg_loss_grad", "rf_hist", "rf_traverse"] if args.tuning_only
@@ -9093,6 +9464,8 @@ def main() -> int:
         return gang_probe(torch, args, dev)
     if args.resilience_only:
         return resilience_probe(torch, args, dev)
+    if args.bf16_only:
+        return bf16_probe(torch, args, dev)
 
     # the PCA fit pads rows to its chunk multiple: the kernels see that shape
     from spark_rapids_ml_tpu_torch.feature import PCA
@@ -9188,6 +9561,10 @@ def main() -> int:
         by_path.setdefault(row, {})["gang"] = count
     resilience_launches, res_kern = phase_resilience(torch, X_host, y_host, X_umap, args.seed)
     kern.update(res_kern)
+    bf16_kern, bf16_launches = phase_bf16(torch, X_host, y_host, args.seed, args.reps)
+    kern.update(bf16_kern)
+    for row, paths in bf16_launches.items():
+        by_path.setdefault(row, {}).update(paths)
     by_path["knn_topk"] = {"knn": phase_knn_e2e(torch, X_host[:ni])}
     for path, launches in umap_paths(torch, X_umap, X_cluster, args.seed).items():
         for key, count in launches.items():
@@ -9343,6 +9720,23 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("bound_f32_ms", "variant") if k in r},
             "shape": {k: r[k] for k in ("n", "d", "k", "K") if k in r}})
+    # K2's and K3's bf16 instances (phase (v)): K2 at the 12M rows (the
+    # resident bf16 KMeans' launches) and at the streamed chunk (the
+    # streamed one's), K3's rows kernel at the 12M rows (the bf16
+    # LogisticRegression's) and its general kernel at its two timed shapes
+    # (no path launches them)
+    bf16_rows = [("lloyd_step_bf16", "lloyd_step"), ("lloyd_step_bf16_stream_chunk", "lloyd_step"),
+                 ("logreg_loss_grad_bf16", "logreg_loss_grad")]
+    bf16_rows += [(key, "logreg_loss_grad") for key in bf16_kern if key.startswith("logreg_loss_grad_bf16_")]
+    for name, src in bf16_rows:
+        r, paths = kern[name], by_path.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"spark_rapids_ml_tpu_torch/csrc/{src}.cu",
+            "replaces": sources[src][0], "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("bound_f32_ms", "variant", "round_ops") if k in r},
+            "shape": {k: r[k] for k in ("n", "d", "k", "K") if k in r}})
     extra = {"shifted_gram_sqrt_w": kern["shifted_gram_sqrt_w"], "shifted_gram_wide": kern["shifted_gram_wide"],
              "shifted_gram_stream_chunk": k1_chunk,
              "lloyd_step_k4097": kern["lloyd_step_4097"], "logreg_loss_grad_K10": kern["logreg_loss_grad_10"],
@@ -9359,6 +9753,7 @@ def main() -> int:
              "node_hist_sel_gates": node_hist_sel_gates(kern),
              "packed_byte_gather_many_gbt": kern["packed_byte_gather_many_gbt"],
              "packed_byte_gather_many_wide": kern["packed_byte_gather_many_wide"],
+             "lloyd_step_bf16_weights": kern["lloyd_step_bf16_weights"],
              **{key: kern[key] for key, *_ in K9_SHAPES[1:]}}
     emit({"phase": "done", "total_s": time.perf_counter() - t_start, "ivf_paths_s": ivf_paths_s, "extra_shapes": extra,
           "launches_by_path": by_path})

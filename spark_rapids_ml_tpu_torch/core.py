@@ -586,6 +586,16 @@ class _TpuEstimator(Params, _TpuParams):
         n_chunks = -(-per_dev // cap)
         return -(-per_dev // n_chunks)
 
+    def _x_placement_dtype(self) -> Optional[torch.dtype]:
+        """The device dtype the design matrix is placed in (None: the
+        resolved input dtype). An estimator whose fit reads X in a narrower
+        dtype (LogisticRegression's bf16 objective) overrides: placing X
+        narrow from the host avoids converting it in the fit, which would
+        hold the wide and the narrow copy at once. It applies only where
+        the resolved dtype is float32, so a float64 fit is never rounded;
+        labels, weights, masks and solver state keep the resolved dtype."""
+        return None
+
     def _pre_process_data(self, dataset: DataFrame) -> FitInputs:
         device = resolve_device(self._device)
         if self.num_workers != 1:
@@ -595,7 +605,8 @@ class _TpuEstimator(Params, _TpuParams):
         X = _features(self, _resolve_feature_matrix(self, dataset))
         n_rows, n_features = X.shape
         csize = self._chunk_rows(int(n_rows), 1)
-        Xd, maskd = shard_rows(X, device, csize)
+        place = self._x_placement_dtype() if X.dtype == np.float32 else None
+        Xd, maskd = shard_rows(X, device, csize, dtype=place)
         y = w = None
         if self._require_label():
             label_col = self.getOrDefault("labelCol")
@@ -617,7 +628,7 @@ class _TpuEstimator(Params, _TpuParams):
             n_features=int(n_features),
             y=y,
             weight=w,
-            dtype=Xd.dtype,
+            dtype=_torch_dtype(X.dtype),
             csize=csize,
         )
 

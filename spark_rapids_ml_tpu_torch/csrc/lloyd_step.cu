@@ -8,7 +8,7 @@
 // pl.pallas_call at kmeans_pallas.py:174), which keeps the distance tile,
 // the one-hot and the (k, d) accumulators resident in VMEM.
 //
-// What bounds it on an H100: the score product, 2*n*k*d operations (1.57e15
+// What bounds it on an H100: the score product, 2*n*k*d operations (6.29e12
 // at 12M x 256 and k = 1024), against 12.3 GB of X (~3.7 ms at 3.35 TB/s).
 // In f32 FMA on the CUDA cores that is >= 94 ms at 67 TFLOP/s, and a SIMT
 // tile stops near half of it. So the products run on the tensor cores in
@@ -52,8 +52,26 @@
 // or counts. The atomics' order varies from run to run, so sums agree with
 // a fixed-order sum to f32 rounding, not bitwise. The per-warp costs are
 // summed over row blocks in a fixed order by cost_reduce_kernel.
+//
+// The bf16 instance (lloyd_kernel<true>, lloyd_step_bf16_launch) is the
+// Pallas kernel's matmul_dtype=bfloat16 contract: the rows and the centres
+// rounded to bf16 (to nearest, ties to even) feed the score product with
+// f32 accumulation, and the one-hot times the row weight rounded to bf16
+// multiplies the bf16 rows into the sums; ||x||^2, ||c||^2 (of the f32
+// centres), the score c_sq - 2 x.c, the cost and the int32 counts stay
+// f32. round_centres_kernel writes the centres once as a bf16 (k, d8)
+// matrix (d8 = d rounded up to 8: the tensor copy's 16-byte row pitch),
+// copied a stage at a time (32 features x 128 centres, 64-byte swizzle)
+// beside the f32 rows. Each consumer thread rounds its A fragments to
+// bf16 pairs in registers, and each 32-feature stage is two wgmma
+// m64n128k16 bf16 products (the 3xTF32 path issues twelve m64n128k8); a
+// product of two bf16 values is exact in f32. The walking warps add
+// bf16(m) * bf16(x) into the sums, each product exact in f32 too. Bound
+// at 12M x 256, k = 1024: the product's 6.29e12 operations at the dense
+// bf16 rate, ~6.4 ms, above the 12.3 GB f32 read of X (~3.7 ms).
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -131,6 +149,22 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          ((uint64_t)1 << 62);
 }
 
+// the same for a K-major tile of 64-byte rows (32 bf16) under the 64-byte
+// swizzle: 8-row groups 512 bytes apart (the tile 512-byte aligned)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
+// x rounded to bf16, to nearest with ties to even, as an f32 value
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// two f32 values rounded to a bf16 pair, the first in the low half
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
 // keep the compiler from moving register reads or writes across the
 // asynchronous products
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -151,6 +185,30 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const unsigned (&a)[4
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// one m64n128k16 bf16 product of the warpgroup with f32 accumulation: d
+// (+)= A (64 x 16, from registers: a[] as mma.m16n8k16's A fragment of
+// the warp's 16 rows, bf16 pairs) x B (128 x 16)^T, K-major in shared
+// memory under the 64-byte swizzle (descriptor db, not transposed)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const unsigned (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -191,14 +249,32 @@ __global__ void split_centres_kernel(const float* __restrict__ C, const float* _
     csq_pad[i] = i < k ? csq[i] : CUDART_INF_F;
 }
 
+// The bf16 instance's centres: C (k, d) rounded to bf16 into cb (k, d8),
+// zero past d, and csq padded with +inf to kpad entries.
+__global__ void round_centres_kernel(const float* __restrict__ C, const float* __restrict__ csq,
+                                     __nv_bfloat16* __restrict__ cb, float* __restrict__ csq_pad, int d, int d8,
+                                     int k, int kpad) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x, kd8 = (int64_t)k * d8;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < kd8; i += stride) {
+    const int64_t r = i / d8, c = i - r * d8;
+    cb[i] = __float2bfloat16_rn(c < d ? C[r * d + c] : 0.f);
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < kpad; i += stride)
+    csq_pad[i] = i < k ? csq[i] : CUDART_INF_F;
+}
+
 // The rows come in by TMA through tmx (boxes of 32 features x 128 rows),
-// the centres' hi and lo through tmh and tml (32 x 128 centres). Block b
+// the centres' hi and lo through tmh and tml (32 x 128 centres); BF: the
+// bf16 centres through tmh (32 x 128, 64-byte swizzle), tml unused. Block b
 // takes row blocks b, b + gridDim.x, ...; d % 4 == 0 and X 16-byte aligned.
+// BF's knock 1 (a negative control; the result is then wrong): the sums
+// take the unrounded weight m.
+template <bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
 lloyd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmh,
              const __grid_constant__ CUtensorMap tml, const float* __restrict__ X, const float* __restrict__ m,
              const float* __restrict__ csq_pad, float* __restrict__ sums, int* __restrict__ counts,
-             float* __restrict__ cost_part, int64_t n, int d, int k, int nst, Tf32 tf) {
+             float* __restrict__ cost_part, int64_t n, int d, int k, int nst, Tf32 tf, int knock) {
   extern __shared__ unsigned char dyn_raw[];
   unsigned char* dyn = dyn_raw + ((1024 - (smem_addr(dyn_raw) & 1023)) & 1023);
   float* ring = reinterpret_cast<float*>(dyn);                         // [nst][SLOT], swizzled rows
@@ -233,10 +309,16 @@ lloyd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CU
           const int lt = rem / nks, k0 = (rem - lt * nks) * BK;
           const int row0 = (int)((blockIdx.x + (int64_t)j * gridDim.x) * BM);
           float* slot = ring + sl * SLOT;
-          mbar_expect(tma_bar + sl, SLOT * 4);
-          tma_load(slot, &tmx, k0, row0, tma_bar + sl);
-          tma_load(slot + BM * BK, &tmh, k0, lt * BN, tma_bar + sl);
-          tma_load(slot + (BM + BN) * BK, &tml, k0, lt * BN, tma_bar + sl);
+          if constexpr (BF) {  // the rows (f32) and the centres (bf16)
+            mbar_expect(tma_bar + sl, BM * BK * 4 + BN * BK * 2);
+            tma_load(slot, &tmx, k0, row0, tma_bar + sl);
+            tma_load(slot + BM * BK, &tmh, k0, lt * BN, tma_bar + sl);
+          } else {
+            mbar_expect(tma_bar + sl, SLOT * 4);
+            tma_load(slot, &tmx, k0, row0, tma_bar + sl);
+            tma_load(slot + BM * BK, &tmh, k0, lt * BN, tma_bar + sl);
+            tma_load(slot + (BM + BN) * BK, &tml, k0, lt * BN, tma_bar + sl);
+          }
         }
       }
       // take the consumers' last releases, so that no barrier is left half way
@@ -256,6 +338,8 @@ lloyd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CU
           const int64_t gr = rb * BM + r;
           if (gr >= n) break;
           const float mr = m[gr];
+          // BF: bf16(m) * bf16(x) into the sums (knock 1: the f32 m)
+          const float ms = BF && !(knock & 1) ? bf16_round(mr) : mr;
           const int a = arg_s[buf * BM + r];
           const float bs = best_s[buf * BM + r];
           const float4* xr = reinterpret_cast<const float4*>(X + gr * d);
@@ -267,7 +351,13 @@ lloyd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CU
             xsq = fmaf(v.y, v.y, xsq);
             xsq = fmaf(v.z, v.z, xsq);
             xsq = fmaf(v.w, v.w, xsq);
-            if (mr != 0.f) atomicAdd(sa + c, make_float4(mr * v.x, mr * v.y, mr * v.z, mr * v.w));
+            if (mr != 0.f) {
+              if constexpr (BF)
+                atomicAdd(sa + c, make_float4(ms * bf16_round(v.x), ms * bf16_round(v.y), ms * bf16_round(v.z),
+                                              ms * bf16_round(v.w)));
+              else
+                atomicAdd(sa + c, make_float4(mr * v.x, mr * v.y, mr * v.z, mr * v.w));
+            }
           }
           xsq = warp_sum(xsq);
           if (lane == 0) {
@@ -297,44 +387,73 @@ lloyd_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CU
       const int sl = p % nst;
       mbar_wait(tma_bar + sl, (p / nst) & 1);
       const float* slot = ring + sl * SLOT;
-      // the warp's A fragments: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-      unsigned ah[BK / 8][4], al[BK / 8][4];
-      {
+      if constexpr (BF) {
+        // the warp's A fragments, bf16 pairs: (row g, k 2t..2t+1), (g + 8,
+        // 2t..), (g, 2t + 8..), (g + 8, 2t + 8..) of each 16-feature step
+        unsigned ab[BK / 16][4];
         const unsigned char* xb = reinterpret_cast<const unsigned char*>(slot);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = r0 + 8 * (c & 1), kf = kk * 16 + 2 * t + 8 * (c >> 1);
+            const float2 v = *reinterpret_cast<const float2*>(xb + sw128(r, kf / 4) + 4 * (kf % 4));
+            ab[kk][c] = bf16_pair(v.x, v.y);
+          }
+        const __nv_bfloat16* cb = reinterpret_cast<const __nv_bfloat16*>(slot + BM * BK);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma_bf16(acc, ab[kk], desc_sw64(cb + kk * 16), kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) fence_reg(ab[kk][c]);
+      } else {
+        // the warp's A fragments: (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+        unsigned ah[BK / 8][4], al[BK / 8][4];
+        {
+          const unsigned char* xb = reinterpret_cast<const unsigned char*>(slot);
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int r = r0 + 8 * (c & 1), kf = kk * 8 + t + 4 * (c >> 1);
+              const float v = *reinterpret_cast<const float*>(xb + sw128(r, kf / 4) + 4 * (kf % 4));
+              tf.split(v, ah[kk][c], al[kk][c]);
+            }
+        }
+        // lo*hi' + hi*lo' + hi*hi' for each k = 8 step into a fresh
+        // accumulator
+        const float* ch = slot + BM * BK;
+        const float* cl = ch + BN * BK;
+#pragma unroll
+        for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t dch = desc_sw128(ch + kk * 8), dcl = desc_sw128(cl + kk * 8);
+          wgmma_tf32(acc, al[kk], dch, kk > 0);
+          wgmma_tf32(acc, ah[kk], dcl, 1);
+          wgmma_tf32(acc, ah[kk], dch, 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
 #pragma unroll
         for (int kk = 0; kk < BK / 8; ++kk)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int r = r0 + 8 * (c & 1), kf = kk * 8 + t + 4 * (c >> 1);
-            const float v = *reinterpret_cast<const float*>(xb + sw128(r, kf / 4) + 4 * (kf % 4));
-            tf.split(v, ah[kk][c], al[kk][c]);
+            fence_reg(ah[kk][c]);
+            fence_reg(al[kk][c]);
           }
       }
-      // lo*hi' + hi*lo' + hi*hi' for each k = 8 step into a fresh
-      // accumulator
-      const float* ch = slot + BM * BK;
-      const float* cl = ch + BN * BK;
-#pragma unroll
-      for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        const uint64_t dch = desc_sw128(ch + kk * 8), dcl = desc_sw128(cl + kk * 8);
-        wgmma_tf32(acc, al[kk], dch, kk > 0);
-        wgmma_tf32(acc, ah[kk], dcl, 1);
-        wgmma_tf32(acc, ah[kk], dch, 1);
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-      for (int e = 0; e < 64; ++e) fence_reg(acc[e]);
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          fence_reg(ah[kk][c]);
-          fence_reg(al[kk][c]);
-        }
       bar_arrive(bar_empty(sl), CONSUMERS + 32);
 #pragma unroll
       for (int e = 0; e < 64; ++e) run[e] += acc[e];  // fold the stage, rounded
@@ -441,6 +560,49 @@ cudaError_t row_map(CUtensorMap* map, const float* X, int64_t rows, int d) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// the map of a row-major (rows, d8) bf16 matrix (d8 % 8 == 0) in boxes of
+// 32 features x 128 rows, 64-byte swizzled, zero past the edges
+cudaError_t bf16_map(CUtensorMap* map, const __nv_bfloat16* C, int64_t rows, int d8) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)d8, (cuuint64_t)(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)d8 * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BN};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(C), dims, strides, box,
+                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The Lloyd pass after the centres' preparation: zeroed sums and counts,
+// the persistent kernel on maps tmx (rows) and tmh, tml (centres), then the
+// cost's fixed-order sum.
+template <bool BF>
+int lloyd_pass(const CUtensorMap& tmx, const CUtensorMap& tmh, const CUtensorMap& tml, const float* X,
+               const float* m, const float* csq_pad, float* sums, int* counts, float* cost, float* cost_part,
+               int64_t n, int d, int k, int stages, int grid, Tf32 tf, int knock, cudaStream_t st) {
+  const int64_t nrb = (n + BM - 1) / BM;
+  if (nrb > 0) {
+    const size_t smem = smem_bytes(stages);
+    const cudaError_t err =
+        cudaFuncSetAttribute(lloyd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    lloyd_kernel<BF><<<(unsigned)(nrb < grid ? nrb : grid), THREADS, smem, st>>>(
+        tmx, tmh, tml, X, m, csq_pad, sums, counts, cost_part, n, d, k, stages, tf, knock);
+  }
+  cost_reduce_kernel<<<1, 256, 0, st>>>(cost_part, nrb * WALK_WARPS, cost);
+  return (int)cudaGetLastError();
+}
+
+bool launch_args_ok(const float* X, const float* sums, int64_t n, int d, int k, int stages, int grid) {
+  return k >= 1 && d >= 1 && d % 4 == 0 && stages >= 2 && stages <= MAX_STAGES && grid >= 1 &&
+         reinterpret_cast<uintptr_t>(X) % 16 == 0 && reinterpret_cast<uintptr_t>(sums) % 16 == 0 &&
+         n < ((int64_t)1 << 31);  // the copies' row coordinates are 32-bit
+}
+
+unsigned split_grid(int64_t items) { return (unsigned)((items + 255) / 256 < 1024 ? (items + 255) / 256 : 1024); }
+
 }  // namespace
 
 // X (n, d), C (k, d): d % 4 == 0 and both 16-byte aligned (the tensor
@@ -451,10 +613,8 @@ extern "C" int lloyd_step_launch(const float* X, const float* m, const float* C,
                                  float* clo, float* csq_pad, float* sums, int* counts, float* cost, float* cost_part,
                                  int64_t n, int d, int k, int stages, int grid, unsigned tf32_bias,
                                  unsigned tf32_mask, void* stream) {
-  if (k < 1 || d < 1 || d % 4 != 0 || stages < 2 || stages > MAX_STAGES || grid < 1 ||
-      reinterpret_cast<uintptr_t>(X) % 16 != 0 || reinterpret_cast<uintptr_t>(chi) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(clo) % 16 != 0 || reinterpret_cast<uintptr_t>(sums) % 16 != 0 ||
-      n >= ((int64_t)1 << 31))  // the copies' row coordinates are 32-bit
+  if (!launch_args_ok(X, sums, n, d, k, stages, grid) || reinterpret_cast<uintptr_t>(chi) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(clo) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Tf32 tf{tf32_bias, tf32_mask};
@@ -462,36 +622,53 @@ extern "C" int lloyd_step_launch(const float* X, const float* m, const float* C,
   cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)k * d, st);
   cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)k, st);
   const int64_t kd = (int64_t)k * d;
-  split_centres_kernel<<<(unsigned)((kd + 255) / 256 < 1024 ? (kd + 255) / 256 : 1024), 256, 0, st>>>(
-      C, csq, chi, clo, csq_pad, kd, k, kpad, tf);
-  const int64_t nrb = (n + BM - 1) / BM;
-  if (nrb > 0) {
-    CUtensorMap tmx, tmh, tml;
-    cudaError_t err = row_map(&tmx, X, n, d);
-    if (err == cudaSuccess) err = row_map(&tmh, chi, k, d);
-    if (err == cudaSuccess) err = row_map(&tml, clo, k, d);
-    const size_t smem = smem_bytes(stages);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(lloyd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    lloyd_kernel<<<(unsigned)(nrb < grid ? nrb : grid), THREADS, smem, st>>>(tmx, tmh, tml, X, m, csq_pad, sums,
-                                                                            counts, cost_part, n, d, k, stages, tf);
-  }
-  cost_reduce_kernel<<<1, 256, 0, st>>>(cost_part, nrb * WALK_WARPS, cost);
-  return (int)cudaGetLastError();
+  split_centres_kernel<<<split_grid(kd), 256, 0, st>>>(C, csq, chi, clo, csq_pad, kd, k, kpad, tf);
+  CUtensorMap tmx, tmh, tml;  // not read where there is no row
+  cudaError_t err = cudaSuccess;
+  if (n > 0) err = row_map(&tmx, X, n, d);
+  if (n > 0 && err == cudaSuccess) err = row_map(&tmh, chi, k, d);
+  if (n > 0 && err == cudaSuccess) err = row_map(&tml, clo, k, d);
+  if (err != cudaSuccess) return (int)err;
+  return lloyd_pass<false>(tmx, tmh, tml, X, m, csq_pad, sums, counts, cost, cost_part, n, d, k, stages, grid, tf,
+                           0, st);
+}
+
+// The bf16 instance, with the same arguments but the centres' scratch: cb
+// holds (k, d8) bf16 values, d8 = d rounded up to 8, 16-byte aligned.
+// knock 1: the sums take the unrounded weight (a negative control).
+extern "C" int lloyd_step_bf16_launch(const float* X, const float* m, const float* C, const float* csq, void* cb,
+                                      float* csq_pad, float* sums, int* counts, float* cost, float* cost_part,
+                                      int64_t n, int d, int k, int stages, int grid, int knock, void* stream) {
+  const int d8 = (d + 7) / 8 * 8;
+  if (!launch_args_ok(X, sums, n, d, k, stages, grid) || reinterpret_cast<uintptr_t>(cb) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* cbf = static_cast<__nv_bfloat16*>(cb);
+  const int kpad = (k + BN - 1) / BN * BN;
+  cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)k * d, st);
+  cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)k, st);
+  round_centres_kernel<<<split_grid((int64_t)k * d8), 256, 0, st>>>(C, csq, cbf, csq_pad, d, d8, k, kpad);
+  CUtensorMap tmx, tmc;  // not read where there is no row
+  cudaError_t err = cudaSuccess;
+  if (n > 0) err = row_map(&tmx, X, n, d);
+  if (n > 0 && err == cudaSuccess) err = bf16_map(&tmc, cbf, k, d8);
+  if (err != cudaSuccess) return (int)err;
+  return lloyd_pass<true>(tmx, tmc, tmc, X, m, csq_pad, sums, counts, cost, cost_part, n, d, k, stages, grid,
+                          Tf32{0, 0}, knock, st);
 }
 
 // registers, local (spill) bytes a thread, resident blocks an SM and
-// dynamic shared memory of the kernel with `stages` slots: out[0..3]
-extern "C" int lloyd_step_attributes(int stages, int* out) {
+// dynamic shared memory of the kernel with `stages` slots (bf16: its bf16
+// instance): out[0..3]
+extern "C" int lloyd_step_attributes(int stages, int bf16, int* out) {
   if (stages < 2 || stages > MAX_STAGES) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(stages);
+  const void* fn = bf16 ? reinterpret_cast<const void*>(lloyd_kernel<true>)
+                        : reinterpret_cast<const void*>(lloyd_kernel<false>);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, lloyd_kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(lloyd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], lloyd_kernel, THREADS, smem);
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, THREADS, smem);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[3] = (int)smem;

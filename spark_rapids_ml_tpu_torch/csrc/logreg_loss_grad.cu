@@ -50,8 +50,27 @@
 // intercept gradient) in a per-block scratch slice that only it touches.
 // A second pass sums the block partials and the block losses in a fixed
 // order: deterministic, with no float atomics.
+//
+// bf16 X (the JAX package's objective_dtype=bfloat16 and a bf16-placed X;
+// logreg_loss_grad_bf16_launch): y, m, A, b and every sum stay f32. The
+// binomial main path (K = 1, d <= 1024, d % 4 == 0) takes the bf16
+// instance of logreg_rows_kernel, which loads each lane's 4 columns as one
+// 8-byte group, widens them in registers and keeps 4 rows in flight (the
+// bytes a row are half the f32 form's): 6.1 GB at 12M x 256, a bound of
+// 1.83 ms. Every other shape (multinomial up to the f32 path's 12,288
+// classes, any d, any alignment) takes the general kernel's bf16 instance:
+// simple, correct, not tuned. Both follow the wrapper's numerical
+// contract, one argument: round_ops = 1 where the JAX package would run its
+// Pallas kernel (d % 128 == 0, d <= 2,048, K <= 120), which rounds A to
+// bf16 for the logits and R to bf16 for the gradient product (the
+// intercept sums and the loss from the f32 R and logits); round_ops = 0
+// elsewhere, its XLA objective: X widened, A and R f32. A product of two
+// bf16 values is exact in f32, so either contract's only rounding past
+// the operands' is the f32 accumulation. Knock 256 (a negative control;
+// the result is then wrong) leaves R unrounded under round_ops.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -73,6 +92,8 @@ constexpr int KNOCK_NO_REDUCE = 1;
 constexpr int KNOCK_NO_PARTIAL = 2;
 constexpr int KNOCK_G_NO_X = 4;
 constexpr int KNOCK_NO_TILE_WRITE = 8;
+// the bf16 instances: R not rounded for the gradient under round_ops
+constexpr int KNOCK_NO_R_ROUND = 256;
 // ring slots of logreg_tile_kernel (a deeper ring measured no faster)
 constexpr int TILE_STAGES = 2;
 
@@ -82,18 +103,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// x rounded to bf16, to nearest with ties to even, as an f32 value
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// element i of X, f32 or (BF) bf16 widened to f32
+template <bool BF>
+__device__ __forceinline__ float x_at(const void* X, int64_t i) {
+  if constexpr (BF)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(X)[i]);
+  else
+    return static_cast<const float*>(X)[i];
+}
+
+// four bf16 values (8 bytes, 8-byte aligned) widened to f32: a bf16 value
+// is the high half of its f32
+__device__ __forceinline__ float4 bf16x4_at(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
+// BF: X in bf16, under the wrapper's round_ops contract (see the note
+// at the top).
+template <bool BF>
 __global__ void __launch_bounds__(THREADS)
-logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
+logreg_partial_kernel(const void* __restrict__ X, const float* __restrict__ y,
                       const float* __restrict__ m, const float* __restrict__ A,
                       const float* __restrict__ b, float* __restrict__ part,
                       float* __restrict__ loss_part, int64_t n, int d, int K,
-                      int multinomial, int RT, int64_t rows_per_block, int knock) {
+                      int multinomial, int RT, int64_t rows_per_block, int knock, int round_ops) {
+  const bool round_a = BF && round_ops, round_r = BF && round_ops && !(knock & KNOCK_NO_R_ROUND);
   extern __shared__ float Z[];  // [RT][K]: logits, then residuals
   __shared__ float warp_loss[WARPS];
 
@@ -119,16 +164,19 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
     for (int p = warp; p < nr * nkc; p += WARPS) {
       const int rr = p / nkc, kc = p % nkc;
       const int kn = min(KC, K - kc * KC);
-      const float* xr = X + (rb + rr) * d;
+      const int64_t xr = (rb + rr) * d;
       const float* Ak = A + (int64_t)kc * KC * d;
       float acc[KC];
 #pragma unroll
       for (int j = 0; j < KC; ++j) acc[j] = 0.f;
       for (int c = lane; c < d; c += 32) {
-        const float xv = xr[c];
+        const float xv = x_at<BF>(X, xr + c);
 #pragma unroll
         for (int j = 0; j < KC; ++j)
-          if (j < kn) acc[j] = fmaf(xv, __ldg(&Ak[(int64_t)j * d + c]), acc[j]);
+          if (j < kn) {
+            const float av = __ldg(&Ak[(int64_t)j * d + c]);
+            acc[j] = fmaf(xv, round_a ? bf16_round(av) : av, acc[j]);
+          }
       }
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
@@ -176,12 +224,13 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
       float acc[KC];
 #pragma unroll
       for (int j = 0; j < KC; ++j) acc[j] = 0.f;
+      const bool rz = round_r && c < d;  // the intercept column takes the f32 R
       for (int rr = 0; rr < nr; ++rr) {
-        const float xv = c < d && !(knock & KNOCK_G_NO_X) ? X[(rb + rr) * d + c] : 1.f;
+        const float xv = c < d && !(knock & KNOCK_G_NO_X) ? x_at<BF>(X, (rb + rr) * d + c) : 1.f;
         const float* zr = Z + rr * K + kc * KC;
 #pragma unroll
         for (int j = 0; j < KC; ++j)
-          if (j < kn) acc[j] = fmaf(zr[j], xv, acc[j]);
+          if (j < kn) acc[j] = fmaf(rz ? bf16_round(zr[j]) : zr[j], xv, acc[j]);
       }
 #pragma unroll
       for (int j = 0; j < KC; ++j)
@@ -210,13 +259,18 @@ logreg_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
 // shared memory or barrier inside the row loop. At the end the block's 8
 // warps are summed through shared memory into the block's partial, in
 // the same layout (and the same fixed-order second pass) as above.
-template <int NV, int KR>
+// BF: X in bf16 (8-byte aligned), a lane's 4 columns one 8-byte load, 4
+// rows a step, under the wrapper's round_ops contract (the note at the
+// top).
+template <int NV, int KR, bool BF>
 __global__ void __launch_bounds__(THREADS)
-logreg_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
+logreg_rows_kernel(const void* __restrict__ Xv, const float* __restrict__ y,
                    const float* __restrict__ m, const float* __restrict__ A,
                    const float* __restrict__ b, float* __restrict__ part,
                    float* __restrict__ loss_part, int64_t n, int d, int K,
-                   int multinomial) {
+                   int multinomial, int round_ops, int knock) {
+  constexpr int U = BF && NV <= 2 ? 4 : 2;  // rows loaded a step
+  const bool round_a = BF && round_ops, round_r = BF && round_ops && !(knock & KNOCK_NO_R_ROUND);
   __shared__ __align__(16) float red[WARPS][KR * NV * 128 + 8];  // +8: gb, keeps rows 16B-aligned
   __shared__ float warp_loss[WARPS];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -234,16 +288,19 @@ logreg_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
     for (int v = 0; v < NV; ++v) {
       const int c = (v * 32 + lane) * 4;
       a[k][v] = (k < K && c < d) ? *reinterpret_cast<const float4*>(A + (int64_t)k * d + c) : zero4;
+      if (round_a)
+        a[k][v] = make_float4(bf16_round(a[k][v].x), bf16_round(a[k][v].y), bf16_round(a[k][v].z),
+                              bf16_round(a[k][v].w));
       g[k][v] = zero4;
     }
   }
   float lsum = 0.f;
 
-  for (int64_t r0 = gw; r0 < n; r0 += 2 * nw) {
-    float4 x[2][NV];
-    float mr[2], yr[2];
+  for (int64_t r0 = gw; r0 < n; r0 += U * nw) {
+    float4 x[U][NV];
+    float mr[U], yr[U];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int64_t r = r0 + u * nw;
       const bool rv = r < n;
       mr[u] = rv ? __ldg(m + r) : 0.f;
@@ -251,11 +308,15 @@ logreg_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int c = (v * 32 + lane) * 4;
-        x[u][v] = (rv && c < d) ? __ldg(reinterpret_cast<const float4*>(X + r * d + c)) : zero4;
+        if constexpr (BF)
+          x[u][v] = (rv && c < d) ? bf16x4_at(static_cast<const __nv_bfloat16*>(Xv) + r * d + c) : zero4;
+        else
+          x[u][v] = (rv && c < d) ? __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(Xv) + r * d + c))
+                                  : zero4;
       }
     }
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < U; ++u) {
       float z[KR], rk[KR];
 #pragma unroll
       for (int k = 0; k < KR; ++k) {
@@ -295,12 +356,13 @@ logreg_rows_kernel(const float* __restrict__ X, const float* __restrict__ y,
 #pragma unroll
       for (int k = 0; k < KR; ++k) {
         gb[k] += rk[k];
+        const float rg = round_r ? bf16_round(rk[k]) : rk[k];  // the intercept sum keeps the f32 R
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
-          g[k][v].x = fmaf(rk[k], x[u][v].x, g[k][v].x);
-          g[k][v].y = fmaf(rk[k], x[u][v].y, g[k][v].y);
-          g[k][v].z = fmaf(rk[k], x[u][v].z, g[k][v].z);
-          g[k][v].w = fmaf(rk[k], x[u][v].w, g[k][v].w);
+          g[k][v].x = fmaf(rg, x[u][v].x, g[k][v].x);
+          g[k][v].y = fmaf(rg, x[u][v].y, g[k][v].y);
+          g[k][v].z = fmaf(rg, x[u][v].z, g[k][v].z);
+          g[k][v].w = fmaf(rg, x[u][v].w, g[k][v].w);
         }
       }
     }
@@ -2128,8 +2190,8 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
   const size_t smem = sizeof(float) * (size_t)RT * K;
 #define ROWS(NV, KR)                                                     \
   case 10 * NV + KR:                                                     \
-    logreg_rows_kernel<NV, KR><<<nblocks, THREADS, 0, st>>>(            \
-        X, y, m, A, b, part, loss_part, n, d, K, multinomial);           \
+    logreg_rows_kernel<NV, KR, false><<<nblocks, THREADS, 0, st>>>(     \
+        X, y, m, A, b, part, loss_part, n, d, K, multinomial, 0, 0);     \
     break;
 #define MROWS(NV, KP)                                                           \
   case 100 * NV + KP: {                                                         \
@@ -2174,13 +2236,53 @@ extern "C" int logreg_loss_grad_launch(const float* X, const float* y, const flo
     TILE(4, 2)
     TILE(4, 4)
     default:
-      logreg_partial_kernel<<<nblocks, THREADS, smem, st>>>(
-          X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block, knock);
+      logreg_partial_kernel<false><<<nblocks, THREADS, smem, st>>>(
+          X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block, knock, 0);
   }
 #undef TILE
 #undef MROWS_NV
 #undef MROWS
 #undef ROWS
+  const int64_t total = (int64_t)K * (d + 1) + 1;
+  if (!(knock & KNOCK_NO_REDUCE))
+    logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, st>>>(
+        part, loss_part, nblocks, gA, gb, loss, d, K, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// bf16 X (ops/logreg_kernels.py::_k3_variant_bf16): 10 * NV + 1 for
+// logreg_rows_kernel<NV, 1, true> (binomial, d % 4 == 0, d <= 128 NV, X
+// 8-byte aligned, A 16-byte aligned), 0 for the general kernel's bf16
+// instance (any shape; RT, nblocks and rows_per_block as the f32 general
+// kernel's). round_ops: the numerical contract (the note at the top);
+// knock KNOCK_NO_R_ROUND a negative control, 1 and 2 as above.
+extern "C" int logreg_loss_grad_bf16_launch(const void* X, const float* y, const float* m, const float* A,
+                                            const float* b, float* gA, float* gb, float* loss, float* part,
+                                            float* loss_part, int64_t n, int d, int K, int multinomial, int RT,
+                                            int nblocks, int64_t rows_per_block, int variant, int round_ops,
+                                            int knock, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant != 0 && (multinomial || K != 1 || d % 4 != 0 || reinterpret_cast<uintptr_t>(X) % 8 != 0 ||
+                       reinterpret_cast<uintptr_t>(A) % 16 != 0 || d > 128 * (variant / 10)))
+    return (int)cudaErrorInvalidValue;
+#define ROWS_BF(NV)                                                                                  \
+  case 10 * NV + 1:                                                                                 \
+    logreg_rows_kernel<NV, 1, true><<<nblocks, THREADS, 0, st>>>(X, y, m, A, b, part, loss_part, n, d, \
+                                                                 K, 0, round_ops, knock);            \
+    break;
+  if (!(knock & KNOCK_NO_PARTIAL)) switch (variant) {
+    ROWS_BF(1)
+    ROWS_BF(2)
+    ROWS_BF(4)
+    ROWS_BF(8)
+    case 0:
+      logreg_partial_kernel<true><<<nblocks, THREADS, sizeof(float) * (size_t)RT * K, st>>>(
+          X, y, m, A, b, part, loss_part, n, d, K, multinomial, RT, rows_per_block, knock, round_ops);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ROWS_BF
   const int64_t total = (int64_t)K * (d + 1) + 1;
   if (!(knock & KNOCK_NO_REDUCE))
     logreg_reduce_kernel<<<(unsigned)((total + 31) / 32), THREADS, 0, st>>>(
@@ -2305,12 +2407,18 @@ extern "C" int logreg_cluster_occupancy(int vec, int C, int smem_bytes, int* out
 // the tile kernel's instances, 3000 + BN, 3256 and 3900: the route's
 // logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel, 5016
 // and 5116: the cluster kernel's instances on the bulk copies alone and
-// off 16-byte alignment) or of the second pass (-1)
+// off 16-byte alignment, 10000 and 10000 + 10 NV + 1: the general and
+// rows kernels' bf16 instances) or of the second pass (-1)
 extern "C" int logreg_attributes(int variant, int smem, int* out) {
   const void* fn = nullptr;
   switch (variant) {
     case -1: fn = (const void*)logreg_reduce_kernel; break;
-    case 0: fn = (const void*)logreg_partial_kernel; break;
+    case 0: fn = (const void*)logreg_partial_kernel<false>; break;
+    case 10000: fn = (const void*)logreg_partial_kernel<true>; break;
+    case 10011: fn = (const void*)logreg_rows_kernel<1, 1, true>; break;
+    case 10021: fn = (const void*)logreg_rows_kernel<2, 1, true>; break;
+    case 10041: fn = (const void*)logreg_rows_kernel<4, 1, true>; break;
+    case 10081: fn = (const void*)logreg_rows_kernel<8, 1, true>; break;
     case 1001: fn = (const void*)logreg_tile_kernel<1, 1>; break;
     case 1002: fn = (const void*)logreg_tile_kernel<1, 2>; break;
     case 1004: fn = (const void*)logreg_tile_kernel<1, 4>; break;

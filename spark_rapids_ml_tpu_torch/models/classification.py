@@ -45,8 +45,8 @@ from ..utils.platform import resolve_device
 
 
 def _resolve_objective_dtype(params: Dict[str, Any]) -> str:
-    """Validated objective dtype (default float32; bfloat16 is accepted
-    by the JAX package and not ported yet)."""
+    """Validated objective dtype: float32 (the default) or bfloat16 (X
+    placed in bf16, K3's bf16 instances on the card)."""
     v = str(params.get("objective_dtype") or "float32")
     if v not in ("float32", "bfloat16"):
         raise ValueError(f"objective_dtype must be float32|bfloat16, got {v!r}")
@@ -217,6 +217,18 @@ class LogisticRegression(
         from ..evaluation import MulticlassClassificationEvaluator
 
         return isinstance(evaluator, MulticlassClassificationEvaluator)
+
+    def _x_placement_dtype(self) -> Optional[torch.dtype]:
+        """bf16 objective reads start at placement: X goes to the card in
+        bf16 (never converted inside ``logreg_fit``, which would hold the
+        f32 and the bf16 copy at once). Read from the ESTIMATOR-level
+        setting, as in the JAX package: the param maps of a ``fitMultiple``
+        share one placed X, so a map asking float32 over a bf16-placed X
+        still reads bf16 (solver state is f32 either way). Core narrows
+        only a float32 X, so a float64 fit is never rounded."""
+        if _resolve_objective_dtype(self._tpu_params) == "bfloat16":
+            return torch.bfloat16
+        return None
 
     def _get_fit_func(self, dataset: DataFrame) -> FitFunc:
         # the class count is read from the labels on the host, once

@@ -13,6 +13,11 @@ stream threshold) runs the same seeding over chunked passes and Lloyd as
 one chunked pass an iteration (``ops.streaming.streamed_kmeans_lloyd``),
 K2 on every chunk. Both fits time the seeding by part in the model's
 ``_fit_report``.
+
+``matmul_dtype="bfloat16"`` runs every Lloyd iteration, resident or
+streamed, under K2's bf16 contract (its bf16 instance on the card); the
+seeding, the final cost pass and the IVF quantizer stay f32, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -45,6 +50,10 @@ _CHUNK = 4096
 
 # key of the fit's provenance in a fit's result (not a model attribute)
 _FIT_REPORT = "_fit_report"
+# the streamed checkpoint identity's "matmul_dtype" (bf16 or not): the JAX
+# package's str() of its option (None, jnp.bfloat16), so that a checkpoint
+# of either package resumes in the other
+_MM_IDENTITY = {False: "None", True: "<class 'jax.numpy.bfloat16'>"}
 
 
 class _SeedTimes:
@@ -174,14 +183,13 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         return self._equal_chunk_rows(n_rows, n_dp, _CHUNK)
 
     @staticmethod
-    def _check_matmul_dtype(params: Dict[str, Any]) -> None:
-        """bf16 Lloyd operands are not ported yet; validated before any
-        seeding work."""
-        mm = params.get("matmul_dtype")
+    def _resolve_matmul_dtype(params: Dict[str, Any]) -> Optional[torch.dtype]:
+        """The validated bf16-matmul option (checked before any seeding
+        work): ``torch.bfloat16`` or None (the f32 Lloyd)."""
+        mm = params.get("matmul_dtype") or None
         if mm is not None and str(mm) not in ("float32", "bfloat16"):
             raise ValueError(f"matmul_dtype must be float32|bfloat16, got {mm!r}")
-        if str(mm) == "bfloat16":
-            raise NotImplementedError("matmul_dtype=bfloat16 is not ported yet")
+        return torch.bfloat16 if str(mm) == "bfloat16" else None
 
     # ---- seeding ---------------------------------------------------------
     # The rng consumption sequence is the JAX package's, draw for draw: the
@@ -328,7 +336,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         self, params: Dict[str, Any], n_rows: int, owner: Dict[str, Any], lloyd: Callable[..., tuple]
     ) -> Dict[str, Any]:
         """The fit both paths share: the checks, the seeding over ``owner``,
-        then ``lloyd(centers0, max_iter=, tol=, shifts=)`` -> ``(centers,
+        then ``lloyd(centers0, max_iter=, tol=, shifts=, matmul_dtype=)`` -> ``(centers,
         cost, n_iter)``. The result carries the
         fit's ``_fit_report``: the init mode, the seeding's seconds
         (``seed_s``) and its parts' (``seed_parts_s``: gathers, min-distance
@@ -339,7 +347,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         k = int(params["n_clusters"])
         if k > n_rows:
             raise ValueError(f"k={k} must be <= number of rows {n_rows}")
-        self._check_matmul_dtype(params)
+        mm = self._resolve_matmul_dtype(params)
         rng = np.random.default_rng(int(params.get("random_state") or 0))
         times = _SeedTimes()
         init = str(params.get("init"))
@@ -354,7 +362,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         t1 = time.perf_counter()
         shifts: List[float] = []
         centers, cost, n_iter = lloyd(
-            centers0, max_iter=int(params["max_iter"]), tol=float(params["tol"]), shifts=shifts
+            centers0, max_iter=int(params["max_iter"]), tol=float(params["tol"]), shifts=shifts, matmul_dtype=mm
         )
         t2 = time.perf_counter()
         return {
@@ -399,7 +407,8 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
         def _fit(inputs: StreamInputs, params: Dict[str, Any]) -> Dict[str, Any]:
             def lloyd(centers0: np.ndarray, **kw: Any) -> tuple:
                 # checkpoint identity, the JAX package's key for key
-                # ("matmul_dtype": its None, the f32 Lloyd; bf16 raises here)
+                # ("matmul_dtype": its str(mm), so that either package
+                # resumes the other's checkpoints)
                 ckpt = FitCheckpointer.from_settings(
                     "kmeans",
                     {
@@ -410,7 +419,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansParams):
                         "tol": float(params["tol"]),
                         "seed": int(params.get("random_state") or 0),
                         "init": str(params.get("init")),
-                        "matmul_dtype": str(None),
+                        "matmul_dtype": _MM_IDENTITY[kw["matmul_dtype"] is not None],
                         "centers0": array_digest(centers0),
                     },
                 )

@@ -19,6 +19,15 @@ K2 takes float32. A float64 fit (``float32_inputs=False``) takes
 :func:`chunk_stats_xla` instead, chosen by dtype in :func:`chunk_stats`
 before any kernel wrapper is called, as the JAX package's
 ``kmeans_pallas_ok`` sends f64 to the XLA branch of ``_chunk_stats``.
+
+``matmul_dtype=bfloat16`` (KMeans' ``matmul_dtype`` option) is the Pallas
+kernel's bf16 contract: the rows and centres rounded to bf16 feed the
+score product with f32 accumulation, and the row weight rounded to bf16
+times the bf16 rows feeds the sums; the norms, scores, cost and counts
+stay f32. On the card K2's bf16 instance runs it (``wgmma`` bf16
+products); its plain version rounds with ``.to(torch.bfloat16)`` and
+multiplies in f32 (a product of two bf16 values is exact in f32). A final
+cost pass always runs in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 from ..runtime import telemetry
 from . import _build
 from .knn_kernels import SMEM_PER_BLOCK, TF32_BIAS, TF32_MASK
-from .linalg import _check_cuda_f32
+from .linalg import _check_cuda_f32, bf16_round
 
 _I64, _P, _INT, _U32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 
@@ -51,37 +60,59 @@ _PLAIN_CHUNK = 65_536
 _XLA_BLOCK = 1 << 25
 
 
+def is_bf16(matmul_dtype: Optional[torch.dtype]) -> bool:
+    """True for the bf16 matmul option ``torch.bfloat16``, False for None
+    (the f32 contract); the estimator resolves its string option to one of
+    the two (``KMeans._resolve_matmul_dtype``), and anything else raises."""
+    if matmul_dtype is not None and matmul_dtype is not torch.bfloat16:
+        raise ValueError(f"matmul_dtype must be None or torch.bfloat16, got {matmul_dtype!r}")
+    return matmul_dtype is not None
+
+
 def pairwise_sq_dists(
-    x: torch.Tensor, centers: torch.Tensor, c_sq: Optional[torch.Tensor] = None
+    x: torch.Tensor, centers: torch.Tensor, c_sq: Optional[torch.Tensor] = None,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """(rows, k) squared euclidean distances ``||x||² - 2 x·c + ||c||²``,
-    clamped at 0 — the distance of seeding, transform and predict."""
+    clamped at 0 — the distance of seeding, transform and predict.
+    ``matmul_dtype`` bf16 rounds the product's operands to bf16 (the norms
+    stay unrounded), as the JAX function's option does."""
     if c_sq is None:
         c_sq = (centers * centers).sum(dim=1)
     x_sq = (x * x).sum(dim=1)
+    if is_bf16(matmul_dtype):
+        x, centers = bf16_round(x), bf16_round(centers)
     d2 = x_sq[:, None] - 2.0 * (x @ centers.T) + c_sq[None, :]
     return torch.clamp(d2, min=0.0)
 
 
 def lloyd_step_plain(
-    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, chunk: int = _PLAIN_CHUNK
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, chunk: int = _PLAIN_CHUNK,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K2, chunked over rows: ``(sums (k, d), counts
     int32 (k,), cost ())``, scoring by ``||c||² - 2 x·c`` (first index on
-    ties, ``||x||²`` in the cost only) as the Pallas kernel does."""
+    ties, ``||x||²`` in the cost only) as the Pallas kernel does. With
+    ``matmul_dtype`` bf16 the two products take bf16-rounded rows, centres
+    and weights, multiplied in ``X``'s dtype (never a bf16 ``matmul``,
+    which returns bf16 on the CPU); ``||c||²``, ``||x||²`` and the cost's
+    weight stay unrounded."""
     k, d = C.shape
+    bf = is_bf16(matmul_dtype)
     c_sq = (C * C).sum(dim=1)
+    Cm = bf16_round(C) if bf else C
     sums = torch.zeros((k, d), dtype=X.dtype, device=X.device)
     counts = torch.zeros((k,), dtype=torch.int64, device=X.device)
     cost = torch.zeros((), dtype=X.dtype, device=X.device)
     for lo in range(0, X.shape[0], chunk):
         x, mm = X[lo : lo + chunk], m[lo : lo + chunk]
-        part = c_sq[None, :] - 2.0 * (x @ C.T)
+        xm = bf16_round(x) if bf else x
+        part = c_sq[None, :] - 2.0 * (xm @ Cm.T)
         best, a = torch.min(part, dim=1)  # first index of the minimum
         x_sq = (x * x).sum(dim=1)
         cost = cost + (torch.clamp(best + x_sq, min=0.0) * mm).sum()
         counts += torch.bincount(a[mm > 0], minlength=k)
-        sums.index_add_(0, a, x * mm[:, None])
+        sums.index_add_(0, a, xm * (bf16_round(mm) if bf else mm)[:, None])
     return sums, counts.to(torch.int32), cost
 
 
@@ -132,13 +163,13 @@ def _lloyd_geometry(
 
 
 @functools.lru_cache(maxsize=None)
-def _lloyd_attributes(stages: int) -> Tuple[int, int, int, int]:
+def _lloyd_attributes(stages: int, bf16: bool = False) -> Tuple[int, int, int, int]:
     """(registers, spill bytes, resident blocks an SM, shared memory) of
-    the kernel with ``stages`` slots, from the CUDA runtime's occupancy
-    calculator."""
-    fn = _build.function("lloyd_step", "lloyd_step_attributes", [_INT, _P])
+    the kernel with ``stages`` slots (``bf16``: its bf16 instance), from
+    the CUDA runtime's occupancy calculator."""
+    fn = _build.function("lloyd_step", "lloyd_step_attributes", [_INT, _INT, _P])
     out = (ctypes.c_int * 4)()
-    _build.check("lloyd_step", fn(stages, ctypes.addressof(out)))
+    _build.check("lloyd_step", fn(stages, int(bf16), ctypes.addressof(out)))
     return tuple(out)
 
 
@@ -163,11 +194,15 @@ def lloyd_operands(X: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 
 def _lloyd_run(
-    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, geo: LloydGeometry | None = None
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, geo: LloydGeometry | None = None,
+    matmul_dtype: Optional[torch.dtype] = None, knock: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2 (the centres' split, the Lloyd pass and the cost's
     reduce) on checked card tensors with the launch ``geo`` (the routed one
-    when None)."""
+    when None); with ``matmul_dtype`` bf16 its bf16 instance (the centres
+    rounded into a bf16 (k, d8) scratch instead of split), whose ``knock``
+    1 makes the sums take the unrounded weight (a negative control: the
+    result is then wrong)."""
     n, d = X.shape
     k = C.shape[0]
     dev = X.device
@@ -179,9 +214,23 @@ def _lloyd_run(
     sums = torch.empty((k, dk), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.int32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
-    split = torch.empty((2, geo.split_floats), dtype=torch.float32, device=dev)
     csq_pad = torch.empty((geo.csq_floats,), dtype=torch.float32, device=dev)
     cost_part = torch.empty((geo.cost_floats,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if is_bf16(matmul_dtype):
+        cb = torch.empty((k, -(-dk // 8) * 8), dtype=torch.bfloat16, device=dev)
+        fn = _build.function(
+            "lloyd_step", "lloyd_step_bf16_launch",
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P],
+        )
+        code = fn(
+            Xk.data_ptr(), m.data_ptr(), Ck.data_ptr(), c_sq.data_ptr(), cb.data_ptr(), csq_pad.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), cost.data_ptr(), cost_part.data_ptr(),
+            n, dk, k, geo.stages, geo.grid, knock, stream,
+        )
+        _build.check("lloyd_step", code)
+        return (sums if dk == d else sums[:, :d].contiguous()), counts, cost[0]
+    split = torch.empty((2, geo.split_floats), dtype=torch.float32, device=dev)
     fn = _build.function(
         "lloyd_step", "lloyd_step_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _U32, _U32, _P],
@@ -189,24 +238,28 @@ def _lloyd_run(
     code = fn(
         Xk.data_ptr(), m.data_ptr(), Ck.data_ptr(), c_sq.data_ptr(), split[0].data_ptr(), split[1].data_ptr(),
         csq_pad.data_ptr(), sums.data_ptr(), counts.data_ptr(), cost.data_ptr(), cost_part.data_ptr(),
-        n, dk, k, geo.stages, geo.grid, TF32_BIAS, TF32_MASK, torch.cuda.current_stream(dev).cuda_stream,
+        n, dk, k, geo.stages, geo.grid, TF32_BIAS, TF32_MASK, stream,
     )
     _build.check("lloyd_step", code)
     return (sums if dk == d else sums[:, :d].contiguous()), counts, cost[0]
 
 
 def lloyd_step(
-    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, matmul_dtype: Optional[torch.dtype] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K2: one Lloyd accumulation pass over the rows of ``X``
     (n, d) with row weights ``m`` against centres ``C`` (k, d); returns
-    ``(sums (k, d) f32, counts (k,) int32, cost () f32)``.
+    ``(sums (k, d) f32, counts (k,) int32, cost () f32)``. ``matmul_dtype``
+    bf16: the Pallas kernel's bf16 contract (f32 ``X`` and ``C``, rounded
+    inside).
 
     A CPU tensor goes to :func:`lloyd_step_plain`; a CUDA tensor to the
-    CUDA kernel (its scores in 3xTF32 on the tensor cores), or this raises.
+    CUDA kernel (its scores in 3xTF32 on the tensor cores; the bf16
+    contract in its bf16 instance), or this raises.
     Replaces ``spark_rapids_ml_tpu/ops/kmeans_pallas.py::lloyd_step_pallas``."""
+    bf = is_bf16(matmul_dtype)
     if X.device.type == "cpu":
-        return lloyd_step_plain(X, m, C)
+        return lloyd_step_plain(X, m, C, matmul_dtype=matmul_dtype)
     _check_cuda_f32("lloyd_step", X, m, C)
     n, d = X.shape
     k = C.shape[0]
@@ -215,12 +268,14 @@ def lloyd_step(
             f"lloyd_step: shapes X {tuple(X.shape)}, m {tuple(m.shape)}, "
             f"C {tuple(C.shape)} do not agree"
         )
-    out = _lloyd_run(X, m, C)
+    out = _lloyd_run(X, m, C, matmul_dtype=matmul_dtype)
     lloyd_step.launches += 1
+    lloyd_step.bf16_launches += int(bf)
     return out
 
 
 lloyd_step.launches = 0
+lloyd_step.bf16_launches = 0  # of them, the bf16 instance's
 
 
 def lloyd_kernel_ok(dtype: torch.dtype) -> bool:
@@ -230,15 +285,19 @@ def lloyd_kernel_ok(dtype: torch.dtype) -> bool:
 
 
 def chunk_stats_xla(
-    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, matmul_dtype: Optional[torch.dtype] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's contract in ``X``'s dtype, outside any kernel: the counterpart
     of the XLA branch of the JAX package's ``_chunk_stats``: distances
     ``max(||x||² - 2x·c + ||c||², 0)``, the first index of the minimum, the
     weighted sums (``index_add_`` for the one-hot product), int32 counts and
     the cost ``Σ m·min d²``, in row blocks of at most ``_XLA_BLOCK``
-    distances. The route of float64 fits, on the CPU and the card."""
+    distances. The route of float64 fits, on the CPU and the card. With
+    ``matmul_dtype`` bf16 both products take bf16-rounded operands (rows,
+    centres, the weight), multiplied in ``X``'s dtype, as the XLA branch's
+    ``pairwise_sq_dists`` and ``stats_dot`` do."""
     k, d = C.shape
+    bf = is_bf16(matmul_dtype)
     c_sq = (C * C).sum(dim=1)
     sums = torch.zeros((k, d), dtype=X.dtype, device=X.device)
     counts = torch.zeros((k,), dtype=torch.int64, device=X.device)
@@ -246,22 +305,23 @@ def chunk_stats_xla(
     rows = max(1, _XLA_BLOCK // max(1, k))
     for lo in range(0, X.shape[0], rows):
         x, mm = X[lo : lo + rows], m[lo : lo + rows]
-        best, a = torch.min(pairwise_sq_dists(x, C, c_sq), dim=1)
+        best, a = torch.min(pairwise_sq_dists(x, C, c_sq, matmul_dtype), dim=1)
+        sums.index_add_(0, a, bf16_round(x) * bf16_round(mm)[:, None] if bf else x * mm[:, None])
         cost = cost + (best * mm).sum()
         counts += torch.bincount(a[mm > 0], minlength=k)
-        sums.index_add_(0, a, x * mm[:, None])
     return sums, counts.to(torch.int32), cost
 
 
 def chunk_stats(
-    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor
+    X: torch.Tensor, m: torch.Tensor, C: torch.Tensor, matmul_dtype: Optional[torch.dtype] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Lloyd accumulation pass ``(sums, counts, cost)`` (the JAX
     package's ``_chunk_stats``): kernel K2 for float32 rows, the XLA
-    branch's counterpart (:func:`chunk_stats_xla`) for float64."""
+    branch's counterpart (:func:`chunk_stats_xla`) for float64, either
+    under ``matmul_dtype``."""
     if lloyd_kernel_ok(X.dtype):
-        return lloyd_step(X, m, C)
-    return chunk_stats_xla(X, m, C)
+        return lloyd_step(X, m, C, matmul_dtype=matmul_dtype)
+    return chunk_stats_xla(X, m, C, matmul_dtype=matmul_dtype)
 
 
 def kmeans_lloyd(
@@ -272,6 +332,7 @@ def kmeans_lloyd(
     max_iter: int,
     tol: float,
     shifts: Optional[list] = None,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, float, int]:
     """Lloyd to convergence: ``(centers, cost, n_iters)``.
 
@@ -280,7 +341,10 @@ def kmeans_lloyd(
     empty cluster keeps its centre (Spark behaviour); a final cost pass at
     the converged centres follows the loop. Each pass over the rows is one
     :func:`chunk_stats`: a launch of kernel K2 (the JAX package's
-    ``_chunk_stats`` at its Pallas branch), or its float64 route."""
+    ``_chunk_stats`` at its Pallas branch), or its float64 route, each
+    iteration's under ``matmul_dtype``; the final cost pass always in f32
+    (the bf16 distance expansion cancels near the centres, as the JAX
+    package notes)."""
     centers = centers0
     shift = float("inf")
     it = 0
@@ -288,7 +352,7 @@ def kmeans_lloyd(
         # a span a pass, as the streamed Lloyd opens (the JAX package's
         # resident Lloyd is one compiled loop, with none)
         with telemetry.span("kmeans.lloyd_pass", iteration=it) as p_span:
-            sums, counts, _ = chunk_stats(X, mask, centers)
+            sums, counts, _ = chunk_stats(X, mask, centers, matmul_dtype=matmul_dtype)
             p_span.fence(sums)
         countsf = counts.to(sums.dtype)
         safe = torch.clamp(countsf, min=1.0)

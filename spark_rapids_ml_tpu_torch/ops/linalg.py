@@ -42,11 +42,26 @@ _GRAM_SPLIT_ROWS_MAX = 1 << 30
 _MOMENT_CHUNK = 1 << 20
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even), back in its dtype:
+    a bf16 contract's operand, which a product in f32 or f64 then takes
+    exactly (never a bf16 ``matmul``, which returns bf16 on the CPU)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _rows_as(X: torch.Tensor, lo: int, dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``[lo, lo + _MOMENT_CHUNK)`` of ``X`` in ``dtype`` (a bf16 X
+    widened a chunk at a time, never whole; an X already in ``dtype`` is
+    sliced, not copied)."""
+    return X[lo : lo + _MOMENT_CHUNK].to(dtype)
+
+
 def masked_mean(X: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(column means, valid count) under a row-validity mask, in row chunks."""
+    """(column means, valid count) under a row-validity mask, in row chunks
+    in the mask's dtype (a bf16 ``X`` widened chunk by chunk)."""
     n = mask.sum()
     s = sum(
-        mask[lo : lo + _MOMENT_CHUNK] @ X[lo : lo + _MOMENT_CHUNK]
+        mask[lo : lo + _MOMENT_CHUNK] @ _rows_as(X, lo, mask.dtype)
         for lo in range(0, X.shape[0], _MOMENT_CHUNK)
     )
     return s / n, n
@@ -245,7 +260,7 @@ def standardize_moments(
     the sample std that LogisticRegression standardizes by."""
     mean, n = masked_mean(X, mask)
     sq = sum(
-        mask[lo : lo + _MOMENT_CHUNK] @ (X[lo : lo + _MOMENT_CHUNK] - mean[None, :]) ** 2
+        mask[lo : lo + _MOMENT_CHUNK] @ (_rows_as(X, lo, mask.dtype) - mean[None, :]) ** 2
         for lo in range(0, X.shape[0], _MOMENT_CHUNK)
     )
     var = sq / torch.clamp(n - ddof, min=1.0)

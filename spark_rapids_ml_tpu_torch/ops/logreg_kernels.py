@@ -10,11 +10,21 @@ JAX package's custom VJP). ``logreg_fit`` keeps the JAX package's
 standardization-as-reparametrization, intercept handling and multinomial
 intercept centring.
 
-K3 takes float32. A float64 fit (``float32_inputs=False``) takes
-:func:`data_loss_xla` instead, chosen by dtype in
-:func:`make_fused_data_loss` before any kernel wrapper is called, as the
-JAX package's ``logreg_pallas_ok`` sends f64 to its XLA logits: the masked
-log-loss of the logits ``X Aᵀ + b`` in float64, differentiated by autograd.
+K3 takes float32 or bf16 X (y, m, A and b f32). A float64 fit
+(``float32_inputs=False``) takes :func:`data_loss_xla` instead, chosen by
+dtype in :func:`make_fused_data_loss` before any kernel wrapper is called,
+as the JAX package's ``logreg_pallas_ok`` sends f64 to its XLA logits: the
+masked log-loss of the logits ``X Aᵀ + b`` in float64, differentiated by
+autograd.
+
+bf16 X (``objective_dtype="bfloat16"``, or X placed in bf16) keeps the JAX
+package's numerics at every shape, one wrapper-chosen argument
+(:func:`bf16_round_ops`): where the JAX package runs its Pallas kernel
+(d % 128 == 0, d ≤ 2,048, K ≤ 120) A and R are rounded to bf16 before the
+two products, as ``_loss_grad_pallas`` does; elsewhere (its XLA objective)
+X is widened and A and R stay f32. The sums, the intercept gradient and the
+loss stay f32 either way. On the card the binomial main path takes the
+rows kernel's bf16 instance, every other shape the general kernel's.
 
 :func:`logreg_fit_batched` is the gang fit (the JAX package's
 ``logreg_fit_batched``): B solves whose every evaluation shares one product
@@ -31,11 +41,26 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from . import linalg as _linalg
 from .knn_kernels import TF32_BIAS, TF32_MASK
 from .lbfgs import minimize_lbfgs, minimize_lbfgs_batched
-from .linalg import _check_cuda_f32, masked_mean, standardize_moments
+from .linalg import _check_cuda_f32, _rows_as, bf16_round, masked_mean, standardize_moments
+from ..utils.logging import get_logger
 
 _I64, _P = ctypes.c_int64, ctypes.c_void_p
+
+# the JAX package's ``logreg_pallas_ok`` shape terms, which decide K3's bf16
+# numerical contract: lane-aligned d up to 2,048, and the 8-padded class
+# block plus the loss lane within 128 lanes (K <= 120)
+_PALLAS_LANES = 128
+_PALLAS_MAX_D = 2048
+# an f32 X the bf16 objective may convert inside the fit (the JAX
+# package's guard: past it the convert would hold both copies at once, so
+# the fit reads f32 and warns; pass X placed in bf16 instead)
+BF16_CONVERT_MAX_BYTES = 1 << 30
+# launcher codes of K3's bf16 instances in ``logreg_loss_grad.variants``:
+# this plus the instance's code (_k3_variant_bf16)
+BF16_VARIANT = 10_000
 
 # csrc/logreg_loss_grad.cu limits: rows per tile and the (rows, K) logit
 # tile kept in at most 48 KB of shared memory
@@ -336,13 +361,41 @@ def _k3_variant(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
     return 0
 
 
+def _k3_variant_bf16(d: int, K: int, multinomial: bool, aligned: bool = True) -> int:
+    """Which bf16 instance of ``csrc/logreg_loss_grad.cu`` takes a (d, K)
+    pass of bf16 X, as the bf16 launcher's code: ``10·NV + 1`` for the rows
+    kernel (the binomial form, d ≤ 1,024 a multiple of 4, X 8-byte and A
+    16-byte aligned: ``aligned``), 0 for the general kernel (every other
+    shape)."""
+    if aligned and K == 1 and not multinomial and d % 4 == 0 and 1 <= d <= 1024:
+        nv = -(-d // 128)
+        return 10 * (1 if nv <= 1 else 2 if nv <= 2 else 4 if nv <= 4 else 8) + 1
+    return 0
+
+
+def bf16_round_ops(d: int, K: int) -> bool:
+    """K3's numerical contract for a bf16 X of ``d`` features and ``K``
+    classes (1 for the binomial form): True where the JAX package would run
+    its Pallas kernel (its ``logreg_pallas_ok`` shape terms), which rounds A
+    and R to bf16 before its two products; False where it runs its XLA
+    objective (X widened, A and R f32). A numerical contract, not a gate:
+    the kernels run every shape under either."""
+    return d % _PALLAS_LANES == 0 and d <= _PALLAS_MAX_D and -(-K // 8) * 8 + 1 <= _PALLAS_LANES
+
+
 def logreg_loss_grad_plain(
     X: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
-    A: torch.Tensor, b: torch.Tensor, multinomial: bool,
+    A: torch.Tensor, b: torch.Tensor, multinomial: bool, round_ops: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K3: ``(Σ m·logloss, gA (K, d), gb (K,))`` with
-    logits ``X Aᵀ + b`` and residuals ``R = (p - onehot(y))·m``."""
-    z = X @ A.T + b[None, :]
+    logits ``X Aᵀ + b`` and residuals ``R = (p - onehot(y))·m``. A bf16
+    ``X`` is widened to A's dtype (never a bf16 ``matmul``: it returns bf16
+    on the CPU); ``round_ops`` (:func:`bf16_round_ops`) rounds A to bf16
+    for the logits and R for ``gA``, ``gb`` and the loss keeping the
+    unrounded values."""
+    if X.dtype == torch.bfloat16:
+        X = X.to(A.dtype)
+    z = X @ (bf16_round(A) if round_ops else A).T + b[None, :]
     if multinomial:
         yi = y.to(torch.int64)
         lse = torch.logsumexp(z, dim=1)
@@ -353,7 +406,7 @@ def logreg_loss_grad_plain(
         z1 = z[:, 0]
         ll = torch.nn.functional.softplus(z1) - y * z1
         R = ((torch.sigmoid(z1) - y) * m)[:, None]
-    return (ll * m).sum(), R.T @ X, R.sum(dim=0)
+    return (ll * m).sum(), (bf16_round(R) if round_ops else R).T @ X, R.sum(dim=0)
 
 
 def logreg_loss_grad(
@@ -364,17 +417,25 @@ def logreg_loss_grad(
     in one pass over ``X`` (n, d); ``A`` (K, d), ``b`` (K,), K = 1 for the
     binomial (sigmoid) form.
 
+    ``X`` may be bf16 (y, m, A, b f32): the contract :func:`bf16_round_ops`
+    picks from its shape.
+
     A CPU tensor goes to :func:`logreg_loss_grad_plain`; a CUDA tensor to
-    the CUDA kernel, or this raises (bf16 X included: not ported yet; more
+    the CUDA kernel (a bf16 X to a bf16 instance), or this raises (more
     than ``_ROUTE_TILED_MAX_K`` classes).
     Replaces ``spark_rapids_ml_tpu/ops/logreg_pallas.py::_loss_grad_pallas``."""
+    round_ops = X.dtype == torch.bfloat16 and bf16_round_ops(X.shape[1], A.shape[0])
     if X.device.type == "cpu":
-        return logreg_loss_grad_plain(X, y, m, A, b, multinomial)
+        return logreg_loss_grad_plain(X, y, m, A, b, multinomial, round_ops)
     if A.shape[0] > _ROUTE_TILED_MAX_K:
         raise ValueError(f"logreg_loss_grad: K = {A.shape[0]} classes exceed the kernels' {_ROUTE_TILED_MAX_K:,}")
-    variant = _k3_variant(X.shape[1], A.shape[0], multinomial,
-                          X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
-    out = _logreg_run(X, y, m, A, b, multinomial, variant)
+    if X.dtype == torch.bfloat16:
+        variant = BF16_VARIANT + _k3_variant_bf16(X.shape[1], A.shape[0], multinomial,
+                                                  X.data_ptr() % 8 == 0 and A.data_ptr() % 16 == 0)
+    else:
+        variant = _k3_variant(X.shape[1], A.shape[0], multinomial,
+                              X.data_ptr() % 16 == 0 and A.data_ptr() % 16 == 0)
+    out = _logreg_run(X, y, m, A, b, multinomial, variant, round_ops=round_ops)
     logreg_loss_grad.launches += 1
     logreg_loss_grad.variants[variant] = logreg_loss_grad.variants.get(variant, 0) + 1
     return out
@@ -383,7 +444,7 @@ def logreg_loss_grad(
 def _logreg_run(
     X: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
     A: torch.Tensor, b: torch.Tensor, multinomial: bool, variant: int,
-    knock: int = 0,
+    knock: int = 0, round_ops: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K3 on card tensors: the kernel ``variant`` names (the tile
     kernel or the route at its routed geometry), then the second pass.
@@ -395,8 +456,17 @@ def _logreg_run(
     control; the cluster kernel: 4, its gradient stage without its reads
     of the staged rows, 64: its cluster exchange knocked out, 128: the
     last rank's partial left out of every logit, a negative control); any
-    bit makes the result wrong."""
-    _check_cuda_f32("logreg_loss_grad", X, y, m, A, b)
+    bit makes the result wrong. A bf16 ``X`` takes the bf16 instance
+    ``variant`` - ``BF16_VARIANT`` (:func:`_k3_variant_bf16`) under the
+    contract ``round_ops``, whose knock 256 leaves R unrounded (a negative
+    control)."""
+    bf = X.dtype == torch.bfloat16
+    _check_cuda_f32("logreg_loss_grad", *((y, m, A, b) if bf else (X, y, m, A, b)))
+    if bf:
+        if X.device != y.device or not X.is_contiguous():
+            raise ValueError("logreg_loss_grad: a bf16 X must be contiguous, on the device of y, m, A and b")
+        if variant - BF16_VARIANT not in (0, 11, 21, 41, 81):
+            raise ValueError(f"logreg_loss_grad: {variant} is no bf16 instance")
     n, d = X.shape
     K = A.shape[0]
     if y.shape != (n,) or m.shape != (n,) or A.shape[1] != d or b.shape != (K,):
@@ -406,11 +476,11 @@ def _logreg_run(
         )
     if not multinomial and K != 1:
         raise ValueError("logreg_loss_grad: the binomial form takes K = 1")
-    if variant >= _CLUSTER:
+    if variant >= _CLUSTER and not bf:
         if multinomial:
             raise ValueError(f"logreg_loss_grad: the cluster kernel {variant} takes the binomial form only")
         return _cluster_run(X, y, m, A, b, variant, knock)
-    if variant >= 3000:
+    if variant >= 3000 and not bf:
         if not multinomial or _route_code(K) != variant:
             raise ValueError(f"logreg_loss_grad: the route {variant} does not take K = {K}")
         return _route_run(X, y, m, A, b, knock)
@@ -424,15 +494,16 @@ def _logreg_run(
     per_block = K * (d + 1)
     rows = 0
     geo = TileGeometry(0, 0, 0, 0, 0, 0)
-    if variant >= 1000:  # one resident block per SM walks the row tiles
+    code = variant - BF16_VARIANT if bf else variant
+    if code >= 1000:  # one resident block per SM walks the row tiles
         geo = _tile_geometry(n, d, K, multinomial, sms)
         if geo is None or variant % 1000 != geo.ipt or variant // 1000 != 1 + multinomial:
             raise ValueError(f"logreg_loss_grad: the tile kernel {variant} does not take d = {d}, K = {K}")
         nblocks = geo.grid
-    elif variant >= 100:  # one resident block per SM walks the row groups
+    elif code >= 100:  # one resident block per SM walks the row groups
         groups = -(-max(n, 1) // (4 if K <= 8 else 2))  # rows a group
         nblocks = max(1, min(-(-groups // _MROWS_WARPS), sms))
-    elif variant:
+    elif code:
         nblocks = max(1, min(-(-max(n, 1) // 16), 4 * sms))
     else:
         nblocks = max(1, min(-(-max(n, 1) // rt), 8 * sms, _LOGREG_SCRATCH // (4 * per_block)))
@@ -443,6 +514,18 @@ def _logreg_run(
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
     part = torch.empty((nblocks, per_block), dtype=torch.float32, device=dev)
     loss_part = torch.empty((nblocks,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf:
+        fn = _build.function(
+            "logreg_loss_grad", "logreg_loss_grad_bf16_launch",
+            [_P] * 10 + [_I64] + [ctypes.c_int] * 5 + [_I64] + [ctypes.c_int] * 3 + [_P],
+        )
+        _build.check("logreg_loss_grad", fn(
+            X.data_ptr(), y.data_ptr(), m.data_ptr(), A.data_ptr(), b.data_ptr(), gA.data_ptr(), gb.data_ptr(),
+            loss.data_ptr(), part.data_ptr(), loss_part.data_ptr(), n, d, K, int(multinomial), rt, nblocks, rows,
+            code, int(round_ops), knock, stream,
+        ))
+        return loss[0], gA, gb
     fn = _build.function(
         "logreg_loss_grad", "logreg_loss_grad_launch",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_int, ctypes.c_int,
@@ -454,7 +537,7 @@ def _logreg_run(
         X.data_ptr(), y.data_ptr(), m.data_ptr(), A.data_ptr(), b.data_ptr(),
         gA.data_ptr(), gb.data_ptr(), loss.data_ptr(), part.data_ptr(),
         loss_part.data_ptr(), n, d, K, int(multinomial), rt, nblocks, rows, variant,
-        geo.BM, vec, geo.smem, knock, torch.cuda.current_stream(dev).cuda_stream,
+        geo.BM, vec, geo.smem, knock, stream,
     )
     _build.check("logreg_loss_grad", code)
     return loss[0], gA, gb
@@ -571,7 +654,8 @@ def _logreg_attributes(variant: int, smem: int = 0) -> Tuple[int, int, int, int]
     IPT: the tile kernel's instances, 3000 + BN, 3256 and 3900: the
     route's logits kernel, 4000 + BN, 4256 and 4900: its gradient kernel,
     5016 and 5116: the cluster kernel's instances on the bulk copies alone
-    and off 16-byte alignment, -1: the second pass) at
+    and off 16-byte alignment, ``BF16_VARIANT`` plus 0 or 10·NV + 1: the
+    general and rows kernels' bf16 instances, -1: the second pass) at
     ``smem`` bytes of dynamic shared memory, from
     the CUDA runtime's occupancy calculator."""
     fn = _build.function("logreg_loss_grad", "logreg_attributes", [ctypes.c_int, ctypes.c_int, _P])
@@ -602,11 +686,45 @@ class _FusedDataLoss(torch.autograd.Function):
         return g * gA, g * gb, None, None, None, None
 
 
+class _WidenedRowsProduct(torch.autograd.Function):
+    """``X.to(M.dtype) @ M`` for a narrower X (bf16), widened a block of
+    rows at a time in both passes: no whole widened copy of X is made or
+    saved for the backward pass, which gives M's gradient only (X is
+    data)."""
+
+    @staticmethod
+    def forward(ctx, X, M):  # type: ignore[override]
+        out = torch.empty((X.shape[0], M.shape[1]), dtype=M.dtype, device=M.device)
+        for lo in range(0, X.shape[0], _linalg._MOMENT_CHUNK):
+            blk = _rows_as(X, lo, M.dtype)
+            torch.matmul(blk, M, out=out[lo : lo + blk.shape[0]])
+        ctx.save_for_backward(X)
+        return out
+
+    @staticmethod
+    def backward(ctx, G):  # type: ignore[override]
+        (X,) = ctx.saved_tensors
+        gM = sum(
+            _rows_as(X, lo, G.dtype).T @ G[lo : lo + _linalg._MOMENT_CHUNK]
+            for lo in range(0, X.shape[0], _linalg._MOMENT_CHUNK)
+        )
+        return None, gM
+
+
+def widened_product(X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``X @ M`` in M's dtype: as is where X is in it already, else (a bf16
+    X) through :class:`_WidenedRowsProduct`, whose widening stays one
+    block of rows. The bf16 gang's logits product (the JAX package widens
+    inside the dot)."""
+    if X.dtype == M.dtype:
+        return X @ M
+    return _WidenedRowsProduct.apply(X, M)
+
+
 def logreg_kernel_ok(dtype: torch.dtype) -> bool:
-    """True where K3 takes a data pass of this dtype: float32 only (the JAX
-    package's ``logreg_pallas_ok`` gate on dtype; bf16 operands are not
-    ported)."""
-    return dtype == torch.float32
+    """True where K3 takes a data pass of this dtype: float32 and bf16 X
+    (the JAX package's ``logreg_pallas_ok`` gate on dtype)."""
+    return dtype in (torch.float32, torch.bfloat16)
 
 
 def data_loss_xla(
@@ -644,12 +762,36 @@ def logreg_loss_grad_xla(
     return loss.detach(), gA, gb
 
 
+def objective_operand(X: torch.Tensor, objective_dtype: str, warn: bool = True) -> torch.Tensor:
+    """The X copy the objective's data passes read (the JAX package's
+    ``X_obj``): bf16 under ``objective_dtype="bfloat16"`` for an f32 X of
+    at most ``BF16_CONVERT_MAX_BYTES`` (converted here), X itself
+    otherwise: a bf16 X as it is placed, an f64 X never narrowed, and past
+    the guard an f32 X read in f32 (with a warning where ``warn``: the
+    convert would hold both copies at once; place X in bf16 instead).
+    Raises on any ``objective_dtype`` but float32 and bfloat16."""
+    if objective_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"objective_dtype must be float32|bfloat16, got {objective_dtype!r}")
+    if objective_dtype != "bfloat16" or X.dtype != torch.float32:
+        return X
+    nbytes = X.numel() * X.element_size()
+    if nbytes <= BF16_CONVERT_MAX_BYTES:
+        return X.to(torch.bfloat16)
+    if warn:
+        get_logger("logreg_fit").warning(
+            "objective_dtype=bfloat16 requested for a %.1f GB f32 X: running f32 reads instead (an in-program "
+            "convert would double X's residency). Pass X placed in bf16 to get bf16 reads at this scale.",
+            nbytes / 2**30,
+        )
+    return X
+
+
 def make_fused_data_loss(
     X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, multinomial: bool
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``f(Aeff, beff) -> Σ m·logloss`` whose value and gradient cost one
-    data pass (kernel K3 on the card, its plain version on the CPU); for
-    float64 ``X`` the autograd route :func:`data_loss_xla`."""
+    data pass (kernel K3 on the card, its plain version on the CPU; f32 or
+    bf16 ``X``); for float64 ``X`` the autograd route :func:`data_loss_xla`."""
     if not logreg_kernel_ok(X.dtype):
         return data_loss_xla(X, y, mask, multinomial)
 
@@ -685,12 +827,11 @@ def logreg_fit(
     reparametrization: the solver works in standardized-coefficient space
     and the affine map folds into the logits (``to_original``), so X is
     never copied. The fit runs in ``X``'s dtype: float64 ``X`` takes the
-    autograd objective and an L-BFGS in float64."""
-    if objective_dtype != "float32":
-        raise NotImplementedError(
-            f"objective_dtype={objective_dtype!r}: only float32 is ported"
-        )
-    dtype = X.dtype
+    autograd objective and an L-BFGS in float64. A bf16 ``X`` fits in f32,
+    and ``objective_dtype="bfloat16"`` reads a bf16 copy of an f32 ``X``
+    (:func:`objective_operand`); the moments come from X as it arrived."""
+    X_obj = objective_operand(X, objective_dtype)
+    dtype = torch.float32 if X.dtype == torch.bfloat16 else X.dtype
     d = X.shape[1]
     n = mask.sum()
     yf = y.to(dtype)
@@ -722,7 +863,7 @@ def logreg_fit(
         torch.ones((n_coef,), dtype=dtype, device=X.device),
         torch.zeros((p - n_coef,), dtype=dtype, device=X.device),
     ])
-    fused_data = make_fused_data_loss(X, yf, mask, multinomial)
+    fused_data = make_fused_data_loss(X_obj, yf, mask, multinomial)
 
     def smooth_loss(wflat: torch.Tensor) -> torch.Tensor:
         A, b = unpack(wflat)
@@ -790,12 +931,13 @@ def logreg_fit_batched(
 
     Returns ``coef_`` (B, K, d), ``intercept_`` (B, K), and ``n_iter``,
     ``objective`` and ``converged`` of shape (B,). The gang runs in X's
-    dtype (float32, or float64 under ``float32_inputs=False``)."""
-    if objective_dtype != "float32":
-        raise NotImplementedError(
-            f"objective_dtype={objective_dtype!r}: only float32 is ported"
-        )
-    dtype, device = X.dtype, X.device
+    dtype (float32, or float64 under ``float32_inputs=False``; f32 for a
+    bf16 X). Under ``objective_dtype="bfloat16"`` its product reads the
+    bf16 copy of :func:`objective_operand` (no warning past the guard, as
+    in the JAX package) widened a block of rows at a time in the product
+    (:func:`widened_product`); the weights stay f32."""
+    X_obj = objective_operand(X, objective_dtype, warn=False)
+    dtype, device = (torch.float32 if X.dtype == torch.bfloat16 else X.dtype), X.device
     n_rows, d = X.shape
     l1 = torch.as_tensor(l1, dtype=dtype, device=device)
     l2 = torch.as_tensor(l2, dtype=dtype, device=device)
@@ -859,7 +1001,7 @@ def logreg_fit_batched(
         # the shared data pass: one product feeds all B lanes' logits. A
         # plain matmul, no port of K3: K3 fuses one model's loss, and B
         # binomial lanes are B sigmoids, not one softmax
-        logits = (X @ Aeff.reshape(B * K, d).T).reshape(n_rows, B, K) + beff[None, :, :]
+        logits = widened_product(X_obj, Aeff.reshape(B * K, d).T).reshape(n_rows, B, K) + beff[None, :, :]
         if multinomial:
             ll = torch.logsumexp(logits, dim=2) - torch.gather(logits, 2, ysel_idx)[:, :, 0]  # (n, B)
         else:

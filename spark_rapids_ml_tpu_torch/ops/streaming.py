@@ -1056,15 +1056,17 @@ _MIN_D2_INFLIGHT = 2 * _SYNC_EVERY
 
 
 def kmeans_chunk_step(
-    acc: Dict[str, torch.Tensor], X: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor
+    acc: Dict[str, torch.Tensor], X: torch.Tensor, mask: torch.Tensor, centers: torch.Tensor,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
     """Fold one chunk's assignment statistics into ``acc`` (``sums`` in the
     chunk dtype, ``counts`` int32, ``cost``) in place: kernel K2
     (``ops.kmeans_kernels.lloyd_step``) on the card, its plain version on
     the CPU; a float64 chunk ``chunk_stats_xla`` on either
-    (``ops.kmeans_kernels.chunk_stats``). Counts stay int32: a float count
-    drops +1 increments past 2²⁴ rows."""
-    sums, counts, cost = chunk_stats(X, mask, centers)
+    (``ops.kmeans_kernels.chunk_stats``), each under ``matmul_dtype`` (the
+    resident Lloyd's bf16 option, the same contract). Counts stay int32: a
+    float count drops +1 increments past 2²⁴ rows."""
+    sums, counts, cost = chunk_stats(X, mask, centers, matmul_dtype=matmul_dtype)
     acc["sums"] += sums
     acc["counts"] += counts
     acc["cost"] += cost
@@ -1103,6 +1105,7 @@ def streamed_kmeans_lloyd(
     tol: float,
     shifts: Optional[list] = None,
     checkpointer=None,
+    matmul_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[np.ndarray, float, int]:
     """Out-of-core Lloyd: one chunked pass an iteration (a ``lloyd`` pass
     in the ingest report) folds every chunk through K2 into ``(sums,
@@ -1112,7 +1115,9 @@ def streamed_kmeans_lloyd(
     rule), then the centres return to the card in the chunk dtype. The loop
     runs while ``it < max_iter`` and the largest squared centre shift of the
     last iteration is above ``tol²`` (each one appended to ``shifts``
-    where given); a final ``cost`` pass at the last centres follows.
+    where given); a final ``cost`` pass at the last centres follows. The
+    Lloyd passes run under ``matmul_dtype``; the cost pass always in f32
+    (the JAX package's rule).
     Returns ``(centers, cost, n_iter)`` as host values.
 
     Each iteration is an ``sgd:epoch`` fault site. ``checkpointer`` (a
@@ -1127,7 +1132,7 @@ def streamed_kmeans_lloyd(
     k, d = centers0.shape
     centers = np.asarray(centers0, np_dtype)
 
-    def one_pass(cts: np.ndarray, name: str, iteration: Optional[int]) -> Dict[str, torch.Tensor]:
+    def one_pass(cts: np.ndarray, name: str, iteration: Optional[int], mm=None) -> Dict[str, torch.Tensor]:
         cts_d = _on_device(cts, device, dtype)
         acc = {"sums": torch.zeros((k, d), dtype=dtype, device=device),
                "counts": torch.zeros((k,), dtype=torch.int32, device=device),
@@ -1137,7 +1142,7 @@ def streamed_kmeans_lloyd(
             with contextlib.closing(iter_device_chunks(source, device, chunk_rows, dtype, need_y=False,
                                                        need_w=False, pass_name=name)) as chunks:
                 for _, dev in chunks:
-                    kmeans_chunk_step(acc, dev["X"], dev["mask"], cts_d)
+                    kmeans_chunk_step(acc, dev["X"], dev["mask"], cts_d, matmul_dtype=mm)
                     guard.tick(dev)
                 guard.flush()
             p_span.fence(acc)
@@ -1154,7 +1159,7 @@ def streamed_kmeans_lloyd(
         counters.note("resumed_from", it)
     while it < max_iter and prev_shift > tol * tol:
         fault_site("sgd:epoch")
-        acc = one_pass(centers, "lloyd", it)
+        acc = one_pass(centers, "lloyd", it, matmul_dtype)
         sums = acc["sums"].cpu().numpy().astype(np.float64)
         counts = acc["counts"].cpu().numpy()
         old = centers.astype(np.float64)

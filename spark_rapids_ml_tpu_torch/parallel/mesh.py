@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,7 +131,7 @@ def pinned_ring(device: torch.device) -> PinnedRing:
 
 
 def shard_rows(
-    x: np.ndarray, device: torch.device, row_multiple: int = 1
+    x: np.ndarray, device: torch.device, row_multiple: int = 1, dtype: Optional[torch.dtype] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Copy host rows onto ``device``, zero-padded to a ``row_multiple``.
 
@@ -141,16 +141,33 @@ def shard_rows(
     device and filled in place, so no padded host copy is made (at
     12M x 256 f32 that copy alone would be 12 GB). On a card the rows go
     through the :class:`PinnedRing`, and the current stream waits for the
-    copy before anything it runs next reads them."""
+    copy before anything it runs next reads them. ``dtype`` (e.g. bf16)
+    places the rows in that dtype instead: on a card a block of
+    ``_CAST_BYTES`` of host rows at a time is copied and cast there, so the
+    card never holds the rows in both dtypes."""
     x = np.ascontiguousarray(x)
     n = x.shape[0]
     n_pad = -(-max(n, 1) // row_multiple) * row_multiple
-    xd = torch.empty((n_pad,) + x.shape[1:], dtype=_torch_dtype(x.dtype), device=device)
-    _fill(xd[:n], x)
+    host = _torch_dtype(x.dtype)
+    xd = torch.empty((n_pad,) + x.shape[1:], dtype=dtype or host, device=device)
+    if xd.dtype == host or xd.device.type != "cuda":
+        _fill(xd[:n], x)  # the CPU's copy_ casts
+    else:
+        rows = max(1, _CAST_BYTES // max(1, x[:1].nbytes))
+        tmp = torch.empty((min(rows, max(n, 1)),) + x.shape[1:], dtype=host, device=device)
+        for lo in range(0, n, rows):
+            hi = min(n, lo + rows)
+            _fill(tmp[: hi - lo], x[lo:hi])  # the ring's copy first waits for the last cast
+            xd[lo:hi].copy_(tmp[: hi - lo])
+        del tmp
     xd[n:].zero_()
     mask = torch.zeros((n_pad,), dtype=torch.float64 if xd.dtype == torch.float64 else torch.float32, device=device)
     mask[:n] = 1.0
     return xd, mask
+
+
+# host bytes a block of rows placed in another dtype is copied and cast in
+_CAST_BYTES = 64 << 20
 
 
 def shard_aligned(v: np.ndarray, device: torch.device, total_rows: int) -> torch.Tensor:

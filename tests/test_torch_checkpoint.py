@@ -368,7 +368,8 @@ def _capture(monkeypatch, module, name):
     return seen
 
 
-@pytest.mark.parametrize("case", ["logreg", "logreg_multinomial", "kmeans_random", "kmeans_parallel"])
+@pytest.mark.parametrize("case", ["logreg", "logreg_multinomial", "kmeans_random", "kmeans_parallel",
+                                  "kmeans_random_bf16"])
 def test_identity_dicts_match_jax(tmp_path, monkeypatch, case):
     t_seen = _capture(monkeypatch, tckpt, "from_settings")
     j_seen = _capture(monkeypatch, jckpt, "from_env")
@@ -385,7 +386,9 @@ def test_identity_dicts_match_jax(tmp_path, monkeypatch, case):
         JLogReg(num_workers=1, **kw, **p).fit(JDataFrame({"features": X, "label": y}))
     else:
         X = _blobs()
-        p = dict(k=5, initMode="random" if case == "kmeans_random" else "k-means||", seed=9, maxIter=3, tol=1e-3)
+        p = dict(k=5, initMode="k-means||" if case == "kmeans_parallel" else "random", seed=9, maxIter=3, tol=1e-3)
+        if case.endswith("bf16"):
+            p["matmul_dtype"] = "bfloat16"
         TKMeans(device="cpu", **kw, **p).fit(TDataFrame({"features": X}))
         JKMeans(num_workers=1, **kw, **p).fit(JDataFrame({"features": X}))
     assert len(t_seen) == len(j_seen) == 1

@@ -311,13 +311,32 @@ def test_logreg_fit_batched_matches_jax(classes, use_l1, folds, f64):
     assert tout["converged"].tolist() == jout["converged"].tolist()
 
 
-def test_logreg_fit_batched_refuses_bfloat16():
+def test_logreg_fit_batched_fits_bfloat16_and_refuses_unknown_dtype():
+    """The gang refuses an objective dtype it does not know and fits
+    ``objective_dtype="bfloat16"`` (its product on the bf16 copy of X,
+    widened; weights f32), as the JAX package's batched fit does: the
+    same iterations, coefficients within the JAX test's f32 tolerance."""
     X, y = _clf()
+    n = len(y)
     t = torch.from_numpy(X.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tlk.logreg_fit_batched(t, torch.ones(len(y)), torch.from_numpy(y.astype(np.float32)), n_classes=2,
-                               multinomial=False, fit_intercept=True, standardization=True, l1=[0.0], l2=[0.1],
-                               use_l1=False, max_iter=5, tol=[1e-6], objective_dtype="bfloat16")
+    kw = dict(n_classes=2, multinomial=False, fit_intercept=True, standardization=True, use_l1=False,
+              max_iter=20)
+    with pytest.raises(ValueError, match="objective_dtype"):
+        tlk.logreg_fit_batched(t, torch.ones(n), torch.from_numpy(y.astype(np.float32)), l1=[0.0], l2=[0.1],
+                               tol=[1e-6], objective_dtype="bfloat17", **kw)
+    tout = tlk.logreg_fit_batched(t, torch.ones(n), torch.from_numpy(y.astype(np.float32)), l1=[0.0, 0.0],
+                                  l2=[0.1, 0.01], tol=[1e-5, 1e-5], objective_dtype="bfloat16", **kw)
+    with _x64_ctx(np.float32):
+        jout = jlk.logreg_fit_batched(jnp.asarray(X, jnp.float32), jnp.ones((n,), jnp.float32),
+                                      jnp.asarray(y, jnp.float32), l1=jnp.zeros(2, jnp.float32),
+                                      l2=jnp.asarray([0.1, 0.01], jnp.float32), tol=jnp.full(2, 1e-5, jnp.float32),
+                                      objective_dtype="bfloat16", **kw)
+        jout = {k: np.asarray(v) for k, v in jout.items()}
+    assert tout["coef_"].dtype == torch.float32
+    assert np.all(np.abs(tout["n_iter"].numpy() - jout["n_iter"]) <= 1)
+    for b in range(2):
+        np.testing.assert_allclose(tout["coef_"][b].numpy(), jout["coef_"][b], rtol=JAX_RTOL,
+                                   atol=_jax_atol(jout["coef_"][b]))
 
 
 # ---------------------------------------------------------------------------

@@ -397,13 +397,21 @@ def test_streamed_and_resident_fits_start_from_the_same_seeds():
         assert np.array_equal(a.cluster_centers_, b.cluster_centers_)
 
 
-def test_bfloat16_matmul_raises_before_any_pass():
+def test_streamed_bfloat16_matmul_fits_and_typo_raises_before_any_pass():
+    """A matmul dtype the fit does not know raises before any pass; a
+    bf16 streamed fit runs its passes, the Lloyd ones under the bf16
+    contract, and equals the resident bf16 fit."""
     X, _ = _blobs(n=200, seed=18)
+    df = TDataFrame({"features": X})
     st.reset_ingest_report()
-    with pytest.raises(NotImplementedError):
-        TKMeans(k=3, matmul_dtype="bfloat16", streaming=True, stream_chunk_rows=64, device="cpu").fit(
-            TDataFrame({"features": X}))
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        TKMeans(k=3, matmul_dtype="fp8", streaming=True, stream_chunk_rows=64, device="cpu").fit(df)
     assert "passes" not in st.last_ingest_report()
+    kw = dict(k=3, seed=4, maxIter=5, matmul_dtype="bfloat16", device="cpu")
+    streamed = TKMeans(streaming=True, stream_chunk_rows=64, **kw).fit(df)
+    assert streamed._ingest_report["passes"]["cost"] == 1
+    resident = TKMeans(**kw).fit(df)
+    np.testing.assert_allclose(streamed.cluster_centers_, resident.cluster_centers_, rtol=0, atol=1e-5)
 
 
 def test_stream_decision_engages_kmeans(monkeypatch):
